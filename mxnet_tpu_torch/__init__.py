@@ -9,8 +9,10 @@ wrapper dispatches by the tensor's device: a CPU tensor takes the plain
 PyTorch version beside the kernel, a CUDA tensor launches the kernel or
 raises.
 
-This slice serves int8 GPT-2 through ``InferenceEngine`` with kernels K3
+Slice 1 serves int8 GPT-2 through ``InferenceEngine`` with kernels K3
 (int8 GEMV), K5 (one-launch block decode) and K8 (fused LM-head sampler).
+Slice 2 trains GPT-2 through ``parallel.TrainStep`` and ``gluon.Trainer``,
+its attention carried by K1 (flash-attention forward) and K2 (backward).
 """
 from . import base, device
 from .base import MXNetError

@@ -33,6 +33,8 @@ SOURCES = {
     "int8_gemv": "int8_gemv.cu",
     "fused_block_decode": "fused_block_decode.cu",
     "lm_head_sample": "lm_head_sample.cu",
+    "flash_attention_fwd": "flash_attention_fwd.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
 }
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -109,6 +111,12 @@ def _declare(name: str, lib: ctypes.CDLL):
         lib.mx_lm_head_sample.restype = i
         lib.mx_head_tiles.argtypes = [i]
         lib.mx_head_tiles.restype = i
+    elif name == "flash_attention_fwd":
+        lib.mx_flash_fwd.argtypes = [p] * 5 + [i] * 6 + [f, i, p]
+        lib.mx_flash_fwd.restype = i
+    elif name == "flash_attention_bwd":
+        lib.mx_flash_bwd.argtypes = [p] * 9 + [i] * 6 + [f, i, p]
+        lib.mx_flash_bwd.restype = i
 
 
 def library(name: str) -> ctypes.CDLL:

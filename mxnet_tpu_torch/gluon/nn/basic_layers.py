@@ -1,12 +1,15 @@
 """``Dense``, ``LayerNorm``, ``Embedding`` and ``Dropout`` as ``nn.Module``s
 with MXNet's parameter names and layouts (counterpart of
-``mxnet_tpu/gluon/nn/basic_layers.py``): ``Dense.weight`` is (units, in)."""
+``mxnet_tpu/gluon/nn/basic_layers.py``): ``Dense.weight`` is (units, in).
+``Dense`` and ``Embedding`` take the parameter dtype (bf16 models);
+``LayerNorm`` keeps f32 parameters, as in the JAX package."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
 from ... import numpy_extension as npx
+from ...base import MXNetError
 
 __all__ = ["Dense", "LayerNorm", "Embedding", "Dropout"]
 
@@ -45,15 +48,25 @@ class Embedding(nn.Module):
                                                device=device, dtype=dtype))
 
     def forward(self, ids):
-        return self.weight[ids.long()]
+        return torch.nn.functional.embedding(ids.long(), self.weight)
 
 
 class Dropout(nn.Module):
-    """Identity: the port serves only, and dropout is off at inference."""
+    """Dropout at ``rate``. The identity in eval mode (``module.training``
+    false) or at rate 0. The JAX package draws its training-mode masks from
+    the per-site trace key stream (``numpy_extension.dropout``), which is
+    not ported yet, so training mode at a rate above 0 raises instead of
+    drawing other masks (ROADMAP Queue 1: the counter-hash dropout key
+    stream)."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = float(rate)
 
     def forward(self, x):
+        if self.training and self.rate > 0.0:
+            raise MXNetError(
+                f"Dropout({self.rate}) in training mode needs the counter-hash "
+                "dropout key stream, which is not ported yet (ROADMAP Queue 1); "
+                "train at dropout 0 or call .eval()")
         return x

@@ -1,17 +1,18 @@
 """GPT-2-family decoder LM: learned positions, pre-LN, tanh-GeLU MLP,
 causal attention (counterpart of ``mxnet_tpu/models/gpt.py``).
 
-The full-sequence :meth:`GPTModel.forward` uses plain PyTorch causal
-attention (``ops/attention._jnp_reference`` of the JAX package): flash
-attention (K1/K2) comes with the training slice. The serving path is the
-cached one: :meth:`GPTModel.forward_cached` /
+The full-sequence :meth:`GPTModel.forward` runs each block's causal
+attention through ``ops/attention.flash_attention``: K1 forward and K2
+backward at T >= 256 (the training path), the plain path below that.
+``GPTConfig.dtype`` is the dtype of the Dense and Embedding parameters
+(bf16 for the training headline); LayerNorm stays f32, as in JAX. The
+serving path is the cached one: :meth:`GPTModel.forward_cached` /
 :meth:`~GPTModel.forward_cached_hidden`, whose T=1 steps run each block as
 one K5 launch once :meth:`GPTModel.enable_fused_decode` packed it.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 from torch import nn
@@ -19,6 +20,7 @@ from torch import nn
 from .. import numpy_extension as npx
 from ..device import resolve
 from ..gluon.nn import Dense, Dropout, Embedding, LayerNorm
+from ..ops.attention import flash_attention
 
 __all__ = ["GPTConfig", "GPTModel", "GPT2_SMALL", "GPT_TINY"]
 
@@ -32,6 +34,7 @@ class GPTConfig:
     max_position_embeddings: int = 1024
     dropout: float = 0.1
     layer_norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.float32
 
 
 GPT2_SMALL = GPTConfig()
@@ -39,27 +42,17 @@ GPT_TINY = GPTConfig(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
                      max_position_embeddings=128)
 
 
-def _causal_attention(q, k, v):
-    """Plain causal attention over [B, H, T, hd] (the JAX package's
-    ``ops/attention._jnp_reference``)."""
-    T, S = q.shape[2], k.shape[2]
-    s = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) / math.sqrt(q.shape[-1])
-    mask = torch.ones(T, S, dtype=torch.bool, device=q.device).tril(S - T)
-    s = s.masked_fill(~mask, float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhts,bhsd->bhtd", p, v.float()).to(q.dtype)
-
-
 class GPTBlock(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
         d = cfg.hidden_size
         self.ln_1 = LayerNorm(d, epsilon=cfg.layer_norm_eps, device=device)
-        self.attn_qkv = Dense(3 * d, d, device=device)
-        self.attn_out = Dense(d, d, device=device)
+        dt = cfg.dtype
+        self.attn_qkv = Dense(3 * d, d, device=device, dtype=dt)
+        self.attn_out = Dense(d, d, device=device, dtype=dt)
         self.ln_2 = LayerNorm(d, epsilon=cfg.layer_norm_eps, device=device)
-        self.mlp_fc = Dense(4 * d, d, device=device)
-        self.mlp_proj = Dense(d, 4 * d, device=device)
+        self.mlp_fc = Dense(4 * d, d, device=device, dtype=dt)
+        self.mlp_proj = Dense(d, 4 * d, device=device, dtype=dt)
         self.dropout = Dropout(cfg.dropout)
         self.heads = cfg.num_heads
         self._fused_pack = None
@@ -71,9 +64,9 @@ class GPTBlock(nn.Module):
     def forward(self, x):
         B, T, d = x.shape
         q, k, v = torch.split(self.attn_qkv(self.ln_1(x)), d, dim=-1)
-        o = _causal_attention(self._split_heads(q, B, T),
-                              self._split_heads(k, B, T),
-                              self._split_heads(v, B, T))
+        o = flash_attention(self._split_heads(q, B, T),
+                            self._split_heads(k, B, T),
+                            self._split_heads(v, B, T), True, None)
         x = x + self.dropout(self.attn_out(o.transpose(1, 2).reshape(B, T, d)))
         h = npx.gelu(self.mlp_fc(self.ln_2(x)))
         return x + self.dropout(self.mlp_proj(h))
@@ -102,22 +95,26 @@ class GPTBlock(nn.Module):
 class GPTModel(nn.Module):
     """GPT-2 LM with a tied head. Built on ``device`` (default: the CUDA
     card; ``device='cpu'`` for the plain path) with zero weights: call
-    :meth:`init_weights` or load them (``interop.params_from_numpy``)."""
+    :meth:`init_weights` or load them (``interop.params_from_numpy``).
+    Parameters are trainable. The model starts in eval mode, as the JAX
+    package's train mode is off outside ``autograd.record`` and
+    ``TrainStep``; ``TrainStep`` and ``.train()`` switch it on."""
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
         dev = resolve(device)
         self.cfg = cfg
-        self.wte = Embedding(cfg.vocab_size, cfg.hidden_size, device=dev)
+        self.wte = Embedding(cfg.vocab_size, cfg.hidden_size, device=dev,
+                             dtype=cfg.dtype)
         self.wpe = Embedding(cfg.max_position_embeddings, cfg.hidden_size,
-                             device=dev)
+                             device=dev, dtype=cfg.dtype)
         self.drop = Dropout(cfg.dropout)
         self.blocks = nn.ModuleList(GPTBlock(cfg, device=dev)
                                     for _ in range(cfg.num_layers))
         self.ln_f = LayerNorm(cfg.hidden_size, epsilon=cfg.layer_norm_eps,
                               device=dev)
         self._q_lm_head = None
-        self.requires_grad_(False)
+        self.eval()
 
     @property
     def device(self) -> torch.device:
@@ -127,8 +124,9 @@ class GPTModel(nn.Module):
     def init_weights(self, seed: int = 0, std: float = 0.02):
         """Random weights from ``seed``: N(0, std) matrices and embeddings,
         N(0, std) biases, unit LayerNorm gains. Drawn on the CPU through a
-        ``torch.Generator`` and copied over, so a model on the card and one
-        on the CPU built from the same seed hold the same weights."""
+        ``torch.Generator`` and copied over (then cast to the parameter's
+        dtype), so a model on the card and one on the CPU built from the
+        same seed hold the same weights."""
         g = torch.Generator(device="cpu").manual_seed(int(seed))
         for name, p in self.named_parameters():
             if name.endswith("gamma"):
@@ -151,21 +149,25 @@ class GPTModel(nn.Module):
         """[(shape, dtype)] for the flat KV cache: k0, v0, k1, v1, ..."""
         cfg = self.cfg
         shp = (batch, cfg.num_heads, max_len, cfg.hidden_size // cfg.num_heads)
-        return [(shp, torch.float32)] * (2 * cfg.num_layers)
+        return [(shp, cfg.dtype)] * (2 * cfg.num_layers)
 
     def new_caches(self, batch: int, max_len: int):
         """Zeroed KV caches of :meth:`cache_spec` on the model's device."""
         return [torch.zeros(s, dtype=d, device=self.device)
                 for s, d in self.cache_spec(batch, max_len)]
 
+    @torch.no_grad()
     def forward_cached(self, input_ids, pos, *caches):
         hidden, *caches = self.forward_cached_hidden(input_ids, pos, *caches)
         return (self._lm_head(hidden), *caches)
 
+    @torch.no_grad()
     def forward_cached_hidden(self, input_ids, pos, *caches):
         """Incremental forward returning the final hidden state [B, T, D]
         (the fused LM-head sampler folds the head into token selection).
-        ``pos`` is an int (whole batch at one offset) or a [B] tensor."""
+        ``pos`` is an int (whole batch at one offset) or a [B] tensor. The
+        cached path serves only: it writes the KV caches in place and
+        builds no autograd graph."""
         from .llama import _decode_positions
         B, T = input_ids.shape
         if T == 1 and not torch.is_tensor(pos):
@@ -204,7 +206,8 @@ class GPTModel(nn.Module):
     def _lm_head(self, x):
         """Tied LM head. With a quantized table and at most ``gemv_max_m()``
         rows, the int8 table streams through K3 and the logits are sliced
-        back to the vocab; otherwise the f32 embedding table is used."""
+        back to the vocab; otherwise the embedding table is used in the
+        model's dtype."""
         from ..ops.int8_gemv import gemv_max_m, int8_weight_matmul
         q = self._q_lm_head
         lead = x.shape[:-1]

@@ -1,0 +1,283 @@
+"""Flash attention (counterpart of ``mxnet_tpu/ops/attention.py``).
+
+:func:`flash_attention` routes as the JAX package does (``_use_pallas``,
+with "on the TPU" read as "for a kernel-eligible shape"): f32/bf16, head dim
+at most 256, not causal with more queries than keys, and T, S >= 256 go
+through :class:`_FlashAttention`, an ``autograd.Function`` that saves
+``q, k, v, o, lse`` and whose backward is K2. Every other shape takes
+:func:`_fallback`: the plain K1 in f32 for small score matrices, the
+chunked online softmax past that (the JAX package's own non-kernel route,
+differentiated by autograd).
+
+Inside the ``autograd.Function`` each wrapper dispatches by the tensor's
+device: a CPU tensor takes the plain version
+(:func:`_reference_flash_forward` / :func:`_reference_flash_backward`,
+which recompute ``p = exp(s - lse)`` and follow the kernels' arithmetic), a
+CUDA tensor launches the hand-written kernel or raises:
+
+- K1 ``csrc/flash_attention_fwd.cu`` replaces ``_pallas_forward``;
+- K2 ``csrc/flash_attention_bwd.cu`` replaces ``_pallas_backward``.
+
+Layout (B, H, T, D) as in the JAX package; lse is (B, H, T) f32 (the TPU
+kernel returned its padded (B, H, Tp, 1) form).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..base import MXNetError
+from .int8_gemv import record_launch
+
+__all__ = ["flash_attention", "attention"]
+
+# Below this length the JAX package leaves attention to XLA (the kernel is
+# grid-overhead-bound there); the port keeps the same routing.
+_MIN_KERNEL_LEN = 256
+# Above this score-matrix size the plain path gives way to the chunked
+# online softmax (one constant for every routing site, as in JAX).
+_XLA_PATH_MAX_SCORE_ELEMS = 2048 * 128
+_F32_MIN = torch.finfo(torch.float32).min
+
+
+def _pad_head_dim(d: int) -> int:
+    """The head dim the kernels compute in: 64, 128 or 256 (the MXU lane
+    widths of the TPU kernel; on Hopper the tile widths of K1/K2)."""
+    for cand in (64, 128, 256):
+        if d <= cand:
+            return cand
+    raise MXNetError(f"head dim {d} > 256 has no kernel path")
+
+
+def _online_block(q, k, v, m, l, acc, scale, mask=None):
+    """One blockwise online-softmax step; masked entries give p = 0 even
+    when the whole block is masked."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if mask is not None:
+        s = torch.where(mask, s, torch.finfo(s.dtype).min)
+    m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+    corr = torch.exp(m - m_new)
+    p = torch.exp(s - m_new)
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    l_new = l * corr + p.sum(dim=-1, keepdim=True)
+    acc_new = acc * corr + torch.einsum("bhqk,bhkd->bhqd", p, v)
+    return m_new, l_new, acc_new
+
+
+def _chunked_reference(q, k, v, causal: bool, scale: float, block: int = 512):
+    """Online softmax over key chunks of ``block``: O(T * block) live
+    scores, for long shapes that skip the kernel. Rows with no valid key
+    (causal T > S) are 0."""
+    B, H, T, D = q.shape
+    S = k.shape[2]
+    bs = min(block, S)
+    nb = -(-S // bs)
+    dtype = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(dtype)
+    q_pos = torch.arange(T, device=q.device)[:, None]
+    m = torch.full((B, H, T, 1), torch.finfo(dtype).min, dtype=dtype, device=q.device)
+    l = torch.zeros((B, H, T, 1), dtype=dtype, device=q.device)
+    acc = torch.zeros((B, H, T, D), dtype=dtype, device=q.device)
+    for j in range(nb):
+        kb = k[:, :, j * bs:(j + 1) * bs].to(dtype)
+        vb = v[:, :, j * bs:(j + 1) * bs].to(dtype)
+        kv_pos = j * bs + torch.arange(kb.shape[2], device=q.device)[None, :]
+        valid = kv_pos < S
+        if causal:
+            valid = valid & (q_pos + (S - T) >= kv_pos)
+        m, l, acc = _online_block(qf, kb, vb, m, l, acc, scale, valid[None, None])
+    return (acc / l.clamp_min(torch.finfo(dtype).tiny)).to(q.dtype)
+
+
+def _fallback(q, k, v, causal: bool, scale: float):
+    """The non-kernel route: for a small score matrix the plain K1 in f32
+    (the JAX package's ``_jnp_reference``: f32 softmax and products, the
+    result in q's dtype; causal T > S rows with no key are 0), past that
+    the chunked online softmax."""
+    T, S = q.shape[2], k.shape[2]
+    if T * S <= _XLA_PATH_MAX_SCORE_ELEMS:
+        o, _ = _reference_flash_forward(q.float(), k.float(), v.float(), causal, scale)
+        return o.to(q.dtype)
+    return _chunked_reference(q, k, v, causal, scale)
+
+
+def _use_kernel(q, k, causal: bool) -> bool:
+    """Kernel eligibility (the JAX package's ``_use_pallas``): f32/bf16,
+    head dim <= 256, not causal with T > S, T and S >= 256. A CPU tensor of
+    an eligible shape takes the same ``autograd.Function`` with the plain
+    versions in place of the kernels."""
+    D = q.shape[-1]
+    T, S = q.shape[2], k.shape[2]
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        return False
+    if D > 256 or (causal and T > S):
+        return False
+    return T >= _MIN_KERNEL_LEN and S >= _MIN_KERNEL_LEN
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of K1 and K2
+# ---------------------------------------------------------------------------
+def _scores(q, k, causal: bool, scale: float):
+    """(s, valid): f32 scores q k^T * scale with masked entries at
+    finfo(f32).min, and the visibility mask (None when nothing is masked)."""
+    T, S = q.shape[2], k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if not causal:
+        return s, None
+    # end-aligned: query i sees keys j <= i + S - T
+    valid = torch.ones(T, S, dtype=torch.bool, device=q.device).tril(S - T)
+    return s.masked_fill(~valid, _F32_MIN), valid
+
+
+def _reference_flash_forward(q, k, v, causal: bool, scale: float):
+    """Plain version of K1: ``(o, lse)`` with o in q's dtype and lse
+    (B, H, T) f32. p = exp(s - m) is cast to v's dtype before p v, as the
+    kernel casts it before its tile product; masked p is exactly 0."""
+    s, valid = _scores(q, k, causal, scale)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    if valid is not None:
+        p = p.masked_fill(~valid, 0.0)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float()) / l
+    return o.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def _reference_flash_backward(q, k, v, o, lse, do, causal: bool, scale: float):
+    """Plain version of K2: ``(dq, dk, dv)`` in the inputs' dtypes.
+    Recomputes p = exp(s - lse); delta = sum(do * o) in f32; p and
+    ds = p (do v^T - delta) scale are cast to the storage dtype before their
+    products, as in the kernels."""
+    s, valid = _scores(q, k, causal, scale)
+    p = torch.exp(s - lse[..., None])
+    if valid is not None:
+        p = p.masked_fill(~valid, 0.0)
+    dof = do.float()
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(), dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+def _check(name, q, k, v, *more):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise MXNetError(f"{name}: q, k, v must be (B, H, T, D)")
+    B, H, T, D = q.shape
+    S = k.shape[2]
+    if tuple(k.shape) != (B, H, S, D) or tuple(v.shape) != (B, H, S, D):
+        raise MXNetError(f"{name}: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)} disagree")
+    if not all(t.dtype == q.dtype for t in (k, v)):
+        raise MXNetError(f"{name}: q, k, v must share one dtype")
+    if not all(t.device == q.device for t in (k, v, *more)):
+        raise MXNetError(f"{name}: operands on different devices")
+    return B, H, T, S, D
+
+
+def _dense(t):
+    """``t`` contiguous with a 16-byte-aligned start (the bf16 bodies load
+    tile rows in 16-byte chunks)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch_args(q, causal, scale):
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise MXNetError(f"flash attention kernels take f32 or bf16, got {q.dtype}")
+    return (int(bool(causal)), float(scale), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_forward(q, k, v, causal: bool, scale: float):
+    """K1: ``(o, lse)``. A CPU tensor takes :func:`_reference_flash_forward`;
+    a CUDA tensor launches ``csrc/flash_attention_fwd.cu`` or raises."""
+    B, H, T, S, D = _check("flash_forward", q, k, v)
+    record_launch("flash_fwd")
+    if q.device.type == "cpu":
+        return _reference_flash_forward(q, k, v, causal, scale)
+    from .. import _build
+    if causal and T > S:
+        raise MXNetError("flash_forward: causal attention needs T <= S")
+    Dp = _pad_head_dim(D)
+    q, k, v = _dense(q), _dense(k), _dense(v)
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, T, device=q.device, dtype=torch.float32)
+    c, s, bf, stream = _launch_args(q, causal, scale)
+    lib = _build.library("flash_attention_fwd")
+    _build.check(lib.mx_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                  lse.data_ptr(), B * H, T, S, D, Dp, c, s, bf, stream),
+                 "flash_attention_fwd")
+    return o, lse
+
+
+def flash_backward(q, k, v, o, lse, do, causal: bool, scale: float):
+    """K2: ``(dq, dk, dv)``. A CPU tensor takes
+    :func:`_reference_flash_backward`; a CUDA tensor launches
+    ``csrc/flash_attention_bwd.cu`` (its dk/dv kernel, then its dq kernel)
+    or raises."""
+    B, H, T, S, D = _check("flash_backward", q, k, v, o, lse, do)
+    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape) \
+            or tuple(lse.shape) != (B, H, T):
+        raise MXNetError("flash_backward: o and do must be q's shape, lse (B, H, T)")
+    record_launch("flash_bwd")
+    if q.device.type == "cpu":
+        return _reference_flash_backward(q, k, v, o, lse, do, causal, scale)
+    from .. import _build
+    if causal and T > S:
+        raise MXNetError("flash_backward: causal attention needs T <= S")
+    if lse.dtype != torch.float32:
+        raise MXNetError("flash_backward: lse must be f32")
+    Dp = _pad_head_dim(D)
+    q, k, v, o, lse, do = (_dense(t) for t in (q, k, v, o, lse, do.to(q.dtype)))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    c, s, bf, stream = _launch_args(q, causal, scale)
+    lib = _build.library("flash_attention_bwd")
+    _build.check(lib.mx_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                  lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                                  dk.data_ptr(), dv.data_ptr(), B * H, T, S, D, Dp, c, s,
+                                  bf, stream), "flash_attention_bwd")
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The JAX package's ``custom_vjp`` (attention.py:649-684): the forward
+    saves q, k, v, o and lse; the backward is K2."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = flash_forward(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, o, lse, do, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal: bool = False, scale: Optional[float] = None):
+    """Fused scaled-dot-product attention over (B, H, T, D). Kernel-eligible
+    shapes go through K1 (forward) and K2 (backward); the rest through the
+    plain or chunked path. Causal with T != S is end-aligned; causal query
+    rows with no visible key (T > S) are 0."""
+    s = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    if _use_kernel(q, k, causal):
+        return _FlashAttention.apply(q, k, v, causal, s)
+    return _fallback(q, k, v, causal, s)
+
+
+def attention(q, k, v, causal: bool = False, scale: Optional[float] = None):
+    """Frontend entry of the fused attention op (the JAX package's
+    NDArray-level ``attention``); the port's arrays are tensors."""
+    return flash_attention(q, k, v, causal, scale)

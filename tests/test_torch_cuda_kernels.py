@@ -1,4 +1,4 @@
-"""The port's hand-written CUDA kernels (K3, K5, K8) against their plain
+"""The port's hand-written CUDA kernels (K1, K2, K3, K5, K8) against their plain
 PyTorch versions on an NVIDIA GPU. Imports neither jax nor the JAX package,
 so it runs on a machine with the card:
 
@@ -10,9 +10,11 @@ import numpy as onp
 import pytest
 import torch
 
+import chip_smoke
 from mxnet_tpu_torch.contrib.quantization import quantize_net
 from mxnet_tpu_torch.models import GPTConfig, GPTModel
 from mxnet_tpu_torch.models import generation as gen
+from mxnet_tpu_torch.ops import attention as fa
 from mxnet_tpu_torch.ops import fused_block_gemv as fb
 from mxnet_tpu_torch.ops import int8_gemv
 
@@ -121,3 +123,75 @@ def test_generate_on_card_matches_across_heads(net):
 
 def _generate(net, prompt, multi_token):
     return gen.generate(net, prompt, 20, multi_token=multi_token).cpu()
+
+
+# (B, H, T, S, D, causal) of chip_smoke's kernel phase, at a smaller B
+_FLASH_SHAPES = [(2, 3, 1024, 1024, 64, True), (1, 2, 1000, 1000, 64, True),
+                 (1, 2, 256, 512, 64, True), (1, 2, 384, 384, 40, False),
+                 (1, 2, 300, 300, 128, True), (1, 1, 256, 256, 256, False)]
+
+
+def _flash_operands(B, H, T, S, D, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn(B, H, T, D, device="cuda", generator=g).to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, H, S, D, device="cuda", generator=g).to(dtype) for _ in range(2))
+    return q, k, v, do
+
+
+def _within(got, want, dtype):
+    """``chip_smoke``'s rule: max abs error within 1e-4 (f32) or 2e-2
+    (bf16) of max(1, max |want|), and every row within 3e-4 or 1e-2 of its
+    own size (``chip_smoke.flash_errors``)."""
+    return chip_smoke.flash_within(got, want, str(dtype).replace("torch.", ""))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,T,S,D,causal", _FLASH_SHAPES)
+def test_flash_kernels_match_plain(cuda, B, H, T, S, D, causal, dtype):
+    """K1 and K2 against their plain versions by ``chip_smoke``'s rule, the
+    plain version run in f32 on the same inputs. Each output (o, lse, dq,
+    dk, dv) separately."""
+    q, k, v, do = _flash_operands(B, H, T, S, D, dtype)
+    scale = D ** -0.5
+    o, lse = fa.flash_forward(q, k, v, causal, scale)
+    dq, dk, dv = fa.flash_backward(q, k, v, o, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    f = [t.float() for t in (q, k, v, do)]
+    po, plse = fa._reference_flash_forward(f[0], f[1], f[2], causal, scale)
+    # the backward's plain version from the kernel's own o and lse, so the
+    # comparison isolates K2
+    pdq, pdk, pdv = fa._reference_flash_backward(f[0], f[1], f[2], o.float(), lse, f[3],
+                                                 causal, scale)
+    for name, got, want in (("o", o, po), ("lse", lse, plse), ("dq", dq, pdq),
+                            ("dk", dk, pdk), ("dv", dv, pdv)):
+        assert got.dtype == (torch.float32 if name == "lse" else dtype), name
+        assert torch.isfinite(got).all(), name
+        assert _within(got, want, dtype), name
+
+
+def test_flash_backward_repeats_bitwise(cuda):
+    """No atomics: two backward runs give the same bits."""
+    q, k, v, do = _flash_operands(1, 2, 512, 512, 64, torch.bfloat16, seed=3)
+    o, lse = fa.flash_forward(q, k, v, True, 0.125)
+    a = fa.flash_backward(q, k, v, o, lse, do, True, 0.125)
+    b = fa.flash_backward(q, k, v, o, lse, do, True, 0.125)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_attention_autograd_launches_kernels(cuda):
+    """``flash_attention`` on CUDA tensors of an eligible shape runs K1
+    forward and K2 backward once each; its gradients match autograd of the
+    plain attention in f32."""
+    q, k, v, do = _flash_operands(1, 2, 256, 256, 64, torch.float32, seed=4)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    int8_gemv.reset_launches()
+    out = fa.flash_attention(*leaves, causal=True)
+    out.backward(do)
+    counts = int8_gemv.launches()
+    assert counts.get("flash_fwd") == 1 and counts.get("flash_bwd") == 1
+    ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want, _ = fa._reference_flash_forward(*ref, True, 0.125)
+    want.backward(do)
+    assert _within(out.detach(), want.detach(), torch.float32)
+    for a, b in zip(leaves, ref):
+        assert _within(a.grad, b.grad, torch.float32)

@@ -90,9 +90,10 @@ def test_plain_block_decode_matches_jax_reference_and_kernel(
     ker = [onp.asarray(a) for a in jfb._pallas_block_decode(*args,
                                                             interpret=True)]
     tpack = fb.pack_gpt_block(tnet.blocks[0], eps=tnet.cfg.layer_norm_eps)
-    out, tkc, tvc = fb._reference_block_decode(
-        torch.from_numpy(x), torch.from_numpy(pos), torch.from_numpy(kc.copy()),
-        torch.from_numpy(vc.copy()), tpack)
+    with torch.no_grad():       # parameters are trainable; this is inference
+        out, tkc, tvc = fb._reference_block_decode(
+            torch.from_numpy(x), torch.from_numpy(pos), torch.from_numpy(kc.copy()),
+            torch.from_numpy(vc.copy()), tpack)
     written = onp.zeros(kc.shape, bool)
     for b, p in enumerate(pos):
         written[b, :, p] = True

@@ -50,7 +50,8 @@ def nets():
     tnet = GPTModel(GPTConfig(**cfg), device="cpu")
     params_from_numpy(tnet, named)
     jfp = jnet(mnp.array(onp.arange(6, dtype="int32")[None])).asnumpy()
-    tfp = tnet(torch.arange(6, dtype=torch.int32)[None]).numpy()
+    with torch.no_grad():       # parameters are trainable; this is inference
+        tfp = tnet(torch.arange(6, dtype=torch.int32)[None]).numpy()
     jax_quantize_net(jnet, calib_mode="none", fused_decode=True)
     quantize_net(tnet, fused_decode=True)
     return jnet, tnet, (jfp, tfp)

@@ -67,7 +67,8 @@ def test_activation_quantized_rows_match_exactly(rows):
     x = onp.random.RandomState(rows).randn(1, rows, 256).astype("float32")
     for name in ("attn_qkv", "mlp_fc"):
         want = getattr(list(jnet.blocks)[0], name)(mnp.array(x)).asnumpy()
-        got = getattr(tnet.blocks[0], name)(torch.from_numpy(x)).numpy()
+        with torch.no_grad():   # parameters are trainable; this is inference
+            got = getattr(tnet.blocks[0], name)(torch.from_numpy(x)).numpy()
         assert got.shape == want.shape
         assert (got == want).all(), name
 
