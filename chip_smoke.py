@@ -4,17 +4,30 @@
     python3 chip_smoke.py [--seed N]
 
 1. Builds the hand-written CUDA kernels from ``mxnet_tpu_torch/csrc``.
-2. Holds each kernel of the serving path (K3 int8 GEMV, K5 one-launch block
-   decode, K8 fused LM-head sampler) against its plain PyTorch version at
+2. Holds each kernel of the serving paths (K3 int8 GEMV, K5 one-launch block
+   decode, K8 fused LM-head sampler, K6 and K7 one-launch paged block
+   decode, gathered and streamed) against its plain PyTorch version at
    GPT-2-small shapes and times kernel, plain version and a library
-   yardstick with CUDA events (L2 flushed before every timed launch).
-3. Serves 12 concurrent requests with ``InferenceEngine`` over int8 GPT-2
-   small (12 layers, D 768, vocab 50257, random weights from ``--seed``)
-   and checks the tokens against ``generate()`` on the card and against
-   the plain path on the CPU, and that every kernel of the path launched.
-   The 8 greedy requests are then served once more under
-   ``torch.profiler`` to split the window into device time per kernel
-   and idle time.
+   yardstick with CUDA events (L2 flushed before every timed launch). K6
+   and K7 run on scattered block tables of a 600-page pool; K7's copies
+   started and waited are held against the ``record_dma`` ledger, and K5, K6
+   and K7 must give one input the same bits.
+3. Serves 12 concurrent requests with a contiguous ``InferenceEngine``
+   over int8 GPT-2 small (12 layers, D 768, vocab 50257, random weights
+   from ``--seed``) and checks the tokens against ``generate()`` on the
+   card and against the plain path on the CPU, and that every kernel of
+   the path launched. The 8 greedy requests are then served once more
+   under ``torch.profiler`` to split the window into device time per
+   kernel and idle time.
+3b. Serves the same model from the paged KV pool
+   (``InferenceEngine(paged=True)``): phase A, 16 requests sharing a
+   system prompt on a 128-page pool at max_len 256, every decode substep
+   through K6, with prefix hits and copy-on-write forks; phase B, 8
+   requests of 300-700-token prompts at max_len 1024 on a pool small
+   enough to preempt, every decode substep through K7. Greedy tokens are
+   held against the engine's arithmetic on the contiguous layout and
+   against ``generate()``; sampled ones repeat per seed; the page ledger
+   drains to zero.
 4. Holds K1 (flash-attention forward) and K2 (its backward) against their
    plain versions, every output row to its own size, at the training
    shape and at ragged, end-aligned and padded-head-dim shapes, in bf16
@@ -62,6 +75,9 @@ SGD_LR = 0.1
 CARD_CPU_GRAD_TOL = 3e-5
 CARD_CPU_PARAM_TOL = 1e-6
 BF16_GRAD_TOL = 0.1
+# phase B's pool: about half of what its 8 requests need together (about
+# 300 pages), so requests must be preempted
+PAGED_B_PAGES = 160
 
 
 class SmokeFailure(RuntimeError):
@@ -195,6 +211,153 @@ def kernel_k5(torch, timer, gen, pack):
             "shape": {"B": B, "D": D, "H": H, "L": L, "pos": pos.tolist()}}
 
 
+def paged_inputs(torch, gen, D, H, B, ps, maxp, pool, pos):
+    """Seeded paged decode inputs on the card: x, positions, block tables
+    over a ``pool``-page pool + sink with scattered pages (each active row
+    leases the pages that cover its position; rows 0 and 1 share their
+    first two pages, below both positions; the last row is inactive: table
+    all sink, position 0) and N(0, 0.1) pools."""
+    hd = D // H
+    cpu = torch.Generator().manual_seed(int(gen.initial_seed()))
+    perm = torch.randperm(pool, generator=cpu).tolist()
+    table = torch.full((B, maxp), pool, dtype=torch.int32)
+    for b in range(B - 1):
+        need = min(pos[b], ps * maxp - 1) // ps + 1
+        for i in range(need):
+            table[b, i] = table[0, i] if b == 1 and i < 2 else perm.pop()
+    assert pos[B - 1] == 0 and min(pos[0], pos[1]) >= 2 * ps
+    dev = gen.device
+    x = torch.randn(B, 1, D, device=dev, generator=gen)
+    kp = torch.randn(pool + 1, H, ps, hd, device=dev, generator=gen) * 0.1
+    vp = torch.randn(pool + 1, H, ps, hd, device=dev, generator=gen) * 0.1
+    posv = torch.tensor(pos, dtype=torch.int32, device=dev)
+    return x, posv, table.to(dev), kp, vp
+
+
+def paged_written(torch, posv, table, pool, ps):
+    """[pool + 1, ps] bool: the (page, row) each row's new K/V lands in,
+    plus the whole sink page (written by inactive rows, never compared)."""
+    L = table.shape[1] * ps
+    mask = torch.zeros(pool + 1, ps, dtype=torch.bool, device=posv.device)
+    for b, p in enumerate(posv.tolist()):
+        if p < L:
+            mask[table[b, p // ps], p % ps] = True
+    mask[pool] = True
+    return mask
+
+
+def check_paged(torch, fb, name, inputs, pack, streamed, pool, ps):
+    """Run K6 or K7 and its plain version on copies of ``inputs``: every
+    pool entry outside the written rows and the sink page bitwise
+    unchanged in both, written rows and the output within 1e-4 x max(1,
+    |plain|). K7 also counts its copies into device counters, which must
+    equal each other and the ``record_dma`` ledger. Returns the row."""
+    from mxnet_tpu_torch.ops.int8_gemv import dma_ledger, launches, reset_launches
+    x, posv, table, kp, vp = inputs
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    counters = torch.zeros(2, dtype=torch.int32, device=x.device)
+    reset_launches()
+    out, _, _ = fb.fused_block_decode_paged(x, posv, table, k1, v1, pack,
+                                            dma_counters=counters)
+    kind = launches()
+    ledger = dma_ledger()
+    plain, _, _ = fb._reference_block_decode_paged(x, posv, table, k2, v2, pack)
+    sync(torch, x.device)
+    want = "fused_block_paged_dma" if streamed else "fused_block_paged"
+    check(kind == {want: 1}, f"{name}: routed to {kind}, expected {want}")
+    written = paged_written(torch, posv, table, pool, ps)[:, None, :].expand(-1, kp.shape[1], -1)
+    for new, ref, old in ((k1, k2, kp), (v1, v2, vp)):
+        check(torch.equal(new[~written], old[~written])
+              and torch.equal(ref[~written], old[~written]),
+              f"{name} touched pool rows other than the new rows")
+    nonsink = written.clone()
+    nonsink[pool] = False
+    tol = 1e-4 * max(1.0, plain.abs().max().item())
+    err = max((out - plain).abs().max().item(), (k1 - k2)[nonsink].abs().max().item(),
+              (v1 - v2)[nonsink].abs().max().item())
+    check(err <= tol, f"{name}: max abs err {err} > {tol}")
+    row = {"max_abs_err": err, "tol": tol}
+    H, hd = kp.shape[1], kp.shape[3]
+    L = table.shape[1] * ps
+    pages = sum(min(p, L - 1) // ps + 1 for p in posv.tolist())
+    if streamed:
+        # the plain version on the CPU counts no copies of its own
+        got = counters.tolist() if x.is_cuda else [ledger["copies"]] * 2
+        check(got[0] == got[1] == ledger["copies"] == ledger["waits"] == 2 * H * pages
+              and ledger["bytes"] == ledger["copies"] * ps * hd * 4,
+              f"{name}: copies started/waited {got}, ledger {ledger}, "
+              f"expected {2 * H * pages}")
+        row["copies_started_waited"] = got
+        row["dma_ledger"] = ledger
+    else:
+        check(counters.tolist() == [0, 0] and ledger["copies"] == 0,
+              f"{name}: K6 recorded copies {ledger}")
+    return row
+
+
+def paged_bound(x, posv, table, kp, ps):
+    """(bound_ms, bound_by) of one paged block step: int8 weights, scales,
+    LN, x, out, positions and table, the attended K/V rows, the new rows."""
+    B, _, D = x.shape
+    H, hd = kp.shape[1], kp.shape[3]
+    L = table.shape[1] * ps
+    attended = sum(min(p, L - 1) + 1 for p in posv.tolist()) * H
+    nbytes = (12 * D * D + 4 * 2 * 9 * D + 4 * 4 * D + 4 * B * D * 2 + 4 * B
+              + 4 * table.numel() + attended * hd * 4 * 2 + B * H * hd * 4 * 2)
+    return bound(nbytes, 2 * B * 12 * D * D + attended * hd * 4)
+
+
+def kernel_k6_k7(torch, timer, gen, pack, pool=600, ps=16):
+    """K6 at B 16, L 256 and K7 at B 8, L 1024, each against its plain
+    version; K7 at L 256 against K6 (and K6 against K5 on the gathered
+    contiguous view): same bits."""
+    from mxnet_tpu_torch.ops import fused_block_gemv as fb
+    D, H = pack["qkv"][0].shape[1], pack["heads"]
+    rng = __import__("numpy").random.RandomState(int(gen.initial_seed()) + 6)
+    pos6 = [200, 255, 33] + rng.randint(0, 256, 12).tolist() + [0]
+    pos7 = [1023, 517, 64, 999, 250, 777, 3, 0]
+    out = {}
+    for name, B, maxp, pos, streamed in (("K6", 16, 16, pos6, False),
+                                         ("K7", 8, 64, pos7, True)):
+        inputs = paged_inputs(torch, gen, D, H, B, ps, maxp, pool, pos)
+        row = check_paged(torch, fb, name, inputs, pack, streamed, pool, ps)
+        x, posv, table, kp, vp = inputs
+        row["bound_ms"], row["bound_by"] = paged_bound(x, posv, table, kp, ps)
+        row["ms"] = timer(lambda: fb.fused_block_decode_paged(x, posv, table, kp, vp, pack))
+        k2, v2 = kp.clone(), vp.clone()
+        row["plain_ms"] = timer(lambda: fb._reference_block_decode_paged(x, posv, table, k2,
+                                                                         v2, pack))
+        row["library_ms"] = None
+        row["shape"] = {"B": B, "D": D, "H": H, "ps": ps, "L": maxp * ps,
+                        "pool_pages": pool, "pos": pos}
+        out[name] = row
+    out["K7_vs_K6_L256"] = same_bits_k5_k6_k7(torch, fb, gen, pack, pool, ps, pos6)
+    return out
+
+
+def same_bits_k5_k6_k7(torch, fb, gen, pack, pool, ps, pos, maxp=16):
+    """K6 and K7 on one input at L 256 give the same output and pools bit
+    for bit, and K5 on the gathered contiguous view gives K6's output."""
+    D, H = pack["qkv"][0].shape[1], pack["heads"]
+    x, posv, table, kp, vp = paged_inputs(torch, gen, D, H, len(pos), ps, maxp, pool, pos)
+    B = len(pos)
+    view = [p[table.long()].transpose(1, 2).reshape(B, H, maxp * ps, -1).contiguous()
+            for p in (kp, vp)]
+    k6, v6, k7, v7 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    # the kernels called directly: at L 256 both gates accept, routing takes K6
+    o6, _, _ = fb._cuda_block_decode_paged(x, posv, table, k6, v6, pack, False, None)
+    o7, _, _ = fb._cuda_block_decode_paged(x, posv, table, k7, v7, pack, True, None)
+    o5, _, _ = fb.fused_block_decode(x, posv, view[0], view[1], pack)
+    torch.cuda.synchronize()
+    row = {"k7_equal_k6": bool(torch.equal(o6, o7) and torch.equal(k6, k7)
+                               and torch.equal(v6, v7)),
+           "k6_equal_k5": bool(torch.equal(o5, o6)),
+           "max_abs_k7_k6": (o7 - o6).abs().max().item(),
+           "max_abs_k6_k5": (o6 - o5).abs().max().item()}
+    check(row["k7_equal_k6"] and row["k6_equal_k5"], f"K5/K6/K7 bits differ: {row}")
+    return row
+
+
 def kernel_k8(torch, timer, gen, head):
     """K8 at B=8 over the padded GPT-2 table, 4 greedy and 4 T=0.8 rows."""
     import numpy as np
@@ -271,7 +434,8 @@ def device_share(torch, eng, prompts, new):
             end = b
     by_kernel = {}
     for a, b, name in spans:
-        key = next((k for k in ("fused_block_decode", "head_tiles", "head_reduce",
+        key = next((k for k in ("fused_block_decode_paged_dma", "fused_block_decode_paged",
+                                "fused_block_decode", "head_tiles", "head_reduce",
                                 "int8_gemv") if k in name), "other")
         by_kernel[key] = by_kernel.get(key, 0.0) + (b - a) / 1e3
     substeps = after["decode_substeps"] - before["decode_substeps"]
@@ -296,7 +460,7 @@ def serve(torch, args, net, cpu_net):
     temps = [0.0] * 8 + [0.8] * 4
     new = 64
     eng = InferenceEngine(net, max_batch_size=8, max_len=512, multi_token=4,
-                          fused=True).start()
+                          fused=True, paged=False).start()
     try:
         warm = eng.generate(prompts[0][:8], 8, timeout=600)
         check(warm.ok, f"warm-up request failed: {warm.error}")
@@ -368,6 +532,203 @@ def serve(torch, args, net, cpu_net):
                      "greedy_equal_generate_mt4_and_mt1": gen_match}})
     # the 8 greedy requests again, traced: device time against host wall
     emit({"profiled_window": profiled if profiled is not None else "not measured"})
+    return counts
+
+
+def prefill_chunks(torch, net, ids, chunk, caches):
+    """Prefill ``ids`` into contiguous ``caches`` in ``chunk``-token chunks
+    as the paged engine does (the final chunk zero-padded to the engine's
+    prompt bucket); returns (hidden of the final chunk, row of the last
+    token)."""
+    import numpy as np
+
+    from mxnet_tpu_torch.models import generation as gen
+    from mxnet_tpu_torch.serve.bucketing import bucket_for
+    cursor, P = 0, len(ids)
+    while True:
+        end = min(cursor + chunk, P)
+        n = end - cursor
+        pb = n if end < P else bucket_for(n, 8, chunk)
+        x = np.zeros((1, pb), np.int32)
+        x[0, :n] = ids[cursor:end]
+        hidden, caches = gen.decode_step_hidden(net, torch.from_numpy(x).to(net.device),
+                                                cursor, caches)
+        if end == P:
+            return hidden, n - 1
+        cursor = end
+
+
+def chunked_reference(torch, net, prompt, new, chunk, max_len, K=4):
+    """Greedy tokens of the paged engine's arithmetic on the contiguous
+    layout: ``prompt`` prefilled in ``chunk``-token chunks (K3), token 0
+    from the fused head (K8), then K-token decode dispatches (K5, which
+    gives a row K6's and K7's bits)."""
+    from mxnet_tpu_torch.models import generation as gen
+    from mxnet_tpu_torch.ops.fused_block_gemv import fused_lm_head_sample
+    dev = net.device
+    caches = net.new_caches(1, max_len)
+    head = net.head_weights()
+    with torch.no_grad():
+        hidden, last = prefill_chunks(torch, net, prompt, chunk, caches)
+        tok = fused_lm_head_sample(hidden[:, last], *head,
+                                   torch.zeros(1, dtype=torch.int64, device=dev),
+                                   torch.zeros(1, device=dev))
+        out = [int(tok[0])]
+        while len(out) < new:
+            toks, tok, steps, _, caches = gen.decode_multi_tokens(
+                net, tok, len(prompt) + len(out) - 1, caches, K, [0.0], [0], [len(out)],
+                remaining=[new - len(out)], head=head)
+            out += toks[0, :steps].tolist()
+    return out[:new]
+
+
+def chunked_gap(torch, net, tokens, chunk, max_len):
+    """Top-1 minus top-2 logit after ``tokens``, prefilled in chunks as the
+    paged engine prefills them (K3 head at the last row)."""
+    with torch.no_grad():
+        hidden, last = prefill_chunks(torch, net, tokens, chunk, net.new_caches(1, max_len))
+        top = torch.topk(net._lm_head(hidden)[0, last].float(), 2).values
+    return (top[0] - top[1]).item()
+
+
+def greedy_rows(torch, net, prompts, results, new, chunk, max_len):
+    """Each greedy request against the engine's arithmetic on the
+    contiguous layout (``chunked_reference``) and against
+    ``generate(multi_token=4)``: equal, or a first divergence at a top-2
+    gap below 1e-3. ``generate()`` prefills a prompt in one forward, which
+    past ``gemv_max_m()`` (64) rows takes the activation-quantized int8
+    product instead of K3, so it is held to that rule only for prompts of
+    at most 64 tokens and reported for the others."""
+    from mxnet_tpu_torch.models import generate
+    from mxnet_tpu_torch.ops.int8_gemv import gemv_max_m
+    rows = []
+    for i, (prompt, got) in enumerate(zip(prompts, results)):
+        row = {"request": i, "prompt": len(prompt)}
+        for name, ref in (
+                ("chunked_reference", chunked_reference(torch, net, prompt, new, chunk,
+                                                        max_len)),
+                ("generate_mt4", generate(net, torch.tensor([prompt], dtype=torch.int32),
+                                          new, multi_token=4)[0, len(prompt):].tolist())):
+            d = first_divergence(ref, got)
+            row[name] = {"equal": d is None, "first_divergence": d}
+            held = name == "chunked_reference" or len(prompt) <= gemv_max_m()
+            if d is not None:
+                gap = chunked_gap(torch, net, prompt + ref[:d], chunk, max_len)
+                row[name]["top2_gap"] = gap
+                check(not held or gap < 1e-3,
+                      f"request {i}: engine tokens != {name} at {d}, top-2 gap {gap}")
+            row[name]["held"] = held
+        rows.append(row)
+    return rows
+
+
+def serve_paged(torch, args, net, phase):
+    """A paged serving phase of int8 GPT-2 small through
+    ``InferenceEngine(paged=True, fused=True, multi_token=4)``.
+
+    A (K6): 16 slots, max_len 256, a 128-page pool (the contiguous bytes of
+    8 slots); 16 requests sharing a 40-token system prompt plus 8-40 own
+    tokens, 64 new tokens each, 12 greedy and 4 at T 0.8; the first served
+    alone publishes the prefix, the other 15 are submitted together.
+    B (K7): 8 slots, max_len 1024, no prefix cache; 8 greedy requests of
+    300-700-token prompts prefilled in 16-token chunks, 128 new tokens
+    each, submitted together, on a pool of PAGED_B_PAGES, about half of
+    what they need together, so requests are preempted and resumed.
+    Returns the launch counts of the concurrent window."""
+    import numpy as np
+
+    from mxnet_tpu_torch.ops.int8_gemv import dma_ledger, launches, reset_launches
+    from mxnet_tpu_torch.serve import InferenceEngine
+    from mxnet_tpu_torch.serve.paging import pages_for
+    rng = np.random.RandomState(args.seed + (1 if phase == "A" else 2))
+    vocab = net.cfg.vocab_size
+    if phase == "A":
+        system = rng.randint(0, vocab, 40).tolist()
+        prompts = [system + rng.randint(0, vocab, int(n)).tolist()
+                   for n in rng.randint(8, 41, 16)]
+        temps = [0.0] * 12 + [0.8] * 4
+        new, kernel, other = 64, "fused_block_paged", "fused_block_paged_dma"
+        kw = dict(max_batch_size=16, max_len=256, num_pages=128)
+    else:
+        prompts = [rng.randint(0, vocab, int(n)).tolist()
+                   for n in rng.randint(300, 701, 8)]
+        temps = [0.0] * 8
+        new, kernel, other = 128, "fused_block_paged_dma", "fused_block_paged"
+        kw = dict(max_batch_size=8, max_len=1024, num_pages=PAGED_B_PAGES,
+                  prefix_cache=False)
+    eng = InferenceEngine(net, multi_token=4, fused=True, paged=True, page_size=16,
+                          **kw).start()
+    try:
+        first = []
+        if phase == "A":
+            r0 = eng.generate(prompts[0], new, timeout=600)
+            check(r0.ok, f"phase A request 0: {r0.status} {r0.error}")
+            first = [r0]
+        before = eng.stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        handles = [eng.submit(p, new, temperature=t, seed=2000 + i)
+                   for i, (p, t) in enumerate(zip(prompts, temps)) if i >= len(first)]
+        results = first + [h.result(timeout=900) for h in handles]
+        wall = time.perf_counter() - t0
+        counts, ledger = launches(), dma_ledger()
+        after = eng.stats()
+        sampled = [i for i, t in enumerate(temps) if t > 0]
+        again = [eng.submit(prompts[i], new, temperature=0.8, seed=2000 + i) for i in sampled]
+        again = [h.result(timeout=600) for h in again]
+        greedy = [i for i, t in enumerate(temps) if t == 0]
+        profiled = (device_share(torch, eng, [prompts[i] for i in greedy], new)
+                    if net.device.type == "cuda" else None)
+    finally:
+        eng.shutdown(drain=True, timeout=900)
+    for i, r in enumerate(results):
+        check(r.ok and len(r.generated_ids) == new,
+              f"phase {phase} request {i}: {r.status} {len(r.generated_ids)} tokens {r.error}")
+    substeps = after["decode_substeps"] - before["decode_substeps"]
+    check(counts.get(kernel, 0) == LAYERS * substeps,
+          f"phase {phase}: {kernel} launches {counts.get(kernel)} != 12 x {substeps}")
+    check(not counts.get(other) and not counts.get("fused_block"),
+          f"phase {phase}: other block kernels launched: {counts}")
+    check(ledger["copies"] == ledger["waits"], f"phase {phase}: DMA ledger {ledger}")
+    pages = after["pages"]
+    if phase == "A":
+        check(after["max_active"] > 8, f"phase A: max_active {after['max_active']} <= 8")
+        check(pages["prefix_hits"] >= 15 and pages["cow_forks"] > 0,
+              f"phase A: prefix hits {pages['prefix_hits']}, forks {pages['cow_forks']}")
+    else:
+        check(after["preemptions"] > 0, "phase B: no preemption")
+    for i, r in zip(sampled, again):
+        toks = results[i].generated_ids
+        check(all(0 <= t < vocab for t in toks), f"phase {phase} request {i}: token outside vocab")
+        check(r.generated_ids == toks, f"phase {phase} request {i}: same seed, another sample")
+    eng._pages.clear_prefix_cache()
+    eng._pages.check_consistent()
+    check(eng._pages.pages_in_use() == 0,
+          f"phase {phase}: {eng._pages.pages_in_use()} pages held after the drain")
+    t_ref = time.perf_counter()
+    rows = greedy_rows(torch, net, [prompts[i] for i in greedy],
+                       [results[i].generated_ids for i in greedy], new, 16, kw["max_len"])
+    tokens = sum(len(r.generated_ids) for r in results[len(first):])
+    dsec = after["decode_s"] - before["decode_s"]
+    emit({f"paged_{phase}": {
+        "kernel": kernel, "requests": len(prompts), "new_tokens_each": new,
+        "prompt_tokens": [len(p) for p in prompts], **kw,
+        "pages_needed": sum(pages_for(len(p) + new + 3, 16) for p in prompts),
+        "concurrent_requests": len(handles), "wall_s": wall, "tokens_per_s": tokens / wall,
+        "decode_substeps": substeps,
+        "decode_dispatches": after["decode_dispatches"] - before["decode_dispatches"],
+        "ms_per_decode_step": dsec / substeps * 1e3,
+        "prefills": after["prefills"] - before["prefills"],
+        "prefill_chunks": after["prefill_chunks"] - before["prefill_chunks"],
+        "prefill_s": after["prefill_s"] - before["prefill_s"],
+        "max_active": after["max_active"], "preemptions": after["preemptions"],
+        "resumed_tokens": after["resumed_tokens"],
+        "pages": pages, "kv_bytes": after["kv_bytes"], "launches": counts,
+        "dma_ledger": ledger, "greedy": rows, "reference_s": time.perf_counter() - t_ref,
+        "greedy_identical_chunked_reference": all(r["chunked_reference"]["equal"]
+                                                  for r in rows),
+        "greedy_identical_generate_mt4": all(r["generate_mt4"]["equal"] for r in rows),
+        "profiled_window": profiled if profiled is not None else "not measured"}})
     return counts
 
 
@@ -795,10 +1156,14 @@ def main(argv=None):
         k5 = kernel_k5(torch, timer, gen,
                        pack_gpt_block(net.blocks[0], eps=net.cfg.layer_norm_eps))
         k8 = kernel_k8(torch, timer, gen, net.head_weights())
-    emit({"k5": k5, "k8": k8})
+        k67 = kernel_k6_k7(torch, timer, gen,
+                           pack_gpt_block(net.blocks[0], eps=net.cfg.layer_norm_eps))
+    emit({"k5": k5, "k8": k8, "k6_k7": k67})
 
     serve_counts = serve(torch, args, net, cpu_net)
-    del net, cpu_net
+    del cpu_net
+    paged_counts = {phase: serve_paged(torch, args, net, phase) for phase in "AB"}
+    del net
     torch.cuda.empty_cache()
 
     k1, k2 = kernel_flash(torch, timer, gen)
@@ -813,6 +1178,13 @@ def main(argv=None):
              "mxnet_tpu/ops/int8_gemv.py:113", "gemv", serve_counts, k3),
             ("fused_block_decode", "mxnet_tpu_torch/csrc/fused_block_decode.cu",
              "mxnet_tpu/ops/fused_block_gemv.py:424", "fused_block", serve_counts, k5),
+            ("fused_block_decode_paged", "mxnet_tpu_torch/csrc/fused_block_decode_paged.cu",
+             "mxnet_tpu/ops/fused_block_gemv.py:601", "fused_block_paged",
+             paged_counts["A"], k67["K6"]),
+            ("fused_block_decode_paged_dma",
+             "mxnet_tpu_torch/csrc/fused_block_decode_paged_dma.cu",
+             "mxnet_tpu/ops/fused_block_gemv.py:810", "fused_block_paged_dma",
+             paged_counts["B"], k67["K7"]),
             ("lm_head_sample", "mxnet_tpu_torch/csrc/lm_head_sample.cu",
              "mxnet_tpu/ops/fused_block_gemv.py:1218", "fused_head", serve_counts, k8),
             ("flash_attention_fwd", "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",

@@ -13,6 +13,9 @@ Slice 1 serves int8 GPT-2 through ``InferenceEngine`` with kernels K3
 (int8 GEMV), K5 (one-launch block decode) and K8 (fused LM-head sampler).
 Slice 2 trains GPT-2 through ``parallel.TrainStep`` and ``gluon.Trainer``,
 its attention carried by K1 (flash-attention forward) and K2 (backward).
+Slice 3 serves GPT-2 from the paged KV pool (``serve.paging``,
+``InferenceEngine(paged=True)``) with K6 (paged block decode, pages
+gathered into shared memory) and K7 (pages streamed by TMA bulk copies).
 """
 from . import base, device
 from .base import MXNetError

@@ -32,6 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = {
     "int8_gemv": "int8_gemv.cu",
     "fused_block_decode": "fused_block_decode.cu",
+    "fused_block_decode_paged": "fused_block_decode_paged.cu",
+    "fused_block_decode_paged_dma": "fused_block_decode_paged_dma.cu",
     "lm_head_sample": "lm_head_sample.cu",
     "flash_attention_fwd": "flash_attention_fwd.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
@@ -106,6 +108,18 @@ def _declare(name: str, lib: ctypes.CDLL):
         lib.mx_fused_block_decode.restype = i
         lib.mx_fused_block_smem.argtypes = [i, i, i]
         lib.mx_fused_block_smem.restype = ctypes.c_longlong
+    elif name == "fused_block_decode_paged":
+        lib.mx_fused_block_decode_paged.argtypes = [p] * 23 + [i] * 6 + [f, p]
+        lib.mx_fused_block_decode_paged.restype = i
+        lib.mx_paged_smem.argtypes = [i] * 4
+        lib.mx_paged_smem.restype = ctypes.c_longlong
+    elif name == "fused_block_decode_paged_dma":
+        lib.mx_fused_block_decode_paged_dma.argtypes = [p] * 24 + [i] * 7 + [f, p]
+        lib.mx_fused_block_decode_paged_dma.restype = i
+        lib.mx_paged_dma_smem.argtypes = [i] * 5
+        lib.mx_paged_dma_smem.restype = ctypes.c_longlong
+        lib.mx_paged_dma_tile_pages.argtypes = [i] * 5
+        lib.mx_paged_dma_tile_pages.restype = i
     elif name == "lm_head_sample":
         lib.mx_lm_head_sample.argtypes = [p] * 8 + [i, i, i, i, p]
         lib.mx_lm_head_sample.restype = i

@@ -1,0 +1,353 @@
+// Shared pieces of the three one-launch block decode kernels: K5
+// (fused_block_decode.cu, contiguous cache), K6 (fused_block_decode_paged.cu,
+// page pools gathered into shared memory) and K7
+// (fused_block_decode_paged_dma.cu, page pools streamed through a ring).
+//
+// One GPT block's T = 1 decode step is five phases separated by
+// cooperative_groups grid barriers:
+//   1. LN1 -> qkv GEMV        (block_phase_qkv; the epilogue is the kernel's)
+//   2. attention -> ctx       (the kernel's own)
+//   3. out GEMV + residual -> res
+//   4. LN2 -> fc GEMV + tanh-GeLU -> fc
+//   5. proj GEMV + residual -> out   (3 to 5: block_phases_out_mlp)
+// Every weight matrix is streamed once, by warps spread over all resident
+// CTAs, with the fixed-order dot of gemv_common.cuh. LayerNorm is
+// recomputed per CTA from the B x D rows instead of paying a grid barrier.
+// The attention helpers (cta_max, cta_sum and the order of every sum) are
+// shared too, so the three kernels give a row the same bits for the same
+// logical cache.
+#pragma once
+
+#include <cmath>
+
+#include <cooperative_groups.h>
+
+#include "gemv_common.cuh"
+
+namespace mx {
+
+static_assert(kWarps == kRowTile, "LayerNorm staging gives one warp per row");
+
+// The weights, activations and scratch of one block step.
+struct BlockArgs {
+  const float* x;  // [B, D]
+  const int8_t* w_qkv;
+  const float* s_qkv;
+  const float* b_qkv;  // [3D, D]
+  const int8_t* w_out;
+  const float* s_out;
+  const float* b_out;  // [D, D]
+  const int8_t* w_fc;
+  const float* s_fc;
+  const float* b_fc;  // [4D, D]
+  const int8_t* w_proj;
+  const float* s_proj;
+  const float* b_proj;  // [D, 4D]
+  const float* g1;
+  const float* be1;
+  const float* g2;
+  const float* be2;
+  float* qkv;  // scratch [B, 3D]
+  float* ctx;  // scratch [B, D]
+  float* res;  // scratch [B, D]
+  float* fc;   // scratch [B, 4D]
+  float* out;  // [B, D]
+  int B, D, H;
+  float eps;
+};
+
+// Fill a from the C entry point's arguments; scratch is 9 * B * D f32
+// (qkv 3D, ctx D, res D, fc 4D per row).
+inline void set_block_args(BlockArgs& a, const void* x, const void* w_qkv, const void* s_qkv,
+                           const void* b_qkv, const void* w_out, const void* s_out,
+                           const void* b_out, const void* w_fc, const void* s_fc,
+                           const void* b_fc, const void* w_proj, const void* s_proj,
+                           const void* b_proj, const void* g1, const void* be1, const void* g2,
+                           const void* be2, void* scratch, void* out, int B, int D, int H,
+                           float eps) {
+  a.x = static_cast<const float*>(x);
+  a.w_qkv = static_cast<const int8_t*>(w_qkv);
+  a.s_qkv = static_cast<const float*>(s_qkv);
+  a.b_qkv = static_cast<const float*>(b_qkv);
+  a.w_out = static_cast<const int8_t*>(w_out);
+  a.s_out = static_cast<const float*>(s_out);
+  a.b_out = static_cast<const float*>(b_out);
+  a.w_fc = static_cast<const int8_t*>(w_fc);
+  a.s_fc = static_cast<const float*>(s_fc);
+  a.b_fc = static_cast<const float*>(b_fc);
+  a.w_proj = static_cast<const int8_t*>(w_proj);
+  a.s_proj = static_cast<const float*>(s_proj);
+  a.b_proj = static_cast<const float*>(b_proj);
+  a.g1 = static_cast<const float*>(g1);
+  a.be1 = static_cast<const float*>(be1);
+  a.g2 = static_cast<const float*>(g2);
+  a.be2 = static_cast<const float*>(be2);
+  float* sp = static_cast<float*>(scratch);
+  a.qkv = sp;
+  a.ctx = a.qkv + static_cast<size_t>(B) * 3 * D;
+  a.res = a.ctx + static_cast<size_t>(B) * D;
+  a.fc = a.res + static_cast<size_t>(B) * D;
+  a.out = static_cast<float*>(out);
+  a.B = B;
+  a.D = D;
+  a.H = H;
+  a.eps = eps;
+}
+
+// Shared memory of the staged activation tile: kRowTile rows of the
+// 4D-wide fc activations (the widest GEMV input), in floats.
+__host__ __device__ inline long long block_tile_floats(int D) { return static_cast<long long>(kRowTile) * 4 * D; }
+
+// Enough CTAs for the widest phase (4D fc channels, one warp each) or one
+// per (row, head), never more than fit on the card at once (a cooperative
+// launch refuses more).
+inline int block_grid(int B, int D, int H, int resident) {
+  int want = (4 * D + kWarps - 1) / kWarps;
+  if (B * H > want) want = B * H;
+  return want < resident ? want : resident;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// Fixed-order CTA reductions; every thread returns the same value.
+__device__ __forceinline__ float cta_sum(float v, float* red) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float r = red[0];
+  for (int q = 1; q < kWarps; ++q) r += red[q];
+  __syncthreads();
+  return r;
+}
+
+__device__ __forceinline__ float cta_max(float v, float* red) {
+  v = warp_max(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float r = red[0];
+  for (int q = 1; q < kWarps; ++q) r = fmaxf(r, red[q]);
+  __syncthreads();
+  return r;
+}
+
+// LayerNorm of rows [r0, r0 + nr) of src[., D] into xs[nr][D] (swizzle4
+// layout); warp w normalises row r0 + w (mean, E[x^2] - mean^2 clamped
+// at 0, rsqrt).
+__device__ __forceinline__ void stage_ln(float* xs, const float* src, int r0, int nr, int D,
+                                         const float* g, const float* be, float eps) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp < nr) {
+    const float* row = src + static_cast<size_t>(r0 + warp) * D;
+    float s = 0.f, ss = 0.f;
+    for (int d = lane; d < D; d += 32) {
+      const float v = row[d];
+      s += v;
+      ss = fmaf(v, v, ss);
+    }
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    const float mean = s / D;
+    const float var = fmaxf(ss / D - mean * mean, 0.f);
+    const float inv = rsqrtf(var + eps);
+    for (int d = lane; d < D; d += 32) {
+      xs[warp * D + 4 * swizzle4(d >> 2, D) + (d & 3)] = (row[d] - mean) * inv * g[d] + be[d];
+    }
+  }
+}
+
+__device__ __forceinline__ float gelu_tanh(float v) {
+  const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+  return v * (0.5f * (1.f + tanhf(c * (v + 0.044715f * (v * v * v)))));
+}
+
+// GEMV epilogues: called once per (row, channel) with
+// y = x_row . w[n] * s[n] + bias[n].
+struct StoreEpi {
+  float* dst;
+  int N;
+  __device__ void operator()(int r, int n, float y) const {
+    dst[static_cast<size_t>(r) * N + n] = y;
+  }
+};
+
+struct ResidualEpi {
+  const float* resid;
+  float* dst;
+  int N;
+  __device__ void operator()(int r, int n, float y) const {
+    const size_t o = static_cast<size_t>(r) * N + n;
+    dst[o] = resid[o] + y;
+  }
+};
+
+struct GeluEpi {
+  float* dst;
+  int N;
+  __device__ void operator()(int r, int n, float y) const {
+    dst[static_cast<size_t>(r) * N + n] = gelu_tanh(y);
+  }
+};
+
+// epi(r0 + r, n, xs[r] . w[n] * s[n] + bias[n]) for the staged rows, n
+// over all warps of the grid.
+template <class Epi>
+__device__ void gemv_rows(const float* xs, int r0, int nr, const int8_t* w, const float* s,
+                          const float* bias, int N, int K, const Epi& epi) {
+  const int lane = threadIdx.x & 31;
+  const int gw = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  for (int n = gw; n < N; n += gridDim.x * kWarps) {
+    float acc[kRowTile];
+    warp_dot_rows(xs, nr, w + static_cast<size_t>(n) * K, K, acc);
+    const float sc = __ldg(s + n);
+    const float bn = __ldg(bias + n);
+#pragma unroll
+    for (int r = 0; r < kRowTile; ++r) {
+      if (lane == r && r < nr) epi(r0 + r, n, acc[r] * sc + bn);
+    }
+  }
+}
+
+// Phase 1: LN1 -> qkv GEMV; epi receives every qkv channel.
+template <class Epi>
+__device__ void block_phase_qkv(const BlockArgs& a, float* smem, const Epi& epi) {
+  for (int r0 = 0; r0 < a.B; r0 += kRowTile) {
+    const int nr = min(kRowTile, a.B - r0);
+    stage_ln(smem, a.x, r0, nr, a.D, a.g1, a.be1, a.eps);
+    __syncthreads();
+    gemv_rows(smem, r0, nr, a.w_qkv, a.s_qkv, a.b_qkv, 3 * a.D, a.D, epi);
+    __syncthreads();
+  }
+}
+
+// Phases 3 to 5, after the attention phase and its grid barrier.
+__device__ void block_phases_out_mlp(const BlockArgs& a, float* smem,
+                                     cooperative_groups::grid_group& grid) {
+  const int D = a.D;
+  // phase 3: out GEMV + residual -> res
+  for (int r0 = 0; r0 < a.B; r0 += kRowTile) {
+    const int nr = min(kRowTile, a.B - r0);
+    stage_rows(smem, a.ctx, r0, nr, D);
+    __syncthreads();
+    gemv_rows(smem, r0, nr, a.w_out, a.s_out, a.b_out, D, D, ResidualEpi{a.x, a.res, D});
+    __syncthreads();
+  }
+  grid.sync();
+  // phase 4: LN2 -> fc GEMV + GeLU -> fc
+  for (int r0 = 0; r0 < a.B; r0 += kRowTile) {
+    const int nr = min(kRowTile, a.B - r0);
+    stage_ln(smem, a.res, r0, nr, D, a.g2, a.be2, a.eps);
+    __syncthreads();
+    gemv_rows(smem, r0, nr, a.w_fc, a.s_fc, a.b_fc, 4 * D, D, GeluEpi{a.fc, 4 * D});
+    __syncthreads();
+  }
+  grid.sync();
+  // phase 5: proj GEMV (K = 4D) + residual -> out
+  for (int r0 = 0; r0 < a.B; r0 += kRowTile) {
+    const int nr = min(kRowTile, a.B - r0);
+    stage_rows(smem, a.fc, r0, nr, 4 * D);
+    __syncthreads();
+    gemv_rows(smem, r0, nr, a.w_proj, a.s_proj, a.b_proj, D, 4 * D,
+              ResidualEpi{a.res, a.out, D});
+    __syncthreads();
+  }
+}
+
+// The softmax of one (row, head) over the scores sc[0 .. p] in place (K5's
+// order: per-thread max and sum over j = tid, tid + kThreads, ..., then the
+// fixed-order CTA reductions); returns the sum. On return sc[j] holds
+// exp(score - max) and every thread sees it.
+__device__ __forceinline__ float softmax_scores(float* sc, int p, float* red) {
+  const int tid = threadIdx.x;
+  float m = -INFINITY;
+  for (int j = tid; j <= p; j += kThreads) m = fmaxf(m, sc[j]);
+  m = cta_max(m, red);
+  float sum = 0.f;
+  for (int j = tid; j <= p; j += kThreads) {
+    const float e = expf(sc[j] - m);
+    sc[j] = e;
+    sum += e;
+  }
+  return cta_sum(sum, red);  // its barriers also publish sc[]
+}
+
+// Sum the P.V group partials (group g's float4 of head element t lands at
+// red[g * hd + t]) in group order into ctx[b, h*hd ..]; ends with a
+// barrier, so red and the caller's buffers may be reused.
+__device__ __forceinline__ void store_head_context(float4 part, float* red, int groups, int hd,
+                                                   float* ctx_row) {
+  const int tid = threadIdx.x;
+  reinterpret_cast<float4*>(red)[tid] = part;
+  __syncthreads();
+  if (tid < hd) {
+    float c = red[tid];
+    for (int q = 1; q < groups; ++q) c += red[q * hd + tid];
+    ctx_row[tid] = c;
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ float dot_row(const float4* q4, const float4* k4, int hd4) {
+  float s = 0.f;
+  for (int e = 0; e < hd4; ++e) {
+    const float4 kv = k4[e];
+    const float4 qv = q4[e];
+    s = fmaf(qv.x, kv.x, s);
+    s = fmaf(qv.y, kv.y, s);
+    s = fmaf(qv.z, kv.z, s);
+    s = fmaf(qv.w, kv.w, s);
+  }
+  return s;
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float w, const float4 v) {
+  acc.x = fmaf(w, v.x, acc.x);
+  acc.y = fmaf(w, v.y, acc.y);
+  acc.z = fmaf(w, v.z, acc.z);
+  acc.w = fmaf(w, v.w, acc.w);
+}
+
+// The paged kernels' qkv epilogue: stores every channel to the qkv scratch
+// and scatters the K and V channels (D .. 3D) of row r into the pools at
+// its position: page bt[r, pos / ps] row pos % ps, or the sink page when
+// pos >= L = maxp * ps (the padded tail of a chunk; clamping the page
+// index would overwrite the row's last real page). The grid barrier after
+// phase 1 then orders every row's scatter before any (row, head) reads the
+// pools, so rows sharing pages see one pool state. Inactive rows (table
+// all sink, pos 0) write the sink page concurrently: harmless, nothing
+// reads it unmasked.
+struct PagedQkvEpi {
+  float* qkv;
+  const int* pos;
+  const int* bt;  // [B, maxp]
+  float* kp;      // [NP + 1, H, ps, hd]
+  float* vp;
+  int D, H, ps, maxp, sink;
+  __device__ void operator()(int r, int n, float y) const {
+    qkv[static_cast<size_t>(r) * 3 * D + n] = y;
+    if (n < D) return;
+    int c = n - D;
+    float* pool = kp;
+    if (c >= D) {
+      c -= D;
+      pool = vp;
+    }
+    const int hd = D / H;
+    const int h = c / hd;
+    const int p = max(pos[r], 0);
+    const int page = p < maxp * ps ? bt[static_cast<size_t>(r) * maxp + p / ps] : sink;
+    pool[((static_cast<size_t>(page) * H + h) * ps + p % ps) * hd + (c - h * hd)] = y;
+  }
+};
+
+}  // namespace mx

@@ -99,30 +99,42 @@ def sample_tokens(logits, temperature):
     return torch.argmax(logits.float(), dim=-1).to(torch.int32)
 
 
-def decode_step(model, tokens, pos, caches):
+def decode_step(model, tokens, pos, caches, block_table=None):
     """One incremental forward: attend ``tokens`` [B, T] at ``pos`` (int,
     or a [B] tensor of per-row offsets) against ``caches`` (written in
-    place). Returns ``(logits [B, T, V], caches)``."""
-    logits, *caches = model.forward_cached(tokens, pos, *caches)
+    place). Returns ``(logits [B, T, V], caches)``. With ``block_table``
+    [B, max_pages] the step goes through the model's paged entry point:
+    ``caches`` are then the shared page pools (serve/paging)."""
+    if block_table is None:
+        logits, *caches = model.forward_cached(tokens, pos, *caches)
+    else:
+        logits, *caches = model.forward_cached_paged(tokens, pos, block_table,
+                                                     *caches)
     return logits, caches
 
 
-def decode_step_hidden(model, tokens, pos, caches):
+def decode_step_hidden(model, tokens, pos, caches, block_table=None):
     """:func:`decode_step` returning the final hidden state [B, T, D]."""
-    hidden, *caches = model.forward_cached_hidden(tokens, pos, *caches)
+    if block_table is None:
+        hidden, *caches = model.forward_cached_hidden(tokens, pos, *caches)
+    else:
+        hidden, *caches = model.forward_cached_paged_hidden(
+            tokens, pos, block_table, *caches)
     return hidden, caches
 
 
 def decode_multi_tokens(model, tokens, pos, caches, num_tokens, temps,
                         seeds, counters, eos_ids=None, remaining=None,
-                        done=None, fill_eos=False, head=None):
+                        done=None, fill_eos=False, head=None,
+                        block_table=None):
     """Emit up to ``num_tokens`` (K) tokens per row, feeding each token
     straight back in, with per-row ``fold_in(key(seed), counter + j)``
     sampling. ``tokens`` [B] (device), ``pos`` int or [B] device tensor;
     ``temps`` / ``seeds`` / ``counters`` / ``eos_ids`` (-1 = none) /
     ``remaining`` (token budget) are host arrays of length B, ``done`` an
     optional [B] bool device tensor. ``head`` = ``(w_q, scales, vocab)``
-    routes selection through the fused LM-head sampler (K8).
+    routes selection through the fused LM-head sampler (K8);
+    ``block_table`` routes every substep through the paged pools.
 
     The JAX loop exits early once every row is done, which needs the
     device's EOS flags. This loop runs ``min(K, max(remaining))``
@@ -163,11 +175,12 @@ def decode_multi_tokens(model, tokens, pos, caches, num_tokens, temps,
     for j in range(steps):
         posj = pos + j
         if head is None:
-            logits, caches = decode_step(model, tok[:, None], posj, caches)
+            logits, caches = decode_step(model, tok[:, None], posj, caches,
+                                         block_table)
             nxt = sample_tokens(logits[:, -1], temps)
         else:
             hidden, caches = decode_step_hidden(model, tok[:, None], posj,
-                                                caches)
+                                                caches, block_table)
             nxt = fused_lm_head_sample(hidden[:, -1], w_q, scale, vocab,
                                        kbits[j], temps_t)
         if fill_eos:

@@ -8,7 +8,10 @@ backward at T >= 256 (the training path), the plain path below that.
 (bf16 for the training headline); LayerNorm stays f32, as in JAX. The
 serving path is the cached one: :meth:`GPTModel.forward_cached` /
 :meth:`~GPTModel.forward_cached_hidden`, whose T=1 steps run each block as
-one K5 launch once :meth:`GPTModel.enable_fused_decode` packed it.
+one K5 launch once :meth:`GPTModel.enable_fused_decode` packed it, and
+its paged counterpart :meth:`~GPTModel.forward_cached_paged` /
+:meth:`~GPTModel.forward_cached_paged_hidden` over the shared page pools
+and a block table, one K6 or K7 launch per block.
 """
 from __future__ import annotations
 
@@ -91,6 +94,32 @@ class GPTBlock(nn.Module):
         h = npx.gelu(self.mlp_fc(self.ln_2(x)))
         return x + self.dropout(self.mlp_proj(h)), k_cache, v_cache
 
+    def forward_cached_paged(self, x, pos, block_table, k_pages, v_pages):
+        """Incremental forward against the shared [NP + 1, H, ps, hd] page
+        pools through the [B, max_pages] block table (written in place). A
+        T=1 step of a packed block runs as ONE launch of K6 when its
+        shared-memory gate accepts the context length, of K7 (pages
+        streamed) beyond that; shapes neither gate accepts, and T > 1,
+        take the unfused layers."""
+        from ..ops.fused_block_gemv import (fusable_paged, fusable_paged_dma,
+                                            fused_block_decode_paged)
+        from .llama import _paged_attention
+        B, T, d = x.shape
+        pack = self._fused_pack
+        if pack is not None and T == 1:
+            gate = (B, d, self.heads, k_pages.shape[0], k_pages.shape[2],
+                    block_table.shape[1], k_pages.element_size())
+            if fusable_paged(*gate) or fusable_paged_dma(*gate):
+                return fused_block_decode_paged(x, pos, block_table, k_pages,
+                                                v_pages, pack)
+        q, k, v = torch.split(self.attn_qkv(self.ln_1(x)), d, dim=-1)
+        o, k_pages, v_pages = _paged_attention(
+            self._split_heads(q, B, T), self._split_heads(k, B, T),
+            self._split_heads(v, B, T), k_pages, v_pages, block_table, pos)
+        x = x + self.dropout(self.attn_out(o.transpose(1, 2).reshape(B, T, d)))
+        h = npx.gelu(self.mlp_fc(self.ln_2(x)))
+        return x + self.dropout(self.mlp_proj(h)), k_pages, v_pages
+
 
 class GPTModel(nn.Module):
     """GPT-2 LM with a tied head. Built on ``device`` (default: the CUDA
@@ -156,10 +185,56 @@ class GPTModel(nn.Module):
         return [torch.zeros(s, dtype=d, device=self.device)
                 for s, d in self.cache_spec(batch, max_len)]
 
+    def cache_spec_paged(self, num_pages: int, page_size: int):
+        """[(shape, dtype)] for the PAGED KV pools (serve/paging): k0, v0,
+        ... of [num_pages, H, page_size, hd]. The caller passes the
+        physical page count (the engine adds its sink page)."""
+        cfg = self.cfg
+        shp = (num_pages, cfg.num_heads, page_size,
+               cfg.hidden_size // cfg.num_heads)
+        return [(shp, cfg.dtype)] * (2 * cfg.num_layers)
+
+    def new_pools(self, num_pages: int, page_size: int):
+        """Zeroed page pools of :meth:`cache_spec_paged` on the model's
+        device (``num_pages`` physical pages, sink included)."""
+        return [torch.zeros(s, dtype=d, device=self.device)
+                for s, d in self.cache_spec_paged(num_pages, page_size)]
+
     @torch.no_grad()
     def forward_cached(self, input_ids, pos, *caches):
         hidden, *caches = self.forward_cached_hidden(input_ids, pos, *caches)
         return (self._lm_head(hidden), *caches)
+
+    @torch.no_grad()
+    def forward_cached_paged(self, input_ids, pos, block_table, *pools):
+        hidden, *pools = self.forward_cached_paged_hidden(input_ids, pos,
+                                                          block_table, *pools)
+        return (self._lm_head(hidden), *pools)
+
+    @torch.no_grad()
+    def forward_cached_paged_hidden(self, input_ids, pos, block_table, *pools):
+        """Paged variant of :meth:`forward_cached_hidden`: the per-layer
+        page pools (written in place) and the [B, max_pages] block table
+        replace the per-slot caches. Positions of a padded prefill tail
+        past the last learned position are clamped to it: those rows are
+        discarded and their K/V rows go to the sink or stay masked (the
+        JAX package's gather reads NaN there)."""
+        from .llama import _decode_positions
+        B, T = input_ids.shape
+        dev = input_ids.device
+        if T == 1 and not torch.is_tensor(pos):
+            pos = torch.full((B,), int(pos), dtype=torch.int32, device=dev)
+        p = _decode_positions(pos, T, device=dev)
+        positions = p[None, :].expand(B, T) if p.dim() == 1 else p
+        positions = positions.clamp(max=self.cfg.max_position_embeddings - 1)
+        table = torch.as_tensor(block_table, dtype=torch.int32, device=dev)
+        x = self.drop(self.wte(input_ids) + self.wpe(positions))
+        new_pools = []
+        for i, blk in enumerate(self.blocks):
+            x, kp, vp = blk.forward_cached_paged(x, pos, table, pools[2 * i],
+                                                 pools[2 * i + 1])
+            new_pools += [kp, vp]
+        return (self.ln_f(x), *new_pools)
 
     @torch.no_grad()
     def forward_cached_hidden(self, input_ids, pos, *caches):

@@ -1,12 +1,13 @@
 """Cached-attention helpers that GPT imports from ``models/llama.py``
 (counterpart of ``mxnet_tpu/models/llama.py:_decode_positions``,
-``_attend`` and ``_cached_attention``). The Llama model itself is ported
-in a later slice.
+``_attend``, ``_cached_attention`` and ``_paged_attention``). The Llama
+model itself is ported in a later slice.
 
-Deliberate difference from JAX: :func:`_cached_attention` writes the new
-K/V rows into the caches IN PLACE and returns the same tensors, where the
-JAX function returns updated copies. The fused block kernel updates the
-caches in place too, so both decode paths share one cache discipline.
+Deliberate difference from JAX: :func:`_cached_attention` and
+:func:`_paged_attention` write the new K/V rows into the caches or page
+pools IN PLACE and return the same tensors, where the JAX functions return
+updated copies. The fused block kernels update them in place too, so every
+decode path shares one cache discipline.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ import math
 
 import torch
 
-__all__ = ["_decode_positions", "_attend", "_cached_attention"]
+__all__ = ["_decode_positions", "_attend", "_cached_attention",
+           "_paged_attention"]
 
 
 def _decode_positions(pos, T: int, device=None):
@@ -63,3 +65,41 @@ def _cached_attention(qh, kh, vh, k_cache, v_cache, pos):
         mask3 = cols_all[None, None, :] <= cols[:, :, None]                # [B, T, L]
     out = _attend(qh, k_cache.float(), v_cache.float(), mask3)
     return out, k_cache, v_cache
+
+
+def _paged_attention(qh, kh, vh, k_pages, v_pages, block_table, pos):
+    """Attention over a PAGED cache: the pools are [num_pages + 1, H, ps,
+    hd] physical pages shared by every request, ``block_table`` [B,
+    max_pages] maps row b's logical page i (positions [i*ps, (i+1)*ps)) to
+    a physical page, and the last physical page is the sink.
+
+    Every row's T new K/V rows are scattered through the table (page
+    ``table[col // ps]``, row ``col % ps``) before any row gathers, so
+    rows that share pages see one pool state. Columns at or past ``L =
+    max_pages * ps`` (the padded tail of a bucketed final prefill chunk)
+    go to the sink page: clamping the page index instead would overwrite
+    the row's last real page. Reads gather the table's pages into the
+    logical [B, H, L, hd] view and run :func:`_attend` with the mask
+    ``j <= pos + t``. ``pos`` is a scalar or a [B] tensor; T >= 1 (prefill
+    chunks and decode steps)."""
+    B, H, T, hd = qh.shape
+    NP1, ps = k_pages.shape[0], k_pages.shape[2]
+    maxp = block_table.shape[1]
+    L = maxp * ps
+    dev = k_pages.device
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=dev)
+    if pos.dim() == 0:
+        pos = pos.expand(B)
+    table = torch.as_tensor(block_table, device=dev).long()
+    cols = pos.long()[:, None] + torch.arange(T, device=dev)[None, :]   # [B, T]
+    pg = torch.take_along_dim(table, torch.clamp(cols // ps, max=maxp - 1), dim=1)
+    pg = torch.where(cols < L, pg, torch.full_like(pg, NP1 - 1))
+    off = cols % ps
+    k_pages[pg, :, off, :] = kh.transpose(1, 2).to(k_pages.dtype)
+    v_pages[pg, :, off, :] = vh.transpose(1, 2).to(v_pages.dtype)
+    # logical view: page i of the table lands at rows [i*ps, (i+1)*ps)
+    kf = k_pages[table].transpose(1, 2).reshape(B, H, L, hd).float()
+    vf = v_pages[table].transpose(1, 2).reshape(B, H, L, hd).float()
+    mask3 = torch.arange(L, device=dev)[None, None, :] <= cols[:, :, None]
+    out = _attend(qh, kf, vf, mask3)
+    return out, k_pages, v_pages

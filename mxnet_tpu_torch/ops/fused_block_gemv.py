@@ -1,5 +1,5 @@
 """Block-level fused decode and the fused LM-head sampler (counterpart of
-``mxnet_tpu/ops/fused_block_gemv.py``, contiguous int8 lane).
+``mxnet_tpu/ops/fused_block_gemv.py``, int8 lane).
 
 - :func:`pack_gpt_block` extracts one GPT block's frozen int8 weights.
 - :func:`fused_block_decode` runs one block's whole T=1 decode step: on a
@@ -7,6 +7,15 @@
   (K5), on a CPU tensor as :func:`_reference_block_decode`, which replays
   the unfused LayerNorm -> QuantizedDense -> cached-attention op sequence.
   The caches are updated in place (the JAX function returns copies).
+- :func:`fused_block_decode_paged` is the same step over the paged KV
+  pools through a block table: ``csrc/fused_block_decode_paged.cu`` (K6,
+  the rows' pages gathered into shared memory) where
+  :func:`fusable_paged` accepts the context length, else
+  ``csrc/fused_block_decode_paged_dma.cu`` (K7, pages streamed through a
+  ring of shared-memory slots by TMA bulk copies) where
+  :func:`fusable_paged_dma` accepts it; on a CPU tensor
+  :func:`_reference_block_decode_paged` (the unfused op sequence with
+  ``_paged_attention``). The pools are updated in place.
 - :func:`fused_lm_head_sample` folds the tied int8 head GEMV into greedy or
   temperature sampling: ``csrc/lm_head_sample.cu`` (K8) on CUDA, and
   :func:`_reference_head_sample` on the CPU. Sampled rows draw Gumbel noise
@@ -15,7 +24,8 @@
   ``jax.random.categorical`` instead, so sampled tokens match JAX only
   against its kernel (interpret mode), never against its CPU fallback.
 
-Paged decode (K6, K7), the int4 lanes and grammar masks are later slices.
+The int4 lanes, the bf16-pool lane of K6/K7 and grammar masks are later
+slices.
 """
 from __future__ import annotations
 
@@ -23,10 +33,11 @@ import torch
 
 from .. import numpy_extension as npx
 from ..base import MXNetError
-from .int8_gemv import _reference_int8_matmul, record_launch
+from .int8_gemv import _reference_int8_matmul, record_dma, record_launch
 
-__all__ = ["pack_gpt_block", "fused_block_decode", "fused_lm_head_sample",
-           "fusable", "VOCAB_LANE", "pad_vocab"]
+__all__ = ["pack_gpt_block", "fused_block_decode", "fused_block_decode_paged",
+           "fused_lm_head_sample", "fusable", "fusable_paged",
+           "fusable_paged_dma", "VOCAB_LANE", "pad_vocab"]
 
 # lane width the vocab dim is padded to (50257 -> 50304)
 VOCAB_LANE = 128
@@ -35,6 +46,8 @@ _SMEM_LIMIT = 232448
 # kernel geometry of csrc/fused_block_decode.cu (kRowTile, kThreads)
 _ROW_TILE = 8
 _THREADS = 256
+# ring slots of the streamed paged kernel (the JAX knob fused_dma_depth)
+_DMA_DEPTH = 2
 
 
 def pad_vocab(n: int) -> int:
@@ -42,21 +55,95 @@ def pad_vocab(n: int) -> int:
     return -(-int(n) // VOCAB_LANE) * VOCAB_LANE
 
 
-def fusable(B: int, D: int, heads: int, L: int) -> bool:
-    """Shape gate of the Hopper block kernel: 16-byte int8 rows (D % 16),
-    whole heads with hd % 8 == 0 and hd <= 256 (one CTA per (row, head)
-    covers the head dim in float4 words), and the larger of the staged
-    activation tile (8 rows of the 4D fc activations) and the attention
-    buffers (one f32 score row of L, q and the float4 reduction scratch)
-    within one CTA's 227 KB of shared memory. It replaces the TPU kernel's
-    VMEM budget gate, which would reject GPT-2 small at L = 1024."""
+def _round4(n: int) -> int:
+    return -(-int(n) // 4) * 4
+
+
+def _tiles(B: int, D: int, heads: int) -> bool:
+    """Tiling rules of the three block kernels: 16-byte int8 rows (D % 16)
+    and whole heads with hd % 8 == 0 and hd <= 256 (one CTA per (row,
+    head) covers the head dim in float4 words)."""
     if B < 1 or heads < 1 or D % 16 or D % heads:
         return False
     hd = D // heads
-    if hd % 8 or hd > _THREADS:
+    return hd % 8 == 0 and hd <= _THREADS
+
+
+def fusable(B: int, D: int, heads: int, L: int) -> bool:
+    """Shape gate of the Hopper block kernel: :func:`_tiles`, and the
+    larger of the staged activation tile (8 rows of the 4D fc activations)
+    and the attention buffers (one f32 score row of L, q and the float4
+    reduction scratch) within one CTA's 227 KB of shared memory. It
+    replaces the TPU kernel's VMEM budget gate, which would reject GPT-2
+    small at L = 1024."""
+    if not _tiles(B, D, heads):
         return False
-    smem = 4 * max(_ROW_TILE * 4 * D, hd + -(-L // 4) * 4 + 4 * _THREADS)
+    hd = D // heads
+    smem = 4 * max(_ROW_TILE * 4 * D, hd + _round4(L) + 4 * _THREADS)
     return smem <= _SMEM_LIMIT
+
+
+def _paged_smem(D: int, heads: int, L: int) -> int:
+    """Dynamic shared memory of K6 (``mx_paged_smem``): the staged
+    activation tile, or the gathered [L, hd] K and V of one (row, head),
+    q, the score row and the reduction scratch, whichever is larger."""
+    hd = D // heads
+    return 4 * max(_ROW_TILE * 4 * D,
+                   2 * L * hd + hd + _round4(L) + 4 * _THREADS)
+
+
+def _dma_smem(D: int, heads: int, ps: int, L: int, depth: int, tp: int) -> int:
+    hd = D // heads
+    attn = depth * tp * ps * hd + hd + _round4(L) + 4 * _THREADS
+    return 4 * max(_ROW_TILE * 4 * D, attn) + 8 * depth   # + one mbarrier a slot
+
+
+def _dma_tile_pages(D: int, heads: int, ps: int, L: int, depth: int) -> int:
+    """Pages per ring slot of K7 (``mx_paged_dma_tile_pages``): one key row
+    per thread (256 // ps pages), fewer while the ring does not fit."""
+    tp = max(1, _THREADS // ps)
+    while tp > 1 and _dma_smem(D, heads, ps, L, depth, tp) > _SMEM_LIMIT:
+        tp -= 1
+    return tp
+
+
+def _paged_dma_smem(D: int, heads: int, ps: int, L: int, depth: int) -> int:
+    """Dynamic shared memory of K7 (``mx_paged_dma_smem``): the staged
+    activation tile, or ``depth`` ring slots of :func:`_dma_tile_pages`
+    pages, q, the score row and the reduction scratch, whichever is
+    larger; then one 8-byte mbarrier per slot."""
+    return _dma_smem(D, heads, ps, L, depth,
+                     _dma_tile_pages(D, heads, ps, L, depth))
+
+
+def fusable_paged(B: int, D: int, heads: int, pool_pages: int,
+                  page_size: int, max_pages: int, cache_itemsize: int = 4):
+    """Shape gate of K6, the gathered paged kernel, restated for Hopper:
+    :func:`_tiles`, f32 pools, and :func:`_paged_smem` within one CTA's 227
+    KB: ``4 * (2*L*hd + L + hd + 4*256)`` bytes at GPT-2 widths, which
+    accepts L <= 432 at hd 64 (page 16: max_len 256 or 384). It replaces
+    the TPU's VMEM test on the whole pool; ``pool_pages`` does not enter
+    it, because the pools stay in device memory."""
+    if not _tiles(B, D, heads) or cache_itemsize != 4:
+        return False
+    return _paged_smem(D, heads, max_pages * page_size) <= _SMEM_LIMIT
+
+
+def fusable_paged_dma(B: int, D: int, heads: int, pool_pages: int,
+                      page_size: int, max_pages: int,
+                      cache_itemsize: int = 4, depth: int = None):
+    """Shape gate of K7, the streamed paged kernel: :func:`_tiles`, f32
+    pools, 16-byte page slabs for the TMA bulk copies, and
+    :func:`_paged_dma_smem` within 227 KB. Neither the pool size nor
+    ``2*L*hd`` enters it: only the score row of L grows with the context,
+    which is the cap this variant removes."""
+    if not _tiles(B, D, heads) or cache_itemsize != 4:
+        return False
+    depth = _DMA_DEPTH if depth is None else int(depth)
+    if depth < 1 or (page_size * (D // heads) * 4) % 16:
+        return False
+    L = max_pages * page_size
+    return _paged_dma_smem(D, heads, page_size, L, depth) <= _SMEM_LIMIT
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +209,29 @@ def _reference_block_decode(xv, posv, kc, vc, pack):
     return x + _dense(h, *pack["proj"]), kc, vc
 
 
+def _reference_block_decode_paged(xv, posv, bt, kp, vp, pack):
+    """One block's PAGED decode step with the op sequence of the unfused
+    LayerNorm -> QuantizedDense -> _paged_attention chain; the pools are
+    written in place."""
+    from ..models.llama import _paged_attention
+    heads, eps = pack["heads"], pack["eps"]
+    g1, b1 = pack["ln1"]
+    g2, b2 = pack["ln2"]
+    B, T, d = xv.shape
+    hd = d // heads
+    qkv = _dense(npx.layer_norm(xv, g1, b1, eps=eps), *pack["qkv"])
+    q, k, v = torch.split(qkv, d, dim=-1)
+    qh = q.reshape(B, T, heads, hd).transpose(1, 2)
+    kh = k.reshape(B, T, heads, hd).transpose(1, 2)
+    vh = v.reshape(B, T, heads, hd).transpose(1, 2)
+    o, kp, vp = _paged_attention(qh, kh, vh, kp, vp, bt, posv)
+    ctx = o.transpose(1, 2).reshape(B, T, d)
+    x = xv + _dense(ctx, *pack["out"])
+    h = _dense(npx.layer_norm(x, g2, b2, eps=eps), *pack["fc"])
+    h = npx.gelu(h, approximate=True)
+    return x + _dense(h, *pack["proj"]), kp, vp
+
+
 def _row_positions(posv, B, device):
     pos = torch.as_tensor(posv, dtype=torch.int32, device=device)
     return pos.reshape(-1).expand(B).contiguous() if pos.numel() == 1 else pos
@@ -152,6 +262,20 @@ def fused_block_decode(xv, posv, kc, vc, pack):
     return _cuda_block_decode(xv, posv, kc, vc, pack)
 
 
+def _weight_operands(pack, what):
+    """The pack's 16 kernel operands: (w, scale, bias) of qkv, out, fc and
+    proj, then the two LayerNorms' gains and offsets."""
+    ops = []
+    for key in ("qkv", "out", "fc", "proj"):
+        w, s, b = pack[key]
+        if w.dtype != torch.int8:
+            raise MXNetError(f"{what}: the kernel takes int8 weights")
+        ops += [w.contiguous(), s.contiguous(), b.detach().float().contiguous()]
+    g1, b1 = pack["ln1"]
+    g2, b2 = pack["ln2"]
+    return ops + [t.detach().float().contiguous() for t in (g1, b1, g2, b2)]
+
+
 def _cuda_block_decode(xv, posv, kc, vc, pack):
     from .. import _build
     B, _, D = xv.shape
@@ -165,15 +289,7 @@ def _cuda_block_decode(xv, posv, kc, vc, pack):
         raise MXNetError("fused_block_decode: the kernel takes f32 activations")
     pos = _row_positions(posv, B, xv.device)
     x = xv.reshape(B, D).contiguous()
-    ops = []
-    for key in ("qkv", "out", "fc", "proj"):
-        w, s, b = pack[key]
-        if w.dtype != torch.int8:
-            raise MXNetError("fused_block_decode: the kernel takes int8 weights")
-        ops += [w.contiguous(), s.contiguous(), b.detach().float().contiguous()]
-    g1, b1 = pack["ln1"]
-    g2, b2 = pack["ln2"]
-    ops += [t.detach().float().contiguous() for t in (g1, b1, g2, b2)]
+    ops = _weight_operands(pack, "fused_block_decode")
     scratch = torch.empty(9 * B * D, device=xv.device, dtype=torch.float32)
     out = torch.empty(B, D, device=xv.device, dtype=torch.float32)
     lib = _build.library("fused_block_decode")
@@ -183,6 +299,118 @@ def _cuda_block_decode(xv, posv, kc, vc, pack):
         kc.data_ptr(), vc.data_ptr(), scratch.data_ptr(), out.data_ptr(),
         B, D, heads, L, pack["eps"], stream), "fused_block_decode")
     return out.reshape(B, 1, D), kc, vc
+
+
+# (memo key, result) of :func:`_dma_program` for the last position tensor
+_DMA_MEMO = [None]
+
+
+def _dma_program(pos, H, hd, ps, maxp):
+    """(copies, bytes) K7 starts for these row positions: the K and the V
+    page of every (row, head) for logical pages 0 .. min(pos, L-1) // ps
+    (``csrc/fused_block_decode_paged_dma.cu``). On a CUDA tensor the values
+    stay 0-dim device tensors (no host sync); the 12 blocks of one step
+    share the position tensor, so the count is formed once per step."""
+    key = (pos, pos._version, H, hd, ps, maxp)
+    memo = _DMA_MEMO[0]
+    if memo is not None and memo[0][0] is pos and memo[0][1:] == key[1:]:
+        return memo[1]
+    L = maxp * ps
+    pages = (torch.clamp(pos.long(), 0, L - 1).div(ps, rounding_mode="floor")
+             + 1).sum()
+    if pos.device.type == "cpu":
+        pages = int(pages)
+    copies = 2 * H * pages
+    out = (copies, copies * (ps * hd * 4))
+    _DMA_MEMO[0] = (key, out)
+    return out
+
+
+def fused_block_decode_paged(xv, posv, bt, kp, vp, pack, dma_counters=None):
+    """One transformer block's whole T=1 decode step over the PAGED KV
+    pools. ``xv`` [B, 1, D] f32, ``posv`` scalar or [B] positions, ``bt``
+    the [B, max_pages] int32 block table, ``kp``/``vp`` the shared [NP + 1,
+    H, ps, hd] f32 pools (last page = sink), updated IN PLACE. Returns
+    ``(out [B, 1, D], kp, vp)``.
+
+    Routing, as in JAX: K6 where :func:`fusable_paged` accepts the shape,
+    else K7 where :func:`fusable_paged_dma` does (recording its page
+    copies with :func:`~mxnet_tpu_torch.ops.int8_gemv.record_dma`). A CUDA
+    tensor launches that kernel once, and raises where neither gate
+    accepts the shape (the model routes such shapes to the unfused layers
+    first). A CPU tensor runs the plain version; a shape neither gate
+    accepts records 4 ``gemv`` launches there, as the JAX fallback does.
+    ``dma_counters``: an optional [2] int32 CUDA tensor to which K7 adds
+    the page copies it started and waited for."""
+    heads = pack["heads"]
+    B, T, D = xv.shape
+    NP1, H, ps, hd = kp.shape
+    maxp = bt.shape[1]
+    gate = (B, D, heads, NP1, ps, maxp, kp.element_size())
+    use_k6 = T == 1 and fusable_paged(*gate)
+    use_k7 = T == 1 and not use_k6 and fusable_paged_dma(*gate)
+    if H != heads or hd * heads != D or vp.shape != kp.shape \
+            or tuple(bt.shape) != (B, maxp):
+        raise MXNetError(f"fused_block_decode_paged: pools {tuple(kp.shape)} / "
+                         f"{tuple(vp.shape)}, table {tuple(bt.shape)} do not "
+                         f"match x {tuple(xv.shape)} with {heads} heads")
+    on_cpu = xv.device.type == "cpu"
+    if not (use_k6 or use_k7 or on_cpu):
+        raise MXNetError(f"fused_block_decode_paged: shape B={B} T={T} D={D} "
+                         f"heads={heads} L={maxp * ps} is not fusable")
+    if use_k6:
+        record_launch("fused_block_paged")
+    elif use_k7:
+        record_launch("fused_block_paged_dma")
+        copies, nbytes = _dma_program(_row_positions(posv, B, xv.device),
+                                      H, hd, ps, maxp)
+        record_dma(copies, nbytes)
+    else:
+        for _ in range(4):
+            record_launch("gemv")
+    if on_cpu:
+        return _reference_block_decode_paged(xv, posv, bt, kp, vp, pack)
+    return _cuda_block_decode_paged(xv, posv, bt, kp, vp, pack, use_k7,
+                                    dma_counters)
+
+
+def _cuda_block_decode_paged(xv, posv, bt, kp, vp, pack, streamed, counters):
+    from .. import _build
+    what = "fused_block_decode_paged"
+    B, _, D = xv.shape
+    NP1, H, ps, hd = kp.shape
+    maxp = bt.shape[1]
+    for t in (kp, vp):
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.data_ptr() % 16:
+            raise MXNetError(f"{what}: pools must be contiguous, 16-byte "
+                             "aligned f32 (they are written in place)")
+    if xv.dtype != torch.float32:
+        raise MXNetError(f"{what}: the kernel takes f32 activations")
+    pos = _row_positions(posv, B, xv.device)
+    table = bt.to(torch.int32).contiguous()
+    x = xv.reshape(B, D).contiguous()
+    ops = _weight_operands(pack, what)
+    scratch = torch.empty(9 * B * D, device=xv.device, dtype=torch.float32)
+    out = torch.empty(B, D, device=xv.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(xv.device).cuda_stream
+    head = [x.data_ptr(), pos.data_ptr(), table.data_ptr()]
+    ptrs = [t.data_ptr() for t in ops] + [kp.data_ptr(), vp.data_ptr(),
+                                          scratch.data_ptr(), out.data_ptr()]
+    if not streamed:
+        lib = _build.library("fused_block_decode_paged")
+        _build.check(lib.mx_fused_block_decode_paged(
+            *head, *ptrs, B, D, H, ps, maxp, NP1 - 1, pack["eps"], stream), what)
+    else:
+        if counters is not None and (counters.dtype != torch.int32
+                                     or counters.numel() != 2
+                                     or counters.device != xv.device):
+            raise MXNetError(f"{what}: dma_counters must be a [2] int32 tensor "
+                             "on the pools' device")
+        lib = _build.library("fused_block_decode_paged_dma")
+        _build.check(lib.mx_fused_block_decode_paged_dma(
+            *head, *ptrs, 0 if counters is None else counters.data_ptr(),
+            B, D, H, ps, maxp, NP1 - 1, _DMA_DEPTH, pack["eps"], stream), what)
+    return out.reshape(B, 1, D), kp, vp
 
 
 # ---------------------------------------------------------------------------

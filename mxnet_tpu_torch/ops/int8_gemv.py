@@ -19,7 +19,8 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["int8_weight_matmul", "count_launches", "record_launch",
-           "reset_launches", "launches", "gemv_max_m"]
+           "reset_launches", "launches", "record_dma", "dma_ledger",
+           "gemv_max_m"]
 
 # row threshold of the GEMV route: at most this many rows stream int8
 # weights through K3, more take the activation-quantized int8 product
@@ -73,8 +74,56 @@ def launches() -> Dict[str, int]:
 
 
 def reset_launches():
+    """Zero the launch counts and the DMA ledger."""
     with _COUNTS_LOCK:
         _COUNTS.clear()
+        _DMA_PENDING.clear()
+        for key in _DMA:
+            _DMA[key] = 0
+
+
+# ---------------------------------------------------------------------------
+# DMA ledger of the streamed paged block kernel (K7): the page copies a
+# launch starts, their bytes, and the copies it waits for; the kernel waits
+# for every copy it starts, so copies == waits is the invariant. The count
+# depends on the rows' positions, which live on the device: a value may be
+# a 0-dim tensor, summed only when the ledger is read, so recording costs
+# the launch path no host sync.
+# ---------------------------------------------------------------------------
+_DMA: Dict[str, int] = {"copies": 0, "bytes": 0, "waits": 0}
+_DMA_PENDING: list = []
+_DMA_FOLD_AT = 1024
+
+
+def record_dma(copies, nbytes, waits=None):
+    """Record the async copies one launch starts (``waits`` defaults to
+    ``copies``). Each value is an int or a 0-dim integer tensor."""
+    with _COUNTS_LOCK:
+        _DMA_PENDING.append((copies, nbytes, copies if waits is None else waits))
+        if len(_DMA_PENDING) >= _DMA_FOLD_AT:
+            _fold_dma()
+
+
+def _fold_dma():
+    for i, key in enumerate(_DMA):
+        vals = [entry[i] for entry in _DMA_PENDING]
+        total = sum(int(v) for v in vals if not torch.is_tensor(v))
+        by_device: dict = {}
+        for v in vals:
+            if torch.is_tensor(v):
+                by_device.setdefault(v.device, []).append(v.reshape(()).long())
+        for lazy in by_device.values():
+            total += int(torch.stack(lazy).sum())    # one sync per device
+        _DMA[key] += total
+    _DMA_PENDING.clear()
+
+
+def dma_ledger() -> Dict[str, int]:
+    """Process-wide {copies, bytes, waits} since the last
+    :func:`reset_launches` (reading it synchronises with the device)."""
+    with _COUNTS_LOCK:
+        _fold_dma()
+        return dict(_DMA)
 
 
 def _reference_int8_matmul(x, w_q, w_scale):

@@ -1,13 +1,29 @@
 """Continuous-batching inference engine over the KV-cache decode protocol
-(counterpart of ``mxnet_tpu/serve/engine.py``, contiguous layout).
+(counterpart of ``mxnet_tpu/serve/engine.py``, contiguous and paged
+layouts).
 
-- **Slots.** The engine owns ``max_batch_size`` slots of one pooled
-  [S, H, max_len, hd] cache per layer. A request holds one slot from
-  prefill to completion; a finished slot is refilled from the queue
-  between decode steps, so the batch never drains to refill.
-- **Prefill** runs per admitted request at batch 1 over a prompt-length
-  bucket (right-padded), writing the slot's cache rows in place, and
-  selects token 0.
+- **Slots.** The engine owns ``max_batch_size`` slots. A request holds one
+  slot from prefill to completion; a finished slot is refilled from the
+  queue between decode steps, so the batch never drains to refill.
+- **Contiguous layout** (``paged=False``): one pooled [S, H, max_len, hd]
+  cache per layer. Prefill runs per admitted request at batch 1 over a
+  prompt-length bucket (right-padded), writing the slot's cache rows in
+  place, and selects token 0.
+- **Paged layout** (``paged=True``, the default on the card when
+  ``max_len`` is a page multiple): one pool of ``num_pages + 1`` pages per
+  layer, leased to slots as they grow through ``serve/paging.PagePool``.
+  Prefills run in chunks of ``prefill_chunk`` tokens, at most one chunk
+  per tick while other requests decode (the final chunk is bucketed and
+  selects token 0); completed prompts are published to a prefix cache
+  whose pages later requests map instead of prefilling, copying a shared
+  page before their first write into it (copy-on-write). When the pool
+  runs out, the youngest request is preempted and requeued at the front;
+  its resume re-prefills ``prompt + generated`` and continues its sampling
+  stream at the same counter, so it goes on with the tokens of an
+  uninterrupted run (the generated tokens' K/V rows are recomputed by
+  prefill: the same bits on the CPU, equal up to rounding on the card). A
+  decode step of a fused model runs each block as one launch of K6, or of
+  K7 past K6's context gate.
 - **Decode** advances every occupied slot with one batched step over the
   power-of-two prefix of slots that covers them: per-slot positions,
   temperatures, seeds, sampling counters, eos ids and token budgets.
@@ -21,15 +37,16 @@
 
 One background thread runs the loop; ``submit`` and ``result`` are safe
 from any thread. The engine reads each dispatch's tokens back before the
-next one (no lookahead). Token 0 of a request on a ``multi_token > 1``
-engine with an int8 head is selected by the fused head from the prompt's
-last hidden state, as ``generate(multi_token > 1)`` selects it (the JAX
-engine samples it from materialised logits); greedy token 0 is the same
-either way, because K3 and K8 compute the same logits.
+next one (no lookahead), so the paged tick has no pending step. Token 0
+of a request on a ``multi_token > 1`` engine with an int8 head is
+selected by the fused head from the prompt's last hidden state, as
+``generate(multi_token > 1)`` selects it (the JAX engine samples it from
+materialised logits); greedy token 0 is the same either way, because K3
+and K8 compute the same logits.
 
-Paged KV, prefix caching, speculation, grammar masks, live weight swaps,
-page migration, HTTP, metrics and tuned configs are later slices: the
-constructor raises on ``paged=True``, ``speculate`` and ``grammar``.
+Speculation, grammar masks, live weight swaps, page migration, warm-up
+and recompile guards, HTTP, metrics and tuned configs are later slices:
+the constructor raises on ``speculate`` and ``grammar``.
 """
 from __future__ import annotations
 
@@ -46,6 +63,7 @@ import torch
 from ..base import MXNetError
 from ..models import generation as _gen
 from .bucketing import bucket_for
+from .paging import OutOfPages, PagePool, pages_for
 
 __all__ = ["InferenceEngine", "RequestHandle", "ServeResult",
            "QueueFullError", "EngineClosedError", "STATUS_OK",
@@ -105,6 +123,8 @@ class RequestHandle:
         self._event = threading.Event()
         self._result: Optional[ServeResult] = None
         self._cancelled = False
+        # tokens generated before a preemption; the resume re-prefills them
+        self._resume: Optional[List[int]] = None
 
     def done(self) -> bool:
         return self._event.is_set()
@@ -136,6 +156,17 @@ class _Slot:
     generated: List[int]
 
 
+@dataclasses.dataclass
+class _Prefill:
+    """A paged prefill in progress: the ids to prefill (prompt + resumed
+    tokens), the next position to write, and the sampling counter of its
+    token 0 (the number of tokens already emitted)."""
+    ids: List[int]
+    cursor: int
+    counter0: int
+    t0: float
+
+
 class InferenceEngine:
     """Continuous-batching serving engine for a GPT model of this package
     (``cache_spec``/``forward_cached_hidden`` protocol) on the model's
@@ -152,16 +183,23 @@ class InferenceEngine:
     bucket_growth : growth factor of the prompt-bucket ladder
     fused : ``True`` requires fused block packs, ``False`` their absence,
         ``None`` follows the model
+    paged : the paged KV pool; ``None`` turns it on when the model is on
+        the card and ``max_len % page_size == 0``, as the JAX engine does
+        on the TPU
+    page_size : tokens per page (16, the JAX knob's default)
+    num_pages : leasable pages (default ``S * max_len / page_size``, the
+        contiguous layout's bytes); the pools carry one more, the sink
+    prefix_cache : publish prompts and map shared prefixes
+    prefill_chunk : tokens per prefill chunk (default ``page_size``)
     """
 
     def __init__(self, model, max_batch_size: int = 8, max_len: int = 256,
                  max_queue_depth: int = 64, min_prompt_bucket: int = 8,
                  multi_token: int = 1, bucket_growth: int = 2,
-                 fused: Optional[bool] = None, paged: bool = False,
+                 fused: Optional[bool] = None, paged: Optional[bool] = None,
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 prefix_cache: bool = True, prefill_chunk: Optional[int] = None,
                  speculate: int = 0, grammar: bool = False):
-        if paged:
-            raise MXNetError("paged=True: the paged KV pool (kernels K6/K7) "
-                             "is a later slice of the port")
         if speculate:
             raise MXNetError("speculate: self-speculative decoding is a later "
                              "slice of the port")
@@ -199,7 +237,28 @@ class InferenceEngine:
         self._growth = int(bucket_growth)
         self._vocab = model.cfg.vocab_size
         self._head = model.head_weights() if self.K > 1 else None
-        self._pools = model.new_caches(self.S, self.L)
+        if paged is None:
+            paged = self.device.type == "cuda" and self.L % int(page_size) == 0
+        self._paged = bool(paged)
+        self._pages: Optional[PagePool] = None
+        if self._paged:
+            self.page_size = int(page_size)
+            if num_pages is None:
+                num_pages = (self.S * self.L) // self.page_size
+            self._pages = PagePool(num_pages, self.page_size, self.L, self.S,
+                                   prefix_cache=prefix_cache)
+            self.maxp = self.L // self.page_size
+            # the pools carry one extra SINK page (index num_pages)
+            self._pools = model.new_pools(num_pages + 1, self.page_size)
+            self._chunk = min(int(prefill_chunk or self.page_size), self.L)
+            if self._chunk < 1:
+                raise MXNetError("prefill_chunk must be >= 1")
+            self._prefilling: Dict[int, _Prefill] = {}
+            self._active = np.zeros(self.S, bool)
+            self._preempted = 0
+            self._resumed_tokens = 0
+        else:
+            self._pools = model.new_caches(self.S, self.L)
 
         # host-side per-slot state (mutated only by the engine thread)
         self._slots: List[Optional[_Slot]] = [None] * self.S
@@ -224,6 +283,7 @@ class InferenceEngine:
         self._completed: Dict[str, int] = {}
         self._max_active = 0
         self._prefills = 0
+        self._prefill_chunks = 0
         self._prefill_s = 0.0
         self._dispatches = 0
         self._substeps = 0
@@ -354,10 +414,15 @@ class InferenceEngine:
                             kept.append(req)
                     self._queue = kept
                     while self._queue and None in self._slots:
+                        if self._paged and not self._fits(self._queue[0]):
+                            # not enough pages even after reclaiming the
+                            # prefix cache: wait for retires (FIFO kept)
+                            break
                         s = self._slots.index(None)
                         req = self._queue.popleft()
-                        req.admit_t = now
-                        self._slots[s] = _Slot(req, [])
+                        if req.admit_t is None:    # a resume keeps its wait
+                            req.admit_t = now
+                        self._slots[s] = _Slot(req, list(req._resume or ()))
                         admits.append((s, req))
             for req, status in dead:
                 self._finish_unstarted(req, status)
@@ -366,17 +431,25 @@ class InferenceEngine:
                     if self._slots[s] is not None:
                         self._retire(s, STATUS_SHUTDOWN)
             for s, req in admits:
-                self._prefill(s, req)
+                if self._paged:
+                    self._admit_paged(s, req)
+                else:
+                    self._prefill(s, req)
+            if self._paged:
+                self._advance_prefills(stopping)
             active = sum(slot is not None for slot in self._slots)
             self._max_active = max(self._max_active, active)
-            if active:
+            if self._paged and self._active.any():
+                self._step_paged()
+            elif active and not self._paged:
                 self._step()
-            elif stopping:
+            elif stopping and not active:
                 break
 
     # ------------------------------------------------------------ prefill
     def _prefill(self, s: int, req: RequestHandle):
-        """Prefill one request into slot ``s`` and select its token 0."""
+        """Prefill one request into contiguous slot ``s`` and select its
+        token 0."""
         t0 = time.perf_counter()
         P = len(req.prompt_ids)
         pb = bucket_for(P, self.min_prompt_bucket, self.L, self._growth)
@@ -387,33 +460,173 @@ class InferenceEngine:
         for c in caches:
             c.zero_()
         hidden, _ = _gen.decode_step_hidden(self.model, ids, 0, caches)
+        tok0 = self._token0(hidden, P - 1, req, 0)
+        self._start_decode(s, req, tok0, t0, P, 0)
+
+    def _token0(self, hidden, last: int, req: RequestHandle, counter: int) -> int:
+        """Select a request's next token from row ``last`` of a prefill's
+        hidden state [1, T, D], with the sampling stream at ``counter``."""
         if self._head is not None:
             from ..ops.fused_block_gemv import fused_lm_head_sample
             w_q, scale, vocab = self._head
-            kb = _gen._key_bits([req.seed], [0])
+            kb = _gen._key_bits([req.seed], [counter])
             tok0 = fused_lm_head_sample(
-                hidden[:, P - 1], w_q, scale, vocab,
+                hidden[:, last], w_q, scale, vocab,
                 torch.as_tensor(kb).to(self.device),
                 torch.tensor([req.temperature], device=self.device))
         else:
             # the JAX engine's logits over the whole bucket (its head
             # routing depends on the row count), read at the last prompt row
             logits = self.model._lm_head(hidden)
-            tok0 = _gen.sample_tokens(logits[:, P - 1], [req.temperature])
-        tok0 = int(tok0[0])
+            tok0 = _gen.sample_tokens(logits[:, last], [req.temperature])
+        return int(tok0[0])
+
+    def _start_decode(self, s: int, req: RequestHandle, tok0: int, t0: float,
+                      n_ids: int, emitted: int):
+        """Activate slot ``s`` after its prefill of ``n_ids`` tokens, of
+        which the last ``emitted`` were generated before a preemption."""
         now = time.perf_counter()
         self._prefills += 1
         self._prefill_s += now - t0
-        req.first_token_t = now
-        self._pos[s] = P
-        self._counters[s] = 1
+        if req.first_token_t is None:
+            req.first_token_t = now
+        self._pos[s] = n_ids
+        self._counters[s] = emitted + 1
         self._temps[s] = req.temperature
         self._seeds[s] = req.seed & 0xFFFFFFFF
         self._eos[s] = -1 if req.eos_token_id is None else req.eos_token_id
-        self._remaining[s] = req.max_new_tokens - 1   # token 0 is the first
+        self._remaining[s] = req.max_new_tokens - emitted - 1
+        if self._paged:
+            self._active[s] = True
         self._slots[s].generated.append(tok0)
         self._tokens[s] = tok0
         self._check_finished(s, now)
+
+    # ------------------------------------------------------------ paged mode
+    def _fits(self, req: RequestHandle) -> bool:
+        """Admission gate: the free and reclaimable prefix-cache pages can
+        hold the request's prompt (plus resumed tokens) and its first
+        decode writes. Prefix hits only lower the real need."""
+        tokens = min(len(req.prompt_ids) + len(req._resume or ()) + self.K, self.L)
+        need = pages_for(tokens, self.page_size)
+        return self._pages.free_pages() + self._pages.cached_pages() >= need
+
+    def _admit_paged(self, s: int, req: RequestHandle):
+        """Start a paged prefill: map the longest cached prefix into the
+        slot's table and register the chunk cursor past it."""
+        resume = list(req._resume or ())
+        ids = list(req.prompt_ids) + resume
+        pages, matched = self._pages.match_prefix(ids)
+        if matched:
+            self._pages.map_prefix(s, pages, matched)
+        self._prefilling[s] = _Prefill(ids=ids, cursor=matched,
+                                       counter0=len(resume),
+                                       t0=time.perf_counter())
+
+    def _advance_prefills(self, unlimited: bool):
+        """One chunk for each prefilling slot, or only one chunk in all
+        while other requests decode (a long prompt then costs every
+        decoding request one chunk of latency per tick, never its whole
+        prefill)."""
+        budget = (len(self._prefilling)
+                  if unlimited or not self._active.any() else 1)
+        while budget > 0 and self._prefilling:
+            for s in list(self._prefilling):
+                if budget <= 0:
+                    break
+                self._prefill_step_paged(s)
+                budget -= 1
+
+    def _fork_range(self, s: int, start: int, end: int):
+        """Copy-on-write: fork every shared page slot ``s`` is about to
+        write in positions [start, end): the ledger swaps in a fresh page
+        and every pool copies the page's rows."""
+        for ti, _ in self._pages.writable(s, start, end):
+            src, dst = self._pages.fork(s, ti)
+            for pool in self._pools:
+                pool[dst].copy_(pool[src])
+
+    def _prefill_step_paged(self, s: int):
+        """Advance slot ``s``'s prefill by one chunk. A middle chunk only
+        writes KV rows; the final chunk (the bucketed remainder) also
+        publishes the prompt's pages and selects token 0. Pool exhaustion
+        preempts the slot itself."""
+        pf = self._prefilling[s]
+        req = self._slots[s].req
+        now = time.perf_counter()
+        if req._cancelled:
+            self._retire(s, STATUS_CANCELLED)
+            return
+        if req.deadline is not None and now > req.deadline:
+            self._retire(s, STATUS_TIMEOUT)
+            return
+        P = len(pf.ids)
+        end = min(pf.cursor + self._chunk, P)
+        try:
+            self._pages.lease(s, end)
+            # a fork can exhaust the pool too: a shared tail page needs a
+            # fresh page to fork into
+            self._fork_range(s, pf.cursor, end)
+        except OutOfPages:
+            self._preempt(s)
+            return
+        table = torch.from_numpy(self._pages.table(s)[None, :].copy()).to(self.device)
+        n = end - pf.cursor
+        pb = n if end < P else bucket_for(n, self.min_prompt_bucket, self._chunk,
+                                          self._growth)
+        ids = np.zeros((1, pb), np.int32)
+        ids[0, :n] = pf.ids[pf.cursor:pf.cursor + n]
+        ids = torch.from_numpy(ids).to(self.device)
+        hidden, _ = _gen.decode_step_hidden(self.model, ids, pf.cursor,
+                                            self._pools, table)
+        self._prefill_chunks += 1
+        if end < P:
+            pf.cursor = end
+            return
+        tok0 = self._token0(hidden, n - 1, req, pf.counter0)
+        # publish the prompt for prefix reuse before decode writes touch
+        # its tail page (the slot's own next write forks it)
+        self._pages.insert_prefix(s, pf.ids)
+        del self._prefilling[s]
+        self._start_decode(s, req, tok0, pf.t0, P, pf.counter0)
+
+    def _preempt(self, s: int):
+        """Release slot ``s``'s pages and requeue its request at the front
+        with its generated tokens kept for the resume, which re-prefills
+        ``prompt + generated`` and continues the sampling stream at
+        counter ``len(generated)``."""
+        slot = self._slots[s]
+        slot.req._resume = list(slot.generated)
+        with self._lock:
+            self._slots[s] = None
+        self._active[s] = False
+        self._prefilling.pop(s, None)
+        self._pages.release(s)
+        self._reset_slot_state(s)
+        self._preempted += 1
+        self._resumed_tokens += len(slot.generated)
+        with self._cond:
+            # may exceed max_queue_depth: a preemption never drops a request
+            self._queue.appendleft(slot.req)
+
+    def _lease_decode(self):
+        """Fork shared pages and lease growth for this tick's decode writes
+        (each active row writes positions [pos, pos + K)). Pool exhaustion
+        preempts the youngest request (prefilling or decoding), by its
+        first admission, and retries: the oldest work always progresses."""
+        while True:
+            try:
+                for s in range(self.S):
+                    if self._active[s]:
+                        p = int(self._pos[s])
+                        self._fork_range(s, p, p + self.K)
+                        self._pages.lease(s, min(p + self.K, self.L))
+                return
+            except OutOfPages:
+                victim = max((s for s in range(self.S)
+                              if self._slots[s] is not None),
+                             key=lambda s: self._slots[s].req.admit_t)
+                self._preempt(victim)
 
     # ------------------------------------------------------------ decode
     def _step(self):
@@ -423,8 +636,29 @@ class InferenceEngine:
         hi = max(s for s in range(self.S) if self._slots[s] is not None) + 1
         sb = bucket_for(hi, 1, self.S)
         live = [(s, self._slots[s]) for s in range(sb) if self._slots[s] is not None]
+        self._dispatch(t0, sb, live, [pool[:sb] for pool in self._pools], None)
+
+    def _step_paged(self):
+        """One batched decode dispatch over the slot prefix up to the
+        highest decoding slot. Rows of the prefix that do not decode (empty
+        or mid-prefill) carry all-sink tables, position 0 and no budget:
+        their writes land in the sink page and their tokens are
+        discarded."""
+        t0 = time.perf_counter()
+        self._lease_decode()                 # may preempt
+        cur = [s for s in range(self.S) if self._active[s]]
+        if not cur:
+            return
+        sb = bucket_for(cur[-1] + 1, 1, self.S)
+        tables = np.full((sb, self.maxp), self._pages.sink, np.int32)
+        for s in cur:
+            tables[s] = self._pages.table(s)
+        live = [(s, self._slots[s]) for s in cur]
+        self._dispatch(t0, sb, live, self._pools,
+                       torch.from_numpy(tables).to(self.device))
+
+    def _dispatch(self, t0, sb, live, caches, table):
         dev = self.device
-        caches = [pool[:sb] for pool in self._pools]
         tokens = torch.from_numpy(self._tokens[:sb].copy()).to(dev)
         pos = torch.from_numpy(self._pos[:sb].copy()).to(dev)
         if self.K > 1:
@@ -433,10 +667,11 @@ class InferenceEngine:
                 self.model, tokens, pos, caches, self.K, self._temps[:sb],
                 self._seeds[:sb], self._counters[:sb],
                 eos_ids=self._eos[:sb], remaining=self._remaining[:sb],
-                done=done, head=self._head)
+                done=done, head=self._head, block_table=table)
             toks = toks.cpu().numpy()
         else:
-            logits, _ = _gen.decode_step(self.model, tokens[:, None], pos, caches)
+            logits, _ = _gen.decode_step(self.model, tokens[:, None], pos, caches,
+                                         table)
             toks = _gen.sample_tokens(logits[:, -1], self._temps[:sb])
             toks = toks.cpu().numpy()[:, None]
             steps = 1
@@ -487,6 +722,11 @@ class InferenceEngine:
             slot = self._slots[s]
             self._slots[s] = None
             self._completed[status] = self._completed.get(status, 0) + 1
+        if self._paged:
+            self._active[s] = False
+            self._prefilling.pop(s, None)
+            # shared pages survive under their prefix-cache / other refs
+            self._pages.release(s)
         self._reset_slot_state(s)
         req = slot.req
         req._complete(ServeResult(
@@ -500,10 +740,12 @@ class InferenceEngine:
 
     def _finish_unstarted(self, req: RequestHandle, status: str,
                           error: Optional[str] = None):
+        """Complete a queued request; one preempted and then expired keeps
+        the tokens it generated before the preemption."""
         with self._lock:
             self._completed[status] = self._completed.get(status, 0) + 1
         req._complete(ServeResult(status=status, prompt_ids=req.prompt_ids,
-                                  generated_ids=[],
+                                  generated_ids=list(req._resume or ()),
                                   latency_s=time.perf_counter() - req.submit_t,
                                   error=error))
 
@@ -511,17 +753,32 @@ class InferenceEngine:
     def stats(self) -> Dict[str, Any]:
         """Request, prefill and decode counters. ``decode_substeps`` counts
         incremental forwards (each runs every block once); ``decode_s`` is
-        the host wall time of the decode dispatches, read-back included."""
+        the host wall time of the decode dispatches, read-back included
+        (a paged dispatch's page leases and forks too); ``prefill_s`` spans
+        each prefill from admission to its token 0. ``kv_bytes`` is the
+        KV memory (the pools, sink page included); a paged engine adds
+        ``page_size``, the page ledger's ``pages`` counters, the slots
+        ``prefilling``, the ``preemptions`` and the ``resumed_tokens``
+        (generated tokens that preempted requests prefill again)."""
         with self._lock:
-            return {
+            out = {
                 "submitted": self._submitted,
                 "completed": dict(self._completed),
                 "queue_depth": len(self._queue),
                 "max_active": self._max_active,
                 "prefills": self._prefills,
+                "prefill_chunks": self._prefill_chunks,
                 "prefill_s": self._prefill_s,
                 "decode_dispatches": self._dispatches,
                 "decode_substeps": self._substeps,
                 "decode_tokens": self._decode_tokens,
                 "decode_s": self._decode_s,
+                "paged": self._paged,
+                "kv_bytes": sum(p.numel() * p.element_size() for p in self._pools),
             }
+        if self._paged:
+            out.update({"page_size": self.page_size, "pages": self._pages.stats(),
+                        "prefilling": len(self._prefilling),
+                        "preemptions": self._preempted,
+                        "resumed_tokens": self._resumed_tokens})
+        return out

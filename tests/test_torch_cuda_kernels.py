@@ -1,5 +1,5 @@
-"""The port's hand-written CUDA kernels (K1, K2, K3, K5, K8) against their plain
-PyTorch versions on an NVIDIA GPU. Imports neither jax nor the JAX package,
+"""The port's hand-written CUDA kernels (K1, K2, K3, K5, K6, K7, K8) against
+their plain PyTorch versions on an NVIDIA GPU. Imports neither jax nor the JAX package,
 so it runs on a machine with the card:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
@@ -11,12 +11,15 @@ import pytest
 import torch
 
 import chip_smoke
+from mxnet_tpu_torch import _build
+from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.contrib.quantization import quantize_net
 from mxnet_tpu_torch.models import GPTConfig, GPTModel
 from mxnet_tpu_torch.models import generation as gen
 from mxnet_tpu_torch.ops import attention as fa
 from mxnet_tpu_torch.ops import fused_block_gemv as fb
 from mxnet_tpu_torch.ops import int8_gemv
+from mxnet_tpu_torch.serve import InferenceEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -123,6 +126,113 @@ def test_generate_on_card_matches_across_heads(net):
 
 def _generate(net, prompt, multi_token):
     return gen.generate(net, prompt, 20, multi_token=multi_token).cpu()
+
+
+@pytest.mark.parametrize("maxp,pos,streamed", [
+    (8, [100, 127, 40, 9, 0], False),      # L 128: K6
+    (32, [511, 300, 64, 17, 0], True),     # L 512: past K6's gate, K7
+])
+def test_paged_block_decode_matches_plain(net, maxp, pos, streamed):
+    """K6 / K7 against the plain paged block step by ``chip_smoke``'s
+    rule: untouched pool rows bitwise, new rows and output to 1e-4 of the
+    output scale; K7's copies started == waited == the ``record_dma``
+    ledger. Scattered tables, two rows sharing pages, an inactive row."""
+    pack = fb.pack_gpt_block(net.blocks[0], eps=net.cfg.layer_norm_eps)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    inputs = chip_smoke.paged_inputs(torch, g, 256, 4, len(pos), 16, maxp, 80, pos)
+    chip_smoke.check_paged(torch, fb, "K7" if streamed else "K6", inputs, pack,
+                           streamed, 80, 16)
+
+
+def test_paged_kernels_give_k5_bits(net):
+    """K6 and K7 on one input give the same output and pools bit for bit,
+    and K5 on the gathered contiguous view gives the same output."""
+    pack = fb.pack_gpt_block(net.blocks[0], eps=net.cfg.layer_norm_eps)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    chip_smoke.same_bits_k5_k6_k7(torch, fb, g, pack, 80, 16, [100, 127, 40, 9, 0],
+                                  maxp=8)
+
+
+def test_paged_wrapper_raises_on_shapes_no_gate_takes(net):
+    """No fallback on the card: bf16 pools (a later lane) fail both gates,
+    so the wrapper raises instead of running the plain version."""
+    pack = fb.pack_gpt_block(net.blocks[0], eps=net.cfg.layer_norm_eps)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x, posv, table, kp, vp = chip_smoke.paged_inputs(torch, g, 256, 4, 3, 16, 8, 20,
+                                                      [40, 33, 0])
+    with pytest.raises(MXNetError, match="not fusable"):
+        fb.fused_block_decode_paged(x, posv, table, kp.bfloat16(), vp.bfloat16(), pack)
+
+
+@pytest.mark.parametrize("max_len,kind", [(128, "fused_block_paged"),
+                                          (512, "fused_block_paged_dma")])
+def test_paged_engine_on_card(cuda, max_len, kind):
+    """The paged engine on the card (K6 at L 128, K7 at L 512, K8 head):
+    every decode substep launches the kernel once per block, and greedy
+    tokens equal the engine's arithmetic on the contiguous layout (chunked
+    prefill, K5 decode), bit for bit; the pool drains to zero."""
+    cfg = GPTConfig(vocab_size=1000, hidden_size=256, num_layers=2, num_heads=4,
+                    max_position_embeddings=512, dropout=0.0)
+    model = quantize_net(GPTModel(cfg, device="cuda").init_weights(0, std=0.1),
+                         fused_decode=True)
+    rng = onp.random.RandomState(8)
+    prompts = [rng.randint(0, 1000, n).tolist() for n in (5, 37, 70, 12, 21)]
+    int8_gemv.reset_launches()
+    eng = InferenceEngine(model, max_batch_size=4, max_len=max_len, multi_token=4,
+                          page_size=16).start()
+    try:
+        res = [h.result(timeout=300) for h in [eng.submit(p, 24) for p in prompts]]
+    finally:
+        eng.shutdown(timeout=300)
+    stats = eng.stats()
+    assert stats["paged"] and all(r.ok for r in res)
+    assert int8_gemv.launches()[kind] == 2 * stats["decode_substeps"]
+    for p, r in zip(prompts, res):
+        assert r.generated_ids == chip_smoke.chunked_reference(torch, model, p, 24, 16,
+                                                               max_len)
+    eng._pages.clear_prefix_cache()
+    assert eng._pages.pages_in_use() == 0
+
+
+def test_paged_engine_preempts_and_resumes_on_card(cuda):
+    """An 8-page pool (one max_len request) under four requests that need
+    about 20 pages: decode growth preempts requests that have generated
+    tokens, and their resume re-prefills prompt + generated. Tokens equal
+    the uninterrupted contiguous arithmetic, or at a first divergence the
+    top-2 gap is below 1e-3 (a resume recomputes the generated tokens' K/V
+    rows by prefill instead of by K6)."""
+    cfg = GPTConfig(vocab_size=1000, hidden_size=256, num_layers=2, num_heads=4,
+                    max_position_embeddings=128, dropout=0.0)
+    model = quantize_net(GPTModel(cfg, device="cuda").init_weights(0, std=0.1),
+                         fused_decode=True)
+    rng = onp.random.RandomState(9)
+    prompts = [rng.randint(0, 1000, n).tolist() for n in (10, 14, 7, 12)]
+    eng = InferenceEngine(model, max_batch_size=4, max_len=64, multi_token=4, page_size=8,
+                          num_pages=8, prefix_cache=False).start()
+    try:
+        res = [h.result(timeout=300) for h in [eng.submit(p, 30) for p in prompts]]
+    finally:
+        eng.shutdown(timeout=300)
+    stats = eng.stats()
+    assert all(r.ok for r in res)
+    assert stats["preemptions"] > 0 and stats["resumed_tokens"] > 0
+    for p, r in zip(prompts, res):
+        ref = chip_smoke.chunked_reference(torch, model, p, 30, 8, 64)
+        d = chip_smoke.first_divergence(ref, r.generated_ids)
+        assert d is None or chip_smoke.chunked_gap(torch, model, p + ref[:d], 8, 64) < 1e-3
+
+
+@pytest.mark.parametrize("D,H,ps,maxp", [(768, 12, 16, 16), (768, 12, 16, 64),
+                                         (256, 4, 8, 40), (1024, 8, 32, 8),
+                                         (512, 4, 4, 100)])
+def test_paged_smem_matches_python_gates(cuda, D, H, ps, maxp):
+    """The kernels' own shared-memory arithmetic is the Python gates'."""
+    k6 = _build.library("fused_block_decode_paged")
+    k7 = _build.library("fused_block_decode_paged_dma")
+    L = ps * maxp
+    assert k6.mx_paged_smem(D, H, ps, maxp) == fb._paged_smem(D, H, L)
+    assert k7.mx_paged_dma_smem(D, H, ps, maxp, 2) == fb._paged_dma_smem(D, H, ps, L, 2)
+    assert k7.mx_paged_dma_tile_pages(D, H, ps, maxp, 2) == fb._dma_tile_pages(D, H, ps, L, 2)
 
 
 # (B, H, T, S, D, causal) of chip_smoke's kernel phase, at a smaller B

@@ -201,7 +201,9 @@ def test_unported_paths_raise(nets):
     with pytest.raises(MXNetError, match="categorical"):
         generate(tnet, prompt, 4, temperature=1.0)
     with pytest.raises(MXNetError, match="later slice"):
-        InferenceEngine(tnet, paged=True)
+        InferenceEngine(tnet, speculate=2)
+    with pytest.raises(MXNetError, match="later slice"):
+        InferenceEngine(tnet, grammar=True)
     eng = InferenceEngine(tnet, max_len=MAXPOS).start()
     try:
         with pytest.raises(MXNetError, match="temperature sampling"):
