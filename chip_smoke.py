@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 1. Builds the hand-written CUDA kernels from ``mxnet_tpu_torch/csrc``.
-2. Holds each kernel of the serving paths (K3 int8 GEMV, K5 one-launch block
+2. Holds each kernel of the int8 serving paths (K3 int8 GEMV, K5 one-launch block
    decode, K8 fused LM-head sampler, K6 and K7 one-launch paged block
    decode, gathered and streamed) against its plain PyTorch version at
    GPT-2-small shapes and times kernel, plain version and a library
@@ -28,6 +28,15 @@
    held against the engine's arithmetic on the contiguous layout and
    against ``generate()``; sampled ones repeat per seed; the page ledger
    drains to zero.
+3c. Serves int4 weight-only GPT-2 small (``quantize_net(bits=4,
+   fused_decode=True)``, the same weights): K4 (int4 GEMV) and the int4
+   weight lanes of K5, K6, K7 and K8 against their plain versions (K4 +
+   argmax equal to K8's greedy rows, K5/K6/K7 the same bits), then the
+   contiguous phase's 12 requests (held against ``generate()`` and, over
+   32 tokens of two requests, the CPU), paged phase A (K6) and phase C (4
+   requests of 300-700-token prompts at max_len 1024 without preemption,
+   K7), with int4 launch kinds only; prints the weight bytes of both
+   models and each int4 phase's peak device memory.
 4. Holds K1 (flash-attention forward) and K2 (its backward) against their
    plain versions, every output row to its own size, at the training
    shape and at ragged, end-aligned and padded-head-dim shapes, in bf16
@@ -78,6 +87,10 @@ BF16_GRAD_TOL = 0.1
 # phase B's pool: about half of what its 8 requests need together (about
 # 300 pages), so requests must be preempted
 PAGED_B_PAGES = 160
+# the int4 contiguous phase holds the first INT4_CPU_TOKENS tokens of two
+# requests against the plain path on the CPU, which dequantizes every int4
+# table on every call (about 0.3 s a token at GPT-2 small)
+INT4_CPU_TOKENS = 32
 
 
 class SmokeFailure(RuntimeError):
@@ -169,6 +182,77 @@ def kernel_k3(torch, timer, gen):
     return out
 
 
+def dequant(torch, w_q, w_scale):
+    """The f32 weight a quantized table stands for (int8 or int4 lane)."""
+    from mxnet_tpu_torch.ops.int8_gemv import dequantize_int4_table
+    if w_q.dtype != torch.uint8:
+        return w_q.float() * w_scale[:, None]
+    return dequantize_int4_table(w_q, w_scale)
+
+
+def table_bytes(*tables):
+    return sum(t.numel() * t.element_size() for t in tables)
+
+
+def kernel_k4(torch, timer, gen):
+    """K4 at every (M, N, K) the int4 serving path gives it, at 1 and 64
+    rows; returns the row of one layer's four block GEMVs at 64 rows
+    (summed, as K3's) with the 1-row sums beside it."""
+    from mxnet_tpu_torch.contrib.quantization import _quantize_int4
+    from mxnet_tpu_torch.ops import int8_gemv
+    rows = []
+    for M in (1, 64):
+        for N, K in ((2304, 768), (768, 768), (3072, 768), (768, 3072), (50304, 768)):
+            x = torch.randn(M, K, device="cuda", generator=gen)
+            w, s = _quantize_int4(torch.randn(N, K, device="cuda", generator=gen))
+            got = int8_gemv.int4_weight_matmul(x, w, s)
+            plain = int8_gemv._reference_int4_matmul(x, w, s)
+            torch.cuda.synchronize()
+            err = (got - plain).abs().max().item()
+            tol = 1e-4 * max(1.0, plain.abs().max().item())
+            check(err <= tol, f"K4 M={M} N={N} K={K}: max abs err {err} > {tol}")
+            wdeq = dequant(torch, w, s)
+            # the products, and one block-scale multiply per partial sum
+            b_ms, b_by = bound(4 * M * K + table_bytes(w, s) + 4 * M * N,
+                               2 * M * N * K + M * s.numel())
+            rows.append({
+                "M": M, "N": N, "K": K, "max_abs_err": err, "tol": tol,
+                "ms": timer(lambda: int8_gemv.int4_weight_matmul(x, w, s)),
+                "plain_ms": timer(lambda: int8_gemv._reference_int4_matmul(x, w, s)),
+                "library_ms": timer(lambda: torch.matmul(x, wdeq.T)),
+                "bound_ms": b_ms, "bound_by": b_by})
+    emit({"k4_shapes": rows})
+    out = {}
+    for M in (64, 1):
+        layer = [r for r in rows if r["M"] == M and r["N"] != 50304]
+        sums = {k: sum(r[k] for r in layer) for k in ("ms", "plain_ms", "library_ms")}
+        nbytes = sum(4 * M * r["K"] + r["N"] * r["K"] // 2 + r["N"] * r["K"] // 128 * 4
+                     + 4 * M * r["N"] for r in layer)
+        sums["bound_ms"], sums["bound_by"] = bound(
+            nbytes, sum(2 * M * r["N"] * r["K"] + M * r["N"] * r["K"] // 128
+                        for r in layer))
+        if M == 64:
+            out.update(sums)
+            out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+        else:
+            out["m1"] = sums
+    return out
+
+
+def pack_bytes(pack):
+    """Bytes of a block pack's weights, scales, biases and LayerNorms."""
+    D = pack["ln1"][0].shape[0]
+    return sum(table_bytes(*pack[k]) for k in ("qkv", "out", "fc", "proj")) + 4 * 4 * D
+
+
+def pack_ops(pack, B):
+    """Operations of a block step's four GEMVs at B rows: the products, and
+    for an int4 pack one block-scale multiply per partial sum."""
+    D = pack["ln1"][0].shape[0]
+    scales = sum(pack[k][1].numel() for k in ("qkv", "out", "fc", "proj"))
+    return 2 * B * 12 * D * D + (B * scales if pack["blocks"] else 0)
+
+
 def kernel_k5(torch, timer, gen, pack):
     """K5 at B=8, D=768, H=12, L=1024 with mixed per-row positions."""
     from mxnet_tpu_torch.ops import fused_block_gemv as fb
@@ -194,11 +278,11 @@ def kernel_k5(torch, timer, gen, pack):
               (k1 - k2).abs().max().item(), (v1 - v2).abs().max().item())
     check(err <= tol, f"K5: max abs err {err} > {tol}")
     attended = int((pos.long() + 1).sum().item()) * H
-    nbytes = (12 * D * D + 4 * 2 * 9 * D + 4 * 4 * D      # weights, scales, LN
+    nbytes = (pack_bytes(pack)                             # weights, scales, biases, LN
               + 4 * B * D * 2 + 4 * B                      # x, out, pos
               + attended * hd * 4 * 2                      # K/V rows read
               + B * H * hd * 4 * 2)                        # new rows written
-    flops = 2 * B * 12 * D * D + attended * hd * 4
+    flops = pack_ops(pack, B) + attended * hd * 4
     b_ms, b_by = bound(nbytes, flops)
     # every row at position 64, the smoke traffic's range: the step is
     # then almost all weight GEMVs, which splits K5's time into its phases
@@ -263,7 +347,7 @@ def check_paged(torch, fb, name, inputs, pack, streamed, pool, ps):
     ledger = dma_ledger()
     plain, _, _ = fb._reference_block_decode_paged(x, posv, table, k2, v2, pack)
     sync(torch, x.device)
-    want = "fused_block_paged_dma" if streamed else "fused_block_paged"
+    want = ("fused_block_paged_dma" if streamed else "fused_block_paged") + fb._kind_suffix(pack)
     check(kind == {want: 1}, f"{name}: routed to {kind}, expected {want}")
     written = paged_written(torch, posv, table, pool, ps)[:, None, :].expand(-1, kp.shape[1], -1)
     for new, ref, old in ((k1, k2, kp), (v1, v2, vp)):
@@ -295,16 +379,17 @@ def check_paged(torch, fb, name, inputs, pack, streamed, pool, ps):
     return row
 
 
-def paged_bound(x, posv, table, kp, ps):
-    """(bound_ms, bound_by) of one paged block step: int8 weights, scales,
-    LN, x, out, positions and table, the attended K/V rows, the new rows."""
+def paged_bound(x, posv, table, kp, ps, pack):
+    """(bound_ms, bound_by) of one paged block step: weights, scales,
+    biases, LN, x, out, positions and table, the attended K/V rows, the new
+    rows."""
     B, _, D = x.shape
     H, hd = kp.shape[1], kp.shape[3]
     L = table.shape[1] * ps
     attended = sum(min(p, L - 1) + 1 for p in posv.tolist()) * H
-    nbytes = (12 * D * D + 4 * 2 * 9 * D + 4 * 4 * D + 4 * B * D * 2 + 4 * B
+    nbytes = (pack_bytes(pack) + 4 * B * D * 2 + 4 * B
               + 4 * table.numel() + attended * hd * 4 * 2 + B * H * hd * 4 * 2)
-    return bound(nbytes, 2 * B * 12 * D * D + attended * hd * 4)
+    return bound(nbytes, pack_ops(pack, B) + attended * hd * 4)
 
 
 def kernel_k6_k7(torch, timer, gen, pack, pool=600, ps=16):
@@ -312,7 +397,7 @@ def kernel_k6_k7(torch, timer, gen, pack, pool=600, ps=16):
     version; K7 at L 256 against K6 (and K6 against K5 on the gathered
     contiguous view): same bits."""
     from mxnet_tpu_torch.ops import fused_block_gemv as fb
-    D, H = pack["qkv"][0].shape[1], pack["heads"]
+    D, H = pack["ln1"][0].shape[0], pack["heads"]
     rng = __import__("numpy").random.RandomState(int(gen.initial_seed()) + 6)
     pos6 = [200, 255, 33] + rng.randint(0, 256, 12).tolist() + [0]
     pos7 = [1023, 517, 64, 999, 250, 777, 3, 0]
@@ -322,7 +407,7 @@ def kernel_k6_k7(torch, timer, gen, pack, pool=600, ps=16):
         inputs = paged_inputs(torch, gen, D, H, B, ps, maxp, pool, pos)
         row = check_paged(torch, fb, name, inputs, pack, streamed, pool, ps)
         x, posv, table, kp, vp = inputs
-        row["bound_ms"], row["bound_by"] = paged_bound(x, posv, table, kp, ps)
+        row["bound_ms"], row["bound_by"] = paged_bound(x, posv, table, kp, ps, pack)
         row["ms"] = timer(lambda: fb.fused_block_decode_paged(x, posv, table, kp, vp, pack))
         k2, v2 = kp.clone(), vp.clone()
         row["plain_ms"] = timer(lambda: fb._reference_block_decode_paged(x, posv, table, k2,
@@ -338,7 +423,7 @@ def kernel_k6_k7(torch, timer, gen, pack, pool=600, ps=16):
 def same_bits_k5_k6_k7(torch, fb, gen, pack, pool, ps, pos, maxp=16):
     """K6 and K7 on one input at L 256 give the same output and pools bit
     for bit, and K5 on the gathered contiguous view gives K6's output."""
-    D, H = pack["qkv"][0].shape[1], pack["heads"]
+    D, H = pack["ln1"][0].shape[0], pack["heads"]
     x, posv, table, kp, vp = paged_inputs(torch, gen, D, H, len(pos), ps, maxp, pool, pos)
     B = len(pos)
     view = [p[table.long()].transpose(1, 2).reshape(B, H, maxp * ps, -1).contiguous()
@@ -359,24 +444,33 @@ def same_bits_k5_k6_k7(torch, fb, gen, pack, pool, ps, pos, maxp=16):
 
 
 def kernel_k8(torch, timer, gen, head):
-    """K8 at B=8 over the padded GPT-2 table, 4 greedy and 4 T=0.8 rows."""
+    """K8 at B=8 over the padded GPT-2 table (int8, or the int4 lane for a
+    uint8 table), 4 greedy and 4 T=0.8 rows; then all 8 rows greedy against
+    the argmax of the head GEMV (K3 or K4), bit for bit."""
     import numpy as np
 
     from mxnet_tpu_torch.models.generation import _key_bits
     from mxnet_tpu_torch.ops import fused_block_gemv as fb
+    from mxnet_tpu_torch.ops import int8_gemv
     w_q, scale, vocab = head
-    B, D = 8, w_q.shape[1]
+    int4 = w_q.dtype == torch.uint8
+    B, D = 8, w_q.shape[1] * (2 if int4 else 1)
     Vp = w_q.shape[0]
     h = torch.randn(B, D, device="cuda", generator=gen)
     temps = torch.tensor([0.0] * 4 + [0.8] * 4, device="cuda")
     kb = torch.from_numpy(_key_bits(np.arange(B) + 100, np.arange(B))).cuda()
     got = fb.fused_lm_head_sample(h, w_q, scale, vocab, kb, temps)
     plain = fb._reference_head_sample(h, w_q, scale, vocab, temps, kb)
+    greedy = fb.fused_lm_head_sample(h, w_q, scale, vocab, kb, torch.zeros(B, device="cuda"))
+    argmax = int8_gemv.weight_matmul(h, w_q, scale)[:, :vocab].argmax(-1)
     torch.cuda.synchronize()
     check(torch.equal(got, plain), f"K8 tokens {got.tolist()} != {plain.tolist()}")
-    wdeq = w_q.float() * scale[:, None]
-    b_ms, b_by = bound(Vp * D + 4 * Vp + 4 * B * D + 12 * B, 2 * B * Vp * D)
-    return {"max_abs_err": 0.0, "tokens": got.tolist(),
+    check(torch.equal(greedy.long(), argmax),
+          f"K8 greedy {greedy.tolist()} != head GEMV + argmax {argmax.tolist()}")
+    wdeq = dequant(torch, w_q, scale)
+    b_ms, b_by = bound(table_bytes(w_q, scale) + 4 * B * D + 12 * B,
+                       2 * B * Vp * D + (B * scale.numel() if int4 else 0))
+    return {"max_abs_err": 0.0, "tokens": got.tolist(), "greedy_equal_gemv_argmax": True,
             "ms": timer(lambda: fb.fused_lm_head_sample(h, w_q, scale, vocab, kb, temps)),
             "plain_ms": timer(lambda: fb._reference_head_sample(h, w_q, scale, vocab,
                                                                 temps, kb)),
@@ -436,7 +530,7 @@ def device_share(torch, eng, prompts, new):
     for a, b, name in spans:
         key = next((k for k in ("fused_block_decode_paged_dma", "fused_block_decode_paged",
                                 "fused_block_decode", "head_tiles", "head_reduce",
-                                "int8_gemv") if k in name), "other")
+                                "int8_gemv", "int4_gemv") if k in name), "other")
         by_kernel[key] = by_kernel.get(key, 0.0) + (b - a) / 1e3
     substeps = after["decode_substeps"] - before["decode_substeps"]
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
@@ -447,12 +541,32 @@ def device_share(torch, eng, prompts, new):
             / substeps * 1e3}
 
 
-def serve(torch, args, net, cpu_net):
+def lane(torch, net):
+    """("", the int8 kinds) or ("int4_", the int4 kinds) of a quantized
+    model: the launch kinds its GEMV, block kernels and head record, and
+    the int8 kinds that an int4 model must never record."""
+    int4 = net.blocks[0].attn_qkv.w_q.dtype == torch.uint8
+    sfx = "_int4" if int4 else ""
+    kinds = {"gemv": "gemv" + sfx, "block": "fused_block" + sfx,
+             "paged": "fused_block_paged" + sfx, "dma": "fused_block_paged_dma" + sfx,
+             "head": "fused_head" + sfx}
+    int8_kinds = ("gemv", "fused_block", "fused_block_paged", "fused_block_paged_dma",
+                  "fused_head")
+    return ("int4_" if int4 else ""), kinds, (int8_kinds if int4 else ())
+
+
+def serve(torch, args, net, cpu_net, cpu_tokens=64):
+    """The contiguous serving phase: 12 requests (8 greedy, 4 at T 0.8, 64
+    new tokens each) through ``InferenceEngine(max_batch_size=8, max_len=512,
+    multi_token=4, paged=False)``, held against ``generate()`` on the card
+    and, over the first ``cpu_tokens`` tokens of two requests, against the
+    plain path on the CPU. Returns the launch counts of the window."""
     import numpy as np
 
     from mxnet_tpu_torch.models import generate
     from mxnet_tpu_torch.ops.int8_gemv import launches, reset_launches
     from mxnet_tpu_torch.serve import InferenceEngine
+    tag, kinds, forbidden = lane(torch, net)
     rng = np.random.RandomState(args.seed)
     vocab = net.cfg.vocab_size
     prompts = [rng.randint(0, vocab, int(n)).tolist()
@@ -483,10 +597,15 @@ def serve(torch, args, net, cpu_net):
         check(r.ok and len(r.generated_ids) == new, f"request {i}: {r.status} "
               f"{len(r.generated_ids)} tokens {r.error}")
     substeps = after["decode_substeps"] - before["decode_substeps"]
-    check(counts.get("fused_block", 0) == LAYERS * substeps,
-          f"K5 launches {counts.get('fused_block')} != 12 x {substeps} decode steps")
-    check(counts.get("fused_head", 0) > 0, "K8 never launched on the serving path")
-    check(counts.get("gemv", 0) > 0, "K3 never launched on the serving path")
+    prefills = after["prefills"] - before["prefills"]
+    check(counts.get(kinds["block"], 0) == LAYERS * substeps,
+          f"K5 launches {counts.get(kinds['block'])} != 12 x {substeps} decode steps")
+    # one head launch per decode substep, and one selecting each request's token 0
+    check(counts.get(kinds["head"], 0) == substeps + prefills,
+          f"K8 launches {counts.get(kinds['head'])} != {substeps} substeps + {prefills} "
+          "prefills")
+    check(counts.get(kinds["gemv"], 0) > 0, "the head/prefill GEMV never launched")
+    check(not any(counts.get(k) for k in forbidden), f"an int8 kind launched: {counts}")
     for i in range(8, 12):
         toks = results[i].generated_ids
         check(all(0 <= t < vocab for t in toks), f"request {i}: token outside vocab")
@@ -505,8 +624,8 @@ def serve(torch, args, net, cpu_net):
     t_cpu = time.perf_counter()
     for i in range(2):
         p = torch.tensor([prompts[i]], dtype=torch.int32)
-        ref = generate(cpu_net, p, new)[0, len(prompts[i]):].tolist()
-        got = results[i].generated_ids
+        ref = generate(cpu_net, p, cpu_tokens)[0, len(prompts[i]):].tolist()
+        got = results[i].generated_ids[:cpu_tokens]
         d = first_divergence(ref, got)
         row = {"request": i, "equal": d is None, "first_divergence": d}
         if d is not None:
@@ -515,11 +634,12 @@ def serve(torch, args, net, cpu_net):
                   f"request {i}: card and CPU diverge at {d} with top-2 gap "
                   f"{row['top2_gap']}")
         cpu_rows.append(row)
-    emit({"cpu_compare": cpu_rows, "cpu_s": time.perf_counter() - t_cpu})
+    emit({tag + "cpu_compare": cpu_rows, "cpu_tokens": cpu_tokens,
+          "cpu_s": time.perf_counter() - t_cpu})
     tokens = sum(len(r.generated_ids) for r in results)
     dsteps = after["decode_substeps"] - before["decode_substeps"]
     dsec = after["decode_s"] - before["decode_s"]
-    emit({"engine": {"requests": len(results), "greedy": 8, "sampled": 4,
+    emit({tag + "engine": {"requests": len(results), "greedy": 8, "sampled": 4,
                      "new_tokens_each": new, "wall_s": wall,
                      "tokens_per_s": tokens / wall,
                      "decode_substeps": dsteps,
@@ -531,7 +651,7 @@ def serve(torch, args, net, cpu_net):
                      "launches": counts,
                      "greedy_equal_generate_mt4_and_mt1": gen_match}})
     # the 8 greedy requests again, traced: device time against host wall
-    emit({"profiled_window": profiled if profiled is not None else "not measured"})
+    emit({tag + "profiled_window": profiled if profiled is not None else "not measured"})
     return counts
 
 
@@ -623,7 +743,7 @@ def greedy_rows(torch, net, prompts, results, new, chunk, max_len):
 
 
 def serve_paged(torch, args, net, phase):
-    """A paged serving phase of int8 GPT-2 small through
+    """A paged serving phase of quantized GPT-2 small through
     ``InferenceEngine(paged=True, fused=True, multi_token=4)``.
 
     A (K6): 16 slots, max_len 256, a 128-page pool (the contiguous bytes of
@@ -634,28 +754,33 @@ def serve_paged(torch, args, net, phase):
     300-700-token prompts prefilled in 16-token chunks, 128 new tokens
     each, submitted together, on a pool of PAGED_B_PAGES, about half of
     what they need together, so requests are preempted and resumed.
+    C (K7, no preemption): 4 slots, max_len 1024, no prefix cache; 4 greedy
+    requests of 300-700-token prompts, 32 new tokens each, submitted
+    together, on the default pool (the contiguous bytes of the 4 slots).
     Returns the launch counts of the concurrent window."""
     import numpy as np
 
     from mxnet_tpu_torch.ops.int8_gemv import dma_ledger, launches, reset_launches
     from mxnet_tpu_torch.serve import InferenceEngine
     from mxnet_tpu_torch.serve.paging import pages_for
-    rng = np.random.RandomState(args.seed + (1 if phase == "A" else 2))
+    tag, kinds, forbidden = lane(torch, net)
+    rng = np.random.RandomState(args.seed + {"A": 1, "B": 2, "C": 3}[phase])
     vocab = net.cfg.vocab_size
     if phase == "A":
         system = rng.randint(0, vocab, 40).tolist()
         prompts = [system + rng.randint(0, vocab, int(n)).tolist()
                    for n in rng.randint(8, 41, 16)]
         temps = [0.0] * 12 + [0.8] * 4
-        new, kernel, other = 64, "fused_block_paged", "fused_block_paged_dma"
+        new, kernel, other = 64, kinds["paged"], kinds["dma"]
         kw = dict(max_batch_size=16, max_len=256, num_pages=128)
     else:
+        n_req = 8 if phase == "B" else 4
         prompts = [rng.randint(0, vocab, int(n)).tolist()
-                   for n in rng.randint(300, 701, 8)]
-        temps = [0.0] * 8
-        new, kernel, other = 128, "fused_block_paged_dma", "fused_block_paged"
-        kw = dict(max_batch_size=8, max_len=1024, num_pages=PAGED_B_PAGES,
-                  prefix_cache=False)
+                   for n in rng.randint(300, 701, n_req)]
+        temps = [0.0] * n_req
+        new, kernel, other = (128 if phase == "B" else 32), kinds["dma"], kinds["paged"]
+        kw = (dict(max_batch_size=8, max_len=1024, num_pages=PAGED_B_PAGES, prefix_cache=False)
+              if phase == "B" else dict(max_batch_size=4, max_len=1024, prefix_cache=False))
     eng = InferenceEngine(net, multi_token=4, fused=True, paged=True, page_size=16,
                           **kw).start()
     try:
@@ -687,16 +812,20 @@ def serve_paged(torch, args, net, phase):
     substeps = after["decode_substeps"] - before["decode_substeps"]
     check(counts.get(kernel, 0) == LAYERS * substeps,
           f"phase {phase}: {kernel} launches {counts.get(kernel)} != 12 x {substeps}")
-    check(not counts.get(other) and not counts.get("fused_block"),
+    check(not counts.get(other) and not counts.get(kinds["block"]),
           f"phase {phase}: other block kernels launched: {counts}")
+    check(not any(counts.get(k) for k in forbidden), f"phase {phase}: an int8 kind launched: "
+          f"{counts}")
     check(ledger["copies"] == ledger["waits"], f"phase {phase}: DMA ledger {ledger}")
     pages = after["pages"]
     if phase == "A":
         check(after["max_active"] > 8, f"phase A: max_active {after['max_active']} <= 8")
         check(pages["prefix_hits"] >= 15 and pages["cow_forks"] > 0,
               f"phase A: prefix hits {pages['prefix_hits']}, forks {pages['cow_forks']}")
-    else:
+    elif phase == "B":
         check(after["preemptions"] > 0, "phase B: no preemption")
+    else:
+        check(after["preemptions"] == 0, f"phase C: {after['preemptions']} preemptions")
     for i, r in zip(sampled, again):
         toks = results[i].generated_ids
         check(all(0 <= t < vocab for t in toks), f"phase {phase} request {i}: token outside vocab")
@@ -710,7 +839,7 @@ def serve_paged(torch, args, net, phase):
                        [results[i].generated_ids for i in greedy], new, 16, kw["max_len"])
     tokens = sum(len(r.generated_ids) for r in results[len(first):])
     dsec = after["decode_s"] - before["decode_s"]
-    emit({f"paged_{phase}": {
+    emit({f"{tag}paged_{phase}": {
         "kernel": kernel, "requests": len(prompts), "new_tokens_each": new,
         "prompt_tokens": [len(p) for p in prompts], **kw,
         "pages_needed": sum(pages_for(len(p) + new + 3, 16) for p in prompts),
@@ -730,6 +859,53 @@ def serve_paged(torch, args, net, phase):
         "greedy_identical_generate_mt4": all(r["generate_mt4"]["equal"] for r in rows),
         "profiled_window": profiled if profiled is not None else "not measured"}})
     return counts
+
+
+def quant_bytes(torch, net):
+    """Bytes of a quantized model's weight tables and scales: the blocks'
+    QuantizedDense layers and the tied head."""
+    from mxnet_tpu_torch.contrib.quantization import QuantizedDense
+    blocks = sum(table_bytes(m.w_q, m.w_scale) for m in net.modules()
+                 if isinstance(m, QuantizedDense))
+    w, s, _ = net.head_weights()
+    return {"blocks": blocks, "head": table_bytes(w, s), "total": blocks + table_bytes(w, s)}
+
+
+def int4_stage(torch, args, timer, gen, int8_bytes):
+    """The int4 serving path: GPT-2 small from the same ``--seed`` under
+    ``quantize_net(bits=4, fused_decode=True)``. K4 and the int4 lanes of
+    K5, K6, K7 and K8 against their plain versions, then the contiguous
+    phase, paged phase A (K6) and paged phase C (K7), each with its peak
+    device memory. Returns ({phase: launch counts}, {kernel: row})."""
+    from mxnet_tpu_torch.contrib.quantization import quantize_net
+    from mxnet_tpu_torch.models import GPT2_SMALL, GPTModel
+    from mxnet_tpu_torch.ops.fused_block_gemv import pack_gpt_block
+    with torch.no_grad():
+        net = GPTModel(GPT2_SMALL, device="cuda").init_weights(args.seed)
+        quantize_net(net, bits=4, fused_decode=True)
+        check(all(blk._fused_pack is not None and blk._fused_pack["blocks"] == (128,) * 4
+                  for blk in net.blocks), "int4 GPT-2 small: a block is not packed int4")
+        pack = pack_gpt_block(net.blocks[0], eps=net.cfg.layer_norm_eps)
+        rows = {"K4": kernel_k4(torch, timer, gen), "K5": kernel_k5(torch, timer, gen, pack),
+                "K8": kernel_k8(torch, timer, gen, net.head_weights())}
+        k67 = kernel_k6_k7(torch, timer, gen, pack)
+        rows["K6"], rows["K7"] = k67["K6"], k67["K7"]
+        cpu_net = GPTModel(GPT2_SMALL, device="cpu").init_weights(args.seed)
+        quantize_net(cpu_net, bits=4, fused_decode=True)
+    emit({"int4_kernels": {"k4": rows["K4"], "k5": rows["K5"], "k8": rows["K8"],
+                           "k6_k7": k67}})
+    emit({"quantized_weight_bytes": {"int8": int8_bytes, "int4": quant_bytes(torch, net)}})
+    counts, mem = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    counts["contiguous"] = serve(torch, args, net, cpu_net, cpu_tokens=INT4_CPU_TOKENS)
+    mem["contiguous"] = torch.cuda.max_memory_allocated() / 1e9
+    del cpu_net
+    for phase in "AC":
+        torch.cuda.reset_peak_memory_stats()
+        counts[phase] = serve_paged(torch, args, net, phase)
+        mem[phase] = torch.cuda.max_memory_allocated() / 1e9
+    emit({"int4_peak_mem_gb": mem})
+    return counts, rows
 
 
 def visible_pairs(T, S, causal):
@@ -1163,7 +1339,11 @@ def main(argv=None):
     serve_counts = serve(torch, args, net, cpu_net)
     del cpu_net
     paged_counts = {phase: serve_paged(torch, args, net, phase) for phase in "AB"}
+    int8_bytes = quant_bytes(torch, net)
     del net
+    torch.cuda.empty_cache()
+
+    int4_counts, r4 = int4_stage(torch, args, timer, gen, int8_bytes)
     torch.cuda.empty_cache()
 
     k1, k2 = kernel_flash(torch, timer, gen)
@@ -1187,6 +1367,21 @@ def main(argv=None):
              paged_counts["B"], k67["K7"]),
             ("lm_head_sample", "mxnet_tpu_torch/csrc/lm_head_sample.cu",
              "mxnet_tpu/ops/fused_block_gemv.py:1218", "fused_head", serve_counts, k8),
+            ("int4_gemv", "mxnet_tpu_torch/csrc/int4_gemv.cu",
+             "mxnet_tpu/ops/int8_gemv.py:186", "gemv_int4", int4_counts["contiguous"], r4["K4"]),
+            ("fused_block_decode_int4", "mxnet_tpu_torch/csrc/fused_block_decode.cu",
+             "mxnet_tpu/ops/fused_block_gemv.py:424", "fused_block_int4",
+             int4_counts["contiguous"], r4["K5"]),
+            ("fused_block_decode_paged_int4", "mxnet_tpu_torch/csrc/fused_block_decode_paged.cu",
+             "mxnet_tpu/ops/fused_block_gemv.py:601", "fused_block_paged_int4",
+             int4_counts["A"], r4["K6"]),
+            ("fused_block_decode_paged_dma_int4",
+             "mxnet_tpu_torch/csrc/fused_block_decode_paged_dma.cu",
+             "mxnet_tpu/ops/fused_block_gemv.py:810", "fused_block_paged_dma_int4",
+             int4_counts["C"], r4["K7"]),
+            ("lm_head_sample_int4", "mxnet_tpu_torch/csrc/lm_head_sample.cu",
+             "mxnet_tpu/ops/fused_block_gemv.py:1218", "fused_head_int4",
+             int4_counts["contiguous"], r4["K8"]),
             ("flash_attention_fwd", "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
              "mxnet_tpu/ops/attention.py:286", "flash_fwd", train_counts, k1),
             ("flash_attention_bwd", "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -1196,6 +1391,7 @@ def main(argv=None):
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        check(rows[-1]["launches"] > 0, f"{name} never launched on its main path")
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

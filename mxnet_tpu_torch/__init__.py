@@ -16,6 +16,9 @@ its attention carried by K1 (flash-attention forward) and K2 (backward).
 Slice 3 serves GPT-2 from the paged KV pool (``serve.paging``,
 ``InferenceEngine(paged=True)``) with K6 (paged block decode, pages
 gathered into shared memory) and K7 (pages streamed by TMA bulk copies).
+Slice 4 serves GPT-2 with packed int4 weights (``quantize_net(bits=4)``,
+the ``kvstore.quant`` codec) through K4 (int4 GEMV) and the int4 weight
+lanes of K5, K6, K7 and K8.
 """
 from . import base, device
 from .base import MXNetError

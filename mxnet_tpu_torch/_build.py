@@ -31,6 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # kernel library name -> source file
 SOURCES = {
     "int8_gemv": "int8_gemv.cu",
+    "int4_gemv": "int4_gemv.cu",
     "fused_block_decode": "fused_block_decode.cu",
     "fused_block_decode_paged": "fused_block_decode_paged.cu",
     "fused_block_decode_paged_dma": "fused_block_decode_paged_dma.cu",
@@ -103,25 +104,28 @@ def _declare(name: str, lib: ctypes.CDLL):
     if name == "int8_gemv":
         lib.mx_int8_gemv.argtypes = [p, p, p, p, i, i, i, p]
         lib.mx_int8_gemv.restype = i
+    elif name == "int4_gemv":
+        lib.mx_int4_gemv.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.mx_int4_gemv.restype = i
     elif name == "fused_block_decode":
-        lib.mx_fused_block_decode.argtypes = [p] * 22 + [i, i, i, i, f, p]
+        lib.mx_fused_block_decode.argtypes = [p] * 22 + [i] * 6 + [f, p]
         lib.mx_fused_block_decode.restype = i
         lib.mx_fused_block_smem.argtypes = [i, i, i]
         lib.mx_fused_block_smem.restype = ctypes.c_longlong
     elif name == "fused_block_decode_paged":
-        lib.mx_fused_block_decode_paged.argtypes = [p] * 23 + [i] * 6 + [f, p]
+        lib.mx_fused_block_decode_paged.argtypes = [p] * 23 + [i] * 8 + [f, p]
         lib.mx_fused_block_decode_paged.restype = i
         lib.mx_paged_smem.argtypes = [i] * 4
         lib.mx_paged_smem.restype = ctypes.c_longlong
     elif name == "fused_block_decode_paged_dma":
-        lib.mx_fused_block_decode_paged_dma.argtypes = [p] * 24 + [i] * 7 + [f, p]
+        lib.mx_fused_block_decode_paged_dma.argtypes = [p] * 24 + [i] * 9 + [f, p]
         lib.mx_fused_block_decode_paged_dma.restype = i
         lib.mx_paged_dma_smem.argtypes = [i] * 5
         lib.mx_paged_dma_smem.restype = ctypes.c_longlong
         lib.mx_paged_dma_tile_pages.argtypes = [i] * 5
         lib.mx_paged_dma_tile_pages.restype = i
     elif name == "lm_head_sample":
-        lib.mx_lm_head_sample.argtypes = [p] * 8 + [i, i, i, i, p]
+        lib.mx_lm_head_sample.argtypes = [p] * 8 + [i] * 5 + [p]
         lib.mx_lm_head_sample.restype = i
         lib.mx_head_tiles.argtypes = [i]
         lib.mx_head_tiles.restype = i

@@ -11,7 +11,11 @@
 //   4. LN2 -> fc GEMV + tanh-GeLU -> fc
 //   5. proj GEMV + residual -> out   (3 to 5: block_phases_out_mlp)
 // Every weight matrix is streamed once, by warps spread over all resident
-// CTAs, with the fixed-order dot of gemv_common.cuh. LayerNorm is
+// CTAs, with the fixed-order dot of gemv_common.cuh, in one of its two
+// weight lanes: the phases are templates on the lane (Int8Rows: int8 rows,
+// per-channel scales after the dot; Int4Rows: packed nibble rows, block
+// scales on each code before its FMA), and every kernel is instantiated for
+// both and picks one at launch by BlockArgs::block. LayerNorm is
 // recomputed per CTA from the B x D rows instead of paying a grid barrier.
 // The attention helpers (cta_max, cta_sum and the order of every sum) are
 // shared too, so the three kernels give a row the same bits for the same
@@ -28,19 +32,22 @@ namespace mx {
 
 static_assert(kWarps == kRowTile, "LayerNorm staging gives one warp per row");
 
-// The weights, activations and scratch of one block step.
+// The weights, activations and scratch of one block step. The int8 lane
+// (block == 0): w_* [N, K] int8, s_* [N] f32. The int4 lane: w_* [N, K / 2]
+// uint8 nibble pairs, s_* [N, K / block] f32 block scales, with `block` the
+// codes per scale of the three K = D matrices and `block4` of proj (K = 4D).
 struct BlockArgs {
   const float* x;  // [B, D]
-  const int8_t* w_qkv;
+  const void* w_qkv;
   const float* s_qkv;
   const float* b_qkv;  // [3D, D]
-  const int8_t* w_out;
+  const void* w_out;
   const float* s_out;
   const float* b_out;  // [D, D]
-  const int8_t* w_fc;
+  const void* w_fc;
   const float* s_fc;
   const float* b_fc;  // [4D, D]
-  const int8_t* w_proj;
+  const void* w_proj;
   const float* s_proj;
   const float* b_proj;  // [D, 4D]
   const float* g1;
@@ -53,6 +60,7 @@ struct BlockArgs {
   float* fc;   // scratch [B, 4D]
   float* out;  // [B, D]
   int B, D, H;
+  int block, block4;
   float eps;
 };
 
@@ -64,18 +72,18 @@ inline void set_block_args(BlockArgs& a, const void* x, const void* w_qkv, const
                            const void* b_fc, const void* w_proj, const void* s_proj,
                            const void* b_proj, const void* g1, const void* be1, const void* g2,
                            const void* be2, void* scratch, void* out, int B, int D, int H,
-                           float eps) {
+                           int block, int block4, float eps) {
   a.x = static_cast<const float*>(x);
-  a.w_qkv = static_cast<const int8_t*>(w_qkv);
+  a.w_qkv = w_qkv;
   a.s_qkv = static_cast<const float*>(s_qkv);
   a.b_qkv = static_cast<const float*>(b_qkv);
-  a.w_out = static_cast<const int8_t*>(w_out);
+  a.w_out = w_out;
   a.s_out = static_cast<const float*>(s_out);
   a.b_out = static_cast<const float*>(b_out);
-  a.w_fc = static_cast<const int8_t*>(w_fc);
+  a.w_fc = w_fc;
   a.s_fc = static_cast<const float*>(s_fc);
   a.b_fc = static_cast<const float*>(b_fc);
-  a.w_proj = static_cast<const int8_t*>(w_proj);
+  a.w_proj = w_proj;
   a.s_proj = static_cast<const float*>(s_proj);
   a.b_proj = static_cast<const float*>(b_proj);
   a.g1 = static_cast<const float*>(g1);
@@ -91,7 +99,18 @@ inline void set_block_args(BlockArgs& a, const void* x, const void* w_qkv, const
   a.B = B;
   a.D = D;
   a.H = H;
+  a.block = block;
+  a.block4 = block4;
   a.eps = eps;
+}
+
+// The lane's block sizes are valid for this D (0, 0: the int8 lane): every
+// int4 chunk of 16 codes lies in one scale block and both K divide into
+// blocks (ops/fused_block_gemv._tiles).
+inline bool lane_fits(int D, int block, int block4) {
+  if (block == 0 && block4 == 0) return true;
+  return block >= 16 && block4 >= 16 && block % 16 == 0 && block4 % 16 == 0 && D % block == 0 &&
+         (4 * D) % block4 == 0;
 }
 
 // Shared memory of the staged activation tile: kRowTile rows of the
@@ -199,17 +218,19 @@ struct GeluEpi {
   }
 };
 
-// epi(r0 + r, n, xs[r] . w[n] * s[n] + bias[n]) for the staged rows, n
-// over all warps of the grid.
-template <class Epi>
-__device__ void gemv_rows(const float* xs, int r0, int nr, const int8_t* w, const float* s,
-                          const float* bias, int N, int K, const Epi& epi) {
+// epi(r0 + r, n, xs[r] . w[n] * scale(n) + bias[n]) for the staged rows, n
+// over all warps of the grid; w is the lane W's table [N, K] with its
+// scales s and the lane's block (unused by the int8 lane).
+template <class W, class Epi>
+__device__ void gemv_rows(const float* xs, int r0, int nr, const void* w, const float* s,
+                          int block, const float* bias, int N, int K, const Epi& epi) {
+  const W wt(w, s, K, block);
   const int lane = threadIdx.x & 31;
   const int gw = blockIdx.x * kWarps + (threadIdx.x >> 5);
   for (int n = gw; n < N; n += gridDim.x * kWarps) {
     float acc[kRowTile];
-    warp_dot_rows(xs, nr, w + static_cast<size_t>(n) * K, K, acc);
-    const float sc = __ldg(s + n);
+    warp_dot_rows(xs, nr, wt, n, K, acc);
+    const float sc = wt.scale(n);
     const float bn = __ldg(bias + n);
 #pragma unroll
     for (int r = 0; r < kRowTile; ++r) {
@@ -219,18 +240,19 @@ __device__ void gemv_rows(const float* xs, int r0, int nr, const int8_t* w, cons
 }
 
 // Phase 1: LN1 -> qkv GEMV; epi receives every qkv channel.
-template <class Epi>
+template <class W, class Epi>
 __device__ void block_phase_qkv(const BlockArgs& a, float* smem, const Epi& epi) {
   for (int r0 = 0; r0 < a.B; r0 += kRowTile) {
     const int nr = min(kRowTile, a.B - r0);
     stage_ln(smem, a.x, r0, nr, a.D, a.g1, a.be1, a.eps);
     __syncthreads();
-    gemv_rows(smem, r0, nr, a.w_qkv, a.s_qkv, a.b_qkv, 3 * a.D, a.D, epi);
+    gemv_rows<W>(smem, r0, nr, a.w_qkv, a.s_qkv, a.block, a.b_qkv, 3 * a.D, a.D, epi);
     __syncthreads();
   }
 }
 
 // Phases 3 to 5, after the attention phase and its grid barrier.
+template <class W>
 __device__ void block_phases_out_mlp(const BlockArgs& a, float* smem,
                                      cooperative_groups::grid_group& grid) {
   const int D = a.D;
@@ -239,7 +261,8 @@ __device__ void block_phases_out_mlp(const BlockArgs& a, float* smem,
     const int nr = min(kRowTile, a.B - r0);
     stage_rows(smem, a.ctx, r0, nr, D);
     __syncthreads();
-    gemv_rows(smem, r0, nr, a.w_out, a.s_out, a.b_out, D, D, ResidualEpi{a.x, a.res, D});
+    gemv_rows<W>(smem, r0, nr, a.w_out, a.s_out, a.block, a.b_out, D, D,
+                 ResidualEpi{a.x, a.res, D});
     __syncthreads();
   }
   grid.sync();
@@ -248,7 +271,8 @@ __device__ void block_phases_out_mlp(const BlockArgs& a, float* smem,
     const int nr = min(kRowTile, a.B - r0);
     stage_ln(smem, a.res, r0, nr, D, a.g2, a.be2, a.eps);
     __syncthreads();
-    gemv_rows(smem, r0, nr, a.w_fc, a.s_fc, a.b_fc, 4 * D, D, GeluEpi{a.fc, 4 * D});
+    gemv_rows<W>(smem, r0, nr, a.w_fc, a.s_fc, a.block, a.b_fc, 4 * D, D,
+                 GeluEpi{a.fc, 4 * D});
     __syncthreads();
   }
   grid.sync();
@@ -257,8 +281,8 @@ __device__ void block_phases_out_mlp(const BlockArgs& a, float* smem,
     const int nr = min(kRowTile, a.B - r0);
     stage_rows(smem, a.fc, r0, nr, 4 * D);
     __syncthreads();
-    gemv_rows(smem, r0, nr, a.w_proj, a.s_proj, a.b_proj, D, 4 * D,
-              ResidualEpi{a.res, a.out, D});
+    gemv_rows<W>(smem, r0, nr, a.w_proj, a.s_proj, a.block4, a.b_proj, D, 4 * D,
+                 ResidualEpi{a.res, a.out, D});
     __syncthreads();
   }
 }
@@ -349,5 +373,26 @@ struct PagedQkvEpi {
     pool[((static_cast<size_t>(page) * H + h) * ps + p % ps) * hd + (c - h * hd)] = y;
   }
 };
+
+// Cooperative launch of one of a block kernel's two lane instantiations
+// (kernel8 for the int8 lane, kernel4 for the int4 lane, chosen by
+// a.blk.block) on the grid of block_grid, never more CTAs than fit at once.
+template <class Args>
+inline int launch_block(void (*kernel8)(Args), void (*kernel4)(Args), Args& a, size_t smem,
+                        void* stream) {
+  if (!lane_fits(a.blk.D, a.blk.block, a.blk.block4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  void (*kernel)(Args) = a.blk.block ? kernel4 : kernel8;
+  int ctas = 0;
+  cudaError_t err = resident_ctas(kernel, smem, &ctas);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = block_grid(a.blk.B, a.blk.D, a.blk.H, ctas);
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(grid), dim3(kThreads),
+                                    params, smem, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace mx

@@ -9,12 +9,15 @@
 // _pallas_block_decode (pl.pallas_call at fused_block_gemv.py:566), reached
 // through fused_block_decode (:1116).
 //
-// Bound: the int8 weight bytes (12 D^2: 7.1 MB per GPT-2-small block) plus
+// Bound: the weight bytes (int8: 12 D^2, 7.1 MB per GPT-2-small block; int4:
+// 6 D^2 + 12 D^2 / 128 * 4, 3.8 MB) plus
 // the cache rows the step attends over (B * H * (pos + 1) * hd * 4 bytes,
 // K and V), at 3.35 TB/s; at long positions the cache rows dominate.
 //
 // Design against that bound: the weight phases of block_decode_common.cuh
-// stream every matrix once over all resident CTAs; activations stay on chip
+// stream every matrix once over all resident CTAs, in the int8 or the int4
+// weight lane (the kernel is instantiated for both; the TPU kernel's
+// _deq_dot_body took either by the table's dtype); activations stay on chip
 // or in a few KB of global scratch. The TPU grid ran its phases in order on
 // one core; here the phases are separated by cooperative_groups grid
 // barriers, so the grid never exceeds the number of co-resident CTAs.
@@ -85,14 +88,15 @@ __device__ void attention(const Args& a, float* smem) {
   }
 }
 
+template <class W>
 __global__ void __launch_bounds__(mx::kThreads) fused_block_decode_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
-  mx::block_phase_qkv(a.blk, smem, mx::StoreEpi{a.blk.qkv, 3 * a.blk.D});
+  mx::block_phase_qkv<W>(a.blk, smem, mx::StoreEpi{a.blk.qkv, 3 * a.blk.D});
   grid.sync();
   attention(a, smem);  // cache row write + attention -> ctx
   grid.sync();
-  mx::block_phases_out_mlp(a.blk, smem, grid);
+  mx::block_phases_out_mlp<W>(a.blk, smem, grid);
 }
 
 }  // namespace
@@ -109,17 +113,20 @@ extern "C" long long mx_fused_block_smem(int D, int H, int L) {
   return static_cast<long long>(sizeof(float)) * (tile > attn ? tile : attn);
 }
 
-// scratch: 9 * B * D f32 (qkv 3D, ctx D, res D, fc 4D per row).
+// scratch: 9 * B * D f32 (qkv 3D, ctx D, res D, fc 4D per row). block =
+// block4 = 0: int8 weights; else int4 weights with those scale blocks
+// (BlockArgs).
 extern "C" int mx_fused_block_decode(
     const void* x, const void* pos, const void* w_qkv, const void* s_qkv, const void* b_qkv,
     const void* w_out, const void* s_out, const void* b_out, const void* w_fc,
     const void* s_fc, const void* b_fc, const void* w_proj, const void* s_proj,
     const void* b_proj, const void* g1, const void* be1, const void* g2, const void* be2,
-    void* kc, void* vc, void* scratch, void* out, int B, int D, int H, int L, float eps,
-    void* stream) {
+    void* kc, void* vc, void* scratch, void* out, int B, int D, int H, int L, int block,
+    int block4, float eps, void* stream) {
   Args a;
   mx::set_block_args(a.blk, x, w_qkv, s_qkv, b_qkv, w_out, s_out, b_out, w_fc, s_fc, b_fc,
-                     w_proj, s_proj, b_proj, g1, be1, g2, be2, scratch, out, B, D, H, eps);
+                     w_proj, s_proj, b_proj, g1, be1, g2, be2, scratch, out, B, D, H, block,
+                     block4, eps);
   a.pos = static_cast<const int*>(pos);
   a.kc = static_cast<float*>(kc);
   a.vc = static_cast<float*>(vc);
@@ -127,14 +134,6 @@ extern "C" int mx_fused_block_decode(
 
   const size_t smem = static_cast<size_t>(mx_fused_block_smem(D, H, L));
   if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
-  int ctas = 0;
-  cudaError_t err = mx::resident_ctas(fused_block_decode_kernel, smem, &ctas);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = mx::block_grid(B, D, H, ctas);
-  void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(fused_block_decode_kernel),
-                                    dim3(grid), dim3(mx::kThreads), params, smem,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return mx::launch_block(fused_block_decode_kernel<mx::Int8Rows>,
+                          fused_block_decode_kernel<mx::Int4Rows>, a, smem, stream);
 }

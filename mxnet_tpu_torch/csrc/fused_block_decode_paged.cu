@@ -11,7 +11,8 @@
 // _pallas_block_decode_paged (pl.pallas_call at fused_block_gemv.py:772),
 // reached through fused_block_decode_paged (:1140).
 //
-// Bound: the int8 weight bytes (12 D^2: 7.1 MB per GPT-2-small block) plus
+// Bound: the weight bytes (int8: 12 D^2, 7.1 MB per GPT-2-small block; int4:
+// 6 D^2 + 12 D^2 / 128 * 4, 3.8 MB) plus
 // the K/V rows the step attends over (sum_b (pos_b + 1) * H * hd * 4 bytes,
 // K and V) plus the new rows (2 * B * D * 4 bytes), at 3.35 TB/s.
 //
@@ -110,16 +111,17 @@ __device__ void attention(const Args& a, float* smem) {
   }
 }
 
+template <class W>
 __global__ void __launch_bounds__(mx::kThreads) fused_block_decode_paged_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
-  mx::block_phase_qkv(a.blk, smem,
+  mx::block_phase_qkv<W>(a.blk, smem,
                       mx::PagedQkvEpi{a.blk.qkv, a.pos, a.bt, a.kp, a.vp, a.blk.D, a.blk.H,
                                       a.ps, a.maxp, a.sink});
   grid.sync();  // every row's K/V scatter lands before any gather
   attention(a, smem);
   grid.sync();
-  mx::block_phases_out_mlp(a.blk, smem, grid);
+  mx::block_phases_out_mlp<W>(a.blk, smem, grid);
 }
 
 }  // namespace
@@ -144,10 +146,11 @@ extern "C" int mx_fused_block_decode_paged(
     const void* w_fc, const void* s_fc, const void* b_fc, const void* w_proj,
     const void* s_proj, const void* b_proj, const void* g1, const void* be1, const void* g2,
     const void* be2, void* kp, void* vp, void* scratch, void* out, int B, int D, int H, int ps,
-    int maxp, int sink, float eps, void* stream) {
+    int maxp, int sink, int block, int block4, float eps, void* stream) {
   Args a;
   mx::set_block_args(a.blk, x, w_qkv, s_qkv, b_qkv, w_out, s_out, b_out, w_fc, s_fc, b_fc,
-                     w_proj, s_proj, b_proj, g1, be1, g2, be2, scratch, out, B, D, H, eps);
+                     w_proj, s_proj, b_proj, g1, be1, g2, be2, scratch, out, B, D, H, block,
+                     block4, eps);
   a.pos = static_cast<const int*>(pos);
   a.bt = static_cast<const int*>(bt);
   a.kp = static_cast<float*>(kp);
@@ -158,14 +161,6 @@ extern "C" int mx_fused_block_decode_paged(
 
   const size_t smem = static_cast<size_t>(mx_paged_smem(D, H, ps, maxp));
   if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
-  int ctas = 0;
-  cudaError_t err = mx::resident_ctas(fused_block_decode_paged_kernel, smem, &ctas);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = mx::block_grid(B, D, H, ctas);
-  void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(fused_block_decode_paged_kernel),
-                                    dim3(grid), dim3(mx::kThreads), params, smem,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return mx::launch_block(fused_block_decode_paged_kernel<mx::Int8Rows>,
+                          fused_block_decode_paged_kernel<mx::Int4Rows>, a, smem, stream);
 }

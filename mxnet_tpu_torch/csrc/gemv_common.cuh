@@ -1,16 +1,23 @@
-// Shared pieces of the int8 weight-stream kernels (int8_gemv.cu,
-// fused_block_decode.cu, lm_head_sample.cu).
+// Shared pieces of the weight-stream kernels (int8_gemv.cu, int4_gemv.cu,
+// the block decode kernels, lm_head_sample.cu).
 //
-// Every dot product of an activation row with one int8 weight row is taken
-// by ONE warp in ONE fixed order: lane l walks the 16-byte weight chunks
-// c = l, l + 32, ... in ascending order, multiplies each of the 16 int8
-// values (converted to f32) with the matching f32 activations by explicit
-// fmaf in ascending k, and the 32 lane partials are then summed by a xor
-// butterfly. That order depends on K alone: not on the number of rows in
-// the batch, not on the CTA or warp that runs the row, not on the kernel.
+// Every dot product of an activation row with one weight row is taken by
+// ONE warp in ONE fixed order: lane l walks the 16-code weight chunks
+// c = l, l + 32, ... in ascending order, turns each chunk's 16 codes into
+// f32 weights, multiplies them with the matching f32 activations by
+// explicit fmaf in ascending k, and the 32 lane partials are then summed by
+// a xor butterfly. That order depends on K alone: not on the number of rows
+// in the batch, not on the CTA or warp that runs the row, not on the kernel.
 // So a row's logits are the same bits whether it was decoded alone or in a
-// batch of eight, and the K3 head GEMV and the K8 fused head agree bit for
-// bit (greedy tokens match across the two head paths).
+// batch of eight, and the head GEMV (K3, or K4 for an int4 table) and the
+// K8 fused head agree bit for bit (greedy tokens match across the two head
+// paths).
+//
+// Two weight lanes feed that loop (Int8Rows, Int4Rows below). An int8 chunk
+// is 16 bytes and its codes are the weights; the row's f32 scale multiplies
+// the finished dot. An int4 chunk is 8 bytes of nibble pairs; each code is
+// multiplied by its f32 block scale BEFORE its FMA (the TPU kernel's order:
+// dequantize, then dot), and the scale after the dot is 1.
 #pragma once
 
 #include <cstdint>
@@ -58,20 +65,69 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, int r0,
   }
 }
 
-// acc[r] = sum_k xs[r][k] * w[k] for r < nr (xs in shared memory, row
-// length K in the swizzle4 layout, K % 16 == 0; w one int8 weight row,
-// 16-byte aligned). Every lane of the warp returns the same values.
-__device__ __forceinline__ void warp_dot_rows(const float* xs, int nr,
-                                              const int8_t* w, int K,
-                                              float (&acc)[kRowTile]) {
+// Codes 16c .. 16c + 15 of an int4 row from its chunk c, 8 bytes of
+// nibble pairs: code 2i is the lo nibble of byte i, code 2i + 1 the hi
+// nibble, each stored as code + 8 (kvstore/quant.py:pack_codes). Each code
+// times its block scale `sc`, rounded to f32, as the plain version's
+// dequantize_blocks rounds it.
+__device__ __forceinline__ void unpack_nibbles16(const uint2 v, float sc, float* f) {
+  const uint32_t words[2] = {v.x, v.y};
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t b = words[q] >> (8 * j);
+      f[8 * q + 2 * j] = static_cast<float>(static_cast<int>(b & 0xFu) - 8) * sc;
+      f[8 * q + 2 * j + 1] = static_cast<float>(static_cast<int>((b >> 4) & 0xFu) - 8) * sc;
+    }
+  }
+}
+
+// int8 lane: rows [N, K] int8 (16-byte aligned rows, K % 16 == 0) and one
+// f32 scale per row, applied after the dot.
+struct Int8Rows {
+  const int8_t* w;
+  const float* s;  // [N]
+  int K;
+  __host__ __device__ Int8Rows(const void* w_, const float* s_, int K_, int /*block*/)
+      : w(static_cast<const int8_t*>(w_)), s(s_), K(K_) {}
+  __device__ __forceinline__ void chunk(int n, int c, float* f) const {
+    unpack16(__ldg(reinterpret_cast<const int4*>(w + static_cast<size_t>(n) * K) + c), f);
+  }
+  __device__ __forceinline__ float scale(int n) const { return __ldg(s + n); }
+};
+
+// int4 lane: rows [N, K / 2] uint8 of nibble pairs (K % 16 == 0, so a row
+// is whole 8-byte chunks) and f32 block scales [N, K / block]. A chunk's 16
+// codes lie in one block (block % 16 == 0, gated by the wrappers), so one
+// scale serves the chunk. The scale after the dot is 1 (x * 1 is exact).
+struct Int4Rows {
+  const uint8_t* w;
+  const float* s;  // [N, K / block]
+  int K, nsb, cpb;  // row length, scale blocks per row, chunks per block
+  __host__ __device__ Int4Rows(const void* w_, const float* s_, int K_, int block)
+      : w(static_cast<const uint8_t*>(w_)), s(s_), K(K_), nsb(K_ / block), cpb(block >> 4) {}
+  __device__ __forceinline__ void chunk(int n, int c, float* f) const {
+    const uint2 v =
+        __ldg(reinterpret_cast<const uint2*>(w + static_cast<size_t>(n) * (K >> 1)) + c);
+    unpack_nibbles16(v, __ldg(s + static_cast<size_t>(n) * nsb + c / cpb), f);
+  }
+  __device__ __forceinline__ float scale(int) const { return 1.f; }
+};
+
+// acc[r] = sum_k xs[r][k] * w_n[k] for r < nr (xs in shared memory, row
+// length K in the swizzle4 layout, K % 16 == 0; w_n row n of the lane's
+// table, as f32 weights). Every lane of the warp returns the same values.
+template <class W>
+__device__ __forceinline__ void warp_dot_rows(const float* xs, int nr, const W& wt, int n,
+                                              int K, float (&acc)[kRowTile]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int r = 0; r < kRowTile; ++r) acc[r] = 0.f;
   const int nchunk = K >> 4;
-  const int4* w4 = reinterpret_cast<const int4*>(w);
   for (int c = lane; c < nchunk; c += 32) {
     float wf[16];
-    unpack16(__ldg(w4 + c), wf);
+    wt.chunk(n, c, wf);
 #pragma unroll
     for (int r = 0; r < kRowTile; ++r) {
       if (r < nr) {
@@ -96,6 +152,32 @@ __device__ __forceinline__ void warp_dot_rows(const float* xs, int nr,
   }
 }
 
+// The weight-only GEMV of K3 and K4: y[M, N] = x[M, K] @ (lane weights).T,
+// x staged kRowTile rows at a time into xs (kRowTile * K f32 of dynamic
+// shared memory), one warp per output channel, warps of all CTAs striding
+// over the channels.
+template <class W>
+__device__ __forceinline__ void gemv_tiles(float* xs, const float* __restrict__ x, const W& wt,
+                                           float* __restrict__ y, int M, int N, int K) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int r0 = 0; r0 < M; r0 += kRowTile) {
+    const int nr = min(kRowTile, M - r0);
+    __syncthreads();
+    stage_rows(xs, x, r0, nr, K);
+    __syncthreads();
+    for (int n = blockIdx.x * kWarps + warp; n < N; n += gridDim.x * kWarps) {
+      float acc[kRowTile];
+      warp_dot_rows(xs, nr, wt, n, K, acc);
+      const float sc = wt.scale(n);
+#pragma unroll
+      for (int r = 0; r < kRowTile; ++r) {
+        if (lane == r && r < nr) y[static_cast<size_t>(r0 + r) * N + n] = acc[r] * sc;
+      }
+    }
+  }
+}
+
 // Number of CTAs of `kernel` (kThreads threads, `smem` dynamic bytes) that
 // fit on the card at once; sets the dynamic shared memory limit first.
 template <typename Kernel>
@@ -112,6 +194,21 @@ inline cudaError_t resident_ctas(Kernel kernel, size_t smem, int* ctas) {
     return err;
   *ctas = sms * per_sm;
   return *ctas > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+// Launch a gemv_tiles kernel (kernel(x, wt, y, M, N, K)) on as many CTAs as
+// there are 8-channel groups, at most the resident count.
+template <class W>
+inline int launch_gemv(void (*kernel)(const float*, W, float*, int, int, int), const void* x,
+                       const W& wt, void* y, int M, int N, int K, void* stream) {
+  const size_t smem = sizeof(float) * kRowTile * K;
+  int ctas = 0;
+  cudaError_t err = resident_ctas(kernel, smem, &ctas);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int want = (N + kWarps - 1) / kWarps;
+  kernel<<<want < ctas ? want : ctas, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), wt, static_cast<float*>(y), M, N, K);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace mx

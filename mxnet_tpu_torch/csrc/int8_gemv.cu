@@ -24,41 +24,16 @@
 namespace {
 
 __global__ void __launch_bounds__(mx::kThreads)
-    int8_gemv_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
-                     const float* __restrict__ s, float* __restrict__ y, int M,
+    int8_gemv_kernel(const float* __restrict__ x, mx::Int8Rows w, float* __restrict__ y, int M,
                      int N, int K) {
   extern __shared__ __align__(16) float xs[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int r0 = 0; r0 < M; r0 += mx::kRowTile) {
-    const int nr = min(mx::kRowTile, M - r0);
-    __syncthreads();
-    mx::stage_rows(xs, x, r0, nr, K);
-    __syncthreads();
-    for (int n = blockIdx.x * mx::kWarps + warp; n < N; n += gridDim.x * mx::kWarps) {
-      float acc[mx::kRowTile];
-      mx::warp_dot_rows(xs, nr, w + static_cast<size_t>(n) * K, K, acc);
-      const float sc = __ldg(s + n);
-#pragma unroll
-      for (int r = 0; r < mx::kRowTile; ++r) {
-        if (lane == r && r < nr) y[static_cast<size_t>(r0 + r) * N + n] = acc[r] * sc;
-      }
-    }
-  }
+  mx::gemv_tiles(xs, x, w, y, M, N, K);
 }
 
 }  // namespace
 
 extern "C" int mx_int8_gemv(const void* x, const void* w, const void* s, void* y, int M,
                             int N, int K, void* stream) {
-  const size_t smem = sizeof(float) * mx::kRowTile * K;
-  int ctas = 0;
-  cudaError_t err = mx::resident_ctas(int8_gemv_kernel, smem, &ctas);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int want = (N + mx::kWarps - 1) / mx::kWarps;
-  const int grid = want < ctas ? want : ctas;
-  int8_gemv_kernel<<<grid, mx::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(s), static_cast<float*>(y), M, N, K);
-  return static_cast<int>(cudaGetLastError());
+  return mx::launch_gemv(int8_gemv_kernel, x, mx::Int8Rows(w, static_cast<const float*>(s), K, 0),
+                         y, M, N, K, stream);
 }

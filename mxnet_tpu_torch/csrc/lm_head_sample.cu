@@ -1,5 +1,6 @@
 // K8: fused tied-head GEMV + token selection. For each row b of h[B, D]:
-//   z[v]   = (h[b] . w_q[v]) * s[v] / (T_b > 0 ? T_b : 1)
+//   z[v]   = (h[b] . w[v]) * s[v] / (T_b > 0 ? T_b : 1)     (int8 table)
+//   z[v]   = (h[b] . dequant(w)[v]) / (T_b > 0 ? T_b : 1)   (int4 table)
 //   z[v]  += -log(-log(u(keybits_b, v)))      for rows with T_b > 0
 //   z[v]   = -inf                              for pad lanes v >= vocab
 //   tok[b] = argmax_v z[v], ties to the lowest lane
@@ -9,13 +10,15 @@
 // (pl.pallas_call at fused_block_gemv.py:1325), reached through
 // fused_lm_head_sample (:1340).
 //
-// Bound: the int8 table, Vp * D bytes (50304 x 768 = 38.6 MB for GPT-2,
-// 11.5 us at 3.35 TB/s); the activations, scales and the per-tile partials
-// are a rounding error beside it.
+// Bound: the table, Vp * D bytes int8 (50304 x 768 = 38.6 MB for GPT-2,
+// 11.5 us at 3.35 TB/s) or Vp * D / 2 bytes of int4 nibble pairs plus
+// Vp * D / 128 f32 block scales (20.5 MB, 6.1 us); the activations and the
+// per-tile partials are a rounding error beside it.
 //
 // Design against that bound: pass 1 streams the table once, one warp per
-// vocab lane in 16-byte loads per lane (the dot is gemv_common.cuh's, so
-// greedy rows select exactly the token the K3 head GEMV + argmax would),
+// vocab lane in 16-byte (int8) or 8-byte (int4) loads per lane (the dot
+// and its weight lanes are gemv_common.cuh's, so greedy rows select
+// exactly the token the K3 or K4 head GEMV + argmax would),
 // applies temperature, hash-Gumbel noise and the pad mask in registers
 // (lane r of the warp for row r) and reduces each CTA's tile of lanes to
 // one (max, lowest lane) pair per row.
@@ -50,9 +53,9 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
+template <class W>
 __global__ void __launch_bounds__(mx::kThreads)
-    head_tiles_kernel(const float* __restrict__ h, const int8_t* __restrict__ w,
-                      const float* __restrict__ s, const float* __restrict__ temps,
+    head_tiles_kernel(const float* __restrict__ h, W w, const float* __restrict__ temps,
                       const int* __restrict__ keybits, int B, int Vp, int D, int vocab,
                       int ntiles, float* __restrict__ pmax, int* __restrict__ pidx) {
   extern __shared__ __align__(16) float hs[];
@@ -77,14 +80,14 @@ __global__ void __launch_bounds__(mx::kThreads)
         const int v = v0 + i;  // ascending: a later equal value never wins
         if (v >= Vp) break;
         float acc[mx::kRowTile];
-        mx::warp_dot_rows(hs, nr, w + static_cast<size_t>(v) * D, D, acc);
+        mx::warp_dot_rows(hs, nr, w, v, D, acc);
         float mine = acc[0];
 #pragma unroll
         for (int r = 1; r < mx::kRowTile; ++r) {
           if (lane == r) mine = acc[r];
         }
         if (lane < nr) {
-          float z = (mine * __ldg(s + v)) / (temp > 0.f ? temp : 1.f);
+          float z = (mine * w.scale(v)) / (temp > 0.f ? temp : 1.f);
           if (temp > 0.f) z = z + (-logf(-logf(hash_uniform(key, static_cast<uint32_t>(v)))));
           if (v >= vocab) z = -INFINITY;
           if (z > bv) {
@@ -150,24 +153,46 @@ __global__ void head_reduce_kernel(const float* __restrict__ pmax, const int* __
 
 extern "C" int mx_head_tiles(int Vp) { return (Vp + kTile - 1) / kTile; }
 
-// pmax/pidx: scratch of B * mx_head_tiles(Vp) entries each.
+namespace {
+
+template <class W>
+cudaError_t launch_tiles(const void* h, const W& w, const void* temps, const void* keybits,
+                         void* pmax, void* pidx, int B, int Vp, int D, int vocab, int ntiles,
+                         cudaStream_t st) {
+  const size_t smem = sizeof(float) * mx::kRowTile * D;
+  int ctas = 0;
+  cudaError_t err = mx::resident_ctas(head_tiles_kernel<W>, smem, &ctas);
+  if (err != cudaSuccess) return err;
+  const int grid = ntiles < ctas ? ntiles : ctas;
+  head_tiles_kernel<W><<<grid, mx::kThreads, smem, st>>>(
+      static_cast<const float*>(h), w, static_cast<const float*>(temps),
+      static_cast<const int*>(keybits), B, Vp, D, vocab, ntiles, static_cast<float*>(pmax),
+      static_cast<int*>(pidx));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// pmax/pidx: scratch of B * mx_head_tiles(Vp) entries each. block 0: w is
+// the int8 table [Vp, D] with scales s [Vp]; block > 0: w is the int4
+// table [Vp, D / 2] with block scales s [Vp, D / block] (D % 16 == 0,
+// block % 16 == 0).
 extern "C" int mx_lm_head_sample(const void* h, const void* w, const void* s,
                                  const void* temps, const void* keybits, void* pmax,
                                  void* pidx, void* tok, int B, int Vp, int D, int vocab,
-                                 void* stream) {
+                                 int block, void* stream) {
   const int ntiles = mx_head_tiles(Vp);
-  const size_t smem = sizeof(float) * mx::kRowTile * D;
-  int ctas = 0;
-  cudaError_t err = mx::resident_ctas(head_tiles_kernel, smem, &ctas);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = ntiles < ctas ? ntiles : ctas;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  head_tiles_kernel<<<grid, mx::kThreads, smem, st>>>(
-      static_cast<const float*>(h), static_cast<const int8_t*>(w),
-      static_cast<const float*>(s), static_cast<const float*>(temps),
-      static_cast<const int*>(keybits), B, Vp, D, vocab, ntiles,
-      static_cast<float*>(pmax), static_cast<int*>(pidx));
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const float* sf = static_cast<const float*>(s);
+  if (block != 0 && (D % 16 || block < 16 || block % 16 || D % block)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err =
+      block ? launch_tiles(h, mx::Int4Rows(w, sf, D, block), temps, keybits, pmax, pidx, B, Vp,
+                           D, vocab, ntiles, st)
+            : launch_tiles(h, mx::Int8Rows(w, sf, D, 0), temps, keybits, pmax, pidx, B, Vp, D,
+                           vocab, ntiles, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int kRowsPerCta = 4;
   head_reduce_kernel<<<(B + kRowsPerCta - 1) / kRowsPerCta, 32 * kRowsPerCta, 0, st>>>(
       static_cast<const float*>(pmax), static_cast<const int*>(pidx), B, ntiles,

@@ -8,7 +8,7 @@ one incremental forward (12 K5 launches for GPT-2 small) plus the head.
 Sampling streams are keyed like the JAX package's: per row,
 ``fold_in(key(seed), counter)`` of JAX's threefry2x32 PRNG
 (:func:`_fold_keys`, a numpy port run on the host). The fused head (K8)
-hashes those key bits, so temperature sampling through the int8 head
+hashes those key bits, so temperature sampling through the quantized head
 (``multi_token > 1``) draws the TPU kernel's token stream. Greedy decoding
 is exact everywhere. Rows that need ``jax.random.categorical`` — sampling
 without the fused head (``multi_token=1`` or an unquantized head), and
@@ -94,7 +94,7 @@ def sample_tokens(logits, temperature):
     argmax (lowest index on ties); T > 0 rows raise (see module doc)."""
     t = np.asarray(temperature, dtype=np.float32).reshape(-1)
     if (t > 0).any():
-        raise MXNetError("temperature sampling without the fused int8 head "
+        raise MXNetError("temperature sampling without the fused quantized head "
                          + _SAMPLING_LATER)
     return torch.argmax(logits.float(), dim=-1).to(torch.int32)
 
@@ -149,7 +149,7 @@ def decode_multi_tokens(model, tokens, pos, caches, num_tokens, temps,
     temps = np.array(np.broadcast_to(np.asarray(temps, np.float32).reshape(-1),
                                      (B,)))
     if head is None and (temps > 0).any():
-        raise MXNetError("temperature sampling without the fused int8 head "
+        raise MXNetError("temperature sampling without the fused quantized head "
                          + _SAMPLING_LATER)
     seeds = np.asarray(seeds, np.int64).reshape(-1)
     counters = np.asarray(counters, np.int64).reshape(-1)
@@ -204,7 +204,7 @@ def generate(model, input_ids, max_new_tokens: int,
     [B, P + max_new_tokens] int32.
 
     ``multi_token`` > 1 decodes in chunks of K tokens with per-row
-    ``fold_in`` streams and, when the model carries an int8 tied head,
+    ``fold_in`` streams and, when the model carries a quantized tied head,
     the fused LM-head sampler; greedy output equals ``multi_token=1``."""
     if max_new_tokens <= 0:
         raise MXNetError("max_new_tokens must be positive")

@@ -84,7 +84,7 @@ class GPTBlock(nn.Module):
         B, T, d = x.shape
         pack = self._fused_pack
         if pack is not None and T == 1 and fusable(B, d, self.heads,
-                                                   k_cache.shape[2]):
+                                                   k_cache.shape[2], pack["blocks"]):
             return fused_block_decode(x, pos, k_cache, v_cache, pack)
         q, k, v = torch.split(self.attn_qkv(self.ln_1(x)), d, dim=-1)
         o, k_cache, v_cache = _cached_attention(
@@ -109,7 +109,8 @@ class GPTBlock(nn.Module):
         if pack is not None and T == 1:
             gate = (B, d, self.heads, k_pages.shape[0], k_pages.shape[2],
                     block_table.shape[1], k_pages.element_size())
-            if fusable_paged(*gate) or fusable_paged_dma(*gate):
+            blocks = pack["blocks"]
+            if fusable_paged(*gate, blocks=blocks) or fusable_paged_dma(*gate, blocks=blocks):
                 return fused_block_decode_paged(x, pos, block_table, k_pages,
                                                 v_pages, pack)
         q, k, v = torch.split(self.attn_qkv(self.ln_1(x)), d, dim=-1)
@@ -259,14 +260,16 @@ class GPTModel(nn.Module):
         return (self.ln_f(x), *new_caches)
 
     def head_weights(self):
-        """(int8 table [Vp, D], scales [Vp], vocab) of the quantized tied
-        head, or None when the head is not quantized."""
+        """(table, scales, vocab) of the quantized tied head: an int8 table
+        [Vp, D] with per-row scales [Vp], or a packed int4 table [Vp, D/2]
+        uint8 with block scales [Vp, D/block]; None when the head is not
+        quantized."""
         return self._q_lm_head
 
     def enable_fused_decode(self) -> int:
-        """Opt every block whose four Dense layers are int8 QuantizedDense
-        into the one-launch block decode kernel. Returns the number of
-        blocks packed."""
+        """Opt every block whose four Dense layers are QuantizedDense of one
+        weight lane (int8, or packed int4) into the one-launch block decode
+        kernel. Returns the number of blocks packed."""
         from ..ops.fused_block_gemv import pack_gpt_block
         n = 0
         for blk in self.blocks:
@@ -280,15 +283,16 @@ class GPTModel(nn.Module):
 
     def _lm_head(self, x):
         """Tied LM head. With a quantized table and at most ``gemv_max_m()``
-        rows, the int8 table streams through K3 and the logits are sliced
-        back to the vocab; otherwise the embedding table is used in the
-        model's dtype."""
-        from ..ops.int8_gemv import gemv_max_m, int8_weight_matmul
+        rows, the table streams through K3 (int8) or K4 (packed int4,
+        chosen by its uint8 dtype) and the logits are sliced back to the
+        vocab; otherwise the embedding table is used in the model's
+        dtype."""
+        from ..ops.int8_gemv import gemv_max_m, weight_matmul
         q = self._q_lm_head
         lead = x.shape[:-1]
         n = x.numel() // x.shape[-1]
         if q is not None and n <= gemv_max_m():
             w_q, scale, V = q
-            y = int8_weight_matmul(x.reshape(n, x.shape[-1]), w_q, scale)
+            y = weight_matmul(x.reshape(n, x.shape[-1]), w_q, scale)
             return y.reshape(*lead, w_q.shape[0])[..., :V].to(x.dtype)
         return x @ self.wte.weight.T

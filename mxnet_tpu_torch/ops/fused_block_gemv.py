@@ -1,7 +1,10 @@
 """Block-level fused decode and the fused LM-head sampler (counterpart of
-``mxnet_tpu/ops/fused_block_gemv.py``, int8 lane).
+``mxnet_tpu/ops/fused_block_gemv.py``, int8 and int4 weight lanes).
 
-- :func:`pack_gpt_block` extracts one GPT block's frozen int8 weights.
+- :func:`pack_gpt_block` extracts one GPT block's frozen quantized weights:
+  int8 tables with per-channel scales, or packed int4 tables (uint8 nibble
+  pairs) with block scales. The table's dtype picks the lane everywhere
+  below, and the launch kinds of the int4 lane carry an ``_int4`` suffix.
 - :func:`fused_block_decode` runs one block's whole T=1 decode step: on a
   CUDA tensor as ONE cooperative launch of ``csrc/fused_block_decode.cu``
   (K5), on a CPU tensor as :func:`_reference_block_decode`, which replays
@@ -16,7 +19,7 @@
   :func:`fusable_paged_dma` accepts it; on a CPU tensor
   :func:`_reference_block_decode_paged` (the unfused op sequence with
   ``_paged_attention``). The pools are updated in place.
-- :func:`fused_lm_head_sample` folds the tied int8 head GEMV into greedy or
+- :func:`fused_lm_head_sample` folds the tied quantized head GEMV into greedy or
   temperature sampling: ``csrc/lm_head_sample.cu`` (K8) on CUDA, and
   :func:`_reference_head_sample` on the CPU. Sampled rows draw Gumbel noise
   from :func:`_hash_uniform` of (request key bits, vocab lane), as the TPU
@@ -24,8 +27,7 @@
   ``jax.random.categorical`` instead, so sampled tokens match JAX only
   against its kernel (interpret mode), never against its CPU fallback.
 
-The int4 lanes, the bf16-pool lane of K6/K7 and grammar masks are later
-slices.
+The bf16-pool lane of K6/K7 and grammar masks are later slices.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ import torch
 
 from .. import numpy_extension as npx
 from ..base import MXNetError
-from .int8_gemv import _reference_int8_matmul, record_dma, record_launch
+from .int8_gemv import _deq_matmul, int4_chunks_fit, record_dma, record_launch
 
 __all__ = ["pack_gpt_block", "fused_block_decode", "fused_block_decode_paged",
            "fused_lm_head_sample", "fusable", "fusable_paged",
@@ -59,24 +61,30 @@ def _round4(n: int) -> int:
     return -(-int(n) // 4) * 4
 
 
-def _tiles(B: int, D: int, heads: int) -> bool:
-    """Tiling rules of the three block kernels: 16-byte int8 rows (D % 16)
-    and whole heads with hd % 8 == 0 and hd <= 256 (one CTA per (row,
-    head) covers the head dim in float4 words)."""
+def _tiles(B: int, D: int, heads: int, blocks=()) -> bool:
+    """Tiling rules of the three block kernels: rows of whole 16-code
+    chunks (D % 16: 16 bytes of int8, 8 bytes of int4) and whole heads with
+    hd % 8 == 0 and hd <= 256 (one CTA per (row, head) covers the head dim
+    in float4 words). The int4 lane (``blocks``: the scale blocks of qkv,
+    out, fc and proj) also needs each chunk inside one scale block, and one
+    block for the three K = D matrices (the kernels take one)."""
     if B < 1 or heads < 1 or D % 16 or D % heads:
+        return False
+    if blocks and not (len(set(blocks[:3])) == 1 and int4_chunks_fit(D, blocks[0])
+                       and int4_chunks_fit(4 * D, blocks[3])):
         return False
     hd = D // heads
     return hd % 8 == 0 and hd <= _THREADS
 
 
-def fusable(B: int, D: int, heads: int, L: int) -> bool:
+def fusable(B: int, D: int, heads: int, L: int, blocks=()) -> bool:
     """Shape gate of the Hopper block kernel: :func:`_tiles`, and the
     larger of the staged activation tile (8 rows of the 4D fc activations)
     and the attention buffers (one f32 score row of L, q and the float4
     reduction scratch) within one CTA's 227 KB of shared memory. It
     replaces the TPU kernel's VMEM budget gate, which would reject GPT-2
     small at L = 1024."""
-    if not _tiles(B, D, heads):
+    if not _tiles(B, D, heads, blocks):
         return False
     hd = D // heads
     smem = 4 * max(_ROW_TILE * 4 * D, hd + _round4(L) + 4 * _THREADS)
@@ -117,27 +125,28 @@ def _paged_dma_smem(D: int, heads: int, ps: int, L: int, depth: int) -> int:
 
 
 def fusable_paged(B: int, D: int, heads: int, pool_pages: int,
-                  page_size: int, max_pages: int, cache_itemsize: int = 4):
+                  page_size: int, max_pages: int, cache_itemsize: int = 4,
+                  blocks=()):
     """Shape gate of K6, the gathered paged kernel, restated for Hopper:
     :func:`_tiles`, f32 pools, and :func:`_paged_smem` within one CTA's 227
     KB: ``4 * (2*L*hd + L + hd + 4*256)`` bytes at GPT-2 widths, which
     accepts L <= 432 at hd 64 (page 16: max_len 256 or 384). It replaces
     the TPU's VMEM test on the whole pool; ``pool_pages`` does not enter
     it, because the pools stay in device memory."""
-    if not _tiles(B, D, heads) or cache_itemsize != 4:
+    if not _tiles(B, D, heads, blocks) or cache_itemsize != 4:
         return False
     return _paged_smem(D, heads, max_pages * page_size) <= _SMEM_LIMIT
 
 
 def fusable_paged_dma(B: int, D: int, heads: int, pool_pages: int,
                       page_size: int, max_pages: int,
-                      cache_itemsize: int = 4, depth: int = None):
+                      cache_itemsize: int = 4, depth: int = None, blocks=()):
     """Shape gate of K7, the streamed paged kernel: :func:`_tiles`, f32
     pools, 16-byte page slabs for the TMA bulk copies, and
     :func:`_paged_dma_smem` within 227 KB. Neither the pool size nor
     ``2*L*hd`` enters it: only the score row of L grows with the context,
     which is the cap this variant removes."""
-    if not _tiles(B, D, heads) or cache_itemsize != 4:
+    if not _tiles(B, D, heads, blocks) or cache_itemsize != 4:
         return False
     depth = _DMA_DEPTH if depth is None else int(depth)
     if depth < 1 or (page_size * (D // heads) * 4) % 16:
@@ -152,14 +161,20 @@ def fusable_paged_dma(B: int, D: int, heads: int, pool_pages: int,
 
 def pack_gpt_block(block, eps: float):
     """One GPTBlock's fused-decode pack, or None if any of its four Dense
-    layers is not a frozen int8 QuantizedDense (per-layer opt-in: such
-    blocks keep the unfused path)."""
+    layers is not a frozen QuantizedDense (per-layer opt-in: such blocks
+    keep the unfused path), or if the block mixes int4 and int8 layers (an
+    odd-K layer kept int8 under ``bits=4``): one launch streams one weight
+    lane. ``blocks`` holds the int4 tables' scale blocks (qkv, out, fc,
+    proj), and is empty for int8."""
     layers = []
     for name in ("attn_qkv", "attn_out", "mlp_fc", "mlp_proj"):
         q = getattr(block, name, None)
         if q is None or getattr(q, "w_q", None) is None:
             return None
         layers.append(q)
+    if len({q.w_q.dtype for q in layers}) > 1:
+        return None
+    int4 = layers[0].w_q.dtype == torch.uint8
 
     def wsb(q):
         bias = q.inner.bias
@@ -173,7 +188,15 @@ def pack_gpt_block(block, eps: float):
         "ln1": (block.ln_1.gamma, block.ln_1.beta),
         "ln2": (block.ln_2.gamma, block.ln_2.beta),
         "eps": float(eps), "heads": int(block.heads),
+        "blocks": tuple(2 * q.w_q.shape[1] // q.w_scale.shape[1] for q in layers)
+        if int4 else (),
     }
+
+
+def _kind_suffix(pack) -> str:
+    """Launch-kind suffix of the pack's weight lane: int4 packs tally under
+    their own ``*_int4`` kinds, as in the JAX package."""
+    return "_int4" if pack["qkv"][0].dtype == torch.uint8 else ""
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +205,7 @@ def pack_gpt_block(block, eps: float):
 
 def _dense(xv, w_q, w_scale, bias):
     B, T, _ = xv.shape
-    y = _reference_int8_matmul(xv.reshape(B * T, xv.shape[-1]), w_q, w_scale)
+    y = _deq_matmul(xv.reshape(B * T, xv.shape[-1]), w_q, w_scale)
     return y.reshape(B, T, w_q.shape[0]) + bias
 
 
@@ -250,13 +273,13 @@ def fused_block_decode(xv, posv, kc, vc, pack):
     heads = pack["heads"]
     B, T, D = xv.shape
     L = kc.shape[2]
-    if T != 1 or not fusable(B, D, heads, L):
+    if T != 1 or not fusable(B, D, heads, L, pack["blocks"]):
         raise MXNetError(f"fused_block_decode: shape B={B} T={T} D={D} "
                          f"heads={heads} L={L} is not fusable")
     if kc.shape != (B, heads, L, D // heads) or vc.shape != kc.shape:
         raise MXNetError(f"fused_block_decode: caches {tuple(kc.shape)} / "
                          f"{tuple(vc.shape)} do not match x {tuple(xv.shape)}")
-    record_launch("fused_block")
+    record_launch("fused_block" + _kind_suffix(pack))
     if xv.device.type == "cpu":
         return _reference_block_decode(xv, posv, kc, vc, pack)
     return _cuda_block_decode(xv, posv, kc, vc, pack)
@@ -264,16 +287,22 @@ def fused_block_decode(xv, posv, kc, vc, pack):
 
 def _weight_operands(pack, what):
     """The pack's 16 kernel operands: (w, scale, bias) of qkv, out, fc and
-    proj, then the two LayerNorms' gains and offsets."""
+    proj, then the two LayerNorms' gains and offsets; and the lane
+    arguments (block of the K = D matrices, block of proj): (0, 0) for
+    int8 tables, the scale blocks for int4 ones."""
     ops = []
+    lane = pack["qkv"][0].dtype
     for key in ("qkv", "out", "fc", "proj"):
         w, s, b = pack[key]
-        if w.dtype != torch.int8:
-            raise MXNetError(f"{what}: the kernel takes int8 weights")
+        if w.dtype != lane or lane not in (torch.int8, torch.uint8):
+            raise MXNetError(f"{what}: the kernel takes int8 or packed int4 "
+                             "weights, one lane for all four matrices")
         ops += [w.contiguous(), s.contiguous(), b.detach().float().contiguous()]
     g1, b1 = pack["ln1"]
     g2, b2 = pack["ln2"]
-    return ops + [t.detach().float().contiguous() for t in (g1, b1, g2, b2)]
+    blocks = pack["blocks"]
+    lane_args = (blocks[0], blocks[3]) if blocks else (0, 0)
+    return ops + [t.detach().float().contiguous() for t in (g1, b1, g2, b2)], lane_args
 
 
 def _cuda_block_decode(xv, posv, kc, vc, pack):
@@ -289,7 +318,7 @@ def _cuda_block_decode(xv, posv, kc, vc, pack):
         raise MXNetError("fused_block_decode: the kernel takes f32 activations")
     pos = _row_positions(posv, B, xv.device)
     x = xv.reshape(B, D).contiguous()
-    ops = _weight_operands(pack, "fused_block_decode")
+    ops, lane = _weight_operands(pack, "fused_block_decode")
     scratch = torch.empty(9 * B * D, device=xv.device, dtype=torch.float32)
     out = torch.empty(B, D, device=xv.device, dtype=torch.float32)
     lib = _build.library("fused_block_decode")
@@ -297,7 +326,7 @@ def _cuda_block_decode(xv, posv, kc, vc, pack):
     _build.check(lib.mx_fused_block_decode(
         x.data_ptr(), pos.data_ptr(), *[t.data_ptr() for t in ops],
         kc.data_ptr(), vc.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        B, D, heads, L, pack["eps"], stream), "fused_block_decode")
+        B, D, heads, L, *lane, pack["eps"], stream), "fused_block_decode")
     return out.reshape(B, 1, D), kc, vc
 
 
@@ -347,8 +376,9 @@ def fused_block_decode_paged(xv, posv, bt, kp, vp, pack, dma_counters=None):
     NP1, H, ps, hd = kp.shape
     maxp = bt.shape[1]
     gate = (B, D, heads, NP1, ps, maxp, kp.element_size())
-    use_k6 = T == 1 and fusable_paged(*gate)
-    use_k7 = T == 1 and not use_k6 and fusable_paged_dma(*gate)
+    blocks = pack["blocks"]
+    use_k6 = T == 1 and fusable_paged(*gate, blocks=blocks)
+    use_k7 = T == 1 and not use_k6 and fusable_paged_dma(*gate, blocks=blocks)
     if H != heads or hd * heads != D or vp.shape != kp.shape \
             or tuple(bt.shape) != (B, maxp):
         raise MXNetError(f"fused_block_decode_paged: pools {tuple(kp.shape)} / "
@@ -359,9 +389,9 @@ def fused_block_decode_paged(xv, posv, bt, kp, vp, pack, dma_counters=None):
         raise MXNetError(f"fused_block_decode_paged: shape B={B} T={T} D={D} "
                          f"heads={heads} L={maxp * ps} is not fusable")
     if use_k6:
-        record_launch("fused_block_paged")
+        record_launch("fused_block_paged" + _kind_suffix(pack))
     elif use_k7:
-        record_launch("fused_block_paged_dma")
+        record_launch("fused_block_paged_dma" + _kind_suffix(pack))
         copies, nbytes = _dma_program(_row_positions(posv, B, xv.device),
                                       H, hd, ps, maxp)
         record_dma(copies, nbytes)
@@ -389,7 +419,7 @@ def _cuda_block_decode_paged(xv, posv, bt, kp, vp, pack, streamed, counters):
     pos = _row_positions(posv, B, xv.device)
     table = bt.to(torch.int32).contiguous()
     x = xv.reshape(B, D).contiguous()
-    ops = _weight_operands(pack, what)
+    ops, lane = _weight_operands(pack, what)
     scratch = torch.empty(9 * B * D, device=xv.device, dtype=torch.float32)
     out = torch.empty(B, D, device=xv.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(xv.device).cuda_stream
@@ -399,7 +429,7 @@ def _cuda_block_decode_paged(xv, posv, bt, kp, vp, pack, streamed, counters):
     if not streamed:
         lib = _build.library("fused_block_decode_paged")
         _build.check(lib.mx_fused_block_decode_paged(
-            *head, *ptrs, B, D, H, ps, maxp, NP1 - 1, pack["eps"], stream), what)
+            *head, *ptrs, B, D, H, ps, maxp, NP1 - 1, *lane, pack["eps"], stream), what)
     else:
         if counters is not None and (counters.dtype != torch.int32
                                      or counters.numel() != 2
@@ -409,7 +439,7 @@ def _cuda_block_decode_paged(xv, posv, bt, kp, vp, pack, streamed, counters):
         lib = _build.library("fused_block_decode_paged_dma")
         _build.check(lib.mx_fused_block_decode_paged_dma(
             *head, *ptrs, 0 if counters is None else counters.data_ptr(),
-            B, D, H, ps, maxp, NP1 - 1, _DMA_DEPTH, pack["eps"], stream), what)
+            B, D, H, ps, maxp, NP1 - 1, _DMA_DEPTH, *lane, pack["eps"], stream), what)
     return out.reshape(B, 1, D), kp, vp
 
 
@@ -437,12 +467,12 @@ def _hash_uniform(keys, lanes):
 
 
 def _reference_head_sample(h, w_q, w_scale, vocab, temps, keybits):
-    """Plain version of K8: dequantized head logits, divided by T (T > 0
-    rows), hash-Gumbel noise on T > 0 rows, pad lanes at -inf, argmax with
-    ties to the lowest lane."""
+    """Plain version of K8: dequantized head logits (either weight lane),
+    divided by T (T > 0 rows), hash-Gumbel noise on T > 0 rows, pad lanes
+    at -inf, argmax with ties to the lowest lane."""
     B = h.shape[0]
     Vp = w_q.shape[0]
-    acc = _reference_int8_matmul(h, w_q, w_scale)                  # [B, Vp]
+    acc = _deq_matmul(h, w_q, w_scale)                             # [B, Vp]
     t = temps.reshape(B, 1)
     z = acc / torch.where(t > 0, t, torch.ones_like(t))
     lanes = torch.arange(Vp, device=h.device)[None, :]
@@ -460,7 +490,9 @@ def fused_lm_head_sample(h, w_q, w_scale, vocab, keybits, temps, topks=0,
     of the head logits, T > 0 rows Gumbel-argmax sample with noise from
     :func:`_hash_uniform` of ``keybits`` [B] (``generation._fold_keys``
     key bits, values in [0, 2**32)). ``(w_q, w_scale)`` is the
-    vocab-padded int8 table; pad lanes never win. Returns [B] int32.
+    vocab-padded table: int8 [Vp, D] with per-row scales [Vp], or packed
+    int4 [Vp, D/2] uint8 with block scales [Vp, D/block]; pad lanes never
+    win. Returns [B] int32.
 
     Top-k / top-p filtering needs JAX's ``random.categorical`` stream and
     raises until the sampling slice; so do grammar masks and a non-f32
@@ -478,28 +510,40 @@ def fused_lm_head_sample(h, w_q, w_scale, vocab, keybits, temps, topks=0,
                          "jax.random.categorical stream, which a later slice "
                          "ports")
     Vp = w_q.shape[0]
-    if w_q.shape != (Vp, D) or w_scale.shape != (Vp,) or w_q.dtype != torch.int8:
+    if w_q.dtype == torch.uint8:
+        nsb = w_scale.shape[-1] if w_scale.dim() == 2 else 0
+        if (w_q.shape != (Vp, D // 2) or D % 2 or w_scale.shape != (Vp, nsb)
+                or nsb < 1 or D % nsb):
+            raise MXNetError("fused_lm_head_sample: int4 table w_q (Vp, D/2) "
+                             "uint8, w_scale (Vp, D/block)")
+        block = D // nsb
+    elif w_q.shape != (Vp, D) or w_scale.shape != (Vp,) or w_q.dtype != torch.int8:
         raise MXNetError("fused_lm_head_sample: w_q (Vp, D) int8, w_scale (Vp,)")
+    else:
+        block = 0
     dev = h.device
     temps = torch.as_tensor(temps, dtype=torch.float32, device=dev).reshape(-1)
     temps = temps.expand(B).contiguous()
     keybits = torch.as_tensor(keybits, device=dev).reshape(-1)
     if keybits.numel() != B:
         raise MXNetError("fused_lm_head_sample: one key per row")
-    record_launch("fused_head")
+    record_launch("fused_head" + ("_int4" if block else ""))
     if dev.type == "cpu":
         return _reference_head_sample(h.float(), w_q, w_scale, int(vocab),
                                       temps, keybits)
-    return _cuda_head_sample(h, w_q, w_scale, int(vocab), temps, keybits)
+    return _cuda_head_sample(h, w_q, w_scale, int(vocab), temps, keybits, block)
 
 
-def _cuda_head_sample(h, w_q, w_scale, vocab, temps, keybits):
+def _cuda_head_sample(h, w_q, w_scale, vocab, temps, keybits, block):
     from .. import _build
     B, D = h.shape
     Vp = w_q.shape[0]
     if h.dtype != torch.float32 or D % 16:
         raise MXNetError("fused_lm_head_sample: the kernel takes f32 h with "
                          "D % 16 == 0")
+    if block and not int4_chunks_fit(D, block):
+        raise MXNetError(f"fused_lm_head_sample: the int4 lane needs block % 16 "
+                         f"== 0 (got {block})")
     # key bits as int32 carrying the uint32 pattern
     kb = keybits.long() & _M32
     kb = torch.where(kb >= 2 ** 31, kb - 2 ** 32, kb).to(torch.int32).contiguous()
@@ -514,5 +558,5 @@ def _cuda_head_sample(h, w_q, w_scale, vocab, temps, keybits):
         h.data_ptr(), w_q.contiguous().data_ptr(),
         w_scale.contiguous().data_ptr(), temps.data_ptr(), kb.data_ptr(),
         pmax.data_ptr(), pidx.data_ptr(), tok.data_ptr(), B, Vp, D, vocab,
-        stream), "lm_head_sample")
+        block, stream), "lm_head_sample")
     return tok

@@ -1,12 +1,13 @@
-"""Weight-only int8 GEMV for decode-shaped matmuls (counterpart of
-``mxnet_tpu/ops/int8_gemv.py``), plus the launch counters of the decode
+"""Weight-only int8 and int4 GEMV for decode-shaped matmuls (counterpart
+of ``mxnet_tpu/ops/int8_gemv.py``), plus the launch counters of the decode
 kernels.
 
-:func:`int8_weight_matmul` dispatches by the tensor's device: a CPU tensor
-takes :func:`_reference_int8_matmul`, the plain PyTorch version (the exact
-op sequence of the JAX package's off-TPU fallback: dequantize, then an f32
+:func:`int8_weight_matmul` and :func:`int4_weight_matmul` dispatch by the
+tensor's device: a CPU tensor takes the plain PyTorch version
+(:func:`_reference_int8_matmul`, :func:`_reference_int4_matmul`: the exact
+op sequence of the JAX package's off-TPU fallback, dequantize, then an f32
 matmul); a CUDA tensor launches the hand-written kernel
-``csrc/int8_gemv.cu`` (K3) or raises.
+``csrc/int8_gemv.cu`` (K3) or ``csrc/int4_gemv.cu`` (K4), or raises.
 """
 from __future__ import annotations
 
@@ -18,9 +19,10 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["int8_weight_matmul", "count_launches", "record_launch",
-           "reset_launches", "launches", "record_dma", "dma_ledger",
-           "gemv_max_m"]
+__all__ = ["int8_weight_matmul", "int4_weight_matmul", "weight_matmul",
+           "dequantize_int4_table", "count_launches",
+           "record_launch", "reset_launches", "launches", "record_dma",
+           "dma_ledger", "gemv_max_m", "GEMV_INT4_BLOCK"]
 
 # row threshold of the GEMV route: at most this many rows stream int8
 # weights through K3, more take the activation-quantized int8 product
@@ -31,6 +33,12 @@ _GEMV_MAX_M = 64
 
 def gemv_max_m() -> int:
     return _GEMV_MAX_M
+
+
+# codes per f32 scale of the int4 weight tables (contrib/quantization):
+# the default of the JAX package's tuned ``gemv_int4_block`` knob, which
+# is not ported
+GEMV_INT4_BLOCK = 128
 
 
 # ---------------------------------------------------------------------------
@@ -132,6 +140,33 @@ def _reference_int8_matmul(x, w_q, w_scale):
     return x.float() @ wf.T
 
 
+def dequantize_int4_table(w_p, w_scale):
+    """The (N, K) f32 weight a packed int4 table stands for, through the
+    codec (``unpack_codes``, ``dequantize_blocks``). The JAX package runs
+    this outside any kernel, both as K4's off-TPU fallback and in the int4
+    layers' product of more than ``gemv_max_m()`` rows."""
+    from ..kvstore.quant import dequantize_blocks, unpack_codes
+    N, K2 = w_p.shape
+    K = 2 * K2
+    wf = dequantize_blocks(unpack_codes(w_p.reshape(-1), 4),
+                           w_scale.reshape(-1), K // w_scale.shape[1])
+    return wf.reshape(N, K)
+
+
+def _reference_int4_matmul(x, w_p, w_scale):
+    """Plain version of K4: the dequantized table, then ``x @ wf.T`` in
+    f32."""
+    return x.float() @ dequantize_int4_table(w_p, w_scale).T
+
+
+def _deq_matmul(x, w_q, w_scale):
+    """The plain GEMV of either weight lane, chosen by the table's dtype:
+    uint8 is the packed int4 lane, int8 the int8 lane."""
+    if w_q.dtype == torch.uint8:
+        return _reference_int4_matmul(x, w_q, w_scale)
+    return _reference_int8_matmul(x, w_q, w_scale)
+
+
 def _check_gemv(x, w_q, w_scale):
     if x.dim() != 2 or w_q.dim() != 2 or w_scale.dim() != 1:
         raise MXNetError("int8_weight_matmul: x (M, K), w_q (N, K), w_scale (N,)")
@@ -173,4 +208,70 @@ def _cuda_int8_matmul(x, w_q, w_scale, M, N, K):
     _build.check(lib.mx_int8_gemv(x.data_ptr(), w_q.data_ptr(),
                                   w_scale.data_ptr(), y.data_ptr(),
                                   M, N, K, stream), "int8_gemv")
+    return y
+
+
+def _check_int4(x, w_p, w_scale, what):
+    """(M, N, K, block) of an int4 GEMV's operands, or raise: ``x`` (M, K),
+    ``w_p`` (N, K/2) uint8, ``w_scale`` (N, K/block) f32."""
+    if x.dim() != 2 or w_p.dim() != 2 or w_scale.dim() != 2:
+        raise MXNetError(f"{what}: x (M, K), w_p (N, K/2), w_scale (N, K/block)")
+    M, K = x.shape
+    N, K2 = w_p.shape
+    nsb = w_scale.shape[1]
+    if K != 2 * K2 or w_scale.shape[0] != N or nsb < 1 or K % nsb:
+        raise MXNetError(f"{what}: shapes {tuple(x.shape)}, {tuple(w_p.shape)}, "
+                         f"{tuple(w_scale.shape)} disagree")
+    if w_p.dtype != torch.uint8 or w_scale.dtype != torch.float32:
+        raise MXNetError(f"{what}: w_p must be uint8 nibble pairs, w_scale f32")
+    if not (x.device == w_p.device == w_scale.device):
+        raise MXNetError(f"{what}: operands on different devices")
+    return M, N, K, K // nsb
+
+
+def weight_matmul(x, w_q, w_scale):
+    """The GEMV of either weight lane, chosen by the table's dtype: a
+    uint8 table goes through :func:`int4_weight_matmul` (K4), an int8 one
+    through :func:`int8_weight_matmul` (K3)."""
+    if w_q.dtype == torch.uint8:
+        return int4_weight_matmul(x, w_q, w_scale)
+    return int8_weight_matmul(x, w_q, w_scale)
+
+
+def int4_chunks_fit(K: int, block: int) -> bool:
+    """The int4 lane's tiling rule on the card: a lane reads 16 codes (8
+    bytes) of a row at a time, so K % 16 == 0, and those 16 codes must lie
+    in one scale block, so block % 16 == 0."""
+    return K % 16 == 0 and block % 16 == 0 and K % block == 0
+
+
+def int4_weight_matmul(x, w_p, w_scale):
+    """int4 weight-only GEMV: ``x`` (M, K) float; ``w_p`` (N, K/2) uint8,
+    two offset-binary nibbles per byte (the ``kvstore.quant.pack_codes``
+    layout); ``w_scale`` (N, K/block) f32 block scales. Returns (M, N) f32
+    = ``x @ dequant(w).T``."""
+    M, N, K, block = _check_int4(x, w_p, w_scale, "int4_weight_matmul")
+    record_launch("gemv_int4")
+    if x.device.type == "cpu":
+        return _reference_int4_matmul(x, w_p, w_scale)
+    return _cuda_int4_matmul(x, w_p, w_scale, M, N, K, block)
+
+
+def _cuda_int4_matmul(x, w_p, w_scale, M, N, K, block):
+    from .. import _build
+    if x.dtype != torch.float32:
+        raise MXNetError("int4_weight_matmul: the kernel takes f32 activations")
+    if not int4_chunks_fit(K, block) or M < 1:
+        raise MXNetError(f"int4_weight_matmul: the kernel needs K % 16 == 0, "
+                         f"block % 16 == 0 and M >= 1 (got M={M}, K={K}, "
+                         f"block={block})")
+    x = x.contiguous()
+    w_p = w_p.contiguous()
+    w_scale = w_scale.contiguous()
+    y = torch.empty(M, N, device=x.device, dtype=torch.float32)
+    lib = _build.library("int4_gemv")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check(lib.mx_int4_gemv(x.data_ptr(), w_p.data_ptr(),
+                                  w_scale.data_ptr(), y.data_ptr(),
+                                  M, N, K, block, stream), "int4_gemv")
     return y

@@ -28,8 +28,8 @@ layouts).
   power-of-two prefix of slots that covers them: per-slot positions,
   temperatures, seeds, sampling counters, eos ids and token budgets.
   ``multi_token=K`` runs K substeps per dispatch (models/generation.
-  decode_multi_tokens) with token selection fused into the int8 head
-  (K8) when the model carries one; tokens past a row's EOS or budget are
+  decode_multi_tokens) with token selection fused into the quantized
+  head (K8, int8 or int4 lane) when the model carries one; tokens past a row's EOS or budget are
   discarded, so greedy output equals ``multi_token=1``.
 - **Admission control.** A bounded FIFO queue, per-request deadlines,
   cancellation, and ``shutdown(drain=True)`` that finishes in-flight
@@ -38,11 +38,11 @@ layouts).
 One background thread runs the loop; ``submit`` and ``result`` are safe
 from any thread. The engine reads each dispatch's tokens back before the
 next one (no lookahead), so the paged tick has no pending step. Token 0
-of a request on a ``multi_token > 1`` engine with an int8 head is
+of a request on a ``multi_token > 1`` engine with a quantized head is
 selected by the fused head from the prompt's last hidden state, as
 ``generate(multi_token > 1)`` selects it (the JAX engine samples it from
 materialised logits); greedy token 0 is the same either way, because K3
-and K8 compute the same logits.
+(or K4) and K8 compute the same logits.
 
 Speculation, grammar masks, live weight swaps, page migration, warm-up
 and recompile guards, HTTP, metrics and tuned configs are later slices:
@@ -345,7 +345,7 @@ class InferenceEngine:
         _gen._validate_sampling(temperature, top_k, top_p)
         if temperature > 0 and self._head is None:
             raise MXNetError("temperature sampling on this engine needs "
-                             "multi_token > 1 with an int8 head (the fused "
+                             "multi_token > 1 with a quantized head (the fused "
                              "sampler); otherwise it " + _gen._SAMPLING_LATER)
         if len(prompt) + max_new_tokens + (self.K - 1) > self.L:
             raise MXNetError(

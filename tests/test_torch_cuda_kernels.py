@@ -1,6 +1,7 @@
-"""The port's hand-written CUDA kernels (K1, K2, K3, K5, K6, K7, K8) against
-their plain PyTorch versions on an NVIDIA GPU. Imports neither jax nor the JAX package,
-so it runs on a machine with the card:
+"""The port's hand-written CUDA kernels (K1, K2, K3, K4, K5, K6, K7, K8, and
+the int4 weight lanes of K5-K8) against their plain PyTorch versions on an
+NVIDIA GPU. Imports neither jax nor the JAX package, so it runs on a machine
+with the card:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
 
@@ -32,12 +33,14 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-@pytest.fixture
-def net(cuda):
+@pytest.fixture(params=[8, 4], ids=["int8", "int4"])
+def net(cuda, request):
+    """A small GPT on the card, quantized to the int8 or the packed int4
+    weight lane, with fused decode."""
     cfg = GPTConfig(vocab_size=1000, hidden_size=256, num_layers=2,
                     num_heads=4, max_position_embeddings=128, dropout=0.0)
     model = GPTModel(cfg, device="cuda").init_weights(0, std=0.1)
-    return quantize_net(model, fused_decode=True)
+    return quantize_net(model, fused_decode=True, bits=request.param)
 
 
 def _gemv_operands(M, N, K, seed=0):
@@ -69,6 +72,38 @@ def test_int8_gemv_rows_are_batch_invariant(cuda):
                            full[r:r + 1])
 
 
+def _int4_operands(M, N, K, seed=0):
+    """x and the packed int4 table of an N(0, 1) weight, as
+    ``quantize_net(bits=4)`` stores it (block 128, or K)."""
+    from mxnet_tpu_torch.contrib.quantization import _quantize_int4
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(M, K, device="cuda", generator=g)
+    return (x, *_quantize_int4(torch.randn(N, K, device="cuda", generator=g)))
+
+
+@pytest.mark.parametrize("M", [1, 8, 13, 64])
+@pytest.mark.parametrize("N,K", [(2304, 768), (768, 3072), (50304, 768), (384, 96)])
+def test_int4_gemv_matches_plain(cuda, M, N, K):
+    """K4 against its plain version (the codec's dequantized weights, then
+    an f32 matmul): f32 sums in another order, 1e-4 of the output scale."""
+    x, w, s = _int4_operands(M, N, K)
+    got = int8_gemv.int4_weight_matmul(x, w, s)
+    want = int8_gemv._reference_int4_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_int4_gemv_rows_are_batch_invariant_and_gated(cuda):
+    """A row's K4 output does not depend on the rows batched with it; a
+    block that would split a lane's 16 codes raises instead of running."""
+    x, w, s = _int4_operands(9, 768, 768)
+    full = int8_gemv.int4_weight_matmul(x, w, s)
+    for r in (0, 4, 8):
+        assert torch.equal(int8_gemv.int4_weight_matmul(x[r:r + 1], w, s), full[r:r + 1])
+    with pytest.raises(MXNetError, match="block % 16"):
+        int8_gemv.int4_weight_matmul(x, w, s.repeat_interleave(16, dim=1))    # block 8
+
+
 def test_block_decode_matches_plain(net):
     """K5 against the plain block step: untouched cache rows bitwise, new
     rows and output to 1e-4 of the output scale; per-row results do not
@@ -98,11 +133,12 @@ def test_block_decode_matches_plain(net):
 
 def test_head_sampler_matches_plain_and_gemv(net):
     """K8 tokens equal the plain version's for greedy and T = 0.8 rows, and
-    greedy rows equal the argmax of the K3 head logits bit for bit."""
+    greedy rows equal the argmax of the K3 (int8) or K4 (int4) head logits
+    bit for bit."""
     w_q, scale, vocab = net.head_weights()
     g = torch.Generator(device="cuda").manual_seed(2)
     B = 6
-    h = torch.randn(B, w_q.shape[1], device="cuda", generator=g)
+    h = torch.randn(B, net.cfg.hidden_size, device="cuda", generator=g)
     kb = torch.from_numpy(gen._key_bits(onp.arange(B), onp.arange(B))).cuda()
     for temp in (0.0, 0.8):
         temps = torch.full((B,), temp, device="cuda")
@@ -111,13 +147,13 @@ def test_head_sampler_matches_plain_and_gemv(net):
         assert torch.equal(got, plain)
     greedy = fb.fused_lm_head_sample(h, w_q, scale, vocab, kb,
                                      torch.zeros(B, device="cuda"))
-    logits = int8_gemv.int8_weight_matmul(h, w_q, scale)[:, :vocab]
+    logits = int8_gemv.weight_matmul(h, w_q, scale)[:, :vocab]
     assert torch.equal(greedy.long(), logits.argmax(-1))
 
 
 def test_generate_on_card_matches_across_heads(net):
-    """Greedy ``generate`` on the card: the K3 head (multi_token=1) and the
-    fused K8 head (multi_token=4) give the same tokens."""
+    """Greedy ``generate`` on the card: the K3 or K4 head (multi_token=1) and
+    the fused K8 head (multi_token=4) give the same tokens."""
     prompt = torch.randint(0, 1000, (2, 9), generator=torch.Generator().manual_seed(3))
     a = _generate(net, prompt, 1)
     b = _generate(net, prompt, 4)
@@ -164,17 +200,20 @@ def test_paged_wrapper_raises_on_shapes_no_gate_takes(net):
         fb.fused_block_decode_paged(x, posv, table, kp.bfloat16(), vp.bfloat16(), pack)
 
 
+@pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("max_len,kind", [(128, "fused_block_paged"),
                                           (512, "fused_block_paged_dma")])
-def test_paged_engine_on_card(cuda, max_len, kind):
-    """The paged engine on the card (K6 at L 128, K7 at L 512, K8 head):
-    every decode substep launches the kernel once per block, and greedy
-    tokens equal the engine's arithmetic on the contiguous layout (chunked
-    prefill, K5 decode), bit for bit; the pool drains to zero."""
+def test_paged_engine_on_card(cuda, max_len, kind, bits):
+    """The paged engine on the card (K6 at L 128, K7 at L 512, K8 head), in
+    either weight lane: every decode substep launches the kernel once per
+    block, and greedy tokens equal the engine's arithmetic on the
+    contiguous layout (chunked prefill, K5 decode), bit for bit; the pool
+    drains to zero."""
     cfg = GPTConfig(vocab_size=1000, hidden_size=256, num_layers=2, num_heads=4,
                     max_position_embeddings=512, dropout=0.0)
     model = quantize_net(GPTModel(cfg, device="cuda").init_weights(0, std=0.1),
-                         fused_decode=True)
+                         fused_decode=True, bits=bits)
+    kind += "_int4" if bits == 4 else ""
     rng = onp.random.RandomState(8)
     prompts = [rng.randint(0, 1000, n).tolist() for n in (5, 37, 70, 12, 21)]
     int8_gemv.reset_launches()

@@ -86,8 +86,13 @@ def test_gemv_rows_use_the_weight_only_path():
 
 
 def test_unported_options_raise():
+    """``bits=4`` quantizes (packed int4 tables); other widths raise, as
+    the JAX package's ``test_quantize_net_rejects_unknown_bits`` asserts;
+    calibrated modes are not ported."""
     _, tnet = _pair(256, layers=1)
-    with pytest.raises(MXNetError, match="later slice"):
-        quantize_net(tnet, bits=4)
+    with pytest.raises(MXNetError, match="bits"):
+        quantize_net(tnet, bits=3)
     with pytest.raises(MXNetError, match="calib_mode"):
         quantize_net(tnet, calib_mode="naive")
+    quantize_net(tnet, bits=4)
+    assert tnet.blocks[0].attn_qkv.w_q.dtype == torch.uint8
