@@ -8,7 +8,10 @@
    decode, K8 fused LM-head sampler, K6 and K7 one-launch paged block
    decode, gathered and streamed) against its plain PyTorch version at
    GPT-2-small shapes and times kernel, plain version and a library
-   yardstick with CUDA events (L2 flushed before every timed launch). K6
+   yardstick with CUDA events (L2 flushed before every timed launch). K3
+   (and K4 below) run at 1, 8, 9, 16 and 64 rows: the warp route up to 8
+   rows, the tensor-core tile route above, whose rows must give the same
+   bits at 9, 16 and 64 rows and on a second launch. K6
    and K7 run on scattered block tables of a 600-page pool; K7's copies
    started and waited are held against the ``record_dma`` ledger, and K5, K6
    and K7 must give one input the same bits.
@@ -16,9 +19,10 @@
    over int8 GPT-2 small (12 layers, D 768, vocab 50257, random weights
    from ``--seed``) and checks the tokens against ``generate()`` on the
    card and against the plain path on the CPU, and that every kernel of
-   the path launched. The 8 greedy requests are then served once more
-   under ``torch.profiler`` to split the window into device time per
-   kernel and idle time.
+   the path launched (each GEMV route, warp and tile, counted by
+   ``gemv_routes()`` over the serving phases). The 8 greedy requests are
+   then served once more under ``torch.profiler`` to split the window into
+   device time per kernel and idle time.
 3b. Serves the same model from the paged KV pool
    (``InferenceEngine(paged=True)``): phase A, 16 requests sharing a
    system prompt on a 128-page pool at max_len 256, every decode substep
@@ -91,6 +95,10 @@ PAGED_B_PAGES = 160
 # requests against the plain path on the CPU, which dequantizes every int4
 # table on every call (about 0.3 s a token at GPT-2 small)
 INT4_CPU_TOKENS = 32
+# clock cycles the card spins before each timed call (about 0.5 ms at the
+# H100's 1.98 GHz): the host enqueues the call while the card is busy, so
+# host time (a Python wrapper, a contended CPU) stays outside the events
+TIMER_COVER_CYCLES = 1_000_000
 
 
 class SmokeFailure(RuntimeError):
@@ -118,7 +126,8 @@ def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
 class Timer:
     """Median CUDA-event time of one call, with the 50 MB L2 flushed
     before every timed launch (decode streams each weight once per step,
-    so the real caller finds it cold)."""
+    so the real caller finds it cold) and the card held busy for
+    TIMER_COVER_CYCLES while the host enqueues the call."""
 
     def __init__(self, torch, iters=15, warmup=3):
         self.torch = torch
@@ -132,6 +141,7 @@ class Timer:
         times = []
         for _ in range(self.iters):
             self.flush.zero_()
+            torch.cuda._sleep(TIMER_COVER_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -142,44 +152,9 @@ class Timer:
         return statistics.median(times)
 
 
-def kernel_k3(torch, timer, gen):
-    """K3 at every (M, N, K) the serving path gives it; returns the row
-    of the tied-head shape and the per-shape table."""
-    from mxnet_tpu_torch.ops import int8_gemv
-    rows = []
-    for M in (1, 8, 64):
-        for N, K in ((2304, 768), (768, 768), (3072, 768), (768, 3072),
-                     (50304, 768)):
-            x = torch.randn(M, K, device="cuda", generator=gen)
-            w = torch.randint(-127, 128, (N, K), device="cuda", generator=gen,
-                              dtype=torch.int8)
-            s = torch.rand(N, device="cuda", generator=gen) * 0.02 + 1e-3
-            got = int8_gemv.int8_weight_matmul(x, w, s)
-            plain = int8_gemv._reference_int8_matmul(x, w, s)
-            torch.cuda.synchronize()
-            err = (got - plain).abs().max().item()
-            tol = 1e-4 * max(1.0, plain.abs().max().item())
-            check(err <= tol, f"K3 M={M} N={N} K={K}: max abs err {err} > {tol}")
-            wdeq = w.float() * s[:, None]
-            b_ms, b_by = bound(4 * M * K + N * K + 4 * N + 4 * M * N, 2 * M * N * K)
-            rows.append({
-                "M": M, "N": N, "K": K, "max_abs_err": err, "tol": tol,
-                "ms": timer(lambda: int8_gemv.int8_weight_matmul(x, w, s)),
-                "plain_ms": timer(lambda: int8_gemv._reference_int8_matmul(x, w, s)),
-                "library_ms": timer(lambda: torch.matmul(x, wdeq.T)),
-                "bound_ms": b_ms, "bound_by": b_by})
-    emit({"k3_shapes": rows})
-    # the serving path's K3 work: one layer's four block GEMVs at the
-    # largest prefill bucket (64 rows)
-    layer = [r for r in rows if r["M"] == 64 and r["N"] != 50304]
-    out = {k: sum(r[k] for r in layer)
-           for k in ("ms", "plain_ms", "library_ms")}
-    out["max_abs_err"] = max(r["max_abs_err"] for r in layer)
-    nbytes = sum(4 * 64 * r["K"] + r["N"] * r["K"] + 4 * r["N"] + 4 * 64 * r["N"]
-                 for r in layer)
-    out["bound_ms"], out["bound_by"] = bound(
-        nbytes, sum(2 * 64 * r["N"] * r["K"] for r in layer))
-    return out
+GEMV_ROWS = (1, 8, 9, 16, 64)
+# one block's four GEMVs (qkv, out, fc, proj) and the tied head
+GEMV_SHAPES = ((2304, 768), (768, 768), (3072, 768), (768, 3072), (50304, 768))
 
 
 def dequant(torch, w_q, w_scale):
@@ -194,49 +169,81 @@ def table_bytes(*tables):
     return sum(t.numel() * t.element_size() for t in tables)
 
 
-def kernel_k4(torch, timer, gen):
-    """K4 at every (M, N, K) the int4 serving path gives it, at 1 and 64
-    rows; returns the row of one layer's four block GEMVs at 64 rows
-    (summed, as K3's) with the 1-row sums beside it."""
+def kernel_gemv(torch, timer, gen, bits):
+    """K3 (``bits`` 8) or K4 (4) at every (N, K) the serving path gives it,
+    at each row count of GEMV_ROWS: the warp route at 1 and 8 rows, the tile
+    route at 9, 16 and 64. Every call within 1e-4 x max(1, |plain|); the
+    first 9 rows of the tile route give the same bits at M 9, 16 and 64,
+    and two launches at 64 rows the same bits. The bound of every call is
+    the larger of its bytes and its operations at the bf16 tensor rate,
+    whichever route runs it. Returns {"warp": one layer's four GEMVs at 8
+    rows, summed, "mma": the same at 64 rows, with the 16-row sums under
+    "m16"; the 1-row sums under "m1" of "warp"}."""
     from mxnet_tpu_torch.contrib.quantization import _quantize_int4
     from mxnet_tpu_torch.ops import int8_gemv
-    rows = []
-    for M in (1, 64):
-        for N, K in ((2304, 768), (768, 768), (3072, 768), (768, 3072), (50304, 768)):
-            x = torch.randn(M, K, device="cuda", generator=gen)
-            w, s = _quantize_int4(torch.randn(N, K, device="cuda", generator=gen))
-            got = int8_gemv.int4_weight_matmul(x, w, s)
-            plain = int8_gemv._reference_int4_matmul(x, w, s)
-            torch.cuda.synchronize()
-            err = (got - plain).abs().max().item()
-            tol = 1e-4 * max(1.0, plain.abs().max().item())
-            check(err <= tol, f"K4 M={M} N={N} K={K}: max abs err {err} > {tol}")
-            wdeq = dequant(torch, w, s)
-            # the products, and one block-scale multiply per partial sum
-            b_ms, b_by = bound(4 * M * K + table_bytes(w, s) + 4 * M * N,
-                               2 * M * N * K + M * s.numel())
-            rows.append({
-                "M": M, "N": N, "K": K, "max_abs_err": err, "tol": tol,
-                "ms": timer(lambda: int8_gemv.int4_weight_matmul(x, w, s)),
-                "plain_ms": timer(lambda: int8_gemv._reference_int4_matmul(x, w, s)),
-                "library_ms": timer(lambda: torch.matmul(x, wdeq.T)),
-                "bound_ms": b_ms, "bound_by": b_by})
-    emit({"k4_shapes": rows})
-    out = {}
-    for M in (64, 1):
-        layer = [r for r in rows if r["M"] == M and r["N"] != 50304]
-        sums = {k: sum(r[k] for r in layer) for k in ("ms", "plain_ms", "library_ms")}
-        nbytes = sum(4 * M * r["K"] + r["N"] * r["K"] // 2 + r["N"] * r["K"] // 128 * 4
-                     + 4 * M * r["N"] for r in layer)
-        sums["bound_ms"], sums["bound_by"] = bound(
-            nbytes, sum(2 * M * r["N"] * r["K"] + M * r["N"] * r["K"] // 128
-                        for r in layer))
-        if M == 64:
-            out.update(sums)
-            out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    name = "K3" if bits == 8 else "K4"
+    fn = int8_gemv.int8_weight_matmul if bits == 8 else int8_gemv.int4_weight_matmul
+    plain = int8_gemv._reference_int8_matmul if bits == 8 else int8_gemv._reference_int4_matmul
+    rows, same_bits = [], []
+    for N, K in GEMV_SHAPES:
+        x64 = torch.randn(max(GEMV_ROWS), K, device="cuda", generator=gen)
+        if bits == 8:
+            w = torch.randint(-127, 128, (N, K), device="cuda", generator=gen, dtype=torch.int8)
+            s = torch.rand(N, device="cuda", generator=gen) * 0.02 + 1e-3
         else:
-            out["m1"] = sums
-    return out
+            w, s = _quantize_int4(torch.randn(N, K, device="cuda", generator=gen))
+        wdeq = dequant(torch, w, s)
+        outs = {}
+        for M in GEMV_ROWS:
+            x = x64[:M].contiguous()
+            got = fn(x, w, s)
+            want = plain(x, w, s)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tol = 1e-4 * max(1.0, want.abs().max().item())
+            check(err <= tol, f"{name} M={M} N={N} K={K}: max abs err {err} > {tol}")
+            outs[M] = got
+            # the products, and for int4 one block-scale multiply per partial sum
+            b_ms, b_by = bound(4 * M * K + table_bytes(w, s) + 4 * M * N,
+                               2 * M * N * K + (M * s.numel() if bits == 4 else 0),
+                               BF16_FLOP_PER_S)
+            rows.append({
+                "M": M, "N": N, "K": K, "route": int8_gemv.gemv_route(M),
+                "max_abs_err": err, "tol": tol,
+                "ms": timer(lambda: fn(x, w, s)),
+                "plain_ms": timer(lambda: plain(x, w, s)),
+                "library_ms": timer(lambda: torch.matmul(x, wdeq.T)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bytes": 4 * M * K + table_bytes(w, s) + 4 * M * N})
+        tile = [M for M in GEMV_ROWS if int8_gemv.gemv_route(M) == "mma"]
+        lo = min(tile)
+        again = fn(x64, w, s)
+        torch.cuda.synchronize()
+        row = {"N": N, "K": K,
+               "rows_equal_across_M": all(torch.equal(outs[M][:lo], outs[lo]) for M in tile),
+               "repeat_equal": torch.equal(again, outs[max(tile)])}
+        check(row["rows_equal_across_M"] and row["repeat_equal"],
+              f"{name} tile route N={N} K={K}: bits differ across M {tile} or launches: {row}")
+        same_bits.append(row)
+    emit({name.lower() + "_shapes": rows, name.lower() + "_tile_same_bits": same_bits})
+
+    def layer_sums(M):
+        # the serving path's work: one layer's four block GEMVs at M rows
+        layer = [r for r in rows if r["M"] == M and r["N"] != 50304]
+        out = {k: sum(r[k] for r in layer) for k in ("ms", "plain_ms", "library_ms")}
+        out["bound_ms"], out["bound_by"] = bound(
+            sum(r["bytes"] for r in layer),
+            sum(2 * M * r["N"] * r["K"] + (M * r["N"] * r["K"] // 128 if bits == 4 else 0)
+                for r in layer), BF16_FLOP_PER_S)
+        return out
+
+    warp = layer_sums(8)
+    warp["max_abs_err"] = max(r["max_abs_err"] for r in rows if r["route"] == "warp")
+    warp["m1"] = layer_sums(1)
+    mma = layer_sums(64)
+    mma["max_abs_err"] = max(r["max_abs_err"] for r in rows if r["route"] == "mma")
+    mma["m16"] = layer_sums(16)
+    return {"warp": warp, "mma": mma}
 
 
 def pack_bytes(pack):
@@ -530,7 +537,8 @@ def device_share(torch, eng, prompts, new):
     for a, b, name in spans:
         key = next((k for k in ("fused_block_decode_paged_dma", "fused_block_decode_paged",
                                 "fused_block_decode", "head_tiles", "head_reduce",
-                                "int8_gemv", "int4_gemv") if k in name), "other")
+                                "int8_gemv_mma", "int4_gemv_mma", "int8_gemv", "int4_gemv")
+                    if k in name), "other")
         by_kernel[key] = by_kernel.get(key, 0.0) + (b - a) / 1e3
     substeps = after["decode_substeps"] - before["decode_substeps"]
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
@@ -564,7 +572,7 @@ def serve(torch, args, net, cpu_net, cpu_tokens=64):
     import numpy as np
 
     from mxnet_tpu_torch.models import generate
-    from mxnet_tpu_torch.ops.int8_gemv import launches, reset_launches
+    from mxnet_tpu_torch.ops.int8_gemv import gemv_routes, launches, reset_launches
     from mxnet_tpu_torch.serve import InferenceEngine
     tag, kinds, forbidden = lane(torch, net)
     rng = np.random.RandomState(args.seed)
@@ -586,6 +594,7 @@ def serve(torch, args, net, cpu_net, cpu_tokens=64):
         results = [h.result(timeout=600) for h in handles]
         wall = time.perf_counter() - t0
         counts = launches()
+        counts["routes"] = gemv_routes()
         after = eng.stats()
         again = [eng.submit(prompts[i], new, temperature=0.8, seed=1000 + i)
                  for i in range(8, 12)]
@@ -760,7 +769,7 @@ def serve_paged(torch, args, net, phase):
     Returns the launch counts of the concurrent window."""
     import numpy as np
 
-    from mxnet_tpu_torch.ops.int8_gemv import dma_ledger, launches, reset_launches
+    from mxnet_tpu_torch.ops.int8_gemv import dma_ledger, gemv_routes, launches, reset_launches
     from mxnet_tpu_torch.serve import InferenceEngine
     from mxnet_tpu_torch.serve.paging import pages_for
     tag, kinds, forbidden = lane(torch, net)
@@ -797,6 +806,7 @@ def serve_paged(torch, args, net, phase):
         results = first + [h.result(timeout=900) for h in handles]
         wall = time.perf_counter() - t0
         counts, ledger = launches(), dma_ledger()
+        counts["routes"] = gemv_routes()
         after = eng.stats()
         sampled = [i for i, t in enumerate(temps) if t > 0]
         again = [eng.submit(prompts[i], new, temperature=0.8, seed=2000 + i) for i in sampled]
@@ -886,7 +896,7 @@ def int4_stage(torch, args, timer, gen, int8_bytes):
         check(all(blk._fused_pack is not None and blk._fused_pack["blocks"] == (128,) * 4
                   for blk in net.blocks), "int4 GPT-2 small: a block is not packed int4")
         pack = pack_gpt_block(net.blocks[0], eps=net.cfg.layer_norm_eps)
-        rows = {"K4": kernel_k4(torch, timer, gen), "K5": kernel_k5(torch, timer, gen, pack),
+        rows = {"K4": kernel_gemv(torch, timer, gen, 4), "K5": kernel_k5(torch, timer, gen, pack),
                 "K8": kernel_k8(torch, timer, gen, net.head_weights())}
         k67 = kernel_k6_k7(torch, timer, gen, pack)
         rows["K6"], rows["K7"] = k67["K6"], k67["K7"]
@@ -1314,8 +1324,9 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     per_source = _build.build_all()
+    # per kernel: its entry function, then its registers and spills
     logs = {n: [ln.strip() for ln in (_build.BUILD_DIR / f"{n}.log").read_text()
-                .splitlines() if "registers" in ln or "spill" in ln]
+                .splitlines() if "entry function" in ln or "registers" in ln or "spill" in ln]
             for n in per_source}
     emit({"build_s": time.perf_counter() - t0, "per_source_s": per_source,
           "ptxas": logs})
@@ -1328,13 +1339,13 @@ def main(argv=None):
 
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
         timer = Timer(torch)
-        k3 = kernel_k3(torch, timer, gen)
+        k3 = kernel_gemv(torch, timer, gen, 8)
         k5 = kernel_k5(torch, timer, gen,
                        pack_gpt_block(net.blocks[0], eps=net.cfg.layer_norm_eps))
         k8 = kernel_k8(torch, timer, gen, net.head_weights())
         k67 = kernel_k6_k7(torch, timer, gen,
                            pack_gpt_block(net.blocks[0], eps=net.cfg.layer_norm_eps))
-    emit({"k5": k5, "k8": k8, "k6_k7": k67})
+    emit({"k3": k3, "k5": k5, "k8": k8, "k6_k7": k67})
 
     serve_counts = serve(torch, args, net, cpu_net)
     del cpu_net
@@ -1343,7 +1354,7 @@ def main(argv=None):
     del net
     torch.cuda.empty_cache()
 
-    int4_counts, r4 = int4_stage(torch, args, timer, gen, int8_bytes)
+    int4_counts, r4k = int4_stage(torch, args, timer, gen, int8_bytes)
     torch.cuda.empty_cache()
 
     k1, k2 = kernel_flash(torch, timer, gen)
@@ -1352,42 +1363,50 @@ def main(argv=None):
     torch.cuda.empty_cache()
     train_card_vs_cpu(torch, args)
 
+    def routes(*phases):
+        return {r: sum(c["routes"][r] for c in phases) for r in ("warp", "mma")}
+
+    r8 = routes(serve_counts, paged_counts["A"], paged_counts["B"])
+    r4 = routes(int4_counts["contiguous"], int4_counts["A"], int4_counts["C"])
+    emit({"gemv_routes": {"int8": r8, "int4": r4}})
+    gemv8, gemv4 = "mxnet_tpu_torch/csrc/int8_gemv.cu", "mxnet_tpu_torch/csrc/int4_gemv.cu"
     rows = []
-    for name, src, replaces, kind, counts, r in (
-            ("int8_gemv", "mxnet_tpu_torch/csrc/int8_gemv.cu",
-             "mxnet_tpu/ops/int8_gemv.py:113", "gemv", serve_counts, k3),
+    for name, src, replaces, launched, r in (
+            ("int8_gemv", gemv8, "mxnet_tpu/ops/int8_gemv.py:113", r8["warp"], k3["warp"]),
+            ("int8_gemv_mma", gemv8, "mxnet_tpu/ops/int8_gemv.py:113", r8["mma"], k3["mma"]),
             ("fused_block_decode", "mxnet_tpu_torch/csrc/fused_block_decode.cu",
-             "mxnet_tpu/ops/fused_block_gemv.py:424", "fused_block", serve_counts, k5),
+             "mxnet_tpu/ops/fused_block_gemv.py:424", serve_counts.get("fused_block", 0), k5),
             ("fused_block_decode_paged", "mxnet_tpu_torch/csrc/fused_block_decode_paged.cu",
-             "mxnet_tpu/ops/fused_block_gemv.py:601", "fused_block_paged",
-             paged_counts["A"], k67["K6"]),
+             "mxnet_tpu/ops/fused_block_gemv.py:601",
+             paged_counts["A"].get("fused_block_paged", 0), k67["K6"]),
             ("fused_block_decode_paged_dma",
              "mxnet_tpu_torch/csrc/fused_block_decode_paged_dma.cu",
-             "mxnet_tpu/ops/fused_block_gemv.py:810", "fused_block_paged_dma",
-             paged_counts["B"], k67["K7"]),
+             "mxnet_tpu/ops/fused_block_gemv.py:810",
+             paged_counts["B"].get("fused_block_paged_dma", 0), k67["K7"]),
             ("lm_head_sample", "mxnet_tpu_torch/csrc/lm_head_sample.cu",
-             "mxnet_tpu/ops/fused_block_gemv.py:1218", "fused_head", serve_counts, k8),
-            ("int4_gemv", "mxnet_tpu_torch/csrc/int4_gemv.cu",
-             "mxnet_tpu/ops/int8_gemv.py:186", "gemv_int4", int4_counts["contiguous"], r4["K4"]),
+             "mxnet_tpu/ops/fused_block_gemv.py:1218", serve_counts.get("fused_head", 0), k8),
+            ("int4_gemv", gemv4, "mxnet_tpu/ops/int8_gemv.py:186", r4["warp"], r4k["K4"]["warp"]),
+            ("int4_gemv_mma", gemv4, "mxnet_tpu/ops/int8_gemv.py:186", r4["mma"],
+             r4k["K4"]["mma"]),
             ("fused_block_decode_int4", "mxnet_tpu_torch/csrc/fused_block_decode.cu",
-             "mxnet_tpu/ops/fused_block_gemv.py:424", "fused_block_int4",
-             int4_counts["contiguous"], r4["K5"]),
+             "mxnet_tpu/ops/fused_block_gemv.py:424",
+             int4_counts["contiguous"].get("fused_block_int4", 0), r4k["K5"]),
             ("fused_block_decode_paged_int4", "mxnet_tpu_torch/csrc/fused_block_decode_paged.cu",
-             "mxnet_tpu/ops/fused_block_gemv.py:601", "fused_block_paged_int4",
-             int4_counts["A"], r4["K6"]),
+             "mxnet_tpu/ops/fused_block_gemv.py:601",
+             int4_counts["A"].get("fused_block_paged_int4", 0), r4k["K6"]),
             ("fused_block_decode_paged_dma_int4",
              "mxnet_tpu_torch/csrc/fused_block_decode_paged_dma.cu",
-             "mxnet_tpu/ops/fused_block_gemv.py:810", "fused_block_paged_dma_int4",
-             int4_counts["C"], r4["K7"]),
+             "mxnet_tpu/ops/fused_block_gemv.py:810",
+             int4_counts["C"].get("fused_block_paged_dma_int4", 0), r4k["K7"]),
             ("lm_head_sample_int4", "mxnet_tpu_torch/csrc/lm_head_sample.cu",
-             "mxnet_tpu/ops/fused_block_gemv.py:1218", "fused_head_int4",
-             int4_counts["contiguous"], r4["K8"]),
+             "mxnet_tpu/ops/fused_block_gemv.py:1218",
+             int4_counts["contiguous"].get("fused_head_int4", 0), r4k["K8"]),
             ("flash_attention_fwd", "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
-             "mxnet_tpu/ops/attention.py:286", "flash_fwd", train_counts, k1),
+             "mxnet_tpu/ops/attention.py:286", train_counts.get("flash_fwd", 0), k1),
             ("flash_attention_bwd", "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
-             "mxnet_tpu/ops/attention.py:383", "flash_bwd", train_counts, k2)):
+             "mxnet_tpu/ops/attention.py:383", train_counts.get("flash_bwd", 0), k2)):
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": counts.get(kind, 0),
+                     "replaces": replaces, "launches": launched,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

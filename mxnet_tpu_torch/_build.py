@@ -104,9 +104,13 @@ def _declare(name: str, lib: ctypes.CDLL):
     if name == "int8_gemv":
         lib.mx_int8_gemv.argtypes = [p, p, p, p, i, i, i, p]
         lib.mx_int8_gemv.restype = i
+        lib.mx_int8_gemv_mma.argtypes = [p, p, p, p, i, i, i, p]
+        lib.mx_int8_gemv_mma.restype = i
     elif name == "int4_gemv":
         lib.mx_int4_gemv.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.mx_int4_gemv.restype = i
+        lib.mx_int4_gemv_mma.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.mx_int4_gemv_mma.restype = i
     elif name == "fused_block_decode":
         lib.mx_fused_block_decode.argtypes = [p] * 22 + [i] * 6 + [f, p]
         lib.mx_fused_block_decode.restype = i

@@ -25,7 +25,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma_common.cuh"
+
 namespace mxfa {
+
+using mx::mma16816;
 
 // jnp.finfo(float32).min: the TPU kernel's mask value (not -inf, so that
 // max/exp never see inf - inf)
@@ -231,15 +235,9 @@ __device__ __forceinline__ void tile_mm(float* c, int ldc, const float* a, int l
 // ---------------------------------------------------------------------------
 // bf16 body: mma.sync m16n8k16 with register-resident fragments.
 //
-// In a warp, lane = 4 g + t (g = lane / 4, t = lane % 4). PTX's fragment
-// layouts for m16n8k16 with 16-bit inputs:
-//   A (16 x 16): a0 = A[g][2t..2t+1],     a1 = A[g+8][2t..2t+1],
-//                a2 = A[g][2t+8..2t+9],   a3 = A[g+8][2t+8..2t+9];
-//   B (16 x 8):  b0 = B[2t..2t+1][g],     b1 = B[2t+8..2t+9][g];
-//   C (16 x 8):  c0, c1 = C[g][2t, 2t+1], c2, c3 = C[g+8][2t, 2t+1]
-// (each 32-bit register holds two bf16, the lower index in the low half).
-// So the C fragments of two neighbouring 8-column tiles of S are exactly
-// the A fragment of the 16-column block of P: scores never leave registers.
+// Fragment layouts: mma_common.cuh (mma16816). The C fragments of two
+// neighbouring 8-column tiles of S are exactly the A fragment of the
+// 16-column block of P: scores never leave registers.
 // ---------------------------------------------------------------------------
 template <int DP>
 struct MmaCfg {
@@ -249,16 +247,6 @@ struct MmaCfg {
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int LD = DP + 8;            // bf16 row stride of shared tiles
 };
-
-// Not volatile: a pure function of its registers, so the compiler may
-// schedule it around the (volatile) ldmatrix loads.
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   const bf16 l = __float2bfloat16(lo), h = __float2bfloat16(hi);

@@ -13,6 +13,13 @@
 // K8 fused head agree bit for bit (greedy tokens match across the two head
 // paths).
 //
+// Both halves of that contract hold on the warp route of K3 and K4
+// (gemv_tiles below), which takes M <= 8 rows (decode batches). Prefill
+// rows, 9 <= M <= 64, take the tile route (gemv_mma.cuh): tensor cores
+// over x as three bf16 planes, in another fixed order. Its rows are the
+// same bits at any M from 9 to 64 and on every launch, and agree with the
+// warp route (and with K8) to rounding, not bit for bit.
+//
 // Two weight lanes feed that loop (Int8Rows, Int4Rows below). An int8 chunk
 // is 16 bytes and its codes are the weights; the row's f32 scale multiplies
 // the finished dot. An int4 chunk is 8 bytes of nibble pairs; each code is

@@ -4,22 +4,30 @@
 // Replaces the TPU kernel mxnet_tpu/ops/int8_gemv.py:int4_weight_matmul
 // (pl.pallas_call at int8_gemv.py:237).
 //
-// Bound: at decode row counts (M <= 64) the packed weight bytes dominate
-// (N * K / 2 bytes plus N * K / block * 4 bytes of scales, read once); at
-// 3.35 TB/s the 50304 x 768 tied head (19.3 MB + 1.2 MB) takes 6.1 us. At
-// M = 64 the f32 FMAs on the CUDA cores (67 TFLOP/s) become the larger
-// bound.
+// Two routes, chosen per call by ops/int8_gemv.py:gemv_route:
 //
-// Design against that bound: K3's (int8_gemv.cu) with the int4 lane of
-// gemv_common.cuh: each warp streams whole rows in 8-byte loads per lane
-// (16 codes), unpacks the lo then the hi nibble of each byte, multiplies
-// each code by its block scale in registers and accumulates in f32 against
-// activations kept in f32 in shared memory. The TPU kernel dequantized a
-// (bn, K) tile in VMEM and cast x to bf16 for the MXU; here x stays f32
-// (the stream is weight-bound) and the dot order is the one K8's int4 lane
-// takes, so the int4 head GEMV + argmax and K8's greedy rows select the
-// same token bit for bit.
+// Warp route (mx_int4_gemv; decode, M <= 8, and M past gemv_max_m()).
+// Bound: the packed weight bytes (N * K / 2 bytes plus N * K / block * 4
+// bytes of scales, read once); at 3.35 TB/s the 50304 x 768 tied head
+// (19.3 MB + 1.2 MB) takes 6.1 us. K3's warp design (int8_gemv.cu) with
+// the int4 lane of gemv_common.cuh: each warp streams whole rows in 8-byte
+// loads per lane (16 codes), unpacks the lo then the hi nibble of each
+// byte, multiplies each code by its block scale in registers and
+// accumulates in f32 against activations kept in f32 in shared memory. The
+// TPU kernel dequantized a (bn, K) tile in VMEM and cast x to bf16 for the
+// MXU; here x stays f32 (the stream is weight-bound) and the dot order is
+// the one K8's int4 lane takes, so the int4 head GEMV + argmax and K8's
+// greedy rows select the same token bit for bit.
+//
+// Tile route (mx_int4_gemv_mma; prefill, 9 <= M <= 64). Bound: the larger
+// of the bytes and 2 M N K operations at the 989 TFLOP/s bf16 tensor rate;
+// bytes bound it (one GPT-2 layer's four GEMVs at 64 rows: 6.9 MB, 2.1
+// us). The nibbles stream once through a cp.async ring into mma.sync
+// (codes nibble - 8, exact in bf16) against x as three bf16 planes; each
+// block's partial sum is multiplied by its block scale into the f32
+// accumulator. Design: gemv_mma.cuh.
 #include "gemv_common.cuh"
+#include "gemv_mma.cuh"
 
 namespace {
 
@@ -28,6 +36,13 @@ __global__ void __launch_bounds__(mx::kThreads)
                      int N, int K) {
   extern __shared__ __align__(16) float xs[];
   mx::gemv_tiles(xs, x, w, y, M, N, K);
+}
+
+__global__ void __launch_bounds__(mx::tile::kThreads, mx::tile::kMinCtas)
+    int4_gemv_mma_kernel(const float* __restrict__ x, mx::tile::Int4Tile w,
+                         float* __restrict__ y, int M, int N, int K) {
+  extern __shared__ __align__(128) char smem[];
+  mx::tile::gemv_mma(smem, x, w, y, M, N, K);
 }
 
 }  // namespace
@@ -42,4 +57,16 @@ extern "C" int mx_int4_gemv(const void* x, const void* w, const void* s, void* y
   return mx::launch_gemv(int4_gemv_kernel, x,
                          mx::Int4Rows(w, static_cast<const float*>(s), K, block), y, M, N, K,
                          stream);
+}
+
+// w, s as mx_int4_gemv; 1 <= M <= 64, K % 32 == 0, block % 32 == 0 (a
+// k-tile of 32 codes lies in one block; ops/int8_gemv.py checks first).
+extern "C" int mx_int4_gemv_mma(const void* x, const void* w, const void* s, void* y, int M,
+                                int N, int K, int block, void* stream) {
+  if (block < mx::tile::kBK || block % mx::tile::kBK || K % block) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return mx::tile::launch_gemv_mma(int4_gemv_mma_kernel, x,
+                                   mx::tile::Int4Tile(w, static_cast<const float*>(s), K, block),
+                                   y, M, N, K, stream);
 }

@@ -201,8 +201,8 @@ def flash_forward(q, k, v, causal: bool, scale: float):
     """K1: ``(o, lse)``. A CPU tensor takes :func:`_reference_flash_forward`;
     a CUDA tensor launches ``csrc/flash_attention_fwd.cu`` or raises."""
     B, H, T, S, D = _check("flash_forward", q, k, v)
-    record_launch("flash_fwd")
     if q.device.type == "cpu":
+        record_launch("flash_fwd")
         return _reference_flash_forward(q, k, v, causal, scale)
     from .. import _build
     if causal and T > S:
@@ -216,6 +216,7 @@ def flash_forward(q, k, v, causal: bool, scale: float):
     _build.check(lib.mx_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                                   lse.data_ptr(), B * H, T, S, D, Dp, c, s, bf, stream),
                  "flash_attention_fwd")
+    record_launch("flash_fwd")
     return o, lse
 
 
@@ -228,8 +229,8 @@ def flash_backward(q, k, v, o, lse, do, causal: bool, scale: float):
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape) \
             or tuple(lse.shape) != (B, H, T):
         raise MXNetError("flash_backward: o and do must be q's shape, lse (B, H, T)")
-    record_launch("flash_bwd")
     if q.device.type == "cpu":
+        record_launch("flash_bwd")
         return _reference_flash_backward(q, k, v, o, lse, do, causal, scale)
     from .. import _build
     if causal and T > S:
@@ -245,6 +246,7 @@ def flash_backward(q, k, v, o, lse, do, causal: bool, scale: float):
                                   lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
                                   dk.data_ptr(), dv.data_ptr(), B * H, T, S, D, Dp, c, s,
                                   bf, stream), "flash_attention_bwd")
+    record_launch("flash_bwd")
     return dq, dk, dv
 
 

@@ -279,10 +279,12 @@ def fused_block_decode(xv, posv, kc, vc, pack):
     if kc.shape != (B, heads, L, D // heads) or vc.shape != kc.shape:
         raise MXNetError(f"fused_block_decode: caches {tuple(kc.shape)} / "
                          f"{tuple(vc.shape)} do not match x {tuple(xv.shape)}")
-    record_launch("fused_block" + _kind_suffix(pack))
     if xv.device.type == "cpu":
-        return _reference_block_decode(xv, posv, kc, vc, pack)
-    return _cuda_block_decode(xv, posv, kc, vc, pack)
+        res = _reference_block_decode(xv, posv, kc, vc, pack)
+    else:
+        res = _cuda_block_decode(xv, posv, kc, vc, pack)
+    record_launch("fused_block" + _kind_suffix(pack))
+    return res
 
 
 def _weight_operands(pack, what):
@@ -388,6 +390,11 @@ def fused_block_decode_paged(xv, posv, bt, kp, vp, pack, dma_counters=None):
     if not (use_k6 or use_k7 or on_cpu):
         raise MXNetError(f"fused_block_decode_paged: shape B={B} T={T} D={D} "
                          f"heads={heads} L={maxp * ps} is not fusable")
+    if on_cpu:
+        res = _reference_block_decode_paged(xv, posv, bt, kp, vp, pack)
+    else:
+        res = _cuda_block_decode_paged(xv, posv, bt, kp, vp, pack, use_k7,
+                                       dma_counters)
     if use_k6:
         record_launch("fused_block_paged" + _kind_suffix(pack))
     elif use_k7:
@@ -398,10 +405,7 @@ def fused_block_decode_paged(xv, posv, bt, kp, vp, pack, dma_counters=None):
     else:
         for _ in range(4):
             record_launch("gemv")
-    if on_cpu:
-        return _reference_block_decode_paged(xv, posv, bt, kp, vp, pack)
-    return _cuda_block_decode_paged(xv, posv, bt, kp, vp, pack, use_k7,
-                                    dma_counters)
+    return res
 
 
 def _cuda_block_decode_paged(xv, posv, bt, kp, vp, pack, streamed, counters):
@@ -527,11 +531,13 @@ def fused_lm_head_sample(h, w_q, w_scale, vocab, keybits, temps, topks=0,
     keybits = torch.as_tensor(keybits, device=dev).reshape(-1)
     if keybits.numel() != B:
         raise MXNetError("fused_lm_head_sample: one key per row")
-    record_launch("fused_head" + ("_int4" if block else ""))
     if dev.type == "cpu":
-        return _reference_head_sample(h.float(), w_q, w_scale, int(vocab),
-                                      temps, keybits)
-    return _cuda_head_sample(h, w_q, w_scale, int(vocab), temps, keybits, block)
+        tok = _reference_head_sample(h.float(), w_q, w_scale, int(vocab),
+                                     temps, keybits)
+    else:
+        tok = _cuda_head_sample(h, w_q, w_scale, int(vocab), temps, keybits, block)
+    record_launch("fused_head" + ("_int4" if block else ""))
+    return tok
 
 
 def _cuda_head_sample(h, w_q, w_scale, vocab, temps, keybits, block):

@@ -8,6 +8,13 @@ tensor's device: a CPU tensor takes the plain PyTorch version
 op sequence of the JAX package's off-TPU fallback, dequantize, then an f32
 matmul); a CUDA tensor launches the hand-written kernel
 ``csrc/int8_gemv.cu`` (K3) or ``csrc/int4_gemv.cu`` (K4), or raises.
+
+On the card each kernel has two routes, chosen by the row count
+(:func:`gemv_route`): the warp route (one warp per output channel, f32
+FMAs; decode rows, M <= 8, and rows past :func:`gemv_max_m`), whose dot
+order K8 shares, and the tile route (tensor cores over x written as three
+bf16 planes; prefill rows, ``GEMV_TILE_MIN_M`` <= M <= :func:`gemv_max_m`).
+:func:`gemv_routes` counts the kernel launches per route.
 """
 from __future__ import annotations
 
@@ -22,7 +29,8 @@ from ..base import MXNetError
 __all__ = ["int8_weight_matmul", "int4_weight_matmul", "weight_matmul",
            "dequantize_int4_table", "count_launches",
            "record_launch", "reset_launches", "launches", "record_dma",
-           "dma_ledger", "gemv_max_m", "GEMV_INT4_BLOCK"]
+           "dma_ledger", "gemv_max_m", "GEMV_INT4_BLOCK", "GEMV_TILE_MIN_M",
+           "GEMV_TILE_K", "gemv_route", "gemv_routes"]
 
 # row threshold of the GEMV route: at most this many rows stream int8
 # weights through K3, more take the activation-quantized int8 product
@@ -35,6 +43,22 @@ def gemv_max_m() -> int:
     return _GEMV_MAX_M
 
 
+# fewest rows of the tile route: one more than the warp route's 8-row
+# activation tile (csrc/gemv_common.cuh kRowTile), so decode batches of up
+# to 8 rows keep the warp route and its bitwise agreement with K8
+GEMV_TILE_MIN_M = 9
+# codes per k-tile of the tile route (csrc/gemv_mma.cuh kBK): K, and an
+# int4 table's block, must be multiples of it
+GEMV_TILE_K = 32
+
+
+def gemv_route(M: int) -> str:
+    """The GEMV route of an M-row call on the card: ``"mma"`` (tensor
+    cores) for ``GEMV_TILE_MIN_M`` <= M <= :func:`gemv_max_m`, else
+    ``"warp"``."""
+    return "mma" if GEMV_TILE_MIN_M <= M <= gemv_max_m() else "warp"
+
+
 # codes per f32 scale of the int4 weight tables (contrib/quantization):
 # the default of the JAX package's tuned ``gemv_int4_block`` knob, which
 # is not ported
@@ -44,12 +68,14 @@ GEMV_INT4_BLOCK = 128
 # ---------------------------------------------------------------------------
 # Launch accounting. The port runs eagerly, so a launch is a real kernel
 # launch (or, on the CPU, a call of its plain version under the same
-# kind): each wrapper records one per call. ``launches()`` reads the
+# kind): a wrapper records one where its kernel launched, after the launch
+# returned without error, or where its plain version ran. ``launches()`` reads the
 # process-wide per-kind totals, ``reset_launches()`` zeroes them, and
 # ``count_launches()`` additionally tallies one thread's launches inside a
 # ``with`` block (the JAX package's trace-time tally).
 # ---------------------------------------------------------------------------
 _COUNTS: Dict[str, int] = {}
+_ROUTES: Dict[str, int] = {"warp": 0, "mma": 0}
 _COUNTS_LOCK = threading.Lock()
 _TALLY = threading.local()
 
@@ -81,10 +107,27 @@ def launches() -> Dict[str, int]:
         return dict(_COUNTS)
 
 
+def _record_gemv(kind: str, route: str):
+    """Record one K3 or K4 kernel launch under its kind and its route."""
+    record_launch(kind)
+    with _COUNTS_LOCK:
+        _ROUTES[route] += 1
+
+
+def gemv_routes() -> Dict[str, int]:
+    """Process-wide K3 + K4 kernel launches per route, ``{"warp": n,
+    "mma": n}``, since the last :func:`reset_launches`. Only launches on
+    the card count: a CPU call runs the plain version and takes no route."""
+    with _COUNTS_LOCK:
+        return dict(_ROUTES)
+
+
 def reset_launches():
-    """Zero the launch counts and the DMA ledger."""
+    """Zero the launch counts, the route counts and the DMA ledger."""
     with _COUNTS_LOCK:
         _COUNTS.clear()
+        for key in _ROUTES:
+            _ROUTES[key] = 0
         _DMA_PENDING.clear()
         for key in _DMA:
             _DMA[key] = 0
@@ -186,8 +229,8 @@ def int8_weight_matmul(x, w_q, w_scale):
     """x: (M, K) float; w_q: (N, K) int8; w_scale: (N,) f32 per-out-channel.
     Returns (M, N) f32 = x @ (w_q * w_scale).T."""
     M, N, K = _check_gemv(x, w_q, w_scale)
-    record_launch("gemv")
     if x.device.type == "cpu":
+        record_launch("gemv")
         return _reference_int8_matmul(x, w_q, w_scale)
     return _cuda_int8_matmul(x, w_q, w_scale, M, N, K)
 
@@ -205,10 +248,31 @@ def _cuda_int8_matmul(x, w_q, w_scale, M, N, K):
     y = torch.empty(M, N, device=x.device, dtype=torch.float32)
     lib = _build.library("int8_gemv")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _build.check(lib.mx_int8_gemv(x.data_ptr(), w_q.data_ptr(),
-                                  w_scale.data_ptr(), y.data_ptr(),
-                                  M, N, K, stream), "int8_gemv")
+    route = gemv_route(M)
+    if route == "mma":
+        _check_tile(x, w_q, K, K, "int8_weight_matmul")
+        rc = lib.mx_int8_gemv_mma(x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
+                                  y.data_ptr(), M, N, K, stream)
+    else:
+        rc = lib.mx_int8_gemv(x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
+                              y.data_ptr(), M, N, K, stream)
+    _build.check(rc, "int8_gemv")
+    _record_gemv("gemv", route)
     return y
+
+
+def _check_tile(x, w, K, block, what):
+    """Raise on operands the tile route cannot take: K, and an int4
+    table's block, whole k-tiles of ``GEMV_TILE_K`` codes; x and the
+    table on 16-byte boundaries (its copies move 16 bytes). No fallback
+    to the warp route or the plain version."""
+    if K % GEMV_TILE_K or block % GEMV_TILE_K:
+        raise MXNetError(f"{what}: the tile route (9-{gemv_max_m()} rows) needs K and "
+                         f"the int4 block to be multiples of {GEMV_TILE_K} (got K={K}, "
+                         f"block={block})")
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise MXNetError(f"{what}: the tile route needs x and the weight table on "
+                         "16-byte boundaries")
 
 
 def _check_int4(x, w_p, w_scale, what):
@@ -251,8 +315,8 @@ def int4_weight_matmul(x, w_p, w_scale):
     layout); ``w_scale`` (N, K/block) f32 block scales. Returns (M, N) f32
     = ``x @ dequant(w).T``."""
     M, N, K, block = _check_int4(x, w_p, w_scale, "int4_weight_matmul")
-    record_launch("gemv_int4")
     if x.device.type == "cpu":
+        record_launch("gemv_int4")
         return _reference_int4_matmul(x, w_p, w_scale)
     return _cuda_int4_matmul(x, w_p, w_scale, M, N, K, block)
 
@@ -271,7 +335,14 @@ def _cuda_int4_matmul(x, w_p, w_scale, M, N, K, block):
     y = torch.empty(M, N, device=x.device, dtype=torch.float32)
     lib = _build.library("int4_gemv")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _build.check(lib.mx_int4_gemv(x.data_ptr(), w_p.data_ptr(),
-                                  w_scale.data_ptr(), y.data_ptr(),
-                                  M, N, K, block, stream), "int4_gemv")
+    route = gemv_route(M)
+    if route == "mma":
+        _check_tile(x, w_p, K, block, "int4_weight_matmul")
+        rc = lib.mx_int4_gemv_mma(x.data_ptr(), w_p.data_ptr(), w_scale.data_ptr(),
+                                  y.data_ptr(), M, N, K, block, stream)
+    else:
+        rc = lib.mx_int4_gemv(x.data_ptr(), w_p.data_ptr(), w_scale.data_ptr(),
+                              y.data_ptr(), M, N, K, block, stream)
+    _build.check(rc, "int4_gemv")
+    _record_gemv("gemv_int4", route)
     return y

@@ -41,8 +41,12 @@ next one (no lookahead), so the paged tick has no pending step. Token 0
 of a request on a ``multi_token > 1`` engine with a quantized head is
 selected by the fused head from the prompt's last hidden state, as
 ``generate(multi_token > 1)`` selects it (the JAX engine samples it from
-materialised logits); greedy token 0 is the same either way, because K3
-(or K4) and K8 compute the same logits.
+materialised logits). A row's logits do not depend on its batch, and the
+head GEMV (K3, or K4) and K8 agree bit for bit, on the GEMVs' warp route
+(at most 8 rows, as in decode). Prefill rows (9 to 64) take the tile
+route, whose rows do not depend on the batch within 9-64 rows and agree
+with the warp route to rounding: there greedy token 0 from materialised
+logits equals K8's unless two logits lie within that rounding.
 
 Speculation, grammar masks, live weight swaps, page migration, warm-up
 and recompile guards, HTTP, metrics and tuned configs are later slices:

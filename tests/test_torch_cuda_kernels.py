@@ -52,10 +52,17 @@ def _gemv_operands(M, N, K, seed=0):
     return x, w, s
 
 
-@pytest.mark.parametrize("M", [1, 8, 13, 64])
+# row counts of both routes: the warp route up to 8 rows, the tile route
+# (tensor cores, x as three bf16 planes) from 9 to gemv_max_m() = 64
+_GEMV_ROWS = [1, 8, 9, 13, 16, 33, 64]
+
+
+@pytest.mark.parametrize("M", _GEMV_ROWS)
 @pytest.mark.parametrize("N,K", [(2304, 768), (768, 3072), (50304, 768)])
 def test_int8_gemv_matches_plain(cuda, M, N, K):
-    """f32 sums in another order: 1e-4 of the output scale."""
+    """f32 sums in another order (the tile route: exact products of bf16
+    planes and codes, summed by the tensor cores in f32): 1e-4 of the
+    output scale."""
     x, w, s = _gemv_operands(M, N, K)
     got = int8_gemv.int8_weight_matmul(x, w, s)
     want = int8_gemv._reference_int8_matmul(x, w, s)
@@ -63,13 +70,33 @@ def test_int8_gemv_matches_plain(cuda, M, N, K):
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
 
 
-def test_int8_gemv_rows_are_batch_invariant(cuda):
-    """A row's output does not depend on the rows batched with it."""
-    x, w, s = _gemv_operands(9, 768, 768)
-    full = int8_gemv.int8_weight_matmul(x, w, s)
-    for r in (0, 4, 8):
-        assert torch.equal(int8_gemv.int8_weight_matmul(x[r:r + 1], w, s),
-                           full[r:r + 1])
+def _rows_case(fn, x, w, s, case):
+    """The port's batch-invariance contract on one route. warp: rows of an
+    8-row call equal 1-row calls bit for bit (the dot order K8 shares).
+    tile: rows of 9- and 16-row calls equal the same rows of a 64-row call
+    bit for bit. cross: the two routes agree to 1e-4 of the output scale
+    (same products, summed in another order)."""
+    if case == "warp":
+        full = fn(x[:8], w, s)
+        for r in (0, 4, 7):
+            assert torch.equal(fn(x[r:r + 1], w, s), full[r:r + 1])
+    elif case == "tile":
+        full = fn(x, w, s)
+        for M in (9, 16):
+            assert torch.equal(fn(x[:M], w, s), full[:M])
+    else:
+        tile = fn(x[:9], w, s)
+        warp = torch.cat([fn(x[r:r + 1], w, s) for r in range(9)])
+        tol = 1e-4 * max(1.0, warp.abs().max().item())
+        assert (tile - warp).abs().max() <= tol
+
+
+@pytest.mark.parametrize("case", ["warp", "tile", "cross"])
+def test_int8_gemv_rows_are_batch_invariant(cuda, case):
+    """A row's output does not depend on the rows batched with it within a
+    route (bitwise), and the two routes agree to rounding."""
+    x, w, s = _gemv_operands(64, 768, 768)
+    _rows_case(int8_gemv.int8_weight_matmul, x, w, s, case)
 
 
 def _int4_operands(M, N, K, seed=0):
@@ -81,7 +108,7 @@ def _int4_operands(M, N, K, seed=0):
     return (x, *_quantize_int4(torch.randn(N, K, device="cuda", generator=g)))
 
 
-@pytest.mark.parametrize("M", [1, 8, 13, 64])
+@pytest.mark.parametrize("M", _GEMV_ROWS)
 @pytest.mark.parametrize("N,K", [(2304, 768), (768, 3072), (50304, 768), (384, 96)])
 def test_int4_gemv_matches_plain(cuda, M, N, K):
     """K4 against its plain version (the codec's dequantized weights, then
@@ -93,15 +120,49 @@ def test_int4_gemv_matches_plain(cuda, M, N, K):
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
 
 
-def test_int4_gemv_rows_are_batch_invariant_and_gated(cuda):
-    """A row's K4 output does not depend on the rows batched with it; a
-    block that would split a lane's 16 codes raises instead of running."""
-    x, w, s = _int4_operands(9, 768, 768)
-    full = int8_gemv.int4_weight_matmul(x, w, s)
-    for r in (0, 4, 8):
-        assert torch.equal(int8_gemv.int4_weight_matmul(x[r:r + 1], w, s), full[r:r + 1])
+@pytest.mark.parametrize("case", ["warp", "tile", "cross"])
+def test_int4_gemv_rows_are_batch_invariant_and_gated(cuda, case):
+    """A row's K4 output does not depend on the rows batched with it within
+    a route (bitwise), and the two routes agree to rounding; a block that
+    would split a lane's 16 codes raises instead of running."""
+    x, w, s = _int4_operands(64, 768, 768)
+    _rows_case(int8_gemv.int4_weight_matmul, x, w, s, case)
     with pytest.raises(MXNetError, match="block % 16"):
-        int8_gemv.int4_weight_matmul(x, w, s.repeat_interleave(16, dim=1))    # block 8
+        int8_gemv.int4_weight_matmul(x[:9], w, s.repeat_interleave(16, dim=1))    # block 8
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_gemv_tile_route_repeats_bitwise(cuda, bits):
+    """No float atomics: two launches of the tile route give the same bits,
+    at a shape whose K is split across a cluster (N 768) and at the head."""
+    for N, K in ((768, 3072), (50304, 768)):
+        x, w, s = (_gemv_operands if bits == 8 else _int4_operands)(64, N, K)
+        fn = int8_gemv.weight_matmul
+        assert torch.equal(fn(x, w, s), fn(x, w, s))
+
+
+def test_gemv_tile_route_raises_on_shapes_it_cannot_take(cuda):
+    """K not a whole number of 32-code k-tiles, or an int4 block that is
+    not: 9 or more rows raise (no fallback to the warp route or the plain
+    version), 8 rows take the warp route; the routes count launches only,
+    so the two refused calls count nothing."""
+    from mxnet_tpu_torch.contrib.quantization import _quantize_rows
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(9, 48, device="cuda", generator=g)
+    w, s = _quantize_rows(torch.randn(64, 48, device="cuda", generator=g))
+    int8_gemv.reset_launches()
+    int8_gemv.int8_weight_matmul(x[:8], w, s)
+    with pytest.raises(MXNetError, match="multiples of 32"):
+        int8_gemv.int8_weight_matmul(x, w, s)
+    x, w, s = _int4_operands(9, 64, 96)
+    w48 = s.repeat_interleave(2, dim=1)       # block 48: whole 16-code chunks
+    int8_gemv.int4_weight_matmul(x[:8], w, w48)
+    with pytest.raises(MXNetError, match="multiples of 32"):
+        int8_gemv.int4_weight_matmul(x, w, w48)
+    int8_gemv.int4_weight_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert int8_gemv.gemv_routes() == {"warp": 2, "mma": 1}
+    assert int8_gemv.launches() == {"gemv": 1, "gemv_int4": 2}
 
 
 def test_block_decode_matches_plain(net):
