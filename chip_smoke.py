@@ -15,6 +15,10 @@
    and K7 run on scattered block tables of a 600-page pool; K7's copies
    started and waited are held against the ``record_dma`` ledger, and K5, K6
    and K7 must give one input the same bits.
+2b. Draws JAX's sampling stream on the card (``_prng`` threefry bits, a
+   split-chain ``categorical`` and keyed ``sample_tokens`` with greedy,
+   plain, top-k and top-p rows over GPT-2's vocab) and on the same inputs
+   on the CPU: the bits and the tokens must be equal.
 3. Serves 12 concurrent requests with a contiguous ``InferenceEngine``
    over int8 GPT-2 small (12 layers, D 768, vocab 50257, random weights
    from ``--seed``) and checks the tokens against ``generate()`` on the
@@ -22,7 +26,8 @@
    the path launched (each GEMV route, warp and tile, counted by
    ``gemv_routes()`` over the serving phases). The 8 greedy requests are
    then served once more under ``torch.profiler`` to split the window into
-   device time per kernel and idle time.
+   device time per kernel and idle time. Two top-k/top-p requests follow,
+   twice with the same seeds: their tokens must repeat.
 3b. Serves the same model from the paged KV pool
    (``InferenceEngine(paged=True)``): phase A, 16 requests sharing a
    system prompt on a 128-page pool at max_len 256, every decode substep
@@ -30,8 +35,8 @@
    requests of 300-700-token prompts at max_len 1024 on a pool small
    enough to preempt, every decode substep through K7. Greedy tokens are
    held against the engine's arithmetic on the contiguous layout and
-   against ``generate()``; sampled ones repeat per seed; the page ledger
-   drains to zero.
+   against ``generate()``; sampled ones (and phase A's two top-k/top-p
+   requests) repeat per seed; the page ledger drains to zero.
 3c. Serves int4 weight-only GPT-2 small (``quantize_net(bits=4,
    fused_decode=True)``, the same weights): K4 (int4 GEMV) and the int4
    weight lanes of K5, K6, K7 and K8 against their plain versions (K4 +
@@ -43,9 +48,10 @@
    models and each int4 phase's peak device memory.
 4. Holds K1 (flash-attention forward) and K2 (its backward) against their
    plain versions, every output row to its own size, at the training
-   shape and at ragged, end-aligned and padded-head-dim shapes, in bf16
-   and f32; shows that three planted faults fail that check; and times
-   the kernels beside the plain versions and
+   shape, at head dim 128 and at ragged, end-aligned and padded-head-dim
+   shapes, in bf16 and f32; requires K2 to give the same bits on a second
+   run at every shape; shows that three planted faults fail that check;
+   and times the kernels beside the plain versions and
    ``scaled_dot_product_attention``.
 5. Trains bf16 GPT-2 small (12 layers, D 768, B 16, T 1024, dropout 0,
    Adam at lr 1e-4) through ``TrainStep``: 1 warm-up step, then 10 timed
@@ -485,6 +491,57 @@ def kernel_k8(torch, timer, gen, head):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+def nucleus_away_from_edges(np, logits, temps, topks, rows):
+    """top_p per row: 1 outside ``rows``; in them halfway between two
+    exclusive prefix sums (1e-4 or more apart) of the row's sorted,
+    temperature-scaled, top-k-filtered probabilities, so that no cumsum
+    rounding of either device moves the nucleus cut."""
+    topps = np.ones(len(temps), np.float32)
+    for b in rows:
+        z = np.sort(logits[b].astype(np.float64) / (temps[b] if temps[b] > 0 else 1.0))[::-1]
+        z = z[:topks[b]] if topks[b] > 0 else z
+        pr = np.exp(z - z.max())
+        excl = np.concatenate([[0.0], np.cumsum(pr / pr.sum())[:-1]])
+        wide = [j for j in range(len(excl) - 1) if excl[j + 1] - excl[j] > 1e-4]
+        j = wide[len(wide) // 2]
+        topps[b] = (excl[j] + excl[j + 1]) / 2
+    return topps
+
+
+def sampling_card(torch, args, timer):
+    """JAX's sampling stream on the card: ``_prng`` bits, a split-chain
+    ``categorical`` and keyed ``sample_tokens`` (greedy, plain, top-k and
+    top-p rows over GPT-2's vocab) on device logits, against the same calls
+    on their CPU copies: bits equal, tokens equal."""
+    import numpy as np
+
+    from mxnet_tpu_torch import _prng
+    from mxnet_tpu_torch.models.generation import sample_tokens
+    rng = np.random.RandomState(args.seed + 7)
+    B, V = 8, 50257
+    logits = (rng.randn(B, V) * 3).astype(np.float32)
+    temps = np.array([0.0, 0.8, 1.0, 0.7, 1.3, 0.0, 0.9, 1.1], np.float32)
+    topks = np.array([0, 0, 40, 0, 200, 5, 0, 1000])
+    topps = nucleus_away_from_edges(np, logits, temps, topks, (3, 4, 7))
+    seeds, counters = np.arange(B) * 7919 + args.seed, np.arange(B) * 3
+    kc = _prng.fold_keys(seeds, counters)
+    kd = _prng.fold_keys(seeds, counters, "cuda")
+    bits_equal = bool(torch.equal(_prng.random_bits(kd, (V,)).cpu(), _prng.random_bits(kc, (V,))))
+    check(bits_equal, "threefry bits on the card differ from the CPU's")
+    lc, ld = torch.from_numpy(logits), torch.from_numpy(logits).cuda()
+    want = sample_tokens(lc, kc, temps, topks, topps)
+    got = sample_tokens(ld, kd, temps, topks, topps).cpu()
+    check(torch.equal(got, want), f"sample_tokens on the card {got.tolist()} != CPU "
+          f"{want.tolist()}")
+    key = _prng.split(_prng.key(args.seed))[1]
+    one_c = _prng.categorical(key, lc)
+    one_d = _prng.categorical(key.cuda(), ld).cpu()
+    check(torch.equal(one_c, one_d), "split-chain categorical on the card differs from the CPU's")
+    return {"B": B, "V": V, "bits_equal": bits_equal, "tokens": got.tolist(),
+            "tokens_equal_cpu": True, "split_chain_equal_cpu": True,
+            "sample_tokens_ms": timer(lambda: sample_tokens(ld, kd, temps, topks, topps))}
+
+
 def first_divergence(a, b):
     for i, (x, y) in enumerate(zip(a, b)):
         if x != y:
@@ -549,6 +606,30 @@ def device_share(torch, eng, prompts, new):
             / substeps * 1e3}
 
 
+# the engine phases' top-k / top-p requests: (temperature, top_k, top_p)
+FILTERED = ((0.9, 40, 1.0), (0.7, 0, 0.9))
+
+
+def filtered_requests(eng, prompts, vocab, new, seed):
+    """Two top-k/top-p requests, submitted together and then once more with
+    the same seeds: every decode batch they share takes ``sample_tokens`` on
+    the head GEMV's logits. Their tokens must lie in the vocab and repeat."""
+    runs = []
+    for _ in range(2):
+        hs = [eng.submit(prompts[i], new, temperature=t, top_k=k, top_p=p, seed=seed + i)
+              for i, (t, k, p) in enumerate(FILTERED)]
+        runs.append([h.result(timeout=600) for h in hs])
+    for i, (a, b) in enumerate(zip(*runs)):
+        check(a.ok and b.ok and len(a.generated_ids) == new,
+              f"filtered request {i}: {a.status} {b.status} {a.error} {b.error}")
+        check(all(0 <= t < vocab for t in a.generated_ids),
+              f"filtered request {i}: token outside vocab")
+        check(a.generated_ids == b.generated_ids, f"filtered request {i}: same seed, "
+              "another sample")
+    return {"requests": [list(r) for r in FILTERED], "new_tokens_each": new,
+            "repeat_on_resubmit": True}
+
+
 def lane(torch, net):
     """("", the int8 kinds) or ("int4_", the int4 kinds) of a quantized
     model: the launch kinds its GEMV, block kernels and head record, and
@@ -599,6 +680,7 @@ def serve(torch, args, net, cpu_net, cpu_tokens=64):
         again = [eng.submit(prompts[i], new, temperature=0.8, seed=1000 + i)
                  for i in range(8, 12)]
         again = [h.result(timeout=600) for h in again]
+        filtered = filtered_requests(eng, prompts, vocab, new, 1100)
         profiled = device_share(torch, eng, prompts[:8], new)
     finally:
         eng.shutdown(drain=True, timeout=600)
@@ -609,10 +691,12 @@ def serve(torch, args, net, cpu_net, cpu_tokens=64):
     prefills = after["prefills"] - before["prefills"]
     check(counts.get(kinds["block"], 0) == LAYERS * substeps,
           f"K5 launches {counts.get(kinds['block'])} != 12 x {substeps} decode steps")
-    # one head launch per decode substep, and one selecting each request's token 0
-    check(counts.get(kinds["head"], 0) == substeps + prefills,
-          f"K8 launches {counts.get(kinds['head'])} != {substeps} substeps + {prefills} "
-          "prefills")
+    # one head launch per decode substep; each request's token 0 is drawn
+    # from the head GEMV's logits of its last prompt row (K3/K4, warp route)
+    check(counts.get(kinds["head"], 0) == substeps,
+          f"K8 launches {counts.get(kinds['head'])} != {substeps} substeps")
+    check(counts["routes"]["warp"] >= prefills,
+          f"{counts['routes']['warp']} warp-route GEMVs < {prefills} prefills' token 0")
     check(counts.get(kinds["gemv"], 0) > 0, "the head/prefill GEMV never launched")
     check(not any(counts.get(k) for k in forbidden), f"an int8 kind launched: {counts}")
     for i in range(8, 12):
@@ -649,6 +733,7 @@ def serve(torch, args, net, cpu_net, cpu_tokens=64):
     dsteps = after["decode_substeps"] - before["decode_substeps"]
     dsec = after["decode_s"] - before["decode_s"]
     emit({tag + "engine": {"requests": len(results), "greedy": 8, "sampled": 4,
+                     "filtered_requests": filtered,
                      "new_tokens_each": new, "wall_s": wall,
                      "tokens_per_s": tokens / wall,
                      "decode_substeps": dsteps,
@@ -811,6 +896,8 @@ def serve_paged(torch, args, net, phase):
         sampled = [i for i, t in enumerate(temps) if t > 0]
         again = [eng.submit(prompts[i], new, temperature=0.8, seed=2000 + i) for i in sampled]
         again = [h.result(timeout=600) for h in again]
+        filtered = (filtered_requests(eng, prompts, vocab, min(new, 64), 2100)
+                    if phase == "A" else None)
         greedy = [i for i, t in enumerate(temps) if t == 0]
         profiled = (device_share(torch, eng, [prompts[i] for i in greedy], new)
                     if net.device.type == "cuda" else None)
@@ -864,6 +951,7 @@ def serve_paged(torch, args, net, phase):
         "resumed_tokens": after["resumed_tokens"],
         "pages": pages, "kv_bytes": after["kv_bytes"], "launches": counts,
         "dma_ledger": ledger, "greedy": rows, "reference_s": time.perf_counter() - t_ref,
+        "filtered_requests": filtered,
         "greedy_identical_chunked_reference": all(r["chunked_reference"]["equal"]
                                                   for r in rows),
         "greedy_identical_generate_mt4": all(r["generate_mt4"]["equal"] for r in rows),
@@ -1009,7 +1097,11 @@ def flash_case(torch, timer, gen, B, H, T, S, D, causal, dtype, timed, faults=Fa
     scale = D ** -0.5
     o, lse = fa.flash_forward(q, k, v, causal, scale)
     dq, dk, dv = fa.flash_backward(q, k, v, o, lse, do, causal, scale)
+    again = fa.flash_backward(q, k, v, o, lse, do, causal, scale)
     torch.cuda.synchronize()
+    repeat = all(bool(torch.equal(a, b)) for a, b in zip((dq, dk, dv), again))
+    check(repeat, f"K2 at {(B, H, T, S, D, causal, dtype)} gave other bits on a second run")
+    del again
     f = [t.float() for t in (q, k, v, do)]
     po, plse = fa._reference_flash_forward(f[0], f[1], f[2], causal, scale)
     pdq, pdk, pdv = fa._reference_flash_backward(f[0], f[1], f[2], o.float(), lse, f[3],
@@ -1028,6 +1120,7 @@ def flash_case(torch, timer, gen, B, H, T, S, D, causal, dtype, timed, faults=Fa
     row = {"B": B, "H": H, "T": T, "S": S, "D": D, "causal": causal,
            "dtype": name, "max_abs_err": errs, "row_err": row_errs,
            "tol": {"max_abs_over_max_plain": abs_tol, "row": row_tol},
+           "k2_repeat_bitwise": repeat,
            "k1_max_abs_err": max(errs["o"], errs["lse"]),
            "k2_max_abs_err": max(errs["dq"], errs["dk"], errs["dv"])}
     if faults:
@@ -1080,15 +1173,20 @@ def flash_case(torch, timer, gen, B, H, T, S, D, causal, dtype, timed, faults=Fa
 
 
 def kernel_flash(torch, timer, gen):
-    """K1/K2 at the training shape (timed) and at the edge shapes."""
+    """K1/K2 at the training shape (timed), at head dim 128 (Llama's: 32
+    heads, timed in bf16) and at the edge shapes; K2 must repeat bit for bit
+    at every one."""
     rows = [flash_case(torch, timer, gen, TRAIN_B, 12, TRAIN_T, TRAIN_T, 64, True,
                        torch.bfloat16, timed=True, faults=True),
             flash_case(torch, timer, gen, 2, 12, TRAIN_T, TRAIN_T, 64, True,
-                       torch.float32, timed=True)]
+                       torch.float32, timed=True),
+            flash_case(torch, timer, gen, 4, 32, TRAIN_T, TRAIN_T, 128, True,
+                       torch.bfloat16, timed=True)]
     for dtype in (torch.bfloat16, torch.float32):
         for B, H, T, S, D, causal in ((2, 12, 1000, 1000, 64, True),   # ragged
                                       (2, 12, 256, 512, 64, True),     # end-aligned
-                                      (2, 12, 1024, 1024, 40, False)):  # padded head dim
+                                      (2, 12, 1024, 1024, 40, False),  # padded head dim
+                                      (1, 8, 1024, 1024, 128, True)):  # head dim 128
             rows.append(flash_case(torch, timer, gen, B, H, T, S, D, causal, dtype,
                                    timed=False))
     emit({"flash_cases": rows})
@@ -1155,7 +1253,8 @@ def train_profile(torch, step, ids, labels, device, steps=3):
         low = name.lower()
         if "flash_fwd_" in name:
             key = "flash_fwd"
-        elif "flash_dkdv_" in name or "flash_dq_" in name:
+        elif any(k in name for k in ("flash_dkdv_", "flash_dq_", "flash_bwd_", "bwd_prep",
+                                     "bwd_cast")):
             key = "flash_bwd"
         elif any(w in low for w in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
             key = "gemm"
@@ -1345,7 +1444,9 @@ def main(argv=None):
         k8 = kernel_k8(torch, timer, gen, net.head_weights())
         k67 = kernel_k6_k7(torch, timer, gen,
                            pack_gpt_block(net.blocks[0], eps=net.cfg.layer_norm_eps))
+        sampling = sampling_card(torch, args, timer)
     emit({"k3": k3, "k5": k5, "k8": k8, "k6_k7": k67})
+    emit({"sampling": sampling})
 
     serve_counts = serve(torch, args, net, cpu_net)
     del cpu_net

@@ -137,7 +137,7 @@ def _declare(name: str, lib: ctypes.CDLL):
         lib.mx_flash_fwd.argtypes = [p] * 5 + [i] * 6 + [f, i, p]
         lib.mx_flash_fwd.restype = i
     elif name == "flash_attention_bwd":
-        lib.mx_flash_bwd.argtypes = [p] * 9 + [i] * 6 + [f, i, p]
+        lib.mx_flash_bwd.argtypes = [p] * 11 + [i] * 6 + [f, i, p]
         lib.mx_flash_bwd.restype = i
 
 

@@ -5,14 +5,20 @@ PyTorch runs eagerly, so the JAX package's compiled ``fori_loop`` /
 ``while_loop`` decode loops are Python loops here; one loop iteration is
 one incremental forward (12 K5 launches for GPT-2 small) plus the head.
 
-Sampling streams are keyed like the JAX package's: per row,
-``fold_in(key(seed), counter)`` of JAX's threefry2x32 PRNG
-(:func:`_fold_keys`, a numpy port run on the host). The fused head (K8)
-hashes those key bits, so temperature sampling through the quantized head
-(``multi_token > 1``) draws the TPU kernel's token stream. Greedy decoding
-is exact everywhere. Rows that need ``jax.random.categorical`` — sampling
-without the fused head (``multi_token=1`` or an unquantized head), and
-top-k / top-p filtering — raise until the sampling slice ports it.
+Sampling draws JAX's own stream (``_prng``: threefry2x32 keys,
+``random.categorical``): :func:`filter_logits` (top-k, then top-p) and
+keyed :func:`sample_tokens` are ported op for op, so the same seed gives
+the JAX package's tokens on any path that materialises logits.
+``generate(multi_token=1)`` splits one ``key(seed)`` per step, as JAX
+does; the multi-token loop and the serving engine key each row with
+``fold_in(key(seed), counter)``. A quantized tied head with
+``multi_token > 1`` selects through the fused head (K8): greedy rows are
+exact, unfiltered T > 0 rows draw K8's hash-Gumbel stream from the same
+key bits (the TPU kernel's stream; the JAX package's off-TPU branch uses
+``sample_tokens`` there instead, so those rows, and only those, differ
+from JAX on the CPU by design), and a batch with any top-k/top-p row
+takes ``sample_tokens`` on the head GEMV's logits, as the reference's
+``lax.cond`` does. Grammar masks raise until the grammar slice.
 """
 from __future__ import annotations
 
@@ -21,13 +27,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import _prng
 from ..base import MXNetError
 
 __all__ = ["generate", "decode_step", "decode_step_hidden",
-           "decode_multi_tokens", "sample_tokens"]
+           "decode_multi_tokens", "filter_logits", "sample_tokens"]
 
-_SAMPLING_LATER = ("needs the jax.random.categorical sampling stream, which "
-                   "a later slice of the port brings")
+_MASKS_LATER = ("grammar masks are not ported yet (a later slice ports "
+                "serve/grammar.py)")
 
 
 def _validate_sampling(temperature, top_k, top_p):
@@ -38,49 +45,19 @@ def _validate_sampling(temperature, top_k, top_p):
                          f"top-k filtering), got {top_k}")
     if not 0.0 < top_p <= 1.0:
         raise MXNetError(f"top_p must be in (0, 1], got {top_p}")
-    if top_k > 0 or top_p < 1.0:
-        raise MXNetError("top-k/top-p sampling " + _SAMPLING_LATER)
-
-
-# ---------------------------------------------------------------------------
-# JAX's threefry2x32 key / fold_in, on uint32 numpy arrays
-# ---------------------------------------------------------------------------
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-
-
-def _threefry2x32(k0, k1, x0, x1):
-    """The 20-round Threefry-2x32 hash of ``jax._src.prng`` (key (k0, k1),
-    counts (x0, x1)); uint32 arrays, wrapping arithmetic."""
-    u32 = np.uint32
-    ks = (k0, k1, k0 ^ k1 ^ u32(0x1BD11BDA))
-    x0 = x0 + ks[0]
-    x1 = x1 + ks[1]
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x0 = x0 + x1
-            x1 = (x1 << u32(r)) | (x1 >> u32(32 - r))
-            x1 = x0 ^ x1
-        x0 = x0 + ks[(i + 1) % 3]
-        x1 = x1 + ks[(i + 2) % 3] + u32(i + 1)
-    return x0, x1
 
 
 def _fold_keys(seeds, counters):
-    """[B, 2] uint32 key data of ``fold_in(key(seed), counter)`` per row:
-    ``key(s)`` is (0, s) for a 32-bit seed and ``fold_in`` hashes the
-    counts (0, counter) under it."""
-    s = np.asarray(seeds, dtype=np.int64).astype(np.uint32).reshape(-1)
-    c = np.asarray(counters, dtype=np.int64).astype(np.uint32).reshape(-1)
-    zero = np.zeros_like(s)
-    y0, y1 = _threefry2x32(zero, s, zero, c)
-    return np.stack([y0, y1], axis=1)
+    """[B, 2] uint32 key data of ``fold_in(key(seed), counter)`` per row
+    (numpy, for the host side and the tests)."""
+    return _prng.fold_keys(seeds, counters).numpy().astype(np.uint32)
 
 
 def _key_bits(seeds, counters):
     """The 32 key bits the fused head hashes per row (``kd[:, -2] ^
     kd[:, -1]``, fused_block_gemv.py:1380-1381) as int64 in [0, 2**32)."""
-    kd = _fold_keys(seeds, counters)
-    return (kd[:, 0] ^ kd[:, 1]).astype(np.int64)
+    kd = _prng.fold_keys(seeds, counters)
+    return (kd[:, 0] ^ kd[:, 1]).numpy()
 
 
 def _row_seeds(seed: int, B: int):
@@ -89,14 +66,59 @@ def _row_seeds(seed: int, B: int):
     return (base + np.arange(B, dtype=np.uint32)) & np.uint32(0xFFFFFFFF)
 
 
-def sample_tokens(logits, temperature):
-    """Next token per row of [B, V] logits. Greedy rows (T == 0) take the
-    argmax (lowest index on ties); T > 0 rows raise (see module doc)."""
-    t = np.asarray(temperature, dtype=np.float32).reshape(-1)
-    if (t > 0).any():
-        raise MXNetError("temperature sampling without the fused quantized head "
-                         + _SAMPLING_LATER)
-    return torch.argmax(logits.float(), dim=-1).to(torch.int32)
+def _rows(x, dtype, device):
+    """Per-row sampling parameters as a [B|1, 1] tensor on ``device``."""
+    return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x,
+                           dtype=dtype, device=device).reshape(-1, 1)
+
+
+def filter_logits(scaled, top_k, top_p, mask=None):
+    """Top-k then nucleus (top-p) filtering of [B, V] logits: filtered-out
+    entries become -inf. ``top_k`` / ``top_p`` are scalars or per-row [B]
+    arrays; ``top_k <= 0`` and ``top_p >= 1`` disable their filter. The
+    nucleus keeps the smallest prefix of the sorted probabilities whose
+    mass reaches ``top_p`` (at least the argmax), over the post-top-k
+    distribution, as ``mxnet_tpu/models/generation.py:filter_logits``."""
+    if mask is not None:
+        raise MXNetError("filter_logits: " + _MASKS_LATER)
+    B, V = scaled.shape
+    dev = scaled.device
+    top_k = _rows(top_k, torch.int64, dev)
+    top_p = _rows(top_p, torch.float32, dev)
+    ninf = torch.tensor(float("-inf"), device=dev)
+    sdesc = torch.sort(scaled, dim=-1, descending=True).values
+    kth = torch.gather(sdesc, 1, (top_k - 1).clamp(0, V - 1).expand(B, 1))
+    scaled = torch.where((top_k <= 0) | (scaled >= kth), scaled, ninf)
+    # the top-k filter only -infs a suffix of sdesc, so the filtered sorted
+    # view needs no second sort
+    sdesc = torch.where((top_k <= 0) | (sdesc >= kth), sdesc, ninf)
+    probs = torch.softmax(sdesc, dim=-1)
+    csum = torch.cumsum(probs, dim=-1)
+    ncut = ((csum - probs) < top_p).sum(dim=-1, keepdim=True)       # >= 1
+    thr = torch.gather(sdesc, 1, (ncut - 1).clamp(0, V - 1))
+    return torch.where((top_p >= 1.0) | (scaled >= thr), scaled, ninf)
+
+
+def sample_tokens(logits, keys, temperature, top_k=0, top_p=1.0, mask=None):
+    """Next token per row of [B, V] logits with per-row parameters: rows at
+    ``temperature == 0`` take the argmax (lowest index on ties), the rest
+    draw ``random.categorical`` with their own key from the temperature-
+    scaled, top-k/top-p filtered logits. ``keys`` is [B, 2] key data
+    (``_prng.fold_keys``); it may be None when every row is greedy.
+    Returns [B] int32."""
+    if mask is not None:
+        raise MXNetError("sample_tokens: " + _MASKS_LATER)
+    logits = logits.float()
+    t = _rows(temperature, torch.float32, logits.device)
+    greedy = torch.argmax(logits, dim=-1)
+    if not bool((t > 0).any()):
+        return greedy.to(torch.int32)
+    if keys is None:
+        raise MXNetError("sample_tokens: T > 0 rows need their keys")
+    scaled = logits / torch.where(t > 0, t, torch.ones_like(t))
+    filt = filter_logits(scaled, top_k, top_p)
+    sampled = _prng.categorical(torch.as_tensor(keys).to(logits.device), filt)
+    return torch.where(t.reshape(-1) > 0, sampled, greedy).to(torch.int32)
 
 
 def decode_step(model, tokens, pos, caches, block_table=None):
@@ -126,15 +148,17 @@ def decode_step_hidden(model, tokens, pos, caches, block_table=None):
 def decode_multi_tokens(model, tokens, pos, caches, num_tokens, temps,
                         seeds, counters, eos_ids=None, remaining=None,
                         done=None, fill_eos=False, head=None,
-                        block_table=None):
+                        block_table=None, topks=0, topps=1.0):
     """Emit up to ``num_tokens`` (K) tokens per row, feeding each token
     straight back in, with per-row ``fold_in(key(seed), counter + j)``
     sampling. ``tokens`` [B] (device), ``pos`` int or [B] device tensor;
     ``temps`` / ``seeds`` / ``counters`` / ``eos_ids`` (-1 = none) /
-    ``remaining`` (token budget) are host arrays of length B, ``done`` an
-    optional [B] bool device tensor. ``head`` = ``(w_q, scales, vocab)``
-    routes selection through the fused LM-head sampler (K8);
-    ``block_table`` routes every substep through the paged pools.
+    ``remaining`` (token budget) / ``topks`` / ``topps`` are host arrays
+    of length B (or scalars), ``done`` an optional [B] bool device tensor.
+    ``head`` = ``(w_q, scales, vocab)`` routes selection through the fused
+    LM-head sampler (K8; a batch with any top-k/top-p row takes
+    ``sample_tokens`` on the head GEMV's logits); ``block_table`` routes
+    every substep through the paged pools.
 
     The JAX loop exits early once every row is done, which needs the
     device's EOS flags. This loop runs ``min(K, max(remaining))``
@@ -146,15 +170,16 @@ def decode_multi_tokens(model, tokens, pos, caches, num_tokens, temps,
     dev = model.device
     B = tokens.shape[0]
     K = int(num_tokens)
-    temps = np.array(np.broadcast_to(np.asarray(temps, np.float32).reshape(-1),
-                                     (B,)))
-    if head is None and (temps > 0).any():
-        raise MXNetError("temperature sampling without the fused quantized head "
-                         + _SAMPLING_LATER)
+
+    def per_row(x, dtype):
+        return np.array(np.broadcast_to(np.asarray(x, dtype).reshape(-1), (B,)))
+
+    temps = per_row(temps, np.float32)
+    topks = per_row(topks, np.int64)
+    topps = per_row(topps, np.float32)
     seeds = np.asarray(seeds, np.int64).reshape(-1)
     counters = np.asarray(counters, np.int64).reshape(-1)
-    eos = np.full(B, -1, np.int64) if eos_ids is None else \
-        np.array(np.broadcast_to(np.asarray(eos_ids, np.int64).reshape(-1), (B,)))
+    eos = np.full(B, -1, np.int64) if eos_ids is None else per_row(eos_ids, np.int64)
     eos_t = torch.as_tensor(eos, dtype=torch.int32).to(dev)
     dn = (torch.zeros(B, dtype=torch.bool, device=dev) if done is None
           else done.to(dev, torch.bool).clone())
@@ -166,23 +191,26 @@ def decode_multi_tokens(model, tokens, pos, caches, num_tokens, temps,
         rem_t = torch.as_tensor(rem, dtype=torch.int32).to(dev)
     out = torch.zeros(B, K, dtype=torch.int32, device=dev)
     tok = tokens.to(torch.int32)
+    if steps:
+        # every substep's keys at once: [steps, B, 2]
+        keys = _prng.fold_keys(np.tile(seeds, steps),
+                               (counters[None, :] + np.arange(steps)[:, None]).reshape(-1),
+                               dev).reshape(steps, B, 2)
     if head is not None and steps:
         from ..ops.fused_block_gemv import fused_lm_head_sample
         w_q, scale, vocab = head
         temps_t = torch.from_numpy(temps).to(dev)
-        kbits = torch.as_tensor(np.stack(
-            [_key_bits(seeds, counters + j) for j in range(steps)])).to(dev)
     for j in range(steps):
         posj = pos + j
         if head is None:
             logits, caches = decode_step(model, tok[:, None], posj, caches,
                                          block_table)
-            nxt = sample_tokens(logits[:, -1], temps)
+            nxt = sample_tokens(logits[:, -1], keys[j], temps, topks, topps)
         else:
             hidden, caches = decode_step_hidden(model, tok[:, None], posj,
                                                 caches, block_table)
             nxt = fused_lm_head_sample(hidden[:, -1], w_q, scale, vocab,
-                                       kbits[j], temps_t)
+                                       keys[j], temps_t, topks, topps)
         if fill_eos:
             nxt = torch.where(dn & (eos_t >= 0), eos_t, nxt)
         newly = nxt == eos_t
@@ -200,12 +228,16 @@ def generate(model, input_ids, max_new_tokens: int,
              seed: int = 0, use_cache: bool = True, multi_token: int = 1):
     """Generate ``max_new_tokens`` continuations of ``input_ids`` [B, P]
     with KV-cache decode on the model's device. ``temperature == 0`` is
-    greedy; after ``eos_token_id`` a row keeps emitting eos. Returns
+    greedy; otherwise softmax sampling at the temperature, restricted to
+    the ``top_k`` highest logits and/or the nucleus reaching ``top_p``;
+    after ``eos_token_id`` a row keeps emitting eos. Returns
     [B, P + max_new_tokens] int32.
 
-    ``multi_token`` > 1 decodes in chunks of K tokens with per-row
-    ``fold_in`` streams and, when the model carries a quantized tied head,
-    the fused LM-head sampler; greedy output equals ``multi_token=1``."""
+    ``multi_token=1`` splits ``key(seed)`` once per token (the JAX
+    package's split chain). ``multi_token`` > 1 decodes in chunks of K
+    tokens with per-row ``fold_in`` streams and, when the model carries a
+    quantized tied head, the fused LM-head sampler; greedy output equals
+    ``multi_token=1``."""
     if max_new_tokens <= 0:
         raise MXNetError("max_new_tokens must be positive")
     _validate_sampling(temperature, top_k, top_p)
@@ -228,36 +260,50 @@ def generate(model, input_ids, max_new_tokens: int,
     with torch.no_grad():
         if multi_token == 1:
             return _generate_single(model, ids, max_new_tokens, eos,
-                                    temperature)
+                                    temperature, int(top_k), float(top_p), seed)
         return _generate_multi(model, ids, max_new_tokens, eos, temperature,
-                               seed, multi_token)
+                               int(top_k), float(top_p), seed, multi_token)
 
 
-def _generate_single(model, ids, max_new_tokens, eos, temperature):
+def _generate_single(model, ids, max_new_tokens, eos, temperature, top_k,
+                     top_p, seed):
     B, P = ids.shape
     L = P + max_new_tokens
+    dev = ids.device
     caches = model.new_caches(B, L)
-    buf = torch.zeros(B, L, dtype=torch.int32, device=ids.device)
+    buf = torch.zeros(B, L, dtype=torch.int32, device=dev)
     buf[:, :P] = ids
-    done = torch.zeros(B, dtype=torch.bool, device=ids.device)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    key = _prng.key(seed, dev)
+    temp = torch.tensor(temperature, dtype=torch.float32, device=dev)
 
-    def select(step_logits, done):
-        nxt = sample_tokens(step_logits, temperature)
+    def select(step_logits, key, done):
+        step_logits = step_logits.float()
+        if temperature == 0.0:
+            nxt = torch.argmax(step_logits, dim=-1)
+        else:
+            scaled = step_logits / temp
+            if top_k > 0 or top_p < 1.0:
+                scaled = filter_logits(scaled, top_k, top_p)
+            key, sub = _prng.split(key)
+            nxt = _prng.categorical(sub, scaled)
+        nxt = nxt.to(torch.int32)
         if eos >= 0:
             nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
             done = done | (nxt == eos)
-        return nxt, done
+        return nxt, key, done
 
     logits, caches = decode_step(model, ids, 0, caches)
-    buf[:, P], done = select(logits[:, -1], done)
+    buf[:, P], key, done = select(logits[:, -1], key, done)
     for i in range(max_new_tokens - 1):
         pos = P + i
         logits, caches = decode_step(model, buf[:, pos:pos + 1], pos, caches)
-        buf[:, pos + 1], done = select(logits[:, 0], done)
+        buf[:, pos + 1], key, done = select(logits[:, 0], key, done)
     return buf
 
 
-def _generate_multi(model, ids, max_new_tokens, eos, temperature, seed, K):
+def _generate_multi(model, ids, max_new_tokens, eos, temperature, top_k, top_p,
+                    seed, K):
     B, P = ids.shape
     L = P + max_new_tokens
     chunks = -(-(max_new_tokens - 1) // K) if max_new_tokens > 1 else 0
@@ -268,18 +314,20 @@ def _generate_multi(model, ids, max_new_tokens, eos, temperature, seed, K):
     buf[:, :P] = ids
     seeds = _row_seeds(seed, B)
     temps = np.full(B, temperature, np.float32)
+    topks = np.full(B, top_k, np.int64)
+    topps = np.full(B, top_p, np.float32)
     eos_vec = np.full(B, eos, np.int64)
     # prefill + token 0 (counter 0 of every row's stream)
+    keys0 = _prng.fold_keys(seeds, np.zeros(B, np.int64), ids.device)
     if head is None:
         logits, caches = decode_step(model, ids, 0, caches)
-        tok0 = sample_tokens(logits[:, -1], temps)
+        tok0 = sample_tokens(logits[:, -1], keys0, temps, topks, topps)
     else:
         from ..ops.fused_block_gemv import fused_lm_head_sample
         hidden, caches = decode_step_hidden(model, ids, 0, caches)
-        kb = torch.as_tensor(_key_bits(seeds, np.zeros(B, np.int64)))
         tok0 = fused_lm_head_sample(hidden[:, -1], head[0], head[1], head[2],
-                                    kb.to(ids.device),
-                                    torch.as_tensor(temps).to(ids.device))
+                                    keys0, torch.as_tensor(temps).to(ids.device),
+                                    topks, topps)
     buf[:, P] = tok0
     done = tok0 == eos
     tok = tok0
@@ -287,6 +335,6 @@ def _generate_multi(model, ids, max_new_tokens, eos, temperature, seed, K):
         toks, tok, _, done, caches = decode_multi_tokens(
             model, tok, P + c * K, caches, K, temps, seeds,
             np.full(B, 1 + c * K, np.int64), eos_ids=eos_vec, done=done,
-            fill_eos=True, head=head)
+            fill_eos=True, head=head, topks=topks, topps=topps)
         buf[:, P + 1 + c * K:P + 1 + (c + 1) * K] = toks
     return buf[:, :L]

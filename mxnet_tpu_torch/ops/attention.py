@@ -18,6 +18,14 @@ CUDA tensor launches the hand-written kernel or raises:
 - K1 ``csrc/flash_attention_fwd.cu`` replaces ``_pallas_forward``;
 - K2 ``csrc/flash_attention_bwd.cu`` replaces ``_pallas_backward``.
 
+In bf16 at a padded head dim of 64 or 128 both run the warp-specialised
+wgmma bodies, which load tiles by TMA: a head dim that is not a multiple
+of 8 (a row that is not a whole number of 16-byte units) is zero-padded in
+device memory to the next multiple of 8 first, and the outputs are cut
+back, as the TPU kernel padded its operands (``_pad4``). K2's bf16 one
+sweep takes an f32 dq accumulator and its turn counters from workspaces
+the wrapper allocates.
+
 Layout (B, H, T, D) as in the JAX package; lse is (B, H, T) f32 (the TPU
 kernel returned its padded (B, H, Tp, 1) form).
 """
@@ -190,6 +198,17 @@ def _dense(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _tma_route(q, Dp) -> bool:
+    """bf16 at padded head dim 64 or 128: the wgmma bodies of K1 and K2."""
+    return q.dtype == torch.bfloat16 and Dp <= 128
+
+
+def _pad8(t):
+    """``t`` with its last dim zero-padded to a multiple of 8."""
+    D = t.shape[-1]
+    return t if D % 8 == 0 else torch.nn.functional.pad(t, (0, 8 - D % 8))
+
+
 def _launch_args(q, causal, scale):
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise MXNetError(f"flash attention kernels take f32 or bf16, got {q.dtype}")
@@ -208,23 +227,28 @@ def flash_forward(q, k, v, causal: bool, scale: float):
     if causal and T > S:
         raise MXNetError("flash_forward: causal attention needs T <= S")
     Dp = _pad_head_dim(D)
+    if _tma_route(q, Dp):
+        q, k, v = _pad8(q), _pad8(k), _pad8(v)
     q, k, v = _dense(q), _dense(k), _dense(v)
+    Dk = q.shape[-1]
     o = torch.empty_like(q)
     lse = torch.empty(B, H, T, device=q.device, dtype=torch.float32)
     c, s, bf, stream = _launch_args(q, causal, scale)
     lib = _build.library("flash_attention_fwd")
     _build.check(lib.mx_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                  lse.data_ptr(), B * H, T, S, D, Dp, c, s, bf, stream),
+                                  lse.data_ptr(), B * H, T, S, Dk, Dp, c, s, bf, stream),
                  "flash_attention_fwd")
     record_launch("flash_fwd")
-    return o, lse
+    return o[..., :D], lse
 
 
 def flash_backward(q, k, v, o, lse, do, causal: bool, scale: float):
     """K2: ``(dq, dk, dv)``. A CPU tensor takes
     :func:`_reference_flash_backward`; a CUDA tensor launches
-    ``csrc/flash_attention_bwd.cu`` (its dk/dv kernel, then its dq kernel)
-    or raises."""
+    ``csrc/flash_attention_bwd.cu`` (bf16 at padded head dim 64 or 128: its
+    delta preprocess, one-sweep and dq cast kernels; otherwise its dk/dv
+    kernel, then its dq kernel) or raises. One launch is recorded per call,
+    after the last kernel's launch returned."""
     B, H, T, S, D = _check("flash_backward", q, k, v, o, lse, do)
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape) \
             or tuple(lse.shape) != (B, H, T):
@@ -238,16 +262,27 @@ def flash_backward(q, k, v, o, lse, do, causal: bool, scale: float):
     if lse.dtype != torch.float32:
         raise MXNetError("flash_backward: lse must be f32")
     Dp = _pad_head_dim(D)
-    q, k, v, o, lse, do = (_dense(t) for t in (q, k, v, o, lse, do.to(q.dtype)))
+    do = do.to(q.dtype)
+    ws_f32 = ws_i32 = None
+    if _tma_route(q, Dp):
+        q, k, v, o, do = (_pad8(t) for t in (q, k, v, o, do))
+    q, k, v, o, lse, do = (_dense(t) for t in (q, k, v, o, lse, do))
+    Dk = q.shape[-1]
+    if _tma_route(q, Dp):
+        # the dq accumulator and delta (f32), the turn counters and the ticket
+        ws_f32 = torch.empty(B * H * T * (Dk + 1), device=q.device, dtype=torch.float32)
+        ws_i32 = torch.empty(B * H * -(-T // 64) + 1, device=q.device, dtype=torch.int32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     c, s, bf, stream = _launch_args(q, causal, scale)
     lib = _build.library("flash_attention_bwd")
     _build.check(lib.mx_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                                   lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                                  dk.data_ptr(), dv.data_ptr(), B * H, T, S, D, Dp, c, s,
-                                  bf, stream), "flash_attention_bwd")
+                                  dk.data_ptr(), dv.data_ptr(),
+                                  None if ws_f32 is None else ws_f32.data_ptr(),
+                                  None if ws_i32 is None else ws_i32.data_ptr(),
+                                  B * H, T, S, Dk, Dp, c, s, bf, stream), "flash_attention_bwd")
     record_launch("flash_bwd")
-    return dq, dk, dv
+    return dq[..., :D], dk[..., :D], dv[..., :D]
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -24,13 +24,17 @@
   :func:`_reference_head_sample` on the CPU. Sampled rows draw Gumbel noise
   from :func:`_hash_uniform` of (request key bits, vocab lane), as the TPU
   kernel does; the JAX package's off-TPU path samples with
-  ``jax.random.categorical`` instead, so sampled tokens match JAX only
-  against its kernel (interpret mode), never against its CPU fallback.
+  ``jax.random.categorical`` instead, so unfiltered sampled tokens match
+  JAX only against its kernel (interpret mode), never against its CPU
+  fallback. A batch with any top-k/top-p row takes the reference's other
+  branch on every device: head GEMV logits, then
+  ``generation.sample_tokens``, which matches JAX's stream.
 
 The bf16-pool lane of K6/K7 and grammar masks are later slices.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import numpy_extension as npx
@@ -487,32 +491,44 @@ def _reference_head_sample(h, w_q, w_scale, vocab, temps, keybits):
     return torch.argmax(z, dim=-1).to(torch.int32)
 
 
-def fused_lm_head_sample(h, w_q, w_scale, vocab, keybits, temps, topks=0,
+def fused_lm_head_sample(h, w_q, w_scale, vocab, keys, temps, topks=0,
                          topps=1.0, out_dtype=None, mask=None):
     """Tied-head GEMV + token selection for one decode step's last-position
-    hidden state ``h`` [B, D]: greedy rows (T == 0) take the exact argmax
-    of the head logits, T > 0 rows Gumbel-argmax sample with noise from
-    :func:`_hash_uniform` of ``keybits`` [B] (``generation._fold_keys``
-    key bits, values in [0, 2**32)). ``(w_q, w_scale)`` is the
-    vocab-padded table: int8 [Vp, D] with per-row scales [Vp], or packed
-    int4 [Vp, D/2] uint8 with block scales [Vp, D/block]; pad lanes never
-    win. Returns [B] int32.
+    hidden state ``h`` [B, D]. ``(w_q, w_scale)`` is the vocab-padded
+    table: int8 [Vp, D] with per-row scales [Vp], or packed int4
+    [Vp, D/2] uint8 with block scales [Vp, D/block]; pad lanes never win.
+    ``keys`` are the rows' [B, 2] ``_prng`` keys (or, for a batch with no
+    top-k/top-p row, their [B] key bits, ``k[:, 0] ^ k[:, 1]``, values in
+    [0, 2**32)). Returns [B] int32.
 
-    Top-k / top-p filtering needs JAX's ``random.categorical`` stream and
-    raises until the sampling slice; so do grammar masks and a non-f32
-    ``out_dtype``."""
+    A batch with no top-k/top-p row streams the table once through K8:
+    greedy rows (T == 0) take the exact argmax of the head logits, T > 0
+    rows Gumbel-argmax sample with noise from :func:`_hash_uniform` of the
+    key bits (the TPU kernel's stream). A batch with any filtered row takes
+    the reference's other branch (``lax.cond``, fused_block_gemv.py:
+    1379-1391): logits from the head GEMV (K3, or K4) cut to ``vocab``,
+    then ``generation.sample_tokens`` with the rows' keys. Grammar masks
+    and a non-f32 ``out_dtype`` raise."""
     B, D = h.shape
     if mask is not None:
         raise MXNetError("fused_lm_head_sample: grammar masks are not ported "
                          "yet (a later slice ports serve/grammar.py)")
     if out_dtype is not None and out_dtype != torch.float32:
         raise MXNetError("fused_lm_head_sample: only f32 logits are supported")
-    topks = torch.as_tensor(topks).reshape(-1)
-    topps = torch.as_tensor(topps, dtype=torch.float32).reshape(-1)
+    topks = torch.as_tensor(np.asarray(topks) if not isinstance(topks, torch.Tensor)
+                            else topks).reshape(-1)
+    topps = torch.as_tensor(np.asarray(topps, np.float32) if not isinstance(topps, torch.Tensor)
+                            else topps, dtype=torch.float32).reshape(-1)
+    keys = torch.as_tensor(keys, device=h.device)
     if bool((topks > 0).any()) or bool((topps < 1.0).any()):
-        raise MXNetError("fused_lm_head_sample: top-k/top-p sampling needs the "
-                         "jax.random.categorical stream, which a later slice "
-                         "ports")
+        from ..models.generation import sample_tokens
+        from .int8_gemv import weight_matmul
+        if keys.shape != (B, 2):
+            raise MXNetError("fused_lm_head_sample: a top-k/top-p batch needs the "
+                             "rows' [B, 2] keys")
+        logits = weight_matmul(h, w_q, w_scale)[:, :int(vocab)]
+        return sample_tokens(logits, keys, temps, topks, topps)
+    keybits = keys[:, 0] ^ keys[:, 1] if keys.dim() == 2 else keys
     Vp = w_q.shape[0]
     if w_q.dtype == torch.uint8:
         nsb = w_scale.shape[-1] if w_scale.dim() == 2 else 0

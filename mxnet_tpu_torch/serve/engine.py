@@ -26,7 +26,8 @@ layouts).
   K7 past K6's context gate.
 - **Decode** advances every occupied slot with one batched step over the
   power-of-two prefix of slots that covers them: per-slot positions,
-  temperatures, seeds, sampling counters, eos ids and token budgets.
+  temperatures, top-k / top-p, seeds, sampling counters, eos ids and token
+  budgets.
   ``multi_token=K`` runs K substeps per dispatch (models/generation.
   decode_multi_tokens) with token selection fused into the quantized
   head (K8, int8 or int4 lane) when the model carries one; tokens past a row's EOS or budget are
@@ -37,16 +38,23 @@ layouts).
 
 One background thread runs the loop; ``submit`` and ``result`` are safe
 from any thread. The engine reads each dispatch's tokens back before the
-next one (no lookahead), so the paged tick has no pending step. Token 0
-of a request on a ``multi_token > 1`` engine with a quantized head is
-selected by the fused head from the prompt's last hidden state, as
-``generate(multi_token > 1)`` selects it (the JAX engine samples it from
-materialised logits). A row's logits do not depend on its batch, and the
-head GEMV (K3, or K4) and K8 agree bit for bit, on the GEMVs' warp route
-(at most 8 rows, as in decode). Prefill rows (9 to 64) take the tile
-route, whose rows do not depend on the batch within 9-64 rows and agree
-with the warp route to rounding: there greedy token 0 from materialised
-logits equals K8's unless two logits lie within that rounding.
+next one (no lookahead), so the paged tick has no pending step.
+
+Sampling keys every request's stream with ``fold_in(key(seed), counter)``
+(``counter`` = tokens the request has emitted), as the JAX engine does.
+Token 0 is drawn by ``generation.sample_tokens`` from materialised
+logits at that counter, in both layouts and on a resume: the head runs on
+the last real prompt row of the prefill's hidden state alone (the JAX
+engine materialises the whole bucket's logits and reads that row; a row's
+logits do not depend on its batch). On the card one row takes the head
+GEMV's warp route (K3, or K4), whose argmax equals K8's bit for bit, so a
+greedy token 0 is the one ``generate()`` selects. Later tokens of a
+``multi_token > 1`` engine with a quantized head go through the fused
+head: greedy rows exact, unfiltered T > 0 rows on K8's hash-Gumbel
+stream (the TPU kernel's; the JAX package's CPU path draws
+``sample_tokens`` there, so those rows, and only those, differ from JAX
+on the CPU by design), and a batch with any top-k/top-p row on
+``sample_tokens``, as the JAX engine draws it.
 
 Speculation, grammar masks, live weight swaps, page migration, warm-up
 and recompile guards, HTTP, metrics and tuned configs are later slices:
@@ -64,6 +72,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import _prng
 from ..base import MXNetError
 from ..models import generation as _gen
 from .bucketing import bucket_for
@@ -114,10 +123,12 @@ class RequestHandle:
     """Future-like view of a submitted request."""
 
     def __init__(self, prompt_ids, max_new_tokens, temperature, eos_token_id,
-                 seed, deadline):
+                 seed, deadline, top_k=0, top_p=1.0):
         self.prompt_ids = prompt_ids
         self.max_new_tokens = max_new_tokens
         self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
         self.eos_token_id = eos_token_id
         self.seed = seed
         self.deadline = deadline
@@ -269,6 +280,8 @@ class InferenceEngine:
         self._tokens = np.zeros(self.S, np.int32)
         self._pos = np.zeros(self.S, np.int32)
         self._temps = np.zeros(self.S, np.float32)
+        self._topks = np.zeros(self.S, np.int64)
+        self._topps = np.ones(self.S, np.float32)
         self._seeds = np.zeros(self.S, np.int64)
         self._counters = np.zeros(self.S, np.int64)
         self._eos = np.full(self.S, -1, np.int64)
@@ -347,10 +360,6 @@ class InferenceEngine:
         if max_new_tokens <= 0:
             raise MXNetError("max_new_tokens must be positive")
         _gen._validate_sampling(temperature, top_k, top_p)
-        if temperature > 0 and self._head is None:
-            raise MXNetError("temperature sampling on this engine needs "
-                             "multi_token > 1 with a quantized head (the fused "
-                             "sampler); otherwise it " + _gen._SAMPLING_LATER)
         if len(prompt) + max_new_tokens + (self.K - 1) > self.L:
             raise MXNetError(
                 f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens})"
@@ -359,7 +368,7 @@ class InferenceEngine:
         deadline = (time.perf_counter() + timeout_s
                     if timeout_s is not None else None)
         req = RequestHandle(prompt, int(max_new_tokens), float(temperature),
-                            eos_token_id, int(seed), deadline)
+                            eos_token_id, int(seed), deadline, int(top_k), float(top_p))
         with self._cond:
             if self._closed or not self._running:
                 raise EngineClosedError("engine is not running (call start(), "
@@ -468,21 +477,13 @@ class InferenceEngine:
         self._start_decode(s, req, tok0, t0, P, 0)
 
     def _token0(self, hidden, last: int, req: RequestHandle, counter: int) -> int:
-        """Select a request's next token from row ``last`` of a prefill's
-        hidden state [1, T, D], with the sampling stream at ``counter``."""
-        if self._head is not None:
-            from ..ops.fused_block_gemv import fused_lm_head_sample
-            w_q, scale, vocab = self._head
-            kb = _gen._key_bits([req.seed], [counter])
-            tok0 = fused_lm_head_sample(
-                hidden[:, last], w_q, scale, vocab,
-                torch.as_tensor(kb).to(self.device),
-                torch.tensor([req.temperature], device=self.device))
-        else:
-            # the JAX engine's logits over the whole bucket (its head
-            # routing depends on the row count), read at the last prompt row
-            logits = self.model._lm_head(hidden)
-            tok0 = _gen.sample_tokens(logits[:, last], [req.temperature])
+        """Draw a request's next token from row ``last`` of a prefill's
+        hidden state [1, T, D]: that row's logits alone (see the module
+        docstring), sampled with the stream at ``counter``."""
+        logits = self.model._lm_head(hidden[:, last])
+        keys = _prng.fold_keys([req.seed], [counter], self.device)
+        tok0 = _gen.sample_tokens(logits, keys, [req.temperature], [req.top_k],
+                                  [req.top_p])
         return int(tok0[0])
 
     def _start_decode(self, s: int, req: RequestHandle, tok0: int, t0: float,
@@ -497,6 +498,8 @@ class InferenceEngine:
         self._pos[s] = n_ids
         self._counters[s] = emitted + 1
         self._temps[s] = req.temperature
+        self._topks[s] = req.top_k
+        self._topps[s] = req.top_p
         self._seeds[s] = req.seed & 0xFFFFFFFF
         self._eos[s] = -1 if req.eos_token_id is None else req.eos_token_id
         self._remaining[s] = req.max_new_tokens - emitted - 1
@@ -671,12 +674,15 @@ class InferenceEngine:
                 self.model, tokens, pos, caches, self.K, self._temps[:sb],
                 self._seeds[:sb], self._counters[:sb],
                 eos_ids=self._eos[:sb], remaining=self._remaining[:sb],
-                done=done, head=self._head, block_table=table)
+                done=done, head=self._head, block_table=table,
+                topks=self._topks[:sb], topps=self._topps[:sb])
             toks = toks.cpu().numpy()
         else:
             logits, _ = _gen.decode_step(self.model, tokens[:, None], pos, caches,
                                          table)
-            toks = _gen.sample_tokens(logits[:, -1], self._temps[:sb])
+            keys = _prng.fold_keys(self._seeds[:sb], self._counters[:sb], dev)
+            toks = _gen.sample_tokens(logits[:, -1], keys, self._temps[:sb],
+                                      self._topks[:sb], self._topps[:sb])
             toks = toks.cpu().numpy()[:, None]
             steps = 1
         now = time.perf_counter()
@@ -716,6 +722,8 @@ class InferenceEngine:
         self._tokens[s] = 0
         self._pos[s] = 0
         self._temps[s] = 0.0
+        self._topks[s] = 0
+        self._topps[s] = 1.0
         self._seeds[s] = 0
         self._counters[s] = 0
         self._eos[s] = -1

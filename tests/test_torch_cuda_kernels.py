@@ -405,3 +405,79 @@ def test_flash_attention_autograd_launches_kernels(cuda):
     assert _within(out.detach(), want.detach(), torch.float32)
     for a, b in zip(leaves, ref):
         assert _within(a.grad, b.grad, torch.float32)
+
+
+# the wgmma bodies' shapes: the training shape, a ragged length, end-aligned
+# causal, head dims 40 and 20 (zero-padded to a multiple of 8 by the
+# wrappers) and 128, and B * H large enough to fill every SM several times
+_FLASH_WGMMA_SHAPES = [(16, 12, 1024, 1024, 64, True), (2, 12, 1000, 1000, 64, True),
+                       (2, 12, 256, 512, 64, True), (2, 12, 1024, 1024, 40, False),
+                       (1, 2, 512, 512, 20, True), (2, 8, 1024, 1024, 128, True),
+                       (64, 16, 512, 512, 64, False)]
+
+
+@pytest.mark.parametrize("B,H,T,S,D,causal", _FLASH_WGMMA_SHAPES)
+def test_flash_wgmma_bodies_match_plain_and_repeat(cuda, B, H, T, S, D, causal):
+    """The bf16 wgmma bodies of K1 and K2 (TMA tiles, K2's ordered one
+    sweep) against their plain versions by ``chip_smoke``'s rule (1e-2 per
+    row), and K2 twice on the same inputs: the same bits."""
+    q, k, v, do = _flash_operands(B, H, T, S, D, torch.bfloat16, seed=5)
+    scale = D ** -0.5
+    o, lse = fa.flash_forward(q, k, v, causal, scale)
+    grads = fa.flash_backward(q, k, v, o, lse, do, causal, scale)
+    again = fa.flash_backward(q, k, v, o, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    f = [t.float() for t in (q, k, v, do)]
+    po, plse = fa._reference_flash_forward(f[0], f[1], f[2], causal, scale)
+    pdq, pdk, pdv = fa._reference_flash_backward(f[0], f[1], f[2], o.float(), lse, f[3],
+                                                 causal, scale)
+    for name, got, want in (("o", o, po), ("lse", lse, plse), ("dq", grads[0], pdq),
+                            ("dk", grads[1], pdk), ("dv", grads[2], pdv)):
+        assert got.shape == want.shape and torch.isfinite(got).all(), name
+        assert _within(got, want, torch.bfloat16), name
+
+
+def test_prng_on_card_matches_cpu(cuda):
+    """JAX's sampling stream on the card: threefry bits bitwise equal to the
+    CPU's, and ``sample_tokens`` (greedy, plain, top-k and top-p rows) and a
+    split-chain ``categorical`` give the CPU's tokens on the same logits."""
+    from mxnet_tpu_torch import _prng
+    rng = onp.random.RandomState(3)
+    B, V = 8, 50257
+    logits = (rng.randn(B, V) * 3).astype("float32")
+    temps = onp.array([0.0, 0.8, 1.0, 0.7, 1.3, 0.0, 0.9, 1.1], "float32")
+    topks = onp.array([0, 0, 40, 0, 200, 5, 0, 1000])
+    topps = chip_smoke.nucleus_away_from_edges(onp, logits, temps, topks, (3, 4, 7))
+    seeds, counters = onp.arange(B) * 101, onp.arange(B) * 7
+    kc = _prng.fold_keys(seeds, counters)
+    kd = _prng.fold_keys(seeds, counters, "cuda")
+    assert torch.equal(kd.cpu(), kc)
+    for shape in ((V,), (3, 1000)):
+        assert torch.equal(_prng.random_bits(kd, shape).cpu(), _prng.random_bits(kc, shape))
+    assert torch.equal(_prng.uniform(kd, (V,)).cpu(), _prng.uniform(kc, (V,)))
+    lc, ld = torch.from_numpy(logits), torch.from_numpy(logits).cuda()
+    want = gen.sample_tokens(lc, kc, temps, topks, topps)
+    assert torch.equal(gen.sample_tokens(ld, kd, temps, topks, topps).cpu(), want)
+    key = _prng.split(_prng.key(9))[1]
+    assert torch.equal(_prng.categorical(key.cuda(), ld).cpu(), _prng.categorical(key, lc))
+
+
+def test_filtered_head_batch_on_card(net):
+    """A fused-head batch with a top-k row takes ``sample_tokens`` on the
+    head GEMV's logits on the card too (no K8 launch), and agrees with the
+    same call on the CPU copies."""
+    from mxnet_tpu_torch import _prng
+    w_q, scale, vocab = net.head_weights()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    B = 4
+    h = torch.randn(B, net.cfg.hidden_size, device="cuda", generator=g)
+    keys = _prng.fold_keys(onp.arange(B), onp.full(B, 5), "cuda")
+    temps = torch.tensor([0.0, 0.9, 1.0, 0.7], device="cuda")
+    int8_gemv.reset_launches()
+    got = fb.fused_lm_head_sample(h, w_q, scale, vocab, keys, temps, [0, 20, 0, 3], 1.0)
+    counts = int8_gemv.launches()
+    assert not any(k.startswith("fused_head") for k in counts)
+    logits = int8_gemv.weight_matmul(h, w_q, scale)[:, :vocab]
+    want = gen.sample_tokens(logits.cpu(), keys.cpu(), temps.cpu(), [0, 20, 0, 3], 1.0)
+    assert torch.equal(got.cpu(), want)

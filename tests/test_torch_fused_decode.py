@@ -198,13 +198,26 @@ def test_plain_head_sampler_matches_jax_kernel(nets, temp):
 
 
 def test_filtered_sampling_and_masks_raise(nets):
+    """A batch with a top-k/top-p row takes the reference's other branch:
+    ``sample_tokens`` on the head GEMV's logits cut to the vocab, with the
+    rows' keys (and no K8 launch); [B] key bits cannot drive it. Grammar
+    masks still raise."""
+    from mxnet_tpu_torch import _prng
     _, tnet = nets
     tw, ts, tv = tnet.head_weights()
-    h = torch.zeros(2, 256)
-    kb = torch.zeros(2, dtype=torch.int64)
-    with pytest.raises(MXNetError, match="top-k/top-p"):
-        fb.fused_lm_head_sample(h, tw, ts, tv, kb, torch.ones(2), topks=5)
+    rng = onp.random.RandomState(5)
+    h = torch.from_numpy(rng.randn(3, 256).astype("float32"))
+    keys = _prng.fold_keys([5, 6, 7], [2, 2, 2])
+    temps = torch.tensor([0.9, 0.0, 1.2])
+    topks, topps = onp.array([5, 0, 0]), onp.array([1.0, 1.0, 0.8], "float32")
+    with count_launches() as tally:
+        got = fb.fused_lm_head_sample(h, tw, ts, tv, keys, temps, topks, topps)
+    assert "fused_head" not in tally and tally["gemv"] == 1
+    logits = (h @ (tw.float() * ts[:, None]).T)[:, :tv]
+    want = gen.sample_tokens(logits, keys, temps, topks, topps)
+    assert (got == want).all()
+    with pytest.raises(MXNetError, match="keys"):
+        fb.fused_lm_head_sample(h, tw, ts, tv, keys[:, 0] ^ keys[:, 1], temps, topks=5)
     with pytest.raises(MXNetError, match="grammar"):
-        fb.fused_lm_head_sample(h, tw, ts, tv, kb, torch.ones(2),
+        fb.fused_lm_head_sample(h[:2], tw, ts, tv, keys[:2], torch.ones(2),
                                 mask=torch.ones(2, tv, dtype=torch.bool))
-

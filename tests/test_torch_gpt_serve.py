@@ -194,20 +194,17 @@ def test_bucketing_matches_jax(lo, hi, growth):
 
 
 def test_unported_paths_raise(nets):
+    """Speculation, grammar masks and an over-long request still raise;
+    T > 0 and top-k/top-p sampling are ported (tests/test_torch_sampling.py
+    holds them against the JAX package)."""
     _, tnet, _ = nets
     prompt = _prompts([4])[0][None]
-    with pytest.raises(MXNetError, match="top-k/top-p"):
-        generate(tnet, prompt, 4, temperature=1.0, top_k=5, multi_token=4)
-    with pytest.raises(MXNetError, match="categorical"):
-        generate(tnet, prompt, 4, temperature=1.0)
     with pytest.raises(MXNetError, match="later slice"):
         InferenceEngine(tnet, speculate=2)
     with pytest.raises(MXNetError, match="later slice"):
         InferenceEngine(tnet, grammar=True)
     eng = InferenceEngine(tnet, max_len=MAXPOS).start()
     try:
-        with pytest.raises(MXNetError, match="temperature sampling"):
-            eng.submit(prompt[0], 4, temperature=0.5)
         with pytest.raises(MXNetError, match="max_len"):
             eng.submit(prompt[0], MAXPOS)
     finally:
