@@ -46,6 +46,16 @@
    requests of 300-700-token prompts at max_len 1024 without preemption,
    K7), with int4 launch kinds only; prints the weight bytes of both
    models and each int4 phase's peak device memory.
+3d. Serves bf16 GPT-2 small, the configuration of ``bench.py``'s quantized
+   decode headlines: int8 with ``calib_mode='naive'`` on two seeded [8, 32]
+   batches, then int4. The bf16 lanes of K3, K4 (bf16 x: bit for bit the
+   f32 lane on x.float(), on both routes) and of K5, K6, K7 (bf16 x and
+   bf16 caches and pools, also f32 x; K5 = K6 = K7 bitwise) against their
+   plain versions; ``generate()`` at B 8, P 32, 128 new tokens,
+   ``multi_token=8``; the contiguous phase, paged A (K6) and paged B (K7,
+   preemption) over the int8 model, ``generate()`` and the contiguous
+   phase over the int4 one, with each element-type lane's launches
+   (``dtype_lanes()``) and the KV bytes beside the f32 phases'.
 4. Holds K1 (flash-attention forward) and K2 (its backward) against their
    plain versions, every output row to its own size, at the training
    shape, at head dim 128 and at ragged, end-aligned and padded-head-dim
@@ -101,6 +111,12 @@ PAGED_B_PAGES = 160
 # requests against the plain path on the CPU, which dequantizes every int4
 # table on every call (about 0.3 s a token at GPT-2 small)
 INT4_CPU_TOKENS = 32
+# the bf16 stage's CPU comparisons (its int4 model's plain path is the
+# slow one above)
+BF16_CPU_TOKENS, BF16_INT4_CPU_TOKENS = 32, 16
+# bench.py's calibration for its int8 decode headlines: calib_mode 'naive'
+# on two batches of [8, 32] tokens
+CALIB_BATCHES, CALIB_SHAPE = 2, (8, 32)
 # clock cycles the card spins before each timed call (about 0.5 ms at the
 # H100's 1.98 GHz): the host enqueues the call while the card is busy, so
 # host time (a Python wrapper, a contended CPU) stays outside the events
@@ -175,42 +191,56 @@ def table_bytes(*tables):
     return sum(t.numel() * t.element_size() for t in tables)
 
 
-def kernel_gemv(torch, timer, gen, bits):
+def kernel_gemv(torch, timer, gen, bits, bf16=False):
     """K3 (``bits`` 8) or K4 (4) at every (N, K) the serving path gives it,
     at each row count of GEMV_ROWS: the warp route at 1 and 8 rows, the tile
     route at 9, 16 and 64. Every call within 1e-4 x max(1, |plain|); the
     first 9 rows of the tile route give the same bits at M 9, 16 and 64,
-    and two launches at 64 rows the same bits. The bound of every call is
-    the larger of its bytes and its operations at the bf16 tensor rate,
-    whichever route runs it. Returns {"warp": one layer's four GEMVs at 8
-    rows, summed, "mma": the same at 64 rows, with the 16-row sums under
-    "m16"; the 1-row sums under "m1" of "warp"}."""
+    and two launches at 64 rows the same bits. ``bf16``: the bf16 x lane
+    (block 0 of a bf16 model), which must also give the f32 lane's result
+    on x.float() bit for bit on both routes; its library yardstick is
+    ``torch.matmul`` of bf16 x on the dequantized bf16 weight. The bound of
+    every call is the larger of its bytes and its operations at the bf16
+    tensor rate, whichever route runs it. Returns {"warp": one layer's four
+    GEMVs at 8 rows, summed, "mma": the same at 64 rows, with the 16-row
+    sums under "m16"; the 1-row sums under "m1" of "warp"}."""
     from mxnet_tpu_torch.contrib.quantization import _quantize_int4
     from mxnet_tpu_torch.ops import int8_gemv
-    name = "K3" if bits == 8 else "K4"
+    name = ("K3" if bits == 8 else "K4") + ("_bf16" if bf16 else "")
+    xsize = 2 if bf16 else 4
     fn = int8_gemv.int8_weight_matmul if bits == 8 else int8_gemv.int4_weight_matmul
     plain = int8_gemv._reference_int8_matmul if bits == 8 else int8_gemv._reference_int4_matmul
     rows, same_bits = [], []
     for N, K in GEMV_SHAPES:
         x64 = torch.randn(max(GEMV_ROWS), K, device="cuda", generator=gen)
+        if bf16:
+            x64 = x64.bfloat16()
         if bits == 8:
             w = torch.randint(-127, 128, (N, K), device="cuda", generator=gen, dtype=torch.int8)
             s = torch.rand(N, device="cuda", generator=gen) * 0.02 + 1e-3
         else:
             w, s = _quantize_int4(torch.randn(N, K, device="cuda", generator=gen))
         wdeq = dequant(torch, w, s)
+        if bf16:
+            wdeq = wdeq.bfloat16()
         outs = {}
         for M in GEMV_ROWS:
             x = x64[:M].contiguous()
             got = fn(x, w, s)
             want = plain(x, w, s)
+            if bf16:
+                wide = fn(x.float(), w, s)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             tol = 1e-4 * max(1.0, want.abs().max().item())
             check(err <= tol, f"{name} M={M} N={N} K={K}: max abs err {err} > {tol}")
+            if bf16:
+                check(torch.equal(got.view(torch.int32), wide.view(torch.int32)),
+                      f"{name} M={M} N={N} K={K}: the bf16 lane is not the f32 lane on "
+                      f"x.float() bit for bit (max abs {(got - wide).abs().max().item()})")
             outs[M] = got
             # the products, and for int4 one block-scale multiply per partial sum
-            b_ms, b_by = bound(4 * M * K + table_bytes(w, s) + 4 * M * N,
+            b_ms, b_by = bound(xsize * M * K + table_bytes(w, s) + 4 * M * N,
                                2 * M * N * K + (M * s.numel() if bits == 4 else 0),
                                BF16_FLOP_PER_S)
             rows.append({
@@ -220,7 +250,7 @@ def kernel_gemv(torch, timer, gen, bits):
                 "plain_ms": timer(lambda: plain(x, w, s)),
                 "library_ms": timer(lambda: torch.matmul(x, wdeq.T)),
                 "bound_ms": b_ms, "bound_by": b_by,
-                "bytes": 4 * M * K + table_bytes(w, s) + 4 * M * N})
+                "bytes": xsize * M * K + table_bytes(w, s) + 4 * M * N})
         tile = [M for M in GEMV_ROWS if int8_gemv.gemv_route(M) == "mma"]
         lo = min(tile)
         again = fn(x64, w, s)
@@ -266,35 +296,80 @@ def pack_ops(pack, B):
     return 2 * B * 12 * D * D + (B * scales if pack["blocks"] else 0)
 
 
-def kernel_k5(torch, timer, gen, pack):
-    """K5 at B=8, D=768, H=12, L=1024 with mixed per-row positions."""
+# bf16 lanes of K5-K7 against their plain versions: the output within one
+# bf16 rounding of its scale (a LayerNorm value of a bf16 row one ulp apart,
+# its statistics summed in another order, moves the output by about that),
+# and written bf16 cache rows within one bf16 ulp of the plain version's
+BF16_ROUND = 2.0 ** -8
+
+
+def bf16_ulp(torch, t):
+    """One bf16 ulp of each value of ``t`` (2**-7 of its binade)."""
+    a = t.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def hold_block(torch, name, out, plain, news, refs, olds, written, compared=None):
+    """A block kernel's step against its plain version: cache or pool rows
+    outside ``written`` bitwise unchanged in both; the output and the
+    ``compared`` rows (default: the written ones) within 1e-4 x max(1,
+    |plain|) for f32 caches (f32 sums in another order). For bf16 caches
+    the output within BF16_ROUND x max(1, |plain|), and each compared row,
+    the f32 value of the kernel or the plain version rounded once to bf16,
+    within that f32 rule plus one bf16 ulp of the plain row (two values
+    that close round to neighbouring bf16 values at most). Returns (max
+    abs error, output tolerance)."""
+    compared = written if compared is None else compared
+    bf16 = news[0].dtype == torch.bfloat16
+    for new, ref, old in zip(news, refs, olds):
+        check(torch.equal(new[~written], old[~written])
+              and torch.equal(ref[~written], old[~written]),
+              f"{name} touched cache rows other than the new rows")
+    f32_tol = 1e-4 * max(1.0, plain.abs().max().item())
+    tol = BF16_ROUND * max(1.0, plain.abs().max().item()) if bf16 else f32_tol
+    out_err = (out - plain).abs().max().item()
+    check(out_err <= tol, f"{name}: output max abs err {out_err} > {tol}")
+    row_err = 0.0
+    for new, ref in zip(news, refs):
+        d = (new[compared].float() - ref[compared].float()).abs()
+        row_err = max(row_err, d.max().item())
+        lim = f32_tol + (bf16_ulp(torch, ref[compared]) if bf16 else 0.0)
+        check(bool((d <= lim).all()),
+              f"{name}: written rows differ from the plain ones by {row_err}")
+    return max(out_err, row_err), tol
+
+
+def kernel_k5(torch, timer, gen, pack, bf16=False):
+    """K5 at B=8, D=768, H=12, L=1024 with mixed per-row positions. ``bf16``:
+    bf16 caches, timed at bf16 x (block 0 of a bf16 model) and also checked
+    at f32 x (every later block)."""
     from mxnet_tpu_torch.ops import fused_block_gemv as fb
     B, D, H, L = 8, 768, 12, 1024
     hd = D // H
+    dt = torch.bfloat16 if bf16 else torch.float32
+    name = "K5" + ("_bf16" if bf16 else "")
     pos = torch.tensor([1000, 3, 517, 64, 999, 250, 0, 777], dtype=torch.int32,
                        device="cuda")
-    x = torch.randn(B, 1, D, device="cuda", generator=gen)
-    kc = torch.randn(B, H, L, hd, device="cuda", generator=gen) * 0.1
-    vc = torch.randn(B, H, L, hd, device="cuda", generator=gen) * 0.1
-    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-    out, _, _ = fb.fused_block_decode(x, pos, k1, v1, pack)
-    plain, _, _ = fb._reference_block_decode(x, pos, k2, v2, pack)
-    torch.cuda.synchronize()
+    x = torch.randn(B, 1, D, device="cuda", generator=gen).to(dt)
+    kc = (torch.randn(B, H, L, hd, device="cuda", generator=gen) * 0.1).to(dt)
+    vc = (torch.randn(B, H, L, hd, device="cuda", generator=gen) * 0.1).to(dt)
     written = torch.zeros(B, H, L, dtype=torch.bool, device="cuda")
     written[torch.arange(B, device="cuda"), :, pos.long()] = True
-    for new, ref, old in ((k1, k2, kc), (v1, v2, vc)):
-        check(torch.equal(new[~written], old[~written])
-              and torch.equal(ref[~written], old[~written]),
-              "K5 touched cache rows other than pos")
-    tol = 1e-4 * max(1.0, plain.abs().max().item())
-    err = max((out - plain).abs().max().item(),
-              (k1 - k2).abs().max().item(), (v1 - v2).abs().max().item())
-    check(err <= tol, f"K5: max abs err {err} > {tol}")
+    err, tol = 0.0, 0.0
+    for xin in ((x, x.float()) if bf16 else (x,)):
+        k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        out, _, _ = fb.fused_block_decode(xin, pos, k1, v1, pack)
+        plain, _, _ = fb._reference_block_decode(xin, pos, k2, v2, pack)
+        torch.cuda.synchronize()
+        e, tol = hold_block(torch, f"{name} (x {xin.dtype})", out, plain, (k1, v1), (k2, v2),
+                            (kc, vc), written)
+        err = max(err, e)
     attended = int((pos.long() + 1).sum().item()) * H
+    isz = 2 if bf16 else 4
     nbytes = (pack_bytes(pack)                             # weights, scales, biases, LN
-              + 4 * B * D * 2 + 4 * B                      # x, out, pos
-              + attended * hd * 4 * 2                      # K/V rows read
-              + B * H * hd * 4 * 2)                        # new rows written
+              + isz * B * D + 4 * B * D + 4 * B            # x, out, pos
+              + attended * hd * isz * 2                    # K/V rows read
+              + B * H * hd * isz * 2)                      # new rows written
     flops = pack_ops(pack, B) + attended * hd * 4
     b_ms, b_by = bound(nbytes, flops)
     # every row at position 64, the smoke traffic's range: the step is
@@ -305,15 +380,17 @@ def kernel_k5(torch, timer, gen, pack):
             "ms": timer(lambda: fb.fused_block_decode(x, pos, k1, v1, pack)),
             "plain_ms": timer(lambda: fb._reference_block_decode(x, pos, k2, v2, pack)),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-            "shape": {"B": B, "D": D, "H": H, "L": L, "pos": pos.tolist()}}
+            "shape": {"B": B, "D": D, "H": H, "L": L, "pos": pos.tolist(),
+                      "x": str(x.dtype), "cache": str(kc.dtype)}}
 
 
-def paged_inputs(torch, gen, D, H, B, ps, maxp, pool, pos):
+def paged_inputs(torch, gen, D, H, B, ps, maxp, pool, pos, dtype=None):
     """Seeded paged decode inputs on the card: x, positions, block tables
     over a ``pool``-page pool + sink with scattered pages (each active row
     leases the pages that cover its position; rows 0 and 1 share their
     first two pages, below both positions; the last row is inactive: table
-    all sink, position 0) and N(0, 0.1) pools."""
+    all sink, position 0) and N(0, 0.1) pools; x and the pools in
+    ``dtype`` (default f32)."""
     hd = D // H
     cpu = torch.Generator().manual_seed(int(gen.initial_seed()))
     perm = torch.randperm(pool, generator=cpu).tolist()
@@ -324,9 +401,10 @@ def paged_inputs(torch, gen, D, H, B, ps, maxp, pool, pos):
             table[b, i] = table[0, i] if b == 1 and i < 2 else perm.pop()
     assert pos[B - 1] == 0 and min(pos[0], pos[1]) >= 2 * ps
     dev = gen.device
-    x = torch.randn(B, 1, D, device=dev, generator=gen)
-    kp = torch.randn(pool + 1, H, ps, hd, device=dev, generator=gen) * 0.1
-    vp = torch.randn(pool + 1, H, ps, hd, device=dev, generator=gen) * 0.1
+    dt = torch.float32 if dtype is None else dtype
+    x = torch.randn(B, 1, D, device=dev, generator=gen).to(dt)
+    kp = (torch.randn(pool + 1, H, ps, hd, device=dev, generator=gen) * 0.1).to(dt)
+    vp = (torch.randn(pool + 1, H, ps, hd, device=dev, generator=gen) * 0.1).to(dt)
     posv = torch.tensor(pos, dtype=torch.int32, device=dev)
     return x, posv, table.to(dev), kp, vp
 
@@ -346,9 +424,10 @@ def paged_written(torch, posv, table, pool, ps):
 def check_paged(torch, fb, name, inputs, pack, streamed, pool, ps):
     """Run K6 or K7 and its plain version on copies of ``inputs``: every
     pool entry outside the written rows and the sink page bitwise
-    unchanged in both, written rows and the output within 1e-4 x max(1,
-    |plain|). K7 also counts its copies into device counters, which must
-    equal each other and the ``record_dma`` ledger. Returns the row."""
+    unchanged in both, written rows and the output by ``hold_block``'s rule
+    for the pools' dtype. K7 also counts its copies into device counters,
+    which must equal each other and the ``record_dma`` ledger. Returns the
+    row."""
     from mxnet_tpu_torch.ops.int8_gemv import dma_ledger, launches, reset_launches
     x, posv, table, kp, vp = inputs
     k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
@@ -363,16 +442,10 @@ def check_paged(torch, fb, name, inputs, pack, streamed, pool, ps):
     want = ("fused_block_paged_dma" if streamed else "fused_block_paged") + fb._kind_suffix(pack)
     check(kind == {want: 1}, f"{name}: routed to {kind}, expected {want}")
     written = paged_written(torch, posv, table, pool, ps)[:, None, :].expand(-1, kp.shape[1], -1)
-    for new, ref, old in ((k1, k2, kp), (v1, v2, vp)):
-        check(torch.equal(new[~written], old[~written])
-              and torch.equal(ref[~written], old[~written]),
-              f"{name} touched pool rows other than the new rows")
     nonsink = written.clone()
     nonsink[pool] = False
-    tol = 1e-4 * max(1.0, plain.abs().max().item())
-    err = max((out - plain).abs().max().item(), (k1 - k2)[nonsink].abs().max().item(),
-              (v1 - v2)[nonsink].abs().max().item())
-    check(err <= tol, f"{name}: max abs err {err} > {tol}")
+    err, tol = hold_block(torch, name, out, plain, (k1, v1), (k2, v2), (kp, vp), written,
+                          nonsink)
     row = {"max_abs_err": err, "tol": tol}
     H, hd = kp.shape[1], kp.shape[3]
     L = table.shape[1] * ps
@@ -381,7 +454,7 @@ def check_paged(torch, fb, name, inputs, pack, streamed, pool, ps):
         # the plain version on the CPU counts no copies of its own
         got = counters.tolist() if x.is_cuda else [ledger["copies"]] * 2
         check(got[0] == got[1] == ledger["copies"] == ledger["waits"] == 2 * H * pages
-              and ledger["bytes"] == ledger["copies"] * ps * hd * 4,
+              and ledger["bytes"] == ledger["copies"] * ps * hd * kp.element_size(),
               f"{name}: copies started/waited {got}, ledger {ledger}, "
               f"expected {2 * H * pages}")
         row["copies_started_waited"] = got
@@ -399,16 +472,18 @@ def paged_bound(x, posv, table, kp, ps, pack):
     B, _, D = x.shape
     H, hd = kp.shape[1], kp.shape[3]
     L = table.shape[1] * ps
+    isz = kp.element_size()
     attended = sum(min(p, L - 1) + 1 for p in posv.tolist()) * H
-    nbytes = (pack_bytes(pack) + 4 * B * D * 2 + 4 * B
-              + 4 * table.numel() + attended * hd * 4 * 2 + B * H * hd * 4 * 2)
+    nbytes = (pack_bytes(pack) + x.element_size() * B * D + 4 * B * D + 4 * B
+              + 4 * table.numel() + attended * hd * isz * 2 + B * H * hd * isz * 2)
     return bound(nbytes, pack_ops(pack, B) + attended * hd * 4)
 
 
-def kernel_k6_k7(torch, timer, gen, pack, pool=600, ps=16):
+def kernel_k6_k7(torch, timer, gen, pack, pool=600, ps=16, dtype=None):
     """K6 at B 16, L 256 and K7 at B 8, L 1024, each against its plain
     version; K7 at L 256 against K6 (and K6 against K5 on the gathered
-    contiguous view): same bits."""
+    contiguous view): same bits. ``dtype`` bf16: x and pools bf16 (block 0
+    of a bf16 model), also checked at f32 x (its later blocks)."""
     from mxnet_tpu_torch.ops import fused_block_gemv as fb
     D, H = pack["ln1"][0].shape[0], pack["heads"]
     rng = __import__("numpy").random.RandomState(int(gen.initial_seed()) + 6)
@@ -417,8 +492,12 @@ def kernel_k6_k7(torch, timer, gen, pack, pool=600, ps=16):
     out = {}
     for name, B, maxp, pos, streamed in (("K6", 16, 16, pos6, False),
                                          ("K7", 8, 64, pos7, True)):
-        inputs = paged_inputs(torch, gen, D, H, B, ps, maxp, pool, pos)
+        inputs = paged_inputs(torch, gen, D, H, B, ps, maxp, pool, pos, dtype)
         row = check_paged(torch, fb, name, inputs, pack, streamed, pool, ps)
+        if dtype is not None and dtype != torch.float32:
+            wide = (inputs[0].float(),) + inputs[1:]
+            e = check_paged(torch, fb, name + " (x f32)", wide, pack, streamed, pool, ps)
+            row["max_abs_err"] = max(row["max_abs_err"], e["max_abs_err"])
         x, posv, table, kp, vp = inputs
         row["bound_ms"], row["bound_by"] = paged_bound(x, posv, table, kp, ps, pack)
         row["ms"] = timer(lambda: fb.fused_block_decode_paged(x, posv, table, kp, vp, pack))
@@ -429,15 +508,18 @@ def kernel_k6_k7(torch, timer, gen, pack, pool=600, ps=16):
         row["shape"] = {"B": B, "D": D, "H": H, "ps": ps, "L": maxp * ps,
                         "pool_pages": pool, "pos": pos}
         out[name] = row
-    out["K7_vs_K6_L256"] = same_bits_k5_k6_k7(torch, fb, gen, pack, pool, ps, pos6)
+    out["K7_vs_K6_L256"] = same_bits_k5_k6_k7(torch, fb, gen, pack, pool, ps, pos6,
+                                              dtype=dtype)
     return out
 
 
-def same_bits_k5_k6_k7(torch, fb, gen, pack, pool, ps, pos, maxp=16):
+def same_bits_k5_k6_k7(torch, fb, gen, pack, pool, ps, pos, maxp=16, dtype=None):
     """K6 and K7 on one input at L 256 give the same output and pools bit
-    for bit, and K5 on the gathered contiguous view gives K6's output."""
+    for bit, and K5 on the gathered contiguous view gives K6's output (x
+    and pools in ``dtype``, default f32)."""
     D, H = pack["ln1"][0].shape[0], pack["heads"]
-    x, posv, table, kp, vp = paged_inputs(torch, gen, D, H, len(pos), ps, maxp, pool, pos)
+    x, posv, table, kp, vp = paged_inputs(torch, gen, D, H, len(pos), ps, maxp, pool, pos,
+                                          dtype)
     B = len(pos)
     view = [p[table.long()].transpose(1, 2).reshape(B, H, maxp * ps, -1).contiguous()
             for p in (kp, vp)]
@@ -550,13 +632,25 @@ def first_divergence(a, b):
 
 
 def top2_gap(torch, net, tokens):
-    """Top-1 minus top-2 logit of ``net`` after ``tokens`` (plain path)."""
+    """(top-1 minus top-2 logit, top-1 logit) of ``net`` after ``tokens``
+    (plain path)."""
     ids = torch.tensor([tokens], dtype=torch.int32, device=net.device)
     caches = net.new_caches(1, len(tokens))
     with torch.no_grad():
         logits = net.forward_cached(ids, 0, *caches)[0][0, -1]
-    top = torch.topk(logits, 2).values
-    return (top[0] - top[1]).item()
+    top = torch.topk(logits.float(), 2).values
+    return (top[0] - top[1]).item(), top[0].item()
+
+
+def gap_limit(torch, net, top):
+    """The top-2 gap below which the card and the CPU may pick different
+    greedy tokens: 1e-3 for f32 models; for bf16 ones also two bf16
+    roundings of the top logit (the kernels' bf16 LayerNorm of block 0
+    sums its statistics in another order than the CPU, which can move a
+    normalised value by one bf16 ulp)."""
+    if net.cfg.dtype == torch.bfloat16:
+        return max(1e-3, 2 * BF16_ROUND * abs(top))
+    return 1e-3
 
 
 def device_share(torch, eng, prompts, new):
@@ -631,17 +725,19 @@ def filtered_requests(eng, prompts, vocab, new, seed):
 
 
 def lane(torch, net):
-    """("", the int8 kinds) or ("int4_", the int4 kinds) of a quantized
-    model: the launch kinds its GEMV, block kernels and head record, and
-    the int8 kinds that an int4 model must never record."""
+    """(tag, kinds, forbidden) of a quantized model: the tag of its lines
+    ("", "int4_", "bf16_", "bf16_int4_"), the launch kinds its GEMV, block
+    kernels and head record, and the int8 kinds that an int4 model must
+    never record."""
     int4 = net.blocks[0].attn_qkv.w_q.dtype == torch.uint8
+    bf16 = "bf16_" if net.cfg.dtype == torch.bfloat16 else ""
     sfx = "_int4" if int4 else ""
     kinds = {"gemv": "gemv" + sfx, "block": "fused_block" + sfx,
              "paged": "fused_block_paged" + sfx, "dma": "fused_block_paged_dma" + sfx,
              "head": "fused_head" + sfx}
     int8_kinds = ("gemv", "fused_block", "fused_block_paged", "fused_block_paged_dma",
                   "fused_head")
-    return ("int4_" if int4 else ""), kinds, (int8_kinds if int4 else ())
+    return bf16 + ("int4_" if int4 else ""), kinds, (int8_kinds if int4 else ())
 
 
 def serve(torch, args, net, cpu_net, cpu_tokens=64):
@@ -649,17 +745,22 @@ def serve(torch, args, net, cpu_net, cpu_tokens=64):
     new tokens each) through ``InferenceEngine(max_batch_size=8, max_len=512,
     multi_token=4, paged=False)``, held against ``generate()`` on the card
     and, over the first ``cpu_tokens`` tokens of two requests, against the
-    plain path on the CPU. Returns the launch counts of the window."""
+    plain path on the CPU. A bf16 model's greedy request 7 is cut to 5
+    tokens, so that one prefill takes the warp route with bf16 rows.
+    Returns the launch counts of the window."""
     import numpy as np
 
     from mxnet_tpu_torch.models import generate
-    from mxnet_tpu_torch.ops.int8_gemv import gemv_routes, launches, reset_launches
+    from mxnet_tpu_torch.ops.int8_gemv import (dtype_lanes, gemv_routes, launches,
+                                               reset_launches)
     from mxnet_tpu_torch.serve import InferenceEngine
     tag, kinds, forbidden = lane(torch, net)
     rng = np.random.RandomState(args.seed)
     vocab = net.cfg.vocab_size
     prompts = [rng.randint(0, vocab, int(n)).tolist()
                for n in rng.randint(8, 49, 12)]
+    if net.cfg.dtype == torch.bfloat16:
+        prompts[7] = prompts[7][:5]
     temps = [0.0] * 8 + [0.8] * 4
     new = 64
     eng = InferenceEngine(net, max_batch_size=8, max_len=512, multi_token=4,
@@ -676,7 +777,9 @@ def serve(torch, args, net, cpu_net, cpu_tokens=64):
         wall = time.perf_counter() - t0
         counts = launches()
         counts["routes"] = gemv_routes()
+        counts["lanes"] = dtype_lanes()
         after = eng.stats()
+        counts["kv_bytes"] = after["kv_bytes"]
         again = [eng.submit(prompts[i], new, temperature=0.8, seed=1000 + i)
                  for i in range(8, 12)]
         again = [h.result(timeout=600) for h in again]
@@ -722,8 +825,9 @@ def serve(torch, args, net, cpu_net, cpu_tokens=64):
         d = first_divergence(ref, got)
         row = {"request": i, "equal": d is None, "first_divergence": d}
         if d is not None:
-            row["top2_gap"] = top2_gap(torch, cpu_net, prompts[i] + ref[:d])
-            check(row["top2_gap"] < 1e-3,
+            row["top2_gap"], top = top2_gap(torch, cpu_net, prompts[i] + ref[:d])
+            row["gap_limit"] = gap_limit(torch, cpu_net, top)
+            check(row["top2_gap"] < row["gap_limit"],
                   f"request {i}: card and CPU diverge at {d} with top-2 gap "
                   f"{row['top2_gap']}")
         cpu_rows.append(row)
@@ -742,7 +846,7 @@ def serve(torch, args, net, cpu_net, cpu_tokens=64):
                      "ms_per_decode_step": dsec / dsteps * 1e3,
                      "prefills": after["prefills"] - before["prefills"],
                      "prefill_s": after["prefill_s"] - before["prefill_s"],
-                     "launches": counts,
+                     "kv_bytes": after["kv_bytes"], "launches": counts,
                      "greedy_equal_generate_mt4_and_mt1": gen_match}})
     # the 8 greedy requests again, traced: device time against host wall
     emit({tag + "profiled_window": profiled if profiled is not None else "not measured"})
@@ -854,7 +958,8 @@ def serve_paged(torch, args, net, phase):
     Returns the launch counts of the concurrent window."""
     import numpy as np
 
-    from mxnet_tpu_torch.ops.int8_gemv import dma_ledger, gemv_routes, launches, reset_launches
+    from mxnet_tpu_torch.ops.int8_gemv import (dma_ledger, dtype_lanes, gemv_routes, launches,
+                                               reset_launches)
     from mxnet_tpu_torch.serve import InferenceEngine
     from mxnet_tpu_torch.serve.paging import pages_for
     tag, kinds, forbidden = lane(torch, net)
@@ -892,7 +997,9 @@ def serve_paged(torch, args, net, phase):
         wall = time.perf_counter() - t0
         counts, ledger = launches(), dma_ledger()
         counts["routes"] = gemv_routes()
+        counts["lanes"] = dtype_lanes()
         after = eng.stats()
+        counts["kv_bytes"] = after["kv_bytes"]
         sampled = [i for i, t in enumerate(temps) if t > 0]
         again = [eng.submit(prompts[i], new, temperature=0.8, seed=2000 + i) for i in sampled]
         again = [h.result(timeout=600) for h in again]
@@ -1003,6 +1110,121 @@ def int4_stage(torch, args, timer, gen, int8_bytes):
         counts[phase] = serve_paged(torch, args, net, phase)
         mem[phase] = torch.cuda.max_memory_allocated() / 1e9
     emit({"int4_peak_mem_gb": mem})
+    return counts, rows
+
+
+def gpt2_bf16(torch, args, device, bits):
+    """bf16 GPT-2 small from ``--seed`` (dropout 0), quantized as
+    ``bench.py``'s decode headlines quantize it: int8 with
+    ``calib_mode='naive'`` on CALIB_BATCHES seeded batches of CALIB_SHAPE
+    tokens, or (``bits`` 4) int4 with dynamic scales; fused decode."""
+    import dataclasses
+
+    import numpy as np
+
+    from mxnet_tpu_torch.contrib.quantization import quantize_net
+    from mxnet_tpu_torch.models import GPT2_SMALL, GPTModel
+    cfg = dataclasses.replace(GPT2_SMALL, dtype=torch.bfloat16, dropout=0.0)
+    with torch.no_grad():
+        net = GPTModel(cfg, device=device).init_weights(args.seed)
+    if bits == 4:
+        return quantize_net(net, bits=4, fused_decode=True)
+    rng = np.random.RandomState(args.seed + 11)
+    calib = [rng.randint(0, cfg.vocab_size, CALIB_SHAPE).astype(np.int32)
+             for _ in range(CALIB_BATCHES)]
+    return quantize_net(net, calib_mode="naive", calib_data=calib, fused_decode=True)
+
+
+def generate_headline(torch, args, net):
+    """``bench.py``'s decode headline on the card: greedy ``generate()`` of
+    8 prompts of 32 tokens, 128 new tokens, ``multi_token=8`` (the 256-row
+    prefill takes the activation-quantized product at the calibrated
+    scales for int8, the dequantized table for int4; every decode substep
+    12 block launches and one fused head). Tokens in the vocab, the same
+    on a second call, the launch counts of the path. Returns the counts."""
+    import numpy as np
+
+    from mxnet_tpu_torch.models import generate
+    from mxnet_tpu_torch.ops.int8_gemv import dtype_lanes, launches, reset_launches
+    tag, kinds, forbidden = lane(torch, net)
+    B, P, new, K = 8, 32, 128, 8
+    ids = torch.from_numpy(np.random.RandomState(args.seed + 12)
+                           .randint(0, net.cfg.vocab_size, (B, P)).astype(np.int32))
+    generate(net, ids[:, :8], 9, multi_token=K)               # warm-up
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(net, ids, new, multi_token=K)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    counts["lanes"] = dtype_lanes()
+    again = generate(net, ids, new, multi_token=K)
+    substeps = -(-(new - 1) // K) * K
+    check(tuple(out.shape) == (B, P + new), f"{tag}generate: shape {tuple(out.shape)}")
+    check(bool(((out >= 0) & (out < net.cfg.vocab_size)).all()),
+          f"{tag}generate: token outside the vocab")
+    check(torch.equal(out, again), f"{tag}generate: a second call gave other tokens")
+    check(counts.get(kinds["block"], 0) == LAYERS * substeps,
+          f"{tag}generate: {counts.get(kinds['block'])} block launches != 12 x {substeps}")
+    check(counts.get(kinds["head"], 0) == substeps + 1,
+          f"{tag}generate: {counts.get(kinds['head'])} head launches != {substeps} + token 0")
+    check(not any(counts.get(k) for k in forbidden), f"an int8 kind launched: {counts}")
+    L = P + 1 + substeps
+    kv = 2 * LAYERS * B * L * net.cfg.hidden_size * torch.finfo(net.cfg.dtype).bits // 8
+    emit({tag + "generate": {"B": B, "prompt": P, "new_tokens": new, "multi_token": K,
+                             "wall_s": wall, "tokens_per_s": B * new / wall,
+                             "ms_per_substep": wall / (substeps + 1) * 1e3,
+                             "kv_bytes": kv, "launches": counts}})
+    return counts
+
+
+def bf16_stage(torch, args, timer, gen):
+    """The bf16 serving path of ``bench.py``'s decode headlines: bf16 GPT-2
+    small from the same ``--seed``, int8 with naive calibration, then int4.
+    The bf16 lanes of K3, K5, K6 and K7 (and of K4 and the int4 K5, K6, K7)
+    against their plain versions (K3/K4's bf16 lane the f32 lane on
+    x.float() bit for bit, K5 = K6 = K7 bitwise in bf16); then, int8: the
+    ``generate()`` headline, the contiguous phase, paged A (K6) and paged B
+    (K7 at L 1024 with preemption); int4: the ``generate()`` headline and
+    the contiguous phase. Returns ({phase: launch counts}, {kernel: row})."""
+    from mxnet_tpu_torch.ops.fused_block_gemv import pack_gpt_block
+    bf16 = torch.bfloat16
+    counts, rows = {}, {}
+    net = gpt2_bf16(torch, args, "cuda", 8)
+    eps = net.cfg.layer_norm_eps
+    check(all(blk._fused_pack is not None for blk in net.blocks),
+          "bf16 int8 GPT-2 small: a block is not packed")
+    pack = pack_gpt_block(net.blocks[0], eps=eps)
+    with torch.no_grad():
+        rows["K3"] = kernel_gemv(torch, timer, gen, 8, bf16=True)
+        rows["K5"] = kernel_k5(torch, timer, gen, pack, bf16=True)
+        k67 = kernel_k6_k7(torch, timer, gen, pack, dtype=bf16)
+    rows["K6"], rows["K7"] = k67["K6"], k67["K7"]
+    emit({"bf16_kernels": {"k5": rows["K5"], "k6_k7": k67}})
+    cpu_net = gpt2_bf16(torch, args, "cpu", 8)
+    counts["generate"] = generate_headline(torch, args, net)
+    counts["contiguous"] = serve(torch, args, net, cpu_net, cpu_tokens=BF16_CPU_TOKENS)
+    del cpu_net
+    for phase in "AB":
+        counts[phase] = serve_paged(torch, args, net, phase)
+    del net
+    torch.cuda.empty_cache()
+    net = gpt2_bf16(torch, args, "cuda", 4)
+    pack = pack_gpt_block(net.blocks[0], eps=eps)
+    check(pack is not None and pack["blocks"] == (128,) * 4,
+          "bf16 int4 GPT-2 small: block 0 is not packed int4")
+    with torch.no_grad():
+        rows["K4"] = kernel_gemv(torch, timer, gen, 4, bf16=True)
+        rows["K5_int4"] = kernel_k5(torch, timer, gen, pack, bf16=True)
+        k67 = kernel_k6_k7(torch, timer, gen, pack, dtype=bf16)
+    emit({"bf16_int4_kernels": {"k5": rows["K5_int4"], "k6_k7": k67}})
+    cpu_net = gpt2_bf16(torch, args, "cpu", 4)
+    counts["int4_generate"] = generate_headline(torch, args, net)
+    counts["int4_contiguous"] = serve(torch, args, net, cpu_net,
+                                      cpu_tokens=BF16_INT4_CPU_TOKENS)
+    del cpu_net, net
+    torch.cuda.empty_cache()
     return counts, rows
 
 
@@ -1457,6 +1679,11 @@ def main(argv=None):
 
     int4_counts, r4k = int4_stage(torch, args, timer, gen, int8_bytes)
     torch.cuda.empty_cache()
+    b16_counts, r16k = bf16_stage(torch, args, timer, gen)
+    emit({"kv_bytes_f32_bf16": {
+        "contiguous": [serve_counts["kv_bytes"], b16_counts["contiguous"]["kv_bytes"]],
+        "paged_A": [paged_counts["A"]["kv_bytes"], b16_counts["A"]["kv_bytes"]],
+        "paged_B": [paged_counts["B"]["kv_bytes"], b16_counts["B"]["kv_bytes"]]}})
 
     k1, k2 = kernel_flash(torch, timer, gen)
     torch.cuda.empty_cache()
@@ -1470,6 +1697,20 @@ def main(argv=None):
     r8 = routes(serve_counts, paged_counts["A"], paged_counts["B"])
     r4 = routes(int4_counts["contiguous"], int4_counts["A"], int4_counts["C"])
     emit({"gemv_routes": {"int8": r8, "int4": r4}})
+
+    def lanes(keys, *phases):
+        """Launches of the given dtype lanes over the given phases."""
+        return sum(c["lanes"].get(k, 0) for c in phases for k in keys)
+
+    b8 = [b16_counts[p] for p in ("generate", "contiguous", "A", "B")]
+    b4 = [b16_counts[p] for p in ("int4_generate", "int4_contiguous")]
+    emit({"bf16_lanes": {p: c["lanes"] for p, c in b16_counts.items()}})
+    # block 0 takes bf16 x, blocks 1-11 f32 x; both lanes must run
+    for key, phases in (("fused_block:x_bf16:kv_bf16", b8), ("fused_block:x_f32:kv_bf16", b8),
+                        ("fused_block_int4:x_bf16:kv_bf16", b4),
+                        ("fused_block_int4:x_f32:kv_bf16", b4)):
+        check(lanes([key], *phases) > 0, f"the {key} lane never launched")
+    kv16 = ("x_bf16:kv_bf16", "x_f32:kv_bf16")
     gemv8, gemv4 = "mxnet_tpu_torch/csrc/int8_gemv.cu", "mxnet_tpu_torch/csrc/int4_gemv.cu"
     rows = []
     for name, src, replaces, launched, r in (
@@ -1502,6 +1743,27 @@ def main(argv=None):
             ("lm_head_sample_int4", "mxnet_tpu_torch/csrc/lm_head_sample.cu",
              "mxnet_tpu/ops/fused_block_gemv.py:1218",
              int4_counts["contiguous"].get("fused_head_int4", 0), r4k["K8"]),
+            ("int8_gemv_bf16", gemv8, "mxnet_tpu/ops/int8_gemv.py:113",
+             lanes(["gemv:warp:bf16"], *b8), r16k["K3"]["warp"]),
+            ("int8_gemv_mma_bf16", gemv8, "mxnet_tpu/ops/int8_gemv.py:113",
+             lanes(["gemv:mma:bf16"], *b8), r16k["K3"]["mma"]),
+            ("fused_block_decode_bf16", "mxnet_tpu_torch/csrc/fused_block_decode.cu",
+             "mxnet_tpu/ops/fused_block_gemv.py:424",
+             lanes(["fused_block:" + k for k in kv16], *b8), r16k["K5"]),
+            ("fused_block_decode_paged_bf16", "mxnet_tpu_torch/csrc/fused_block_decode_paged.cu",
+             "mxnet_tpu/ops/fused_block_gemv.py:601",
+             lanes(["fused_block_paged:" + k for k in kv16], b16_counts["A"]), r16k["K6"]),
+            ("fused_block_decode_paged_dma_bf16",
+             "mxnet_tpu_torch/csrc/fused_block_decode_paged_dma.cu",
+             "mxnet_tpu/ops/fused_block_gemv.py:810",
+             lanes(["fused_block_paged_dma:" + k for k in kv16], b16_counts["B"]), r16k["K7"]),
+            ("int4_gemv_bf16", gemv4, "mxnet_tpu/ops/int8_gemv.py:186",
+             lanes(["gemv_int4:warp:bf16"], *b4), r16k["K4"]["warp"]),
+            ("int4_gemv_mma_bf16", gemv4, "mxnet_tpu/ops/int8_gemv.py:186",
+             lanes(["gemv_int4:mma:bf16"], *b4), r16k["K4"]["mma"]),
+            ("fused_block_decode_int4_bf16", "mxnet_tpu_torch/csrc/fused_block_decode.cu",
+             "mxnet_tpu/ops/fused_block_gemv.py:424",
+             lanes(["fused_block_int4:" + k for k in kv16], *b4), r16k["K5_int4"]),
             ("flash_attention_fwd", "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
              "mxnet_tpu/ops/attention.py:286", train_counts.get("flash_fwd", 0), k1),
             ("flash_attention_bwd", "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",

@@ -102,31 +102,31 @@ def build_all() -> Dict[str, float]:
 def _declare(name: str, lib: ctypes.CDLL):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "int8_gemv":
-        lib.mx_int8_gemv.argtypes = [p, p, p, p, i, i, i, p]
+        lib.mx_int8_gemv.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.mx_int8_gemv.restype = i
-        lib.mx_int8_gemv_mma.argtypes = [p, p, p, p, i, i, i, p]
+        lib.mx_int8_gemv_mma.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.mx_int8_gemv_mma.restype = i
     elif name == "int4_gemv":
-        lib.mx_int4_gemv.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.mx_int4_gemv.argtypes = [p, p, p, p, i, i, i, i, i, p]
         lib.mx_int4_gemv.restype = i
-        lib.mx_int4_gemv_mma.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.mx_int4_gemv_mma.argtypes = [p, p, p, p, i, i, i, i, i, p]
         lib.mx_int4_gemv_mma.restype = i
     elif name == "fused_block_decode":
-        lib.mx_fused_block_decode.argtypes = [p] * 22 + [i] * 6 + [f, p]
+        lib.mx_fused_block_decode.argtypes = [p] * 22 + [i] * 8 + [f, p]
         lib.mx_fused_block_decode.restype = i
         lib.mx_fused_block_smem.argtypes = [i, i, i]
         lib.mx_fused_block_smem.restype = ctypes.c_longlong
     elif name == "fused_block_decode_paged":
-        lib.mx_fused_block_decode_paged.argtypes = [p] * 23 + [i] * 8 + [f, p]
+        lib.mx_fused_block_decode_paged.argtypes = [p] * 23 + [i] * 10 + [f, p]
         lib.mx_fused_block_decode_paged.restype = i
-        lib.mx_paged_smem.argtypes = [i] * 4
+        lib.mx_paged_smem.argtypes = [i] * 5
         lib.mx_paged_smem.restype = ctypes.c_longlong
     elif name == "fused_block_decode_paged_dma":
-        lib.mx_fused_block_decode_paged_dma.argtypes = [p] * 24 + [i] * 9 + [f, p]
+        lib.mx_fused_block_decode_paged_dma.argtypes = [p] * 24 + [i] * 11 + [f, p]
         lib.mx_fused_block_decode_paged_dma.restype = i
-        lib.mx_paged_dma_smem.argtypes = [i] * 5
+        lib.mx_paged_dma_smem.argtypes = [i] * 6
         lib.mx_paged_dma_smem.restype = ctypes.c_longlong
-        lib.mx_paged_dma_tile_pages.argtypes = [i] * 5
+        lib.mx_paged_dma_tile_pages.argtypes = [i] * 6
         lib.mx_paged_dma_tile_pages.restype = i
     elif name == "lm_head_sample":
         lib.mx_lm_head_sample.argtypes = [p] * 8 + [i] * 5 + [p]

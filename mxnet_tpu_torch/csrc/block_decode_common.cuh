@@ -20,6 +20,19 @@
 // The attention helpers (cta_max, cta_sum and the order of every sum) are
 // shared too, so the three kernels give a row the same bits for the same
 // logical cache.
+//
+// Element types. x, the block's input row, is f32 or bf16 (X: block 0 of a
+// bf16 model gets the bf16 embedding sum; every later block the f32
+// residual stream), and the K/V caches or pools are f32 or bf16 (C: the
+// model's dtype). Each kernel is instantiated for every (lane, X, C) and
+// picks one at launch. On bf16 x the LayerNorm rounds as the plain version
+// (npx.layer_norm) does: f32 statistics, the normalised row rounded to
+// bf16, times bf16(gamma) rounded to bf16, plus bf16(beta) rounded to bf16
+// (the TPU kernel kept this LayerNorm in f32; the port follows the plain
+// version, so that tokens on the card match the JAX package's CPU path).
+// The residual and everything after it are f32. A new K/V row is rounded
+// once to C (round to nearest even) and written in place, and every read of
+// a cache row widens it to f32, the current position's row included.
 #pragma once
 
 #include <cmath>
@@ -37,7 +50,7 @@ static_assert(kWarps == kRowTile, "LayerNorm staging gives one warp per row");
 // uint8 nibble pairs, s_* [N, K / block] f32 block scales, with `block` the
 // codes per scale of the three K = D matrices and `block4` of proj (K = 4D).
 struct BlockArgs {
-  const float* x;  // [B, D]
+  const void* x;   // [B, D], f32 or bf16 (the kernel's X)
   const void* w_qkv;
   const float* s_qkv;
   const float* b_qkv;  // [3D, D]
@@ -73,7 +86,7 @@ inline void set_block_args(BlockArgs& a, const void* x, const void* w_qkv, const
                            const void* b_proj, const void* g1, const void* be1, const void* g2,
                            const void* be2, void* scratch, void* out, int B, int D, int H,
                            int block, int block4, float eps) {
-  a.x = static_cast<const float*>(x);
+  a.x = x;
   a.w_qkv = w_qkv;
   a.s_qkv = static_cast<const float*>(s_qkv);
   a.b_qkv = static_cast<const float*>(b_qkv);
@@ -159,18 +172,36 @@ __device__ __forceinline__ float cta_max(float v, float* red) {
   return r;
 }
 
-// LayerNorm of rows [r0, r0 + nr) of src[., D] into xs[nr][D] (swizzle4
-// layout); warp w normalises row r0 + w (mean, E[x^2] - mean^2 clamped
-// at 0, rsqrt).
-__device__ __forceinline__ void stage_ln(float* xs, const float* src, int r0, int nr, int D,
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The LayerNorm of one value after the row's statistics: in f32 for an f32
+// row; for a bf16 row the plain version's roundings, each product and sum
+// rounded to f32 on its own (no fused multiply-add) and then to bf16.
+__device__ __forceinline__ float ln_value(float v, float mean, float inv, float g, float be,
+                                          const float*) {
+  return (v - mean) * inv * g + be;
+}
+__device__ __forceinline__ float ln_value(float v, float mean, float inv, float g, float be,
+                                          const bf16*) {
+  const float n = round_bf16(__fmul_rn(__fsub_rn(v, mean), inv));
+  return round_bf16(__fadd_rn(round_bf16(__fmul_rn(n, round_bf16(g))), round_bf16(be)));
+}
+
+// LayerNorm of rows [r0, r0 + nr) of src[., D] (f32 or bf16) into
+// xs[nr][D] (f32, swizzle4 layout); warp w normalises row r0 + w (f32
+// statistics: mean, E[x^2] - mean^2 clamped at 0, rsqrt).
+template <class X>
+__device__ __forceinline__ void stage_ln(float* xs, const X* src, int r0, int nr, int D,
                                          const float* g, const float* be, float eps) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   if (warp < nr) {
-    const float* row = src + static_cast<size_t>(r0 + warp) * D;
+    const X* row = src + static_cast<size_t>(r0 + warp) * D;
     float s = 0.f, ss = 0.f;
     for (int d = lane; d < D; d += 32) {
-      const float v = row[d];
+      const float v = to_f32(row[d]);
       s += v;
       ss = fmaf(v, v, ss);
     }
@@ -180,7 +211,8 @@ __device__ __forceinline__ void stage_ln(float* xs, const float* src, int r0, in
     const float var = fmaxf(ss / D - mean * mean, 0.f);
     const float inv = rsqrtf(var + eps);
     for (int d = lane; d < D; d += 32) {
-      xs[warp * D + 4 * swizzle4(d >> 2, D) + (d & 3)] = (row[d] - mean) * inv * g[d] + be[d];
+      xs[warp * D + 4 * swizzle4(d >> 2, D) + (d & 3)] =
+          ln_value(to_f32(row[d]), mean, inv, g[d], be[d], row);
     }
   }
 }
@@ -200,13 +232,14 @@ struct StoreEpi {
   }
 };
 
+template <class T>
 struct ResidualEpi {
-  const float* resid;
+  const T* resid;  // f32, or the bf16 block input (widened: x + y in f32)
   float* dst;
   int N;
   __device__ void operator()(int r, int n, float y) const {
     const size_t o = static_cast<size_t>(r) * N + n;
-    dst[o] = resid[o] + y;
+    dst[o] = to_f32(resid[o]) + y;
   }
 };
 
@@ -240,11 +273,11 @@ __device__ void gemv_rows(const float* xs, int r0, int nr, const void* w, const 
 }
 
 // Phase 1: LN1 -> qkv GEMV; epi receives every qkv channel.
-template <class W, class Epi>
+template <class W, class X, class Epi>
 __device__ void block_phase_qkv(const BlockArgs& a, float* smem, const Epi& epi) {
   for (int r0 = 0; r0 < a.B; r0 += kRowTile) {
     const int nr = min(kRowTile, a.B - r0);
-    stage_ln(smem, a.x, r0, nr, a.D, a.g1, a.be1, a.eps);
+    stage_ln(smem, static_cast<const X*>(a.x), r0, nr, a.D, a.g1, a.be1, a.eps);
     __syncthreads();
     gemv_rows<W>(smem, r0, nr, a.w_qkv, a.s_qkv, a.block, a.b_qkv, 3 * a.D, a.D, epi);
     __syncthreads();
@@ -252,7 +285,7 @@ __device__ void block_phase_qkv(const BlockArgs& a, float* smem, const Epi& epi)
 }
 
 // Phases 3 to 5, after the attention phase and its grid barrier.
-template <class W>
+template <class W, class X>
 __device__ void block_phases_out_mlp(const BlockArgs& a, float* smem,
                                      cooperative_groups::grid_group& grid) {
   const int D = a.D;
@@ -262,7 +295,7 @@ __device__ void block_phases_out_mlp(const BlockArgs& a, float* smem,
     stage_rows(smem, a.ctx, r0, nr, D);
     __syncthreads();
     gemv_rows<W>(smem, r0, nr, a.w_out, a.s_out, a.block, a.b_out, D, D,
-                 ResidualEpi{a.x, a.res, D});
+                 ResidualEpi<X>{static_cast<const X*>(a.x), a.res, D});
     __syncthreads();
   }
   grid.sync();
@@ -282,7 +315,7 @@ __device__ void block_phases_out_mlp(const BlockArgs& a, float* smem,
     stage_rows(smem, a.fc, r0, nr, 4 * D);
     __syncthreads();
     gemv_rows<W>(smem, r0, nr, a.w_proj, a.s_proj, a.block4, a.b_proj, D, 4 * D,
-                 ResidualEpi{a.res, a.out, D});
+                 ResidualEpi<float>{a.res, a.out, D});
     __syncthreads();
   }
 }
@@ -321,10 +354,37 @@ __device__ __forceinline__ void store_head_context(float4 part, float* red, int 
   __syncthreads();
 }
 
-__device__ __forceinline__ float dot_row(const float4* q4, const float4* k4, int hd4) {
+// Cache elements (C): a row of hd values is hd / 4 words, a float4 of f32
+// or a uint2 of four bf16; load4 returns word w of a row widened to f32.
+__device__ __forceinline__ float4 load4(const float* row, int w) {
+  return reinterpret_cast<const float4*>(row)[w];
+}
+__device__ __forceinline__ float4 load4(const bf16* row, int w) {
+  return widen4(reinterpret_cast<const uint2*>(row)[w]);
+}
+__device__ __forceinline__ void store_elem(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_elem(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+template <class C>
+struct CacheWord;
+template <>
+struct CacheWord<float> {
+  typedef float4 type;
+};
+template <>
+struct CacheWord<bf16> {
+  typedef uint2 type;
+};
+
+__device__ __forceinline__ float4 widen_word(const float4 v) { return v; }
+__device__ __forceinline__ float4 widen_word(const uint2 v) { return widen4(v); }
+
+// q . k over one head row of the cache, in ascending order.
+template <class C>
+__device__ __forceinline__ float dot_row(const float4* q4, const C* k, int hd4) {
   float s = 0.f;
   for (int e = 0; e < hd4; ++e) {
-    const float4 kv = k4[e];
+    const float4 kv = load4(k, e);
     const float4 qv = q4[e];
     s = fmaf(qv.x, kv.x, s);
     s = fmaf(qv.y, kv.y, s);
@@ -350,18 +410,19 @@ __device__ __forceinline__ void fma4(float4& acc, float w, const float4 v) {
 // pools, so rows sharing pages see one pool state. Inactive rows (table
 // all sink, pos 0) write the sink page concurrently: harmless, nothing
 // reads it unmasked.
+template <class C>
 struct PagedQkvEpi {
   float* qkv;
   const int* pos;
   const int* bt;  // [B, maxp]
-  float* kp;      // [NP + 1, H, ps, hd]
-  float* vp;
+  C* kp;          // [NP + 1, H, ps, hd]
+  C* vp;
   int D, H, ps, maxp, sink;
   __device__ void operator()(int r, int n, float y) const {
     qkv[static_cast<size_t>(r) * 3 * D + n] = y;
     if (n < D) return;
     int c = n - D;
-    float* pool = kp;
+    C* pool = kp;
     if (c >= D) {
       c -= D;
       pool = vp;
@@ -370,20 +431,34 @@ struct PagedQkvEpi {
     const int h = c / hd;
     const int p = max(pos[r], 0);
     const int page = p < maxp * ps ? bt[static_cast<size_t>(r) * maxp + p / ps] : sink;
-    pool[((static_cast<size_t>(page) * H + h) * ps + p % ps) * hd + (c - h * hd)] = y;
+    store_elem(pool + ((static_cast<size_t>(page) * H + h) * ps + p % ps) * hd + (c - h * hd), y);
   }
 };
 
-// Cooperative launch of one of a block kernel's two lane instantiations
-// (kernel8 for the int8 lane, kernel4 for the int4 lane, chosen by
-// a.blk.block) on the grid of block_grid, never more CTAs than fit at once.
+// The instantiation of a block kernel for the weight lane W, f32 or bf16 x
+// and f32 or bf16 caches. K<W, X, C>::get() returns the kernel template's
+// instantiation (a __global__ function cannot be a class member, so each
+// kernel file wraps its own).
+template <template <class, class, class> class K, class W, class Args>
+inline void (*pick_types(int x_bf16, int cache_bf16))(Args) {
+  if (x_bf16) return cache_bf16 ? K<W, bf16, bf16>::get() : K<W, bf16, float>::get();
+  return cache_bf16 ? K<W, float, bf16>::get() : K<W, float, float>::get();
+}
+
+// ... and of the int8 or int4 lane, by a.blk.block.
+template <template <class, class, class> class K, class Args>
+inline void (*pick_block_kernel(const Args& a, int x_bf16, int cache_bf16))(Args) {
+  return a.blk.block ? pick_types<K, Int4Rows, Args>(x_bf16, cache_bf16)
+                     : pick_types<K, Int8Rows, Args>(x_bf16, cache_bf16);
+}
+
+// Cooperative launch of one instantiation of a block kernel on the grid of
+// block_grid, never more CTAs than fit at once.
 template <class Args>
-inline int launch_block(void (*kernel8)(Args), void (*kernel4)(Args), Args& a, size_t smem,
-                        void* stream) {
+inline int launch_block(void (*kernel)(Args), Args& a, size_t smem, void* stream) {
   if (!lane_fits(a.blk.D, a.blk.block, a.blk.block4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  void (*kernel)(Args) = a.blk.block ? kernel4 : kernel8;
   int ctas = 0;
   cudaError_t err = resident_ctas(kernel, smem, &ctas);
   if (err != cudaSuccess) return static_cast<int>(err);

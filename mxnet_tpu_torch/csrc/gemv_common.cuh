@@ -20,6 +20,10 @@
 // same bits at any M from 9 to 64 and on every launch, and agree with the
 // warp route (and with K8) to rounding, not bit for bit.
 //
+// The activations come as f32 or bf16 rows (the model's dtype at block 0 of
+// a bf16 model). A bf16 row is widened to f32 as it is staged, which is
+// exact, so every dot above is the f32 lane's on x.float(), bit for bit.
+//
 // Two weight lanes feed that loop (Int8Rows, Int4Rows below). An int8 chunk
 // is 16 bytes and its codes are the weights; the row's f32 scale multiplies
 // the finished dot. An int4 chunk is 8 bytes of nibble pairs; each code is
@@ -28,6 +32,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace mx {
@@ -58,6 +63,18 @@ __device__ __forceinline__ void unpack16(const int4 v, float* f) {
   }
 }
 
+typedef __nv_bfloat16 bf16;
+
+// Four bf16 (8 bytes) widened to f32, exactly.
+__device__ __forceinline__ float4 widen4(const uint2 v) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
 // Copy rows [r0, r0 + nr) of the row-major f32 matrix src (row length K)
 // into shared memory dst[nr][K], each row in the swizzle4 layout. Called
 // by the whole CTA.
@@ -69,6 +86,22 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, int r0,
   for (int i = threadIdx.x; i < nr * kw; i += blockDim.x) {
     const int r = i / kw;
     d4[r * kw + swizzle4(i - r * kw, K)] = s4[i];
+  }
+}
+
+// The same from a bf16 matrix (16-byte aligned rows, K % 8 == 0): each
+// thread loads 8 bf16 (16 bytes) and stores them widened as two float4
+// words.
+__device__ __forceinline__ void stage_rows(float* dst, const bf16* src, int r0, int nr,
+                                           int K) {
+  const uint4* s8 = reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0) * K);
+  float4* d4 = reinterpret_cast<float4*>(dst);
+  const int kw = K >> 2, k8 = K >> 3;
+  for (int i = threadIdx.x; i < nr * k8; i += blockDim.x) {
+    const int r = i / k8, c = i - r * k8;
+    const uint4 v = s8[i];
+    d4[r * kw + swizzle4(2 * c, K)] = widen4(make_uint2(v.x, v.y));
+    d4[r * kw + swizzle4(2 * c + 1, K)] = widen4(make_uint2(v.z, v.w));
   }
 }
 
@@ -160,11 +193,11 @@ __device__ __forceinline__ void warp_dot_rows(const float* xs, int nr, const W& 
 }
 
 // The weight-only GEMV of K3 and K4: y[M, N] = x[M, K] @ (lane weights).T,
-// x staged kRowTile rows at a time into xs (kRowTile * K f32 of dynamic
-// shared memory), one warp per output channel, warps of all CTAs striding
-// over the channels.
-template <class W>
-__device__ __forceinline__ void gemv_tiles(float* xs, const float* __restrict__ x, const W& wt,
+// x (f32 or bf16, X) staged kRowTile rows at a time into xs (kRowTile * K
+// f32 of dynamic shared memory), one warp per output channel, warps of all
+// CTAs striding over the channels.
+template <class W, class X>
+__device__ __forceinline__ void gemv_tiles(float* xs, const X* __restrict__ x, const W& wt,
                                            float* __restrict__ y, int M, int N, int K) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -205,8 +238,8 @@ inline cudaError_t resident_ctas(Kernel kernel, size_t smem, int* ctas) {
 
 // Launch a gemv_tiles kernel (kernel(x, wt, y, M, N, K)) on as many CTAs as
 // there are 8-channel groups, at most the resident count.
-template <class W>
-inline int launch_gemv(void (*kernel)(const float*, W, float*, int, int, int), const void* x,
+template <class W, class X>
+inline int launch_gemv(void (*kernel)(const X*, W, float*, int, int, int), const void* x,
                        const W& wt, void* y, int M, int N, int K, void* stream) {
   const size_t smem = sizeof(float) * kRowTile * K;
   int ctas = 0;
@@ -214,7 +247,7 @@ inline int launch_gemv(void (*kernel)(const float*, W, float*, int, int, int), c
   if (err != cudaSuccess) return static_cast<int>(err);
   const int want = (N + kWarps - 1) / kWarps;
   kernel<<<want < ctas ? want : ctas, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), wt, static_cast<float*>(y), M, N, K);
+      static_cast<const X*>(x), wt, static_cast<float*>(y), M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,6 +23,13 @@
 //   bits out, and a head GEMV on this route is held to greedy parity with
 //   K8 (the warp route), where logits closer than the error could swap an
 //   argmax. The third plane costs MMAs, which are not the bound.
+// - bf16 x (block 0 of a bf16 model). A bf16 value is its own hi plane and
+//   its mid and lo planes are zero, so the bf16 lane stages x as bf16 (half
+//   the bytes), uses the staged tile as the one plane and runs a third of
+//   the MMAs. Its sums equal the f32 lane's on x.float() bit for bit: the
+//   f32 lane's mid and lo MMAs add products that are all zero to the
+//   accumulators, which leaves every accumulator as it was (zero products
+//   added to a +0 accumulator give +0, the accumulator's own start).
 // - Scales. An int4 block scale multiplies the partial sum of that block's
 //   codes (within one CTA's k-slice), which is added to the f32
 //   accumulator. An int8 row is one block of scale 1, and its row scale
@@ -83,7 +90,6 @@ constexpr int kSub = 2;              // k-tiles per ring stage (64 codes)
 constexpr int kStages = 3;           // depth of the cp.async ring
 constexpr int kMinCtas = 2;          // resident CTAs per SM the registers must allow
 constexpr int kMaxRows = 64;         // gemv_max_m(): four 16-row tiles
-constexpr int kPlanes = 3;           // bf16 planes of x
 constexpr int kMaxSlices = 16;       // k-slices per channel tile: the largest cluster
 constexpr int kFillCtas = 192;       // CTAs the split stays within
 constexpr int kRedLd = kBN + 8;      // f32 row stride of the partial tile
@@ -96,6 +102,21 @@ constexpr int kPLd = kSub * kBK + 32;
 typedef __nv_bfloat16 bf16;
 
 inline int n_tiles(int N) { return (N + kBN - 1) / kBN; }
+
+// How a ring stage holds x: f32 rows of kXLd floats split into three bf16
+// planes per stage, or bf16 rows of kPLd that are the one plane themselves.
+template <class X>
+struct XStage;
+template <>
+struct XStage<float> {
+  static constexpr int kPlanes = 3;
+  static constexpr int kLd = kXLd;
+};
+template <>
+struct XStage<bf16> {
+  static constexpr int kPlanes = 1;
+  static constexpr int kLd = kPLd;
+};
 
 // K-slices of a launch: as many as keep the grid within kFillCtas CTAs, at
 // most kMaxSlices and at most one per k-tile. A function of N and K only.
@@ -187,36 +208,41 @@ __host__ __device__ constexpr int w_ld() {
   return (kSub + 1) * L::kRowBytes;
 }
 
-// Bytes of one ring stage: the f32 x tile [MP][kXLd] and the weight tile
-// [kBN][w_ld].
-template <class L>
+// Bytes of one ring stage: the x tile [MP][XStage<X>::kLd] and the weight
+// tile [kBN][w_ld].
+template <class L, class X>
 __host__ __device__ inline size_t stage_bytes(int MP) {
-  return static_cast<size_t>(MP) * kXLd * sizeof(float) + kBN * w_ld<L>();
+  return static_cast<size_t>(MP) * XStage<X>::kLd * sizeof(X) + kBN * w_ld<L>();
 }
 
 // Dynamic shared memory of a launch with MP (a multiple of 16) padded rows:
-// the ring, then the planes [kPlanes][MP][kPLd] bf16 of one stage; the
+// the ring, then (f32 x) the planes [3][MP][kPLd] bf16 of one stage; the
 // partial tile [MP][kRedLd] f32 reuses them after the k loop.
-template <class L>
+template <class L, class X>
 inline size_t smem_bytes(int MP) {
-  const size_t all = kStages * stage_bytes<L>(MP) +
-                     static_cast<size_t>(kPlanes) * MP * kPLd * sizeof(bf16);
+  const size_t planes =
+      XStage<X>::kPlanes > 1 ? static_cast<size_t>(XStage<X>::kPlanes) * MP * kPLd * sizeof(bf16)
+                             : 0;
+  const size_t all = kStages * stage_bytes<L, X>(MP) + planes;
   const size_t red = static_cast<size_t>(MP) * kRedLd * sizeof(float);
   return all > red ? all : red;
 }
 
 // Start the copies of nt k-tiles from code k0 on (x rows [0, MP), channels
 // [n0, n0 + kBN)) into one ring slot. Called by the whole CTA.
-template <class L>
-__device__ __forceinline__ void issue_stage(char* slot, const float* __restrict__ x, const L& wt,
+template <class L, class X>
+__device__ __forceinline__ void issue_stage(char* slot, const X* __restrict__ x, const L& wt,
                                             int M, int MP, int N, int K, int n0, int k0, int nt) {
-  float* xs = reinterpret_cast<float*>(slot);
-  unsigned char* ws = reinterpret_cast<unsigned char*>(slot) + MP * kXLd * sizeof(float);
-  const int xch = nt * (kBK / 4);               // 16-byte chunks of an x row's stage
+  constexpr int kLd = XStage<X>::kLd;
+  constexpr int kPer = 16 / sizeof(X);          // x values per 16-byte copy
+  X* xs = reinterpret_cast<X*>(slot);
+  unsigned char* ws = reinterpret_cast<unsigned char*>(slot) + MP * kLd * sizeof(X);
+  const int xch = nt * (kBK / kPer);            // 16-byte chunks of an x row's stage
   for (int i = threadIdx.x; i < MP * xch; i += kThreads) {
     const int r = i / xch, c = i - r * xch;
     const bool ok = r < M;
-    cp_async16(xs + r * kXLd + 4 * c, x + static_cast<size_t>(ok ? r : 0) * K + k0 + 4 * c, ok);
+    cp_async16(xs + r * kLd + kPer * c,
+               x + static_cast<size_t>(ok ? r : 0) * K + k0 + kPer * c, ok);
   }
   const int wch = nt * (L::kRowBytes / 16);     // 16-byte chunks of a weight row's stage
   const size_t wk0 = static_cast<size_t>(k0 / kBK) * L::kRowBytes;
@@ -231,6 +257,7 @@ __device__ __forceinline__ void issue_stage(char* slot, const float* __restrict_
 // planes[p][r][k] = plane p of xs[r][k] (hi, mid, lo) for r < MP and the
 // stage's nt k-tiles: each x value is split once per CTA.
 __device__ __forceinline__ void split_planes(const float* xs, bf16* planes, int MP, int nt) {
+  constexpr int kPlanes = XStage<float>::kPlanes;
   const int qpr = nt * (kBK / 4);               // quads of a row
   for (int i = threadIdx.x; i < MP * qpr; i += kThreads) {
     const int r = i / qpr, c = i - r * qpr;
@@ -254,9 +281,11 @@ __device__ __forceinline__ void split_planes(const float* xs, bf16* planes, int 
 
 // The tile route's body: CTA (channel tile blockIdx.x, k-slice = rank in
 // its cluster of gridDim.y CTAs).
-template <class L>
-__device__ __forceinline__ void gemv_mma(char* smem, const float* __restrict__ x, const L& wt,
+template <class L, class X>
+__device__ __forceinline__ void gemv_mma(char* smem, const X* __restrict__ x, const L& wt,
                                          float* __restrict__ y, int M, int N, int K) {
+  constexpr int kPlanes = XStage<X>::kPlanes;
+  constexpr int kLd = XStage<X>::kLd;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int S = static_cast<int>(cluster.num_blocks());
@@ -271,8 +300,8 @@ __device__ __forceinline__ void gemv_mma(char* smem, const float* __restrict__ x
   const int kt_lo = slice * ktiles / S, kt_hi = (slice + 1) * ktiles / S;
   const int T = kt_hi - kt_lo;
   const int stages = (T + kSub - 1) / kSub;
-  const size_t stage = stage_bytes<L>(MP);
-  bf16* planes = reinterpret_cast<bf16*>(smem + kStages * stage);
+  const size_t stage = stage_bytes<L, X>(MP);
+  bf16* split = reinterpret_cast<bf16*>(smem + kStages * stage);   // f32 x only
 
   // acc: the slice's sum; part[s]: the current block's partial sums of
   // k16 step s of each k-tile (two sets, so that consecutive MMAs of a warp
@@ -302,11 +331,17 @@ __device__ __forceinline__ void gemv_mma(char* smem, const float* __restrict__ x
                   min(kSub, T - v * kSub));
     }
     cp_async_commit();
-    const float* xs = reinterpret_cast<const float*>(smem + (u % kStages) * stage);
-    const unsigned char* ws = reinterpret_cast<const unsigned char*>(xs + MP * kXLd);
+    const X* xs = reinterpret_cast<const X*>(smem + (u % kStages) * stage);
+    const unsigned char* ws = reinterpret_cast<const unsigned char*>(xs + MP * kLd);
     const int nt = min(kSub, T - u * kSub);
-    split_planes(xs, planes, MP, nt);
-    __syncthreads();
+    const bf16* planes;
+    if constexpr (kPlanes > 1) {
+      split_planes(xs, split, MP, nt);
+      __syncthreads();
+      planes = split;
+    } else {
+      planes = xs;   // bf16 x: the staged tile is the hi plane, row stride kPLd
+    }
     for (int q = 0; q < nt; ++q) {
       // B fragments of the warp's two 8-channel tiles for both k16 steps
       uint32_t bfr[2][4];
@@ -390,34 +425,38 @@ __device__ __forceinline__ void gemv_mma(char* smem, const float* __restrict__ x
   cluster.sync();   // no CTA leaves while another reads its shared memory
 }
 
-namespace {
-bool smem_limit_set[64];
-}  // namespace
+// Per device: the shared-memory limit of the kernel of lane L and x type X
+// is set (one flag set per instantiation and kernel library).
+template <class L, class X>
+inline bool* smem_limit_set() {
+  static bool set[64];
+  return set;
+}
 
 // Launch a gemv_mma kernel (kernel(x, wt, y, M, N, K)): grid (channel
 // tiles, slices), one cluster of `slices` CTAs per channel tile.
-template <class L>
-inline int launch_gemv_mma(void (*kernel)(const float*, L, float*, int, int, int), const void* x,
+template <class L, class X>
+inline int launch_gemv_mma(void (*kernel)(const X*, L, float*, int, int, int), const void* x,
                            const L& wt, void* y, int M, int N, int K, void* stream) {
   if (M < 1 || M > kMaxRows || N < 1 || K < kBK || K % kBK) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int MP = (M + 15) / 16 * 16;
-  const size_t smem = smem_bytes<L>(MP);
+  const size_t smem = smem_bytes<L, X>(MP);
   // the shared-memory limit of the largest launch, set once per device
-  // (the flags have internal linkage: one set per kernel library)
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= 64 || !smem_limit_set[dev]) {
+  bool* limit_set = smem_limit_set<L, X>();
+  if (dev >= 64 || !limit_set[dev]) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem_bytes<L>(kMaxRows)));
+                               static_cast<int>(smem_bytes<L, X>(kMaxRows)));
     if (err != cudaSuccess) return static_cast<int>(err);
     if (kMaxSlices > 8) {   // clusters past the portable size of 8
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
-    if (dev < 64) smem_limit_set[dev] = true;
+    if (dev < 64) limit_set[dev] = true;
   }
   const int S = slices(N, K);
   cudaLaunchConfig_t cfg = {};
@@ -432,7 +471,7 @@ inline int launch_gemv_mma(void (*kernel)(const float*, L, float*, int, int, int
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(x), wt, static_cast<float*>(y),
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const X*>(x), wt, static_cast<float*>(y),
                            M, N, K);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

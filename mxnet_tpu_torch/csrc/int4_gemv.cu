@@ -19,6 +19,8 @@
 // the one K8's int4 lane takes, so the int4 head GEMV + argmax and K8's
 // greedy rows select the same token bit for bit.
 //
+// x is f32, or bf16 (x_bf16), widened exactly as in K3 (int8_gemv.cu).
+//
 // Tile route (mx_int4_gemv_mma; prefill, 9 <= M <= 64). Bound: the larger
 // of the bytes and 2 M N K operations at the 989 TFLOP/s bf16 tensor rate;
 // bytes bound it (one GPT-2 layer's four GEMVs at 64 rows: 6.9 MB, 2.1
@@ -31,15 +33,17 @@
 
 namespace {
 
+template <class X>
 __global__ void __launch_bounds__(mx::kThreads)
-    int4_gemv_kernel(const float* __restrict__ x, mx::Int4Rows w, float* __restrict__ y, int M,
+    int4_gemv_kernel(const X* __restrict__ x, mx::Int4Rows w, float* __restrict__ y, int M,
                      int N, int K) {
   extern __shared__ __align__(16) float xs[];
   mx::gemv_tiles(xs, x, w, y, M, N, K);
 }
 
+template <class X>
 __global__ void __launch_bounds__(mx::tile::kThreads, mx::tile::kMinCtas)
-    int4_gemv_mma_kernel(const float* __restrict__ x, mx::tile::Int4Tile w,
+    int4_gemv_mma_kernel(const X* __restrict__ x, mx::tile::Int4Tile w,
                          float* __restrict__ y, int M, int N, int K) {
   extern __shared__ __align__(128) char smem[];
   mx::tile::gemv_mma(smem, x, w, y, M, N, K);
@@ -48,25 +52,28 @@ __global__ void __launch_bounds__(mx::tile::kThreads, mx::tile::kMinCtas)
 }  // namespace
 
 // w: [N, K / 2] uint8 nibble pairs; s: [N, K / block] f32; K % 16 == 0,
-// block % 16 == 0 (ops/int8_gemv.int4_chunks_fit).
+// block % 16 == 0 (ops/int8_gemv.int4_chunks_fit); x [M, K] f32, or bf16
+// where x_bf16.
 extern "C" int mx_int4_gemv(const void* x, const void* w, const void* s, void* y, int M,
-                            int N, int K, int block, void* stream) {
+                            int N, int K, int block, int x_bf16, void* stream) {
   if (K % 16 || block < 16 || block % 16 || K % block) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return mx::launch_gemv(int4_gemv_kernel, x,
-                         mx::Int4Rows(w, static_cast<const float*>(s), K, block), y, M, N, K,
-                         stream);
+  const mx::Int4Rows wt(w, static_cast<const float*>(s), K, block);
+  return x_bf16 ? mx::launch_gemv(int4_gemv_kernel<mx::bf16>, x, wt, y, M, N, K, stream)
+                : mx::launch_gemv(int4_gemv_kernel<float>, x, wt, y, M, N, K, stream);
 }
 
-// w, s as mx_int4_gemv; 1 <= M <= 64, K % 32 == 0, block % 32 == 0 (a
+// w, s, x as mx_int4_gemv; 1 <= M <= 64, K % 32 == 0, block % 32 == 0 (a
 // k-tile of 32 codes lies in one block; ops/int8_gemv.py checks first).
 extern "C" int mx_int4_gemv_mma(const void* x, const void* w, const void* s, void* y, int M,
-                                int N, int K, int block, void* stream) {
+                                int N, int K, int block, int x_bf16, void* stream) {
   if (block < mx::tile::kBK || block % mx::tile::kBK || K % block) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return mx::tile::launch_gemv_mma(int4_gemv_mma_kernel, x,
-                                   mx::tile::Int4Tile(w, static_cast<const float*>(s), K, block),
-                                   y, M, N, K, stream);
+  const mx::tile::Int4Tile wt(w, static_cast<const float*>(s), K, block);
+  return x_bf16 ? mx::tile::launch_gemv_mma(int4_gemv_mma_kernel<mx::bf16>, x, wt, y, M, N, K,
+                                            stream)
+                : mx::tile::launch_gemv_mma(int4_gemv_mma_kernel<float>, x, wt, y, M, N, K,
+                                            stream);
 }

@@ -19,6 +19,11 @@
 // and K8 pick the same greedy token. CTAs are sized to the card's resident
 // count and stride over the output channels.
 //
+// x is f32, or bf16 (block 0 of a bf16 model; x_bf16): both routes widen
+// bf16 to f32 exactly (the warp route as it stages x, the tile route by
+// taking x as its own hi plane, gemv_mma.cuh), so a bf16 call gives the
+// f32 call on x.float() bit for bit.
+//
 // Tile route (mx_int8_gemv_mma; prefill, 9 <= M <= 64). Bound: the larger
 // of the bytes and 2 M N K operations at the 989 TFLOP/s bf16 tensor rate;
 // bytes bound it (one GPT-2 layer's four GEMVs at 64 rows: 10.25 MB, 3.1
@@ -32,15 +37,17 @@
 
 namespace {
 
+template <class X>
 __global__ void __launch_bounds__(mx::kThreads)
-    int8_gemv_kernel(const float* __restrict__ x, mx::Int8Rows w, float* __restrict__ y, int M,
+    int8_gemv_kernel(const X* __restrict__ x, mx::Int8Rows w, float* __restrict__ y, int M,
                      int N, int K) {
   extern __shared__ __align__(16) float xs[];
   mx::gemv_tiles(xs, x, w, y, M, N, K);
 }
 
+template <class X>
 __global__ void __launch_bounds__(mx::tile::kThreads, mx::tile::kMinCtas)
-    int8_gemv_mma_kernel(const float* __restrict__ x, mx::tile::Int8Tile w,
+    int8_gemv_mma_kernel(const X* __restrict__ x, mx::tile::Int8Tile w,
                          float* __restrict__ y, int M, int N, int K) {
   extern __shared__ __align__(128) char smem[];
   mx::tile::gemv_mma(smem, x, w, y, M, N, K);
@@ -48,16 +55,20 @@ __global__ void __launch_bounds__(mx::tile::kThreads, mx::tile::kMinCtas)
 
 }  // namespace
 
+// x: [M, K] f32, or bf16 where x_bf16 (16-byte aligned rows).
 extern "C" int mx_int8_gemv(const void* x, const void* w, const void* s, void* y, int M,
-                            int N, int K, void* stream) {
-  return mx::launch_gemv(int8_gemv_kernel, x, mx::Int8Rows(w, static_cast<const float*>(s), K, 0),
-                         y, M, N, K, stream);
+                            int N, int K, int x_bf16, void* stream) {
+  const mx::Int8Rows wt(w, static_cast<const float*>(s), K, 0);
+  return x_bf16 ? mx::launch_gemv(int8_gemv_kernel<mx::bf16>, x, wt, y, M, N, K, stream)
+                : mx::launch_gemv(int8_gemv_kernel<float>, x, wt, y, M, N, K, stream);
 }
 
 // 1 <= M <= 64, K % 32 == 0 (ops/int8_gemv.py checks both first).
 extern "C" int mx_int8_gemv_mma(const void* x, const void* w, const void* s, void* y, int M,
-                                int N, int K, void* stream) {
-  return mx::tile::launch_gemv_mma(int8_gemv_mma_kernel, x,
-                                   mx::tile::Int8Tile(w, static_cast<const float*>(s), K, 0), y,
-                                   M, N, K, stream);
+                                int N, int K, int x_bf16, void* stream) {
+  const mx::tile::Int8Tile wt(w, static_cast<const float*>(s), K, 0);
+  return x_bf16 ? mx::tile::launch_gemv_mma(int8_gemv_mma_kernel<mx::bf16>, x, wt, y, M, N, K,
+                                            stream)
+                : mx::tile::launch_gemv_mma(int8_gemv_mma_kernel<float>, x, wt, y, M, N, K,
+                                            stream);
 }

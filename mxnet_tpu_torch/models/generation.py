@@ -210,7 +210,8 @@ def decode_multi_tokens(model, tokens, pos, caches, num_tokens, temps,
             hidden, caches = decode_step_hidden(model, tok[:, None], posj,
                                                 caches, block_table)
             nxt = fused_lm_head_sample(hidden[:, -1], w_q, scale, vocab,
-                                       keys[j], temps_t, topks, topps)
+                                       keys[j], temps_t, topks, topps,
+                                       out_dtype=hidden.dtype)
         if fill_eos:
             nxt = torch.where(dn & (eos_t >= 0), eos_t, nxt)
         newly = nxt == eos_t
@@ -327,7 +328,7 @@ def _generate_multi(model, ids, max_new_tokens, eos, temperature, top_k, top_p,
         hidden, caches = decode_step_hidden(model, ids, 0, caches)
         tok0 = fused_lm_head_sample(hidden[:, -1], head[0], head[1], head[2],
                                     keys0, torch.as_tensor(temps).to(ids.device),
-                                    topks, topps)
+                                    topks, topps, out_dtype=hidden.dtype)
     buf[:, P] = tok0
     done = tok0 == eos
     tok = tok0

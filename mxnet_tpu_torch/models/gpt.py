@@ -5,7 +5,10 @@ The full-sequence :meth:`GPTModel.forward` runs each block's causal
 attention through ``ops/attention.flash_attention``: K1 forward and K2
 backward at T >= 256 (the training path), the plain path below that.
 ``GPTConfig.dtype`` is the dtype of the Dense and Embedding parameters
-(bf16 for the training headline); LayerNorm stays f32, as in JAX. The
+and of the KV caches and page pools (bf16 for the training headline and
+the quantized serving headlines); LayerNorm stays f32, as in JAX, so in a
+bf16 model block 0 takes the bf16 embedding sum and every later block,
+the final LayerNorm and the head see f32. The
 serving path is the cached one: :meth:`GPTModel.forward_cached` /
 :meth:`~GPTModel.forward_cached_hidden`, whose T=1 steps run each block as
 one K5 launch once :meth:`GPTModel.enable_fused_decode` packed it, and
@@ -83,8 +86,8 @@ class GPTBlock(nn.Module):
         from .llama import _cached_attention
         B, T, d = x.shape
         pack = self._fused_pack
-        if pack is not None and T == 1 and fusable(B, d, self.heads,
-                                                   k_cache.shape[2], pack["blocks"]):
+        if pack is not None and T == 1 and fusable(B, d, self.heads, k_cache.shape[2],
+                                                   pack["blocks"], k_cache.element_size()):
             return fused_block_decode(x, pos, k_cache, v_cache, pack)
         q, k, v = torch.split(self.attn_qkv(self.ln_1(x)), d, dim=-1)
         o, k_cache, v_cache = _cached_attention(
@@ -285,8 +288,9 @@ class GPTModel(nn.Module):
         """Tied LM head. With a quantized table and at most ``gemv_max_m()``
         rows, the table streams through K3 (int8) or K4 (packed int4,
         chosen by its uint8 dtype) and the logits are sliced back to the
-        vocab; otherwise the embedding table is used in the model's
-        dtype."""
+        vocab; otherwise the hidden state multiplies the embedding table
+        in their promoted dtype (f32 hidden states of a bf16 model, as the
+        JAX package promotes them)."""
         from ..ops.int8_gemv import gemv_max_m, weight_matmul
         q = self._q_lm_head
         lead = x.shape[:-1]
@@ -295,4 +299,6 @@ class GPTModel(nn.Module):
             w_q, scale, V = q
             y = weight_matmul(x.reshape(n, x.shape[-1]), w_q, scale)
             return y.reshape(*lead, w_q.shape[0])[..., :V].to(x.dtype)
-        return x @ self.wte.weight.T
+        w = self.wte.weight
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt) @ w.to(dt).T

@@ -31,10 +31,14 @@ def layer_norm(x, gamma=None, beta=None, axis: int = -1, eps: float = 1e-5):
 
 
 def gelu(x, approximate: bool = True):
-    """GeLU; ``approximate=True`` is the tanh form of ``jax.nn.gelu``."""
+    """GeLU; ``approximate=True`` is the tanh form of ``jax.nn.gelu``, its
+    two constants rounded to x's dtype first as JAX rounds them (a torch
+    Python scalar would stay exact in a bf16 product)."""
     if not approximate:
         return torch.nn.functional.gelu(x)
-    cdf = 0.5 * (1.0 + torch.tanh(_SQRT_2_OVER_PI * (x + 0.044715 * (x * x * x))))
+    c = torch.tensor(0.044715, dtype=x.dtype)
+    k = torch.tensor(_SQRT_2_OVER_PI, dtype=x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(k * (x + c * (x * x * x))))
     return x * cdf
 
 

@@ -30,7 +30,13 @@
   branch on every device: head GEMV logits, then
   ``generation.sample_tokens``, which matches JAX's stream.
 
-The bf16-pool lane of K6/K7 and grammar masks are later slices.
+Element types: ``x`` is f32 or bf16 (block 0 of a bf16 model gets the
+bf16 embedding sum) and the caches or pools f32 or bf16 (the model's
+dtype); the output is f32. The kernels compute what the plain versions
+compute: on bf16 x the LayerNorm rounds as ``npx.layer_norm`` does, and a
+new K/V row is rounded once to the cache's dtype and read back from it.
+f16 caches raise on the card. Grammar masks and K8's bf16 logits are later
+slices.
 """
 from __future__ import annotations
 
@@ -39,7 +45,7 @@ import torch
 
 from .. import numpy_extension as npx
 from ..base import MXNetError
-from .int8_gemv import _deq_matmul, int4_chunks_fit, record_dma, record_launch
+from .int8_gemv import _deq_matmul, int4_chunks_fit, record_dma, record_lane, record_launch
 
 __all__ = ["pack_gpt_block", "fused_block_decode", "fused_block_decode_paged",
            "fused_lm_head_sample", "fusable", "fusable_paged",
@@ -81,82 +87,91 @@ def _tiles(B: int, D: int, heads: int, blocks=()) -> bool:
     return hd % 8 == 0 and hd <= _THREADS
 
 
-def fusable(B: int, D: int, heads: int, L: int, blocks=()) -> bool:
-    """Shape gate of the Hopper block kernel: :func:`_tiles`, and the
+def fusable(B: int, D: int, heads: int, L: int, blocks=(),
+            cache_itemsize: int = 4) -> bool:
+    """Shape gate of the Hopper block kernel: :func:`_tiles`, f32 or bf16
+    caches (``cache_itemsize`` 4 or 2, as the JAX gate takes it), and the
     larger of the staged activation tile (8 rows of the 4D fc activations)
     and the attention buffers (one f32 score row of L, q and the float4
-    reduction scratch) within one CTA's 227 KB of shared memory. It
+    reduction scratch) within one CTA's 227 KB of shared memory; the
+    caches stay in device memory, so their dtype does not enter it. It
     replaces the TPU kernel's VMEM budget gate, which would reject GPT-2
     small at L = 1024."""
-    if not _tiles(B, D, heads, blocks):
+    if not _tiles(B, D, heads, blocks) or cache_itemsize not in (2, 4):
         return False
     hd = D // heads
     smem = 4 * max(_ROW_TILE * 4 * D, hd + _round4(L) + 4 * _THREADS)
     return smem <= _SMEM_LIMIT
 
 
-def _paged_smem(D: int, heads: int, L: int) -> int:
+def _paged_smem(D: int, heads: int, L: int, itemsize: int = 4) -> int:
     """Dynamic shared memory of K6 (``mx_paged_smem``): the staged
-    activation tile, or the gathered [L, hd] K and V of one (row, head),
-    q, the score row and the reduction scratch, whichever is larger."""
+    activation tile, or the gathered [L, hd] K and V of one (row, head) in
+    the pools' dtype (``itemsize`` bytes a value), q, the score row and the
+    reduction scratch, whichever is larger."""
     hd = D // heads
-    return 4 * max(_ROW_TILE * 4 * D,
-                   2 * L * hd + hd + _round4(L) + 4 * _THREADS)
+    return max(4 * _ROW_TILE * 4 * D,
+               2 * L * hd * itemsize + 4 * (hd + _round4(L) + 4 * _THREADS))
 
 
-def _dma_smem(D: int, heads: int, ps: int, L: int, depth: int, tp: int) -> int:
+def _dma_smem(D: int, heads: int, ps: int, L: int, depth: int, tp: int,
+              itemsize: int = 4) -> int:
     hd = D // heads
-    attn = depth * tp * ps * hd + hd + _round4(L) + 4 * _THREADS
-    return 4 * max(_ROW_TILE * 4 * D, attn) + 8 * depth   # + one mbarrier a slot
+    attn = depth * tp * ps * hd * itemsize + 4 * (hd + _round4(L) + 4 * _THREADS)
+    return max(4 * _ROW_TILE * 4 * D, attn) + 8 * depth   # + one mbarrier a slot
 
 
-def _dma_tile_pages(D: int, heads: int, ps: int, L: int, depth: int) -> int:
+def _dma_tile_pages(D: int, heads: int, ps: int, L: int, depth: int,
+                    itemsize: int = 4) -> int:
     """Pages per ring slot of K7 (``mx_paged_dma_tile_pages``): one key row
     per thread (256 // ps pages), fewer while the ring does not fit."""
     tp = max(1, _THREADS // ps)
-    while tp > 1 and _dma_smem(D, heads, ps, L, depth, tp) > _SMEM_LIMIT:
+    while tp > 1 and _dma_smem(D, heads, ps, L, depth, tp, itemsize) > _SMEM_LIMIT:
         tp -= 1
     return tp
 
 
-def _paged_dma_smem(D: int, heads: int, ps: int, L: int, depth: int) -> int:
+def _paged_dma_smem(D: int, heads: int, ps: int, L: int, depth: int,
+                    itemsize: int = 4) -> int:
     """Dynamic shared memory of K7 (``mx_paged_dma_smem``): the staged
     activation tile, or ``depth`` ring slots of :func:`_dma_tile_pages`
-    pages, q, the score row and the reduction scratch, whichever is
-    larger; then one 8-byte mbarrier per slot."""
+    pages in the pools' dtype, q, the score row and the reduction scratch,
+    whichever is larger; then one 8-byte mbarrier per slot."""
     return _dma_smem(D, heads, ps, L, depth,
-                     _dma_tile_pages(D, heads, ps, L, depth))
+                     _dma_tile_pages(D, heads, ps, L, depth, itemsize), itemsize)
 
 
 def fusable_paged(B: int, D: int, heads: int, pool_pages: int,
                   page_size: int, max_pages: int, cache_itemsize: int = 4,
                   blocks=()):
     """Shape gate of K6, the gathered paged kernel, restated for Hopper:
-    :func:`_tiles`, f32 pools, and :func:`_paged_smem` within one CTA's 227
-    KB: ``4 * (2*L*hd + L + hd + 4*256)`` bytes at GPT-2 widths, which
-    accepts L <= 432 at hd 64 (page 16: max_len 256 or 384). It replaces
-    the TPU's VMEM test on the whole pool; ``pool_pages`` does not enter
-    it, because the pools stay in device memory."""
-    if not _tiles(B, D, heads, blocks) or cache_itemsize != 4:
+    :func:`_tiles`, f32 or bf16 pools (``cache_itemsize`` 4 or 2), and
+    :func:`_paged_smem` within one CTA's 227 KB: ``2*L*hd*itemsize + 4 *
+    (L + hd + 4*256)`` bytes at GPT-2 widths, which accepts L <= 432 at hd
+    64 with f32 pools (page 16: max_len 256 or 384) and L <= 864 with bf16
+    pools (paged A's L 256 takes K6 either way; paged B's L 1024 takes K7).
+    It replaces the TPU's VMEM test on the whole pool; ``pool_pages`` does
+    not enter it, because the pools stay in device memory."""
+    if not _tiles(B, D, heads, blocks) or cache_itemsize not in (2, 4):
         return False
-    return _paged_smem(D, heads, max_pages * page_size) <= _SMEM_LIMIT
+    return _paged_smem(D, heads, max_pages * page_size, cache_itemsize) <= _SMEM_LIMIT
 
 
 def fusable_paged_dma(B: int, D: int, heads: int, pool_pages: int,
                       page_size: int, max_pages: int,
                       cache_itemsize: int = 4, depth: int = None, blocks=()):
-    """Shape gate of K7, the streamed paged kernel: :func:`_tiles`, f32
-    pools, 16-byte page slabs for the TMA bulk copies, and
-    :func:`_paged_dma_smem` within 227 KB. Neither the pool size nor
-    ``2*L*hd`` enters it: only the score row of L grows with the context,
-    which is the cap this variant removes."""
-    if not _tiles(B, D, heads, blocks) or cache_itemsize != 4:
+    """Shape gate of K7, the streamed paged kernel: :func:`_tiles`, f32 or
+    bf16 pools, 16-byte page slabs for the TMA bulk copies (``page_size *
+    hd * itemsize % 16 == 0``), and :func:`_paged_dma_smem` within 227 KB.
+    Neither the pool size nor ``2*L*hd`` enters it: only the score row of
+    L grows with the context, which is the cap this variant removes."""
+    if not _tiles(B, D, heads, blocks) or cache_itemsize not in (2, 4):
         return False
     depth = _DMA_DEPTH if depth is None else int(depth)
-    if depth < 1 or (page_size * (D // heads) * 4) % 16:
+    if depth < 1 or (page_size * (D // heads) * cache_itemsize) % 16:
         return False
     L = max_pages * page_size
-    return _paged_dma_smem(D, heads, page_size, L, depth) <= _SMEM_LIMIT
+    return _paged_dma_smem(D, heads, page_size, L, depth, cache_itemsize) <= _SMEM_LIMIT
 
 
 # ---------------------------------------------------------------------------
@@ -265,11 +280,12 @@ def _row_positions(posv, B, device):
 
 
 def fused_block_decode(xv, posv, kc, vc, pack):
-    """One transformer block's whole T=1 decode step. ``xv`` [B, 1, D] f32,
-    ``posv`` scalar or [B] positions, ``kc``/``vc`` [B, H, L, hd] f32
-    caches, updated IN PLACE (the JAX function returns new caches; copying
-    12 layers x 2 x B x H x L x hd x 4 bytes every step is what the in-place
-    update saves). Returns ``(out [B, 1, D], kc, vc)``.
+    """One transformer block's whole T=1 decode step. ``xv`` [B, 1, D] f32
+    or bf16, ``posv`` scalar or [B] positions, ``kc``/``vc`` [B, H, L, hd]
+    f32 or bf16 caches, updated IN PLACE (the JAX function returns new
+    caches; copying 12 layers x 2 x B x H x L x hd x itemsize bytes every
+    step is what the in-place update saves). Returns ``(out [B, 1, D] f32,
+    kc, vc)``.
 
     A CUDA tensor launches K5 once; a CPU tensor runs the plain version.
     Shapes :func:`fusable` rejects raise: the model routes them to the
@@ -277,7 +293,7 @@ def fused_block_decode(xv, posv, kc, vc, pack):
     heads = pack["heads"]
     B, T, D = xv.shape
     L = kc.shape[2]
-    if T != 1 or not fusable(B, D, heads, L, pack["blocks"]):
+    if T != 1 or not fusable(B, D, heads, L, pack["blocks"], kc.element_size()):
         raise MXNetError(f"fused_block_decode: shape B={B} T={T} D={D} "
                          f"heads={heads} L={L} is not fusable")
     if kc.shape != (B, heads, L, D // heads) or vc.shape != kc.shape:
@@ -311,19 +327,46 @@ def _weight_operands(pack, what):
     return ops + [t.detach().float().contiguous() for t in (g1, b1, g2, b2)], lane_args
 
 
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _kernel_dtypes(xv, caches, what, aligned=False):
+    """The kernels' (x_bf16, cache_bf16) flags, or raise: x f32 or bf16;
+    the caches or pools of one dtype, f32 or bf16, contiguous (they are
+    written in place) and, where ``aligned``, on 16-byte boundaries."""
+    if xv.dtype not in _KERNEL_DTYPES:
+        raise MXNetError(f"{what}: the kernel takes f32 or bf16 activations "
+                         f"(got {xv.dtype})")
+    cdt = caches[0].dtype
+    for t in caches:
+        if (t.dtype != cdt or cdt not in _KERNEL_DTYPES or not t.is_contiguous()
+                or (aligned and t.data_ptr() % 16)):
+            raise MXNetError(f"{what}: caches must be contiguous f32 or bf16 of one "
+                             f"dtype{', 16-byte aligned' if aligned else ''} (they are "
+                             f"written in place; got {[c.dtype for c in caches]})")
+    return int(xv.dtype == torch.bfloat16), int(cdt == torch.bfloat16)
+
+
+def _record_dtypes(kind, flags):
+    """Record a block kernel launch under its element-type lane."""
+    x, kv = ("bf16" if f else "f32" for f in flags)
+    record_lane(f"{kind}:x_{x}:kv_{kv}")
+
+
+def _kernel_rows(xv, B, D):
+    """x as the kernels read it: [B, D] contiguous on a 16-byte boundary."""
+    x = xv.reshape(B, D).contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def _cuda_block_decode(xv, posv, kc, vc, pack):
     from .. import _build
     B, _, D = xv.shape
     heads = pack["heads"]
     L = kc.shape[2]
-    for t in (kc, vc):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise MXNetError("fused_block_decode: caches must be contiguous f32 "
-                             "(they are written in place)")
-    if xv.dtype != torch.float32:
-        raise MXNetError("fused_block_decode: the kernel takes f32 activations")
+    flags = _kernel_dtypes(xv, (kc, vc), "fused_block_decode")
     pos = _row_positions(posv, B, xv.device)
-    x = xv.reshape(B, D).contiguous()
+    x = _kernel_rows(xv, B, D)
     ops, lane = _weight_operands(pack, "fused_block_decode")
     scratch = torch.empty(9 * B * D, device=xv.device, dtype=torch.float32)
     out = torch.empty(B, D, device=xv.device, dtype=torch.float32)
@@ -332,7 +375,8 @@ def _cuda_block_decode(xv, posv, kc, vc, pack):
     _build.check(lib.mx_fused_block_decode(
         x.data_ptr(), pos.data_ptr(), *[t.data_ptr() for t in ops],
         kc.data_ptr(), vc.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        B, D, heads, L, *lane, pack["eps"], stream), "fused_block_decode")
+        B, D, heads, L, *lane, *flags, pack["eps"], stream), "fused_block_decode")
+    _record_dtypes("fused_block" + _kind_suffix(pack), flags)
     return out.reshape(B, 1, D), kc, vc
 
 
@@ -340,13 +384,14 @@ def _cuda_block_decode(xv, posv, kc, vc, pack):
 _DMA_MEMO = [None]
 
 
-def _dma_program(pos, H, hd, ps, maxp):
+def _dma_program(pos, H, hd, ps, maxp, itemsize=4):
     """(copies, bytes) K7 starts for these row positions: the K and the V
-    page of every (row, head) for logical pages 0 .. min(pos, L-1) // ps
+    page of every (row, head) for logical pages 0 .. min(pos, L-1) // ps,
+    ``ps * hd * itemsize`` bytes each
     (``csrc/fused_block_decode_paged_dma.cu``). On a CUDA tensor the values
     stay 0-dim device tensors (no host sync); the 12 blocks of one step
     share the position tensor, so the count is formed once per step."""
-    key = (pos, pos._version, H, hd, ps, maxp)
+    key = (pos, pos._version, H, hd, ps, maxp, itemsize)
     memo = _DMA_MEMO[0]
     if memo is not None and memo[0][0] is pos and memo[0][1:] == key[1:]:
         return memo[1]
@@ -356,17 +401,17 @@ def _dma_program(pos, H, hd, ps, maxp):
     if pos.device.type == "cpu":
         pages = int(pages)
     copies = 2 * H * pages
-    out = (copies, copies * (ps * hd * 4))
+    out = (copies, copies * (ps * hd * itemsize))
     _DMA_MEMO[0] = (key, out)
     return out
 
 
 def fused_block_decode_paged(xv, posv, bt, kp, vp, pack, dma_counters=None):
     """One transformer block's whole T=1 decode step over the PAGED KV
-    pools. ``xv`` [B, 1, D] f32, ``posv`` scalar or [B] positions, ``bt``
-    the [B, max_pages] int32 block table, ``kp``/``vp`` the shared [NP + 1,
-    H, ps, hd] f32 pools (last page = sink), updated IN PLACE. Returns
-    ``(out [B, 1, D], kp, vp)``.
+    pools. ``xv`` [B, 1, D] f32 or bf16, ``posv`` scalar or [B] positions,
+    ``bt`` the [B, max_pages] int32 block table, ``kp``/``vp`` the shared
+    [NP + 1, H, ps, hd] f32 or bf16 pools (last page = sink), updated IN
+    PLACE. Returns ``(out [B, 1, D] f32, kp, vp)``.
 
     Routing, as in JAX: K6 where :func:`fusable_paged` accepts the shape,
     else K7 where :func:`fusable_paged_dma` does (recording its page
@@ -404,7 +449,7 @@ def fused_block_decode_paged(xv, posv, bt, kp, vp, pack, dma_counters=None):
     elif use_k7:
         record_launch("fused_block_paged_dma" + _kind_suffix(pack))
         copies, nbytes = _dma_program(_row_positions(posv, B, xv.device),
-                                      H, hd, ps, maxp)
+                                      H, hd, ps, maxp, kp.element_size())
         record_dma(copies, nbytes)
     else:
         for _ in range(4):
@@ -418,15 +463,10 @@ def _cuda_block_decode_paged(xv, posv, bt, kp, vp, pack, streamed, counters):
     B, _, D = xv.shape
     NP1, H, ps, hd = kp.shape
     maxp = bt.shape[1]
-    for t in (kp, vp):
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.data_ptr() % 16:
-            raise MXNetError(f"{what}: pools must be contiguous, 16-byte "
-                             "aligned f32 (they are written in place)")
-    if xv.dtype != torch.float32:
-        raise MXNetError(f"{what}: the kernel takes f32 activations")
+    flags = _kernel_dtypes(xv, (kp, vp), what, aligned=True)
     pos = _row_positions(posv, B, xv.device)
     table = bt.to(torch.int32).contiguous()
-    x = xv.reshape(B, D).contiguous()
+    x = _kernel_rows(xv, B, D)
     ops, lane = _weight_operands(pack, what)
     scratch = torch.empty(9 * B * D, device=xv.device, dtype=torch.float32)
     out = torch.empty(B, D, device=xv.device, dtype=torch.float32)
@@ -437,7 +477,9 @@ def _cuda_block_decode_paged(xv, posv, bt, kp, vp, pack, streamed, counters):
     if not streamed:
         lib = _build.library("fused_block_decode_paged")
         _build.check(lib.mx_fused_block_decode_paged(
-            *head, *ptrs, B, D, H, ps, maxp, NP1 - 1, *lane, pack["eps"], stream), what)
+            *head, *ptrs, B, D, H, ps, maxp, NP1 - 1, *lane, *flags, pack["eps"], stream),
+            what)
+        _record_dtypes("fused_block_paged" + _kind_suffix(pack), flags)
     else:
         if counters is not None and (counters.dtype != torch.int32
                                      or counters.numel() != 2
@@ -447,7 +489,8 @@ def _cuda_block_decode_paged(xv, posv, bt, kp, vp, pack, streamed, counters):
         lib = _build.library("fused_block_decode_paged_dma")
         _build.check(lib.mx_fused_block_decode_paged_dma(
             *head, *ptrs, 0 if counters is None else counters.data_ptr(),
-            B, D, H, ps, maxp, NP1 - 1, _DMA_DEPTH, *lane, pack["eps"], stream), what)
+            B, D, H, ps, maxp, NP1 - 1, _DMA_DEPTH, *lane, *flags, pack["eps"], stream), what)
+        _record_dtypes("fused_block_paged_dma" + _kind_suffix(pack), flags)
     return out.reshape(B, 1, D), kp, vp
 
 
@@ -474,13 +517,18 @@ def _hash_uniform(keys, lanes):
     return ((z >> 8).float() + 0.5) * (1.0 / (1 << 24))
 
 
-def _reference_head_sample(h, w_q, w_scale, vocab, temps, keybits):
+def _reference_head_sample(h, w_q, w_scale, vocab, temps, keybits,
+                           out_dtype=None):
     """Plain version of K8: dequantized head logits (either weight lane),
-    divided by T (T > 0 rows), hash-Gumbel noise on T > 0 rows, pad lanes
-    at -inf, argmax with ties to the lowest lane."""
+    rounded through ``out_dtype`` where one other than f32 is given (the
+    unfused head casts its logits to the activation dtype), divided by T
+    (T > 0 rows), hash-Gumbel noise on T > 0 rows, pad lanes at -inf,
+    argmax with ties to the lowest lane."""
     B = h.shape[0]
     Vp = w_q.shape[0]
     acc = _deq_matmul(h, w_q, w_scale)                             # [B, Vp]
+    if out_dtype is not None and out_dtype != torch.float32:
+        acc = acc.to(out_dtype).float()
     t = temps.reshape(B, 1)
     z = acc / torch.where(t > 0, t, torch.ones_like(t))
     lanes = torch.arange(Vp, device=h.device)[None, :]
@@ -507,14 +555,20 @@ def fused_lm_head_sample(h, w_q, w_scale, vocab, keys, temps, topks=0,
     key bits (the TPU kernel's stream). A batch with any filtered row takes
     the reference's other branch (``lax.cond``, fused_block_gemv.py:
     1379-1391): logits from the head GEMV (K3, or K4) cut to ``vocab``,
-    then ``generation.sample_tokens`` with the rows' keys. Grammar masks
-    and a non-f32 ``out_dtype`` raise."""
+    then ``generation.sample_tokens`` with the rows' keys.
+
+    ``out_dtype`` is the dtype the unfused head would give the logits (the
+    caller passes its hidden state's dtype, as the JAX package does): the
+    logits are rounded through it before selection. The plain version and
+    the filtered branch honour any dtype; K8 on the card takes f32 logits
+    and raises on another ``out_dtype`` (its bf16 lane is a later slice;
+    GPT's final LayerNorm gives f32 hidden states, bf16 models included).
+    Grammar masks raise."""
     B, D = h.shape
     if mask is not None:
         raise MXNetError("fused_lm_head_sample: grammar masks are not ported "
                          "yet (a later slice ports serve/grammar.py)")
-    if out_dtype is not None and out_dtype != torch.float32:
-        raise MXNetError("fused_lm_head_sample: only f32 logits are supported")
+    rounded = out_dtype is not None and out_dtype != torch.float32
     topks = torch.as_tensor(np.asarray(topks) if not isinstance(topks, torch.Tensor)
                             else topks).reshape(-1)
     topps = torch.as_tensor(np.asarray(topps, np.float32) if not isinstance(topps, torch.Tensor)
@@ -527,6 +581,8 @@ def fused_lm_head_sample(h, w_q, w_scale, vocab, keys, temps, topks=0,
             raise MXNetError("fused_lm_head_sample: a top-k/top-p batch needs the "
                              "rows' [B, 2] keys")
         logits = weight_matmul(h, w_q, w_scale)[:, :int(vocab)]
+        if rounded:
+            logits = logits.to(out_dtype)
         return sample_tokens(logits, keys, temps, topks, topps)
     keybits = keys[:, 0] ^ keys[:, 1] if keys.dim() == 2 else keys
     Vp = w_q.shape[0]
@@ -549,7 +605,10 @@ def fused_lm_head_sample(h, w_q, w_scale, vocab, keys, temps, topks=0,
         raise MXNetError("fused_lm_head_sample: one key per row")
     if dev.type == "cpu":
         tok = _reference_head_sample(h.float(), w_q, w_scale, int(vocab),
-                                     temps, keybits)
+                                     temps, keybits, out_dtype)
+    elif rounded:
+        raise MXNetError(f"fused_lm_head_sample: the kernel takes f32 logits "
+                         f"(out_dtype {out_dtype} is a later lane)")
     else:
         tok = _cuda_head_sample(h, w_q, w_scale, int(vocab), temps, keybits, block)
     record_launch("fused_head" + ("_int4" if block else ""))

@@ -15,6 +15,12 @@ FMAs; decode rows, M <= 8, and rows past :func:`gemv_max_m`), whose dot
 order K8 shares, and the tile route (tensor cores over x written as three
 bf16 planes; prefill rows, ``GEMV_TILE_MIN_M`` <= M <= :func:`gemv_max_m`).
 :func:`gemv_routes` counts the kernel launches per route.
+
+``x`` is f32 or bf16 (block 0 of a bf16 model feeds its embedding sum);
+the output is f32 either way, as in the JAX package. The bf16 lane of both
+routes gives the f32 lane's result on ``x.float()`` bit for bit: the warp
+route widens x as it stages it, the tile route takes a bf16 x as its own
+single plane (a third of the f32 lane's tensor-core products).
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ __all__ = ["int8_weight_matmul", "int4_weight_matmul", "weight_matmul",
            "dequantize_int4_table", "count_launches",
            "record_launch", "reset_launches", "launches", "record_dma",
            "dma_ledger", "gemv_max_m", "GEMV_INT4_BLOCK", "GEMV_TILE_MIN_M",
-           "GEMV_TILE_K", "gemv_route", "gemv_routes"]
+           "GEMV_TILE_K", "gemv_route", "gemv_routes", "record_lane", "dtype_lanes"]
 
 # row threshold of the GEMV route: at most this many rows stream int8
 # weights through K3, more take the activation-quantized int8 product
@@ -76,6 +82,7 @@ GEMV_INT4_BLOCK = 128
 # ---------------------------------------------------------------------------
 _COUNTS: Dict[str, int] = {}
 _ROUTES: Dict[str, int] = {"warp": 0, "mma": 0}
+_LANES: Dict[str, int] = {}
 _COUNTS_LOCK = threading.Lock()
 _TALLY = threading.local()
 
@@ -107,9 +114,27 @@ def launches() -> Dict[str, int]:
         return dict(_COUNTS)
 
 
-def _record_gemv(kind: str, route: str):
-    """Record one K3 or K4 kernel launch under its kind and its route."""
+def record_lane(key: str):
+    """Record one kernel launch on the card under its element-type lane,
+    ``"<kind>:<route>:<x dtype>"`` for K3/K4 (e.g. ``"gemv:mma:bf16"``) and
+    ``"<kind>:x_<dtype>:kv_<dtype>"`` for the block kernels."""
+    with _COUNTS_LOCK:
+        _LANES[key] = _LANES.get(key, 0) + 1
+
+
+def dtype_lanes() -> Dict[str, int]:
+    """Process-wide kernel launches per element-type lane (see
+    :func:`record_lane`) since the last :func:`reset_launches`; only
+    launches on the card count."""
+    with _COUNTS_LOCK:
+        return dict(_LANES)
+
+
+def _record_gemv(kind: str, route: str, x_dtype: str = "f32"):
+    """Record one K3 or K4 kernel launch under its kind, its route and its
+    activation lane (``"f32"`` or ``"bf16"``)."""
     record_launch(kind)
+    record_lane(f"{kind}:{route}:{x_dtype}")
     with _COUNTS_LOCK:
         _ROUTES[route] += 1
 
@@ -123,9 +148,11 @@ def gemv_routes() -> Dict[str, int]:
 
 
 def reset_launches():
-    """Zero the launch counts, the route counts and the DMA ledger."""
+    """Zero the launch counts, the route and lane counts and the DMA
+    ledger."""
     with _COUNTS_LOCK:
         _COUNTS.clear()
+        _LANES.clear()
         for key in _ROUTES:
             _ROUTES[key] = 0
         _DMA_PENDING.clear()
@@ -178,7 +205,8 @@ def dma_ledger() -> Dict[str, int]:
 
 
 def _reference_int8_matmul(x, w_q, w_scale):
-    """Plain version of K3: ``x @ (w_q * w_scale).T`` in f32."""
+    """Plain version of K3: ``x.float() @ (w_q * w_scale).T`` in f32 (a
+    bf16 x widened first, as the JAX package's fallback does)."""
     wf = w_q.float() * w_scale[:, None]
     return x.float() @ wf.T
 
@@ -197,8 +225,8 @@ def dequantize_int4_table(w_p, w_scale):
 
 
 def _reference_int4_matmul(x, w_p, w_scale):
-    """Plain version of K4: the dequantized table, then ``x @ wf.T`` in
-    f32."""
+    """Plain version of K4: the dequantized table, then ``x.float() @
+    wf.T`` in f32."""
     return x.float() @ dequantize_int4_table(w_p, w_scale).T
 
 
@@ -226,8 +254,8 @@ def _check_gemv(x, w_q, w_scale):
 
 
 def int8_weight_matmul(x, w_q, w_scale):
-    """x: (M, K) float; w_q: (N, K) int8; w_scale: (N,) f32 per-out-channel.
-    Returns (M, N) f32 = x @ (w_q * w_scale).T."""
+    """x: (M, K) f32 or bf16; w_q: (N, K) int8; w_scale: (N,) f32
+    per-out-channel. Returns (M, N) f32 = x @ (w_q * w_scale).T."""
     M, N, K = _check_gemv(x, w_q, w_scale)
     if x.device.type == "cpu":
         record_launch("gemv")
@@ -235,14 +263,24 @@ def int8_weight_matmul(x, w_q, w_scale):
     return _cuda_int8_matmul(x, w_q, w_scale, M, N, K)
 
 
+def _kernel_x(x, what):
+    """x as the kernels take it: contiguous f32 or bf16 rows on a 16-byte
+    boundary (their loads move 16 bytes), and the kernels' x_bf16 flag."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise MXNetError(f"{what}: the kernel takes f32 or bf16 activations "
+                         f"(got {x.dtype})")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    return x, int(x.dtype == torch.bfloat16)
+
+
 def _cuda_int8_matmul(x, w_q, w_scale, M, N, K):
     from .. import _build
-    if x.dtype != torch.float32:
-        raise MXNetError("int8_weight_matmul: the kernel takes f32 activations")
     if K % 16 or M < 1:
         raise MXNetError(f"int8_weight_matmul: the kernel needs K % 16 == 0 "
                          f"and M >= 1 (got M={M}, K={K})")
-    x = x.contiguous()
+    x, xbf16 = _kernel_x(x, "int8_weight_matmul")
     w_q = w_q.contiguous()
     w_scale = w_scale.contiguous()
     y = torch.empty(M, N, device=x.device, dtype=torch.float32)
@@ -250,29 +288,30 @@ def _cuda_int8_matmul(x, w_q, w_scale, M, N, K):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     route = gemv_route(M)
     if route == "mma":
-        _check_tile(x, w_q, K, K, "int8_weight_matmul")
+        _check_tile(w_q, K, K, "int8_weight_matmul")
         rc = lib.mx_int8_gemv_mma(x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
-                                  y.data_ptr(), M, N, K, stream)
+                                  y.data_ptr(), M, N, K, xbf16, stream)
     else:
         rc = lib.mx_int8_gemv(x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
-                              y.data_ptr(), M, N, K, stream)
+                              y.data_ptr(), M, N, K, xbf16, stream)
     _build.check(rc, "int8_gemv")
-    _record_gemv("gemv", route)
+    _record_gemv("gemv", route, "bf16" if xbf16 else "f32")
     return y
 
 
-def _check_tile(x, w, K, block, what):
+def _check_tile(w, K, block, what):
     """Raise on operands the tile route cannot take: K, and an int4
-    table's block, whole k-tiles of ``GEMV_TILE_K`` codes; x and the
-    table on 16-byte boundaries (its copies move 16 bytes). No fallback
-    to the warp route or the plain version."""
+    table's block, whole k-tiles of ``GEMV_TILE_K`` codes; the table on a
+    16-byte boundary (its copies move 16 bytes; x is aligned by
+    :func:`_kernel_x`). No fallback to the warp route or the plain
+    version."""
     if K % GEMV_TILE_K or block % GEMV_TILE_K:
         raise MXNetError(f"{what}: the tile route (9-{gemv_max_m()} rows) needs K and "
                          f"the int4 block to be multiples of {GEMV_TILE_K} (got K={K}, "
                          f"block={block})")
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise MXNetError(f"{what}: the tile route needs x and the weight table on "
-                         "16-byte boundaries")
+    if w.data_ptr() % 16:
+        raise MXNetError(f"{what}: the tile route needs the weight table on a "
+                         "16-byte boundary")
 
 
 def _check_int4(x, w_p, w_scale, what):
@@ -310,7 +349,7 @@ def int4_chunks_fit(K: int, block: int) -> bool:
 
 
 def int4_weight_matmul(x, w_p, w_scale):
-    """int4 weight-only GEMV: ``x`` (M, K) float; ``w_p`` (N, K/2) uint8,
+    """int4 weight-only GEMV: ``x`` (M, K) f32 or bf16; ``w_p`` (N, K/2) uint8,
     two offset-binary nibbles per byte (the ``kvstore.quant.pack_codes``
     layout); ``w_scale`` (N, K/block) f32 block scales. Returns (M, N) f32
     = ``x @ dequant(w).T``."""
@@ -323,13 +362,11 @@ def int4_weight_matmul(x, w_p, w_scale):
 
 def _cuda_int4_matmul(x, w_p, w_scale, M, N, K, block):
     from .. import _build
-    if x.dtype != torch.float32:
-        raise MXNetError("int4_weight_matmul: the kernel takes f32 activations")
     if not int4_chunks_fit(K, block) or M < 1:
         raise MXNetError(f"int4_weight_matmul: the kernel needs K % 16 == 0, "
                          f"block % 16 == 0 and M >= 1 (got M={M}, K={K}, "
                          f"block={block})")
-    x = x.contiguous()
+    x, xbf16 = _kernel_x(x, "int4_weight_matmul")
     w_p = w_p.contiguous()
     w_scale = w_scale.contiguous()
     y = torch.empty(M, N, device=x.device, dtype=torch.float32)
@@ -337,12 +374,12 @@ def _cuda_int4_matmul(x, w_p, w_scale, M, N, K, block):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     route = gemv_route(M)
     if route == "mma":
-        _check_tile(x, w_p, K, block, "int4_weight_matmul")
+        _check_tile(w_p, K, block, "int4_weight_matmul")
         rc = lib.mx_int4_gemv_mma(x.data_ptr(), w_p.data_ptr(), w_scale.data_ptr(),
-                                  y.data_ptr(), M, N, K, block, stream)
+                                  y.data_ptr(), M, N, K, block, xbf16, stream)
     else:
         rc = lib.mx_int4_gemv(x.data_ptr(), w_p.data_ptr(), w_scale.data_ptr(),
-                              y.data_ptr(), M, N, K, block, stream)
+                              y.data_ptr(), M, N, K, block, xbf16, stream)
     _build.check(rc, "int4_gemv")
-    _record_gemv("gemv_int4", route)
+    _record_gemv("gemv_int4", route, "bf16" if xbf16 else "f32")
     return y

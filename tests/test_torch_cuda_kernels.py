@@ -1,6 +1,6 @@
-"""The port's hand-written CUDA kernels (K1, K2, K3, K4, K5, K6, K7, K8, and
-the int4 weight lanes of K5-K8) against their plain PyTorch versions on an
-NVIDIA GPU. Imports neither jax nor the JAX package, so it runs on a machine
+"""The port's hand-written CUDA kernels (K1, K2, K3, K4, K5, K6, K7, K8, the
+int4 weight lanes of K5-K8, and the bf16 activation and cache lanes of
+K3-K7) against their plain PyTorch versions on an NVIDIA GPU. Imports neither jax nor the JAX package, so it runs on a machine
 with the card:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
@@ -251,14 +251,23 @@ def test_paged_kernels_give_k5_bits(net):
 
 
 def test_paged_wrapper_raises_on_shapes_no_gate_takes(net):
-    """No fallback on the card: bf16 pools (a later lane) fail both gates,
-    so the wrapper raises instead of running the plain version."""
+    """No fallback on the card: f64 pools fail both gates, and f16 pools
+    (itemsize 2, which the gates take for bf16) reach a kernel that takes
+    f32 or bf16 only, so the wrappers raise instead of running the plain
+    version; an f16 contiguous cache raises in K5's wrapper too."""
     pack = fb.pack_gpt_block(net.blocks[0], eps=net.cfg.layer_norm_eps)
     g = torch.Generator(device="cuda").manual_seed(7)
     x, posv, table, kp, vp = chip_smoke.paged_inputs(torch, g, 256, 4, 3, 16, 8, 20,
                                                       [40, 33, 0])
     with pytest.raises(MXNetError, match="not fusable"):
-        fb.fused_block_decode_paged(x, posv, table, kp.bfloat16(), vp.bfloat16(), pack)
+        fb.fused_block_decode_paged(x, posv, table, kp.double(), vp.double(), pack)
+    with pytest.raises(MXNetError, match="f32 or bf16"):
+        fb.fused_block_decode_paged(x, posv, table, kp.half(), vp.half(), pack)
+    kc = torch.zeros(3, 4, 64, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(MXNetError, match="f32 or bf16"):
+        fb.fused_block_decode(x, posv, kc, kc.clone(), pack)
+    with pytest.raises(MXNetError, match="f32 or bf16"):
+        int8_gemv.weight_matmul(x[:, 0].half(), *pack["qkv"][:2])
 
 
 @pytest.mark.parametrize("bits", [8, 4])
@@ -326,13 +335,17 @@ def test_paged_engine_preempts_and_resumes_on_card(cuda):
                                          (256, 4, 8, 40), (1024, 8, 32, 8),
                                          (512, 4, 4, 100)])
 def test_paged_smem_matches_python_gates(cuda, D, H, ps, maxp):
-    """The kernels' own shared-memory arithmetic is the Python gates'."""
+    """The kernels' own shared-memory arithmetic is the Python gates', for
+    f32 and bf16 pools."""
     k6 = _build.library("fused_block_decode_paged")
     k7 = _build.library("fused_block_decode_paged_dma")
     L = ps * maxp
-    assert k6.mx_paged_smem(D, H, ps, maxp) == fb._paged_smem(D, H, L)
-    assert k7.mx_paged_dma_smem(D, H, ps, maxp, 2) == fb._paged_dma_smem(D, H, ps, L, 2)
-    assert k7.mx_paged_dma_tile_pages(D, H, ps, maxp, 2) == fb._dma_tile_pages(D, H, ps, L, 2)
+    for it in (4, 2):
+        assert k6.mx_paged_smem(D, H, ps, maxp, it) == fb._paged_smem(D, H, L, it)
+        assert (k7.mx_paged_dma_smem(D, H, ps, maxp, 2, it)
+                == fb._paged_dma_smem(D, H, ps, L, 2, it))
+        assert (k7.mx_paged_dma_tile_pages(D, H, ps, maxp, 2, it)
+                == fb._dma_tile_pages(D, H, ps, L, 2, it))
 
 
 # (B, H, T, S, D, causal) of chip_smoke's kernel phase, at a smaller B
@@ -481,3 +494,128 @@ def test_filtered_head_batch_on_card(net):
     logits = int8_gemv.weight_matmul(h, w_q, scale)[:, :vocab]
     want = gen.sample_tokens(logits.cpu(), keys.cpu(), temps.cpu(), [0, 20, 0, 3], 1.0)
     assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# bf16 lanes (block 0 of a bf16 model: bf16 x; every block: bf16 caches)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M", [1, 8, 9, 16, 64])
+def test_gemv_bf16_lane_is_the_f32_lane_on_widened_x(cuda, bits, M):
+    """K3/K4 on bf16 x: the f32 lane's output on x.float() bit for bit, on
+    the warp route (x widened as it is staged) and the tile route (x its
+    own single plane), and within 1e-4 of the plain version's scale."""
+    N, K = 2304, 768
+    x, w, s = (_gemv_operands if bits == 8 else _int4_operands)(M, N, K, seed=M)
+    xb = x.bfloat16()
+    fn = int8_gemv.int8_weight_matmul if bits == 8 else int8_gemv.int4_weight_matmul
+    plain = int8_gemv._reference_int8_matmul if bits == 8 else int8_gemv._reference_int4_matmul
+    int8_gemv.reset_launches()
+    got = fn(xb, w, s)
+    wide = fn(xb.float(), w, s)
+    want = plain(xb, w, s)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), wide.view(torch.int32))
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    kind = "gemv" if bits == 8 else "gemv_int4"
+    assert int8_gemv.dtype_lanes()[f"{kind}:{int8_gemv.gemv_route(M)}:bf16"] == 1
+
+
+@pytest.fixture(params=[8, 4], ids=["int8", "int4"])
+def pack(cuda, request):
+    """Block 0's pack of a small GPT on the card (hidden 256, hd 64),
+    quantized to the int8 or the int4 weight lane."""
+    cfg = GPTConfig(vocab_size=1000, hidden_size=256, num_layers=1,
+                    num_heads=4, max_position_embeddings=128, dropout=0.0)
+    model = GPTModel(cfg, device="cuda").init_weights(0, std=0.1)
+    quantize_net(model, fused_decode=True, bits=request.param)
+    return fb.pack_gpt_block(model.blocks[0], eps=cfg.layer_norm_eps)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32], ids=["x_bf16", "x_f32"])
+def test_block_decode_bf16_caches_match_plain(pack, x_dtype):
+    """K5 with bf16 caches, at bf16 x (block 0) and f32 x (later blocks),
+    against the plain version by ``chip_smoke.hold_block``'s bf16 rule:
+    untouched rows bitwise, written rows within one bf16 ulp, the output
+    within one bf16 rounding of its scale; a row alone gives its batched
+    bits."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    B, D, H, L = 5, 256, 4, 128
+    x = torch.randn(B, 1, D, device="cuda", generator=g).to(x_dtype)
+    kc = (torch.randn(B, H, L, D // H, device="cuda", generator=g) * 0.1).bfloat16()
+    vc = (torch.randn(B, H, L, D // H, device="cuda", generator=g) * 0.1).bfloat16()
+    pos = torch.tensor([0, 5, 127, 64, 33], dtype=torch.int32, device="cuda")
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    int8_gemv.reset_launches()
+    out, _, _ = fb.fused_block_decode(x, pos, k1, v1, pack)
+    want, _, _ = fb._reference_block_decode(x, pos, k2, v2, pack)
+    torch.cuda.synchronize()
+    written = torch.zeros(B, H, L, dtype=torch.bool, device="cuda")
+    written[torch.arange(B, device="cuda"), :, pos.long()] = True
+    chip_smoke.hold_block(torch, "K5 bf16", out, want, (k1, v1), (k2, v2), (kc, vc), written)
+    xl = "bf16" if x_dtype == torch.bfloat16 else "f32"
+    kind = "fused_block" + fb._kind_suffix(pack)
+    assert int8_gemv.dtype_lanes() == {f"{kind}:x_{xl}:kv_bf16": 1}
+    one, _, _ = fb.fused_block_decode(x[2:3], pos[2:3], kc[2:3].clone(), vc[2:3].clone(), pack)
+    assert torch.equal(one, out[2:3])
+
+
+@pytest.mark.parametrize("maxp,pos,streamed", [
+    (8, [100, 127, 40, 9, 0], False),      # L 128: K6
+    (64, [1023, 300, 64, 17, 0], True),    # L 1024: past K6's bf16 gate (864), K7
+])
+def test_paged_block_decode_bf16_matches_plain(pack, maxp, pos, streamed):
+    """K6 / K7 on bf16 x and bf16 pools against the plain paged step by
+    ``chip_smoke.check_paged``'s rule (bf16: written rows within one ulp,
+    the output within one bf16 rounding of its scale); K7's copies started
+    == waited == the ledger at bf16 slabs (ps * hd * 2 bytes)."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    pool = 200                                # the rows' 90 pages, scattered
+    inputs = chip_smoke.paged_inputs(torch, g, 256, 4, len(pos), 16, maxp, pool, pos,
+                                     torch.bfloat16)
+    row = chip_smoke.check_paged(torch, fb, "K7" if streamed else "K6", inputs, pack,
+                                 streamed, pool, 16)
+    if streamed:
+        assert row["dma_ledger"]["bytes"] == row["dma_ledger"]["copies"] * 16 * 64 * 2
+
+
+def test_paged_kernels_give_k5_bits_in_bf16(pack):
+    """K5, K6 and K7 on one bf16 input (bf16 x, bf16 pools and the gathered
+    bf16 caches) give the same output and pools bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    chip_smoke.same_bits_k5_k6_k7(torch, fb, g, pack, 80, 16, [100, 127, 40, 9, 0],
+                                  maxp=8, dtype=torch.bfloat16)
+
+
+def test_bf16_engine_on_card(cuda):
+    """A bf16 GPT quantized int8 with naive calibration on the card: paged
+    (bf16 pools, K6) and contiguous (bf16 caches, K5) engines give the
+    greedy tokens of ``generate()``; the KV state is bf16, two bytes a
+    value, and both x lanes of the block kernel run (block 0 bf16 x, block
+    1 f32 x)."""
+    cfg = GPTConfig(vocab_size=1000, hidden_size=256, num_layers=2, num_heads=4,
+                    max_position_embeddings=128, dropout=0.0, dtype=torch.bfloat16)
+    model = GPTModel(cfg, device="cuda").init_weights(0, std=0.1)
+    calib = [onp.random.RandomState(i).randint(0, 1000, (4, 16)) for i in range(2)]
+    quantize_net(model, calib_mode="naive", calib_data=calib, fused_decode=True)
+    assert model.blocks[0].attn_qkv._act_scale is not None
+    rng = onp.random.RandomState(14)
+    prompts = [rng.randint(0, 1000, n).tolist() for n in (5, 14, 9, 12)]
+    for paged in (True, False):
+        int8_gemv.reset_launches()
+        eng = InferenceEngine(model, max_batch_size=4, max_len=128, multi_token=4,
+                              paged=paged, page_size=16).start()
+        try:
+            res = [h.result(timeout=300) for h in [eng.submit(p, 24) for p in prompts]]
+        finally:
+            eng.shutdown(timeout=300)
+        assert all(r.ok for r in res)
+        kind = "fused_block_paged" if paged else "fused_block"
+        lanes = int8_gemv.dtype_lanes()
+        assert lanes[f"{kind}:x_bf16:kv_bf16"] > 0 and lanes[f"{kind}:x_f32:kv_bf16"] > 0
+        assert all(p.dtype == torch.bfloat16 for p in eng._pools)
+        assert eng.stats()["kv_bytes"] == sum(p.numel() * 2 for p in eng._pools)
+        for p, r in zip(prompts, res):
+            ref = gen.generate(model, torch.tensor([p]), 24, multi_token=4)[0, len(p):]
+            assert r.generated_ids == ref.tolist()

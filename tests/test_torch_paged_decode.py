@@ -235,7 +235,8 @@ def test_declined_shape_takes_plain_path_with_four_gemvs():
 def test_hopper_gates_at_gpt2_small():
     """GPT-2 small (D 768, 12 heads, page 16): L 256 (and 384, 432) takes
     K6; L 448, 512 and 1024 exceed K6's shared memory and take K7; the pool
-    size enters neither gate; bf16 pools are a later lane."""
+    size enters neither gate. bf16 pools halve the gathered K and V: K6
+    takes L up to 864 (page 16), K7 beyond; f64 pools take neither."""
     for maxp in (16, 24, 27):
         assert fb.fusable_paged(16, 768, 12, 129, 16, maxp)
     for maxp in (28, 32, 64):
@@ -245,5 +246,12 @@ def test_hopper_gates_at_gpt2_small():
     assert fb._dma_tile_pages(768, 12, 16, 1024, 2) == 16       # 256 key rows a slot
     assert fb.fusable_paged(8, 768, 12, 10 ** 6, 16, 16)
     assert fb.fusable_paged_dma(8, 768, 12, 10 ** 6, 16, 64)
-    assert not fb.fusable_paged(8, 768, 12, 161, 16, 16, cache_itemsize=2)
-    assert not fb.fusable_paged_dma(8, 768, 12, 161, 16, 64, cache_itemsize=2)
+    for maxp in (16, 54):
+        assert fb.fusable_paged(8, 768, 12, 161, 16, maxp, cache_itemsize=2)
+    for maxp in (55, 64):
+        assert not fb.fusable_paged(8, 768, 12, 161, 16, maxp, cache_itemsize=2)
+        assert fb.fusable_paged_dma(8, 768, 12, 161, 16, maxp, cache_itemsize=2)
+    assert fb._paged_smem(768, 12, 864, 2) <= fb._SMEM_LIMIT < fb._paged_smem(768, 12, 880, 2)
+    assert fb._dma_tile_pages(768, 12, 16, 1024, 2, 2) == 16
+    assert not fb.fusable_paged(8, 768, 12, 161, 16, 16, cache_itemsize=8)
+    assert not fb.fusable_paged_dma(8, 768, 12, 161, 16, 64, cache_itemsize=8)

@@ -88,7 +88,7 @@ def test_gemv_rows_use_the_weight_only_path():
 def test_unported_options_raise():
     """``bits=4`` quantizes (packed int4 tables); other widths raise, as
     the JAX package's ``test_quantize_net_rejects_unknown_bits`` asserts;
-    calibrated modes are not ported."""
+    a calibrated mode without ``calib_data`` raises with JAX's message."""
     _, tnet = _pair(256, layers=1)
     with pytest.raises(MXNetError, match="bits"):
         quantize_net(tnet, bits=3)
