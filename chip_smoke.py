@@ -11,7 +11,12 @@
    yardstick with CUDA events (L2 flushed before every timed launch). K3
    (and K4 below) run at 1, 8, 9, 16 and 64 rows: the warp route up to 8
    rows, the tensor-core tile route above, whose rows must give the same
-   bits at 9, 16 and 64 rows and on a second launch. K6
+   bits at 9, 16 and 64 rows and on a second launch; the warp route is also
+   held at every M from 1 to 8 (each row the same bits as in the 8-row call
+   and on a second launch, bf16 x the f32 lane on x.float()), and its tied
+   head (50304 x 768) at 1 and 8 rows is reported on its own. K8's
+   grammar-mask and bf16 lanes (no JAX path reaches them: driven by direct
+   calls) are held against the plain version and the head GEMV + argmax. K6
    and K7 run on scattered block tables of a 600-page pool; K7's copies
    started and waited are held against the ``record_dma`` ledger, and K5, K6
    and K7 must give one input the same bits.
@@ -27,7 +32,12 @@
    ``gemv_routes()`` over the serving phases). The 8 greedy requests are
    then served once more under ``torch.profiler`` to split the window into
    device time per kernel and idle time. Two top-k/top-p requests follow,
-   twice with the same seeds: their tokens must repeat.
+   twice with the same seeds: their tokens must repeat. The same 12
+   requests then go through a ``multi_token=1`` engine (the engine's
+   default): every substep's head and every token 0 on K3's warp route at
+   B <= 8, greedy tokens equal to the multi_token=4 engine's and
+   ``generate()``'s, sampled ones repeating per seed, and a traced window
+   beside the K=4 one.
 3b. Serves the same model from the paged KV pool
    (``InferenceEngine(paged=True)``): phase A, 16 requests sharing a
    system prompt on a 128-page pool at max_len 256, every decode substep
@@ -52,9 +62,9 @@
    f32 lane on x.float(), on both routes) and of K5, K6, K7 (bf16 x and
    bf16 caches and pools, also f32 x; K5 = K6 = K7 bitwise) against their
    plain versions; ``generate()`` at B 8, P 32, 128 new tokens,
-   ``multi_token=8``; the contiguous phase, paged A (K6) and paged B (K7,
-   preemption) over the int8 model, ``generate()`` and the contiguous
-   phase over the int4 one, with each element-type lane's launches
+   ``multi_token=8``; the contiguous phase, its multi_token=1 engine, paged
+   A (K6) and paged B (K7, preemption) over the int8 model, ``generate()``
+   and the contiguous phase over the int4 one, with each element-type lane's launches
    (``dtype_lanes()``) and the KV bytes beside the f32 phases'.
 4. Holds K1 (flash-attention forward) and K2 (its backward) against their
    plain versions, every output row to its own size, at the training
@@ -260,6 +270,7 @@ def kernel_gemv(torch, timer, gen, bits, bf16=False):
                "repeat_equal": torch.equal(again, outs[max(tile)])}
         check(row["rows_equal_across_M"] and row["repeat_equal"],
               f"{name} tile route N={N} K={K}: bits differ across M {tile} or launches: {row}")
+        row["warp_max_abs_err"] = warp_rows(torch, name, fn, plain, x64, w, s, outs[8], bf16)
         same_bits.append(row)
     emit({name.lower() + "_shapes": rows, name.lower() + "_tile_same_bits": same_bits})
 
@@ -274,12 +285,44 @@ def kernel_gemv(torch, timer, gen, bits, bf16=False):
         return out
 
     warp = layer_sums(8)
-    warp["max_abs_err"] = max(r["max_abs_err"] for r in rows if r["route"] == "warp")
+    warp["max_abs_err"] = max(max(r["max_abs_err"] for r in rows if r["route"] == "warp"),
+                              max(r["warp_max_abs_err"] for r in same_bits))
     warp["m1"] = layer_sums(1)
     mma = layer_sums(64)
     mma["max_abs_err"] = max(r["max_abs_err"] for r in rows if r["route"] == "mma")
     mma["m16"] = layer_sums(16)
-    return {"warp": warp, "mma": mma}
+    # the tied head on the warp route (token 0, and every decode substep of a
+    # multi_token=1 engine)
+    head = {f"m{M}": next(r for r in rows if r["N"] == 50304 and r["M"] == M) for M in (1, 8)}
+    head["max_abs_err"] = max(head["m1"]["max_abs_err"], head["m8"]["max_abs_err"],
+                              next(r["warp_max_abs_err"] for r in same_bits if r["N"] == 50304))
+    return {"warp": warp, "mma": mma, "head": head}
+
+
+def warp_rows(torch, name, fn, plain, x64, w, s, full, bf16):
+    """The warp route at every decode row count M = 1..8: within 1e-4 x
+    max(1, |plain|), row r the same bits as in the 8-row call ``full`` and
+    on a second launch, and (``bf16``) the f32 lane's bits on x.float().
+    Returns the largest error."""
+    N, K = w.shape[0], x64.shape[1]
+    worst = 0.0
+    for M in range(1, 9):
+        x = x64[:M].contiguous()
+        got, again, want = fn(x, w, s), fn(x, w, s), plain(x, w, s)
+        wide = fn(x.float(), w, s) if bf16 else got
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        check(err <= tol, f"{name} warp route M={M} N={N} K={K}: max abs err {err} > {tol}")
+        check(torch.equal(got.view(torch.int32), full[:M].view(torch.int32))
+              and torch.equal(got.view(torch.int32), again.view(torch.int32)),
+              f"{name} warp route N={N} K={K}: rows at M={M} differ from the 8-row call's "
+              "or from a second launch")
+        check(torch.equal(got.view(torch.int32), wide.view(torch.int32)),
+              f"{name} warp route M={M} N={N} K={K}: the bf16 lane is not the f32 lane on "
+              "x.float() bit for bit")
+        worst = max(worst, err)
+    return worst
 
 
 def pack_bytes(pack):
@@ -573,6 +616,100 @@ def kernel_k8(torch, timer, gen, head):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+# direct calls of K8's mask and bf16 lanes in their launch-counting phase
+K8_LANE_CALLS = 16
+
+
+def kernel_k8_lanes(torch, timer, gen, head):
+    """K8's grammar-mask lane (f32 h) and bf16 lane (bf16 h, logits rounded
+    through bf16) at B=8 over the padded GPT-2 table, 4 greedy and 4 T=0.8
+    rows. No path of the JAX package hands K8 a mask or bf16 h, so the lanes
+    are driven by K8_LANE_CALLS direct calls each, counted from 0 (the
+    rows' launches). Then, outside the count: tokens equal the plain
+    version's; masked tokens are allowed lanes and greedy ones the masked
+    head GEMV + argmax; bf16 h gives h.float()'s tokens and greedy rows the
+    argmax of the head GEMV's logits rounded to bf16; all bit for bit.
+    Library yardsticks: ``matmul`` + masked ``argmax``; bf16 ``matmul`` +
+    ``argmax``. Returns {"mask": row, "bf16": row}."""
+    import numpy as np
+
+    from mxnet_tpu_torch.models.generation import _key_bits
+    from mxnet_tpu_torch.ops import fused_block_gemv as fb
+    from mxnet_tpu_torch.ops import int8_gemv
+    w_q, scale, vocab = head
+    int4 = w_q.dtype == torch.uint8
+    sfx = "_int4" if int4 else ""
+    B, D = 8, w_q.shape[1] * (2 if int4 else 1)
+    Vp = w_q.shape[0]
+    bf16 = torch.bfloat16
+    h = torch.randn(B, D, device="cuda", generator=gen)
+    hb = h.to(bf16)
+    temps = torch.tensor([0.0] * 4 + [0.8] * 4, device="cuda")
+    zeros = torch.zeros(B, device="cuda")
+    kb = torch.from_numpy(_key_bits(np.arange(B) + 200, np.arange(B))).cuda()
+    masks = [torch.rand(B, vocab, device="cuda", generator=gen) < 0.3
+             for _ in range(K8_LANE_CALLS)]
+    int8_gemv.reset_launches()
+    for m in masks:
+        fb.fused_lm_head_sample(h, w_q, scale, vocab, kb, temps, mask=m)
+    for _ in range(K8_LANE_CALLS):
+        fb.fused_lm_head_sample(hb, w_q, scale, vocab, kb, temps, out_dtype=bf16)
+    torch.cuda.synchronize()
+    lanes = int8_gemv.dtype_lanes()
+    n_mask = lanes.get(f"fused_head{sfx}:h_f32:mask", 0)
+    n_bf16 = lanes.get(f"fused_head{sfx}:h_bf16:bf16_logits", 0)
+
+    mask = masks[0]
+    mask_p = torch.zeros(B, Vp, dtype=torch.bool, device="cuda")
+    mask_p[:, :vocab] = mask
+    got = fb.fused_lm_head_sample(h, w_q, scale, vocab, kb, temps, mask=mask)
+    plain = fb._reference_head_sample(h, w_q, scale, vocab, temps, kb, mask=mask_p)
+    greedy = fb.fused_lm_head_sample(h, w_q, scale, vocab, kb, zeros, mask=mask)
+    logits = int8_gemv.weight_matmul(h, w_q, scale)[:, :vocab]
+    masked_argmax = logits.masked_fill(~mask, float("-inf")).argmax(-1)
+    gb = fb.fused_lm_head_sample(hb, w_q, scale, vocab, kb, temps, out_dtype=bf16)
+    gw = fb.fused_lm_head_sample(hb.float(), w_q, scale, vocab, kb, temps, out_dtype=bf16)
+    pb = fb._reference_head_sample(hb.float(), w_q, scale, vocab, temps, kb, out_dtype=bf16)
+    greedy_b = fb.fused_lm_head_sample(hb, w_q, scale, vocab, kb, zeros, out_dtype=bf16)
+    argmax_b = int8_gemv.weight_matmul(hb, w_q, scale)[:, :vocab].to(bf16).float().argmax(-1)
+    torch.cuda.synchronize()
+    check(torch.equal(got, plain), f"K8{sfx} mask lane: tokens {got.tolist()} != plain "
+          f"{plain.tolist()}")
+    check(bool(mask.gather(1, got.long()[:, None]).all())
+          and bool(mask.gather(1, greedy.long()[:, None]).all()),
+          f"K8{sfx} mask lane: a token on a forbidden lane")
+    check(torch.equal(greedy.long(), masked_argmax),
+          f"K8{sfx} mask lane: greedy {greedy.tolist()} != masked head GEMV + argmax "
+          f"{masked_argmax.tolist()}")
+    check(torch.equal(gb, pb) and torch.equal(gb, gw),
+          f"K8{sfx} bf16 lane: tokens {gb.tolist()}, on h.float() {gw.tolist()}, plain "
+          f"{pb.tolist()}")
+    check(torch.equal(greedy_b.long(), argmax_b),
+          f"K8{sfx} bf16 lane: greedy {greedy_b.tolist()} != head GEMV + bf16 + argmax "
+          f"{argmax_b.tolist()}")
+    wdeq = dequant(torch, w_q, scale)
+    wdeq_b = wdeq.to(bf16)
+    ops = 2 * B * Vp * D + (B * scale.numel() if int4 else 0)
+    ninf = torch.tensor(float("-inf"), device="cuda")
+    rows = {}
+    for lane_name, n, xsize, extra, fn, plain_fn, lib in (
+            ("mask", n_mask, 4, B * Vp,
+             lambda: fb.fused_lm_head_sample(h, w_q, scale, vocab, kb, temps, mask=mask),
+             lambda: fb._reference_head_sample(h, w_q, scale, vocab, temps, kb, mask=mask_p),
+             lambda: torch.argmax(torch.where(mask, torch.matmul(h, wdeq.T)[:, :vocab], ninf),
+                                  -1)),
+            ("bf16", n_bf16, 2, 0,
+             lambda: fb.fused_lm_head_sample(hb, w_q, scale, vocab, kb, temps, out_dtype=bf16),
+             lambda: fb._reference_head_sample(hb.float(), w_q, scale, vocab, temps, kb,
+                                               out_dtype=bf16),
+             lambda: torch.argmax(torch.matmul(hb, wdeq_b.T), -1))):
+        b_ms, b_by = bound(table_bytes(w_q, scale) + xsize * B * D + extra + 12 * B, ops)
+        rows[lane_name] = {"launches": n, "max_abs_err": 0.0, "tokens_equal_plain": True,
+                           "ms": timer(fn), "plain_ms": timer(plain_fn),
+                           "library_ms": timer(lib), "bound_ms": b_ms, "bound_by": b_by}
+    return rows
+
+
 def nucleus_away_from_edges(np, logits, temps, topks, rows):
     """top_p per row: 1 outside ``rows``; in them halfway between two
     exclusive prefix sums (1e-4 or more apart) of the row's sorted,
@@ -747,22 +884,15 @@ def serve(torch, args, net, cpu_net, cpu_tokens=64):
     and, over the first ``cpu_tokens`` tokens of two requests, against the
     plain path on the CPU. A bf16 model's greedy request 7 is cut to 5
     tokens, so that one prefill takes the warp route with bf16 rows.
-    Returns the launch counts of the window."""
-    import numpy as np
-
+    Returns the launch counts of the window, with the requests' tokens and
+    the generate() references under "k4" (for serve_k1)."""
     from mxnet_tpu_torch.models import generate
-    from mxnet_tpu_torch.ops.int8_gemv import (dtype_lanes, gemv_routes, launches,
-                                               reset_launches)
+    from mxnet_tpu_torch.ops.int8_gemv import (dtype_lanes, gemv_routes, gemv_widths,
+                                               launches, reset_launches)
     from mxnet_tpu_torch.serve import InferenceEngine
     tag, kinds, forbidden = lane(torch, net)
-    rng = np.random.RandomState(args.seed)
     vocab = net.cfg.vocab_size
-    prompts = [rng.randint(0, vocab, int(n)).tolist()
-               for n in rng.randint(8, 49, 12)]
-    if net.cfg.dtype == torch.bfloat16:
-        prompts[7] = prompts[7][:5]
-    temps = [0.0] * 8 + [0.8] * 4
-    new = 64
+    prompts, temps, new = contiguous_requests(torch, args, net)
     eng = InferenceEngine(net, max_batch_size=8, max_len=512, multi_token=4,
                           fused=True, paged=False).start()
     try:
@@ -777,6 +907,7 @@ def serve(torch, args, net, cpu_net, cpu_tokens=64):
         wall = time.perf_counter() - t0
         counts = launches()
         counts["routes"] = gemv_routes()
+        counts["widths"] = gemv_widths()
         counts["lanes"] = dtype_lanes()
         after = eng.stats()
         counts["kv_bytes"] = after["kv_bytes"]
@@ -807,7 +938,7 @@ def serve(torch, args, net, cpu_net, cpu_tokens=64):
         check(all(0 <= t < vocab for t in toks), f"request {i}: token outside vocab")
         check(again[i - 8].generated_ids == toks,
               f"request {i}: same seed gave another sample")
-    gen_match = []
+    gen_match, gen_refs = [], {}
     for i in range(8):
         p = torch.tensor([prompts[i]], dtype=torch.int32)
         for mt in (4, 1):
@@ -815,6 +946,7 @@ def serve(torch, args, net, cpu_net, cpu_tokens=64):
             check(ref == results[i].generated_ids,
                   f"request {i}: engine tokens != generate(multi_token={mt}) on the card "
                   f"(first divergence {first_divergence(ref, results[i].generated_ids)})")
+            gen_refs[f"{i}:{mt}"] = ref
         gen_match.append(i)
     cpu_rows = []
     t_cpu = time.perf_counter()
@@ -850,6 +982,111 @@ def serve(torch, args, net, cpu_net, cpu_tokens=64):
                      "greedy_equal_generate_mt4_and_mt1": gen_match}})
     # the 8 greedy requests again, traced: device time against host wall
     emit({tag + "profiled_window": profiled if profiled is not None else "not measured"})
+    # for the multi_token=1 phase (serve_k1): this engine's tokens, the
+    # generate() references and the window's numbers
+    counts["k4"] = {"tokens": [r.generated_ids for r in results], "generate": gen_refs,
+                    "ms_per_decode_step": dsec / dsteps * 1e3, "tokens_per_s": tokens / wall,
+                    "profiled": profiled}
+    return counts
+
+
+def contiguous_requests(torch, args, net):
+    """The contiguous phases' 12 requests: (prompts of 8-48 tokens from
+    ``--seed``, temperatures: 8 greedy then 4 at T 0.8, new tokens each). A
+    bf16 model's greedy request 7 is cut to 5 tokens, so that one prefill
+    takes the warp route with bf16 rows."""
+    import numpy as np
+    rng = np.random.RandomState(args.seed)
+    vocab = net.cfg.vocab_size
+    prompts = [rng.randint(0, vocab, int(n)).tolist()
+               for n in rng.randint(8, 49, 12)]
+    if net.cfg.dtype == torch.bfloat16:
+        prompts[7] = prompts[7][:5]
+    return prompts, [0.0] * 8 + [0.8] * 4, 64
+
+
+def serve_k1(torch, args, net, k4):
+    """The contiguous phase's 12 requests through a ``multi_token=1``
+    engine (the engine's default; ``InferenceEngine(max_batch_size=8,
+    max_len=512, multi_token=1, paged=False)``): every decode substep
+    computes the tied head's logits at B <= 8 rows on the warp route of K3
+    (or K4) and selects with ``sample_tokens``, as JAX's K=1 step does, and
+    so does every request's token 0. Greedy tokens must equal the
+    multi_token=4 engine's (K8) and ``generate()``'s on the card (``k4``:
+    serve()'s record of the same requests); sampled ones lie in the vocab
+    and repeat per seed; the warp route launches at least once per substep
+    and prefill, K8 never. The 8 greedy requests are then traced. Returns
+    the launch counts of the window."""
+    from mxnet_tpu_torch.ops.int8_gemv import (dtype_lanes, gemv_routes, gemv_widths,
+                                               launches, reset_launches)
+    from mxnet_tpu_torch.serve import InferenceEngine
+    tag, kinds, forbidden = lane(torch, net)
+    vocab = net.cfg.vocab_size
+    prompts, temps, new = contiguous_requests(torch, args, net)
+    eng = InferenceEngine(net, max_batch_size=8, max_len=512, multi_token=1,
+                          fused=True, paged=False).start()
+    try:
+        warm = eng.generate(prompts[0][:8], 8, timeout=600)
+        check(warm.ok, f"K=1 warm-up request failed: {warm.error}")
+        before = eng.stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        handles = [eng.submit(p, new, temperature=t, seed=1000 + i)
+                   for i, (p, t) in enumerate(zip(prompts, temps))]
+        results = [h.result(timeout=600) for h in handles]
+        wall = time.perf_counter() - t0
+        counts = launches()
+        counts["routes"] = gemv_routes()
+        counts["widths"] = gemv_widths()
+        counts["lanes"] = dtype_lanes()
+        after = eng.stats()
+        again = [eng.submit(prompts[i], new, temperature=0.8, seed=1000 + i)
+                 for i in range(8, 12)]
+        again = [h.result(timeout=600) for h in again]
+        profiled = device_share(torch, eng, prompts[:8], new)
+    finally:
+        eng.shutdown(drain=True, timeout=600)
+    for i, r in enumerate(results):
+        check(r.ok and len(r.generated_ids) == new, f"K=1 request {i}: {r.status} "
+              f"{len(r.generated_ids)} tokens {r.error}")
+    substeps = after["decode_substeps"] - before["decode_substeps"]
+    prefills = after["prefills"] - before["prefills"]
+    check(counts.get(kinds["block"], 0) == LAYERS * substeps,
+          f"K=1: K5 launches {counts.get(kinds['block'])} != 12 x {substeps} substeps")
+    check(counts.get(kinds["head"], 0) == 0, f"K=1: the fused head launched: {counts}")
+    check(counts["routes"]["warp"] >= substeps + prefills,
+          f"K=1: {counts['routes']['warp']} warp-route GEMVs < {substeps} substeps + "
+          f"{prefills} prefills")
+    head = counts["widths"].get("warp:50304", 0)
+    check(head >= substeps + prefills, f"K=1: {head} tied-head GEMVs on the warp route < "
+          f"{substeps} substeps + {prefills} prefills")
+    check(not any(counts.get(k) for k in forbidden), f"K=1: an int8 kind launched: {counts}")
+    for i in range(8):
+        got = results[i].generated_ids
+        for what, ref in (("the multi_token=4 engine's", k4["tokens"][i]),
+                          ("generate(multi_token=1)'s", k4["generate"][f"{i}:1"]),
+                          ("generate(multi_token=4)'s", k4["generate"][f"{i}:4"])):
+            check(got == ref, f"K=1 request {i}: greedy tokens != {what} (first divergence "
+                  f"{first_divergence(got, ref)})")
+    for i in range(8, 12):
+        toks = results[i].generated_ids
+        check(all(0 <= t < vocab for t in toks), f"K=1 request {i}: token outside vocab")
+        check(again[i - 8].generated_ids == toks, f"K=1 request {i}: same seed gave "
+              "another sample")
+    tokens = sum(len(r.generated_ids) for r in results)
+    dsec = after["decode_s"] - before["decode_s"]
+    k4p = k4["profiled"] or {}
+    emit({tag + "engine_k1": {
+        "requests": len(results), "greedy": 8, "sampled": 4, "new_tokens_each": new,
+        "wall_s": wall, "tokens_per_s": tokens / wall, "decode_substeps": substeps,
+        "prefills": prefills, "ms_per_decode_step": dsec / substeps * 1e3,
+        "head_gemvs_warp": head, "launches": counts,
+        "greedy_equal_k4_engine_and_generate": list(range(8)),
+        "k4_window": {"ms_per_decode_step": k4["ms_per_decode_step"],
+                      "tokens_per_s": k4["tokens_per_s"],
+                      "idle_share": k4p.get("idle_share"),
+                      "kernel_ms": k4p.get("kernel_ms")}}})
+    emit({tag + "profiled_window_k1": profiled if profiled is not None else "not measured"})
     return counts
 
 
@@ -958,8 +1195,8 @@ def serve_paged(torch, args, net, phase):
     Returns the launch counts of the concurrent window."""
     import numpy as np
 
-    from mxnet_tpu_torch.ops.int8_gemv import (dma_ledger, dtype_lanes, gemv_routes, launches,
-                                               reset_launches)
+    from mxnet_tpu_torch.ops.int8_gemv import (dma_ledger, dtype_lanes, gemv_routes,
+                                               gemv_widths, launches, reset_launches)
     from mxnet_tpu_torch.serve import InferenceEngine
     from mxnet_tpu_torch.serve.paging import pages_for
     tag, kinds, forbidden = lane(torch, net)
@@ -997,6 +1234,7 @@ def serve_paged(torch, args, net, phase):
         wall = time.perf_counter() - t0
         counts, ledger = launches(), dma_ledger()
         counts["routes"] = gemv_routes()
+        counts["widths"] = gemv_widths()
         counts["lanes"] = dtype_lanes()
         after = eng.stats()
         counts["kv_bytes"] = after["kv_bytes"]
@@ -1092,13 +1330,14 @@ def int4_stage(torch, args, timer, gen, int8_bytes):
                   for blk in net.blocks), "int4 GPT-2 small: a block is not packed int4")
         pack = pack_gpt_block(net.blocks[0], eps=net.cfg.layer_norm_eps)
         rows = {"K4": kernel_gemv(torch, timer, gen, 4), "K5": kernel_k5(torch, timer, gen, pack),
-                "K8": kernel_k8(torch, timer, gen, net.head_weights())}
+                "K8": kernel_k8(torch, timer, gen, net.head_weights()),
+                "K8_lanes": kernel_k8_lanes(torch, timer, gen, net.head_weights())}
         k67 = kernel_k6_k7(torch, timer, gen, pack)
         rows["K6"], rows["K7"] = k67["K6"], k67["K7"]
         cpu_net = GPTModel(GPT2_SMALL, device="cpu").init_weights(args.seed)
         quantize_net(cpu_net, bits=4, fused_decode=True)
     emit({"int4_kernels": {"k4": rows["K4"], "k5": rows["K5"], "k8": rows["K8"],
-                           "k6_k7": k67}})
+                           "k8_lanes": rows["K8_lanes"], "k6_k7": k67}})
     emit({"quantized_weight_bytes": {"int8": int8_bytes, "int4": quant_bytes(torch, net)}})
     counts, mem = {}, {}
     torch.cuda.reset_peak_memory_stats()
@@ -1206,6 +1445,7 @@ def bf16_stage(torch, args, timer, gen):
     counts["generate"] = generate_headline(torch, args, net)
     counts["contiguous"] = serve(torch, args, net, cpu_net, cpu_tokens=BF16_CPU_TOKENS)
     del cpu_net
+    counts["k1"] = serve_k1(torch, args, net, counts["contiguous"]["k4"])
     for phase in "AB":
         counts[phase] = serve_paged(torch, args, net, phase)
     del net
@@ -1628,6 +1868,16 @@ def train_card_vs_cpu(torch, args, card="cuda"):
           f"bf16/f32 step-1 gradients differ: {worst(bf16_err)} > {BF16_GRAD_TOL}")
 
 
+def head_row(head):
+    """A kernels-line row of the tied head on the warp route: its 8-row
+    numbers (the decode batch of a multi_token=1 engine), the 1-row time
+    (token 0) beside them."""
+    m8 = head["m8"]
+    return {"max_abs_err": head["max_abs_err"], "ms": m8["ms"], "plain_ms": m8["plain_ms"],
+            "bound_ms": m8["bound_ms"], "bound_by": m8["bound_by"],
+            "library_ms": m8["library_ms"]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1664,14 +1914,16 @@ def main(argv=None):
         k5 = kernel_k5(torch, timer, gen,
                        pack_gpt_block(net.blocks[0], eps=net.cfg.layer_norm_eps))
         k8 = kernel_k8(torch, timer, gen, net.head_weights())
+        k8l = kernel_k8_lanes(torch, timer, gen, net.head_weights())
         k67 = kernel_k6_k7(torch, timer, gen,
                            pack_gpt_block(net.blocks[0], eps=net.cfg.layer_norm_eps))
         sampling = sampling_card(torch, args, timer)
-    emit({"k3": k3, "k5": k5, "k8": k8, "k6_k7": k67})
+    emit({"k3": k3, "k5": k5, "k8": k8, "k8_lanes": k8l, "k6_k7": k67})
     emit({"sampling": sampling})
 
     serve_counts = serve(torch, args, net, cpu_net)
     del cpu_net
+    k1_counts = serve_k1(torch, args, net, serve_counts["k4"])
     paged_counts = {phase: serve_paged(torch, args, net, phase) for phase in "AB"}
     int8_bytes = quant_bytes(torch, net)
     del net
@@ -1712,6 +1964,10 @@ def main(argv=None):
         check(lanes([key], *phases) > 0, f"the {key} lane never launched")
     kv16 = ("x_bf16:kv_bf16", "x_f32:kv_bf16")
     gemv8, gemv4 = "mxnet_tpu_torch/csrc/int8_gemv.cu", "mxnet_tpu_torch/csrc/int4_gemv.cu"
+    head_src = "mxnet_tpu_torch/csrc/lm_head_sample.cu"
+    emit({"gemv_heads_warp": {"int8": k3["head"], "int4": r4k["K4"]["head"],
+                              "int8_bf16_x": r16k["K3"]["head"],
+                              "int4_bf16_x": r16k["K4"]["head"]}})
     rows = []
     for name, src, replaces, launched, r in (
             ("int8_gemv", gemv8, "mxnet_tpu/ops/int8_gemv.py:113", r8["warp"], k3["warp"]),
@@ -1764,6 +2020,11 @@ def main(argv=None):
             ("fused_block_decode_int4_bf16", "mxnet_tpu_torch/csrc/fused_block_decode.cu",
              "mxnet_tpu/ops/fused_block_gemv.py:424",
              lanes(["fused_block_int4:" + k for k in kv16], *b4), r16k["K5_int4"]),
+            ("int8_gemv_head", gemv8, "mxnet_tpu/ops/int8_gemv.py:113",
+             k1_counts["widths"].get("warp:50304", 0), head_row(k3["head"])),
+            ("int4_gemv_head", gemv4, "mxnet_tpu/ops/int8_gemv.py:186",
+             int4_counts["contiguous"]["widths"].get("warp:50304", 0),
+             head_row(r4k["K4"]["head"])),
             ("flash_attention_fwd", "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
              "mxnet_tpu/ops/attention.py:286", train_counts.get("flash_fwd", 0), k1),
             ("flash_attention_bwd", "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -1774,6 +2035,19 @@ def main(argv=None):
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         check(rows[-1]["launches"] > 0, f"{name} never launched on its main path")
+    # K8's mask and bf16 lanes: no path of the JAX package reaches them (only
+    # GPT exposes head_weights, and its decode loops pass neither), so their
+    # launches are the direct calls of kernel_k8_lanes' counted phase
+    for name, r in (("lm_head_sample_mask", k8l["mask"]), ("lm_head_sample_bf16", k8l["bf16"]),
+                    ("lm_head_sample_int4_mask", r4k["K8_lanes"]["mask"]),
+                    ("lm_head_sample_int4_bf16", r4k["K8_lanes"]["bf16"])):
+        rows.append({"name": name, "route": "cuda", "source": head_src,
+                     "replaces": "mxnet_tpu/ops/fused_block_gemv.py:1218",
+                     "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                     "path": "direct calls (no JAX path reaches this lane)"})
+        check(rows[-1]["launches"] > 0, f"{name} never launched in its direct-call phase")
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -129,7 +129,7 @@ def _declare(name: str, lib: ctypes.CDLL):
         lib.mx_paged_dma_tile_pages.argtypes = [i] * 6
         lib.mx_paged_dma_tile_pages.restype = i
     elif name == "lm_head_sample":
-        lib.mx_lm_head_sample.argtypes = [p] * 8 + [i] * 5 + [p]
+        lib.mx_lm_head_sample.argtypes = [p] * 9 + [i] * 7 + [p]
         lib.mx_lm_head_sample.restype = i
         lib.mx_head_tiles.argtypes = [i]
         lib.mx_head_tiles.restype = i

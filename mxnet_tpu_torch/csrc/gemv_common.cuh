@@ -14,15 +14,17 @@
 // paths).
 //
 // Both halves of that contract hold on the warp route of K3 and K4
-// (gemv_tiles below), which takes M <= 8 rows (decode batches). Prefill
-// rows, 9 <= M <= 64, take the tile route (gemv_mma.cuh): tensor cores
-// over x as three bf16 planes, in another fixed order. Its rows are the
-// same bits at any M from 9 to 64 and on every launch, and agree with the
-// warp route (and with K8) to rounding, not bit for bit.
+// (gemv_warp.cuh: the same sums, its own data movement), which takes M <= 8
+// rows (decode batches). Prefill rows, 9 <= M <= 64, take the tile route
+// (gemv_mma.cuh): tensor cores over x as three bf16 planes, in another
+// fixed order. Its rows are the same bits at any M from 9 to 64 and on
+// every launch, and agree with the warp route (and with K8) to rounding,
+// not bit for bit.
 //
 // The activations come as f32 or bf16 rows (the model's dtype at block 0 of
-// a bf16 model). A bf16 row is widened to f32 as it is staged, which is
-// exact, so every dot above is the f32 lane's on x.float(), bit for bit.
+// a bf16 model; K8's h in a model whose head sees bf16). A bf16 value is
+// exact in f32, so every dot above is the f32 lane's on x.float(), bit for
+// bit: stage_rows widens it as it stages, the warp route at read.
 //
 // Two weight lanes feed that loop (Int8Rows, Int4Rows below). An int8 chunk
 // is 16 bytes and its codes are the weights; the row's f32 scale multiplies
@@ -34,6 +36,10 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <mutex>
+#include <utility>
+#include <vector>
 
 namespace mx {
 
@@ -192,63 +198,90 @@ __device__ __forceinline__ void warp_dot_rows(const float* xs, int nr, const W& 
   }
 }
 
-// The weight-only GEMV of K3 and K4: y[M, N] = x[M, K] @ (lane weights).T,
-// x (f32 or bf16, X) staged kRowTile rows at a time into xs (kRowTile * K
-// f32 of dynamic shared memory), one warp per output channel, warps of all
-// CTAs striding over the channels.
-template <class W, class X>
-__device__ __forceinline__ void gemv_tiles(float* xs, const X* __restrict__ x, const W& wt,
-                                           float* __restrict__ y, int M, int N, int K) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int r0 = 0; r0 < M; r0 += kRowTile) {
-    const int nr = min(kRowTile, M - r0);
-    __syncthreads();
-    stage_rows(xs, x, r0, nr, K);
-    __syncthreads();
-    for (int n = blockIdx.x * kWarps + warp; n < N; n += gridDim.x * kWarps) {
-      float acc[kRowTile];
-      warp_dot_rows(xs, nr, wt, n, K, acc);
-      const float sc = wt.scale(n);
-#pragma unroll
-      for (int r = 0; r < kRowTile; ++r) {
-        if (lane == r && r < nr) y[static_cast<size_t>(r0 + r) * N + n] = acc[r] * sc;
-      }
-    }
-  }
-}
-
 // Number of CTAs of `kernel` (kThreads threads, `smem` dynamic bytes) that
-// fit on the card at once; sets the dynamic shared memory limit first.
+// fit on the card at once. The query runs once per
+// (kernel, smem, device) in a process and is cached (a serving step
+// launches dozens of kernels; each query is a few CUDA runtime calls). The
+// dynamic shared memory limit of a kernel is raised, never lowered, so a
+// cached count stays valid after a later call raised it.
 template <typename Kernel>
 inline cudaError_t resident_ctas(Kernel kernel, size_t smem, int* ctas) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  struct Entry {
+    const void* fn;
+    size_t smem;
+    int dev, ctas;
+  };
+  struct Limit {
+    const void* fn;
+    int dev;
+    size_t smem;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> cache;
+  static std::vector<Limit> limits;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& e : cache) {
+    if (e.fn == fn && e.smem == smem && e.dev == dev) {
+      *ctas = e.ctas;
+      return cudaSuccess;
+    }
+  }
+  Limit* lim = nullptr;
+  for (Limit& l : limits) {
+    if (l.fn == fn && l.dev == dev) lim = &l;
+  }
+  if (lim == nullptr || lim->smem < smem) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    if (lim == nullptr) {
+      limits.push_back(Limit{fn, dev, smem});
+    } else {
+      lim->smem = smem;
+    }
+  }
+  int sms = 0, per_sm = 0;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
       cudaSuccess)
     return err;
+  if (sms * per_sm <= 0) return cudaErrorInvalidConfiguration;
+  cache.push_back(Entry{fn, smem, dev, sms * per_sm});
   *ctas = sms * per_sm;
-  return *ctas > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+  return cudaSuccess;
 }
 
-// Launch a gemv_tiles kernel (kernel(x, wt, y, M, N, K)) on as many CTAs as
-// there are 8-channel groups, at most the resident count.
-template <class W, class X>
-inline int launch_gemv(void (*kernel)(const X*, W, float*, int, int, int), const void* x,
-                       const W& wt, void* y, int M, int N, int K, void* stream) {
-  const size_t smem = sizeof(float) * kRowTile * K;
-  int ctas = 0;
-  cudaError_t err = resident_ctas(kernel, smem, &ctas);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int want = (N + kWarps - 1) / kWarps;
-  kernel<<<want < ctas ? want : ctas, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const X*>(x), wt, static_cast<float*>(y), M, N, K);
-  return static_cast<int>(cudaGetLastError());
+// The most dynamic shared memory a CTA may take on the current device and
+// its SM count (cached per device).
+inline cudaError_t device_limits(int* smem_bytes, int* sms) {
+  struct Entry {
+    int dev, smem, sms;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> cache;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& e : cache) {
+    if (e.dev == dev) {
+      *smem_bytes = e.smem;
+      *sms = e.sms;
+      return cudaSuccess;
+    }
+  }
+  if ((err = cudaDeviceGetAttribute(smem_bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return err;
+  if ((err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  cache.push_back(Entry{dev, *smem_bytes, *sms});
+  return cudaSuccess;
 }
 
 }  // namespace mx

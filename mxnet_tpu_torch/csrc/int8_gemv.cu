@@ -7,22 +7,21 @@
 //
 // Warp route (mx_int8_gemv; decode, M <= 8, and M past gemv_max_m()).
 // Bound: the int8 weight bytes (N * K, read once); at 3.35 TB/s the
-// 50304 x 768 tied head takes 11.5 us. Each warp streams whole weight rows
-// in 16-byte loads per lane (one int8 row is read from device memory once
-// per CTA and re-read from L1 for later row tiles), converts to f32 in
-// registers and accumulates in f32 against activations kept in f32 in
-// shared memory (in a layout the warp reads without bank conflicts, see
-// gemv_common.cuh); the per-channel scale multiplies the finished dot. The
-// activations stay f32 (the TPU kernel cast them to bf16 for the MXU):
-// the stream is weight-bound, so f32 costs nothing and matches the plain
-// version's precision. Its dot order is K8's, so the head GEMV + argmax
-// and K8 pick the same greedy token. CTAs are sized to the card's resident
-// count and stride over the output channels.
+// 50304 x 768 tied head takes 11.5 us. Every dot is one warp's, in K8's
+// order (gemv_common.cuh), so the head GEMV + argmax and K8 pick the same
+// greedy token and a row's bits do not depend on M. Design (gemv_warp.cuh,
+// redesigned for Hopper): a persistent grid; x staged once per CTA in its
+// own dtype by cp.async; each warp takes groups of G = 4, 2 or 1
+// neighbouring channels whose rows stream into its ring of shared-memory
+// stages by TMA bulk copies on mbarriers, ahead of the f32 FMAs; the row
+// scale multiplies the finished dot. The activations stay f32 (the TPU
+// kernel cast them to bf16 for the MXU) to keep the plain version's
+// precision.
 //
 // x is f32, or bf16 (block 0 of a bf16 model; x_bf16): both routes widen
-// bf16 to f32 exactly (the warp route as it stages x, the tile route by
-// taking x as its own hi plane, gemv_mma.cuh), so a bf16 call gives the
-// f32 call on x.float() bit for bit.
+// bf16 to f32 exactly (the warp route as it reads x from shared memory, the
+// tile route by taking x as its own hi plane, gemv_mma.cuh), so a bf16 call
+// gives the f32 call on x.float() bit for bit.
 //
 // Tile route (mx_int8_gemv_mma; prefill, 9 <= M <= 64). Bound: the larger
 // of the bytes and 2 M N K operations at the 989 TFLOP/s bf16 tensor rate;
@@ -32,17 +31,30 @@
 // once through a cp.async ring in shared memory into mma.sync with x as
 // three bf16 planes (f32 accuracy), K split across a thread-block cluster
 // where N alone gives too few CTAs. Design: gemv_mma.cuh.
-#include "gemv_common.cuh"
 #include "gemv_mma.cuh"
+#include "gemv_warp.cuh"
 
 namespace {
 
-template <class X>
-__global__ void __launch_bounds__(mx::kThreads)
+template <int G, int R, class X>
+__global__ void __launch_bounds__(mx::kThreads, mx::warp::kCtasPerSm)
     int8_gemv_kernel(const X* __restrict__ x, mx::Int8Rows w, float* __restrict__ y, int M,
-                     int N, int K) {
-  extern __shared__ __align__(16) float xs[];
-  mx::gemv_tiles(xs, x, w, y, M, N, K);
+                     int N, int K, mx::warp::Ring ring) {
+  extern __shared__ __align__(128) char smem[];
+  mx::warp::gemv_warp<G, R, mx::warp::Int8Lane, X>(smem, x, w, y, M, N, K, ring);
+}
+
+template <class X>
+int launch_warp(const void* x, const mx::Int8Rows& wt, void* y, int M, int N, int K, int block,
+                void* stream) {
+  static const mx::warp::Kernels<mx::warp::Int8Lane, X> kernels = {
+      {int8_gemv_kernel<1, 1, X>, int8_gemv_kernel<1, 2, X>, int8_gemv_kernel<1, 4, X>,
+       int8_gemv_kernel<1, 8, X>},
+      {int8_gemv_kernel<2, 1, X>, int8_gemv_kernel<2, 2, X>, int8_gemv_kernel<2, 4, X>,
+       int8_gemv_kernel<2, 8, X>},
+      {int8_gemv_kernel<4, 1, X>, int8_gemv_kernel<4, 2, X>, int8_gemv_kernel<4, 4, X>,
+       int8_gemv_kernel<4, 8, X>}};
+  return mx::warp::launch<mx::warp::Int8Lane, X>(kernels, x, wt, y, M, N, K, block, stream);
 }
 
 template <class X>
@@ -55,12 +67,13 @@ __global__ void __launch_bounds__(mx::tile::kThreads, mx::tile::kMinCtas)
 
 }  // namespace
 
-// x: [M, K] f32, or bf16 where x_bf16 (16-byte aligned rows).
+// x: [M, K] f32, or bf16 where x_bf16 (16-byte aligned rows); w and s on
+// 16-byte boundaries (the bulk copies move whole 16-byte units).
 extern "C" int mx_int8_gemv(const void* x, const void* w, const void* s, void* y, int M,
                             int N, int K, int x_bf16, void* stream) {
   const mx::Int8Rows wt(w, static_cast<const float*>(s), K, 0);
-  return x_bf16 ? mx::launch_gemv(int8_gemv_kernel<mx::bf16>, x, wt, y, M, N, K, stream)
-                : mx::launch_gemv(int8_gemv_kernel<float>, x, wt, y, M, N, K, stream);
+  return x_bf16 ? launch_warp<mx::bf16>(x, wt, y, M, N, K, 0, stream)
+                : launch_warp<float>(x, wt, y, M, N, K, 0, stream);
 }
 
 // 1 <= M <= 64, K % 32 == 0 (ops/int8_gemv.py checks both first).

@@ -1,10 +1,17 @@
 // K8: fused tied-head GEMV + token selection. For each row b of h[B, D]:
-//   z[v]   = (h[b] . w[v]) * s[v] / (T_b > 0 ? T_b : 1)     (int8 table)
-//   z[v]   = (h[b] . dequant(w)[v]) / (T_b > 0 ? T_b : 1)   (int4 table)
+//   a[v]   = (h[b] . w[v]) * s[v]             (int8 table)
+//   a[v]   = h[b] . dequant(w)[v]             (int4 table)
+//   a[v]   = bf16(a[v])                        where the logits are bf16
+//   z[v]   = a[v] / (T_b > 0 ? T_b : 1)
 //   z[v]  += -log(-log(u(keybits_b, v)))      for rows with T_b > 0
+//   z[v]   = -inf                              where mask[b, v] == 0
 //   z[v]   = -inf                              for pad lanes v >= vocab
 //   tok[b] = argmax_v z[v], ties to the lowest lane
-// The [B, Vp] logits are never written to device memory.
+// The [B, Vp] logits are never written to device memory. h is f32, or bf16
+// (widened exactly as it is staged, so the bf16 lane gives the f32 lane's
+// tokens on h.float()); the mask (uint8 [B, Vp], a grammar's allowed
+// lanes) is optional, read by the lane that scores the row beside its
+// noise, in the TPU kernel's order (after the noise, before the pad mask).
 //
 // Replaces the TPU kernel mxnet_tpu/ops/fused_block_gemv.py:_head_kernel
 // (pl.pallas_call at fused_block_gemv.py:1325), reached through
@@ -53,11 +60,12 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-template <class W>
+template <class W, class X>
 __global__ void __launch_bounds__(mx::kThreads)
-    head_tiles_kernel(const float* __restrict__ h, W w, const float* __restrict__ temps,
-                      const int* __restrict__ keybits, int B, int Vp, int D, int vocab,
-                      int ntiles, float* __restrict__ pmax, int* __restrict__ pidx) {
+    head_tiles_kernel(const X* __restrict__ h, W w, const float* __restrict__ temps,
+                      const int* __restrict__ keybits, const uint8_t* __restrict__ mask,
+                      int round_bf16, int B, int Vp, int D, int vocab, int ntiles,
+                      float* __restrict__ pmax, int* __restrict__ pidx) {
   extern __shared__ __align__(16) float hs[];
   __shared__ float wmax[mx::kWarps][mx::kRowTile];
   __shared__ int widx[mx::kWarps][mx::kRowTile];
@@ -87,8 +95,11 @@ __global__ void __launch_bounds__(mx::kThreads)
           if (lane == r) mine = acc[r];
         }
         if (lane < nr) {
-          float z = (mine * w.scale(v)) / (temp > 0.f ? temp : 1.f);
+          float a = mine * w.scale(v);
+          if (round_bf16) a = __bfloat162float(__float2bfloat16_rn(a));
+          float z = a / (temp > 0.f ? temp : 1.f);
           if (temp > 0.f) z = z + (-logf(-logf(hash_uniform(key, static_cast<uint32_t>(v)))));
+          if (mask != nullptr && !mask[static_cast<size_t>(r0 + lane) * Vp + v]) z = -INFINITY;
           if (v >= vocab) z = -INFINITY;
           if (z > bv) {
             bv = z;
@@ -155,20 +166,31 @@ extern "C" int mx_head_tiles(int Vp) { return (Vp + kTile - 1) / kTile; }
 
 namespace {
 
-template <class W>
+template <class W, class X>
 cudaError_t launch_tiles(const void* h, const W& w, const void* temps, const void* keybits,
-                         void* pmax, void* pidx, int B, int Vp, int D, int vocab, int ntiles,
-                         cudaStream_t st) {
+                         const void* mask, int round_bf16, void* pmax, void* pidx, int B, int Vp,
+                         int D, int vocab, int ntiles, cudaStream_t st) {
   const size_t smem = sizeof(float) * mx::kRowTile * D;
   int ctas = 0;
-  cudaError_t err = mx::resident_ctas(head_tiles_kernel<W>, smem, &ctas);
+  cudaError_t err = mx::resident_ctas(head_tiles_kernel<W, X>, smem, &ctas);
   if (err != cudaSuccess) return err;
   const int grid = ntiles < ctas ? ntiles : ctas;
-  head_tiles_kernel<W><<<grid, mx::kThreads, smem, st>>>(
-      static_cast<const float*>(h), w, static_cast<const float*>(temps),
-      static_cast<const int*>(keybits), B, Vp, D, vocab, ntiles, static_cast<float*>(pmax),
-      static_cast<int*>(pidx));
+  head_tiles_kernel<W, X><<<grid, mx::kThreads, smem, st>>>(
+      static_cast<const X*>(h), w, static_cast<const float*>(temps),
+      static_cast<const int*>(keybits), static_cast<const uint8_t*>(mask), round_bf16, B, Vp, D,
+      vocab, ntiles, static_cast<float*>(pmax), static_cast<int*>(pidx));
   return cudaGetLastError();
+}
+
+template <class W>
+cudaError_t launch_tiles(const void* h, int h_bf16, const W& w, const void* temps,
+                         const void* keybits, const void* mask, int round_bf16, void* pmax,
+                         void* pidx, int B, int Vp, int D, int vocab, int ntiles,
+                         cudaStream_t st) {
+  return h_bf16 ? launch_tiles<W, mx::bf16>(h, w, temps, keybits, mask, round_bf16, pmax, pidx,
+                                            B, Vp, D, vocab, ntiles, st)
+                : launch_tiles<W, float>(h, w, temps, keybits, mask, round_bf16, pmax, pidx, B,
+                                         Vp, D, vocab, ntiles, st);
 }
 
 }  // namespace
@@ -176,11 +198,14 @@ cudaError_t launch_tiles(const void* h, const W& w, const void* temps, const voi
 // pmax/pidx: scratch of B * mx_head_tiles(Vp) entries each. block 0: w is
 // the int8 table [Vp, D] with scales s [Vp]; block > 0: w is the int4
 // table [Vp, D / 2] with block scales s [Vp, D / block] (D % 16 == 0,
-// block % 16 == 0).
+// block % 16 == 0). h [B, D] is f32, or bf16 where h_bf16 (16-byte
+// aligned rows); mask is null or uint8 [B, Vp] (0 = forbidden lane);
+// round_bf16 rounds each logit through bf16 before the temperature.
 extern "C" int mx_lm_head_sample(const void* h, const void* w, const void* s,
-                                 const void* temps, const void* keybits, void* pmax,
-                                 void* pidx, void* tok, int B, int Vp, int D, int vocab,
-                                 int block, void* stream) {
+                                 const void* temps, const void* keybits, const void* mask,
+                                 void* pmax, void* pidx, void* tok, int B, int Vp, int D,
+                                 int vocab, int block, int h_bf16, int round_bf16,
+                                 void* stream) {
   const int ntiles = mx_head_tiles(Vp);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sf = static_cast<const float*>(s);
@@ -188,10 +213,10 @@ extern "C" int mx_lm_head_sample(const void* h, const void* w, const void* s,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err =
-      block ? launch_tiles(h, mx::Int4Rows(w, sf, D, block), temps, keybits, pmax, pidx, B, Vp,
-                           D, vocab, ntiles, st)
-            : launch_tiles(h, mx::Int8Rows(w, sf, D, 0), temps, keybits, pmax, pidx, B, Vp, D,
-                           vocab, ntiles, st);
+      block ? launch_tiles(h, h_bf16, mx::Int4Rows(w, sf, D, block), temps, keybits, mask,
+                           round_bf16, pmax, pidx, B, Vp, D, vocab, ntiles, st)
+            : launch_tiles(h, h_bf16, mx::Int8Rows(w, sf, D, 0), temps, keybits, mask,
+                           round_bf16, pmax, pidx, B, Vp, D, vocab, ntiles, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int kRowsPerCta = 4;
   head_reduce_kernel<<<(B + kRowsPerCta - 1) / kRowsPerCta, 32 * kRowsPerCta, 0, st>>>(

@@ -18,7 +18,10 @@ key bits (the TPU kernel's stream; the JAX package's off-TPU branch uses
 ``sample_tokens`` there instead, so those rows, and only those, differ
 from JAX on the CPU by design), and a batch with any top-k/top-p row
 takes ``sample_tokens`` on the head GEMV's logits, as the reference's
-``lax.cond`` does. Grammar masks raise until the grammar slice.
+``lax.cond`` does. A grammar mask (bool, True = allowed) constrains
+:func:`filter_logits`, :func:`sample_tokens` and the fused head as it does
+in the JAX package: masked lanes drop to -inf before any filter or argmax,
+and an all-masked row raises.
 """
 from __future__ import annotations
 
@@ -32,10 +35,6 @@ from ..base import MXNetError
 
 __all__ = ["generate", "decode_step", "decode_step_hidden",
            "decode_multi_tokens", "filter_logits", "sample_tokens"]
-
-_MASKS_LATER = ("grammar masks are not ported yet (a later slice ports "
-                "serve/grammar.py)")
-
 
 def _validate_sampling(temperature, top_k, top_p):
     if not temperature >= 0:
@@ -72,15 +71,42 @@ def _rows(x, dtype, device):
                            dtype=dtype, device=device).reshape(-1, 1)
 
 
+def _check_mask_live(mask):
+    """Raise on a row whose grammar mask allows no token (an automaton dead
+    end), as ``mxnet_tpu/models/generation.py:_check_mask_live`` does for a
+    concrete mask: the -inf argmax would otherwise emit token 0. Reading
+    the rows synchronises with the mask's device."""
+    live = torch.as_tensor(mask).any(dim=-1).reshape(-1)
+    if not bool(live.all()):
+        rows = torch.nonzero(~live).reshape(-1).tolist()
+        raise MXNetError(
+            f"grammar mask allows NO token for row(s) {rows[:8]} — the "
+            "automaton reached a dead end (every vocab token and EOS "
+            "forbidden); this indicates a grammar whose token table "
+            "cannot spell the remaining language, or a corrupted "
+            "automaton state")
+
+
+def _apply_mask(x, mask):
+    """``x`` with the lanes ``mask`` forbids (bool [B, V] or [V], True =
+    allowed) at -inf, after the dead-end check."""
+    _check_mask_live(mask)
+    mask = torch.as_tensor(mask, dtype=torch.bool, device=x.device)
+    return torch.where(mask, x, torch.tensor(float("-inf"), device=x.device))
+
+
 def filter_logits(scaled, top_k, top_p, mask=None):
     """Top-k then nucleus (top-p) filtering of [B, V] logits: filtered-out
     entries become -inf. ``top_k`` / ``top_p`` are scalars or per-row [B]
     arrays; ``top_k <= 0`` and ``top_p >= 1`` disable their filter. The
     nucleus keeps the smallest prefix of the sorted probabilities whose
     mass reaches ``top_p`` (at least the argmax), over the post-top-k
-    distribution, as ``mxnet_tpu/models/generation.py:filter_logits``."""
+    distribution, as ``mxnet_tpu/models/generation.py:filter_logits``.
+    ``mask`` (bool [B, V] or [V], True = allowed) applies a grammar
+    constraint BEFORE the filters, so top-k counts and the nucleus mass
+    cover the legal tokens only."""
     if mask is not None:
-        raise MXNetError("filter_logits: " + _MASKS_LATER)
+        scaled = _apply_mask(scaled, mask)
     B, V = scaled.shape
     dev = scaled.device
     top_k = _rows(top_k, torch.int64, dev)
@@ -105,10 +131,12 @@ def sample_tokens(logits, keys, temperature, top_k=0, top_p=1.0, mask=None):
     draw ``random.categorical`` with their own key from the temperature-
     scaled, top-k/top-p filtered logits. ``keys`` is [B, 2] key data
     (``_prng.fold_keys``); it may be None when every row is greedy.
-    Returns [B] int32."""
-    if mask is not None:
-        raise MXNetError("sample_tokens: " + _MASKS_LATER)
+    ``mask`` (bool [B, V], True = allowed) constrains both paths: greedy
+    rows take the argmax of the masked logits, sampled rows mask before
+    scaling and filtering. Returns [B] int32."""
     logits = logits.float()
+    if mask is not None:
+        logits = _apply_mask(logits, mask)
     t = _rows(temperature, torch.float32, logits.device)
     greedy = torch.argmax(logits, dim=-1)
     if not bool((t > 0).any()):

@@ -35,8 +35,8 @@ bf16 embedding sum) and the caches or pools f32 or bf16 (the model's
 dtype); the output is f32. The kernels compute what the plain versions
 compute: on bf16 x the LayerNorm rounds as ``npx.layer_norm`` does, and a
 new K/V row is rounded once to the cache's dtype and read back from it.
-f16 caches raise on the card. Grammar masks and K8's bf16 logits are later
-slices.
+f16 caches raise on the card. K8 takes f32 or bf16 h, f32 or bf16 logits
+and an optional grammar mask.
 """
 from __future__ import annotations
 
@@ -518,12 +518,13 @@ def _hash_uniform(keys, lanes):
 
 
 def _reference_head_sample(h, w_q, w_scale, vocab, temps, keybits,
-                           out_dtype=None):
+                           out_dtype=None, mask=None):
     """Plain version of K8: dequantized head logits (either weight lane),
     rounded through ``out_dtype`` where one other than f32 is given (the
     unfused head casts its logits to the activation dtype), divided by T
-    (T > 0 rows), hash-Gumbel noise on T > 0 rows, pad lanes at -inf,
-    argmax with ties to the lowest lane."""
+    (T > 0 rows), hash-Gumbel noise on T > 0 rows, lanes the grammar
+    ``mask`` (bool [B, Vp], True = allowed) forbids at -inf, pad lanes at
+    -inf, argmax with ties to the lowest lane (the TPU kernel's order)."""
     B = h.shape[0]
     Vp = w_q.shape[0]
     acc = _deq_matmul(h, w_q, w_scale)                             # [B, Vp]
@@ -535,18 +536,21 @@ def _reference_head_sample(h, w_q, w_scale, vocab, temps, keybits,
     u = _hash_uniform(keybits.reshape(B, 1), lanes)
     gumbel = -torch.log(-torch.log(u))
     z = torch.where(t > 0, z + gumbel, z)
-    z = torch.where(lanes < vocab, z, torch.full_like(z, float("-inf")))
+    ninf = torch.full_like(z, float("-inf"))
+    if mask is not None:
+        z = torch.where(mask, z, ninf)
+    z = torch.where(lanes < vocab, z, ninf)
     return torch.argmax(z, dim=-1).to(torch.int32)
 
 
 def fused_lm_head_sample(h, w_q, w_scale, vocab, keys, temps, topks=0,
                          topps=1.0, out_dtype=None, mask=None):
     """Tied-head GEMV + token selection for one decode step's last-position
-    hidden state ``h`` [B, D]. ``(w_q, w_scale)`` is the vocab-padded
-    table: int8 [Vp, D] with per-row scales [Vp], or packed int4
-    [Vp, D/2] uint8 with block scales [Vp, D/block]; pad lanes never win.
-    ``keys`` are the rows' [B, 2] ``_prng`` keys (or, for a batch with no
-    top-k/top-p row, their [B] key bits, ``k[:, 0] ^ k[:, 1]``, values in
+    hidden state ``h`` [B, D] (f32 or bf16). ``(w_q, w_scale)`` is the
+    vocab-padded table: int8 [Vp, D] with per-row scales [Vp], or packed
+    int4 [Vp, D/2] uint8 with block scales [Vp, D/block]; pad lanes never
+    win. ``keys`` are the rows' [B, 2] ``_prng`` keys (or, for a batch with
+    no top-k/top-p row, their [B] key bits, ``k[:, 0] ^ k[:, 1]``, values in
     [0, 2**32)). Returns [B] int32.
 
     A batch with no top-k/top-p row streams the table once through K8:
@@ -559,21 +563,36 @@ def fused_lm_head_sample(h, w_q, w_scale, vocab, keys, temps, topks=0,
 
     ``out_dtype`` is the dtype the unfused head would give the logits (the
     caller passes its hidden state's dtype, as the JAX package does): the
-    logits are rounded through it before selection. The plain version and
-    the filtered branch honour any dtype; K8 on the card takes f32 logits
-    and raises on another ``out_dtype`` (its bf16 lane is a later slice;
-    GPT's final LayerNorm gives f32 hidden states, bf16 models included).
-    Grammar masks raise."""
+    logits are rounded through it before selection. K8 on the card takes
+    f32 (no rounding) and bf16; the plain version and the filtered branch
+    honour any dtype.
+
+    ``mask`` (bool [B, vocab], True = allowed) is a grammar constraint: it
+    is padded to [B, Vp] with False, as the reference pads it; K8 and its
+    plain version fold it in after the noise and before the pad mask, the
+    filtered branch hands it to ``sample_tokens``. A mask held on the host
+    (numpy, or a CPU tensor) is checked first: a row that allows no token
+    raises (``generation._check_mask_live``). A mask already on the card
+    is not (that check would put a host sync on every decode step; the JAX
+    package's kernel branch does not check either, and its engine guards
+    its masks on the host): K8 then selects lane 0 for such a row, as the
+    TPU kernel does."""
     B, D = h.shape
-    if mask is not None:
-        raise MXNetError("fused_lm_head_sample: grammar masks are not ported "
-                         "yet (a later slice ports serve/grammar.py)")
     rounded = out_dtype is not None and out_dtype != torch.float32
     topks = torch.as_tensor(np.asarray(topks) if not isinstance(topks, torch.Tensor)
                             else topks).reshape(-1)
     topps = torch.as_tensor(np.asarray(topps, np.float32) if not isinstance(topps, torch.Tensor)
                             else topps, dtype=torch.float32).reshape(-1)
     keys = torch.as_tensor(keys, device=h.device)
+    if mask is not None:
+        from ..models.generation import _check_mask_live
+        mask = torch.as_tensor(mask, dtype=torch.bool)
+        if mask.shape != (B, int(vocab)):
+            raise MXNetError(f"fused_lm_head_sample: mask must be bool [B, vocab] = "
+                             f"[{B}, {int(vocab)}] (got {tuple(mask.shape)})")
+        if mask.device.type == "cpu":
+            _check_mask_live(mask)
+        mask = mask.to(h.device)
     if bool((topks > 0).any()) or bool((topps < 1.0).any()):
         from ..models.generation import sample_tokens
         from .int8_gemv import weight_matmul
@@ -583,7 +602,7 @@ def fused_lm_head_sample(h, w_q, w_scale, vocab, keys, temps, topks=0,
         logits = weight_matmul(h, w_q, w_scale)[:, :int(vocab)]
         if rounded:
             logits = logits.to(out_dtype)
-        return sample_tokens(logits, keys, temps, topks, topps)
+        return sample_tokens(logits, keys, temps, topks, topps, mask=mask)
     keybits = keys[:, 0] ^ keys[:, 1] if keys.dim() == 2 else keys
     Vp = w_q.shape[0]
     if w_q.dtype == torch.uint8:
@@ -603,32 +622,38 @@ def fused_lm_head_sample(h, w_q, w_scale, vocab, keys, temps, topks=0,
     keybits = torch.as_tensor(keybits, device=dev).reshape(-1)
     if keybits.numel() != B:
         raise MXNetError("fused_lm_head_sample: one key per row")
+    mask_p = None
+    if mask is not None:
+        mask_p = torch.zeros(B, Vp, dtype=torch.bool, device=dev)
+        mask_p[:, :int(vocab)] = mask
     if dev.type == "cpu":
         tok = _reference_head_sample(h.float(), w_q, w_scale, int(vocab),
-                                     temps, keybits, out_dtype)
-    elif rounded:
-        raise MXNetError(f"fused_lm_head_sample: the kernel takes f32 logits "
-                         f"(out_dtype {out_dtype} is a later lane)")
+                                     temps, keybits, out_dtype, mask_p)
     else:
-        tok = _cuda_head_sample(h, w_q, w_scale, int(vocab), temps, keybits, block)
+        if rounded and out_dtype != torch.bfloat16:
+            raise MXNetError(f"fused_lm_head_sample: the kernel rounds logits through "
+                             f"bf16 or not at all (out_dtype {out_dtype})")
+        tok = _cuda_head_sample(h, w_q, w_scale, int(vocab), temps, keybits, block,
+                                mask_p, rounded)
     record_launch("fused_head" + ("_int4" if block else ""))
     return tok
 
 
-def _cuda_head_sample(h, w_q, w_scale, vocab, temps, keybits, block):
+def _cuda_head_sample(h, w_q, w_scale, vocab, temps, keybits, block, mask, rounded):
     from .. import _build
+    from .int8_gemv import _kernel_x
     B, D = h.shape
     Vp = w_q.shape[0]
-    if h.dtype != torch.float32 or D % 16:
-        raise MXNetError("fused_lm_head_sample: the kernel takes f32 h with "
-                         "D % 16 == 0")
+    if D % 16:
+        raise MXNetError("fused_lm_head_sample: the kernel needs D % 16 == 0")
     if block and not int4_chunks_fit(D, block):
         raise MXNetError(f"fused_lm_head_sample: the int4 lane needs block % 16 "
                          f"== 0 (got {block})")
+    h, h_bf16 = _kernel_x(h, "fused_lm_head_sample")
     # key bits as int32 carrying the uint32 pattern
     kb = keybits.long() & _M32
     kb = torch.where(kb >= 2 ** 31, kb - 2 ** 32, kb).to(torch.int32).contiguous()
-    h = h.contiguous()
+    m8 = None if mask is None else mask.to(torch.uint8).contiguous()
     lib = _build.library("lm_head_sample")
     ntiles = lib.mx_head_tiles(Vp)
     pmax = torch.empty(B * ntiles, device=h.device, dtype=torch.float32)
@@ -638,6 +663,9 @@ def _cuda_head_sample(h, w_q, w_scale, vocab, temps, keybits, block):
     _build.check(lib.mx_lm_head_sample(
         h.data_ptr(), w_q.contiguous().data_ptr(),
         w_scale.contiguous().data_ptr(), temps.data_ptr(), kb.data_ptr(),
+        None if m8 is None else m8.data_ptr(),
         pmax.data_ptr(), pidx.data_ptr(), tok.data_ptr(), B, Vp, D, vocab,
-        block, stream), "lm_head_sample")
+        block, h_bf16, int(rounded), stream), "lm_head_sample")
+    record_lane("fused_head" + ("_int4" if block else "") + ":h_" + ("bf16" if h_bf16 else "f32")
+                + (":bf16_logits" if rounded else "") + (":mask" if m8 is not None else ""))
     return tok

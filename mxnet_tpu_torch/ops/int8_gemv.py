@@ -10,23 +10,26 @@ matmul); a CUDA tensor launches the hand-written kernel
 ``csrc/int8_gemv.cu`` (K3) or ``csrc/int4_gemv.cu`` (K4), or raises.
 
 On the card each kernel has two routes, chosen by the row count
-(:func:`gemv_route`): the warp route (one warp per output channel, f32
-FMAs; decode rows, M <= 8, and rows past :func:`gemv_max_m`), whose dot
-order K8 shares, and the tile route (tensor cores over x written as three
-bf16 planes; prefill rows, ``GEMV_TILE_MIN_M`` <= M <= :func:`gemv_max_m`).
-:func:`gemv_routes` counts the kernel launches per route.
+(:func:`gemv_route`): the warp route (one warp per dot, f32 FMAs in the
+dot order K8 shares; a persistent grid whose warps stream groups of
+output channels through rings of TMA bulk copies, ``csrc/gemv_warp.cuh``;
+decode rows, M <= 8, and rows past :func:`gemv_max_m`), and the tile route
+(tensor cores over x written as three bf16 planes; prefill rows,
+``GEMV_TILE_MIN_M`` <= M <= :func:`gemv_max_m`). :func:`gemv_routes`
+counts the kernel launches per route.
 
 ``x`` is f32 or bf16 (block 0 of a bf16 model feeds its embedding sum);
 the output is f32 either way, as in the JAX package. The bf16 lane of both
 routes gives the f32 lane's result on ``x.float()`` bit for bit: the warp
-route widens x as it stages it, the tile route takes a bf16 x as its own
-single plane (a third of the f32 lane's tensor-core products).
+route stages x as bf16 and widens it as it reads it, the tile route takes a
+bf16 x as its own single plane (a third of the f32 lane's tensor-core
+products).
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -36,7 +39,7 @@ __all__ = ["int8_weight_matmul", "int4_weight_matmul", "weight_matmul",
            "dequantize_int4_table", "count_launches",
            "record_launch", "reset_launches", "launches", "record_dma",
            "dma_ledger", "gemv_max_m", "GEMV_INT4_BLOCK", "GEMV_TILE_MIN_M",
-           "GEMV_TILE_K", "gemv_route", "gemv_routes", "record_lane", "dtype_lanes"]
+           "GEMV_TILE_K", "gemv_route", "gemv_routes", "gemv_widths", "record_lane", "dtype_lanes"]
 
 # row threshold of the GEMV route: at most this many rows stream int8
 # weights through K3, more take the activation-quantized int8 product
@@ -82,6 +85,7 @@ GEMV_INT4_BLOCK = 128
 # ---------------------------------------------------------------------------
 _COUNTS: Dict[str, int] = {}
 _ROUTES: Dict[str, int] = {"warp": 0, "mma": 0}
+_WIDTHS: Dict[str, int] = {}
 _LANES: Dict[str, int] = {}
 _COUNTS_LOCK = threading.Lock()
 _TALLY = threading.local()
@@ -116,8 +120,9 @@ def launches() -> Dict[str, int]:
 
 def record_lane(key: str):
     """Record one kernel launch on the card under its element-type lane,
-    ``"<kind>:<route>:<x dtype>"`` for K3/K4 (e.g. ``"gemv:mma:bf16"``) and
-    ``"<kind>:x_<dtype>:kv_<dtype>"`` for the block kernels."""
+    ``"<kind>:<route>:<x dtype>"`` for K3/K4 (e.g. ``"gemv:mma:bf16"``),
+    ``"<kind>:x_<dtype>:kv_<dtype>"`` for the block kernels and
+    ``"<kind>:h_<dtype>[:bf16_logits][:mask]"`` for K8."""
     with _COUNTS_LOCK:
         _LANES[key] = _LANES.get(key, 0) + 1
 
@@ -130,13 +135,17 @@ def dtype_lanes() -> Dict[str, int]:
         return dict(_LANES)
 
 
-def _record_gemv(kind: str, route: str, x_dtype: str = "f32"):
-    """Record one K3 or K4 kernel launch under its kind, its route and its
-    activation lane (``"f32"`` or ``"bf16"``)."""
+def _record_gemv(kind: str, route: str, x_dtype: str = "f32", N: Optional[int] = None):
+    """Record one K3 or K4 kernel launch under its kind, its route, its
+    activation lane (``"f32"`` or ``"bf16"``) and, where given, its output
+    width N."""
     record_launch(kind)
     record_lane(f"{kind}:{route}:{x_dtype}")
     with _COUNTS_LOCK:
         _ROUTES[route] += 1
+        if N is not None:
+            key = f"{route}:{N}"
+            _WIDTHS[key] = _WIDTHS.get(key, 0) + 1
 
 
 def gemv_routes() -> Dict[str, int]:
@@ -147,12 +156,22 @@ def gemv_routes() -> Dict[str, int]:
         return dict(_ROUTES)
 
 
+def gemv_widths() -> Dict[str, int]:
+    """Process-wide K3 + K4 kernel launches per ``"<route>:<N>"`` (e.g.
+    ``"warp:50304"``: the tied head of GPT-2 on the warp route) since the
+    last :func:`reset_launches`; card launches only, as
+    :func:`gemv_routes`."""
+    with _COUNTS_LOCK:
+        return dict(_WIDTHS)
+
+
 def reset_launches():
-    """Zero the launch counts, the route and lane counts and the DMA
+    """Zero the launch counts, the route, width and lane counts and the DMA
     ledger."""
     with _COUNTS_LOCK:
         _COUNTS.clear()
         _LANES.clear()
+        _WIDTHS.clear()
         for key in _ROUTES:
             _ROUTES[key] = 0
         _DMA_PENDING.clear()
@@ -283,6 +302,7 @@ def _cuda_int8_matmul(x, w_q, w_scale, M, N, K):
     x, xbf16 = _kernel_x(x, "int8_weight_matmul")
     w_q = w_q.contiguous()
     w_scale = w_scale.contiguous()
+    _check_aligned((w_q,), "int8_weight_matmul")
     y = torch.empty(M, N, device=x.device, dtype=torch.float32)
     lib = _build.library("int8_gemv")
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -295,23 +315,27 @@ def _cuda_int8_matmul(x, w_q, w_scale, M, N, K):
         rc = lib.mx_int8_gemv(x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
                               y.data_ptr(), M, N, K, xbf16, stream)
     _build.check(rc, "int8_gemv")
-    _record_gemv("gemv", route, "bf16" if xbf16 else "f32")
+    _record_gemv("gemv", route, "bf16" if xbf16 else "f32", N)
     return y
+
+
+def _check_aligned(tables, what):
+    """Raise unless every weight table (int4: and its block scales) starts
+    on a 16-byte boundary: both routes copy them in 16-byte units. No
+    fallback to the plain version."""
+    if any(t.data_ptr() % 16 for t in tables):
+        raise MXNetError(f"{what}: the kernel needs its weight tables on a "
+                         "16-byte boundary")
 
 
 def _check_tile(w, K, block, what):
     """Raise on operands the tile route cannot take: K, and an int4
-    table's block, whole k-tiles of ``GEMV_TILE_K`` codes; the table on a
-    16-byte boundary (its copies move 16 bytes; x is aligned by
-    :func:`_kernel_x`). No fallback to the warp route or the plain
-    version."""
+    table's block, whole k-tiles of ``GEMV_TILE_K`` codes. No fallback to
+    the warp route or the plain version."""
     if K % GEMV_TILE_K or block % GEMV_TILE_K:
         raise MXNetError(f"{what}: the tile route (9-{gemv_max_m()} rows) needs K and "
                          f"the int4 block to be multiples of {GEMV_TILE_K} (got K={K}, "
                          f"block={block})")
-    if w.data_ptr() % 16:
-        raise MXNetError(f"{what}: the tile route needs the weight table on a "
-                         "16-byte boundary")
 
 
 def _check_int4(x, w_p, w_scale, what):
@@ -369,6 +393,7 @@ def _cuda_int4_matmul(x, w_p, w_scale, M, N, K, block):
     x, xbf16 = _kernel_x(x, "int4_weight_matmul")
     w_p = w_p.contiguous()
     w_scale = w_scale.contiguous()
+    _check_aligned((w_p, w_scale), "int4_weight_matmul")
     y = torch.empty(M, N, device=x.device, dtype=torch.float32)
     lib = _build.library("int4_gemv")
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -381,5 +406,5 @@ def _cuda_int4_matmul(x, w_p, w_scale, M, N, K, block):
         rc = lib.mx_int4_gemv(x.data_ptr(), w_p.data_ptr(), w_scale.data_ptr(),
                               y.data_ptr(), M, N, K, block, xbf16, stream)
     _build.check(rc, "int4_gemv")
-    _record_gemv("gemv_int4", route, "bf16" if xbf16 else "f32")
+    _record_gemv("gemv_int4", route, "bf16" if xbf16 else "f32", N)
     return y

@@ -619,3 +619,108 @@ def test_bf16_engine_on_card(cuda):
         for p, r in zip(prompts, res):
             ref = gen.generate(model, torch.tensor([p]), 24, multi_token=4)[0, len(p):]
             assert r.generated_ids == ref.tolist()
+
+
+# ---------------------------------------------------------------------------
+# the redesigned warp route of K3/K4 (decode rows) and K8's mask/bf16 lanes
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["x_f32", "x_bf16"])
+@pytest.mark.parametrize("N,K", chip_smoke.GEMV_SHAPES)
+def test_warp_route_every_decode_m(cuda, bits, x_dtype, N, K):
+    """The warp route at every M from 1 to 8, at the serving path's shapes:
+    within 1e-4 x max(1, |plain|) (f32 sums in another order); each row the
+    same bits as in the 8-row call and on a second launch; a bf16 x the
+    f32 lane's bits on x.float(); every call counted on the warp route."""
+    x8, w, s = (_gemv_operands if bits == 8 else _int4_operands)(8, N, K, seed=N + K)
+    x8 = x8.to(x_dtype)
+    fn = int8_gemv.int8_weight_matmul if bits == 8 else int8_gemv.int4_weight_matmul
+    plain = int8_gemv._reference_int8_matmul if bits == 8 else int8_gemv._reference_int4_matmul
+    full = fn(x8, w, s)
+    int8_gemv.reset_launches()
+    for M in range(1, 9):
+        x = x8[:M].contiguous()
+        got, again, want = fn(x, w, s), fn(x, w, s), plain(x, w, s)
+        wide = fn(x.float(), w, s)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max() <= 1e-4 * max(1.0, want.abs().max().item()), M
+        assert torch.equal(got.view(torch.int32), full[:M].view(torch.int32)), M
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32)), M
+        assert torch.equal(got.view(torch.int32), wide.view(torch.int32)), M
+    assert int8_gemv.gemv_routes() == {"warp": 24, "mma": 0}
+    assert int8_gemv.gemv_widths() == {f"warp:{N}": 24}
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_warp_route_short_groups_and_long_rows(cuda, bits):
+    """Widths that leave a short last channel group (N % 4 != 0) and row
+    counts past gemv_max_m() (row tiles of 8) on the warp route: within
+    1e-4 of the plain version, rows the same bits as alone."""
+    fn = int8_gemv.int8_weight_matmul if bits == 8 else int8_gemv.int4_weight_matmul
+    plain = int8_gemv._reference_int8_matmul if bits == 8 else int8_gemv._reference_int4_matmul
+    for N, K, M in ((770, 768, 8), (1026, 3072, 3), (3, 256, 5), (384, 768, 70)):
+        x, w, s = (_gemv_operands if bits == 8 else _int4_operands)(M, N, K, seed=M)
+        got, want = fn(x, w, s), plain(x, w, s)
+        one = fn(x[M - 1:M].contiguous(), w, s)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max() <= 1e-4 * max(1.0, want.abs().max().item()), (N, K, M)
+        assert torch.equal(one, got[M - 1:M]), (N, K, M)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_head_sampler_greedy_equals_warp_head_at_every_m(cuda, bits):
+    """K8's greedy rows (f32 and bf16 h) equal the argmax of the warp
+    route's head logits at GPT-2's 50304 padded rows, at every M from 1 to
+    8, bit for bit (one dot order)."""
+    _, w, s = (_gemv_operands if bits == 8 else _int4_operands)(1, 50304, 768, seed=9)
+    vocab = 50257
+    g = torch.Generator(device="cuda").manual_seed(10)
+    h8 = torch.randn(8, 768, device="cuda", generator=g)
+    for M in range(1, 9):
+        for hd in (torch.float32, torch.bfloat16):
+            h = h8[:M].to(hd).contiguous()
+            kb = torch.zeros(M, dtype=torch.int64, device="cuda")
+            greedy = fb.fused_lm_head_sample(h, w, s, vocab, kb, torch.zeros(M, device="cuda"))
+            logits = int8_gemv.weight_matmul(h, w, s)[:, :vocab]
+            assert torch.equal(greedy.long(), logits.argmax(-1)), (M, hd)
+
+
+def test_head_sampler_mask_and_bf16_lanes_match_plain(net):
+    """K8's grammar-mask lane: tokens equal the plain version's (greedy and
+    T = 0.8 rows), none on a forbidden lane, greedy rows the masked head
+    GEMV + argmax. Its bf16 lane (bf16 h, logits rounded through bf16):
+    the plain version's tokens, h.float()'s tokens, and greedy rows the
+    argmax of the bf16-rounded head logits. Each lane counts its launch."""
+    w_q, scale, vocab = net.head_weights()
+    sfx = "_int4" if w_q.dtype == torch.uint8 else ""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    B, Vp = 6, w_q.shape[0]
+    h = torch.randn(B, net.cfg.hidden_size, device="cuda", generator=g)
+    hb = h.bfloat16()
+    kb = torch.from_numpy(gen._key_bits(onp.arange(B) + 7, onp.arange(B))).cuda()
+    mask = torch.rand(B, vocab, device="cuda", generator=g) < 0.2
+    mask_p = torch.zeros(B, Vp, dtype=torch.bool, device="cuda")
+    mask_p[:, :vocab] = mask
+    for temp in (0.0, 0.8):
+        temps = torch.full((B,), temp, device="cuda")
+        int8_gemv.reset_launches()
+        got = fb.fused_lm_head_sample(h, w_q, scale, vocab, kb, temps, mask=mask)
+        gb = fb.fused_lm_head_sample(hb, w_q, scale, vocab, kb, temps, out_dtype=torch.bfloat16)
+        assert int8_gemv.dtype_lanes() == {f"fused_head{sfx}:h_f32:mask": 1,
+                                           f"fused_head{sfx}:h_bf16:bf16_logits": 1}
+        plain = fb._reference_head_sample(h, w_q, scale, vocab, temps, kb, mask=mask_p)
+        assert torch.equal(got, plain)
+        assert bool(mask.gather(1, got.long()[:, None]).all())
+        pb = fb._reference_head_sample(hb.float(), w_q, scale, vocab, temps, kb,
+                                       out_dtype=torch.bfloat16)
+        wide = fb.fused_lm_head_sample(hb.float(), w_q, scale, vocab, kb, temps,
+                                       out_dtype=torch.bfloat16)
+        assert torch.equal(gb, pb) and torch.equal(gb, wide)
+        if temp == 0.0:
+            logits = int8_gemv.weight_matmul(h, w_q, scale)[:, :vocab]
+            assert torch.equal(got.long(), logits.masked_fill(~mask, float("-inf")).argmax(-1))
+            lb = int8_gemv.weight_matmul(hb, w_q, scale)[:, :vocab].bfloat16().float()
+            assert torch.equal(gb.long(), lb.argmax(-1))
+    with pytest.raises(MXNetError, match="bf16 or not at all"):
+        fb.fused_lm_head_sample(h, w_q, scale, vocab, kb, torch.zeros(B, device="cuda"),
+                                out_dtype=torch.float16)

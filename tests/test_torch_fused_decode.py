@@ -200,8 +200,9 @@ def test_plain_head_sampler_matches_jax_kernel(nets, temp):
 def test_filtered_sampling_and_masks_raise(nets):
     """A batch with a top-k/top-p row takes the reference's other branch:
     ``sample_tokens`` on the head GEMV's logits cut to the vocab, with the
-    rows' keys (and no K8 launch); [B] key bits cannot drive it. Grammar
-    masks still raise."""
+    rows' keys (and no K8 launch); [B] key bits cannot drive it. A grammar
+    mask goes with the logits to ``sample_tokens`` on that branch and is
+    folded into K8's selection on the other."""
     from mxnet_tpu_torch import _prng
     _, tnet = nets
     tw, ts, tv = tnet.head_weights()
@@ -218,6 +219,9 @@ def test_filtered_sampling_and_masks_raise(nets):
     assert (got == want).all()
     with pytest.raises(MXNetError, match="keys"):
         fb.fused_lm_head_sample(h, tw, ts, tv, keys[:, 0] ^ keys[:, 1], temps, topks=5)
-    with pytest.raises(MXNetError, match="grammar"):
-        fb.fused_lm_head_sample(h[:2], tw, ts, tv, keys[:2], torch.ones(2),
-                                mask=torch.ones(2, tv, dtype=torch.bool))
+    mask = torch.from_numpy(rng.rand(3, tv) < 0.3)
+    got = fb.fused_lm_head_sample(h, tw, ts, tv, keys, temps, topks, topps, mask=mask)
+    assert (got == gen.sample_tokens(logits, keys, temps, topks, topps, mask=mask)).all()
+    assert mask[torch.arange(3), got.long()].all()
+    greedy = fb.fused_lm_head_sample(h[:2], tw, ts, tv, keys[:2], torch.zeros(2), mask=mask[:2])
+    assert (greedy.long() == logits[:2].masked_fill(~mask[:2], float("-inf")).argmax(-1)).all()

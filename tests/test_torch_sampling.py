@@ -31,7 +31,6 @@ from mxnet_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from mxnet_tpu.serve import InferenceEngine as JaxEngine
 
 from mxnet_tpu_torch import _prng
-from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.contrib.quantization import quantize_net
 from mxnet_tpu_torch.interop import params_from_numpy
 from mxnet_tpu_torch.models import GPTConfig, GPTModel, generate
@@ -159,9 +158,14 @@ def test_filter_logits_masks_equal(seed):
     got = gen.filter_logits(torch.from_numpy(scaled), topk, topp).numpy()
     assert (onp.isfinite(want) == onp.isfinite(got)).all()
     assert (got[onp.isfinite(got)] == want[onp.isfinite(want)]).all()
-    with pytest.raises(MXNetError, match="grammar"):
-        gen.filter_logits(torch.from_numpy(scaled), topk, topp,
-                          mask=torch.ones(scaled.shape, dtype=torch.bool))
+    mask = onp.random.RandomState(seed + 50).rand(*scaled.shape) < 0.5
+    mask[:, 0] = True
+    want = onp.asarray(jgen.filter_logits(jnp.asarray(scaled), jnp.asarray(topk),
+                                          jnp.asarray(onp.ones_like(topp)), mask=jnp.asarray(mask)))
+    got = gen.filter_logits(torch.from_numpy(scaled), topk, onp.ones_like(topp),
+                            mask=torch.from_numpy(mask)).numpy()
+    assert (onp.isfinite(want) == onp.isfinite(got)).all()
+    assert (got[onp.isfinite(got)] == want[onp.isfinite(want)]).all()
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
