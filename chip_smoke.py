@@ -584,7 +584,10 @@ def same_bits_k5_k6_k7(torch, fb, gen, pack, pool, ps, pos, maxp=16, dtype=None)
 def kernel_k8(torch, timer, gen, head):
     """K8 at B=8 over the padded GPT-2 table (int8, or the int4 lane for a
     uint8 table), 4 greedy and 4 T=0.8 rows; then all 8 rows greedy against
-    the argmax of the head GEMV (K3 or K4), bit for bit."""
+    the argmax of the head GEMV (K3 or K4), bit for bit; and at B=16 (paged
+    A's batch: two row tiles), [B, 2] keys, against the plain version. Times
+    the warp-route head GEMV + ``argmax`` beside it (``warp_head_argmax_ms``:
+    the selection K8 fuses, in two launches)."""
     import numpy as np
 
     from mxnet_tpu_torch.models.generation import _key_bits
@@ -605,6 +608,16 @@ def kernel_k8(torch, timer, gen, head):
     check(torch.equal(got, plain), f"K8 tokens {got.tolist()} != {plain.tolist()}")
     check(torch.equal(greedy.long(), argmax),
           f"K8 greedy {greedy.tolist()} != head GEMV + argmax {argmax.tolist()}")
+    h16 = torch.randn(16, D, device="cuda", generator=gen)
+    keys16 = torch.from_numpy(np.stack(
+        [np.arange(16) * 7919 + 1, _key_bits(np.arange(16) + 300, np.arange(16))], -1)).cuda()
+    temps16 = torch.tensor([0.0, 0.8] * 8, device="cuda")
+    got16 = fb.fused_lm_head_sample(h16, w_q, scale, vocab, keys16, temps16)
+    plain16 = fb._reference_head_sample(h16, w_q, scale, vocab, temps16,
+                                        keys16[:, 0] ^ keys16[:, 1])
+    torch.cuda.synchronize()
+    check(torch.equal(got16, plain16), f"K8 at 16 rows: tokens {got16.tolist()} != plain "
+          f"{plain16.tolist()}")
     wdeq = dequant(torch, w_q, scale)
     b_ms, b_by = bound(table_bytes(w_q, scale) + 4 * B * D + 12 * B,
                        2 * B * Vp * D + (B * scale.numel() if int4 else 0))
@@ -613,6 +626,8 @@ def kernel_k8(torch, timer, gen, head):
             "plain_ms": timer(lambda: fb._reference_head_sample(h, w_q, scale, vocab,
                                                                 temps, kb)),
             "library_ms": timer(lambda: torch.argmax(torch.matmul(h, wdeq.T), -1)),
+            "warp_head_argmax_ms": timer(lambda: torch.argmax(
+                int8_gemv.weight_matmul(h, w_q, scale)[:, :vocab], -1)),
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -824,7 +839,7 @@ def device_share(torch, eng, prompts, new):
     by_kernel = {}
     for a, b, name in spans:
         key = next((k for k in ("fused_block_decode_paged_dma", "fused_block_decode_paged",
-                                "fused_block_decode", "head_tiles", "head_reduce",
+                                "fused_block_decode", "head_kernel",
                                 "int8_gemv_mma", "int4_gemv_mma", "int8_gemv", "int4_gemv")
                     if k in name), "other")
         by_kernel[key] = by_kernel.get(key, 0.0) + (b - a) / 1e3

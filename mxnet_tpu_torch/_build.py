@@ -129,10 +129,10 @@ def _declare(name: str, lib: ctypes.CDLL):
         lib.mx_paged_dma_tile_pages.argtypes = [i] * 6
         lib.mx_paged_dma_tile_pages.restype = i
     elif name == "lm_head_sample":
-        lib.mx_lm_head_sample.argtypes = [p] * 9 + [i] * 7 + [p]
+        lib.mx_lm_head_sample.argtypes = [p] * 4 + [i, p, i] + [p] * 5 + [i] * 7 + [p]
         lib.mx_lm_head_sample.restype = i
-        lib.mx_head_tiles.argtypes = [i]
-        lib.mx_head_tiles.restype = i
+        lib.mx_head_max_ctas.argtypes = []
+        lib.mx_head_max_ctas.restype = i
     elif name == "flash_attention_fwd":
         lib.mx_flash_fwd.argtypes = [p] * 5 + [i] * 6 + [f, i, p]
         lib.mx_flash_fwd.restype = i

@@ -4,12 +4,12 @@
 // (fused_block_decode_paged_dma.cu, page pools streamed through a ring).
 //
 // One GPT block's T = 1 decode step is five phases separated by
-// cooperative_groups grid barriers:
-//   1. LN1 -> qkv GEMV        (block_phase_qkv; the epilogue is the kernel's)
+// cooperative_groups grid barriers (block_step):
+//   1. LN1 -> qkv GEMV        (with pools, the epilogue scatters the new K/V rows)
 //   2. attention -> ctx       (the kernel's own)
 //   3. out GEMV + residual -> res
 //   4. LN2 -> fc GEMV + tanh-GeLU -> fc
-//   5. proj GEMV + residual -> out   (3 to 5: block_phases_out_mlp)
+//   5. proj GEMV + residual -> out
 // Every weight matrix is streamed once, by warps spread over all resident
 // CTAs, with the fixed-order dot of gemv_common.cuh, in one of its two
 // weight lanes: the phases are templates on the lane (Int8Rows: int8 rows,
@@ -20,6 +20,20 @@
 // The attention helpers (cta_max, cta_sum and the order of every sum) are
 // shared too, so the three kernels give a row the same bits for the same
 // logical cache.
+//
+// The weight phases (redesigned for Hopper; the first design unrolled a
+// copy of the GEMV per phase, staged with synchronous loads, and waited one
+// memory round trip per chunk): the four GEMV phases are iterations of one
+// loop with a run-time epilogue (Epi), so one copy of their code serves all
+// four. The block kernels' code runs once per phase and each phase's copy
+// was cold in the SM's instruction cache: the unrolled copies cost more
+// than the weights' bytes (tools/head_block_compare.py --probes split a
+// step's device time). Activations (and the LayerNorm
+// gains and offsets) are staged by cp.async, every word in flight at once;
+// each warp streams its channels' chunks in batches whose loads are issued
+// one batch ahead, the next channel's included; codes become floats by
+// exact byte tricks and the butterfly is the transposed one
+// (gemv_common.cuh). The sums are the first design's, in the same order.
 //
 // Element types. x, the block's input row, is f32 or bf16 (X: block 0 of a
 // bf16 model gets the bf16 embedding sum; every later block the f32
@@ -39,7 +53,7 @@
 
 #include <cooperative_groups.h>
 
-#include "gemv_common.cuh"
+#include "gemv_warp.cuh"
 
 namespace mx {
 
@@ -189,16 +203,36 @@ __device__ __forceinline__ float ln_value(float v, float mean, float inv, float 
   return round_bf16(__fadd_rn(round_bf16(__fmul_rn(n, round_bf16(g))), round_bf16(be)));
 }
 
-// LayerNorm of rows [r0, r0 + nr) of src[., D] (f32 or bf16) into
-// xs[nr][D] (f32, swizzle4 layout); warp w normalises row r0 + w (f32
-// statistics: mean, E[x^2] - mean^2 clamped at 0, rsqrt).
+// LayerNorm of rows [r0, r0 + nr) of src[., D] (f32 or bf16, 16-byte
+// aligned rows) into xs[nr][D] (f32, swizzle4 layout). The rows, then the
+// gain and offset, are first copied as they are into the bytes after the
+// tile (nr * D values of X at xs + kRowTile * D, then 2 * D f32), every
+// 16-byte word an asynchronous copy in flight at once; then warp w
+// normalises row r0 + w from there (f32 statistics: mean, E[x^2] - mean^2
+// clamped at 0, rsqrt; the sums in the order of a lane's loop, d = lane,
+// lane + 32, ..., then the butterfly).
 template <class X>
 __device__ __forceinline__ void stage_ln(float* xs, const X* src, int r0, int nr, int D,
                                          const float* g, const float* be, float eps) {
+  X* raw = reinterpret_cast<X*>(xs + kRowTile * D);
+  float* gs = reinterpret_cast<float*>(raw + kRowTile * D);
+  const int words = nr * D * static_cast<int>(sizeof(X)) / 16, dw = D / 4;
+  const float4* s4 = reinterpret_cast<const float4*>(src + static_cast<size_t>(r0) * D);
+  for (int i = threadIdx.x; i < words + 2 * dw; i += blockDim.x) {
+    const float4* from = i < words ? s4 + i
+                         : i < words + dw ? reinterpret_cast<const float4*>(g) + (i - words)
+                                          : reinterpret_cast<const float4*>(be) + (i - words - dw);
+    float4* to = i < words ? reinterpret_cast<float4*>(raw) + i
+                           : reinterpret_cast<float4*>(gs) + (i - words);
+    warp::cp_async_word(to, from);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   if (warp < nr) {
-    const X* row = src + static_cast<size_t>(r0 + warp) * D;
+    const X* row = raw + static_cast<size_t>(warp) * D;
     float s = 0.f, ss = 0.f;
     for (int d = lane; d < D; d += 32) {
       const float v = to_f32(row[d]);
@@ -212,7 +246,7 @@ __device__ __forceinline__ void stage_ln(float* xs, const X* src, int r0, int nr
     const float inv = rsqrtf(var + eps);
     for (int d = lane; d < D; d += 32) {
       xs[warp * D + 4 * swizzle4(d >> 2, D) + (d & 3)] =
-          ln_value(to_f32(row[d]), mean, inv, g[d], be[d], row);
+          ln_value(to_f32(row[d]), mean, inv, gs[d], gs[D + d], row);
     }
   }
 }
@@ -220,104 +254,6 @@ __device__ __forceinline__ void stage_ln(float* xs, const X* src, int r0, int nr
 __device__ __forceinline__ float gelu_tanh(float v) {
   const float c = 0.7978845608028654f;  // sqrt(2 / pi)
   return v * (0.5f * (1.f + tanhf(c * (v + 0.044715f * (v * v * v)))));
-}
-
-// GEMV epilogues: called once per (row, channel) with
-// y = x_row . w[n] * s[n] + bias[n].
-struct StoreEpi {
-  float* dst;
-  int N;
-  __device__ void operator()(int r, int n, float y) const {
-    dst[static_cast<size_t>(r) * N + n] = y;
-  }
-};
-
-template <class T>
-struct ResidualEpi {
-  const T* resid;  // f32, or the bf16 block input (widened: x + y in f32)
-  float* dst;
-  int N;
-  __device__ void operator()(int r, int n, float y) const {
-    const size_t o = static_cast<size_t>(r) * N + n;
-    dst[o] = to_f32(resid[o]) + y;
-  }
-};
-
-struct GeluEpi {
-  float* dst;
-  int N;
-  __device__ void operator()(int r, int n, float y) const {
-    dst[static_cast<size_t>(r) * N + n] = gelu_tanh(y);
-  }
-};
-
-// epi(r0 + r, n, xs[r] . w[n] * scale(n) + bias[n]) for the staged rows, n
-// over all warps of the grid; w is the lane W's table [N, K] with its
-// scales s and the lane's block (unused by the int8 lane).
-template <class W, class Epi>
-__device__ void gemv_rows(const float* xs, int r0, int nr, const void* w, const float* s,
-                          int block, const float* bias, int N, int K, const Epi& epi) {
-  const W wt(w, s, K, block);
-  const int lane = threadIdx.x & 31;
-  const int gw = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  for (int n = gw; n < N; n += gridDim.x * kWarps) {
-    float acc[kRowTile];
-    warp_dot_rows(xs, nr, wt, n, K, acc);
-    const float sc = wt.scale(n);
-    const float bn = __ldg(bias + n);
-#pragma unroll
-    for (int r = 0; r < kRowTile; ++r) {
-      if (lane == r && r < nr) epi(r0 + r, n, acc[r] * sc + bn);
-    }
-  }
-}
-
-// Phase 1: LN1 -> qkv GEMV; epi receives every qkv channel.
-template <class W, class X, class Epi>
-__device__ void block_phase_qkv(const BlockArgs& a, float* smem, const Epi& epi) {
-  for (int r0 = 0; r0 < a.B; r0 += kRowTile) {
-    const int nr = min(kRowTile, a.B - r0);
-    stage_ln(smem, static_cast<const X*>(a.x), r0, nr, a.D, a.g1, a.be1, a.eps);
-    __syncthreads();
-    gemv_rows<W>(smem, r0, nr, a.w_qkv, a.s_qkv, a.block, a.b_qkv, 3 * a.D, a.D, epi);
-    __syncthreads();
-  }
-}
-
-// Phases 3 to 5, after the attention phase and its grid barrier.
-template <class W, class X>
-__device__ void block_phases_out_mlp(const BlockArgs& a, float* smem,
-                                     cooperative_groups::grid_group& grid) {
-  const int D = a.D;
-  // phase 3: out GEMV + residual -> res
-  for (int r0 = 0; r0 < a.B; r0 += kRowTile) {
-    const int nr = min(kRowTile, a.B - r0);
-    stage_rows(smem, a.ctx, r0, nr, D);
-    __syncthreads();
-    gemv_rows<W>(smem, r0, nr, a.w_out, a.s_out, a.block, a.b_out, D, D,
-                 ResidualEpi<X>{static_cast<const X*>(a.x), a.res, D});
-    __syncthreads();
-  }
-  grid.sync();
-  // phase 4: LN2 -> fc GEMV + GeLU -> fc
-  for (int r0 = 0; r0 < a.B; r0 += kRowTile) {
-    const int nr = min(kRowTile, a.B - r0);
-    stage_ln(smem, a.res, r0, nr, D, a.g2, a.be2, a.eps);
-    __syncthreads();
-    gemv_rows<W>(smem, r0, nr, a.w_fc, a.s_fc, a.block, a.b_fc, 4 * D, D,
-                 GeluEpi{a.fc, 4 * D});
-    __syncthreads();
-  }
-  grid.sync();
-  // phase 5: proj GEMV (K = 4D) + residual -> out
-  for (int r0 = 0; r0 < a.B; r0 += kRowTile) {
-    const int nr = min(kRowTile, a.B - r0);
-    stage_rows(smem, a.fc, r0, nr, 4 * D);
-    __syncthreads();
-    gemv_rows<W>(smem, r0, nr, a.w_proj, a.s_proj, a.block4, a.b_proj, D, 4 * D,
-                 ResidualEpi<float>{a.res, a.out, D});
-    __syncthreads();
-  }
 }
 
 // The softmax of one (row, head) over the scores sc[0 .. p] in place (K5's
@@ -401,39 +337,195 @@ __device__ __forceinline__ void fma4(float4& acc, float w, const float4 v) {
   acc.w = fmaf(w, v.w, acc.w);
 }
 
-// The paged kernels' qkv epilogue: stores every channel to the qkv scratch
-// and scatters the K and V channels (D .. 3D) of row r into the pools at
-// its position: page bt[r, pos / ps] row pos % ps, or the sink page when
-// pos >= L = maxp * ps (the padded tail of a chunk; clamping the page
-// index would overwrite the row's last real page). The grid barrier after
-// phase 1 then orders every row's scatter before any (row, head) reads the
-// pools, so rows sharing pages see one pool state. Inactive rows (table
-// all sink, pos 0) write the sink page concurrently: harmless, nothing
-// reads it unmasked.
+// Where the paged kernels' qkv epilogue scatters the new K and V rows: row
+// r's position pos[r] in page bt[r, pos / ps], or the sink page when pos >=
+// L = maxp * ps (the padded tail of a chunk; clamping the page index would
+// overwrite the row's last real page). The grid barrier after phase 1
+// orders every row's scatter before any (row, head) reads the pools, so
+// rows sharing pages see one pool state. Inactive rows (table all sink, pos
+// 0) write the sink page concurrently: harmless, nothing reads it
+// unmasked. kp == nullptr: no pools (K5 writes its cache rows itself).
 template <class C>
-struct PagedQkvEpi {
-  float* qkv;
+struct PagedRows {
   const int* pos;
   const int* bt;  // [B, maxp]
   C* kp;          // [NP + 1, H, ps, hd]
   C* vp;
-  int D, H, ps, maxp, sink;
+  int ps, maxp, sink;
+};
+
+// The epilogue of a GEMV phase, y = x_row . w[n] * s[n] + bias[n] for
+// (row r, channel n), chosen at run time so that one copy of the GEMV's
+// code serves the four phases (a copy per phase, unrolled, would not stay
+// in the SM's instruction cache: the block kernels' code runs once per
+// phase, cold): kQkv stores y to the qkv scratch and, with pools, scatters
+// the K and V channels; kResidualX stores x + y (x the block input, f32 or
+// bf16 widened); kGelu stores gelu(y); kResidual stores res + y. prepare(r)
+// readies a copy for row r first (the scatter's slot in its page).
+template <class X, class C>
+struct Epi {
+  enum Kind { kQkv, kResidualX, kGelu, kResidual };
+  int kind;
+  float* dst;
+  int N, D, H;
+  const X* x;
+  const float* res;
+  PagedRows<C> paged;
+  size_t slot;  // prepare(r): row r's slot in its page, head 0 (values)
+
+  __device__ void prepare(int r) {
+    if (kind != kQkv || paged.kp == nullptr) return;
+    const int p = max(paged.pos[r], 0);
+    const int page = p < paged.maxp * paged.ps
+                         ? paged.bt[static_cast<size_t>(r) * paged.maxp + p / paged.ps]
+                         : paged.sink;
+    slot = (static_cast<size_t>(page) * H * paged.ps + p % paged.ps) * (D / H);
+  }
+
   __device__ void operator()(int r, int n, float y) const {
-    qkv[static_cast<size_t>(r) * 3 * D + n] = y;
-    if (n < D) return;
-    int c = n - D;
-    C* pool = kp;
-    if (c >= D) {
-      c -= D;
-      pool = vp;
+    const size_t o = static_cast<size_t>(r) * N + n;
+    if (kind == kResidualX) {
+      dst[o] = to_f32(x[o]) + y;
+    } else if (kind == kGelu) {
+      dst[o] = gelu_tanh(y);
+    } else if (kind == kResidual) {
+      dst[o] = res[o] + y;
+    } else {
+      dst[o] = y;
+      if (paged.kp == nullptr || n < D) return;
+      int c = n - D;
+      C* pool = paged.kp;
+      if (c >= D) {
+        c -= D;
+        pool = paged.vp;
+      }
+      const int hd = D / H;
+      const int h = c / hd;
+      store_elem(pool + slot + static_cast<size_t>(h) * paged.ps * hd + (c - h * hd), y);
     }
-    const int hd = D / H;
-    const int h = c / hd;
-    const int p = max(pos[r], 0);
-    const int page = p < maxp * ps ? bt[static_cast<size_t>(r) * maxp + p / ps] : sink;
-    store_elem(pool + ((static_cast<size_t>(page) * H + h) * ps + p % ps) * hd + (c - h * hd), y);
   }
 };
+
+// epi(r0 + r, n, xs[r] . w[n] * scale(n) + bias[n]) for the staged rows, n
+// over all warps of the grid, one channel a warp at a time; w is the lane
+// W's table [N, K] with its scales s and the lane's block (unused by the
+// int8 lane). Each dot is the warp dot of gemv_common.cuh (lane l walks
+// chunks l, l + 32, ... ascending, fmaf in ascending k, then the xor
+// butterfly's sums by scatter_sum: lane 4r holds row r). A warp's work is
+// one stream of chunk batches (kBatch chunks a lane; a GPT-2 row of 768
+// codes is one batch, of 3072 two) over its channels, and the loads of the
+// next batch, next channel's included, are in flight while the current
+// batch's FMAs run.
+template <class W, class X, class C>
+__device__ __forceinline__ void gemv_rows(const float* xs, int r0, int nr, const void* w,
+                                          const float* s, int block, const float* bias, int N,
+                                          int K, Epi<X, C> epi) {
+  typedef typename W::Raw Raw;
+  const W wt(w, s, K, block);
+  const int lane = threadIdx.x & 31;
+  const int r = lane >> 2;
+  if (r < nr) epi.prepare(r0 + r);
+  const int nchunk = K >> 4;
+  const int nb = (nchunk + 32 * kBatch - 1) / (32 * kBatch);  // batches a row
+  const int stride = gridDim.x * kWarps;
+  const int n0 = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int total = n0 < N ? ((N - 1 - n0) / stride + 1) * nb : 0;  // this warp's batches
+  Raw nraw[kBatch];
+  float nsc[kBatch], nscale = 0.f, nbias = 0.f;
+  if (total > 0) {
+    load_batch(wt, n0, 0, nchunk, nraw, nsc);
+    nscale = wt.scale(n0);
+    nbias = __ldg(bias + n0);
+  }
+  float acc[kRowTile];
+#pragma unroll
+  for (int q = 0; q < kRowTile; ++q) acc[q] = 0.f;
+  float scale = 0.f, b = 0.f;
+  int n = n0, j = 0;  // the current batch: batch j of channel n
+  for (int t = 0; t < total; ++t) {
+    Raw raw[kBatch];
+    float sc[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      raw[i] = nraw[i];
+      sc[i] = nsc[i];
+    }
+    if (j == 0) {
+      scale = nscale;
+      b = nbias;
+    }
+    if (t + 1 < total) {  // the next batch: this channel's next, or the next channel's first
+      const int n1 = j + 1 < nb ? n : n + stride, j1 = j + 1 < nb ? j + 1 : 0;
+      load_batch(wt, n1, j1, nchunk, nraw, nsc);
+      if (j1 == 0) {
+        nscale = wt.scale(n1);
+        nbias = __ldg(bias + n1);
+      }
+    }
+    dot_batch<W>(xs, nr, K, j, raw, sc, acc);
+    if (++j == nb) {
+      const float v = scatter_sum<kRowTile>(acc);
+      if ((lane & 3) == 0 && r < nr) epi(r0 + r, n, v * scale + b);
+#pragma unroll
+      for (int q = 0; q < kRowTile; ++q) acc[q] = 0.f;
+      j = 0;
+      n += stride;
+    }
+  }
+}
+
+// One block step's four GEMV phases, with the kernel's attention phase
+// (`attention()`, which writes ctx) between the first two and a grid
+// barrier between phases:
+//   0. LN1 -> qkv GEMV (kQkv: with `paged` pools, the new K/V rows land)
+//   1. out GEMV + residual on x -> res
+//   2. LN2 -> fc GEMV + tanh-GeLU -> fc
+//   3. proj GEMV (K = 4D) + residual on res -> out
+// The phases are iterations of one loop: one copy of the staging and GEMV
+// code serves all four (see Epi).
+template <class W, class X, class C, class Attention>
+__device__ __forceinline__ void block_step(const BlockArgs& a, float* smem,
+                                           cooperative_groups::grid_group& grid,
+                                           const PagedRows<C>& paged,
+                                           const Attention& attention) {
+  const int D = a.D;
+  typedef Epi<X, C> E;
+  for (int ph = 0; ph < 4; ++ph) {
+    if (ph == 1) {
+      grid.sync();  // every row's qkv (and new K/V rows) lands before attention
+      attention();
+    }
+    if (ph > 0) grid.sync();
+    const int K = ph == 3 ? 4 * D : D;
+    const int N = ph == 0 ? 3 * D : ph == 2 ? 4 * D : D;
+    const void* w = ph == 0 ? a.w_qkv : ph == 1 ? a.w_out : ph == 2 ? a.w_fc : a.w_proj;
+    const float* s = ph == 0 ? a.s_qkv : ph == 1 ? a.s_out : ph == 2 ? a.s_fc : a.s_proj;
+    const float* bias = ph == 0 ? a.b_qkv : ph == 1 ? a.b_out : ph == 2 ? a.b_fc : a.b_proj;
+    E epi;
+    epi.kind = ph == 0 ? E::kQkv : ph == 1 ? E::kResidualX : ph == 2 ? E::kGelu : E::kResidual;
+    epi.dst = ph == 0 ? a.qkv : ph == 1 ? a.res : ph == 2 ? a.fc : a.out;
+    epi.N = N;
+    epi.D = D;
+    epi.H = a.H;
+    epi.x = static_cast<const X*>(a.x);
+    epi.res = a.res;
+    epi.paged = paged;
+    epi.slot = 0;
+    for (int r0 = 0; r0 < a.B; r0 += kRowTile) {
+      const int nr = min(kRowTile, a.B - r0);
+      if (ph == 0) {
+        stage_ln(smem, static_cast<const X*>(a.x), r0, nr, D, a.g1, a.be1, a.eps);
+      } else if (ph == 2) {
+        stage_ln(smem, a.res, r0, nr, D, a.g2, a.be2, a.eps);
+      } else {
+        warp::stage_x(smem, ph == 1 ? a.ctx : a.fc, r0, nr, nr, K);
+      }
+      __syncthreads();
+      gemv_rows<W>(smem, r0, nr, w, s, ph == 3 ? a.block4 : a.block, bias, N, K, epi);
+      __syncthreads();
+    }
+  }
+}
 
 // The instantiation of a block kernel for the weight lane W, f32 or bf16 x
 // and f32 or bf16 caches. K<W, X, C>::get() returns the kernel template's
@@ -453,15 +545,22 @@ inline void (*pick_block_kernel(const Args& a, int x_bf16, int cache_bf16))(Args
 }
 
 // Cooperative launch of one instantiation of a block kernel on the grid of
-// block_grid, never more CTAs than fit at once.
+// block_grid, never more CTAs than fit at once, nor (ctas_per_sm > 0) more
+// than ctas_per_sm an SM.
 template <class Args>
-inline int launch_block(void (*kernel)(Args), Args& a, size_t smem, void* stream) {
+inline int launch_block(void (*kernel)(Args), Args& a, size_t smem, void* stream,
+                        int ctas_per_sm = 0) {
   if (!lane_fits(a.blk.D, a.blk.block, a.blk.block4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int ctas = 0;
   cudaError_t err = resident_ctas(kernel, smem, &ctas);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (ctas_per_sm > 0) {
+    int smem_max = 0, sms = 0;
+    if ((err = device_limits(&smem_max, &sms)) != cudaSuccess) return static_cast<int>(err);
+    ctas = ctas < ctas_per_sm * sms ? ctas : ctas_per_sm * sms;
+  }
   const int grid = block_grid(a.blk.B, a.blk.D, a.blk.H, ctas);
   void* params[] = {&a};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(grid), dim3(kThreads),

@@ -93,11 +93,10 @@ template <class W, class X, class C>
 __global__ void __launch_bounds__(mx::kThreads) fused_block_decode_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
-  mx::block_phase_qkv<W, X>(a.blk, smem, mx::StoreEpi{a.blk.qkv, 3 * a.blk.D});
-  grid.sync();
-  attention<C>(a, smem);  // cache row write + attention -> ctx
-  grid.sync();
-  mx::block_phases_out_mlp<W, X>(a.blk, smem, grid);
+  // no pools: the attention phase writes the cache rows and attends -> ctx
+  mx::block_step<W, X, C>(a.blk, smem, grid,
+                          mx::PagedRows<C>{nullptr, nullptr, nullptr, nullptr, 0, 0, 0},
+                          [&] { attention<C>(a, smem); });
 }
 
 template <class W, class X, class C>

@@ -120,14 +120,12 @@ template <class W, class X, class C>
 __global__ void __launch_bounds__(mx::kThreads) fused_block_decode_paged_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
-  mx::block_phase_qkv<W, X>(
-      a.blk, smem,
-      mx::PagedQkvEpi<C>{a.blk.qkv, a.pos, a.bt, static_cast<C*>(a.kp), static_cast<C*>(a.vp),
-                         a.blk.D, a.blk.H, a.ps, a.maxp, a.sink});
-  grid.sync();  // every row's K/V scatter lands before any gather
-  attention<C>(a, smem);
-  grid.sync();
-  mx::block_phases_out_mlp<W, X>(a.blk, smem, grid);
+  // the qkv phase scatters the new K/V rows; its barrier orders them before
+  // any gather
+  mx::block_step<W, X, C>(a.blk, smem, grid,
+                          mx::PagedRows<C>{a.pos, a.bt, static_cast<C*>(a.kp),
+                                           static_cast<C*>(a.vp), a.ps, a.maxp, a.sink},
+                          [&] { attention<C>(a, smem); });
 }
 
 template <class W, class X, class C>

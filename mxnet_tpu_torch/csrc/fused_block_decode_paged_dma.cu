@@ -26,8 +26,9 @@
 // (cp.async.bulk, ps * hd * itemsize contiguous bytes: 4 KB of f32 or 2 KB
 // of bf16 at ps 16, hd 64) that completes on the slot's mbarrier. Slots
 // hold the pool's dtype (a copy moves bytes, it cannot convert); the dots
-// widen each bf16 word to f32 after the wait. A slot holds tp = 256 / ps pages, one
-// key row per thread, and the next slot's copies are in flight while the
+// widen each bf16 word to f32 after the wait. A slot holds 1024 / itemsize
+// key rows (tp = that / ps pages): one f32 row a thread, two bf16 rows, the
+// same 64 KB at hd 64; and the next slot's copies are in flight while the
 // current slot's dot products run. Only pages 0 .. pos / ps are copied, so
 // each attended row is read once. Pass 1 keeps K5's f32 score row of L in
 // shared memory (4 KB at L 1024), pass 2 visits rows in K5's group order:
@@ -35,6 +36,17 @@
 // The new rows are scattered by the qkv epilogue before the grid barrier,
 // so every row's scatter lands before any page is copied: plain stores, not
 // copies.
+//
+// Redesigned for Hopper after splitting the first design's device time by
+// probe builds (tools/head_block_compare.py --probes, H100 at B 8, L 1024:
+// weight phases about 57 us, attention 31, grid barriers 5 of 93): the
+// weight phases are block_decode_common.cuh's one-loop design; pass 1 reads
+// a row's words `tid % 8` steps late (dot_row_lagged), which keeps
+// dot_row's order and removes its 8-way bank conflicts; and the launch
+// takes one CTA an SM (two (row, head) items on one SM shared its copies
+// and bank bandwidth: the bf16 ring, small enough for two CTAs an SM, was
+// slower than the f32 one). A deeper ring (3, 4) and an L2 prefetch of the
+// pages and weights at launch measured no gain and were left out.
 //
 // Copy ledger (ops/int8_gemv.record_dma): per launch 2 * H * sum_b
 // (min(pos_b, L - 1) / ps + 1) page copies (a K and a V copy per attended
@@ -57,58 +69,12 @@ struct Args {
   void* vp;
   int* counters;   // [2] copies started, copies waited; may be null
   int ps, maxp, sink, depth, tp;
+  // swz: K pages come by 2-D tensor copies through tk (kp as [(NP + 1) H,
+  // ps, hd] bf16, boxes of one page, 128-byte swizzle): bf16 pools at hd 64
+  // with pages of whole 1 KB swizzle patterns (ps % 8 == 0)
+  int swz;
+  alignas(64) CUtensorMap tk;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// Arm the barrier for `bytes` of incoming copies (this arrival completes
-// the phase together with those bytes).
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait for the completion of the barrier's phase with this parity. Traps
-// (a launch error, never a hang) if it has not completed after ~2^34
-// cycles.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  const long long t0 = clock64();
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1LL << 34)) __trap();
-  }
-}
-
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// Order this thread's generic-proxy shared-memory accesses before later
-// async-proxy (TMA) writes to the same bytes.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 // The copies of one (row, head): load i < 2 * ntile is pass i / ntile (0: K,
 // 1: V) of tile i % ntile, pages [t * tp, min((t + 1) * tp, np)).
@@ -128,13 +94,108 @@ __device__ void start_load(const Args& a, const Stream<C>& st, int i, C* slot, u
   const C* pool = st.pool[i / st.ntile];
   const int first = t * a.tp;
   const int n = min(a.tp, st.np - first);
-  mbar_expect(bar, page_bytes * n);
+  mxh::mbar_expect(bar, page_bytes * n);
+  const bool tensor = sizeof(C) == 2 && a.swz && i < st.ntile;  // a swizzled K slot
   for (int k = 0; k < n; ++k) {
     const int page = st.table[first + k];
-    bulk_copy(slot + static_cast<size_t>(k) * a.ps * hd,
+    if constexpr (sizeof(C) == 2) {
+      if (tensor) {
+        mxh::tma_load_3d(slot + static_cast<size_t>(k) * a.ps * hd, &a.tk, bar, 0, 0,
+                         page * a.blk.H + st.h);
+        continue;
+      }
+    }
+    mx::warp::bulk_copy(slot + static_cast<size_t>(k) * a.ps * hd,
               pool + (static_cast<size_t>(page) * a.blk.H + st.h) * a.ps * hd, page_bytes, bar);
   }
   if (a.counters != nullptr) atomicAdd(a.counters, n);
+}
+
+// q . k over one head row in ascending order (dot_row's FMAs, in its
+// order), with this thread's 16-byte loads `lag` steps late. A row of the
+// ring is hd * itemsize bytes (256 or 128 at hd 64, a multiple of 128): in
+// dot_row's order the 8 threads of a load phase (8 rows) would all read
+// the same 16-byte bank group, an 8-way conflict on every load. With lag =
+// tid % 8 they read 8 different groups. f32: a load is one word (four
+// values); bf16: two words (eight values), and q is staged as its even
+// words, then its odd ones (q_word), so that the q words of a step are 8
+// different groups too.
+__device__ __forceinline__ float dot_row_lagged(const float4* q4, const float* k, int hd4,
+                                                int lag) {
+  float s = 0.f;
+  for (int t = 0; t < hd4 + 7; ++t) {
+    const int e = t - lag;
+    if (e >= 0 && e < hd4) {
+      const float4 kv = reinterpret_cast<const float4*>(k)[e];
+      const float4 qv = q4[e];
+      s = fmaf(qv.x, kv.x, s);
+      s = fmaf(qv.y, kv.y, s);
+      s = fmaf(qv.z, kv.z, s);
+      s = fmaf(qv.w, kv.w, s);
+    }
+  }
+  return s;
+}
+__device__ __forceinline__ float dot_row_lagged(const float4* q4, const mx::bf16* k, int hd4,
+                                                int lag) {
+  float s = 0.f;
+  const int units = hd4 >> 1;
+  for (int t = 0; t < units + 7; ++t) {
+    const int u = t - lag;
+    if (u >= 0 && u < units) {
+      const uint4 v = reinterpret_cast<const uint4*>(k)[u];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 kv = mx::widen4(h ? make_uint2(v.z, v.w) : make_uint2(v.x, v.y));
+        const float4 qv = q4[h * (hd4 >> 1) + u];
+        s = fmaf(qv.x, kv.x, s);
+        s = fmaf(qv.y, kv.y, s);
+        s = fmaf(qv.z, kv.z, s);
+        s = fmaf(qv.w, kv.w, s);
+      }
+    }
+  }
+  return s;
+}
+
+// q . k over one bf16 key row of 64 values that a tensor copy with the
+// 128-byte swizzle wrote (its 16-byte chunk u at u ^ sw, sw = the row's
+// index in its 1 KB swizzle pattern), in ascending order: the 8 rows of a
+// load phase read 8 different bank groups with no lag; every thread reads
+// the same q word (a broadcast).
+__device__ __forceinline__ float dot_row_swizzled(const float4* q4, const mx::bf16* k, int sw) {
+  float s = 0.f;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const uint4 v = reinterpret_cast<const uint4*>(k)[u ^ sw];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 kv = mx::widen4(h ? make_uint2(v.z, v.w) : make_uint2(v.x, v.y));
+      const float4 qv = q4[2 * u + h];
+      s = fmaf(qv.x, kv.x, s);
+      s = fmaf(qv.y, kv.y, s);
+      s = fmaf(qv.z, kv.z, s);
+      s = fmaf(qv.w, kv.w, s);
+    }
+  }
+  return s;
+}
+
+// The score of key row jj of a slot (q . k, not yet scaled).
+template <class C>
+__device__ __forceinline__ float score_row(const Args& a, const float4* q4, const C* k, int jj,
+                                           int hd4) {
+  if constexpr (sizeof(C) == 2) {
+    if (a.swz) return dot_row_swizzled(q4, k, jj & 7);
+  }
+  return dot_row_lagged(q4, k, hd4, threadIdx.x & 7);
+}
+
+// Where q's float4 word w is staged: in order, or (bf16 rows read lagged)
+// even words then odd ones (dot_row_lagged).
+template <class C>
+__device__ __forceinline__ int q_word(const Args& a, int w, int hd4) {
+  return sizeof(C) == 2 && !a.swz ? (w & 1) * (hd4 >> 1) + (w >> 1) : w;
 }
 
 // One CTA per (row, head): stream the row's pages 0 .. pa / ps (pa =
@@ -157,10 +218,10 @@ __device__ void attention(const Args& a, float* smem, uint64_t* bars) {
   const int groups = mx::kThreads / hd4;
   unsigned seq = 0;
   if (tid == 0) {
-    for (int s = 0; s < depth; ++s) mbar_init(bars + s);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < depth; ++s) mxh::mbar_init(bars + s, 1);
+    mxh::mbar_fence_init();
   }
-  fence_proxy_async();  // the qkv phase staged activations in these bytes
+  mxh::fence_proxy_async();  // the qkv phase staged activations in these bytes
   __syncthreads();
   for (int item = blockIdx.x; item < a.blk.B * H; item += gridDim.x) {
     const int b = item / H, h = item % H;
@@ -180,7 +241,9 @@ __device__ void attention(const Args& a, float* smem, uint64_t* bars) {
       }
     }
     const float* row = a.blk.qkv + static_cast<size_t>(b) * 3 * D + h * hd;
-    for (int d = tid; d < hd; d += mx::kThreads) qs[d] = row[d];
+    for (int d = tid; d < hd; d += mx::kThreads) {
+      qs[4 * q_word<C>(a, d >> 2, hd4) + (d & 3)] = row[d];
+    }
     __syncthreads();
     const float4* q4 = reinterpret_cast<const float4*>(qs);
     float sum = 0.f;
@@ -189,13 +252,13 @@ __device__ void attention(const Args& a, float* smem, uint64_t* bars) {
     for (int i = 0; i < loads; ++i, ++seq) {
       const int slot_i = seq % depth;
       C* slot = ring + static_cast<size_t>(slot_i) * rows * hd;
-      mbar_wait(bars + slot_i, (seq / depth) & 1u);
+      mxh::mbar_wait(bars + slot_i, (seq / depth) & 1u);
       const int j0 = (i % st.ntile) * rows;  // first key row of the slot
       const int jn = min(j0 + rows, pa + 1);
       if (i < st.ntile) {
         // pass 1: scores of the slot's key rows
         for (int j = j0 + tid; j < jn; j += mx::kThreads) {
-          sc[j] = mx::dot_row(q4, slot + static_cast<size_t>(j - j0) * hd, hd4) * scale;
+          sc[j] = score_row(a, q4, slot + static_cast<size_t>(j - j0) * hd, j - j0, hd4) * scale;
         }
       } else if (g < groups) {
         // pass 2: group g takes rows j = g (mod groups), ascending
@@ -206,7 +269,7 @@ __device__ void attention(const Args& a, float* smem, uint64_t* bars) {
       if (tid == 0 && a.counters != nullptr) {
         atomicAdd(a.counters + 1, min(a.tp, st.np - (i % st.ntile) * a.tp));
       }
-      fence_proxy_async();
+      mxh::fence_proxy_async();
       __syncthreads();  // the slot is read: it may be refilled
       if (tid == 0 && i + depth < loads) {
         start_load(a, st, i + depth, slot, bars + slot_i);
@@ -231,20 +294,21 @@ __host__ __device__ long long layout_bytes(int D, int H, int ps, int maxp, int d
 }
 
 template <class W, class X, class C>
-__global__ void __launch_bounds__(mx::kThreads) fused_block_decode_paged_dma_kernel(Args a) {
-  extern __shared__ __align__(16) float smem[];
+__global__ void __launch_bounds__(mx::kThreads)
+    fused_block_decode_paged_dma_kernel(const __grid_constant__ Args a) {
+  extern __shared__ __align__(1024) float smem[];
   cg::grid_group grid = cg::this_grid();
-  mx::block_phase_qkv<W, X>(
-      a.blk, smem,
-      mx::PagedQkvEpi<C>{a.blk.qkv, a.pos, a.bt, static_cast<C*>(a.kp), static_cast<C*>(a.vp),
-                         a.blk.D, a.blk.H, a.ps, a.maxp, a.sink});
-  grid.sync();  // every row's K/V scatter lands before any page copy
+  // swizzled slots need their 1 KB swizzle patterns aligned
+  if (sizeof(C) == 2 && a.swz && (mxh::smem_addr(smem) & 1023u)) __trap();
   uint64_t* bars = reinterpret_cast<uint64_t*>(
       reinterpret_cast<char*>(smem) +
       layout_bytes(a.blk.D, a.blk.H, a.ps, a.maxp, a.depth, a.tp, sizeof(C)));
-  attention<C>(a, smem, bars);
-  grid.sync();
-  mx::block_phases_out_mlp<W, X>(a.blk, smem, grid);
+  // the qkv phase scatters the new K/V rows; its barrier orders them before
+  // any page copy
+  mx::block_step<W, X, C>(a.blk, smem, grid,
+                          mx::PagedRows<C>{a.pos, a.bt, static_cast<C*>(a.kp),
+                                           static_cast<C*>(a.vp), a.ps, a.maxp, a.sink},
+                          [&] { attention<C>(a, smem, bars); });
 }
 
 template <class W, class X, class C>
@@ -258,12 +322,39 @@ long long smem_bytes(int D, int H, int ps, int maxp, int depth, int tp, int item
 
 constexpr long long kSmemLimit = 232448;  // one CTA's shared memory on Hopper
 
+// The tensor map of a bf16 K pool [mats, ps, 64] for one-page boxes with the
+// 128-byte swizzle, encoded once per (pool, shape) and kept (a decode step
+// launches K7 once per layer, on the layer's own pool).
+bool key_map(CUtensorMap* map, const void* kp, int mats, int ps) {
+  struct Entry {
+    const void* kp;
+    int mats, ps;
+    CUtensorMap map;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> cache;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& e : cache) {
+    if (e.kp == kp && e.mats == mats && e.ps == ps) {
+      *map = e.map;
+      return true;
+    }
+  }
+  if (!mxh::bf16_rows_map(map, kp, mats, ps, 64, ps)) return false;
+  if (cache.size() >= 256) cache.clear();
+  cache.push_back(Entry{kp, mats, ps, *map});
+  return true;
+}
+
 }  // namespace
 
-// Pages per ring slot (ops/fused_block_gemv._dma_tile_pages): 256 / ps, one
-// key row per thread, fewer while the ring does not fit.
+// Pages per ring slot (ops/fused_block_gemv._dma_tile_pages): 1024 /
+// itemsize key rows (one f32 row a thread, two bf16 rows: a copy's latency,
+// not its bytes, bounds a slot, so bf16 slots hold twice the rows), fewer
+// while the ring does not fit.
 extern "C" int mx_paged_dma_tile_pages(int D, int H, int ps, int maxp, int depth, int itemsize) {
-  int tp = mx::kThreads / ps > 1 ? mx::kThreads / ps : 1;
+  const int rows = mx::kThreads * 4 / itemsize;
+  int tp = rows / ps > 1 ? rows / ps : 1;
   while (tp > 1 && smem_bytes(D, H, ps, maxp, depth, tp, itemsize) > kSmemLimit) --tp;
   return tp;
 }
@@ -306,6 +397,8 @@ extern "C" int mx_fused_block_decode_paged_dma(
   a.depth = depth;
   const int itemsize = cache_bf16 ? 2 : 4;
   a.tp = mx_paged_dma_tile_pages(D, H, ps, maxp, depth, itemsize);
+  a.swz = cache_bf16 && D / H == 64 && ps % 8 == 0 && ps <= 256 &&
+          key_map(&a.tk, kp, (sink + 1) * H, ps);
   if ((static_cast<long long>(ps) * (D / H) * itemsize) % 16 ||
       reinterpret_cast<uintptr_t>(kp) % 16 || reinterpret_cast<uintptr_t>(vp) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);  // TMA needs 16-byte slabs
@@ -314,5 +407,8 @@ extern "C" int mx_fused_block_decode_paged_dma(
   if (smem == 0 || smem > static_cast<size_t>(kSmemLimit)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return mx::launch_block(mx::pick_block_kernel<Kernel>(a, x_bf16, cache_bf16), a, smem, stream);
+  // one CTA an SM: two (row, head) items streaming on one SM share its
+  // copy and shared-memory bandwidth while other SMs idle
+  return mx::launch_block(mx::pick_block_kernel<Kernel>(a, x_bf16, cache_bf16), a, smem, stream,
+                          1);
 }

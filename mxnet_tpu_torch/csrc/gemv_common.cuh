@@ -24,7 +24,8 @@
 // The activations come as f32 or bf16 rows (the model's dtype at block 0 of
 // a bf16 model; K8's h in a model whose head sees bf16). A bf16 value is
 // exact in f32, so every dot above is the f32 lane's on x.float(), bit for
-// bit: stage_rows widens it as it stages, the warp route at read.
+// bit: the block kernels widen it as they stage it, the warp route (K3, K4,
+// K8) as it reads it.
 //
 // Two weight lanes feed that loop (Int8Rows, Int4Rows below). An int8 chunk
 // is 16 bytes and its codes are the weights; the row's f32 scale multiplies
@@ -49,24 +50,13 @@ constexpr int kRowTile = 8;            // activation rows staged per pass
 
 // Shared-memory layout of a staged f32 activation row of length K: the
 // row is K / 16 chunks of four float4 words; word q of chunk c is stored
-// at float4 index q * (K / 16) + c. In warp_dot_rows lane l reads chunk
+// at float4 index q * (K / 16) + c. In the warp dot lane l reads chunk
 // l (+ 32 i), so for each q the warp reads 32 consecutive float4 words,
 // free of bank conflicts (in row order the lanes would sit 64 bytes
 // apart: a 4-way conflict on every load). `w` is the float4 word index
 // k / 4 in row order.
 __device__ __forceinline__ int swizzle4(int w, int K) {
   return (w & 3) * (K >> 4) + (w >> 2);
-}
-
-__device__ __forceinline__ void unpack16(const int4 v, float* f) {
-  const int words[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      f[4 * q + j] = static_cast<float>(static_cast<int8_t>(words[q] >> (8 * j)));
-    }
-  }
 }
 
 typedef __nv_bfloat16 bf16;
@@ -81,64 +71,40 @@ __device__ __forceinline__ float4 widen4(const uint2 v) {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
-// Copy rows [r0, r0 + nr) of the row-major f32 matrix src (row length K)
-// into shared memory dst[nr][K], each row in the swizzle4 layout. Called
-// by the whole CTA.
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, int r0,
-                                           int nr, int K) {
-  const float4* s4 = reinterpret_cast<const float4*>(src + static_cast<size_t>(r0) * K);
-  float4* d4 = reinterpret_cast<float4*>(dst);
-  const int kw = K >> 2;
-  for (int i = threadIdx.x; i < nr * kw; i += blockDim.x) {
-    const int r = i / kw;
-    d4[r * kw + swizzle4(i - r * kw, K)] = s4[i];
+// Four int8 codes (one 32-bit word) as exact f32 values: byte b + 128 is
+// placed under the exponent of 2^23, and 2^23 + 128 is subtracted (the
+// integer ALU and one FMA-pipe subtraction, not I2F conversions, which run
+// at a quarter of the FMA rate on sm_90).
+__device__ __forceinline__ void i8x4(const int w, float (&f)[4]) {
+  const uint32_t u = static_cast<uint32_t>(w) ^ 0x80808080u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    f[j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u + j)) - 8388736.f;
   }
 }
 
-// The same from a bf16 matrix (16-byte aligned rows, K % 8 == 0): each
-// thread loads 8 bf16 (16 bytes) and stores them widened as two float4
-// words.
-__device__ __forceinline__ void stage_rows(float* dst, const bf16* src, int r0, int nr,
-                                           int K) {
-  const uint4* s8 = reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0) * K);
-  float4* d4 = reinterpret_cast<float4*>(dst);
-  const int kw = K >> 2, k8 = K >> 3;
-  for (int i = threadIdx.x; i < nr * k8; i += blockDim.x) {
-    const int r = i / k8, c = i - r * k8;
-    const uint4 v = s8[i];
-    d4[r * kw + swizzle4(2 * c, K)] = widen4(make_uint2(v.x, v.y));
-    d4[r * kw + swizzle4(2 * c + 1, K)] = widen4(make_uint2(v.z, v.w));
-  }
-}
-
-// Codes 16c .. 16c + 15 of an int4 row from its chunk c, 8 bytes of
-// nibble pairs: code 2i is the lo nibble of byte i, code 2i + 1 the hi
-// nibble, each stored as code + 8 (kvstore/quant.py:pack_codes). Each code
-// times its block scale `sc`, rounded to f32, as the plain version's
-// dequantize_blocks rounds it.
-__device__ __forceinline__ void unpack_nibbles16(const uint2 v, float sc, float* f) {
-  const uint32_t words[2] = {v.x, v.y};
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t b = words[q] >> (8 * j);
-      f[8 * q + 2 * j] = static_cast<float>(static_cast<int>(b & 0xFu) - 8) * sc;
-      f[8 * q + 2 * j + 1] = static_cast<float>(static_cast<int>((b >> 4) & 0xFu) - 8) * sc;
-    }
-  }
+// Nibble code byte j of `nib` (0..15, stored as code + 8) as the exact f32
+// value code - 8.
+__device__ __forceinline__ float nib_f32(const uint32_t nib, int j) {
+  return __uint_as_float(__byte_perm(nib, 0x4B000000u, 0x7540u + j)) - 8388616.f;
 }
 
 // int8 lane: rows [N, K] int8 (16-byte aligned rows, K % 16 == 0) and one
-// f32 scale per row, applied after the dot.
+// f32 scale per row, applied after the dot. A chunk is 16 codes (one int4).
 struct Int8Rows {
+  typedef int4 Raw;
   const int8_t* w;
   const float* s;  // [N]
   int K;
   __host__ __device__ Int8Rows(const void* w_, const float* s_, int K_, int /*block*/)
       : w(static_cast<const int8_t*>(w_)), s(s_), K(K_) {}
-  __device__ __forceinline__ void chunk(int n, int c, float* f) const {
-    unpack16(__ldg(reinterpret_cast<const int4*>(w + static_cast<size_t>(n) * K) + c), f);
+  __device__ __forceinline__ Raw raw(int n, int c) const {
+    return __ldg(reinterpret_cast<const int4*>(w + static_cast<size_t>(n) * K) + c);
+  }
+  __device__ __forceinline__ float raw_scale(int, int) const { return 1.f; }
+  // weights 4q .. 4q + 3 of the chunk
+  __device__ static __forceinline__ void word(const Raw& v, int q, float, float (&f)[4]) {
+    i8x4(q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w, f);
   }
   __device__ __forceinline__ float scale(int n) const { return __ldg(s + n); }
 };
@@ -146,54 +112,138 @@ struct Int8Rows {
 // int4 lane: rows [N, K / 2] uint8 of nibble pairs (K % 16 == 0, so a row
 // is whole 8-byte chunks) and f32 block scales [N, K / block]. A chunk's 16
 // codes lie in one block (block % 16 == 0, gated by the wrappers), so one
-// scale serves the chunk. The scale after the dot is 1 (x * 1 is exact).
+// scale serves the chunk: code 2i is the lo nibble of byte i, code 2i + 1
+// the hi nibble, each stored as code + 8 (kvstore/quant.py:pack_codes),
+// each times its block scale and rounded to f32 (the plain version's
+// dequantize_blocks) BEFORE its FMA. The scale after the dot is 1.
 struct Int4Rows {
+  typedef uint2 Raw;
   const uint8_t* w;
   const float* s;  // [N, K / block]
   int K, nsb, cpb;  // row length, scale blocks per row, chunks per block
   __host__ __device__ Int4Rows(const void* w_, const float* s_, int K_, int block)
       : w(static_cast<const uint8_t*>(w_)), s(s_), K(K_), nsb(K_ / block), cpb(block >> 4) {}
-  __device__ __forceinline__ void chunk(int n, int c, float* f) const {
-    const uint2 v =
-        __ldg(reinterpret_cast<const uint2*>(w + static_cast<size_t>(n) * (K >> 1)) + c);
-    unpack_nibbles16(v, __ldg(s + static_cast<size_t>(n) * nsb + c / cpb), f);
+  __device__ __forceinline__ Raw raw(int n, int c) const {
+    return __ldg(reinterpret_cast<const uint2*>(w + static_cast<size_t>(n) * (K >> 1)) + c);
+  }
+  __device__ __forceinline__ float raw_scale(int n, int c) const {
+    return __ldg(s + static_cast<size_t>(n) * nsb + c / cpb);
+  }
+  // codes 4q .. 4q + 3 of the chunk: lo, hi nibble of byte 2q, then of
+  // byte 2q + 1, each times the block scale
+  __device__ static __forceinline__ void word(const Raw& v, int q, float sc, float (&f)[4]) {
+    const uint32_t w = (q < 2) ? v.x : v.y;
+    const uint32_t lo = w & 0x0F0F0F0Fu, hi = (w >> 4) & 0x0F0F0F0Fu;
+    const int b = (2 * q) & 3;
+    f[0] = nib_f32(lo, b) * sc;
+    f[1] = nib_f32(hi, b) * sc;
+    f[2] = nib_f32(lo, b + 1) * sc;
+    f[3] = nib_f32(hi, b + 1) * sc;
   }
   __device__ __forceinline__ float scale(int) const { return 1.f; }
 };
 
-// acc[r] = sum_k xs[r][k] * w_n[k] for r < nr (xs in shared memory, row
-// length K in the swizzle4 layout, K % 16 == 0; w_n row n of the lane's
-// table, as f32 weights). Every lane of the warp returns the same values.
-template <class W>
-__device__ __forceinline__ void warp_dot_rows(const float* xs, int nr, const W& wt, int n,
-                                              int K, float (&acc)[kRowTile]) {
+// One step of the transposed butterfly at lane mask Mask over the first
+// 2 H partials: a lane keeps the half whose index bit matches its lane bit
+// and adds its partner's partial of the same value; then the next step.
+template <int V, int H, int Mask>
+__device__ __forceinline__ void scatter_step(float (&a)[V], int lane) {
+  const bool up = lane & Mask;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = up ? a[i] : a[i + H];
+    const float keep = up ? a[i + H] : a[i];
+    a[i] = keep + __shfl_xor_sync(0xffffffffu, send, Mask);
+  }
+  if constexpr (H > 1) scatter_step<V, H / 2, Mask / 2>(a, lane);
+}
+
+template <int V>
+struct Log2 {
+  static constexpr int v = V <= 1 ? 0 : 1 + Log2<V / 2>::v;
+};
+template <>
+struct Log2<1> {
+  static constexpr int v = 0;
+};
+
+// Transposed butterfly over V lane partials (a power of two, at most 32):
+// returns value lane >> (5 - log2 V), summed over the warp exactly as the
+// xor butterfly (masks 16, 8, 4, 2, 1) sums each value: every value sees
+// the same pairs in the same order (a + b == b + a), in V - 1 + 5 - log2 V
+// shuffles instead of 5 V.
+template <int V>
+__device__ __forceinline__ float scatter_sum(float (&a)[V]) {
+  static_assert(V >= 1 && V <= 32 && (V & (V - 1)) == 0, "V: a power of two up to 32");
   const int lane = threadIdx.x & 31;
+  if constexpr (V > 1) scatter_step<V, V / 2, 16>(a, lane);
 #pragma unroll
-  for (int r = 0; r < kRowTile; ++r) acc[r] = 0.f;
+  for (int m = 16 >> Log2<V>::v; m > 0; m >>= 1) a[0] += __shfl_xor_sync(0xffffffffu, a[0], m);
+  return a[0];
+}
+
+// acc[r] += xs[r] . the 16 weights wf of chunk c (fmaf in ascending k), for
+// the staged rows r < nr (xs in shared memory, row length K in the
+// swizzle4 layout).
+__device__ __forceinline__ void fma_chunk(const float* xs, int nr, int K, int c,
+                                          const float (&wf)[16], float (&acc)[kRowTile]) {
   const int nchunk = K >> 4;
-  for (int c = lane; c < nchunk; c += 32) {
-    float wf[16];
-    wt.chunk(n, c, wf);
 #pragma unroll
-    for (int r = 0; r < kRowTile; ++r) {
-      if (r < nr) {
-        const float4* xr = reinterpret_cast<const float4*>(xs + r * K) + c;
+  for (int r = 0; r < kRowTile; ++r) {
+    if (r < nr) {
+      const float4* xr = reinterpret_cast<const float4*>(xs + r * K) + c;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float4 xv = xr[q * nchunk];
-          acc[r] = fmaf(xv.x, wf[4 * q + 0], acc[r]);
-          acc[r] = fmaf(xv.y, wf[4 * q + 1], acc[r]);
-          acc[r] = fmaf(xv.z, wf[4 * q + 2], acc[r]);
-          acc[r] = fmaf(xv.w, wf[4 * q + 3], acc[r]);
-        }
+      for (int q = 0; q < 4; ++q) {
+        const float4 xv = xr[q * nchunk];
+        acc[r] = fmaf(xv.x, wf[4 * q + 0], acc[r]);
+        acc[r] = fmaf(xv.y, wf[4 * q + 1], acc[r]);
+        acc[r] = fmaf(xv.z, wf[4 * q + 2], acc[r]);
+        acc[r] = fmaf(xv.w, wf[4 * q + 3], acc[r]);
       }
     }
   }
+}
+
+// A lane's chunks of one row, in batches of kBatch: batch j holds chunks
+// c = lane + 32 (kBatch j + i), i < kBatch (those below K / 16).
+constexpr int kBatch = 3;
+
+template <class W>
+__device__ __forceinline__ void load_batch(const W& wt, int n, int j, int nchunk,
+                                           typename W::Raw (&raw)[kBatch],
+                                           float (&sc)[kBatch]) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int r = 0; r < kRowTile; ++r) {
+  for (int i = 0; i < kBatch; ++i) {
+    const int c = lane + 32 * (kBatch * j + i);
+    if (c < nchunk) {
+      raw[i] = wt.raw(n, c);
+      sc[i] = wt.raw_scale(n, c);
+    }
+  }
+}
+
+// acc[r] += the lane's partial of row r's dot with the batch's chunks (r <
+// nr), fmaf in ascending k: over the batches of a row in order, the lane
+// walks its chunks lane, lane + 32, ... in ascending order.
+template <class W>
+__device__ __forceinline__ void dot_batch(const float* xs, int nr, int K, int j,
+                                          const typename W::Raw (&raw)[kBatch],
+                                          const float (&sc)[kBatch], float (&acc)[kRowTile]) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
+  for (int i = 0; i < kBatch; ++i) {
+    const int c = lane + 32 * (kBatch * j + i);
+    if (c < (K >> 4)) {
+      float wf[16];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float f[4];
+        W::word(raw[i], q, sc[i], f);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) wf[4 * q + e] = f[e];
+      }
+      fma_chunk(xs, nr, K, c, wf, acc);
     }
   }
 }

@@ -1,9 +1,11 @@
 // Warp route of the weight-only GEMVs K3 (int8_gemv.cu) and K4
 // (int4_gemv.cu): y[M, N] = x[M, K] @ W.T for decode rows (M <= 8, and rows
-// past gemv_max_m()), redesigned for Hopper.
+// past gemv_max_m()), redesigned for Hopper. K8 (lm_head_sample.cu) runs
+// the same route with an epilogue that selects tokens instead of storing
+// y (gemv_warp's Epi).
 //
-// What must not change is the arithmetic of gemv_common.cuh's warp dot
-// (warp_dot_rows), which K5-K8 run: every output's dot is taken by one
+// What must not change is the arithmetic of gemv_common.cuh's warp dot,
+// which K5-K7 run as well: every output's dot is taken by one
 // warp, lane l walks the 16-code chunks l, l + 32, ... in ascending order,
 // turns each chunk's codes into f32 weights (int4: code times its block
 // scale), runs fmaf in ascending k, and the 32 lane partials are summed by
@@ -124,22 +126,6 @@ __device__ __forceinline__ void stage_x(void* xs, const X* x, int r0, int nr, in
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Four int8 codes (one 32-bit word) as exact f32 values: byte b + 128 is
-// placed under the exponent of 2^23, and 2^23 + 128 is subtracted.
-__device__ __forceinline__ void i8x4(const int w, float (&f)[4]) {
-  const uint32_t u = static_cast<uint32_t>(w) ^ 0x80808080u;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    f[j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u + j)) - 8388736.f;
-  }
-}
-
-// Nibble code byte j of `nib` (0..15, stored as code + 8) as the exact f32
-// value code - 8.
-__device__ __forceinline__ float nib_f32(const uint32_t nib, int j) {
-  return __uint_as_float(__byte_perm(nib, 0x4B000000u, 0x7540u + j)) - 8388616.f;
-}
-
 // 1-D TMA bulk copy of `bytes` (a multiple of 16, both ends 16-byte
 // aligned) into shared memory; completes on `bar`.
 __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
@@ -169,11 +155,12 @@ struct Int8Lane {
     return __ldg(reinterpret_cast<const int4*>(t.w + static_cast<size_t>(n) * t.K) + c);
   }
   __device__ static __forceinline__ float gmem_scale(const Table&, int, int) { return 1.f; }
-  // weights 4q .. 4q + 3 of the chunk
-  __device__ static __forceinline__ void word(const Raw& v, int q, float, float (&f)[4]) {
-    i8x4(q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w, f);
+  __device__ static __forceinline__ void word(const Raw& v, int q, float sc, float (&f)[4]) {
+    Table::word(v, q, sc, f);
   }
-  __device__ static __forceinline__ float out_scale(const Table& t, int n) { return __ldg(t.s + n); }
+  __device__ static __forceinline__ float out_scale(const Table& t, int n) {
+    return __ldg(t.s + n);
+  }
   // the stage's bulk copies: rows [n0, n0 + G)
   template <int G>
   __device__ static __forceinline__ void copy(char* stage, const Table& t, int n0, uint64_t* bar) {
@@ -208,16 +195,8 @@ struct Int4Lane {
   __device__ static __forceinline__ float gmem_scale(const Table& t, int n, int c) {
     return __ldg(t.s + static_cast<size_t>(n) * t.nsb + c / t.cpb);
   }
-  // codes 4q .. 4q + 3 of the chunk: lo, hi nibble of byte 2q, then of
-  // byte 2q + 1 (kvstore/quant.py:pack_codes), each times the block scale
   __device__ static __forceinline__ void word(const Raw& v, int q, float sc, float (&f)[4]) {
-    const uint32_t w = (q < 2) ? v.x : v.y;
-    const uint32_t lo = w & 0x0F0F0F0Fu, hi = (w >> 4) & 0x0F0F0F0Fu;
-    const int b = (2 * q) & 3;
-    f[0] = nib_f32(lo, b) * sc;
-    f[1] = nib_f32(hi, b) * sc;
-    f[2] = nib_f32(lo, b + 1) * sc;
-    f[3] = nib_f32(hi, b + 1) * sc;
+    Table::word(v, q, sc, f);
   }
   __device__ static __forceinline__ float out_scale(const Table&, int) { return 1.f; }
   template <int G>
@@ -257,7 +236,7 @@ struct GlobalSrc {
 
 // a[g * R + r] = this lane's partial of row r's dot with channel g of the
 // group: chunks c = lane, lane + 32, ... ascending, fmaf in ascending k
-// (warp_dot_rows' order for every (g, r)).
+// (the warp dot's order for every (g, r)).
 template <int G, int R, class L, class X, class Src>
 __device__ __forceinline__ void group_dot(const void* xs, int K, const Src& src,
                                           float (&a)[G * R]) {
@@ -296,44 +275,6 @@ __device__ __forceinline__ void group_dot(const void* xs, int K, const Src& src,
   }
 }
 
-// One step of the transposed butterfly at lane mask Mask over the first
-// 2 H partials: a lane keeps the half whose index bit matches its lane bit
-// and adds its partner's partial of the same value; then the next step.
-template <int V, int H, int Mask>
-__device__ __forceinline__ void scatter_step(float (&a)[V], int lane) {
-  const bool up = lane & Mask;
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    const float send = up ? a[i] : a[i + H];
-    const float keep = up ? a[i + H] : a[i];
-    a[i] = keep + __shfl_xor_sync(0xffffffffu, send, Mask);
-  }
-  if constexpr (H > 1) scatter_step<V, H / 2, Mask / 2>(a, lane);
-}
-
-template <int V>
-struct Log2 {
-  static constexpr int v = V <= 1 ? 0 : 1 + Log2<V / 2>::v;
-};
-template <>
-struct Log2<1> {
-  static constexpr int v = 0;
-};
-
-// Transposed butterfly over V = G * R partials (a power of two, at most
-// 32): returns value lane >> (5 - log2 V), summed over the warp exactly as
-// the butterfly of warp_dot_rows sums it (the remaining masks, below the
-// scatter steps, are that butterfly on the one value left).
-template <int V>
-__device__ __forceinline__ float scatter_sum(float (&a)[V]) {
-  static_assert(V >= 1 && V <= 32 && (V & (V - 1)) == 0, "V: a power of two up to 32");
-  const int lane = threadIdx.x & 31;
-  if constexpr (V > 1) scatter_step<V, V / 2, 16>(a, lane);
-#pragma unroll
-  for (int m = 16 >> Log2<V>::v; m > 0; m >>= 1) a[0] += __shfl_xor_sync(0xffffffffu, a[0], m);
-  return a[0];
-}
-
 // Kernel parameters beside the table: the ring's shape, chosen by the host.
 struct Ring {
   int nw;        // warps that take groups (the others only stage x)
@@ -342,12 +283,32 @@ struct Ring {
   int x_bytes;   // the staged x tile, rounded up to kStageAlign
 };
 
+// The GEMV's epilogue: y[row, n] = dot * out_scale(n), written by the
+// first lane that holds the value. An epilogue is called by every thread:
+// tile(r0, nr) when a tile of rows [r0, r0 + nr) is staged, value(v, row,
+// n, ok, rep) by every lane after each group's reduction (v: the dot of
+// row `row` with channel n; ok: both exist; rep: the lane is the value's
+// first holder, lanes hold each of the G * R values 32 / (G R) times), and
+// tile_end(r0, nr) after the tile's last group (it may sync the CTA).
+template <class L>
+struct StoreY {
+  const typename L::Table& t;
+  float* __restrict__ y;
+  int N;
+  __device__ __forceinline__ void tile(int, int) {}
+  __device__ __forceinline__ void value(float v, int row, int n, bool ok, bool rep) {
+    if (rep && ok) y[static_cast<size_t>(row) * N + n] = v * L::out_scale(t, n);
+  }
+  __device__ __forceinline__ void tile_end(int, int) {}
+};
+
 // The warp route: every CTA owns groups [g0, g1) of G channels; warp w
-// takes its groups g0 + w, g0 + w + nw, ...; rows in tiles of R.
-template <int G, int R, class L, class X>
+// takes its groups g0 + w, g0 + w + nw, ...; rows in tiles of R. Each
+// value goes to `epi` (StoreY for K3/K4; K8 selects tokens instead).
+template <int G, int R, class L, class X, class Epi>
 __device__ __forceinline__ void gemv_warp(char* smem, const X* __restrict__ x,
-                                          const typename L::Table& t, float* __restrict__ y,
-                                          int M, int N, int K, Ring ring) {
+                                          const typename L::Table& t, Epi& epi, int M, int N,
+                                          int K, Ring ring) {
   constexpr int V = G * R;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -388,6 +349,7 @@ __device__ __forceinline__ void gemv_warp(char* smem, const X* __restrict__ x,
     const int nr = min(R, M - r0);
     __syncthreads();
     stage_x(xs, x, r0, nr, R, K);
+    epi.tile(r0, nr);
     __syncthreads();
     for (int i = 0; i <= nring; ++i) {
       float a[V];
@@ -413,10 +375,10 @@ __device__ __forceinline__ void gemv_warp(char* smem, const X* __restrict__ x,
       const float v = scatter_sum<V>(a);
       const int idx = lane >> (5 - Log2<V>::v);
       const int g = idx / R, r = idx - g * R;
-      if ((lane & ((32 >> Log2<V>::v) - 1)) == 0 && r < nr && n0 + g < N) {
-        y[static_cast<size_t>(r0 + r) * N + n0 + g] = v * L::out_scale(t, n0 + g);
-      }
+      epi.value(v, r0 + r, n0 + g, r < nr && n0 + g < N,
+                (lane & ((32 >> Log2<V>::v) - 1)) == 0);
     }
+    epi.tile_end(r0, nr);
   }
 }
 
@@ -465,42 +427,62 @@ using Kernel = void (*)(const X*, typename L::Table, float*, int, int, int, Ring
 template <class L, class X>
 using Kernels = Kernel<L, X>[3][4];
 
-// Launch the warp route. G: the largest of 4, 2, 1 that still gives half
-// the warps of one CTA per SM a group (small layers are latency-bound: narrower
-// groups spread them over more warps; wide ones read each x word for more
-// channels), among those whose groups stream by bulk copies (4 always
-// does). R: the smallest of 1, 2, 4, 8 that holds min(M, 8) rows (fewer
-// when shared memory is short: more row tiles). Grid: persistent, at most
-// kCtasPerSm CTAs per SM, at least one per SM where there are groups for it.
-template <class L, class X>
-inline int launch(const Kernels<L, X>& kernels, const void* x, const typename L::Table& t,
-                  void* y, int M, int N, int K, int block, void* stream) {
+// The launch of the warp route for (M, N, K): G, the largest of 4, 2, 1
+// that still gives half the warps of one CTA per SM a group (small layers
+// are latency-bound: narrower groups spread them over more warps; wide
+// ones read each x word for more channels), among those whose groups
+// stream by bulk copies (4 always does). R: the smallest of 1, 2, 4, 8
+// that holds min(M, 8) rows (fewer when shared memory is short: more row
+// tiles). Grid: persistent, at most kCtasPerSm CTAs per SM, at least one
+// per SM where there are groups for it. `reserve`: static shared memory
+// bytes of the kernel beside the ring. `kernels[gi][ri]` is the kernel of
+// G = 1 << gi, R = 1 << ri.
+struct Plan {
+  int gi, ri, grid;
+  Ring ring;
+  size_t smem;
+};
+
+template <class L, class Kern>
+inline cudaError_t plan(Kern const (&kernels)[3][4], int M, int N, int K, int block, int xsize,
+                        int reserve, Plan* p) {
   int smem_max = 0, sms = 0;
   cudaError_t err = device_limits(&smem_max, &sms);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return err;
   int gi = 2;
   while (gi > 0 && (N >> gi) < sms * kWarps / 2) --gi;
   while (gi < 2 && !group_copies<L>(1 << gi, K, block)) ++gi;
   int ri = M <= 1 ? 0 : M <= 2 ? 1 : M <= 4 ? 2 : 3;
-  Ring ring;
-  while (!plan_ring<L>(1 << gi, 1 << ri, K, block, static_cast<int>(sizeof(X)), smem_max,
-                       &ring)) {
-    if (ri == 0) return static_cast<int>(cudaErrorInvalidValue);
+  while (!plan_ring<L>(1 << gi, 1 << ri, K, block, xsize, smem_max - reserve, &p->ring)) {
+    if (ri == 0) return cudaErrorInvalidValue;
     --ri;
   }
-  const size_t smem = ring_smem(ring);
+  p->gi = gi;
+  p->ri = ri;
+  p->smem = ring_smem(p->ring);
   int ctas = 0;
-  err = resident_ctas(kernels[gi][ri], smem, &ctas);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  err = resident_ctas(kernels[gi][ri], p->smem, &ctas);
+  if (err != cudaSuccess) return err;
   const int ngroups = (N + (1 << gi) - 1) >> gi;
-  const int per_cta = kWarps < ring.nw ? kWarps : ring.nw;
+  const int per_cta = kWarps < p->ring.nw ? kWarps : p->ring.nw;
   int grid = (ngroups + per_cta - 1) / per_cta;
   grid = grid > sms ? grid : sms;
   grid = grid < ngroups ? grid : ngroups;
   grid = grid < ctas ? grid : ctas;
-  grid = grid < kCtasPerSm * sms ? grid : kCtasPerSm * sms;
-  kernels[gi][ri]<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const X*>(x), t, static_cast<float*>(y), M, N, K, ring);
+  p->grid = grid < kCtasPerSm * sms ? grid : kCtasPerSm * sms;
+  return cudaSuccess;
+}
+
+// Launch the warp route of K3/K4 (y = x @ W.T): the plan above.
+template <class L, class X>
+inline int launch(const Kernels<L, X>& kernels, const void* x, const typename L::Table& t,
+                  void* y, int M, int N, int K, int block, void* stream) {
+  Plan p;
+  cudaError_t err =
+      plan<L>(kernels, M, N, K, block, static_cast<int>(sizeof(X)), 0, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernels[p.gi][p.ri]<<<p.grid, kThreads, p.smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const X*>(x), t, static_cast<float*>(y), M, N, K, p.ring);
   return static_cast<int>(cudaGetLastError());
 }
 

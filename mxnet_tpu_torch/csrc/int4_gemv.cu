@@ -36,7 +36,8 @@ __global__ void __launch_bounds__(mx::kThreads, mx::warp::kCtasPerSm)
     int4_gemv_kernel(const X* __restrict__ x, mx::Int4Rows w, float* __restrict__ y, int M,
                      int N, int K, mx::warp::Ring ring) {
   extern __shared__ __align__(128) char smem[];
-  mx::warp::gemv_warp<G, R, mx::warp::Int4Lane, X>(smem, x, w, y, M, N, K, ring);
+  mx::warp::StoreY<mx::warp::Int4Lane> epi{w, y, N};
+  mx::warp::gemv_warp<G, R, mx::warp::Int4Lane, X>(smem, x, w, epi, M, N, K, ring);
 }
 
 template <class X>

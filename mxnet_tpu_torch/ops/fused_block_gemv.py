@@ -123,9 +123,10 @@ def _dma_smem(D: int, heads: int, ps: int, L: int, depth: int, tp: int,
 
 def _dma_tile_pages(D: int, heads: int, ps: int, L: int, depth: int,
                     itemsize: int = 4) -> int:
-    """Pages per ring slot of K7 (``mx_paged_dma_tile_pages``): one key row
-    per thread (256 // ps pages), fewer while the ring does not fit."""
-    tp = max(1, _THREADS // ps)
+    """Pages per ring slot of K7 (``mx_paged_dma_tile_pages``): 1024 //
+    itemsize key rows (one f32 row a thread, two bf16 rows: 256 // ps or 512
+    // ps pages), fewer while the ring does not fit."""
+    tp = max(1, _THREADS * 4 // itemsize // ps)
     while tp > 1 and _dma_smem(D, heads, ps, L, depth, tp, itemsize) > _SMEM_LIMIT:
         tp -= 1
     return tp
@@ -311,11 +312,22 @@ def _weight_operands(pack, what):
     """The pack's 16 kernel operands: (w, scale, bias) of qkv, out, fc and
     proj, then the two LayerNorms' gains and offsets; and the lane
     arguments (block of the K = D matrices, block of proj): (0, 0) for
-    int8 tables, the scale blocks for int4 ones."""
+    int8 tables, the scale blocks for int4 ones. Biases and LayerNorm
+    parameters are f32 (a bf16 model's are converted): the operands are
+    kept in the pack beside the source tensors they came from, and formed
+    again when a source is replaced (another tensor object) or written (a
+    new ``_version``), so a step launches no conversion."""
+    sources = [t for key in ("qkv", "out", "fc", "proj") for t in pack[key]]
+    sources += [*pack["ln1"], *pack["ln2"]]
+    versions = [t._version for t in sources]
+    memo = pack.get("_kernel_operands")
+    if (memo is not None and all(s is m for s, m in zip(sources, memo[0]))
+            and memo[1] == versions):
+        return memo[2]
     ops = []
     lane = pack["qkv"][0].dtype
-    for key in ("qkv", "out", "fc", "proj"):
-        w, s, b = pack[key]
+    for name in ("qkv", "out", "fc", "proj"):
+        w, s, b = pack[name]
         if w.dtype != lane or lane not in (torch.int8, torch.uint8):
             raise MXNetError(f"{what}: the kernel takes int8 or packed int4 "
                              "weights, one lane for all four matrices")
@@ -324,7 +336,11 @@ def _weight_operands(pack, what):
     g2, b2 = pack["ln2"]
     blocks = pack["blocks"]
     lane_args = (blocks[0], blocks[3]) if blocks else (0, 0)
-    return ops + [t.detach().float().contiguous() for t in (g1, b1, g2, b2)], lane_args
+    ln = [t.detach().float().contiguous() for t in (g1, b1, g2, b2)]
+    # the kernels copy the LayerNorm parameters in 16-byte words
+    res = ops + [t.clone() if t.data_ptr() % 16 else t for t in ln], lane_args
+    pack["_kernel_operands"] = (sources, versions, res)
+    return res
 
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -567,10 +583,11 @@ def fused_lm_head_sample(h, w_q, w_scale, vocab, keys, temps, topks=0,
     f32 (no rounding) and bf16; the plain version and the filtered branch
     honour any dtype.
 
-    ``mask`` (bool [B, vocab], True = allowed) is a grammar constraint: it
-    is padded to [B, Vp] with False, as the reference pads it; K8 and its
-    plain version fold it in after the noise and before the pad mask, the
-    filtered branch hands it to ``sample_tokens``. A mask held on the host
+    ``mask`` (bool [B, vocab], True = allowed) is a grammar constraint: K8
+    reads it as it is (one byte a lane; lanes past ``vocab`` are pad), the
+    plain version pads it to [B, Vp] with False as the reference does, and
+    both fold it in after the noise and before the pad mask; the filtered
+    branch hands it to ``sample_tokens``. A mask held on the host
     (numpy, or a CPU tensor) is checked first: a row that allows no token
     raises (``generation._check_mask_live``). A mask already on the card
     is not (that check would put a host sync on every decode step; the JAX
@@ -603,7 +620,6 @@ def fused_lm_head_sample(h, w_q, w_scale, vocab, keys, temps, topks=0,
         if rounded:
             logits = logits.to(out_dtype)
         return sample_tokens(logits, keys, temps, topks, topps, mask=mask)
-    keybits = keys[:, 0] ^ keys[:, 1] if keys.dim() == 2 else keys
     Vp = w_q.shape[0]
     if w_q.dtype == torch.uint8:
         nsb = w_scale.shape[-1] if w_scale.dim() == 2 else 0
@@ -618,30 +634,55 @@ def fused_lm_head_sample(h, w_q, w_scale, vocab, keys, temps, topks=0,
         block = 0
     dev = h.device
     temps = torch.as_tensor(temps, dtype=torch.float32, device=dev).reshape(-1)
-    temps = temps.expand(B).contiguous()
-    keybits = torch.as_tensor(keybits, device=dev).reshape(-1)
-    if keybits.numel() != B:
+    if temps.numel() not in (1, B):
+        raise MXNetError("fused_lm_head_sample: one temperature per row, or one for all")
+    if keys.dim() == 2 and keys.shape != (B, 2) or keys.dim() != 2 and keys.numel() != B:
         raise MXNetError("fused_lm_head_sample: one key per row")
-    mask_p = None
-    if mask is not None:
-        mask_p = torch.zeros(B, Vp, dtype=torch.bool, device=dev)
-        mask_p[:, :int(vocab)] = mask
     if dev.type == "cpu":
+        mask_p = None
+        if mask is not None:
+            mask_p = torch.zeros(B, Vp, dtype=torch.bool, device=dev)
+            mask_p[:, :int(vocab)] = mask
+        keybits = keys[:, 0] ^ keys[:, 1] if keys.dim() == 2 else keys.reshape(-1)
         tok = _reference_head_sample(h.float(), w_q, w_scale, int(vocab),
-                                     temps, keybits, out_dtype, mask_p)
+                                     temps.expand(B).contiguous(), keybits, out_dtype, mask_p)
     else:
         if rounded and out_dtype != torch.bfloat16:
             raise MXNetError(f"fused_lm_head_sample: the kernel rounds logits through "
                              f"bf16 or not at all (out_dtype {out_dtype})")
-        tok = _cuda_head_sample(h, w_q, w_scale, int(vocab), temps, keybits, block,
-                                mask_p, rounded)
+        tok = _cuda_head_sample(h, w_q, w_scale, int(vocab), temps, keys, block,
+                                mask, rounded)
     record_launch("fused_head" + ("_int4" if block else ""))
     return tok
 
 
-def _cuda_head_sample(h, w_q, w_scale, vocab, temps, keybits, block, mask, rounded):
+# per (device, stream): the int32 workspace of K8, [ticket, pad to 16
+# bytes, per-CTA best scores, their lanes], and its row capacity
+_HEAD_WS = {}
+
+
+def _head_workspace(lib, dev, stream, B):
+    """K8's ticket (an int that every launch leaves 0) and room for B rows
+    of per-CTA pairs, kept per (device, stream): launches on one stream
+    run in turn, so they may share it. Returns (ticket, pmax, pidx)
+    pointers."""
+    key = (dev.index, stream)
+    ws = _HEAD_WS.get(key)
+    if ws is None or ws[1] < B:
+        ctas = lib.mx_head_max_ctas()
+        if ctas <= 0:
+            raise MXNetError("fused_lm_head_sample: no CUDA device limits")
+        cap = max(B, 16)
+        ws = (torch.zeros(4 + 2 * cap * ctas, dtype=torch.int32, device=dev), cap, ctas)
+        _HEAD_WS[key] = ws
+    buf, cap, ctas = ws
+    base = buf.data_ptr()
+    return base, base + 16, base + 16 + 4 * cap * ctas
+
+
+def _cuda_head_sample(h, w_q, w_scale, vocab, temps, keys, block, mask, rounded):
     from .. import _build
-    from .int8_gemv import _kernel_x
+    from .int8_gemv import _check_aligned, _kernel_x
     B, D = h.shape
     Vp = w_q.shape[0]
     if D % 16:
@@ -650,22 +691,22 @@ def _cuda_head_sample(h, w_q, w_scale, vocab, temps, keybits, block, mask, round
         raise MXNetError(f"fused_lm_head_sample: the int4 lane needs block % 16 "
                          f"== 0 (got {block})")
     h, h_bf16 = _kernel_x(h, "fused_lm_head_sample")
-    # key bits as int32 carrying the uint32 pattern
-    kb = keybits.long() & _M32
-    kb = torch.where(kb >= 2 ** 31, kb - 2 ** 32, kb).to(torch.int32).contiguous()
-    m8 = None if mask is None else mask.to(torch.uint8).contiguous()
+    w_q, w_scale = w_q.contiguous(), w_scale.contiguous()
+    _check_aligned((w_q, w_scale) if block else (w_q,), "fused_lm_head_sample")
+    # the caller's keys as int64 ([B, 2]: the kernel xors the words) and
+    # mask (bool [B, vocab], one byte a lane) are read as they are
+    keys = keys.to(torch.int64).contiguous()
+    if mask is not None:
+        mask = mask.contiguous()
     lib = _build.library("lm_head_sample")
-    ntiles = lib.mx_head_tiles(Vp)
-    pmax = torch.empty(B * ntiles, device=h.device, dtype=torch.float32)
-    pidx = torch.empty(B * ntiles, device=h.device, dtype=torch.int32)
-    tok = torch.empty(B, device=h.device, dtype=torch.int32)
     stream = torch.cuda.current_stream(h.device).cuda_stream
+    ticket, pmax, pidx = _head_workspace(lib, h.device, stream, B)
+    tok = torch.empty(B, device=h.device, dtype=torch.int32)
     _build.check(lib.mx_lm_head_sample(
-        h.data_ptr(), w_q.contiguous().data_ptr(),
-        w_scale.contiguous().data_ptr(), temps.data_ptr(), kb.data_ptr(),
-        None if m8 is None else m8.data_ptr(),
-        pmax.data_ptr(), pidx.data_ptr(), tok.data_ptr(), B, Vp, D, vocab,
-        block, h_bf16, int(rounded), stream), "lm_head_sample")
+        h.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), temps.data_ptr(),
+        int(temps.numel() > 1), keys.data_ptr(), 2 if keys.dim() == 2 else 1,
+        None if mask is None else mask.data_ptr(), pmax, pidx, ticket, tok.data_ptr(),
+        B, Vp, D, vocab, block, h_bf16, int(rounded), stream), "lm_head_sample")
     record_lane("fused_head" + ("_int4" if block else "") + ":h_" + ("bf16" if h_bf16 else "f32")
-                + (":bf16_logits" if rounded else "") + (":mask" if m8 is not None else ""))
+                + (":bf16_logits" if rounded else "") + (":mask" if mask is not None else ""))
     return tok

@@ -724,3 +724,109 @@ def test_head_sampler_mask_and_bf16_lanes_match_plain(net):
     with pytest.raises(MXNetError, match="bf16 or not at all"):
         fb.fused_lm_head_sample(h, w_q, scale, vocab, kb, torch.zeros(B, device="cuda"),
                                 out_dtype=torch.float16)
+
+
+def _head_case(net, B, seed):
+    """h, [B, 2] int64 keys, temps (even rows greedy, odd rows T 0.8) and a
+    bool [B, vocab] mask (30% allowed, the last vocab lane forbidden) on
+    the card for ``net``'s head."""
+    _, _, vocab = net.head_weights()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randn(B, net.cfg.hidden_size, device="cuda", generator=g)
+    keys = torch.from_numpy(gen._fold_keys(onp.arange(B) + seed, onp.arange(B))
+                            .astype(onp.int64)).cuda()
+    temps = torch.tensor([0.0 if r % 2 == 0 else 0.8 for r in range(B)], device="cuda")
+    mask = torch.rand(B, vocab, device="cuda", generator=g) < 0.3
+    mask[:, vocab - 1] = False
+    return h, keys, temps, mask
+
+
+def _padded(mask, Vp):
+    B, vocab = mask.shape
+    mp = torch.zeros(B, Vp, dtype=torch.bool, device=mask.device)
+    mp[:, :vocab] = mask
+    return mp
+
+
+@pytest.mark.parametrize("B", [9, 16])
+def test_head_sampler_two_row_tiles_match_plain(net, B):
+    """K8 past 8 rows (two row tiles) with [B, 2] keys and an unpadded bool
+    mask whose last vocab lane is forbidden: tokens equal the plain
+    version's, none on a forbidden lane, and each row's token is the one
+    it gets in a batch of at most 8 rows (one dot order)."""
+    w_q, scale, vocab = net.head_weights()
+    h, keys, temps, mask = _head_case(net, B, 20 + B)
+    kb = keys[:, 0] ^ keys[:, 1]
+    for m in (None, mask):
+        got = fb.fused_lm_head_sample(h, w_q, scale, vocab, keys, temps, mask=m)
+        plain = fb._reference_head_sample(h, w_q, scale, vocab, temps, kb,
+                                          mask=None if m is None else _padded(m, w_q.shape[0]))
+        halves = torch.cat([fb.fused_lm_head_sample(h[:8], w_q, scale, vocab, keys[:8],
+                                                    temps[:8], mask=None if m is None else m[:8]),
+                            fb.fused_lm_head_sample(h[8:], w_q, scale, vocab, keys[8:],
+                                                    temps[8:], mask=None if m is None else m[8:])])
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain)
+        assert torch.equal(got, halves)
+        if m is not None:
+            assert bool(m.gather(1, got.long()[:, None]).all())
+
+
+def test_head_sampler_forbidden_row_selects_lane_zero(net):
+    """A card mask whose row forbids every lane is not checked on the host
+    (no sync per step): K8 selects lane 0 for it, as the TPU kernel does,
+    and the plain version's argmax over an all -inf row gives the same."""
+    w_q, scale, vocab = net.head_weights()
+    B = 5
+    h, keys, temps, mask = _head_case(net, B, 31)
+    mask[2] = False
+    for t in (temps, torch.zeros(B, device="cuda")):
+        got = fb.fused_lm_head_sample(h, w_q, scale, vocab, keys, t, mask=mask)
+        plain = fb._reference_head_sample(h, w_q, scale, vocab, t, keys[:, 0] ^ keys[:, 1],
+                                          mask=_padded(mask, w_q.shape[0]))
+        torch.cuda.synchronize()
+        assert int(got[2]) == 0
+        assert torch.equal(got, plain)
+
+
+def test_head_sampler_repeats_across_launches(net):
+    """K8's cross-CTA reduction (the last CTA's ticket, reset for the next
+    launch) gives the same tokens on every launch, at batch sizes that
+    grow and shrink the per-stream workspace, with and without a mask."""
+    w_q, scale, vocab = net.head_weights()
+    cases = {B: _head_case(net, B, 40 + B) for B in (3, 16, 1)}
+    first = {}
+    for rep in range(6):
+        for B, (h, keys, temps, mask) in cases.items():
+            for m in (None, mask):
+                tok = fb.fused_lm_head_sample(h, w_q, scale, vocab, keys, temps, mask=m)
+                first.setdefault((B, m is None), tok)
+                assert torch.equal(tok, first[(B, m is None)]), (rep, B)
+    torch.cuda.synchronize()
+
+
+# K7 at three page sizes: 256 f32 or 512 bf16 key rows a ring slot, so
+# slot edges at 255 / 256 (f32) and 511 / 512
+_SLOT_EDGES = [511, 512, 1023, 255, 256, 0]
+
+
+@pytest.mark.parametrize("ps", [4, 8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_streamed_kernel_slot_edges(pack, ps, dtype):
+    """K7 at L 1024 with positions on ring-slot edges (k * rows - 1 and k *
+    rows, rows = 256 f32 or 512 bf16 key rows a slot) against the plain
+    version by ``check_paged``'s rule, its copies started == waited == the
+    ``record_dma`` ledger; then K5, K6 and K7 the same bits at L 384 (under
+    K6's f32 gate) with slot-edge positions. bf16 key pages come by
+    swizzled tensor copies at ps 8-32 and by bulk copies read lagged at ps
+    4 (pages under one 1 KB swizzle pattern)."""
+    D, H = 256, 4
+    rows = fb._dma_tile_pages(D, H, ps, 1024, fb._DMA_DEPTH, dtype.itemsize) * ps
+    assert rows == 1024 // dtype.itemsize
+    pool = 3200 // ps                      # the rows' pages, scattered
+    g = torch.Generator(device="cuda").manual_seed(50 + ps)
+    inputs = chip_smoke.paged_inputs(torch, g, D, H, len(_SLOT_EDGES), ps, 1024 // ps, pool,
+                                     _SLOT_EDGES, dtype)
+    chip_smoke.check_paged(torch, fb, f"K7 ps {ps}", inputs, pack, True, pool, ps)
+    chip_smoke.same_bits_k5_k6_k7(torch, fb, g, pack, pool, ps, [256, 255, 383, 128, 127, 0],
+                                  maxp=384 // ps, dtype=dtype)

@@ -276,3 +276,35 @@ def test_mask_shape_is_checked():
         fb.fused_lm_head_sample(h, torch.from_numpy(w), torch.from_numpy(s), VOCAB,
                                 torch.zeros(2, dtype=torch.int64), torch.zeros(2),
                                 mask=torch.ones(2, VP, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("B", [9, 16])
+def test_unpadded_mask_and_key_forms_match_jax_kernel(bits, B):
+    """The fused head takes the caller's bool [B, vocab] mask as it is (K8
+    reads it unpadded; the plain version pads it): with the last vocab lane
+    forbidden everywhere, at B past one row tile of 8, greedy and T = 0.8
+    rows give ``_head_kernel(mask=, interpret=True)``'s tokens on the
+    padded mask, whether the rows' keys come as [B, 2] keys or as their [B]
+    key bits, and the mask as numpy or a tensor."""
+    w, s = _table(bits, 110 + bits)
+    rng = onp.random.RandomState(120 + B)
+    h = rng.randn(B, D).astype(onp.float32)
+    mask = _mask(rng, B, VOCAB, p=0.3)
+    mask[:, VOCAB - 1] = False
+    mask_p = onp.zeros((B, VP), bool)
+    mask_p[:, :VOCAB] = mask
+    seeds, counters = onp.arange(B) + 7, onp.full(B, 4)
+    keys = _prng.fold_keys(seeds, counters)
+    kb = gen._key_bits(seeds, counters)
+    assert (kb == (keys[:, 0] ^ keys[:, 1]).numpy()).all()
+    temps = onp.where(onp.arange(B) % 2 == 0, 0.0, 0.8).astype(onp.float32)
+    want = onp.asarray(jfb._head_kernel(
+        jnp.asarray(h), jnp.asarray(w), jnp.asarray(s), VOCAB, jnp.asarray(temps),
+        jnp.asarray(kb.astype(onp.uint32)), mask=jnp.asarray(mask_p), interpret=True))
+    tw, ts, th = torch.from_numpy(w), torch.from_numpy(s), torch.from_numpy(h)
+    for k, m in ((keys, torch.from_numpy(mask)), (torch.from_numpy(kb), mask)):
+        got = fb.fused_lm_head_sample(th, tw, ts, VOCAB, k, torch.from_numpy(temps),
+                                      mask=m).numpy()
+        assert (got == want).all()
+        assert mask[onp.arange(B), got].all()

@@ -252,6 +252,67 @@ def test_hopper_gates_at_gpt2_small():
         assert not fb.fusable_paged(8, 768, 12, 161, 16, maxp, cache_itemsize=2)
         assert fb.fusable_paged_dma(8, 768, 12, 161, 16, maxp, cache_itemsize=2)
     assert fb._paged_smem(768, 12, 864, 2) <= fb._SMEM_LIMIT < fb._paged_smem(768, 12, 880, 2)
-    assert fb._dma_tile_pages(768, 12, 16, 1024, 2, 2) == 16
+    assert fb._dma_tile_pages(768, 12, 16, 1024, 2, 2) == 32     # 512 bf16 key rows a slot
     assert not fb.fusable_paged(8, 768, 12, 161, 16, 16, cache_itemsize=8)
     assert not fb.fusable_paged_dma(8, 768, 12, 161, 16, 64, cache_itemsize=8)
+
+
+# K7's shared memory at GPT-2 small (D 768, 12 heads, hd 64, page 16), by
+# (L, pool itemsize, depth): the larger of the staged activation tile (8
+# rows of 4D f32: 98304 bytes) and the ring (depth slots of 1024 / itemsize
+# key rows, 64 KB at hd 64 in either dtype: 16 pages of f32, 32 of bf16) +
+# q + the score row + the P.V scratch (4 * (64 + L + 1024) bytes), then one
+# 8-byte mbarrier a slot. Whole slots fit everywhere, so every shape is
+# fusable.
+_K7_SMEM = {
+    (256, 4, 1): 98312, (256, 4, 2): 136464, (256, 4, 3): 202008,
+    (512, 4, 1): 98312, (512, 4, 2): 137488, (512, 4, 3): 203032,
+    (1024, 4, 1): 98312, (1024, 4, 2): 139536, (1024, 4, 3): 205080,
+    (256, 2, 1): 98312, (256, 2, 2): 136464, (256, 2, 3): 202008,
+    (512, 2, 1): 98312, (512, 2, 2): 137488, (512, 2, 3): 203032,
+    (1024, 2, 1): 98312, (1024, 2, 2): 139536, (1024, 2, 3): 205080,
+}
+
+
+@pytest.mark.parametrize("L,itemsize,depth", sorted(_K7_SMEM))
+def test_streamed_kernel_gates_at_gpt2_small(L, itemsize, depth):
+    """K7's Python gates (the mirrors of ``mx_paged_dma_tile_pages`` and
+    ``mx_paged_dma_smem``) at GPT-2 small's shapes, f32 and bf16 pools,
+    ring depth 1-3: the stated pages a slot, shared-memory bytes and
+    acceptance."""
+    ps, maxp = 16, L // 16
+    tp = 1024 // itemsize // ps
+    assert fb._dma_tile_pages(768, 12, ps, L, depth, itemsize) == tp
+    assert fb._paged_dma_smem(768, 12, ps, L, depth, itemsize) == _K7_SMEM[L, itemsize, depth]
+    ring = depth * tp * ps * 64 * itemsize + 4 * (64 + L + 4 * 256)
+    assert _K7_SMEM[L, itemsize, depth] == max(98304, ring) + 8 * depth
+    assert fb.fusable_paged_dma(8, 768, 12, 161, ps, maxp, cache_itemsize=itemsize,
+                                depth=depth)
+
+
+def test_weight_operands_follow_their_sources(nets):
+    """The block kernels' operands are formed once per source tensor: a
+    second call returns the kept operands, and a source written in place
+    or replaced by another tensor (equal values, or a bf16 bias) forms
+    them again from what the pack now holds."""
+    _, tnet = nets
+    pack = dict(fb.pack_gpt_block(tnet.blocks[0], eps=tnet.cfg.layer_norm_eps))
+    ops, lane = fb._weight_operands(pack, "test")
+    assert fb._weight_operands(pack, "test")[0] is ops
+    assert lane == (0, 0) and len(ops) == 16
+    g1, b1 = pack["ln1"]
+    pack["ln1"] = (g1.clone(), b1)
+    again = fb._weight_operands(pack, "test")[0]
+    assert again is not ops and torch.equal(again[12], g1)
+    w, s, b = pack["qkv"]
+    wide = b.detach().clone()
+    pack["qkv"] = (w, s, wide.bfloat16())
+    conv = fb._weight_operands(pack, "test")[0]
+    assert conv[2].dtype == torch.float32
+    assert torch.equal(conv[2], wide.bfloat16().float())
+    assert fb._weight_operands(pack, "test")[0] is conv
+    with torch.no_grad():
+        pack["qkv"][2].add_(1)
+    written = fb._weight_operands(pack, "test")[0]
+    assert written is not conv
+    assert torch.equal(written[2], (wide.bfloat16() + 1).float())

@@ -66,28 +66,14 @@ PROBES = {
 def build(src: Path, out: Path, names=("int8_gemv", "int4_gemv")):
     """nvcc each of ``names`` from ``src`` into ``out`` at once; returns the
     loaded libraries with their GEMV entry points declared."""
-    from mxnet_tpu_torch import _build
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        log = open(out / f"{name}.log", "w")
-        procs[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build._FLAGS, "-I", str(src), "-o", str(out / f"lib{name}.so"),
-             str(src / f"{name}.cu")], stdout=log, stderr=subprocess.STDOUT), log)
-    libs = {}
+    from nvcc_build import build as build_jobs
+    libs = dict(zip(names, build_jobs([(src, out, name) for name in names])))
     p, i = ctypes.c_void_p, ctypes.c_int
-    for name, (proc, log) in procs.items():
-        rc = proc.wait()
-        log.close()
-        if rc:
-            raise SystemExit(f"building {src / name}.cu failed:\n"
-                             + (out / f"{name}.log").read_text()[-3000:])
-        lib = ctypes.CDLL(str(out / f"lib{name}.so"))
+    for name, lib in libs.items():
         if name == "int8_gemv":
             lib.mx_int8_gemv.argtypes = [p, p, p, p, i, i, i, i, p]
         else:
             lib.mx_int4_gemv.argtypes = [p, p, p, p, i, i, i, i, i, p]
-        libs[name] = lib
     return libs
 
 
