@@ -525,8 +525,10 @@ def paged_bound(x, posv, table, kp, ps, pack):
 def kernel_k6_k7(torch, timer, gen, pack, pool=600, ps=16, dtype=None):
     """K6 at B 16, L 256 and K7 at B 8, L 1024, each against its plain
     version; K7 at L 256 against K6 (and K6 against K5 on the gathered
-    contiguous view): same bits. ``dtype`` bf16: x and pools bf16 (block 0
-    of a bf16 model), also checked at f32 x (its later blocks)."""
+    contiguous view): same bits. K6 is also timed at B 8 (``ms_b8``: its
+    first 7 positions and an inactive row). ``dtype`` bf16: x and pools
+    bf16 (block 0 of a bf16 model), also checked at f32 x (its later
+    blocks)."""
     from mxnet_tpu_torch.ops import fused_block_gemv as fb
     D, H = pack["ln1"][0].shape[0], pack["heads"]
     rng = __import__("numpy").random.RandomState(int(gen.initial_seed()) + 6)
@@ -550,6 +552,13 @@ def kernel_k6_k7(torch, timer, gen, pack, pool=600, ps=16, dtype=None):
         row["library_ms"] = None
         row["shape"] = {"B": B, "D": D, "H": H, "ps": ps, "L": maxp * ps,
                         "pool_pages": pool, "pos": pos}
+        if name == "K6":
+            # beside B 16: the first 7 rows and the inactive one, one row tile
+            x8, p8, t8, kp8, vp8 = paged_inputs(torch, gen, D, H, 8, ps, maxp, pool,
+                                                pos[:7] + [0], dtype)
+            row["ms_b8"] = timer(lambda: fb.fused_block_decode_paged(x8, p8, t8, kp8, vp8,
+                                                                     pack))
+            row["bound_ms_b8"] = paged_bound(x8, p8, t8, kp8, ps, pack)[0]
         out[name] = row
     out["K7_vs_K6_L256"] = same_bits_k5_k6_k7(torch, fb, gen, pack, pool, ps, pos6,
                                               dtype=dtype)
@@ -2048,7 +2057,9 @@ def main(argv=None):
                      "replaces": replaces, "launches": launched,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                     # K5 with every row at position 64; K6 at B 8
+                     **{k: r[k] for k in ("ms_pos64", "ms_b8", "bound_ms_b8") if k in r}})
         check(rows[-1]["launches"] > 0, f"{name} never launched on its main path")
     # K8's mask and bf16 lanes: no path of the JAX package reaches them (only
     # GPT exposes head_weights, and its decode loops pass neither), so their

@@ -114,17 +114,21 @@ def _declare(name: str, lib: ctypes.CDLL):
     elif name == "fused_block_decode":
         lib.mx_fused_block_decode.argtypes = [p] * 22 + [i] * 8 + [f, p]
         lib.mx_fused_block_decode.restype = i
-        lib.mx_fused_block_smem.argtypes = [i, i, i]
+        lib.mx_fused_block_smem.argtypes = [i] * 5
         lib.mx_fused_block_smem.restype = ctypes.c_longlong
+        lib.mx_fused_block_slot_rows.argtypes = [i] * 4
+        lib.mx_fused_block_slot_rows.restype = i
     elif name == "fused_block_decode_paged":
         lib.mx_fused_block_decode_paged.argtypes = [p] * 23 + [i] * 10 + [f, p]
         lib.mx_fused_block_decode_paged.restype = i
-        lib.mx_paged_smem.argtypes = [i] * 5
+        lib.mx_paged_smem.argtypes = [i] * 6
         lib.mx_paged_smem.restype = ctypes.c_longlong
+        lib.mx_paged_depth.argtypes = [i] * 6
+        lib.mx_paged_depth.restype = i
     elif name == "fused_block_decode_paged_dma":
         lib.mx_fused_block_decode_paged_dma.argtypes = [p] * 24 + [i] * 11 + [f, p]
         lib.mx_fused_block_decode_paged_dma.restype = i
-        lib.mx_paged_dma_smem.argtypes = [i] * 6
+        lib.mx_paged_dma_smem.argtypes = [i] * 7
         lib.mx_paged_dma_smem.restype = ctypes.c_longlong
         lib.mx_paged_dma_tile_pages.argtypes = [i] * 6
         lib.mx_paged_dma_tile_pages.restype = i

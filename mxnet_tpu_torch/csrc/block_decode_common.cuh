@@ -5,8 +5,8 @@
 //
 // One GPT block's T = 1 decode step is five phases separated by
 // cooperative_groups grid barriers (block_step):
-//   1. LN1 -> qkv GEMV        (with pools, the epilogue scatters the new K/V rows)
-//   2. attention -> ctx       (the kernel's own)
+//   1. LN1 -> qkv GEMV        (the epilogue writes the new K/V rows)
+//   2. attention -> ctx       (streamed_attention over the kernel's copies)
 //   3. out GEMV + residual -> res
 //   4. LN2 -> fc GEMV + tanh-GeLU -> fc
 //   5. proj GEMV + residual -> out
@@ -17,9 +17,11 @@
 // scales on each code before its FMA), and every kernel is instantiated for
 // both and picks one at launch by BlockArgs::block. LayerNorm is
 // recomputed per CTA from the B x D rows instead of paying a grid barrier.
-// The attention helpers (cta_max, cta_sum and the order of every sum) are
-// shared too, so the three kernels give a row the same bits for the same
-// logical cache.
+// The attention phase is one copy of code too (streamed_attention: a ring
+// of shared-memory slots filled by TMA copies), over each kernel's source
+// of copies (a contiguous slab, or pages through a block table), and every
+// sum in it keeps one order, so the three kernels give a row the same bits
+// for the same logical cache.
 //
 // The weight phases (redesigned for Hopper; the first design unrolled a
 // copy of the GEMV per phase, staged with synchronous loads, and waited one
@@ -56,8 +58,6 @@
 #include "gemv_warp.cuh"
 
 namespace mx {
-
-static_assert(kWarps == kRowTile, "LayerNorm staging gives one warp per row");
 
 // The weights, activations and scratch of one block step. The int8 lane
 // (block == 0): w_* [N, K] int8, s_* [N] f32. The int4 lane: w_* [N, K / 2]
@@ -140,9 +140,30 @@ inline bool lane_fits(int D, int block, int block4) {
          (4 * D) % block4 == 0;
 }
 
-// Shared memory of the staged activation tile: kRowTile rows of the
-// 4D-wide fc activations (the widest GEMV input), in floats.
-__host__ __device__ inline long long block_tile_floats(int D) { return static_cast<long long>(kRowTile) * 4 * D; }
+constexpr long long kSmemLimit = 232448;  // one CTA's shared memory on Hopper
+
+// The block kernels run one CTA an SM (two (row, head) items on one SM
+// share its copy and shared-memory bandwidth while other SMs idle, and
+// every CTA stages the activations and waits at every grid barrier), so a
+// thread may hold up to 255 registers: __launch_bounds__(kThreads,
+// kBlockCtasPerSm). Without the second bound the compiler kept them to 128
+// and spilled.
+constexpr int kBlockCtasPerSm = 1;
+
+// Shared memory of the staged activation tile: R rows of the 4D-wide fc
+// activations (the widest GEMV input), in bytes.
+__host__ __device__ inline long long block_tile_bytes(int R, int D) {
+  return 4LL * R * 4 * D;
+}
+
+// Rows the weight phases stage per pass: kRowTile, and past kRowTile rows
+// kWideRowTile where that tile fits in one CTA's shared memory (192 KB at
+// D 768), so that every weight matrix is streamed once for up to 16 rows
+// rather than once per 8. A row's sums are the same bits either way.
+__host__ __device__ inline int block_rows(int B, int D) {
+  return B > kRowTile && block_tile_bytes(kWideRowTile, D) <= kSmemLimit ? kWideRowTile
+                                                                          : kRowTile;
+}
 
 // Enough CTAs for the widest phase (4D fc channels, one warp each) or one
 // per (row, head), never more than fit on the card at once (a cooperative
@@ -204,18 +225,18 @@ __device__ __forceinline__ float ln_value(float v, float mean, float inv, float 
 }
 
 // LayerNorm of rows [r0, r0 + nr) of src[., D] (f32 or bf16, 16-byte
-// aligned rows) into xs[nr][D] (f32, swizzle4 layout). The rows, then the
-// gain and offset, are first copied as they are into the bytes after the
-// tile (nr * D values of X at xs + kRowTile * D, then 2 * D f32), every
+// aligned rows; nr <= R) into xs[nr][D] (f32, swizzle4 layout). The rows,
+// then the gain and offset, are first copied as they are into the bytes
+// after the tile (nr * D values of X at xs + R * D, then 2 * D f32), every
 // 16-byte word an asynchronous copy in flight at once; then warp w
-// normalises row r0 + w from there (f32 statistics: mean, E[x^2] - mean^2
-// clamped at 0, rsqrt; the sums in the order of a lane's loop, d = lane,
-// lane + 32, ..., then the butterfly).
+// normalises rows r0 + w, r0 + w + kWarps, ... from there (f32 statistics:
+// mean, E[x^2] - mean^2 clamped at 0, rsqrt; the sums in the order of a
+// lane's loop, d = lane, lane + 32, ..., then the butterfly).
 template <class X>
-__device__ __forceinline__ void stage_ln(float* xs, const X* src, int r0, int nr, int D,
+__device__ __forceinline__ void stage_ln(float* xs, const X* src, int r0, int nr, int R, int D,
                                          const float* g, const float* be, float eps) {
-  X* raw = reinterpret_cast<X*>(xs + kRowTile * D);
-  float* gs = reinterpret_cast<float*>(raw + kRowTile * D);
+  X* raw = reinterpret_cast<X*>(xs + R * D);
+  float* gs = reinterpret_cast<float*>(raw + R * D);
   const int words = nr * D * static_cast<int>(sizeof(X)) / 16, dw = D / 4;
   const float4* s4 = reinterpret_cast<const float4*>(src + static_cast<size_t>(r0) * D);
   for (int i = threadIdx.x; i < words + 2 * dw; i += blockDim.x) {
@@ -229,9 +250,8 @@ __device__ __forceinline__ void stage_ln(float* xs, const X* src, int r0, int nr
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
-  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  if (warp < nr) {
+  for (int warp = threadIdx.x >> 5; warp < nr; warp += kWarps) {
     const X* row = raw + static_cast<size_t>(warp) * D;
     float s = 0.f, ss = 0.f;
     for (int d = lane; d < D; d += 32) {
@@ -301,35 +321,6 @@ __device__ __forceinline__ float4 load4(const bf16* row, int w) {
 __device__ __forceinline__ void store_elem(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_elem(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-template <class C>
-struct CacheWord;
-template <>
-struct CacheWord<float> {
-  typedef float4 type;
-};
-template <>
-struct CacheWord<bf16> {
-  typedef uint2 type;
-};
-
-__device__ __forceinline__ float4 widen_word(const float4 v) { return v; }
-__device__ __forceinline__ float4 widen_word(const uint2 v) { return widen4(v); }
-
-// q . k over one head row of the cache, in ascending order.
-template <class C>
-__device__ __forceinline__ float dot_row(const float4* q4, const C* k, int hd4) {
-  float s = 0.f;
-  for (int e = 0; e < hd4; ++e) {
-    const float4 kv = load4(k, e);
-    const float4 qv = q4[e];
-    s = fmaf(qv.x, kv.x, s);
-    s = fmaf(qv.y, kv.y, s);
-    s = fmaf(qv.z, kv.z, s);
-    s = fmaf(qv.w, kv.w, s);
-  }
-  return s;
-}
-
 __device__ __forceinline__ void fma4(float4& acc, float w, const float4 v) {
   acc.x = fmaf(w, v.x, acc.x);
   acc.y = fmaf(w, v.y, acc.y);
@@ -337,19 +328,22 @@ __device__ __forceinline__ void fma4(float4& acc, float w, const float4 v) {
   acc.w = fmaf(w, v.w, acc.w);
 }
 
-// Where the paged kernels' qkv epilogue scatters the new K and V rows: row
-// r's position pos[r] in page bt[r, pos / ps], or the sink page when pos >=
-// L = maxp * ps (the padded tail of a chunk; clamping the page index would
-// overwrite the row's last real page). The grid barrier after phase 1
-// orders every row's scatter before any (row, head) reads the pools, so
-// rows sharing pages see one pool state. Inactive rows (table all sink, pos
+// Where the qkv epilogue writes the new K and V rows. Paged pools: row r's
+// position pos[r] in page bt[r, pos / ps], or the sink page when pos >= L
+// = maxp * ps (the padded tail of a chunk; clamping the page index would
+// overwrite the row's last real page); inactive rows (table all sink, pos
 // 0) write the sink page concurrently: harmless, nothing reads it
-// unmasked. kp == nullptr: no pools (K5 writes its cache rows itself).
+// unmasked. Contiguous caches (bt == nullptr, K5: [B, H, L, hd] as row r's
+// page r of ps = L rows): position pos[r] clamped into [0, L - 1], as
+// lax.dynamic_update_slice clamps, so a bad position never writes outside
+// the row's slab. The grid barrier after phase 1 orders every row's write
+// before any (row, head) reads the caches, so rows sharing pages see one
+// pool state, and the attention's copies read the new rows.
 template <class C>
-struct PagedRows {
+struct KVRows {
   const int* pos;
-  const int* bt;  // [B, maxp]
-  C* kp;          // [NP + 1, H, ps, hd]
+  const int* bt;  // [B, maxp], or null: contiguous caches
+  C* kp;          // [NP + 1, H, ps, hd], or [B, H, L, hd]
   C* vp;
   int ps, maxp, sink;
 };
@@ -358,10 +352,10 @@ struct PagedRows {
 // (row r, channel n), chosen at run time so that one copy of the GEMV's
 // code serves the four phases (a copy per phase, unrolled, would not stay
 // in the SM's instruction cache: the block kernels' code runs once per
-// phase, cold): kQkv stores y to the qkv scratch and, with pools, scatters
-// the K and V channels; kResidualX stores x + y (x the block input, f32 or
-// bf16 widened); kGelu stores gelu(y); kResidual stores res + y. prepare(r)
-// readies a copy for row r first (the scatter's slot in its page).
+// phase, cold): kQkv stores y to the qkv scratch and writes the K and V
+// channels into the caches (KVRows); kResidualX stores x + y (x the block
+// input, f32 or bf16 widened); kGelu stores gelu(y); kResidual stores res +
+// y. prepare(r) readies a copy for row r first (the new rows' slot).
 template <class X, class C>
 struct Epi {
   enum Kind { kQkv, kResidualX, kGelu, kResidual };
@@ -370,16 +364,20 @@ struct Epi {
   int N, D, H;
   const X* x;
   const float* res;
-  PagedRows<C> paged;
+  KVRows<C> kv;
   size_t slot;  // prepare(r): row r's slot in its page, head 0 (values)
 
   __device__ void prepare(int r) {
-    if (kind != kQkv || paged.kp == nullptr) return;
-    const int p = max(paged.pos[r], 0);
-    const int page = p < paged.maxp * paged.ps
-                         ? paged.bt[static_cast<size_t>(r) * paged.maxp + p / paged.ps]
-                         : paged.sink;
-    slot = (static_cast<size_t>(page) * H * paged.ps + p % paged.ps) * (D / H);
+    if (kind != kQkv) return;
+    int p = max(kv.pos[r], 0), page = r;
+    if (kv.bt == nullptr) {
+      p = min(p, kv.ps - 1);
+    } else {
+      page = p < kv.maxp * kv.ps
+                 ? kv.bt[static_cast<size_t>(r) * kv.maxp + p / kv.ps]
+                 : kv.sink;
+    }
+    slot = (static_cast<size_t>(page) * H * kv.ps + p % kv.ps) * (D / H);
   }
 
   __device__ void operator()(int r, int n, float y) const {
@@ -392,21 +390,22 @@ struct Epi {
       dst[o] = res[o] + y;
     } else {
       dst[o] = y;
-      if (paged.kp == nullptr || n < D) return;
+      if (n < D) return;
       int c = n - D;
-      C* pool = paged.kp;
+      C* pool = kv.kp;
       if (c >= D) {
         c -= D;
-        pool = paged.vp;
+        pool = kv.vp;
       }
       const int hd = D / H;
       const int h = c / hd;
-      store_elem(pool + slot + static_cast<size_t>(h) * paged.ps * hd + (c - h * hd), y);
+      store_elem(pool + slot + static_cast<size_t>(h) * kv.ps * hd + (c - h * hd), y);
     }
   }
 };
 
-// epi(r0 + r, n, xs[r] . w[n] * scale(n) + bias[n]) for the staged rows, n
+// epi(r0 + r, n, xs[r] . w[n] * scale(n) + bias[n]) for the staged rows (nr
+// of R = kRowTile or kWideRowTile; lane (32 / R) r holds row r's sum), n
 // over all warps of the grid, one channel a warp at a time; w is the lane
 // W's table [N, K] with its scales s and the lane's block (unused by the
 // int8 lane). Each dot is the warp dot of gemv_common.cuh (lane l walks
@@ -416,14 +415,14 @@ struct Epi {
 // codes is one batch, of 3072 two) over its channels, and the loads of the
 // next batch, next channel's included, are in flight while the current
 // batch's FMAs run.
-template <class W, class X, class C>
+template <class W, int R, class X, class C>
 __device__ __forceinline__ void gemv_rows(const float* xs, int r0, int nr, const void* w,
                                           const float* s, int block, const float* bias, int N,
                                           int K, Epi<X, C> epi) {
   typedef typename W::Raw Raw;
   const W wt(w, s, K, block);
   const int lane = threadIdx.x & 31;
-  const int r = lane >> 2;
+  const int r = lane / (32 / R);  // scatter_sum<R>: the lane holding row r
   if (r < nr) epi.prepare(r0 + r);
   const int nchunk = K >> 4;
   const int nb = (nchunk + 32 * kBatch - 1) / (32 * kBatch);  // batches a row
@@ -437,9 +436,9 @@ __device__ __forceinline__ void gemv_rows(const float* xs, int r0, int nr, const
     nscale = wt.scale(n0);
     nbias = __ldg(bias + n0);
   }
-  float acc[kRowTile];
+  float acc[R];
 #pragma unroll
-  for (int q = 0; q < kRowTile; ++q) acc[q] = 0.f;
+  for (int q = 0; q < R; ++q) acc[q] = 0.f;
   float scale = 0.f, b = 0.f;
   int n = n0, j = 0;  // the current batch: batch j of channel n
   for (int t = 0; t < total; ++t) {
@@ -462,12 +461,12 @@ __device__ __forceinline__ void gemv_rows(const float* xs, int r0, int nr, const
         nbias = __ldg(bias + n1);
       }
     }
-    dot_batch<W>(xs, nr, K, j, raw, sc, acc);
+    dot_batch<W, R>(xs, nr, K, j, raw, sc, acc);
     if (++j == nb) {
-      const float v = scatter_sum<kRowTile>(acc);
-      if ((lane & 3) == 0 && r < nr) epi(r0 + r, n, v * scale + b);
+      const float v = scatter_sum<R>(acc);
+      if ((lane & (32 / R - 1)) == 0 && r < nr) epi(r0 + r, n, v * scale + b);
 #pragma unroll
-      for (int q = 0; q < kRowTile; ++q) acc[q] = 0.f;
+      for (int q = 0; q < R; ++q) acc[q] = 0.f;
       j = 0;
       n += stride;
     }
@@ -477,16 +476,16 @@ __device__ __forceinline__ void gemv_rows(const float* xs, int r0, int nr, const
 // One block step's four GEMV phases, with the kernel's attention phase
 // (`attention()`, which writes ctx) between the first two and a grid
 // barrier between phases:
-//   0. LN1 -> qkv GEMV (kQkv: with `paged` pools, the new K/V rows land)
+//   0. LN1 -> qkv GEMV (kQkv: the new K/V rows land where `kv` says)
 //   1. out GEMV + residual on x -> res
 //   2. LN2 -> fc GEMV + tanh-GeLU -> fc
 //   3. proj GEMV (K = 4D) + residual on res -> out
 // The phases are iterations of one loop: one copy of the staging and GEMV
-// code serves all four (see Epi).
+// code serves all four (see Epi). Rows pass in tiles of block_rows(B, D).
 template <class W, class X, class C, class Attention>
 __device__ __forceinline__ void block_step(const BlockArgs& a, float* smem,
                                            cooperative_groups::grid_group& grid,
-                                           const PagedRows<C>& paged,
+                                           const KVRows<C>& kv,
                                            const Attention& attention) {
   const int D = a.D;
   typedef Epi<X, C> E;
@@ -509,22 +508,340 @@ __device__ __forceinline__ void block_step(const BlockArgs& a, float* smem,
     epi.H = a.H;
     epi.x = static_cast<const X*>(a.x);
     epi.res = a.res;
-    epi.paged = paged;
+    epi.kv = kv;
     epi.slot = 0;
-    for (int r0 = 0; r0 < a.B; r0 += kRowTile) {
-      const int nr = min(kRowTile, a.B - r0);
+    const int R = block_rows(a.B, D);
+    for (int r0 = 0; r0 < a.B; r0 += R) {
+      const int nr = min(R, a.B - r0);
       if (ph == 0) {
-        stage_ln(smem, static_cast<const X*>(a.x), r0, nr, D, a.g1, a.be1, a.eps);
+        stage_ln(smem, static_cast<const X*>(a.x), r0, nr, R, D, a.g1, a.be1, a.eps);
       } else if (ph == 2) {
-        stage_ln(smem, a.res, r0, nr, D, a.g2, a.be2, a.eps);
+        stage_ln(smem, a.res, r0, nr, R, D, a.g2, a.be2, a.eps);
       } else {
         warp::stage_x(smem, ph == 1 ? a.ctx : a.fc, r0, nr, nr, K);
       }
       __syncthreads();
-      gemv_rows<W>(smem, r0, nr, w, s, ph == 3 ? a.block4 : a.block, bias, N, K, epi);
+      const int blk = ph == 3 ? a.block4 : a.block;
+      if (R == kWideRowTile) {
+        gemv_rows<W, kWideRowTile>(smem, r0, nr, w, s, blk, bias, N, K, epi);
+      } else {
+        gemv_rows<W, kRowTile>(smem, r0, nr, w, s, blk, bias, N, K, epi);
+      }
       __syncthreads();
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// Streamed attention (the attention phase of K5, K6 and K7)
+// ---------------------------------------------------------------------------
+// A CTA takes (row, head) items. Each item's key rows [0, pa] (pa = pos
+// clamped into [0, L - 1]) pass through a ring of `depth` shared-memory
+// slots of `rows` rows each, in the cache's dtype (a copy moves bytes, it
+// cannot convert), filled by TMA copies that complete on the slot's
+// mbarrier: its K rows slot by slot (pass 1 writes the f32 score row),
+// then the softmax, then its V rows (pass 2, P.V). One thread keeps the
+// ring full: after each slot is read, it starts the next copy of this
+// CTA's stream into it, the next item's included, so a CTA's next item
+// loads while the current one computes. Where a CTA has more than one item
+// (B H > grid), items go longest first, the rounds snaking (CTA c takes
+// item c of round 0 and item G - 1 - c of round 1, ...), so the second
+// round's items land beside the first round's shortest.
+//
+// The source of the copies (S) is a kernel's cache layout:
+//   S::tiles(pa)                      slots a pass of the item takes
+//   S::start(b, h, pa, i, n, slot, bar)  thread 0: arm bar and start load i
+//                                     (pass i / n, slot i % n of the pass)
+//   S::waited(pa, i, n)               thread 0: after load i was read
+//   S::swizzled()                     key rows written by swizzled tensor copies
+// Every sum keeps K5's first design's order (a score's FMAs in ascending
+// head-dim order, the softmax of softmax_scores, P.V by groups in
+// store_head_context's order), so the three kernels give a row the same
+// bits for the same logical cache.
+
+// q . k over one head row, four FMAs a word, words in ascending order, with
+// this thread's 16-byte loads `lag` steps late. A row of the ring is hd *
+// itemsize bytes (256 or 128 at hd 64, a multiple of 128): read in order,
+// the 8 threads of a load phase (8 rows) would all read
+// the same 16-byte bank group, an 8-way conflict on every load. With lag =
+// tid % 8 they read 8 different groups. f32: a load is one word (four
+// values); bf16: two words (eight values), and q is staged as its even
+// words, then its odd ones (streamed_attention), so that the q words of a
+// step are 8 different groups too.
+__device__ __forceinline__ float dot_row_lagged(const float4* q4, const float* k, int hd4,
+                                                int lag) {
+  float s = 0.f;
+  for (int t = 0; t < hd4 + 7; ++t) {
+    const int e = t - lag;
+    if (e >= 0 && e < hd4) {
+      const float4 kv = reinterpret_cast<const float4*>(k)[e];
+      const float4 qv = q4[e];
+      s = fmaf(qv.x, kv.x, s);
+      s = fmaf(qv.y, kv.y, s);
+      s = fmaf(qv.z, kv.z, s);
+      s = fmaf(qv.w, kv.w, s);
+    }
+  }
+  return s;
+}
+__device__ __forceinline__ float dot_row_lagged(const float4* q4, const bf16* k, int hd4,
+                                                int lag) {
+  float s = 0.f;
+  const int units = hd4 >> 1;
+  for (int t = 0; t < units + 7; ++t) {
+    const int u = t - lag;
+    if (u >= 0 && u < units) {
+      const uint4 v = reinterpret_cast<const uint4*>(k)[u];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 kv = widen4(h ? make_uint2(v.z, v.w) : make_uint2(v.x, v.y));
+        const float4 qv = q4[h * (hd4 >> 1) + u];
+        s = fmaf(qv.x, kv.x, s);
+        s = fmaf(qv.y, kv.y, s);
+        s = fmaf(qv.z, kv.z, s);
+        s = fmaf(qv.w, kv.w, s);
+      }
+    }
+  }
+  return s;
+}
+
+// q . k over one bf16 key row of 64 values that a tensor copy with the
+// 128-byte swizzle wrote (its 16-byte chunk u at u ^ sw, sw = the row's
+// index in its 1 KB swizzle pattern), in ascending order: the 8 rows of a
+// load phase read 8 different bank groups with no lag; every thread reads
+// the same q word (a broadcast).
+__device__ __forceinline__ float dot_row_swizzled(const float4* q4, const bf16* k, int sw) {
+  float s = 0.f;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const uint4 v = reinterpret_cast<const uint4*>(k)[u ^ sw];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 kv = widen4(h ? make_uint2(v.z, v.w) : make_uint2(v.x, v.y));
+      const float4 qv = q4[2 * u + h];
+      s = fmaf(qv.x, kv.x, s);
+      s = fmaf(qv.y, kv.y, s);
+      s = fmaf(qv.z, kv.z, s);
+      s = fmaf(qv.w, kv.w, s);
+    }
+  }
+  return s;
+}
+
+// Bytes of the attention layout in front of the mbarriers: the ring of
+// `depth` slots of `rows` rows (itemsize bytes a value), then q (hd f32),
+// the score row of L f32 rounded up to 4, the float4 P.V scratch and the
+// item order (kThreads ints).
+__host__ __device__ inline long long attention_bytes(int hd, int L, int depth, int rows,
+                                                     int itemsize) {
+  return static_cast<long long>(depth) * rows * hd * itemsize +
+         4LL * (hd + ((L + 3) & ~3) + 4 * kThreads + kThreads);
+}
+
+// Dynamic shared memory of a block kernel with streamed attention: the
+// larger of the staged activation tile and the attention layout, then one
+// 8-byte mbarrier per slot.
+__host__ __device__ inline long long streamed_smem(int B, int D, int H, int L, int depth,
+                                                   int rows, int itemsize) {
+  const long long tile = block_tile_bytes(block_rows(B, D), D);
+  const long long attn = attention_bytes(D / H, L, depth, rows, itemsize);
+  return (tile > attn ? tile : attn) + 8LL * depth;
+}
+
+// The mbarriers of that layout: past the larger of the tile and the
+// attention layout, where no phase writes.
+__device__ __forceinline__ uint64_t* streamed_bars(float* smem, const BlockArgs& blk, int L,
+                                                   int depth, int rows, int itemsize) {
+  return reinterpret_cast<uint64_t*>(
+      reinterpret_cast<char*>(smem) +
+      streamed_smem(blk.B, blk.D, blk.H, L, depth, rows, itemsize) - 8LL * depth);
+}
+
+// The attention phase: every (row, head) item of the grid's share, by
+// S's copies through the ring (see above); writes ctx. `smem` is the
+// kernel's dynamic shared memory (1 KB aligned, the mbarriers past the
+// larger of the tile and the attention layout, at `bars`).
+template <class C, class S>
+__device__ void streamed_attention(const BlockArgs& blk, const int* pos, int L, const S& src,
+                                   float* smem, uint64_t* bars, int depth, int rows) {
+  const int H = blk.H, hd = blk.D / H, hd4 = hd >> 2;
+  C* ring = reinterpret_cast<C*>(smem);  // [depth][rows * hd]
+  float* qs = reinterpret_cast<float*>(ring + static_cast<size_t>(depth) * rows * hd);  // [hd]
+  float* sc = qs + hd;                   // [L rounded up to 4]
+  float* red = sc + ((L + 3) & ~3);      // [4 * kThreads]
+  int* order = reinterpret_cast<int*>(red + 4 * kThreads);  // [kThreads]
+  const int tid = threadIdx.x;
+  const float scale = 1.f / sqrtf(static_cast<float>(hd));
+  const int groups = kThreads / hd4;
+  const int N = blk.B * H, G = gridDim.x, cta = blockIdx.x;
+  const bool sorted = N > G && blk.B <= kThreads;
+  if (tid == 0) {
+    for (int s = 0; s < depth; ++s) mxh::mbar_init(bars + s, 1);
+    mxh::mbar_fence_init();
+  }
+  mxh::fence_proxy_async();  // the qkv phase staged activations in these bytes
+  if (sorted) {
+    // rank the rows by attended length, longest first, ties by row
+    int* len = reinterpret_cast<int*>(red);
+    for (int b = tid; b < blk.B; b += kThreads) len[b] = min(max(pos[b], 0), L - 1);
+    __syncthreads();
+    for (int b = tid; b < blk.B; b += kThreads) {
+      int rank = 0;
+      for (int o = 0; o < blk.B; ++o) rank += len[o] > len[b] || (len[o] == len[b] && o < b);
+      order[rank] = b;
+    }
+  }
+  __syncthreads();
+  // this CTA's items: round m takes item m G + cta, or (sorted, odd m)
+  // m G + G - 1 - cta, of the item list in order; (row, head) of item k
+  int k = cta < N ? cta : -1;
+  unsigned seq = 0;  // loads consumed: load n uses slot n % depth
+  int ahead = 0;     // loads of the current item started during the last one
+  for (int m = 0; k >= 0; ++m) {
+    const int b = sorted ? order[k / H] : k / H, h = k % H;
+    const int pa = min(max(pos[b], 0), L - 1);
+    const int ntile = src.tiles(pa), loads = 2 * ntile;
+    // the next item, whose first loads start as this one's slots free up
+    const int k1 = (m + 1) * G + (sorted && !(m & 1) ? G - 1 - cta : cta);
+    const int nk = k1 < N ? k1 : -1;
+    const int nb = nk < 0 ? 0 : sorted ? order[nk / H] : nk / H, nh = nk < 0 ? 0 : nk % H;
+    const int npa = min(max(pos[nb], 0), L - 1);
+    const int nn = nk < 0 ? 0 : src.tiles(npa), nloads = 2 * nn;
+    if (tid == 0) {
+      // fill the ring: this item's loads not started yet, then the next's
+      for (int i = ahead; i < depth; ++i) {
+        const unsigned n = seq + i;
+        C* slot = ring + static_cast<size_t>(n % depth) * rows * hd;
+        if (i < loads) {
+          src.start(b, h, pa, i, ntile, slot, bars + n % depth);
+        } else if (i - loads < nloads) {
+          src.start(nb, nh, npa, i - loads, nn, slot, bars + n % depth);
+        }
+      }
+    }
+    const float* row = blk.qkv + static_cast<size_t>(b) * 3 * blk.D + h * hd;
+    // q, in order, or (bf16 rows read lagged) its even words then its odd
+    const bool split = sizeof(C) == 2 && !src.swizzled();
+    for (int d = tid; d < hd; d += kThreads) {
+      const int w = d >> 2;
+      qs[4 * (split ? (w & 1) * (hd4 >> 1) + (w >> 1) : w) + (d & 3)] = row[d];
+    }
+    __syncthreads();
+    const float4* q4 = reinterpret_cast<const float4*>(qs);
+    float sum = 0.f;
+    float4 part = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int g = tid / hd4, d4 = tid - g * hd4;
+    for (int i = 0; i < loads; ++i, ++seq) {
+      const int slot_i = seq % depth;
+      C* slot = ring + static_cast<size_t>(slot_i) * rows * hd;
+      mxh::mbar_wait(bars + slot_i, (seq / depth) & 1u);
+      const int j0 = (i % ntile) * rows;  // first key row of the slot
+      const int jn = min(j0 + rows, pa + 1);
+      if (i < ntile) {
+        // pass 1: scores of the slot's key rows
+        for (int j = j0 + tid; j < jn; j += kThreads) {
+          const C* kr = slot + static_cast<size_t>(j - j0) * hd;
+          float s;
+          if constexpr (sizeof(C) == 2) {
+            s = src.swizzled() ? dot_row_swizzled(q4, kr, (j - j0) & 7)
+                               : dot_row_lagged(q4, kr, hd4, tid & 7);
+          } else {
+            s = dot_row_lagged(q4, kr, hd4, tid & 7);
+          }
+          sc[j] = s * scale;
+        }
+      } else if (g < groups) {
+        // pass 2: group g takes rows j = g (mod groups), ascending
+        for (int j = j0 + ((g - j0 % groups) + groups) % groups; j < jn; j += groups) {
+          fma4(part, sc[j] / sum, load4(slot + static_cast<size_t>(j - j0) * hd, d4));
+        }
+      }
+      if (tid == 0) src.waited(pa, i, ntile);
+      mxh::fence_proxy_async();
+      __syncthreads();  // the slot is read: it may be refilled
+      if (tid == 0) {  // refill it: load seq + depth, this item's or the next's
+        const int t = i + depth;
+        if (t < loads) {
+          src.start(b, h, pa, t, ntile, slot, bars + slot_i);
+        } else if (t - loads < nloads) {
+          src.start(nb, nh, npa, t - loads, nn, slot, bars + slot_i);
+        }
+      }
+      if (i == ntile - 1) sum = softmax_scores(sc, pa, red);
+    }
+    store_head_context(part, red, groups, hd, blk.ctx + static_cast<size_t>(b) * blk.D + h * hd);
+    ahead = min(depth, nloads);
+    k = nk;
+  }
+}
+
+// The copies of paged pools [NP + 1, H, ps, hd] through a block table (K6,
+// K7): a slot holds tp pages; load i of a (row, head) with np = pa / ps + 1
+// attended pages copies pages [t tp, min((t + 1) tp, np)) of K (i < n) or
+// V (t = i % n): per page one 1-D TMA bulk copy (cp.async.bulk, ps * hd *
+// itemsize contiguous bytes) onto the slot's mbarrier, or for swizzled key
+// pages (swz: bf16 pools at hd 64, ps % 8 == 0) one 2-D tensor copy of the
+// page through `tk` (the pool as [(NP + 1) H, ps, hd], one-page boxes,
+// 128-byte swizzle). With a non-null `counters` thread 0 adds the copies it
+// started to counters[0] and those it waited for to counters[1].
+template <class C>
+struct PagedSource {
+  const C* pool[2];     // K, V
+  const int* bt;        // [B, maxp]
+  const CUtensorMap* tk;
+  int* counters;
+  int H, hd, ps, maxp, tp, swz;
+
+  __device__ __forceinline__ int tiles(int pa) const { return (pa / ps + tp) / tp; }
+  __device__ __forceinline__ bool swizzled() const { return sizeof(C) == 2 && swz; }
+  __device__ void start(int b, int h, int pa, int i, int n, C* slot, uint64_t* bar) const {
+    const uint32_t page_bytes = static_cast<uint32_t>(ps) * hd * sizeof(C);
+    const int first = (i % n) * tp;
+    const int np = min(tp, pa / ps + 1 - first);
+    const int* table = bt + static_cast<size_t>(b) * maxp + first;
+    const C* from = i < n ? pool[0] : pool[1];
+    mxh::mbar_expect(bar, page_bytes * np);
+    const bool tensor = swizzled() && i < n;  // a swizzled K slot
+    for (int k = 0; k < np; ++k) {
+      const int page = table[k];
+      if (tensor) {
+        mxh::tma_load_3d(slot + static_cast<size_t>(k) * ps * hd, tk, bar, 0, 0, page * H + h);
+      } else {
+        warp::bulk_copy(slot + static_cast<size_t>(k) * ps * hd,
+                        from + (static_cast<size_t>(page) * H + h) * ps * hd, page_bytes, bar);
+      }
+    }
+    if (counters != nullptr) atomicAdd(counters, np);
+  }
+  __device__ __forceinline__ void waited(int pa, int i, int n) const {
+    if (counters != nullptr) atomicAdd(counters + 1, min(tp, pa / ps + 1 - (i % n) * tp));
+  }
+};
+
+// The tensor map of a bf16 cache [mats, rows, 64] for boxes of box_rows
+// rows with the 128-byte swizzle, encoded once per (cache, shape) and kept
+// (a decode step launches a block kernel once per layer, on the layer's own
+// cache). Returns false where the map cannot be encoded.
+inline bool bf16_cache_map(CUtensorMap* map, const void* base, int mats, int rows, int box_rows) {
+  struct Entry {
+    const void* base;
+    int mats, rows, box;
+    CUtensorMap map;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> cache;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& e : cache) {
+    if (e.base == base && e.mats == mats && e.rows == rows && e.box == box_rows) {
+      *map = e.map;
+      return true;
+    }
+  }
+  if (!mxh::bf16_rows_map(map, base, mats, rows, 64, box_rows)) return false;
+  if (cache.size() >= 256) cache.clear();
+  cache.push_back(Entry{base, mats, rows, box_rows, *map});
+  return true;
 }
 
 // The instantiation of a block kernel for the weight lane W, f32 or bf16 x
@@ -545,22 +862,19 @@ inline void (*pick_block_kernel(const Args& a, int x_bf16, int cache_bf16))(Args
 }
 
 // Cooperative launch of one instantiation of a block kernel on the grid of
-// block_grid, never more CTAs than fit at once, nor (ctas_per_sm > 0) more
-// than ctas_per_sm an SM.
+// block_grid, never more CTAs than fit at once, nor more than
+// kBlockCtasPerSm an SM.
 template <class Args>
-inline int launch_block(void (*kernel)(Args), Args& a, size_t smem, void* stream,
-                        int ctas_per_sm = 0) {
+inline int launch_block(void (*kernel)(Args), Args& a, size_t smem, void* stream) {
   if (!lane_fits(a.blk.D, a.blk.block, a.blk.block4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int ctas = 0;
   cudaError_t err = resident_ctas(kernel, smem, &ctas);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (ctas_per_sm > 0) {
-    int smem_max = 0, sms = 0;
-    if ((err = device_limits(&smem_max, &sms)) != cudaSuccess) return static_cast<int>(err);
-    ctas = ctas < ctas_per_sm * sms ? ctas : ctas_per_sm * sms;
-  }
+  int smem_max = 0, sms = 0;
+  if ((err = device_limits(&smem_max, &sms)) != cudaSuccess) return static_cast<int>(err);
+  ctas = ctas < kBlockCtasPerSm * sms ? ctas : kBlockCtasPerSm * sms;
   const int grid = block_grid(a.blk.B, a.blk.D, a.blk.H, ctas);
   void* params[] = {&a};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(grid), dim3(kThreads),

@@ -1,7 +1,7 @@
 // K5: one GPT block's whole T = 1 decode step in ONE cooperative launch:
-//   LN1 -> qkv GEMV -> K/V row write at pos[b] + cached attention over
-//   [0, pos[b]] -> out GEMV + residual -> LN2 -> fc GEMV + tanh-GeLU ->
-//   proj GEMV + residual.
+//   LN1 -> qkv GEMV (epilogue writes the new K/V row at pos[b]) -> cached
+//   attention over [0, pos[b]] -> out GEMV + residual -> LN2 -> fc GEMV +
+//   tanh-GeLU -> proj GEMV + residual.
 // The K/V caches [B, H, L, hd] are updated IN PLACE (the TPU kernel
 // returned new cache arrays).
 //
@@ -22,81 +22,101 @@
 // or in a few KB of global scratch. The TPU grid ran its phases in order on
 // one core; here the phases are separated by cooperative_groups grid
 // barriers, so the grid never exceeds the number of co-resident CTAs.
-// Attention takes one CTA per (row, head): it reads only rows [0, pos] of
-// that head's K and V once. Every reduction has a fixed order that does not
-// depend on B or on the slot, so a request decodes to the same bits alone
-// or in a full batch.
+// Every reduction has a fixed order that does not depend on B or on the
+// slot, so a request decodes to the same bits alone or in a full batch.
+//
+// Redesigned for Hopper after splitting the first design's device time by
+// probe builds (tools/head_block_compare.py --probes; PERF.md): the first
+// design read every key row thread by thread straight from device memory
+// (32 rows 256 bytes apart a warp, no staging, one (row, head) a CTA) and
+// ran two CTAs an SM, each staging the activations and waiting at every
+// grid barrier. Now:
+// - attention is K7's streamed attention (block_decode_common.cuh): a (row,
+//   head)'s rows [0, pos] of a contiguous cache are one slab of (pos + 1)
+//   hd values, copied slot by slot into the ring, one 1-D TMA bulk copy a
+//   slot (no table), or for bf16 caches at hd 64 2-D tensor copies of
+//   16-row boxes with the 128-byte swizzle; pass 1 reads f32 (and unswizzled
+//   bf16) rows lagged, pass 2 takes K5's group order: the same sums;
+// - the new K/V rows are written by the qkv epilogue (the grid barrier after
+//   it orders them before any copy), rounded once to the cache's dtype;
+// - the launch takes one CTA an SM.
+#include <cstdint>
+
 #include "block_decode_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+// key rows of a bf16 slab's tensor-copy box: whole 1 KB swizzle patterns
+constexpr int kBoxRows = 16;
+
 struct Args {
   mx::BlockArgs blk;
   const int* pos;  // [B]
   void* kc;        // [B, H, L, hd] f32 or bf16 (the kernel's C), in place
   void* vc;
-  int L;
+  int L, depth, rows;  // ring slots, key rows a slot
+  // swz: K rows come by 2-D tensor copies through tk (kc as [B H, L, 64]
+  // bf16, kBoxRows-row boxes, 128-byte swizzle): bf16 caches at hd 64
+  int swz;
+  alignas(64) CUtensorMap tk;
 };
 
-// One CTA per (row, head): write the new K/V row at pos, attend rows
-// [0, pos], write the head's context. Scores take one thread per key row
-// (the hd-long dot in ascending order, hd / 4 independent 16-byte loads
-// in flight per thread); P.V takes groups of hd / 4 threads, each group
-// walking every groups-th cache row with one word (four values) of the
-// head dim per thread, and the group partials are summed in group order.
-// The new row is written rounded to C and read back from the cache.
+// The copies of a contiguous cache: load i of a (row, head) copies rows
+// [t rows, min((t + 1) rows, pa + 1)) of its K (i < n) or V slab (t = i %
+// n); one bulk copy, or (swizzled K) ceil(rows / kBoxRows) box copies,
+// whose rows past pa are copied and never read.
 template <class C>
-__device__ void attention(const Args& a, float* smem) {
-  const int D = a.blk.D, H = a.blk.H, L = a.L;
-  const int hd = D / H;
-  const int hd4 = hd >> 2;                 // float4 words per head row
-  float* qs = smem;                        // [hd]
-  float* sc = qs + hd;                     // [L rounded up to 4]
-  float* red = sc + ((L + 3) & ~3);        // [4 * kThreads]
-  const int tid = threadIdx.x;
-  const float scale = 1.f / sqrtf(static_cast<float>(hd));
-  const int groups = mx::kThreads / hd4;
-  for (int item = blockIdx.x; item < a.blk.B * H; item += gridDim.x) {
-    const int b = item / H, h = item % H;
-    // clamped into the cache as lax.dynamic_update_slice clamps: a bad
-    // position never writes outside the row's [L, hd] slab
-    const int p = min(max(a.pos[b], 0), L - 1);
-    C* kb = static_cast<C*>(a.kc) + static_cast<size_t>(b * H + h) * L * hd;
-    C* vb = static_cast<C*>(a.vc) + static_cast<size_t>(b * H + h) * L * hd;
-    const float* row = a.blk.qkv + static_cast<size_t>(b) * 3 * D + h * hd;
-    for (int d = tid; d < hd; d += mx::kThreads) {
-      qs[d] = row[d];
-      mx::store_elem(kb + static_cast<size_t>(p) * hd + d, row[D + d]);
-      mx::store_elem(vb + static_cast<size_t>(p) * hd + d, row[2 * D + d]);
-    }
-    __syncthreads();
-    const float4* q4 = reinterpret_cast<const float4*>(qs);
-    for (int j = tid; j <= p; j += mx::kThreads) {
-      sc[j] = mx::dot_row(q4, kb + static_cast<size_t>(j) * hd, hd4) * scale;
-    }
-    __syncthreads();
-    const float sum = mx::softmax_scores(sc, p, red);
-    float4 part = make_float4(0.f, 0.f, 0.f, 0.f);
-    const int g = tid / hd4, d4 = tid - g * hd4;
-    if (g < groups) {
-      for (int j = g; j <= p; j += groups) {
-        mx::fma4(part, sc[j] / sum, mx::load4(vb + static_cast<size_t>(j) * hd, d4));
+struct SlabSource {
+  const C* cache[2];  // K, V
+  const CUtensorMap* tk;
+  int H, hd, L, rows, swz;
+
+  __device__ __forceinline__ int tiles(int pa) const { return (pa + rows) / rows; }
+  __device__ __forceinline__ bool swizzled() const { return sizeof(C) == 2 && swz; }
+  __device__ void start(int b, int h, int pa, int i, int n, C* slot, uint64_t* bar) const {
+    const int r0 = (i % n) * rows;
+    const int nr = min(rows, pa + 1 - r0);
+    if (swizzled() && i < n) {
+      const int boxes = (nr + kBoxRows - 1) / kBoxRows;
+      mxh::mbar_expect(bar, static_cast<uint32_t>(boxes) * kBoxRows * hd * sizeof(C));
+      for (int k = 0; k < boxes; ++k) {
+        mxh::tma_load_3d(slot + static_cast<size_t>(k) * kBoxRows * hd, tk, bar, 0,
+                         r0 + k * kBoxRows, b * H + h);
       }
+      return;
     }
-    mx::store_head_context(part, red, groups, hd, a.blk.ctx + static_cast<size_t>(b) * D + h * hd);
+    const uint32_t bytes = static_cast<uint32_t>(nr) * hd * sizeof(C);
+    mxh::mbar_expect(bar, bytes);
+    mx::warp::bulk_copy(slot,
+                        (i < n ? cache[0] : cache[1]) +
+                            (static_cast<size_t>(b * H + h) * L + r0) * hd,
+                        bytes, bar);
   }
-}
+  __device__ __forceinline__ void waited(int, int, int) const {}
+};
 
 template <class W, class X, class C>
-__global__ void __launch_bounds__(mx::kThreads) fused_block_decode_kernel(Args a) {
-  extern __shared__ __align__(16) float smem[];
+__global__ void __launch_bounds__(mx::kThreads, mx::kBlockCtasPerSm)
+    fused_block_decode_kernel(const __grid_constant__ Args a) {
+  extern __shared__ __align__(1024) float smem[];
   cg::grid_group grid = cg::this_grid();
-  // no pools: the attention phase writes the cache rows and attends -> ctx
-  mx::block_step<W, X, C>(a.blk, smem, grid,
-                          mx::PagedRows<C>{nullptr, nullptr, nullptr, nullptr, 0, 0, 0},
-                          [&] { attention<C>(a, smem); });
+  // swizzled slots need their 1 KB swizzle patterns aligned
+  if (sizeof(C) == 2 && a.swz && (mxh::smem_addr(smem) & 1023u)) __trap();
+  // the qkv phase writes the new K/V rows (a contiguous cache is row b's
+  // page b of L rows); its barrier orders them before any copy. The
+  // attention's operands are formed inside its phase, as K7's.
+  mx::block_step<W, X, C>(
+      a.blk, smem, grid,
+      mx::KVRows<C>{a.pos, nullptr, static_cast<C*>(a.kc), static_cast<C*>(a.vc), a.L, 1, 0},
+      [&] {
+        const SlabSource<C> src{{static_cast<const C*>(a.kc), static_cast<const C*>(a.vc)},
+                                &a.tk, a.blk.H, a.blk.D / a.blk.H, a.L, a.rows, a.swz};
+        mx::streamed_attention<C>(a.blk, a.pos, a.L, src, smem,
+                                  mx::streamed_bars(smem, a.blk, a.L, a.depth, a.rows, sizeof(C)),
+                                  a.depth, a.rows);
+      });
 }
 
 template <class W, class X, class C>
@@ -104,24 +124,37 @@ struct Kernel {
   static void (*get())(Args) { return fused_block_decode_kernel<W, X, C>; }
 };
 
+constexpr int kDepth = 2;  // ring slots
+
 }  // namespace
 
-// Dynamic shared memory the kernel needs (0 if the shape cannot run):
-// the larger of the staged activation tile (kRowTile rows of the 4D-wide
-// fc activations) and the attention buffers (q, one score row of L f32
-// rounded up to 4, the float4 P.V reduction scratch).
-extern "C" long long mx_fused_block_smem(int D, int H, int L) {
-  if (H <= 0 || D % H || (D / H) % 4) return 0;
-  const long long hd = D / H;
-  const long long tile = mx::block_tile_floats(D);
-  const long long attn = hd + ((L + 3) & ~3) + 4 * mx::kThreads;
-  return static_cast<long long>(sizeof(float)) * (tile > attn ? tile : attn);
+// Key rows a ring slot of K5 holds (ops/fused_block_gemv._slab_rows): 1024
+// / itemsize (K7's slot), fewer by kBoxRows while the ring does not fit.
+extern "C" int mx_fused_block_slot_rows(int D, int H, int L, int itemsize) {
+  int rows = mx::kThreads * 4 / itemsize;
+  while (rows > kBoxRows &&
+         mx::streamed_smem(1, D, H, L, kDepth, rows, itemsize) > mx::kSmemLimit)
+    rows -= kBoxRows;
+  return rows;
+}
+
+// Dynamic shared memory of K5 in bytes at B rows (0 if the shape cannot
+// run): the staged activation tile (block_rows(B, D) rows of the 4D-wide
+// fc activations) or the attention layout (the ring of two slots, q, one
+// score row of L f32 rounded up to 4, the float4 P.V reduction scratch and
+// the item order), whichever is larger; then the mbarriers
+// (ops/fused_block_gemv._block_smem).
+extern "C" long long mx_fused_block_smem(int B, int D, int H, int L, int itemsize) {
+  if (B < 1 || H <= 0 || D % H || (D / H) % 8 || L < 1 || (itemsize != 2 && itemsize != 4))
+    return 0;
+  return mx::streamed_smem(B, D, H, L, kDepth, mx_fused_block_slot_rows(D, H, L, itemsize),
+                           itemsize);
 }
 
 // scratch: 9 * B * D f32 (qkv 3D, ctx D, res D, fc 4D per row). block =
 // block4 = 0: int8 weights; else int4 weights with those scale blocks
 // (BlockArgs). x is bf16 where x_bf16, else f32; kc/vc bf16 where
-// cache_bf16, else f32.
+// cache_bf16, else f32, 16-byte aligned.
 extern "C" int mx_fused_block_decode(
     const void* x, const void* pos, const void* w_qkv, const void* s_qkv, const void* b_qkv,
     const void* w_out, const void* s_out, const void* b_out, const void* w_fc,
@@ -137,8 +170,16 @@ extern "C" int mx_fused_block_decode(
   a.kc = kc;
   a.vc = vc;
   a.L = L;
-
-  const size_t smem = static_cast<size_t>(mx_fused_block_smem(D, H, L));
-  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  a.depth = kDepth;
+  const int itemsize = cache_bf16 ? 2 : 4;
+  a.rows = mx_fused_block_slot_rows(D, H, L, itemsize);
+  a.swz = cache_bf16 && D / H == 64 && mx::bf16_cache_map(&a.tk, kc, B * H, L, kBoxRows);
+  if (reinterpret_cast<uintptr_t>(kc) % 16 || reinterpret_cast<uintptr_t>(vc) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);  // TMA needs 16-byte slabs
+  }
+  const size_t smem = static_cast<size_t>(mx_fused_block_smem(B, D, H, L, itemsize));
+  if (smem == 0 || smem > static_cast<size_t>(mx::kSmemLimit)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return mx::launch_block(mx::pick_block_kernel<Kernel>(a, x_bf16, cache_bf16), a, smem, stream);
 }

@@ -17,24 +17,32 @@
 // bytes, K and V) plus the new rows (2 * B * D * itemsize bytes), at 3.35
 // TB/s (bf16 pools halve the K/V bytes).
 //
-// Design against that bound: the weight phases are K5's
-// (block_decode_common.cuh): every matrix streamed once over all resident
-// CTAs. The TPU kernel held the whole pool in VMEM and gathered one (row,
-// head)'s logical [L, hd] view into scratch; here the pools stay in device
-// memory and one CTA per (row, head) gathers only the pages 0 .. pos / ps
-// that the row attends, K and V, with L2 loads of one word (four values:
-// 16 bytes of f32, 8 of bf16) into shared memory in the pool's dtype (row
-// j's word e stored at (e + j) mod hd/4, so the thread-per-row score loop
-// is free of bank conflicts), widened to f32 as the dots read them, then
-// runs K5's score / max / sum /
-// P.V code from shared memory. Each attended row is read once. The scatter
-// of the new rows rides the qkv epilogue, so the grid barrier after phase 1
-// orders every row's scatter before any gather (pages may be shared between
-// rows: prefix-cache pages, and the sink that inactive rows write). Every
-// sum keeps K5's order: K5, K6 and K7 give a row the same bits for the same
-// logical cache. The shared-memory footprint (2 L hd values) caps the
-// context: fusable_paged accepts L <= 432 at hd 64 with f32 pools and L <=
-// 864 with bf16 pools; K7 streams longer ones.
+// Design against that bound: the weight phases are block_decode_common.cuh's
+// (every matrix streamed once over all resident CTAs; past 8 rows in tiles
+// of 16, so a 16-row step streams each matrix once, not twice). The TPU
+// kernel held the whole pool in VMEM and gathered one (row, head)'s logical
+// [L, hd] view into scratch; here the pools stay in device memory and a CTA
+// gathers the pages 0 .. pos / ps that a (row, head) attends, its K pages
+// into one slot of shared memory and its V pages into another, in the
+// pool's dtype: one thread starts a TMA copy per page (1-D bulk copies, or
+// 2-D tensor copies with the 128-byte swizzle for bf16 key pages at hd 64,
+// ps % 8 == 0) that complete on the slot's mbarrier. It is
+// block_decode_common.cuh's streamed attention with a slot as long as the
+// context (tp = maxp pages): the copies of a CTA's next (row, head) start
+// as soon as a slot is read (3 or 4 slots where they fit: the next item's K
+// and V are in flight while this one computes), and a CTA with two items
+// takes them longest first, snaking. The first design gathered with
+// synchronous L2 loads into rotated rows, every word before any dot, and
+// took items by blockIdx.x. The scatter of the new rows rides the qkv
+// epilogue, so the grid barrier after phase 1 orders every row's scatter
+// before any copy (pages may be shared between rows: prefix-cache pages,
+// and the sink that inactive rows write). Every sum keeps K5's order: K5,
+// K6 and K7 give a row the same bits for the same logical cache. The
+// shared-memory footprint (two slots of L hd values) caps the context:
+// fusable_paged accepts L <= 432 at hd 64 with f32 pools and L <= 864 with
+// bf16 pools (page 16); K7 streams longer ones.
+#include <cstdint>
+
 #include "block_decode_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -47,85 +55,37 @@ struct Args {
   const int* bt;   // [B, maxp]
   void* kp;        // [NP + 1, H, ps, hd] f32 or bf16 (the kernel's C), in place
   void* vp;
-  int ps, maxp, sink;
+  int ps, maxp, sink, depth;
+  // swz: K pages come by 2-D tensor copies through tk (kp as [(NP + 1) H,
+  // ps, hd] bf16, boxes of one page, 128-byte swizzle): bf16 pools at hd 64
+  // with pages of whole 1 KB swizzle patterns (ps % 8 == 0)
+  int swz;
+  alignas(64) CUtensorMap tk;
 };
 
-__device__ __forceinline__ int rot(int e, int j, int hd4) {
-  const int r = e + j % hd4;
-  return r < hd4 ? r : r - hd4;
-}
-
-// One CTA per (row, head): gather the row's pages 0 .. pa / ps of K and V,
-// attend rows [0, pa] (pa = min(pos, L - 1)), write the head's context.
-template <class C>
-__device__ void attention(const Args& a, float* smem) {
-  typedef typename mx::CacheWord<C>::type Word;   // four values of C
-  const int D = a.blk.D, H = a.blk.H;
-  const int hd = D / H, hd4 = hd >> 2;
-  const int ps = a.ps, L = a.maxp * ps;
-  Word* k4 = reinterpret_cast<Word*>(smem);  // [L, hd / 4] words, rotated
-  Word* v4 = k4 + static_cast<size_t>(L) * hd4;
-  float* qs = reinterpret_cast<float*>(v4 + static_cast<size_t>(L) * hd4);  // [hd]
-  float* sc = qs + hd;                     // [L rounded up to 4]
-  float* red = sc + ((L + 3) & ~3);        // [4 * kThreads]
-  const int tid = threadIdx.x;
-  const float scale = 1.f / sqrtf(static_cast<float>(hd));
-  const int groups = mx::kThreads / hd4;
-  for (int item = blockIdx.x; item < a.blk.B * H; item += gridDim.x) {
-    const int b = item / H, h = item % H;
-    const int pa = min(max(a.pos[b], 0), L - 1);
-    const int words = (pa / ps + 1) * ps * hd4;  // float4 words to gather
-    const int* table = a.bt + static_cast<size_t>(b) * a.maxp;
-    for (int i = tid; i < words; i += mx::kThreads) {
-      const int j = i / hd4, e = i - j * hd4;  // logical row, word
-      const int page = table[j / ps];
-      const size_t src = ((static_cast<size_t>(page) * H + h) * ps + j % ps) * hd4 + e;
-      const int dst = j * hd4 + rot(e, j, hd4);
-      // L2 loads: other CTAs wrote these pools before the grid barrier
-      k4[dst] = __ldcg(static_cast<const Word*>(a.kp) + src);
-      v4[dst] = __ldcg(static_cast<const Word*>(a.vp) + src);
-    }
-    const float* row = a.blk.qkv + static_cast<size_t>(b) * 3 * D + h * hd;
-    for (int d = tid; d < hd; d += mx::kThreads) qs[d] = row[d];
-    __syncthreads();
-    const float4* q4 = reinterpret_cast<const float4*>(qs);
-    for (int j = tid; j <= pa; j += mx::kThreads) {
-      const Word* kr = k4 + static_cast<size_t>(j) * hd4;
-      float s = 0.f;
-      for (int e = 0; e < hd4; ++e) {  // K5's order: ascending e
-        const float4 kv = mx::widen_word(kr[rot(e, j, hd4)]);
-        const float4 qv = q4[e];
-        s = fmaf(qv.x, kv.x, s);
-        s = fmaf(qv.y, kv.y, s);
-        s = fmaf(qv.z, kv.z, s);
-        s = fmaf(qv.w, kv.w, s);
-      }
-      sc[j] = s * scale;
-    }
-    __syncthreads();
-    const float sum = mx::softmax_scores(sc, pa, red);
-    float4 part = make_float4(0.f, 0.f, 0.f, 0.f);
-    const int g = tid / hd4, d4 = tid - g * hd4;
-    if (g < groups) {
-      for (int j = g; j <= pa; j += groups) {
-        mx::fma4(part, sc[j] / sum,
-                 mx::widen_word(v4[static_cast<size_t>(j) * hd4 + rot(d4, j, hd4)]));
-      }
-    }
-    mx::store_head_context(part, red, groups, hd, a.blk.ctx + static_cast<size_t>(b) * D + h * hd);
-  }
-}
-
 template <class W, class X, class C>
-__global__ void __launch_bounds__(mx::kThreads) fused_block_decode_paged_kernel(Args a) {
-  extern __shared__ __align__(16) float smem[];
+__global__ void __launch_bounds__(mx::kThreads, mx::kBlockCtasPerSm)
+    fused_block_decode_paged_kernel(const __grid_constant__ Args a) {
+  extern __shared__ __align__(1024) float smem[];
   cg::grid_group grid = cg::this_grid();
+  // swizzled slots need their 1 KB swizzle patterns aligned
+  if (sizeof(C) == 2 && a.swz && (mxh::smem_addr(smem) & 1023u)) __trap();
   // the qkv phase scatters the new K/V rows; its barrier orders them before
-  // any gather
-  mx::block_step<W, X, C>(a.blk, smem, grid,
-                          mx::PagedRows<C>{a.pos, a.bt, static_cast<C*>(a.kp),
-                                           static_cast<C*>(a.vp), a.ps, a.maxp, a.sink},
-                          [&] { attention<C>(a, smem); });
+  // any page copy. The attention's operands are formed inside its phase, as
+  // K7's.
+  mx::block_step<W, X, C>(
+      a.blk, smem, grid,
+      mx::KVRows<C>{a.pos, a.bt, static_cast<C*>(a.kp), static_cast<C*>(a.vp), a.ps,
+                       a.maxp, a.sink},
+      [&] {
+        const int L = a.ps * a.maxp;
+        const mx::PagedSource<C> src{{static_cast<const C*>(a.kp), static_cast<const C*>(a.vp)},
+                                     a.bt, &a.tk, nullptr, a.blk.H, a.blk.D / a.blk.H, a.ps,
+                                     a.maxp, a.maxp, a.swz};
+        mx::streamed_attention<C>(a.blk, a.pos, L, src, smem,
+                                  mx::streamed_bars(smem, a.blk, L, a.depth, L, sizeof(C)),
+                                  a.depth, L);
+      });
 }
 
 template <class W, class X, class C>
@@ -135,22 +95,34 @@ struct Kernel {
 
 }  // namespace
 
-// Dynamic shared memory of K6 in bytes (0 if the shape cannot run): the
-// staged activation tile, or the gathered [L, hd] K and V (itemsize bytes a
-// value), q, the score row of L rounded up to 4 and the float4 P.V
-// reduction scratch, whichever is larger (ops/fused_block_gemv._paged_smem).
-extern "C" long long mx_paged_smem(int D, int H, int ps, int maxp, int itemsize) {
-  if (H <= 0 || D % H || (D / H) % 8 || ps < 1 || maxp < 1 || (itemsize != 2 && itemsize != 4))
+// Slots of K6's ring at B rows (ops/fused_block_gemv._paged_depth): 4, 3 or
+// 2 slots of L key rows, the most that fit (0: not even two fit).
+extern "C" int mx_paged_depth(int B, int D, int H, int ps, int maxp, int itemsize) {
+  if (B < 1 || H <= 0 || D % H || (D / H) % 8 || ps < 1 || maxp < 1 ||
+      (itemsize != 2 && itemsize != 4))
     return 0;
-  const long long hd = D / H, L = static_cast<long long>(ps) * maxp;
-  const long long tile = 4 * mx::block_tile_floats(D);
-  const long long attn =
-      2 * L * hd * itemsize + 4 * (hd + ((L + 3) & ~3LL) + 4 * mx::kThreads);
-  return tile > attn ? tile : attn;
+  const int L = ps * maxp;
+  for (int depth = 4; depth >= 2; --depth) {
+    if (mx::streamed_smem(B, D, H, L, depth, L, itemsize) <= mx::kSmemLimit) return depth;
+  }
+  return 0;
+}
+
+// Dynamic shared memory of K6 in bytes at B rows (0 if the shape cannot
+// run): the staged activation tile (block_rows(B, D) rows), or the gathered
+// K and V slots (mx_paged_depth of them, L hd values each, itemsize bytes a
+// value), q, the score row of L rounded up to 4, the float4 P.V reduction
+// scratch and the item order, whichever is larger; then the mbarriers
+// (ops/fused_block_gemv._paged_smem).
+extern "C" long long mx_paged_smem(int B, int D, int H, int ps, int maxp, int itemsize) {
+  const int depth = mx_paged_depth(B, D, H, ps, maxp, itemsize);
+  if (depth == 0) return 0;
+  return mx::streamed_smem(B, D, H, ps * maxp, depth, ps * maxp, itemsize);
 }
 
 // bt [B, maxp] int32; pools [sink + 1, H, ps, D / H], bf16 where cache_bf16,
-// else f32; x bf16 where x_bf16, else f32; scratch 9 * B * D f32.
+// else f32, 16-byte aligned; x bf16 where x_bf16, else f32; scratch 9 * B * D
+// f32.
 extern "C" int mx_fused_block_decode_paged(
     const void* x, const void* pos, const void* bt, const void* w_qkv, const void* s_qkv,
     const void* b_qkv, const void* w_out, const void* s_out, const void* b_out,
@@ -170,8 +142,15 @@ extern "C" int mx_fused_block_decode_paged(
   a.ps = ps;
   a.maxp = maxp;
   a.sink = sink;
-
-  const size_t smem = static_cast<size_t>(mx_paged_smem(D, H, ps, maxp, cache_bf16 ? 2 : 4));
+  const int itemsize = cache_bf16 ? 2 : 4;
+  a.depth = mx_paged_depth(B, D, H, ps, maxp, itemsize);
+  a.swz = cache_bf16 && D / H == 64 && ps % 8 == 0 && ps <= 256 &&
+          mx::bf16_cache_map(&a.tk, kp, (sink + 1) * H, ps, ps);
+  if ((static_cast<long long>(ps) * (D / H) * itemsize) % 16 ||
+      reinterpret_cast<uintptr_t>(kp) % 16 || reinterpret_cast<uintptr_t>(vp) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);  // TMA needs 16-byte slabs
+  }
+  const size_t smem = static_cast<size_t>(mx_paged_smem(B, D, H, ps, maxp, itemsize));
   if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
   return mx::launch_block(mx::pick_block_kernel<Kernel>(a, x_bf16, cache_bf16), a, smem, stream);
 }

@@ -47,6 +47,7 @@ namespace mx {
 constexpr int kWarps = 8;              // warps per CTA
 constexpr int kThreads = 32 * kWarps;  // threads per CTA
 constexpr int kRowTile = 8;            // activation rows staged per pass
+constexpr int kWideRowTile = 16;       // ... by the block kernels past kRowTile rows
 
 // Shared-memory layout of a staged f32 activation row of length K: the
 // row is K / 16 chunks of four float4 words; word q of chunk c is stored
@@ -183,13 +184,14 @@ __device__ __forceinline__ float scatter_sum(float (&a)[V]) {
 }
 
 // acc[r] += xs[r] . the 16 weights wf of chunk c (fmaf in ascending k), for
-// the staged rows r < nr (xs in shared memory, row length K in the
+// the staged rows r < nr of R (xs in shared memory, row length K in the
 // swizzle4 layout).
+template <int R>
 __device__ __forceinline__ void fma_chunk(const float* xs, int nr, int K, int c,
-                                          const float (&wf)[16], float (&acc)[kRowTile]) {
+                                          const float (&wf)[16], float (&acc)[R]) {
   const int nchunk = K >> 4;
 #pragma unroll
-  for (int r = 0; r < kRowTile; ++r) {
+  for (int r = 0; r < R; ++r) {
     if (r < nr) {
       const float4* xr = reinterpret_cast<const float4*>(xs + r * K) + c;
 #pragma unroll
@@ -226,10 +228,10 @@ __device__ __forceinline__ void load_batch(const W& wt, int n, int j, int nchunk
 // acc[r] += the lane's partial of row r's dot with the batch's chunks (r <
 // nr), fmaf in ascending k: over the batches of a row in order, the lane
 // walks its chunks lane, lane + 32, ... in ascending order.
-template <class W>
+template <class W, int R>
 __device__ __forceinline__ void dot_batch(const float* xs, int nr, int K, int j,
                                           const typename W::Raw (&raw)[kBatch],
-                                          const float (&sc)[kBatch], float (&acc)[kRowTile]) {
+                                          const float (&sc)[kBatch], float (&acc)[R]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int i = 0; i < kBatch; ++i) {

@@ -7,12 +7,14 @@
   below, and the launch kinds of the int4 lane carry an ``_int4`` suffix.
 - :func:`fused_block_decode` runs one block's whole T=1 decode step: on a
   CUDA tensor as ONE cooperative launch of ``csrc/fused_block_decode.cu``
-  (K5), on a CPU tensor as :func:`_reference_block_decode`, which replays
+  (K5, each (row, head)'s cache slab streamed through a ring of
+  shared-memory slots by TMA copies), on a CPU tensor as
+  :func:`_reference_block_decode`, which replays
   the unfused LayerNorm -> QuantizedDense -> cached-attention op sequence.
   The caches are updated in place (the JAX function returns copies).
 - :func:`fused_block_decode_paged` is the same step over the paged KV
   pools through a block table: ``csrc/fused_block_decode_paged.cu`` (K6,
-  the rows' pages gathered into shared memory) where
+  the rows' pages gathered into shared memory by TMA copies) where
   :func:`fusable_paged` accepts the context length, else
   ``csrc/fused_block_decode_paged_dma.cu`` (K7, pages streamed through a
   ring of shared-memory slots by TMA bulk copies) where
@@ -55,11 +57,16 @@ __all__ = ["pack_gpt_block", "fused_block_decode", "fused_block_decode_paged",
 VOCAB_LANE = 128
 # shared memory one CTA may use on Hopper (H100: 227 KB)
 _SMEM_LIMIT = 232448
-# kernel geometry of csrc/fused_block_decode.cu (kRowTile, kThreads)
+# kernel geometry of csrc/block_decode_common.cuh (kRowTile, kWideRowTile,
+# kThreads)
 _ROW_TILE = 8
+_WIDE_ROW_TILE = 16
 _THREADS = 256
 # ring slots of the streamed paged kernel (the JAX knob fused_dma_depth)
 _DMA_DEPTH = 2
+# K5's ring: slots, and the step of its slot rows (its tensor-copy box)
+_SLAB_DEPTH = 2
+_BOX_ROWS = 16
 
 
 def pad_vocab(n: int) -> int:
@@ -87,38 +94,85 @@ def _tiles(B: int, D: int, heads: int, blocks=()) -> bool:
     return hd % 8 == 0 and hd <= _THREADS
 
 
+def _block_rows(B: int, D: int) -> int:
+    """Rows the block kernels' weight phases stage per pass
+    (``block_rows``): 8, and past 8 rows 16 where that 4D-wide f32 tile
+    fits (192 KB at D 768), so each weight matrix streams once for 16 rows."""
+    wide = 4 * _WIDE_ROW_TILE * 4 * D <= _SMEM_LIMIT
+    return _WIDE_ROW_TILE if B > _ROW_TILE and wide else _ROW_TILE
+
+
+def _streamed_smem(D: int, heads: int, L: int, depth: int, rows: int, itemsize: int,
+                   B: int = 1) -> int:
+    """Dynamic shared memory of a block kernel with streamed attention
+    (``streamed_smem``): the larger of the staged activation tile
+    (:func:`_block_rows` rows of the 4D fc activations) and the attention
+    layout (``depth`` ring slots of ``rows`` key rows in the cache's dtype,
+    q, the f32 score row of L, the float4 P.V scratch and the item order),
+    then one 8-byte mbarrier a slot."""
+    hd = D // heads
+    tile = 4 * _block_rows(B, D) * 4 * D
+    attn = depth * rows * hd * itemsize + 4 * (hd + _round4(L) + 5 * _THREADS)
+    return max(tile, attn) + 8 * depth
+
+
+def _slab_rows(D: int, heads: int, L: int, itemsize: int = 4) -> int:
+    """Key rows a ring slot of K5 holds (``mx_fused_block_slot_rows``):
+    1024 // itemsize (K7's slot: 256 f32 or 512 bf16 rows), fewer by 16
+    while the ring does not fit."""
+    rows = _THREADS * 4 // itemsize
+    while rows > _BOX_ROWS and _streamed_smem(D, heads, L, _SLAB_DEPTH, rows,
+                                              itemsize) > _SMEM_LIMIT:
+        rows -= _BOX_ROWS
+    return rows
+
+
+def _block_smem(D: int, heads: int, L: int, itemsize: int = 4, B: int = 1) -> int:
+    """Dynamic shared memory of K5 at B rows (``mx_fused_block_smem``)."""
+    return _streamed_smem(D, heads, L, _SLAB_DEPTH, _slab_rows(D, heads, L, itemsize),
+                          itemsize, B)
+
+
 def fusable(B: int, D: int, heads: int, L: int, blocks=(),
             cache_itemsize: int = 4) -> bool:
     """Shape gate of the Hopper block kernel: :func:`_tiles`, f32 or bf16
-    caches (``cache_itemsize`` 4 or 2, as the JAX gate takes it), and the
-    larger of the staged activation tile (8 rows of the 4D fc activations)
-    and the attention buffers (one f32 score row of L, q and the float4
-    reduction scratch) within one CTA's 227 KB of shared memory; the
-    caches stay in device memory, so their dtype does not enter it. It
-    replaces the TPU kernel's VMEM budget gate, which would reject GPT-2
-    small at L = 1024."""
+    caches (``cache_itemsize`` 4 or 2, as the JAX gate takes it), and
+    :func:`_block_smem` within one CTA's 227 KB of shared memory: the
+    larger of the staged activation tile (8 rows of the 4D fc activations,
+    16 past 8 rows) and the attention layout (two ring slots of 1024 //
+    itemsize key rows, one f32 score row of L, q, the reduction scratch and
+    the item order); the caches stay in device memory and stream through
+    the ring, so only the score row grows with L. It replaces the TPU
+    kernel's VMEM budget gate, which would reject GPT-2 small at L =
+    1024."""
     if not _tiles(B, D, heads, blocks) or cache_itemsize not in (2, 4):
         return False
-    hd = D // heads
-    smem = 4 * max(_ROW_TILE * 4 * D, hd + _round4(L) + 4 * _THREADS)
-    return smem <= _SMEM_LIMIT
+    return _block_smem(D, heads, L, cache_itemsize, B) <= _SMEM_LIMIT
 
 
-def _paged_smem(D: int, heads: int, L: int, itemsize: int = 4) -> int:
-    """Dynamic shared memory of K6 (``mx_paged_smem``): the staged
-    activation tile, or the gathered [L, hd] K and V of one (row, head) in
-    the pools' dtype (``itemsize`` bytes a value), q, the score row and the
-    reduction scratch, whichever is larger."""
-    hd = D // heads
-    return max(4 * _ROW_TILE * 4 * D,
-               2 * L * hd * itemsize + 4 * (hd + _round4(L) + 4 * _THREADS))
+def _paged_depth(D: int, heads: int, L: int, itemsize: int = 4, B: int = 1) -> int:
+    """Slots of K6's ring (``mx_paged_depth``): 4, 3 or 2 slots of the
+    whole context (L key rows), the most that fit; 0 where two do not."""
+    for depth in (4, 3, 2):
+        if _streamed_smem(D, heads, L, depth, L, itemsize, B) <= _SMEM_LIMIT:
+            return depth
+    return 0
+
+
+def _paged_smem(D: int, heads: int, L: int, itemsize: int = 4, B: int = 1) -> int:
+    """Dynamic shared memory of K6 at B rows (``mx_paged_smem``): the
+    staged activation tile, or :func:`_paged_depth` slots of the gathered
+    [L, hd] K or V of one (row, head) in the pools' dtype (``itemsize``
+    bytes a value), q, the score row, the reduction scratch and the item
+    order, whichever is larger; then the mbarriers. Where two slots do not
+    fit, the two-slot size (above the limit)."""
+    depth = _paged_depth(D, heads, L, itemsize, B) or 2
+    return _streamed_smem(D, heads, L, depth, L, itemsize, B)
 
 
 def _dma_smem(D: int, heads: int, ps: int, L: int, depth: int, tp: int,
-              itemsize: int = 4) -> int:
-    hd = D // heads
-    attn = depth * tp * ps * hd * itemsize + 4 * (hd + _round4(L) + 4 * _THREADS)
-    return max(4 * _ROW_TILE * 4 * D, attn) + 8 * depth   # + one mbarrier a slot
+              itemsize: int = 4, B: int = 1) -> int:
+    return _streamed_smem(D, heads, L, depth, tp * ps, itemsize, B)
 
 
 def _dma_tile_pages(D: int, heads: int, ps: int, L: int, depth: int,
@@ -133,29 +187,31 @@ def _dma_tile_pages(D: int, heads: int, ps: int, L: int, depth: int,
 
 
 def _paged_dma_smem(D: int, heads: int, ps: int, L: int, depth: int,
-                    itemsize: int = 4) -> int:
-    """Dynamic shared memory of K7 (``mx_paged_dma_smem``): the staged
-    activation tile, or ``depth`` ring slots of :func:`_dma_tile_pages`
-    pages in the pools' dtype, q, the score row and the reduction scratch,
-    whichever is larger; then one 8-byte mbarrier per slot."""
+                    itemsize: int = 4, B: int = 1) -> int:
+    """Dynamic shared memory of K7 at B rows (``mx_paged_dma_smem``): the
+    staged activation tile, or ``depth`` ring slots of
+    :func:`_dma_tile_pages` pages in the pools' dtype, q, the score row,
+    the reduction scratch and the item order, whichever is larger; then
+    one 8-byte mbarrier per slot."""
     return _dma_smem(D, heads, ps, L, depth,
-                     _dma_tile_pages(D, heads, ps, L, depth, itemsize), itemsize)
+                     _dma_tile_pages(D, heads, ps, L, depth, itemsize), itemsize, B)
 
 
 def fusable_paged(B: int, D: int, heads: int, pool_pages: int,
                   page_size: int, max_pages: int, cache_itemsize: int = 4,
                   blocks=()):
     """Shape gate of K6, the gathered paged kernel, restated for Hopper:
-    :func:`_tiles`, f32 or bf16 pools (``cache_itemsize`` 4 or 2), and
-    :func:`_paged_smem` within one CTA's 227 KB: ``2*L*hd*itemsize + 4 *
-    (L + hd + 4*256)`` bytes at GPT-2 widths, which accepts L <= 432 at hd
-    64 with f32 pools (page 16: max_len 256 or 384) and L <= 864 with bf16
-    pools (paged A's L 256 takes K6 either way; paged B's L 1024 takes K7).
-    It replaces the TPU's VMEM test on the whole pool; ``pool_pages`` does
-    not enter it, because the pools stay in device memory."""
+    :func:`_tiles`, f32 or bf16 pools (``cache_itemsize`` 4 or 2), and two
+    slots of the whole context within one CTA's 227 KB (:func:`_paged_depth`
+    > 0): ``2*L*hd*itemsize + 4 * (L + hd + 5*256) + 16`` bytes at GPT-2
+    widths, which accepts L <= 432 at hd 64 with f32 pools (page 16:
+    max_len 256 or 384) and L <= 864 with bf16 pools (paged A's L 256
+    takes K6 either way; paged B's L 1024 takes K7). It replaces the TPU's
+    VMEM test on the whole pool; ``pool_pages`` does not enter it, because
+    the pools stay in device memory."""
     if not _tiles(B, D, heads, blocks) or cache_itemsize not in (2, 4):
         return False
-    return _paged_smem(D, heads, max_pages * page_size, cache_itemsize) <= _SMEM_LIMIT
+    return _paged_depth(D, heads, max_pages * page_size, cache_itemsize, B) > 0
 
 
 def fusable_paged_dma(B: int, D: int, heads: int, pool_pages: int,
@@ -172,7 +228,7 @@ def fusable_paged_dma(B: int, D: int, heads: int, pool_pages: int,
     if depth < 1 or (page_size * (D // heads) * cache_itemsize) % 16:
         return False
     L = max_pages * page_size
-    return _paged_dma_smem(D, heads, page_size, L, depth, cache_itemsize) <= _SMEM_LIMIT
+    return _paged_dma_smem(D, heads, page_size, L, depth, cache_itemsize, B) <= _SMEM_LIMIT
 
 
 # ---------------------------------------------------------------------------
@@ -380,7 +436,7 @@ def _cuda_block_decode(xv, posv, kc, vc, pack):
     B, _, D = xv.shape
     heads = pack["heads"]
     L = kc.shape[2]
-    flags = _kernel_dtypes(xv, (kc, vc), "fused_block_decode")
+    flags = _kernel_dtypes(xv, (kc, vc), "fused_block_decode", aligned=True)
     pos = _row_positions(posv, B, xv.device)
     x = _kernel_rows(xv, B, D)
     ops, lane = _weight_operands(pack, "fused_block_decode")

@@ -331,24 +331,32 @@ def test_paged_engine_preempts_and_resumes_on_card(cuda):
         assert d is None or chip_smoke.chunked_gap(torch, model, p + ref[:d], 8, 64) < 1e-3
 
 
+@pytest.mark.parametrize("B", [8, 16])
 @pytest.mark.parametrize("D,H,ps,maxp", [(768, 12, 16, 16), (768, 12, 16, 64),
                                          (256, 4, 8, 40), (1024, 8, 32, 8),
                                          (512, 4, 4, 100)])
-def test_paged_smem_matches_python_gates(cuda, D, H, ps, maxp):
+def test_paged_smem_matches_python_gates(cuda, D, H, ps, maxp, B):
     """The kernels' own shared-memory arithmetic is the Python gates', for
-    f32 and bf16 pools."""
+    f32 and bf16 caches, at 8 rows and at 16 (the 16-row weight tile): K5's
+    slot rows and bytes, K6's slots and bytes, K7's pages a slot and
+    bytes."""
+    k5 = _build.library("fused_block_decode")
     k6 = _build.library("fused_block_decode_paged")
     k7 = _build.library("fused_block_decode_paged_dma")
     L = ps * maxp
     for it in (4, 2):
-        assert k6.mx_paged_smem(D, H, ps, maxp, it) == fb._paged_smem(D, H, L, it)
-        assert (k7.mx_paged_dma_smem(D, H, ps, maxp, 2, it)
-                == fb._paged_dma_smem(D, H, ps, L, 2, it))
+        assert k5.mx_fused_block_slot_rows(D, H, L, it) == fb._slab_rows(D, H, L, it)
+        assert k5.mx_fused_block_smem(B, D, H, L, it) == fb._block_smem(D, H, L, it, B)
+        depth = fb._paged_depth(D, H, L, it, B)
+        assert k6.mx_paged_depth(B, D, H, ps, maxp, it) == depth
+        assert k6.mx_paged_smem(B, D, H, ps, maxp, it) == (
+            fb._paged_smem(D, H, L, it, B) if depth else 0)
+        assert (k7.mx_paged_dma_smem(B, D, H, ps, maxp, 2, it)
+                == fb._paged_dma_smem(D, H, ps, L, 2, it, B))
         assert (k7.mx_paged_dma_tile_pages(D, H, ps, maxp, 2, it)
                 == fb._dma_tile_pages(D, H, ps, L, 2, it))
 
 
-# (B, H, T, S, D, causal) of chip_smoke's kernel phase, at a smaller B
 _FLASH_SHAPES = [(2, 3, 1024, 1024, 64, True), (1, 2, 1000, 1000, 64, True),
                  (1, 2, 256, 512, 64, True), (1, 2, 384, 384, 40, False),
                  (1, 2, 300, 300, 128, True), (1, 1, 256, 256, 256, False)]
@@ -830,3 +838,178 @@ def test_streamed_kernel_slot_edges(pack, ps, dtype):
     chip_smoke.check_paged(torch, fb, f"K7 ps {ps}", inputs, pack, True, pool, ps)
     chip_smoke.same_bits_k5_k6_k7(torch, fb, g, pack, pool, ps, [256, 255, 383, 128, 127, 0],
                                   maxp=384 // ps, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# K5 and K6 redesigned on the streamed attention: against their plain
+# versions and against K7 on the same logical cache
+# ---------------------------------------------------------------------------
+
+def _contiguous_view(kp, vp, table, L):
+    """The [B, H, L, hd] caches a block table's pages stand for."""
+    B, maxp = table.shape
+    ps = kp.shape[2]
+    return [p[table.long()].transpose(1, 2).reshape(B, kp.shape[1], maxp * ps, -1)
+            .contiguous() for p in (kp, vp)]
+
+
+def _k5_against_k7(pack, pos, L, dtype, x_dtype=None, seed=20):
+    """K5 on the contiguous view of a paged cache against its plain version
+    (``hold_block``'s rule) and against K7 on the pages, bit for bit: the
+    output, and K5's written cache rows against K7's written pool rows (rows
+    0 and 1 share their first two pages, the last row is inactive:
+    ``paged_inputs``). B 1 runs row 0 of a three-row paged case. Returns
+    K5's output."""
+    D, H = pack["ln1"][0].shape[0], pack["heads"]
+    ps, maxp = 16, L // 16
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    case = list(pos) * 2 + [0] if len(pos) == 1 else list(pos)
+    x, posv, table, kp, vp = chip_smoke.paged_inputs(torch, g, D, H, len(case), ps, maxp,
+                                                     4 * len(case) * maxp, case, dtype)
+    B = len(pos)
+    x, posv, table = x[:B], posv[:B], table[:B].contiguous()
+    if x_dtype is not None:
+        x = x.to(x_dtype)
+    kc, vc = _contiguous_view(kp, vp, table, L)
+    k5, v5, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    k7, v7 = kp.clone(), vp.clone()
+    int8_gemv.reset_launches()
+    o5, _, _ = fb.fused_block_decode(x, posv, k5, v5, pack)
+    o7, _, _ = fb._cuda_block_decode_paged(x, posv, table, k7, v7, pack, True, None)
+    plain, _, _ = fb._reference_block_decode(x, posv, k2, v2, pack)
+    torch.cuda.synchronize()
+    assert int8_gemv.launches() == {"fused_block" + fb._kind_suffix(pack): 1}
+    written = torch.zeros(B, H, L, dtype=torch.bool, device="cuda")
+    written[torch.arange(B, device="cuda"), :, posv.long().clamp(0, L - 1)] = True
+    chip_smoke.hold_block(torch, "K5", o5, plain, (k5, v5), (k2, v2), (kc, vc), written)
+    assert torch.equal(o5, o7), (o5 - o7).abs().max().item()
+    sink = kp.shape[0] - 1
+    for b, p in enumerate(posv.clamp(0, L - 1).tolist()):
+        page = int(table[b, p // ps])
+        if page != sink:       # the inactive row writes the sink page
+            assert torch.equal(k5[b, :, p], k7[page, :, p % ps])
+            assert torch.equal(v5[b, :, p], v7[page, :, p % ps])
+    return o5
+
+
+# (positions): position 0 and L - 1, every row at one position, every row
+# long, B 1, 9 and 16, and the pos-64 rows serving decodes at
+_K5_CASES = {
+    "edges": [1023, 1023, 0, 511, 512, 255, 256, 0],
+    "one_position": [700] * 7 + [0],
+    "all_long": [1023, 1000, 999, 960, 1023, 900, 1010, 0],
+    "pos64": [64] * 7 + [0],
+    "B1": [1023],
+    "B9": [1000, 517, 3, 64, 999, 250, 1, 777, 0],
+    "B16": [1000, 517, 3, 64, 999, 250, 1, 777, 1023, 40, 300, 64, 65, 128, 900, 0],
+}
+
+
+@pytest.mark.parametrize("case", sorted(_K5_CASES))
+def test_contiguous_kernel_streams_k7s_bits(pack, case):
+    """K5 (a (row, head)'s cache slab streamed slot by slot through the
+    ring) holds its plain version and gives K7's bits at L 1024, f32."""
+    _k5_against_k7(pack, _K5_CASES[case], 1024, torch.float32)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32], ids=["x_bf16", "x_f32"])
+@pytest.mark.parametrize("case", ["edges", "all_long", "pos64", "B1", "B9", "B16"])
+def test_contiguous_kernel_streams_k7s_bits_in_bf16(pack, case, x_dtype):
+    """The same with bf16 caches (key rows by swizzled tensor copies of
+    16-row boxes at hd 64), at bf16 x (block 0) and f32 x (later blocks)."""
+    _k5_against_k7(pack, _K5_CASES[case], 1024, torch.bfloat16, x_dtype)
+
+
+def test_contiguous_kernel_rows_are_batch_invariant(pack):
+    """A row gives the same bits alone, in a batch of 8 (one row tile of 8),
+    of 9 and of 16 (one tile of 16)."""
+    g = torch.Generator(device="cuda").manual_seed(21)
+    B, D, H, L = 16, 256, 4, 1024
+    x = torch.randn(B, 1, D, device="cuda", generator=g)
+    kc = torch.randn(B, H, L, D // H, device="cuda", generator=g) * 0.1
+    vc = torch.randn(B, H, L, D // H, device="cuda", generator=g) * 0.1
+    pos = torch.tensor(_K5_CASES["B16"], dtype=torch.int32, device="cuda")
+    full, _, _ = fb.fused_block_decode(x, pos, kc.clone(), vc.clone(), pack)
+    for lo, hi in ((0, 9), (0, 8), (5, 6), (15, 16)):
+        part, _, _ = fb.fused_block_decode(x[lo:hi], pos[lo:hi], kc[lo:hi].clone(),
+                                           vc[lo:hi].clone(), pack)
+        torch.cuda.synchronize()
+        assert torch.equal(part, full[lo:hi]), (lo, hi)
+
+
+# (positions) of K6 at L 256: positions 0 and L - 1, B 1, 9 and 16
+_K6_CASES = {
+    "B16": [200, 255, 33, 138, 201, 227, 212, 106, 109, 79, 106, 80, 62, 25, 1, 0],
+    "B9": [255, 254, 0, 128, 127, 64, 65, 17, 0],
+    "B1": [255],
+    "one_position": [255] * 15 + [0],
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(_K6_CASES))
+def test_gathered_kernel_holds_plain_and_k7s_bits(pack, case, dtype):
+    """K6 (each (row, head)'s pages gathered by TMA copies, items longest
+    first, 16-row weight tiles past 8 rows) against its plain version by
+    ``check_paged``'s rule, then K5, K6 and K7 on one input give the same
+    bits (``same_bits_k5_k6_k7``)."""
+    pos = _K6_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(30)
+    if len(pos) > 1:
+        inputs = chip_smoke.paged_inputs(torch, g, 256, 4, len(pos), 16, 16, 400, pos, dtype)
+        chip_smoke.check_paged(torch, fb, "K6", inputs, pack, False, 400, 16)
+        chip_smoke.same_bits_k5_k6_k7(torch, fb, g, pack, 400, 16, pos, dtype=dtype)
+    else:
+        x, posv, table, kp, vp = chip_smoke.paged_inputs(torch, g, 256, 4, 3, 16, 16, 400,
+                                                         pos * 2 + [0], dtype)
+        one = (x[:1], posv[:1], table[:1].contiguous())
+        k6, v6, k7, v7 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+        o6, _, _ = fb.fused_block_decode_paged(*one, k6, v6, pack)
+        o7, _, _ = fb._cuda_block_decode_paged(*one, k7, v7, pack, True, None)
+        torch.cuda.synchronize()
+        assert torch.equal(o6, o7) and torch.equal(k6, k7) and torch.equal(v6, v7)
+
+
+def test_gathered_kernel_at_gpt2_small_b16(cuda):
+    """K6 at chip_smoke's paged A shape (GPT-2 small widths, B 16, L 256:
+    one 16-row weight tile, 192 items over the grid, longest first) gives
+    K7's bits and K5's on the gathered view, int8 and bf16 pools."""
+    import dataclasses
+    from mxnet_tpu_torch.models import GPT2_SMALL
+    cfg = dataclasses.replace(GPT2_SMALL, num_layers=1, dropout=0.0, vocab_size=256)
+    model = quantize_net(GPTModel(cfg, device="cuda").init_weights(0), fused_decode=True)
+    pk = fb.pack_gpt_block(model.blocks[0], eps=cfg.layer_norm_eps)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    for dtype in (torch.float32, torch.bfloat16):
+        chip_smoke.same_bits_k5_k6_k7(torch, fb, g, pk, 600, 16, _K6_CASES["B16"], dtype=dtype)
+
+
+def test_bitwise_check_catches_pv_partials_out_of_group_order(pack, tmp_path):
+    """A planted fault: K5 built with the P.V group partials summed in
+    reverse group order (a legal reordering, within the plain version's
+    tolerance) must fail the bitwise check against K7."""
+    import shutil
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root / "tools"))
+    from nvcc_build import build
+    src = tmp_path / "csrc"
+    shutil.copytree(root / "mxnet_tpu_torch" / "csrc", src)
+    common = src / "block_decode_common.cuh"
+    text = common.read_text()
+    order = ("    float c = red[tid];\n"
+             "    for (int q = 1; q < groups; ++q) c += red[q * hd + tid];\n")
+    assert order in text
+    common.write_text(text.replace(order, "    float c = red[(groups - 1) * hd + tid];\n"
+                                          "    for (int q = groups - 2; q >= 0; --q) "
+                                          "c += red[q * hd + tid];\n"))
+    (lib,) = build([(src, tmp_path / "build", "fused_block_decode")])
+    _build._declare("fused_block_decode", lib)
+    saved = _build.library
+    _build.library = lambda name: lib if name == "fused_block_decode" else saved(name)
+    try:
+        with pytest.raises(AssertionError):
+            _k5_against_k7(pack, _K5_CASES["all_long"], 1024, torch.float32)
+    finally:
+        _build.library = saved

@@ -242,7 +242,8 @@ def test_hopper_gates_at_gpt2_small():
     for maxp in (28, 32, 64):
         assert not fb.fusable_paged(8, 768, 12, 161, 16, maxp)
         assert fb.fusable_paged_dma(8, 768, 12, 161, 16, maxp)
-    assert fb._paged_smem(768, 12, 256) == 4 * (2 * 256 * 64 + 256 + 64 + 4 * 256)
+    # three slots of the whole context fit at L 256 (the next row's K in flight)
+    assert fb._paged_smem(768, 12, 256) == 3 * 256 * 64 * 4 + 4 * (256 + 64 + 5 * 256) + 24
     assert fb._dma_tile_pages(768, 12, 16, 1024, 2) == 16       # 256 key rows a slot
     assert fb.fusable_paged(8, 768, 12, 10 ** 6, 16, 16)
     assert fb.fusable_paged_dma(8, 768, 12, 10 ** 6, 16, 64)
@@ -261,16 +262,16 @@ def test_hopper_gates_at_gpt2_small():
 # (L, pool itemsize, depth): the larger of the staged activation tile (8
 # rows of 4D f32: 98304 bytes) and the ring (depth slots of 1024 / itemsize
 # key rows, 64 KB at hd 64 in either dtype: 16 pages of f32, 32 of bf16) +
-# q + the score row + the P.V scratch (4 * (64 + L + 1024) bytes), then one
-# 8-byte mbarrier a slot. Whole slots fit everywhere, so every shape is
-# fusable.
+# q + the score row + the P.V scratch + the item order (4 * (64 + L + 1280)
+# bytes), then one 8-byte mbarrier a slot. Whole slots fit everywhere, so
+# every shape is fusable.
 _K7_SMEM = {
-    (256, 4, 1): 98312, (256, 4, 2): 136464, (256, 4, 3): 202008,
-    (512, 4, 1): 98312, (512, 4, 2): 137488, (512, 4, 3): 203032,
-    (1024, 4, 1): 98312, (1024, 4, 2): 139536, (1024, 4, 3): 205080,
-    (256, 2, 1): 98312, (256, 2, 2): 136464, (256, 2, 3): 202008,
-    (512, 2, 1): 98312, (512, 2, 2): 137488, (512, 2, 3): 203032,
-    (1024, 2, 1): 98312, (1024, 2, 2): 139536, (1024, 2, 3): 205080,
+    (256, 4, 1): 98312, (256, 4, 2): 137488, (256, 4, 3): 203032,
+    (512, 4, 1): 98312, (512, 4, 2): 138512, (512, 4, 3): 204056,
+    (1024, 4, 1): 98312, (1024, 4, 2): 140560, (1024, 4, 3): 206104,
+    (256, 2, 1): 98312, (256, 2, 2): 137488, (256, 2, 3): 203032,
+    (512, 2, 1): 98312, (512, 2, 2): 138512, (512, 2, 3): 204056,
+    (1024, 2, 1): 98312, (1024, 2, 2): 140560, (1024, 2, 3): 206104,
 }
 
 
@@ -284,7 +285,7 @@ def test_streamed_kernel_gates_at_gpt2_small(L, itemsize, depth):
     tp = 1024 // itemsize // ps
     assert fb._dma_tile_pages(768, 12, ps, L, depth, itemsize) == tp
     assert fb._paged_dma_smem(768, 12, ps, L, depth, itemsize) == _K7_SMEM[L, itemsize, depth]
-    ring = depth * tp * ps * 64 * itemsize + 4 * (64 + L + 4 * 256)
+    ring = depth * tp * ps * 64 * itemsize + 4 * (64 + L + 5 * 256)
     assert _K7_SMEM[L, itemsize, depth] == max(98304, ring) + 8 * depth
     assert fb.fusable_paged_dma(8, 768, 12, 161, ps, maxp, cache_itemsize=itemsize,
                                 depth=depth)

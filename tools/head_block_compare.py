@@ -18,33 +18,36 @@ wrappers take these arguments.
    greedy and T 0.8 rows, over GPT-2's padded head (50304 x 768), a table
    whose last channel group is short (50258 rows, vocab 50257), a small
    one (1027 rows, vocab 1000) and a table of repeated rows (ties
-   everywhere). K7: the output and both pools at ``chip_smoke``'s K7 shape
-   (B 8, L 1024, ps 16, positions [1023, 517, 64, 999, 250, 777, 3, 0]) and
-   at L 256; K5 and K6 at ``chip_smoke``'s shapes (K5: B 8, L 1024; K6: B
-   16, L 256): output and caches. Each for int8 and int4 packs of one
-   GPT-2 small block, of an f32 model (f32 x and caches) and of a bf16
-   model (bf16 caches, bf16 x and f32 x). Any difference fails.
+   everywhere). K5, K6 and K7: the output and both caches or pools at
+   ``chip_smoke``'s shapes (K5: B 8, L 1024, positions [1000, 3, 517, 64,
+   999, 250, 0, 777], and every row at 64; K6: B 16, L 256, and its first 7
+   rows + an inactive one at B 8; K7: B 8, L 1024, positions [1023, 517,
+   64, 999, 250, 777, 3, 0]), K7 at L 256, K5 at B 1 (position L - 1), 9
+   and 16 and with every row long, K6 at B 1 and 9. Each for int8 and int4
+   packs of one GPT-2 small block, of an f32 model (f32 x and caches) and
+   of a bf16 model (bf16 caches, bf16 x and f32 x). Any difference fails.
 2. Times, by ``chip_smoke.Timer`` (L2 flushed, card held busy while the
    host enqueues), the other build and this one in turns (other, this,
    this, other), each through its own wrapper: K8 at B 8 (4 greedy, 4
    T 0.8 rows) in every lane, beside the warp-route head GEMV + ``argmax``
    and ``torch.matmul`` + ``argmax`` on the dequantized table; K5, K6 and
-   K7 in each (weights, model dtype) lane, also with this wrapper's kept
-   operands dropped before every call (``this_reformed_ms``: the per-call
-   bias and LayerNorm conversions a bf16 model's pack needed before), and
-   each build's kernel alone on the device (``torch.profiler``).
+   K7 at the timed shapes of 1. in each (weights, model dtype) lane, also
+   with this wrapper's kept operands dropped before every call
+   (``this_reformed_ms``: the per-call bias and LayerNorm conversions a
+   bf16 model's pack needed before), and each build's kernel alone on the
+   device (``torch.profiler``).
 
-With ``--probes`` it also builds altered copies of this checkout's K7
-and K8 and prints their device times at the K7 shape and at B 8: K7
-without attention (``no_attention``), without the weight phases
-(``no_weights``), pass 1 alone (``pass1_only``), its copies alone
-(``pass1_copies``), attention's copies alone (``attention_copies``) and
-the four grid barriers alone (``barriers_only``); K8 with the per-CTA
-pairs reduced by a second launch instead of the last CTA
-(``k8_two_launches``, also timed in turns with this build). The K7
-probes' outputs are garbage by design; the two-launch probe's tokens are
-checked. Each substitution names exact source lines; the tool stops if
-one is gone.
+With ``--probes`` it also builds altered copies of this checkout's K5, K6,
+K7 and K8 and prints their device times at the timed shapes (f32, bf16 and
+int4 lanes): each block kernel without attention (``no_attention``),
+without the weight phases (``no_weights``), attention's copies alone
+(``attention_copies``: no weights, no dots, no P.V) and the four grid
+barriers alone (``barriers_only``); K7 also pass 1 alone (``pass1_only``)
+and its copies alone (``pass1_copies``); K8 with the per-CTA pairs reduced
+by a second launch instead of the last CTA (``k8_two_launches``, also
+timed in turns with this build). The block probes' outputs are garbage by
+design; the two-launch probe's tokens are checked. Each substitution names
+exact source lines; the tool stops if one is gone.
 
 Prints one JSON line per result (also written to ``--out``) and exits
 non-zero if any output differs.
@@ -72,6 +75,8 @@ K8_ROWS = (1, 3, 8, 9, 16)
 # group, a small table
 K8_TABLES = ((50304, 50257), (50258, 50257), (1027, 1000))
 K5_POS = [1000, 3, 517, 64, 999, 250, 0, 777]
+K5_POS64 = [64] * 8
+K5_LONG = [1023, 1000, 999, 960, 1023, 900, 1010, 1023]
 K7_POS = [1023, 517, 64, 999, 250, 777, 3, 0]
 POOL, PS = 600, 16
 # kernel name in a profiler trace, per block kernel
@@ -81,20 +86,25 @@ DEVICE_KEYS = {"K5": "fused_block_decode_kernel", "K6": "fused_block_decode_page
 OTHER_SOURCES = ("lm_head_sample", "fused_block_decode", "fused_block_decode_paged",
                  "fused_block_decode_paged_dma")
 
-_K7 = "fused_block_decode_paged_dma.cu"
 _COMMON = "block_decode_common.cuh"
 _K8 = "lm_head_sample.cu"
+# Probe substitutions. The block kernels share their weight phases and
+# their attention code (block_decode_common.cuh), so each substitution
+# below alters whichever kernel's library is built from the copy.
 # the weight phases' staging and GEMVs (their grid barriers stay)
-_NO_WEIGHTS = ((_COMMON, (("    for (int r0 = 0; r0 < a.B; r0 += kRowTile) {\n"
-                           "      const int nr = min(kRowTile, a.B - r0);\n",
-                           "    for (int r0 = 0; r0 < 0; r0 += kRowTile) {\n"
-                           "      const int nr = min(kRowTile, a.B - r0);\n"),)),)
-_NO_ATTENTION = ((_K7, (("[&] { attention<C>(a, smem, bars); }", "[&] {}"),)),)
-_K_ONLY = ((_K7, (("    const int loads = 2 * st.ntile;\n", "    const int loads = st.ntile;\n"),)),)
-_NO_DOT = ((_K7, (("          sc[j] = score_row(a, q4, slot + static_cast<size_t>(j - j0) * "
-                   "hd, j - j0, hd4) * scale;\n", "          sc[j] = scale;\n"),)),)
-_NO_PV = ((_K7, (("          mx::fma4(part, sc[j] / sum, mx::load4(slot + "
-                  "static_cast<size_t>(j - j0) * hd, d4));\n", ""),)),)
+_NO_WEIGHTS = ((_COMMON, (("    for (int r0 = 0; r0 < a.B; r0 += R) {\n",
+                           "    for (int r0 = 0; r0 < 0; r0 += R) {\n"),)),)
+# the attention phase (its two grid barriers stay)
+_NO_ATTENTION = ((_COMMON, (("      attention();\n", ""),)),)
+# pass 1 alone: neither V copies nor P.V
+_K_ONLY = ((_COMMON, (("    const int ntile = src.tiles(pa), loads = 2 * ntile;\n",
+                       "    const int ntile = src.tiles(pa), loads = ntile;\n"),
+                      ("    const int nn = nk < 0 ? 0 : src.tiles(npa), nloads = 2 * nn;\n",
+                       "    const int nn = nk < 0 ? 0 : src.tiles(npa), nloads = nn;\n"))),)
+# the score dots, and the P.V FMAs
+_NO_DOT = ((_COMMON, (("          sc[j] = s * scale;\n", "          sc[j] = scale;\n"),)),)
+_NO_PV = ((_COMMON, (("          fma4(part, sc[j] / sum, load4(slot + static_cast<size_t>(j - j0) "
+                      "* hd, d4));\n", ""),)),)
 # K8 before its reduction was folded into the last CTA: every CTA leaves
 # after writing its pairs, and a second launch (one CTA, a warp a row)
 # reduces them
@@ -111,16 +121,22 @@ _TWO_LAUNCHES = ((_K8, (
      "  if (err != cudaSuccess) return static_cast<int>(err);\n"
      "  head_reduce_kernel<<<1, mx::kThreads, 0, st>>>(a, B, p.grid);\n"
      "  return static_cast<int>(cudaGetLastError());\n"))),)
-# probe name: (library, ((source file, substitutions), ...))
+_LIB = {"K5": "fused_block_decode", "K6": "fused_block_decode_paged",
+        "K7": "fused_block_decode_paged_dma", "K8": "lm_head_sample"}
+# probe name: (kernel, ((source file, substitutions), ...)); each probe
+# builds the kernel's library from a copy of csrc/ with them applied
 PROBES = {
-    "no_attention": ("fused_block_decode_paged_dma", _NO_ATTENTION),
-    "no_weights": ("fused_block_decode_paged_dma", _NO_WEIGHTS),
-    "pass1_only": ("fused_block_decode_paged_dma", _NO_WEIGHTS + _K_ONLY),
-    "pass1_copies": ("fused_block_decode_paged_dma", _NO_WEIGHTS + _K_ONLY + _NO_DOT),
-    "attention_copies": ("fused_block_decode_paged_dma", _NO_WEIGHTS + _NO_DOT + _NO_PV),
-    "barriers_only": ("fused_block_decode_paged_dma", _NO_WEIGHTS + _NO_ATTENTION),
-    "k8_two_launches": ("lm_head_sample", _TWO_LAUNCHES),
-}
+    f"{k.lower()}:{name}": (k, subs) for k in ("K5", "K6", "K7") for name, subs in (
+        ("no_attention", _NO_ATTENTION), ("no_weights", _NO_WEIGHTS),
+        ("attention_copies", _NO_WEIGHTS + _NO_DOT + _NO_PV),
+        ("barriers_only", _NO_WEIGHTS + _NO_ATTENTION))}
+# the weight phases in row tiles of 8 at every B (two passes at B 16)
+_ROWS_OF_8 = ((_COMMON, (("  return B > kRowTile && block_tile_bytes(kWideRowTile, D) <= kSmemLimit",
+                          "  return false && block_tile_bytes(kWideRowTile, D) <= kSmemLimit"),)),)
+PROBES.update({"k6:rows_of_8": ("K6", _ROWS_OF_8),
+               "k7:pass1_only": ("K7", _NO_WEIGHTS + _K_ONLY),
+               "k7:pass1_copies": ("K7", _NO_WEIGHTS + _K_ONLY + _NO_DOT),
+               "k8:two_launches": ("K8", _TWO_LAUNCHES)})
 
 
 def other_package(root: Path, name="other_mxnet_tpu_torch"):
@@ -146,8 +162,8 @@ def probe_sources(root: Path):
     substitutions applied: {probe: (csrc copy, library name)}."""
     csrc = ROOT / "mxnet_tpu_torch" / "csrc"
     dirs = {}
-    for name, (lib, files) in PROBES.items():
-        d = root / name / "csrc"
+    for name, (kernel, files) in PROBES.items():
+        d = root / name.replace(":", "_") / "csrc"
         if d.exists():
             shutil.rmtree(d)
         shutil.copytree(csrc, d)
@@ -158,7 +174,7 @@ def probe_sources(root: Path):
                     raise SystemExit(f"probe {name}: {fname} no longer holds {a!r}")
                 text = text.replace(a, b)
             (d / fname).write_text(text)
-        dirs[name] = (d, lib)
+        dirs[name] = (d, _LIB[kernel])
     return dirs
 
 
@@ -214,15 +230,20 @@ def main(argv=None):
 
     def device_us(fn, key, n=10):
         """Mean device time per call of the kernels whose name holds
-        ``key``, by torch.profiler, L2 flushed before each call."""
+        ``key``, by torch.profiler, L2 flushed before each call (a trace
+        that holds no such kernel is taken again, up to twice)."""
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                timer.flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        return sum(e.device_time_total for e in prof.key_averages() if key in e.key) / n
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    timer.flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            us = sum(e.device_time_total for e in prof.key_averages() if key in e.key) / n
+            if us > 0:
+                break
+        return us
 
     def turns(fa, fb_):
         return [timer(fa), timer(fb_), timer(fb_), timer(fa)]
@@ -289,17 +310,27 @@ def main(argv=None):
             packs[bits, dt] = fb.pack_gpt_block(net.blocks[0], eps=net.cfg.layer_norm_eps)
             del net
 
-    def k5_inputs(dt):
-        B, D, H, L = 8, 768, 12, 1024
+    def k5_inputs(dt, pos):
+        B, D, H, L = len(pos), 768, 12, 1024
         x = torch.randn(B, 1, D, device="cuda", generator=gen).to(dt)
         kc = (torch.randn(B, H, L, D // H, device="cuda", generator=gen) * 0.1).to(dt)
         vc = (torch.randn(B, H, L, D // H, device="cuda", generator=gen) * 0.1).to(dt)
-        return x, torch.tensor(K5_POS, dtype=torch.int32, device="cuda"), kc, vc
+        return x, torch.tensor(pos, dtype=torch.int32, device="cuda"), kc, vc
 
     rng = np.random.RandomState(args.seed + 6)
     pos256 = [200, 255, 33] + rng.randint(0, 256, 12).tolist() + [0]
-    # (kernel, maxp, positions): the K6 shape, the K7 shape, K7 at L 256
-    paged_shapes = (("K6", 16, pos256), ("K7", 64, K7_POS), ("K7", 16, pos256))
+    # K6 at B 8: the B 16 case's first 7 rows and its inactive last row
+    pos256_b8 = pos256[:7] + [0]
+    # (kernel, maxp, positions), timed: K5's shape and every row at
+    # position 64; K6's shape and its first rows at B 8; K7's shape
+    timed_shapes = (("K5", 64, K5_POS), ("K5", 64, K5_POS64), ("K6", 16, pos256),
+                    ("K6", 16, pos256_b8), ("K7", 64, K7_POS))
+    # held bit for bit as well: K7 at L 256; K5 and K6 at B 1, 9 and 16,
+    # K5 with every row long and at positions 0 and L - 1
+    bit_shapes = timed_shapes + (
+        ("K7", 16, pos256), ("K5", 64, [1023]), ("K5", 64, K5_POS + [511]),
+        ("K5", 64, K5_POS + [1023, 0, 1, 700, 64, 65, 128, 900]),
+        ("K5", 64, K5_LONG), ("K6", 16, [255]), ("K6", 16, pos256[:8] + [0]))
 
     def block_call(mod, kernel, inputs, pack):
         if kernel == "K5":
@@ -324,19 +355,24 @@ def main(argv=None):
 
     def block_inputs(kernel, maxp, pos, dt):
         if kernel == "K5":
-            return k5_inputs(dt)
+            return k5_inputs(dt, pos)
+        if len(pos) == 1:   # paged_inputs makes two active rows and an inactive one
+            x, posv, table, kp, vp = paged_inputs(torch, gen, 768, 12, 3, PS, maxp, POOL,
+                                                  pos * 2 + [0], dt)
+            return x[:1], posv[:1], table[:1].contiguous(), kp, vp
         return paged_inputs(torch, gen, 768, 12, len(pos), PS, maxp, POOL, pos, dt)
 
     block_differ = []
     for (bits, dt), pack in packs.items():
-        for kernel, maxp, pos in (("K5", 64, K5_POS),) + paged_shapes:
+        for kernel, maxp, pos in bit_shapes:
             inputs = block_inputs(kernel, maxp, pos, dt)
             for x in ((inputs[0], inputs[0].float()) if dt == torch.bfloat16
                       else (inputs[0],)):
                 ok, err = same_step(kernel, with_x(inputs, x), pack)
                 if not ok:
                     block_differ.append({"kernel": kernel, "bits": bits, "model": str(dt),
-                                         "x": str(x.dtype), "L": maxp * PS, "max_abs": err})
+                                         "x": str(x.dtype), "L": maxp * PS, "pos": pos,
+                                         "max_abs": err})
     emit({"k5_k6_k7_bits_equal_other": not block_differ, "differ": block_differ[:10]})
 
     # ---- times -----------------------------------------------------------
@@ -360,7 +396,7 @@ def main(argv=None):
               "matmul_argmax_ms": timer(lambda: torch.argmax(torch.matmul(hh, wd.T), -1))})
 
     for (bits, dt), pack in packs.items():
-        for kernel, maxp, pos in (("K5", 64, K5_POS),) + paged_shapes[:2]:
+        for kernel, maxp, pos in timed_shapes:
             inputs = block_inputs(kernel, maxp, pos, dt)
 
             def reformed(inputs=inputs, kernel=kernel, pack=pack):
@@ -371,7 +407,7 @@ def main(argv=None):
                       lambda: block_call(fb, kernel, inputs, pack))
             key = DEVICE_KEYS[kernel]
             emit({"block": kernel, "bits": bits, "model": str(dt), "L": maxp * PS,
-                  "other_ms": [t[0], t[3]], "this_ms": [t[1], t[2]],
+                  "pos": pos, "other_ms": [t[0], t[3]], "this_ms": [t[1], t[2]],
                   "this_reformed_ms": timer(reformed),
                   "other_device_us": device_us(lambda: block_call(ofb, kernel, inputs, pack),
                                                key),
@@ -384,20 +420,21 @@ def main(argv=None):
                                        for d, lib in dirs.values()])))
         for name, lib in probes.items():
             _build._declare(dirs[name][1], lib)
-        for bits, dt in ((8, torch.float32), (8, torch.bfloat16), (4, torch.float32)):
-            inputs = block_inputs("K7", 64, K7_POS, dt)
-            pack = packs[bits, dt]
-            step = lambda: block_call(fb, "K7", inputs, pack)  # noqa: E731
-            row = {"this": device_us(step, DEVICE_KEYS["K7"]),
-                   "other": device_us(lambda: block_call(ofb, "K7", inputs, pack),
-                                      DEVICE_KEYS["K7"])}
-            for pname, lib in probes.items():
-                if dirs[pname][1] == "fused_block_decode_paged_dma":
-                    with this_wrapper_on("fused_block_decode_paged_dma", lib):
-                        row[pname] = device_us(step, DEVICE_KEYS["K7"])
-            emit({"k7": "int4" if bits == 4 else str(dt).split(".")[1], "model": str(dt),
-                  "probe_device_us": row})
-        two = probes["k8_two_launches"]
+        for kernel, maxp, pos in timed_shapes:
+            for bits, dt in ((8, torch.float32), (8, torch.bfloat16), (4, torch.float32)):
+                inputs = block_inputs(kernel, maxp, pos, dt)
+                pack = packs[bits, dt]
+                key = DEVICE_KEYS[kernel]
+                step = lambda: block_call(fb, kernel, inputs, pack)  # noqa: E731
+                row = {"this": device_us(step, key),
+                       "other": device_us(lambda: block_call(ofb, kernel, inputs, pack), key)}
+                for pname, lib in probes.items():
+                    if PROBES[pname][0] == kernel:
+                        with this_wrapper_on(_LIB[kernel], lib):
+                            row[pname.split(":")[1]] = device_us(step, key)
+                emit({"probe": kernel, "lane": "int4" if bits == 4 else str(dt).split(".")[1],
+                      "B": len(pos), "L": maxp * PS, "pos": pos, "probe_device_us": row})
+        two = probes["k8:two_launches"]
         for lane_name, w, s, hh, m, rounded in k8_lanes[:2]:
             this = lambda: k8(fb, hh, w, s, vocab, keys, temps, m, rounded)  # noqa: E731
             with this_wrapper_on("lm_head_sample", two):
