@@ -66,6 +66,19 @@
    A (K6) and paged B (K7, preemption) over the int8 model, ``generate()``
    and the contiguous phase over the int4 one, with each element-type lane's launches
    (``dtype_lanes()``) and the KV bytes beside the f32 phases'.
+3e. Every engine phase above calls ``warmup()`` after ``start()``: each
+   decode step of its bucket ladder (batch bucket x substeps x sampling
+   branch) and each paged prefill chunk bucket is captured as a CUDA graph,
+   and serving, with decode lookahead on (the default), replays them; the
+   phase fails if it captures anything after its warm-up. Each phase's
+   gates hold under replay (launch counts are added per replay). After the
+   phase one decode step per layout (and, paged, the full and the final
+   chunk bucket) is replayed and run eagerly from the same random inputs
+   and pool state: outputs, last tokens and whole pools must be equal bit
+   for bit. The contiguous window and paged phase B are then served in
+   three modes (eager dispatch, captured, captured with lookahead): ms per
+   substep, tokens/s over 3 trials and the idle share of each; the
+   contiguous window's tokens must be equal in all three.
 4. Holds K1 (flash-attention forward) and K2 (its backward) against their
    plain versions, every output row to its own size, at the training
    shape, at head dim 128 and at ragged, end-aligned and padded-head-dim
@@ -814,15 +827,63 @@ def gap_limit(torch, net, top):
     return 1e-3
 
 
-def device_share(torch, eng, prompts, new):
+# a chrome trace's categories of device work
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_spans(prof, trace=None):
+    """The device's kernel, copy and memset intervals of a finished
+    ``torch.profiler`` run (CUDA activity only, so every device event is
+    one of them), sorted, as (start us, end us, name), read from the
+    profiler's own events: a chrome trace of a paged window holds 300k
+    device spans, which cost seconds to write and parse. With ``trace`` (a
+    file name under build/profile/) the chrome trace is also written, and
+    its DEVICE_CATEGORIES events must give the same names and the same
+    busy time."""
+    from torch._C._autograd import DeviceType
+    ns = [(e.start_ns(), e.duration_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+          if e.device_type() == DeviceType.CUDA]
+    t0 = min((a for a, _, _ in ns), default=0)      # us since the first, in float64
+    spans = sorted(((a - t0) / 1e3, (a - t0 + d) / 1e3, name) for a, d, name in ns)
+    if trace is not None:
+        from mxnet_tpu_torch import _build
+        path = _build.BUILD_DIR.parent / "profile" / trace
+        path.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        traced = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                        if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES)
+        check(sorted(n for _, _, n in traced) == sorted(n for _, _, n in spans)
+              and abs(busy_us(traced) - busy_us(spans)) <= 1e-3 * (len(spans) + 1),
+              f"profiler events ({len(spans)} device spans, {busy_us(spans)} us busy) "
+              f"differ from the chrome trace ({len(traced)}, {busy_us(traced)} us)")
+    return spans
+
+
+def busy_us(spans):
+    """The union of sorted device intervals, in us."""
+    busy, end = 0.0, float("-inf")
+    for a, b, _ in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def device_share(torch, eng, prompts, new, trace=None):
     """Serve ``prompts`` (greedy) once more under ``torch.profiler`` and
     split the window's host wall time into device kernel time per kernel
-    and idle time. Returns None where the trace holds no device kernel."""
-    from mxnet_tpu_torch import _build
+    and idle time. Returns None where the trace holds no device kernel.
+    The trace must hold one span per launch of a block kernel (K5/K6/K7)
+    and of K8 that the window counted (``launches()``, which counts every
+    graph replay's launches): where it holds fewer, the profiler dropped
+    kernels (as it may inside replayed CUDA graphs), and the window's idle
+    share is reported as not measured. ``trace``: see device_spans;
+    ``trace_s`` is the time taken to read the spans."""
+    from mxnet_tpu_torch.ops.int8_gemv import launches
     from torch.profiler import ProfilerActivity, profile
-    path = _build.BUILD_DIR.parent / "profile" / "decode_trace.json"
-    path.parent.mkdir(parents=True, exist_ok=True)
     before = eng.stats()
+    counted0 = launches()
     # device activity only: recording every host op would stretch the
     # host-bound window that is being measured
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -831,20 +892,14 @@ def device_share(torch, eng, prompts, new):
         results = [h.result(timeout=600) for h in handles]
         wall = time.perf_counter() - t0
     after = eng.stats()
+    counted = {k: n - counted0.get(k, 0) for k, n in launches().items()}
     for i, r in enumerate(results):
         check(r.ok, f"profiled request {i}: {r.status} {r.error}")
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text())["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                   if e.get("ph") == "X" and e.get("cat") in
-                   ("kernel", "gpu_memcpy", "gpu_memset"))
+    t_trace = time.perf_counter()
+    spans = device_spans(prof, trace)
     if not spans:
         return None
-    busy, end = 0.0, float("-inf")          # union of the device intervals
-    for a, b, _ in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = busy_us(spans)
     by_kernel = {}
     for a, b, name in spans:
         key = next((k for k in ("fused_block_decode_paged_dma", "fused_block_decode_paged",
@@ -853,12 +908,115 @@ def device_share(torch, eng, prompts, new):
                     if k in name), "other")
         by_kernel[key] = by_kernel.get(key, 0.0) + (b - a) / 1e3
     substeps = after["decode_substeps"] - before["decode_substeps"]
-    return {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
-            "idle_share": 1.0 - busy / 1e3 / (wall * 1e3),
-            "kernel_ms": by_kernel, "device_ops": len(spans),
-            "decode_substeps": substeps,
-            "ms_per_decode_step": (after["decode_s"] - before["decode_s"])
-            / substeps * 1e3}
+    launched = sum(n for k, n in counted.items() if k.startswith(("fused_block", "fused_head")))
+    traced = sum(1 for _, _, name in spans if "fused_block_decode" in name or "head_kernel" in name)
+    out = {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
+           "idle_share": 1.0 - busy / 1e3 / (wall * 1e3),
+           "kernel_ms": by_kernel, "device_ops": len(spans),
+           "decode_substeps": substeps, "block_and_head_launches": launched,
+           "block_and_head_spans": traced,
+           "ms_per_decode_step": (after["decode_s"] - before["decode_s"])
+           / substeps * 1e3, "trace_s": time.perf_counter() - t_trace}
+    if traced < launched:
+        out.update(idle_share="not measured: the trace dropped kernels",
+                   device_busy_ms="not measured")
+    return out
+
+
+def warm(eng):
+    """``eng.warmup()``: every decode step (batch bucket x substeps x
+    branch) and every paged prefill chunk of the ladder captured as a CUDA
+    graph. Returns what the phase must leave unchanged, with the warm-up's
+    seconds."""
+    eng.warmup()
+    st = eng.stats()
+    check(st["captures"] > 0 and st["compiled_buckets"]["decode"],
+          f"warmup captured nothing: {st['compiled_buckets']}")
+    return {"captures": st["captures"], "compiled_buckets": st["compiled_buckets"],
+            "last_warmup_s": st["last_warmup_s"]}
+
+
+def no_capture_since(eng, warmed, what):
+    """Fail if the engine captured anything after its warm-up (the port's
+    zero-recompile contract)."""
+    st = eng.stats()
+    check(st["captures"] == warmed["captures"]
+          and st["compiled_buckets"] == warmed["compiled_buckets"],
+          f"{what}: captured after warmup ({warmed['captures']} -> {st['captures']} "
+          f"captures)")
+
+
+def replay_equals_eager(torch, eng, gen, seed, sb=None, steps=None, branch=None, pb=None):
+    """A captured step replayed against its function run eagerly, from the
+    same inputs and the same pool (cache) state, both on the card: a
+    decode step of bucket ``sb`` (``steps`` substeps, ``branch``), or with
+    ``pb`` the paged prefill chunk of that bucket. Inputs and the pools are
+    random (rows on distinct pages, as the page ledger leases them; half
+    the rows at T 0.8). The replay's output, the last tokens it writes
+    back into its inputs and the whole pools must equal the eager run's bit
+    for bit. Returns the compared counts."""
+    import numpy as np
+
+    from mxnet_tpu_torch import _prng
+    rng = np.random.RandomState(seed)
+    K, vocab, paged = eng.K, eng._vocab, eng._paged
+    step = eng._get_chunk(pb) if pb else eng._get_step(sb, steps, branch)
+    io = eng._chunk_io if pb else eng._io[sb]
+    check(step.graph is not None, "replay_equals_eager: the step was not captured")
+    h = io.host()
+    h_rows = 1 if pb else sb
+    if paged:
+        ps = eng.page_size
+        per_row = eng._pages.num_pages // h_rows
+        top = per_row * ps - (pb or K)
+        pos = rng.randint(0, max(1, min(top, eng.L - (pb or K))), h_rows)
+        pages = rng.permutation(eng._pages.num_pages)
+        h["table"][:] = eng._pages.sink
+        used = 0
+        for r in range(h_rows):
+            n = (int(pos[r]) + (pb or K) - 1) // ps + 1
+            h["table"][r, :n] = pages[used:used + n]
+            used += n
+    else:
+        pos = rng.randint(0, eng.L - K, h_rows)
+    if pb:
+        h["ids"][:] = 0
+        h["ids"][:pb] = rng.randint(0, vocab, pb)
+        h["pos"][0] = pos[0]
+    else:
+        h["tokens"][:] = rng.randint(0, vocab, sb)
+        h["pos"][:] = pos
+        h["temps"][:] = np.where(np.arange(sb) % 2, 0.8, 0.0)
+        h["topks"][:] = 40 if branch.startswith("filtered") else 0
+        h["topps"][:] = 1.0
+        h["eos"][:] = -1
+        h["rem"][:] = K
+        _prng.step_keys(rng.randint(0, 2**32, sb), rng.randint(0, 1000, sb), K,
+                        out=h["keys"])
+    io.upload(0, io.nbytes)
+    with torch.no_grad():
+        for pool in eng._pools:
+            pool.copy_(torch.randn(pool.shape, generator=gen, device=pool.device))
+        pools0 = [pool.clone() for pool in eng._pools]
+        inputs0 = io.dev.clone()
+        out_r = step().clone()
+        last_r = None if pb else io.tokens.clone()
+        pools_r = [pool.clone() for pool in eng._pools]
+        for pool, p0 in zip(eng._pools, pools0):
+            pool.copy_(p0)
+        io.dev.copy_(inputs0)
+        out_e = step.fn()
+        torch.cuda.synchronize()
+        same_out = torch.equal(out_r, out_e)
+        same_last = pb is not None or torch.equal(last_r, io.tokens)
+        same_pools = all(torch.equal(a, b) for a, b in zip(pools_r, eng._pools))
+        written = sum(int(not torch.equal(a, b)) for a, b in zip(pools_r, pools0))
+    what = f"chunk bucket {pb}" if pb else f"decode bucket {sb} ({steps} substeps, {branch})"
+    check(same_out and same_last and same_pools,
+          f"{what}: replay != eager (output {same_out}, last tokens {same_last}, "
+          f"pools {same_pools})")
+    check(written == len(eng._pools), f"{what}: {written} of {len(eng._pools)} pools written")
+    return {"step": what, "pools_written": written, "equal": True}
 
 
 # the engine phases' top-k / top-p requests: (temperature, top_k, top_p)
@@ -920,8 +1078,9 @@ def serve(torch, args, net, cpu_net, cpu_tokens=64):
     eng = InferenceEngine(net, max_batch_size=8, max_len=512, multi_token=4,
                           fused=True, paged=False).start()
     try:
-        warm = eng.generate(prompts[0][:8], 8, timeout=600)
-        check(warm.ok, f"warm-up request failed: {warm.error}")
+        warmed = warm(eng)
+        first = eng.generate(prompts[0][:8], 8, timeout=600)
+        check(first.ok, f"warm-up request failed: {first.error}")
         before = eng.stats()
         reset_launches()
         t0 = time.perf_counter()
@@ -939,9 +1098,13 @@ def serve(torch, args, net, cpu_net, cpu_tokens=64):
                  for i in range(8, 12)]
         again = [h.result(timeout=600) for h in again]
         filtered = filtered_requests(eng, prompts, vocab, new, 1100)
-        profiled = device_share(torch, eng, prompts[:8], new)
+        profiled = device_share(torch, eng, prompts[:8], new, trace=tag + "decode_trace.json")
+        no_capture_since(eng, warmed, tag + "contiguous phase")
     finally:
         eng.shutdown(drain=True, timeout=600)
+    replay = (replay_equals_eager(torch, eng, torch.Generator(device="cuda").manual_seed(
+        args.seed), args.seed, sb=8, steps=4, branch="fused")
+        if net.device.type == "cuda" else None)
     for i, r in enumerate(results):
         check(r.ok and len(r.generated_ids) == new, f"request {i}: {r.status} "
               f"{len(r.generated_ids)} tokens {r.error}")
@@ -1003,6 +1166,7 @@ def serve(torch, args, net, cpu_net, cpu_tokens=64):
                      "prefills": after["prefills"] - before["prefills"],
                      "prefill_s": after["prefill_s"] - before["prefill_s"],
                      "kv_bytes": after["kv_bytes"], "launches": counts,
+                     "warmup": warmed, "replay_equals_eager": replay,
                      "greedy_equal_generate_mt4_and_mt1": gen_match}})
     # the 8 greedy requests again, traced: device time against host wall
     emit({tag + "profiled_window": profiled if profiled is not None else "not measured"})
@@ -1050,8 +1214,9 @@ def serve_k1(torch, args, net, k4):
     eng = InferenceEngine(net, max_batch_size=8, max_len=512, multi_token=1,
                           fused=True, paged=False).start()
     try:
-        warm = eng.generate(prompts[0][:8], 8, timeout=600)
-        check(warm.ok, f"K=1 warm-up request failed: {warm.error}")
+        warmed = warm(eng)
+        first = eng.generate(prompts[0][:8], 8, timeout=600)
+        check(first.ok, f"K=1 warm-up request failed: {first.error}")
         before = eng.stats()
         reset_launches()
         t0 = time.perf_counter()
@@ -1068,6 +1233,7 @@ def serve_k1(torch, args, net, k4):
                  for i in range(8, 12)]
         again = [h.result(timeout=600) for h in again]
         profiled = device_share(torch, eng, prompts[:8], new)
+        no_capture_since(eng, warmed, tag + "K=1 phase")
     finally:
         eng.shutdown(drain=True, timeout=600)
     for i, r in enumerate(results):
@@ -1104,7 +1270,7 @@ def serve_k1(torch, args, net, k4):
         "requests": len(results), "greedy": 8, "sampled": 4, "new_tokens_each": new,
         "wall_s": wall, "tokens_per_s": tokens / wall, "decode_substeps": substeps,
         "prefills": prefills, "ms_per_decode_step": dsec / substeps * 1e3,
-        "head_gemvs_warp": head, "launches": counts,
+        "head_gemvs_warp": head, "launches": counts, "warmup": warmed,
         "greedy_equal_k4_engine_and_generate": list(range(8)),
         "k4_window": {"ms_per_decode_step": k4["ms_per_decode_step"],
                       "tokens_per_s": k4["tokens_per_s"],
@@ -1244,6 +1410,7 @@ def serve_paged(torch, args, net, phase):
     eng = InferenceEngine(net, multi_token=4, fused=True, paged=True, page_size=16,
                           **kw).start()
     try:
+        warmed = warm(eng)
         first = []
         if phase == "A":
             r0 = eng.generate(prompts[0], new, timeout=600)
@@ -1270,8 +1437,15 @@ def serve_paged(torch, args, net, phase):
         greedy = [i for i, t in enumerate(temps) if t == 0]
         profiled = (device_share(torch, eng, [prompts[i] for i in greedy], new)
                     if net.device.type == "cuda" else None)
+        no_capture_since(eng, warmed, f"{tag}paged phase {phase}")
     finally:
         eng.shutdown(drain=True, timeout=900)
+    replay = None
+    if net.device.type == "cuda":
+        g = torch.Generator(device="cuda").manual_seed(args.seed)
+        replay = [replay_equals_eager(torch, eng, g, args.seed, sb=kw["max_batch_size"],
+                                      steps=4, branch="fused")]
+        replay += [replay_equals_eager(torch, eng, g, args.seed + pb, pb=pb) for pb in (16, 8)]
     for i, r in enumerate(results):
         check(r.ok and len(r.generated_ids) == new,
               f"phase {phase} request {i}: {r.status} {len(r.generated_ids)} tokens {r.error}")
@@ -1320,12 +1494,101 @@ def serve_paged(torch, args, net, phase):
         "resumed_tokens": after["resumed_tokens"],
         "pages": pages, "kv_bytes": after["kv_bytes"], "launches": counts,
         "dma_ledger": ledger, "greedy": rows, "reference_s": time.perf_counter() - t_ref,
+        "warmup": warmed, "replay_equals_eager": replay,
         "filtered_requests": filtered,
         "greedy_identical_chunked_reference": all(r["chunked_reference"]["equal"]
                                                   for r in rows),
         "greedy_identical_generate_mt4": all(r["generate_mt4"]["equal"] for r in rows),
         "profiled_window": profiled if profiled is not None else "not measured"}})
     return counts
+
+
+# the three dispatch modes of the capture comparison: (name, eager, lookahead)
+DISPATCH_MODES = (("eager", True, False), ("captured", False, False),
+                  ("captured+lookahead", False, True))
+# trials per mode (tokens/s: median, min and max); paged B eager, several
+# seconds a trial, takes one
+MODE_TRIALS = 3
+# the contiguous window's 12 requests are submitted this many times a trial,
+# so that a trial lasts seconds and not a fraction of one
+CONTIGUOUS_ROUNDS = 5
+
+
+def dispatch_modes(torch, args, net, window):
+    """One serving window three ways in one call: eager dispatch without
+    lookahead (``engine._eager``, the port before graphs), captured graphs
+    without lookahead, and captured graphs with lookahead (the default).
+    ``window`` is ``"contiguous"`` (serve()'s 12 requests on its engine,
+    CONTIGUOUS_ROUNDS times over) or ``"paged_B"`` (serve_paged's phase B:
+    8 greedy long prompts, 160 pages, preemption). Per mode: ms per decode
+    substep and tokens/s (median, min and max of MODE_TRIALS trials; one
+    for paged B eager), and the greedy requests once more under the
+    profiler (idle share, unless the trace dropped kernels). Every mode
+    warms up first and captures nothing while serving; the contiguous
+    window's tokens are equal in all modes (paged B's resumes re-prefill
+    at other points when the timing moves, so its tokens are reported)."""
+    import numpy as np
+
+    from mxnet_tpu_torch.serve import InferenceEngine
+    if window == "contiguous":
+        prompts, temps, new = contiguous_requests(torch, args, net)
+        seeds = [1000 + i for i in range(len(prompts))] * CONTIGUOUS_ROUNDS
+        prompts, temps = prompts * CONTIGUOUS_ROUNDS, temps * CONTIGUOUS_ROUNDS
+        kw = dict(max_batch_size=8, max_len=512, paged=False)
+    else:
+        rng = np.random.RandomState(args.seed + 2)
+        prompts = [rng.randint(0, net.cfg.vocab_size, int(n)).tolist()
+                   for n in rng.randint(300, 701, 8)]
+        temps, new, seeds = [0.0] * 8, 128, list(range(2000, 2008))
+        kw = dict(max_batch_size=8, max_len=1024, num_pages=PAGED_B_PAGES,
+                  prefix_cache=False, paged=True, page_size=16)
+    greedy = [p for p, t in zip(prompts, temps) if t == 0]
+    rows, tokens = {}, {}
+    for name, eager, lookahead in DISPATCH_MODES:
+        t_mode = time.perf_counter()
+        eng = InferenceEngine(net, multi_token=4, fused=True, lookahead=lookahead, **kw)
+        eng._eager = eager
+        eng.start()
+        try:
+            warmed = warm(eng)
+            trials = []
+            for _ in range(1 if window == "paged_B" and eager else MODE_TRIALS):
+                before = eng.stats()
+                t0 = time.perf_counter()
+                hs = [eng.submit(p, new, temperature=t, seed=sd)
+                      for p, t, sd in zip(prompts, temps, seeds)]
+                res = [h.result(timeout=900) for h in hs]
+                wall = time.perf_counter() - t0
+                after = eng.stats()
+                check(all(r.ok and len(r.generated_ids) == new for r in res),
+                      f"{window} {name}: a request failed")
+                subs = after["decode_substeps"] - before["decode_substeps"]
+                trials.append({"tokens_per_s": sum(len(r.generated_ids) for r in res) / wall,
+                               "ms_per_substep": (after["decode_s"] - before["decode_s"])
+                               / subs * 1e3, "wall_s": wall,
+                               "preemptions": after.get("preemptions", 0)
+                               - before.get("preemptions", 0)})
+                tokens.setdefault(name, [r.generated_ids for r in res])
+            profiled = device_share(torch, eng, greedy, new)
+            no_capture_since(eng, warmed, f"{window} {name}")
+        finally:
+            eng.shutdown(drain=True, timeout=900)
+        tps = sorted(t["tokens_per_s"] for t in trials)
+        rows[name] = {
+            "tokens_per_s": statistics.median(tps), "tokens_per_s_min": tps[0],
+            "tokens_per_s_max": tps[-1],
+            "ms_per_substep": statistics.median(t["ms_per_substep"] for t in trials),
+            "trials": trials, "warmup_s": warmed["last_warmup_s"],
+            "captures": warmed["captures"],
+            "idle_share": (profiled or {}).get("idle_share", "not measured"),
+            "profiled": profiled, "mode_s": time.perf_counter() - t_mode}
+    same = [tokens[name] == tokens["eager"] for name, _, _ in DISPATCH_MODES]
+    if window == "contiguous":
+        check(all(same), f"{window}: tokens differ between dispatch modes")
+    emit({f"dispatch_modes_{window}": {"modes": rows, "tokens_equal_to_eager": same,
+                                        "requests": len(prompts), "new_tokens_each": new,
+                                        "trials": MODE_TRIALS, **kw}})
+    return rows
 
 
 def quant_bytes(torch, net):
@@ -1710,10 +1973,7 @@ def train_profile(torch, step, ids, labels, device, steps=3):
     """``steps`` training steps under ``torch.profiler`` (device activity
     only): device busy time against host wall time, and device time by
     kernel (flash_fwd, flash_bwd, GEMM, other)."""
-    from mxnet_tpu_torch import _build
     from torch.profiler import ProfilerActivity, profile
-    path = _build.BUILD_DIR.parent / "profile" / "train_trace.json"
-    path.parent.mkdir(parents=True, exist_ok=True)
     sync(torch, device)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1721,18 +1981,10 @@ def train_profile(torch, step, ids, labels, device, steps=3):
             step(ids, labels)
         sync(torch, device)
         wall = time.perf_counter() - t0
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text())["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                   if e.get("ph") == "X" and e.get("cat") in
-                   ("kernel", "gpu_memcpy", "gpu_memset"))
+    spans = device_spans(prof)
     if not spans:
         return None
-    busy, end = 0.0, float("-inf")
-    for a, b, _ in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = busy_us(spans)
     by_kernel, by_name = {}, {}
     for a, b, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
@@ -1949,6 +2201,10 @@ def main(argv=None):
     del cpu_net
     k1_counts = serve_k1(torch, args, net, serve_counts["k4"])
     paged_counts = {phase: serve_paged(torch, args, net, phase) for phase in "AB"}
+    t_modes = time.perf_counter()
+    for window in ("contiguous", "paged_B"):
+        dispatch_modes(torch, args, net, window)
+    emit({"dispatch_modes_s": time.perf_counter() - t_modes})
     int8_bytes = quant_bytes(torch, net)
     del net
     torch.cuda.empty_cache()

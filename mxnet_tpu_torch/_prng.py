@@ -8,7 +8,10 @@ device: the integer work is int64 masked to 32 bits, which the CPU and
 CUDA both compute exactly (torch's uint32 support is partial), so the
 card draws the same bits as the CPU. :func:`fold_keys`, a few rows per
 decode step, hashes on the host with numpy (the same operator-only code)
-and copies its result once; the hash over a vocab runs on the device.
+and copies its result once; :func:`step_keys` writes a whole decode
+dispatch's keys into a host buffer (the serving engine's pinned staging,
+copied with the dispatch's other inputs before a CUDA-graph replay); the
+hash over a vocab runs on the device.
 
 The layout is jax 0.9.0's, with ``jax_threefry_partitionable`` on (its
 default):
@@ -38,7 +41,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-__all__ = ["key", "keys", "fold_in", "fold_keys", "split", "random_bits",
+__all__ = ["key", "keys", "fold_in", "fold_keys", "step_keys", "split", "random_bits",
            "uniform", "gumbel", "categorical", "threefry2x32"]
 
 M32 = 0xFFFFFFFF
@@ -93,16 +96,32 @@ def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
 
 
+def _host_ints(x):
+    return np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x).astype(np.int64)
+
+
 def fold_keys(seeds, counters, device=None) -> torch.Tensor:
     """[B, 2] keys ``fold_in(key(seed), counter)`` per row on ``device``:
     the per-request sampling streams of the serving engine and of
     ``generate(multi_token > 1)``. Hashed on the host."""
-    s = np.asarray(seeds.cpu() if isinstance(seeds, torch.Tensor) else seeds
-                   ).astype(np.int64).reshape(-1)
-    c = np.asarray(counters.cpu() if isinstance(counters, torch.Tensor) else counters
-                   ).astype(np.int64).reshape(-1) & M32
-    y0, y1 = threefry2x32((s >> 32) & M32, s & M32, np.zeros_like(c), c)
-    return torch.from_numpy(np.stack([y0, y1], axis=-1)).to(device)
+    return torch.from_numpy(step_keys(seeds, counters, 1)[0]).to(device)
+
+
+def step_keys(seeds, counters, steps: int, out=None) -> np.ndarray:
+    """The [steps, B, 2] int64 keys of one decode dispatch, ``fold_in(
+    key(seed), counter + j)`` for substep j of row b: ``fold_keys`` of the
+    rows at each substep's counter, hashed on the host into ``out`` (a
+    numpy array of that shape, e.g. a view of pinned memory) or a new
+    array."""
+    s = _host_ints(seeds).reshape(1, -1)
+    c = (_host_ints(counters).reshape(1, -1) + np.arange(steps).reshape(-1, 1)) & M32
+    y0, y1 = np.broadcast_arrays(*threefry2x32((s >> 32) & M32, s & M32,
+                                               np.zeros_like(c), c))
+    if out is None:
+        out = np.empty(y0.shape + (2,), np.int64)
+    out[..., 0] = y0
+    out[..., 1] = y1
+    return out
 
 
 def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
@@ -132,8 +151,9 @@ def uniform(k: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     bits = random_bits(k, shape)
     one = (bits >> 9) | 0x3F800000
     floats = one.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
+    # filled on the device (no host copy, so a CUDA graph can capture it)
+    lo = torch.full((), minval, dtype=torch.float32, device=k.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=k.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 

@@ -92,7 +92,7 @@ def _apply_mask(x, mask):
     allowed) at -inf, after the dead-end check."""
     _check_mask_live(mask)
     mask = torch.as_tensor(mask, dtype=torch.bool, device=x.device)
-    return torch.where(mask, x, torch.tensor(float("-inf"), device=x.device))
+    return torch.where(mask, x, torch.full((), float("-inf"), device=x.device))
 
 
 def filter_logits(scaled, top_k, top_p, mask=None):
@@ -111,7 +111,7 @@ def filter_logits(scaled, top_k, top_p, mask=None):
     dev = scaled.device
     top_k = _rows(top_k, torch.int64, dev)
     top_p = _rows(top_p, torch.float32, dev)
-    ninf = torch.tensor(float("-inf"), device=dev)
+    ninf = torch.full((), float("-inf"), device=dev)
     sdesc = torch.sort(scaled, dim=-1, descending=True).values
     kth = torch.gather(sdesc, 1, (top_k - 1).clamp(0, V - 1).expand(B, 1))
     scaled = torch.where((top_k <= 0) | (scaled >= kth), scaled, ninf)
@@ -125,7 +125,8 @@ def filter_logits(scaled, top_k, top_p, mask=None):
     return torch.where((top_p >= 1.0) | (scaled >= thr), scaled, ninf)
 
 
-def sample_tokens(logits, keys, temperature, top_k=0, top_p=1.0, mask=None):
+def sample_tokens(logits, keys, temperature, top_k=0, top_p=1.0, mask=None,
+                  greedy=None):
     """Next token per row of [B, V] logits with per-row parameters: rows at
     ``temperature == 0`` take the argmax (lowest index on ties), the rest
     draw ``random.categorical`` with their own key from the temperature-
@@ -133,20 +134,25 @@ def sample_tokens(logits, keys, temperature, top_k=0, top_p=1.0, mask=None):
     (``_prng.fold_keys``); it may be None when every row is greedy.
     ``mask`` (bool [B, V], True = allowed) constrains both paths: greedy
     rows take the argmax of the masked logits, sampled rows mask before
-    scaling and filtering. Returns [B] int32."""
+    scaling and filtering. ``greedy`` (a bool) says whether every row is at
+    ``temperature == 0``, as the caller knows it on the host; None reads it
+    from ``temperature``, which syncs with a device tensor (a CUDA-graph
+    capture cannot). Returns [B] int32."""
     logits = logits.float()
     if mask is not None:
         logits = _apply_mask(logits, mask)
     t = _rows(temperature, torch.float32, logits.device)
-    greedy = torch.argmax(logits, dim=-1)
-    if not bool((t > 0).any()):
-        return greedy.to(torch.int32)
+    best = torch.argmax(logits, dim=-1)
+    if greedy is None:
+        greedy = not bool((t > 0).any())
+    if greedy:
+        return best.to(torch.int32)
     if keys is None:
         raise MXNetError("sample_tokens: T > 0 rows need their keys")
     scaled = logits / torch.where(t > 0, t, torch.ones_like(t))
     filt = filter_logits(scaled, top_k, top_p)
     sampled = _prng.categorical(torch.as_tensor(keys).to(logits.device), filt)
-    return torch.where(t.reshape(-1) > 0, sampled, greedy).to(torch.int32)
+    return torch.where(t.reshape(-1) > 0, sampled, best).to(torch.int32)
 
 
 def decode_step(model, tokens, pos, caches, block_table=None):
@@ -173,10 +179,21 @@ def decode_step_hidden(model, tokens, pos, caches, block_table=None):
     return hidden, caches
 
 
+def _per_row(x, dtype, B, dev):
+    """A per-row parameter as a [B] tensor on ``dev``: a tensor is taken as
+    it is (converted on its device), a host scalar or array is broadcast
+    and copied."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev, dtype).reshape(-1)
+    nd = {torch.float32: np.float32, torch.int32: np.int32, torch.int64: np.int64}[dtype]
+    return torch.from_numpy(np.array(np.broadcast_to(np.asarray(x, nd).reshape(-1), (B,)))).to(dev)
+
+
 def decode_multi_tokens(model, tokens, pos, caches, num_tokens, temps,
-                        seeds, counters, eos_ids=None, remaining=None,
+                        seeds=None, counters=None, eos_ids=None, remaining=None,
                         done=None, fill_eos=False, head=None,
-                        block_table=None, topks=0, topps=1.0):
+                        block_table=None, topks=0, topps=1.0, keys=None,
+                        steps=None, filtered=None, greedy=None):
     """Emit up to ``num_tokens`` (K) tokens per row, feeding each token
     straight back in, with per-row ``fold_in(key(seed), counter + j)``
     sampling. ``tokens`` [B] (device), ``pos`` int or [B] device tensor;
@@ -193,53 +210,58 @@ def decode_multi_tokens(model, tokens, pos, caches, num_tokens, temps,
     substeps, which the host knows without a sync; substeps past a row's
     EOS are discarded by the caller, as in JAX.
 
+    A caller that owns device buffers (the serving engine's CUDA-graph
+    inputs) passes ``temps``, ``eos_ids``, ``remaining``, ``topks`` and
+    ``topps`` as [B] device tensors, ``keys`` as the [>= steps, B, 2]
+    int64 device keys in place of ``seeds``/``counters``
+    (``_prng.step_keys``), and the host's decisions as Python values:
+    ``steps``, ``filtered`` (any top-k/top-p row, for ``head``) and
+    ``greedy`` (every row at T 0). The call then neither syncs nor copies
+    from the host, so it can be captured. None reads each decision from the
+    host arrays (``steps``) or on the device.
+
     Returns ``(toks [B, K] int32, last [B], steps, done [B], caches)``;
     columns >= ``steps`` of ``toks`` are zeros."""
     dev = model.device
     B = tokens.shape[0]
     K = int(num_tokens)
-
-    def per_row(x, dtype):
-        return np.array(np.broadcast_to(np.asarray(x, dtype).reshape(-1), (B,)))
-
-    temps = per_row(temps, np.float32)
-    topks = per_row(topks, np.int64)
-    topps = per_row(topps, np.float32)
-    seeds = np.asarray(seeds, np.int64).reshape(-1)
-    counters = np.asarray(counters, np.int64).reshape(-1)
-    eos = np.full(B, -1, np.int64) if eos_ids is None else per_row(eos_ids, np.int64)
-    eos_t = torch.as_tensor(eos, dtype=torch.int32).to(dev)
+    temps_t = _per_row(temps, torch.float32, B, dev)
+    if not isinstance(topks, torch.Tensor):
+        topks = np.array(np.broadcast_to(np.asarray(topks, np.int64).reshape(-1), (B,)))
+    if not isinstance(topps, torch.Tensor):
+        topps = np.array(np.broadcast_to(np.asarray(topps, np.float32).reshape(-1), (B,)))
+    eos_t = _per_row(-1 if eos_ids is None else eos_ids, torch.int32, B, dev)
     dn = (torch.zeros(B, dtype=torch.bool, device=dev) if done is None
           else done.to(dev, torch.bool).clone())
-    steps = K
     rem_t = None
     if remaining is not None:
-        rem = np.asarray(remaining, np.int64).reshape(-1)
-        steps = int(min(K, max(0, int(rem.max(initial=0)))))
-        rem_t = torch.as_tensor(rem, dtype=torch.int32).to(dev)
+        if steps is None:
+            rem = np.asarray(remaining, np.int64).reshape(-1)
+            steps = int(min(K, max(0, int(rem.max(initial=0)))))
+        rem_t = _per_row(remaining, torch.int32, B, dev)
+    steps = K if steps is None else int(steps)
     out = torch.zeros(B, K, dtype=torch.int32, device=dev)
     tok = tokens.to(torch.int32)
-    if steps:
+    if steps and keys is None:
         # every substep's keys at once: [steps, B, 2]
-        keys = _prng.fold_keys(np.tile(seeds, steps),
-                               (counters[None, :] + np.arange(steps)[:, None]).reshape(-1),
-                               dev).reshape(steps, B, 2)
+        keys = torch.from_numpy(_prng.step_keys(seeds, counters, steps)).to(dev)
     if head is not None and steps:
         from ..ops.fused_block_gemv import fused_lm_head_sample
         w_q, scale, vocab = head
-        temps_t = torch.from_numpy(temps).to(dev)
     for j in range(steps):
         posj = pos + j
         if head is None:
             logits, caches = decode_step(model, tok[:, None], posj, caches,
                                          block_table)
-            nxt = sample_tokens(logits[:, -1], keys[j], temps, topks, topps)
+            nxt = sample_tokens(logits[:, -1], keys[j], temps_t, topks, topps,
+                                greedy=greedy)
         else:
             hidden, caches = decode_step_hidden(model, tok[:, None], posj,
                                                 caches, block_table)
             nxt = fused_lm_head_sample(hidden[:, -1], w_q, scale, vocab,
                                        keys[j], temps_t, topks, topps,
-                                       out_dtype=hidden.dtype)
+                                       out_dtype=hidden.dtype, filtered=filtered,
+                                       greedy=greedy)
         if fill_eos:
             nxt = torch.where(dn & (eos_t >= 0), eos_t, nxt)
         newly = nxt == eos_t

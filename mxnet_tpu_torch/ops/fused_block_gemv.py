@@ -616,7 +616,8 @@ def _reference_head_sample(h, w_q, w_scale, vocab, temps, keybits,
 
 
 def fused_lm_head_sample(h, w_q, w_scale, vocab, keys, temps, topks=0,
-                         topps=1.0, out_dtype=None, mask=None):
+                         topps=1.0, out_dtype=None, mask=None, filtered=None,
+                         greedy=None):
     """Tied-head GEMV + token selection for one decode step's last-position
     hidden state ``h`` [B, D] (f32 or bf16). ``(w_q, w_scale)`` is the
     vocab-padded table: int8 [Vp, D] with per-row scales [Vp], or packed
@@ -649,7 +650,13 @@ def fused_lm_head_sample(h, w_q, w_scale, vocab, keys, temps, topks=0,
     is not (that check would put a host sync on every decode step; the JAX
     package's kernel branch does not check either, and its engine guards
     its masks on the host): K8 then selects lane 0 for such a row, as the
-    TPU kernel does."""
+    TPU kernel does.
+
+    ``filtered`` (a bool) names the branch instead of reading it from
+    ``topks``/``topps``, which may then be [B] device tensors: the choice
+    stays on the host, so a step that calls this with device parameters
+    syncs nowhere and can be captured in a CUDA graph. ``greedy`` is handed
+    to ``sample_tokens`` on the filtered branch."""
     B, D = h.shape
     rounded = out_dtype is not None and out_dtype != torch.float32
     topks = torch.as_tensor(np.asarray(topks) if not isinstance(topks, torch.Tensor)
@@ -666,7 +673,9 @@ def fused_lm_head_sample(h, w_q, w_scale, vocab, keys, temps, topks=0,
         if mask.device.type == "cpu":
             _check_mask_live(mask)
         mask = mask.to(h.device)
-    if bool((topks > 0).any()) or bool((topps < 1.0).any()):
+    if filtered is None:
+        filtered = bool((topks > 0).any()) or bool((topps < 1.0).any())
+    if filtered:
         from ..models.generation import sample_tokens
         from .int8_gemv import weight_matmul
         if keys.shape != (B, 2):
@@ -675,7 +684,7 @@ def fused_lm_head_sample(h, w_q, w_scale, vocab, keys, temps, topks=0,
         logits = weight_matmul(h, w_q, w_scale)[:, :int(vocab)]
         if rounded:
             logits = logits.to(out_dtype)
-        return sample_tokens(logits, keys, temps, topks, topps, mask=mask)
+        return sample_tokens(logits, keys, temps, topks, topps, mask=mask, greedy=greedy)
     Vp = w_q.shape[0]
     if w_q.dtype == torch.uint8:
         nsb = w_scale.shape[-1] if w_scale.dim() == 2 else 0
@@ -713,15 +722,19 @@ def fused_lm_head_sample(h, w_q, w_scale, vocab, keys, temps, topks=0,
 
 
 # per (device, stream): the int32 workspace of K8, [ticket, pad to 16
-# bytes, per-CTA best scores, their lanes], and its row capacity
+# bytes, per-CTA best scores, their lanes], and its row capacity. A
+# workspace outgrown by a wider call is kept in _HEAD_WS_KEPT, never freed:
+# a CUDA graph captured on its stream holds its address.
 _HEAD_WS = {}
+_HEAD_WS_KEPT = []
 
 
 def _head_workspace(lib, dev, stream, B):
     """K8's ticket (an int that every launch leaves 0) and room for B rows
     of per-CTA pairs, kept per (device, stream): launches on one stream
-    run in turn, so they may share it. Returns (ticket, pmax, pidx)
-    pointers."""
+    run in turn, so they may share it (graphs captured on a stream share
+    its workspace and must replay in turn too). Returns (ticket, pmax,
+    pidx) pointers."""
     key = (dev.index, stream)
     ws = _HEAD_WS.get(key)
     if ws is None or ws[1] < B:
@@ -729,6 +742,8 @@ def _head_workspace(lib, dev, stream, B):
         if ctas <= 0:
             raise MXNetError("fused_lm_head_sample: no CUDA device limits")
         cap = max(B, 16)
+        if ws is not None:
+            _HEAD_WS_KEPT.append(ws)
         ws = (torch.zeros(4 + 2 * cap * ctas, dtype=torch.int32, device=dev), cap, ctas)
         _HEAD_WS[key] = ws
     buf, cap, ctas = ws

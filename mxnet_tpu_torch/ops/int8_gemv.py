@@ -39,7 +39,8 @@ __all__ = ["int8_weight_matmul", "int4_weight_matmul", "weight_matmul",
            "dequantize_int4_table", "count_launches",
            "record_launch", "reset_launches", "launches", "record_dma",
            "dma_ledger", "gemv_max_m", "GEMV_INT4_BLOCK", "GEMV_TILE_MIN_M",
-           "GEMV_TILE_K", "gemv_route", "gemv_routes", "gemv_widths", "record_lane", "dtype_lanes"]
+           "GEMV_TILE_K", "gemv_route", "gemv_routes", "gemv_widths", "record_lane", "dtype_lanes",
+           "record_graph", "GraphTally"]
 
 # row threshold of the GEMV route: at most this many rows stream int8
 # weights through K3, more take the activation-quantized int8 product
@@ -75,13 +76,16 @@ GEMV_INT4_BLOCK = 128
 
 
 # ---------------------------------------------------------------------------
-# Launch accounting. The port runs eagerly, so a launch is a real kernel
-# launch (or, on the CPU, a call of its plain version under the same
-# kind): a wrapper records one where its kernel launched, after the launch
-# returned without error, or where its plain version ran. ``launches()`` reads the
-# process-wide per-kind totals, ``reset_launches()`` zeroes them, and
+# Launch accounting. A launch is a real kernel launch (or, on the CPU, a
+# call of its plain version under the same kind): a wrapper records one
+# where its kernel launched, after the launch returned without error, or
+# where its plain version ran. ``launches()`` reads the process-wide
+# per-kind totals, ``reset_launches()`` zeroes them, and
 # ``count_launches()`` additionally tallies one thread's launches inside a
-# ``with`` block (the JAX package's trace-time tally).
+# ``with`` block (the JAX package's trace-time tally). A CUDA-graph capture
+# runs the wrappers once and launches nothing: inside ``record_graph()``
+# their records go to the capture's :class:`GraphTally` instead, and each
+# replay of the graph adds that tally (``GraphTally.replayed``).
 # ---------------------------------------------------------------------------
 _COUNTS: Dict[str, int] = {}
 _ROUTES: Dict[str, int] = {"warp": 0, "mma": 0}
@@ -89,6 +93,78 @@ _WIDTHS: Dict[str, int] = {}
 _LANES: Dict[str, int] = {}
 _COUNTS_LOCK = threading.Lock()
 _TALLY = threading.local()
+_CAPTURE = threading.local()
+
+
+def _add(into: Dict[str, int], counts: Dict[str, int]):
+    for key, n in counts.items():
+        into[key] = into.get(key, 0) + n
+
+
+class GraphTally:
+    """The launch records of one CUDA-graph capture: launches per kind,
+    lane, route and width, and the DMA ledger entries, whose 0-dim device
+    values are graph tensors that every replay overwrites. :meth:`seal`,
+    called inside the capture, sums those values into one captured [3]
+    int64 vector; :meth:`replayed`, called after each replay, adds the
+    counts and clones that vector on the replay's stream (no host sync)."""
+
+    def __init__(self):
+        self.kinds: Dict[str, int] = {}
+        self.lanes: Dict[str, int] = {}
+        self.routes: Dict[str, int] = {}
+        self.widths: Dict[str, int] = {}
+        self.dma: list = []
+        self._dma_vec = None
+
+    def seal(self):
+        """Form the DMA totals inside the capture: ints stay host
+        constants, device values are summed by captured ops."""
+        if not self.dma:
+            return
+        fields = []
+        for i in range(3):
+            vals = [entry[i] for entry in self.dma]
+            lazy = [v.reshape(()).long() for v in vals if torch.is_tensor(v)]
+            const = sum(int(v) for v in vals if not torch.is_tensor(v))
+            fields.append(torch.stack(lazy).sum() + const if lazy else const)
+        if any(torch.is_tensor(f) for f in fields):
+            dev = next(f.device for f in fields if torch.is_tensor(f))
+            self._dma_vec = torch.stack([f if torch.is_tensor(f) else
+                                         torch.full((), f, dtype=torch.int64, device=dev)
+                                         for f in fields])
+        else:
+            self._dma_vec = tuple(fields)
+
+    def replayed(self):
+        """Count one replay of the captured graph."""
+        with _COUNTS_LOCK:
+            _add(_COUNTS, self.kinds)
+            _add(_LANES, self.lanes)
+            _add(_ROUTES, self.routes)
+            _add(_WIDTHS, self.widths)
+            if self._dma_vec is not None:
+                _DMA_PENDING.append(self._dma_vec.clone() if torch.is_tensor(self._dma_vec)
+                                    else self._dma_vec)
+                if len(_DMA_PENDING) >= _DMA_FOLD_AT:
+                    _fold_dma()
+        d = getattr(_TALLY, "d", None)
+        if d is not None:
+            _add(d, self.kinds)
+
+
+@contextlib.contextmanager
+def record_graph():
+    """Send this thread's launch records to a fresh :class:`GraphTally`
+    (yielded) instead of the counters, for the span of a CUDA-graph
+    capture, or of a run whose launches are not counted."""
+    prev = getattr(_CAPTURE, "t", None)
+    tally = GraphTally()
+    _CAPTURE.t = tally
+    try:
+        yield tally
+    finally:
+        _CAPTURE.t = prev
 
 
 @contextlib.contextmanager
@@ -105,6 +181,10 @@ def count_launches():
 
 def record_launch(kind: str):
     """Record one launch of a decode kernel (or of its plain version)."""
+    cap = getattr(_CAPTURE, "t", None)
+    if cap is not None:
+        _add(cap.kinds, {kind: 1})
+        return
     with _COUNTS_LOCK:
         _COUNTS[kind] = _COUNTS.get(kind, 0) + 1
     d = getattr(_TALLY, "d", None)
@@ -123,6 +203,10 @@ def record_lane(key: str):
     ``"<kind>:<route>:<x dtype>"`` for K3/K4 (e.g. ``"gemv:mma:bf16"``),
     ``"<kind>:x_<dtype>:kv_<dtype>"`` for the block kernels and
     ``"<kind>:h_<dtype>[:bf16_logits][:mask]"`` for K8."""
+    cap = getattr(_CAPTURE, "t", None)
+    if cap is not None:
+        _add(cap.lanes, {key: 1})
+        return
     with _COUNTS_LOCK:
         _LANES[key] = _LANES.get(key, 0) + 1
 
@@ -141,11 +225,15 @@ def _record_gemv(kind: str, route: str, x_dtype: str = "f32", N: Optional[int] =
     width N."""
     record_launch(kind)
     record_lane(f"{kind}:{route}:{x_dtype}")
+    widths = {f"{route}:{N}": 1} if N is not None else {}
+    cap = getattr(_CAPTURE, "t", None)
+    if cap is not None:
+        _add(cap.routes, {route: 1})
+        _add(cap.widths, widths)
+        return
     with _COUNTS_LOCK:
         _ROUTES[route] += 1
-        if N is not None:
-            key = f"{route}:{N}"
-            _WIDTHS[key] = _WIDTHS.get(key, 0) + 1
+        _add(_WIDTHS, widths)
 
 
 def gemv_routes() -> Dict[str, int]:
@@ -185,7 +273,8 @@ def reset_launches():
 # for every copy it starts, so copies == waits is the invariant. The count
 # depends on the rows' positions, which live on the device: a value may be
 # a 0-dim tensor, summed only when the ledger is read, so recording costs
-# the launch path no host sync.
+# the launch path no host sync. A graph replay records its capture's totals
+# as one [3] int64 tensor (``GraphTally``).
 # ---------------------------------------------------------------------------
 _DMA: Dict[str, int] = {"copies": 0, "bytes": 0, "waits": 0}
 _DMA_PENDING: list = []
@@ -195,15 +284,28 @@ _DMA_FOLD_AT = 1024
 def record_dma(copies, nbytes, waits=None):
     """Record the async copies one launch starts (``waits`` defaults to
     ``copies``). Each value is an int or a 0-dim integer tensor."""
+    entry = (copies, nbytes, copies if waits is None else waits)
+    cap = getattr(_CAPTURE, "t", None)
+    if cap is not None:
+        cap.dma.append(entry)
+        return
     with _COUNTS_LOCK:
-        _DMA_PENDING.append((copies, nbytes, copies if waits is None else waits))
+        _DMA_PENDING.append(entry)
         if len(_DMA_PENDING) >= _DMA_FOLD_AT:
             _fold_dma()
 
 
 def _fold_dma():
+    rows = [e for e in _DMA_PENDING if not torch.is_tensor(e)]
+    vecs: dict = {}
+    for e in _DMA_PENDING:
+        if torch.is_tensor(e):
+            vecs.setdefault(e.device, []).append(e)
+    for lazy in vecs.values():                        # one sync per device
+        for key, n in zip(_DMA, torch.stack(lazy).sum(0).tolist()):
+            _DMA[key] += int(n)
     for i, key in enumerate(_DMA):
-        vals = [entry[i] for entry in _DMA_PENDING]
+        vals = [entry[i] for entry in rows]
         total = sum(int(v) for v in vals if not torch.is_tensor(v))
         by_device: dict = {}
         for v in vals:

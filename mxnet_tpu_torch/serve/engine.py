@@ -36,9 +36,32 @@ layouts).
   cancellation, and ``shutdown(drain=True)`` that finishes in-flight
   slots and completes queued requests with status ``shutdown``.
 
+- **Decode lookahead** (``lookahead=True``, the default): the loop
+  dispatches step N+1, fed step N's device-resident last tokens, before it
+  reads step N's tokens, so the read overlaps the next step's work. Step
+  N's [B, K] tokens are copied to pinned host memory right after its
+  dispatch, with an event, and read after N+1 is dispatched. The pipeline
+  drains whenever the decoding row set or its bucket changes (admission,
+  retire, a prefill finishing, preemption): the speculative step's tokens
+  of retired rows are discarded and its writes land where the next
+  prefill or the row's own next write overwrites them, so the output is
+  token for token that of ``lookahead=False``. A dispatch that fails
+  first reads the pending step, so no computed token is lost.
+- **Warm-up as CUDA-graph capture** (:meth:`InferenceEngine.warmup`): on
+  the card every decode dispatch (per batch bucket, substep count and
+  sampling branch) and every paged prefill chunk (per chunk bucket) is one
+  captured ``torch.cuda.CUDAGraph`` over fixed input buffers, filled by
+  one stream-ordered copy from pinned staging per dispatch; steady-state
+  serving replays graphs and captures nothing (``stats()["captures"]``
+  stays put: the port's zero-recompile contract). A step first needed
+  after ``warmup()`` is captured then, and counted. A failed capture
+  raises, naming the bucket; nothing serves eagerly on the card instead.
+  On the CPU every entry is the same function run eagerly. The contiguous
+  prefill (once per request, through a per-slot cache view) and token 0's
+  head and read stay eager.
+
 One background thread runs the loop; ``submit`` and ``result`` are safe
-from any thread. The engine reads each dispatch's tokens back before the
-next one (no lookahead), so the paged tick has no pending step.
+from any thread.
 
 Sampling keys every request's stream with ``fold_in(key(seed), counter)``
 (``counter`` = tokens the request has emitted), as the JAX engine does.
@@ -56,9 +79,9 @@ stream (the TPU kernel's; the JAX package's CPU path draws
 on the CPU by design), and a batch with any top-k/top-p row on
 ``sample_tokens``, as the JAX engine draws it.
 
-Speculation, grammar masks, live weight swaps, page migration, warm-up
-and recompile guards, HTTP, metrics and tuned configs are later slices:
-the constructor raises on ``speculate`` and ``grammar``.
+Speculation, grammar masks, live weight swaps, page migration, HTTP,
+metrics and tuned configs are later slices: the constructor raises on
+``speculate`` and ``grammar``.
 """
 from __future__ import annotations
 
@@ -66,8 +89,9 @@ import dataclasses
 import threading
 import time
 import traceback
+import warnings
 from collections import deque
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,7 +99,8 @@ import torch
 from .. import _prng
 from ..base import MXNetError
 from ..models import generation as _gen
-from .bucketing import bucket_for
+from ..ops.int8_gemv import record_graph
+from .bucketing import bucket_for, bucket_ladder
 from .paging import OutOfPages, PagePool, pages_for
 
 __all__ = ["InferenceEngine", "RequestHandle", "ServeResult",
@@ -182,6 +207,100 @@ class _Prefill:
     t0: float
 
 
+@dataclasses.dataclass
+class _PendingStep:
+    """One dispatched decode step whose tokens are not read yet (the
+    lookahead window). ``slots`` snapshots the (index, slot) rows at
+    dispatch, so the read skips rows retired or refilled since (identity
+    check); ``toks`` is the pinned host [sb, K] copy that ``event`` (None
+    on the CPU) marks complete."""
+    sb: int
+    slots: List[Tuple[int, "_Slot"]]
+    t0: float
+    steps: int
+    toks: Any
+    event: Any
+
+
+_ALIGN = 16
+
+
+class _Buffers:
+    """The fixed inputs of a family of steps: one byte buffer on the device
+    holding named fields (``self.<name>`` are device views, what a captured
+    graph reads), and two host staging copies of the same layout (pinned on
+    the card) with numpy views. A dispatch fills the next staging copy and
+    :meth:`upload` moves a byte range of it with one stream-ordered copy;
+    the copy's event keeps the dispatch after next from overwriting a
+    staging copy the device may still be reading."""
+
+    def __init__(self, device, fields):
+        self._layout = {}
+        off = 0
+        for name, shape, dtype in fields:
+            n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+            self._layout[name] = (off, n, tuple(shape), dtype)
+            off += -(-n // _ALIGN) * _ALIGN
+        self.nbytes = off
+        cuda = device.type == "cuda"
+        self.dev = torch.zeros(off, dtype=torch.uint8, device=device)
+        for name in self._layout:
+            setattr(self, name, self._view(self.dev, name))
+        self._host = [torch.zeros(off, dtype=torch.uint8, pin_memory=cuda) for _ in range(2)]
+        self._np = [{name: self._view(h, name).numpy() for name in self._layout}
+                    for h in self._host]
+        self._events = [torch.cuda.Event() if cuda else None for _ in range(2)]
+        self._used = [False, False]
+        self._i = 1
+
+    def _view(self, buf, name):
+        off, n, shape, dtype = self._layout[name]
+        return buf[off:off + n].view(dtype).reshape(shape)
+
+    def offset(self, name: str) -> int:
+        return self._layout[name][0]
+
+    def host(self) -> Dict[str, np.ndarray]:
+        """The next staging copy's numpy views by field, once the copy that
+        last read it has completed."""
+        self._i ^= 1
+        ev = self._events[self._i]
+        if ev is not None and self._used[self._i]:
+            ev.synchronize()
+        return self._np[self._i]
+
+    def upload(self, start: int, end: int):
+        """Copy bytes [start, end) of the current staging copy into the
+        device buffer, ordered on the current stream."""
+        if end > start:
+            self.dev[start:end].copy_(self._host[self._i][start:end], non_blocking=True)
+        ev = self._events[self._i]
+        if ev is not None:
+            ev.record()
+            self._used[self._i] = True
+
+
+class _Step:
+    """A decode dispatch or prefill chunk of one bucket: ``fn`` reads the
+    bucket's fixed input buffers and returns its output. On the card
+    ``graph`` is ``fn`` captured as a CUDA graph, ``out`` its output and
+    ``tally`` its launch records; calling replays the graph and counts the
+    replay. Elsewhere calling runs ``fn``."""
+
+    def __init__(self, fn: Callable, graph=None, out=None, tally=None):
+        self.fn = fn
+        self.graph = graph
+        self.out = out
+        self.tally = tally
+
+    def __call__(self):
+        if self.graph is None:
+            return self.fn()
+        self.graph.replay()
+        self.tally.replayed()
+        return self.out
+
+
 class InferenceEngine:
     """Continuous-batching serving engine for a GPT model of this package
     (``cache_spec``/``forward_cached_hidden`` protocol) on the model's
@@ -194,6 +313,8 @@ class InferenceEngine:
     max_len : per-slot KV capacity; prompt + new tokens + (K - 1) must fit
     max_queue_depth : ``submit`` raises :class:`QueueFullError` beyond it
     min_prompt_bucket : smallest prompt-length bucket (power of two)
+    lookahead : dispatch decode step N+1 before reading step N (module
+        docstring); greedy output is that of ``lookahead=False``
     multi_token : K tokens per decode dispatch (module docstring)
     bucket_growth : growth factor of the prompt-bucket ladder
     fused : ``True`` requires fused block packs, ``False`` their absence,
@@ -206,10 +327,16 @@ class InferenceEngine:
         contiguous layout's bytes); the pools carry one more, the sink
     prefix_cache : publish prompts and map shared prefixes
     prefill_chunk : tokens per prefill chunk (default ``page_size``)
+
+    Diagnostic: ``engine._eager = True``, set before :meth:`start` and
+    :meth:`warmup`, makes the card run every step's function eagerly
+    instead of capturing and replaying it (the comparison of
+    ``chip_smoke.py``); it is not a serving mode.
     """
 
     def __init__(self, model, max_batch_size: int = 8, max_len: int = 256,
                  max_queue_depth: int = 64, min_prompt_bucket: int = 8,
+                 lookahead: bool = True,
                  multi_token: int = 1, bucket_growth: int = 2,
                  fused: Optional[bool] = None, paged: Optional[bool] = None,
                  page_size: int = 16, num_pages: Optional[int] = None,
@@ -307,6 +434,25 @@ class InferenceEngine:
         self._decode_s = 0.0
         self._decode_tokens = 0
 
+        # lookahead, and the steps (captured graphs on the card) per bucket
+        self._lookahead = bool(lookahead)
+        self._pending: Optional[_PendingStep] = None
+        self._eager = False
+        self._tick_lock = threading.Lock()
+        self._steps: Dict[Tuple[int, int, str], _Step] = {}
+        self._chunks: Dict[int, _Step] = {}
+        self._io: Dict[int, _Buffers] = {}
+        self._chunk_io: Optional[_Buffers] = None
+        self._captures = 0
+        self._graph_pool = None
+        self._cap_stream = None
+        self.last_warmup_s: Optional[float] = None
+        cuda = self.device.type == "cuda"
+        self._out_host = [torch.zeros(self.S, self.K, dtype=torch.int32, pin_memory=cuda)
+                          for _ in range(2)]
+        self._out_events = [torch.cuda.Event() if cuda else None for _ in range(2)]
+        self._out_i = 1
+
     # ------------------------------------------------------------ lifecycle
     def start(self) -> "InferenceEngine":
         """Launch the background continuous-batching loop."""
@@ -343,6 +489,182 @@ class InferenceEngine:
 
     def __exit__(self, *exc):
         self.shutdown(drain=True)
+
+    # ------------------------------------------------------------ warm-up
+    def warmup(self) -> "InferenceEngine":
+        """Build every kernel (on the card) and every step of the bucket
+        ladder, so that serving captures nothing: a decode step per batch
+        bucket ``bucket_ladder(1, S)``, substep count 1..K and sampling
+        branch (:meth:`_branches`), and in the paged layout a prefill chunk
+        at the full chunk size and at each final-chunk bucket
+        ``bucket_ladder(min_prompt_bucket, prefill_chunk)``. On the card
+        each is a captured CUDA graph (JAX compiles one executable per
+        bucket); elsewhere the same function, run eagerly at each call.
+        Idempotent; call before taking traffic (a lookahead step in flight
+        is read first). Sets ``last_warmup_s`` and returns the engine.
+
+        Building a step runs it once before capturing it (lazy setup stays
+        out of the capture) on safe inputs that leave live state alone:
+        paged steps and chunks write only the sink page (all-sink tables);
+        contiguous steps write positions ``max_len - K`` and on of every
+        slot, which a live row only reaches after writing them itself
+        (``prompt + max_new_tokens + K - 1 <= max_len``) and a new request's
+        prefill clears. The step's input buffers are restored afterwards."""
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            from .. import _build
+            _build.build_all()
+        with self._tick_lock:
+            pending, self._pending = self._pending, None
+            if pending is not None:
+                self._process_step(pending)
+            if self._paged:
+                for pb in bucket_ladder(self.min_prompt_bucket, self._chunk, self._growth):
+                    self._get_chunk(pb)
+            for sb in bucket_ladder(1, self.S):
+                for steps in range(1, self.K + 1):
+                    for branch in self._branches():
+                        self._get_step(sb, steps, branch)
+        self.last_warmup_s = time.perf_counter() - t0
+        return self
+
+    def _branches(self) -> Tuple[str, ...]:
+        """The sampling branches a decode step takes, chosen on the host per
+        dispatch: with the fused head (K8), ``"filtered"`` (a row at T > 0
+        and a top-k/top-p row: head GEMV logits, then ``sample_tokens``)
+        and ``"fused"`` (every other batch: K8 selects greedy and sampled
+        rows; a greedy row's argmax is the filtered branch's, since top-k
+        and top-p keep the largest logit); without it, ``"greedy"`` and
+        ``"sampled"`` (``sample_tokens`` on the logits)."""
+        if self._head is not None:
+            return ("fused", "filtered")
+        return ("greedy", "sampled")
+
+    def _build(self, fn: Callable, io: _Buffers, safe: Callable, what: str) -> _Step:
+        """One step of a bucket: ``fn`` run once on the ``safe`` inputs
+        (its launches uncounted), then, on the card, captured into a CUDA
+        graph on the engine's capture stream and memory pool. A failed
+        capture raises, naming ``what``."""
+        dev = self.device
+        cuda = dev.type == "cuda"
+        stream = None
+        if cuda:
+            if self._cap_stream is None:
+                self._cap_stream = torch.cuda.Stream(dev)
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            stream = self._cap_stream
+            stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.no_grad(), torch.cuda.stream(stream):
+            saved = io.dev.clone()
+            safe(io)
+            with record_graph():
+                fn()
+            io.dev.copy_(saved)
+            step = _Step(fn)
+            if cuda and not self._eager:
+                graph = torch.cuda.CUDAGraph()
+                try:
+                    graph.capture_begin(pool=self._graph_pool,
+                                        capture_error_mode="thread_local")
+                    try:
+                        with record_graph() as tally:
+                            out = fn()
+                            tally.seal()
+                    finally:
+                        graph.capture_end()
+                except Exception as e:
+                    raise MXNetError(f"serve: CUDA-graph capture of {what} failed: "
+                                     f"{e}") from e
+                step = _Step(fn, graph, out, tally)
+        if cuda:
+            torch.cuda.current_stream(dev).wait_stream(stream)
+        with self._lock:
+            self._captures += 1
+        return step
+
+    def _step_io(self, sb: int) -> _Buffers:
+        """The fixed inputs of decode bucket ``sb``, shared by its steps:
+        tokens first (a lookahead dispatch feeds them on the device and
+        uploads from ``pos`` on), keys last (uploaded only as far as the
+        dispatch's substeps need them, and only with a row at T > 0)."""
+        io = self._io.get(sb)
+        if io is None:
+            fields = [("tokens", (sb,), torch.int32), ("pos", (sb,), torch.int32),
+                      ("temps", (sb,), torch.float32), ("topks", (sb,), torch.int32),
+                      ("topps", (sb,), torch.float32), ("eos", (sb,), torch.int32),
+                      ("rem", (sb,), torch.int32)]
+            if self._paged:
+                fields.append(("table", (sb, self.maxp), torch.int32))
+            fields.append(("keys", (self.K, sb, 2), torch.int64))
+            io = self._io[sb] = _Buffers(self.device, fields)
+        return io
+
+    def _get_step(self, sb: int, steps: int, branch: str) -> _Step:
+        """The decode step of batch bucket ``sb``, ``steps`` substeps and
+        sampling ``branch``, built at first use (the counterpart of the JAX
+        engine's ``_get_compiled``). Its function runs
+        ``decode_multi_tokens`` on the bucket's fixed inputs and writes the
+        last tokens back into them (the next lookahead dispatch's input)."""
+        key = (sb, steps, branch)
+        step = self._steps.get(key)
+        if step is not None:
+            return step
+        io = self._step_io(sb)
+        model, K, head = self.model, self.K, self._head
+        caches = self._pools if self._paged else [pool[:sb] for pool in self._pools]
+        table = io.table if self._paged else None
+        filtered = branch == "filtered"
+        greedy = branch == "greedy"
+
+        def fn():
+            toks, last, _, _, _ = _gen.decode_multi_tokens(
+                model, io.tokens, io.pos, caches, K, io.temps, eos_ids=io.eos,
+                remaining=io.rem, head=head, block_table=table, topks=io.topks,
+                topps=io.topps, keys=io.keys, steps=steps, filtered=filtered,
+                greedy=greedy)
+            io.tokens.copy_(last)
+            return toks
+
+        def safe(io):
+            io.dev.zero_()
+            io.rem.fill_(K)
+            if self._paged:
+                io.table.fill_(self._pages.sink)
+            else:
+                io.pos.fill_(self.L - K)
+
+        step = self._build(fn, io, safe, f"decode bucket {sb} ({steps} substeps, {branch})")
+        with self._lock:
+            self._steps[key] = step
+        return step
+
+    def _get_chunk(self, pb: int) -> _Step:
+        """The paged prefill chunk of bucket ``pb`` tokens over the chunk
+        inputs (ids, a [1] cursor, the slot's [1, max_pages] table),
+        returning the chunk's hidden state [1, pb, D]."""
+        step = self._chunks.get(pb)
+        if step is not None:
+            return step
+        if self._chunk_io is None:
+            self._chunk_io = _Buffers(self.device, [
+                ("ids", (self._chunk,), torch.int32), ("pos", (1,), torch.int32),
+                ("table", (1, self.maxp), torch.int32)])
+        io = self._chunk_io
+        ids = io.ids[:pb].reshape(1, pb)
+
+        def fn():
+            hidden, _ = _gen.decode_step_hidden(self.model, ids, io.pos, self._pools,
+                                                io.table)
+            return hidden
+
+        def safe(io):
+            io.dev.zero_()
+            io.table.fill_(self._pages.sink)
+
+        step = self._build(fn, io, safe, f"prefill chunk bucket {pb}")
+        with self._lock:
+            self._chunks[pb] = step
+        return step
 
     # ------------------------------------------------------------ submission
     def submit(self, input_ids, max_new_tokens: int,
@@ -398,6 +720,13 @@ class InferenceEngine:
                 self._closed = True
                 queued = list(self._queue)
                 self._queue.clear()
+            pending, self._pending = self._pending, None
+            if pending is not None:
+                try:
+                    # the computed lookahead tokens first: none is lost
+                    self._process_step(pending)
+                except Exception:
+                    pass
             for req in queued:
                 self._finish_unstarted(req, STATUS_ERROR, error=err)
             for s in range(self.S):
@@ -439,25 +768,33 @@ class InferenceEngine:
                         admits.append((s, req))
             for req, status in dead:
                 self._finish_unstarted(req, status)
-            if stopping and self._abort_inflight:
-                for s in range(self.S):
-                    if self._slots[s] is not None:
-                        self._retire(s, STATUS_SHUTDOWN)
-            for s, req in admits:
+            with self._tick_lock:
+                if self._pending is not None and (stopping or (admits and not self._paged)):
+                    # contiguous admits prefill into the pools and change the
+                    # row set: read the lookahead step first. Paged admits
+                    # only start prefills; the paged tick drains on a change
+                    # of the decoding rows.
+                    pending, self._pending = self._pending, None
+                    self._process_step(pending)
+                if stopping and self._abort_inflight:
+                    for s in range(self.S):
+                        if self._slots[s] is not None:
+                            self._retire(s, STATUS_SHUTDOWN)
+                for s, req in admits:
+                    if self._paged:
+                        self._admit_paged(s, req)
+                    else:
+                        self._prefill(s, req)
                 if self._paged:
-                    self._admit_paged(s, req)
-                else:
-                    self._prefill(s, req)
-            if self._paged:
-                self._advance_prefills(stopping)
-            active = sum(slot is not None for slot in self._slots)
-            self._max_active = max(self._max_active, active)
-            if self._paged and self._active.any():
-                self._step_paged()
-            elif active and not self._paged:
-                self._step()
-            elif stopping and not active:
-                break
+                    self._advance_prefills(stopping)
+                active = sum(slot is not None for slot in self._slots)
+                self._max_active = max(self._max_active, active)
+                if self._paged and (self._active.any() or self._pending is not None):
+                    self._step_tick_paged()
+                elif active and not self._paged:
+                    self._step_tick()
+                elif stopping and not active:
+                    break
 
     # ------------------------------------------------------------ prefill
     def _prefill(self, s: int, req: RequestHandle):
@@ -577,15 +914,18 @@ class InferenceEngine:
         except OutOfPages:
             self._preempt(s)
             return
-        table = torch.from_numpy(self._pages.table(s)[None, :].copy()).to(self.device)
         n = end - pf.cursor
         pb = n if end < P else bucket_for(n, self.min_prompt_bucket, self._chunk,
                                           self._growth)
-        ids = np.zeros((1, pb), np.int32)
-        ids[0, :n] = pf.ids[pf.cursor:pf.cursor + n]
-        ids = torch.from_numpy(ids).to(self.device)
-        hidden, _ = _gen.decode_step_hidden(self.model, ids, pf.cursor,
-                                            self._pools, table)
+        step = self._get_chunk(pb)
+        io = self._chunk_io
+        h = io.host()
+        h["ids"][:pb] = 0
+        h["ids"][:n] = pf.ids[pf.cursor:pf.cursor + n]
+        h["pos"][0] = pf.cursor
+        h["table"][0] = self._pages.table(s)
+        io.upload(0, io.nbytes)
+        hidden = step()
         self._prefill_chunks += 1
         if end < P:
             pf.cursor = end
@@ -636,74 +976,180 @@ class InferenceEngine:
                 self._preempt(victim)
 
     # ------------------------------------------------------------ decode
-    def _step(self):
-        """One batched decode dispatch over the occupied slot prefix, read
-        back and applied."""
-        t0 = time.perf_counter()
-        hi = max(s for s in range(self.S) if self._slots[s] is not None) + 1
-        sb = bucket_for(hi, 1, self.S)
-        live = [(s, self._slots[s]) for s in range(sb) if self._slots[s] is not None]
-        self._dispatch(t0, sb, live, [pool[:sb] for pool in self._pools], None)
+    def _step_tick(self):
+        """Advance contiguous decode one tick. Without lookahead: dispatch
+        one step over the occupied slot prefix and read it. With lookahead:
+        dispatch step N+1, fed step N's device tokens, then read step N; a
+        retire at that read drains the pipeline (step N+1 is read at once,
+        its rows of retired slots discarded), so the next tick dispatches
+        from the host's tokens for the new row set."""
+        prev, self._pending = self._pending, None
+        live = [(s, self._slots[s]) for s in range(self.S) if self._slots[s] is not None]
+        sb = bucket_for(live[-1][0] + 1, 1, self.S)
+        if prev is not None and prev.sb != sb:
+            # the row set moved without a drain (not expected: admits and
+            # retires drain): read prev first
+            self._process_step(prev)
+            prev = None
+            live = [(s, self._slots[s]) for s in range(self.S)
+                    if self._slots[s] is not None]
+            if not live:
+                return
+            sb = bucket_for(live[-1][0] + 1, 1, self.S)
+        self._tick(prev, sb, live, None)
 
-    def _step_paged(self):
-        """One batched decode dispatch over the slot prefix up to the
+    def _decoding(self) -> List[Tuple[int, _Slot]]:
+        """(slot, _Slot) of every decoding slot in row order (mid-prefill
+        slots are not decoding: their rows in a bucket are all-sink)."""
+        return [(s, self._slots[s]) for s in range(self.S)
+                if self._active[s] and self._slots[s] is not None]
+
+    @staticmethod
+    def _same_rows(a, b) -> bool:
+        return len(a) == len(b) and all(x[0] == y[0] and x[1] is y[1] for x, y in zip(a, b))
+
+    def _step_tick_paged(self):
+        """The paged tick: one dispatch over the slot prefix up to the
         highest decoding slot. Rows of the prefix that do not decode (empty
         or mid-prefill) carry all-sink tables, position 0 and no budget:
-        their writes land in the sink page and their tokens are
-        discarded."""
-        t0 = time.perf_counter()
-        self._lease_decode()                 # may preempt
-        cur = [s for s in range(self.S) if self._active[s]]
+        their writes land in the sink page and their tokens are discarded.
+        The lookahead step feeds the next dispatch only while the decoding
+        rows and the bucket are unchanged; activation, preemption and
+        retires drain it first."""
+        prev, self._pending = self._pending, None
+        self._lease_decode()                 # may preempt (changes the rows)
+        cur = self._decoding()
         if not cur:
+            if prev is not None:
+                self._process_step(prev)
             return
-        sb = bucket_for(cur[-1] + 1, 1, self.S)
+        sb = bucket_for(cur[-1][0] + 1, 1, self.S)
+        if prev is not None and not (prev.sb == sb and self._same_rows(prev.slots, cur)):
+            retired = self._process_step(prev)
+            prev = None
+            if retired:
+                cur = self._decoding()
+                if not cur:
+                    return
+                sb = bucket_for(cur[-1][0] + 1, 1, self.S)
         tables = np.full((sb, self.maxp), self._pages.sink, np.int32)
-        for s in cur:
+        for s, _ in cur:
             tables[s] = self._pages.table(s)
-        live = [(s, self._slots[s]) for s in cur]
-        self._dispatch(t0, sb, live, self._pools,
-                       torch.from_numpy(tables).to(self.device))
+        self._tick(prev, sb, cur, tables)
 
-    def _dispatch(self, t0, sb, live, caches, table):
-        dev = self.device
-        tokens = torch.from_numpy(self._tokens[:sb].copy()).to(dev)
-        pos = torch.from_numpy(self._pos[:sb].copy()).to(dev)
-        if self.K > 1:
-            done = torch.from_numpy(self._remaining[:sb] <= 0).to(dev)
-            toks, _, steps, _, _ = _gen.decode_multi_tokens(
-                self.model, tokens, pos, caches, self.K, self._temps[:sb],
-                self._seeds[:sb], self._counters[:sb],
-                eos_ids=self._eos[:sb], remaining=self._remaining[:sb],
-                done=done, head=self._head, block_table=table,
-                topks=self._topks[:sb], topps=self._topps[:sb])
-            toks = toks.cpu().numpy()
+    def _tick(self, prev: Optional[_PendingStep], sb: int, live, tables):
+        """Dispatch over rows ``live`` of bucket ``sb`` (fed ``prev``'s
+        tokens where given), then read ``prev``; keep the new step pending
+        (lookahead) or read it now."""
+        if int(self._remaining[:sb].max(initial=0)) <= 0:
+            # every row ends within prev (the JAX loop's early exit)
+            if prev is not None:
+                self._process_step(prev)
+            return
+        rec = self._dispatch(prev, sb, live, tables)
+        if rec is None:
+            return                  # failed; prev was read and the rows retired
+        if prev is not None and self._process_step(prev):
+            self._process_step(rec)
+            rec = None
+        if self._lookahead:
+            self._pending = rec
+        elif rec is not None:
+            self._process_step(rec)
+
+    def _dispatch(self, prev: Optional[_PendingStep], sb: int, live,
+                  tables) -> Optional[_PendingStep]:
+        """Dispatch one decode step over slot rows [0, sb) without reading
+        it: pick the step (substeps, sampling branch) on the host, fill the
+        bucket's staging (tokens only when ``prev`` does not feed them;
+        keys only with a row at T > 0) and upload it with one copy, replay,
+        and start the copy of the [sb, K] tokens to pinned host memory. The
+        host clocks advance by K for every row at once. On failure the
+        pending ``prev`` is read first (its tokens exist), then every slot
+        retires with an error; returns None."""
+        t0 = time.perf_counter()
+        steps = int(min(self.K, self._remaining[:sb].max(initial=0)))
+        sampled = bool((self._temps[:sb] > 0).any())
+        if self._head is not None:
+            filtered = sampled and bool((self._topks[:sb] > 0).any()
+                                        or (self._topps[:sb] < 1.0).any())
+            branch = "filtered" if filtered else "fused"
         else:
-            logits, _ = _gen.decode_step(self.model, tokens[:, None], pos, caches,
-                                         table)
-            keys = _prng.fold_keys(self._seeds[:sb], self._counters[:sb], dev)
-            toks = _gen.sample_tokens(logits[:, -1], keys, self._temps[:sb],
-                                      self._topks[:sb], self._topps[:sb])
-            toks = toks.cpu().numpy()[:, None]
-            steps = 1
-        now = time.perf_counter()
+            branch = "sampled" if sampled else "greedy"
+        try:
+            step = self._get_step(sb, steps, branch)
+            io = self._io[sb]
+            h = io.host()
+            if prev is None:
+                h["tokens"][:] = self._tokens[:sb]
+            h["pos"][:] = self._pos[:sb]
+            h["temps"][:] = self._temps[:sb]
+            h["topks"][:] = self._topks[:sb]
+            h["topps"][:] = self._topps[:sb]
+            h["eos"][:] = self._eos[:sb]
+            h["rem"][:] = self._remaining[:sb]
+            if tables is not None:
+                h["table"][:] = tables
+            end = io.offset("keys")
+            if sampled:
+                _prng.step_keys(self._seeds[:sb], self._counters[:sb], steps,
+                                out=h["keys"][:steps])
+                end += steps * sb * 16
+            io.upload(io.offset("pos") if prev is not None else 0, end)
+            toks = step()
+            self._out_i ^= 1
+            host = self._out_host[self._out_i][:sb]
+            host.copy_(toks, non_blocking=True)
+            event = self._out_events[self._out_i]
+            if event is not None:
+                event.record()
+        except Exception as e:
+            warnings.warn(f"serve: decode step failed: {e!r}")
+            if prev is not None:
+                self._process_step(prev)
+            for s in range(self.S):
+                if self._slots[s] is not None:
+                    self._retire(s, STATUS_ERROR, error=str(e))
+            return None
         self._dispatches += 1
         self._substeps += steps
-        self._decode_s += now - t0
-        # the dispatch ran at this tick's clocks; advance them by K for
-        # every occupied row (a row finishing early retires below)
+        # the dispatched step owns this tick's clocks; advance them by K for
+        # every row now, so the next dispatch (possibly before this one is
+        # read) sees them (a row finishing early retires at the read)
         for s, _ in live:
             self._pos[s] += self.K
             self._counters[s] += self.K
             self._remaining[s] -= self.K
-        for s, slot in live:
-            for j in range(steps):
+        self._decode_s += time.perf_counter() - t0
+        return _PendingStep(sb=sb, slots=list(live), t0=t0, steps=steps, toks=host,
+                            event=event)
+
+    def _process_step(self, rec: _PendingStep) -> bool:
+        """Read one dispatched step and apply it: append each row's tokens
+        in order, stopping at its EOS, budget, cancel or deadline (later
+        columns are the discarded speculative tokens), and retire finished
+        slots. Rows whose slot retired or was refilled since the dispatch
+        are skipped. Returns True when any slot retired."""
+        t0 = time.perf_counter()
+        if rec.event is not None:
+            rec.event.synchronize()
+        toks = rec.toks.numpy()
+        now = time.perf_counter()
+        retired = False
+        for s, slot in rec.slots:
+            if self._slots[s] is not slot:
+                continue
+            for j in range(rec.steps):
                 tok = int(toks[s, j])
                 slot.generated.append(tok)
                 self._tokens[s] = tok
                 self._decode_tokens += 1
                 self._check_finished(s, now)
                 if self._slots[s] is not slot:
+                    retired = True
                     break                  # rest of the K-vector: discard
+        self._decode_s += time.perf_counter() - t0
+        return retired
 
     # ------------------------------------------------------------ completion
     def _check_finished(self, s: int, now: float):
@@ -765,13 +1211,21 @@ class InferenceEngine:
     def stats(self) -> Dict[str, Any]:
         """Request, prefill and decode counters. ``decode_substeps`` counts
         incremental forwards (each runs every block once); ``decode_s`` is
-        the host wall time of the decode dispatches, read-back included
-        (a paged dispatch's page leases and forks too); ``prefill_s`` spans
+        the host wall time of the decode dispatches and of their reads
+        (with lookahead a read waits for the next step too); ``prefill_s`` spans
         each prefill from admission to its token 0. ``kv_bytes`` is the
         KV memory (the pools, sink page included); a paged engine adds
         ``page_size``, the page ledger's ``pages`` counters, the slots
         ``prefilling``, the ``preemptions`` and the ``resumed_tokens``
-        (generated tokens that preempted requests prefill again)."""
+        (generated tokens that preempted requests prefill again).
+
+        As in the JAX engine: ``lookahead``, ``multi_token``,
+        ``last_warmup_s`` and ``compiled_buckets``, whose ``"decode"`` lists
+        the built decode steps as (batch bucket, substeps, branch) and
+        ``"prefill"`` the paged chunk buckets (the contiguous prefill runs
+        eagerly). ``captures`` counts the steps built (on the card: CUDA
+        graphs captured); serving after :meth:`warmup` leaves it unchanged
+        (the zero-recompile contract)."""
         with self._lock:
             out = {
                 "submitted": self._submitted,
@@ -787,6 +1241,12 @@ class InferenceEngine:
                 "decode_s": self._decode_s,
                 "paged": self._paged,
                 "kv_bytes": sum(p.numel() * p.element_size() for p in self._pools),
+                "lookahead": self._lookahead,
+                "multi_token": self.K,
+                "compiled_buckets": {"prefill": sorted(self._chunks),
+                                     "decode": sorted(self._steps)},
+                "captures": self._captures,
+                "last_warmup_s": self.last_warmup_s,
             }
         if self._paged:
             out.update({"page_size": self.page_size, "pages": self._pages.stats(),

@@ -1013,3 +1013,132 @@ def test_bitwise_check_catches_pv_partials_out_of_group_order(pack, tmp_path):
             _k5_against_k7(pack, _K5_CASES["all_long"], 1024, torch.float32)
     finally:
         _build.library = saved
+
+
+# ---------------------------------------------------------------------------
+# the engine's captured steps: CUDA-graph replay against eager dispatch
+# ---------------------------------------------------------------------------
+def _serving_model(dtype):
+    """A small GPT on the card (hd 64, max_position 1024), int8 with fused
+    decode; bf16 with naive calibration, as the serving headlines."""
+    cfg = GPTConfig(vocab_size=1000, hidden_size=256, num_layers=2, num_heads=4,
+                    max_position_embeddings=1024, dropout=0.0, dtype=dtype)
+    model = GPTModel(cfg, device="cuda").init_weights(0, std=0.1)
+    calib = ([onp.random.RandomState(i).randint(0, 1000, (4, 16)) for i in range(2)]
+             if dtype == torch.bfloat16 else None)
+    return quantize_net(model, fused_decode=True,
+                        **(dict(calib_mode="naive", calib_data=calib) if calib else {}))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout,max_len", [("contiguous", 128), ("paged", 128),
+                                            ("paged", 1024)], ids=["K5", "K6", "K7"])
+def test_replayed_dispatch_equals_eager(cuda, layout, max_len, dtype):
+    """A replayed decode dispatch (fused head and filtered branch) and, in
+    the paged layout, a replayed prefill chunk (full and final bucket) give
+    the eager run's outputs, last tokens and whole pools bit for bit, from
+    the same inputs and pool state (``chip_smoke.replay_equals_eager``)."""
+    model = _serving_model(dtype)
+    eng = InferenceEngine(model, max_batch_size=4, max_len=max_len, multi_token=4,
+                          paged=layout == "paged", page_size=16)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for branch in ("fused", "filtered"):
+        chip_smoke.replay_equals_eager(torch, eng, g, 4, sb=4, steps=4, branch=branch)
+    chip_smoke.replay_equals_eager(torch, eng, g, 5, sb=2, steps=3, branch="fused")
+    if layout == "paged":
+        for pb in (16, 8):
+            chip_smoke.replay_equals_eager(torch, eng, g, 6, pb=pb)
+    # K7 past K6's gate (L 432 with f32 pools at hd 64, 864 with bf16)
+    kind = {"contiguous": "fused_block", "paged": "fused_block_paged"}[layout]
+    kind += "_dma" if max_len == 1024 else ""
+    eng_kinds = {k for step in eng._steps.values() for k in step.tally.kinds}
+    assert kind in eng_kinds
+
+
+@pytest.mark.parametrize("branch", ["fused", "filtered"])
+def test_replay_counts_launches_and_dma_like_eager(cuda, branch):
+    """Launch counts per kind, route, width and lane, a thread's
+    ``count_launches`` tally, and K7's DMA ledger read the same after two
+    replays of a captured dispatch as after two eager runs of its function;
+    the capture itself counts nothing."""
+    model = _serving_model(torch.float32)
+    eng = InferenceEngine(model, max_batch_size=4, max_len=512, multi_token=4,
+                          paged=True, page_size=16)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    chip_smoke.replay_equals_eager(torch, eng, g, 7, sb=4, steps=4, branch=branch)
+    step = eng._get_step(4, 4, branch)
+
+    def counted(run):
+        int8_gemv.reset_launches()
+        with int8_gemv.count_launches() as tally:
+            run()
+            run()
+        torch.cuda.synchronize()
+        return (int8_gemv.launches(), int8_gemv.gemv_routes(), int8_gemv.gemv_widths(),
+                int8_gemv.dtype_lanes(), int8_gemv.dma_ledger(), dict(tally))
+
+    int8_gemv.reset_launches()
+    eng._get_step(2, 4, branch)                  # a capture: counts nothing
+    assert int8_gemv.launches() == {} and int8_gemv.dma_ledger()["copies"] == 0
+    eager = counted(step.fn)
+    replay = counted(step)
+    assert replay == eager
+    assert eager[0]["fused_block_paged_dma"] == 2 * 4 * 2
+    assert eager[4]["copies"] == eager[4]["waits"] > 0
+    if branch == "filtered":
+        assert eager[2] == {"warp:1024": 2 * 4}
+
+
+def test_head_workspace_survives_a_wider_eager_call(cuda, net):
+    """K8's workspace captured by a graph stays the one it replays: an
+    eager call with more rows on the capture stream (a wider workspace)
+    and fresh allocations between two replays leave its tokens those of
+    the eager call."""
+    w, s, vocab = net.head_weights()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    h = torch.randn(4, w.shape[1] if w.dtype == torch.int8 else 2 * w.shape[1],
+                    device="cuda", generator=g)
+    keys = torch.randint(0, 2**31, (4, 2), device="cuda", generator=g)
+    temps = torch.tensor([0.0, 0.8, 0.0, 1.1], device="cuda")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        want = fb.fused_lm_head_sample(h, w, s, vocab, keys, temps, filtered=False)
+    graph = torch.cuda.CUDAGraph()
+    with int8_gemv.record_graph():
+        with torch.cuda.graph(graph, stream=stream):
+            out = fb.fused_lm_head_sample(h, w, s, vocab, keys, temps, filtered=False)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    wide = torch.randn(40, h.shape[1], device="cuda", generator=g)
+    with torch.cuda.stream(stream):
+        fb.fused_lm_head_sample(wide, w, s, vocab, torch.zeros(40, 2, dtype=torch.int64,
+                                                               device="cuda"),
+                                torch.zeros(40, device="cuda"), filtered=False)
+    torch.cuda.synchronize()
+    junk = [torch.full((1 << 16,), -1, dtype=torch.int32, device="cuda") for _ in range(8)]
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and len(junk) == 8
+
+
+def test_failed_capture_raises(cuda, monkeypatch):
+    """A step that syncs with the host cannot be captured: the engine
+    raises ``MXNetError`` naming the bucket, and serves nothing eagerly
+    instead."""
+    model = _serving_model(torch.float32)
+    eng = InferenceEngine(model, max_batch_size=2, max_len=128, multi_token=4, paged=False)
+    real = gen.decode_multi_tokens
+
+    def syncing(*a, **kw):
+        out = real(*a, **kw)
+        out[0].cpu()                          # a host read: illegal under capture
+        return out
+
+    monkeypatch.setattr(gen, "decode_multi_tokens", syncing)
+    with pytest.raises(MXNetError, match=r"decode bucket 2 \(1 substeps, fused\)"):
+        eng._get_step(2, 1, "fused")
+    assert (2, 1, "fused") not in eng._steps
+    torch.cuda.synchronize()
