@@ -86,15 +86,30 @@
    run at every shape; shows that three planted faults fail that check;
    and times the kernels beside the plain versions and
    ``scaled_dot_product_attention``.
-5. Trains bf16 GPT-2 small (12 layers, D 768, B 16, T 1024, dropout 0,
-   Adam at lr 1e-4) through ``TrainStep``: 1 warm-up step, then 10 timed
-   steps on one fixed batch, each with 12 K1 and 12 K2 launches; 3 more
-   steps under ``torch.profiler`` split the device time by kernel.
+5. Trains bf16 GPT-2 small (12 layers, D 768, B 16, T 1024) through
+   ``TrainStep`` at ``GPTConfig()``'s dropout 0.1 (25 sites, masks from
+   the counter-hash stream under step t's ``KeySupply(key(t))``), Adam at
+   lr 1e-4 on a cosine schedule with linear warmup: 1 warm-up step, then
+   10 timed steps on one fixed batch, each with 12 K1 and 12 K2 launches;
+   3 more steps under ``torch.profiler`` split the device time by kernel,
+   and one more attributes the dropout sites' device time (mask and
+   scale, and their backward). Then the same at dropout 0 and a constant
+   lr 1e-4.
 6. Trains the same model in f32 at B 2 for 2 SGD steps on the card and on
-   the CPU (plain versions) from the same weights and batch, and compares
-   losses, each step's gradients leaf by leaf and the parameters after;
-   shows that a K2 with outputs 1% too large fails that gradient check; and
-   holds the bf16 model's step-1 gradients against the f32 model's.
+   the CPU (plain versions) from the same weights, batch and step keys,
+   at dropout 0.1 and at 0, and compares losses, each step's gradients
+   leaf by leaf and the parameters after; shows that a K2 with outputs 1%
+   too large, and at dropout 0.1 a key stream that hands site k the key of
+   site k + 1, fail that gradient check; requires one site's keep mask
+   (and the keep bits past 2**31, with and without the high word) to be
+   the same bits on the card and the CPU; and holds the bf16 model's
+   step-1 gradients against the f32 model's.
+7. Resumes bf16 GPT-2 small at dropout 0.1 from checkpoints on the card:
+   ``TrainStep`` with an asynchronous sharded ``CheckpointManager`` save,
+   and the eager ``Trainer`` path through the local layout; the resumed
+   steps' losses, parameters and optimizer states must be the same bits
+   as the first run's. Prints the checkpoint bytes, the training thread's
+   stall in ``save``, the background write's and the restore's seconds.
 
 Informational JSON lines come first; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -117,6 +132,9 @@ F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 LAYERS = 12
 TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 16, 1024, 10, 1e-4
+PROFILE_STEPS = 3
+# GPTConfig()'s dropout: the training headline's
+DEFAULT_DROPOUT = 0.1
 # card against CPU (f32, SGD with momentum 0.9 at SGD_LR): each step's
 # gradients leaf by leaf (relative L2) and the parameters after 2 steps
 # (max abs), about 10x the H100's readings (3.1e-6 and 1.19e-7, one ulp
@@ -1959,9 +1977,21 @@ def train_batch(args, vocab, B, T):
     return ids, labels
 
 
-def gpt2_train_config(dtype):
+def gpt2_train_config(dtype, dropout):
+    """GPT-2 small in ``dtype`` at ``dropout`` (DEFAULT_DROPOUT is
+    ``GPTConfig()``'s own)."""
     from mxnet_tpu_torch.models import GPTConfig
-    return GPTConfig(dropout=0.0, dtype=dtype)
+    return GPTConfig(dropout=dropout, dtype=dtype)
+
+
+def headline_schedule():
+    """The dropout-0.1 headline's learning rate: linear warmup from
+    TRAIN_LR / 10 over 2 updates, then cosine down to TRAIN_LR / 10 at the
+    last profiled step."""
+    from mxnet_tpu_torch.lr_scheduler import CosineScheduler
+    return CosineScheduler(max_update=1 + TRAIN_STEPS + PROFILE_STEPS, base_lr=TRAIN_LR,
+                           warmup_steps=2, warmup_begin_lr=TRAIN_LR / 10,
+                           final_lr=TRAIN_LR / 10)
 
 
 def sync(torch, device):
@@ -1969,7 +1999,47 @@ def sync(torch, device):
         torch.cuda.synchronize()
 
 
-def train_profile(torch, step, ids, labels, device, steps=3):
+def dropout_device_ms(torch, step, ids, labels):
+    """One more step under ``torch.profiler`` with host and device
+    activity, every ``npx.dropout`` call inside a ``record_function``
+    range: the device time of the kernels launched by the forward sites
+    (mask and scale) and by their backward nodes (``_DropoutBackward``),
+    in ms, or None when the profiler attributes no device time to them."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from mxnet_tpu_torch import numpy_extension as npx
+    real = npx.dropout
+
+    def ranged(*a, **k):
+        with record_function("mx_dropout"):
+            return real(*a, **k)
+    torch.cuda.synchronize()
+    npx.dropout = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(ids, labels)
+            torch.cuda.synchronize()
+    finally:
+        npx.dropout = real
+    from torch.autograd import DeviceType
+    fwd = bwd = 0.0
+    nf = nb = 0
+    # host-side ranges only: each range also shows as a device annotation
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name == "mx_dropout":
+            fwd += e.device_time_total
+            nf += 1
+        elif e.name.startswith("autograd::engine::evaluate_function: _DropoutBackward"):
+            bwd += e.device_time_total
+            nb += 1
+    if fwd + bwd <= 0:
+        return None
+    return {"sites": nf, "backward_nodes": nb, "forward_ms": fwd / 1e3,
+            "backward_ms": bwd / 1e3, "total_ms": (fwd + bwd) / 1e3}
+
+
+def train_profile(torch, step, ids, labels, device, steps=PROFILE_STEPS):
     """``steps`` training steps under ``torch.profiler`` (device activity
     only): device busy time against host wall time, and device time by
     kernel (flash_fwd, flash_bwd, GEMM, other)."""
@@ -2006,20 +2076,24 @@ def train_profile(torch, step, ids, labels, device, steps=3):
             "top_kernels_ms": [[name[:120], ms] for name, ms in top]}
 
 
-def train(torch, args, device="cuda"):
-    """The training main path: bf16 GPT-2 small through ``TrainStep``
-    (``device='cpu'`` rehearses it with the plain versions)."""
+def train(torch, args, dropout, device="cuda"):
+    """The training main path: bf16 GPT-2 small through ``TrainStep`` at
+    ``dropout`` (``device='cpu'`` rehearses it with the plain versions).
+    At dropout above 0 the rate follows ``headline_schedule()`` and the
+    profile gets a ``dropout`` entry (the sites' device time in a step)."""
     from mxnet_tpu_torch import optimizer, parallel
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.models import GPTModel
     from mxnet_tpu_torch.ops.int8_gemv import launches, reset_launches
-    cfg = gpt2_train_config(torch.bfloat16)
+    cfg = gpt2_train_config(torch.bfloat16, dropout)
     B, T = TRAIN_B, TRAIN_T
     net = GPTModel(cfg, device=device).init_weights(args.seed)
     ids, labels = train_batch(args, cfg.vocab_size, B, T)
     ids, labels = torch.from_numpy(ids).to(device), torch.from_numpy(labels).to(device)
+    sched = headline_schedule() if dropout > 0 else None
     step = parallel.TrainStep(net, SoftmaxCrossEntropyLoss(),
-                              optimizer.Adam(learning_rate=TRAIN_LR), example_inputs=[ids])
+                              optimizer.Adam(learning_rate=TRAIN_LR, lr_scheduler=sched),
+                              example_inputs=[ids])
     on_card = torch.device(device).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -2033,6 +2107,7 @@ def train(torch, args, device="cuda"):
     sync(torch, device)
     dt = time.perf_counter() - t0
     counts = launches()
+    lrs = [sched(n) for n in range(1, 2 + TRAIN_STEPS)] if sched else [TRAIN_LR]
     losses = [first] + [x.float().item() for x in losses]
     check(all(math.isfinite(x) for x in losses), f"non-finite training loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
@@ -2042,16 +2117,20 @@ def train(torch, args, device="cuda"):
     L, D, V = cfg.num_layers, cfg.hidden_size, cfg.vocab_size
     analytic = 3 * (L * (24 * B * T * D * D + 2 * B * T * T * D) + 2 * B * T * D * V)
     ms = dt / TRAIN_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
     profiled = train_profile(torch, step, ids, labels, device) if on_card else None
+    if profiled is not None and dropout > 0:
+        profiled["dropout"] = dropout_device_ms(torch, step, ids, labels) or "not measured"
     emit({"train": {"model": "gpt2-small", "dtype": "bfloat16", "B": B, "T": T,
-                    "optimizer": "adam", "lr": TRAIN_LR, "steps": TRAIN_STEPS,
+                    "dropout": dropout, "optimizer": "adam",
+                    "lr_scheduler": "cosine, linear warmup" if sched else None,
+                    "lr": lrs, "steps": TRAIN_STEPS,
                     "warmup_s": warm_s, "ms_per_step": ms,
                     "tokens_per_s": B * T * TRAIN_STEPS / dt,
                     "mfu_analytic": analytic / (dt / TRAIN_STEPS) / BF16_FLOP_PER_S,
-                    "losses": losses, "launches": counts,
-                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
-                    if on_card else None}})
-    emit({"train_profiled_window": profiled if profiled is not None else "not measured"})
+                    "losses": losses, "launches": counts, "peak_mem_gb": peak}})
+    emit({"train_profiled_window": {"rate": dropout, **profiled}
+          if profiled is not None else "not measured"})
     return counts
 
 
@@ -2070,14 +2149,15 @@ def worst(errs):
     return {"leaf": name, "rel_l2": errs[name]}
 
 
-def sgd_steps(torch, args, device, dtype, steps, B, T):
+def sgd_steps(torch, args, device, dtype, steps, B, T, dropout):
     """``steps`` f32/bf16 GPT-2-small TrainSteps with SGD (momentum 0.9)
-    from ``--seed``: (losses, gradients of each step, parameters after)."""
+    from ``--seed`` at ``dropout`` (step t's masks from key(t) on
+    ``device``): (losses, gradients of each step, parameters after)."""
     from mxnet_tpu_torch import optimizer, parallel
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.interop import params_to_numpy
     from mxnet_tpu_torch.models import GPTModel
-    cfg = gpt2_train_config(dtype)
+    cfg = gpt2_train_config(dtype, dropout)
     net = GPTModel(cfg, device=device).init_weights(args.seed)
     ids, labels = train_batch(args, cfg.vocab_size, B, T)
     step = parallel.TrainStep(net, SoftmaxCrossEntropyLoss(),
@@ -2090,19 +2170,62 @@ def sgd_steps(torch, args, device, dtype, steps, B, T):
     return losses, grads, params_to_numpy(net)
 
 
-def train_card_vs_cpu(torch, args, card="cuda"):
-    """f32 GPT-2 small at B 2: 2 TrainSteps with SGD (momentum 0.9) on the
-    card (kernels) and on the CPU (plain versions) from the same weights
-    and batch, compared on losses, each step's gradients leaf by leaf and
-    the parameters after; a K2 whose outputs are 1% too large must fail
-    the gradient check. Then the bf16 and f32 models' step-1 gradients on
-    the card, leaf by leaf. Prints the readings, then checks them."""
+def mask_bits_card_vs_cpu(torch, card, B, T, D):
+    """Keep masks drawn on the card and on the CPU: one GPT-2 site at
+    [B, T, D] under step 1's key of site 3 (a device key and a host key),
+    and ``_keep_bits_at`` over
+    positions just past 2**31 and below 2**32 with and without a random
+    high word. Returns the count of positions compared; raises on one
+    differing bit."""
+    from mxnet_tpu_torch import _prng
+    from mxnet_tpu_torch import numpy_extension as npx
+    key = _prng.fold_in(_prng.key(1), 3)
+    want = npx._cheap_keep_mask(key, (B, T, D), 0.9)
+    # the key on the card, and the host key's words as kernel scalars (TrainStep's)
+    for k in (key.to(card), key):
+        got = npx._cheap_keep_mask(k, (B, T, D), 0.9, device=card).cpu()
+        check(torch.equal(got, want), f"site keep masks differ between {card} "
+              f"(key on {k.device}) and the CPU")
+    n = want.numel()
+    g = torch.Generator().manual_seed(5)
+    for lo in (2 ** 31, 2 ** 32 - 2 ** 20):
+        idx = lo + torch.arange(2 ** 20, dtype=torch.int64)
+        hi = torch.randint(0, 2 ** 32, idx.shape, generator=g, dtype=torch.int64)
+        for h in (None, hi):
+            got = npx._keep_bits_at(key.to(card), idx.to(card), 0.9,
+                                    None if h is None else h.to(card)).cpu()
+            check(torch.equal(got, npx._keep_bits_at(key, idx, 0.9, h)),
+                  f"keep bits at {lo}+ (high word: {h is not None}) differ on {card}")
+            n += idx.numel()
+    return n
+
+
+def shifted_stream(_prng):
+    """A planted fault: ``KeySupply`` handing site k the key of site k + 1."""
+    def next_key(self):
+        k = _prng.fold_in(self.base_key, self.counter + 1)
+        self.counter += 1
+        return k
+    return next_key
+
+
+def train_card_vs_cpu(torch, args, dropout, card="cuda"):
+    """f32 GPT-2 small at B 2 and ``dropout``: 2 TrainSteps with SGD
+    (momentum 0.9) on the card (kernels) and on the CPU (plain versions)
+    from the same weights, batch and step keys, compared on losses, each
+    step's gradients leaf by leaf and the parameters after; a K2 whose
+    outputs are 1% too large must fail the gradient check, and at dropout
+    above 0 so must a key stream that hands site k the key of site k + 1,
+    and the keep masks of one site (and at positions past 2**31) must be
+    the same bits on both. Then the bf16 and f32 models' step-1 gradients
+    on the card, leaf by leaf. Prints the readings, then checks them."""
+    from mxnet_tpu_torch import _prng, _random
     from mxnet_tpu_torch.ops import attention as fa
     B, T, steps = 2, TRAIN_T, 2
-    out, runs = {}, {}
+    out, runs = {"dropout": dropout}, {}
     for dev in (card, "cpu"):
         t0 = time.perf_counter()
-        runs[dev] = sgd_steps(torch, args, dev, torch.float32, steps, B, T)
+        runs[dev] = sgd_steps(torch, args, dev, torch.float32, steps, B, T, dropout)
         out[f"{dev}_s"] = time.perf_counter() - t0
     (lc, gc, pc), (lh, gh, ph) = runs[card], runs["cpu"]
     grad_errs = [worst(leaf_errors(a, b)) for a, b in zip(gc, gh)]
@@ -2114,12 +2237,24 @@ def train_card_vs_cpu(torch, args, card="cuda"):
         return tuple(t * 1.01 for t in real(*a))
     fa.flash_backward = too_large
     try:
-        _, (fault,), _ = sgd_steps(torch, args, card, torch.float32, 1, B, T)
+        _, (fault,), _ = sgd_steps(torch, args, card, torch.float32, 1, B, T, dropout)
     finally:
         fa.flash_backward = real
     fault_err = worst(leaf_errors(fault, gh[0]))
+    stream_err = None
+    if dropout > 0:
+        real_next = _random.KeySupply.next
+        _random.KeySupply.next = shifted_stream(_prng)
+        try:
+            (ls,), (shifted,), _ = sgd_steps(torch, args, card, torch.float32, 1, B, T, dropout)
+        finally:
+            _random.KeySupply.next = real_next
+        stream_err = worst(leaf_errors(shifted, gh[0]))
+        out.update({"planted_shifted_stream_grad_rel_l2": stream_err,
+                    "planted_shifted_stream_loss": ls,
+                    "mask_positions_equal": mask_bits_card_vs_cpu(torch, card, TRAIN_B, T, 768)})
 
-    (l16,), (g16,), _ = sgd_steps(torch, args, card, torch.bfloat16, 1, B, T)
+    (l16,), (g16,), _ = sgd_steps(torch, args, card, torch.bfloat16, 1, B, T, dropout)
     bf16_err = leaf_errors(g16, gc[0])
     out.update({"B": B, "T": T, "steps": steps, "optimizer": "sgd", "lr": SGD_LR,
                 "momentum": 0.9, "losses": {card: lc, "cpu": lh},
@@ -2139,9 +2274,137 @@ def train_card_vs_cpu(torch, args, card="cuda"):
           f"card/CPU parameters after {steps} steps differ by {pdiff} > {CARD_CPU_PARAM_TOL}")
     check(fault_err["rel_l2"] > CARD_CPU_GRAD_TOL,
           f"a K2 with outputs 1% too large passes the card/CPU gradient check: {fault_err}")
+    check(stream_err is None or stream_err["rel_l2"] > CARD_CPU_GRAD_TOL,
+          f"a key stream shifted by one site passes the card/CPU gradient check: {stream_err}")
     check(abs(l16 - lc[0]) <= 2e-2 * abs(lc[0]), f"bf16/f32 step-1 losses {l16} {lc[0]}")
     check(max(bf16_err.values()) <= BF16_GRAD_TOL,
           f"bf16/f32 step-1 gradients differ: {worst(bf16_err)} > {BF16_GRAD_TOL}")
+
+
+def timed_writes(mgr):
+    """Wrap ``mgr``'s file writer (the background thread's work) to record
+    each write's seconds in the returned list."""
+    real, secs = mgr._write_snapshot, []
+
+    def write(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **k)
+        finally:
+            secs.append(time.perf_counter() - t0)
+    mgr._write_snapshot = write
+    return secs
+
+
+def dir_bytes(path):
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def resume_run(torch, mgr, run, snapshot, steps=2):
+    """Save asynchronously, run ``steps`` steps, restore, run them again:
+    (readings, first losses, second losses, state before, state after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = mgr.save(0)
+    stall = time.perf_counter() - t0
+    first = [run() for _ in range(steps)]
+    before = snapshot()
+    t0 = time.perf_counter()
+    mgr.restore()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    second = [run() for _ in range(steps)]
+    torch.cuda.synchronize()
+    return ({"stall_s": stall, "restore_s": restore_s, "bytes": None, "path": path},
+            first, second, before, snapshot())
+
+
+def checkpoint_resume(torch, args, device="cuda"):
+    """Checkpoint resume on the card, bf16 GPT-2 small at the default
+    dropout, B 16, T 1024, Adam: ``TrainStep`` runs 2 steps, saves
+    asynchronously in the sharded layout (``state_arrays``, the step count
+    in ``extra_state``), runs 2 more, restores and runs those 2 again; then
+    the eager ``Trainer`` path (masks from the global key, restored from the
+    manifest) through the local layout. Losses, parameters and optimizer
+    states must be the same bits; prints the checkpoint bytes, the stall
+    of the training thread in ``save``, the background write's seconds and
+    the restore's."""
+    import shutil
+    from mxnet_tpu_torch import _build, optimizer, parallel, random
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import GPTModel
+    root = _build.BUILD_DIR.parent / "checkpoint_resume"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = gpt2_train_config(torch.bfloat16, DEFAULT_DROPOUT)
+    B, T = TRAIN_B, TRAIN_T
+    ids, labels = train_batch(args, cfg.vocab_size, B, T)
+    ids, labels = torch.from_numpy(ids).to(device), torch.from_numpy(labels).to(device)
+    ce = SoftmaxCrossEntropyLoss()
+    out = {}
+
+    net = GPTModel(cfg, device=device).init_weights(args.seed)
+    step = parallel.TrainStep(net, ce, optimizer.Adam(learning_rate=TRAIN_LR),
+                              example_inputs=[ids])
+    mgr = CheckpointManager(str(root / "sharded"), net=net, sharded=True, blocking=False,
+                            state_arrays=step.state_arrays,
+                            write_state_arrays=step.write_state_arrays,
+                            extra_state=lambda: {"step": step._step},
+                            restore_extra=lambda e: setattr(step, "_step", e["step"]))
+    writes = timed_writes(mgr)
+    for _ in range(2):
+        step(ids, labels)
+
+    def step_state():
+        return ([p.detach().clone() for p in net.parameters()],
+                [t.clone() for t in step.state_arrays().values()])
+    read, first, second, before, after = resume_run(
+        torch, mgr, lambda: step(ids, labels), step_state)
+    read.update(bytes=dir_bytes(root / "sharded"), write_s=writes, step=step._step)
+    out["train_step_sharded"] = (read, first, second, before, after)
+    del net, step, mgr, before, after
+    torch.cuda.empty_cache()
+
+    net = GPTModel(cfg, device=device).init_weights(args.seed).train()
+    trainer = Trainer(dict(net.named_parameters()), "adam", {"learning_rate": TRAIN_LR})
+    mgr = CheckpointManager(str(root / "local"), net=net, trainer=trainer, blocking=False)
+    writes = timed_writes(mgr)
+    random.seed(args.seed)
+
+    def eager():
+        loss = ce(net(ids), labels)
+        loss.backward(torch.ones_like(loss))
+        trainer.step(B)
+        return loss.detach().mean()
+
+    def trainer_state():
+        return ([p.detach().clone() for p in net.parameters()],
+                [t.clone() for i in sorted(trainer._states) for t in trainer._states[i]])
+    for _ in range(2):
+        eager()
+    read, first, second, before, after = resume_run(torch, mgr, eager, trainer_state)
+    read.update(bytes=dir_bytes(root / "local"), write_s=writes)
+    out["trainer_local"] = (read, first, second, before, after)
+    del net, trainer, mgr
+
+    report = {}
+    for name, (read, first, second, before, after) in out.items():
+        same = (all(torch.equal(a, b) for a, b in zip(first, second)),
+                all(torch.equal(a, b) for a, b in zip(before[0], after[0])),
+                all(torch.equal(a, b) for a, b in zip(before[1], after[1])))
+        report[name] = {**read, "losses": [float(x) for x in first],
+                        "losses_again": [float(x) for x in second],
+                        "same_bits": {"losses": same[0], "parameters": same[1],
+                                      "optimizer_states": same[2]},
+                        "state_tensors": len(before[1])}
+    emit({"checkpoint_resume": {"model": "gpt2-small", "dtype": "bfloat16", "B": B, "T": T,
+                                "dropout": DEFAULT_DROPOUT, **report}})
+    shutil.rmtree(root, ignore_errors=True)
+    for name, r in report.items():
+        check(all(r["same_bits"].values()),
+              f"{name}: resume is not the same bits as the run: {r['same_bits']}")
+        check(r["write_s"] and r["bytes"] > 0, f"{name}: no checkpoint was written")
 
 
 def head_row(head):
@@ -2166,6 +2429,8 @@ def main(argv=None):
     from mxnet_tpu_torch.contrib.quantization import quantize_net
     from mxnet_tpu_torch.models import GPT2_SMALL, GPTModel
     from mxnet_tpu_torch.ops.fused_block_gemv import pack_gpt_block
+    check(GPT2_SMALL.dropout == DEFAULT_DROPOUT,
+          f"GPTConfig()'s dropout {GPT2_SMALL.dropout} != DEFAULT_DROPOUT {DEFAULT_DROPOUT}")
     torch.backends.cuda.matmul.allow_tf32 = False   # plain/library in full f32
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2219,9 +2484,14 @@ def main(argv=None):
 
     k1, k2 = kernel_flash(torch, timer, gen)
     torch.cuda.empty_cache()
-    train_counts = train(torch, args)
+    train_counts = train(torch, args, DEFAULT_DROPOUT)   # this slice's path
     torch.cuda.empty_cache()
-    train_card_vs_cpu(torch, args)
+    train(torch, args, 0.0)
+    torch.cuda.empty_cache()
+    for dropout in (DEFAULT_DROPOUT, 0.0):
+        train_card_vs_cpu(torch, args, dropout)
+    torch.cuda.empty_cache()
+    checkpoint_resume(torch, args)
 
     def routes(*phases):
         return {r: sum(c["routes"][r] for c in phases) for r in ("warp", "mma")}

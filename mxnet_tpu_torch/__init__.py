@@ -19,6 +19,11 @@ gathered into shared memory) and K7 (pages streamed by TMA bulk copies).
 Slice 4 serves GPT-2 with packed int4 weights (``quantize_net(bits=4)``,
 the ``kvstore.quant`` codec) through K4 (int4 GEMV) and the int4 weight
 lanes of K5, K6, K7 and K8.
+Slice 12 trains the default GPT-2 config (dropout 0.1, masks from the JAX
+package's counter-hash stream: ``random``, ``_random``,
+``numpy_extension.dropout``) with ``lr_scheduler``s, and keeps and resumes
+runs in the JAX package's files (``serialization``, ``gluon``'s parameter
+files, ``Trainer`` states, ``checkpoint.CheckpointManager``).
 """
 from . import base, device
 from .base import MXNetError

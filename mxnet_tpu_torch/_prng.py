@@ -88,10 +88,24 @@ def keys(seeds, device=None) -> torch.Tensor:
     return torch.stack([(s >> 32) & M32, s & M32], dim=-1)
 
 
+def _host_hash(k: torch.Tensor, x0, x1) -> torch.Tensor:
+    """threefry of host counts under host keys ``k`` [..., 2], in numpy (a
+    key's 20 rounds as torch CPU ops cost far more in dispatch)."""
+    kn = k.numpy()
+    y0, y1 = np.broadcast_arrays(*threefry2x32(kn[..., 0], kn[..., 1], x0, x1))
+    return torch.from_numpy(np.stack([y0, y1], axis=-1).astype(np.int64))
+
+
 def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     """``fold_in`` of the keys ``k`` [..., 2] with ``data`` (an int or a
-    tensor that broadcasts against the key batch)."""
-    d = _as_int64(data, k.device) & M32
+    tensor that broadcasts against the key batch). A host key folds an int
+    in numpy; a device key folds it on its device without a host copy."""
+    if isinstance(data, int):
+        if k.device.type == "cpu":
+            return _host_hash(k, np.int64(0), np.int64(data & M32))
+        d = torch.full((), data & M32, dtype=torch.int64, device=k.device)
+    else:
+        d = _as_int64(data, k.device) & M32
     y0, y1 = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(d), d)
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
 
@@ -125,7 +139,11 @@ def step_keys(seeds, counters, steps: int, out=None) -> np.ndarray:
 
 
 def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split`` of one key [2] into ``num`` keys [num, 2]."""
+    """``jax.random.split`` of one key [2] into ``num`` keys [num, 2]
+    (a host key in numpy)."""
+    if k.device.type == "cpu":
+        i = np.arange(num, dtype=np.int64)
+        return _host_hash(k.reshape(1, 2), np.zeros_like(i), i)
     i = torch.arange(num, dtype=torch.int64, device=k.device)
     y0, y1 = threefry2x32(k[0], k[1], torch.zeros_like(i), i)
     return torch.stack([y0, y1], dim=-1)

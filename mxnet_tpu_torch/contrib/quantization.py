@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..autograd import predict_mode
 from ..base import MXNetError
 from ..gluon.nn import Dense
 from ..kvstore.quant import pack_codes, quantize_blocks
@@ -284,7 +285,12 @@ def _calibrate(network, replaced, calib_data, num_calib_batches):
     """Run the calibration batches forward with every replaced layer
     observing (the unquantized layers compute, in plain PyTorch on the
     model's device); each batch is a token array or a tuple/list whose
-    first item is one."""
+    first item is one. Runs in ``autograd.predict_mode`` (no dropout)."""
+    with predict_mode():
+        _run_calibration(network, replaced, calib_data, num_calib_batches)
+
+
+def _run_calibration(network, replaced, calib_data, num_calib_batches):
     for q in replaced:
         q.begin_observe()
     dev = next(network.parameters()).device

@@ -8,8 +8,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ... import autograd
 from ... import numpy_extension as npx
-from ...base import MXNetError
 
 __all__ = ["Dense", "LayerNorm", "Embedding", "Dropout"]
 
@@ -52,21 +52,20 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Dropout at ``rate``. The identity in eval mode (``module.training``
-    false) or at rate 0. The JAX package draws its training-mode masks from
-    the per-site trace key stream (``numpy_extension.dropout``), which is
-    not ported yet, so training mode at a rate above 0 raises instead of
-    drawing other masks (ROADMAP Queue 1: the counter-hash dropout key
-    stream)."""
+    """Dropout at ``rate`` over the broadcast ``axes`` (``npx.dropout``):
+    draws its mask from the key stream when ``module.training`` is true,
+    the identity otherwise and inside :func:`autograd.predict_mode`, which
+    every inference entry point enters (a model left in training mode by
+    ``TrainStep`` still generates and serves without dropout)."""
 
-    def __init__(self, rate: float):
+    def __init__(self, rate: float, axes=()):
         super().__init__()
         self.rate = float(rate)
+        self.axes = tuple(axes)
 
     def forward(self, x):
-        if self.training and self.rate > 0.0:
-            raise MXNetError(
-                f"Dropout({self.rate}) in training mode needs the counter-hash "
-                "dropout key stream, which is not ported yet (ROADMAP Queue 1); "
-                "train at dropout 0 or call .eval()")
-        return x
+        return npx.dropout(x, p=self.rate, axes=self.axes,
+                           training=self.training and not autograd.is_predicting())
+
+    def extra_repr(self):
+        return f"p={self.rate}"

@@ -13,16 +13,52 @@ PyTorch adds to it; so ``step`` consumes the gradients (sets ``.grad`` to
 None) and the next backward writes fresh ones. A parameter with no
 gradient since the last step is stale: ``step`` raises, unless
 ``ignore_stale_grad=True`` skips it.
+
+``save_states`` / ``load_states`` write and read the JAX package's
+``.states`` file: a pickled dict ``{"states", "step", "num_update",
+"index_update_count"}`` whose ``states`` list holds, per parameter index,
+None or the tuple of that parameter's state leaves as numpy arrays, so
+either package loads the other's file. bf16 leaves are ``ml_dtypes``
+bfloat16 arrays, as the JAX package writes them; where ``ml_dtypes`` is
+missing the port writes them as raw ``[("bfloat16", "<u2")]`` records,
+which only the port reads back.
 """
 from __future__ import annotations
 
+import pickle
 from typing import Dict, Optional
+
+import numpy as np
+import torch
 
 from .. import optimizer as opt_mod
 from ..base import MXNetError
 from ..parallel.train import apply_updates
+from ..serialization import host_copies
 
 __all__ = ["Trainer"]
+
+_RAW_BF16 = np.dtype([("bfloat16", "<u2")])
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as the numpy array the JAX package pickles."""
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    bits = t.contiguous().view(torch.int16).numpy().view(np.uint16)
+    try:
+        import ml_dtypes
+    except ImportError:
+        return bits.view(_RAW_BF16)
+    return bits.view(ml_dtypes.bfloat16)
+
+
+def _leaf_from_numpy(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16" or a.dtype == _RAW_BF16:
+        u16 = np.ascontiguousarray(a).view(np.uint16)
+        return torch.from_numpy(u16.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
 class Trainer:
@@ -85,17 +121,60 @@ class Trainer:
         if not idx:
             return
         self._step_count += 1
+        opt.num_update = self._step_count
+        counts = opt._index_update_count
         ts = []
         for i in idx:
-            ts.append(opt._update_count(i))
+            counts[i] = counts.get(i, 0) + 1
+            ts.append(counts[i])
             if i not in self._states:
                 self._states[i] = opt.create_state(i, self._params[i][1])
+        lr = opt.learning_rate          # read once per step
         params = [self._params[i] for i in idx]
         states = [self._states[i] for i in idx]
         apply_updates(opt, params, states,
-                      lambda j: (opt._get_lr(idx[j]), opt._get_wd(idx[j]), ts[j]),
+                      lambda j: (opt._get_lr(idx[j], lr), opt._get_wd(idx[j]), ts[j]),
                       opt.rescale_grad)
         for j, i in enumerate(idx):
             self._states[i] = states[j]
             self._params[i][1].grad = None
-        opt.num_update = self._step_count
+
+    def _host_state_payload(self) -> dict:
+        """Host snapshot of the optimizer state, the serializable half of
+        :meth:`save_states`: taken on the caller's thread (the next step
+        updates the state in place), written by
+        :meth:`_write_states_payload`, possibly on another thread."""
+        slots = sorted(self._states)
+        leaves = [t for i in slots for t in self._states[i]]
+        host = iter(host_copies(leaves))
+        states = [None] * len(self._params)
+        for i in slots:
+            states[i] = tuple(_leaf_to_numpy(next(host)) for _ in self._states[i])
+        opt = self._optimizer
+        return {"states": states, "step": self._step_count,
+                "num_update": opt.num_update,
+                "index_update_count": dict(opt._index_update_count)}
+
+    @staticmethod
+    def _write_states_payload(fname: str, payload: dict):
+        with open(fname, "wb") as f:
+            pickle.dump(payload, f)
+
+    def save_states(self, fname: str):
+        self._write_states_payload(fname, self._host_state_payload())
+
+    def load_states(self, fname: str):
+        """Load a ``.states`` file of either package: each state leaf goes
+        to its parameter's device in the dtype it was saved in."""
+        with open(fname, "rb") as f:
+            payload = pickle.load(f)
+        states = payload["states"]
+        if len(states) != len(self._params):
+            raise MXNetError(f"{fname}: {len(states)} parameter states for "
+                             f"{len(self._params)} parameters")
+        self._states = {
+            i: tuple(_leaf_from_numpy(a, self._params[i][1].device) for a in st)
+            for i, st in enumerate(states) if st is not None}
+        self._step_count = payload["step"]
+        self._optimizer.num_update = payload["num_update"]
+        self._optimizer._index_update_count = dict(payload.get("index_update_count", {}))

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import _prng
+from ..autograd import predict_mode
 from ..base import MXNetError
 
 __all__ = ["generate", "decode_step", "decode_step_hidden",
@@ -276,7 +277,7 @@ def decode_multi_tokens(model, tokens, pos, caches, num_tokens, temps,
 def generate(model, input_ids, max_new_tokens: int,
              eos_token_id: Optional[int] = None,
              temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
-             seed: int = 0, use_cache: bool = True, multi_token: int = 1):
+             seed: int = 0, use_cache: Optional[bool] = None, multi_token: int = 1):
     """Generate ``max_new_tokens`` continuations of ``input_ids`` [B, P]
     with KV-cache decode on the model's device. ``temperature == 0`` is
     greedy; otherwise softmax sampling at the temperature, restricted to
@@ -288,16 +289,24 @@ def generate(model, input_ids, max_new_tokens: int,
     package's split chain). ``multi_token`` > 1 decodes in chunks of K
     tokens with per-row ``fold_in`` streams and, when the model carries a
     quantized tied head, the fused LM-head sampler; greedy output equals
-    ``multi_token=1``."""
+    ``multi_token=1``.
+
+    ``use_cache=False`` recomputes the full forward over the padded
+    [B, P + max_new_tokens] buffer for every token (the JAX package's
+    ``decode_nocache``) at ``multi_token=1``; None and True decode with the
+    KV cache. Generation runs in ``autograd.predict_mode``: no dropout,
+    whatever the model's mode."""
     if max_new_tokens <= 0:
         raise MXNetError("max_new_tokens must be positive")
     _validate_sampling(temperature, top_k, top_p)
     multi_token = int(multi_token)
     if multi_token < 1:
         raise MXNetError("multi_token must be >= 1")
-    if not use_cache:
-        raise MXNetError("cache-free decode is not ported (the GPT family "
-                         "always speaks the KV-cache protocol)")
+    use_cache = True if use_cache is None else bool(use_cache)
+    if multi_token > 1 and not use_cache:
+        raise MXNetError(
+            "multi_token > 1 requires KV-cache decode (the fused "
+            "whole-step path drives the cache protocol)")
     dev = model.device
     ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.int32).to(dev)
     B, P = ids.shape
@@ -308,7 +317,10 @@ def generate(model, input_ids, max_new_tokens: int,
             f"generate: prompt ({P}) + max_new_tokens ({max_new_tokens}) "
             f"= {L} exceeds the model's max_position_embeddings ({max_pos})")
     eos = -1 if eos_token_id is None else int(eos_token_id)
-    with torch.no_grad():
+    with torch.no_grad(), predict_mode():
+        if not use_cache:
+            return _generate_nocache(model, ids, max_new_tokens, eos,
+                                     temperature, int(top_k), float(top_p), seed)
         if multi_token == 1:
             return _generate_single(model, ids, max_new_tokens, eos,
                                     temperature, int(top_k), float(top_p), seed)
@@ -316,16 +328,10 @@ def generate(model, input_ids, max_new_tokens: int,
                                int(top_k), float(top_p), seed, multi_token)
 
 
-def _generate_single(model, ids, max_new_tokens, eos, temperature, top_k,
-                     top_p, seed):
-    B, P = ids.shape
-    L = P + max_new_tokens
-    dev = ids.device
-    caches = model.new_caches(B, L)
-    buf = torch.zeros(B, L, dtype=torch.int32, device=dev)
-    buf[:, :P] = ids
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    key = _prng.key(seed, dev)
+def _selector(temperature, top_k, top_p, eos, dev):
+    """generate()'s token selection at ``multi_token=1``: greedy, or one
+    ``split`` of the key per token and ``categorical`` over the filtered,
+    temperature-scaled logits; after eos a row keeps emitting eos."""
     temp = torch.tensor(temperature, dtype=torch.float32, device=dev)
 
     def select(step_logits, key, done):
@@ -344,6 +350,38 @@ def _generate_single(model, ids, max_new_tokens, eos, temperature, top_k,
             done = done | (nxt == eos)
         return nxt, key, done
 
+    return select
+
+
+def _start(ids, L, seed):
+    """(token buffer [B, L] holding the prompt, done flags, key)."""
+    B, P = ids.shape
+    buf = torch.zeros(B, L, dtype=torch.int32, device=ids.device)
+    buf[:, :P] = ids
+    return (buf, torch.zeros(B, dtype=torch.bool, device=ids.device),
+            _prng.key(seed, ids.device))
+
+
+def _generate_nocache(model, ids, max_new_tokens, eos, temperature, top_k,
+                      top_p, seed):
+    """One full forward over the padded buffer per token; the causal mask
+    keeps the zero tail from reaching position ``P + i - 1``."""
+    B, P = ids.shape
+    buf, done, key = _start(ids, P + max_new_tokens, seed)
+    select = _selector(temperature, top_k, top_p, eos, ids.device)
+    for i in range(max_new_tokens):
+        pos = P + i - 1
+        logits = model(buf)
+        buf[:, pos + 1], key, done = select(logits[:, pos], key, done)
+    return buf
+
+
+def _generate_single(model, ids, max_new_tokens, eos, temperature, top_k,
+                     top_p, seed):
+    B, P = ids.shape
+    caches = model.new_caches(B, P + max_new_tokens)
+    buf, done, key = _start(ids, P + max_new_tokens, seed)
+    select = _selector(temperature, top_k, top_p, eos, ids.device)
     logits, caches = decode_step(model, ids, 0, caches)
     buf[:, P], key, done = select(logits[:, -1], key, done)
     for i in range(max_new_tokens - 1):

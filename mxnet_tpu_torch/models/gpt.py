@@ -15,6 +15,12 @@ one K5 launch once :meth:`GPTModel.enable_fused_decode` packed it, and
 its paged counterpart :meth:`~GPTModel.forward_cached_paged` /
 :meth:`~GPTModel.forward_cached_paged_hidden` over the shared page pools
 and a block table, one K6 or K7 launch per block.
+
+Dropout (``GPTConfig.dropout``, 0.1 by default) is active in training
+mode: 25 sites for GPT-2 small, each drawing one key of the stream in the
+JAX package's order (the embedding's ``drop``, then per block the
+``attn_out`` site and the ``mlp_proj`` site). The cached entry points run
+in ``autograd.predict_mode``: they serve, and never drop.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch
 from torch import nn
 
 from .. import numpy_extension as npx
+from ..autograd import predict_mode
 from ..device import resolve
 from ..gluon.nn import Dense, Dropout, Embedding, LayerNorm
 from ..ops.attention import flash_attention
@@ -131,7 +138,8 @@ class GPTModel(nn.Module):
     :meth:`init_weights` or load them (``interop.params_from_numpy``).
     Parameters are trainable. The model starts in eval mode, as the JAX
     package's train mode is off outside ``autograd.record`` and
-    ``TrainStep``; ``TrainStep`` and ``.train()`` switch it on."""
+    ``TrainStep``; ``TrainStep`` and ``.train()`` switch it on, and with
+    it dropout."""
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
@@ -216,6 +224,7 @@ class GPTModel(nn.Module):
         return (self._lm_head(hidden), *pools)
 
     @torch.no_grad()
+    @predict_mode()
     def forward_cached_paged_hidden(self, input_ids, pos, block_table, *pools):
         """Paged variant of :meth:`forward_cached_hidden`: the per-layer
         page pools (written in place) and the [B, max_pages] block table
@@ -241,6 +250,7 @@ class GPTModel(nn.Module):
         return (self.ln_f(x), *new_pools)
 
     @torch.no_grad()
+    @predict_mode()
     def forward_cached_hidden(self, input_ids, pos, *caches):
         """Incremental forward returning the final hidden state [B, T, D]
         (the fused LM-head sampler folds the head into token selection).

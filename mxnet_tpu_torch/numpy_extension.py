@@ -4,10 +4,15 @@ sequence as the JAX functions so that the plain path stays close to them."""
 from __future__ import annotations
 
 import math
+from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["layer_norm", "gelu", "log_softmax", "pick", "softmax_cross_entropy"]
+from . import _random
+from ._prng import M32
+
+__all__ = ["layer_norm", "gelu", "log_softmax", "pick", "softmax_cross_entropy",
+           "dropout"]
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
@@ -86,3 +91,102 @@ def softmax_cross_entropy(pred, label):
     dtype. An XLA composite in the JAX package (no Pallas kernel), plain
     PyTorch here."""
     return _FusedCE.apply(pred, label)
+
+
+# ----------------------------------------------------------------- dropout
+
+def _mul32(x, c: int):
+    """``x * c`` modulo 2**32 on int64 holding uint32 values, in place."""
+    return x.mul_(c).bitwise_and_(M32)
+
+
+def _keep_bits_at(key, idx, keep_prob: float, idx_hi=None):
+    """Keep bit of each position in ``idx`` (an int64 tensor of values in
+    [0, 2**32)): the JAX package's murmur3-finalizer mix of the index
+    under the key's two words, with ``idx_hi`` the optional high word of
+    positions past 2**32. uint32 arithmetic as int64 masked to 32 bits
+    after every multiply and add; shifts act on masked values, so they are
+    logical. Runs on ``idx``'s device: a host key's words go to the
+    kernels as scalars, a device key's stay on the device (no copy, no
+    sync either way)."""
+    if key.device.type == "cpu":
+        kd = [int(w) for w in key.reshape(-1).tolist()]
+    else:
+        kd = key.to(device=idx.device, dtype=torch.int64).reshape(-1)
+    k0, k1 = kd[0], kd[-1]
+    lo = idx.to(torch.int64)
+    if idx_hi is not None:
+        h = _mul32(idx_hi.to(torch.int64) ^ k0, 0x85EBCA6B)
+        h ^= h >> 15
+        lo = lo ^ h
+    x = _mul32(lo ^ k1, 0x9E3779B9).add_(k0).bitwise_and_(M32)
+    x ^= x >> 16
+    x = _mul32(x, 0x85EBCA6B)
+    x ^= x >> 13
+    x = _mul32(x, 0xC2B2AE35)
+    x ^= x >> 16
+    thresh = min(int(keep_prob * 4294967296.0), 4294967295)
+    return x < thresh
+
+
+def _cheap_keep_mask(key, shape: Sequence[int], keep_prob: float, device=None):
+    """Bool keep mask over ``shape``, position i of the flat shape keyed by
+    :func:`_keep_bits_at`; an empty shape keeps all. Built on ``device``
+    (default: the key's); the int64 intermediates live only inside this
+    call."""
+    shape = tuple(int(d) for d in shape)
+    dev = key.device if device is None else torch.device(device)
+    n = math.prod(shape)
+    if n == 0:
+        return torch.ones(shape, dtype=torch.bool, device=dev)
+    i = torch.arange(n, dtype=torch.int64, device=dev)
+    return _keep_bits_at(key, i, keep_prob).reshape(shape)
+
+
+def _dtype_scalar(c: float, dtype, device):
+    """``c`` rounded to ``dtype`` as JAX rounds a weak-typed Python scalar
+    (bf16 x divides by bf16(0.9) = 0.8984375), as a 0-d tensor on
+    ``device``: CUDA divides by a host scalar as a product with its
+    reciprocal, which is not the division's bits."""
+    return torch.full((), c, dtype=dtype, device=device)
+
+
+class _Dropout(torch.autograd.Function):
+    """``where(keep, x / c, 0)`` with c = 1 - p in x's dtype; the backward
+    is ``where(keep, g / c, 0)`` in g's dtype. Only the bool mask is kept
+    for the backward."""
+
+    @staticmethod
+    def forward(ctx, x, keep, c: float):
+        ctx.save_for_backward(keep)
+        ctx.c = c
+        return torch.where(keep, x / _dtype_scalar(c, x.dtype, x.device),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+    @staticmethod
+    def backward(ctx, g):
+        (keep,) = ctx.saved_tensors
+        return (torch.where(keep, g / _dtype_scalar(ctx.c, g.dtype, g.device),
+                            torch.zeros((), dtype=g.dtype, device=g.device)),
+                None, None)
+
+
+def dropout(data, p: float = 0.5, mode: str = "training", axes=None,
+            training: Optional[bool] = None):
+    """Dropout at rate ``p`` (``npx.dropout``). Active when ``training`` is
+    true or ``mode == 'always'``; ``training=None`` is inference (the port
+    has no recording scope: ``gluon.nn.Dropout`` passes its module's mode).
+    Consumes one key of the stream (:func:`_random.next_key`) when active
+    and ``p > 0``, none otherwise. ``axes`` are broadcast axes: the mask
+    has size 1 along each, so one mask is shared across it. The mask is
+    computed on ``data``'s device, the same bits on the CPU and the card."""
+    if not training and mode != "always":
+        return data
+    if p <= 0.0:
+        return data
+    key = _random.next_key()
+    shape = list(data.shape)
+    for ax in axes or ():
+        shape[ax] = 1
+    keep = _cheap_keep_mask(key, shape, 1.0 - p, device=data.device)
+    return _Dropout.apply(data, keep, 1.0 - p)

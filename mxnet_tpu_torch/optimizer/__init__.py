@@ -50,15 +50,21 @@ def _f32_power(base: float, t: int) -> float:
 class Optimizer:
     """Base optimizer: learning rate, weight decay, ``rescale_grad``,
     ``clip_gradient``, per-index or per-name lr/wd multipliers and
-    per-index update counts (Adam's bias-correction clock). Learning-rate
-    schedulers are not ported yet."""
+    per-index update counts (Adam's bias-correction clock). With an
+    ``lr_scheduler`` (``lr_scheduler.py``) the rate is
+    ``lr_scheduler(num_update)``, and setting it sets the scheduler's
+    ``base_lr``."""
 
     def __init__(self, learning_rate: float = 0.01, wd: float = 0.0,
-                 rescale_grad: float = 1.0, clip_gradient: Optional[float] = None):
+                 rescale_grad: float = 1.0, clip_gradient: Optional[float] = None,
+                 lr_scheduler=None):
         self.lr = learning_rate
         self.wd = wd
         self.rescale_grad = rescale_grad
         self.clip_gradient = clip_gradient
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None and learning_rate is not None:
+            self.lr_scheduler.base_lr = learning_rate
         self.num_update = 0
         self._index_update_count: Dict[int, int] = {}
         self.idx2name: Dict[int, str] = {}
@@ -67,11 +73,15 @@ class Optimizer:
 
     @property
     def learning_rate(self) -> float:
+        if self.lr_scheduler is not None:
+            return float(self.lr_scheduler(self.num_update))
         return self.lr
 
     @learning_rate.setter
     def learning_rate(self, lr):
         self.lr = lr
+        if self.lr_scheduler is not None:
+            self.lr_scheduler.base_lr = lr
 
     def set_learning_rate(self, lr):
         self.learning_rate = lr
@@ -86,17 +96,13 @@ class Optimizer:
     def _mult(table, name, index) -> float:
         return table.get(index, table.get(name, 1.0))
 
-    def _get_lr(self, index) -> float:
-        return self.learning_rate * self._mult(self.lr_mult, self.idx2name.get(index), index)
+    def _get_lr(self, index, lr: float) -> float:
+        """Parameter ``index``'s rate: ``lr``, the step's rate (read once
+        per step from :attr:`learning_rate`), times its multiplier."""
+        return lr * self._mult(self.lr_mult, self.idx2name.get(index), index)
 
     def _get_wd(self, index) -> float:
         return self.wd * self._mult(self.wd_mult, self.idx2name.get(index), index)
-
-    def _update_count(self, index) -> int:
-        count = self._index_update_count.get(index, 0) + 1
-        self._index_update_count[index] = count
-        self.num_update = max(count, self.num_update)
-        return count
 
     def create_state(self, index, weight):
         """Per-parameter state: a tuple of tensors in the weight's dtype."""

@@ -8,6 +8,11 @@ attention), then the optimizer's pure ``update_step`` on every trainable
 parameter, written back in place under ``torch.no_grad()``. The loss is
 ``mean(loss_fn(net(*inputs), *labels))``; the step counter ``t`` starts at
 1 and the learning rate is read once per step, as in the JAX package.
+Step ``t``'s dropout masks draw from ``KeySupply(key(t))`` (site k gets
+``fold_in(key(t), k)``), the JAX package's per-step seed, so a model at
+the default dropout trains on the JAX package's masks. The keys are hashed
+on the host and reach the mask kernels as scalars; a captured step would
+take a device base key, which ``KeySupply`` folds on the device.
 
     step = parallel.TrainStep(net, SoftmaxCrossEntropyLoss(),
                               optimizer.Adam(learning_rate=1e-4),
@@ -26,7 +31,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import _prng
 from .. import optimizer as opt_mod
+from .._random import KeySupply
 from ..base import MXNetError
 
 __all__ = ["TrainStep"]
@@ -102,16 +109,34 @@ class TrainStep:
 
     def _one(self, inputs, labels):
         self._step += 1
-        self.optimizer.num_update = self._step
+        opt = self.optimizer
+        opt.num_update = self._step
         t = self._step
+        lr = opt.learning_rate          # read once per step
         for _, p in self._params:
             p.grad = None
-        loss = self._loss(inputs, labels)
+        with KeySupply(_prng.key(t)):
+            loss = self._loss(inputs, labels)
         loss.backward()
-        opt = self.optimizer
         apply_updates(opt, self._params, self._states,
-                      lambda i: (opt._get_lr(i), opt._get_wd(i), t), opt.rescale_grad)
+                      lambda i: (opt._get_lr(i, lr), opt._get_wd(i), t), opt.rescale_grad)
         return loss.detach()
+
+    def state_arrays(self):
+        """Flat name -> tensor view of the optimizer state, ``opt{slot}.{i}``
+        for leaf i of parameter slot ``slot``, as the JAX package names
+        them (sharded checkpoints, ``checkpoint.CheckpointManager``). The
+        tensors are the live state."""
+        return {f"opt{slot}.{i}": leaf
+                for slot, st in enumerate(self._states) for i, leaf in enumerate(st)}
+
+    @torch.no_grad()
+    def write_state_arrays(self, arrays):
+        """Inverse of :meth:`state_arrays`: copies loaded values into the
+        live state tensors (same structure required)."""
+        for slot, st in enumerate(self._states):
+            for i, leaf in enumerate(st):
+                leaf.copy_(torch.as_tensor(arrays[f"opt{slot}.{i}"]))
 
     def __call__(self, inputs, labels=None):
         """One step: updates the parameters and optimizer state in place and

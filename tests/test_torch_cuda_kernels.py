@@ -1142,3 +1142,36 @@ def test_failed_capture_raises(cuda, monkeypatch):
         eng._get_step(2, 1, "fused")
     assert (2, 1, "fused") not in eng._steps
     torch.cuda.synchronize()
+
+
+def test_dropout_on_card_equals_cpu(cuda):
+    """Dropout draws its keep mask on the card, the CPU's bits: a
+    ``KeySupply`` over a device key, bf16 and f32 forwards and backwards
+    bit for bit, and a small GPT's training steps at dropout 0.1 through
+    ``TrainStep`` with the same losses on both devices to 1e-4 relative
+    (the file chip_smoke.py's card/CPU loss gate)."""
+    from mxnet_tpu_torch import _prng, _random, optimizer, parallel
+    from mxnet_tpu_torch import numpy_extension as npx
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    x = torch.randn(4, 300, 96, generator=torch.Generator().manual_seed(0))
+    for dtype in (torch.float32, torch.bfloat16):
+        outs = []
+        for dev in ("cuda", "cpu"):
+            t = x.to(dev, dtype, copy=True).requires_grad_(True)
+            with _random.KeySupply(_prng.key(7, dev)):
+                k = _random.next_key()
+                assert k.device.type == dev
+                y = npx.dropout(t, 0.1, axes=(1,), training=True)
+            y.backward(torch.ones_like(y))
+            outs.append((y.detach().cpu(), t.grad.cpu()))
+        assert all(torch.equal(a, b) for a, b in zip(*outs))
+    cfg = GPTConfig(vocab_size=1000, hidden_size=256, num_layers=2, num_heads=4,
+                    max_position_embeddings=256, dropout=0.1)
+    ids = torch.randint(0, 1000, (2, 256), generator=torch.Generator().manual_seed(1))
+    losses = []
+    for dev in ("cuda", "cpu"):
+        net = GPTModel(cfg, device=dev).init_weights(3)
+        step = parallel.TrainStep(net, SoftmaxCrossEntropyLoss(),
+                                  optimizer.SGD(learning_rate=0.1), example_inputs=[ids])
+        losses.append([float(step(ids, ids)) for _ in range(2)])
+    assert all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(*losses))

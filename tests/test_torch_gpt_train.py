@@ -261,15 +261,22 @@ def test_params_round_trip_f32_and_bf16():
 
 def test_parameters_trainable_and_dropout_rule():
     """Model parameters require grad; the model starts in eval mode; a
-    Dropout above rate 0 raises in training mode and is the identity in
-    eval mode or at rate 0."""
+    Dropout above rate 0 in training mode draws the JAX package's mask
+    from the key stream (the same output after the same seed), and is the
+    identity in eval mode or at rate 0."""
+    from mxnet_tpu import numpy_extension as jnpx
+    from mxnet_tpu_torch import random
     net = GPTModel(GPTConfig(**CFG), device="cpu")
     assert all(p.requires_grad for p in net.parameters())
     assert not net.training
     x = torch.randn(4, 8)
     drop = Dropout(0.1)
-    with pytest.raises(MXNetError, match="dropout key stream"):
-        drop.train()(x)
+    mx.random.seed(3)
+    random.seed(3)
+    with jautograd.record():
+        want = jnpx.dropout(mnp.array(x.numpy()), p=0.1).asnumpy()
+    got = drop.train()(x)
+    assert (got.numpy() == want).all() and (got == 0).any()
     assert torch.equal(drop.eval()(x), x)
     assert torch.equal(Dropout(0.0).train()(x), x)
 
