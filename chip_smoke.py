@@ -79,6 +79,18 @@
    three modes (eager dispatch, captured, captured with lookahead): ms per
    substep, tokens/s over 3 trials and the idle share of each; the
    contiguous window's tokens must be equal in all three.
+3f. ``constrained_spec``: grammar-constrained and self-speculative
+   serving of the f32 int8 model, ``bench.py``'s grammar and speculation
+   duels over GPT-2's vocab (8 structured prompts, one in flight, a paged
+   ``speculate=4`` engine): the pass-through grammar ``.*`` must give the
+   free engine's tokens with an acceptance no lower, every completion
+   under a JSON schema must replay through the automaton, ``speculate=4``
+   greedy tokens must equal ``speculate=0``'s (K6) or diverge where the
+   CPU twin's top-2 gap is below ``gap_limit``, and a contiguous grammar
+   engine's free rows (K5, K=1) must equal a plain engine's; a grammar
+   step and a verify step replay their eager runs bit for bit. Prints
+   tokens/s per sweep, ``cost_pct``, ``speedup``, acceptance, the compile
+   seconds at vocab 50257 and the idle share of a profiled sweep.
 4. Holds K1 (flash-attention forward) and K2 (its backward) against their
    plain versions, every output row to its own size, at the training
    shape, at head dim 128 and at ragged, end-aligned and padded-head-dim
@@ -888,8 +900,9 @@ def busy_us(spans):
     return busy
 
 
-def device_share(torch, eng, prompts, new, trace=None):
-    """Serve ``prompts`` (greedy) once more under ``torch.profiler`` and
+def device_share(torch, eng, prompts, new, trace=None, run=None):
+    """Serve ``prompts`` (greedy; or call ``run()``, which serves them its
+    own way and returns their results) once more under ``torch.profiler`` and
     split the window's host wall time into device kernel time per kernel
     and idle time. Returns None where the trace holds no device kernel.
     The trace must hold one span per launch of a block kernel (K5/K6/K7)
@@ -906,8 +919,11 @@ def device_share(torch, eng, prompts, new, trace=None):
     # host-bound window that is being measured
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        handles = [eng.submit(p, new) for p in prompts]
-        results = [h.result(timeout=600) for h in handles]
+        if run is None:
+            handles = [eng.submit(p, new) for p in prompts]
+            results = [h.result(timeout=600) for h in handles]
+        else:
+            results = run()
         wall = time.perf_counter() - t0
     after = eng.stats()
     counted = {k: n - counted0.get(k, 0) for k, n in launches().items()}
@@ -948,8 +964,8 @@ def warm(eng):
     seconds."""
     eng.warmup()
     st = eng.stats()
-    check(st["captures"] > 0 and st["compiled_buckets"]["decode"],
-          f"warmup captured nothing: {st['compiled_buckets']}")
+    built = st["compiled_buckets"]["decode"] or st["compiled_buckets"].get("spec")
+    check(st["captures"] > 0 and built, f"warmup captured nothing: {st['compiled_buckets']}")
     return {"captures": st["captures"], "compiled_buckets": st["compiled_buckets"],
             "last_warmup_s": st["last_warmup_s"]}
 
@@ -964,53 +980,76 @@ def no_capture_since(eng, warmed, what):
           f"captures)")
 
 
-def replay_equals_eager(torch, eng, gen, seed, sb=None, steps=None, branch=None, pb=None):
+def replay_equals_eager(torch, eng, gen, seed, sb=None, steps=None, branch=None, pb=None,
+                        verify=False):
     """A captured step replayed against its function run eagerly, from the
     same inputs and the same pool (cache) state, both on the card: a
-    decode step of bucket ``sb`` (``steps`` substeps, ``branch``), or with
-    ``pb`` the paged prefill chunk of that bucket. Inputs and the pools are
-    random (rows on distinct pages, as the page ledger leases them; half
-    the rows at T 0.8). The replay's output, the last tokens it writes
-    back into its inputs and the whole pools must equal the eager run's bit
-    for bit. Returns the compared counts."""
+    decode step of bucket ``sb`` (``steps`` substeps, ``branch``), with
+    ``pb`` the paged prefill chunk of that bucket, or with ``verify`` the
+    speculative verify step of bucket ``sb`` and ``branch``. Inputs and the
+    pools are random (rows on distinct pages, as the page ledger leases
+    them; half the rows at T 0.8); a grammar engine's tables hold a real
+    automaton and its rows random states of it. The replay's output, the
+    last tokens (and automaton states) a decode step writes back into its
+    inputs and the whole pools must equal the eager run's bit for bit.
+    Returns the compared counts."""
     import numpy as np
 
     from mxnet_tpu_torch import _prng
+    from mxnet_tpu_torch.serve.grammar import compile_grammar
     rng = np.random.RandomState(seed)
     K, vocab, paged = eng.K, eng._vocab, eng._paged
-    step = eng._get_chunk(pb) if pb else eng._get_step(sb, steps, branch)
-    io = eng._chunk_io if pb else eng._io[sb]
+    span = pb or (eng.spec if verify else K)
+    if pb:
+        step, io = eng._get_chunk(pb), eng._chunk_io
+    elif verify:
+        step, io = eng._get_spec(sb, branch), eng._spec_io[sb]
+    else:
+        step, io = eng._get_step(sb, steps, branch), eng._io[sb]
     check(step.graph is not None, "replay_equals_eager: the step was not captured")
+    if eng._grammar:
+        g = compile_grammar(r"[a-z]{1,3}(?: [a-z]{1,3}){0,3}\.", vocab)
+        eng._gcls[:], eng._gnxt[:], eng._gacc[:] = g.padded_tables(eng._gmax, eng._gmax)
+        eng._gdirty = True
+        eng._sync_gtab()
     h = io.host()
     h_rows = 1 if pb else sb
     if paged:
         ps = eng.page_size
         per_row = eng._pages.num_pages // h_rows
-        top = per_row * ps - (pb or K)
-        pos = rng.randint(0, max(1, min(top, eng.L - (pb or K))), h_rows)
+        top = per_row * ps - span
+        pos = rng.randint(0, max(1, min(top, eng.L - span)), h_rows)
         pages = rng.permutation(eng._pages.num_pages)
         h["table"][:] = eng._pages.sink
         used = 0
         for r in range(h_rows):
-            n = (int(pos[r]) + (pb or K) - 1) // ps + 1
+            n = (int(pos[r]) + span - 1) // ps + 1
             h["table"][r, :n] = pages[used:used + n]
             used += n
     else:
-        pos = rng.randint(0, eng.L - K, h_rows)
+        pos = rng.randint(0, eng.L - span, h_rows)
     if pb:
         h["ids"][:] = 0
         h["ids"][:pb] = rng.randint(0, vocab, pb)
         h["pos"][0] = pos[0]
     else:
-        h["tokens"][:] = rng.randint(0, vocab, sb)
+        h["inputs" if verify else "tokens"][:] = rng.randint(0, vocab, (sb, span) if verify
+                                                             else sb)
         h["pos"][:] = pos
         h["temps"][:] = np.where(np.arange(sb) % 2, 0.8, 0.0)
         h["topks"][:] = 40 if branch.startswith("filtered") else 0
         h["topps"][:] = 1.0
-        h["eos"][:] = -1
-        h["rem"][:] = K
-        _prng.step_keys(rng.randint(0, 2**32, sb), rng.randint(0, 1000, sb), K,
-                        out=h["keys"])
+        if eng._grammar:
+            states = rng.randint(0, g.n_states, (sb, span) if verify else sb)
+            h["gstates" if verify else "gstate"][:] = states
+            h["eos"][:] = 0
+        keys = _prng.step_keys(rng.randint(0, 2**32, sb), rng.randint(0, 1000, sb), span)
+        if verify:
+            h["keys"][:] = keys.transpose(1, 0, 2)
+        else:
+            h["eos"][:] = 0 if eng._grammar else -1
+            h["rem"][:] = K
+            h["keys"][:] = keys
     io.upload(0, io.nbytes)
     with torch.no_grad():
         for pool in eng._pools:
@@ -1018,7 +1057,7 @@ def replay_equals_eager(torch, eng, gen, seed, sb=None, steps=None, branch=None,
         pools0 = [pool.clone() for pool in eng._pools]
         inputs0 = io.dev.clone()
         out_r = step().clone()
-        last_r = None if pb else io.tokens.clone()
+        inputs_r = io.dev.clone()
         pools_r = [pool.clone() for pool in eng._pools]
         for pool, p0 in zip(eng._pools, pools0):
             pool.copy_(p0)
@@ -1026,15 +1065,18 @@ def replay_equals_eager(torch, eng, gen, seed, sb=None, steps=None, branch=None,
         out_e = step.fn()
         torch.cuda.synchronize()
         same_out = torch.equal(out_r, out_e)
-        same_last = pb is not None or torch.equal(last_r, io.tokens)
+        # a decode step writes its last tokens (and automaton states) back
+        same_last = torch.equal(inputs_r, io.dev)
         same_pools = all(torch.equal(a, b) for a, b in zip(pools_r, eng._pools))
         written = sum(int(not torch.equal(a, b)) for a, b in zip(pools_r, pools0))
-    what = f"chunk bucket {pb}" if pb else f"decode bucket {sb} ({steps} substeps, {branch})"
+    what = (f"chunk bucket {pb}" if pb else f"verify bucket {sb} ({branch})" if verify
+            else f"decode bucket {sb} ({steps} substeps, {branch})")
     check(same_out and same_last and same_pools,
-          f"{what}: replay != eager (output {same_out}, last tokens {same_last}, "
+          f"{what}: replay != eager (output {same_out}, inputs written back {same_last}, "
           f"pools {same_pools})")
     check(written == len(eng._pools), f"{what}: {written} of {len(eng._pools)} pools written")
-    return {"step": what, "pools_written": written, "equal": True}
+    return {"step": what, "pools_written": written, "equal": True,
+            "grammar": eng._grammar}
 
 
 # the engine phases' top-k / top-p requests: (temperature, top_k, top_p)
@@ -1518,6 +1560,261 @@ def serve_paged(torch, args, net, phase):
                                                   for r in rows),
         "greedy_identical_generate_mt4": all(r["generate_mt4"]["equal"] for r in rows),
         "profiled_window": profiled if profiled is not None else "not measured"}})
+    return counts
+
+
+def structured_prompts(n, vocab, seed=0, boiler_run=16, n_keys=3, max_tokens=None):
+    """Templated JSON-like prompts: runs of one boilerplate token around a
+    few key tokens with per-request values, the repetitive traffic that
+    self-speculation drafts well (a copy of ``tools/serve_loadgen.py``'s
+    ``structured_prompts``, the traffic of ``bench.py``'s speculation and
+    grammar duels)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    boiler = int(rng.randint(1, vocab - 1))
+    keys = rng.randint(1, vocab - 1, size=n_keys)
+    prompts = []
+    for _ in range(n):
+        body = []
+        for k in keys:
+            body.extend([boiler] * boiler_run)
+            body.append(int(k))
+            body.append(int(rng.randint(1, vocab - 1)))
+        if max_tokens is not None:
+            body = body[:max_tokens]
+        prompts.append(body)
+    return prompts
+
+
+# bench.py's conformance schema (bench_grammar_decode): bounded productions
+CS_SCHEMA = {"type": "object", "properties": {
+    "ok": {"type": "boolean"}, "mode": {"enum": ["fast", "safe", "off"]},
+    "n": {"enum": [0, 1, 2]}}}
+CS_EOS = 0
+CS_TRIALS = 3                  # timed trials per sweep, after one warm discard
+CS_SPEC = 4
+
+
+def cs_sweep(torch, eng, run, name):
+    """One sweep of the constrained_spec phase: a warm discard of ``run()``
+    (the engine already warmed up), then CS_TRIALS timed trials with the
+    launch counts set to 0 just before them and read just after. Each trial
+    must give the discard's tokens. Returns (results of the last trial, the
+    sweep's record)."""
+    from mxnet_tpu_torch.ops.int8_gemv import gemv_routes, launches, reset_launches
+    ref = run()
+    for i, r in enumerate(ref):
+        check(r.ok, f"constrained_spec {name}: request {i}: {r.status} {r.error}")
+    before = eng.stats()
+    reset_launches()
+    rates = []
+    for _ in range(CS_TRIALS):
+        t0 = time.perf_counter()
+        res = run()
+        wall = time.perf_counter() - t0
+        check([r.generated_ids for r in res] == [r.generated_ids for r in ref],
+              f"constrained_spec {name}: a trial gave other tokens than the warm discard")
+        rates.append(sum(len(r.generated_ids) for r in res) / wall)
+    counts = launches()
+    counts["routes"] = gemv_routes()
+    after = eng.stats()
+    check(all(counts["routes"].get(r, 0) > 0 for r in ("warp", "mma")),
+          f"constrained_spec {name}: K3 routes {counts['routes']}")
+    rec = {"tokens_per_s": {"median": statistics.median(rates), "min": min(rates),
+                            "max": max(rates)},
+           "decode_dispatches": after["decode_dispatches"] - before["decode_dispatches"],
+           "decode_tokens": after["decode_tokens"] - before["decode_tokens"],
+           "launches": counts}
+    if "spec" in after:
+        rec["spec"] = after["spec"]
+        rec["rounds"] = after["spec"]["rounds"] - before["spec"]["rounds"]
+    return res, rec
+
+
+def constrained_spec(torch, args, net, cpu_net):
+    """Grammar-constrained and self-speculative serving of int8 GPT-2 small,
+    ``bench.py``'s grammar and speculation duels on GPT-2's vocab: 8
+    structured prompts, one request in flight at a time, greedy, seed 0,
+    EOS 0, through ``InferenceEngine(max_batch_size=2, max_len=128,
+    paged=True, page_size=16, speculate=4)``; each sweep after ``warmup()``,
+    a warm discard and CS_TRIALS timed trials (``cs_sweep``).
+
+    (a) free against pass-through: a speculative engine without grammar and
+        one with ``grammar=True`` serving ``grammar=".*"``, 64 new tokens:
+        the same tokens, and the constrained acceptance no lower. One sweep
+        of the constrained engine is profiled (idle share).
+    (b) conformance: ``CS_SCHEMA`` on a grammar engine, seed i per prompt:
+        every completion ends ok and replays through the automaton.
+    (c) speculation against none: ``speculate=4`` against ``speculate=0``
+        (K6), 80 new tokens on prompts cut to 40 tokens (``bench.py``'s
+        speculation duel: 128 - 80 - 8): greedy tokens equal, or at the
+        first divergence the CPU twin's top-2 gap below ``gap_limit``; then
+        2 sampled requests (T 0.8, top-k 40) on each, equality reported.
+    (d) contiguous grammar at K=1: ``InferenceEngine(max_batch_size=8,
+        max_len=512, paged=False, grammar=True)`` (K5) with 8 requests at
+        once, 4 under the schema: the 4 free rows equal a plain K=1
+        contiguous engine's tokens, the 4 constrained ones replay.
+
+    In every sweep nothing is captured after ``warmup()`` and K3 launches on
+    both routes. Returns the launch counts of the sweeps by name."""
+    from mxnet_tpu_torch.serve import InferenceEngine, compile_grammar
+    from mxnet_tpu_torch.serve.grammar import clear_grammar_cache
+    tag, kinds, _ = lane(torch, net)
+    vocab = net.cfg.vocab_size
+    t_phase = time.perf_counter()
+    clear_grammar_cache()
+    compile_s = {}
+    for name, src in (("dotstar", ".*"), ("schema", CS_SCHEMA)):
+        t0 = time.perf_counter()
+        g = compile_grammar(src, vocab, cache=False)
+        compile_s[name] = {"s": time.perf_counter() - t0, "states": g.n_states,
+                           "classes": g.n_classes}
+    schema = compile_grammar(CS_SCHEMA, vocab)
+    prompts = structured_prompts(8, vocab, seed=0, max_tokens=56)
+    short = structured_prompts(8, vocab, seed=0, max_tokens=128 - 80 - 8)
+    paged_kw = dict(max_batch_size=2, max_len=128, paged=True, page_size=16, fused=True)
+    out, counts = {"compile": compile_s}, {}
+
+    def one_at_a_time(eng, ps, new, **kw):
+        def run():
+            return [eng.generate(p, new, timeout=600, **{k: (v(i) if callable(v) else v)
+                                                        for k, v in kw.items()})
+                    for i, p in enumerate(ps)]
+        return run
+
+    def engine(**kw):
+        eng = InferenceEngine(net, **kw).start()
+        return eng, warm(eng)
+
+    cuda = net.device.type == "cuda"
+    gen = torch.Generator(device=net.device).manual_seed(args.seed)
+
+    # (a) free against pass-through
+    sweeps = {}
+    for name, gram in (("free", None), ("dotstar", ".*")):
+        eng, warmed = engine(speculate=CS_SPEC, grammar=gram is not None, **paged_kw)
+        try:
+            extra = {"grammar": gram} if gram else {}
+            run = one_at_a_time(eng, prompts, 64, seed=0, eos_token_id=CS_EOS, **extra)
+            res, rec = cs_sweep(torch, eng, run, f"(a) {name}")
+            if gram and cuda:
+                rec["profiled_window"] = device_share(torch, eng, prompts, 64, run=run)
+            no_capture_since(eng, warmed, f"constrained_spec (a) {name}")
+        finally:
+            eng.shutdown(drain=True, timeout=600)
+        rec["warmup"] = warmed
+        sweeps[name] = (res, rec)
+        counts["a_" + name] = rec["launches"]
+    free, cons = sweeps["free"], sweeps["dotstar"]
+    check([r.generated_ids for r in free[0]] == [r.generated_ids for r in cons[0]],
+          "constrained_spec (a): the pass-through grammar changed the tokens")
+    acc_free = free[1]["spec"]["acceptance_rate"] or 0.0
+    acc_cons = cons[1]["spec"]["acceptance_rate"] or 0.0
+    check(acc_cons + 1e-9 >= acc_free, f"constrained_spec (a): acceptance {acc_cons} < the "
+          f"free engine's {acc_free}")
+    out["a"] = {"free": free[1], "dotstar": cons[1], "identical": True,
+                "cost_pct": (1 - cons[1]["tokens_per_s"]["median"]
+                             / free[1]["tokens_per_s"]["median"]) * 100}
+
+    # (b) conformance under the schema
+    eng, warmed = engine(speculate=CS_SPEC, grammar=True, **paged_kw)
+    try:
+        run = one_at_a_time(eng, prompts, 64, seed=lambda i: i, eos_token_id=CS_EOS,
+                            grammar=schema)
+        res, rec = cs_sweep(torch, eng, run, "(b)")
+        no_capture_since(eng, warmed, "constrained_spec (b)")
+    finally:
+        eng.shutdown(drain=True, timeout=600)
+    if cuda:        # a grammar engine's verify step: replay against eager
+        rec["replay_equals_eager"] = [
+            replay_equals_eager(torch, eng, gen, args.seed + i, sb=2, branch=branch,
+                                verify=True)
+            for i, branch in enumerate(("greedy", "sampled"))]
+    bad = [i for i, r in enumerate(res)
+           if not (r.ok and schema.matches(r.generated_ids, eos_token_id=CS_EOS))]
+    check(not bad, f"constrained_spec (b): completions {bad} do not replay through the schema")
+    rec.update(warmup=warmed, conformant=len(res),
+               completion_0="".join(chr(t) for t in res[0].generated_ids[:-1]))
+    out["b"] = rec
+    counts["b"] = rec["launches"]
+
+    # (c) speculation against none
+    runs = {}
+    for name, spec in (("spec", CS_SPEC), ("base", 0)):
+        eng, warmed = engine(speculate=spec, **paged_kw)
+        try:
+            res, rec = cs_sweep(torch, eng, one_at_a_time(eng, short, 80, seed=0),
+                                f"(c) {name}")
+            sampled = [eng.generate(short[i], 80, temperature=0.8, top_k=40, seed=3000 + i,
+                                    timeout=600) for i in range(2)]
+            no_capture_since(eng, warmed, f"constrained_spec (c) {name}")
+        finally:
+            eng.shutdown(drain=True, timeout=600)
+        check(all(r.ok for r in sampled), f"constrained_spec (c) {name}: sampled requests")
+        rec["warmup"] = warmed
+        runs[name] = (res, rec, sampled)
+        counts["c_" + name] = rec["launches"]
+    check(runs["base"][1]["launches"].get(kinds["paged"], 0) > 0,
+          f"constrained_spec (c): K6 never launched in the baseline "
+          f"{runs['base'][1]['launches']}")
+    rows = []
+    for i, (a, b) in enumerate(zip(runs["spec"][0], runs["base"][0])):
+        d = first_divergence(a.generated_ids, b.generated_ids)
+        row = {"request": i, "equal": d is None and len(a.generated_ids) == len(b.generated_ids),
+               "first_divergence": d}
+        if d is not None:
+            row["top2_gap"], top = top2_gap(torch, cpu_net,
+                                            short[i] + b.generated_ids[:d])
+            row["gap_limit"] = gap_limit(torch, cpu_net, top)
+            check(row["top2_gap"] < row["gap_limit"],
+                  f"constrained_spec (c): request {i}: speculative and non-speculative "
+                  f"greedy tokens diverge at {d} with top-2 gap {row['top2_gap']}")
+        rows.append(row)
+    out["c"] = {"spec": runs["spec"][1], "base": runs["base"][1], "greedy": rows,
+                "identical": sum(r["equal"] for r in rows),
+                "speedup": runs["spec"][1]["tokens_per_s"]["median"]
+                / runs["base"][1]["tokens_per_s"]["median"],
+                "sampled_equal": [a.generated_ids == b.generated_ids
+                                  for a, b in zip(runs["spec"][2], runs["base"][2])]}
+
+    # (d) contiguous grammar at K=1 against the plain K=1 engine
+    toks = {}
+    for name, gram in (("grammar", True), ("plain", False)):
+        eng, warmed = engine(max_batch_size=8, max_len=512, paged=False, fused=True,
+                             grammar=gram)
+
+        def run(eng=eng, gram=gram):
+            hs = [eng.submit(p, 64, seed=i, eos_token_id=CS_EOS,
+                             **({"grammar": schema} if gram and i % 2 == 0 else {}))
+                  for i, p in enumerate(prompts)]
+            return [h.result(timeout=600) for h in hs]
+
+        try:
+            res, rec = cs_sweep(torch, eng, run, f"(d) {name}")
+            no_capture_since(eng, warmed, f"constrained_spec (d) {name}")
+        finally:
+            eng.shutdown(drain=True, timeout=600)
+        check(rec["launches"].get(kinds["block"], 0) > 0,
+              f"constrained_spec (d) {name}: K5 never launched {rec['launches']}")
+        rec["warmup"] = warmed
+        if cuda and gram:   # a grammar T = 1 step: replay against eager
+            rec["replay_equals_eager"] = [
+                replay_equals_eager(torch, eng, gen, args.seed + 7, sb=8, steps=1,
+                                    branch=branch) for branch in ("greedy", "sampled")]
+        toks[name] = res
+        out["d_" + name] = rec
+        counts["d_" + name] = rec["launches"]
+    for i in range(1, 8, 2):
+        check(toks["grammar"][i].generated_ids == toks["plain"][i].generated_ids,
+              f"constrained_spec (d): free request {i} on the grammar engine != the plain "
+              f"engine's (first divergence "
+              f"{first_divergence(toks['grammar'][i].generated_ids, toks['plain'][i].generated_ids)})")
+    for i in range(0, 8, 2):
+        check(schema.matches(toks["grammar"][i].generated_ids, eos_token_id=CS_EOS),
+              f"constrained_spec (d): constrained request {i} does not replay")
+    out["d"] = {"free_rows_equal_plain": 4, "constrained_rows_conformant": 4}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit({tag + "constrained_spec": out})
     return counts
 
 
@@ -2463,9 +2760,10 @@ def main(argv=None):
     emit({"sampling": sampling})
 
     serve_counts = serve(torch, args, net, cpu_net)
-    del cpu_net
     k1_counts = serve_k1(torch, args, net, serve_counts["k4"])
     paged_counts = {phase: serve_paged(torch, args, net, phase) for phase in "AB"}
+    cs_counts = constrained_spec(torch, args, net, cpu_net)
+    del cpu_net
     t_modes = time.perf_counter()
     for window in ("contiguous", "paged_B"):
         dispatch_modes(torch, args, net, window)
@@ -2496,7 +2794,11 @@ def main(argv=None):
     def routes(*phases):
         return {r: sum(c["routes"][r] for c in phases) for r in ("warp", "mma")}
 
-    r8 = routes(serve_counts, paged_counts["A"], paged_counts["B"])
+    r8 = routes(serve_counts, paged_counts["A"], paged_counts["B"], *cs_counts.values())
+
+    def cs_launches(kind):
+        return sum(c.get(kind, 0) for c in cs_counts.values())
+
     r4 = routes(int4_counts["contiguous"], int4_counts["A"], int4_counts["C"])
     emit({"gemv_routes": {"int8": r8, "int4": r4}})
 
@@ -2523,10 +2825,12 @@ def main(argv=None):
             ("int8_gemv", gemv8, "mxnet_tpu/ops/int8_gemv.py:113", r8["warp"], k3["warp"]),
             ("int8_gemv_mma", gemv8, "mxnet_tpu/ops/int8_gemv.py:113", r8["mma"], k3["mma"]),
             ("fused_block_decode", "mxnet_tpu_torch/csrc/fused_block_decode.cu",
-             "mxnet_tpu/ops/fused_block_gemv.py:424", serve_counts.get("fused_block", 0), k5),
+             "mxnet_tpu/ops/fused_block_gemv.py:424",
+             serve_counts.get("fused_block", 0) + cs_launches("fused_block"), k5),
             ("fused_block_decode_paged", "mxnet_tpu_torch/csrc/fused_block_decode_paged.cu",
              "mxnet_tpu/ops/fused_block_gemv.py:601",
-             paged_counts["A"].get("fused_block_paged", 0), k67["K6"]),
+             paged_counts["A"].get("fused_block_paged", 0) + cs_launches("fused_block_paged"),
+             k67["K6"]),
             ("fused_block_decode_paged_dma",
              "mxnet_tpu_torch/csrc/fused_block_decode_paged_dma.cu",
              "mxnet_tpu/ops/fused_block_gemv.py:810",

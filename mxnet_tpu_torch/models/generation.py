@@ -35,7 +35,8 @@ from ..autograd import predict_mode
 from ..base import MXNetError
 
 __all__ = ["generate", "decode_step", "decode_step_hidden",
-           "decode_multi_tokens", "filter_logits", "sample_tokens"]
+           "decode_multi_tokens", "filter_logits", "sample_tokens",
+           "spec_verify_tokens"]
 
 def _validate_sampling(temperature, top_k, top_p):
     if not temperature >= 0:
@@ -88,10 +89,12 @@ def _check_mask_live(mask):
             "automaton state")
 
 
-def _apply_mask(x, mask):
+def _apply_mask(x, mask, check=True):
     """``x`` with the lanes ``mask`` forbids (bool [B, V] or [V], True =
-    allowed) at -inf, after the dead-end check."""
-    _check_mask_live(mask)
+    allowed) at -inf, after the dead-end check (``check=False`` skips it:
+    the serving engine's captured steps, whose masks the host guards)."""
+    if check:
+        _check_mask_live(mask)
     mask = torch.as_tensor(mask, dtype=torch.bool, device=x.device)
     return torch.where(mask, x, torch.full((), float("-inf"), device=x.device))
 
@@ -127,7 +130,7 @@ def filter_logits(scaled, top_k, top_p, mask=None):
 
 
 def sample_tokens(logits, keys, temperature, top_k=0, top_p=1.0, mask=None,
-                  greedy=None):
+                  greedy=None, check_mask=True):
     """Next token per row of [B, V] logits with per-row parameters: rows at
     ``temperature == 0`` take the argmax (lowest index on ties), the rest
     draw ``random.categorical`` with their own key from the temperature-
@@ -138,10 +141,13 @@ def sample_tokens(logits, keys, temperature, top_k=0, top_p=1.0, mask=None,
     scaling and filtering. ``greedy`` (a bool) says whether every row is at
     ``temperature == 0``, as the caller knows it on the host; None reads it
     from ``temperature``, which syncs with a device tensor (a CUDA-graph
-    capture cannot). Returns [B] int32."""
+    capture cannot). ``check_mask=False`` skips the read-back of the mask's
+    rows that raises on a row with no allowed token; the serving engine's
+    steps pass it, as the JAX package skips the check for a traced mask.
+    Returns [B] int32."""
     logits = logits.float()
     if mask is not None:
-        logits = _apply_mask(logits, mask)
+        logits = _apply_mask(logits, mask, check_mask)
     t = _rows(temperature, torch.float32, logits.device)
     best = torch.argmax(logits, dim=-1)
     if greedy is None:
@@ -154,6 +160,55 @@ def sample_tokens(logits, keys, temperature, top_k=0, top_p=1.0, mask=None,
     filt = filter_logits(scaled, top_k, top_p)
     sampled = _prng.categorical(torch.as_tensor(keys).to(logits.device), filt)
     return torch.where(t.reshape(-1) > 0, sampled, best).to(torch.int32)
+
+
+def spec_verify_tokens(logits, inputs, temps, topks, topps, seeds=None,
+                       counters=None, masks=None, keys=None, greedy=None,
+                       check_mask=True):
+    """Exact self-speculative verification of one drafted batch
+    (``mxnet_tpu/models/generation.py:spec_verify_tokens``).
+
+    ``logits`` [B, T, V] is the verify forward's output over ``inputs`` [B,
+    T] = ``[t0, d_1, ..., d_{T-1}]`` (the current token, then T-1 drafts).
+    Column j is selected by ``sample_tokens`` with the key
+    ``fold_in(key(seed), counter + j)``, the one the non-speculative path
+    uses at that position, so ``toks[:, j]`` is that path's token, greedy or
+    sampled, and acceptance is equality with the draft: ``acc = 1 +`` the
+    run of leading matches. The T selections are one flattened [B*T, V]
+    ``sample_tokens`` call; every op of it is row-wise.
+
+    ``temps`` / ``topks`` / ``topps`` are per-row [B]; ``seeds`` and
+    ``counters`` [B] give the keys, or ``keys`` gives them ready ([B, T, 2]
+    or [B*T, 2] key data, row-major in (b, j)). ``masks`` (bool [B, T, V])
+    constrains column j with ``masks[:, j]``. A caller that owns device
+    buffers (the engine's captured verify) passes ``keys``, ``greedy`` (every
+    row at T 0, known on the host) and ``check_mask=False``: the call then
+    neither syncs nor copies from the host.
+
+    Returns ``(toks [B, T] int32, acc [B] int32)``: ``toks[b, :acc[b]]`` are
+    the row's tokens this round, the accepted drafts and one correction or
+    bonus token."""
+    B, T, V = logits.shape
+    dev = logits.device
+
+    def per_position(x, dtype):
+        return _per_row(x, dtype, B, dev)[:, None].expand(B, T).reshape(B * T)
+
+    if keys is None and greedy is not True:
+        keys = _prng.step_keys(seeds, counters, T).transpose(1, 0, 2)
+    if keys is not None:
+        keys = torch.as_tensor(keys).to(dev).reshape(B * T, 2)
+    toks = sample_tokens(logits.reshape(B * T, V), keys,
+                         per_position(temps, torch.float32),
+                         per_position(topks, torch.int64),
+                         per_position(topps, torch.float32),
+                         mask=None if masks is None else masks.reshape(B * T, V),
+                         greedy=greedy, check_mask=check_mask).reshape(B, T)
+    if T == 1:
+        return toks, torch.ones(B, dtype=torch.int32, device=dev)
+    match = toks[:, :-1] == torch.as_tensor(inputs).to(dev)[:, 1:]
+    lead = torch.cumprod(match.to(torch.int32), dim=1)
+    return toks, (1 + lead.sum(dim=1)).to(torch.int32)
 
 
 def decode_step(model, tokens, pos, caches, block_table=None):

@@ -79,9 +79,38 @@ stream (the TPU kernel's; the JAX package's CPU path draws
 on the CPU by design), and a batch with any top-k/top-p row on
 ``sample_tokens``, as the JAX engine draws it.
 
-Speculation, grammar masks, live weight swaps, page migration, HTTP,
-metrics and tuned configs are later slices: the constructor raises on
-``speculate`` and ``grammar``.
+- **Grammar-constrained decoding** (``grammar=True``): ``submit(...,
+  grammar=)`` takes a regex, a JSON-schema dict or a compiled
+  :class:`~mxnet_tpu_torch.serve.grammar.TokenGrammar` and every token of
+  the request is drawn under the automaton's mask (serve/grammar.py). The
+  per-slot tables (``cls`` [S, V], ``nxt`` [S, G, G], ``accept`` [S, G],
+  G = :data:`~mxnet_tpu_torch.serve.grammar.GRAMMAR_MAX_STATES`) are one
+  device buffer that every step reads, uploaded only when a slot's
+  grammar changed; unconstrained slots carry identity tables, so
+  constrained and free requests share a batch. The host's automaton
+  ledger is authoritative; a decode step also advances the state on the
+  device and writes it back into its inputs, so a lookahead dispatch reads
+  the next state without a host trip. Token 0 is drawn under the mask of
+  state 0, or of the state a resumed request's tokens lead to. Exclusive
+  with ``multi_token > 1``, as in the JAX engine.
+- **Self-speculative decoding** (``speculate=K``): decode proceeds in
+  draft-verify rounds. K - 1 tokens are drafted from each request's own
+  history (serve/speculate.py, n-gram lookup, no draft model); one
+  captured verify step per batch bucket and sampling branch runs the
+  [sb, K] inputs at positions ``pos..pos+K-1`` and selects every column
+  with the key the non-speculative path uses there
+  (``generation.spec_verify_tokens``), so acceptance is equality and the
+  output is that of ``speculate=0``: token for token on the CPU, where
+  both paths take the plain versions. On the card a verify runs the
+  unfused layers (K3 and the plain cached attention) where ``speculate=0``
+  runs the block kernels, so a near-tie can flip a greedy token (the
+  README states the contract). Under a grammar the drafts are rewritten
+  legal (``speculate.constrain_draft``) and each column takes the mask of
+  its state. Rounds are synchronous (no lookahead); the clocks advance per
+  token appended at the read. Exclusive with ``multi_token > 1``.
+
+Live weight swaps, page migration, HTTP, metrics and tuned configs are
+later slices.
 """
 from __future__ import annotations
 
@@ -100,6 +129,8 @@ from .. import _prng
 from ..base import MXNetError
 from ..models import generation as _gen
 from ..ops.int8_gemv import record_graph
+from . import grammar as _grammar
+from . import speculate as _spec
 from .bucketing import bucket_for, bucket_ladder
 from .paging import OutOfPages, PagePool, pages_for
 
@@ -113,6 +144,10 @@ STATUS_TIMEOUT = "timeout"
 STATUS_CANCELLED = "cancelled"
 STATUS_SHUTDOWN = "shutdown"
 STATUS_ERROR = "error"
+
+#: n-gram window of the prompt-lookup draft source (the JAX knob
+#: ``serve_spec_lookup``'s default)
+SPEC_LOOKUP = 4
 
 
 class QueueFullError(MXNetError):
@@ -165,6 +200,8 @@ class RequestHandle:
         self._cancelled = False
         # tokens generated before a preemption; the resume re-prefills them
         self._resume: Optional[List[int]] = None
+        #: the compiled grammar constraining this request (None: free)
+        self.grammar: Optional[_grammar.TokenGrammar] = None
 
     def done(self) -> bool:
         return self._event.is_set()
@@ -327,6 +364,14 @@ class InferenceEngine:
         contiguous layout's bytes); the pools carry one more, the sink
     prefix_cache : publish prompts and map shared prefixes
     prefill_chunk : tokens per prefill chunk (default ``page_size``)
+    speculate : verify width K of self-speculative decoding (0 = off, else
+        >= 2 and < ``max_len``; module docstring); prompt + new tokens +
+        (K - 1) must fit ``max_len``
+    spec_draft : drafts proposed per round (0, the default: ``speculate -
+        1``); the rest of the row repeats the current token
+    spec_lookup : longest n-gram the draft source matches
+        (:data:`SPEC_LOOKUP`)
+    grammar : serve grammar-constrained requests (module docstring)
 
     Diagnostic: ``engine._eager = True``, set before :meth:`start` and
     :meth:`warmup`, makes the card run every step's function eagerly
@@ -341,19 +386,38 @@ class InferenceEngine:
                  fused: Optional[bool] = None, paged: Optional[bool] = None,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  prefix_cache: bool = True, prefill_chunk: Optional[int] = None,
-                 speculate: int = 0, grammar: bool = False):
-        if speculate:
-            raise MXNetError("speculate: self-speculative decoding is a later "
-                             "slice of the port")
-        if grammar:
-            raise MXNetError("grammar=True: grammar-constrained decoding is a "
-                             "later slice of the port")
+                 speculate: int = 0, spec_draft: int = 0,
+                 spec_lookup: int = SPEC_LOOKUP, grammar: bool = False):
         if max_batch_size < 1:
             raise MXNetError("max_batch_size must be >= 1")
         if max_len < 2:
             raise MXNetError("max_len must be >= 2")
         if multi_token < 1 or multi_token >= max_len:
             raise MXNetError("multi_token must be in [1, max_len)")
+        if speculate < 0 or speculate == 1:
+            raise MXNetError("speculate must be 0 (off) or >= 2 (the verify "
+                             "width: current token + drafts)")
+        if speculate >= max_len:
+            raise MXNetError("speculate must be < max_len")
+        if speculate and multi_token > 1:
+            raise MXNetError(
+                "speculate and multi_token > 1 are mutually exclusive: both "
+                "own the decode dispatch (the verify step IS a multi-token "
+                "dispatch — up to K tokens per round-trip)")
+        if spec_draft < 0:
+            raise MXNetError("spec_draft must be >= 0 (0 = full width)")
+        if spec_lookup < 1:
+            raise MXNetError("spec_lookup must be >= 1")
+        if grammar and getattr(model.cfg, "vocab_size", None) is None:
+            raise MXNetError(
+                "grammar=True requires a model config with vocab_size (the "
+                "token-mask automaton is built over the vocabulary)")
+        if grammar and multi_token > 1:
+            raise MXNetError(
+                "grammar=True and multi_token > 1 are mutually exclusive: the "
+                "on-device multi-token loop cannot advance the automaton "
+                "between substeps — use speculate=K for multi-token grammar "
+                "decoding (the verify masks every draft position)")
         if bucket_growth < 2:
             raise MXNetError("bucket_growth must be >= 2")
         if min_prompt_bucket < 1 or min_prompt_bucket & (min_prompt_bucket - 1):
@@ -374,6 +438,15 @@ class InferenceEngine:
         self.S = int(max_batch_size)
         self.L = int(max_len)
         self.K = int(multi_token)
+        # speculation: the verify width (0 = off), drafts per round, n-gram
+        # window; _adv = cache rows a dispatch may write past a row's
+        # position (the admission headroom and the page-lease horizon)
+        self.spec = int(speculate)
+        self._n_draft = (min(int(spec_draft) or self.spec - 1, self.spec - 1)
+                         if self.spec else 0)
+        self._spec_lookup = int(spec_lookup)
+        self._adv = max(self.K, self.spec or 1)
+        self._grammar = bool(grammar)
         self.max_queue_depth = int(max_queue_depth)
         self.min_prompt_bucket = min(int(min_prompt_bucket), self.L)
         self._growth = int(bucket_growth)
@@ -413,6 +486,22 @@ class InferenceEngine:
         self._counters = np.zeros(self.S, np.int64)
         self._eos = np.full(self.S, -1, np.int64)
         self._remaining = np.zeros(self.S, np.int64)
+        if self._grammar:
+            # per-slot automaton tables on the host (identity rows for free
+            # slots) and their device copy, which every step reads; the
+            # copy is uploaded only when a slot's grammar changed (_gdirty)
+            G = self._gmax = _grammar.GRAMMAR_MAX_STATES
+            icls, inxt, iacc = _grammar.identity_tables(self._vocab, G, G)
+            self._gcls = np.tile(icls[None], (self.S, 1))
+            self._gnxt = np.tile(inxt[None], (self.S, 1, 1))
+            self._gacc = np.tile(iacc[None], (self.S, 1))
+            self._gstate = np.zeros(self.S, np.int32)
+            self._gram: List[Optional[_grammar.TokenGrammar]] = [None] * self.S
+            self._gtab = _Buffers(self.device, [
+                ("gcls", (self.S, self._vocab), torch.int32),
+                ("gnxt", (self.S, G, G), torch.int32),
+                ("gacc", (self.S, G), torch.bool)])
+            self._gdirty = True
 
         self._queue: "deque[RequestHandle]" = deque()
         self._lock = threading.Lock()
@@ -433,6 +522,9 @@ class InferenceEngine:
         self._substeps = 0
         self._decode_s = 0.0
         self._decode_tokens = 0
+        self._spec_rounds = 0
+        self._spec_drafted = 0
+        self._spec_accepted = 0
 
         # lookahead, and the steps (captured graphs on the card) per bucket
         self._lookahead = bool(lookahead)
@@ -440,15 +532,19 @@ class InferenceEngine:
         self._eager = False
         self._tick_lock = threading.Lock()
         self._steps: Dict[Tuple[int, int, str], _Step] = {}
+        self._spec_steps: Dict[Tuple[int, str], _Step] = {}
         self._chunks: Dict[int, _Step] = {}
         self._io: Dict[int, _Buffers] = {}
+        self._spec_io: Dict[int, _Buffers] = {}
         self._chunk_io: Optional[_Buffers] = None
         self._captures = 0
         self._graph_pool = None
         self._cap_stream = None
         self.last_warmup_s: Optional[float] = None
         cuda = self.device.type == "cuda"
-        self._out_host = [torch.zeros(self.S, self.K, dtype=torch.int32, pin_memory=cuda)
+        # a verify round's [sb, spec] tokens and [sb] acceptance, read at once
+        width = self.spec + 1 if self.spec else self.K
+        self._out_host = [torch.zeros(self.S, width, dtype=torch.int32, pin_memory=cuda)
                           for _ in range(2)]
         self._out_events = [torch.cuda.Event() if cuda else None for _ in range(2)]
         self._out_i = 1
@@ -495,9 +591,11 @@ class InferenceEngine:
         """Build every kernel (on the card) and every step of the bucket
         ladder, so that serving captures nothing: a decode step per batch
         bucket ``bucket_ladder(1, S)``, substep count 1..K and sampling
-        branch (:meth:`_branches`), and in the paged layout a prefill chunk
-        at the full chunk size and at each final-chunk bucket
-        ``bucket_ladder(min_prompt_bucket, prefill_chunk)``. On the card
+        branch (:meth:`_branches`), or with ``speculate`` a verify step per
+        batch bucket and branch (``"greedy"``, ``"sampled"``), and in the
+        paged layout a prefill chunk at the full chunk size and at each
+        final-chunk bucket ``bucket_ladder(min_prompt_bucket,
+        prefill_chunk)``. On the card
         each is a captured CUDA graph (JAX compiles one executable per
         bucket); elsewhere the same function, run eagerly at each call.
         Idempotent; call before taking traffic (a lookahead step in flight
@@ -506,10 +604,14 @@ class InferenceEngine:
         Building a step runs it once before capturing it (lazy setup stays
         out of the capture) on safe inputs that leave live state alone:
         paged steps and chunks write only the sink page (all-sink tables);
-        contiguous steps write positions ``max_len - K`` and on of every
-        slot, which a live row only reaches after writing them itself
-        (``prompt + max_new_tokens + K - 1 <= max_len``) and a new request's
-        prefill clears. The step's input buffers are restored afterwards."""
+        contiguous steps write positions ``max_len - K`` (verify steps
+        ``max_len - speculate``) and on of every slot, which a live row
+        only reaches after writing them itself (``prompt + max_new_tokens
+        + K - 1 <= max_len``) and a new request's prefill clears. A grammar
+        engine's tables read as identity-safe there (all-zero ``nxt``,
+        accept everywhere, EOS -1), so no safe run samples through an empty
+        mask. The step's input buffers (and the grammar tables) are
+        restored afterwards."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             from .. import _build
@@ -522,6 +624,10 @@ class InferenceEngine:
                 for pb in bucket_ladder(self.min_prompt_bucket, self._chunk, self._growth):
                     self._get_chunk(pb)
             for sb in bucket_ladder(1, self.S):
+                if self.spec:
+                    for branch in ("greedy", "sampled"):
+                        self._get_spec(sb, branch)
+                    continue
                 for steps in range(1, self.K + 1):
                     for branch in self._branches():
                         self._get_step(sb, steps, branch)
@@ -554,12 +660,17 @@ class InferenceEngine:
                 self._graph_pool = torch.cuda.graph_pool_handle()
             stream = self._cap_stream
             stream.wait_stream(torch.cuda.current_stream(dev))
+        bufs = [io, self._gtab] if self._grammar else [io]
         with torch.no_grad(), torch.cuda.stream(stream):
-            saved = io.dev.clone()
+            saved = [b.dev.clone() for b in bufs]
             safe(io)
+            if self._grammar:
+                self._gtab.dev.zero_()
+                self._gtab.gacc.fill_(True)
             with record_graph():
                 fn()
-            io.dev.copy_(saved)
+            for b, v in zip(bufs, saved):
+                b.dev.copy_(v)
             step = _Step(fn)
             if cuda and not self._eager:
                 graph = torch.cuda.CUDAGraph()
@@ -584,12 +695,16 @@ class InferenceEngine:
 
     def _step_io(self, sb: int) -> _Buffers:
         """The fixed inputs of decode bucket ``sb``, shared by its steps:
-        tokens first (a lookahead dispatch feeds them on the device and
-        uploads from ``pos`` on), keys last (uploaded only as far as the
-        dispatch's substeps need them, and only with a row at T > 0)."""
+        tokens (and a grammar engine's automaton states) first (a lookahead
+        dispatch feeds them on the device and uploads from ``pos`` on), keys
+        last (uploaded only as far as the dispatch's substeps need them,
+        and only with a row at T > 0)."""
         io = self._io.get(sb)
         if io is None:
-            fields = [("tokens", (sb,), torch.int32), ("pos", (sb,), torch.int32),
+            fields = [("tokens", (sb,), torch.int32)]
+            if self._grammar:
+                fields.append(("gstate", (sb,), torch.int32))
+            fields += [("pos", (sb,), torch.int32),
                       ("temps", (sb,), torch.float32), ("topks", (sb,), torch.int32),
                       ("topps", (sb,), torch.float32), ("eos", (sb,), torch.int32),
                       ("rem", (sb,), torch.int32)]
@@ -616,17 +731,37 @@ class InferenceEngine:
         filtered = branch == "filtered"
         greedy = branch == "greedy"
 
-        def fn():
-            toks, last, _, _, _ = _gen.decode_multi_tokens(
-                model, io.tokens, io.pos, caches, K, io.temps, eos_ids=io.eos,
-                remaining=io.rem, head=head, block_table=table, topks=io.topks,
-                topps=io.topps, keys=io.keys, steps=steps, filtered=filtered,
-                greedy=greedy)
-            io.tokens.copy_(last)
-            return toks
+        if self._grammar:
+            gcls, gnxt, gacc = (self._gtab.gcls[:sb], self._gtab.gnxt[:sb],
+                                self._gtab.gacc[:sb])
+
+            def fn():
+                # K = 1 (JAX's grammar step): decode_multi_tokens' selection
+                # under the automaton's mask; the advanced states go back
+                # into the inputs with the tokens
+                logits, _ = _gen.decode_step(model, io.tokens[:, None], io.pos, caches,
+                                             table)
+                mask = _grammar.grammar_mask(gcls, gnxt, gacc, io.gstate, io.eos)
+                nxt = _gen.sample_tokens(logits[:, -1], io.keys[0], io.temps, io.topks,
+                                         io.topps, mask=mask, greedy=greedy,
+                                         check_mask=False)
+                io.gstate.copy_(_grammar.grammar_advance(gcls, gnxt, io.gstate, nxt,
+                                                         io.eos))
+                io.tokens.copy_(nxt)
+                return nxt[:, None]
+        else:
+            def fn():
+                toks, last, _, _, _ = _gen.decode_multi_tokens(
+                    model, io.tokens, io.pos, caches, K, io.temps, eos_ids=io.eos,
+                    remaining=io.rem, head=head, block_table=table, topks=io.topks,
+                    topps=io.topps, keys=io.keys, steps=steps, filtered=filtered,
+                    greedy=greedy)
+                io.tokens.copy_(last)
+                return toks
 
         def safe(io):
             io.dev.zero_()
+            io.eos.fill_(-1)
             io.rem.fill_(K)
             if self._paged:
                 io.table.fill_(self._pages.sink)
@@ -666,14 +801,83 @@ class InferenceEngine:
             self._chunks[pb] = step
         return step
 
+    def _verify_io(self, sb: int) -> _Buffers:
+        """The fixed inputs of verify bucket ``sb``: the [sb, spec] inputs
+        (current token, then the drafts), positions, sampling parameters, a
+        grammar engine's per-column states and eos ids, the paged table,
+        and the [sb, spec] keys last (uploaded only with a row at T > 0)."""
+        io = self._spec_io.get(sb)
+        if io is None:
+            T = self.spec
+            fields = [("inputs", (sb, T), torch.int32), ("pos", (sb,), torch.int32),
+                      ("temps", (sb,), torch.float32), ("topks", (sb,), torch.int32),
+                      ("topps", (sb,), torch.float32)]
+            if self._grammar:
+                fields += [("gstates", (sb, T), torch.int32), ("eos", (sb,), torch.int32)]
+            if self._paged:
+                fields.append(("table", (sb, self.maxp), torch.int32))
+            fields.append(("keys", (sb, T, 2), torch.int64))
+            io = self._spec_io[sb] = _Buffers(self.device, fields)
+        return io
+
+    def _get_spec(self, sb: int, branch: str) -> _Step:
+        """The verify step of batch bucket ``sb`` and sampling ``branch``
+        (``"greedy"``: every row at T 0; ``"sampled"``), built at first use
+        (the JAX engine's ``_get_spec``): one forward over the bucket's
+        [sb, spec] inputs at per-row positions, then
+        ``spec_verify_tokens``, masked per column under a grammar. Returns
+        [sb, spec + 1] int32: the tokens, then the accepted count."""
+        key = (sb, branch)
+        step = self._spec_steps.get(key)
+        if step is not None:
+            return step
+        io = self._verify_io(sb)
+        model, T = self.model, self.spec
+        caches = self._pools if self._paged else [pool[:sb] for pool in self._pools]
+        table = io.table if self._paged else None
+        greedy = branch == "greedy"
+        grammar = self._grammar
+        if grammar:
+            gcls, gnxt, gacc = (self._gtab.gcls[:sb], self._gtab.gnxt[:sb],
+                                self._gtab.gacc[:sb])
+
+        def fn():
+            logits, _ = _gen.decode_step(model, io.inputs, io.pos, caches, table)
+            masks = (_grammar.grammar_mask_multi(gcls, gnxt, gacc, io.gstates, io.eos)
+                     if grammar else None)
+            toks, acc = _gen.spec_verify_tokens(
+                logits, io.inputs, io.temps, io.topks, io.topps, masks=masks,
+                keys=io.keys, greedy=greedy, check_mask=False)
+            return torch.cat([toks, acc[:, None]], dim=1)
+
+        def safe(io):
+            io.dev.zero_()
+            if grammar:
+                io.eos.fill_(-1)
+            if self._paged:
+                io.table.fill_(self._pages.sink)
+            else:
+                io.pos.fill_(self.L - T)
+
+        step = self._build(fn, io, safe, f"verify bucket {sb} ({branch})")
+        with self._lock:
+            self._spec_steps[key] = step
+        return step
+
     # ------------------------------------------------------------ submission
     def submit(self, input_ids, max_new_tokens: int,
                eos_token_id: Optional[int] = None, temperature: float = 0.0,
                top_k: int = 0, top_p: float = 1.0, seed: int = 0,
-               timeout_s: Optional[float] = None) -> RequestHandle:
+               timeout_s: Optional[float] = None, grammar=None) -> RequestHandle:
         """Enqueue one request (one sequence of token ids). Returns a
         :class:`RequestHandle`; may raise :class:`QueueFullError` or
-        :class:`EngineClosedError`."""
+        :class:`EngineClosedError`.
+
+        ``grammar`` constrains every generated token: a regex string, a
+        JSON-schema dict or a compiled :class:`~mxnet_tpu_torch.serve.
+        grammar.TokenGrammar`. It needs an engine built with
+        ``grammar=True`` and an ``eos_token_id`` (an accept state with no
+        continuation ends by EOS)."""
         prompt = [int(t) for t in np.asarray(input_ids).reshape(-1)]
         if not prompt:
             raise MXNetError("input_ids must hold at least one token")
@@ -682,15 +886,42 @@ class InferenceEngine:
         if max_new_tokens <= 0:
             raise MXNetError("max_new_tokens must be positive")
         _gen._validate_sampling(temperature, top_k, top_p)
-        if len(prompt) + max_new_tokens + (self.K - 1) > self.L:
+        if len(prompt) + max_new_tokens + (self._adv - 1) > self.L:
+            headroom = (f" + multi_token/speculate headroom ({self._adv - 1})"
+                        if self._adv > 1 else "")
             raise MXNetError(
                 f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens})"
-                f" + multi_token headroom ({self.K - 1}) exceeds the "
-                f"engine's max_len ({self.L})")
+                f"{headroom} exceeds the engine's max_len ({self.L})")
+        g = None
+        if grammar is not None:
+            if not self._grammar:
+                raise MXNetError(
+                    "this engine was built without grammar support — construct "
+                    "it with grammar=True (the automaton tables are inputs of "
+                    "every step, so the gate is construction-time)")
+            if eos_token_id is None:
+                raise MXNetError(
+                    "grammar-constrained requests require eos_token_id: an "
+                    "accept state with no continuation can only terminate by "
+                    "emitting EOS")
+            if isinstance(grammar, _grammar.TokenGrammar):
+                g = grammar
+                if g.vocab != self._vocab:
+                    raise MXNetError(f"grammar was compiled for vocab={g.vocab}, "
+                                     f"engine vocab is {self._vocab}")
+                if g.n_states > self._gmax or g.n_classes > self._gmax:
+                    raise MXNetError(
+                        f"grammar ({g.n_states} states, {g.n_classes} classes) "
+                        f"exceeds this engine's serve_grammar_max_states="
+                        f"{self._gmax} tables")
+            else:
+                g = _grammar.compile_grammar(grammar, self._vocab,
+                                             max_states=self._gmax)
         deadline = (time.perf_counter() + timeout_s
                     if timeout_s is not None else None)
         req = RequestHandle(prompt, int(max_new_tokens), float(temperature),
                             eos_token_id, int(seed), deadline, int(top_k), float(top_p))
+        req.grammar = g
         with self._cond:
             if self._closed or not self._running:
                 raise EngineClosedError("engine is not running (call start(), "
@@ -809,18 +1040,29 @@ class InferenceEngine:
         caches = [pool[s:s + 1] for pool in self._pools]
         for c in caches:
             c.zero_()
+        if self._grammar:
+            self._install_grammar(s, req)
         hidden, _ = _gen.decode_step_hidden(self.model, ids, 0, caches)
-        tok0 = self._token0(hidden, P - 1, req, 0)
+        tok0 = self._token0(s, hidden, P - 1, req, 0)
         self._start_decode(s, req, tok0, t0, P, 0)
 
-    def _token0(self, hidden, last: int, req: RequestHandle, counter: int) -> int:
-        """Draw a request's next token from row ``last`` of a prefill's
+    def _token0(self, s: int, hidden, last: int, req: RequestHandle, counter: int) -> int:
+        """Draw slot ``s``'s next token from row ``last`` of a prefill's
         hidden state [1, T, D]: that row's logits alone (see the module
-        docstring), sampled with the stream at ``counter``."""
+        docstring), sampled with the stream at ``counter``, under the mask
+        of the slot's automaton state when its request is constrained."""
         logits = self.model._lm_head(hidden[:, last])
         keys = _prng.fold_keys([req.seed], [counter], self.device)
+        mask = None
+        if self._grammar and self._gram[s] is not None:
+            self._sync_gtab()
+            gt, dev = self._gtab, self.device
+            mask = _grammar.grammar_mask(
+                gt.gcls[s:s + 1], gt.gnxt[s:s + 1], gt.gacc[s:s + 1],
+                torch.full((1,), int(self._gstate[s]), dtype=torch.int32, device=dev),
+                torch.full((1,), req.eos_token_id, dtype=torch.int32, device=dev))
         tok0 = _gen.sample_tokens(logits, keys, [req.temperature], [req.top_k],
-                                  [req.top_p])
+                                  [req.top_p], mask=mask)
         return int(tok0[0])
 
     def _start_decode(self, s: int, req: RequestHandle, tok0: int, t0: float,
@@ -844,6 +1086,7 @@ class InferenceEngine:
             self._active[s] = True
         self._slots[s].generated.append(tok0)
         self._tokens[s] = tok0
+        self._advance_gstate(s, tok0)
         self._check_finished(s, now)
 
     # ------------------------------------------------------------ paged mode
@@ -851,7 +1094,7 @@ class InferenceEngine:
         """Admission gate: the free and reclaimable prefix-cache pages can
         hold the request's prompt (plus resumed tokens) and its first
         decode writes. Prefix hits only lower the real need."""
-        tokens = min(len(req.prompt_ids) + len(req._resume or ()) + self.K, self.L)
+        tokens = min(len(req.prompt_ids) + len(req._resume or ()) + self._adv, self.L)
         need = pages_for(tokens, self.page_size)
         return self._pages.free_pages() + self._pages.cached_pages() >= need
 
@@ -863,6 +1106,8 @@ class InferenceEngine:
         pages, matched = self._pages.match_prefix(ids)
         if matched:
             self._pages.map_prefix(s, pages, matched)
+        if self._grammar:
+            self._install_grammar(s, req)
         self._prefilling[s] = _Prefill(ids=ids, cursor=matched,
                                        counter0=len(resume),
                                        t0=time.perf_counter())
@@ -930,7 +1175,7 @@ class InferenceEngine:
         if end < P:
             pf.cursor = end
             return
-        tok0 = self._token0(hidden, n - 1, req, pf.counter0)
+        tok0 = self._token0(s, hidden, n - 1, req, pf.counter0)
         # publish the prompt for prefix reuse before decode writes touch
         # its tail page (the slot's own next write forks it)
         self._pages.insert_prefix(s, pf.ids)
@@ -958,16 +1203,17 @@ class InferenceEngine:
 
     def _lease_decode(self):
         """Fork shared pages and lease growth for this tick's decode writes
-        (each active row writes positions [pos, pos + K)). Pool exhaustion
-        preempts the youngest request (prefilling or decoding), by its
-        first admission, and retries: the oldest work always progresses."""
+        (each active row writes positions [pos, pos + K), or [pos, pos +
+        speculate) in a verify round). Pool exhaustion preempts the youngest
+        request (prefilling or decoding), by its first admission, and
+        retries: the oldest work always progresses."""
         while True:
             try:
                 for s in range(self.S):
                     if self._active[s]:
                         p = int(self._pos[s])
-                        self._fork_range(s, p, p + self.K)
-                        self._pages.lease(s, min(p + self.K, self.L))
+                        self._fork_range(s, p, p + self._adv)
+                        self._pages.lease(s, min(p + self._adv, self.L))
                 return
             except OutOfPages:
                 victim = max((s for s in range(self.S)
@@ -982,7 +1228,11 @@ class InferenceEngine:
         dispatch step N+1, fed step N's device tokens, then read step N; a
         retire at that read drains the pipeline (step N+1 is read at once,
         its rows of retired slots discarded), so the next tick dispatches
-        from the host's tokens for the new row set."""
+        from the host's tokens for the new row set. A speculative engine
+        runs a verify round instead."""
+        if self.spec:
+            self._step_tick_spec()
+            return
         prev, self._pending = self._pending, None
         live = [(s, self._slots[s]) for s in range(self.S) if self._slots[s] is not None]
         sb = bucket_for(live[-1][0] + 1, 1, self.S)
@@ -1015,7 +1265,11 @@ class InferenceEngine:
         their writes land in the sink page and their tokens are discarded.
         The lookahead step feeds the next dispatch only while the decoding
         rows and the bucket are unchanged; activation, preemption and
-        retires drain it first."""
+        retires drain it first. A speculative engine runs a verify round
+        instead."""
+        if self.spec:
+            self._step_tick_spec()
+            return
         prev, self._pending = self._pending, None
         self._lease_decode()                 # may preempt (changes the rows)
         cur = self._decoding()
@@ -1082,6 +1336,10 @@ class InferenceEngine:
             h = io.host()
             if prev is None:
                 h["tokens"][:] = self._tokens[:sb]
+                if self._grammar:
+                    h["gstate"][:] = self._gstate[:sb]
+            if self._grammar:
+                self._sync_gtab()
             h["pos"][:] = self._pos[:sb]
             h["temps"][:] = self._temps[:sb]
             h["topks"][:] = self._topks[:sb]
@@ -1143,6 +1401,7 @@ class InferenceEngine:
                 tok = int(toks[s, j])
                 slot.generated.append(tok)
                 self._tokens[s] = tok
+                self._advance_gstate(s, tok)
                 self._decode_tokens += 1
                 self._check_finished(s, now)
                 if self._slots[s] is not slot:
@@ -1150,6 +1409,164 @@ class InferenceEngine:
                     break                  # rest of the K-vector: discard
         self._decode_s += time.perf_counter() - t0
         return retired
+
+    # ------------------------------------------------------------ speculation
+    def _step_tick_spec(self):
+        """One draft-verify round over every decoding slot, in both layouts
+        (the JAX engine's ``_step_tick_spec``): each row drafts from its
+        request's own history (``speculate.draft_from_history``), under a
+        grammar rewritten legal with its per-column automaton states
+        (``speculate.constrain_draft``); one verify step of the bucket runs
+        them, and the round is read at once: the next round's drafts depend
+        on the tokens this one accepts."""
+        if self._paged:
+            self._lease_decode()                 # may preempt (changes the rows)
+            cur = self._decoding()
+        else:
+            cur = [(s, slot) for s, slot in enumerate(self._slots) if slot is not None]
+        if not cur:
+            return
+        t0 = time.perf_counter()
+        sb = bucket_for(cur[-1][0] + 1, 1, self.S)
+        T = self.spec
+        sampled = bool((self._temps[:sb] > 0).any())
+        try:
+            step = self._get_spec(sb, "sampled" if sampled else "greedy")
+            io = self._spec_io[sb]
+            h = io.host()
+            h["inputs"][:] = 0
+            if self._grammar:
+                h["gstates"][:] = 0
+                h["eos"][:] = self._eos[:sb]
+                self._sync_gtab()
+            for s, slot in cur:
+                hist = list(slot.req.prompt_ids) + slot.generated
+                draft = (_spec.draft_from_history(hist, self._n_draft, self._spec_lookup)
+                         + [int(self._tokens[s])] * (T - 1 - self._n_draft))
+                if self._grammar:
+                    q0 = int(self._gstate[s])
+                    h["gstates"][s] = q0
+                    if self._gram[s] is not None:
+                        draft, states, _ = _spec.constrain_draft(draft, self._gram[s], q0)
+                        h["gstates"][s] = states[:T]
+                h["inputs"][s, 0] = self._tokens[s]
+                h["inputs"][s, 1:] = draft
+            h["pos"][:] = self._pos[:sb]
+            h["temps"][:] = self._temps[:sb]
+            h["topks"][:] = self._topks[:sb]
+            h["topps"][:] = self._topps[:sb]
+            if self._paged:
+                h["table"][:] = self._pages.sink
+                for s, _ in cur:
+                    h["table"][s] = self._pages.table(s)
+            end = io.offset("keys")
+            if sampled:
+                h["keys"][:] = _prng.step_keys(self._seeds[:sb], self._counters[:sb],
+                                               T).transpose(1, 0, 2)
+                end = io.nbytes
+            io.upload(0, end)
+            out = step()
+            self._out_i ^= 1
+            host = self._out_host[self._out_i][:sb]
+            host.copy_(out, non_blocking=True)
+            event = self._out_events[self._out_i]
+            if event is not None:
+                event.record()
+                event.synchronize()
+        except Exception as e:
+            warnings.warn(f"serve: speculative decode step failed: {e!r}")
+            for s in range(self.S):
+                if self._slots[s] is not None:
+                    self._retire(s, STATUS_ERROR, error=str(e))
+            return
+        self._process_step_spec(cur, host.numpy(), t0)
+
+    def _process_step_spec(self, cur, out: np.ndarray, t0: float):
+        """Apply one verify round (``out`` [sb, spec + 1]: tokens, then the
+        accepted count): append each row's valid tokens in order, advancing
+        its position, counter and budget per appended token, and stop a row
+        at its EOS, budget, cancel or deadline."""
+        T = self.spec
+        now = time.perf_counter()
+        drafted = rejected = 0
+        for s, slot in cur:
+            if self._slots[s] is not slot:
+                continue
+            e = int(out[s, T])                   # 1..T valid tokens
+            drafted += T - 1
+            rejected += T - e
+            for j in range(e):
+                tok = int(out[s, j])
+                slot.generated.append(tok)
+                self._tokens[s] = tok
+                self._advance_gstate(s, tok)
+                self._pos[s] += 1
+                self._counters[s] += 1
+                self._remaining[s] -= 1
+                self._decode_tokens += 1
+                self._check_finished(s, now)
+                if self._slots[s] is not slot:
+                    break                        # the rest of the round: discard
+        self._spec_rounds += 1
+        self._spec_drafted += drafted
+        self._spec_accepted += drafted - rejected
+        self._dispatches += 1
+        self._substeps += 1
+        self._decode_s += time.perf_counter() - t0
+
+    # ------------------------------------------------------------ grammar
+    def _install_grammar(self, s: int, req: RequestHandle):
+        """Write the request's automaton into slot ``s``'s table rows
+        (identity rows for a free request) and seed the slot's state,
+        walking a resumed request's tokens so that a preempted request
+        resumes in its state. The device tables are marked for upload only
+        when the slot's grammar changes."""
+        g = req.grammar
+        if g is not None or self._gram[s] is not None:
+            if g is None:
+                rows = _grammar.identity_tables(self._vocab, self._gmax, self._gmax)
+            else:
+                rows = g.padded_tables(self._gmax, self._gmax)
+            self._gcls[s], self._gnxt[s], self._gacc[s] = rows
+            self._gram[s] = g
+            self._gdirty = True
+        q = 0
+        if g is not None:
+            for tok in req._resume or ():
+                nq = g.advance(q, int(tok))
+                if nq < 0:
+                    break
+                q = nq
+        self._gstate[s] = q
+
+    def _advance_gstate(self, s: int, tok: int):
+        """Advance slot ``s``'s host automaton state past one emitted token:
+        the authoritative ledger (a step's device states only feed the
+        lookahead dispatch; every dispatch from the host re-syncs them). EOS
+        parks the state; a token the automaton rejects (impossible under
+        the mask) parks it with a warning."""
+        if not self._grammar or self._gram[s] is None or tok == int(self._eos[s]):
+            return
+        nq = self._gram[s].advance(int(self._gstate[s]), int(tok))
+        if nq >= 0:
+            self._gstate[s] = nq
+        else:
+            warnings.warn(
+                f"serve: grammar automaton rejected emitted token {tok} in state "
+                f"{int(self._gstate[s])} (slot {s}) — the device mask and host "
+                "ledger diverged; parking the state")
+
+    def _sync_gtab(self):
+        """Upload the [S, ...] grammar tables to their device buffer if a
+        slot's grammar changed since the last upload (stream-ordered before
+        the next step)."""
+        if self._gdirty:
+            h = self._gtab.host()
+            h["gcls"][:] = self._gcls
+            h["gnxt"][:] = self._gnxt
+            h["gacc"][:] = self._gacc
+            self._gtab.upload(0, self._gtab.nbytes)
+            self._gdirty = False
 
     # ------------------------------------------------------------ completion
     def _check_finished(self, s: int, now: float):
@@ -1174,6 +1591,15 @@ class InferenceEngine:
         self._counters[s] = 0
         self._eos[s] = -1
         self._remaining[s] = 0
+        if self._grammar and self._gram[s] is not None:
+            # back to identity, so that a stale constrained row can never
+            # empty-mask a discarded bucket row
+            icls, inxt, iacc = _grammar.identity_tables(self._vocab, self._gmax,
+                                                        self._gmax)
+            self._gcls[s], self._gnxt[s], self._gacc[s] = icls, inxt, iacc
+            self._gram[s] = None
+            self._gstate[s] = 0
+            self._gdirty = True
 
     def _retire(self, s: int, status: str, error: Optional[str] = None):
         with self._lock:
@@ -1219,11 +1645,15 @@ class InferenceEngine:
         ``prefilling``, the ``preemptions`` and the ``resumed_tokens``
         (generated tokens that preempted requests prefill again).
 
-        As in the JAX engine: ``lookahead``, ``multi_token``,
-        ``last_warmup_s`` and ``compiled_buckets``, whose ``"decode"`` lists
-        the built decode steps as (batch bucket, substeps, branch) and
-        ``"prefill"`` the paged chunk buckets (the contiguous prefill runs
-        eagerly). ``captures`` counts the steps built (on the card: CUDA
+        As in the JAX engine: ``lookahead``, ``multi_token``, ``speculate``,
+        ``grammar`` (a bool), ``last_warmup_s`` and ``compiled_buckets``,
+        whose ``"decode"`` lists the built decode steps as (batch bucket,
+        substeps, branch), ``"spec"`` (speculative engines) the verify steps
+        as (batch bucket, branch) and ``"prefill"`` the paged chunk buckets
+        (the contiguous prefill runs eagerly). A speculative engine adds
+        ``spec``: ``rounds``, ``drafted``, ``accepted`` and
+        ``acceptance_rate`` (accepted / drafted, 4 places; None before a
+        draft); a verify round counts as one decode dispatch and substep. ``captures`` counts the steps built (on the card: CUDA
         graphs captured); serving after :meth:`warmup` leaves it unchanged
         (the zero-recompile contract)."""
         with self._lock:
@@ -1243,11 +1673,20 @@ class InferenceEngine:
                 "kv_bytes": sum(p.numel() * p.element_size() for p in self._pools),
                 "lookahead": self._lookahead,
                 "multi_token": self.K,
+                "speculate": self.spec,
+                "grammar": self._grammar,
                 "compiled_buckets": {"prefill": sorted(self._chunks),
                                      "decode": sorted(self._steps)},
                 "captures": self._captures,
                 "last_warmup_s": self.last_warmup_s,
             }
+            if self.spec:
+                out["compiled_buckets"]["spec"] = sorted(self._spec_steps)
+                out["spec"] = {
+                    "rounds": self._spec_rounds, "drafted": self._spec_drafted,
+                    "accepted": self._spec_accepted,
+                    "acceptance_rate": (round(self._spec_accepted / self._spec_drafted, 4)
+                                        if self._spec_drafted else None)}
         if self._paged:
             out.update({"page_size": self.page_size, "pages": self._pages.stats(),
                         "prefilling": len(self._prefilling),

@@ -1055,6 +1055,46 @@ def test_replayed_dispatch_equals_eager(cuda, layout, max_len, dtype):
     assert kind in eng_kinds
 
 
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_grammar_and_verify_steps_replay_equal_eager(cuda, layout):
+    """A grammar engine's T = 1 step (greedy and sampled) and a
+    grammar-speculative engine's verify step (4 rows: the warp route; 16
+    rows: the tile route) replay their eager runs bit for bit, tokens,
+    automaton states and pools, on a real automaton's tables; serving a
+    constrained and free mix after ``warmup()`` captures nothing, and every
+    constrained completion replays through the automaton."""
+    from mxnet_tpu_torch.serve import compile_grammar
+    model = _serving_model(torch.float32)
+    schema = {"type": "object", "properties": {"ok": {"type": "boolean"},
+                                               "mode": {"enum": ["fast", "safe"]}}}
+    gram = compile_grammar(schema, model.cfg.vocab_size)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    rng = onp.random.RandomState(8)
+    prompts = [rng.randint(1, 1000, 12).tolist() for _ in range(4)]
+    for spec in (0, 4):
+        eng = InferenceEngine(model, max_batch_size=4, max_len=128, paged=layout == "paged",
+                              page_size=16, speculate=spec, grammar=True).start()
+        try:
+            warmed = chip_smoke.warm(eng)
+            hs = [eng.submit(p, 40, eos_token_id=0, seed=i, temperature=0.7 * (i % 2),
+                             **({"grammar": schema} if i < 2 else {}))
+                  for i, p in enumerate(prompts)]
+            res = [h.result(timeout=300) for h in hs]
+            chip_smoke.no_capture_since(eng, warmed, f"grammar engine speculate={spec}")
+        finally:
+            eng.shutdown(drain=True, timeout=300)
+        assert all(r.ok for r in res)
+        assert all(gram.matches(r.generated_ids, eos_token_id=0) for r in res[:2])
+        for branch in ("greedy", "sampled"):
+            if spec:
+                for sb in (1, 4):
+                    chip_smoke.replay_equals_eager(torch, eng, g, 9 + sb, sb=sb,
+                                                   branch=branch, verify=True)
+            else:
+                chip_smoke.replay_equals_eager(torch, eng, g, 9, sb=4, steps=1,
+                                               branch=branch)
+
+
 @pytest.mark.parametrize("branch", ["fused", "filtered"])
 def test_replay_counts_launches_and_dma_like_eager(cuda, branch):
     """Launch counts per kind, route, width and lane, a thread's

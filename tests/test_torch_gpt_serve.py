@@ -194,15 +194,16 @@ def test_bucketing_matches_jax(lo, hi, growth):
 
 
 def test_unported_paths_raise(nets):
-    """Speculation, grammar masks and an over-long request still raise;
-    T > 0 and top-k/top-p sampling are ported (tests/test_torch_sampling.py
-    holds them against the JAX package)."""
+    """The configurations the JAX engine refuses still raise: a speculation
+    width of 1, grammar with ``multi_token > 1``, and an over-long request.
+    Speculation and grammar themselves are ported
+    (tests/test_torch_speculative.py, tests/test_torch_grammar.py)."""
     _, tnet, _ = nets
     prompt = _prompts([4])[0][None]
-    with pytest.raises(MXNetError, match="later slice"):
-        InferenceEngine(tnet, speculate=2)
-    with pytest.raises(MXNetError, match="later slice"):
-        InferenceEngine(tnet, grammar=True)
+    with pytest.raises(MXNetError, match="speculate must be 0"):
+        InferenceEngine(tnet, speculate=1)
+    with pytest.raises(MXNetError, match="mutually exclusive"):
+        InferenceEngine(tnet, grammar=True, multi_token=2)
     eng = InferenceEngine(tnet, max_len=MAXPOS).start()
     try:
         with pytest.raises(MXNetError, match="max_len"):
