@@ -91,6 +91,26 @@
    step and a verify step replay their eager runs bit for bit. Prints
    tokens/s per sweep, ``cost_pct``, ``speedup``, acceptance, the compile
    seconds at vocab 50257 and the idle share of a profiled sweep.
+3g. ``http_serve``: the HTTP frontend (``serve.HTTPFrontend`` on 127.0.0.1,
+   port 0) over the same f32 int8 model. (a) A paged fused engine
+   (``max_batch_size=8, max_len=256, multi_token=4``: K6 and K8), after
+   ``warmup()`` and ``warmup_score()``, takes 8 greedy prompts of 8-48
+   tokens and 2 sampled ones from 8 client threads: tokens equal to the
+   same engine's in-process ``generate()``, SSE streams equal to the JSON
+   replies frame for frame, nothing captured; requests/s and tokens/s
+   through HTTP against in-process (median [min, max] of 3 trials) and
+   the idle share of a profiled HTTP window. (b) ``/score`` of 4
+   sequences of 5-64 tokens: bit for bit the eager scores on the card,
+   within 1e-3 of the CPU twin's, ``logprob`` their sum, K3 on both
+   routes, the same bits when posted during (a)'s decode; ms per score
+   bucket. (c) ``/metrics``: requests, tokens and each built step's
+   launch sites; ``/healthz`` 200 with models ``{"default": 0}``. (d) An
+   unfused int8 engine (``multi_token=1``) deploys net B's published
+   weights by ``POST /weights`` while a request decodes: the request
+   completes, later tokens equal a fresh engine on net B, nothing is
+   captured, ``/healthz`` shows version 1, the swap's apply time; a swap
+   on (a)'s fused engine raises the JAX refusal. (e) ``POST /drain``:
+   ``/healthz`` 503 and draining, new requests 503, in-flight ones ok.
 4. Holds K1 (flash-attention forward) and K2 (its backward) against their
    plain versions, every output row to its own size, at the training
    shape, at head dim 128 and at ragged, end-aligned and padded-head-dim
@@ -1818,6 +1838,384 @@ def constrained_spec(torch, args, net, cpu_net):
     return counts
 
 
+HTTP_TRIALS = 3                # timed trials of (a), HTTP and in-process each
+HTTP_NEW = 48                  # new tokens of each (a) request
+# (a)'s 10 requests are served this many times a trial (and the profiled
+# window's 8 greedy ones likewise), so that a window lasts over a second
+HTTP_ROUNDS = 12
+SCORE_TOL = 1e-3               # card score against the CPU twin's
+
+
+class _Reply:
+    """A /generate JSON document as a result ``device_share`` reads."""
+
+    def __init__(self, doc):
+        self.doc = doc
+        self.status, self.error = doc["status"], doc.get("error")
+        self.ok = self.status == "ok"
+        self.generated_ids = doc["generated_ids"]
+
+
+def http_json(url, path, doc=None, timeout=600):
+    """(status, JSON body) of a GET (``doc`` None) or POST; an HTTP error
+    status is an answer, not an exception."""
+    import urllib.error
+    import urllib.request
+    data = None if doc is None else json.dumps(doc).encode()
+    req = urllib.request.Request(url + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_sse(url, payload, timeout=600):
+    """The token ids and the done document of one SSE /generate."""
+    import urllib.request
+    req = urllib.request.Request(url + "/generate", data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    toks, done, kind = [], None, None
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        for line in r:
+            line = line.rstrip(b"\n")
+            if line.startswith(b"event: "):
+                kind = line[7:].decode()
+            elif line.startswith(b"data: ") and kind == "token":
+                toks.append(json.loads(line[6:])["token"])
+            elif line.startswith(b"data: ") and kind == "done":
+                done = json.loads(line[6:])
+                break
+    return toks, done
+
+
+def http_post_all(url, payloads, pool):
+    """POST every payload to /generate from the client threads of ``pool``
+    (a ThreadPoolExecutor); returns the (status, document) pairs in payload
+    order."""
+    return list(pool.map(lambda p: http_json(url, "/generate", p), payloads))
+
+
+def metric_values(text, names):
+    """{sample name with labels: value} of Prometheus text for the sample
+    names (exposition names, labels included) starting with ``names``."""
+    out = {}
+    for ln in text.splitlines():
+        if ln.startswith(names):
+            key, val = ln.rsplit(" ", 1)
+            out[key] = float(val)
+    return out
+
+
+def median_span(xs):
+    return {"median": statistics.median(xs), "min": min(xs), "max": max(xs)}
+
+
+def http_serve(torch, args, net, cpu_net):
+    """Phase http_serve: the HTTP frontend over int8 GPT-2 small (f32,
+    fused decode, the main model) on 127.0.0.1, port 0.
+
+    (a) A paged engine (``max_batch_size=8, max_len=256, multi_token=4``:
+    K6 and K8) after ``warmup()`` and ``warmup_score()``: 8 greedy prompts
+    of 8-48 tokens and 2 at T 0.8 posted from 8 client threads (a pool
+    made outside the timers), HTTP_ROUNDS times a trial, their tokens
+    equal to the same engine's in-process ``generate()`` from the same
+    threads in every round, their SSE streams equal to the JSON replies,
+    nothing captured after the warm-up; requests/s and tokens/s through
+    HTTP against in-process over HTTP_TRIALS trials each, and the idle
+    share of a profiled HTTP window of the 8 greedy prompts HTTP_ROUNDS
+    times. (b) ``/score`` of 4
+    sequences of 5-64 tokens: bit for bit the same scores run eagerly on
+    the card, within SCORE_TOL of the CPU twin, ``logprob`` their sum, K3
+    launched on both routes by these scores alone, and the same bits when
+    posted while (a)'s requests decode; ms per score bucket. (c)
+    ``/metrics`` after (a): requests and generated tokens against the
+    replies the smoke received, and the launch sites of the built steps;
+    ``/healthz`` 200 with models ``{"default": 0}``.
+    (d) An unfused int8 engine (``multi_token=1``, every layer on K3): net
+    B's weights published with ``publish_weights`` and deployed by ``POST
+    /weights`` while a request decodes; the request completes, later
+    requests equal a fresh engine on net B, nothing is captured,
+    ``/healthz`` shows version 1; a swap on (a)'s fused engine raises the
+    JAX refusal. (e) ``POST /drain`` with requests in flight: ``/healthz``
+    503 and draining, new requests 503, the in-flight ones finish ok.
+    Returns the launch counts of the phase."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from mxnet_tpu_torch import metrics as tmetrics
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.ops.int8_gemv import gemv_routes, launches, reset_launches
+    from mxnet_tpu_torch.serve import HTTPFrontend, InferenceEngine
+    rng = np.random.RandomState(args.seed + 14)
+    vocab = net.cfg.vocab_size
+    tmetrics.enable()
+    tmetrics.reset()
+    prompts = [rng.randint(0, vocab, int(n)).tolist() for n in rng.randint(8, 49, 10)]
+    payloads = [{"input_ids": p, "max_new_tokens": HTTP_NEW,
+                 **({"temperature": 0.8, "seed": 1400 + i} if i >= 8 else {})}
+                for i, p in enumerate(prompts)]
+
+    rounds = payloads * HTTP_ROUNDS
+    received = []           # (status, generated tokens) of each reply from eng
+
+    def in_process(eng):
+        # from the client pool, as HTTP posts them: each thread submits a
+        # request and waits for its result before the next
+        return list(client.map(lambda p: eng.submit(
+            p["input_ids"], HTTP_NEW, temperature=p.get("temperature", 0.0),
+            seed=p.get("seed", 0)).result(timeout=600), rounds))
+
+    def post(batch):
+        got = http_post_all(fe.url, batch, client)
+        received.extend((d.get("status"), len(d.get("generated_ids", ()))) for _, d in got)
+        return got
+
+    eng = InferenceEngine(net, max_batch_size=8, max_len=256, multi_token=4, paged=True,
+                          page_size=16).start()
+    fe = HTTPFrontend(eng, host="127.0.0.1", port=0).start()
+    client = ThreadPoolExecutor(8)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        warmed = warm(eng)
+        eng.warmup_score()
+        warmed = dict(warmed, **{k: eng.stats()[k] for k in ("captures", "compiled_buckets")})
+        out["warmup_s"] = time.perf_counter() - t0
+        reset_launches()
+        # (a) through HTTP, and the same requests in-process, trial by trial
+        seqs = [rng.randint(0, vocab, int(n)).tolist() for n in (5, 8, 23, 64)]
+        # (b) K3's routes read around these scores alone: nothing else is
+        # in flight, so every launch they count is a score's
+        routes0 = gemv_routes()
+        alone = [http_json(fe.url, "/score", {"input_ids": s}) for s in seqs]
+        out["score_routes"] = {k: n - routes0.get(k, 0) for k, n in gemv_routes().items()}
+        check(all(c == 200 for c, _ in alone), f"/score: {[c for c, _ in alone]}")
+        check(out["score_routes"].get("warp", 0) > 0 and out["score_routes"].get("mma", 0) > 0,
+              f"(b) /score of {[len(s) for s in seqs]} tokens: K3 routes "
+              f"{out['score_routes']}")
+        alone = [d for _, d in alone]
+        trials = {"http": [], "in_process": []}
+        replies = None
+        for trial in range(HTTP_TRIALS):
+            t0 = time.perf_counter()
+            got = post(rounds)
+            wall = time.perf_counter() - t0
+            check(all(c == 200 and d["status"] == "ok" for c, d in got),
+                  f"(a) trial {trial}: {[(c, d.get('status'), d.get('error')) for c, d in got]}")
+            replies = replies or [d for _, d in got[:len(payloads)]]
+            check([d["generated_ids"] for _, d in got]
+                  == [d["generated_ids"] for d in replies] * HTTP_ROUNDS,
+                  f"(a) trial {trial}: the tokens moved between rounds or trials")
+            trials["http"].append((wall, sum(len(d["generated_ids"]) for _, d in got)))
+            t0 = time.perf_counter()
+            res = in_process(eng)
+            wall = time.perf_counter() - t0
+            received.extend((r.status, len(r.generated_ids)) for r in res)
+            check(all(r.ok for r in res), f"(a) in-process trial {trial}")
+            check([r.generated_ids for r in res]
+                  == [d["generated_ids"] for d in replies] * HTTP_ROUNDS,
+                  f"(a) trial {trial}: HTTP tokens differ from in-process generate()")
+            trials["in_process"].append((wall, sum(len(r.generated_ids) for r in res)))
+        for mode, rows in trials.items():
+            out[mode] = {"requests_per_s": median_span([len(rounds) / w for w, _ in rows]),
+                         "tokens_per_s": median_span([n / w for w, n in rows]),
+                         "wall_s": [w for w, _ in rows]}
+        # SSE: frame for frame the JSON replies
+        for p, d in zip(payloads, replies):
+            toks, done = http_sse(fe.url, dict(p, stream=True))
+            check(toks == d["generated_ids"] and done is not None
+                  and done["generated_ids"] == toks and done["status"] == "ok",
+                  f"SSE stream differs from the JSON reply for prompt {p['input_ids'][:4]}")
+            received.append((done["status"], len(toks)))
+        # (b) scores posted while (a)'s requests decode: the same bits
+        with ThreadPoolExecutor(1) as pool:
+            busy = pool.submit(post, payloads)
+            during = []
+            while not busy.done() or not during:
+                during.append([http_json(fe.url, "/score", {"input_ids": s})[1] for s in seqs])
+            check(all(c == 200 for c, _ in busy.result()), "(b) decode window failed")
+        check(all(d == alone for d in during),
+              "(b) a score posted during decode differs from one posted alone")
+        out["scores_during_decode"] = len(during)
+        for s, d in zip(seqs, alone):
+            check(d["tokens"] == len(s) - 1 and d["logprob"] == sum(d["token_logprobs"]),
+                  f"(b) /score doc of {len(s)} tokens: tokens {d['tokens']}, logprob "
+                  f"{d['logprob']} != the sum of its token_logprobs")
+        # score ms per bucket, in-process through the graphs
+        score_ms = {}
+        for pb in warmed["compiled_buckets"]["score"]:
+            ids = rng.randint(0, vocab, pb).tolist()
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                eng.score(ids)
+                times.append((time.perf_counter() - t0) * 1e3)
+            score_ms[pb] = statistics.median(times)
+        out["score_ms_per_bucket"] = score_ms
+        greedy = [{"input_ids": p["input_ids"], "max_new_tokens": HTTP_NEW}
+                  for p in payloads[:8]] * HTTP_ROUNDS
+        out["profiled_window"] = device_share(
+            torch, eng, None, HTTP_NEW,
+            run=lambda: [_Reply(d) for _, d in post(greedy)]) or "not measured"
+        no_capture_since(eng, warmed, "http_serve (a)")
+        # (c) /metrics: the counters the requests alone fix, against the
+        # replies received, and the launch sites of every step the engine
+        # built
+        with urllib.request.urlopen(fe.url + "/metrics", timeout=60) as r:
+            text = r.read().decode()
+        vals = metric_values(text, ("mxnet_serve_requests_total", "mxnet_serve_tokens_total",
+                                    "mxnet_decode_launches_total"))
+        served = sum(1 for status, _ in received if status == "ok")
+        tokens = sum(n for _, n in received)
+        check(vals.get('mxnet_serve_requests_total{status="ok"}') == served,
+              f"(c) requests_total ok {vals.get('mxnet_serve_requests_total{status=\"ok\"}')} "
+              f"!= {served} replies received ok")
+        check(vals.get("mxnet_serve_tokens_total") == tokens,
+              f"(c) tokens_total {vals.get('mxnet_serve_tokens_total')} != {tokens} tokens "
+              "received")
+        sites = {}
+        for step in (list(eng._steps.values()) + list(eng._chunks.values())
+                     + list(eng._score_steps.values())):
+            for kind, n in step.tally.kinds.items():
+                sites[kind] = sites.get(kind, 0) + n
+        got_sites = {k[len('mxnet_decode_launches_total{kind="'):-2]: v for k, v in vals.items()
+                     if k.startswith("mxnet_decode_launches_total{")}
+        check(got_sites == sites, f"(c) decode_launches_total {got_sites} != built {sites}")
+        code, hz = http_json(fe.url, "/healthz")
+        check(code == 200 and hz["models"] == {"default": 0} and hz["ok"],
+              f"(c) /healthz {code} {hz}")
+        out["metrics"] = {"requests_ok": served, "tokens": tokens,
+                          "decode_launch_sites": sites}
+        # (d) a swap on the fused engine raises the JAX refusal
+        try:
+            eng.swap_weights({})
+            check(False, "(d) a swap on a fused engine did not raise")
+        except MXNetError as e:
+            check("serves fused int8 decode" in str(e), f"(d) refusal: {e}")
+        out["swap"] = swap_deploy(torch, args, rng, net)
+        # (e) drain with 4 long requests in flight
+        long = [dict(p, max_new_tokens=200) for p in payloads[:4]]
+        with ThreadPoolExecutor(4) as pool:
+            inflight = [pool.submit(http_json, fe.url, "/generate", p) for p in long]
+            deadline = time.monotonic() + 120
+            while eng.stats()["slots_in_use"] < len(long):
+                check(time.monotonic() < deadline, "(e) the requests were never admitted")
+                time.sleep(0.001)
+            code, doc = http_json(fe.url, "/drain", {})
+            check(code == 200 and doc == {"ok": True, "draining": True}, f"(e) /drain {code}")
+            code, hz = http_json(fe.url, "/healthz")
+            check(code == 503 and hz["draining"] is True, f"(e) /healthz {code} {hz}")
+            code, doc = http_json(fe.url, "/generate", payloads[0])
+            check(code == 503, f"(e) /generate after /drain: {code} {doc}")
+            finished = [f.result() for f in inflight]
+        check(all(c == 200 and d["status"] == "ok" and len(d["generated_ids"]) == 200
+                  for c, d in finished),
+              f"(e) in-flight requests: {[(c, d.get('status')) for c, d in finished]}")
+        out["drain"] = [d["status"] for _, d in finished]
+        counts = launches()
+        counts["routes"] = gemv_routes()
+    finally:
+        client.shutdown()
+        fe.stop()
+        eng.shutdown(drain=False, timeout=300)
+        tmetrics.disable()
+    for kind in ("fused_block_paged", "fused_head"):
+        check(counts.get(kind, 0) > 0, f"http_serve: {kind} never launched")
+    check(counts["routes"]["warp"] > 0 and counts["routes"]["mma"] > 0,
+          f"http_serve: K3 routes {counts['routes']}")
+    # (b) against eager scores on the card and the CPU twin's scores
+    eager = InferenceEngine(net, max_batch_size=1, max_len=256, paged=False)
+    eager._eager = True
+    cpu = InferenceEngine(cpu_net, max_batch_size=1, max_len=256, paged=False)
+    worst = 0.0
+    for s, d in zip(seqs, alone):
+        e = eager.score(s)
+        check(d["token_logprobs"] == e["token_logprobs"],
+              f"(b) graph score of {len(s)} tokens != the eager score on the card")
+        c = cpu.score(s)["token_logprobs"]
+        err = max(abs(a - b) for a, b in zip(d["token_logprobs"], c))
+        worst = max(worst, err)
+        check(err <= SCORE_TOL, f"(b) score of {len(s)} tokens: {err} from the CPU twin")
+    out["score_vs_cpu_max_abs"] = worst
+    out["launches"] = counts
+    emit({"http_serve": out})
+    return counts
+
+
+def swap_deploy(torch, args, rng, net):
+    """(d): an unfused int8 engine (``multi_token=1``) over two fresh
+    models of ``net``'s config behind its own frontend; net B's weights
+    published and deployed by ``POST /weights`` while a request decodes.
+    Returns the deploy's numbers."""
+    import shutil
+
+    from mxnet_tpu_torch import _build
+    from mxnet_tpu_torch.contrib.quantization import quantize_net
+    from mxnet_tpu_torch.models import GPTModel
+    from mxnet_tpu_torch.serve import (HTTPFrontend, InferenceEngine, publish_weights,
+                                       snapshot_params)
+    pub = _build.BUILD_DIR.parent / "http_serve_weights"
+    shutil.rmtree(pub, ignore_errors=True)
+    vocab = net.cfg.vocab_size
+    net_a = quantize_net(GPTModel(net.cfg, device=net.device).init_weights(args.seed + 20))
+    net_b = quantize_net(GPTModel(net.cfg, device=net.device).init_weights(args.seed + 21))
+    publish_weights(str(pub), snapshot_params(net_b))
+    prompts = [rng.randint(0, vocab, int(n)).tolist() for n in rng.randint(8, 33, 4)]
+    kw = dict(max_batch_size=8, max_len=256, multi_token=1)
+    eng = InferenceEngine(net_a, **kw).start()
+    fe = HTTPFrontend(eng, host="127.0.0.1", port=0).start()
+    applied = []
+    copy = eng._copy_weights
+
+    def timed_copy(staged):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        copy(staged)
+        torch.cuda.synchronize()
+        applied.append((time.perf_counter() - t0) * 1e3)
+
+    eng._copy_weights = timed_copy
+    try:
+        warmed = warm(eng)
+        before = [eng.generate(p, 16).generated_ids for p in prompts]
+        eng._step_delay = 0.05      # the request outlasts the weights' read
+        h = eng.submit(prompts[0], 200)
+        while h.status == "queued":
+            time.sleep(0.001)
+        t0 = time.perf_counter()
+        code, doc = http_json(fe.url, "/weights", {"dir": str(pub)})
+        deploy_s = time.perf_counter() - t0
+        check(code == 200 and doc == {"ok": True, "model": "default", "version": 1},
+              f"(d) POST /weights: {code} {doc}")
+        check(not h.done(), "(d) the request finished before the swap landed")
+        r = h.result(timeout=600)
+        eng._step_delay = 0.0
+        check(r.ok and len(r.generated_ids) == 200,
+              f"(d) the request in flight: {r.status} {len(r.generated_ids)} tokens")
+        after = [eng.generate(p, 16).generated_ids for p in prompts]
+        no_capture_since(eng, warmed, "http_serve (d) swap")
+        code, hz = http_json(fe.url, "/healthz")
+        check(code == 200 and hz["models"] == {"default": 1}, f"(d) /healthz {code} {hz}")
+    finally:
+        fe.stop()
+        eng.shutdown(drain=False, timeout=300)
+    ref = InferenceEngine(net_b, **kw).start()
+    try:
+        warm(ref)
+        want = [ref.generate(p, 16).generated_ids for p in prompts]
+    finally:
+        ref.shutdown()
+    check(after == want, "(d) after the swap the tokens differ from a fresh engine on net B")
+    check(after != before, "(d) the swap changed no token")
+    shutil.rmtree(pub, ignore_errors=True)
+    return {"deploy_s": deploy_s, "apply_ms": applied, "swapped_request_tokens": 200,
+            "captures": warmed["captures"]}
+
+
 # the three dispatch modes of the capture comparison: (name, eager, lookahead)
 DISPATCH_MODES = (("eager", True, False), ("captured", False, False),
                   ("captured+lookahead", False, True))
@@ -2763,6 +3161,7 @@ def main(argv=None):
     k1_counts = serve_k1(torch, args, net, serve_counts["k4"])
     paged_counts = {phase: serve_paged(torch, args, net, phase) for phase in "AB"}
     cs_counts = constrained_spec(torch, args, net, cpu_net)
+    http_counts = http_serve(torch, args, net, cpu_net)
     del cpu_net
     t_modes = time.perf_counter()
     for window in ("contiguous", "paged_B"):
@@ -2794,7 +3193,8 @@ def main(argv=None):
     def routes(*phases):
         return {r: sum(c["routes"][r] for c in phases) for r in ("warp", "mma")}
 
-    r8 = routes(serve_counts, paged_counts["A"], paged_counts["B"], *cs_counts.values())
+    r8 = routes(serve_counts, paged_counts["A"], paged_counts["B"], *cs_counts.values(),
+                http_counts)
 
     def cs_launches(kind):
         return sum(c.get(kind, 0) for c in cs_counts.values())
@@ -2829,14 +3229,15 @@ def main(argv=None):
              serve_counts.get("fused_block", 0) + cs_launches("fused_block"), k5),
             ("fused_block_decode_paged", "mxnet_tpu_torch/csrc/fused_block_decode_paged.cu",
              "mxnet_tpu/ops/fused_block_gemv.py:601",
-             paged_counts["A"].get("fused_block_paged", 0) + cs_launches("fused_block_paged"),
-             k67["K6"]),
+             paged_counts["A"].get("fused_block_paged", 0) + cs_launches("fused_block_paged")
+             + http_counts.get("fused_block_paged", 0), k67["K6"]),
             ("fused_block_decode_paged_dma",
              "mxnet_tpu_torch/csrc/fused_block_decode_paged_dma.cu",
              "mxnet_tpu/ops/fused_block_gemv.py:810",
              paged_counts["B"].get("fused_block_paged_dma", 0), k67["K7"]),
             ("lm_head_sample", "mxnet_tpu_torch/csrc/lm_head_sample.cu",
-             "mxnet_tpu/ops/fused_block_gemv.py:1218", serve_counts.get("fused_head", 0), k8),
+             "mxnet_tpu/ops/fused_block_gemv.py:1218",
+             serve_counts.get("fused_head", 0) + http_counts.get("fused_head", 0), k8),
             ("int4_gemv", gemv4, "mxnet_tpu/ops/int8_gemv.py:186", r4["warp"], r4k["K4"]["warp"]),
             ("int4_gemv_mma", gemv4, "mxnet_tpu/ops/int8_gemv.py:186", r4["mma"],
              r4k["K4"]["mma"]),

@@ -24,6 +24,10 @@ package's counter-hash stream: ``random``, ``_random``,
 ``numpy_extension.dropout``) with ``lr_scheduler``s, and keeps and resumes
 runs in the JAX package's files (``serialization``, ``gluon``'s parameter
 files, ``Trainer`` states, ``checkpoint.CheckpointManager``).
+Slice 14 serves over HTTP (``serve.HTTPFrontend``) with the JAX package's
+metric families (``metrics``), request traces and the flight recorder
+(``observability``), teacher-forced scoring, drains and live weight swaps
+from published versions (``serve.registry``).
 """
 from . import base, device
 from .base import MXNetError

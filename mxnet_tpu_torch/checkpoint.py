@@ -19,10 +19,15 @@ preemption.
   :meth:`~CheckpointManager.wait` joins it and re-raises its failure once,
   and runs before every save and restore.
 
+- **Publish** (``publish_weights_dir``): after every completed save the
+  checkpoint's parameters are also published as a serving weight version
+  (``serve.registry``), the train-to-serve bridge; a failed publish is
+  logged, never raised.
+
 The files are the JAX package's, so each package resumes the other's
-checkpoints. More than one process, ``publish_weights_dir`` and
-``health=`` are not ported (ROADMAP Queue 1 item 8) and raise; the port
-records no checkpoint metrics.
+checkpoints. More than one process and ``health=`` are not ported
+(ROADMAP Queue 1 item 8) and raise; the port records no checkpoint
+metrics.
 """
 from __future__ import annotations
 
@@ -107,11 +112,15 @@ class CheckpointManager:
         ``sharded=True`` takes optimizer state through ``state_arrays`` /
         ``write_state_arrays``; ``extra_state()`` is stored in the manifest
         and handed to ``restore_extra`` on restore. ``blocking=False``
-        makes periodic saves asynchronous."""
-        if publish_weights_dir is not None:
-            raise MXNetError(f"CheckpointManager(publish_weights_dir=...) {_LATER}")
+        makes periodic saves asynchronous. ``publish_weights_dir``: after
+        every completed save the parameters are also published there as a
+        serving weight version (``serve.registry.publish_weights``, or
+        ``publish_from_checkpoint`` for the sharded layout), which polling
+        replicas swap to; a failed publish is logged, never raised."""
         if health is not None:
-            raise MXNetError(f"CheckpointManager(health=...) {_LATER}")
+            raise MXNetError("CheckpointManager(health=...) is not ported yet: it "
+                             "waits for observability/health.py (ROADMAP Queue 1 "
+                             "item 8)")
         if _multi_process():
             raise MXNetError(f"CheckpointManager across processes {_LATER}")
         if sharded and trainer is not None:
@@ -124,6 +133,7 @@ class CheckpointManager:
         self.net = net
         self.trainer = trainer
         self.sharded = sharded
+        self.publish_weights_dir = publish_weights_dir
         self._state_arrays = state_arrays
         self._write_state_arrays = write_state_arrays
         self.period = max(1, period)
@@ -304,6 +314,7 @@ class CheckpointManager:
             raise
         self._prune()
         logger.info("sharded checkpoint saved: %s", final)
+        self._maybe_publish(final, step)
         return final
 
     def _write_local(self, step, metric, meta, snap):
@@ -323,7 +334,31 @@ class CheckpointManager:
             self._update_best(metric, final)
         self._prune()
         logger.info("checkpoint saved: %s", final)
+        self._maybe_publish(final, step, snap.get("params"))
         return final
+
+    def _maybe_publish(self, final: str, step: int, params=None):
+        """Mirror a completed checkpoint into the serving weight-publish
+        layout: the local layout publishes the host snapshot it holds, the
+        sharded layout adapts the written directory. Best effort: a failed
+        publish never fails the save."""
+        if self.publish_weights_dir is None:
+            return
+        try:
+            from .serve.registry import publish_from_checkpoint, publish_weights
+            meta = {"step": step, "source_checkpoint": os.path.basename(final)}
+            if params:
+                version = publish_weights(self.publish_weights_dir, params, meta=meta,
+                                          keep_last=self.keep_last or None)
+            else:
+                version = publish_from_checkpoint(final, self.publish_weights_dir,
+                                                  meta=meta,
+                                                  keep_last=self.keep_last or None)
+            logger.info("published checkpoint step %d as serving weights v%d",
+                        step, version)
+        except Exception as e:
+            logger.warning("checkpoint weight publish failed (training "
+                           "unaffected): %s", e)
 
     def _update_best(self, metric, final):
         # the better-decision and the symlink swap are atomic together

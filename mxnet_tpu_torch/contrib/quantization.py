@@ -212,7 +212,8 @@ class QuantizedDense(nn.Module):
         abs-max over 127 in x's dtype (JAX's weakly typed arithmetic), then
         f32."""
         if self._act_scale is not None:
-            return torch.tensor(self._act_scale, dtype=torch.float32, device=x.device)
+            # a fill, not a copy from the host: capturable in a CUDA graph
+            return torch.full((), self._act_scale, dtype=torch.float32, device=x.device)
         amax = x.abs().max()
         return torch.where(amax > 0, amax / _QMAX, torch.ones_like(amax)).float()
 
@@ -252,6 +253,31 @@ def _replace_dense(module, bits):
         elif not isinstance(child, QuantizedDense):
             replaced += _replace_dense(child, bits)
     return replaced
+
+
+@torch.no_grad()
+def requantize_(network):
+    """Derive every :class:`QuantizedDense` table and the quantized tied
+    head again from the network's current float weights, in place: the
+    tables keep their tensors (a captured CUDA graph reads the new values)
+    and equal what :func:`quantize_net` derives from the same weights, in
+    each layer's lane. Frozen activation scales stay as calibrated. The
+    engine's live weight swap calls it after copying the new weights."""
+    for m in network.modules():
+        if isinstance(m, QuantizedDense):
+            if m.w_q.dtype == torch.uint8:
+                w_q, w_scale = _quantize_int4(m.inner.weight)
+            else:
+                w_q, w_scale = _quantize_rows(m.inner.weight, own_dtype=True)
+            m.w_q.copy_(w_q)
+            m.w_scale.copy_(w_scale)
+    head = getattr(network, "_q_lm_head", None)
+    if head is not None:
+        _quantize_tied_lm_head(network, 4 if head[0].dtype == torch.uint8 else 8)
+        new = network._q_lm_head
+        head[0].copy_(new[0])
+        head[1].copy_(new[1])
+        network._q_lm_head = head
 
 
 def _quantize_tied_lm_head(network, bits=8):

@@ -22,15 +22,25 @@ takes ``sample_tokens`` on the head GEMV's logits, as the reference's
 :func:`filter_logits`, :func:`sample_tokens` and the fused head as it does
 in the JAX package: masked lanes drop to -inf before any filter or argmax,
 and an all-masked row raises.
+
+``mxnet_recompilations_total{block="generate"}`` counts where the JAX
+package compiles a new decode loop: the first call of each (model, batch,
+prompt length, budget, sampling parameters, eos, cache, multi_token) key
+its bounded LRU of 8 loops does not hold (``kind="initial"`` for a model's
+first loop, ``"retrace"`` after).
 """
 from __future__ import annotations
 
+import threading
+import weakref
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .. import _prng
+from .. import metrics as _metrics
 from ..autograd import predict_mode
 from ..base import MXNetError
 
@@ -329,6 +339,34 @@ def decode_multi_tokens(model, tokens, pos, caches, num_tokens, temps,
     return out, tok, steps, dn, caches
 
 
+# the keys of the JAX package's LRU of compiled decode loops (generate()
+# compiles on a miss); the port compiles nothing and keeps the keys only to
+# count mxnet_recompilations_total where JAX does. JAX's entries hold their
+# model; these hold a weak reference, and a dead model's keys drop out (so a
+# new model that reuses its id is new)
+_DECODE_KEYS: "OrderedDict" = OrderedDict()
+_DECODE_KEYS_LIMIT = 8
+_DECODE_KEYS_LOCK = threading.Lock()
+
+
+def _note_decode_loop(model, key):
+    """Record ``mxnet_recompilations_total{block="generate"}`` on a miss
+    of the JAX package's decode-loop cache key ``(id(model), *key)``."""
+    key = (id(model),) + key
+    with _DECODE_KEYS_LOCK:
+        for k in [k for k, ref in _DECODE_KEYS.items() if ref() is None]:
+            del _DECODE_KEYS[k]
+        if key in _DECODE_KEYS:
+            _DECODE_KEYS.move_to_end(key)
+            return
+        seen = any(k[0] == key[0] for k in _DECODE_KEYS)
+        while len(_DECODE_KEYS) >= _DECODE_KEYS_LIMIT:
+            _DECODE_KEYS.popitem(last=False)
+        _DECODE_KEYS[key] = weakref.ref(model)
+    _metrics.RECOMPILATIONS.labels(block="generate",
+                                   kind="retrace" if seen else "initial").inc()
+
+
 def generate(model, input_ids, max_new_tokens: int,
              eos_token_id: Optional[int] = None,
              temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
@@ -372,6 +410,9 @@ def generate(model, input_ids, max_new_tokens: int,
             f"generate: prompt ({P}) + max_new_tokens ({max_new_tokens}) "
             f"= {L} exceeds the model's max_position_embeddings ({max_pos})")
     eos = -1 if eos_token_id is None else int(eos_token_id)
+    _note_decode_loop(model, (B, P, max_new_tokens, temperature == 0.0,
+                              float(temperature), int(top_k), float(top_p), eos_token_id,
+                              use_cache, multi_token))
     with torch.no_grad(), predict_mode():
         if not use_cache:
             return _generate_nocache(model, ids, max_new_tokens, eos,

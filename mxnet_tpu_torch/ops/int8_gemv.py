@@ -33,6 +33,7 @@ from typing import Dict, Optional
 
 import torch
 
+from .. import metrics as _metrics
 from ..base import MXNetError
 
 __all__ = ["int8_weight_matmul", "int4_weight_matmul", "weight_matmul",
@@ -40,7 +41,7 @@ __all__ = ["int8_weight_matmul", "int4_weight_matmul", "weight_matmul",
            "record_launch", "reset_launches", "launches", "record_dma",
            "dma_ledger", "gemv_max_m", "GEMV_INT4_BLOCK", "GEMV_TILE_MIN_M",
            "GEMV_TILE_K", "gemv_route", "gemv_routes", "gemv_widths", "record_lane", "dtype_lanes",
-           "record_graph", "GraphTally"]
+           "record_graph", "GraphTally", "note_build"]
 
 # row threshold of the GEMV route: at most this many rows stream int8
 # weights through K3, more take the activation-quantized int8 product
@@ -151,6 +152,30 @@ class GraphTally:
         d = getattr(_TALLY, "d", None)
         if d is not None:
             _add(d, self.kinds)
+
+
+def note_build(tally: GraphTally, dma: Optional[GraphTally] = None):
+    """Count one built step in ``mxnet_decode_launches_total`` (its launch
+    sites per kind, ``tally.kinds``) and ``mxnet_decode_dma_*`` (the page
+    copies of ``dma``'s records, default ``tally``'s): the JAX package
+    counts both once per compiled step, when it traces it
+    (``mxnet_tpu/ops/int8_gemv.py`` ``record_launch``/``record_dma``); the
+    port counts once per built step, from its capture's tally, or from its
+    first run's where nothing is captured. K7 starts copies by position, so
+    its DMA program is read from a run that computed it (a capture's values
+    exist only after a replay); reading device values syncs, which a build
+    may. The runtime counts (:func:`launches`, :func:`dma_ledger`) are
+    separate."""
+    if not _metrics.ENABLED:
+        return
+    for kind, n in tally.kinds.items():
+        _metrics.DECODE_LAUNCHES.labels(kind=kind).inc(n)
+    entries = (tally if dma is None else dma).dma
+    if entries:
+        copies, nbytes, waits = (sum(int(e[i]) for e in entries) for i in range(3))
+        _metrics.DECODE_DMA_COPIES.inc(copies)
+        _metrics.DECODE_DMA_BYTES.inc(nbytes)
+        _metrics.DECODE_DMA_WAITS.inc(waits)
 
 
 @contextlib.contextmanager

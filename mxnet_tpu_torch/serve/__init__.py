@@ -1,7 +1,25 @@
-from .engine import InferenceEngine, RequestHandle, ServeResult
+"""Inference serving (counterpart of ``mxnet_tpu/serve``): the
+continuous-batching engine, its stdlib HTTP frontend, live weight
+publishing and the multi-model registry, grammar-constrained and
+self-speculative decoding."""
+from .engine import (InferenceEngine, RequestHandle, ServeResult,
+                     QueueFullError, EngineClosedError,
+                     STATUS_OK, STATUS_TIMEOUT, STATUS_CANCELLED,
+                     STATUS_SHUTDOWN, STATUS_ERROR)
 from .grammar import TokenGrammar, clear_grammar_cache, compile_grammar, schema_regex
+from .http import HTTPFrontend, serve_forever
+from .registry import (ModelRegistry, WeightRefresher, latest_weight_version,
+                       publish_from_checkpoint, publish_weights, read_weights,
+                       snapshot_params, weight_versions)
 from .speculate import constrain_draft, draft_from_history
 
-__all__ = ["InferenceEngine", "RequestHandle", "ServeResult", "TokenGrammar",
-           "compile_grammar", "schema_regex", "clear_grammar_cache",
-           "draft_from_history", "constrain_draft"]
+__all__ = ["InferenceEngine", "RequestHandle", "ServeResult",
+           "QueueFullError", "EngineClosedError",
+           "STATUS_OK", "STATUS_TIMEOUT", "STATUS_CANCELLED", "STATUS_SHUTDOWN",
+           "STATUS_ERROR",
+           "HTTPFrontend", "serve_forever",
+           "ModelRegistry", "WeightRefresher",
+           "publish_weights", "publish_from_checkpoint", "read_weights",
+           "snapshot_params", "latest_weight_version", "weight_versions",
+           "TokenGrammar", "compile_grammar", "schema_regex",
+           "clear_grammar_cache", "draft_from_history", "constrain_draft"]

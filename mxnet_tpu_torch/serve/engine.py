@@ -109,12 +109,43 @@ on the CPU by design), and a batch with any top-k/top-p row on
   its state. Rounds are synchronous (no lookahead); the clocks advance per
   token appended at the read. Exclusive with ``multi_token > 1``.
 
-Live weight swaps, page migration, HTTP, metrics and tuned configs are
-later slices.
+- **Teacher-forced scoring** (:meth:`InferenceEngine.score`): per-token
+  log-probabilities of a given sequence in one forward of its prompt
+  bucket over fresh contiguous caches (both layouts): no decode loop, no
+  slot, no pool traffic, so it runs from any thread while the engine
+  serves. On the card each bucket is one CUDA graph (:meth:`warmup_score`
+  captures the ladder) in a memory pool and on a stream of its own, and a
+  weight lock makes every score see one whole weight set.
+- **Live weight swaps** (:meth:`InferenceEngine.swap_weights`): a
+  published weight set (``serve/registry.py``) is validated against the
+  live parameters, staged, and copied in place into them by the engine
+  loop at the next tick boundary. The captured graphs read those
+  addresses, so nothing is recaptured (``stats()["captures"]`` stays put)
+  and in-flight requests decode on across the swap. A quantized model's
+  int8 and int4 tables are derived from the swapped weights in place, as
+  ``quantize_net`` derives them (the JAX package holds them as trace
+  constants, which its swap does not reach). Engines with fused decode
+  packs or a fused head refuse, as the JAX engine does.
+- **Drain** (:meth:`InferenceEngine.begin_drain`): submits raise at once,
+  in-flight slots finish, queued requests complete with status
+  ``shutdown``.
+- **Telemetry.** The JAX engine's ``mxnet_serve_*`` families at its sites
+  (``metrics``), request spans under a W3C ``traceparent``
+  (``observability.trace``: ``serve.request`` > ``serve.queue``,
+  ``serve.prefill`` > ``serve.prefill_chunk``, ``serve.decode_chunk``),
+  flight-recorder events, and per-token stream events for SSE
+  (``submit(stream=True)``). ``mxnet_serve_compiles_total`` counts the
+  steps built (captures on the card, where JAX counts compiles), and each
+  built step adds its launch sites to ``mxnet_decode_launches_total``.
+
+Page migration (``export_pages``/``import_pages``, ``submit(resume=)``)
+and tuned configs are later slices.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import queue as _qmod
 import threading
 import time
 import traceback
@@ -126,13 +157,17 @@ import numpy as np
 import torch
 
 from .. import _prng
+from .. import metrics as _metrics
 from ..base import MXNetError
 from ..models import generation as _gen
-from ..ops.int8_gemv import record_graph
+from ..observability import recorder as _recorder
+from ..observability import trace as _trace
+from ..ops.int8_gemv import count_launches, note_build, record_graph
 from . import grammar as _grammar
 from . import speculate as _spec
 from .bucketing import bucket_for, bucket_ladder
 from .paging import OutOfPages, PagePool, pages_for
+from .registry import _host_tensor
 
 __all__ = ["InferenceEngine", "RequestHandle", "ServeResult",
            "QueueFullError", "EngineClosedError", "STATUS_OK",
@@ -148,6 +183,9 @@ STATUS_ERROR = "error"
 #: n-gram window of the prompt-lookup draft source (the JAX knob
 #: ``serve_spec_lookup``'s default)
 SPEC_LOOKUP = 4
+#: prefix-cache roots a paged engine advertises in ``stats()`` and
+#: ``/healthz`` (the JAX knob ``serve_prefix_advert``'s default)
+PREFIX_ADVERT = 8
 
 
 class QueueFullError(MXNetError):
@@ -169,6 +207,9 @@ class ServeResult:
     ttft_s: Optional[float] = None
     latency_s: float = 0.0
     error: Optional[str] = None
+    #: trace id of the request's span tree (the ``/trace/{id}`` key); set
+    #: only while tracing is enabled, else None
+    trace_id: Optional[str] = None
 
     @property
     def output_ids(self) -> List[int]:
@@ -202,6 +243,24 @@ class RequestHandle:
         self._resume: Optional[List[int]] = None
         #: the compiled grammar constraining this request (None: free)
         self.grammar: Optional[_grammar.TokenGrammar] = None
+        self._status = "queued"
+        # request span tree: root and the open phase spans (None while
+        # tracing is off: one is-None check per site)
+        self._trace = None
+        self._span_queue = None
+        self._span_prefill = None
+        # submit(stream=True): ("token", id) per emitted token, then
+        # ("done", ServeResult); the SSE frontend drains it
+        self._events: Optional["_qmod.Queue"] = None
+
+    @property
+    def status(self) -> str:
+        """``queued``, ``running``, or the terminal status."""
+        return self._status
+
+    @property
+    def trace_id(self) -> Optional[str]:
+        return self._trace.trace_id if self._trace is not None else None
 
     def done(self) -> bool:
         return self._event.is_set()
@@ -224,13 +283,21 @@ class RequestHandle:
 
     def _complete(self, result: ServeResult):
         self._result = result
+        self._status = result.status
+        if self._events is not None:
+            self._events.put(("done", result))
         self._event.set()
+
+    def _emit(self, tok: int):
+        if self._events is not None:
+            self._events.put(("token", int(tok)))
 
 
 @dataclasses.dataclass
 class _Slot:
     req: RequestHandle
     generated: List[int]
+    t_last: float = 0.0
 
 
 @dataclasses.dataclass
@@ -322,7 +389,8 @@ class _Step:
     bucket's fixed input buffers and returns its output. On the card
     ``graph`` is ``fn`` captured as a CUDA graph, ``out`` its output and
     ``tally`` its launch records; calling replays the graph and counts the
-    replay. Elsewhere calling runs ``fn``."""
+    replay. Elsewhere calling runs ``fn``, and ``tally`` holds the launch
+    records of the build's first run."""
 
     def __init__(self, fn: Callable, graph=None, out=None, tally=None):
         self.fn = fn
@@ -372,6 +440,12 @@ class InferenceEngine:
     spec_lookup : longest n-gram the draft source matches
         (:data:`SPEC_LOOKUP`)
     grammar : serve grammar-constrained requests (module docstring)
+    name : the model name this engine serves (``/generate``'s ``model``
+        key, the ``model`` label of the weight-version metrics)
+    tier : the disaggregated-fleet tier advertised in ``stats()`` and
+        ``/healthz`` (``"prefill"``, ``"decode"``; None = mixed)
+    prefix_advert : prefix-cache roots a paged engine advertises
+        (:data:`PREFIX_ADVERT`; 0 = none)
 
     Diagnostic: ``engine._eager = True``, set before :meth:`start` and
     :meth:`warmup`, makes the card run every step's function eagerly
@@ -387,7 +461,9 @@ class InferenceEngine:
                  page_size: int = 16, num_pages: Optional[int] = None,
                  prefix_cache: bool = True, prefill_chunk: Optional[int] = None,
                  speculate: int = 0, spec_draft: int = 0,
-                 spec_lookup: int = SPEC_LOOKUP, grammar: bool = False):
+                 spec_lookup: int = SPEC_LOOKUP, grammar: bool = False,
+                 name: str = "default", tier: Optional[str] = None,
+                 prefix_advert: int = PREFIX_ADVERT):
         if max_batch_size < 1:
             raise MXNetError("max_batch_size must be >= 1")
         if max_len < 2:
@@ -408,6 +484,8 @@ class InferenceEngine:
             raise MXNetError("spec_draft must be >= 0 (0 = full width)")
         if spec_lookup < 1:
             raise MXNetError("spec_lookup must be >= 1")
+        if prefix_advert < 0:
+            raise MXNetError("prefix_advert must be >= 0 (0 = no advert)")
         if grammar and getattr(model.cfg, "vocab_size", None) is None:
             raise MXNetError(
                 "grammar=True requires a model config with vocab_size (the "
@@ -435,6 +513,23 @@ class InferenceEngine:
                              "enabled; call model.disable_fused_decode()")
         self.model = model
         self.device = model.device
+        self.name = str(name)
+        self.tier = str(tier) if tier else None
+        self._prefix_advert = int(prefix_advert)
+        self._fused_blocks = fused_blocks
+        # live weight swaps: the parameters by their publish names
+        # (``named_parameters()``: the JAX package's collect_params names),
+        # the served version, and staged swaps applied by the loop at a
+        # tick boundary ({"params", "version", "evt", "ok"}); the weights
+        # lock makes a score see all-old or all-new weights
+        self._params: Dict[str, torch.Tensor] = dict(model.named_parameters())
+        self.weight_version = 0
+        self._weight_swaps = 0
+        self._swaps: List[Dict[str, Any]] = []
+        self._weights_lock = threading.Lock()
+        self._weights_event = None
+        #: checkpoint health tag of the served weights (WeightRefresher)
+        self.weight_health = None
         self.S = int(max_batch_size)
         self.L = int(max_len)
         self.K = int(multi_token)
@@ -465,6 +560,9 @@ class InferenceEngine:
             self.maxp = self.L // self.page_size
             # the pools carry one extra SINK page (index num_pages)
             self._pools = model.new_pools(num_pages + 1, self.page_size)
+            # KV bytes of one token across the pools (prefix bytes saved)
+            self._tok_bytes = sum(p.numel() * p.element_size() for p in self._pools) \
+                // ((num_pages + 1) * self.page_size)
             self._chunk = min(int(prefill_chunk or self.page_size), self.L)
             if self._chunk < 1:
                 raise MXNetError("prefill_chunk must be >= 1")
@@ -508,8 +606,12 @@ class InferenceEngine:
         self._cond = threading.Condition(self._lock)
         self._running = False
         self._closed = False
+        self._draining = False
         self._abort_inflight = False
         self._thread: Optional[threading.Thread] = None
+        # test hook (the JAX engine's): a sleep after every decode tick, so
+        # that deadlines, drains and backpressure are deterministic
+        self._step_delay = 0.0
 
         # counters for stats()
         self._submitted = 0
@@ -540,6 +642,18 @@ class InferenceEngine:
         self._captures = 0
         self._graph_pool = None
         self._cap_stream = None
+        # scoring: one step per prompt bucket over its own fixed inputs,
+        # with a memory pool and stream apart from the engine's (score runs
+        # on caller threads, concurrently with the loop's replays) and a
+        # lock per bucket around its staging buffers
+        self._score_steps: Dict[int, _Step] = {}
+        self._score_io: Dict[int, _Buffers] = {}
+        self._score_locks: Dict[int, threading.Lock] = {}
+        self._score_pool = None
+        self._score_stream = None
+        # prompt buckets whose eager contiguous prefill has had its launch
+        # sites counted (mxnet_decode_launches_total)
+        self._prefill_counted: set = set()
         self.last_warmup_s: Optional[float] = None
         cuda = self.device.type == "cuda"
         # a verify round's [sb, spec] tokens and [sb] acceptance, read at once
@@ -563,22 +677,47 @@ class InferenceEngine:
         self._thread.start()
         return self
 
+    def begin_drain(self):
+        """Start a graceful drain without blocking: submits raise
+        :class:`EngineClosedError` from now on (a router fails over),
+        in-flight slots decode to completion on the loop, and queued
+        requests complete with status 'shutdown'. ``POST /drain`` calls
+        this; ``shutdown(drain=True)`` is this plus a join."""
+        _recorder.RECORDER.record("event", "engine_drain_begin")
+        self.shutdown(drain=True, timeout=0.0)
+
     def shutdown(self, drain: bool = True, timeout: Optional[float] = None):
         """Stop the engine. ``drain=True`` finishes in-flight slots (queued
         requests complete with status 'shutdown'); ``drain=False`` also
-        completes in-flight requests with their partial output."""
+        completes in-flight requests with their partial output, and turns a
+        drain begun earlier into an abort. ``timeout=0.0`` returns without
+        waiting for the loop (:meth:`begin_drain`)."""
         with self._cond:
             self._closed = True
-            self._running = False
-            self._abort_inflight = not drain
-            self._cond.notify_all()
-            flushed = [] if self._thread is not None else list(self._queue)
-            if self._thread is None:
+            self._draining = drain
+            was_running = self._running
+            flushed = []
+            if was_running:
+                self._running = False
+                self._abort_inflight = not drain
+                self._cond.notify_all()
+            else:
+                flushed = list(self._queue)
                 self._queue.clear()
         for req in flushed:
             self._finish_unstarted(req, STATUS_SHUTDOWN)
-        if self._thread is not None:
-            self._thread.join(timeout)
+        thread = self._thread
+        if thread is not None and thread.is_alive():
+            if not was_running and not drain:
+                # a begin_drain() stopped admissions already: abort the
+                # slots it is still finishing
+                with self._cond:
+                    self._abort_inflight = True
+                    self._cond.notify_all()
+            thread.join(timeout)
+            if thread.is_alive():
+                return            # begin_drain: the loop finishes on its own
+        self._apply_swaps()      # the loop is down: wake swap waiters
 
     def __enter__(self):
         return self.start()
@@ -646,37 +785,49 @@ class InferenceEngine:
             return ("fused", "filtered")
         return ("greedy", "sampled")
 
-    def _build(self, fn: Callable, io: _Buffers, safe: Callable, what: str) -> _Step:
+    def _build(self, fn: Callable, io: _Buffers, safe: Callable, what: str,
+               label: str, first: bool, score: bool = False) -> _Step:
         """One step of a bucket: ``fn`` run once on the ``safe`` inputs
         (its launches uncounted), then, on the card, captured into a CUDA
-        graph on the engine's capture stream and memory pool. A failed
-        capture raises, naming ``what``."""
+        graph on the engine's capture stream and memory pool (a ``score``
+        step: the scoring stream and pool). A failed capture raises, naming
+        ``what``. The build counts in ``mxnet_serve_compiles_total{fn=
+        label}`` and ``mxnet_recompilations_total{block=serve_<label>}``
+        (``first``: the label's first build, kind ``initial``), and adds
+        the step's launch sites to ``mxnet_decode_launches_total``."""
         dev = self.device
         cuda = dev.type == "cuda"
-        stream = None
+        stream = pool = None
         if cuda:
-            if self._cap_stream is None:
-                self._cap_stream = torch.cuda.Stream(dev)
-                self._graph_pool = torch.cuda.graph_pool_handle()
-            stream = self._cap_stream
+            if score:
+                if self._score_stream is None:
+                    self._score_stream = torch.cuda.Stream(dev)
+                    self._score_pool = torch.cuda.graph_pool_handle()
+                stream, pool = self._score_stream, self._score_pool
+            else:
+                if self._cap_stream is None:
+                    self._cap_stream = torch.cuda.Stream(dev)
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                stream, pool = self._cap_stream, self._graph_pool
             stream.wait_stream(torch.cuda.current_stream(dev))
-        bufs = [io, self._gtab] if self._grammar else [io]
+        grammar = self._grammar and not score
+        bufs = [io, self._gtab] if grammar else [io]
         with torch.no_grad(), torch.cuda.stream(stream):
             saved = [b.dev.clone() for b in bufs]
             safe(io)
-            if self._grammar:
+            if grammar:
                 self._gtab.dev.zero_()
                 self._gtab.gacc.fill_(True)
-            with record_graph():
+            with record_graph() as ran:
                 fn()
             for b, v in zip(bufs, saved):
                 b.dev.copy_(v)
-            step = _Step(fn)
+            step = _Step(fn, tally=ran)
+            tally = ran
             if cuda and not self._eager:
                 graph = torch.cuda.CUDAGraph()
                 try:
-                    graph.capture_begin(pool=self._graph_pool,
-                                        capture_error_mode="thread_local")
+                    graph.capture_begin(pool=pool, capture_error_mode="thread_local")
                     try:
                         with record_graph() as tally:
                             out = fn()
@@ -689,6 +840,10 @@ class InferenceEngine:
                 step = _Step(fn, graph, out, tally)
         if cuda:
             torch.cuda.current_stream(dev).wait_stream(stream)
+        note_build(tally, ran)
+        _metrics.SERVE_COMPILES.labels(fn=label).inc()
+        _metrics.RECOMPILATIONS.labels(block=f"serve_{label}",
+                                       kind="initial" if first else "retrace").inc()
         with self._lock:
             self._captures += 1
         return step
@@ -768,7 +923,8 @@ class InferenceEngine:
             else:
                 io.pos.fill_(self.L - K)
 
-        step = self._build(fn, io, safe, f"decode bucket {sb} ({steps} substeps, {branch})")
+        step = self._build(fn, io, safe, f"decode bucket {sb} ({steps} substeps, {branch})",
+                           "decode", not self._steps)
         with self._lock:
             self._steps[key] = step
         return step
@@ -796,7 +952,8 @@ class InferenceEngine:
             io.dev.zero_()
             io.table.fill_(self._pages.sink)
 
-        step = self._build(fn, io, safe, f"prefill chunk bucket {pb}")
+        step = self._build(fn, io, safe, f"prefill chunk bucket {pb}", "prefill",
+                           not self._chunks)
         with self._lock:
             self._chunks[pb] = step
         return step
@@ -859,7 +1016,8 @@ class InferenceEngine:
             else:
                 io.pos.fill_(self.L - T)
 
-        step = self._build(fn, io, safe, f"verify bucket {sb} ({branch})")
+        step = self._build(fn, io, safe, f"verify bucket {sb} ({branch})", "spec",
+                           not self._spec_steps)
         with self._lock:
             self._spec_steps[key] = step
         return step
@@ -868,19 +1026,25 @@ class InferenceEngine:
     def submit(self, input_ids, max_new_tokens: int,
                eos_token_id: Optional[int] = None, temperature: float = 0.0,
                top_k: int = 0, top_p: float = 1.0, seed: int = 0,
-               timeout_s: Optional[float] = None, grammar=None) -> RequestHandle:
+               timeout_s: Optional[float] = None, grammar=None,
+               traceparent: Optional[str] = None, stream: bool = False) -> RequestHandle:
         """Enqueue one request (one sequence of token ids). Returns a
         :class:`RequestHandle`; may raise :class:`QueueFullError` or
         :class:`EngineClosedError`.
+
+        ``traceparent`` (a W3C header value) parents the request's span
+        tree, so one trace id follows the request across processes; it is
+        ignored while tracing is off. ``stream=True`` feeds
+        ``handle._events``: ``("token", id)`` per emitted token, once the
+        host knows it, then ``("done", ServeResult)`` (the SSE frontend's
+        source).
 
         ``grammar`` constrains every generated token: a regex string, a
         JSON-schema dict or a compiled :class:`~mxnet_tpu_torch.serve.
         grammar.TokenGrammar`. It needs an engine built with
         ``grammar=True`` and an ``eos_token_id`` (an accept state with no
         continuation ends by EOS)."""
-        prompt = [int(t) for t in np.asarray(input_ids).reshape(-1)]
-        if not prompt:
-            raise MXNetError("input_ids must hold at least one token")
+        prompt = self._as_prompt(input_ids)
         if any(t < 0 or t >= self._vocab for t in prompt):
             raise MXNetError(f"input_ids contain tokens outside [0, {self._vocab})")
         if max_new_tokens <= 0:
@@ -917,20 +1081,33 @@ class InferenceEngine:
             else:
                 g = _grammar.compile_grammar(grammar, self._vocab,
                                              max_states=self._gmax)
+            _metrics.GRAMMAR_SESSIONS.inc()
         deadline = (time.perf_counter() + timeout_s
                     if timeout_s is not None else None)
         req = RequestHandle(prompt, int(max_new_tokens), float(temperature),
                             eos_token_id, int(seed), deadline, int(top_k), float(top_p))
         req.grammar = g
+        if stream:
+            req._events = _qmod.Queue()
+        t_wall = time.time()
         with self._cond:
             if self._closed or not self._running:
                 raise EngineClosedError("engine is not running (call start(), "
                                         "or it was shut down)")
             if len(self._queue) >= self.max_queue_depth:
+                _metrics.SERVE_REQUESTS.labels(status="rejected").inc()
                 raise QueueFullError(f"request queue full (max_queue_depth="
-                                     f"{self.max_queue_depth})")
+                                     f"{self.max_queue_depth}); retry with backoff")
+            if _trace.ENABLED:
+                # spans open only for admitted requests (t0 backdated to
+                # the arrival)
+                req._trace = _trace.start_span(
+                    "serve.request", parent=traceparent, t0=t_wall,
+                    prompt_tokens=len(prompt), max_new_tokens=int(max_new_tokens))
+                req._span_queue = req._trace.child("serve.queue", t0=t_wall)
             self._queue.append(req)
             self._submitted += 1
+            _metrics.SERVE_QUEUE_DEPTH.set(len(self._queue))
             self._cond.notify_all()
         return req
 
@@ -939,18 +1116,257 @@ class InferenceEngine:
         """Synchronous convenience: submit + wait."""
         return self.submit(input_ids, max_new_tokens, **kwargs).result(timeout)
 
+    @staticmethod
+    def _as_prompt(input_ids) -> List[int]:
+        """One token sequence of shape [P] or [1, P] as a list of ints."""
+        arr = np.asarray(input_ids)
+        if arr.ndim == 2 and arr.shape[0] == 1:
+            arr = arr[0]
+        if arr.ndim != 1 or arr.size == 0:
+            raise MXNetError(
+                "submit expects one non-empty token sequence (shape [P] "
+                f"or [1, P]), got shape {arr.shape}")
+        return [int(t) for t in arr]
+
+    # ------------------------------------------------------------ scoring
+    def warmup_score(self) -> "InferenceEngine":
+        """Build the score step of every prompt bucket
+        (``bucket_ladder(min_prompt_bucket, max_len)``): :meth:`score`'s
+        :meth:`warmup`, kept apart so that engines that never score pay
+        nothing. On the card each is a captured CUDA graph."""
+        if self.device.type == "cuda":
+            from .. import _build
+            _build.build_all()
+        for pb in bucket_ladder(self.min_prompt_bucket, self.L, self._growth):
+            with self._score_lock(pb):
+                self._get_score(pb)
+        return self
+
+    def _score_lock(self, pb: int) -> threading.Lock:
+        with self._lock:
+            return self._score_locks.setdefault(pb, threading.Lock())
+
+    def _get_score(self, pb: int) -> _Step:
+        """The score step of prompt bucket ``pb`` (caller holds its lock):
+        one forward of the [1, pb] ids at position 0 over fresh contiguous
+        caches of ``max_len`` rows, then the f32 ``log_softmax`` of each
+        row's logits at the next id; rows at or past ``n - 1`` give exactly
+        0 (the JAX engine's ``_build_score``). The serving pools are never
+        touched."""
+        step = self._score_steps.get(pb)
+        if step is not None:
+            return step
+        io = self._score_io[pb] = _Buffers(self.device, [
+            ("ids", (1, pb), torch.int32), ("pos", (1,), torch.int32),
+            ("n", (1,), torch.int32)])
+        model, L = self.model, self.L
+
+        def fn():
+            # position 0 as a [1] device vector: an int offset would copy
+            # from the host, which a capture forbids
+            caches = model.new_caches(1, L)
+            logits, _ = _gen.decode_step(model, io.ids, io.pos, caches)
+            lp = torch.log_softmax(logits[0].float(), dim=-1)           # [pb, V]
+            tgt = torch.roll(io.ids[0], -1).long()
+            tok_lp = lp.gather(1, tgt[:, None])[:, 0]
+            idx = torch.arange(pb, device=tok_lp.device)
+            return torch.where(idx < io.n - 1, tok_lp, torch.zeros_like(tok_lp))
+
+        def safe(io):
+            io.dev.zero_()
+            io.n.fill_(2)
+
+        step = self._build(fn, io, safe, f"score bucket {pb}", "score",
+                           not self._score_steps, score=True)
+        with self._lock:
+            self._score_steps[pb] = step
+        return step
+
+    def score(self, input_ids) -> Dict[str, Any]:
+        """Teacher-forced scoring: the log-probability of each of
+        ``input_ids[1:]`` given its prefix, from one forward of the prompt
+        bucket (no decode loop, no slot, no queue, no pool traffic), safe
+        from any thread while the engine serves. The weights lock makes it
+        read one whole weight set. Returns ``{"tokens", "logprob",
+        "token_logprobs"}``."""
+        prompt = self._as_prompt(input_ids)
+        if len(prompt) < 2:
+            raise MXNetError(
+                "score requires at least 2 tokens (the first token has "
+                "no conditional to score)")
+        if any(t < 0 or t >= self._vocab for t in prompt):
+            raise MXNetError(f"input_ids contain tokens outside [0, {self._vocab})")
+        if len(prompt) > self.L:
+            raise MXNetError(f"score sequence ({len(prompt)}) exceeds the engine's "
+                             f"max_len ({self.L})")
+        n = len(prompt)
+        pb = bucket_for(n, self.min_prompt_bucket, self.L, self._growth)
+        cuda = self.device.type == "cuda"
+        with self._score_lock(pb):
+            with torch.no_grad():
+                step = self._get_score(pb)
+                io = self._score_io[pb]
+                stream = self._score_stream if cuda else None
+                with torch.cuda.stream(stream):
+                    h = io.host()
+                    h["ids"][:] = 0
+                    h["ids"][0, :n] = prompt
+                    h["pos"][0] = 0
+                    h["n"][0] = n
+                    io.upload(0, io.nbytes)
+                    with self._weights_lock:
+                        if stream is not None and self._weights_event is not None:
+                            stream.wait_event(self._weights_event)
+                        lp = step()[:n - 1].cpu().numpy()
+        _metrics.SERVE_ROUNDTRIPS.labels(path="score").inc()
+        toklp = [float(x) for x in lp]
+        return {"tokens": n - 1, "logprob": float(sum(toklp)),
+                "token_logprobs": toklp}
+
+    # ------------------------------------------------------- weight refresh
+    def swap_weights(self, named_params: Dict[str, Any],
+                     version: Optional[int] = None, timeout: float = 60.0) -> int:
+        """Swap the served weights for a new set of the same shapes: no
+        restart, nothing recaptured, and in-flight requests decode on
+        across the swap (their cache rows were written by the old weights;
+        tokens from the next tick on come from the new ones).
+
+        ``named_params`` maps each parameter's publish name (the JAX
+        package's ``collect_params`` names, which ``named_parameters()``
+        carries) to an array or tensor, cast to the live dtype. Missing,
+        extra and differently shaped names raise before anything is
+        staged. The engine loop copies the set into the live parameters in
+        place at the next tick boundary (inline when the loop is not
+        running); a quantized model's tables are derived again from the
+        new weights. Returns the version now serving (default: the current
+        one + 1)."""
+        if version is None:
+            version = self.weight_version + 1
+        version = int(version)
+        if self._head is not None or self._fused_blocks:
+            raise MXNetError(
+                "swap_weights: this engine serves fused int8 decode "
+                "(packed weights are baked into the executables); live "
+                "refresh needs the unfused path — build a new engine "
+                "for quantized fused-decode deploys")
+        names = list(self._params)
+        missing = [n for n in names if n not in named_params]
+        if missing:
+            raise MXNetError(
+                f"swap_weights: missing {len(missing)} params (first: "
+                f"{missing[:3]}); expected the publish naming "
+                "(collect_params)")
+        extra = set(named_params) - set(names)
+        if extra:
+            raise MXNetError(
+                f"swap_weights: {len(extra)} unknown params (first: "
+                f"{sorted(extra)[:3]}) — wrong model?")
+        staged = {}
+        for name in names:
+            cur = self._params[name]
+            arr = _host_tensor(named_params[name])
+            if tuple(arr.shape) != tuple(cur.shape):
+                raise MXNetError(
+                    f"swap_weights: shape mismatch for {name!r}: "
+                    f"{tuple(arr.shape)} vs live {tuple(cur.shape)} — "
+                    "changed shapes need a new engine (and a recompile)")
+            staged[name] = arr.to(cur.dtype)
+        rec = {"params": staged, "version": version, "evt": threading.Event(),
+               "ok": False}
+        with self._cond:
+            # the loop THREAD's life decides, not _running: a draining loop
+            # still decodes, and an inline copy would land mid-tick
+            alive = self._thread is not None and self._thread.is_alive()
+            if alive:
+                self._swaps.append(rec)
+                self._cond.notify_all()
+        if not alive:
+            self._copy_weights(staged)
+            self._note_swap(version)
+            return version
+        if not rec["evt"].wait(timeout):
+            raise MXNetError(f"swap_weights: engine loop did not apply the swap "
+                             f"within {timeout}s")
+        if not rec["ok"]:
+            raise MXNetError(
+                "swap_weights: the engine loop went down before "
+                f"applying v{version}; still serving v{self.weight_version}")
+        return version
+
+    def swap_weights_from(self, directory: str, version: Optional[int] = None) -> int:
+        """Load a published weight version (``registry.publish_weights``
+        layout; default the latest) and swap to it: the ``POST /weights``
+        deploy path."""
+        from .registry import read_weights
+        version, params, _manifest = read_weights(directory, version)
+        return self.swap_weights(params, version=version)
+
+    def _copy_weights(self, staged: Dict[str, torch.Tensor]):
+        """Copy a staged set into the live parameters on the current
+        stream, after any score in flight, and derive a quantized model's
+        tables from it; scores wait for the copy's event. The prefix cache
+        is emptied: its pages hold rows the old weights computed, which a
+        new request must not map (the JAX engine keeps them). Slots that
+        hold such pages decode on with them, as in-flight requests do."""
+        from ..contrib.quantization import requantize_
+        cuda = self.device.type == "cuda"
+        with self._weights_lock, torch.no_grad():
+            if cuda and self._score_stream is not None:
+                torch.cuda.current_stream(self.device).wait_stream(self._score_stream)
+            for name, src in staged.items():
+                self._params[name].copy_(src, non_blocking=True)
+            requantize_(self.model)
+            if cuda:
+                self._weights_event = torch.cuda.Event()
+                self._weights_event.record()
+        if self._paged:
+            self._pages.clear_prefix_cache()
+
+    def _note_swap(self, version: int):
+        self.weight_version = version
+        self._weight_swaps += 1
+        _metrics.SERVE_WEIGHT_VERSION.labels(model=self.name).set(version)
+        _metrics.SERVE_WEIGHT_SWAPS.labels(model=self.name).inc()
+        _recorder.RECORDER.record("event", "serve.weight_swap",
+                                  model=self.name, version=version)
+
+    def _apply_swaps(self):
+        """Adopt the newest staged weight set (engine loop, at a tick
+        boundary; or the caller once the loop is down). Versions staged in
+        the same window are superseded; their waiters succeed too."""
+        with self._lock:
+            swaps, self._swaps = self._swaps, []
+        if not swaps:
+            return
+        self._copy_weights(swaps[-1]["params"])
+        self._note_swap(swaps[-1]["version"])
+        for rec in swaps:
+            rec["ok"] = True
+            rec["evt"].set()
+
     # ------------------------------------------------------------ loop
     def _loop(self):
         try:
             with torch.no_grad():
                 self._loop_inner()
-        except Exception:  # the engine thread's boundary: fail, never hang
+                # a swap staged after the last tick's apply still lands
+                self._apply_swaps()
+        except Exception as e:  # the engine thread's boundary: fail, never hang
             err = traceback.format_exc()
+            # the flight-recorder moment: the ring with the crash, before
+            # the cleanup below changes the engine's state
+            _recorder.RECORDER.record(
+                "error", "engine_loop_crash", error=repr(e),
+                slots_active=sum(1 for s in self._slots if s is not None))
+            _recorder.RECORDER.dump("engine_exception", force=True)
             with self._cond:
                 self._running = False
                 self._closed = True
                 queued = list(self._queue)
                 self._queue.clear()
+                swaps, self._swaps = self._swaps, []
+            for rec in swaps:
+                rec["evt"].set()          # without "ok": the waiter learns
             pending, self._pending = self._pending, None
             if pending is not None:
                 try:
@@ -966,10 +1382,14 @@ class InferenceEngine:
 
     def _loop_inner(self):
         while True:
+            # a staged weight swap lands between ticks: everything below
+            # sees one weight set per iteration
+            self._apply_swaps()
             admits = []
             dead = []
             with self._cond:
-                while self._running and not self._queue and not any(self._slots):
+                while (self._running and not self._queue and not any(self._slots)
+                       and not self._swaps):
                     self._cond.wait(0.1)
                 stopping = not self._running
                 if stopping:
@@ -995,8 +1415,10 @@ class InferenceEngine:
                         req = self._queue.popleft()
                         if req.admit_t is None:    # a resume keeps its wait
                             req.admit_t = now
-                        self._slots[s] = _Slot(req, list(req._resume or ()))
+                        req._status = "running"
+                        self._slots[s] = _Slot(req, list(req._resume or ()), now)
                         admits.append((s, req))
+                    _metrics.SERVE_QUEUE_DEPTH.set(len(self._queue))
             for req, status in dead:
                 self._finish_unstarted(req, status)
             with self._tick_lock:
@@ -1026,12 +1448,28 @@ class InferenceEngine:
                     self._step_tick()
                 elif stopping and not active:
                     break
+                self._observe_occupancy()
+            if active and self._step_delay:
+                time.sleep(self._step_delay)
+
+    def _observe_occupancy(self):
+        n = sum(1 for s in self._slots if s is not None)
+        self._max_active = max(self._max_active, n)
+        _metrics.SERVE_SLOTS_IN_USE.set(n)
+        _metrics.SERVE_SLOT_OCCUPANCY.set(n / self.S)
 
     # ------------------------------------------------------------ prefill
     def _prefill(self, s: int, req: RequestHandle):
         """Prefill one request into contiguous slot ``s`` and select its
         token 0."""
         t0 = time.perf_counter()
+        _metrics.SERVE_QUEUE_WAIT.observe(t0 - req.submit_t)
+        _recorder.RECORDER.record("event", "serve.admit", slot=s,
+                                  prompt_tokens=len(req.prompt_ids))
+        if req._trace is not None:
+            req._span_queue.end()
+            req._span_queue = None
+            req._span_prefill = req._trace.child("serve.prefill", slot=s)
         P = len(req.prompt_ids)
         pb = bucket_for(P, self.min_prompt_bucket, self.L, self._growth)
         ids = np.zeros((1, pb), np.int32)
@@ -1042,15 +1480,25 @@ class InferenceEngine:
             c.zero_()
         if self._grammar:
             self._install_grammar(s, req)
-        hidden, _ = _gen.decode_step_hidden(self.model, ids, 0, caches)
-        tok0 = self._token0(s, hidden, P - 1, req, 0)
-        self._start_decode(s, req, tok0, t0, P, 0)
+        # the eager prefill is the JAX engine's prefill executable of this
+        # bucket: its launch sites count once, at the bucket's first run
+        first = pb not in self._prefill_counted
+        with (count_launches() if first else contextlib.nullcontext()) as sites:
+            hidden, _ = _gen.decode_step_hidden(self.model, ids, 0, caches)
+            tok0, sync_s = self._token0(s, hidden, P - 1, req, 0)
+        if first:
+            self._prefill_counted.add(pb)
+            for kind, n in sites.items():
+                _metrics.DECODE_LAUNCHES.labels(kind=kind).inc(n)
+        self._start_decode(s, req, tok0, t0, P, 0, sync_s)
 
-    def _token0(self, s: int, hidden, last: int, req: RequestHandle, counter: int) -> int:
+    def _token0(self, s: int, hidden, last: int, req: RequestHandle,
+                counter: int) -> Tuple[int, float]:
         """Draw slot ``s``'s next token from row ``last`` of a prefill's
         hidden state [1, T, D]: that row's logits alone (see the module
         docstring), sampled with the stream at ``counter``, under the mask
-        of the slot's automaton state when its request is constrained."""
+        of the slot's automaton state when its request is constrained.
+        Returns the token and the seconds its host read blocked."""
         logits = self.model._lm_head(hidden[:, last])
         keys = _prng.fold_keys([req.seed], [counter], self.device)
         mask = None
@@ -1063,17 +1511,29 @@ class InferenceEngine:
                 torch.full((1,), req.eos_token_id, dtype=torch.int32, device=dev))
         tok0 = _gen.sample_tokens(logits, keys, [req.temperature], [req.top_k],
                                   [req.top_p], mask=mask)
-        return int(tok0[0])
+        t_sync = time.perf_counter()
+        tok = int(tok0[0])
+        return tok, time.perf_counter() - t_sync
 
     def _start_decode(self, s: int, req: RequestHandle, tok0: int, t0: float,
-                      n_ids: int, emitted: int):
+                      n_ids: int, emitted: int, sync_s: float):
         """Activate slot ``s`` after its prefill of ``n_ids`` tokens, of
-        which the last ``emitted`` were generated before a preemption."""
+        which the last ``emitted`` were generated before a preemption
+        (``sync_s``: the token-0 read's blocking seconds)."""
         now = time.perf_counter()
         self._prefills += 1
         self._prefill_s += now - t0
+        _metrics.SERVE_HOST_SYNC.observe(sync_s)
+        _metrics.SERVE_ROUNDTRIPS.labels(path="prefill").inc()
+        _metrics.SERVE_PREFILL_SECONDS.observe(now - t0)
         if req.first_token_t is None:
             req.first_token_t = now
+            _metrics.SERVE_TTFT.observe(now - req.submit_t)
+        _metrics.SERVE_TOKENS.inc()
+        if req._span_prefill is not None:
+            req._span_prefill.set("ttft_s", round(now - req.submit_t, 6))
+            req._span_prefill.end()
+            req._span_prefill = None
         self._pos[s] = n_ids
         self._counters[s] = emitted + 1
         self._temps[s] = req.temperature
@@ -1084,10 +1544,14 @@ class InferenceEngine:
         self._remaining[s] = req.max_new_tokens - emitted - 1
         if self._paged:
             self._active[s] = True
-        self._slots[s].generated.append(tok0)
+        slot = self._slots[s]
+        slot.generated.append(tok0)
+        req._emit(tok0)
+        slot.t_last = now
         self._tokens[s] = tok0
         self._advance_gstate(s, tok0)
         self._check_finished(s, now)
+        self._observe_occupancy()
 
     # ------------------------------------------------------------ paged mode
     def _fits(self, req: RequestHandle) -> bool:
@@ -1101,16 +1565,34 @@ class InferenceEngine:
     def _admit_paged(self, s: int, req: RequestHandle):
         """Start a paged prefill: map the longest cached prefix into the
         slot's table and register the chunk cursor past it."""
+        first_admission = req._resume is None
         resume = list(req._resume or ())
         ids = list(req.prompt_ids) + resume
+        t0 = time.perf_counter()
+        if first_admission:
+            # a preempted request does not observe its queue wait again
+            _metrics.SERVE_QUEUE_WAIT.observe(t0 - req.submit_t)
+        _recorder.RECORDER.record("event", "serve.admit", slot=s,
+                                  prompt_tokens=len(ids),
+                                  resumed=not first_admission)
+        if req._trace is not None:
+            if req._span_queue is not None:
+                req._span_queue.end()
+                req._span_queue = None
+            req._span_prefill = req._trace.child(
+                "serve.prefill", slot=s, resumed=not first_admission)
+            if not first_admission:
+                req._trace.event("resume", tokens=len(resume))
         pages, matched = self._pages.match_prefix(ids)
         if matched:
             self._pages.map_prefix(s, pages, matched)
+            _metrics.SERVE_PREFIX_BYTES_SAVED.inc(matched * self._tok_bytes)
+            if req._span_prefill is not None:
+                req._span_prefill.event("prefix_cache_hit", tokens=matched)
         if self._grammar:
             self._install_grammar(s, req)
         self._prefilling[s] = _Prefill(ids=ids, cursor=matched,
-                                       counter0=len(resume),
-                                       t0=time.perf_counter())
+                                       counter0=len(resume), t0=t0)
 
     def _advance_prefills(self, unlimited: bool):
         """One chunk for each prefilling slot, or only one chunk in all
@@ -1130,10 +1612,16 @@ class InferenceEngine:
         """Copy-on-write: fork every shared page slot ``s`` is about to
         write in positions [start, end): the ledger swaps in a fresh page
         and every pool copies the page's rows."""
+        n = 0
         for ti, _ in self._pages.writable(s, start, end):
             src, dst = self._pages.fork(s, ti)
             for pool in self._pools:
                 pool[dst].copy_(pool[src])
+            n += 1
+        if n and self._slots[s] is not None:
+            req = self._slots[s].req
+            if req._trace is not None:
+                req._trace.event("cow_fork", pages=n)
 
     def _prefill_step_paged(self, s: int):
         """Advance slot ``s``'s prefill by one chunk. A middle chunk only
@@ -1164,6 +1652,7 @@ class InferenceEngine:
                                           self._growth)
         step = self._get_chunk(pb)
         io = self._chunk_io
+        t0w = time.time()
         h = io.host()
         h["ids"][:pb] = 0
         h["ids"][:n] = pf.ids[pf.cursor:pf.cursor + n]
@@ -1172,15 +1661,20 @@ class InferenceEngine:
         io.upload(0, io.nbytes)
         hidden = step()
         self._prefill_chunks += 1
+        if req._span_prefill is not None:
+            extra = {} if end < P else {"final": True}
+            req._span_prefill.child("serve.prefill_chunk", t0=t0w, start=pf.cursor,
+                                    end=end, **extra).end()
         if end < P:
             pf.cursor = end
+            _metrics.SERVE_PREFILL_CHUNKS.inc()
             return
-        tok0 = self._token0(s, hidden, n - 1, req, pf.counter0)
+        tok0, sync_s = self._token0(s, hidden, n - 1, req, pf.counter0)
         # publish the prompt for prefix reuse before decode writes touch
         # its tail page (the slot's own next write forks it)
         self._pages.insert_prefix(s, pf.ids)
         del self._prefilling[s]
-        self._start_decode(s, req, tok0, pf.t0, P, pf.counter0)
+        self._start_decode(s, req, tok0, pf.t0, P, pf.counter0, sync_s)
 
     def _preempt(self, s: int):
         """Release slot ``s``'s pages and requeue its request at the front
@@ -1197,9 +1691,21 @@ class InferenceEngine:
         self._reset_slot_state(s)
         self._preempted += 1
         self._resumed_tokens += len(slot.generated)
+        req = slot.req
+        _metrics.SERVE_PAGE_PREEMPTIONS.inc()
+        _recorder.RECORDER.record_preemption(slot=s, generated=len(req._resume))
+        if req._trace is not None:
+            if req._span_prefill is not None:
+                req._span_prefill.end(status="preempted")
+                req._span_prefill = None
+            req._trace.event("preempt", generated=len(req._resume))
+            # a fresh queue span covers the wait for re-admission
+            req._span_queue = req._trace.child("serve.queue", requeued=True)
+        req._status = "queued"
         with self._cond:
             # may exceed max_queue_depth: a preemption never drops a request
-            self._queue.appendleft(slot.req)
+            self._queue.appendleft(req)
+            _metrics.SERVE_QUEUE_DEPTH.set(len(self._queue))
 
     def _lease_decode(self):
         """Fork shared pages and lease growth for this tick's decode writes
@@ -1393,21 +1899,43 @@ class InferenceEngine:
             rec.event.synchronize()
         toks = rec.toks.numpy()
         now = time.perf_counter()
+        now_wall = time.time()
+        # the dispatch stamp on the wall clock, for the spans
+        chunk_t0w = now_wall - (now - rec.t0)
+        _metrics.SERVE_HOST_SYNC.observe(now - t0)
+        _metrics.SERVE_ROUNDTRIPS.labels(path="decode").inc()
         retired = False
+        appended = 0
         for s, slot in rec.slots:
             if self._slots[s] is not slot:
                 continue
+            # the dispatch's wall time spread over its tokens
+            per_tok = (now - slot.t_last) / rec.steps
+            row_tokens = 0
             for j in range(rec.steps):
                 tok = int(toks[s, j])
                 slot.generated.append(tok)
+                slot.req._emit(tok)
+                _metrics.SERVE_INTERTOKEN.observe(per_tok)
+                slot.t_last = now
                 self._tokens[s] = tok
                 self._advance_gstate(s, tok)
                 self._decode_tokens += 1
+                appended += 1
+                row_tokens += 1
                 self._check_finished(s, now)
                 if self._slots[s] is not slot:
                     retired = True
                     break                  # rest of the K-vector: discard
+            if slot.req._trace is not None and row_tokens:
+                slot.req._trace.child("serve.decode_chunk", t0=chunk_t0w,
+                                      tokens=row_tokens).end(t1=now_wall)
         self._decode_s += time.perf_counter() - t0
+        dt = now - rec.t0
+        _metrics.SERVE_STEP_SECONDS.observe(dt)
+        _metrics.SERVE_TOKENS.inc(appended)
+        if dt > 0:
+            _metrics.SERVE_TOKENS_PER_SEC.set(appended / dt)
         return retired
 
     # ------------------------------------------------------------ speculation
@@ -1447,7 +1975,9 @@ class InferenceEngine:
                     q0 = int(self._gstate[s])
                     h["gstates"][s] = q0
                     if self._gram[s] is not None:
-                        draft, states, _ = _spec.constrain_draft(draft, self._gram[s], q0)
+                        draft, states, rej = _spec.constrain_draft(draft, self._gram[s], q0)
+                        if rej:
+                            _metrics.GRAMMAR_REJECTED.inc(rej)
                         h["gstates"][s] = states[:T]
                 h["inputs"][s, 0] = self._tokens[s]
                 h["inputs"][s, 1:] = draft
@@ -1470,6 +2000,7 @@ class InferenceEngine:
             host = self._out_host[self._out_i][:sb]
             host.copy_(out, non_blocking=True)
             event = self._out_events[self._out_i]
+            t_sync = time.perf_counter()
             if event is not None:
                 event.record()
                 event.synchronize()
@@ -1479,40 +2010,67 @@ class InferenceEngine:
                 if self._slots[s] is not None:
                     self._retire(s, STATUS_ERROR, error=str(e))
             return
-        self._process_step_spec(cur, host.numpy(), t0)
+        self._process_step_spec(cur, host.numpy(), t0, t_sync)
 
-    def _process_step_spec(self, cur, out: np.ndarray, t0: float):
+    def _process_step_spec(self, cur, out: np.ndarray, t0: float, t_sync: float):
         """Apply one verify round (``out`` [sb, spec + 1]: tokens, then the
         accepted count): append each row's valid tokens in order, advancing
         its position, counter and budget per appended token, and stop a row
         at its EOS, budget, cancel or deadline."""
         T = self.spec
         now = time.perf_counter()
-        drafted = rejected = 0
+        now_wall = time.time()
+        chunk_t0w = now_wall - (now - t0)
+        _metrics.SERVE_HOST_SYNC.observe(now - t_sync)
+        _metrics.SERVE_ROUNDTRIPS.labels(path="decode").inc()
+        drafted = rejected = appended = 0
         for s, slot in cur:
             if self._slots[s] is not slot:
                 continue
             e = int(out[s, T])                   # 1..T valid tokens
             drafted += T - 1
             rejected += T - e
+            per_tok = (now - slot.t_last) / e
+            row_tokens = 0
             for j in range(e):
                 tok = int(out[s, j])
                 slot.generated.append(tok)
+                slot.req._emit(tok)
+                _metrics.SERVE_INTERTOKEN.observe(per_tok)
+                slot.t_last = now
                 self._tokens[s] = tok
                 self._advance_gstate(s, tok)
                 self._pos[s] += 1
                 self._counters[s] += 1
                 self._remaining[s] -= 1
                 self._decode_tokens += 1
+                appended += 1
+                row_tokens += 1
                 self._check_finished(s, now)
                 if self._slots[s] is not slot:
                     break                        # the rest of the round: discard
+            if slot.req._trace is not None and row_tokens:
+                slot.req._trace.child("serve.decode_chunk", t0=chunk_t0w,
+                                      tokens=row_tokens,
+                                      speculative=True).end(t1=now_wall)
         self._spec_rounds += 1
         self._spec_drafted += drafted
         self._spec_accepted += drafted - rejected
+        _metrics.SPEC_ROUNDS.inc()
+        if drafted:
+            _metrics.SPEC_DRAFTED.inc(drafted)
+            _metrics.SPEC_REJECTED.inc(rejected)
+            _metrics.SPEC_ACCEPTED.inc(drafted - rejected)
+        if self._spec_drafted:
+            _metrics.SPEC_ACCEPTANCE.set(self._spec_accepted / self._spec_drafted)
         self._dispatches += 1
         self._substeps += 1
         self._decode_s += time.perf_counter() - t0
+        dt = now - t0
+        _metrics.SERVE_STEP_SECONDS.observe(dt)
+        _metrics.SERVE_TOKENS.inc(appended)
+        if dt > 0:
+            _metrics.SERVE_TOKENS_PER_SEC.set(appended / dt)
 
     # ------------------------------------------------------------ grammar
     def _install_grammar(self, s: int, req: RequestHandle):
@@ -1613,25 +2171,52 @@ class InferenceEngine:
             self._pages.release(s)
         self._reset_slot_state(s)
         req = slot.req
-        req._complete(ServeResult(
+        res = ServeResult(
             status=status, prompt_ids=req.prompt_ids,
             generated_ids=list(slot.generated),
             queue_wait_s=(req.admit_t - req.submit_t
                           if req.admit_t is not None else None),
             ttft_s=(req.first_token_t - req.submit_t
                     if req.first_token_t is not None else None),
-            latency_s=time.perf_counter() - req.submit_t, error=error))
+            latency_s=time.perf_counter() - req.submit_t, error=error,
+            trace_id=req.trace_id)
+        _metrics.SERVE_REQUESTS.labels(status=status).inc()
+        _metrics.SERVE_REQUEST_SECONDS.observe(res.latency_s)
+        _recorder.RECORDER.record(
+            "event", "serve.retire", slot=s, status=status,
+            generated=len(res.generated_ids),
+            **({"error": error or ""} if status == STATUS_ERROR else {}))
+        if req._trace is not None:
+            for open_span in (req._span_queue, req._span_prefill):
+                if open_span is not None:
+                    open_span.end(status=status)
+            req._span_queue = req._span_prefill = None
+            req._trace.event("retire", status=status, generated=len(res.generated_ids))
+            req._trace.set("generated_tokens", len(res.generated_ids))
+            req._trace.end(status=status)
+        req._complete(res)
 
     def _finish_unstarted(self, req: RequestHandle, status: str,
                           error: Optional[str] = None):
         """Complete a queued request; one preempted and then expired keeps
         the tokens it generated before the preemption."""
+        res = ServeResult(status=status, prompt_ids=req.prompt_ids,
+                          generated_ids=list(req._resume or ()),
+                          latency_s=time.perf_counter() - req.submit_t,
+                          error=error, trace_id=req.trace_id)
         with self._lock:
             self._completed[status] = self._completed.get(status, 0) + 1
-        req._complete(ServeResult(status=status, prompt_ids=req.prompt_ids,
-                                  generated_ids=list(req._resume or ()),
-                                  latency_s=time.perf_counter() - req.submit_t,
-                                  error=error))
+        _metrics.SERVE_REQUESTS.labels(status=status).inc()
+        _metrics.SERVE_REQUEST_SECONDS.observe(res.latency_s)
+        _recorder.RECORDER.record("event", "serve.retire", status=status,
+                                  generated=len(res.generated_ids), admitted=False)
+        if req._trace is not None:
+            if req._span_queue is not None:
+                req._span_queue.end(status=status)
+                req._span_queue = None
+            req._trace.event("retire", status=status, generated=len(res.generated_ids))
+            req._trace.end(status=status)
+        req._complete(res)
 
     # ------------------------------------------------------------ stats
     def stats(self) -> Dict[str, Any]:
@@ -1655,9 +2240,29 @@ class InferenceEngine:
         ``acceptance_rate`` (accepted / drafted, 4 places; None before a
         draft); a verify round counts as one decode dispatch and substep. ``captures`` counts the steps built (on the card: CUDA
         graphs captured); serving after :meth:`warmup` leaves it unchanged
-        (the zero-recompile contract)."""
+        (the zero-recompile contract; the score graphs count too, and
+        :meth:`warmup_score` builds them); ``compiled_buckets["score"]``
+        lists the score buckets once one is built.
+
+        The JAX engine's serving keys: ``running``, ``draining``, ``name``,
+        ``weight_version``, ``weight_swaps``, ``slots``, ``slots_in_use``,
+        ``max_len``, ``tier`` and ``load`` (the router's least-loaded
+        signal: the worse of slot and page pressure plus the queue backlog
+        over ``max_queue_depth``; cache-only pages count as free), and on
+        a paged engine ``prefix_summary`` (``{"page_size", "roots"}``, the
+        top ``prefix_advert`` prefix-cache roots)."""
         with self._lock:
+            in_use = sum(1 for s in self._slots if s is not None)
             out = {
+                "running": self._running,
+                "draining": self._draining,
+                "name": self.name,
+                "weight_version": self.weight_version,
+                "weight_swaps": self._weight_swaps,
+                "slots": self.S,
+                "slots_in_use": in_use,
+                "max_len": self.L,
+                "tier": self.tier,
                 "submitted": self._submitted,
                 "completed": dict(self._completed),
                 "queue_depth": len(self._queue),
@@ -1687,9 +2292,20 @@ class InferenceEngine:
                     "accepted": self._spec_accepted,
                     "acceptance_rate": (round(self._spec_accepted / self._spec_drafted, 4)
                                         if self._spec_drafted else None)}
+            if self._score_steps:
+                out["compiled_buckets"]["score"] = sorted(self._score_steps)
+        load = in_use / self.S
         if self._paged:
-            out.update({"page_size": self.page_size, "pages": self._pages.stats(),
+            pstats = self._pages.stats()
+            roots = self._pages.prefix_summary(self._prefix_advert)
+            out.update({"page_size": self.page_size, "pages": pstats,
                         "prefilling": len(self._prefilling),
                         "preemptions": self._preempted,
-                        "resumed_tokens": self._resumed_tokens})
+                        "resumed_tokens": self._resumed_tokens,
+                        "prefix_summary": {"page_size": self.page_size,
+                                           "roots": roots}})
+            _metrics.CACHE_ADVERT_ROOTS.set(len(roots))
+            held = pstats["pages_in_use"] - pstats["pages_cached_only"]
+            load = max(load, held / pstats["pages"])
+        out["load"] = round(load + out["queue_depth"] / max(self.max_queue_depth, 1), 4)
         return out

@@ -45,6 +45,7 @@ import json
 import os
 import tempfile
 import threading
+import time
 import warnings
 from bisect import bisect_right
 from collections import OrderedDict
@@ -53,6 +54,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as onp
 import torch
 
+from .. import metrics as _metrics
 from ..base import MXNetError
 
 __all__ = ["TokenGrammar", "compile_grammar", "schema_regex",
@@ -786,6 +788,7 @@ def compile_grammar(source, vocab: int, *,
             hit = _mem_cache.get(key)
             if hit is not None:
                 _mem_cache.move_to_end(key)
+                _metrics.GRAMMAR_MASK_CACHE_HITS.labels(tier="memory").inc()
                 return hit
         payload = _disk_get(key)
         if payload is not None:
@@ -795,10 +798,14 @@ def compile_grammar(source, vocab: int, *,
                     payload["n_states"], payload["n_classes"]),
                 onp.asarray(payload["accept"], bool),
                 vocab, key=key, source=regex)
+            _metrics.GRAMMAR_MASK_CACHE_HITS.labels(tier="disk").inc()
             _mem_store(key, gram)
             return gram
+        _metrics.GRAMMAR_MASK_CACHE_MISSES.inc()
 
+    t0 = time.perf_counter()
     gram = _build_token_grammar(regex, vocab, token_table, max_states, key)
+    _metrics.GRAMMAR_COMPILE_SECONDS.observe(time.perf_counter() - t0)
     if cache:
         _mem_store(key, gram)
         _disk_put(key, {

@@ -24,11 +24,13 @@ shared prefixes (counterpart of ``mxnet_tpu/serve/paging.py``).
   preempt a slot, whose request resumes exactly by re-prefilling
   ``prompt + generated``.
 
-Pure host bookkeeping (numpy + stdlib). The JAX module's telemetry
-(``metrics``) and debug lock witness (``guards``) are not ported: the
-counters ``stats()`` returns are kept, and a ``threading.Lock`` guards the
-ledger. The router and migration helpers (``prefix_summary``,
-``adopt_prefix``) wait for the fleet slice.
+Pure host bookkeeping (numpy + stdlib). The ledger reports the JAX
+module's ``mxnet_serve_page_*`` families at its sites and keeps the
+counters ``stats()`` returns; a ``threading.Lock`` stands in for the JAX
+module's witnessed lock. ``prefix_summary`` is the bounded advert
+``/healthz`` carries for the router; the migration import
+(``adopt_prefix``) waits for the cache-fleet slice (ROADMAP Queue 1
+item 8).
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import metrics as _metrics
 from ..base import MXNetError
 
 __all__ = ["PagePool", "OutOfPages", "pages_for", "prefix_key"]
@@ -124,6 +127,7 @@ class PagePool:
         self.prefix_tokens_saved = 0
         self.prefix_collisions = 0
         self.prefix_evictions = 0
+        _metrics.SERVE_PAGE_POOL.set(self.num_pages)
 
     # ------------------------------------------------------------ accounting
     def free_pages(self) -> int:
@@ -181,6 +185,8 @@ class PagePool:
         for p in out:
             self._ref[p] = 1
         self.leases += n
+        _metrics.SERVE_PAGE_LEASES.inc(n)
+        self._observe()
         return out
 
     def _decref(self, page: int):
@@ -190,6 +196,10 @@ class PagePool:
         assert self._ref[page] >= 0, f"page {page} over-freed"
         if self._ref[page] == 0:
             self._free.append(int(page))
+        self._observe()
+
+    def _observe(self):
+        _metrics.SERVE_PAGE_IN_USE.set(self.pages_in_use())
 
     # ------------------------------------------------------------ leasing
     def lease(self, slot: int, tokens: int) -> int:
@@ -246,6 +256,7 @@ class PagePool:
             self._tables[slot, table_index] = dst
             self._decref(src)
             self.cow_forks += 1
+        _metrics.SERVE_PAGE_COW.inc()
         return src, dst
 
     # ------------------------------------------------------------ prefix cache
@@ -292,8 +303,11 @@ class PagePool:
                 if matched:
                     self.prefix_hits += 1
                     self.prefix_tokens_saved += matched
+                    _metrics.SERVE_PREFIX_HITS.inc()
+                    _metrics.SERVE_PREFIX_TOKENS_SAVED.inc(matched)
                 else:
                     self.prefix_misses += 1
+                    _metrics.SERVE_PREFIX_MISSES.inc()
         return pages, matched
 
     def _lookup(self, toks: Tuple[int, ...], length: int
@@ -313,6 +327,7 @@ class PagePool:
         # key present but tokens differ: a hash collision; prefill this
         # span rather than serve another prompt's KV rows
         self.prefix_collisions += 1
+        _metrics.SERVE_PREFIX_COLLISIONS.inc()
         return None
 
     def map_prefix(self, slot: int, pages: Sequence[int], matched: int):
@@ -324,6 +339,7 @@ class PagePool:
                 self._tables[slot, i] = p
                 self._ref[p] += 1
             self._leased[slot] = len(pages)
+            self._observe()
 
     def insert_prefix(self, slot: int, tokens: Sequence[int]):
         """Publish the slot's prompt pages into the prefix cache: one
@@ -347,6 +363,23 @@ class PagePool:
                 self._prefix.setdefault(self._hash(toks[:length]), []) \
                     .append(ent)
                 self._ref[page] += 1
+            self._observe()
+
+    def prefix_summary(self, top_n: int) -> List[List[int]]:
+        """Bounded advert of the cache's hottest roots for the router's
+        prefix-affinity scoring: ``[[chain_key, prefix_len, refs], ...]``,
+        the top ``top_n`` entries ranked by (page refcount, prefix length).
+        A router holding a prompt checks ``prefix_key(prompt[:prefix_len])
+        == chain_key``. ``top_n <= 0`` disables the advert (an empty
+        list); the payload stays O(top_n) whatever the pool's size."""
+        if top_n <= 0 or not self.prefix_cache_enabled:
+            return []
+        with self._lock:
+            roots = [[int(key), int(ent.prefix_len), int(self._ref[ent.page])]
+                     for key, bucket in self._prefix.items()
+                     for ent in bucket]
+        roots.sort(key=lambda r: (-r[2], -r[1], r[0]))
+        return roots[:int(top_n)]
 
     def _evict_one(self) -> bool:
         """Drop the least-recently-used prefix entry; True if anything was

@@ -519,8 +519,24 @@ def test_ctor_blocking_false_periodic_steps(tmp_path):
 
 @pytest.mark.parametrize("kw", [{"publish_weights_dir": "w"}, {"health": object()}])
 def test_unported_options_raise(tmp_path, kw):
-    with pytest.raises(MXNetError, match="not ported yet"):
-        CheckpointManager(str(tmp_path), **kw)
+    if "publish_weights_dir" in kw:
+        # publish_weights_dir is ported: a completed save publishes the
+        # parameters as a weight version that read_weights returns
+        from mxnet_tpu_torch.serve.registry import read_weights
+        wdir = str(tmp_path / kw["publish_weights_dir"])
+        net, tr = _build()
+        mgr = CheckpointManager(str(tmp_path / "ckpt"), net=net, trainer=tr,
+                                publish_weights_dir=wdir)
+        mgr.save(3)
+        version, params, manifest = read_weights(wdir)
+        assert version == 1 and manifest["meta"]["step"] == 3
+        named = dict(net.named_parameters())
+        assert sorted(params) == sorted(named)
+        for name, p in named.items():
+            onp.testing.assert_array_equal(params[name], p.detach().numpy())
+    else:
+        with pytest.raises(MXNetError, match="not ported yet"):
+            CheckpointManager(str(tmp_path), **kw)
     with pytest.raises(MXNetError, match="not a Trainer"):
         CheckpointManager(str(tmp_path), trainer=_build()[1], sharded=True)
 

@@ -1215,3 +1215,97 @@ def test_dropout_on_card_equals_cpu(cuda):
                                   optimizer.SGD(learning_rate=0.1), example_inputs=[ids])
         losses.append([float(step(ids, ids)) for _ in range(2)])
     assert all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(*losses))
+
+
+# ---------------------------------------------------------------------------
+# scoring graphs and live weight swaps
+# ---------------------------------------------------------------------------
+def _score_ids(n, seed):
+    return onp.random.RandomState(seed).randint(0, 1000, n).tolist()
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_score_graphs_replay_equal_eager(cuda, layout):
+    """A captured score graph gives the eager score's bits at two buckets
+    (8 rows on K3's warp route, 64 on the tile route), and again after the
+    other bucket has replayed."""
+    model = _serving_model(torch.float32)
+    kw = dict(max_batch_size=2, max_len=128, multi_token=4, paged=layout == "paged",
+              page_size=16)
+    eng = InferenceEngine(model, **kw).warmup_score()
+    ref = InferenceEngine(model, **kw)
+    ref._eager = True
+    assert eng.stats()["compiled_buckets"]["score"] == [8, 16, 32, 64, 128]
+    routes0 = int8_gemv.gemv_routes()
+    for n, seed in ((7, 0), (64, 1), (5, 2)):
+        ids = _score_ids(n, seed)
+        got, want = eng.score(ids), ref.score(ids)
+        assert got == want
+        assert len(got["token_logprobs"]) == n - 1
+    routes = int8_gemv.gemv_routes()
+    assert routes["warp"] > routes0["warp"] and routes["mma"] > routes0["mma"]
+    assert eng.stats()["captures"] == 5
+
+
+def test_score_concurrent_with_decode_replays(cuda):
+    """Scores from a second thread while the engine's decode graphs replay
+    give the bits of the same scores run alone."""
+    import threading
+    model = _serving_model(torch.float32)
+    eng = InferenceEngine(model, max_batch_size=4, max_len=128, multi_token=4,
+                          paged=True, page_size=16).start()
+    try:
+        eng.warmup()
+        eng.warmup_score()
+        seqs = [_score_ids(n, 10 + n) for n in (5, 9, 23, 64)]
+        alone = [eng.score(s) for s in seqs]
+        handles = [eng.submit(_score_ids(12, i), 96) for i in range(4)]
+        during, errors = [], []
+
+        def scorer():
+            try:
+                for _ in range(5):
+                    during.append([eng.score(s) for s in seqs])
+            except Exception as e:  # noqa: BLE001 - surfaced below
+                errors.append(e)
+
+        threads = [threading.Thread(target=scorer) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        results = [h.result(300) for h in handles]
+        assert not errors and all(r.ok for r in results)
+        assert all(d == alone for d in during)
+    finally:
+        eng.shutdown()
+
+
+def test_swap_seen_by_next_replay_without_capture(cuda):
+    """An in-place swap on an unfused int8 engine: the next decode and
+    score replays read the new weights (a fresh engine's tokens and
+    score bits over them) and nothing is captured."""
+    from mxnet_tpu_torch.serve.registry import snapshot_params
+    cfg = GPTConfig(vocab_size=1000, hidden_size=256, num_layers=2, num_heads=4,
+                    max_position_embeddings=128, dropout=0.0)
+    a = quantize_net(GPTModel(cfg, device="cuda").init_weights(0, std=0.1))
+    b = quantize_net(GPTModel(cfg, device="cuda").init_weights(1, std=0.1))
+    eng = InferenceEngine(a, max_batch_size=2, max_len=128).start()
+    ref = InferenceEngine(b, max_batch_size=2, max_len=128).start()
+    try:
+        eng.warmup()
+        eng.warmup_score()
+        ref.warmup()
+        ref.warmup_score()
+        prompt = _score_ids(11, 3)
+        before = eng.generate(prompt, 16).generated_ids
+        captures = eng.stats()["captures"]
+        assert eng.swap_weights(snapshot_params(b)) == 1
+        after = eng.generate(prompt, 16).generated_ids
+        assert after != before
+        assert after == ref.generate(prompt, 16).generated_ids
+        assert eng.score(prompt) == ref.score(prompt)
+        assert eng.stats()["captures"] == captures
+    finally:
+        eng.shutdown()
+        ref.shutdown()
