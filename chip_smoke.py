@@ -142,6 +142,25 @@
    steps' losses, parameters and optimizer states must be the same bits
    as the first run's. Prints the checkpoint bytes, the training thread's
    stall in ``save``, the background write's and the restore's seconds.
+8. ``gluon_substrate``: (a) the README's first program at its own widths
+   (``HybridSequential(Dense(128, relu), Dense(10))`` on 784-wide inputs,
+   B 128, Xavier, softmax cross-entropy, Adam 1e-3, 20 steps) eagerly and
+   hybridized with ``static_alloc=True`` on the card: losses and
+   parameters the same bits; the same program on the CPU port from the
+   same weights within 1e-5 relative; a hybridized predict call after
+   warm-up adds no cache entry, counts a cache hit and replays its CUDA
+   graph, with the eager call's bits. (b) A user ``HybridBlock`` at GPT-2
+   small's width (LayerNorm, Dense 3x768, ``mx.ops.attention`` causal with
+   12 heads of 64, Dense 768, residual) at B 4, T 1024 inside
+   ``autograd.record()`` then ``backward()``, in f32 and bf16: K1 and K2
+   launch from the tape, gradients within K1/K2's gates of the same block
+   with the plain attention called directly (in bf16 the parameters'
+   gradients; the input's passes the bf16 LayerNorm backward, which alone
+   puts it about 0.17 in row error from f32 with either attention, so it
+   is reported), and the f32 gradients at B 1 within 1e-4 of the CPU
+   port's. Records ms per step of (a) eager and
+   hybridized, predict ms eager and replayed, (b)'s forward + backward ms
+   and K1/K2's share of its device time.
 
 Informational JSON lines come first; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -3102,6 +3121,229 @@ def checkpoint_resume(torch, args, device="cuda"):
         check(r["write_s"] and r["bytes"] > 0, f"{name}: no checkpoint was written")
 
 
+GLUON_B, GLUON_STEPS, GLUON_LR = 128, 20, 1e-3
+GLUON_CPU_TOL = 1e-5          # README losses, card against the CPU port (relative)
+ATTN_B, ATTN_T, ATTN_D, ATTN_HEADS = 4, 1024, 768, 12
+ATTN_CPU_TOL = 1e-4           # f32 gradients at B 1, card against the CPU port (rel L2)
+
+
+def host_ms(torch, fn, device, iters=10):
+    """Mean ms of ``fn()`` on the host clock around synchronised work."""
+    fn()
+    sync(torch, device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync(torch, device)
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def readme_train(torch, args, device, hybridize, follow=None):
+    """The README's first program at its own widths on ``device``. With
+    ``follow`` (another run's ``snaps``) each step first loads that run's
+    weights, so each loss is computed from the same weights. Returns
+    {losses, snaps (the weights before each step), params, first_s, ms
+    (per later step), net, x}."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import Trainer, nn
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    rng = np.random.RandomState(args.seed)
+    X = rng.rand(GLUON_B, 784).astype("float32")
+    Y = rng.randint(0, 10, GLUON_B).astype("int32")
+    with mx.Device(torch.device(device)):
+        mx.random.seed(args.seed)
+        net = nn.HybridSequential()
+        net.add(nn.Dense(128, activation="relu"), nn.Dense(10))
+        net.initialize(mx.init.Xavier())
+        if hybridize:
+            net.hybridize(static_alloc=True)
+        trainer = Trainer(net.collect_params(), "adam", {"learning_rate": GLUON_LR})
+        loss_fn = SoftmaxCrossEntropyLoss()
+        x, y = mx.np.array(X), mx.np.array(Y)
+        losses, marks, snaps = [], [], []
+        sync(torch, device)
+        t0 = time.perf_counter()
+        for i in range(GLUON_STEPS):
+            if follow is not None:
+                net.load_dict(follow[i])
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            snaps.append({k: p.data().copy() for k, p in net.collect_params().items()})
+            trainer.step(GLUON_B)
+            losses.append(loss)
+            sync(torch, device)
+            marks.append(time.perf_counter())
+        return {"losses": [l.asnumpy() for l in losses],
+                "snaps": [{k: v.asnumpy() for k, v in snap.items()} for snap in snaps],
+                "params": {k: p.data().asnumpy() for k, p in net.collect_params().items()},
+                "first_s": marks[0] - t0,
+                "ms": (marks[-1] - marks[0]) / (GLUON_STEPS - 1) * 1e3, "net": net, "x": x}
+
+
+def attention_block(plain):
+    """A user HybridBlock at GPT-2 small's width: LayerNorm, Dense 3 x D,
+    causal attention over ATTN_HEADS heads, Dense D, residual. With
+    ``plain`` the attention is the plain version, called directly."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import HybridBlock, nn
+    from mxnet_tpu_torch.ndarray import apply
+    from mxnet_tpu_torch.ops import attention as fa
+
+    class AttentionBlock(HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.ln = nn.LayerNorm(in_channels=ATTN_D)
+            self.qkv = nn.Dense(3 * ATTN_D, flatten=False, in_units=ATTN_D)
+            self.proj = nn.Dense(ATTN_D, flatten=False, in_units=ATTN_D)
+
+        def forward(self, x):
+            B, T, D = x.shape
+            hd = D // ATTN_HEADS
+            qkv = self.qkv(self.ln(x)).reshape(B, T, 3, ATTN_HEADS, hd).transpose(2, 0, 3, 1, 4)
+            q, k, v = qkv[0], qkv[1], qkv[2]
+            if plain:
+                o = apply(lambda a, b, c: fa._reference_flash_forward(
+                    a.float(), b.float(), c.float(), True, hd ** -0.5)[0].to(a.dtype), q, k, v)
+            else:
+                o = mx.ops.attention(q, k, v, causal=True)
+            return x + self.proj(o.transpose(0, 2, 1, 3).reshape(B, T, D))
+
+    return AttentionBlock()
+
+
+def attention_step(torch, args, device, dtype, B, plain=False):
+    """One recorded forward and backward of the attention block: returns
+    ({leaf: f32 CPU gradient}, launches, ms, (forward + backward callable))."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.ops.int8_gemv import launches, reset_launches
+    rng = np.random.RandomState(args.seed + 1)
+    X = rng.randn(B, ATTN_T, ATTN_D).astype("float32")
+    DY = rng.randn(B, ATTN_T, ATTN_D).astype("float32")
+    with mx.Device(torch.device(device)):
+        mx.random.seed(args.seed)
+        net = attention_block(plain)
+        net.initialize(mx.init.Xavier())
+        if dtype == "bfloat16":
+            net.cast("bfloat16")
+        net.hybridize(static_alloc=True)
+        x = mx.np.array(X).astype(dtype)
+        dy = mx.np.array(DY).astype(dtype)
+
+        def step():
+            x.attach_grad()
+            with autograd.record():
+                loss = (net(x) * dy).astype("float32").sum()
+            loss.backward()
+
+        sync(torch, device)
+        reset_launches()
+        t0 = time.perf_counter()
+        step()
+        sync(torch, device)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = launches()
+        grads = {n: p.grad()._data.detach().float().cpu()
+                 for n, p in net.collect_params().items()}
+        grads["x"] = x.grad._data.detach().float().cpu()
+    return grads, counts, ms, step
+
+
+def gluon_substrate(torch, args, device="cuda"):
+    """Phase 8 (module docstring). ``device='cpu'`` rehearses it with the
+    CPU as both sides."""
+    import numpy as np
+    from mxnet_tpu_torch import metrics
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    # (a) the README program
+    eager = readme_train(torch, args, device, False)
+    hyb = readme_train(torch, args, device, True)
+    e_loss, e_net, h_net, x = eager["losses"], eager["net"], hyb["net"], eager["x"]
+    check(all(np.array_equal(a, b) for a, b in zip(e_loss, hyb["losses"]))
+          and all(np.array_equal(eager["params"][k], hyb["params"][k]) for k in hyb["params"]),
+          "README program: hybridized losses or parameters differ from eager")
+
+    def rel_err(losses):
+        return [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(e_loss, losses)]
+    # each CPU step from the card's weights before that step; the free run
+    # drifts (Adam's first steps move a weight by lr x sign(g), so a
+    # gradient near 0 whose sign the card and the CPU round apart moves it
+    # by 2 lr), and is recorded
+    rel = max(rel_err(readme_train(torch, args, "cpu", False, follow=eager["snaps"])["losses"]))
+    check(rel <= GLUON_CPU_TOL, f"README program: card losses {rel} from the CPU port's")
+    free = rel_err(readme_train(torch, args, "cpu", False)["losses"])
+    check(e_loss[-1].mean() < e_loss[0].mean(), "README program: the loss did not fall")
+    op = h_net._cached_op
+    want = e_net(x).asnumpy()
+    h_net(x)
+    h_net(x)                           # eager warm-up, then capture
+    was = metrics.enabled()
+    metrics.enable()
+    try:
+        def counters():
+            lab = {"block": "HybridSequential"}
+            return (sum(metrics.get_sample_value("mxnet_recompilations_total",
+                                                 dict(lab, kind=k)) or 0
+                        for k in ("initial", "retrace")),
+                    metrics.get_sample_value("mxnet_cachedop_cache_hits_total", lab) or 0)
+        before, entries, replays = counters(), op.cache_size, op.replays
+        got = h_net(x).asnumpy()
+        after = counters()
+    finally:
+        (metrics.enable if was else metrics.disable)()
+    check(after[0] == before[0] and after[1] == before[1] + 1 and op.cache_size == entries,
+          f"predict after warm-up: recompilations/cache hits {before} -> {after}")
+    check(op.replays == replays + (1 if on_card else 0),
+          f"predict after warm-up replayed {op.replays - replays} graphs")
+    check(np.array_equal(got, want), "predict replay differs from the eager forward")
+    predict = {"eager_ms": host_ms(torch, lambda: e_net(x), device),
+               "replay_ms": host_ms(torch, lambda: h_net(x), device)}
+    # (b) the attention block
+    rows = {}
+    for dtype in ("float32", "bfloat16"):
+        got, counts, ms, step = attention_step(torch, args, device, dtype, ATTN_B)
+        want = attention_step(torch, args, device, dtype, ATTN_B, plain=True)[0]
+        for kind in ("flash_fwd", "flash_bwd"):
+            check(counts.get(kind, 0) > 0, f"attention block {dtype}: {kind} never launched "
+                  "from the tape")
+        errs = {n: flash_errors(got[n], want[n]) for n in want}
+        gated = [n for n in want if dtype == "float32" or n != "x"]
+        bad = [n for n in gated if not flash_within(got[n], want[n], dtype)]
+        check(not bad, f"attention block {dtype}: gradients past K1/K2's gates: "
+              f"{ {n: errs[n] for n in bad} }")
+        prof = train_profile(torch, lambda *_: step(), None, None, device) if on_card else None
+        share = None if prof is None else \
+            (prof["kernel_ms"].get("flash_fwd", 0) + prof["kernel_ms"].get("flash_bwd", 0)) \
+            / prof["device_busy_ms"]
+        rows[dtype] = {"launches": {k: counts.get(k, 0) for k in ("flash_fwd", "flash_bwd")},
+                       "first_fwd_bwd_ms": ms,
+                       "fwd_bwd_ms": host_ms(torch, step, device, iters=3),
+                       "k1_k2_device_share": share if share is not None else "not measured",
+                       "worst_row_err": max(errs[n][2] for n in gated),
+                       "input_grad_row_err": errs["x"][2]}
+    card1 = attention_step(torch, args, device, "float32", 1)[0]
+    cpu1 = attention_step(torch, args, "cpu", "float32", 1)[0]
+    errs = leaf_errors(card1, cpu1)
+    check(max(errs.values()) <= ATTN_CPU_TOL,
+          f"attention block: f32 gradients at B 1 {worst(errs)} from the CPU port's")
+    out = {"readme": {"B": GLUON_B, "steps": GLUON_STEPS, "losses_first_last":
+                      [float(e_loss[0].mean()), float(e_loss[-1].mean())],
+                      "card_vs_cpu_rel": rel, "free_running_cpu_rel_by_step": free,
+                      "eager_ms_per_step": eager["ms"], "hybridized_ms_per_step": hyb["ms"],
+                      "eager_first_step_s": eager["first_s"],
+                      "hybridized_first_step_s": hyb["first_s"], "predict": predict},
+           "attention_block": {"B": ATTN_B, "T": ATTN_T, "D": ATTN_D, "heads": ATTN_HEADS,
+                               **rows, "card_vs_cpu_B1": worst(errs)},
+           "phase_s": time.perf_counter() - t_phase}
+    emit({"gluon_substrate": out})
+    return {k: sum(r["launches"][k] for r in rows.values()) for k in ("flash_fwd", "flash_bwd")}
+
+
 def head_row(head):
     """A kernels-line row of the tied head on the warp route: its 8-row
     numbers (the decode batch of a multi_token=1 engine), the 1-row time
@@ -3189,6 +3431,8 @@ def main(argv=None):
         train_card_vs_cpu(torch, args, dropout)
     torch.cuda.empty_cache()
     checkpoint_resume(torch, args)
+    torch.cuda.empty_cache()
+    gluon_counts = gluon_substrate(torch, args)
 
     def routes(*phases):
         return {r: sum(c["routes"][r] for c in phases) for r in ("warp", "mma")}
@@ -3291,6 +3535,10 @@ def main(argv=None):
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                      # K5 with every row at position 64; K6 at B 8
                      **{k: r[k] for k in ("ms_pos64", "ms_b8", "bound_ms_b8") if k in r}})
+        if name.startswith("flash_attention"):
+            # launched from the tape by the gluon_substrate phase's block
+            rows[-1]["launches_gluon"] = gluon_counts["flash_fwd" if name.endswith("fwd")
+                                                      else "flash_bwd"]
         check(rows[-1]["launches"] > 0, f"{name} never launched on its main path")
     # K8's mask and bf16 lanes: no path of the JAX package reaches them (only
     # GPT exposes head_weights, and its decode loops pass neither), so their

@@ -140,10 +140,12 @@ def step_keys(seeds, counters, steps: int, out=None) -> np.ndarray:
 
 def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` of one key [2] into ``num`` keys [num, 2]
-    (a host key in numpy)."""
+    (a host key with Python ints, the same arithmetic as numpy's and a
+    fraction of its per-call cost)."""
     if k.device.type == "cpu":
-        i = np.arange(num, dtype=np.int64)
-        return _host_hash(k.reshape(1, 2), np.zeros_like(i), i)
+        k0, k1 = (int(w) for w in k.tolist())
+        return torch.tensor([threefry2x32(k0, k1, 0, i) for i in range(num)],
+                            dtype=torch.int64)
     i = torch.arange(num, dtype=torch.int64, device=k.device)
     y0, y1 = threefry2x32(k[0], k[1], torch.zeros_like(i), i)
     return torch.stack([y0, y1], dim=-1)
@@ -190,3 +192,140 @@ def categorical(k: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     else:
         noise = gumbel(k, logits.shape[k.dim() - 1:])
     return torch.argmax(noise + logits, dim=-1)
+
+
+# ---------------------------------------------------------------- host draws
+#
+# ``mx.np.random`` and the initializers draw from host keys (the global key
+# stream) with numpy, in jax.random's exact arithmetic: 64-bit draws need
+# unsigned 64-bit remainders, which numpy has and torch lacks. Callers move
+# the result to their device.
+
+_F32 = np.dtype(np.float32)
+_F64 = np.dtype(np.float64)
+
+
+def _words(k: torch.Tensor):
+    kd = [int(w) for w in k.reshape(-1).tolist()]
+    return np.int64(kd[0]), np.int64(kd[-1])
+
+
+def host_bits(k: torch.Tensor, shape: Sequence[int], width: int = 32) -> np.ndarray:
+    """``jax.random.bits`` of ``width`` 8/16/32/64 over ``shape`` (numpy
+    unsigned): the hash of the 64-bit iota, its two words xored (64 bits:
+    high word, then low word)."""
+    shape = tuple(int(n) for n in shape)
+    n = int(np.prod(shape, dtype=np.int64))
+    i = np.arange(n, dtype=np.int64)
+    k0, k1 = _words(k)
+    y0, y1 = threefry2x32(k0, k1, i >> 32, i & M32)
+    if width == 64:
+        out = (y0.astype(np.uint64) << np.uint64(32)) | y1.astype(np.uint64)
+    else:
+        out = (y0 ^ y1).astype(np.uint32).astype({8: np.uint8, 16: np.uint16,
+                                                  32: np.uint32}[width])
+    return out.reshape(shape)
+
+
+def host_uniform(k: torch.Tensor, shape: Sequence[int], minval=0.0, maxval=1.0,
+                 dtype=np.float32) -> np.ndarray:
+    """``jax.random.uniform`` in f32 or f64: random mantissa bits under
+    exponent 0, minus 1, scaled onto [minval, maxval). XLA fuses the scale
+    into one fused multiply-add: in f32 it is computed here in f64 and
+    rounded once (in f64 as a multiply and an add, which may differ from
+    XLA's in the last place)."""
+    dt = np.dtype(dtype)
+    lo, hi = dt.type(minval), dt.type(maxval)
+    if dt == _F32:
+        bits = host_bits(k, shape, 32)
+        fl = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1)
+        scaled = (fl.astype(np.float64) * np.float64(hi - lo) + np.float64(lo)).astype(_F32)
+    elif dt == _F64:
+        bits = host_bits(k, shape, 64)
+        fl = ((bits >> np.uint64(12)) | np.uint64(0x3FF0000000000000)).view(np.float64) - 1.0
+        scaled = fl * (hi - lo) + lo
+    else:
+        raise ValueError(f"uniform draws f32 or f64, not {dt}")
+    return np.maximum(lo, scaled)
+
+
+# XLA's f32 erfinv (Giles' approximation): coefficients for w < 5 and w >= 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv_f32(x: np.ndarray) -> np.ndarray:
+    """XLA's f32 erfinv with its fused multiply-adds (each Horner step
+    computed in f64 and rounded once); the log1p is torch's, which may
+    differ from XLA's in the last place."""
+    w = -torch.log1p(torch.from_numpy(-(x * x))).numpy()
+    lt = w < np.float32(5)
+    w = np.where(lt, w - np.float32(2.5), np.sqrt(w) - np.float32(3)).astype(np.float64)
+    p = np.where(lt, np.float32(_ERFINV_LT5[0]), np.float32(_ERFINV_GE5[0]))
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        c = np.where(lt, np.float32(a), np.float32(b)).astype(np.float64)
+        p = (c + p.astype(np.float64) * w).astype(_F32)
+    out = p * x
+    return np.where(np.abs(x) == np.float32(1), x * np.finfo(_F32).max, out)
+
+
+def host_normal(k: torch.Tensor, shape: Sequence[int], dtype=np.float32) -> np.ndarray:
+    """``jax.random.normal``: ``sqrt(2) * erfinv(u)``, u uniform on
+    (-1, 1) bit for bit. The f32 erfinv is XLA's polynomial
+    (:func:`_erfinv_f32`), the f64 one torch's; either may differ from
+    XLA's in the last place."""
+    dt = np.dtype(dtype)
+    lo = np.nextafter(dt.type(-1.0), dt.type(0.0))
+    u = host_uniform(k, shape, lo, 1.0, dt)
+    e = _erfinv_f32(u) if dt == _F32 else torch.erfinv(torch.from_numpy(u)).numpy()
+    return e * dt.type(np.sqrt(2))
+
+
+def host_randint(k: torch.Tensor, shape: Sequence[int], minval: int, maxval: int,
+                 dtype=np.int64) -> np.ndarray:
+    """``jax.random.randint`` over [minval, maxval): two draws of the
+    dtype's width from ``split(k)``, combined modulo the span in unsigned
+    arithmetic (the JAX package's default dtype is int64)."""
+    dt = np.dtype(dtype)
+    nbits = dt.itemsize * 8
+    udt = np.dtype(f"uint{nbits}")
+    info = np.iinfo(dt)
+    k1, k2 = split(k)
+    higher, lower = host_bits(k1, shape, nbits), host_bits(k2, shape, nbits)
+    mn = min(max(int(minval), info.min), info.max)
+    mx = min(max(int(maxval), info.min), info.max)
+    span = 1 if mx <= mn else mx - mn
+    if int(maxval) > info.max and mx > mn:
+        span += 1
+    if span >= 1 << nbits:
+        raise ValueError("randint over the dtype's whole range is not ported")
+    mult = (1 << (nbits // 2)) % span
+    mult = (mult * mult) % (1 << nbits) % span
+    s, m = udt.type(span), udt.type(mult)
+    with np.errstate(over="ignore"):
+        off = ((higher % s) * m + (lower % s)) % s
+        return off.astype(dt) + dt.type(mn)
+
+
+def cachedop_seed(k: torch.Tensor) -> int:
+    """The JAX ``CachedOp``'s per-call seed, ``jax.random.randint(k, (), 0,
+    2**31 - 1, int32)``, with Python ints: ``split(k)``, one 32-bit draw of
+    each half; at this span the higher draw's multiplier is
+    ``(2**16)**2 mod 2**32 = 0``, so the seed is the lower draw modulo the
+    span (:func:`host_randint`'s arithmetic)."""
+    k2 = split(k)[1].tolist()
+    y0, y1 = threefry2x32(k2[0], k2[1], 0, 0)
+    return (y0 ^ y1) % (2 ** 31 - 1)
+
+
+def host_permutation(k: torch.Tensor, n: int) -> np.ndarray:
+    """``jax.random.permutation`` of ``arange(n)``: rounds of stable sorts
+    by fresh 32-bit keys, as many as jax takes for n."""
+    x = np.arange(n, dtype=np.int64)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        k, sub = split(k)
+        x = x[np.argsort(host_bits(sub, (n,), 32), kind="stable")]
+    return x

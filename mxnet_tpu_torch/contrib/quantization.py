@@ -28,7 +28,7 @@ from torch import nn
 
 from ..autograd import predict_mode
 from ..base import MXNetError
-from ..gluon.nn import Dense
+from ..models._layers import Dense
 from ..kvstore.quant import pack_codes, quantize_blocks
 from ..ops.fused_block_gemv import pad_vocab
 from ..ops.int8_gemv import (GEMV_INT4_BLOCK, dequantize_int4_table, gemv_max_m,

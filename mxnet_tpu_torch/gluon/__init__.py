@@ -1,7 +1,12 @@
-"""Gluon layers, losses, the single-device ``Trainer`` and parameter files
-of the port (counterpart of ``mxnet_tpu/gluon``)."""
-from . import loss, nn
-from .block import load_parameters, save_parameters
+"""Gluon of the port (counterpart of ``mxnet_tpu/gluon``): ``Parameter``,
+``Block``/``HybridBlock`` and their ``CachedOp``, the basic layers, the
+losses, the ``Trainer`` and parameter files."""
+from . import block, loss, nn, parameter
+from .block import (Block, HybridBlock, HybridSequential, Sequential, SymbolBlock,
+                    load_parameters, save_parameters)
+from .parameter import Constant, Parameter
 from .trainer import Trainer
 
-__all__ = ["Trainer", "load_parameters", "loss", "nn", "save_parameters"]
+__all__ = ["Block", "Constant", "HybridBlock", "HybridSequential", "Parameter",
+           "Sequential", "SymbolBlock", "Trainer", "block", "load_parameters", "loss",
+           "nn", "parameter", "save_parameters"]

@@ -1,18 +1,26 @@
 """Gluon ``Trainer`` on one device (counterpart of
 ``mxnet_tpu/gluon/trainer.py``, without the kvstore).
 
-    loss = loss_fn(net(x), y)
+    with autograd.record():
+        loss = loss_fn(net(x), y)
     loss.backward()
     trainer.step(batch_size)
 
 ``step`` sets ``rescale_grad = scale / batch_size`` and steps every
-trainable parameter that has a gradient with the optimizer's pure
-``update_step``, in place under ``torch.no_grad()``. The JAX package's
+trainable parameter that has a fresh gradient with the optimizer's pure
+``update_step``, writing weights and state in place under
+``torch.no_grad()``. A parameter with no gradient since the last step is
+stale: ``step`` raises, unless ``ignore_stale_grad=True`` skips it.
+
+Two forms. Given gluon ``Parameter``s (``net.collect_params()``), it
+reads each one's gradient buffer (filled by the tape's ``backward`` under
+``grad_req`` 'write' or 'add'; 'null' ones are skipped), steps with
+``lr * lr_mult`` and ``wd * wd_mult`` as the JAX package does, and marks
+the gradient stale. Given tensors (``dict(module.named_parameters())``,
+as ``TrainStep``'s GPT runs use), it reads ``.grad``: the JAX package's
 ``grad_req='write'`` overwrites a gradient on every backward, where
-PyTorch adds to it; so ``step`` consumes the gradients (sets ``.grad`` to
-None) and the next backward writes fresh ones. A parameter with no
-gradient since the last step is stale: ``step`` raises, unless
-``ignore_stale_grad=True`` skips it.
+PyTorch adds to it, so ``step`` consumes those gradients (sets ``.grad``
+to None) and the next backward writes fresh ones.
 
 ``save_states`` / ``load_states`` write and read the JAX package's
 ``.states`` file: a pickled dict ``{"states", "step", "num_update",
@@ -35,6 +43,7 @@ from .. import optimizer as opt_mod
 from ..base import MXNetError
 from ..parallel.train import apply_updates
 from ..serialization import host_copies
+from .parameter import Parameter
 
 __all__ = ["Trainer"]
 
@@ -64,15 +73,18 @@ def _leaf_from_numpy(a, device) -> torch.Tensor:
 class Trainer:
     def __init__(self, params, optimizer, optimizer_params: Optional[dict] = None,
                  kvstore="device"):
-        """``params``: a dict name -> parameter (``dict(net.named_parameters())``),
-        an iterable of (name, parameter) pairs, or of parameters. Shared
-        parameters are stepped once. Only the single-device kvstores
-        (``'device'``, ``'local'``, None) are ported."""
+        """``params``: gluon ``Parameter``s (``net.collect_params()``, or an
+        iterable of them), or tensors (``dict(net.named_parameters())``, an
+        iterable of (name, tensor) pairs or of tensors). Shared parameters
+        are stepped once. Only the single-device kvstores (``'device'``,
+        ``'local'``, None) are ported."""
         if isinstance(params, dict):
             items = list(params.items())
         else:
-            items = [x if isinstance(x, tuple) else (str(i), x)
+            items = [x if isinstance(x, tuple) else
+                     (x.name if isinstance(x, Parameter) else str(i), x)
                      for i, x in enumerate(params)]
+        self._gluon = bool(items) and isinstance(items[0][1], Parameter)
         seen, self._params = set(), []
         for name, p in items:
             if id(p) not in seen:
@@ -103,7 +115,13 @@ class Trainer:
         1 / ``batch_size`` (one device: there is nothing to reduce)."""
         self.update(batch_size, ignore_stale_grad)
 
+    def _tensor(self, i: int) -> torch.Tensor:
+        p = self._params[i][1]
+        return p.data()._data if self._gluon else p
+
     def update(self, batch_size: int, ignore_stale_grad: bool = False):
+        if self._gluon:
+            return self._update_gluon(batch_size, ignore_stale_grad)
         opt = self._optimizer
         opt.rescale_grad = self._scale / batch_size
         idx = []
@@ -139,6 +157,43 @@ class Trainer:
             self._states[i] = states[j]
             self._params[i][1].grad = None
 
+    def _update_gluon(self, batch_size: int, ignore_stale_grad: bool):
+        opt = self._optimizer
+        opt.rescale_grad = self._scale / batch_size
+        idx = []
+        for i, (name, p) in enumerate(self._params):
+            if p.grad_req == "null":
+                continue
+            arr = p.data()
+            if arr._grad is None or not arr._grad_fresh:
+                if ignore_stale_grad:
+                    continue
+                raise MXNetError(
+                    f"Gradient of Parameter `{name}` has not been updated by backward "
+                    "since last step: run backward inside autograd.record() before "
+                    "step(), or pass ignore_stale_grad=True to skip it")
+            idx.append(i)
+        if not idx:
+            return
+        self._step_count += 1
+        opt.num_update = self._step_count
+        counts = opt._index_update_count
+        ts = []
+        for i in idx:
+            counts[i] = counts.get(i, 0) + 1
+            ts.append(counts[i])
+            if i not in self._states:
+                self._states[i] = opt.create_state(i, self._tensor(i))
+        lr, wd = opt.learning_rate, opt.wd
+        ps = [self._params[i][1] for i in idx]
+        states = [self._states[i] for i in idx]
+        apply_updates(opt, [(self._params[i][0], self._tensor(i)) for i in idx], states,
+                      lambda j: (lr * ps[j].lr_mult, wd * ps[j].wd_mult, ts[j]),
+                      opt.rescale_grad, grads=[p.data()._grad._data for p in ps])
+        for j, i in enumerate(idx):
+            self._states[i] = states[j]
+            ps[j].data()._grad_fresh = False
+
     def _host_state_payload(self) -> dict:
         """Host snapshot of the optimizer state, the serializable half of
         :meth:`save_states`: taken on the caller's thread (the next step
@@ -173,7 +228,7 @@ class Trainer:
             raise MXNetError(f"{fname}: {len(states)} parameter states for "
                              f"{len(self._params)} parameters")
         self._states = {
-            i: tuple(_leaf_from_numpy(a, self._params[i][1].device) for a in st)
+            i: tuple(_leaf_from_numpy(a, self._tensor(i).device) for a in st)
             for i, st in enumerate(states) if st is not None}
         self._step_count = payload["step"]
         self._optimizer.num_update = payload["num_update"]

@@ -21,10 +21,17 @@ from .base import MXNetError
 __all__ = ["params_from_numpy", "params_to_numpy"]
 
 
-def params_from_numpy(model: torch.nn.Module, named: Dict[str, np.ndarray]):
-    """Copy every array of ``named`` into the parameter of the same name.
-    Raises on a missing, unexpected or differently shaped parameter. Load
-    before ``quantize_net``: quantization reads the loaded weights."""
+def params_from_numpy(model, named: Dict[str, np.ndarray]):
+    """Copy every array of ``named`` into the parameter of the same name,
+    cast to the parameter's dtype. ``model`` is an ``nn.Module``, or a
+    gluon block, which takes the JAX net's ``{n: p.data().asnumpy() for n,
+    p in net.collect_params().items()}`` by its own ``collect_params()``
+    names (deferred parameters take the loaded shapes). Raises on a
+    missing, unexpected or differently shaped parameter. Load before
+    ``quantize_net``: quantization reads the loaded weights."""
+    from .gluon.block import Block
+    if isinstance(model, Block):
+        return model.load_dict(named, cast_dtype=True)
     params = dict(model.named_parameters())
     missing = sorted(set(params) - set(named))
     extra = sorted(set(named) - set(params))
@@ -46,9 +53,10 @@ def params_from_numpy(model: torch.nn.Module, named: Dict[str, np.ndarray]):
     return model
 
 
-def params_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
-    """{name: array} of every parameter, on the host; bf16 and other
-    low-precision floats as exact f32."""
+def params_to_numpy(model) -> Dict[str, np.ndarray]:
+    """{name: array} of every parameter (of an ``nn.Module`` or an
+    initialized gluon block), on the host; bf16 and other low-precision
+    floats as exact f32."""
     out = {}
     for name, p in model.named_parameters():
         t = p.detach().cpu()

@@ -18,6 +18,7 @@ weight versions), ``mxnet_decode_launches_total`` and
 ``mxnet_decode_dma_*`` (the launch sites and DMA program of each built
 step, counted once when the step is built), ``mxnet_spec_*``,
 ``mxnet_grammar_*``, ``mxnet_cache_advert_roots``,
+``mxnet_cachedop_cache_hits_total`` (a hybridized block's cache hits),
 ``mxnet_recompilations_total``, the trace-store counters, the flight
 recorder's dumps, and the step-phase families ``StepTimeline`` reports.
 The training, elastic, ZeRO, SLO, AOT, fleet, router and executable-cost
@@ -558,6 +559,9 @@ def register_collect_callback(fn: Callable[[], None]):
 # registration order)
 # ---------------------------------------------------------------------------
 
+CACHE_HITS = Counter(
+    "mxnet_cachedop_cache_hits_total",
+    "CachedOp trace-cache hits (no recompilation)", labels=("block",))
 RECOMPILATIONS = Counter(
     "mxnet_recompilations_total",
     "XLA trace builds: kind=initial first trace, kind=retrace a new "

@@ -32,7 +32,7 @@ from torch import nn
 from .. import numpy_extension as npx
 from ..autograd import predict_mode
 from ..device import resolve
-from ..gluon.nn import Dense, Dropout, Embedding, LayerNorm
+from ._layers import Dense, Dropout, Embedding, LayerNorm
 from ..ops.attention import flash_attention
 
 __all__ = ["GPTConfig", "GPTModel", "GPT2_SMALL", "GPT_TINY"]

@@ -31,6 +31,8 @@ kernel returned its padded (B, H, Tp, 1) form).
 """
 from __future__ import annotations
 
+import sys
+import types
 from typing import Optional
 
 import torch
@@ -316,5 +318,21 @@ def flash_attention(q, k, v, causal: bool = False, scale: Optional[float] = None
 
 def attention(q, k, v, causal: bool = False, scale: Optional[float] = None):
     """Frontend entry of the fused attention op (the JAX package's
-    NDArray-level ``attention``); the port's arrays are tensors."""
-    return flash_attention(q, k, v, causal, scale)
+    NDArray-level ``attention``), over (B, H, T, D): NDArrays go through
+    the funnel, so inside ``autograd.record()`` a kernel-eligible shape on
+    the card runs K1 forward and K2 in the tape's backward; tensors go
+    straight to :func:`flash_attention`."""
+    from ..ndarray import apply
+    return apply(lambda a, b, c: flash_attention(a, b, c, causal, scale), q, k, v)
+
+
+class _CallableModule(types.ModuleType):
+    """``mx.ops.attention(q, k, v, causal=True)`` calls :func:`attention`, as
+    the JAX package's ``mx.ops.attention`` does, while ``ops.attention``
+    stays this module for ``from mxnet_tpu_torch.ops import attention``."""
+
+    def __call__(self, q, k, v, causal: bool = False, scale: Optional[float] = None):
+        return attention(q, k, v, causal, scale)
+
+
+sys.modules[__name__].__class__ = _CallableModule

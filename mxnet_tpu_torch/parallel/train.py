@@ -62,14 +62,16 @@ def trainable(net):
 
 
 @torch.no_grad()
-def apply_updates(opt, params, states, lr_wd_t, rescale):
+def apply_updates(opt, params, states, lr_wd_t, rescale, grads=None):
     """Step every ``(name, parameter)`` of ``params`` with ``opt``'s pure
     ``update_step`` on f32 views, writing weights and ``states`` (a list,
     updated in place) back in their own dtypes. ``lr_wd_t(i)`` gives
-    ``(lr, wd, t)`` of parameter ``i``. A parameter without a gradient
-    steps with a zero one (the JAX gradient of an unused parameter)."""
+    ``(lr, wd, t)`` of parameter ``i``; its gradient is ``grads[i]``, else
+    its ``.grad``. A parameter without a gradient steps with a zero one
+    (the JAX gradient of an unused parameter)."""
     for i, (_, p) in enumerate(params):
-        g = p.grad.float() if p.grad is not None else torch.zeros_like(p, dtype=torch.float32)
+        g = grads[i] if grads is not None else p.grad
+        g = g.float() if g is not None else torch.zeros_like(p, dtype=torch.float32)
         lr, wd, t = lr_wd_t(i)
         new_w, new_state = opt.update_step(
             p.float(), g * rescale, tuple(s.float() for s in states[i]), lr, wd, t)

@@ -30,8 +30,9 @@ from mxnet_tpu.models.gpt import GPTConfig as JaxGPTConfig
 
 from mxnet_tpu_torch import _random, optimizer, parallel, random, serialization
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.device import cpu
 from mxnet_tpu_torch.checkpoint import CheckpointManager
-from mxnet_tpu_torch.gluon import Trainer, load_parameters, nn, save_parameters
+from mxnet_tpu_torch.gluon import Block, Trainer, load_parameters, nn, save_parameters
 from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from mxnet_tpu_torch.interop import params_from_numpy, params_to_numpy
 from mxnet_tpu_torch.models import GPTConfig, GPTModel
@@ -160,36 +161,45 @@ def test_save_load_parameters_across_packages(tmp_path, dtype):
     assert _params_equal_jax(tnet, other)
 
 
+def _dense():
+    """``nn.Dense(3, in_units=5)`` initialized on the CPU."""
+    return nn.Dense(3, in_units=5).initialize(device=cpu())
+
+
+def _weight(net):
+    """The weight tensor of a Dense (a leaf of the tape)."""
+    return dict(net.named_parameters())["weight"]
+
+
 def test_load_parameters_options(tmp_path):
     """``allow_missing``, ``ignore_extra``, ``cast_dtype`` and shape checks;
     ``deduplicate`` saves a shared parameter once."""
-    net = nn.Dense(3, 5)
-    with torch.no_grad():
-        net.weight.copy_(torch.arange(15.0).reshape(3, 5))
-        net.bias.copy_(torch.ones(3))
+    net = _dense()
+    net.weight.set_data(torch.arange(15.0).reshape(3, 5))
+    net.bias.set_data(torch.ones(3))
+    w, b = _weight(net).detach(), net.bias.data()._data.detach()
     f = str(tmp_path / "d.params")
-    serialization.save(f, {"weight": net.weight.detach()})
+    serialization.save(f, {"weight": w})
     with pytest.raises(MXNetError, match="missing parameter bias"):
-        load_parameters(nn.Dense(3, 5), f)
-    load_parameters(nn.Dense(3, 5), f, allow_missing=True)
-    serialization.save(f, {"weight": net.weight.detach(), "bias": net.bias.detach(),
-                           "other": torch.zeros(2)})
+        load_parameters(_dense(), f)
+    load_parameters(_dense(), f, allow_missing=True)
+    serialization.save(f, {"weight": w, "bias": b, "other": torch.zeros(2)})
     with pytest.raises(MXNetError, match="extra parameters"):
-        load_parameters(nn.Dense(3, 5), f)
-    fresh = load_parameters(nn.Dense(3, 5), f, ignore_extra=True)
-    assert torch.equal(fresh.weight, net.weight)
-    serialization.save(f, {"weight": net.weight.detach().double(), "bias": net.bias.detach()})
-    assert load_parameters(nn.Dense(3, 5), f).weight.dtype == torch.float64
-    cast = load_parameters(nn.Dense(3, 5), f, cast_dtype=True)
-    assert cast.weight.dtype == torch.float32 and torch.equal(cast.weight, net.weight)
-    serialization.save(f, {"weight": torch.zeros(2, 5), "bias": net.bias.detach()})
+        load_parameters(_dense(), f)
+    fresh = load_parameters(_dense(), f, ignore_extra=True)
+    assert torch.equal(_weight(fresh), _weight(net))
+    serialization.save(f, {"weight": w.double(), "bias": b})
+    assert _weight(load_parameters(_dense(), f)).dtype == torch.float64
+    cast = load_parameters(_dense(), f, cast_dtype=True)
+    assert _weight(cast).dtype == torch.float32 and torch.equal(_weight(cast), _weight(net))
+    serialization.save(f, {"weight": torch.zeros(2, 5), "bias": b})
     with pytest.raises(MXNetError, match="loaded shape"):
-        load_parameters(nn.Dense(3, 5), f)
+        load_parameters(_dense(), f)
 
-    class Tied(torch.nn.Module):
+    class Tied(Block):
         def __init__(self):
             super().__init__()
-            self.a = nn.Dense(3, 5)
+            self.a = _dense()
             self.b = self.a
     save_parameters(Tied(), f)
     assert sorted(serialization.load(f)) == ["a.bias", "a.weight", "b.bias", "b.weight"]
@@ -360,11 +370,10 @@ def test_port_local_resume_is_bitwise(tmp_path):
 # --------------------------------------- the cases of tests/test_checkpoint.py
 
 def _build(seed=0):
-    net = nn.Dense(3, 5)
+    net = _dense()
     rng = onp.random.RandomState(seed)
-    with torch.no_grad():
-        net.weight.copy_(torch.from_numpy(rng.randn(3, 5).astype("float32")))
-        net.bias.copy_(torch.from_numpy(rng.randn(3).astype("float32")))
+    net.weight.set_data(torch.from_numpy(rng.randn(3, 5).astype("float32")))
+    net.bias.set_data(torch.from_numpy(rng.randn(3).astype("float32")))
     return net, Trainer(dict(net.named_parameters()), "adam", {"learning_rate": 0.05})
 
 
@@ -376,7 +385,7 @@ def _train(net, tr, steps):
         loss = 0.5 * ((net(X) - Y) ** 2).mean(-1)
         loss.backward(torch.ones_like(loss))
         tr.step(16)
-    return net.weight.detach().clone()
+    return _weight(net).detach().clone()
 
 
 def test_save_restore_roundtrip(tmp_path):
@@ -385,11 +394,11 @@ def test_save_restore_roundtrip(tmp_path):
     _train(net, tr, 7)
     assert mgr.save(6, metric=0.5, meta={"note": "hi"}) == str(tmp_path / "step-0000000006")
     assert mgr.latest() == 6
-    w_saved = net.weight.detach().clone()
+    w_saved = _weight(net).detach().clone()
     _train(net, tr, 3)
     net2, tr2 = _build(seed=9)
     assert CheckpointManager(str(tmp_path), net=net2, trainer=tr2).restore_or_init() == 7
-    assert torch.equal(net2.weight, w_saved)
+    assert torch.equal(_weight(net2), w_saved)
     a = _train(net2, tr2, 1)
     net3, tr3 = _build(seed=4)
     CheckpointManager(str(tmp_path), net=net3, trainer=tr3).restore(6)
@@ -465,7 +474,7 @@ def test_async_save_snapshot_semantics(tmp_path):
     net, tr = _build()
     mgr = CheckpointManager(str(tmp_path / "a"), net=net, trainer=tr)
     _train(net, tr, 5)
-    w5 = net.weight.detach().clone()
+    w5 = _weight(net).detach().clone()
     path = mgr.save(4, blocking=False)
     _train(net, tr, 3)
     mgr.wait()
@@ -477,7 +486,7 @@ def test_async_save_snapshot_semantics(tmp_path):
     for name in ("a", "b"):
         net2, tr2 = _build(seed=3)
         CheckpointManager(str(tmp_path / name), net=net2, trainer=tr2).restore(4)
-        assert torch.equal(net2.weight, w5)
+        assert torch.equal(_weight(net2), w5)
         outs[name] = _train(net2, tr2, 1)
     assert torch.equal(outs["a"], outs["b"])
 
@@ -546,12 +555,12 @@ import os, signal, sys
 import numpy as onp
 import torch
 from mxnet_tpu_torch.checkpoint import CheckpointManager
+from mxnet_tpu_torch.device import cpu
 from mxnet_tpu_torch.gluon import Trainer, nn
 
 out_dir, total = sys.argv[1], int(sys.argv[2])
-net = nn.Dense(3, 5)
-with torch.no_grad():
-    net.weight.copy_(torch.from_numpy(onp.random.RandomState(0).randn(3, 5).astype("float32")))
+net = nn.Dense(3, in_units=5).initialize(device=cpu())
+net.weight.set_data(torch.from_numpy(onp.random.RandomState(0).randn(3, 5).astype("float32")))
 tr = Trainer(dict(net.named_parameters()), "adam", {"learning_rate": 0.05})
 mgr = CheckpointManager(out_dir, net=net, trainer=tr, period=5, keep_last=2)
 start = mgr.restore_or_init()

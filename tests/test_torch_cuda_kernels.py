@@ -1309,3 +1309,69 @@ def test_swap_seen_by_next_replay_without_capture(cuda):
     finally:
         eng.shutdown()
         ref.shutdown()
+
+
+# ------------------------------------------------ the gluon substrate's paths
+
+def _replay_net():
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential()
+    net.add(nn.Dense(32, activation="relu", in_units=16), nn.BatchNorm(), nn.Dropout(0.5),
+            nn.Dense(8))
+    with mx.gpu():
+        mx.random.seed(0)
+        net.initialize(mx.init.Xavier())
+    return net
+
+
+def test_hybridized_block_replays_cuda_graph(cuda):
+    """A block hybridized with ``static_alloc=True`` replays one CUDA graph
+    per cache entry from its second call outside ``record()``: the eager
+    call's bits; in-place writes (``set_data``, ``Trainer.step``) are read
+    by the next replay; BatchNorm's statistics update in a training-mode
+    replay; dropout draws a fresh mask per replay from the per-call seed.
+    (Calling ``net.forward`` directly runs the children's own CachedOps.)"""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import Trainer
+    net = _replay_net()
+    with mx.gpu():
+        x = mx.np.array(onp.random.RandomState(1).rand(4, 16).astype("float32"))
+        want = net(x).asnumpy()                 # not hybridized: eager
+        net.hybridize(static_alloc=True)
+        op_calls = [net(x).asnumpy() for _ in range(3)]
+        op = net._cached_op
+        assert op.replays == 2 and op.cache_size == 1
+        assert all(onp.array_equal(o, want) for o in op_calls)
+        w = net[0].weight
+        w.set_data(w.data() * 2)
+        eager = net.forward(x).asnumpy()
+        assert onp.array_equal(net(x).asnumpy(), eager) and op.replays == 3
+        tr = Trainer(net.collect_params(), "sgd", {"learning_rate": 0.1})
+        with autograd.record():
+            loss = net(x).sum()
+        loss.backward()
+        tr.step(4)
+        assert onp.array_equal(net(x).asnumpy(), net.forward(x).asnumpy())
+        rm = net[1].running_mean.data().asnumpy().copy()
+        with autograd.train_mode():
+            a, b = (net(x).asnumpy() for _ in range(2))
+            c = net(x).asnumpy()
+        assert not onp.array_equal(net[1].running_mean.data().asnumpy(), rm)
+        assert not onp.array_equal(b, c)     # a fresh mask per call
+
+
+def test_attention_block_launches_k1_k2_from_the_tape(cuda):
+    """``mx.ops.attention`` in a user HybridBlock inside ``record()``: K1
+    forward and K2 backward launch from the tape, gradients within K1/K2's
+    gates of the same block with the plain attention called directly."""
+    import types
+    args = types.SimpleNamespace(seed=0)
+    for dtype in ("float32", "bfloat16"):
+        got, counts, _, _ = chip_smoke.attention_step(torch, args, "cuda", dtype, 1)
+        want = chip_smoke.attention_step(torch, args, "cuda", dtype, 1, plain=True)[0]
+        assert counts.get("flash_fwd") == 1 and counts.get("flash_bwd") == 1
+        for n in want:
+            if dtype == "float32" or n != "x":
+                assert chip_smoke.flash_within(got[n], want[n], dtype), n

@@ -25,7 +25,7 @@ from mxnet_tpu_torch import _prng, _random, optimizer, parallel, random
 from mxnet_tpu_torch import numpy_extension as npx
 from mxnet_tpu_torch.gluon import Trainer
 from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
-from mxnet_tpu_torch.gluon.nn import Dropout
+from mxnet_tpu_torch.models._layers import Dropout
 from mxnet_tpu_torch.interop import params_from_numpy, params_to_numpy
 from mxnet_tpu_torch.models import GPTConfig, GPTModel, generate
 from mxnet_tpu_torch.ops.int8_gemv import count_launches

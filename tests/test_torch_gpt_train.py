@@ -22,7 +22,7 @@ from mxnet_tpu_torch import optimizer, parallel
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon import Trainer
 from mxnet_tpu_torch.gluon.loss import SoftmaxCELoss, SoftmaxCrossEntropyLoss
-from mxnet_tpu_torch.gluon.nn import Dropout
+from mxnet_tpu_torch.models._layers import Dropout
 from mxnet_tpu_torch.interop import params_from_numpy, params_to_numpy
 from mxnet_tpu_torch.models import GPTConfig, GPTModel
 from mxnet_tpu_torch.ops.int8_gemv import count_launches

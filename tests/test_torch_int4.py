@@ -26,7 +26,7 @@ from mxnet_tpu.ops import int8_gemv as jgemv
 from mxnet_tpu_torch import _build
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.contrib.quantization import QuantizedDense, quantize_net
-from mxnet_tpu_torch.gluon.nn import Dense
+from mxnet_tpu_torch.models._layers import Dense
 from mxnet_tpu_torch.interop import params_from_numpy
 from mxnet_tpu_torch.models import GPTConfig, GPTModel, generate
 from mxnet_tpu_torch.models import generation as gen
