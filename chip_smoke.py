@@ -15,8 +15,10 @@
    held at every M from 1 to 8 (each row the same bits as in the 8-row call
    and on a second launch, bf16 x the f32 lane on x.float()), and its tied
    head (50304 x 768) at 1 and 8 rows is reported on its own. K8's
-   grammar-mask and bf16 lanes (no JAX path reaches them: driven by direct
-   calls) are held against the plain version and the head GEMV + argmax. K6
+   grammar-mask lane and bf16 lane (no public API of either package
+   reaches them; phase 9 (d) reaches the bf16 lane from a Llama engine
+   through the private ``_quantize_tied_lm_head``) are driven by direct
+   calls and held against the plain version and the head GEMV + argmax. K6
    and K7 run on scattered block tables of a 600-page pool; K7's copies
    started and waited are held against the ``record_dma`` ledger, and K5, K6
    and K7 must give one input the same bits.
@@ -161,6 +163,39 @@
    port's. Records ms per step of (a) eager and
    hybridized, predict ms eager and replayed, (b)'s forward + backward ms
    and K1/K2's share of its device time.
+9. ``llama_serve``: first the kernels of the Llama path at Llama-3-8B's
+   widths against their plain versions (``kernel_llama_widths``): K3 and K4
+   at 4096 x 4096, 1024 x 4096, 14336 x 4096, 4096 x 14336 and the head
+   128256 x 4096, bf16 and f32 x, at 1 and 8 rows (warp route) and 9 and 64
+   (tile route); K8 over the 128256 x 4096 head in both codecs and lanes and
+   over a vocab of 128003 (pad lanes); K1 at B 1, 32 heads of 128, T 1024.
+   Then LLAMA3_8B at full width and depth (32 layers, 32 query and 8 KV
+   heads, vocab 128256, untied head, bf16), weights drawn on the card from
+   ``--seed``: (a) the cache-free forward at T 1024, 32 K1 launches, its
+   logits (relative L2) within LLAMA_K1_SPREAD times the distance that
+   keeping p in f32 puts between two plain attentions, of the same forward
+   with K1's plain version; (c) a 2-layer twin with the card model's embedding,
+   first layers, norm and head, int8, greedy on the card and the CPU, held
+   by the card's rule (equal, or a top-2 gap below ``gap_limit`` at the
+   first divergence), then its activation-quantized products past 64 rows
+   (128 rows through every layer and the head) on the card's inputs: each
+   the CPU's bit for bit at the card's activation scale, that scale within
+   one ulp of the CPU's; (d) the tied head at full width, 2 layers, int8
+   then int4, in ``multi_token=4`` engines: the per-layer decoder hands K8
+   f32 hidden states, the stacked decoder with only its head quantized (by
+   the private ``_quantize_tied_lm_head``: no public API reaches this
+   lane) hands it bf16 ones (its bf16 lane), each held against
+   ``multi_token=1``; (e)
+   int8 and int4 ``generate`` at 2 layers: K3 and K4 at every Llama width
+   on both routes, against their plain versions; (f) the stacked decoder
+   against the per-layer one, unquantized bf16, in both layouts; (b) int8
+   (``quantize_net``) through the paged engine (S 8, max_len 1024, 64-token
+   prefill chunks) after ``warmup()``: 16 greedy requests of 64-512-token
+   prompts, 64 new tokens each; replay equals eager; the contiguous engine
+   gives the 64-token prompts the same tokens and the longer ones hold to
+   the paged arithmetic on the contiguous layout; tokens/s, ms a decode
+   step, the idle share of a profiled window, K3's launches by route and
+   width.
 
 Informational JSON lines come first; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -269,6 +304,13 @@ class Timer:
 GEMV_ROWS = (1, 8, 9, 16, 64)
 # one block's four GEMVs (qkv, out, fc, proj) and the tied head
 GEMV_SHAPES = ((2304, 768), (768, 768), (3072, 768), (768, 3072), (50304, 768))
+# Llama-3-8B's: q and o (4096 x 4096), k and v (1024 x 4096), gate and up
+# (14336 x 4096), down (4096 x 14336), each with its count in one layer,
+# then the head (128256 x 4096); decode rows (warp route) and prefill rows
+# (tile route)
+LLAMA_LAYER = {(4096, 4096): 2, (1024, 4096): 2, (14336, 4096): 2, (4096, 14336): 1}
+LLAMA_GEMV_SHAPES = tuple(LLAMA_LAYER) + ((128256, 4096),)
+LLAMA_GEMV_ROWS = (1, 8, 9, 64)
 
 
 def dequant(torch, w_q, w_scale):
@@ -283,28 +325,35 @@ def table_bytes(*tables):
     return sum(t.numel() * t.element_size() for t in tables)
 
 
-def kernel_gemv(torch, timer, gen, bits, bf16=False):
-    """K3 (``bits`` 8) or K4 (4) at every (N, K) the serving path gives it,
-    at each row count of GEMV_ROWS: the warp route at 1 and 8 rows, the tile
-    route at 9, 16 and 64. Every call within 1e-4 x max(1, |plain|); the
-    first 9 rows of the tile route give the same bits at M 9, 16 and 64,
-    and two launches at 64 rows the same bits. ``bf16``: the bf16 x lane
-    (block 0 of a bf16 model), which must also give the f32 lane's result
-    on x.float() bit for bit on both routes; its library yardstick is
-    ``torch.matmul`` of bf16 x on the dequantized bf16 weight. The bound of
-    every call is the larger of its bytes and its operations at the bf16
-    tensor rate, whichever route runs it. Returns {"warp": one layer's four
-    GEMVs at 8 rows, summed, "mma": the same at 64 rows, with the 16-row
-    sums under "m16"; the 1-row sums under "m1" of "warp"}."""
+def kernel_gemv(torch, timer, gen, bits, bf16=False, shapes=GEMV_SHAPES, m_rows=GEMV_ROWS,
+                layer=None, tag=""):
+    """K3 (``bits`` 8) or K4 (4) at every (N, K) of ``shapes`` the serving
+    path gives it (GPT-2 small's by default; the last is the head), at each
+    row count of ``m_rows``: the warp route at 1 and 8 rows, the tile route
+    at 9, 16 and 64. ``layer`` maps each block shape to its count in one
+    layer (default: once each); ``tag`` suffixes the emitted names. Every
+    call within 1e-4 x max(1, |plain|); the first 9 rows of the tile route
+    give the same bits at every tile M, and two launches at the most rows
+    the same bits. ``bf16``: the bf16 x lane (block 0 of a bf16 model),
+    which must also give the f32 lane's result on x.float() bit for bit on
+    both routes; its library yardstick is ``torch.matmul`` of bf16 x on the
+    dequantized bf16 weight. The bound of every call is the larger of its
+    bytes and its operations at the bf16 tensor rate, whichever route runs
+    it. Returns {"warp": one layer's GEMVs at 8 rows, summed, "mma": the
+    same at 64 rows, with the 16-row sums under "m16" (None where 16 is
+    not a row count); the 1-row sums under "m1" of "warp"; "rows": every
+    call's row}."""
     from mxnet_tpu_torch.contrib.quantization import _quantize_int4
     from mxnet_tpu_torch.ops import int8_gemv
-    name = ("K3" if bits == 8 else "K4") + ("_bf16" if bf16 else "")
+    name = ("K3" if bits == 8 else "K4") + ("_bf16" if bf16 else "") + tag
+    head_n = shapes[-1][0]
+    layer = layer or {shape: 1 for shape in shapes[:-1]}
     xsize = 2 if bf16 else 4
     fn = int8_gemv.int8_weight_matmul if bits == 8 else int8_gemv.int4_weight_matmul
     plain = int8_gemv._reference_int8_matmul if bits == 8 else int8_gemv._reference_int4_matmul
     rows, same_bits = [], []
-    for N, K in GEMV_SHAPES:
-        x64 = torch.randn(max(GEMV_ROWS), K, device="cuda", generator=gen)
+    for N, K in shapes:
+        x64 = torch.randn(max(m_rows), K, device="cuda", generator=gen)
         if bf16:
             x64 = x64.bfloat16()
         if bits == 8:
@@ -316,7 +365,7 @@ def kernel_gemv(torch, timer, gen, bits, bf16=False):
         if bf16:
             wdeq = wdeq.bfloat16()
         outs = {}
-        for M in GEMV_ROWS:
+        for M in m_rows:
             x = x64[:M].contiguous()
             got = fn(x, w, s)
             want = plain(x, w, s)
@@ -343,7 +392,7 @@ def kernel_gemv(torch, timer, gen, bits, bf16=False):
                 "library_ms": timer(lambda: torch.matmul(x, wdeq.T)),
                 "bound_ms": b_ms, "bound_by": b_by,
                 "bytes": xsize * M * K + table_bytes(w, s) + 4 * M * N})
-        tile = [M for M in GEMV_ROWS if int8_gemv.gemv_route(M) == "mma"]
+        tile = [M for M in m_rows if int8_gemv.gemv_route(M) == "mma"]
         lo = min(tile)
         again = fn(x64, w, s)
         torch.cuda.synchronize()
@@ -357,13 +406,17 @@ def kernel_gemv(torch, timer, gen, bits, bf16=False):
     emit({name.lower() + "_shapes": rows, name.lower() + "_tile_same_bits": same_bits})
 
     def layer_sums(M):
-        # the serving path's work: one layer's four block GEMVs at M rows
-        layer = [r for r in rows if r["M"] == M and r["N"] != 50304]
-        out = {k: sum(r[k] for r in layer) for k in ("ms", "plain_ms", "library_ms")}
+        # the serving path's work: one layer's block GEMVs at M rows
+        mine = [(r, layer[r["N"], r["K"]]) for r in rows
+                if r["M"] == M and (r["N"], r["K"]) in layer]
+        if not mine:
+            return None
+        out = {k: sum(n * r[k] for r, n in mine) for k in ("ms", "plain_ms", "library_ms")}
         out["bound_ms"], out["bound_by"] = bound(
-            sum(r["bytes"] for r in layer),
-            sum(2 * M * r["N"] * r["K"] + (M * r["N"] * r["K"] // 128 if bits == 4 else 0)
-                for r in layer), BF16_FLOP_PER_S)
+            sum(n * r["bytes"] for r, n in mine),
+            sum(n * (2 * M * r["N"] * r["K"] + (M * r["N"] * r["K"] // 128 if bits == 4
+                                                 else 0)) for r, n in mine),
+            BF16_FLOP_PER_S)
         return out
 
     warp = layer_sums(8)
@@ -375,10 +428,10 @@ def kernel_gemv(torch, timer, gen, bits, bf16=False):
     mma["m16"] = layer_sums(16)
     # the tied head on the warp route (token 0, and every decode substep of a
     # multi_token=1 engine)
-    head = {f"m{M}": next(r for r in rows if r["N"] == 50304 and r["M"] == M) for M in (1, 8)}
+    head = {f"m{M}": next(r for r in rows if r["N"] == head_n and r["M"] == M) for M in (1, 8)}
     head["max_abs_err"] = max(head["m1"]["max_abs_err"], head["m8"]["max_abs_err"],
-                              next(r["warp_max_abs_err"] for r in same_bits if r["N"] == 50304))
-    return {"warp": warp, "mma": mma, "head": head}
+                              next(r["warp_max_abs_err"] for r in same_bits if r["N"] == head_n))
+    return {"warp": warp, "mma": mma, "head": head, "rows": rows}
 
 
 def warp_rows(torch, name, fn, plain, x64, w, s, full, bf16):
@@ -678,7 +731,8 @@ def kernel_k8(torch, timer, gen, head):
     the argmax of the head GEMV (K3 or K4), bit for bit; and at B=16 (paged
     A's batch: two row tiles), [B, 2] keys, against the plain version. Times
     the warp-route head GEMV + ``argmax`` beside it (``warp_head_argmax_ms``:
-    the selection K8 fuses, in two launches)."""
+    the selection K8 fuses, in two launches). The bound counts the
+    operations at the bf16 tensor rate, as kernel_gemv's does."""
     import numpy as np
 
     from mxnet_tpu_torch.models.generation import _key_bits
@@ -711,7 +765,7 @@ def kernel_k8(torch, timer, gen, head):
           f"{plain16.tolist()}")
     wdeq = dequant(torch, w_q, scale)
     b_ms, b_by = bound(table_bytes(w_q, scale) + 4 * B * D + 12 * B,
-                       2 * B * Vp * D + (B * scale.numel() if int4 else 0))
+                       2 * B * Vp * D + (B * scale.numel() if int4 else 0), BF16_FLOP_PER_S)
     return {"max_abs_err": 0.0, "tokens": got.tolist(), "greedy_equal_gemv_argmax": True,
             "ms": timer(lambda: fb.fused_lm_head_sample(h, w_q, scale, vocab, kb, temps)),
             "plain_ms": timer(lambda: fb._reference_head_sample(h, w_q, scale, vocab,
@@ -724,6 +778,9 @@ def kernel_k8(torch, timer, gen, head):
 
 # direct calls of K8's mask and bf16 lanes in their launch-counting phase
 K8_LANE_CALLS = 16
+# how phase 9 (d) reaches K8's bf16 lane: off every public path
+K8_BF16_LLAMA_PATH = ("from a Llama engine only through the private "
+                      "_quantize_tied_lm_head on a stacked bf16 Llama")
 
 
 def kernel_k8_lanes(torch, timer, gen, head):
@@ -736,7 +793,7 @@ def kernel_k8_lanes(torch, timer, gen, head):
     head GEMV + argmax; bf16 h gives h.float()'s tokens and greedy rows the
     argmax of the head GEMV's logits rounded to bf16; all bit for bit.
     Library yardsticks: ``matmul`` + masked ``argmax``; bf16 ``matmul`` +
-    ``argmax``. Returns {"mask": row, "bf16": row}."""
+    ``argmax``. Bounds as kernel_k8's. Returns {"mask": row, "bf16": row}."""
     import numpy as np
 
     from mxnet_tpu_torch.models.generation import _key_bits
@@ -809,7 +866,8 @@ def kernel_k8_lanes(torch, timer, gen, head):
              lambda: fb._reference_head_sample(hb.float(), w_q, scale, vocab, temps, kb,
                                                out_dtype=bf16),
              lambda: torch.argmax(torch.matmul(hb, wdeq_b.T), -1))):
-        b_ms, b_by = bound(table_bytes(w_q, scale) + xsize * B * D + extra + 12 * B, ops)
+        b_ms, b_by = bound(table_bytes(w_q, scale) + xsize * B * D + extra + 12 * B, ops,
+                           BF16_FLOP_PER_S)
         rows[lane_name] = {"launches": n, "max_abs_err": 0.0, "tokens_equal_plain": True,
                            "ms": timer(fn), "plain_ms": timer(plain_fn),
                            "library_ms": timer(lib), "bound_ms": b_ms, "bound_by": b_by}
@@ -939,17 +997,25 @@ def busy_us(spans):
     return busy
 
 
-def device_share(torch, eng, prompts, new, trace=None, run=None):
+# the launch kinds and kernel-name parts device_share holds the trace to:
+# GPT's decode kernels (K5/K6/K7 and K8), and Llama's GEMVs (K3/K4) and K8
+BLOCK_AND_HEAD = (("fused_block", "fused_head"), ("fused_block_decode", "head_kernel"))
+GEMV_AND_HEAD = (("gemv", "fused_head"), ("_gemv_", "head_kernel"))
+
+
+def device_share(torch, eng, prompts, new, trace=None, run=None, counted_as=BLOCK_AND_HEAD):
     """Serve ``prompts`` (greedy; or call ``run()``, which serves them its
     own way and returns their results) once more under ``torch.profiler`` and
     split the window's host wall time into device kernel time per kernel
     and idle time. Returns None where the trace holds no device kernel.
-    The trace must hold one span per launch of a block kernel (K5/K6/K7)
-    and of K8 that the window counted (``launches()``, which counts every
-    graph replay's launches): where it holds fewer, the profiler dropped
-    kernels (as it may inside replayed CUDA graphs), and the window's idle
-    share is reported as not measured. ``trace``: see device_spans;
-    ``trace_s`` is the time taken to read the spans."""
+    The trace must hold one span per launch of the kernels ``counted_as``
+    names (launch kinds, and the parts of their kernels' names; by default
+    the block kernels K5/K6/K7 and K8) that the window counted
+    (``launches()``, which counts every graph replay's launches): where it
+    holds fewer, the profiler dropped kernels (as it may inside replayed
+    CUDA graphs), and the window's idle share is reported as not measured.
+    ``trace``: see device_spans; ``trace_s`` is the time taken to read the
+    spans."""
     from mxnet_tpu_torch.ops.int8_gemv import launches
     from torch.profiler import ProfilerActivity, profile
     before = eng.stats()
@@ -981,8 +1047,9 @@ def device_share(torch, eng, prompts, new, trace=None, run=None):
                     if k in name), "other")
         by_kernel[key] = by_kernel.get(key, 0.0) + (b - a) / 1e3
     substeps = after["decode_substeps"] - before["decode_substeps"]
-    launched = sum(n for k, n in counted.items() if k.startswith(("fused_block", "fused_head")))
-    traced = sum(1 for _, _, name in spans if "fused_block_decode" in name or "head_kernel" in name)
+    kinds, names = counted_as
+    launched = sum(n for k, n in counted.items() if k.startswith(kinds))
+    traced = sum(1 for _, _, name in spans if any(part in name for part in names))
     out = {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
            "idle_share": 1.0 - busy / 1e3 / (wall * 1e3),
            "kernel_ms": by_kernel, "device_ops": len(spans),
@@ -2325,12 +2392,14 @@ def dispatch_modes(torch, args, net, window):
 
 def quant_bytes(torch, net):
     """Bytes of a quantized model's weight tables and scales: the blocks'
-    QuantizedDense layers and the tied head."""
+    QuantizedDense layers (an untied head's among them) and the tied
+    head."""
     from mxnet_tpu_torch.contrib.quantization import QuantizedDense
     blocks = sum(table_bytes(m.w_q, m.w_scale) for m in net.modules()
                  if isinstance(m, QuantizedDense))
-    w, s, _ = net.head_weights()
-    return {"blocks": blocks, "head": table_bytes(w, s), "total": blocks + table_bytes(w, s)}
+    head = net.head_weights()
+    head = table_bytes(*head[:2]) if head is not None else 0
+    return {"blocks": blocks, "head": head, "total": blocks + head}
 
 
 def int4_stage(torch, args, timer, gen, int8_bytes):
@@ -3344,6 +3413,649 @@ def gluon_substrate(torch, args, device="cuda"):
     return {k: sum(r["launches"][k] for r in rows.values()) for k in ("flash_fwd", "flash_bwd")}
 
 
+LLAMA_VOCAB, LLAMA_D = 128256, 4096
+# a vocab that is not a multiple of 128: K8's pad lanes at Llama's width
+ODD_VOCAB = 128003
+
+
+def tied_head(torch, gen, vocab, D, bits):
+    """The quantized tied head ``quantize_net`` derives from an N(0, 0.02)
+    bf16 embedding [vocab, D]: (table, scales, vocab), padded to
+    ``pad_vocab(vocab)`` rows."""
+    from types import SimpleNamespace
+
+    from mxnet_tpu_torch.contrib.quantization import _quantize_tied_lm_head
+    emb = (torch.randn(vocab, D, device="cuda", generator=gen) * 0.02).bfloat16()
+    holder = SimpleNamespace(wte=SimpleNamespace(weight=emb))
+    _quantize_tied_lm_head(holder, bits)
+    return holder._q_lm_head
+
+
+def kernel_llama_widths(torch, timer, gen):
+    """The kernels of the Llama serving path at Llama-3-8B's widths against
+    their plain versions: K3 and K4 at every (N, K) of LLAMA_GEMV_SHAPES,
+    at 1 and 8 rows (warp route) and 9 and 64 (tile route), with bf16 x
+    (block inputs of an unquantized-width layer 0) and f32 x (every later
+    input of a quantized model: its layers' outputs are f32); K8 over the
+    128256 x 4096 tied head in both codecs, its mask and bf16 lanes, and
+    over a vocab of ODD_VOCAB (pad lanes); K1 at B 1, 32 heads of 128, T
+    1024, causal bf16 (the cache-free forward's shape, K/V repeated from 8
+    heads). Returns {"K3"|"K4": {"bf16"|"f32": kernel_gemv's result},
+    "K8": {"int8"|"int4": {"main", "lanes"}, "odd_vocab"}, "K1": row}."""
+    out = {}
+    for name, bits in (("K3", 8), ("K4", 4)):
+        out[name] = {
+            lane: kernel_gemv(torch, timer, gen, bits, bf16=lane == "bf16",
+                              shapes=LLAMA_GEMV_SHAPES, m_rows=LLAMA_GEMV_ROWS,
+                              layer=LLAMA_LAYER, tag="_llama")
+            for lane in ("bf16", "f32")}
+        torch.cuda.empty_cache()
+    out["K8"] = {}
+    for codec, bits in (("int8", 8), ("int4", 4)):
+        head = tied_head(torch, gen, LLAMA_VOCAB, LLAMA_D, bits)
+        out["K8"][codec] = {"main": kernel_k8(torch, timer, gen, head),
+                            "lanes": kernel_k8_lanes(torch, timer, gen, head)}
+        del head
+    odd = tied_head(torch, gen, ODD_VOCAB, LLAMA_D, 8)
+    check(odd[0].shape[0] % 128 == 0 and odd[0].shape[0] > ODD_VOCAB,
+          f"vocab {ODD_VOCAB}: the head table has {odd[0].shape[0]} rows, no pad lanes")
+    out["K8"]["odd_vocab"] = kernel_k8(torch, timer, gen, odd)
+    del odd
+    torch.cuda.empty_cache()
+    out["K1"] = flash_case(torch, timer, gen, 1, 32, 1024, 1024, 128, True, torch.bfloat16,
+                           timed=True)
+    emit({"llama_width_kernels": {
+        "K3": {lane: {k: r[k] for k in ("warp", "mma", "head")} for lane, r in out["K3"].items()},
+        "K4": {lane: {k: r[k] for k in ("warp", "mma", "head")} for lane, r in out["K4"].items()},
+        "K8": out["K8"], "K1": out["K1"]}})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 9, llama_serve: Llama-3-8B served by the port on the card
+# ---------------------------------------------------------------------------
+LLAMA_S, LLAMA_L = 8, 1024        # engine slots and max_len
+LLAMA_REQUESTS, LLAMA_NEW = 16, 64
+LLAMA_SHORT = 4                   # requests with 64-token prompts, the rest 65-512
+LLAMA_CHUNK = 64                  # paged prefill chunk: a 64-token prompt is one chunk,
+#                                   the contiguous engine's one prefill of 64 rows
+LLAMA_T = 1024                    # (a) the cache-free forward at B 1
+# (a) K1 against its plain version over the same bf16 model, by the
+# relative L2 distance of the logits: at most LLAMA_K1_SPREAD times the
+# distance between that plain version (which rounds p to bf16 before p v,
+# as K1 does) and the same attention with p kept in f32. Each layer
+# rounds its attention output to bf16, and 32 layers carry one element's
+# other rounding into every later one, so that floor is a few percent of
+# the logits, set by the model rather than the kernel; K1 is held to
+# 1e-2 per element at this shape by kernel_llama_widths.
+LLAMA_K1_SPREAD = 2.0
+LLAMA_SMALL_LAYERS = 2            # the 2-layer variants of (c)-(f)
+# (c) CPU twin: prompts, prompt tokens, new tokens; the 4 x 16 prefill rows
+# stay on the GEMV path (past 64 rows each device takes the per-tensor int8
+# activation scale from its own input, and a token check would hold two
+# quantizations to each other: LLAMA_WIDE holds those products on a
+# shared input)
+LLAMA_TWIN = (4, 16, 12)
+# (c) the same twin's activation-quantized products past 64 rows: a
+# cache-free forward of [prompts, tokens] (128 rows through every layer)
+LLAMA_WIDE = (4, 32)
+LLAMA_SMALL = (8, 48, 32)         # (d)-(f): prompts, longest prompt, new tokens
+
+
+def llama_config(torch, layers=None, **kw):
+    import dataclasses
+
+    from mxnet_tpu_torch.models import LLAMA3_8B
+    return dataclasses.replace(LLAMA3_8B, num_layers=layers or LLAMA3_8B.num_layers, **kw)
+
+
+def copy_llama(torch, src, dst):
+    """Copy every parameter of ``dst`` from the parameter of ``src`` with
+    the same name (a shallower ``dst`` takes ``src``'s first layers)."""
+    have = dict(src.named_parameters())
+    with torch.no_grad():
+        for name, p in dst.named_parameters():
+            p.copy_(have[name])
+    return dst
+
+
+def stack_llama(torch, net):
+    """The stacked decoder of ``net``'s config holding its weights."""
+    import dataclasses
+
+    from mxnet_tpu_torch.models import LlamaForCausalLM
+    out = LlamaForCausalLM(dataclasses.replace(net.cfg, stacked=True), device=net.device)
+    layers = list(net.model.layers)
+    parts = {"ln1": "input_layernorm.gamma", "ln2": "post_attention_layernorm.gamma",
+             "wq": "self_attn.q_proj.weight", "wk": "self_attn.k_proj.weight",
+             "wv": "self_attn.v_proj.weight", "wo": "self_attn.o_proj.weight",
+             "wg": "mlp.gate_proj.weight", "wu": "mlp.up_proj.weight",
+             "wd": "mlp.down_proj.weight"}
+    with torch.no_grad():
+        for name, path in parts.items():
+            getattr(out.model.layers, name).copy_(torch.stack(
+                [dict(layer.named_parameters())[path] for layer in layers]))
+        out.model.embed_tokens.weight.copy_(net.model.embed_tokens.weight)
+        out.model.norm.gamma.copy_(net.model.norm.gamma)
+        if net.lm_head is not None:
+            out.lm_head.weight.copy_(net.lm_head.weight)
+    return out
+
+
+def serve_all(eng, prompts, new):
+    """Every prompt greedy through ``eng`` at once; the generated ids."""
+    handles = [eng.submit(p, new) for p in prompts]
+    out = []
+    for i, h in enumerate(handles):
+        r = h.result(timeout=900)
+        check(r.ok and len(r.generated_ids) == new,
+              f"request {i}: {r.status} {len(r.generated_ids)} tokens {r.error}")
+        out.append(r.generated_ids)
+    return out
+
+
+def hold_greedy(torch, ref, prompts, got, want, what):
+    """The card's rule for two greedy runs: each row's tokens equal, or a
+    first divergence where ``ref``'s top-2 gap after the common tokens is
+    below ``gap_limit``. Returns the rows."""
+    rows = []
+    for i, (p, a, b) in enumerate(zip(prompts, got, want)):
+        d = first_divergence(a, b)
+        row = {"request": i, "prompt": len(p), "equal": d is None, "first_divergence": d}
+        if d is not None:
+            row["top2_gap"], top = top2_gap(torch, ref, list(p) + list(b[:d]))
+            row["gap_limit"] = gap_limit(torch, ref, top)
+            check(row["top2_gap"] < row["gap_limit"],
+                  f"{what}: request {i} diverges at {d} with top-2 gap {row['top2_gap']}")
+        rows.append(row)
+    return rows
+
+
+def llama_prompts(args, n, lo, hi, vocab, salt):
+    import numpy as np
+    rng = np.random.RandomState(args.seed + salt)
+    return [rng.randint(0, vocab, int(rng.randint(lo, hi + 1))).tolist() for _ in range(n)]
+
+
+def llama_k1_forward(torch, args, net, k1_row):
+    """(a) The cache-free forward of the bf16 model at B 1, T LLAMA_T: K1
+    launches once a layer at head dim 128 (32 heads after the GQA repeat);
+    its logits against the same forward with K1's plain version on the
+    card, relative L2 within LLAMA_K1_SPREAD times the distance between
+    that forward and one whose plain attention keeps p in f32. Returns the
+    phase's numbers."""
+    import numpy as np
+
+    from mxnet_tpu_torch.models import llama as llama_mod
+    from mxnet_tpu_torch.ops import attention as fa
+    from mxnet_tpu_torch.ops.int8_gemv import launches, reset_launches
+    cfg = net.cfg
+    ids = torch.from_numpy(np.random.RandomState(args.seed + 40).randint(
+        0, cfg.vocab_size, (1, LLAMA_T)).astype(np.int32)).cuda()
+
+    def plain(q, k, v, causal, scale):
+        s = scale if scale is not None else q.shape[-1] ** -0.5
+        return fa._reference_flash_forward(q, k, v, causal, s)[0]
+
+    def plain_f32_p(q, k, v, causal, scale):
+        return plain(q.float(), k.float(), v.float(), causal, scale).to(q.dtype)
+
+    with torch.no_grad():
+        net(ids[:, :256])                                  # warm-up
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = net(ids)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_k1 = launches().get("flash_fwd", 0)
+        kernel_fa = llama_mod.flash_attention
+        try:
+            llama_mod.flash_attention = plain
+            want = net(ids)
+            llama_mod.flash_attention = plain_f32_p
+            other = net(ids)
+        finally:
+            llama_mod.flash_attention = kernel_fa
+    check(n_k1 == cfg.num_layers, f"K1 launched {n_k1} times, not once a layer "
+          f"({cfg.num_layers})")
+    check(tuple(logits.shape) == (1, LLAMA_T, cfg.vocab_size) and logits.dtype == cfg.dtype,
+          f"logits {tuple(logits.shape)} {logits.dtype}")
+    a, b = logits.float(), want.float()
+    check(bool(torch.isfinite(a).all()), "cache-free logits not finite")
+    rel = ((a - b).norm() / b.norm()).item()
+    floor = ((other.float() - b).norm() / b.norm()).item()
+    out = {"B": 1, "T": LLAMA_T, "layers": cfg.num_layers, "k1_launches": n_k1,
+           "wall_ms": wall * 1e3, "rel_l2_vs_plain": rel, "rel_l2_plain_vs_f32_p": floor,
+           "gate": LLAMA_K1_SPREAD * floor, "max_abs_err": (a - b).abs().max().item(),
+           "argmax_agreement": (a.argmax(-1) == b.argmax(-1)).float().mean().item(),
+           "k1_at_this_shape": {k: k1_row[k] for k in (
+               "k1_ms", "k1_plain_ms", "k1_library_ms", "k1_bound_ms", "k1_bound_by",
+               "k1_max_abs_err", "library") if k in k1_row}}
+    check(rel <= LLAMA_K1_SPREAD * floor,
+          f"K1 forward: logits {rel} from its plain version's (relative L2) > "
+          f"{LLAMA_K1_SPREAD} x {floor}, the plain version's distance with p in f32")
+    return out
+
+
+def catch_quantized(torch, model):
+    """Forward hooks on every QuantizedDense of ``model``, each keeping its
+    last (input, output) under the module's name. Returns (that dict, the
+    hook handles)."""
+    from mxnet_tpu_torch.contrib.quantization import QuantizedDense
+    seen = {}
+
+    def keep(name):
+        def hook(mod, inp, out):
+            seen[name] = (inp[0].detach(), out.detach())
+        return hook
+    hooks = [m.register_forward_hook(keep(name)) for name, m in model.named_modules()
+             if isinstance(m, QuantizedDense)]
+    return seen, hooks
+
+
+def llama_wide_products(torch, args, card, cpu):
+    """(c) past ``gemv_max_m()`` rows: the cache-free forward of LLAMA_WIDE
+    ids on the card and on the CPU twin catches every QuantizedDense's input
+    and output (14 layers' products and the 128256-wide head, 128 rows
+    each: the activation-quantized int8 x int8 product). Gates, per layer:
+    the per-tensor activation scale the card takes from its input is within
+    one ulp of x's dtype of the scale the CPU takes from the same input
+    (the card may divide by 127 as a multiply by its reciprocal), and the
+    card's output is, bit for bit, the CPU layer's on that input at the
+    card's scale (an exact integer product). Beside them, not gated, the
+    witness of how the two devices part without a shared input: per layer
+    the CPU twin's own input against the card's (max abs difference), the
+    two scales, and the share of int8 inputs that differ; and per prompt
+    the top-2 gap and agreement of the last row's logits."""
+    import numpy as np
+
+    from mxnet_tpu_torch.ops.int8_gemv import gemv_max_m
+    n, t = LLAMA_WIDE
+    ids = torch.from_numpy(np.random.RandomState(args.seed + 47).randint(
+        0, card.cfg.vocab_size, (n, t)).astype(np.int32))
+    with torch.no_grad():
+        seen_card, hooks = catch_quantized(torch, card)
+        logits_card = card(ids.cuda())[:, -1].float().cpu()
+        seen_cpu, hooks_cpu = catch_quantized(torch, cpu)
+        logits_cpu = cpu(ids)[:, -1].float()
+        for h in hooks + hooks_cpu:
+            h.remove()
+        card_mods, cpu_mods = dict(card.named_modules()), dict(cpu.named_modules())
+
+        def q(v, scale):
+            return torch.clamp(torch.round(v.float() / scale), -127, 127)
+        layers = []
+        for name, (x, y) in seen_card.items():
+            rows = x.numel() // x.shape[-1]
+            check(rows > gemv_max_m(), f"{name}: {rows} rows, not past {gemv_max_m()}")
+            xc = x.cpu()
+            s_card = card_mods[name]._input_qscale(x).item()
+            s_cpu = cpu_mods[name]._input_qscale(xc).item()
+            ulp = torch.finfo(x.dtype).eps * s_cpu
+            mod = cpu_mods[name]
+            try:
+                mod._act_scale = s_card
+                want = mod(xc)
+            finally:
+                mod._act_scale = None
+            got = y.cpu()
+            own = seen_cpu[name][0]
+            layers.append({
+                "layer": name, "rows": rows, "N": y.shape[-1], "K": x.shape[-1],
+                "x_dtype": str(x.dtype).replace("torch.", ""),
+                "scale_card": s_card, "scale_cpu": s_cpu,
+                "scale_ulps": abs(s_card - s_cpu) / ulp,
+                "equal_at_card_scale": bool(torch.equal(got, want)),
+                "max_abs_err": (got - want).abs().max().item(),
+                "witness_max_abs_x": (own.float() - xc.float()).abs().max().item(),
+                "witness_scale_cpu_own": mod._input_qscale(own).item(),
+                "witness_xq_differ": (q(own, mod._input_qscale(own))
+                                      != q(xc, s_card)).float().mean().item()})
+            check(abs(s_card - s_cpu) <= ulp,
+                  f"{name}: activation scale {s_card} on the card, {s_cpu} on the CPU")
+            check(layers[-1]["equal_at_card_scale"],
+                  f"{name}: {rows} rows: the card's product is not the CPU's at the card's "
+                  f"scale (max abs {layers[-1]['max_abs_err']})")
+    check(len(layers) == 7 * LLAMA_SMALL_LAYERS + 1,
+          f"caught {len(layers)} quantized layers: {[r['layer'] for r in layers]}")
+    top = torch.topk(logits_cpu, 2).values
+    return {"prompts": n, "tokens": t, "layers": layers,
+            "witness_top1_equal": (logits_card.argmax(-1) == logits_cpu.argmax(-1)).tolist(),
+            "witness_cpu_top2_gap": (top[:, 0] - top[:, 1]).tolist(),
+            "witness_logits_max_abs": (logits_card - logits_cpu).abs().max().item()}
+
+
+def llama_card_vs_cpu(torch, args, net):
+    """(c) A 2-layer twin at full width holding the card model's embedding,
+    first layers, norm and head, int8 on the card and on the CPU (plain
+    versions): greedy ``generate`` of LLAMA_TWIN prompts, held by the card's
+    rule (the CPU twin's top-2 gap); then its products past 64 rows
+    (llama_wide_products)."""
+    import numpy as np
+
+    from mxnet_tpu_torch.contrib.quantization import quantize_net
+    from mxnet_tpu_torch.models import LlamaForCausalLM, generate
+    n, plen, new = LLAMA_TWIN
+    cfg = llama_config(torch, LLAMA_SMALL_LAYERS)
+    card = copy_llama(torch, net, LlamaForCausalLM(cfg, device="cuda"))
+    cpu = copy_llama(torch, net, LlamaForCausalLM(cfg, device="cpu"))
+    quantize_net(card)
+    quantize_net(cpu)
+    ids = np.random.RandomState(args.seed + 41).randint(0, cfg.vocab_size, (n, plen))
+    ids = torch.from_numpy(ids.astype(np.int32))
+    got = generate(card, ids, new)[:, plen:].tolist()
+    t0 = time.perf_counter()
+    want = generate(cpu, ids, new)[:, plen:].tolist()
+    cpu_s = time.perf_counter() - t0
+    rows = hold_greedy(torch, cpu, ids.tolist(), got, want, "card vs CPU")
+    t0 = time.perf_counter()
+    wide = llama_wide_products(torch, args, card, cpu)
+    wide["s"] = time.perf_counter() - t0
+    return {"layers": LLAMA_SMALL_LAYERS, "prompts": n, "prompt_tokens": plen,
+            "new_tokens": new, "rows": rows, "cpu_s": cpu_s, "past_64_rows": wide}
+
+
+def llama_serving(torch, args, net):
+    """(b) The int8 model through ``InferenceEngine(max_batch_size=8,
+    max_len=1024)``, paged (the card's default) with LLAMA_CHUNK-token
+    prefill chunks, after ``warmup()``: LLAMA_REQUESTS greedy requests of
+    64-512-token prompts, LLAMA_NEW new tokens each. Gates: nothing captured
+    after warm-up; a decode step and a prefill chunk replay their eager runs
+    bit for bit; a contiguous engine gives the 64-token prompts the same
+    tokens; the longer ones hold to the paged engine's arithmetic on the
+    contiguous layout (``prefill_chunks``, then one-token decode steps) by
+    the card's rule. Returns the launch counts and the numbers."""
+    from mxnet_tpu_torch.models import generation as gen
+    from mxnet_tpu_torch.ops.int8_gemv import (dtype_lanes, gemv_routes, gemv_widths,
+                                               launches, reset_launches)
+    from mxnet_tpu_torch.serve import InferenceEngine
+    vocab = net.cfg.vocab_size
+    prompts = (llama_prompts(args, LLAMA_SHORT, 64, 64, vocab, 42)
+               + llama_prompts(args, LLAMA_REQUESTS - LLAMA_SHORT, 65, 512, vocab, 43))
+    eng = InferenceEngine(net, max_batch_size=LLAMA_S, max_len=LLAMA_L,
+                          prefill_chunk=LLAMA_CHUNK).start()
+    try:
+        check(eng._paged, "the card's default engine is not paged")
+        warmed = warm(eng)
+        before = eng.stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = serve_all(eng, prompts, LLAMA_NEW)
+        wall = time.perf_counter() - t0
+        counts = launches()
+        counts.update(routes=gemv_routes(), widths=gemv_widths(), lanes=dtype_lanes())
+        after = eng.stats()
+        profiled = device_share(torch, eng, prompts[:LLAMA_S], LLAMA_NEW,
+                                trace="llama_decode_trace.json", counted_as=GEMV_AND_HEAD)
+        no_capture_since(eng, warmed, "llama paged phase")
+    finally:
+        eng.shutdown(drain=True, timeout=600)
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    replay = [replay_equals_eager(torch, eng, g, args.seed, sb=LLAMA_S, steps=1,
+                                  branch="greedy"),
+              replay_equals_eager(torch, eng, g, args.seed, pb=LLAMA_CHUNK)]
+    del eng
+    check(counts.get("gemv", 0) > 0 and counts["routes"]["warp"] > 0
+          and counts["routes"]["mma"] > 0, f"K3 did not run on both routes: {counts}")
+    contiguous = InferenceEngine(net, max_batch_size=LLAMA_S, max_len=LLAMA_L,
+                                 paged=False).start()
+    try:
+        short = serve_all(contiguous, prompts[:LLAMA_SHORT], LLAMA_NEW)
+    finally:
+        contiguous.shutdown(drain=True, timeout=600)
+    del contiguous
+    for i in range(LLAMA_SHORT):
+        check(short[i] == results[i], f"64-token prompt {i}: contiguous tokens != paged "
+              f"(first divergence {first_divergence(short[i], results[i])})")
+    refs = []
+    with torch.no_grad():
+        for p in prompts[LLAMA_SHORT:]:
+            caches = net.new_caches(1, LLAMA_L)
+            hidden, last = prefill_chunks(torch, net, p, LLAMA_CHUNK, caches)
+            tok = int(net._lm_head(hidden[:, last]).float().argmax(-1)[0])
+            out = [tok]
+            while len(out) < LLAMA_NEW:
+                pos = torch.full((1,), len(p) + len(out) - 1, dtype=torch.int32,
+                                 device="cuda")
+                ids = torch.full((1, 1), out[-1], dtype=torch.int32, device="cuda")
+                logits, caches = gen.decode_step(net, ids, pos, caches)
+                out.append(int(logits[0, -1].float().argmax()))
+            refs.append(out)
+    rows = hold_greedy(torch, net, prompts[LLAMA_SHORT:], results[LLAMA_SHORT:], refs,
+                       "paged engine vs its arithmetic on the contiguous layout")
+    tokens = sum(len(r) for r in results)
+    dsteps = after["decode_substeps"] - before["decode_substeps"]
+    dsec = after["decode_s"] - before["decode_s"]
+    numbers = {"requests": len(prompts), "prompt_tokens": [len(p) for p in prompts],
+               "new_tokens_each": LLAMA_NEW, "wall_s": wall, "tokens_per_s": tokens / wall,
+               "decode_substeps": dsteps, "ms_per_decode_step": dsec / dsteps * 1e3,
+               "prefill_chunks": after.get("prefill_chunks", 0) - before.get(
+                   "prefill_chunks", 0),
+               "prefill_s": after["prefill_s"] - before["prefill_s"],
+               "kv_bytes": after["kv_bytes"], "warmup": warmed,
+               "replay_equals_eager": replay, "contiguous_equal_64_token_prompts": LLAMA_SHORT,
+               "chunked_reference": rows, "launches": counts,
+               "device_share": profiled if profiled is not None else "not measured"}
+    return counts, numbers
+
+
+def llama_tied(torch, args, net):
+    """(d) The tied head at full width, 2 layers, bf16, through engines with
+    ``multi_token=4``, int8 then int4: K8 selects every decode token. The
+    per-layer decoder under ``quantize_net`` hands K8 f32 hidden states (its
+    quantized layers return f32, as in the JAX package); the stacked decoder,
+    which ``quantize_net`` returns unchanged, tied head included (as the JAX
+    package does), with only its tied head quantized by the private
+    ``_quantize_tied_lm_head``, hands K8 bf16 hidden states and takes its
+    bf16 lane: no public API of either package reaches that lane. Each
+    engine's tokens are held against the same model's ``multi_token=1``
+    engine (K3/K4 head + argmax) by the card's rule. Returns {codec:
+    {decoder: counts}}."""
+    from mxnet_tpu_torch.contrib.quantization import _quantize_tied_lm_head, quantize_net
+    from mxnet_tpu_torch.models import LlamaForCausalLM
+    from mxnet_tpu_torch.ops.int8_gemv import dtype_lanes, launches, reset_launches
+    from mxnet_tpu_torch.serve import InferenceEngine
+    n, hi, new = LLAMA_SMALL
+    cfg = llama_config(torch, LLAMA_SMALL_LAYERS, tie_embeddings=True)
+    prompts = llama_prompts(args, n, 16, hi, cfg.vocab_size, 44)
+    out = {}
+    for codec, bits in (("int8", 8), ("int4", 4)):
+        base = copy_llama(torch, net, LlamaForCausalLM(cfg, device="cuda"))
+        stacked = stack_llama(torch, base)
+        _quantize_tied_lm_head(stacked, bits)
+        per_layer = quantize_net(base, bits=bits)
+        out[codec] = {}
+        for decoder, model, lane_key in (
+                ("per_layer", per_layer, "h_f32"), ("stacked", stacked, "h_bf16:bf16_logits")):
+            sfx = "_int4" if bits == 4 else ""
+            eng = InferenceEngine(model, max_batch_size=LLAMA_S, max_len=256,
+                                  multi_token=4).start()
+            try:
+                warm(eng)
+                reset_launches()
+                got = serve_all(eng, prompts, new)
+                counts = launches()
+                counts["lanes"] = dtype_lanes()
+            finally:
+                eng.shutdown(drain=True, timeout=600)
+            eng1 = InferenceEngine(model, max_batch_size=LLAMA_S, max_len=256).start()
+            try:
+                want = serve_all(eng1, prompts, new)
+            finally:
+                eng1.shutdown(drain=True, timeout=600)
+            lane = counts["lanes"].get(f"fused_head{sfx}:{lane_key}", 0)
+            check(lane > 0, f"tied {codec} {decoder}: K8's {lane_key} lane never launched "
+                  f"from the engine ({counts['lanes']})")
+            rows = hold_greedy(torch, model, prompts, got, want,
+                               f"tied {codec} {decoder}: multi_token=4 vs 1")
+            counts["rows"] = rows
+            counts["k8_lane"] = {"key": f"fused_head{sfx}:{lane_key}", "launches": lane}
+            out[codec][decoder] = counts
+        del per_layer, stacked, base
+        torch.cuda.empty_cache()
+    return out
+
+
+def llama_codec(torch, args, net, bits):
+    """(e) ``quantize_net(bits=bits)`` at full width, 2 layers: ``generate``
+    of 2 prompts of 32 tokens (64 prefill rows, the head's too: the tile
+    route; decode: the warp route) launches K3 (int8) or K4 (int4) at every
+    Llama width on both routes; its tokens are held by the card's rule
+    against the same ``generate`` with the kernel's plain version in its
+    place."""
+    import numpy as np
+
+    from mxnet_tpu_torch.contrib import quantization as quant
+    from mxnet_tpu_torch.models import LlamaForCausalLM, generate
+    from mxnet_tpu_torch.ops import int8_gemv
+    kind = "gemv" if bits == 8 else "gemv_int4"
+    cfg = llama_config(torch, LLAMA_SMALL_LAYERS)
+    model = quant.quantize_net(copy_llama(torch, net, LlamaForCausalLM(cfg, device="cuda")),
+                               bits=bits)
+    ids = torch.from_numpy(np.random.RandomState(args.seed + 45).randint(
+        0, cfg.vocab_size, (2, 32)).astype(np.int32))
+    new = LLAMA_SMALL[2]
+    int8_gemv.reset_launches()
+    got = generate(model, ids, new)[:, 32:].tolist()
+    counts = int8_gemv.launches()
+    counts.update(routes=int8_gemv.gemv_routes(), widths=int8_gemv.gemv_widths(),
+                  lanes=int8_gemv.dtype_lanes())
+    kernel_wm = quant.weight_matmul
+    quant.weight_matmul = int8_gemv._deq_matmul
+    try:
+        want = generate(model, ids, new)[:, 32:].tolist()
+    finally:
+        quant.weight_matmul = kernel_wm
+    check(int8_gemv.launches().get(kind, 0) == counts.get(kind, 0),
+          f"the plain run launched {kind}")
+    for N in sorted({N for N, _ in LLAMA_GEMV_SHAPES}):
+        for route in ("warp", "mma"):
+            check(counts["widths"].get(f"{route}:{N}", 0) > 0,
+                  f"{kind} never ran at N={N} on the {route} route ({counts['widths']})")
+    counts["rows"] = hold_greedy(torch, model, ids.tolist(), got, want,
+                                 f"{kind}: kernel vs plain version")
+    return counts
+
+
+def llama_stacked(torch, args, net):
+    """(f) The stacked decoder at full width, 2 layers, unquantized bf16,
+    holding the per-layer model's weights: both through the engine in both
+    layouts; the stacked tokens held against the per-layer model's by the
+    card's rule."""
+    from mxnet_tpu_torch.models import LlamaForCausalLM
+    from mxnet_tpu_torch.serve import InferenceEngine
+    n, hi, new = LLAMA_SMALL
+    cfg = llama_config(torch, LLAMA_SMALL_LAYERS)
+    per_layer = copy_llama(torch, net, LlamaForCausalLM(cfg, device="cuda"))
+    stacked = stack_llama(torch, per_layer)
+    prompts = llama_prompts(args, n, 16, hi, cfg.vocab_size, 46)
+    out = {}
+    for paged in (False, True):
+        toks = {}
+        for name, model in (("per_layer", per_layer), ("stacked", stacked)):
+            eng = InferenceEngine(model, max_batch_size=LLAMA_S, max_len=256,
+                                  paged=paged).start()
+            try:
+                toks[name] = serve_all(eng, prompts, new)
+            finally:
+                eng.shutdown(drain=True, timeout=600)
+        out["paged" if paged else "contiguous"] = hold_greedy(
+            torch, per_layer, prompts, toks["stacked"], toks["per_layer"],
+            f"stacked vs per-layer ({'paged' if paged else 'contiguous'})")
+    return out
+
+
+def llama_serve(torch, args, kernels):
+    """Phase 9: Llama-3-8B (LLAMA3_8B: hidden 4096, 32 layers, 32 query and
+    8 KV heads of 128, intermediate 14336, vocab 128256, untied head, bf16,
+    rope theta 500000) at full width and depth, weights drawn on the card
+    from ``--seed``. (a) the cache-free forward (K1); (c) a CPU twin; (b)
+    int8 serving through the paged engine; (d) the tied head (K8); (e) int4
+    (K4); (f) the stacked decoder. ``kernels``: kernel_llama_widths' rows
+    (K1 at this phase's shape). Returns the launch counts of each part."""
+    from mxnet_tpu_torch.contrib.quantization import quantize_net
+    from mxnet_tpu_torch.models import LlamaForCausalLM
+    t_phase = time.perf_counter()
+    out, counts = {}, {}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        net = LlamaForCausalLM(llama_config(torch), device="cuda").init_weights(args.seed)
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+        out["params"] = sum(p.numel() for p in net.parameters())
+    out["k1_forward"] = llama_k1_forward(torch, args, net, kernels["K1"])
+    counts["k1"] = out["k1_forward"]["k1_launches"]
+    out["card_vs_cpu"] = llama_card_vs_cpu(torch, args, net)
+    counts["tied"] = llama_tied(torch, args, net)
+    out["tied"] = {c: {d: {"rows": r["rows"], "k8_lane": r["k8_lane"]} for d, r in v.items()}
+                   for c, v in counts["tied"].items()}
+    for codec, bits in (("int8", 8), ("int4", 4)):
+        counts[codec] = llama_codec(torch, args, net, bits)
+        out[codec + "_generate"] = counts[codec]
+    out["stacked"] = llama_stacked(torch, args, net)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        quantize_net(net)
+    torch.cuda.synchronize()
+    out["quantize_s"] = time.perf_counter() - t0
+    out["weight_bytes"] = {"bf16": sum(p.numel() * p.element_size() for p in net.parameters()),
+                           "int8_tables": quant_bytes(torch, net)["total"]}
+    counts["serve"], out["serve"] = llama_serving(torch, args, net)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del net
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit({"llama_serve": out})
+    return counts
+
+
+def llama_kernel_rows(kl, llama):
+    """The kernels-line rows of the Llama path at Llama-3-8B's widths
+    (kernel_llama_widths' numbers): K3 and K4 per (N, K), x lane (bf16,
+    f32) and M (1, 8: warp route; 64: tile route), with the launches of that
+    kernel at that route and N in phase 9; K8 over the 128256 x 4096 tied
+    head, f32 h and the bf16 lane, int8 and int4, with the launches of each
+    lane from phase 9's tied engines. Every row must have launched there."""
+    srcs = {"K3": ("int8_gemv", "mxnet_tpu_torch/csrc/int8_gemv.cu",
+                   "mxnet_tpu/ops/int8_gemv.py:113", ("serve", "int8")),
+            "K4": ("int4_gemv", "mxnet_tpu_torch/csrc/int4_gemv.cu",
+                   "mxnet_tpu/ops/int8_gemv.py:186", ("int4",))}
+    rows = []
+    for kern, (base, src, replaces, parts) in srcs.items():
+        for lane_name, res in kl[kern].items():
+            for r in res["rows"]:
+                if r["M"] not in (1, 8, 64):
+                    continue
+                key = f"{r['route']}:{r['N']}"
+                rows.append({
+                    "name": f"{base}_llama_{r['N']}x{r['K']}_{lane_name}_m{r['M']}",
+                    "route": "cuda", "source": src, "replaces": replaces,
+                    "launches": sum(llama[p]["widths"].get(key, 0) for p in parts),
+                    "launches_by": key, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    head_src = "mxnet_tpu_torch/csrc/lm_head_sample.cu"
+    for codec, sfx in (("int8", ""), ("int4", "_int4")):
+        k8 = kl["K8"][codec]
+        for name, r, decoder in ((f"lm_head_sample{sfx}_llama", k8["main"], "per_layer"),
+                                 (f"lm_head_sample{sfx}_bf16_llama", k8["lanes"]["bf16"],
+                                  "stacked")):
+            rows.append({"name": name, "route": "cuda", "source": head_src,
+                         "replaces": "mxnet_tpu/ops/fused_block_gemv.py:1218",
+                         "launches": llama["tied"][codec][decoder]["k8_lane"]["launches"],
+                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                         **({"path": K8_BF16_LLAMA_PATH} if decoder == "stacked"
+                            else {})})
+    for row in rows:
+        check(row["launches"] > 0, f"{row['name']} never launched on the Llama path")
+    return rows
+
+
 def head_row(head):
     """A kernels-line row of the tied head on the warp route: its 8-row
     numbers (the decode batch of a multi_token=1 engine), the 1-row time
@@ -3433,6 +4145,11 @@ def main(argv=None):
     checkpoint_resume(torch, args)
     torch.cuda.empty_cache()
     gluon_counts = gluon_substrate(torch, args)
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        kl = kernel_llama_widths(torch, timer, gen)
+    torch.cuda.empty_cache()
+    llama = llama_serve(torch, args, kl)
 
     def routes(*phases):
         return {r: sum(c["routes"][r] for c in phases) for r in ("warp", "mma")}
@@ -3464,6 +4181,37 @@ def main(argv=None):
     emit({"gemv_heads_warp": {"int8": k3["head"], "int4": r4k["K4"]["head"],
                               "int8_bf16_x": r16k["K3"]["head"],
                               "int4_bf16_x": r16k["K4"]["head"]}})
+    # the Llama path's launches (phase 9): K3 over the paged serving phase
+    # and int8 generate, K4 over int4 generate, K8 per tied engine and lane
+    l3 = [llama["serve"], llama["int8"]]
+    l4 = [llama["int4"]]
+
+    def llama_routes(route, parts, lane_keys=None):
+        if lane_keys:
+            return lanes(lane_keys, *parts)
+        return sum(c["routes"][route] for c in parts)
+
+    def llama_width(key, parts):
+        return sum(c["widths"].get(key, 0) for c in parts)
+
+    def k8_lane(codec, decoder):
+        return llama["tied"][codec][decoder]["k8_lane"]["launches"]
+
+    llama_launches = {
+        "int8_gemv": llama_routes("warp", l3), "int8_gemv_mma": llama_routes("mma", l3),
+        "int8_gemv_bf16": llama_routes(None, l3, ["gemv:warp:bf16"]),
+        "int8_gemv_mma_bf16": llama_routes(None, l3, ["gemv:mma:bf16"]),
+        "int4_gemv": llama_routes("warp", l4), "int4_gemv_mma": llama_routes("mma", l4),
+        "int4_gemv_bf16": llama_routes(None, l4, ["gemv_int4:warp:bf16"]),
+        "int4_gemv_mma_bf16": llama_routes(None, l4, ["gemv_int4:mma:bf16"]),
+        "int8_gemv_head": llama_width("warp:128256", l3),
+        "int4_gemv_head": llama_width("warp:128256", l4),
+        "lm_head_sample": k8_lane("int8", "per_layer"),
+        "lm_head_sample_int4": k8_lane("int4", "per_layer"),
+        "lm_head_sample_bf16": k8_lane("int8", "stacked"),
+        "lm_head_sample_int4_bf16": k8_lane("int4", "stacked"),
+        "lm_head_sample_mask": 0, "lm_head_sample_int4_mask": 0,
+        "flash_attention_fwd": llama["k1"], "flash_attention_bwd": 0}
     rows = []
     for name, src, replaces, launched, r in (
             ("int8_gemv", gemv8, "mxnet_tpu/ops/int8_gemv.py:113", r8["warp"], k3["warp"]),
@@ -3539,10 +4287,17 @@ def main(argv=None):
             # launched from the tape by the gluon_substrate phase's block
             rows[-1]["launches_gluon"] = gluon_counts["flash_fwd" if name.endswith("fwd")
                                                       else "flash_bwd"]
+        if name in llama_launches:
+            rows[-1]["launches_llama"] = llama_launches[name]
         check(rows[-1]["launches"] > 0, f"{name} never launched on its main path")
-    # K8's mask and bf16 lanes: no path of the JAX package reaches them (only
-    # GPT exposes head_weights, and its decode loops pass neither), so their
-    # launches are the direct calls of kernel_k8_lanes' counted phase
+    # K8's mask and bf16 lanes: no public API of either package hands K8 a
+    # mask or bf16 h (a bf16 GPT's final LayerNorm returns f32, a quantized
+    # per-layer Llama's layers return f32, and quantize_net leaves the
+    # Dense-free stacked decoder and its tied head alone), so their
+    # launches are the direct calls of kernel_k8_lanes' counted phase. A
+    # stacked bf16 Llama whose tied head the private _quantize_tied_lm_head
+    # quantized reaches the bf16 lane from the engine (launches_llama,
+    # phase 9 (d))
     for name, r in (("lm_head_sample_mask", k8l["mask"]), ("lm_head_sample_bf16", k8l["bf16"]),
                     ("lm_head_sample_int4_mask", r4k["K8_lanes"]["mask"]),
                     ("lm_head_sample_int4_bf16", r4k["K8_lanes"]["bf16"])):
@@ -3551,8 +4306,11 @@ def main(argv=None):
                      "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                     "path": "direct calls (no JAX path reaches this lane)"})
+                     "launches_llama": llama_launches[name],
+                     "path": "direct calls (no public API reaches this lane)"
+                     + ("; " + K8_BF16_LLAMA_PATH if name.endswith("bf16") else "")})
         check(rows[-1]["launches"] > 0, f"{name} never launched in its direct-call phase")
+    rows += llama_kernel_rows(kl, llama)
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

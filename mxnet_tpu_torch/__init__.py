@@ -34,6 +34,10 @@ Slice 15 is the Gluon substrate: ``NDArray`` (``ndarray``), ``mx.np`` and
 with their ``CachedOp`` (CUDA-graph replay on the card), the basic layers
 and the losses, so the classic Gluon training loop runs on the card;
 ``mx.ops.attention`` on the tape runs K1 forward and K2 backward.
+Slice 16 serves Llama (``models.LlamaForCausalLM``: GQA, RoPE, RMSNorm,
+SwiGLU, per-layer and stacked decoders) from the same engine at
+Llama-3-8B's width: K1 at head dim 128, K3/K4 at its widths and K8 on a
+tied head.
 """
 import os as _os
 
@@ -59,8 +63,11 @@ if _os.environ.get("MXNET_USE_SIGNAL_HANDLER", "1") not in ("0", "false"):
 
 _LAZY = {"gluon": ".gluon", "init": ".initializer", "initializer": ".initializer",
          "optimizer": ".optimizer", "lr_scheduler": ".lr_scheduler", "ops": ".ops",
-         "metrics": ".metrics", "models": ".models", "parallel": ".parallel",
-         "serve": ".serve", "serialization": ".serialization", "interop": ".interop"}
+         "kv": ".kvstore", "kvstore": ".kvstore", "metrics": ".metrics",
+         "models": ".models", "parallel": ".parallel", "profiler": ".profiler",
+         "serve": ".serve", "observability": ".observability", "contrib": ".contrib",
+         "checkpoint": ".checkpoint", "serialization": ".serialization",
+         "interop": ".interop"}
 
 
 def __getattr__(name):

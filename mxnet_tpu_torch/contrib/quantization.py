@@ -22,6 +22,8 @@ no activation scale, calibrated or not.
 """
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 import torch
 from torch import nn
@@ -37,6 +39,7 @@ from ..ops.int8_gemv import (GEMV_INT4_BLOCK, dequantize_int4_table, gemv_max_m,
 __all__ = ["QuantizedDense", "quantize_net", "optimal_kl_threshold"]
 
 _QMAX = 127.0  # symmetric int8
+_LOG = logging.getLogger(__name__)
 
 
 def _quantize_rows(w, own_dtype=False):
@@ -280,8 +283,22 @@ def requantize_(network):
         network._q_lm_head = head
 
 
+def _tied_table(network):
+    """The embedding table a tied head reads: GPT's ``wte``, or a
+    ``tie_embeddings`` Llama's ``model.embed_tokens``; None for an untied
+    head (an ``lm_head`` is set: nothing reads the table)."""
+    wte = getattr(network, "wte", None)
+    if wte is not None and hasattr(wte, "weight"):
+        return wte
+    emb = getattr(getattr(network, "model", None), "embed_tokens", None)
+    if emb is None or not hasattr(emb, "weight") or getattr(network, "lm_head", 0) is not None:
+        return None
+    return emb
+
+
 def _quantize_tied_lm_head(network, bits=8):
-    """Weight-only quantization of a tied LM head (GPT-style ``wte``): the
+    """Weight-only quantization of a tied LM head (GPT's ``wte``, a tied
+    Llama's ``model.embed_tokens``; an untied head is left alone): the
     table's vocab dim is padded to a multiple of 128 (50257 -> 50304).
     int8: zero rows of scale 1 are appended to the quantized table,
     ``(table [Vp, D] int8, scales [Vp] f32, vocab)``. ``bits=4`` (even D):
@@ -290,7 +307,7 @@ def _quantize_tied_lm_head(network, bits=8):
     scales [Vp, D/block] f32, vocab)``. Either way pad lanes dequantize to
     exact zeros. Stored as ``network._q_lm_head``; the embedding lookup
     keeps the original table."""
-    wte = getattr(network, "wte", None)
+    wte = _tied_table(network)
     if wte is None:
         return
     V, D = wte.weight.shape
@@ -344,8 +361,11 @@ def quantize_net(network, quantized_dtype: str = "auto",
     ``'naive'`` and ``'entropy'`` need ``calib_data``, an iterable of
     token batches (at most ``num_calib_batches`` of them run), and freeze
     each layer's scale from its observed inputs. ``quantize_tied_head``
-    quantizes the tied LM head at the same width; ``fused_decode`` opts the
-    model's blocks into the one-launch block decode kernel."""
+    quantizes the tied LM head (GPT's, a tied Llama's) at the same width;
+    ``fused_decode`` opts the model's blocks into the one-launch block
+    decode kernel. A network with no Dense layer (the stacked Llama
+    decoder) is returned unchanged, tied head included, as in the JAX
+    package."""
     if quantized_dtype not in ("auto", "int8"):
         raise MXNetError(f"quantized_dtype={quantized_dtype!r}: the port "
                          "quantizes symmetric int8")
@@ -359,7 +379,12 @@ def quantize_net(network, quantized_dtype: str = "auto",
         raise MXNetError(f"unknown calib_mode {calib_mode!r}")
     with torch.no_grad():
         replaced = _replace_dense(network, bits)
-        if calib_mode != "none" and replaced:
+        if not replaced:
+            # as the JAX package: a network without Dense layers (the
+            # stacked Llama decoder) is returned as it is, tied head too
+            _LOG.warning("quantize_net: no quantizable layers found")
+            return network
+        if calib_mode != "none":
             _calibrate(network, replaced, calib_data, num_calib_batches)
         for q in replaced:
             q.freeze(calib_mode)

@@ -1,10 +1,13 @@
 """Move parameters between the JAX package and a model of the port.
 
 ``named`` is what ``{n: p.data().asnumpy() for n, p in
-net.collect_params().items()}`` gives for a JAX ``GPTModel``: the port's
-modules carry the same names (``wte.weight``, ``blocks.0.attn_qkv.weight``
-(units, in), ``blocks.0.ln_1.gamma``, ...), so the two packages then hold
-the same weights and quantize them to the same int8 tables. bf16 goes both
+net.collect_params().items()}`` gives for a JAX ``GPTModel`` or
+``LlamaForCausalLM``: the port's modules carry the same names
+(``wte.weight``, ``blocks.0.attn_qkv.weight`` (units, in),
+``blocks.0.ln_1.gamma``; ``model.layers.0.self_attn.q_proj.weight``,
+``model.layers.0.input_layernorm.gamma``, the stacked decoder's
+``model.layers.wq`` [layers, out, in], ...), so the two packages then
+hold the same weights and quantize them to the same int8 tables. bf16 goes both
 ways: a bfloat16 numpy array (the JAX package's bf16 ``asnumpy()``) loads
 into any parameter dtype, and :func:`params_to_numpy` gives bf16
 parameters as f32 arrays (exact: bf16 widens to f32 without rounding).

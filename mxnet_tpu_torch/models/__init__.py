@@ -1,4 +1,21 @@
+"""Transformer model families of the port (counterpart of
+``mxnet_tpu/models``): GPT-2 and Llama, with ``generate`` attached to both
+causal LMs as a method. BERT, ViT and T5 are ported in later slices
+(ROADMAP Queue 1 item 8)."""
 from .generation import generate
 from .gpt import GPT2_SMALL, GPT_TINY, GPTConfig, GPTModel
+from .llama import (LLAMA3_8B, LLAMA_TINY, LlamaConfig, LlamaForCausalLM, LlamaModel,
+                    LlamaStackedDecoder)
 
-__all__ = ["GPTConfig", "GPTModel", "GPT2_SMALL", "GPT_TINY", "generate"]
+
+def _generate_method(self, input_ids, max_new_tokens, **kwargs):
+    return generate(self, input_ids, max_new_tokens, **kwargs)
+
+
+GPTModel.generate = _generate_method
+LlamaForCausalLM.generate = _generate_method
+del _generate_method
+
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel", "LlamaStackedDecoder",
+           "LLAMA3_8B", "LLAMA_TINY",
+           "GPTConfig", "GPTModel", "GPT2_SMALL", "GPT_TINY", "generate"]

@@ -1,9 +1,10 @@
-"""GPT's layers: ``Dense``, ``LayerNorm``, ``Embedding`` and ``Dropout`` as
-``nn.Module``s with MXNet's parameter names and layouts (the JAX
-package's ``gluon.nn`` layers that its GPT uses): ``Dense.weight`` is
-(units, in). ``Dense`` and ``Embedding`` take the parameter dtype (bf16
-models); ``LayerNorm`` keeps f32 parameters, as in the JAX package. The
-gluon layers with the JAX signatures are ``gluon.nn``'s blocks."""
+"""The models' layers: ``Dense``, ``LayerNorm``, ``RMSNorm``, ``Embedding``
+and ``Dropout`` as ``nn.Module``s with MXNet's parameter names and layouts
+(the JAX package's ``gluon.nn`` layers that its GPT and Llama use):
+``Dense.weight`` is (units, in). ``Dense``, ``Embedding`` and ``RMSNorm``
+take the parameter dtype (bf16 models); GPT's ``LayerNorm`` keeps f32
+parameters, as in the JAX package. The gluon layers with the JAX
+signatures are ``gluon.nn``'s blocks."""
 from __future__ import annotations
 
 import torch
@@ -12,7 +13,7 @@ from torch import nn
 from .. import autograd
 from .. import numpy_extension as npx
 
-__all__ = ["Dense", "LayerNorm", "Embedding", "Dropout"]
+__all__ = ["Dense", "LayerNorm", "RMSNorm", "Embedding", "Dropout"]
 
 
 class Dense(nn.Module):
@@ -39,6 +40,21 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return npx.layer_norm(x, self.gamma, self.beta, eps=self.eps)
+
+
+class RMSNorm(nn.Module):
+    """RMS normalization with a ``gamma`` gain (``npx.rms_norm``, the
+    arithmetic of the gluon ``RMSNorm``): normalized in f32, rounded to x's
+    dtype, then scaled."""
+
+    def __init__(self, in_channels: int, epsilon: float = 1e-6, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(in_channels, device=device, dtype=dtype))
+        self.eps = float(epsilon)
+
+    def forward(self, x):
+        return npx.rms_norm(x, self.gamma, eps=self.eps)
 
 
 class Embedding(nn.Module):

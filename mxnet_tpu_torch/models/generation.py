@@ -48,6 +48,21 @@ __all__ = ["generate", "decode_step", "decode_step_hidden",
            "decode_multi_tokens", "filter_logits", "sample_tokens",
            "spec_verify_tokens"]
 
+
+def _can_cache(model) -> bool:
+    """True if the model exposes the KV-cache protocol (``cache_spec`` and
+    ``forward_cached``) and its config supports it: ``cache_spec`` raising
+    MXNetError is the unsupported-config signal (Llama's MoE, pp_mesh and
+    sp_mesh configs); any other error propagates."""
+    if not (hasattr(model, "cache_spec") and hasattr(model, "forward_cached")):
+        return False
+    try:
+        model.cache_spec(1, 8)
+    except MXNetError:
+        return False
+    return True
+
+
 def _validate_sampling(temperature, top_k, top_p):
     if not temperature >= 0:
         raise MXNetError(f"temperature must be >= 0, got {temperature}")
@@ -386,16 +401,23 @@ def generate(model, input_ids, max_new_tokens: int,
 
     ``use_cache=False`` recomputes the full forward over the padded
     [B, P + max_new_tokens] buffer for every token (the JAX package's
-    ``decode_nocache``) at ``multi_token=1``; None and True decode with the
-    KV cache. Generation runs in ``autograd.predict_mode``: no dropout,
-    whatever the model's mode."""
+    ``decode_nocache``) at ``multi_token=1``; True decodes with the KV
+    cache and raises where the model's config refuses it; None decodes
+    with the cache where the config allows it. Generation runs in
+    ``autograd.predict_mode``: no dropout, whatever the model's mode."""
     if max_new_tokens <= 0:
         raise MXNetError("max_new_tokens must be positive")
     _validate_sampling(temperature, top_k, top_p)
     multi_token = int(multi_token)
     if multi_token < 1:
         raise MXNetError("multi_token must be >= 1")
-    use_cache = True if use_cache is None else bool(use_cache)
+    if use_cache is None:
+        use_cache = _can_cache(model)
+    elif use_cache and not _can_cache(model):
+        raise MXNetError(
+            "use_cache=True but the model does not expose the KV-cache "
+            "protocol (cache_spec/forward_cached), or its config (stacked/"
+            "pipeline decoder) does not support it")
     if multi_token > 1 and not use_cache:
         raise MXNetError(
             "multi_token > 1 requires KV-cache decode (the fused "
@@ -404,8 +426,8 @@ def generate(model, input_ids, max_new_tokens: int,
     ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.int32).to(dev)
     B, P = ids.shape
     L = P + max_new_tokens
-    max_pos = model.cfg.max_position_embeddings
-    if L > max_pos:
+    max_pos = getattr(getattr(model, "cfg", None), "max_position_embeddings", None)
+    if max_pos is not None and L > max_pos:
         raise MXNetError(
             f"generate: prompt ({P}) + max_new_tokens ({max_new_tokens}) "
             f"= {L} exceeds the model's max_position_embeddings ({max_pos})")

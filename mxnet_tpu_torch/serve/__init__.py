@@ -2,12 +2,14 @@
 continuous-batching engine, its stdlib HTTP frontend, live weight
 publishing and the multi-model registry, grammar-constrained and
 self-speculative decoding."""
+from .bucketing import bucket_for, bucket_ladder, next_pow2
 from .engine import (InferenceEngine, RequestHandle, ServeResult,
                      QueueFullError, EngineClosedError,
                      STATUS_OK, STATUS_TIMEOUT, STATUS_CANCELLED,
                      STATUS_SHUTDOWN, STATUS_ERROR)
 from .grammar import TokenGrammar, clear_grammar_cache, compile_grammar, schema_regex
 from .http import HTTPFrontend, serve_forever
+from .paging import OutOfPages, PagePool, pages_for, prefix_key
 from .registry import (ModelRegistry, WeightRefresher, latest_weight_version,
                        publish_from_checkpoint, publish_weights, read_weights,
                        snapshot_params, weight_versions)
@@ -18,8 +20,10 @@ __all__ = ["InferenceEngine", "RequestHandle", "ServeResult",
            "STATUS_OK", "STATUS_TIMEOUT", "STATUS_CANCELLED", "STATUS_SHUTDOWN",
            "STATUS_ERROR",
            "HTTPFrontend", "serve_forever",
+           "PagePool", "OutOfPages", "pages_for", "prefix_key",
            "ModelRegistry", "WeightRefresher",
            "publish_weights", "publish_from_checkpoint", "read_weights",
            "snapshot_params", "latest_weight_version", "weight_versions",
            "TokenGrammar", "compile_grammar", "schema_regex",
-           "clear_grammar_cache", "draft_from_history", "constrain_draft"]
+           "clear_grammar_cache", "draft_from_history", "constrain_draft",
+           "bucket_for", "bucket_ladder", "next_pow2"]

@@ -145,6 +145,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import queue as _qmod
 import threading
 import time
@@ -406,14 +407,46 @@ class _Step:
         return self.out
 
 
+@contextlib.contextmanager
+def _no_collection():
+    """Python's cyclic collector off for the block. A collection that
+    starts inside a graph capture runs the finalizers of whatever garbage
+    it finds in the capturing thread, and a finalizer's CUDA call that a
+    capture forbids invalidates the graph."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
+def _diff_axes(spec1, spec2, what, fn):
+    """Per entry of two specs of one model (at 1 and at 2 rows or pages),
+    the one axis where their shapes differ; raises where it is not one."""
+    axes = []
+    for (s1, _), (s2, _) in zip(spec1, spec2):
+        diffs = [i for i, (a, b) in enumerate(zip(s1, s2)) if a != b]
+        if len(diffs) != 1:
+            raise MXNetError(f"cannot infer {what} from {fn} shapes {s1} vs {s2}")
+        axes.append(diffs[0])
+    return axes
+
+
 class InferenceEngine:
-    """Continuous-batching serving engine for a GPT model of this package
-    (``cache_spec``/``forward_cached_hidden`` protocol) on the model's
-    device.
+    """Continuous-batching serving engine for any model of the KV-cache
+    protocol (``cache_spec``/``forward_cached_hidden``, and
+    ``cache_spec_paged``/``forward_cached_paged_hidden`` for the paged
+    pool: GPT and Llama, per-layer or stacked decoder) on the model's
+    device. Each cache's batch axis (each pool's page axis) is the one
+    axis where ``cache_spec(1, L)`` and ``cache_spec(2, L)`` differ: 0 for
+    per-layer caches, 1 for the stacked decoder's [layers, B, ...].
 
     Parameters
     ----------
-    model : GPTModel, weights loaded (optionally ``quantize_net``-ed)
+    model : GPTModel or LlamaForCausalLM, weights loaded (optionally
+        ``quantize_net``-ed)
     max_batch_size : slot-pool size (concurrent in-flight requests)
     max_len : per-slot KV capacity; prompt + new tokens + (K - 1) must fit
     max_queue_depth : ``submit`` raises :class:`QueueFullError` beyond it
@@ -500,11 +533,17 @@ class InferenceEngine:
             raise MXNetError("bucket_growth must be >= 2")
         if min_prompt_bucket < 1 or min_prompt_bucket & (min_prompt_bucket - 1):
             raise MXNetError("min_prompt_bucket must be a power of two")
-        if max_len > model.cfg.max_position_embeddings:
+        if not _gen._can_cache(model):
+            raise MXNetError(
+                "InferenceEngine requires the KV-cache decode protocol "
+                "(cache_spec/forward_cached) and a config that supports it")
+        max_pos = getattr(getattr(model, "cfg", None), "max_position_embeddings", None)
+        if max_pos is not None and max_len > max_pos:
             raise MXNetError(
                 f"max_len ({max_len}) exceeds the model's "
-                f"max_position_embeddings ({model.cfg.max_position_embeddings})")
-        fused_blocks = any(blk._fused_pack is not None for blk in model.blocks)
+                f"max_position_embeddings ({max_pos})")
+        fused_blocks = any(getattr(blk, "_fused_pack", None) is not None
+                           for blk in getattr(model, "blocks", ()) or ())
         if fused is True and not fused_blocks:
             raise MXNetError("fused=True but the model has no fused decode "
                              "packs — quantize_net(..., fused_decode=True) first")
@@ -545,6 +584,9 @@ class InferenceEngine:
         self.max_queue_depth = int(max_queue_depth)
         self.min_prompt_bucket = min(int(min_prompt_bucket), self.L)
         self._growth = int(bucket_growth)
+        # each cache's batch axis: per-layer caches 0, stacked [layers, B, ...] 1
+        self._baxes = _diff_axes(model.cache_spec(1, self.L), model.cache_spec(2, self.L),
+                                 "cache batch axis", "cache_spec")
         self._vocab = model.cfg.vocab_size
         self._head = model.head_weights() if self.K > 1 else None
         if paged is None:
@@ -558,6 +600,10 @@ class InferenceEngine:
             self._pages = PagePool(num_pages, self.page_size, self.L, self.S,
                                    prefix_cache=prefix_cache)
             self.maxp = self.L // self.page_size
+            # each pool's page axis, found as the batch axis is
+            self._paxes = _diff_axes(model.cache_spec_paged(1, self.page_size),
+                                     model.cache_spec_paged(2, self.page_size),
+                                     "page axis", "cache_spec_paged")
             # the pools carry one extra SINK page (index num_pages)
             self._pools = model.new_pools(num_pages + 1, self.page_size)
             # KV bytes of one token across the pools (prefix bytes saved)
@@ -790,7 +836,8 @@ class InferenceEngine:
         """One step of a bucket: ``fn`` run once on the ``safe`` inputs
         (its launches uncounted), then, on the card, captured into a CUDA
         graph on the engine's capture stream and memory pool (a ``score``
-        step: the scoring stream and pool). A failed capture raises, naming
+        step: the scoring stream and pool), with Python's cyclic collector
+        off (:func:`_no_collection`). A failed capture raises, naming
         ``what``. The build counts in ``mxnet_serve_compiles_total{fn=
         label}`` and ``mxnet_recompilations_total{block=serve_<label>}``
         (``first``: the label's first build, kind ``initial``), and adds
@@ -827,13 +874,14 @@ class InferenceEngine:
             if cuda and not self._eager:
                 graph = torch.cuda.CUDAGraph()
                 try:
-                    graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-                    try:
-                        with record_graph() as tally:
-                            out = fn()
-                            tally.seal()
-                    finally:
-                        graph.capture_end()
+                    with _no_collection():
+                        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                        try:
+                            with record_graph() as tally:
+                                out = fn()
+                                tally.seal()
+                        finally:
+                            graph.capture_end()
                 except Exception as e:
                     raise MXNetError(f"serve: CUDA-graph capture of {what} failed: "
                                      f"{e}") from e
@@ -869,6 +917,11 @@ class InferenceEngine:
             io = self._io[sb] = _Buffers(self.device, fields)
         return io
 
+    def _slot_views(self, start: int, n: int):
+        """Views of slots [start, start + n) of every contiguous cache, along
+        each cache's batch axis."""
+        return [pool.narrow(ax, start, n) for pool, ax in zip(self._pools, self._baxes)]
+
     def _get_step(self, sb: int, steps: int, branch: str) -> _Step:
         """The decode step of batch bucket ``sb``, ``steps`` substeps and
         sampling ``branch``, built at first use (the counterpart of the JAX
@@ -881,7 +934,7 @@ class InferenceEngine:
             return step
         io = self._step_io(sb)
         model, K, head = self.model, self.K, self._head
-        caches = self._pools if self._paged else [pool[:sb] for pool in self._pools]
+        caches = self._pools if self._paged else self._slot_views(0, sb)
         table = io.table if self._paged else None
         filtered = branch == "filtered"
         greedy = branch == "greedy"
@@ -990,7 +1043,7 @@ class InferenceEngine:
             return step
         io = self._verify_io(sb)
         model, T = self.model, self.spec
-        caches = self._pools if self._paged else [pool[:sb] for pool in self._pools]
+        caches = self._pools if self._paged else self._slot_views(0, sb)
         table = io.table if self._paged else None
         greedy = branch == "greedy"
         grammar = self._grammar
@@ -1475,7 +1528,7 @@ class InferenceEngine:
         ids = np.zeros((1, pb), np.int32)
         ids[0, :P] = req.prompt_ids
         ids = torch.from_numpy(ids).to(self.device)
-        caches = [pool[s:s + 1] for pool in self._pools]
+        caches = self._slot_views(s, 1)
         for c in caches:
             c.zero_()
         if self._grammar:
@@ -1615,8 +1668,8 @@ class InferenceEngine:
         n = 0
         for ti, _ in self._pages.writable(s, start, end):
             src, dst = self._pages.fork(s, ti)
-            for pool in self._pools:
-                pool[dst].copy_(pool[src])
+            for pool, ax in zip(self._pools, self._paxes):
+                pool.select(ax, dst).copy_(pool.select(ax, src))
             n += 1
         if n and self._slots[s] is not None:
             req = self._slots[s].req

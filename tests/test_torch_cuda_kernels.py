@@ -7,6 +7,8 @@ with the card:
 
 Everywhere else every test skips: a CUDA kernel has no CPU interpret mode.
 """
+import gc
+
 import numpy as onp
 import pytest
 import torch
@@ -1055,6 +1057,42 @@ def test_replayed_dispatch_equals_eager(cuda, layout, max_len, dtype):
     assert kind in eng_kinds
 
 
+class _SyncsWhenCollected:
+    """Cyclic garbage whose finalizer synchronizes the card (a call a graph
+    capture forbids in its thread) and leaves one more such cycle behind
+    while ``live``, so that every collection finds some."""
+    live = True
+
+    def __init__(self):
+        self.cycle = self
+
+    def __del__(self):
+        torch.cuda.synchronize()
+        if _SyncsWhenCollected.live:
+            _SyncsWhenCollected()
+
+
+def test_warmup_captures_while_garbage_syncs_when_collected(cuda):
+    """With the collector running on every allocation and garbage whose
+    finalizer synchronizes the card always present, the engine's warm-up
+    captures every step: no collection starts inside a capture."""
+    model = _serving_model(torch.float32)
+    eng = InferenceEngine(model, max_batch_size=4, max_len=128, multi_token=2, paged=True,
+                          page_size=16)
+    threshold = gc.get_threshold()
+    _SyncsWhenCollected.live = True
+    _SyncsWhenCollected()
+    gc.set_threshold(1)
+    try:
+        eng.warmup()
+    finally:
+        gc.set_threshold(*threshold)
+        _SyncsWhenCollected.live = False
+        gc.collect()
+    st = eng.stats()
+    assert st["captures"] > 0 and st["compiled_buckets"]["decode"]
+
+
 @pytest.mark.parametrize("layout", ["contiguous", "paged"])
 def test_grammar_and_verify_steps_replay_equal_eager(cuda, layout):
     """A grammar engine's T = 1 step (greedy and sampled) and a
@@ -1375,3 +1413,63 @@ def test_attention_block_launches_k1_k2_from_the_tape(cuda):
         for n in want:
             if dtype == "float32" or n != "x":
                 assert chip_smoke.flash_within(got[n], want[n], dtype), n
+
+
+# ---------------------------------------------------------------------------
+# Llama-3-8B's widths (the Llama serving path)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M", [1, 8, 64])
+@pytest.mark.parametrize("N,K", [(4096, 4096), (14336, 4096), (4096, 14336), (128256, 4096)])
+def test_gemv_at_llama_widths(cuda, bits, M, N, K):
+    """K3/K4 at Llama-3-8B's q/o, gate/up, down and head widths with bf16
+    x, on the warp route (1 and 8 rows) and the tile route (64): within
+    1e-4 of the plain version's scale, and the f32 lane's bits on
+    x.float() (K 14336: x no longer fits the warp route's shared memory at
+    8 rows, which takes fewer rows a tile)."""
+    x, w, s = (_gemv_operands if bits == 8 else _int4_operands)(M, N, K, seed=N + M)
+    xb = x.bfloat16()
+    fn = int8_gemv.int8_weight_matmul if bits == 8 else int8_gemv.int4_weight_matmul
+    plain = int8_gemv._reference_int8_matmul if bits == 8 else int8_gemv._reference_int4_matmul
+    int8_gemv.reset_launches()
+    got = fn(xb, w, s)
+    wide = fn(xb.float(), w, s)
+    want = plain(xb, w, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), wide.view(torch.int32))
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    assert int8_gemv.gemv_widths() == {f"{int8_gemv.gemv_route(M)}:{N}": 2}
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("vocab", [128256, 128003], ids=["llama3", "pad_lanes"])
+def test_head_sampler_at_llama_vocab(cuda, bits, vocab):
+    """K8 over a Llama-3 tied head [pad_vocab(vocab), 4096] (128256 needs
+    no pad lane; 128003 pads to 128128), both lanes (f32 h; bf16 h with
+    bf16 logits): tokens equal the plain version's at 8 rows, greedy and T
+    0.8, and greedy rows the argmax of the warp head's logits (bf16-rounded
+    in the bf16 lane), never a pad lane."""
+    head = chip_smoke.tied_head(torch, torch.Generator(device="cuda").manual_seed(vocab),
+                                vocab, 4096, bits)
+    w_q, scale, V = head
+    assert V == vocab and w_q.shape[0] == fb.pad_vocab(vocab)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    B = 8
+    h = torch.randn(B, 4096, device="cuda", generator=g)
+    kb = torch.from_numpy(gen._key_bits(onp.arange(B) + 5, onp.arange(B))).cuda()
+    for hd in (torch.float32, torch.bfloat16):
+        x = h.to(hd)
+        out = torch.bfloat16 if hd == torch.bfloat16 else None
+        for temp in (0.0, 0.8):
+            temps = torch.full((B,), temp, device="cuda")
+            got = fb.fused_lm_head_sample(x, w_q, scale, V, kb, temps, out_dtype=out)
+            want = fb._reference_head_sample(x.float(), w_q, scale, V, temps, kb,
+                                             out_dtype=out)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (hd, temp)
+            assert bool((got < V).all())
+            if temp == 0.0:
+                logits = int8_gemv.weight_matmul(x, w_q, scale)[:, :V]
+                if out is not None:
+                    logits = logits.to(out).float()
+                assert torch.equal(got.long(), logits.argmax(-1)), hd

@@ -427,3 +427,23 @@ def test_sample_tokens_device_params_match_jax(rows):
     if all(t == 0 for t in temps):
         # the sampling branch on all-greedy rows picks each row's argmax too
         assert (gen.sample_tokens(*args, greedy=False).numpy() == got.numpy()).all()
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_no_collection_keeps_the_collector_off_then_restores_it(enabled):
+    """The engine captures a graph inside ``_no_collection``: the cyclic
+    collector is off there and back to its earlier state after, also when
+    the block raises."""
+    import gc
+
+    from mxnet_tpu_torch.serve.engine import _no_collection
+    was = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        with pytest.raises(RuntimeError):
+            with _no_collection():
+                assert not gc.isenabled()
+                raise RuntimeError("capture failed")
+        assert gc.isenabled() == enabled
+    finally:
+        (gc.enable if was else gc.disable)()

@@ -1,0 +1,80 @@
+"""The port's namespaces against the JAX package's: every name of
+``mxnet_tpu``'s lazy-import table, and of ``mxnet_tpu.serve``'s and
+``mxnet_tpu.ops``'s ``__all__``, whose module the port has, resolves in the
+port (``mx.kv``, ``mx.checkpoint``, ``mx.serve.PagePool``,
+``mx.ops.flash_attention``, ...). Names whose module is not ported yet are
+listed by the test; each must still be missing, so the lists stay true."""
+import importlib
+import importlib.util
+
+import pytest
+
+import mxnet_tpu
+import mxnet_tpu.ops
+import mxnet_tpu.serve
+
+import mxnet_tpu_torch
+
+# JAX modules with no counterpart in the port yet (ROADMAP Queue 1 item 8)
+_LAZY_NOT_PORTED = {"pipeline", "runtime", "aot", "amp", "io", "recordio", "image", "nd",
+                    "tune", "sparse", "engine", "util", "test_utils", "metric", "onnx",
+                    "visualization", "viz", "library", "benchmark", "sym", "symbol",
+                    "operator"}
+_SERVE_NOT_PORTED = {"PrefillDecodePipeline", "TieredFleetController",
+                     "install_preempt_rescue", "migrate_prefix", "Router", "RouterFrontend",
+                     "NoBackendError", "TenantPolicy", "TenantScheduler",
+                     "QuotaExceededError", "AutoscalePolicy", "FleetController",
+                     "InProcessSpawner", "SubprocessSpawner"}
+
+
+def _port_has(modname: str) -> bool:
+    try:
+        return importlib.util.find_spec(modname) is not None
+    except ModuleNotFoundError:     # its parent package is missing too
+        return False
+
+
+@pytest.mark.parametrize("name", sorted(mxnet_tpu._LAZY))
+def test_lazy_table(name):
+    """``mx.<name>`` resolves to the port's counterpart of the JAX
+    package's module wherever the port has that module."""
+    target = "mxnet_tpu_torch" + mxnet_tpu._LAZY[name]
+    if name in _LAZY_NOT_PORTED:
+        assert not _port_has(target), f"{target} exists: take {name} off the list"
+        return
+    assert _port_has(target), f"{target} is missing"
+    assert getattr(mxnet_tpu_torch, name) is importlib.import_module(target)
+
+
+def _defining_module(pkg, name):
+    """The submodule of ``pkg`` that a name of its ``__all__`` comes from."""
+    obj = getattr(pkg, name)
+    mod = getattr(obj, "__module__", None)
+    if mod and mod.startswith(pkg.__name__ + "."):
+        return mod[len(pkg.__name__) + 1:]
+    for sub in sorted(n for n in dir(pkg) if not n.startswith("_")):
+        m = getattr(pkg, sub)
+        if getattr(m, "__name__", "").startswith(pkg.__name__ + ".") and \
+                getattr(m, name, None) is obj:
+            return m.__name__[len(pkg.__name__) + 1:]
+    raise AssertionError(f"no submodule of {pkg.__name__} defines {name}")
+
+
+@pytest.mark.parametrize("name", sorted(mxnet_tpu.serve.__all__))
+def test_serve_names(name):
+    """``mx.serve.<name>`` resolves wherever the port ported its module."""
+    import mxnet_tpu_torch.serve as tserve
+    if name in _SERVE_NOT_PORTED:
+        assert not hasattr(tserve, name), f"{name} is exported: take it off the list"
+        return
+    sub = _defining_module(mxnet_tpu.serve, name).split(".")[0]
+    assert _port_has("mxnet_tpu_torch.serve." + sub), f"serve.{sub} is missing"
+    assert name in tserve.__all__ and hasattr(tserve, name)
+    assert getattr(tserve, name) is getattr(
+        importlib.import_module("mxnet_tpu_torch.serve." + sub), name)
+
+
+@pytest.mark.parametrize("name", sorted(mxnet_tpu.ops.__all__))
+def test_ops_names(name):
+    """``mx.ops.<name>`` resolves (``flash_attention``, ``attention``)."""
+    assert name in mxnet_tpu_torch.ops.__all__ and callable(getattr(mxnet_tpu_torch.ops, name))
