@@ -197,6 +197,37 @@
    step, the idle share of a profiled window, K3's launches by route and
    width.
 
+10. ``llama_train``: Llama trains on the card through ``parallel.TrainStep``
+   (``TrainStep(net, SoftmaxCrossEntropyLoss(axis=-1), Adam, [ids])``).
+   First K1 and K2 at the path's attention shape (B 2, 32 heads of 128
+   after the GQA repeat, T 2048, causal bf16) against their plain versions,
+   timed beside SDPA. (a) LLAMA3_8B at 4 of its 32 layers (untied, bf16,
+   1.92 B parameters), B 2, T 2048, 5 Adam steps at lr 3e-4 on one batch
+   from ``--seed``: every loss finite, the last below the first, K1 and K2
+   each launched once per layer per step (counts zeroed just before, read
+   just after) and the plain attention never; ms a step (median after
+   the first), tokens/s, MFU against the bf16 peak, peak memory, and one
+   profiled step split into K1, K2, GEMMs, the loss and the optimizer.
+   The phase starts only if the earlier phases' models and engines were
+   freed (at most LT_HELD_GB still allocated). (b) The stacked decoder at
+   2 layers from (a)'s trained weights: its step-1 gradients against the
+   per-layer decoder's within LT_STACKED_GRAD_TOL, the losses within one
+   bf16 step. (c) Mixtral-8x7B's widths (D 4096, F 14336, 32 + 8
+   heads, vocab 32000, 8 experts, top 2, rope theta 1e6) at 2 of its 32
+   layers, the same gates plus the share of (token, choice) pairs dropped
+   by capacity (below 1), and one forward and backward of MoE layer 0 on
+   its main-path input timed op by op: its f32 products (the dispatch and
+   combine einsums), its products in the weights' dtype (the experts)
+   and the rest (routing, SwiGLU, casts). (d) A small MoE Llama
+   (D 512, heads of 128, 4 experts on layer 0) in f32, 2 SGD steps on the
+   card and on the CPU from the same weights: every pair's expert and slot
+   equal, gradients leaf by leaf within CARD_CPU_GRAD_TOL, parameters
+   within CARD_CPU_PARAM_TOL (the CPU's smallest top-k gate margin and the
+   largest router-logit difference printed), a bf16 twin's step-1
+   gradients within BF16_GRAD_TOL of the f32 ones. (e) ``remat=True`` on
+   (d)'s model: the same losses and parameters bit for bit; at (a)'s shape
+   the peak memory of a step with and without remat.
+
 Informational JSON lines come first; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without that line. It needs one CUDA card and refuses to
@@ -2822,6 +2853,20 @@ def dropout_device_ms(torch, step, ids, labels):
             "backward_ms": bwd / 1e3, "total_ms": (fwd + bwd) / 1e3}
 
 
+def kernel_class(name):
+    """A training kernel's class by its name: K1 (``flash_fwd``), K2
+    (``flash_bwd``: its prep, sweep and cast kernels), a library GEMM, or
+    ``other``."""
+    low = name.lower()
+    if "flash_fwd_" in name:
+        return "flash_fwd"
+    if any(k in name for k in ("flash_dkdv_", "flash_dq_", "flash_bwd_", "bwd_prep", "bwd_cast")):
+        return "flash_bwd"
+    if any(w in low for w in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
+        return "gemm"
+    return "other"
+
+
 def train_profile(torch, step, ids, labels, device, steps=PROFILE_STEPS):
     """``steps`` training steps under ``torch.profiler`` (device activity
     only): device busy time against host wall time, and device time by
@@ -2841,16 +2886,7 @@ def train_profile(torch, step, ids, labels, device, steps=PROFILE_STEPS):
     by_kernel, by_name = {}, {}
     for a, b, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
-        low = name.lower()
-        if "flash_fwd_" in name:
-            key = "flash_fwd"
-        elif any(k in name for k in ("flash_dkdv_", "flash_dq_", "flash_bwd_", "bwd_prep",
-                                     "bwd_cast")):
-            key = "flash_bwd"
-        elif any(w in low for w in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
-            key = "gemm"
-        else:
-            key = "other"
+        key = kernel_class(name)
         by_kernel[key] = by_kernel.get(key, 0.0) + (b - a) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {"steps": steps, "wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
@@ -3519,6 +3555,15 @@ def copy_llama(torch, src, dst):
     return dst
 
 
+# the stacked decoder's [layers, ...] parameters and the per-layer
+# decoder's parameter each stacks
+STACKED_PARTS = {"ln1": "input_layernorm.gamma", "ln2": "post_attention_layernorm.gamma",
+                 "wq": "self_attn.q_proj.weight", "wk": "self_attn.k_proj.weight",
+                 "wv": "self_attn.v_proj.weight", "wo": "self_attn.o_proj.weight",
+                 "wg": "mlp.gate_proj.weight", "wu": "mlp.up_proj.weight",
+                 "wd": "mlp.down_proj.weight"}
+
+
 def stack_llama(torch, net):
     """The stacked decoder of ``net``'s config holding its weights."""
     import dataclasses
@@ -3526,13 +3571,8 @@ def stack_llama(torch, net):
     from mxnet_tpu_torch.models import LlamaForCausalLM
     out = LlamaForCausalLM(dataclasses.replace(net.cfg, stacked=True), device=net.device)
     layers = list(net.model.layers)
-    parts = {"ln1": "input_layernorm.gamma", "ln2": "post_attention_layernorm.gamma",
-             "wq": "self_attn.q_proj.weight", "wk": "self_attn.k_proj.weight",
-             "wv": "self_attn.v_proj.weight", "wo": "self_attn.o_proj.weight",
-             "wg": "mlp.gate_proj.weight", "wu": "mlp.up_proj.weight",
-             "wd": "mlp.down_proj.weight"}
     with torch.no_grad():
-        for name, path in parts.items():
+        for name, path in STACKED_PARTS.items():
             getattr(out.model.layers, name).copy_(torch.stack(
                 [dict(layer.named_parameters())[path] for layer in layers]))
         out.model.embed_tokens.weight.copy_(net.model.embed_tokens.weight)
@@ -4012,6 +4052,514 @@ def llama_serve(torch, args, kernels):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 10, llama_train: Llama trains on the card through TrainStep
+# ---------------------------------------------------------------------------
+# (a) LLAMA3_8B cut from 32 layers to LT_LAYERS (Adam's state and the
+# smoke's time), B x T tokens a step, LT_STEPS Adam steps on one batch
+LT_LAYERS, LT_B, LT_T, LT_STEPS, LT_LR = 4, 2, 2048, 5, 3e-4
+LT_STACKED_LAYERS = 2             # (b) the stacked decoder against the per-layer one
+MIXTRAL_LAYERS = 2                # (c) Mixtral-8x7B's 32 layers cut to 2
+# (d)/(e): card against CPU in f32, small, head dim 128 (K1/K2's lane at
+# Llama's head dim), one MoE layer (layer 0) and one dense
+LT_SMALL = dict(vocab_size=512, hidden_size=512, intermediate_size=1024, num_layers=2,
+                num_heads=4, num_kv_heads=2, num_experts=4, num_experts_per_tok=2,
+                moe_every=2)
+LT_SMALL_T = 256
+# device memory still allocated as phase 10 starts: the kernels' and earlier
+# phases' small state (0.81-1.41 GB on the H100); a model left over from an
+# earlier phase (Llama-3-8B's bf16 weights alone are 16 GB) exceeds it
+LT_HELD_GB = 4.0
+# (b) stacked against per-layer from the same bf16 weights: the step-1
+# losses differed by 0 and the worst leaf's gradient by 0.0091 relative L2
+# (model.embed_tokens.weight) on the H100; the losses may differ by one
+# bf16 step at their value, the gradients by 3.3x the reading
+LT_STACKED_GRAD_TOL = 0.03
+
+
+def mixtral_config(torch, layers):
+    """Mixtral-8x7B's widths (mistralai/Mixtral-8x7B-v0.1 config.json: D
+    4096, F 14336, 32 query and 8 KV heads, vocab 32000, rope theta 1e6,
+    RMS eps 1e-5, 8 experts, top 2, untied) at ``layers`` layers, bf16,
+    with the JAX package's capacity factor 1.25 and an MoE every layer."""
+    from mxnet_tpu_torch.models import LlamaConfig
+    return LlamaConfig(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+                       num_layers=layers, num_heads=32, num_kv_heads=8, rope_theta=1e6,
+                       rms_eps=1e-5, dtype=torch.bfloat16, tie_embeddings=False,
+                       num_experts=8, num_experts_per_tok=2, moe_capacity_factor=1.25,
+                       moe_every=1)
+
+
+def llama_train_flops(cfg, B, T):
+    """Analytic FLOPs of one training step (3x the forward): 2 per
+    multiply-add of every matrix (router and the k experts each token
+    takes, at their capacity-free count) and the head, plus causal
+    attention (q k and p v over the visible half of T x T)."""
+    D, F, V, hd = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.hd
+    attn_w = D * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+    per_layer = []
+    for i in range(cfg.num_layers):
+        moe = cfg.num_experts > 0 and i % cfg.moe_every == 0
+        mlp = (cfg.num_experts * D + cfg.num_experts_per_tok * 3 * D * F) if moe else 3 * D * F
+        per_layer.append(2 * B * T * (attn_w + mlp) + 2 * B * cfg.num_heads * T * T * hd)
+    return 3 * (sum(per_layer) + 2 * B * T * D * V)
+
+
+def moe_routes(torch, net, fn):
+    """Runs ``fn()`` with every MoE router's logits caught; returns fn's
+    result and, per MoE layer and call, (logits, moe_route's result)."""
+    from mxnet_tpu_torch.models import llama as TL
+    caught, hooks = [], []
+    for layer in net.model.layers:
+        if isinstance(layer.mlp, TL.LlamaMoE):
+            hooks.append(layer.mlp.router.register_forward_hook(
+                lambda m, i, o: caught.append(o.detach().float())))
+    try:
+        out = fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    cfg, routes = net.cfg, []
+    for logits in caught:
+        n = logits.numel() // cfg.num_experts
+        logits = logits.reshape(n, cfg.num_experts)
+        routes.append((logits, TL.moe_route(logits, cfg.num_experts_per_tok,
+                                            TL.moe_capacity(cfg, n))))
+    return out, routes
+
+
+def train_split(torch, step, ids, labels):
+    """One step under ``torch.profiler`` (device activity): device ms of K1
+    and K2 and of the GEMMs (by kernel name), and, between CUDA events, of
+    the loss (its forward, and its backward from the loss's gradient to the
+    logits') and of the optimizer's update (``apply_updates``); ``other`` is
+    the rest of the busy time."""
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch.parallel import train as tr
+    ev = {k: torch.cuda.Event(enable_timing=True)
+          for k in ("loss0", "loss1", "back0", "back1", "opt0", "opt1")}
+    real_loss, real_apply = step.loss_fn, tr.apply_updates
+
+    def loss_fn(outs, *lab):
+        ev["loss0"].record()
+        out = real_loss(outs, *lab)
+        ev["loss1"].record()
+        out.register_hook(lambda g: ev["back0"].record())
+        outs.register_hook(lambda g: ev["back1"].record())
+        return out
+
+    def apply_updates(*a, **k):
+        ev["opt0"].record()
+        real_apply(*a, **k)
+        ev["opt1"].record()
+    torch.cuda.synchronize()
+    step.loss_fn, tr.apply_updates = loss_fn, apply_updates
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(ids, labels)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        step.loss_fn, tr.apply_updates = real_loss, real_apply
+    spans = device_spans(prof)
+    if not spans:
+        return "not measured"
+    ms = {"flash_fwd": 0.0, "flash_bwd": 0.0, "gemm": 0.0}
+    for a, b, name in spans:
+        key = kernel_class(name)
+        if key in ms:
+            ms[key] += (b - a) / 1e3
+    ms["loss"] = (ev["loss0"].elapsed_time(ev["loss1"])
+                  + ev["back0"].elapsed_time(ev["back1"]))
+    ms["optimizer"] = ev["opt0"].elapsed_time(ev["opt1"])
+    busy = busy_us(spans) / 1e3
+    ms["other"] = busy - sum(ms.values())
+    return {"wall_ms": wall, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
+            "device_ms": ms, "device_ops": len(spans)}
+
+
+def event_ms(torch, fn, reps=5):
+    """Median CUDA-event ms of ``fn()`` after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def moe_split(torch, net, ids):
+    """One forward and backward of MoE layer 0 (the real ``LlamaMoE``) on
+    its input of the main path (the normed hidden state of ``ids``), each
+    aten op it runs timed between CUDA events by a dispatch mode and summed
+    by kind: products in f32 (the dispatch and combine einsums), products
+    in the weights' dtype (the three expert products and the router's) and
+    every other op (the routing loop, softmax, SwiGLU, casts). Beside them
+    the layer's forward and backward timed whole (median of 5)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from mxnet_tpu_torch.models import llama as TL
+    layer = net.model.layers[0]
+    moe, cfg = layer.mlp, net.cfg
+    caught = {}
+    hook = layer.post_attention_layernorm.register_forward_hook(
+        lambda m, i, o: caught.setdefault("x", o.detach()))
+    with torch.no_grad():
+        net.model(ids)
+    hook.remove()
+    x = caught["x"]
+    B, T, d = x.shape
+    N, E, k = B * T, cfg.num_experts, cfg.num_experts_per_tok
+    C = TL.moe_capacity(cfg, N)
+    products = {"mm", "bmm", "addmm", "baddbmm"}
+    spans = []
+
+    class Timed(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = func(*args, **(kwargs or {}))
+            b.record()
+            kind = "other"
+            if func.overloadpacket.__name__ in products:
+                f32 = args[0].dtype == torch.float32
+                kind = "f32_products" if f32 else "weight_dtype_products"
+            spans.append((kind, a, b))
+            return out
+
+    def whole():
+        xi = x.detach().clone().requires_grad_(True)
+        torch.autograd.grad(moe(xi).float().sum(), (xi,) + tuple(moe.parameters()))
+    whole()
+    torch.cuda.synchronize()
+    with Timed():
+        whole()
+    torch.cuda.synchronize()
+    ms = {"f32_products": 0.0, "weight_dtype_products": 0.0, "other": 0.0}
+    ops = dict.fromkeys(ms, 0)
+    for kind, a, b in spans:
+        ms[kind] += a.elapsed_time(b)
+        ops[kind] += 1
+    return {"N": N, "E": E, "C": C, "k": k, "device_ms": ms, "ops": ops,
+            "layer_ms": event_ms(torch, whole),
+            # forward: dispatch and combine; backward: x's gradient through
+            # the dispatch, the combine weights' and the expert outputs'
+            "f32_product_flop": 5 * 2 * N * E * C * d,
+            # the experts' three products and the router's, each forward
+            # and two backward
+            "weight_dtype_product_flop": 3 * 2 * (3 * E * C * d * cfg.intermediate_size
+                                                  + N * d * E)}
+
+
+def llama_train_run(torch, args, net, B, T, steps, label, moe=False):
+    """``steps`` Adam steps (lr LT_LR) of ``net`` on one batch drawn from
+    ``--seed`` through ``TrainStep(net, SoftmaxCrossEntropyLoss(axis=-1),
+    Adam, [ids])``, each synchronised and timed, with the launch counts
+    zeroed just before and read just after, and with the plain attention
+    route (``_fallback``) counted; then one profiled step (``train_split``).
+    Gates: every loss finite and the last below the first; K1 and K2 each
+    launched once per layer per step; the plain route never taken."""
+    from mxnet_tpu_torch import optimizer, parallel
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops import attention as fa
+    from mxnet_tpu_torch.ops.int8_gemv import launches, reset_launches
+    cfg = net.cfg
+    ids, labels = train_batch(args, cfg.vocab_size, B, T)
+    ids, labels = torch.from_numpy(ids).to("cuda"), torch.from_numpy(labels).to("cuda")
+    step = parallel.TrainStep(net, SoftmaxCrossEntropyLoss(axis=-1),
+                              optimizer.Adam(learning_rate=LT_LR), [ids])
+    plain = [0]
+    real_fallback = fa._fallback
+
+    def counted_fallback(*a, **k):
+        plain[0] += 1
+        return real_fallback(*a, **k)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, routes = [], [], None
+    fa._fallback = counted_fallback
+    reset_launches()
+    try:
+        for i in range(steps):
+            t0 = time.perf_counter()
+            if moe and i == 0:
+                loss, routes = moe_routes(torch, net, lambda: step(ids, labels))
+            else:
+                loss = step(ids, labels)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.float().item())
+    finally:
+        fa._fallback = real_fallback
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = statistics.median(times[1:])
+    flops = llama_train_flops(cfg, B, T)
+    out = {"model": label, "layers": cfg.num_layers, "dtype": str(cfg.dtype).split(".")[-1],
+           "B": B, "T": T, "steps": steps, "optimizer": "adam", "lr": LT_LR,
+           "params": sum(p.numel() for p in net.parameters()), "losses": losses,
+           "step_ms": times, "ms_per_step": ms, "tokens_per_s": B * T / ms * 1e3,
+           "flop_per_step": flops, "mfu": flops / (ms / 1e3) / BF16_FLOP_PER_S,
+           "peak_mem_gb": peak, "launches": counts, "plain_attention_calls": plain[0]}
+    if routes:
+        keep = torch.cat([r[1][4].reshape(-1) for r in routes])
+        out["dropped_share"] = 1.0 - keep.float().mean().item()
+        out["capacity"] = routes[0][1][0].shape[2]
+    out["profiled_step"] = train_split(torch, step, ids, labels)
+    emit({"llama_train": out})
+    check(all(math.isfinite(v) for v in losses), f"{label}: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
+    for kind in ("flash_fwd", "flash_bwd"):
+        check(counts.get(kind, 0) == cfg.num_layers * steps,
+              f"{label}: {kind} launches {counts.get(kind, 0)} != "
+              f"{cfg.num_layers} layers x {steps} steps")
+    check(plain[0] == 0, f"{label}: the plain attention ran {plain[0]} times")
+    if routes:
+        check(out["dropped_share"] < 1.0, f"{label}: every (token, choice) pair was dropped")
+    return out
+
+
+def small_llama_pair(torch, args, dtype=None):
+    """(d)'s model (LT_SMALL, f32 unless ``dtype``) on the CPU from
+    ``--seed`` and its copy on the card (``interop``)."""
+    import dataclasses
+
+    from mxnet_tpu_torch.interop import params_from_numpy, params_to_numpy
+    from mxnet_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig(dtype=torch.float32, **LT_SMALL)
+    cpu = LlamaForCausalLM(cfg, device="cpu").init_weights(args.seed)
+    card_cfg = cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+    card = params_from_numpy(LlamaForCausalLM(card_cfg, device="cuda"), params_to_numpy(cpu))
+    return cpu, card
+
+
+def small_sgd_steps(torch, args, net, steps, remat=False):
+    """``steps`` TrainSteps of ``net`` with SGD (momentum 0.9, SGD_LR) on a
+    [2, LT_SMALL_T] batch from ``--seed``: (losses, each step's gradients,
+    each step's routes (moe_routes), parameters after)."""
+    from mxnet_tpu_torch import optimizer, parallel
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.interop import params_to_numpy
+    ids, labels = train_batch(args, net.cfg.vocab_size, 2, LT_SMALL_T)
+    step = parallel.TrainStep(net, SoftmaxCrossEntropyLoss(axis=-1),
+                              optimizer.SGD(learning_rate=SGD_LR, momentum=0.9), [ids],
+                              remat=remat)
+    losses, grads, routes = [], [], []
+    for _ in range(steps):
+        loss, r = moe_routes(torch, net, lambda: step(ids, labels))
+        losses.append(loss.float().item())
+        grads.append(named_grads(torch, net))
+        routes.append(r)
+    return losses, grads, routes, params_to_numpy(net)
+
+
+def route_diffs(torch, got, want):
+    """(pairs whose expert or slot or keep differs, largest router-logit
+    difference, smallest top-k gate margin of ``want``) over matching
+    (step, layer) routes."""
+    bad, logit_diff, margin = 0, 0.0, float("inf")
+    for g_step, w_step in zip(got, want):
+        for (gl, (_, _, gi, gs, gk)), (wl, (_, _, wi, ws, wk)) in zip(g_step, w_step):
+            bad += int(((gi.cpu() != wi.cpu()) | (gs.cpu() != ws.cpu())
+                        | (gk.cpu() != wk.cpu())).sum())
+            logit_diff = max(logit_diff, float((gl.cpu() - wl.cpu()).abs().max()))
+            k = wi.shape[0]
+            top = torch.softmax(wl.cpu(), dim=-1).sort(dim=-1, descending=True).values
+            margin = min(margin, float((top[:, :k] - top[:, 1:k + 1]).min()))
+    return bad, logit_diff, margin
+
+
+def llama_card_vs_cpu_train(torch, args):
+    """(d) and (e) on LT_SMALL: 2 f32 SGD steps on the card and on the CPU
+    from the same weights: routing (expert and slot of every pair) equal,
+    each step's gradients leaf by leaf within CARD_CPU_GRAD_TOL, the
+    parameters after within CARD_CPU_PARAM_TOL; a bf16 twin's step-1
+    gradients within BF16_GRAD_TOL of the f32 card's; ``remat=True`` on
+    the card the same losses and parameters as ``remat=False``, bit for
+    bit. Prints the readings (the CPU's smallest top-k gate margin beside
+    the largest router-logit difference), then checks them."""
+    from mxnet_tpu_torch.ops.int8_gemv import launches, reset_launches
+    cpu, card = small_llama_pair(torch, args)
+    reset_launches()
+    lc, gc, rc, pc = small_sgd_steps(torch, args, card, 2)
+    card_launches = launches()
+    lh, gh, rh, ph = small_sgd_steps(torch, args, cpu, 2)
+    grad_errs = [worst(leaf_errors(a, b)) for a, b in zip(gc, gh)]
+    pdiff = max(float(abs(pc[n] - ph[n]).max()) for n in ph)
+    bad, logit_diff, margin = route_diffs(torch, rc, rh)
+    _, twin = small_llama_pair(torch, args, torch.bfloat16)
+    (l16,), (g16,), r16, _ = small_sgd_steps(torch, args, twin, 1)
+    bf16_err = leaf_errors(g16, gc[0])
+    bf16_flips, _, _ = route_diffs(torch, r16, rc[:1])
+    del twin
+    _, card_r = small_llama_pair(torch, args)
+    lr_, _, _, pr = small_sgd_steps(torch, args, card_r, 2, remat=True)
+    remat_same = lr_ == lc and all(bool((pr[n] == pc[n]).all()) for n in pc)
+    out = {"config": LT_SMALL, "B": 2, "T": LT_SMALL_T, "steps": 2, "optimizer": "sgd",
+           "lr": SGD_LR, "losses": {"cuda": lc, "cpu": lh}, "card_launches": card_launches,
+           "route_pairs_differing": bad, "cpu_min_topk_gate_margin": margin,
+           "max_router_logit_diff": logit_diff,
+           "grad_rel_l2_worst_leaf": grad_errs, "grad_tol": CARD_CPU_GRAD_TOL,
+           "max_param_diff": pdiff, "param_tol": CARD_CPU_PARAM_TOL,
+           "bf16_step1_loss": l16, "bf16_vs_f32_grad_rel_l2": worst(bf16_err),
+           "bf16_grad_tol": BF16_GRAD_TOL, "bf16_route_pairs_differing": bf16_flips,
+           "remat_losses": lr_, "remat_equal_bitwise": remat_same}
+    emit({"llama_train_card_vs_cpu": out})
+    check(bad == 0, f"routing differs between the card and the CPU at {bad} pairs "
+          f"(smallest CPU gate margin {margin}, largest logit difference {logit_diff})")
+    for i, e in enumerate(grad_errs):
+        check(e["rel_l2"] <= CARD_CPU_GRAD_TOL,
+              f"Llama card/CPU step-{i + 1} gradients differ: {e} > {CARD_CPU_GRAD_TOL}")
+    check(pdiff <= CARD_CPU_PARAM_TOL,
+          f"Llama card/CPU parameters after 2 steps differ by {pdiff} > {CARD_CPU_PARAM_TOL}")
+    check(max(bf16_err.values()) <= BF16_GRAD_TOL,
+          f"Llama bf16/f32 step-1 gradients differ: {worst(bf16_err)} > {BF16_GRAD_TOL}")
+    for kind in ("flash_fwd", "flash_bwd"):
+        check(card_launches.get(kind, 0) == 2 * LT_SMALL["num_layers"],
+              f"small Llama on the card: {kind} launches {card_launches.get(kind, 0)}")
+    check(remat_same, f"remat=True on the card: losses {lr_} against {lc}, or parameters, "
+          "differ from remat=False")
+    return out
+
+
+def remat_peak_memory(torch, args):
+    """(e) at (a)'s shape (LT_LAYERS layers of LLAMA3_8B, B 2, T 2048, the
+    same weights): one Adam step with ``remat=False`` and with
+    ``remat=True``, each with its peak device memory through the forward
+    and backward (read as ``apply_updates`` starts) and over the whole
+    step."""
+    from mxnet_tpu_torch import optimizer, parallel
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import LlamaForCausalLM
+    from mxnet_tpu_torch.parallel import train as tr
+    cfg = llama_config(torch, LT_LAYERS)
+    ids, labels = train_batch(args, cfg.vocab_size, LT_B, LT_T)
+    ids, labels = torch.from_numpy(ids).to("cuda"), torch.from_numpy(labels).to("cuda")
+    out = {"layers": LT_LAYERS, "B": LT_B, "T": LT_T}
+    real_apply, seen = tr.apply_updates, {}
+
+    def apply_updates(*a, **k):
+        seen["fwd_bwd"] = torch.cuda.max_memory_allocated()
+        return real_apply(*a, **k)
+    for remat in (False, True):
+        net = LlamaForCausalLM(cfg, device="cuda").init_weights(args.seed)
+        step = parallel.TrainStep(net, SoftmaxCrossEntropyLoss(axis=-1),
+                                  optimizer.Adam(learning_rate=LT_LR), [ids], remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr.apply_updates = apply_updates
+        try:
+            loss = step(ids, labels).float().item()
+        finally:
+            tr.apply_updates = real_apply
+        torch.cuda.synchronize()
+        out["remat" if remat else "plain"] = {
+            "loss": loss, "fwd_bwd_peak_gb": seen["fwd_bwd"] / 1e9,
+            "step_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del net, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def llama_train(torch, args, timer, gen):
+    """Phase 10: Llama trains on the card through ``parallel.TrainStep``.
+    K1/K2 at the main path's attention shape (B 2, 32 heads of 128, T 2048,
+    causal bf16) against their plain versions first; (a) LLAMA3_8B at
+    LT_LAYERS layers, (b) the stacked decoder against the per-layer one at
+    2 layers, (c) Mixtral-8x7B's widths at 2 MoE layers, (d) card against
+    CPU in f32 on a small MoE Llama and its bf16 twin, (e) remat. Returns
+    {"k1": row, "k2": row}: the kernels-line rows of K1 and K2 at head dim
+    128 with their launches in (a) and (c)."""
+    from mxnet_tpu_torch.models import LlamaForCausalLM
+    t_phase = time.perf_counter()
+    # (c) needs about 55 GB: the earlier phases' models and engines must be
+    # freed once dropped, by reference counting alone
+    held = torch.cuda.memory_allocated() / 1e9
+    emit({"llama_train_allocated_gb_at_start": held})
+    check(held <= LT_HELD_GB, f"{held} GB of device memory still allocated as phase 10 "
+          f"starts (> {LT_HELD_GB}): an earlier phase's model or engine was not freed")
+    kern = flash_case(torch, timer, gen, LT_B, 32, LT_T, LT_T, 128, True, torch.bfloat16,
+                      timed=True)
+    emit({"llama_train_flash_case": kern})
+    torch.cuda.empty_cache()
+    net = LlamaForCausalLM(llama_config(torch, LT_LAYERS),
+                           device="cuda").init_weights(args.seed)
+    dense = llama_train_run(torch, args, net, LT_B, LT_T, LT_STEPS, "llama3-8b")
+    torch.cuda.empty_cache()
+    stacked = llama_train_stacked(torch, args, net)
+    del net
+    torch.cuda.empty_cache()
+    net = LlamaForCausalLM(mixtral_config(torch, MIXTRAL_LAYERS),
+                           device="cuda").init_weights(args.seed)
+    moe = llama_train_run(torch, args, net, LT_B, LT_T, LT_STEPS, "mixtral-8x7b", moe=True)
+    torch.cuda.empty_cache()
+    ids, _ = train_batch(args, net.cfg.vocab_size, LT_B, LT_T)
+    moe["moe_layer_split"] = split = moe_split(torch, net, torch.from_numpy(ids).to("cuda"))
+    emit({"llama_train_moe_split": split})
+    del net
+    torch.cuda.empty_cache()
+    small = llama_card_vs_cpu_train(torch, args)
+    torch.cuda.empty_cache()
+    peaks = remat_peak_memory(torch, args)
+    emit({"llama_train_remat_peak": peaks})
+    emit({"llama_train_s": time.perf_counter() - t_phase})
+    rows = {}
+    for key, kind, pre in (("k1", "flash_fwd", "k1_"), ("k2", "flash_bwd", "k2_")):
+        rows[key] = {"max_abs_err": kern[pre + "max_abs_err"], "ms": kern[pre + "ms"],
+                     "plain_ms": kern[pre + "plain_ms"], "bound_ms": kern[pre + "bound_ms"],
+                     "bound_by": kern[pre + "bound_by"], "library_ms": kern[pre + "library_ms"],
+                     "launches": dense["launches"].get(kind, 0) + moe["launches"].get(kind, 0),
+                     "launches_by": {"llama3-8b": dense["launches"].get(kind, 0),
+                                     "mixtral-8x7b": moe["launches"].get(kind, 0)}}
+    return rows
+
+
+def llama_train_stacked(torch, args, net):
+    """(b) The stacked decoder at the same width and LT_STACKED_LAYERS
+    layers from the same weights (``net``'s first layers, embedding, norm
+    and head) against the per-layer decoder: step-1 loss and gradients,
+    leaf by leaf (the stacked [layers, ...] gradients against the per-layer
+    ones stacked), within LT_STACKED_GRAD_TOL; the losses within one bf16
+    step. ``net`` has taken (a)'s 6 Adam steps, so the loss is far from
+    ln(vocab)."""
+    from mxnet_tpu_torch import optimizer, parallel
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import LlamaForCausalLM
+    per_layer = copy_llama(torch, net, LlamaForCausalLM(
+        llama_config(torch, LT_STACKED_LAYERS), device="cuda"))
+    stacked = stack_llama(torch, per_layer)
+    ids, labels = train_batch(args, net.cfg.vocab_size, LT_B, LT_T)
+    ids, labels = torch.from_numpy(ids).to("cuda"), torch.from_numpy(labels).to("cuda")
+    out, grads = {}, {}
+    for name, model in (("per_layer", per_layer), ("stacked", stacked)):
+        step = parallel.TrainStep(model, SoftmaxCrossEntropyLoss(axis=-1),
+                                  optimizer.SGD(learning_rate=0.0), [ids])
+        out[name + "_loss"] = step(ids, labels).float().item()
+        grads[name] = named_grads(torch, model)
+        del step
+    g = grads["per_layer"]
+    want = {f"model.layers.{n}": torch.stack([g[f"model.layers.{i}.{path}"]
+                                              for i in range(LT_STACKED_LAYERS)])
+            for n, path in STACKED_PARTS.items()}
+    want.update({n: g[n] for n in ("model.embed_tokens.weight", "model.norm.gamma",
+                                   "lm_head.weight")})
+    errs = leaf_errors(grads["stacked"], want)
+    # one bf16 step at the loss's value: the smallest gap its dtype shows
+    ulp = 2.0 ** (math.floor(math.log2(abs(out["per_layer_loss"]))) - 7)
+    out.update({"layers": LT_STACKED_LAYERS, "loss_gap": abs(out["stacked_loss"]
+                                                             - out["per_layer_loss"]),
+                "loss_tol": ulp, "grad_rel_l2": worst(errs), "grad_tol": LT_STACKED_GRAD_TOL})
+    emit({"llama_train_stacked": out})
+    check(out["loss_gap"] <= ulp, f"stacked / per-layer step-1 losses {out}")
+    check(errs[max(errs, key=errs.get)] <= LT_STACKED_GRAD_TOL, "stacked / per-layer step-1 "
+          f"gradients differ: {worst(errs)} > {LT_STACKED_GRAD_TOL}")
+    return out
+
+
 def llama_kernel_rows(kl, llama):
     """The kernels-line rows of the Llama path at Llama-3-8B's widths
     (kernel_llama_widths' numbers): K3 and K4 per (N, K), x lane (bf16,
@@ -4150,6 +4698,8 @@ def main(argv=None):
         kl = kernel_llama_widths(torch, timer, gen)
     torch.cuda.empty_cache()
     llama = llama_serve(torch, args, kl)
+    torch.cuda.empty_cache()
+    llama_train_rows = llama_train(torch, args, timer, gen)
 
     def routes(*phases):
         return {r: sum(c["routes"][r] for c in phases) for r in ("warp", "mma")}
@@ -4311,6 +4861,16 @@ def main(argv=None):
                      + ("; " + K8_BF16_LLAMA_PATH if name.endswith("bf16") else "")})
         check(rows[-1]["launches"] > 0, f"{name} never launched in its direct-call phase")
     rows += llama_kernel_rows(kl, llama)
+    # K1 and K2 at head dim 128 on phase 10's training path (B 2, 32 heads,
+    # T 2048, causal bf16): launches counted over (a) and (c)'s steps
+    for name, src, replaces, r in (
+            ("flash_attention_fwd_hd128", "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
+             "mxnet_tpu/ops/attention.py:286", llama_train_rows["k1"]),
+            ("flash_attention_bwd_hd128", "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+             "mxnet_tpu/ops/attention.py:383", llama_train_rows["k2"])):
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                     **r, "path": "llama_train (a) and (c)"})
+        check(r["launches"] > 0, f"{name} never launched on the Llama training path")
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -11,18 +11,21 @@ updates are bridged onto it as chrome-trace 'C' events.
 Collection is OFF by default (``MXNET_METRICS`` or ``enable()``); the
 disabled path is one module-attribute check.
 
-The families here are the JAX package's serving subset, under its names,
-help strings, labels and buckets: ``mxnet_serve_*`` (requests, queue,
-TTFT, inter-token, steps, compiles, host round trips, pages, prefix cache,
-weight versions), ``mxnet_decode_launches_total`` and
+The families here are the JAX package's serving and training subset,
+under its names, help strings, labels and buckets: ``mxnet_serve_*``
+(requests, queue, TTFT, inter-token, steps, compiles, host round trips,
+pages, prefix cache, weight versions), ``mxnet_decode_launches_total`` and
 ``mxnet_decode_dma_*`` (the launch sites and DMA program of each built
 step, counted once when the step is built), ``mxnet_spec_*``,
 ``mxnet_grammar_*``, ``mxnet_cache_advert_roots``,
 ``mxnet_cachedop_cache_hits_total`` (a hybridized block's cache hits),
 ``mxnet_recompilations_total``, the trace-store counters, the flight
-recorder's dumps, and the step-phase families ``StepTimeline`` reports.
-The training, elastic, ZeRO, SLO, AOT, fleet, router and executable-cost
-families wait for their slices (ROADMAP Queue 1 item 8).
+recorder's dumps, the step-phase families ``StepTimeline`` reports, and
+the training families ``parallel.TrainStep`` observes
+(``mxnet_step_time_seconds``, ``mxnet_examples_total``,
+``mxnet_examples_per_sec``, ``mxnet_pipeline_depth``). The elastic, ZeRO,
+SLO, AOT, fleet, router, data-loader and executable-cost families wait
+for their slices (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -555,8 +558,8 @@ def register_collect_callback(fn: Callable[[], None]):
 
 
 # ---------------------------------------------------------------------------
-# The serving instrument catalog (one definition site, in the JAX package's
-# registration order)
+# The serving and training instrument catalog (one definition site, in the
+# JAX package's registration order)
 # ---------------------------------------------------------------------------
 
 CACHE_HITS = Counter(
@@ -567,6 +570,20 @@ RECOMPILATIONS = Counter(
     "XLA trace builds: kind=initial first trace, kind=retrace a new "
     "shape/dtype/mode signature forced recompilation (also warn-logged)",
     labels=("block", "kind"))
+STEP_TIME = Histogram(
+    "mxnet_step_time_seconds",
+    "Train-step wall time per call (host-side; async dispatch). "
+    "path=train_step/train_step_multi cover the full fused step; "
+    "path=trainer covers ONLY allreduce+update (fwd/bwd run outside "
+    "Trainer.step)", labels=("path",))
+EXAMPLES = Counter(
+    "mxnet_examples_total", "Examples processed by train steps",
+    labels=("path",))
+EXAMPLES_PER_SEC = Gauge(
+    "mxnet_examples_per_sec",
+    "Throughput of the most recent FUSED train step (TrainStep paths "
+    "only: Trainer.step excludes fwd/bwd, so no gauge there)",
+    labels=("path",))
 STEP_PHASE = Histogram(
     "mxnet_step_phase_seconds",
     "Per-step training phase durations (phase=input_wait|h2d|dispatch|"
@@ -592,6 +609,11 @@ FLIGHT_DUMPS = Counter(
     "Flight-recorder dumps by trigger (reason=engine_exception|"
     "guard_violation|preemption_storm|sigterm|manual)",
     labels=("reason",))
+PIPELINE_DEPTH = Gauge(
+    "mxnet_pipeline_depth",
+    "Live pipeline occupancy: staged batches ready in the prefetcher "
+    "(path=prefetch_*) or dispatched-but-unforced steps in the TrainStep "
+    "in-flight window (path=train_step)", labels=("path",))
 SERVE_HOST_SYNC = Histogram(
     "mxnet_serve_host_sync_seconds",
     "Engine-loop blocking host reads (token D2H sync); with decode "

@@ -18,7 +18,15 @@ Dense (and a tied head) of up to ``gemv_max_m()`` rows streams its int8 or
 int4 table through K3 or K4, and a tied quantized head selects tokens
 through K8 in a ``multi_token > 1`` loop.
 
-Not ported yet (ROADMAP Queue 1 item 8): the MoE layers, ring and Ulysses
+Training goes through the cache-free forward: ``parallel.TrainStep``
+differentiates it end to end (RoPE, the bf16 RMSNorm rounding, the GQA
+repeat, the untied or tied head), and at T >= 256 each layer's attention
+is K1 forward and K2 backward. ``num_experts > 0`` builds :class:`LlamaMoE`
+layers (every ``moe_every``-th layer, per-layer decoder only); as in the
+JAX package an MoE model has no KV-cache path and trains or runs
+cache-free.
+
+Not ported yet (ROADMAP Queue 1 item 8): ring and Ulysses
 sequence-parallel attention, the GPipe schedule of the stacked decoder
 (``pp_mesh``) and ``llama_shardings``; each raises where the JAX package
 would run it.
@@ -40,14 +48,15 @@ import torch
 from torch import nn
 
 from .. import numpy_extension as npx
-from ..autograd import predict_mode
+from ..autograd import is_predicting, predict_mode
 from ..base import MXNetError
 from ..device import resolve
 from ..ops.attention import flash_attention
 from ._layers import Dense, Embedding, RMSNorm
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel", "LlamaStackedDecoder",
-           "LLAMA3_8B", "LLAMA_TINY", "_decode_positions", "_attend",
+           "LlamaMoE", "LLAMA3_8B", "LLAMA_TINY", "moe_capacity", "moe_route",
+           "_decode_positions", "_attend",
            "_cached_attention", "_paged_attention"]
 
 _NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 8)"
@@ -71,7 +80,7 @@ class LlamaConfig:
     attn_impl: str = "flash"
     sp_mesh: Optional[object] = None
     sp_axis: str = "sp"
-    # MoE (0 = dense); not ported yet
+    # MoE (0 = dense): every moe_every-th layer routes over num_experts
     num_experts: int = 0
     num_experts_per_tok: int = 2
     moe_capacity_factor: float = 1.25
@@ -289,17 +298,107 @@ class LlamaMLP(nn.Module):
         return self.down_proj(npx.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
+def moe_capacity(cfg: LlamaConfig, n_tokens: int) -> int:
+    """Slots per expert for ``n_tokens`` tokens: ``ceil(k N / E * factor)``
+    in Python floats, at least 1 (the JAX package's formula)."""
+    k, E = cfg.num_experts_per_tok, cfg.num_experts
+    return max(int(math.ceil(k * n_tokens / E * cfg.moe_capacity_factor)), 1)
+
+
+def moe_route(gate_logits, k: int, capacity: int):
+    """Top-k routing with capacity (Mesh-TF / Switch dense dispatch), step
+    for step the JAX package's ``LlamaMoE``: softmax of the [N, E] router
+    logits in f32, then k rounds of ``argmax`` over the gates not yet taken
+    (the first index on ties, as ``jnp.argmax``); a pair's slot is its
+    expert's running count (``cumsum`` of the one-hots offset by the
+    experts' kept counts), and a pair at or past ``capacity`` is dropped.
+    Returns ``(dispatch, combine, idx, slot, keep)``: dispatch and combine
+    [N, E, C] f32 (combine normalized over each token's kept pairs by
+    ``max(sum, 1e-9)``, so a token with every pair dropped combines to 0),
+    and per round [k, N] the expert index, the slot and the keep flag.
+    Gradients reach the logits through the gate values and the
+    normalization; none flows through ``argmax`` or the one-hots."""
+    N, E = gate_logits.shape
+    gates = torch.softmax(gate_logits.float(), dim=-1)
+    dev = gates.device
+    dispatch = torch.zeros(N, E, capacity, device=dev)
+    combine = torch.zeros(N, E, capacity, device=dev)
+    counts = torch.zeros(E, device=dev)
+    remaining = gates.detach()
+    idxs, slots, keeps = [], [], []
+    for _ in range(k):
+        idx = torch.argmax(remaining, dim=1)
+        onehot = torch.nn.functional.one_hot(idx, E).float()
+        pos = torch.cumsum(onehot, dim=0) - 1 + counts[None, :]
+        pos_tok = (pos * onehot).sum(dim=1)
+        keep = (pos_tok < capacity).float()
+        gate_val = (gates * onehot).sum(dim=1)
+        slot = pos_tok.clamp(0, capacity - 1).long()
+        disp = (onehot[:, :, None]
+                * torch.nn.functional.one_hot(slot, capacity).float()[:, None, :]
+                * keep[:, None, None])
+        dispatch = dispatch + disp
+        combine = combine + disp * gate_val[:, None, None]
+        counts = counts + (onehot * keep[:, None]).sum(dim=0)
+        remaining = remaining * (1.0 - onehot)
+        idxs.append(idx)
+        slots.append(pos_tok.long())
+        keeps.append(keep.bool())
+    denom = combine.sum(dim=(1, 2), keepdim=True)
+    combine = combine / denom.clamp_min(1e-9)
+    return dispatch, combine, torch.stack(idxs), torch.stack(slots), torch.stack(keeps)
+
+
+class LlamaMoE(nn.Module):
+    """Top-k routed MoE with capacity-limited dense dispatch (the JAX
+    package's ``LlamaMoE``): a bias-free router ``Dense(E)`` and rank-3
+    expert weights ``w_gate``, ``w_up`` [E, d, f] and ``w_down`` [E, f, d]
+    in the JAX layout (not Dense's (out, in)), so ``interop`` copies them
+    as they are. The JAX package initializes them with ``StackedXavier(
+    factor_type="in", magnitude=2.0)``; here :meth:`LlamaForCausalLM.
+    init_weights` draws them as it draws every other matrix.
+
+    The forward routes with :func:`moe_route`, gathers each expert's slots
+    with an f32 ``einsum`` over the dispatch tensor, runs the SwiGLU
+    experts in the weights' dtype as batched products, and combines the
+    f32 expert outputs. The products are plain ``torch.einsum`` calls, as
+    the JAX package computes them outside any Pallas kernel."""
+
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        E, d, f, dt = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size, cfg.dtype
+        self.router = Dense(E, d, use_bias=False, device=device, dtype=dt)
+        for name, shape in (("w_gate", (E, d, f)), ("w_up", (E, d, f)),
+                            ("w_down", (E, f, d))):
+            setattr(self, name, nn.Parameter(torch.zeros(shape, device=device, dtype=dt)))
+
+    def forward(self, x):
+        cfg = self.cfg
+        B, T, d = x.shape
+        N = B * T
+        capacity = moe_capacity(cfg, N)
+        gate_logits = self.router(x).reshape(N, cfg.num_experts)
+        dispatch, combine, *_ = moe_route(gate_logits, cfg.num_experts_per_tok, capacity)
+        expert_in = torch.einsum("nec,nd->ecd", dispatch, x.reshape(N, d).float())
+        ein = expert_in.to(self.w_gate.dtype)
+        h = (npx.silu(torch.einsum("ecd,edf->ecf", ein, self.w_gate))
+             * torch.einsum("ecd,edf->ecf", ein, self.w_up))
+        eout = torch.einsum("ecf,efd->ecd", h, self.w_down).float()
+        y = torch.einsum("nec,ecd->nd", combine, eout)
+        return y.reshape(B, T, d).to(x.dtype)
+
+
 class LlamaDecoderLayer(nn.Module):
     def __init__(self, cfg: LlamaConfig, layer_idx: int, device=None):
         super().__init__()
-        if cfg.num_experts > 0 and layer_idx % cfg.moe_every == 0:
-            raise MXNetError("LlamaMoE (num_experts > 0) " + _NOT_PORTED)
         d, dt = cfg.hidden_size, cfg.dtype
         self.input_layernorm = RMSNorm(d, epsilon=cfg.rms_eps, device=device, dtype=dt)
         self.self_attn = LlamaAttention(cfg, device=device)
         self.post_attention_layernorm = RMSNorm(d, epsilon=cfg.rms_eps, device=device,
                                                 dtype=dt)
-        self.mlp = LlamaMLP(cfg, device=device)
+        use_moe = cfg.num_experts > 0 and layer_idx % cfg.moe_every == 0
+        self.mlp = LlamaMoE(cfg, device=device) if use_moe else LlamaMLP(cfg, device=device)
 
     def forward(self, x):
         x = x + self.self_attn(self.input_layernorm(x))
@@ -560,15 +659,20 @@ class LlamaForCausalLM(nn.Module):
         ``quantize_net``). Tied with a quantized table and at most
         ``gemv_max_m()`` rows: the table streams through K3 (int8) or K4
         (packed int4, chosen by its uint8 dtype) and the logits are sliced
-        back to the vocab in h's dtype; otherwise h multiplies the
-        embedding table in their promoted dtype."""
+        back to the vocab in h's dtype, unless autograd records a training
+        forward (train mode, grad enabled, outside ``predict_mode``); then,
+        and without a table, h multiplies the embedding table in their
+        promoted dtype."""
         if self.lm_head is not None:
             return self.lm_head(h)
         from ..ops.int8_gemv import gemv_max_m, weight_matmul
         q = self._q_lm_head
         lead = h.shape[:-1]
         n = h.numel() // h.shape[-1]
-        if q is not None and n <= gemv_max_m():
+        # K3/K4 have no backward: a recorded training forward differentiates
+        # the float table; every serving path runs under no_grad
+        recording = self.training and torch.is_grad_enabled() and not is_predicting()
+        if q is not None and not recording and n <= gemv_max_m():
             w_q, scale, V = q
             y = weight_matmul(h.reshape(n, h.shape[-1]), w_q, scale)
             return y.reshape(*lead, w_q.shape[0])[..., :V].to(h.dtype)

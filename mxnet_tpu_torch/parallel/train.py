@@ -3,35 +3,48 @@
 
 The JAX package compiles forward, backward and the optimizer update into
 one XLA executable. The port runs them eagerly: forward and
-``loss.backward()`` through the model (for GPT, K1 and K2 carry the
-attention), then the optimizer's pure ``update_step`` on every trainable
-parameter, written back in place under ``torch.no_grad()``. The loss is
-``mean(loss_fn(net(*inputs), *labels))``; the step counter ``t`` starts at
-1 and the learning rate is read once per step, as in the JAX package.
-Step ``t``'s dropout masks draw from ``KeySupply(key(t))`` (site k gets
-``fold_in(key(t), k)``), the JAX package's per-step seed, so a model at
-the default dropout trains on the JAX package's masks. The keys are hashed
-on the host and reach the mask kernels as scalars; a captured step would
-take a device base key, which ``KeySupply`` folds on the device.
+``loss.backward()`` through the model (for GPT and Llama, K1 and K2 carry
+the attention at T >= 256), then the optimizer's pure ``update_step`` on
+every trainable parameter, written back in place under
+``torch.no_grad()``. The loss is ``mean(loss_fn(net(*inputs), *labels))``;
+the step counter ``t`` starts at 1 and the learning rate is read once per
+step, as in the JAX package. Step ``t``'s dropout masks draw from
+``KeySupply(key(t))`` (site k gets ``fold_in(key(t), k)``), the JAX
+package's per-step seed, so a model at the default dropout trains on the
+JAX package's masks. The keys are hashed on the host and reach the mask
+kernels as scalars; a captured step would take a device base key, which
+``KeySupply`` folds on the device.
 
     step = parallel.TrainStep(net, SoftmaxCrossEntropyLoss(),
                               optimizer.Adam(learning_rate=1e-4),
                               example_inputs=[ids])
     loss = step(ids, labels)            # one step
     loss = step.run(ids, labels, 10)    # ten steps, returns the last loss
+    for ids, labels in batches:         # block_every=2: at most 2 steps
+        step.step(ids, labels)          # in flight on the card
+    step.drain()
 
-Sharding (``mesh``), ZeRO (``zero``, ``compression_params``), numeric
-health (``health``), rematerialisation (``remat``) and the dispatch window
-(``block_every``) are not ported yet and raise.
+``remat=True`` recomputes the model's forward in the backward
+(``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` over the
+whole apply). ``block_every=W`` bounds :meth:`TrainStep.step`'s run-ahead
+on the card. The training metric families (``mxnet_step_time_seconds``,
+``mxnet_examples_total``, ``mxnet_examples_per_sec``,
+``mxnet_pipeline_depth``) are observed as in the JAX package. Sharding
+(``mesh``), ZeRO (``zero``, ``compression_params``) and numeric health
+(``health``) are not ported yet and raise.
 """
 from __future__ import annotations
 
+import time
+from collections import deque
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import _prng
+from .. import metrics as _metrics
 from .. import optimizer as opt_mod
 from .._random import KeySupply
 from ..base import MXNetError
@@ -81,20 +94,45 @@ def apply_updates(opt, params, states, lr_wd_t, rescale, grads=None):
 
 class TrainStep:
     def __init__(self, net, loss_fn, optimizer, example_inputs: Sequence,
-                 mesh=None, remat: bool = False, block_every: Optional[int] = None,
-                 zero: int = 0, compression_params: Optional[dict] = None,
-                 health: bool = False):
-        """``example_inputs`` is taken for the JAX signature: the port runs
-        eagerly, so nothing is traced from it. Switches ``net`` to training
-        mode (the JAX package traces the step with ``training=True``)."""
+                 example_labels=None, mesh=None, data_spec=None, label_spec=None,
+                 donate: bool = True, loss_has_aux: bool = False, remat: bool = False,
+                 block_every: Optional[int] = None, zero: int = 0,
+                 compression_params: Optional[dict] = None, health: bool = False,
+                 health_config=None):
+        """The JAX package's signature. ``example_inputs`` and
+        ``example_labels`` are taken for it: the port runs eagerly, so
+        nothing is traced from them. ``data_spec`` and ``label_spec`` place
+        batches on a mesh and ``donate`` donates buffers to an executable:
+        without a mesh and in eager PyTorch they mean nothing, so they are
+        accepted and ignored. ``loss_has_aux`` is accepted and unused, as
+        in the JAX package; ``health_config`` is read only with
+        ``health=True``, which raises.
+
+        ``remat=True`` recomputes the model's forward during the backward
+        instead of keeping its activations: the JAX package's
+        ``jax.checkpoint`` over the whole apply, here
+        ``torch.utils.checkpoint`` (non-reentrant) around ``net(*inputs)``.
+        The recomputed forward enters step t's ``KeySupply(key(t))``
+        afresh, so its dropout sites draw the forward's keys; losses and
+        parameters are those of ``remat=False`` bit for bit.
+
+        ``block_every=W`` bounds :meth:`step`'s run-ahead: at most W steps
+        stay in flight on the card, and the W+1-th ``step()`` waits on the
+        oldest step's CUDA event. ``None`` leaves :meth:`step` unbounded.
+
+        Switches ``net`` to training mode (the JAX package traces the step
+        with ``training=True``)."""
         for flag, name in ((mesh is not None, "mesh"), (bool(zero), "zero"),
                            (bool(compression_params), "compression_params"),
-                           (health, "health"), (remat, "remat"),
-                           (block_every is not None, "block_every")):
+                           (health, "health")):
             if flag:
                 raise MXNetError(f"TrainStep({name}=...) {_LATER}")
+        if block_every is not None and block_every < 1:
+            raise MXNetError(f"block_every must be >= 1, got {block_every}")
         self.net = net.train()
         self.loss_fn = loss_fn
+        self.remat = remat
+        self.block_every = block_every
         self.optimizer = optimizer if isinstance(optimizer, opt_mod.Optimizer) \
             else opt_mod.create(optimizer)
         self._params = trainable(net)
@@ -103,9 +141,20 @@ class TrainStep:
                         for i, (_, p) in enumerate(self._params)]
         self._device = self._params[0][1].device if self._params else torch.device("cpu")
         self._step = 0
+        # CUDA events of the steps dispatched by step() and not yet waited
+        # on; with no window only the most recent 8 are kept (the card runs
+        # a stream's work in order, so a later event implies the earlier)
+        self._inflight: deque = deque(maxlen=None if block_every else 8)
 
-    def _loss(self, inputs, labels):
-        outs = self.net(*inputs)
+    def _apply(self, inputs, t):
+        with KeySupply(_prng.key(t)):
+            return self.net(*inputs)
+
+    def _loss(self, inputs, labels, t):
+        if self.remat:
+            outs = checkpoint(self._apply, inputs, t, use_reentrant=False)
+        else:
+            outs = self._apply(inputs, t)
         loss = self.loss_fn(outs) if labels is None else self.loss_fn(outs, *labels)
         return loss.mean()
 
@@ -117,8 +166,7 @@ class TrainStep:
         lr = opt.learning_rate          # read once per step
         for _, p in self._params:
             p.grad = None
-        with KeySupply(_prng.key(t)):
-            loss = self._loss(inputs, labels)
+        loss = self._loss(inputs, labels, t)
         loss.backward()
         apply_updates(opt, self._params, self._states,
                       lambda i: (opt._get_lr(i, lr), opt._get_wd(i), t), opt.rescale_grad)
@@ -143,22 +191,65 @@ class TrainStep:
     def __call__(self, inputs, labels=None):
         """One step: updates the parameters and optimizer state in place and
         returns the scalar loss (in the loss's dtype; not synchronised)."""
-        return self._one(_as_tensors(inputs, self._device),
-                         _as_tensors(labels, self._device))
+        t0 = time.perf_counter() if _metrics.ENABLED else None
+        out = self._one(_as_tensors(inputs, self._device), _as_tensors(labels, self._device))
+        if t0 is not None:
+            _observe_step(inputs, time.perf_counter() - t0, 1, "train_step")
+        return out
 
     def step(self, inputs, labels=None):
-        """The same step as :meth:`__call__`: PyTorch queues the work on the
-        card and returns without waiting, so there is no separate lazy
-        window to manage."""
-        return self(inputs, labels)
+        """The step of :meth:`__call__`, with its completion tracked: on the
+        card a CUDA event is recorded after it, and with ``block_every=W``
+        the host waits on the oldest event while more than W are in flight.
+        The same steps in the same order as ``__call__``, so the same
+        results; only the host's waits move. Call :meth:`drain` after the
+        loop. On the CPU a step has finished when it returns: nothing stays
+        in flight."""
+        out = self(inputs, labels)
+        if out.is_cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(out.device))
+            self._inflight.append(ev)
+        w = self.block_every
+        while w and len(self._inflight) > w:
+            self._inflight.popleft().synchronize()
+        if _metrics.ENABLED:
+            _metrics.PIPELINE_DEPTH.labels(path="train_step").set(len(self._inflight))
+        return out
+
+    def drain(self):
+        """Wait until every step dispatched through :meth:`step` has run on
+        the card (the end-of-epoch / pre-checkpoint barrier)."""
+        while self._inflight:
+            self._inflight.popleft().synchronize()
+        if _metrics.ENABLED:
+            _metrics.PIPELINE_DEPTH.labels(path="train_step").set(0)
 
     def run(self, inputs, labels=None, steps: int = 1):
         """``steps`` steps on the same batch, looped in Python. The step
         counter advances per step, so momentum and Adam's bias correction
         match ``steps`` separate calls. Returns the last loss in f32."""
-        inputs = _as_tensors(inputs, self._device)
+        if steps == 1:
+            return self(inputs, labels).float()
+        t0 = time.perf_counter() if _metrics.ENABLED else None
+        ins = _as_tensors(inputs, self._device)
         labels = _as_tensors(labels, self._device)
         loss = None
         for _ in range(steps):
-            loss = self._one(inputs, labels)
+            loss = self._one(ins, labels)
+        if t0 is not None:
+            _observe_step(inputs, time.perf_counter() - t0, steps, "train_step_multi")
         return loss.float()
+
+
+def _observe_step(inputs, dt: float, steps: int, path: str):
+    """Step-time histogram and examples throughput (host wall time; the
+    card runs asynchronously, so an unsynchronised step reads as its
+    dispatch time), as the JAX package's ``TrainStep._observe_step``."""
+    _metrics.STEP_TIME.labels(path=path).observe(dt)
+    x0 = inputs[0] if isinstance(inputs, (tuple, list)) else inputs
+    shape = getattr(x0, "shape", ())
+    examples = (shape[0] if shape else 1) * steps
+    _metrics.EXAMPLES.labels(path=path).inc(examples)
+    if dt > 0:
+        _metrics.EXAMPLES_PER_SEC.labels(path=path).set(examples / dt)

@@ -995,10 +995,13 @@ class InferenceEngine:
                 ("table", (1, self.maxp), torch.int32)])
         io = self._chunk_io
         ids = io.ids[:pb].reshape(1, pb)
+        # the stored step holds no reference to the engine: a cycle through
+        # self._chunks would keep the model's device memory until the
+        # collector runs
+        model, pools = self.model, self._pools
 
         def fn():
-            hidden, _ = _gen.decode_step_hidden(self.model, ids, io.pos, self._pools,
-                                                io.table)
+            hidden, _ = _gen.decode_step_hidden(model, ids, io.pos, pools, io.table)
             return hidden
 
         def safe(io):

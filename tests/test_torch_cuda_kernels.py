@@ -1473,3 +1473,111 @@ def test_head_sampler_at_llama_vocab(cuda, bits, vocab):
                 if out is not None:
                     logits = logits.to(out).float()
                 assert torch.equal(got.long(), logits.argmax(-1)), hd
+
+
+# ---------------------------------------------------------------------------
+# Llama training (K1/K2 at head dim 128, LlamaMoE, the TrainStep window)
+# ---------------------------------------------------------------------------
+def _llama_train_cfg(dtype, **kw):
+    from mxnet_tpu_torch.models import LlamaConfig
+    kw = dict(dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+                   num_heads=2, num_kv_heads=1), **kw)
+    return LlamaConfig(dtype=dtype, **kw)
+
+
+def test_moe_llama_train_step_on_card_equals_cpu(cuda):
+    """A small MoE Llama (layer 0 routes over 4 experts, top 2; head dim
+    128) trains 2 f32 SGD steps on the card and on the CPU port from the
+    same weights: every (token, choice) pair's expert and slot equal, each
+    step's gradients leaf by leaf and the parameters after within
+    chip_smoke.py's card/CPU gates."""
+    import types
+
+    from mxnet_tpu_torch.interop import params_from_numpy, params_to_numpy
+    from mxnet_tpu_torch.models import LlamaForCausalLM
+    args = types.SimpleNamespace(seed=0)
+    cfg = _llama_train_cfg(torch.float32, num_experts=4, num_experts_per_tok=2, moe_every=2)
+    cpu = LlamaForCausalLM(cfg, device="cpu").init_weights(1)
+    card = params_from_numpy(LlamaForCausalLM(cfg, device="cuda"), params_to_numpy(cpu))
+    lc, gc, rc, pc = chip_smoke.small_sgd_steps(torch, args, card, 2)
+    lh, gh, rh, ph = chip_smoke.small_sgd_steps(torch, args, cpu, 2)
+    bad, logit_diff, margin = chip_smoke.route_diffs(torch, rc, rh)
+    assert bad == 0, (logit_diff, margin)
+    assert all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(lc, lh))
+    for got, want in zip(gc, gh):
+        err = chip_smoke.worst(chip_smoke.leaf_errors(got, want))
+        assert err["rel_l2"] <= chip_smoke.CARD_CPU_GRAD_TOL, err
+    assert max(float(abs(pc[n] - ph[n]).max()) for n in ph) <= chip_smoke.CARD_CPU_PARAM_TOL
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_llama_train_step_launches_k1_k2_at_head_dim_128(cuda, remat):
+    """A bf16 Llama with heads of 128 at T 256: each TrainStep launches K1
+    and K2 once per layer (K1 twice with ``remat=True``: the recomputed
+    forward), and never the plain attention; the loss falls."""
+    from mxnet_tpu_torch import optimizer, parallel
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import LlamaForCausalLM
+    net = LlamaForCausalLM(_llama_train_cfg(torch.bfloat16), device="cuda").init_weights(2)
+    ids = torch.randint(0, 512, (2, 256), generator=torch.Generator().manual_seed(3))
+    step = parallel.TrainStep(net, SoftmaxCrossEntropyLoss(axis=-1),
+                              optimizer.Adam(learning_rate=1e-3), [ids], remat=remat)
+    losses = []
+    for _ in range(3):
+        int8_gemv.reset_launches()
+        losses.append(float(step(ids, ids)))
+        torch.cuda.synchronize()
+        counts = int8_gemv.launches()
+        assert counts.get("flash_fwd", 0) == (4 if remat else 2), counts
+        assert counts.get("flash_bwd", 0) == 2, counts
+    assert losses[-1] < losses[0]
+
+
+def test_train_step_window_keeps_at_most_block_every_in_flight(cuda):
+    """``step()`` with ``block_every=2``: after every call at most 2 steps
+    are in flight (CUDA events not yet waited on), ``drain()`` empties the
+    window, and the steps are ``__call__``'s, bit for bit."""
+    from mxnet_tpu_torch import optimizer, parallel
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import LlamaForCausalLM
+    nets = [LlamaForCausalLM(_llama_train_cfg(torch.float32), device="cuda").init_weights(4)
+            for _ in range(2)]
+    ids = torch.randint(0, 512, (2, 256), generator=torch.Generator().manual_seed(5))
+    steps = [parallel.TrainStep(n, SoftmaxCrossEntropyLoss(axis=-1), optimizer.SGD(
+        learning_rate=0.1), [ids], block_every=w) for n, w in zip(nets, (None, 2))]
+    depths, got, want = [], [], []
+    for _ in range(6):
+        want.append(steps[0](ids, ids))
+        got.append(steps[1].step(ids, ids))
+        depths.append(len(steps[1]._inflight))
+    assert max(depths) <= 2 and depths[-1] >= 1, depths
+    steps[1].drain()
+    assert len(steps[1]._inflight) == 0
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for p, q in zip(*(n.parameters() for n in nets)):
+        assert torch.equal(p, q)
+
+
+def test_trained_tied_llama_serves_its_head_through_k3(cuda):
+    """A tied bf16 Llama trained 2 Adam steps through ``TrainStep`` (which
+    leaves it in train mode), then ``quantize_net``: ``generate`` launches
+    K3 over the head's vocab-padded table at the prefill and at every
+    decode step (vocab 640, a width no other matrix of the model has)."""
+    from mxnet_tpu_torch import optimizer, parallel
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import LlamaForCausalLM
+    net = LlamaForCausalLM(_llama_train_cfg(torch.bfloat16, vocab_size=640,
+                                            tie_embeddings=True), device="cuda").init_weights(6)
+    ids = torch.randint(0, 640, (2, 256), generator=torch.Generator().manual_seed(7))
+    step = parallel.TrainStep(net, SoftmaxCrossEntropyLoss(axis=-1),
+                              optimizer.Adam(learning_rate=1e-3), [ids])
+    for _ in range(2):
+        step(ids, ids)
+    assert net.training
+    quantize_net(net, bits=8)
+    int8_gemv.reset_launches()
+    gen.generate(net, ids[:, :8], 4)
+    torch.cuda.synchronize()
+    head = sum(n for key, n in int8_gemv.gemv_widths().items()
+               if key.endswith(f":{fb.pad_vocab(640)}"))
+    assert head >= 4, int8_gemv.gemv_widths()

@@ -281,10 +281,170 @@ def test_parameters_trainable_and_dropout_rule():
     assert torch.equal(Dropout(0.0).train()(x), x)
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"zero": 1}, {"remat": True},
-                                {"health": True}, {"block_every": 2},
+@pytest.mark.parametrize("kw", [{"mesh": object()}, {"zero": 1}, {"health": True},
                                 {"compression_params": {"type": "int8"}}])
 def test_train_step_unported_options_raise(kw):
     net = GPTModel(GPTConfig(**CFG), device="cpu")
-    with pytest.raises(MXNetError, match="not ported yet"):
+    with pytest.raises(MXNetError, match="not ported yet.*Queue 1 item 8"):
         parallel.TrainStep(net, SoftmaxCELoss(), "sgd", example_inputs=[], **kw)
+
+
+def test_train_step_signature_matches_jax():
+    """The JAX package's parameter names in its order, with its defaults,
+    so a JAX call passes each argument where JAX would take it."""
+    import inspect
+    want = inspect.signature(jparallel.TrainStep.__init__).parameters
+    got = inspect.signature(parallel.TrainStep.__init__).parameters
+    assert list(got) == list(want)
+    for name, p in want.items():
+        assert got[name].default == p.default, name
+
+
+def test_train_step_takes_example_labels_positionally():
+    """``TrainStep(net, loss, opt, [ids], [labels])``, as a JAX program
+    writes it: the labels are ``example_labels``, and the step trains as
+    one built with keywords does, bit for bit; ``data_spec``,
+    ``label_spec``, ``donate`` and ``loss_has_aux`` are accepted."""
+    jnet = _jax_net()
+    a, b = _port_net(jnet), _port_net(jnet)
+    ids, labels = _batch(4)
+    sa = parallel.TrainStep(a, SoftmaxCELoss(), optimizer.Adam(learning_rate=1e-3),
+                            [ids], [labels])
+    sb = parallel.TrainStep(b, SoftmaxCELoss(), optimizer.Adam(learning_rate=1e-3),
+                            example_inputs=[ids], data_spec=None, label_spec=None,
+                            donate=False, loss_has_aux=False)
+    for _ in range(2):
+        assert torch.equal(sa(ids, labels), sb(ids, labels))
+    for (n, p), q in zip(a.named_parameters(), b.parameters()):
+        assert torch.equal(p, q), n
+
+
+class _SupplyOutsideTheRecompute(parallel.TrainStep):
+    """A planted fault: step t's key supply around the whole loss, as
+    before remat, so the backward's recompute runs outside it and its
+    dropout sites draw other masks than the forward's."""
+
+    def _loss(self, inputs, labels, t):
+        from torch.utils.checkpoint import checkpoint
+        from mxnet_tpu_torch import _prng
+        from mxnet_tpu_torch._random import KeySupply
+        with KeySupply(_prng.key(t)):
+            outs = checkpoint(lambda *x: self.net(*x), *inputs, use_reentrant=False)
+            return self.loss_fn(outs, *labels).mean()
+
+
+def test_train_step_remat_is_bitwise_plain_at_dropout():
+    """GPT at dropout 0.1 (25 sites' masks a step): ``remat=True`` gives
+    ``remat=False``'s losses, parameters and Adam states bit for bit over 3
+    steps, because the recompute enters step t's ``KeySupply(key(t))``
+    afresh; a recompute outside the step's supply changes the gradients."""
+    jnet = _jax_net()
+    cfg = dict(CFG, dropout=0.1)
+    named = {n: p.data().asnumpy() for n, p in jnet.collect_params().items()}
+    nets = [params_from_numpy(GPTModel(GPTConfig(**cfg), device="cpu"), named)
+            for _ in range(3)]
+    ids, labels = _batch(5)
+    steps = [cls(net, SoftmaxCELoss(), optimizer.Adam(learning_rate=1e-3), [ids], **kw)
+             for cls, net, kw in ((parallel.TrainStep, nets[0], {}),
+                                  (parallel.TrainStep, nets[1], {"remat": True}),
+                                  (_SupplyOutsideTheRecompute, nets[2], {}))]
+    for _ in range(STEPS):
+        want, got, _ = (s(ids, labels) for s in steps)
+        assert torch.equal(got, want)
+    for (n, p), q in zip(nets[0].named_parameters(), nets[1].parameters()):
+        assert torch.equal(p, q), n
+    for s, r in zip(steps[0]._states, steps[1]._states):
+        assert all(torch.equal(x, y) for x, y in zip(s, r))
+    assert _max_param_diff_nets(nets[0], nets[2]) > 0
+
+
+@torch.no_grad()
+def _max_param_diff_nets(a, b):
+    return max(float((p - q).abs().max()) for p, q in zip(a.parameters(), b.parameters()))
+
+
+def test_train_step_window_step_and_drain():
+    """``step()`` runs ``__call__``'s steps (the same losses and parameters
+    bit for bit); on the CPU a step has finished when it returns, so the
+    window stays empty, ``drain()`` returns at once, and
+    ``mxnet_pipeline_depth{path="train_step"}`` reads 0; ``block_every <
+    1`` raises with the JAX package's words."""
+    from mxnet_tpu.base import MXNetError as JaxMXNetError
+    from mxnet_tpu_torch import metrics
+    jnet = _jax_net()
+    a, b = _port_net(jnet), _port_net(jnet)
+    ids, labels = _batch(6)
+    sa = parallel.TrainStep(a, SoftmaxCELoss(), "sgd", [ids])
+    sb = parallel.TrainStep(b, SoftmaxCELoss(), "sgd", [ids], block_every=2)
+    was = metrics.enabled()
+    metrics.enable()
+    try:
+        for _ in range(3):
+            assert torch.equal(sb.step(ids, labels), sa(ids, labels))
+            assert len(sb._inflight) == 0
+        sb.drain()
+        assert metrics.get_sample_value("mxnet_pipeline_depth", {"path": "train_step"}) == 0
+    finally:
+        (metrics.enable if was else metrics.disable)()
+    for (n, p), q in zip(a.named_parameters(), b.parameters()):
+        assert torch.equal(p, q), n
+    with pytest.raises(JaxMXNetError) as jerr:
+        jparallel.TrainStep(jnet, JaxCELoss(), "sgd", [mnp.array(ids)], block_every=0)
+    with pytest.raises(MXNetError) as terr:
+        parallel.TrainStep(a, SoftmaxCELoss(), "sgd", [ids], block_every=0)
+    assert str(terr.value) == str(jerr.value)
+
+
+def test_train_step_metric_families_match_jax():
+    """The same calls on both packages' ``TrainStep`` (2 ``__call__``, a
+    3-step ``run``, 2 windowed ``step`` then ``drain``) with metrics on:
+    ``mxnet_step_time_seconds``, ``mxnet_examples_total``,
+    ``mxnet_examples_per_sec`` and ``mxnet_pipeline_depth`` show the same
+    samples (names and labels) in the exposition, the same examples and
+    step counts per path, and the same window depth."""
+    from mxnet_tpu import metrics as jm
+    from mxnet_tpu_torch import metrics as tm
+    jnet = _jax_net()
+    tnet = _port_net(jnet)
+    ids, labels = _batch(7)
+    fams = ("mxnet_step_time_seconds", "mxnet_examples_total", "mxnet_examples_per_sec",
+            "mxnet_pipeline_depth")
+
+    def drive(step, x, y):
+        for _ in range(2):
+            step(x, y)
+        step.run(x, y, 3)
+        for _ in range(2):
+            step.step(x, y)
+        step.drain()
+
+    was = (jm.enabled(), tm.enabled())
+    for mod in (jm, tm):
+        mod.reset()
+        mod.enable()
+    try:
+        drive(jparallel.TrainStep(jnet, JaxCELoss(), "sgd", [mnp.array(ids)], block_every=2),
+              mnp.array(ids), mnp.array(labels))
+        drive(parallel.TrainStep(tnet, SoftmaxCELoss(), "sgd", [ids], block_every=2),
+              ids, labels)
+
+        def samples(mod):
+            out = {}
+            for line in mod.expose().splitlines():
+                name = line.split("{")[0].split(" ")[0]
+                if not line.startswith("#") and any(name.startswith(f) for f in fams):
+                    key, value = line.rsplit(" ", 1)
+                    out[key] = value
+            return out
+        js, ts = samples(jm), samples(tm)
+        assert set(ts) == set(js)
+        for key in js:
+            if key.startswith(("mxnet_examples_total", "mxnet_pipeline_depth")) \
+                    or key.startswith("mxnet_step_time_seconds_count"):
+                assert ts[key] == js[key], key
+        assert float(ts['mxnet_examples_total{path="train_step"}']) == 4 * B
+        assert float(ts['mxnet_examples_total{path="train_step_multi"}']) == 3 * B
+    finally:
+        for mod, on in zip((jm, tm), was):
+            mod.reset()
+            (mod.enable if on else mod.disable)()

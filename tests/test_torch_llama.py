@@ -11,7 +11,8 @@ stacked decoder against the per-layer one, ``generate``, the serving
 engine in both layouts with both decoders, ``quantize_net`` int8 and int4
 (untied and tied: tables bit for bit, the tied head through K8's plain
 version), the cache-spec refusals, the unported options, and the
-parameter names both ways. The CUDA kernels on this path are held against
+parameter names both ways. Training and the MoE layers are held in
+``tests/test_torch_llama_train.py``. The CUDA kernels on this path are held against
 these plain versions in ``tests/test_torch_cuda_kernels.py``."""
 import dataclasses
 
@@ -349,10 +350,14 @@ def test_cache_spec_refusals(field, value, words):
                                               **dict(TINY, **{field: value})))
     with pytest.raises(JaxMXNetError) as jerr:
         jnet.cache_spec(1, 8)
-    # the port builds no MoE layer (not ported yet): the refusal is read
-    # from the config of a dense model
+    # a real MoE model; sp_mesh and pp_mesh are read from the config of a
+    # flash-attention model (their attention and schedule are not ported)
     cfg = TL.LlamaConfig(dtype=torch.float32, **TINY)
+    if field == "num_experts":
+        setattr(cfg, field, value)
     tnet = TL.LlamaForCausalLM(cfg, device="cpu")
+    if field == "num_experts":
+        assert isinstance(tnet.model.layers[0].mlp, TL.LlamaMoE)
     setattr(cfg, field, value)
     for call in (lambda: tnet.cache_spec(1, 8), lambda: tnet.cache_spec_paged(4, 8)):
         with pytest.raises(MXNetError) as terr:
@@ -365,11 +370,12 @@ def test_cache_spec_refusals(field, value, words):
 
 
 def test_unported_options_raise():
-    """MoE layers, ring/Ulysses attention and GPipe raise naming ROADMAP
-    Queue 1 item 8; the stacked decoder's own refusals keep JAX's words."""
-    with pytest.raises(MXNetError, match="Queue 1 item 8"):
-        TL.LlamaForCausalLM(TL.LlamaConfig(dtype=torch.float32, num_experts=4, **TINY),
-                            device="cpu")
+    """Ring/Ulysses attention and GPipe raise naming ROADMAP Queue 1 item 8;
+    an MoE model builds (its MoE layers are ported); the stacked decoder's
+    own refusals keep JAX's words."""
+    moe = TL.LlamaForCausalLM(TL.LlamaConfig(dtype=torch.float32, num_experts=4, **TINY),
+                              device="cpu")
+    assert all(isinstance(layer.mlp, TL.LlamaMoE) for layer in moe.model.layers)
     with pytest.raises(MXNetError, match="does not support MoE"):
         TL.LlamaForCausalLM(TL.LlamaConfig(dtype=torch.float32, num_experts=4,
                                            stacked=True, **TINY), device="cpu")

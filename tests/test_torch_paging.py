@@ -274,6 +274,31 @@ def test_chunked_prefill_interleaves_with_decode(nets):
     assert contiguous == got
 
 
+def test_dropped_paged_engine_is_freed_without_the_collector(nets):
+    """A paged engine that ran chunked prefills holds no reference cycle:
+    once shut down and dropped, reference counting alone frees it and its
+    KV pools (a cycle would hold their device memory until Python's
+    collector runs)."""
+    import gc
+    import weakref
+    _, tnet = nets
+    gc.collect()
+    gc.disable()
+    try:
+        eng = InferenceEngine(tnet, max_batch_size=2, max_len=MAXPOS, paged=True,
+                              page_size=8, prefill_chunk=8).start()
+        try:
+            assert eng.generate(_prompts([20], seed=3)[0], 3, timeout=120).ok
+            assert eng.stats()["prefill_chunks"] > 1
+        finally:
+            eng.shutdown(drain=True, timeout=120)
+        refs = [weakref.ref(eng)] + [weakref.ref(p) for p in eng._pools]
+        del eng
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
+
+
 def test_paged_is_the_card_default(nets):
     """``paged=None`` follows JAX: paged on the card when max_len is a page
     multiple, contiguous on the CPU (or when it is not)."""
