@@ -228,6 +228,30 @@
    (d)'s model: the same losses and parameters bit for bit; at (a)'s shape
    the peak memory of a step with and without remat.
 
+11. ``vision_train``: the conv path. (a) ResNet-50 v1 in ``bench.py``'s
+   ``bench_resnet50`` configuration: ``get_model("resnet50_v1",
+   classes=1000, layout="NHWC")``, ``Xavier()``,
+   ``amp.convert_hybrid_block(net, "bfloat16")``, B 128 bf16 images of
+   224 x 224 and labels from ``--seed``, ``TrainStep(net,
+   SoftmaxCrossEntropyLoss(), SGD(learning_rate=0.05, momentum=0.9),
+   [images])``, 10 steps: finite losses, the last below the first, each
+   of the 16 bottleneck blocks one ``npx.fused_resnet_block`` and the stem
+   one space-to-depth rewrite every step, every running mean moved; ms a
+   step (median after the first), images/s, MFU against the bf16 peak
+   (FLOPs from the built model's conv and dense shapes), peak memory and
+   one profiled step split into conv fprop, dgrad and wgrad, BN / ReLU
+   elementwise work, the SGD update and the rest. (b) That net in
+   inference, eager and hybridized with ``static_alloc=True``: replayed
+   logits equal the eager ones within one bf16 step at the largest, images/s
+   of each. (c) Thumbnail ResNet-18 in f32, NHWC and its NCHW twin from the
+   same weights, 2 SGD steps on the card and on the CPU: gradients leaf
+   by leaf within VT_CARD_CPU_GRAD_TOL, parameters and running statistics
+   within VT_CARD_CPU_PARAM_TOL, NHWC against NCHW within the same. (d) ViT-B/16 at 384 (T 577), bf16 through AMP, B 32,
+   5 Adam steps: K1 and K2 first timed at its attention shape against
+   their plain versions and SDPA; finite falling losses, K1 and K2 each 12
+   times a step and the plain attention never. The phase starts only with
+   at most LT_HELD_GB still allocated.
+
 Informational JSON lines come first; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without that line. It needs one CUDA card and refuses to
@@ -4518,6 +4542,425 @@ def llama_train(torch, args, timer, gen):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the conv path (ResNet-50 training, hybridized inference, card
+# against CPU) and ViT-B/16 at 384 through K1/K2
+# ---------------------------------------------------------------------------
+
+# (a) bench.py's bench_resnet50: resnet50_v1, NHWC, bf16 through AMP, B 128
+# at 224 x 224, SGD lr 0.05 momentum 0.9
+VT_B, VT_HW, VT_STEPS, VT_LR, VT_MOMENTUM = 128, 224, 10, 0.05, 0.9
+# (c) card against CPU in f32: thumbnail ResNet-18, 10 classes, 32 x 32,
+# two SGD-momentum steps at VT_CPU_LR (at 1e-4 one step takes the loss
+# from 2.40 to 0.22 and the second step's gradients sit 0.08 apart, card
+# against CPU; at 1e-5 to 1.95). BatchNorm's f32 E[y^2] - mean^2 alone
+# puts the CPU's step-1 gradients up to 1.3e-2 (relative L2, a leaf) from
+# an f64 two-pass reference. The H100 read 1.27e-2 and 2.53e-2 (steps 1
+# and 2, card against CPU), parameters 1.12e-6 (max abs), and NHWC
+# against NCHW on the card 3.6e-3 and 1.8e-7. Tolerances about 10x the
+# card against the CPU, for all three pairs
+VT_CPU_B, VT_CPU_HW, VT_CPU_STEPS, VT_CPU_LR = 8, 32, 2, 1e-5
+VT_CARD_CPU_GRAD_TOL = 0.25
+VT_CARD_CPU_PARAM_TOL = 1e-5
+# (d) ViT-B/16 at 384 (T 577), bf16 through AMP, B 32, Adam
+VIT_B, VIT_HW, VIT_STEPS, VIT_LR = 32, 384, 5, 1e-4
+VT_SPLIT = ("conv_fprop", "conv_dgrad", "conv_wgrad", "bn_relu_elementwise", "sgd_update",
+            "other")
+
+
+def conv_class(name):
+    """A ResNet training kernel's class by its name: a convolution's
+    forward, data-gradient or weight-gradient kernel (cuDNN's names), the
+    elementwise and reduction kernels (BN statistics, normalize, ReLU,
+    residual adds, BN's backward), or ``other``."""
+    low = name.lower()
+    if "wgrad" in low:
+        return "conv_wgrad"
+    if "dgrad" in low:
+        return "conv_dgrad"
+    if any(w in low for w in ("fprop", "conv", "implicit_gemm", "xmma", "cutlass")):
+        return "conv_fprop"
+    if any(w in low for w in ("elementwise", "reduce", "batch_norm")):
+        return "bn_relu_elementwise"
+    return "other"
+
+
+def resnet_flops(net, hw, batch):
+    """Training FLOPs of one step of a ResNet V1 from its built shapes: 2 x
+    kh x kw x C_in / groups x C_out x H_out x W_out per conv (the stem
+    counted as its 7 x 7 / 2 conv, whatever route runs it) and 2 x in x out
+    per dense, per image, x 3 for forward and backward."""
+    from mxnet_tpu_torch.gluon import nn
+
+    def conv(c, h):
+        (kh, kw), (sh, sw), (ph, pw) = c._kernel, c._strides, c._padding
+        ho, wo = (h[0] + 2 * ph - kh) // sh + 1, (h[1] + 2 * pw - kw) // sw + 1
+        cin = c.weight.shape[-1] * c._groups
+        return 2 * kh * kw * cin // c._groups * c._channels * ho * wo, (ho, wo)
+
+    total, h = 0, (hw, hw)
+    for child in net.features:
+        if isinstance(child, nn.Conv2D):
+            f, h = conv(child, h)
+            total += f
+        elif isinstance(child, nn.MaxPool2D):
+            k, s, p = child._size[0], child._strides[0], child._padding[0]
+            h = ((h[0] + 2 * p - k) // s + 1, (h[1] + 2 * p - k) // s + 1)
+        elif isinstance(child, nn.HybridSequential):
+            for block in child:
+                body = [c for c in block.body if isinstance(c, nn.Conv2D)]
+                hb = h
+                for c in body:
+                    f, hb = conv(c, hb)
+                    total += f
+                if block.downsample is not None:
+                    total += conv(block.downsample[0], h)[0]
+                h = hb
+    w = net.output.weight.shape
+    total += 2 * w[0] * w[1]
+    return 3 * batch * total
+
+
+def resnet_split(torch, step, images, labels):
+    """One step under ``torch.profiler`` (device activity): device ms of
+    the convolutions' forward, data-gradient and weight-gradient kernels
+    (by kernel name), of the SGD update (``apply_updates``, between CUDA
+    events), of the BN / ReLU elementwise and reduction kernels (by name,
+    less the update's, which are elementwise too) and of the rest."""
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch.parallel import train as tr
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    real_apply = tr.apply_updates
+
+    def apply_updates(*a, **k):
+        ev[0].record()
+        real_apply(*a, **k)
+        ev[1].record()
+    torch.cuda.synchronize()
+    tr.apply_updates = apply_updates
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(images, labels)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        tr.apply_updates = real_apply
+    spans = device_spans(prof)
+    if not spans:
+        return "not measured"
+    ms = dict.fromkeys(VT_SPLIT, 0.0)
+    for a, b, name in spans:
+        ms[conv_class(name)] += (b - a) / 1e3
+    ms["sgd_update"] = ev[0].elapsed_time(ev[1])
+    ms["bn_relu_elementwise"] -= ms["sgd_update"]
+    busy = busy_us(spans) / 1e3
+    by_name = {}
+    for a, b, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    by_class = {c: [[n[:100], t] for n, t in top if conv_class(n) == c][:3] for c in VT_SPLIT}
+    return {"wall_ms": wall, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
+            "device_ms": ms, "device_ops": len(spans),
+            "top_kernels_ms": [[name[:120], t] for name, t in top[:12]],
+            "top_kernels_by_class": by_class}
+
+
+def resnet_train(torch, args):
+    """(a) ResNet-50 v1 in bench_resnet50's configuration: 10 SGD steps on
+    one batch from ``--seed``. Gates: finite losses, the last below the
+    first, the fused route every step (each bottleneck block one
+    ``npx.fused_resnet_block``, the stem one s2d rewrite), the running
+    statistics moved. Returns (net, images, report)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, npx, optimizer, parallel
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+    mx.random.seed(args.seed)
+    t0 = time.perf_counter()
+    net = get_model("resnet50_v1", classes=1000, layout="NHWC")
+    net.initialize(mx.init.Xavier())
+    amp.convert_hybrid_block(net, "bfloat16")
+    rng = np.random.RandomState(args.seed)
+    images = torch.from_numpy(rng.rand(VT_B, VT_HW, VT_HW, 3).astype(np.float32))
+    images = images.to("cuda").bfloat16()
+    labels = torch.from_numpy(rng.randint(0, 1000, VT_B).astype(np.int32)).to("cuda")
+    step = parallel.TrainStep(net, SoftmaxCrossEntropyLoss(),
+                              optimizer.SGD(learning_rate=VT_LR, momentum=VT_MOMENTUM),
+                              [images])
+    build_s = time.perf_counter() - t0
+    n_blocks = sum(isinstance(b, resnet.BottleneckV1) for stage in net.features
+                   if hasattr(stage, "__iter__") for b in stage)
+    stats = {k: p for k, p in net.collect_params().items() if k.endswith("running_mean")}
+    before = {k: p.data()._data.clone() for k, p in stats.items()}
+    calls = {"block": 0, "stem": 0}
+    real_block, real_stem = npx.fused_resnet_block, resnet._stem_s2d
+
+    def block(*a, **k):
+        calls["block"] += 1
+        return real_block(*a, **k)
+
+    def stem(*a, **k):
+        calls["stem"] += 1
+        return real_stem(*a, **k)
+    npx.fused_resnet_block, resnet._stem_s2d = block, stem
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, per_step = [], [], []
+    try:
+        for _ in range(VT_STEPS):
+            calls.update(block=0, stem=0)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            loss = step(images, labels)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+            losses.append(loss.float().item())
+            per_step.append(dict(calls))
+    finally:
+        npx.fused_resnet_block, resnet._stem_s2d = real_block, real_stem
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = statistics.median(times[1:])
+    flops = resnet_flops(net, VT_HW, VT_B)
+    moved = sum(not torch.equal(before[k], p.data()._data) for k, p in stats.items())
+    split = resnet_split(torch, step, images, labels)
+    report = {"model": "resnet50_v1", "layout": "NHWC", "dtype": "bfloat16", "B": VT_B,
+              "hw": VT_HW, "optimizer": f"sgd lr {VT_LR} momentum {VT_MOMENTUM}",
+              "steps": VT_STEPS, "build_s": build_s, "losses": losses,
+              "step_ms": times, "ms_per_step": ms, "images_per_s": VT_B / ms * 1e3,
+              "flops_per_step": flops, "mfu": flops / (ms / 1e3) / BF16_FLOP_PER_S,
+              "peak_mem_gb": peak, "fused_calls_per_step": per_step,
+              "bottleneck_blocks": n_blocks, "running_means_moved": moved,
+              "running_means": len(stats), "profiled_step": split}
+    emit({"vision_train_resnet50": report})
+    check(all(math.isfinite(x) for x in losses), f"non-finite ResNet-50 loss: {losses}")
+    check(losses[-1] < losses[0], f"ResNet-50 loss did not fall: {losses}")
+    check(all(c == {"block": n_blocks, "stem": 1} for c in per_step),
+          f"the fused route was not taken every step: {per_step} ({n_blocks} blocks)")
+    check(moved == len(stats), f"{len(stats) - moved} running means did not move")
+    check(all(bool(torch.isfinite(p.data()._data).all()) for p in stats.values()),
+          "non-finite running statistics")
+    del step
+    return net, images, report
+
+
+def resnet_infer(torch, net, images):
+    """(b) (a)'s net in inference, eager and hybridized with
+    ``static_alloc=True`` (CUDA-graph replay from the second call): the
+    replayed logits equal the eager ones within the bf16 rounding of the
+    logits (one bf16 step at the largest logit), bitwise or not printed;
+    images/s of each."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.ndarray import NDArray
+    x = NDArray._new(images)
+    with autograd.predict_mode():
+        eager = net(x)._data.float()
+        eager_ms = event_ms(torch, lambda: net(x))
+        net.hybridize(static_alloc=True)
+        net(x)
+        replay = net(x)._data.float()
+        replay_ms = event_ms(torch, lambda: net(x))
+        replays = net._cached_op.replays
+        net.hybridize(active=False)
+    gap = (replay - eager).abs().max().item()
+    top = eager.abs().max().item()
+    tol = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+    out = {"B": images.shape[0], "eager_ms": eager_ms, "replay_ms": replay_ms,
+           "eager_images_per_s": images.shape[0] / eager_ms * 1e3,
+           "replay_images_per_s": images.shape[0] / replay_ms * 1e3,
+           "replays": replays, "max_abs_gap": gap, "bf16_step_at_max": tol,
+           "bitwise": bool(torch.equal(replay, eager)),
+           "finite": bool(torch.isfinite(eager).all())}
+    emit({"vision_infer_resnet50": out})
+    check(out["finite"] and replays > 0, f"hybridized inference did not replay: {out}")
+    check(gap <= tol, f"replayed logits differ from eager beyond bf16 rounding: {out}")
+    return out
+
+
+def resnet_grads(torch, net, x, y):
+    """VT_CPU_STEPS SGD-momentum ``TrainStep``s of ``net``: (losses, each
+    step's gradients {name: f32 host tensor}, the parameters and running
+    statistics after the steps {name: f32 host tensor})."""
+    from mxnet_tpu_torch import optimizer, parallel
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    step = parallel.TrainStep(net, SoftmaxCrossEntropyLoss(),
+                              optimizer.SGD(learning_rate=VT_CPU_LR, momentum=VT_MOMENTUM),
+                              [x])
+    losses, grads = [], []
+    for _ in range(VT_CPU_STEPS):
+        losses.append(step(x, y).float().item())
+        grads.append({n: p.grad.detach().float().cpu() for n, p in step._params})
+    params = {k: p.data()._data.detach().float().cpu() for k, p in net.collect_params().items()}
+    return losses, grads, params
+
+
+def resnet_card_vs_cpu(torch, args):
+    """(c) Thumbnail ResNet-18 (10 classes, 32 x 32) in f32, NHWC (the
+    fused route) and its NCHW twin from the same weights, 2 SGD-momentum
+    steps on the card and on the CPU: gradients leaf by leaf (relative L2)
+    within VT_CARD_CPU_GRAD_TOL, parameters and running statistics (max
+    abs) within VT_CARD_CPU_PARAM_TOL; NHWC against NCHW on the card within
+    the same tolerances."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    rng = np.random.RandomState(args.seed)
+    x = rng.rand(VT_CPU_B, VT_CPU_HW, VT_CPU_HW, 3).astype(np.float32)
+    y = rng.randint(0, 10, VT_CPU_B).astype(np.int32)
+    with mx.cpu():
+        mx.random.seed(args.seed)
+        ref = get_model("resnet18_v1", classes=10, thumbnail=True, layout="NHWC")
+        ref.initialize(mx.init.Xavier())
+        ref.infer_shape(x)
+        named = {k: p.data().asnumpy() for k, p in ref.collect_params().items()}
+    del ref
+    nchw = {k: v.transpose(0, 3, 1, 2) if v.ndim == 4 else v for k, v in named.items()}
+    runs = {}
+    for layout, weights, xi in (("NHWC", named, x), (None, nchw, x.transpose(0, 3, 1, 2))):
+        for dev in ("cuda", "cpu"):
+            with mx.Device(dev):
+                net = get_model("resnet18_v1", classes=10, thumbnail=True, layout=layout)
+                net.load_dict(weights)
+                xt = torch.from_numpy(np.ascontiguousarray(xi)).to(dev)
+                runs[(layout, dev)] = resnet_grads(torch, net, xt, torch.from_numpy(y).to(dev))
+            del net
+
+    def compare(a, b, to_nchw=False):
+        la, ga, pa = a
+        lb, gb, pb = b
+        fix = (lambda t: t.permute(0, 3, 1, 2) if t.dim() == 4 else t) if to_nchw \
+            else (lambda t: t)
+        per_step = [leaf_errors({k: fix(v) for k, v in sa.items()}, sb)
+                    for sa, sb in zip(ga, gb)]
+        p = {k: (fix(pa[k]) - pb[k]).abs().max().item() for k in pb}
+        return {"losses": [la, lb], "grad_rel_l2": max(max(e.values()) for e in per_step),
+                "grad_rel_l2_by_step": [worst(e) for e in per_step],
+                "param_max_abs": max(p.values()), "param_worst": max(p, key=p.get)}
+    out = {"B": VT_CPU_B, "hw": VT_CPU_HW, "steps": VT_CPU_STEPS,
+           "nhwc_card_vs_cpu": compare(runs[("NHWC", "cuda")], runs[("NHWC", "cpu")]),
+           "nchw_card_vs_cpu": compare(runs[(None, "cuda")], runs[(None, "cpu")]),
+           "nhwc_vs_nchw_card": compare(runs[("NHWC", "cuda")], runs[(None, "cuda")],
+                                        to_nchw=True),
+           "lr": VT_CPU_LR,
+           "tol": {"grad": VT_CARD_CPU_GRAD_TOL, "param": VT_CARD_CPU_PARAM_TOL}}
+    emit({"vision_card_vs_cpu": out})
+    for key in ("nhwc_card_vs_cpu", "nchw_card_vs_cpu", "nhwc_vs_nchw_card"):
+        r = out[key]
+        check(r["grad_rel_l2"] <= VT_CARD_CPU_GRAD_TOL,
+              f"{key}: gradients {r['grad_rel_l2']} > {VT_CARD_CPU_GRAD_TOL}")
+        check(r["param_max_abs"] <= VT_CARD_CPU_PARAM_TOL,
+              f"{key}: parameters {r['param_max_abs']} > {VT_CARD_CPU_PARAM_TOL}")
+    return out
+
+
+def vit_train(torch, args, timer, gen):
+    """(d) ViT-B/16 at 384 (T 577), bf16 through AMP, B 32, 5 Adam steps:
+    K1 and K2 first timed at its attention shape (B 32, 12 heads of 64, T
+    577, not causal, bf16) against their plain versions and beside SDPA;
+    then finite falling losses, K1 and K2 each launched 12 times a step
+    (counts zeroed just before the step, read just after) and the plain
+    attention never. Returns (kernel row, launches)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, optimizer, parallel
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import ViTConfig, ViTModel
+    from mxnet_tpu_torch.ops import attention as fa
+    from mxnet_tpu_torch.ops.int8_gemv import launches, reset_launches
+    cfg = ViTConfig(image_size=VIT_HW)
+    T = cfg.num_patches + 1
+    kern = flash_case(torch, timer, gen, VIT_B, cfg.num_heads, T, T,
+                      cfg.hidden_size // cfg.num_heads, False, torch.bfloat16, timed=True)
+    emit({"vision_vit_flash_case": kern})
+    torch.cuda.empty_cache()
+    mx.random.seed(args.seed)
+    net = ViTModel(cfg)
+    net.initialize()
+    amp.convert_hybrid_block(net, "bfloat16")
+    rng = np.random.RandomState(args.seed)
+    x = torch.from_numpy(rng.rand(VIT_B, 3, VIT_HW, VIT_HW).astype(np.float32))
+    x = x.to("cuda").bfloat16()
+    y = torch.from_numpy(rng.randint(0, cfg.num_classes, VIT_B).astype(np.int32)).to("cuda")
+    step = parallel.TrainStep(net, SoftmaxCrossEntropyLoss(),
+                              optimizer.Adam(learning_rate=VIT_LR), [x])
+    plain = {"calls": 0}
+    real_fallback = fa._fallback
+
+    def counted_fallback(*a, **k):
+        plain["calls"] += 1
+        return real_fallback(*a, **k)
+    fa._fallback = counted_fallback
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, counts = [], [], []
+    try:
+        for _ in range(VIT_STEPS):
+            torch.cuda.synchronize()
+            reset_launches()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            loss = step(x, y)
+            b.record()
+            b.synchronize()
+            c = launches()
+            counts.append({k: c.get(k, 0) for k in ("flash_fwd", "flash_bwd")})
+            times.append(a.elapsed_time(b))
+            losses.append(loss.float().item())
+    finally:
+        fa._fallback = real_fallback
+    ms = statistics.median(times[1:])
+    d, L = cfg.hidden_size, cfg.num_layers
+    n_tok = VIT_B * T
+    flops = 3 * (L * (2 * n_tok * 12 * d * d + 4 * VIT_B * T * T * d)
+                 + 2 * VIT_B * cfg.num_patches * 3 * cfg.patch_size ** 2 * d
+                 + 2 * VIT_B * d * cfg.num_classes)
+    report = {"model": "vit-b16", "image": VIT_HW, "T": T, "dtype": "bfloat16", "B": VIT_B,
+              "optimizer": f"adam lr {VIT_LR}", "steps": VIT_STEPS, "losses": losses,
+              "step_ms": times, "ms_per_step": ms, "images_per_s": VIT_B / ms * 1e3,
+              "mfu_analytic": flops / (ms / 1e3) / BF16_FLOP_PER_S,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "launches_per_step": counts, "plain_attention_calls": plain["calls"]}
+    emit({"vision_train_vit": report})
+    check(all(math.isfinite(v) for v in losses), f"non-finite ViT loss: {losses}")
+    check(losses[-1] < losses[0], f"ViT loss did not fall: {losses}")
+    check(all(c == {"flash_fwd": L, "flash_bwd": L} for c in counts),
+          f"K1/K2 not launched {L} times a step: {counts}")
+    check(plain["calls"] == 0, f"the plain attention ran {plain['calls']} times")
+    del step, net
+    return kern, sum(c["flash_fwd"] for c in counts), sum(c["flash_bwd"] for c in counts)
+
+
+def vision_train(torch, args, timer, gen):
+    """Phase 11: the conv path. (a) ResNet-50 v1 trains in bench_resnet50's
+    configuration, (b) its hybridized inference replays, (c) a ResNet-18
+    card against the CPU, (d) ViT-B/16 at 384 through K1/K2. Starts only
+    with at most LT_HELD_GB still allocated. Returns {"k1": row, "k2":
+    row}: the kernels-line rows of K1/K2 at ViT's shape with their
+    launches in (d)."""
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated() / 1e9
+    emit({"vision_train_allocated_gb_at_start": held})
+    check(held <= LT_HELD_GB, f"{held} GB of device memory still allocated as phase 11 "
+          f"starts (> {LT_HELD_GB}): an earlier phase's model or engine was not freed")
+    net, images, _ = resnet_train(torch, args)
+    resnet_infer(torch, net, images)
+    del net, images
+    torch.cuda.empty_cache()
+    resnet_card_vs_cpu(torch, args)
+    torch.cuda.empty_cache()
+    kern, n1, n2 = vit_train(torch, args, timer, gen)
+    torch.cuda.empty_cache()
+    emit({"vision_train_s": time.perf_counter() - t_phase})
+    rows = {}
+    for key, pre, n in (("k1", "k1_", n1), ("k2", "k2_", n2)):
+        rows[key] = {"max_abs_err": kern[pre + "max_abs_err"], "ms": kern[pre + "ms"],
+                     "plain_ms": kern[pre + "plain_ms"], "bound_ms": kern[pre + "bound_ms"],
+                     "bound_by": kern[pre + "bound_by"],
+                     "library_ms": kern[pre + "library_ms"], "launches": n}
+    return rows
+
+
 def llama_train_stacked(torch, args, net):
     """(b) The stacked decoder at the same width and LT_STACKED_LAYERS
     layers from the same weights (``net``'s first layers, embedding, norm
@@ -4700,6 +5143,8 @@ def main(argv=None):
     llama = llama_serve(torch, args, kl)
     torch.cuda.empty_cache()
     llama_train_rows = llama_train(torch, args, timer, gen)
+    torch.cuda.empty_cache()
+    vision_rows = vision_train(torch, args, timer, gen)
 
     def routes(*phases):
         return {r: sum(c["routes"][r] for c in phases) for r in ("warp", "mma")}
@@ -4871,6 +5316,16 @@ def main(argv=None):
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      **r, "path": "llama_train (a) and (c)"})
         check(r["launches"] > 0, f"{name} never launched on the Llama training path")
+    # K1 and K2 at ViT-B/16's shape on phase 11's path (B 32, 12 heads of
+    # 64, T 577, not causal, bf16): launches counted over (d)'s steps
+    for name, src, replaces, r in (
+            ("flash_attention_fwd_vit", "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
+             "mxnet_tpu/ops/attention.py:286", vision_rows["k1"]),
+            ("flash_attention_bwd_vit", "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+             "mxnet_tpu/ops/attention.py:383", vision_rows["k2"])):
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                     **r, "path": "vision_train (d)"})
+        check(r["launches"] > 0, f"{name} never launched on the ViT training path")
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -34,6 +34,12 @@ Slice 15 is the Gluon substrate: ``NDArray`` (``ndarray``), ``mx.np`` and
 with their ``CachedOp`` (CUDA-graph replay on the card), the basic layers
 and the losses, so the classic Gluon training loop runs on the card;
 ``mx.ops.attention`` on the tape runs K1 forward and K2 backward.
+Slice 17 trains Llama, dense and MoE, through a single-device ``TrainStep``.
+Slice 18 is the conv path: ``npx.convolution``/``deconvolution``/``pooling``,
+the conv and pool layers, the fused conv + BN composites
+(``ops.fused_conv``), ``amp``, the vision model zoo
+(``gluon.model_zoo``) and ``models.ViTModel``, so ResNet-50 and ViT train
+on the card.
 Slice 16 serves Llama (``models.LlamaForCausalLM``: GQA, RoPE, RMSNorm,
 SwiGLU, per-layer and stacked decoders) from the same engine at
 Llama-3-8B's width: K1 at head dim 128, K3/K4 at its widths and K8 on a
@@ -50,7 +56,7 @@ from .device import Context, Device, cpu, current_device, gpu, num_gpus
 from .ndarray import NDArray, waitall
 
 __all__ = ["MXNetError", "NDArray", "Context", "Device", "autograd", "base", "cpu",
-           "current_device", "device", "gpu", "init", "initializer", "gluon", "load",
+           "current_device", "device", "gpu", "init", "initializer", "gluon", "load", "amp",
            "np", "npx", "num_gpus", "ops", "random", "save", "waitall"]
 
 # stack traces on fatal signals, as the JAX package (MXNET_USE_SIGNAL_HANDLER)
@@ -67,7 +73,7 @@ _LAZY = {"gluon": ".gluon", "init": ".initializer", "initializer": ".initializer
          "models": ".models", "parallel": ".parallel", "profiler": ".profiler",
          "serve": ".serve", "observability": ".observability", "contrib": ".contrib",
          "checkpoint": ".checkpoint", "serialization": ".serialization",
-         "interop": ".interop"}
+         "interop": ".interop", "amp": ".amp"}
 
 
 def __getattr__(name):

@@ -29,7 +29,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ["STATE", "is_recording", "is_training", "is_predicting", "backward",
-           "tape_grad"]
+           "tape_grad", "effective_amp_policy"]
 
 
 class _AutogradState(threading.local):
@@ -40,9 +40,30 @@ class _AutogradState(threading.local):
         # mode, and every inference entry point enters this scope to turn
         # their dropout off whatever that mode is
         self.predicting = False
+        # this thread's AMP autocast policy (``amp.autocast``, a converted
+        # block's forward), over the process-wide one of ``amp.init()``
+        self.amp_policy = None
+        # set while TrainStep(remat=True) recomputes a forward for its
+        # backward: parameter writes (running statistics) are dropped
+        self.recomputing = False
 
 
 STATE = _AutogradState()
+
+# the process-wide policy of ``amp.init()``; the funnel consults the
+# effective policy by op name (``ndarray.apply_multi``)
+GLOBAL_AMP_POLICY = None
+
+# STATE.amp_policy value of ``autocast(enabled=False)``: shadows the global
+# policy rather than deferring to it
+AMP_OFF = object()
+
+
+def effective_amp_policy():
+    pol = STATE.amp_policy
+    if pol is None:
+        pol = GLOBAL_AMP_POLICY
+    return None if pol is AMP_OFF else pol
 
 
 def is_recording() -> bool:

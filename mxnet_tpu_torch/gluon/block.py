@@ -10,9 +10,10 @@ tape; called on torch tensors it is a function of its parameters' tensors
 in PyTorch's own autograd (``named_parameters()`` lists them).
 
 ``hybridize()`` makes a ``HybridBlock`` run through a :class:`CachedOp`:
-one cache entry per (input shapes and dtypes, training), a warning on
-every new signature after the first and the ``mxnet_recompilations_total``
-and ``mxnet_cachedop_cache_hits_total`` counters, as in the JAX package.
+one cache entry per (input shapes and dtypes, training, AMP policy), a
+warning on every new signature after the first and the
+``mxnet_recompilations_total`` and ``mxnet_cachedop_cache_hits_total``
+counters, as in the JAX package.
 Each call draws the JAX CachedOp's int32 seed from the global key stream
 and runs the forward under ``KeySupply(key(seed))``, so its dropout masks
 are the JAX package's. On the card, a block hybridized with
@@ -28,6 +29,7 @@ from __future__ import annotations
 import re
 import threading
 from collections import OrderedDict
+from contextlib import contextmanager, nullcontext
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as onp
@@ -44,6 +46,16 @@ __all__ = ["Block", "HybridBlock", "CachedOp", "Sequential", "HybridSequential",
            "SymbolBlock", "save_parameters", "load_parameters"]
 
 _LATER = "waits for the AOT/ONNX slice (ROADMAP Queue 1)"
+
+
+@contextmanager
+def _amp_policy_scope(policy):
+    prev = _tape.STATE.amp_policy
+    _tape.STATE.amp_policy = policy
+    try:
+        yield
+    finally:
+        _tape.STATE.amp_policy = prev
 
 
 class _Inline(threading.local):
@@ -243,13 +255,20 @@ class Block:
         return self
 
     # ------------------------------------------------------------ calling
+    def _amp_scope(self):
+        """This block's AMP policy (``amp.convert_hybrid_block``) as the
+        thread's for the duration of a forward."""
+        pol = getattr(self, "_amp_policy", None)
+        return nullcontext() if pol is None else _amp_policy_scope(pol)
+
     def __call__(self, *args, **kwargs):
-        for hook in self._forward_pre_hooks:
-            hook(self, args)
-        out = self.forward(*args, **kwargs)
-        for hook in self._forward_hooks:
-            hook(self, args, out)
-        return out
+        with self._amp_scope():
+            for hook in self._forward_pre_hooks:
+                hook(self, args)
+            out = self.forward(*args, **kwargs)
+            for hook in self._forward_hooks:
+                hook(self, args, out)
+            return out
 
     def forward(self, *args, **kwargs):
         raise NotImplementedError
@@ -342,7 +361,8 @@ class CachedOp:
             _INLINE.depth += 1
             try:
                 with torch.no_grad(), KeySupply(_prng.key(0)), \
-                        autograd.pause(train_mode=autograd.is_training()):
+                        autograd.pause(train_mode=autograd.is_training()), \
+                        self.block._amp_scope():
                     self.block.forward(*inputs)
             finally:
                 _INLINE.depth -= 1
@@ -366,7 +386,11 @@ class CachedOp:
     def __call__(self, *inputs: NDArray):
         self._ensure_params(inputs)
         training = _tape.is_training()
-        key = tuple((tuple(x.shape), str(x.dtype)) for x in inputs) + (training, None)
+        # the AMP policy is part of the signature: a trace under another
+        # (or no) policy casts differently
+        pol = _tape.effective_amp_policy()
+        key = tuple((tuple(x.shape), str(x.dtype)) for x in inputs) \
+            + (training, None if pol is None else pol.name)
         entry = self._cache.get(key)
         bname = type(self.block).__name__
         if entry is None:
@@ -428,7 +452,8 @@ class HybridBlock(Block):
                 hook(self, args)
             if self._cached_op is None:
                 self._cached_op = CachedOp(self, **self._cached_op_args)
-            out = self._cached_op(*args)
+            with self._amp_scope():
+                out = self._cached_op(*args)
             for hook in self._forward_hooks:
                 hook(self, args, out)
             return out

@@ -1,0 +1,3 @@
+"""The model zoo (counterpart of ``mxnet_tpu/gluon/model_zoo``)."""
+from . import vision
+from .vision import get_model  # noqa: F401

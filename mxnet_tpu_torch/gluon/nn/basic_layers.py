@@ -119,6 +119,7 @@ class BatchNorm(HybridBlock):
         self._momentum = momentum
         self._eps = epsilon
         self._scale = scale
+        self._center = center
         self._use_global_stats = use_global_stats
         ch = in_channels or 0
         self.gamma = Parameter("gamma", shape=(ch,), dtype=dtype, init=gamma_initializer,

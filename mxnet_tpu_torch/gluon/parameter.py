@@ -11,7 +11,10 @@ hybridized block's forward reads the new values on its next replay.
 
 While a ``CachedOp`` infers deferred shapes (:data:`DRY`), a deferred
 parameter is bound to a zero placeholder and queued instead of drawn, and
-writes are dropped; the CachedOp initializes the queue afterwards.
+writes are dropped; the CachedOp initializes the queue afterwards. Writes
+are dropped too while a forward is recomputed for its backward
+(``TrainStep(remat=True)``), so BatchNorm's running statistics move once a
+step.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Optional, Tuple
 import numpy as onp
 import torch
 
+from .. import _tape
 from .. import initializer as init_mod
 from ..base import MXNetError
 from ..device import Device, current_device
@@ -174,8 +178,10 @@ class Parameter:
             self._var.zero_grad()
 
     def set_data(self, data) -> None:
-        """Set the value, in place where shape and device allow."""
-        if DRY.bindings is not None:
+        """Set the value, in place where shape and device allow. Dropped
+        while a forward is recomputed for its backward
+        (``_tape.STATE.recomputing``)."""
+        if DRY.bindings is not None or _tape.STATE.recomputing:
             return
         if self._var is None:
             arr = data if isinstance(data, NDArray) else NDArray(data)

@@ -138,6 +138,10 @@ class Trainer:
             idx.append(i)
         if not idx:
             return
+        if self._overflowed([self._params[i][1].grad for i in idx], batch_size):
+            for i in idx:                # the step is skipped, its gradients spent
+                self._params[i][1].grad = None
+            return
         self._step_count += 1
         opt.num_update = self._step_count
         counts = opt._index_update_count
@@ -157,6 +161,21 @@ class Trainer:
             self._states[i] = states[j]
             self._params[i][1].grad = None
 
+    def _overflowed(self, grads, batch_size) -> bool:
+        """With ``amp.init_trainer``'s scaler: whether ``grads`` overflowed at
+        the scale they carry (the scale then adjusts); otherwise the
+        inverse scale joins the gradient rescale."""
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler is None:
+            return False
+        from ..amp.loss_scaler import any_not_finite
+        scale_used = scaler.loss_scale
+        overflow = any_not_finite(grads)
+        scaler.update_scale(overflow)
+        if not overflow:
+            self._optimizer.rescale_grad = self._scale / batch_size / scale_used
+        return overflow
+
     def _update_gluon(self, batch_size: int, ignore_stale_grad: bool):
         opt = self._optimizer
         opt.rescale_grad = self._scale / batch_size
@@ -174,6 +193,10 @@ class Trainer:
                     "step(), or pass ignore_stale_grad=True to skip it")
             idx.append(i)
         if not idx:
+            return
+        if self._overflowed([self._params[i][1].data()._grad._data for i in idx], batch_size):
+            for i in idx:                # the step is skipped, its gradients spent
+                self._params[i][1].data()._grad_fresh = False
             return
         self._step_count += 1
         opt.num_update = self._step_count

@@ -144,11 +144,17 @@ def _wrap(out):
     return out
 
 
-def apply_multi(fn: Callable, arrays: Sequence):
+def apply_multi(fn: Callable, arrays: Sequence, name: Optional[str] = None):
     """Run ``fn`` on the tensors of ``arrays`` and wrap its tensor outputs
     (one, or a tuple) as NDArrays, recording when ``autograd.record()`` is
     active. With a raw tensor among ``arrays`` the call is PyTorch's own:
-    tensors out, the ambient grad mode."""
+    tensors out, the ambient grad mode. ``name`` is the op's name in the
+    JAX package's funnel: an active AMP policy (``amp``) casts the inputs
+    of the ops its lists name."""
+    if name is not None:
+        pol = _tape.effective_amp_policy()
+        if pol is not None:
+            fn = pol.wrap(fn, name)
     datas, raw = [], False
     for a in arrays:
         if isinstance(a, NDArray):
@@ -165,9 +171,9 @@ def apply_multi(fn: Callable, arrays: Sequence):
         return _wrap(fn(*datas))
 
 
-def apply(fn: Callable, *arrays):
+def apply(fn: Callable, *arrays, name: Optional[str] = None):
     """:func:`apply_multi` for a function of the arrays given in order."""
-    return apply_multi(fn, arrays)
+    return apply_multi(fn, arrays, name)
 
 
 def _lift(obj, arrays):
@@ -196,7 +202,7 @@ def _unlift(spec, vals):
     return payload
 
 
-def invoke(fn: Callable, args: tuple, kwargs: dict):
+def invoke(fn: Callable, args: tuple, kwargs: dict, name: Optional[str] = None):
     """Call ``fn(*args, **kwargs)`` with the arrays nested anywhere in them
     passed as tensors through the funnel (the JAX package's
     ``invoke_jnp``)."""
@@ -204,7 +210,7 @@ def invoke(fn: Callable, args: tuple, kwargs: dict):
     spec_a = _lift(tuple(args), arrays)
     spec_k = _lift(dict(kwargs), arrays)
     return apply_multi(lambda *v: fn(*_unlift(spec_a, v), **_unlift(spec_k, v)),
-                       arrays)
+                       arrays, name)
 
 
 def waitall() -> None:
@@ -679,53 +685,54 @@ class NDArray:
         return self
 
     # ------------------------------------------------------------ arithmetic
-    def _binop(self, other, fn, inexact=False, reverse=False):
+    def _binop(self, other, fn, inexact=False, reverse=False, name=None):
         """``fn(self, other)`` (``fn(other, self)`` with ``reverse``) with the
-        JAX package's result dtype (with ``inexact``, that dtype's float)."""
+        JAX package's result dtype (with ``inexact``, that dtype's float),
+        promoted from the operands ``fn`` is given (an AMP policy may have
+        cast them). ``name`` is the JAX package's op name."""
         if isinstance(other, (onp.ndarray, onp.generic, list, tuple)):
             other = NDArray(onp.asarray(other), device=self._data.device)
         if isinstance(other, (NDArray, torch.Tensor)):
-            dt = torch.promote_types(self._data.dtype, other.dtype if isinstance(
-                other, torch.Tensor) else other._data.dtype)
-            if inexact:
-                dt = _inexact(dt)
+            def two(a, b):
+                dt = torch.promote_types(a.dtype, b.dtype)
+                if inexact:
+                    dt = _inexact(dt)
+                return fn(_cast(a, dt), _cast(b, dt))
             if reverse:
-                return apply_multi(lambda a, b: fn(_cast(b, dt), _cast(a, dt)),
-                                   [self, other])
-            return apply_multi(lambda a, b: fn(_cast(a, dt), _cast(b, dt)),
-                               [self, other])
+                return apply_multi(lambda a, b: two(b, a), [self, other], name)
+            return apply_multi(two, [self, other], name)
         if isinstance(other, _SCALARS):
-            dt = _weak(self._data.dtype, other)
-            if inexact:
-                dt = _inexact(dt)
-            if reverse:
-                return apply(lambda a: fn(other, _cast(a, dt)), self)
-            return apply(lambda a: fn(_cast(a, dt), other), self)
+            def one(a):
+                dt = _weak(a.dtype, other)
+                if inexact:
+                    dt = _inexact(dt)
+                return fn(other, _cast(a, dt)) if reverse else fn(_cast(a, dt), other)
+            return apply(one, self, name=name)
         return NotImplemented
 
     def __add__(self, o):
-        return self._binop(o, operator.add)
+        return self._binop(o, operator.add, name="add")
 
     def __radd__(self, o):
-        return self._binop(o, operator.add, reverse=True)
+        return self._binop(o, operator.add, reverse=True, name="add")
 
     def __sub__(self, o):
-        return self._binop(o, operator.sub)
+        return self._binop(o, operator.sub, name="sub")
 
     def __rsub__(self, o):
-        return self._binop(o, operator.sub, reverse=True)
+        return self._binop(o, operator.sub, reverse=True, name="rsub")
 
     def __mul__(self, o):
-        return self._binop(o, operator.mul)
+        return self._binop(o, operator.mul, name="mul")
 
     def __rmul__(self, o):
-        return self._binop(o, operator.mul, reverse=True)
+        return self._binop(o, operator.mul, reverse=True, name="mul")
 
     def __truediv__(self, o):
-        return self._binop(o, operator.truediv, True)
+        return self._binop(o, operator.truediv, True, name="div")
 
     def __rtruediv__(self, o):
-        return self._binop(o, operator.truediv, True, reverse=True)
+        return self._binop(o, operator.truediv, True, reverse=True, name="rdiv")
 
     def __floordiv__(self, o):
         return self._binop(o, operator.floordiv)
@@ -746,10 +753,10 @@ class NDArray:
         return self._binop(o, operator.pow, reverse=True)
 
     def __matmul__(self, o):
-        return self._binop(o, torch.matmul)
+        return self._binop(o, torch.matmul, name="matmul")
 
     def __rmatmul__(self, o):
-        return self._binop(o, torch.matmul, reverse=True)
+        return self._binop(o, torch.matmul, reverse=True, name="rmatmul")
 
     def __neg__(self):
         return apply(torch.neg, self)

@@ -204,11 +204,11 @@ def _binary(fn, name, inexact=False):
         if isinstance(x1, torch.Tensor) or isinstance(x2, torch.Tensor):
             return fn(x1, x2)
         if not isinstance(x1, NDArray) and isinstance(x2, NDArray):
-            return x2._binop(x1, fn, inexact, reverse=True)
+            return x2._binop(x1, fn, inexact, reverse=True, name=name)
         if not isinstance(x1, NDArray) and isinstance(x1, _SCALARS) \
                 and isinstance(x2, _SCALARS):
             x1 = NDArray(x1)
-        return asarray(x1)._binop(x2, fn, inexact)
+        return asarray(x1)._binop(x2, fn, inexact, name=name)
     op.__name__ = name
     return op
 
@@ -250,8 +250,8 @@ def _unary(fn, name, inexact=True):
     def op(x, **kwargs):
         _no_out(kwargs, name)
         if inexact:
-            return apply(lambda t: fn(_cast(t, _inexact(t.dtype))), _arr(x))
-        return apply(fn, _arr(x))
+            return apply(lambda t: fn(_cast(t, _inexact(t.dtype))), _arr(x), name=name)
+        return apply(fn, _arr(x), name=name)
     op.__name__ = name
     return op
 
@@ -295,7 +295,7 @@ round = round_ = around
 
 
 def clip(a, a_min=None, a_max=None):
-    return apply(lambda t: torch.clamp(t, a_min, a_max), _arr(a))
+    return apply(lambda t: torch.clamp(t, a_min, a_max), _arr(a), name="clip")
 
 
 def where(condition, x=None, y=None):
@@ -321,7 +321,7 @@ def where(condition, x=None, y=None):
         elif torch.is_tensor(yv):
             yv = _cast(yv, _nd._weak(yv.dtype, xv))
         return torch.where(_cast(c, torch.bool), xv, yv)
-    return apply_multi(fn, arrs)
+    return apply_multi(fn, arrs, "where")
 
 
 def isclose(a, b, rtol=1e-05, atol=1e-08, equal_nan=False):
@@ -337,12 +337,12 @@ def allclose(a, b, rtol=1e-05, atol=1e-08, equal_nan=False):
 
 def sum(a, axis=None, dtype=None, keepdims=False, **kw):
     _no_out(kw, "sum")
-    return apply(lambda x: t_sum(x, axis, dtype, keepdims), _arr(a))
+    return apply(lambda x: t_sum(x, axis, dtype, keepdims), _arr(a), name="sum")
 
 
 def mean(a, axis=None, dtype=None, keepdims=False, **kw):
     _no_out(kw, "mean")
-    return apply(lambda x: t_mean(x, axis, dtype, keepdims), _arr(a))
+    return apply(lambda x: t_mean(x, axis, dtype, keepdims), _arr(a), name="mean")
 
 
 def prod(a, axis=None, dtype=None, keepdims=False):
@@ -350,11 +350,11 @@ def prod(a, axis=None, dtype=None, keepdims=False):
 
 
 def std(a, axis=None, dtype=None, ddof=0, keepdims=False):
-    return apply(lambda x: t_var(x, axis, keepdims, ddof, torch.std), _arr(a))
+    return apply(lambda x: t_var(x, axis, keepdims, ddof, torch.std), _arr(a), name="std")
 
 
 def var(a, axis=None, dtype=None, ddof=0, keepdims=False):
-    return apply(lambda x: t_var(x, axis, keepdims, ddof, torch.var), _arr(a))
+    return apply(lambda x: t_var(x, axis, keepdims, ddof, torch.var), _arr(a), name="var")
 
 
 def max(a, axis=None, keepdims=False):
@@ -385,7 +385,7 @@ def any(a, axis=None, keepdims=False):
 
 
 def cumsum(a, axis=None, dtype=None):
-    return apply(lambda x: t_cum(torch.cumsum, x, axis, dtype), _arr(a))
+    return apply(lambda x: t_cum(torch.cumsum, x, axis, dtype), _arr(a), name="cumsum")
 
 
 def cumprod(a, axis=None, dtype=None):
@@ -413,7 +413,7 @@ def tensordot(a, b, axes=2):
 
 def einsum(subscripts, *operands):
     return apply_multi(lambda *ops: torch.einsum(subscripts, *ops),
-                       [_arr(o) for o in operands])
+                       [_arr(o) for o in operands], "einsum")
 
 
 def trace(a, offset=0, axis1=0, axis2=1):

@@ -9,8 +9,10 @@ tensor-level functions GPT, generation and the engine call
 ``softmax_cross_entropy``, ``dropout``) take a tensor straight to their
 tensor body, at the cost of one type check. Each is written with the same
 op sequence as the JAX function so that the plain path stays close to it.
-Convolution, pooling, the contrib detection ops and ``control_flow`` wait
-for a later slice (ROADMAP Queue 1).
+Convolution and pooling are the library's (``F.conv*``, cuDNN on the card:
+the JAX package's are XLA's, not Pallas kernels); the fused conv + BN
+composites are ``ops/fused_conv.py``. The contrib detection ops and
+``control_flow`` wait for a later slice (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ __all__ = [
     "sigmoid", "log_sigmoid", "softsign", "softmax", "log_softmax", "masked_softmax",
     "masked_log_softmax", "gelu", "silu", "mish", "erf", "erfinv", "activation",
     "fully_connected", "batch_norm", "layer_norm", "group_norm", "instance_norm",
-    "rms_norm", "dropout", "embedding", "one_hot", "pick", "topk", "arange_like",
+    "rms_norm", "dropout", "embedding", "convolution", "deconvolution", "pooling",
+    "fused_conv_bn_relu", "fused_resnet_block", "one_hot", "pick", "topk", "arange_like",
     "reshape_like", "sequence_mask", "slice_axis", "clip_global_norm", "batch_dot",
     "smooth_l1", "index_update", "index_add", "gather_nd", "scatter_nd",
     "softmax_cross_entropy", "broadcast_like", "seed", "save", "load", "waitall",
@@ -258,15 +261,15 @@ _ACTIVATIONS = {
 def activation(data, act_type: str = "relu"):
     if act_type not in _ACTIVATIONS:
         raise MXNetError(f"unknown activation {act_type}")
-    return apply(_ACTIVATIONS[act_type], data)
+    return apply(_ACTIVATIONS[act_type], data, name=act_type)
 
 
 def relu(data):
-    return apply(torch.relu, data)
+    return apply(torch.relu, data, name="relu")
 
 
 def sigmoid(data):
-    return apply(_logistic, data)
+    return apply(_logistic, data, name="sigmoid")
 
 
 def log_sigmoid(data):
@@ -278,7 +281,7 @@ def softsign(data):
 
 
 def silu(data):
-    return activation(data, "silu")
+    return apply(_ACTIVATIONS["silu"], data, name="silu")
 
 
 def mish(data):
@@ -313,7 +316,7 @@ def leaky_relu(data, gamma: float = 0.01, act_type: str = "leaky", **kwargs):
     if act_type == "selu":
         return apply(lambda x: _SELU_SCALE * _elu(x, _SELU_ALPHA), data)
     if act_type == "gelu":
-        return apply(_gelu, data)
+        return apply(_gelu, data, name="gelu")
     if act_type == "prelu":
         def prelu(x, a):
             if x.dim() > 1 and a.dim() == 1 and a.shape[0] > 1:
@@ -333,13 +336,13 @@ def softmax(data, axis: int = -1, length=None, temperature=None, use_length=Fals
         return masked_softmax(data, apply(mask_of, length), axis=axis,
                               temperature=temperature)
     t = 1.0 if temperature is None else temperature
-    return apply(lambda x: torch.softmax(x / t, dim=axis), data)
+    return apply(lambda x: torch.softmax(x / t, dim=axis), data, name="softmax")
 
 
 def log_softmax(data, axis: int = -1, temperature=None):
     if _nd(data):
         t = 1.0 if temperature is None else temperature
-        return apply(lambda x: _log_softmax(x / t, axis), data)
+        return apply(lambda x: _log_softmax(x / t, axis), data, name="log_softmax")
     return _log_softmax(data if temperature is None else data / temperature, axis)
 
 
@@ -355,13 +358,14 @@ def _masked(fn, fill):
 def masked_softmax(data, mask, axis: int = -1, temperature=None, normalize=True):
     t = 1.0 if temperature is None else temperature
     run = _masked(torch.softmax, 0.0)
-    return apply(lambda x, m: run(x, m.bool(), axis, t), data, mask)
+    return apply(lambda x, m: run(x, m.bool(), axis, t), data, mask, name="masked_softmax")
 
 
 def masked_log_softmax(data, mask, axis: int = -1, temperature=None):
     t = 1.0 if temperature is None else temperature
     run = _masked(torch.log_softmax, -math.inf)
-    return apply(lambda x, m: run(x, m.bool(), axis, t), data, mask)
+    return apply(lambda x, m: run(x, m.bool(), axis, t), data, mask,
+                 name="masked_log_softmax")
 
 
 # ------------------------------------------------------------- dense
@@ -375,7 +379,7 @@ def fully_connected(x, weight, bias=None, num_hidden: Optional[int] = None,
     def fn(xv, wv, *rest):
         y = torch.matmul(xv.reshape(xv.shape[0], -1) if flatten else xv, wv.t())
         return y + rest[0] if rest else y
-    return apply_multi(fn, arrays)
+    return apply_multi(fn, arrays, "fully_connected")
 
 
 def batch_dot(lhs, rhs, transpose_a: bool = False, transpose_b: bool = False):
@@ -383,7 +387,210 @@ def batch_dot(lhs, rhs, transpose_a: bool = False, transpose_b: bool = False):
         a = a.transpose(-1, -2) if transpose_a else a
         b = b.transpose(-1, -2) if transpose_b else b
         return torch.matmul(a, b)
-    return apply(fn, lhs, rhs)
+    return apply(fn, lhs, rhs, name="batch_dot")
+
+
+# ------------------------------------------------------------- conv and pool
+
+def _tuplize(v, n):
+    if isinstance(v, int):
+        return (v,) * n
+    return tuple(v)
+
+
+def _channels_last(layout: Optional[str]) -> bool:
+    """True for the NHWC family of layouts (NWC, NHWC, NDHWC)."""
+    return layout is not None and layout.endswith("C")
+
+
+def _to_nc(t):
+    """(N, *spatial, C) -> (N, C, *spatial) as a view: for 2-D and 3-D
+    images this is the channels-last memory format, which cuDNN convolves
+    and pools in its NHWC kernels without a copy."""
+    return t.permute(0, t.dim() - 1, *range(1, t.dim() - 1))
+
+
+def _from_nc(t):
+    """(N, C, *spatial) -> (N, *spatial, C) as a view."""
+    return t.permute(0, *range(2, t.dim()), 1)
+
+
+_CONV = {1: torch.nn.functional.conv1d, 2: torch.nn.functional.conv2d,
+         3: torch.nn.functional.conv3d}
+_CONV_T = {1: torch.nn.functional.conv_transpose1d, 2: torch.nn.functional.conv_transpose2d,
+           3: torch.nn.functional.conv_transpose3d}
+
+
+def _rank(a) -> int:
+    return a.dim() if isinstance(a, torch.Tensor) else asarray(a).ndim
+
+
+def _conv(xv, wv, bv, stride, pad, dilate, groups, ch_last):
+    """``lax.conv_general_dilated`` with symmetric padding, NC* / OI* or,
+    with ``ch_last``, N*C / O*I: the channel-last operands are permuted
+    views (no copy) and the result is permuted back."""
+    nd = wv.dim() - 2
+    if ch_last:
+        return _from_nc(_CONV[nd](_to_nc(xv), _to_nc(wv), bv, stride, pad, dilate, groups))
+    return _CONV[nd](xv, wv, bv, stride, pad, dilate, groups)
+
+
+def convolution(data, weight, bias=None, kernel=None, stride=1, dilate=1, pad=0,
+                num_filter=None, num_group: int = 1, no_bias: bool = False,
+                layout: Optional[str] = None):
+    """N-d convolution (1-D, 2-D or 3-D by the weight's rank): NC*/OI* by
+    default, N*C/O*I (the weight ``(out, *kernel, in/groups)``) for an
+    NHWC-family ``layout``. Channel-last data reaches the library
+    convolution as a channels-last view (cuDNN's NHWC kernels on the
+    card), with no copy. The JAX package's convolution is XLA's, not a
+    Pallas kernel; this is ``F.conv{1,2,3}d``."""
+    nd = _rank(weight) - 2
+    stride, dilate, pad = (_tuplize(v, nd) for v in (stride, dilate, pad))
+    ch_last = _channels_last(layout)
+    arrays = [data, weight] + ([] if bias is None or no_bias else [bias])
+
+    def fn(xv, wv, *rest):
+        return _conv(xv, wv, rest[0] if rest else None, stride, pad, dilate, num_group,
+                     ch_last)
+    return apply_multi(fn, arrays, "convolution")
+
+
+def deconvolution(data, weight, bias=None, kernel=None, stride=1, dilate=1, pad=0, adj=0,
+                  num_filter=None, num_group: int = 1, no_bias: bool = True,
+                  layout: Optional[str] = None):
+    """Transposed convolution over NC* data, the weight ``(in, out/groups,
+    *kernel)``; ``adj`` pads the output's high side. The output is the JAX
+    package's input-dilated convolution of the flipped kernel. Where torch
+    takes ``adj`` as its ``output_padding`` (below ``max(stride,
+    dilate)``) that is one ``F.conv_transpose``; otherwise the full
+    transposed convolution is cut by ``pad`` and padded by ``adj`` with
+    zeros: the same output shape and values."""
+    nd = _rank(weight) - 2
+    stride, dilate, pad, adj = (_tuplize(v, nd) for v in (stride, dilate, pad, adj))
+    arrays = [data, weight] + ([] if bias is None or no_bias else [bias])
+    direct = all(a < max(s, d) for a, s, d in zip(adj, stride, dilate))
+
+    def fn(xv, wv, *rest):
+        bv = rest[0] if rest else None
+        if direct:
+            return _CONV_T[nd](xv, wv, bv, stride, pad, adj, num_group, dilate)
+        full = _CONV_T[nd](xv, wv, None, stride, 0, 0, num_group, dilate)
+        cut = [v for p, a in zip(reversed(pad), reversed(adj)) for v in (-p, a - p)]
+        y = torch.nn.functional.pad(full, cut)
+        return y if bv is None else y + bv.reshape((1, -1) + (1,) * nd)
+    return apply_multi(fn, arrays, "deconvolution")
+
+
+def _full_extra(sizes, kernel, stride, pad):
+    """The ``'full'`` (ceil) convention's extra high-side padding, per
+    spatial axis: enough that a partial window at the edge gives an output."""
+    extra = []
+    for size, k, s, p in zip(sizes, kernel, stride, pad):
+        span = size + 2 * p - k
+        out_full = -(-span // s) + 1
+        extra.append(max(0, (out_full - 1) * s + k - (size + 2 * p)))
+    return tuple(extra)
+
+
+def _pad_nc(x, lo, hi, value=0.0):
+    """Pad the spatial axes of an (N, C, *spatial) tensor by ``lo`` below
+    and ``hi`` above."""
+    flat = [v for a, b in zip(reversed(lo), reversed(hi)) for v in (a, b)]
+    if not any(flat):
+        return x
+    return torch.nn.functional.pad(x, flat, value=value)
+
+
+def _window_sum(x, kernel, stride):
+    """Sum over every whole window of an (N, C, *spatial) float tensor, no
+    padding (a 1-D window runs as a 1 x k 2-D one)."""
+    F = torch.nn.functional
+    if len(kernel) == 1:
+        return F.avg_pool2d(x.unsqueeze(2), (1,) + kernel, (1,) + stride,
+                            divisor_override=1).squeeze(2)
+    pool = F.avg_pool2d if len(kernel) == 2 else F.avg_pool3d
+    return pool(x, kernel, stride, divisor_override=1)
+
+
+def _window_max(x, kernel, stride, pad, hi):
+    """Max over every window of an (N, C, *spatial) tensor padded by ``pad``
+    below and ``pad + hi`` above with the dtype's lowest value. Float data
+    with no extra padding takes the library pooling's own -inf padding."""
+    F = torch.nn.functional
+    nd = len(kernel)
+    pad_hi = tuple(p + e for p, e in zip(pad, hi))
+    if x.is_floating_point():
+        pool = (F.max_pool1d, F.max_pool2d, F.max_pool3d)[nd - 1]
+        if not any(hi) and all(2 * p <= k for p, k in zip(pad, kernel)):
+            return pool(x, kernel, stride, pad)
+        return pool(_pad_nc(x, pad, pad_hi, -math.inf), kernel, stride)
+    x = _pad_nc(x, pad, pad_hi, torch.iinfo(x.dtype).min)
+    for ax, (k, s) in enumerate(zip(kernel, stride)):
+        x = x.unfold(2 + ax, k, s)
+    return x.amax(dim=tuple(range(-nd, 0)))
+
+
+def _inbounds_count(shape, kernel, stride, lo, hi, device):
+    """Per-output-window count of the in-bounds cells of an (N, C, *spatial)
+    input padded by ``lo`` / ``hi``: the ``count_include_pad=False``
+    divisor, f32, broadcasting over N and C."""
+    ones = torch.ones((1, 1) + tuple(shape[2:]), dtype=torch.float32, device=device)
+    return _window_sum(_pad_nc(ones, lo, hi), kernel, stride)
+
+
+def _pool_nc(x, kernel, stride, pad, pool_type, count_include_pad, full):
+    """Pooling of an (N, C, *spatial) tensor with explicit windows, so that
+    every output shape is ``lax.reduce_window``'s: ``full`` pads the high
+    side further by :func:`_full_extra` (torch's ``ceil_mode`` would drop a
+    window that starts in the padding). avg divides in f32, as the JAX
+    package divides by an f32 count."""
+    hi = _full_extra(x.shape[2:], kernel, stride, pad) if full else (0,) * len(kernel)
+    if pool_type == "max":
+        return _window_max(x, kernel, stride, pad, hi)
+    pad_hi = tuple(p + e for p, e in zip(pad, hi))
+    if pool_type == "lp":
+        return _window_sum(_pad_nc(torch.abs(x) ** 2, pad, pad_hi), kernel, stride) ** 0.5
+    s = _window_sum(_pad_nc(x, pad, pad_hi), kernel, stride)
+    if pool_type == "sum":
+        return s
+    sf = s.to(torch.promote_types(s.dtype, torch.float32))
+    if count_include_pad and full:
+        # explicit padding counts, the ceil overhang does not
+        shape = x.shape[:2] + tuple(n + 2 * p for n, p in zip(x.shape[2:], pad))
+        return sf / _inbounds_count(shape, kernel, stride, (0,) * len(pad), hi, x.device)
+    if count_include_pad:
+        return sf / torch.full((), float(math.prod(kernel)), dtype=sf.dtype, device=x.device)
+    return sf / _inbounds_count(x.shape, kernel, stride, pad, pad_hi, x.device)
+
+
+def pooling(data, kernel=None, pool_type: str = "max", stride=None, pad=0,
+            global_pool: bool = False, count_include_pad: bool = True,
+            pooling_convention: str = "valid", layout=None):
+    """max / avg / sum / lp pooling over the spatial axes (``layout``
+    NHWC-family: axes 1..nd, channel last). ``pooling_convention='full'``
+    is the ceil convention, with the JAX package's windows and divisors;
+    avg returns f32 or wider. Channel-last data pools as a channels-last
+    view."""
+    nd = _rank(data) - 2
+    ch_last = _channels_last(layout)
+    if global_pool:
+        axes = tuple(range(1, 1 + nd)) if ch_last else tuple(range(2, 2 + nd))
+        if pool_type == "max":
+            return apply(lambda x: x.amax(dim=axes, keepdim=True), data)
+        return apply(lambda x: x.mean(dim=axes, keepdim=True), data)
+    if pool_type not in ("max", "avg", "sum", "lp"):
+        raise MXNetError(f"unknown pool_type {pool_type}")
+    kernel = _tuplize(kernel, nd)
+    stride = _tuplize(stride if stride is not None else kernel, nd)
+    pad = _tuplize(pad, nd)
+    full = pooling_convention == "full"
+
+    def fn(x):
+        if ch_last:
+            return _from_nc(_pool_nc(_to_nc(x), kernel, stride, pad, pool_type,
+                                     count_include_pad, full))
+        return _pool_nc(x, kernel, stride, pad, pool_type, count_include_pad, full)
+    return apply(fn, data, name=f"pool_{pool_type}")
 
 
 # ------------------------------------------------------------- normalization
@@ -391,7 +598,7 @@ def batch_dot(lhs, rhs, transpose_a: bool = False, transpose_b: bool = False):
 def layer_norm(x, gamma=None, beta=None, axis: int = -1, eps: float = 1e-5):
     """LayerNorm with f32 statistics: mean, E[x^2] - mean^2 clamped at 0,
     rsqrt; normalized in x's dtype."""
-    if not _nd(x):
+    if not (_nd(x) or _nd(gamma) or _nd(beta)):
         return _layer_norm(x, gamma, beta, axis, eps)
     g, b = gamma is not None, beta is not None
     return apply_multi(lambda xv, *r: _layer_norm(xv, r[0] if g else None,
@@ -443,6 +650,78 @@ def batch_norm(x, gamma, beta, running_mean, running_var, eps: float = 1e-5,
     return apply_multi(lambda *v: _batch_norm(*v, eps, momentum, fix_gamma, use_global_stats,
                                               axis, training),
                        [x, gamma, beta, running_mean, running_var])
+
+
+def _blend(rm, rv, mean, var, momentum, bias=None):
+    """The running-statistics update ``momentum * r + (1 - momentum) *
+    batch``, detached; a conv bias shifts the batch mean."""
+    if bias is not None:
+        mean = mean + bias.float()
+    with torch.no_grad():
+        return (momentum * rm + (1 - momentum) * mean.to(rm.dtype),
+                momentum * rv + (1 - momentum) * var.to(rv.dtype))
+
+
+def fused_conv_bn_relu(x, weight, gamma, beta, running_mean, running_var, bias=None,
+                       residual=None, stride=(1, 1), pad=(0, 0), eps: float = 1e-5,
+                       momentum: float = 0.9, relu: bool = True,
+                       use_global_stats: bool = False, training: Optional[bool] = None):
+    """Fused NHWC Conv2D + BatchNorm (+ residual add) (+ ReLU) with a
+    hand-written backward (``ops/fused_conv.py``). Returns ``(out,
+    new_running_mean, new_running_var)`` like :func:`batch_norm`. A conv
+    bias feeding the BN cancels out of the output: it only shifts the
+    reported batch mean, and its gradient is exactly zero."""
+    from .ops.fused_conv import conv2d_bn_infer, conv2d_bn_relu_train
+    if training is None:
+        training = _tape.is_training()
+    training = training and not use_global_stats
+    arrays = [x, weight, gamma, beta, running_mean, running_var]
+    arrays += [a for a in (bias, residual) if a is not None]
+    has_bias, has_res = bias is not None, residual is not None
+
+    def fn(xv, wv, g, b, rm, rv, *rest):
+        bv = rest[0] if has_bias else None
+        res = rest[int(has_bias)] if has_res else None
+        if training:
+            z, mean, var = conv2d_bn_relu_train(xv, wv, g, b, stride=stride, pad=pad, eps=eps,
+                                                relu=relu, residual=res, bias=bv)
+            return (z, *_blend(rm, rv, mean, var, momentum, bv))
+        z = conv2d_bn_infer(xv, wv, g, b, rm, rv, bias=bv, stride=stride, pad=pad, eps=eps,
+                            relu=relu, residual=res)
+        return z, rm, rv
+    return apply_multi(fn, arrays, "fused_conv_bn_relu")
+
+
+def fused_resnet_block(x, conv_params, bn_params, kind: str = "bottleneck", stride=(1, 1),
+                       eps: float = 1e-5, momentum: float = 0.9):
+    """Training-mode fused ResNet V1 block (``ops/fused_conv.py``): convs,
+    BNs, ReLUs and the residual add as one ``autograd.Function``.
+    ``conv_params`` is a list of (weight, bias or None), ``bn_params`` of
+    (gamma, beta, running_mean, running_var), the downsample pair last when
+    present. Returns ``(z, [(new_rm, new_rv), ...])``."""
+    from .ops.fused_conv import basic_v1_train, bottleneck_v1_train
+    n = len(conv_params)
+    has_bias = [b is not None for _, b in conv_params]
+    arrays = [x]
+    for (w, b), (g, be, rm, rv) in zip(conv_params, bn_params):
+        arrays += [w, g, be, rm, rv] + ([b] if b is not None else [])
+
+    def fn(xv, *flat):
+        packs, biases, i = [], [], 0
+        for k in range(n):
+            packs.append(flat[i:i + 5])
+            i += 5
+            biases.append(flat[i] if has_bias[k] else None)
+            i += int(has_bias[k])
+        run = bottleneck_v1_train if kind == "bottleneck" else basic_v1_train
+        z, stats = run(xv, [p[:3] for p in packs], stride=stride, eps=eps, biases=biases)
+        ups = []
+        for k in range(n):
+            ups += _blend(packs[k][3], packs[k][4], stats[2 * k], stats[2 * k + 1], momentum,
+                          biases[k])
+        return (z, *ups)
+    out = apply_multi(fn, arrays, "fused_resnet_block")
+    return out[0], [(out[1 + 2 * k], out[2 + 2 * k]) for k in range(n)]
 
 
 def rms_norm(x, gamma=None, axis: int = -1, eps: float = 1e-6):
@@ -501,7 +780,8 @@ def dropout(data, p: float = 0.5, mode: str = "training", axes=None,
 
 def embedding(data, weight, input_dim=None, output_dim=None, dtype=None,
               sparse_grad: bool = False):
-    return apply(lambda i, w: torch.nn.functional.embedding(i.long(), w), data, weight)
+    return apply(lambda i, w: torch.nn.functional.embedding(i.long(), w), data, weight,
+                 name="embedding")
 
 
 def one_hot(indices, depth: int, on_value=1.0, off_value=0.0, dtype=None):

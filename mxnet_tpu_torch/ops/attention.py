@@ -323,7 +323,8 @@ def attention(q, k, v, causal: bool = False, scale: Optional[float] = None):
     the card runs K1 forward and K2 in the tape's backward; tensors go
     straight to :func:`flash_attention`."""
     from ..ndarray import apply
-    return apply(lambda a, b, c: flash_attention(a, b, c, causal, scale), q, k, v)
+    return apply(lambda a, b, c: flash_attention(a, b, c, causal, scale), q, k, v,
+                 name="flash_attention")
 
 
 class _CallableModule(types.ModuleType):

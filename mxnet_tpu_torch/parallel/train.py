@@ -37,13 +37,14 @@ from __future__ import annotations
 
 import time
 from collections import deque
+from contextlib import nullcontext
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .. import _prng
+from .. import _prng, _tape, autograd
 from .. import metrics as _metrics
 from .. import optimizer as opt_mod
 from .._random import KeySupply
@@ -61,6 +62,19 @@ def _as_tensors(xs, device):
         xs = (xs,)
     return tuple(x.to(device) if torch.is_tensor(x)
                  else torch.as_tensor(np.asarray(x), device=device) for x in xs)
+
+
+def _finish_deferred(net, example_inputs):
+    """Initialize a gluon block's deferred parameters with one forward of
+    ``example_inputs`` in training mode (the JAX package traces the step
+    with ``training=True``), in the order that forward reaches them."""
+    from ..gluon.block import CachedOp
+    from ..ndarray import NDArray
+    if all(p._var is not None for p in net.collect_params().values()):
+        return
+    xs = tuple(x if isinstance(x, NDArray) else NDArray(x) for x in example_inputs)
+    with autograd.train_mode():
+        CachedOp(net)._ensure_params(xs)
 
 
 def trainable(net):
@@ -121,7 +135,11 @@ class TrainStep:
         oldest step's CUDA event. ``None`` leaves :meth:`step` unbounded.
 
         Switches ``net`` to training mode (the JAX package traces the step
-        with ``training=True``)."""
+        with ``training=True``): an ``nn.Module`` by ``net.train()``; a
+        gluon block runs each forward under ``autograd.train_mode()``, its
+        deferred parameters initialized first by one forward of
+        ``example_inputs``. BatchNorm's running statistics move once a
+        step, with or without ``remat``."""
         for flag, name in ((mesh is not None, "mesh"), (bool(zero), "zero"),
                            (bool(compression_params), "compression_params"),
                            (health, "health")):
@@ -129,7 +147,13 @@ class TrainStep:
                 raise MXNetError(f"TrainStep({name}=...) {_LATER}")
         if block_every is not None and block_every < 1:
             raise MXNetError(f"block_every must be >= 1, got {block_every}")
-        self.net = net.train()
+        from ..gluon.block import Block
+        self._gluon = isinstance(net, Block)
+        if self._gluon:
+            _finish_deferred(net, example_inputs)
+        else:
+            net.train()
+        self.net = net
         self.loss_fn = loss_fn
         self.remat = remat
         self.block_every = block_every
@@ -146,13 +170,29 @@ class TrainStep:
         # a stream's work in order, so a later event implies the earlier)
         self._inflight: deque = deque(maxlen=None if block_every else 8)
 
-    def _apply(self, inputs, t):
-        with KeySupply(_prng.key(t)):
-            return self.net(*inputs)
+    def _apply(self, inputs, t, calls=None):
+        """The model's forward in step t's key supply (a gluon block in
+        training mode, under the caller's AMP policy). Under ``remat`` the
+        second call is the backward's recompute, on the autograd thread:
+        it enters the same scopes, and its parameter writes (BatchNorm's
+        running statistics) are dropped, as they were made in the first."""
+        recompute = bool(calls)
+        if calls is not None:
+            calls.append(t)
+        st = _tape.STATE
+        prev = (st.amp_policy, st.recomputing)
+        st.amp_policy, st.recomputing = self._amp, recompute
+        try:
+            with KeySupply(_prng.key(t)), \
+                    autograd.train_mode() if self._gluon else nullcontext():
+                return self.net(*inputs)
+        finally:
+            st.amp_policy, st.recomputing = prev
 
     def _loss(self, inputs, labels, t):
+        self._amp = _tape.STATE.amp_policy
         if self.remat:
-            outs = checkpoint(self._apply, inputs, t, use_reentrant=False)
+            outs = checkpoint(self._apply, inputs, t, [], use_reentrant=False)
         else:
             outs = self._apply(inputs, t)
         loss = self.loss_fn(outs) if labels is None else self.loss_fn(outs, *labels)

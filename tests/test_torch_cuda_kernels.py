@@ -15,6 +15,7 @@ import torch
 
 import chip_smoke
 from mxnet_tpu_torch import _build
+from mxnet_tpu_torch import numpy_extension as npx
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.contrib.quantization import quantize_net
 from mxnet_tpu_torch.models import GPTConfig, GPTModel
@@ -1581,3 +1582,55 @@ def test_trained_tied_llama_serves_its_head_through_k3(cuda):
     head = sum(n for key, n in int8_gemv.gemv_widths().items()
                if key.endswith(f":{fb.pad_vocab(640)}"))
     assert head >= 4, int8_gemv.gemv_widths()
+
+
+@pytest.fixture
+def card(cuda):
+    """The card with TF32 off (cuDNN's f32 convolutions in full f32): these
+    cases hold cuDNN against the CPU."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = prev
+
+
+CONV_CARD_CASES = {
+    "conv2d_nhwc": lambda v: npx.convolution(v[0], v[1], v[2], stride=2, pad=1,
+                                             layout="NHWC"),
+    "conv2d_grouped": lambda v: npx.convolution(v[3], v[4], stride=1, pad=1, num_group=2,
+                                                dilate=2),
+    "deconv2d_adj": lambda v: npx.deconvolution(v[3], v[5], stride=2, pad=1, adj=2),
+    "pool_max_full_nhwc": lambda v: npx.pooling(v[0], kernel=3, stride=2, pad=1,
+                                                pooling_convention="full", layout="NHWC"),
+    "pool_avg_full": lambda v: npx.pooling(v[3], kernel=3, stride=2, pad=1, pool_type="avg",
+                                           pooling_convention="full",
+                                           count_include_pad=False),
+    "fused_conv_bn_relu": lambda v: npx.fused_conv_bn_relu(
+        v[0], v[1], v[6], v[7], v[8], v[9], stride=(2, 2), pad=(1, 1), training=True)[0],
+}
+
+
+@pytest.mark.parametrize("case", sorted(CONV_CARD_CASES))
+def test_conv_path_card_matches_cpu(card, case):
+    """The conv path's forward and input gradients on the card (cuDNN,
+    channels-last views) against the CPU at small shapes, f32: outputs
+    within 1e-4 of their max-abs scale, gradients 1e-4 relative L2."""
+    rng = onp.random.RandomState(90)
+    arrays = [rng.randn(2, 9, 9, 4), rng.randn(6, 3, 3, 4), rng.randn(6),
+              rng.randn(2, 4, 9, 9), rng.randn(6, 2, 3, 3), rng.randn(4, 3, 3, 3),
+              rng.rand(6) + 0.5, rng.randn(6), rng.randn(6), rng.rand(6) + 0.5]
+    res = []
+    for dev in ("cuda", "cpu"):
+        ts = [torch.tensor(a, dtype=torch.float32, device=dev, requires_grad=True)
+              for a in arrays]
+        out = CONV_CARD_CASES[case](ts)
+        ct = torch.from_numpy(onp.random.RandomState(91).randn(*out.shape).astype("float32"))
+        grads = torch.autograd.grad((out * ct.to(dev)).sum(), ts, allow_unused=True)
+        res.append((out.detach().cpu().numpy(),
+                    [None if g is None else g.cpu().numpy() for g in grads]))
+    (out_c, g_c), (out_h, g_h) = res
+    assert onp.abs(out_c - out_h).max() <= 1e-4 * onp.abs(out_h).max()
+    for a, b in zip(g_c, g_h):
+        assert (a is None) == (b is None)
+        if a is not None and onp.abs(b).max() > 0:
+            assert onp.linalg.norm(a - b) <= 1e-4 * onp.linalg.norm(b)

@@ -16,7 +16,7 @@ import mxnet_tpu.serve
 import mxnet_tpu_torch
 
 # JAX modules with no counterpart in the port yet (ROADMAP Queue 1 item 8)
-_LAZY_NOT_PORTED = {"pipeline", "runtime", "aot", "amp", "io", "recordio", "image", "nd",
+_LAZY_NOT_PORTED = {"pipeline", "runtime", "aot", "io", "recordio", "image", "nd",
                     "tune", "sparse", "engine", "util", "test_utils", "metric", "onnx",
                     "visualization", "viz", "library", "benchmark", "sym", "symbol",
                     "operator"}
