@@ -252,6 +252,42 @@
    times a step and the plain attention never. The phase starts only with
    at most LT_HELD_GB still allocated.
 
+12. ``nlp_train``: BERT and T5 train on the card. (a) ``bench.py``'s
+   ``bench_bert_base_ft`` configuration: ``BertForSequenceClassification(
+   BertConfig(), num_classes=2)``, ``random.seed(0)``, ``initialize()``,
+   ``amp.convert_hybrid_block(net, "bfloat16")``, B 32 ids of T 128 from
+   ``--seed``, zero token types, labels in {0, 1}, ``TrainStep`` with Adam
+   at 2e-5, one warm ``run(steps=20)`` and three timed ones: finite
+   losses, the classifier moved, K1/K2 never launched (T 128 with
+   attention dropout takes the einsum route), the attention dropout drawn
+   once a layer every step; ms a step (median and spread of the trials),
+   examples/s, MFU by ``bench.py``'s analytic formula, peak memory and one
+   profiled step split into GEMMs, the attention einsums and softmax, the
+   dropout mask hashing, LayerNorm and GELU, Adam and the rest; the
+   trained net's Accuracy, F1 and MCC from CUDA tensors equal to those
+   from host copies. (b) ``BertForPretraining(BertConfig(
+   attention_dropout=0.0))``, bf16 through AMP over f32 master weights, B
+   8, T 512, MLM + NSP,
+   LAMB at 1e-3, 8 steps, K1 and K2 first timed at its attention shape (B
+   8, 12 heads of 64, T 512) against their plain versions and SDPA:
+   finite losses, the last below the first, K1 and K2 each 12 times a
+   step and the plain attention never; an inference forward at attention
+   dropout 0.1 launches K1 12 times and K2 never; a right-padded
+   key-masked batch launches neither and, on the f32 master weights, its
+   valid prefix equals the truncated batch's within one bf16 step and
+   BERT_MASK_ROW_TOL at every position, a planted ignored mask not. (c) f32,
+   the card against the CPU from the same weights and step keys, 2 SGD
+   steps: a narrow BERT (hidden 128, 2 heads of 64, 2 layers) on the
+   einsum route with a key mask and both dropouts (T 288), on K1/K2 (T
+   288), on the chunked route (T 640, key mask, attention dropout), and
+   T5_TINY: gradients leaf by leaf within CARD_CPU_GRAD_TOL, parameters
+   within CARD_CPU_PARAM_TOL. (d) T5-small (``T5Config()``), bf16 through
+   AMP, B 16, sources of 512 and targets of 128 tokens, Adam at 1e-4, 5
+   steps: finite falling losses, no K1/K2 launch. (e) Every registered
+   optimizer, 3 updates of an f32 and a bf16 tensor, card against CPU;
+   SGLD's noise bit for bit. The phase starts only with at most
+   LT_HELD_GB still allocated.
+
 Informational JSON lines come first; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without that line. It needs one CUDA card and refuses to
@@ -4961,6 +4997,741 @@ def vision_train(torch, args, timer, gen):
     return rows
 
 
+# phase 12 (nlp_train). (a) bench_bert_base_ft's configuration (bench.py:131-175)
+BERT_FT_B, BERT_FT_T, BERT_FT_STEPS, BERT_FT_TRIALS, BERT_FT_LR = 32, 128, 20, 3, 2e-5
+# (b) BERT-base pretraining at full length: B 8, T 512, LAMB, 8 steps (the
+# first two steps of the post-LN BERT at initialization raise its loss: on
+# the H100 11.58, 12.15, 12.80, then 11.90, 11.61, 11.31), and the valid
+# prefix of a batch masked from position 384 on
+BERT_PT_B, BERT_PT_T, BERT_PT_STEPS, BERT_PT_LR, BERT_PT_VALID = 8, 512, 8, 1e-3, 384
+# the masked batch's valid prefix against the truncated batch on the f32
+# master weights, per position: |diff|_2 / |truncated|_2 (the H100 read
+# 1.1e-6). In bf16 the two runs' GEMMs, of other row counts, round apart by
+# 0.72% at the worst position, more than an ignored mask moves the median
+# one (0.66%) after (b)'s steps, so the bf16 run is reported, not gated.
+# The same f32 run with the mask ignored must read above it at most rows
+BERT_MASK_ROW_TOL = 1e-4
+# (c) card against CPU: a narrow BERT (2 heads of 64) at B 2, and T5_TINY
+NLP_NARROW = dict(hidden_size=128, num_layers=2, num_heads=2, intermediate_size=512)
+NLP_CPU_B, NLP_CPU_STEPS = 2, 2
+# a leaf's gradient error is taken against at least this share of the whole
+# step's gradient norm (the H100 read the key biases' gradients, 0 in exact
+# arithmetic, 1.7 apart relative to their own size)
+NLP_GRAD_FLOOR = 1e-4
+# (d) T5-small at T5's fine-tuning lengths, Adam (the JAX package has no Adafactor)
+T5_B, T5_SRC, T5_TGT, T5_STEPS, T5_LR = 16, 512, 128, 5, 1e-4
+# (e) each registered optimizer: 3 update steps of an f32 and a bf16 tensor
+OPT_SHAPE, OPT_STEPS = (256, 384), 3
+OPT_KW = dict(learning_rate=0.05, wd=0.01, clip_gradient=1.5, rescale_grad=0.5)
+NLP_SPLIT = ("gemm", "attention", "dropout_mask", "layernorm_gelu", "optimizer", "other")
+# the ops that launch the dense layers' GEMMs, forward and backward
+GEMM_OPS = ("aten::addmm", "aten::mm", "aten::bmm", "aten::baddbmm")
+EVAL_FN = "autograd::engine::evaluate_function: "
+
+
+def bert_flops(cfg, B, T, mlm=False):
+    """bench.py's analytic training FLOPs (3 x forward): per layer 24 B T D^2
+    (q, k, v, out and the 4D MLP) + 4 B T^2 D (attention), the pooler and
+    the classifier; with ``mlm`` the pretraining heads (transform D x D and
+    the vocab decoder) in place of the classifier."""
+    L, D = cfg.num_layers, cfg.hidden_size
+    body = L * (24 * B * T * D * D + 4 * B * T * T * D) + 2 * B * D * D
+    heads = (2 * B * T * D * D + 2 * B * T * D * cfg.vocab_size + 2 * B * D * 2) if mlm \
+        else 2 * B * D * 2
+    return 3 * (body + heads)
+
+
+def t5_flops(cfg, B, S, T):
+    """Analytic training FLOPs (3 x forward) of T5 over sources of S and
+    targets of T: the projections, MLPs and attention products of both
+    stacks, the cross-attention and the tied head."""
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.num_layers
+    enc = 8 * B * S * d * d + 4 * B * S * d * f + 4 * B * S * S * d
+    dec = (8 * B * T * d * d + 4 * B * T * d * d + 4 * B * S * d * d + 4 * B * T * d * f
+           + 4 * B * T * T * d + 4 * B * T * S * d)
+    return 3 * (L * (enc + dec) + 2 * B * T * d * cfg.vocab_size)
+
+
+def on(device):
+    """The port's device scope for ``device`` ("cpu" or "cuda")."""
+    import mxnet_tpu_torch as mx
+    return mx.cpu() if device == "cpu" else mx.gpu(0)
+
+
+class Counting:
+    """Count the calls of module attributes while inside: ``targets`` is
+    {label: (module, name)}; ``.counts`` holds the calls per label."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.counts = dict.fromkeys(targets, 0)
+        self._real = {}
+
+    def __enter__(self):
+        for label, (mod, name) in self.targets.items():
+            real = self._real[label] = getattr(mod, name)
+
+            def counted(*a, _real=real, _label=label, **k):
+                self.counts[_label] += 1
+                return _real(*a, **k)
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for label, (mod, name) in self.targets.items():
+            setattr(mod, name, self._real[label])
+
+    def reset(self):
+        self.counts = dict.fromkeys(self.targets, 0)
+
+
+def plain_attention_targets():
+    """The non-kernel routes of ``flash_attention_bthd`` and ``flash_attention``."""
+    from mxnet_tpu_torch.ops import attention as fa
+    return {"einsum": (fa, "_xla_attention"), "chunked": (fa, "_chunked_reference"),
+            "fallback": (fa, "_fallback")}
+
+
+def split_ranges():
+    """(category, module, function) whose calls one profiled NLP step puts
+    in ``record_function`` ranges."""
+    from mxnet_tpu_torch import numpy_extension as npx
+    from mxnet_tpu_torch.ops import attention as fa
+    from mxnet_tpu_torch.parallel import train as tr
+    return (("attention", fa, "_xla_attention"), ("attention", fa, "_chunked_reference"),
+            ("dropout_mask", npx, "_cheap_keep_mask"), ("layernorm_gelu", npx, "layer_norm"),
+            ("layernorm_gelu", npx, "gelu"), ("optimizer", tr, "apply_updates"))
+
+
+def node_seq(torch):
+    """The sequence number the next autograd node made on this thread
+    takes (a probe node's own number, plus one)."""
+    return torch.empty(0, requires_grad=True).view(0).grad_fn._sequence_nr() + 1
+
+
+def attribute(events, self_time, spans_of):
+    """Time of one profiled step by category from the profiler's host
+    events, each op's own time (``self_time(e)``: the device time of the
+    kernels it launched on the card, its host time in a CPU rehearsal)
+    counted once: an op inside a ``split_ranges`` range (forward) goes to
+    the innermost range's category; an op inside an autograd node
+    (``evaluate_function``) to the category whose range made that node
+    (``spans_of``: category -> the [first, last) node sequence numbers
+    each call made); the remaining GEMM ops (``aten::mm``, ``addmm``,
+    ``bmm``) to GEMMs; the rest to ``other``."""
+    from torch.autograd import DeviceType
+    out = dict.fromkeys(NLP_SPLIT, 0.0)
+    by_op = {}
+
+    def made_by(seq):
+        return next((cat for cat, spans in spans_of.items()
+                     if any(lo <= seq < hi for lo, hi in spans)), None)
+    for e in events:
+        if e.device_type != DeviceType.CPU or e.name.startswith("mx_split:"):
+            continue                    # kernels count with their op; a range's own
+            # time is its device window
+        cat = node = None
+        p = e.cpu_parent
+        while p is not None and cat is None:
+            if p.name.startswith("mx_split:"):
+                cat = p.name[len("mx_split:"):]
+            elif node is None and p.name.startswith(EVAL_FN):
+                node = p
+            p = p.cpu_parent
+        if cat is None and node is not None:
+            cat = made_by(node.sequence_nr)
+        if cat is None:
+            cat = "gemm" if e.name in GEMM_OPS else "other"
+        t = self_time(e)
+        out[cat] += t
+        key = f"{cat}:{e.name}"
+        by_op[key] = by_op.get(key, 0.0) + t
+    return out, by_op
+
+
+def nlp_split(torch, step, inputs, labels, device="cuda"):
+    """One training step under ``torch.profiler`` (host and device
+    activity): device ms by category (``attribute``: GEMMs, the attention
+    einsums and softmax, the dropout mask hashing, LayerNorm and GELU, the
+    optimizer's update, other) against the device's busy time and the
+    step's wall time. ``device='cpu'`` rehearses the attribution with host
+    times."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    cuda = device == "cuda"
+    real = [(mod, name, getattr(mod, name)) for _, mod, name in split_ranges()]
+    spans_of = {cat: [] for cat, _, _ in split_ranges()}
+    for (cat, mod, name), (_, _, fn) in zip(split_ranges(), real):
+        def ranged(*a, _fn=fn, _cat=cat, **k):
+            lo = node_seq(torch)
+            with record_function("mx_split:" + _cat):
+                out = _fn(*a, **k)
+            spans_of[_cat].append((lo, node_seq(torch)))
+            return out
+        setattr(mod, name, ranged)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    try:
+        sync(torch, device)
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            step(inputs, labels)
+            sync(torch, device)
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for mod, name, fn in real:
+            setattr(mod, name, fn)
+    events = prof.events()
+    if cuda:
+        # the ranges show on the device's timeline too, as annotations
+        spans = [sp for sp in device_spans(prof) if not sp[2].startswith("mx_split:")]
+        if not spans:
+            return "not measured"
+        busy = busy_us(spans) / 1e3
+        ms, by_op = attribute(events, lambda e: e.self_device_time_total, spans_of)
+    else:
+        busy = wall
+        ms, by_op = attribute(events, lambda e: e.self_cpu_time_total, spans_of)
+    ms = {k: v / 1e3 for k, v in ms.items()}
+    counted = sum(ms.values())
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:12]
+    out = {"wall_ms": wall, "busy_ms": busy, "idle_share": 1.0 - busy / wall, "ms": ms,
+           "attributed_ms": counted, "share": {k: v / counted for k, v in ms.items()},
+           "top_ops_ms": [[k[:100], v / 1e3] for k, v in top],
+           "clock": "device" if cuda else "host"}
+    if cuda:
+        by_name = {}
+        for a, b, n in spans:
+            by_name[n] = by_name.get(n, 0.0) + (b - a) / 1e3
+        out["device_ops"] = len(spans)
+        out["gemm_kernels_by_name_ms"] = sum(t for n, t in by_name.items()
+                                             if kernel_class(n) == "gemm")
+        out["top_kernels_ms"] = [[n[:120], t] for n, t in
+                                 sorted(by_name.items(), key=lambda kv: -kv[1])[:12]]
+    return out
+
+
+def bert_ft(torch, args, device="cuda", steps=BERT_FT_STEPS, trials=BERT_FT_TRIALS, cfg=None):
+    """(a) ``bench_bert_base_ft``'s configuration: BertForSequenceClassification
+    (BertConfig(), 2 classes), ``random.seed(0)``, ``initialize()``, bf16
+    through ``amp.convert_hybrid_block``; B 32 ids of T 128 from
+    ``--seed``, zero token types, labels in {0, 1}; ``TrainStep`` with
+    Adam at 2e-5; one warm ``run(steps=20)``, then ``trials`` timed runs.
+    Gates: finite losses, parameters moved, K1/K2 never launched (T 128
+    with attention dropout takes the einsum route), the attention dropout
+    drawn once a layer every step. Then the trained net's predictions
+    scored with Accuracy, F1 and MCC from CUDA tensors equal the scores
+    from host copies. ``device='cpu'`` (a narrow ``cfg``) rehearses it."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, autograd, optimizer, parallel
+    from mxnet_tpu_torch.gluon import metric
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import BertConfig, BertForSequenceClassification
+    from mxnet_tpu_torch.ops import attention as fa
+    from mxnet_tpu_torch.ops.int8_gemv import launches, reset_launches
+    cfg = cfg or BertConfig()
+    B, T = BERT_FT_B, BERT_FT_T
+    with on(device):
+        mx.random.seed(0)
+        net = BertForSequenceClassification(cfg, num_classes=2)
+        net.initialize()
+    amp.convert_hybrid_block(net, "bfloat16")
+    rng = np.random.RandomState(args.seed)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, T)).astype(np.int32)).to(device)
+    types = torch.zeros(B, T, dtype=torch.int32, device=device)
+    labels = torch.from_numpy(rng.randint(0, 2, B).astype(np.int32)).to(device)
+    step = parallel.TrainStep(net, SoftmaxCrossEntropyLoss(), optimizer.Adam(
+        learning_rate=BERT_FT_LR), example_inputs=[ids, types])
+    probe = dict(step._params)["classifier.weight"]
+    before = probe.detach().clone()
+    draws = Counting({"mask": (fa, "_dropout_keep")})
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with draws:
+        reset_launches()
+        warm = step.run((ids, types), labels, steps=steps).item()
+        times, losses = [], [warm]
+        for _ in range(trials):
+            sync(torch, device)
+            t0 = time.perf_counter()
+            losses.append(step.run((ids, types), labels, steps=steps).item())
+            sync(torch, device)
+            times.append((time.perf_counter() - t0) * 1e3 / steps)
+        counts = launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None
+    split = nlp_split(torch, step, (ids, types), labels, device)
+    moved = float((probe.detach().float() - before.float()).abs().max())
+    with autograd.predict_mode(), torch.no_grad():
+        logits = net(ids, types)
+    scores = {}
+    for name in ("Accuracy", "F1", "MCC"):
+        on_card, on_host = getattr(metric, name)(), getattr(metric, name)()
+        on_card.update([labels], [logits])
+        on_host.update([labels.cpu().numpy()], [logits.float().cpu().numpy()])
+        scores[name] = {"card": on_card.get()[1], "host": on_host.get()[1]}
+    ms = statistics.median(times)
+    flops = bert_flops(cfg, B, T)
+    run_steps = steps * (trials + 1)           # the warm run and the trials
+    report = {"model": "bert-base", "config": "bench_bert_base_ft", "B": B, "T": T,
+              "dtype": "bfloat16", "optimizer": f"adam lr {BERT_FT_LR}",
+              "steps_per_run": steps, "trials": trials, "losses_per_run": losses,
+              "ms_per_step_trials": times, "ms_per_step": ms,
+              "spread": (max(times) - min(times)) / min(times),
+              "examples_per_s": B / ms * 1e3, "flops_per_step": flops,
+              "mfu": flops / (ms / 1e3) / BF16_FLOP_PER_S, "peak_mem_gb": peak,
+              "launches": counts, "attention_mask_draws": draws.counts["mask"],
+              "steps_counted": run_steps, "classifier_moved": moved,
+              "scores": scores, "profiled_step": split, "device": device}
+    emit({"nlp_train_bert_ft": report})
+    check(all(math.isfinite(x) for x in losses), f"non-finite BERT fine-tune loss: {losses}")
+    check(moved > 0, "the classifier did not move")
+    check(counts.get("flash_fwd", 0) == 0 and counts.get("flash_bwd", 0) == 0,
+          f"K1/K2 launched at T {T} with attention dropout: {counts}")
+    check(draws.counts["mask"] == cfg.num_layers * run_steps,
+          f"attention dropout drawn {draws.counts['mask']} times in {run_steps} steps "
+          f"of {cfg.num_layers} layers")
+    for name, s in scores.items():
+        check(s["card"] == s["host"], f"{name} from card tensors {s['card']} != host {s['host']}")
+    del step, net
+    return report
+
+
+def pretraining_loss():
+    """BERT pretraining's loss per example: MLM cross-entropy over every
+    position plus NSP cross-entropy, on f32 logits (a bf16 loss of about 11
+    moves in steps of 1/16)."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    mlm, nsp = SoftmaxCrossEntropyLoss(axis=-1), SoftmaxCrossEntropyLoss()
+
+    def loss(outs, mlm_labels, nsp_labels):
+        return mlm(outs[0].float(), mlm_labels) + nsp(outs[1].float(), nsp_labels)
+    return loss
+
+
+def pretraining_batch(torch, args, cfg, B, T, device):
+    """Ids, token types (sentence A then B), MLM labels at every position
+    (the input tokens, which MLM recovers) and NSP labels, from
+    ``--seed``."""
+    import numpy as np
+    rng = np.random.RandomState(args.seed + 1)
+    ids = rng.randint(0, cfg.vocab_size, (B, T)).astype(np.int32)
+    types = (np.arange(T)[None, :] >= T // 2).repeat(B, 0).astype(np.int32)
+    mlm = ids.copy()
+    nsp = rng.randint(0, 2, B).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(device) for a in (ids, types, mlm, nsp))
+
+
+def masked_prefix(torch, net, ids, types, mask, valid):
+    """The encoder's output on ``ids`` under a key mask of ``valid``
+    leading keys against its output on the first ``valid`` tokens alone:
+    the largest difference, one bf16 step at the largest value, the worst
+    position's relative error |diff|_2 / |truncated|_2, and the median
+    position's with the mask ignored (a planted fault); and the kernel
+    launches of the masked run."""
+    from mxnet_tpu_torch.ops.int8_gemv import launches, reset_launches
+    reset_launches()
+    masked, _ = net.bert(ids, types, mask)
+    launched = {k: launches().get(k, 0) for k in ("flash_fwd", "flash_bwd")}
+    trunc, _ = net.bert(ids[:, :valid], types[:, :valid])
+    unmasked, _ = net.bert(ids, types)
+    ref = trunc.float()
+
+    def rows(out):
+        d = out[:, :valid].float() - ref
+        return d, d.norm(dim=-1) / ref.norm(dim=-1)
+    diff, err = rows(masked)
+    return {"max_abs": float(diff.abs().max()),
+            "one_bf16_step_at_max": 2.0 ** (math.floor(math.log2(float(ref.abs().max()))) - 7),
+            "row": float(err.max()), "ignored_median_row": float(rows(unmasked)[1].median()),
+            "masked_launches": launched}
+
+
+def bert_pretrain(torch, args, timer, gen, device="cuda", cfg=None, B=BERT_PT_B, T=BERT_PT_T,
+                  valid=BERT_PT_VALID):
+    """(b) BertForPretraining(BertConfig(attention_dropout=0.0)), bf16
+    through AMP over f32 master weights (``cast_params=False``), B 8, T
+    512, no key mask, LAMB at 1e-3 through ``TrainStep``, BERT_PT_STEPS
+    steps. First K1 and K2 at its attention shape (B 8, 12 heads of 64, T
+    512, not causal, bf16) against their plain versions and beside SDPA.
+    Gates: finite losses, the last below the first; K1 and K2 each once a
+    layer every step and the plain attention never; an inference forward
+    at attention dropout 0.1 launches K1 once a layer and K2 never; a
+    right-padded key-masked batch launches neither, and on the f32
+    master weights its valid prefix's sequence output equals the truncated
+    batch's within one bf16 step at the largest value and BERT_MASK_ROW_TOL
+    at every position, while with the mask ignored it does not at most
+    positions (``masked_prefix``; the bf16 run is reported). Returns (kernel case, K1 and K2 launches over the steps).
+    ``device='cpu'`` (a narrow ``cfg``, no timer) rehearses it."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, autograd, optimizer, parallel
+    from mxnet_tpu_torch.models import BertConfig, BertForPretraining
+    from mxnet_tpu_torch.ops.int8_gemv import launches, reset_launches
+    cfg = cfg or BertConfig(attention_dropout=0.0)
+    H, D = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    kern = None
+    if timer is not None:
+        kern = flash_case(torch, timer, gen, B, H, T, T, D, False, torch.bfloat16, timed=True)
+        emit({"nlp_train_bert_flash_case": kern})
+        torch.cuda.empty_cache()
+    with on(device):
+        mx.random.seed(args.seed)
+        net = BertForPretraining(cfg)
+        net.initialize()
+    # bf16 compute over f32 master weights: LAMB's steps (lr 1e-3 of a
+    # tensor's norm) are below half a bf16 step of most weights
+    amp.convert_hybrid_block(net, "bfloat16", cast_params=False)
+    ids, types, mlm, nsp = pretraining_batch(torch, args, cfg, B, T, device)
+    step = parallel.TrainStep(net, pretraining_loss(),
+                              optimizer.LAMB(learning_rate=BERT_PT_LR), [ids, types])
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, times, counts = [], [], []
+    with Counting(plain_attention_targets()) as plain:
+        for _ in range(BERT_PT_STEPS):
+            sync(torch, device)
+            reset_launches()
+            t0 = time.perf_counter()
+            loss = step((ids, types), (mlm, nsp))
+            losses.append(loss.float().item())
+            times.append((time.perf_counter() - t0) * 1e3)
+            c = launches()
+            counts.append({k: c.get(k, 0) for k in ("flash_fwd", "flash_bwd")})
+        train_plain = dict(plain.counts)
+        peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None
+        # inference at the default attention dropout: K1 only
+        plain.reset()
+        cfg.attention_dropout = 0.1
+        reset_launches()
+        with autograd.predict_mode(), torch.no_grad():
+            net(ids, types)
+            infer = {k: launches().get(k, 0) for k in ("flash_fwd", "flash_bwd")}
+            infer_plain = dict(plain.counts)
+            # a right-padded key mask against the truncated batch: the
+            # encoder alone on the f32 master weights (gated), and in bf16
+            mask = torch.zeros(B, T, device=device)
+            mask[:, :valid] = 1.0
+            prefix = {"f32": masked_prefix(torch, net, ids, types, mask, valid)}
+            with amp.autocast("bfloat16"):
+                prefix["bf16"] = masked_prefix(torch, net, ids, types, mask, valid)
+        cfg.attention_dropout = 0.0
+    f32 = prefix["f32"]
+    ms = statistics.median(times[1:])
+    flops = bert_flops(cfg, B, T, mlm=True)
+    L = cfg.num_layers
+    report = {"model": "bert-base pretraining (MLM + NSP)", "B": B, "T": T,
+              "dtype": "bfloat16 compute, f32 master weights", "attention_dropout": 0.0,
+              "hidden_dropout": cfg.hidden_dropout, "optimizer": f"lamb lr {BERT_PT_LR}",
+              "steps": BERT_PT_STEPS, "losses": losses, "step_ms": times, "ms_per_step": ms,
+              "tokens_per_s": B * T / ms * 1e3, "flops_per_step": flops,
+              "mfu": flops / (ms / 1e3) / BF16_FLOP_PER_S, "peak_mem_gb": peak,
+              "launches_per_step": counts, "plain_attention_calls": train_plain,
+              "inference_dropout_0.1_launches": infer,
+              "inference_plain_attention_calls": infer_plain,
+              "masked_valid": valid, "masked_prefix": prefix, "masked_row_tol": BERT_MASK_ROW_TOL, "device": device}
+    emit({"nlp_train_bert_pretrain": report})
+    check(all(math.isfinite(x) for x in losses), f"non-finite BERT pretraining loss: {losses}")
+    check(losses[-1] < losses[0], f"BERT pretraining loss did not fall: {losses}")
+    check(all(c == {"flash_fwd": L, "flash_bwd": L} for c in counts),
+          f"K1/K2 not launched {L} times a step: {counts}")
+    check(not any(train_plain.values()), f"the plain attention ran: {train_plain}")
+    check(infer == {"flash_fwd": L, "flash_bwd": 0} and not any(infer_plain.values()),
+          f"inference at attention dropout 0.1: {infer}, plain {infer_plain}")
+    for dt, r in prefix.items():
+        check(r["masked_launches"] == {"flash_fwd": 0, "flash_bwd": 0},
+              f"the key-masked batch launched {r['masked_launches']} ({dt})")
+    check(f32["max_abs"] <= f32["one_bf16_step_at_max"] and f32["row"] <= BERT_MASK_ROW_TOL,
+          f"masked prefix against the truncated batch (f32): {f32}")
+    check(f32["ignored_median_row"] > BERT_MASK_ROW_TOL,
+          f"an ignored mask passes the masked-prefix gate at most rows: {f32}")
+    del step, net
+    return kern, sum(c["flash_fwd"] for c in counts), sum(c["flash_bwd"] for c in counts)
+
+
+def nlp_pair(torch, args, build, card="cuda"):
+    """``build()`` on the CPU from ``--seed`` and its copy on ``card`` (the
+    same weights)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.interop import params_from_numpy
+    with mx.cpu():
+        mx.random.seed(args.seed)
+        cpu = build()
+        cpu.initialize()
+    with on(card):
+        net = build()
+        net.initialize()
+    params_from_numpy(net, {k: p.data().asnumpy() for k, p in cpu.collect_params().items()})
+    where = {t.device.type for _, t in net.named_parameters()}
+    check(where == {torch.device(card).type}, f"the {card} copy's parameters are on {where}")
+    return cpu, net
+
+
+def nlp_sgd_steps(torch, net, inputs, labels, loss_fn, device):
+    """NLP_CPU_STEPS f32 SGD steps (momentum 0.9, SGD_LR) of ``net`` on
+    ``device``: (losses, each step's gradients, parameters after, launches)."""
+    from mxnet_tpu_torch import optimizer, parallel
+    from mxnet_tpu_torch.interop import params_to_numpy
+    from mxnet_tpu_torch.ops.int8_gemv import launches, reset_launches
+    ins = [torch.from_numpy(a).to(device) for a in inputs]
+    lab = [torch.from_numpy(a).to(device) for a in labels]
+    losses, grads = [], []
+    with on(device):
+        step = parallel.TrainStep(net, loss_fn,
+                                  optimizer.SGD(learning_rate=SGD_LR, momentum=0.9), ins)
+        reset_launches()
+        for _ in range(NLP_CPU_STEPS):
+            losses.append(step(ins, lab).float().item())
+            grads.append(named_grads(torch, net))
+        c = launches()
+    return losses, grads, params_to_numpy(net), {k: c.get(k, 0) for k in ("flash_fwd",
+                                                                        "flash_bwd")}
+
+
+def nlp_cases(args):
+    """(c)'s configurations: (name, builder, inputs, labels, loss, the
+    attention route, the launches each step must make)."""
+    import numpy as np
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import (T5_TINY, BertConfig, BertForSequenceClassification,
+                                        T5Model)
+    rng = np.random.RandomState(args.seed + 2)
+    B = NLP_CPU_B
+
+    def bert(T, mask, **kw):
+        cfg = BertConfig(max_position_embeddings=max(512, T), hidden_dropout=0.1, **NLP_NARROW,
+                         **kw)
+        ids = rng.randint(0, cfg.vocab_size, (B, T)).astype(np.int32)
+        types = (np.arange(T)[None, :] >= T // 2).repeat(B, 0).astype(np.int32)
+        ins = [ids, types]
+        if mask:
+            m = np.ones((B, T), np.float32)
+            m[1, T - T // 3:] = 0.0
+            ins.append(m)
+        y = rng.randint(0, 2, B).astype(np.int32)
+        return lambda: BertForSequenceClassification(cfg, num_classes=2), ins, [y]
+
+    src = rng.randint(2, T5_TINY.vocab_size, (B, 24)).astype(np.int32)
+    tgt = src[:, :16]
+    dec = np.concatenate([np.zeros((B, 1), np.int32), tgt[:, :-1]], 1)
+    L = NLP_NARROW["num_layers"]
+    return [("bert_einsum_T288", *bert(288, True, attention_dropout=0.1),
+             SoftmaxCrossEntropyLoss(), "einsum, key mask, attention dropout", 0),
+            ("bert_kernels_T288", *bert(288, False, attention_dropout=0.0),
+             SoftmaxCrossEntropyLoss(), "K1/K2", L),
+            ("bert_chunked_T640", *bert(640, True, attention_dropout=0.1),
+             SoftmaxCrossEntropyLoss(), "chunked, key mask, attention dropout", 0),
+            ("t5_tiny", lambda: T5Model(T5_TINY), [src, dec], [tgt],
+             SoftmaxCrossEntropyLoss(axis=-1), "t5 einsums", 0)]
+
+
+def floored_errors(got, want):
+    """{name: |got - want|_2 / max(|want|_2, NLP_GRAD_FLOOR x |all of want|_2)},
+    leaf by leaf: the key projection's bias has a gradient of 0 in exact
+    arithmetic (a softmax ignores a constant added to a query's scores),
+    so both devices' values are rounding noise, which the whole step's
+    gradient norm scales."""
+    total = math.sqrt(sum(float(w.norm()) ** 2 for w in want.values()))
+    return {n: float((got[n] - w).norm()) / max(float(w.norm()), NLP_GRAD_FLOOR * total)
+            for n, w in want.items()}
+
+
+def nlp_card_vs_cpu(torch, args, card="cuda"):
+    """(c) f32, card against CPU from the same weights, batch and step keys,
+    2 SGD steps each: the narrow BERT on the einsum route with a key mask
+    and both dropouts at 0.1 (T 288), on K1/K2 (T 288, no mask, attention
+    dropout 0), on the chunked route (T 640, key mask, attention dropout
+    0.1), and T5_TINY. Gates: each step's gradients leaf by leaf within
+    CARD_CPU_GRAD_TOL (``floored_errors``), the parameters after within
+    CARD_CPU_PARAM_TOL, K1
+    and K2 launched on the card once a layer a step on the kernel case and
+    never on the others."""
+    out = {}
+    for name, build, inputs, labels, loss_fn, route, per_step in nlp_cases(args):
+        cpu, net = nlp_pair(torch, args, build, card)
+        lc, gc, pc, nc = nlp_sgd_steps(torch, net, inputs, labels, loss_fn, card)
+        lh, gh, ph, _ = nlp_sgd_steps(torch, cpu, inputs, labels, loss_fn, "cpu")
+        errs = [worst(floored_errors(a, b)) for a, b in zip(gc, gh)]
+        raw = [worst(leaf_errors(a, b)) for a, b in zip(gc, gh)]
+        pdiff = max(float(abs(pc[n] - ph[n]).max()) for n in ph)
+        out[name] = {"route": route, "T": int(inputs[0].shape[1]),
+                     "losses": {"card": lc, "cpu": lh}, "grad_rel_l2_worst_leaf": errs,
+                     "grad_rel_l2_unfloored": raw,
+                     "max_param_diff": pdiff, "card_launches": nc,
+                     "card_launches_want": per_step * NLP_CPU_STEPS}
+        del cpu, net
+    emit({"nlp_train_card_vs_cpu": {"cases": out, "steps": NLP_CPU_STEPS, "B": NLP_CPU_B,
+                                    "narrow_bert": NLP_NARROW,
+                                    "tol": {"grad": CARD_CPU_GRAD_TOL,
+                                            "param": CARD_CPU_PARAM_TOL}}})
+    for name, r in out.items():
+        for i, e in enumerate(r["grad_rel_l2_worst_leaf"]):
+            check(e["rel_l2"] <= CARD_CPU_GRAD_TOL,
+                  f"{name}: card/CPU step-{i + 1} gradients {e} > {CARD_CPU_GRAD_TOL}")
+        check(r["max_param_diff"] <= CARD_CPU_PARAM_TOL,
+              f"{name}: card/CPU parameters differ by {r['max_param_diff']}")
+        want = r["card_launches_want"]
+        check(r["card_launches"] == {"flash_fwd": want, "flash_bwd": want},
+              f"{name}: card launches {r['card_launches']}, want {want} each")
+    return out
+
+
+def t5_train(torch, args, device="cuda", cfg=None, B=T5_B, S=T5_SRC, T=T5_TGT):
+    """(d) T5-small at full width (``T5Config()``), bf16 through AMP, B 16,
+    sources of 512 and targets of 128 tokens (a copy batch from
+    ``--seed``), Adam at 1e-4 through ``TrainStep``, 5 steps. Gates:
+    finite falling losses (cross-entropy over every target position, on
+    f32 logits), no K1/K2 launch. ``device='cpu'`` (``T5_TINY``)
+    rehearses it."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, optimizer, parallel
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import T5Config, T5Model
+    from mxnet_tpu_torch.ops.int8_gemv import launches, reset_launches
+    cfg = cfg or T5Config()
+    with on(device):
+        mx.random.seed(args.seed)
+        net = T5Model(cfg)
+        net.initialize()
+    amp.convert_hybrid_block(net, "bfloat16")
+    rng = np.random.RandomState(args.seed + 3)
+    src = rng.randint(2, cfg.vocab_size, (B, S)).astype(np.int32)
+    tgt = src[:, :T]
+    dec = np.concatenate([np.zeros((B, 1), np.int32), tgt[:, :-1]], 1)
+    src, dec, tgt = (torch.from_numpy(a).to(device) for a in (src, dec, tgt))
+    ce = SoftmaxCrossEntropyLoss(axis=-1)
+    step = parallel.TrainStep(net, lambda out, y: ce(out.float(), y),
+                              optimizer.Adam(learning_rate=T5_LR), [src, dec])
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, times, counts = [], [], []
+    for _ in range(T5_STEPS):
+        sync(torch, device)
+        reset_launches()
+        t0 = time.perf_counter()
+        losses.append(step((src, dec), tgt).float().item())
+        times.append((time.perf_counter() - t0) * 1e3)
+        c = launches()
+        counts.append(c.get("flash_fwd", 0) + c.get("flash_bwd", 0))
+    ms = statistics.median(times[1:])
+    flops = t5_flops(cfg, B, S, T)
+    report = {"model": "t5-small" if cfg.d_model == 512 else "t5", "B": B, "source": S,
+              "target": T, "dtype": "bfloat16", "optimizer": f"adam lr {T5_LR}",
+              "steps": T5_STEPS, "losses": losses, "step_ms": times, "ms_per_step": ms,
+              "tokens_per_s": B * (S + T) / ms * 1e3, "flops_per_step": flops,
+              "mfu": flops / (ms / 1e3) / BF16_FLOP_PER_S,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if device == "cuda"
+              else None, "flash_launches_per_step": counts, "device": device}
+    emit({"nlp_train_t5": report})
+    check(all(math.isfinite(x) for x in losses), f"non-finite T5 loss: {losses}")
+    check(losses[-1] < losses[0], f"T5 loss did not fall: {losses}")
+    check(not any(counts), f"T5 launched K1/K2: {counts}")
+    del step, net
+    return report
+
+
+def optimizers_card_vs_cpu(torch, card="cuda"):
+    """(e) Every registered optimizer: 3 eager updates (``Optimizer.update``,
+    wd, ``clip_gradient``, ``rescale_grad`` and an lr_mult of 0.5) of one
+    f32 and one bf16 tensor on the card and on the CPU from the same
+    weights, gradients and seed. Gates: f32 weights and states within
+    CARD_CPU_PARAM_TOL of max(1, |CPU value|); bf16 ones within that or
+    one bf16 step of the CPU's value (the f32 update rounds once at the
+    write-back, and an ulp of f32 difference can cross a bf16 rounding
+    boundary);
+    SGLD's noise (a zero weight and gradient) bit for bit."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import optimizer as opt_mod
+    g = torch.Generator().manual_seed(7)
+    w0 = torch.randn(OPT_SHAPE, generator=g)
+    grads = [torch.randn(OPT_SHAPE, generator=g) * 2 for _ in range(OPT_STEPS)]
+    out = {}
+    for name in sorted(opt_mod._REGISTRY):
+        row = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            res = {}
+            for dev in (card, "cpu"):
+                mx.random.seed(3)
+                opt = opt_mod.create(name, **OPT_KW)
+                opt.set_lr_mult({0: 0.5})
+                w = w0.to(dev, dtype)
+                state = opt.create_state(0, w)
+                for gr in grads:
+                    state = opt.update(0, w, gr.to(dev, dtype), state)
+                res[dev] = [w.cpu()] + [s.cpu() for s in state]
+            worst_abs, over = 0.0, 0
+            for a, b in zip(res[card], res["cpu"]):
+                if not a.is_floating_point():
+                    over += int((a != b).sum())
+                    continue
+                d = (a.float() - b.float()).abs()
+                worst_abs = max(worst_abs, float(d.max()))
+                # relative to max(1, |CPU value|): Ftrl's z state grows to
+                # hundreds, where one f32 ulp is 3e-5
+                tol = CARD_CPU_PARAM_TOL * b.float().abs().clamp_min(1.0)
+                if dtype == torch.bfloat16:
+                    # one bf16 step at the CPU's value
+                    ulp = torch.exp2(torch.floor(torch.log2(b.float().abs().clamp_min(1e-30)))
+                                     - 7)
+                    over += int(((d > tol) & (d > ulp)).sum())
+                else:
+                    over += int((d > tol).sum())
+            row[str(dtype).replace("torch.", "")] = {"max_abs": worst_abs, "over_tol": over}
+        out[name] = row
+    # SGLD's noise alone: a zero weight and gradient step to the noise
+    noise = {}
+    for dev in (card, "cpu"):
+        mx.random.seed(5)
+        opt = opt_mod.SGLD(learning_rate=0.01)
+        w = torch.zeros(OPT_SHAPE, device=dev)
+        state = opt.create_state(0, w)
+        opt.update(0, w, torch.zeros_like(w), state)
+        noise[dev] = w.cpu()
+    out["sgld_noise_bitwise"] = bool(torch.equal(noise[card], noise["cpu"]))
+    out["sgld_noise_std"] = float(noise["cpu"].std())
+    out["tol"] = {"f32": f"{CARD_CPU_PARAM_TOL} x max(1, |cpu|)",
+                  "bf16": "the f32 rule or one bf16 step"}
+    emit({"nlp_train_optimizers_card_vs_cpu": out})
+    for name in sorted(opt_mod._REGISTRY):
+        for dt, r in out[name].items():
+            check(r["over_tol"] == 0, f"{name} {dt}: card/CPU differ beyond tolerance: {r}")
+    check(out["sgld_noise_bitwise"], "SGLD's noise differs between the card and the CPU")
+    return out
+
+
+def nlp_train(torch, args, timer, gen):
+    """Phase 12: BERT and T5 train on the card. (a) bench_bert_base_ft's
+    configuration, (b) BERT-base pretraining with LAMB at T 512 through
+    K1/K2, (c) card against CPU on every attention route and T5_TINY, (d)
+    T5-small, (e) the optimizers card against CPU. Starts only with at
+    most LT_HELD_GB still allocated. Returns {"k1": row, "k2": row}: the
+    kernels-line rows of K1/K2 at (b)'s shape with their launches in (b)."""
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated() / 1e9
+    emit({"nlp_train_allocated_gb_at_start": held})
+    check(held <= LT_HELD_GB, f"{held} GB of device memory still allocated as phase 12 "
+          f"starts (> {LT_HELD_GB}): an earlier phase's model or engine was not freed")
+    parts = {}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.empty_cache()
+        parts[name] = time.perf_counter() - t
+        return out
+    part("a", lambda: bert_ft(torch, args))
+    kern, n1, n2 = part("b", lambda: bert_pretrain(torch, args, timer, gen))
+    part("c", lambda: nlp_card_vs_cpu(torch, args))
+    part("d", lambda: t5_train(torch, args))
+    part("e", lambda: optimizers_card_vs_cpu(torch))
+    emit({"nlp_train_s": time.perf_counter() - t_phase, "parts_s": parts})
+    rows = {}
+    for key, pre, n in (("k1", "k1_", n1), ("k2", "k2_", n2)):
+        rows[key] = {"max_abs_err": kern[pre + "max_abs_err"], "ms": kern[pre + "ms"],
+                     "plain_ms": kern[pre + "plain_ms"], "bound_ms": kern[pre + "bound_ms"],
+                     "bound_by": kern[pre + "bound_by"],
+                     "library_ms": kern[pre + "library_ms"], "launches": n}
+    return rows
+
+
 def llama_train_stacked(torch, args, net):
     """(b) The stacked decoder at the same width and LT_STACKED_LAYERS
     layers from the same weights (``net``'s first layers, embedding, norm
@@ -5145,6 +5916,8 @@ def main(argv=None):
     llama_train_rows = llama_train(torch, args, timer, gen)
     torch.cuda.empty_cache()
     vision_rows = vision_train(torch, args, timer, gen)
+    torch.cuda.empty_cache()
+    nlp_rows = nlp_train(torch, args, timer, gen)
 
     def routes(*phases):
         return {r: sum(c["routes"][r] for c in phases) for r in ("warp", "mma")}
@@ -5326,6 +6099,17 @@ def main(argv=None):
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      **r, "path": "vision_train (d)"})
         check(r["launches"] > 0, f"{name} never launched on the ViT training path")
+    # K1 and K2 at BERT-base pretraining's shape on phase 12's path (B 8,
+    # 12 heads of 64, T 512, not causal, bf16): launches counted over (b)'s
+    # steps
+    for name, src, replaces, r in (
+            ("flash_attention_fwd_bert", "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
+             "mxnet_tpu/ops/attention.py:286", nlp_rows["k1"]),
+            ("flash_attention_bwd_bert", "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+             "mxnet_tpu/ops/attention.py:383", nlp_rows["k2"])):
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                     **r, "path": "nlp_train (b)"})
+        check(r["launches"] > 0, f"{name} never launched on the BERT pretraining path")
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

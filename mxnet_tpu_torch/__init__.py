@@ -40,6 +40,11 @@ the conv and pool layers, the fused conv + BN composites
 (``ops.fused_conv``), ``amp``, the vision model zoo
 (``gluon.model_zoo``) and ``models.ViTModel``, so ResNet-50 and ViT train
 on the card.
+Slice 19 trains BERT (``models.BertForSequenceClassification``,
+``BertForPretraining``; ``ops.attention.flash_attention_bthd`` with its
+key-mask and attention-dropout routes) and T5 (``models.T5Model``), with
+the rest of the optimizer registry (LAMB among it), ``optimizer.updater``
+and the evaluation metrics (``mx.metric``, ``gluon.metric``).
 Slice 16 serves Llama (``models.LlamaForCausalLM``: GQA, RoPE, RMSNorm,
 SwiGLU, per-layer and stacked decoders) from the same engine at
 Llama-3-8B's width: K1 at head dim 128, K3/K4 at its widths and K8 on a
@@ -73,7 +78,7 @@ _LAZY = {"gluon": ".gluon", "init": ".initializer", "initializer": ".initializer
          "models": ".models", "parallel": ".parallel", "profiler": ".profiler",
          "serve": ".serve", "observability": ".observability", "contrib": ".contrib",
          "checkpoint": ".checkpoint", "serialization": ".serialization",
-         "interop": ".interop", "amp": ".amp"}
+         "interop": ".interop", "amp": ".amp", "metric": ".gluon.metric"}
 
 
 def __getattr__(name):

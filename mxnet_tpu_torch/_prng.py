@@ -217,8 +217,10 @@ def host_bits(k: torch.Tensor, shape: Sequence[int], width: int = 32) -> np.ndar
     shape = tuple(int(n) for n in shape)
     n = int(np.prod(shape, dtype=np.int64))
     i = np.arange(n, dtype=np.int64)
-    k0, k1 = _words(k)
-    y0, y1 = threefry2x32(k0, k1, i >> 32, i & M32)
+    # uint32 operands: numpy's wrapping uint32 arithmetic is the hash's, at
+    # half the bytes of the masked int64 form (initializers draw millions)
+    k0, k1 = (np.uint32(w) for w in _words(k))
+    y0, y1 = threefry2x32(k0, k1, (i >> 32).astype(np.uint32), (i & M32).astype(np.uint32))
     if width == 64:
         out = (y0.astype(np.uint64) << np.uint64(32)) | y1.astype(np.uint64)
     else:

@@ -1,8 +1,8 @@
 """Gluon of the port (counterpart of ``mxnet_tpu/gluon``): ``Parameter``,
 ``Block``/``HybridBlock`` and their ``CachedOp``, the basic, convolution
 and pooling layers, the losses, the ``Trainer``, parameter files and the
-vision model zoo."""
-from . import block, loss, model_zoo, nn, parameter
+vision model zoo, and the evaluation metrics."""
+from . import block, loss, metric, model_zoo, nn, parameter
 from .block import (Block, HybridBlock, HybridSequential, Sequential, SymbolBlock,
                     load_parameters, save_parameters)
 from .parameter import Constant, Parameter
@@ -10,4 +10,4 @@ from .trainer import Trainer
 
 __all__ = ["Block", "Constant", "HybridBlock", "HybridSequential", "Parameter",
            "Sequential", "SymbolBlock", "Trainer", "block", "load_parameters", "loss",
-           "model_zoo", "nn", "parameter", "save_parameters"]
+           "metric", "model_zoo", "nn", "parameter", "save_parameters"]

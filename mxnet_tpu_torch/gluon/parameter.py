@@ -193,7 +193,9 @@ class Parameter:
 
     def _load_init(self, data: NDArray, device=None, cast_dtype: bool = False):
         """Take a loaded array: its dtype unless ``cast_dtype``, written in
-        place into an initialized parameter of that dtype."""
+        place into an initialized parameter of that dtype. An initialized
+        parameter keeps its device (a host array loaded into a parameter
+        on the card is copied to the card)."""
         if self._shape_known and tuple(data.shape) != self._shape:
             raise MXNetError(f"Parameter {self._name}: loaded shape {tuple(data.shape)} != "
                              f"expected {self._shape}")
@@ -210,7 +212,7 @@ class Parameter:
             self._var.attach_grad(self.grad_req)
             self._deferred_init_args = None
         elif data._data.dtype == self._var._data.dtype:
-            self._var._write(data)
+            self._var._write(data._data.to(self._var._data.device))
         else:
             self._var._set_data(data._data.to(self._var._data.device))
 

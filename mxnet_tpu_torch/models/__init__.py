@@ -1,11 +1,14 @@
 """Transformer model families of the port (counterpart of
-``mxnet_tpu/models``): GPT-2 and Llama, with ``generate`` attached to both
-causal LMs as a method, and the Vision Transformer. BERT and T5 are
-ported in later slices (ROADMAP Queue 1 item 8)."""
+``mxnet_tpu/models``): the decoder-only GPT-2 and Llama, with ``generate``
+attached to both causal LMs as a method, the encoder-only BERT, the
+encoder-decoder T5 and the Vision Transformer."""
+from .bert import (BERT_BASE, BERT_TINY, BertConfig, BertForPretraining,
+                   BertForSequenceClassification, BertModel)
 from .generation import generate
 from .gpt import GPT2_SMALL, GPT_TINY, GPTConfig, GPTModel
 from .llama import (LLAMA3_8B, LLAMA_TINY, LlamaConfig, LlamaForCausalLM, LlamaModel,
                     LlamaStackedDecoder)
+from .t5 import T5_SMALL, T5_TINY, T5Config, T5Model
 from .vit import VIT_B16, VIT_TINY, ViTConfig, ViTModel
 
 
@@ -19,5 +22,8 @@ del _generate_method
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel", "LlamaStackedDecoder",
            "LLAMA3_8B", "LLAMA_TINY",
-           "GPTConfig", "GPTModel", "GPT2_SMALL", "GPT_TINY", "generate",
-           "ViTConfig", "ViTModel", "VIT_B16", "VIT_TINY"]
+           "BertConfig", "BertModel", "BertForSequenceClassification",
+           "BertForPretraining", "BERT_BASE", "BERT_TINY",
+           "GPTConfig", "GPTModel", "GPT2_SMALL", "GPT_TINY",
+           "ViTConfig", "ViTModel", "VIT_B16", "VIT_TINY",
+           "T5Config", "T5Model", "T5_SMALL", "T5_TINY", "generate"]

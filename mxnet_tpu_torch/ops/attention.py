@@ -28,9 +28,20 @@ the wrapper allocates.
 
 Layout (B, H, T, D) as in the JAX package; lse is (B, H, T) f32 (the TPU
 kernel returned its padded (B, H, Tp, 1) form).
+
+:func:`flash_attention_bthd` is the (B, T, H, D) entry BERT calls, with an
+optional key padding mask and attention-probability dropout. Either routes
+off the kernels, as in the JAX package: to :func:`_xla_attention` (f32
+einsums contracted in BTHD, dropout bits from the flat (B, H, T, S) index)
+for small score matrices, to :func:`_chunked_reference` (dropout bits per
+key chunk, (b, h, t) as the high word) past that. With neither, an
+eligible shape runs K1 and K2 on (B, H, T, D) views. On the CPU the JAX
+package never takes its kernel route; the port's plain K1 and K2 take it
+here, so the two agree within rounding, not bit for bit.
 """
 from __future__ import annotations
 
+import functools
 import sys
 import types
 from typing import Optional
@@ -40,7 +51,7 @@ import torch
 from ..base import MXNetError
 from .int8_gemv import record_launch
 
-__all__ = ["flash_attention", "attention"]
+__all__ = ["flash_attention", "flash_attention_bthd", "attention"]
 
 # Below this length the JAX package leaves attention to XLA (the kernel is
 # grid-overhead-bound there); the port keeps the same routing.
@@ -60,9 +71,11 @@ def _pad_head_dim(d: int) -> int:
     raise MXNetError(f"head dim {d} > 256 has no kernel path")
 
 
-def _online_block(q, k, v, m, l, acc, scale, mask=None):
+def _online_block(q, k, v, m, l, acc, scale, mask=None, acc_scale=None):
     """One blockwise online-softmax step; masked entries give p = 0 even
-    when the whole block is masked."""
+    when the whole block is masked. ``acc_scale``, when given, multiplies p
+    in the value sum only, never in the normaliser ``l``: dropout on the
+    normalised probabilities, ``dropout(softmax(s)) @ V``, blockwise."""
     s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
     if mask is not None:
         s = torch.where(mask, s, torch.finfo(s.dtype).min)
@@ -72,14 +85,35 @@ def _online_block(q, k, v, m, l, acc, scale, mask=None):
     if mask is not None:
         p = torch.where(mask, p, 0.0)
     l_new = l * corr + p.sum(dim=-1, keepdim=True)
-    acc_new = acc * corr + torch.einsum("bhqk,bhkd->bhqd", p, v)
+    pa = p if acc_scale is None else p * acc_scale
+    acc_new = acc * corr + torch.einsum("bhqk,bhkd->bhqd", pa, v)
     return m_new, l_new, acc_new
 
 
-def _chunked_reference(q, k, v, causal: bool, scale: float, block: int = 512):
+def _chunk_keep(key, rate: float, B, H, T, lo, n, device):
+    """The chunked route's keep bits of key positions [lo, lo + n): the
+    (b, h, t) row index ``(b * H + h) * T + t`` as the high word and the
+    key position as the low word of ``_keep_bits_at`` (a flat B*H*T*S index
+    would wrap at 2**32 at long contexts)."""
+    from ..numpy_extension import _keep_bits_at
+    ar = functools.partial(torch.arange, dtype=torch.int64, device=device)
+    bht = ((ar(B)[:, None, None] * H + ar(H)[None, :, None]) * T + ar(T)[None, None, :])
+    spos = lo + ar(n)
+    return _keep_bits_at(key, spos, 1.0 - rate, idx_hi=bht[..., None])
+
+
+def _chunked_reference(q, k, v, causal: bool, scale: float, block: int = 512,
+                       key_mask=None, dropout=None):
     """Online softmax over key chunks of ``block``: O(T * block) live
     scores, for long shapes that skip the kernel. Rows with no valid key
-    (causal T > S) are 0."""
+    (causal T > S, or fully key-masked) are 0. ``key_mask``: optional
+    (B, S) 1/0 padding mask. ``dropout``: optional ``(key, rate)``
+    attention-probability dropout whose bits each chunk draws for its own
+    key positions (:func:`_chunk_keep`), so the memory bound holds under
+    dropout; it scales the value sum only (``_online_block``'s
+    ``acc_scale``). The JAX package's ``MXTPU_DROPOUT_RNG=threefry`` switch
+    is not read: the port draws the counter hash only, as its
+    ``npx.dropout`` does."""
     B, H, T, D = q.shape
     S = k.shape[2]
     bs = min(block, S)
@@ -93,12 +127,69 @@ def _chunked_reference(q, k, v, causal: bool, scale: float, block: int = 512):
     for j in range(nb):
         kb = k[:, :, j * bs:(j + 1) * bs].to(dtype)
         vb = v[:, :, j * bs:(j + 1) * bs].to(dtype)
-        kv_pos = j * bs + torch.arange(kb.shape[2], device=q.device)[None, :]
+        n = kb.shape[2]
+        kv_pos = j * bs + torch.arange(n, device=q.device)[None, :]
         valid = kv_pos < S
         if causal:
             valid = valid & (q_pos + (S - T) >= kv_pos)
-        m, l, acc = _online_block(qf, kb, vb, m, l, acc, scale, valid[None, None])
+        valid = valid[None, None]
+        if key_mask is not None:
+            valid = valid & (key_mask[:, j * bs:j * bs + n] > 0)[:, None, None, :]
+        acc_scale = None
+        if dropout is not None:
+            dkey, rate = dropout
+            keep = _chunk_keep(dkey, rate, B, H, T, j * bs, n, q.device)
+            acc_scale = torch.where(keep, 1.0 / (1.0 - rate), 0.0).to(dtype)
+        m, l, acc = _online_block(qf, kb, vb, m, l, acc, scale, valid, acc_scale)
     return (acc / l.clamp_min(torch.finfo(dtype).tiny)).to(q.dtype)
+
+
+def _dropout_keep(key, shape, rate: float, device):
+    """The einsum route's keep multiplier over ``shape`` (B, H, T, S) in
+    f32: ``1 / (1 - rate)`` where the counter hash of the flat index keeps,
+    0 elsewhere (``npx._cheap_keep_mask``, the bits of the JAX package's
+    ``_dropout_keep``). The port does not read ``MXTPU_DROPOUT_RNG``: the
+    JAX package's threefry switch is not ported (ROADMAP Queue 1 item 3)."""
+    from ..numpy_extension import _cheap_keep_mask
+    keep = _cheap_keep_mask(key, shape, 1.0 - rate, device=device)
+    return torch.where(keep, 1.0 / (1.0 - rate), 0.0).to(torch.float32)
+
+
+def _xla_attention(q, k, v, causal: bool, scale: float, layout: str = "bhtd",
+                   key_mask=None, dropout=None):
+    """The JAX package's einsum route for small score matrices, in either
+    layout ("bhtd" or "bthd", contracted in place: no transposes). Scores
+    and softmax in f32 from the storage-dtype operands (the JAX
+    ``preferred_element_type``: upcast before the product), p cast to q's
+    dtype before p V, the result in q's dtype. ``key_mask``: optional (B, S)
+    1/0 padding mask, an additive -1e30 score bias; a fully masked row is
+    0. ``dropout``: optional ``(key, rate)`` on the normalised
+    probabilities (:func:`_dropout_keep`). Causal rows with no visible key
+    (T > S) are 0."""
+    if layout == "bhtd":
+        T, S = q.shape[2], k.shape[2]
+        qk, pv, row_shape = "bhqd,bhkd->bhqk", "bhqk,bhkd->bhqd", (T, 1)
+    else:
+        T, S = q.shape[1], k.shape[1]
+        qk, pv, row_shape = "bqhd,bkhd->bhqk", "bhqk,bkhd->bqhd", (T, 1, 1)
+    s = torch.einsum(qk, q.float(), k.float()) * scale
+    if causal:
+        mask = torch.ones(T, S, dtype=torch.bool, device=q.device).tril(S - T)
+        s = torch.where(mask[None, None], s, _F32_MIN)
+    if key_mask is not None:
+        s = s + (1.0 - key_mask[:, None, None, :].float()) * -1e30
+    p = torch.softmax(s, dim=-1)
+    if dropout is not None:
+        dkey, rate = dropout
+        p = p * _dropout_keep(dkey, p.shape, rate, p.device)
+    o = torch.einsum(pv, p.to(q.dtype).float(), v.float())
+    if causal and T > S:
+        o = o * (torch.arange(T, device=q.device).reshape(row_shape) >= T - S)
+    if key_mask is not None:
+        # a fully masked row's softmax is uniform over -1e30: zeroed, so the
+        # einsum and chunked routes agree
+        o = o * (key_mask.sum(dim=-1) > 0)[:, None, None, None]
+    return o.to(q.dtype)
 
 
 def _fallback(q, k, v, causal: bool, scale: float):
@@ -314,6 +405,31 @@ def flash_attention(q, k, v, causal: bool = False, scale: Optional[float] = None
     if _use_kernel(q, k, causal):
         return _FlashAttention.apply(q, k, v, causal, s)
     return _fallback(q, k, v, causal, s)
+
+
+def flash_attention_bthd(q, k, v, causal: bool = False, scale: Optional[float] = None,
+                         key_mask=None, dropout=None):
+    """Attention over the (B, T, H, D) layout that the projections produce
+    (the JAX package's entry, routed as it routes). With no ``key_mask``
+    and no ``dropout`` a kernel-eligible shape goes through K1 and K2 on
+    (B, H, T, D) views; otherwise :func:`_xla_attention` contracts in BTHD
+    while T * S <= _XLA_PATH_MAX_SCORE_ELEMS, and :func:`_chunked_reference`
+    runs past that. ``key_mask``: optional (B, S) 1/0 padding mask.
+    ``dropout``: optional ``(key, rate)`` attention-probability dropout; the
+    einsum and chunked routes draw different bits, each the JAX route's."""
+    B, T, H, D = q.shape
+    S = k.shape[1]
+    s = scale if scale is not None else 1.0 / (D ** 0.5)
+
+    def bhtd(x):
+        return x.transpose(1, 2)
+    if key_mask is None and dropout is None and _use_kernel(bhtd(q), bhtd(k), causal):
+        return bhtd(_FlashAttention.apply(bhtd(q), bhtd(k), bhtd(v), causal, s))
+    if T * S > _XLA_PATH_MAX_SCORE_ELEMS:
+        return bhtd(_chunked_reference(bhtd(q), bhtd(k), bhtd(v), causal, s,
+                                       key_mask=key_mask, dropout=dropout))
+    return _xla_attention(q, k, v, causal, s, layout="bthd", key_mask=key_mask,
+                          dropout=dropout)
 
 
 def attention(q, k, v, causal: bool = False, scale: Optional[float] = None):

@@ -1,23 +1,41 @@
 """Optimizers (counterpart of ``mxnet_tpu/optimizer/__init__.py``): the
-``Optimizer`` base, ``SGD``, ``Adam`` and ``AdamW``, and the registry.
+``Optimizer`` base with the registry and the eager single-parameter
+``update``, and ``SGD``, ``NAG``, ``Adam``, ``AdamW``, ``Nadam``,
+``RMSProp``, ``AdaGrad``, ``AdaDelta``, ``Ftrl``, ``Signum``, ``SGLD``,
+``LARS``, ``LAMB``, ``DCASGD`` and ``Test`` under the JAX package's registry
+names.
 
 Each optimizer defines a pure ``update_step(w, g, state, lr, wd, t)`` over
 tensors that returns ``(new_w, new_state)`` and changes nothing it is
-given. ``TrainStep`` and ``gluon.Trainer`` feed it f32 views (a bf16 weight,
-its gradient and its state are upcast, as the JAX package's f32 scalar
-hyperparameters promote them) and write the results back in place under
-``torch.no_grad()``, in the parameter's and the state's own dtypes. State is
-kept in the weight's dtype, as in the JAX package.
+given. ``TrainStep``, ``gluon.Trainer`` and :meth:`Optimizer.update` feed
+it f32 views (a bf16 weight, its gradient and its floating state are
+upcast, as the JAX package's f32 scalar hyperparameters promote them) and
+write the results back in place under ``torch.no_grad()``, in the
+parameter's and the state's own dtypes. State is kept in the weight's
+dtype, as in the JAX package. Where the JAX package rounds to the weight's
+dtype inside the step (LAMB's and LARS's trust ratio, SGLD's noise), the
+port's step sees f32 and the weight is rounded once at the write-back: for
+an f32 weight the two agree, for a bf16 one within its rounding.
+
+SGLD's state is one uint32 seed, ``jax.random.bits(next_key(), ())``, and
+its noise ``jax.random.normal(fold_in(key(seed), t), w.shape) *
+sqrt(lr)``; both are drawn on the host from the port's threefry
+(``_prng``), so the card steps with the CPU's noise bit for bit.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
+from .. import _prng
+from .._random import next_key
 from ..base import MXNetError
 
-__all__ = ["Optimizer", "register", "create", "SGD", "Adam", "AdamW"]
+__all__ = ["Optimizer", "register", "create", "SGD", "NAG", "Adam", "AdamW", "Nadam",
+           "RMSProp", "AdaGrad", "AdaDelta", "Ftrl", "Signum", "SGLD", "LARS", "LAMB",
+           "DCASGD", "Test"]
 
 _REGISTRY: Dict[str, type] = {}
 
@@ -41,10 +59,23 @@ def create(name, **kwargs) -> "Optimizer":
     return _REGISTRY[key](**kwargs)
 
 
-def _f32_power(base: float, t: int) -> float:
+def _f32_power(base: float, t) -> float:
     """``base ** t`` with both in f32 (``jnp.power(beta, t.astype(f32))``)."""
     return float(torch.pow(torch.tensor(base, dtype=torch.float32),
                            torch.tensor(float(t), dtype=torch.float32)))
+
+
+def _f32(x) -> np.float32:
+    return np.float32(x)
+
+
+def _zeros(weight):
+    return torch.zeros_like(weight, memory_format=torch.contiguous_format)
+
+
+def _tensor(x):
+    """The tensor of an NDArray (or the tensor itself)."""
+    return getattr(x, "_data", x)
 
 
 class Optimizer:
@@ -57,7 +88,11 @@ class Optimizer:
 
     def __init__(self, learning_rate: float = 0.01, wd: float = 0.0,
                  rescale_grad: float = 1.0, clip_gradient: Optional[float] = None,
-                 lr_scheduler=None):
+                 lr_scheduler=None, param_dict=None, aggregate_num: int = 0,
+                 use_fused_step: bool = True, multi_precision: bool = False, **kwargs):
+        """The JAX package's signature; ``aggregate_num``, ``use_fused_step``
+        and ``multi_precision`` are accepted and change nothing (every step
+        already runs in f32), as there."""
         self.lr = learning_rate
         self.wd = wd
         self.rescale_grad = rescale_grad
@@ -70,6 +105,8 @@ class Optimizer:
         self.idx2name: Dict[int, str] = {}
         self.lr_mult: Dict[Any, float] = {}
         self.wd_mult: Dict[Any, float] = {}
+        self.param_dict = param_dict or {}
+        self.multi_precision = multi_precision
 
     @property
     def learning_rate(self) -> float:
@@ -98,11 +135,26 @@ class Optimizer:
 
     def _get_lr(self, index, lr: float) -> float:
         """Parameter ``index``'s rate: ``lr``, the step's rate (read once
-        per step from :attr:`learning_rate`), times its multiplier."""
+        per step from :attr:`learning_rate`), times its multiplier (its
+        ``param_dict`` entry's ``lr_mult`` first)."""
+        p = self.param_dict.get(index)
+        if p is not None:
+            return lr * p.lr_mult
         return lr * self._mult(self.lr_mult, self.idx2name.get(index), index)
 
     def _get_wd(self, index) -> float:
+        p = self.param_dict.get(index)
+        if p is not None:
+            return self.wd * p.wd_mult
         return self.wd * self._mult(self.wd_mult, self.idx2name.get(index), index)
+
+    def _update_count(self, index) -> int:
+        """Parameter ``index``'s step count after one more update; the
+        largest count is :attr:`num_update`."""
+        count = self._index_update_count.get(index, 0) + 1
+        self._index_update_count[index] = count
+        self.num_update = max(count, self.num_update)
+        return count
 
     def create_state(self, index, weight):
         """Per-parameter state: a tuple of tensors in the weight's dtype."""
@@ -118,19 +170,44 @@ class Optimizer:
         """Pure update: returns ``(new_w, new_state)``."""
         raise NotImplementedError
 
+    # lazy row-wise updates are exact for elementwise rules only; a trust
+    # ratio over the whole weight (LARS, LAMB) needs the dense tensor
+    lazy_rowwise = True
+
+    def update(self, index, weight, grad, state):
+        """Eager single-parameter update (the reference ``Optimizer.update``):
+        counts the update of ``index``, steps ``weight`` (an NDArray or a
+        tensor, written in place) with ``grad * rescale_grad`` and returns
+        the new state."""
+        from ..parallel.train import apply_updates
+        t = self._update_count(index)
+        lr = self._get_lr(index, self.learning_rate)
+        wd = self._get_wd(index)
+        states = [tuple(state)]
+        apply_updates(self, [(index, _tensor(weight))], states, lambda i: (lr, wd, t),
+                      self.rescale_grad, grads=[_tensor(grad)])
+        return states[0]
+
+    def update_multi_precision(self, index, weight, grad, state):
+        return self.update(index, weight, grad, state)
+
+    def __repr__(self):
+        return f"{type(self).__name__}(lr={self.lr}, wd={self.wd})"
+
 
 @register
 class SGD(Optimizer):
     """SGD with momentum."""
 
-    def __init__(self, learning_rate=0.01, momentum: float = 0.0, **kwargs):
+    def __init__(self, learning_rate=0.01, momentum: float = 0.0, lazy_update: bool = False,
+                 **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
         self.momentum = momentum
 
     def create_state(self, index, weight):
         if self.momentum == 0.0:
             return ()
-        return (torch.zeros_like(weight, memory_format=torch.contiguous_format),)
+        return (_zeros(weight),)
 
     def update_step(self, w, g, state, lr, wd, t):
         g = self._preprocess_grad(g) + wd * w
@@ -140,19 +217,34 @@ class SGD(Optimizer):
         mom = self.momentum * mom - lr * g
         return w + mom, (mom,)
 
+@register
+class NAG(SGD):
+    """Nesterov accelerated SGD."""
+
+    def __init__(self, learning_rate=0.01, momentum: float = 0.9, **kwargs):
+        super().__init__(learning_rate=learning_rate, momentum=momentum, **kwargs)
+
+    def create_state(self, index, weight):
+        return (_zeros(weight),)
+
+    def update_step(self, w, g, state, lr, wd, t):
+        g = self._preprocess_grad(g) + wd * w
+        (mom,) = state
+        mom = self.momentum * mom - lr * g
+        return w + self.momentum * mom - lr * g, (mom,)
+
 
 @register
 class Adam(Optimizer):
     """Adam with bias correction ``1 - beta ** t`` in f32."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, **kwargs):
+                 epsilon=1e-8, lazy_update: bool = False, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
 
     def create_state(self, index, weight):
-        z = torch.zeros_like(weight, memory_format=torch.contiguous_format)
-        return (z, torch.zeros_like(z))
+        return (_zeros(weight), _zeros(weight))
 
     def _moments(self, g, state, t):
         m, v = state
@@ -176,3 +268,257 @@ class AdamW(Adam):
         g = self._preprocess_grad(g)
         m, v, mhat, vhat = self._moments(g, state, t)
         return w - lr * (mhat / (torch.sqrt(vhat) + self.epsilon) + wd * w), (m, v)
+
+
+@register
+class Nadam(Adam):
+    """Nesterov Adam: momentum schedule ``beta1 (1 - 0.5 * 0.96 ** (t *
+    schedule_decay))``, its scalars in f32."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, beta1=beta1, beta2=beta2,
+                         epsilon=epsilon, **kwargs)
+        self.schedule_decay = schedule_decay
+
+    def _mu(self, t):
+        p = _f32(_f32_power(0.96, _f32(t) * _f32(self.schedule_decay)))
+        return _f32(self.beta1) * (_f32(1) - _f32(0.5) * p)
+
+    def update_step(self, w, g, state, lr, wd, t):
+        g = self._preprocess_grad(g) + wd * w
+        m, v = state
+        mu_t, mu_t1 = self._mu(t), self._mu(t + 1)
+        m = self.beta1 * m + (1 - self.beta1) * g
+        v = self.beta2 * v + (1 - self.beta2) * torch.square(g)
+        ghat = g / float(_f32(1) - mu_t)
+        mhat = m / float(_f32(1) - mu_t1 * _f32(_f32_power(self.beta1, t)))
+        vhat = v / float(_f32(1) - _f32(_f32_power(self.beta2, t)))
+        mbar = float(_f32(1) - mu_t) * ghat + float(mu_t1) * mhat
+        return w - lr * mbar / (torch.sqrt(vhat) + self.epsilon), (m, v)
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp with momentum; ``centered`` keeps the mean gradient too."""
+
+    def __init__(self, learning_rate=0.001, rho=0.9, momentum=0.9,
+                 epsilon=1e-8, centered=False, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.rho, self.momentum, self.epsilon = rho, momentum, epsilon
+        self.centered = centered
+
+    def create_state(self, index, weight):
+        return tuple(_zeros(weight) for _ in range(3 if self.centered else 2))
+
+    def update_step(self, w, g, state, lr, wd, t):
+        g = self._preprocess_grad(g) + wd * w
+        if self.centered:
+            n, gbar, mom = state
+            n = self.rho * n + (1 - self.rho) * torch.square(g)
+            gbar = self.rho * gbar + (1 - self.rho) * g
+            mom = self.momentum * mom - lr * g / torch.sqrt(
+                n - torch.square(gbar) + self.epsilon)
+            return w + mom, (n, gbar, mom)
+        n, mom = state
+        n = self.rho * n + (1 - self.rho) * torch.square(g)
+        mom = self.momentum * mom - lr * g / (torch.sqrt(n) + self.epsilon)
+        return w + mom, (n, mom)
+
+
+@register
+class AdaGrad(Optimizer):
+    def __init__(self, learning_rate=0.01, epsilon=1e-6, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros(weight),)
+
+    def update_step(self, w, g, state, lr, wd, t):
+        g = self._preprocess_grad(g) + wd * w
+        (hist,) = state
+        hist = hist + torch.square(g)
+        return w - lr * g / (torch.sqrt(hist) + self.epsilon), (hist,)
+
+
+@register
+class AdaDelta(Optimizer):
+    def __init__(self, learning_rate=1.0, rho=0.9, epsilon=1e-5, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.rho, self.epsilon = rho, epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update_step(self, w, g, state, lr, wd, t):
+        g = self._preprocess_grad(g) + wd * w
+        acc_g, acc_d = state
+        acc_g = self.rho * acc_g + (1 - self.rho) * torch.square(g)
+        delta = torch.sqrt(acc_d + self.epsilon) / torch.sqrt(acc_g + self.epsilon) * g
+        acc_d = self.rho * acc_d + (1 - self.rho) * torch.square(delta)
+        return w - lr * delta, (acc_g, acc_d)
+
+
+@register
+class Ftrl(Optimizer):
+    """Follow the regularized leader (FTRL-proximal)."""
+
+    def __init__(self, learning_rate=0.1, lamda1=0.01, beta=1.0, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1, self.beta = lamda1, beta
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update_step(self, w, g, state, lr, wd, t):
+        g = self._preprocess_grad(g)
+        zs, ns = state
+        sigma = (torch.sqrt(ns + torch.square(g)) - torch.sqrt(ns)) / lr
+        zs = zs + g - sigma * w
+        ns = ns + torch.square(g)
+        new_w = torch.where(zs.abs() <= self.lamda1, torch.zeros_like(w),
+                            (torch.sign(zs) * self.lamda1 - zs)
+                            / ((self.beta + torch.sqrt(ns)) / lr + wd))
+        return new_w, (zs, ns)
+
+
+@register
+class Signum(Optimizer):
+    """Signed momentum SGD."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return ()
+        return (_zeros(weight),)
+
+    def update_step(self, w, g, state, lr, wd, t):
+        g = self._preprocess_grad(g) + wd * w
+        decay = float(_f32(1) - _f32(lr) * _f32(self.wd_lh))
+        if self.momentum == 0.0:
+            return w * decay - lr * torch.sign(g), state
+        (mom,) = state
+        mom = self.momentum * mom - (1 - self.momentum) * g
+        return w * decay + lr * torch.sign(mom), (mom,)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: half a gradient step plus
+    N(0, lr) noise from the parameter's seed and the step count."""
+
+    def create_state(self, index, weight):
+        seed = _prng.host_bits(next_key(), (), 32)
+        return (torch.tensor(int(seed), dtype=torch.uint32),)
+
+    def update_step(self, w, g, state, lr, wd, t):
+        g = self._preprocess_grad(g) + wd * w
+        (seed,) = state
+        key = _prng.fold_in(_prng.key(int(seed)), int(t))
+        noise = torch.from_numpy(_prng.host_normal(key, tuple(w.shape))).to(w.device)
+        noise = noise * float(np.sqrt(_f32(lr)))
+        return w - 0.5 * lr * g + noise, (seed,)
+
+
+@register
+class LARS(Optimizer):
+    """Layer-wise adaptive rate scaling: momentum SGD at ``lr`` times a
+    trust ratio of f32 norms of the whole weight and gradient."""
+
+    lazy_rowwise = False
+
+    def __init__(self, learning_rate=0.1, momentum=0.9, eta=0.001,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum, self.eta, self.epsilon = momentum, eta, epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros(weight),)
+
+    def update_step(self, w, g, state, lr, wd, t):
+        g = self._preprocess_grad(g)
+        w_norm = torch.linalg.vector_norm(w.float())
+        g_norm = torch.linalg.vector_norm(g.float())
+        trust = torch.where((w_norm > 0) & (g_norm > 0),
+                            self.eta * w_norm / (g_norm + wd * w_norm + self.epsilon), 1.0)
+        g = g + wd * w
+        (mom,) = state
+        mom = self.momentum * mom + trust.to(w.dtype) * lr * g
+        return w - mom, (mom,)
+
+
+@register
+class LAMB(Optimizer):
+    """Layer-wise Adam for large batches: the Adam direction plus decay,
+    scaled by the ratio of f32 norms ``|w| / |r|`` (``|w|`` clipped to the
+    optional bounds; 1 where either norm is 0)."""
+
+    lazy_rowwise = False
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, lower_bound=None, upper_bound=None,
+                 bias_correction=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lower_bound, self.upper_bound = lower_bound, upper_bound
+        self.bias_correction = bias_correction
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update_step(self, w, g, state, lr, wd, t):
+        g = self._preprocess_grad(g)
+        m, v = state
+        m = self.beta1 * m + (1 - self.beta1) * g
+        v = self.beta2 * v + (1 - self.beta2) * torch.square(g)
+        if self.bias_correction:
+            mhat = m / (1 - _f32_power(self.beta1, t))
+            vhat = v / (1 - _f32_power(self.beta2, t))
+        else:
+            mhat, vhat = m, v
+        r = mhat / (torch.sqrt(vhat) + self.epsilon) + wd * w
+        w_norm = torch.linalg.vector_norm(w.float())
+        r_norm = torch.linalg.vector_norm(r.float())
+        if self.lower_bound is not None:
+            w_norm = w_norm.clamp_min(self.lower_bound)
+        if self.upper_bound is not None:
+            w_norm = w_norm.clamp_max(self.upper_bound)
+        ratio = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm, 1.0)
+        return w - lr * ratio.to(w.dtype) * r, (m, v)
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD; its state keeps the previous
+    weight."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum, self.lamda = momentum, lamda
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), weight.detach().clone(memory_format=torch.contiguous_format))
+
+    def update_step(self, w, g, state, lr, wd, t):
+        g = self._preprocess_grad(g) + wd * w
+        mom, prev_w = state
+        mom = self.momentum * mom - lr * (g + self.lamda * g * g * (w - prev_w))
+        return w + mom, (mom, w + mom)
+
+
+@register
+class Test(Optimizer):
+    """Plain SGD with a never-updated state tensor (the reference's test
+    optimizer)."""
+
+    def create_state(self, index, weight):
+        return (_zeros(weight),)
+
+    def update_step(self, w, g, state, lr, wd, t):
+        g = self._preprocess_grad(g) + wd * w
+        return w - lr * g, state

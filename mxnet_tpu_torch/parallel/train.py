@@ -92,7 +92,8 @@ def trainable(net):
 def apply_updates(opt, params, states, lr_wd_t, rescale, grads=None):
     """Step every ``(name, parameter)`` of ``params`` with ``opt``'s pure
     ``update_step`` on f32 views, writing weights and ``states`` (a list,
-    updated in place) back in their own dtypes. ``lr_wd_t(i)`` gives
+    updated in place) back in their own dtypes; an integer state leaf (SGLD's
+    seed) is passed as it is. ``lr_wd_t(i)`` gives
     ``(lr, wd, t)`` of parameter ``i``; its gradient is ``grads[i]``, else
     its ``.grad``. A parameter without a gradient steps with a zero one
     (the JAX gradient of an unused parameter)."""
@@ -101,7 +102,8 @@ def apply_updates(opt, params, states, lr_wd_t, rescale, grads=None):
         g = g.float() if g is not None else torch.zeros_like(p, dtype=torch.float32)
         lr, wd, t = lr_wd_t(i)
         new_w, new_state = opt.update_step(
-            p.float(), g * rescale, tuple(s.float() for s in states[i]), lr, wd, t)
+            p.float(), g * rescale,
+            tuple(s.float() if s.is_floating_point() else s for s in states[i]), lr, wd, t)
         p.copy_(new_w)
         states[i] = tuple(n.to(o.dtype) for o, n in zip(states[i], new_state))
 

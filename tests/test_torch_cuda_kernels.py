@@ -1634,3 +1634,87 @@ def test_conv_path_card_matches_cpu(card, case):
         assert (a is None) == (b is None)
         if a is not None and onp.abs(b).max() > 0:
             assert onp.linalg.norm(a - b) <= 1e-4 * onp.linalg.norm(b)
+
+
+def test_flash_bthd_kernel_route_at_bert_shape(cuda):
+    """``flash_attention_bthd`` at BERT-base pretraining's attention shape
+    (B 8, T 512, 12 heads of 64, not causal, bf16, no mask, no dropout):
+    one K1 launch forward and one K2 launch backward, their outputs and
+    gradients against the plain versions by ``chip_smoke``'s rule."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v, do = (torch.randn(8, 512, 12, 64, device="cuda", generator=g).bfloat16()
+                   for _ in range(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    int8_gemv.reset_launches()
+    out = fa.flash_attention_bthd(*leaves)
+    out.backward(do)
+    counts = int8_gemv.launches()
+    assert counts.get("flash_fwd") == 1 and counts.get("flash_bwd") == 1
+    f = [t.float().transpose(1, 2) for t in (q, k, v, do)]
+    po, plse = fa._reference_flash_forward(f[0], f[1], f[2], False, 0.125)
+    grads = fa._reference_flash_backward(f[0], f[1], f[2], po, plse, f[3], False, 0.125)
+    assert _within(out.detach().transpose(1, 2), po, torch.bfloat16)
+    for a, want in zip(leaves, grads):
+        assert _within(a.grad.transpose(1, 2), want, torch.bfloat16)
+
+
+def test_attention_dropout_bits_card_match_cpu(cuda):
+    """The einsum route's keep multipliers over (B, H, T, S) and the chunked
+    route's per-chunk keep bits (T 640, both chunks): the card's bits are
+    the CPU's, from a host key and from the key on the card."""
+    from mxnet_tpu_torch import _prng
+    key = _prng.fold_in(_prng.key(7), 2)
+    want = fa._dropout_keep(key, (2, 3, 96, 128), 0.1, "cpu")
+    for kk in (key, key.cuda()):
+        assert torch.equal(fa._dropout_keep(kk, (2, 3, 96, 128), 0.1, "cuda").cpu(), want)
+        for lo, n in ((0, 512), (512, 128)):
+            got = fa._chunk_keep(kk, 0.1, 2, 3, 640, lo, n, "cuda").cpu()
+            assert torch.equal(got, fa._chunk_keep(key, 0.1, 2, 3, 640, lo, n, "cpu"))
+
+
+@pytest.mark.parametrize("T,mask", [(96, True), (640, True), (640, False)])
+def test_flash_bthd_routes_card_match_cpu(cuda, T, mask):
+    """The einsum route (T 96) and the chunked route (T 640) with a key
+    mask and attention dropout, and the chunked route with dropout only, in
+    f32 on the card against the CPU: outputs and gradients within 1e-5 of
+    their max-abs scale."""
+    from mxnet_tpu_torch import _prng
+    rng = onp.random.RandomState(T)
+    arrays = [rng.randn(2, T, 2, 32).astype("float32") for _ in range(4)]
+    key_mask = onp.ones((2, T), "float32")
+    key_mask[1, T // 2:] = 0.0
+    res = {}
+    for dev in ("cuda", "cpu"):
+        q, k, v, do = (torch.from_numpy(a).to(dev) for a in arrays)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        km = torch.from_numpy(key_mask).to(dev) if mask else None
+        out = fa.flash_attention_bthd(*leaves, key_mask=km,
+                                      dropout=(_prng.fold_in(_prng.key(3), 1), 0.1))
+        out.backward(do)
+        res[dev] = [out.detach().cpu()] + [t.grad.cpu() for t in leaves]
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert (a - b).abs().max() <= 1e-5 * max(1.0, float(b.abs().max()))
+
+
+def test_optimizers_card_match_cpu(cuda):
+    """Every registered optimizer, 3 updates of an f32 and a bf16 tensor on
+    the card against the CPU (``chip_smoke``'s phase 12 (e) gates), SGLD's
+    noise bit for bit."""
+    out = chip_smoke.optimizers_card_vs_cpu(torch)
+    assert out["sgld_noise_bitwise"]
+
+
+def test_load_dict_keeps_card_parameters_on_card(cuda):
+    """Host arrays loaded into an initialized block on the card stay on the
+    card (``Parameter._load_init`` copies them there), as the JAX
+    package's loaded parameters stay on its default device."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn
+    with mx.gpu(0):
+        net = nn.Dense(3, in_units=4)
+        net.initialize()
+    named = {"weight": onp.ones((3, 4), "float32"), "bias": onp.zeros(3, "float32")}
+    net.load_dict(named)
+    for name, p in net.collect_params().items():
+        assert p.data()._data.is_cuda, name
+        assert onp.array_equal(p.data().asnumpy(), named[name])

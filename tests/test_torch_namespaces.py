@@ -1,23 +1,27 @@
 """The port's namespaces against the JAX package's: every name of
-``mxnet_tpu``'s lazy-import table, and of ``mxnet_tpu.serve``'s and
-``mxnet_tpu.ops``'s ``__all__``, whose module the port has, resolves in the
-port (``mx.kv``, ``mx.checkpoint``, ``mx.serve.PagePool``,
-``mx.ops.flash_attention``, ...). Names whose module is not ported yet are
-listed by the test; each must still be missing, so the lists stay true."""
+``mxnet_tpu``'s lazy-import table, of ``mxnet_tpu.serve``'s,
+``mxnet_tpu.ops``'s and ``mxnet_tpu.models``' ``__all__`` and of the
+optimizer registry, whose module the port has, resolves in the port
+(``mx.kv``, ``mx.checkpoint``, ``mx.metric``, ``mx.serve.PagePool``,
+``mx.ops.flash_attention``, ``mx.models.BertModel``, ``"lamb"``, ...).
+Names whose module is not ported yet are listed by the test; each must
+still be missing, so the lists stay true."""
 import importlib
 import importlib.util
 
 import pytest
 
 import mxnet_tpu
+import mxnet_tpu.models
 import mxnet_tpu.ops
+import mxnet_tpu.optimizer
 import mxnet_tpu.serve
 
 import mxnet_tpu_torch
 
 # JAX modules with no counterpart in the port yet (ROADMAP Queue 1 item 8)
 _LAZY_NOT_PORTED = {"pipeline", "runtime", "aot", "io", "recordio", "image", "nd",
-                    "tune", "sparse", "engine", "util", "test_utils", "metric", "onnx",
+                    "tune", "sparse", "engine", "util", "test_utils", "onnx",
                     "visualization", "viz", "library", "benchmark", "sym", "symbol",
                     "operator"}
 _SERVE_NOT_PORTED = {"PrefillDecodePipeline", "TieredFleetController",
@@ -25,6 +29,8 @@ _SERVE_NOT_PORTED = {"PrefillDecodePipeline", "TieredFleetController",
                      "NoBackendError", "TenantPolicy", "TenantScheduler",
                      "QuotaExceededError", "AutoscalePolicy", "FleetController",
                      "InProcessSpawner", "SubprocessSpawner"}
+# across devices: waits for the torch.distributed stack (ROADMAP Queue 1 item 8)
+_MODELS_NOT_PORTED = {"llama_shardings"}
 
 
 def _port_has(modname: str) -> bool:
@@ -78,3 +84,25 @@ def test_serve_names(name):
 def test_ops_names(name):
     """``mx.ops.<name>`` resolves (``flash_attention``, ``attention``)."""
     assert name in mxnet_tpu_torch.ops.__all__ and callable(getattr(mxnet_tpu_torch.ops, name))
+
+
+@pytest.mark.parametrize("name", sorted(mxnet_tpu.models.__all__))
+def test_models_names(name):
+    """``mx.models.<name>`` resolves (BERT, T5, ViT, GPT, Llama and their
+    configs); the names whose slice is not ported stay missing."""
+    import mxnet_tpu_torch.models as tmodels
+    if name in _MODELS_NOT_PORTED:
+        assert not hasattr(tmodels, name), f"{name} is exported: take it off the list"
+        return
+    assert name in tmodels.__all__ and hasattr(tmodels, name)
+
+
+@pytest.mark.parametrize("name", sorted(mxnet_tpu.optimizer._REGISTRY.list()))
+def test_optimizer_registry(name):
+    """Every registered optimizer name of the JAX package creates the
+    port's optimizer of the same class name, also as ``mx.optimizer.<Class>``."""
+    import mxnet_tpu_torch.optimizer as topt
+    jcls = mxnet_tpu.optimizer._REGISTRY.get(name)
+    opt = topt.create(name)
+    assert type(opt).__name__ == jcls.__name__
+    assert getattr(topt, jcls.__name__) is type(opt) and jcls.__name__ in topt.__all__
