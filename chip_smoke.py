@@ -288,6 +288,34 @@
    SGLD's noise bit for bit. The phase starts only with at most
    LT_HELD_GB still allocated.
 
+13. ``fleet_serve``: the serving fleet over paged replicas of int8 GPT-2
+   small (``multi_token=4``, fused, page 16), each behind its own
+   ``HTTPFrontend`` in this process, sharing one model. (a) Two replicas
+   (max_len 384: K6) behind ``Router(affinity=True)`` and a
+   ``RouterFrontend``: 4 prompt families of 3 requests (a 32-token prefix
+   and 8-32 own tokens), greedy and T 0.8, JSON and SSE; tokens against a
+   reference engine of the same configuration request by request (equal
+   for prompts of up to 64 tokens, past that greedy with a top-2 gap
+   below ``gap_limit`` at the first divergence; sampled equal), affinity
+   hit tokens > 0, K6 and K8 on both replicas; router tokens/s, and, the
+   router stopped, one replica's HTTP against in process at the router
+   burst's shape and at ``http_serve``'s. (b)
+   ``migrate_prefix`` over HTTP of a 256-token prompt between (a)'s
+   replicas and of a 640-token one between max_len-1024 replicas (K7):
+   every shipped page adopted, the target's prefill only the tail, its
+   tokens against the source's, K6 / K7 on the target, its captures
+   unchanged; a doc with one wrong chain key and one wrong shape: both
+   counted, neither written. (c) (b) at 256 on bf16 pools (bf16 on the
+   wire, K6's bf16 lane). (d) Preemption rescue from a 24-page replica to
+   a peer. (e) ``PrefillDecodePipeline`` over the two replicas. (f) A
+   ``FleetController`` over an ``InProcessSpawner``: 1 -> 2 -> 1 under
+   bursts, drain-bounced requests replayed, no token twice. (g) Tenants
+   3:1 and a quota's 429s. The kernels line's ``launches_fleet`` counts
+   the fleet replicas' launches over the parts' fleet traffic only.
+   Printed with the card's name and power limit:
+   router tokens/s, ms and wire bytes per migrated page, prefill ms
+   saved, spawn and drain seconds.
+
 Informational JSON lines come first; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without that line. It needs one CUDA card and refuses to
@@ -5774,6 +5802,789 @@ def llama_train_stacked(torch, args, net):
     return out
 
 
+# ------------------------------------------------------------ phase 13: fleet
+FLEET_SLOTS = 4                   # slots of every replica of the phase
+FLEET_MAX_LEN = 384               # K6: f32 pools at head dim 64, page 16 (K6 takes L <= 432)
+FLEET_LONG_LEN = 1024             # K7
+FLEET_NEW = 32                    # new tokens of (a), (b), (c) and (e)
+FLEET_PREFIX = 32                 # (a): each family's shared prefix (two pages)
+FLEET_FAMILIES = 4                # (a): prompt families of three requests each
+FLEET_MIGRATE = (256, 640)        # (b): prompt lengths, on K6 and on K7 replicas
+FLEET_RESCUE = dict(pages=24, prompts=4, prompt_len=100, new=64)   # (d)
+FLEET_BURST = 8                   # (f): requests of each burst; (g): 3x per tenant
+FLEET_AFFINITY_LOAD = 4.0         # the router's affinity load bound (a replica's slots)
+FLEET_EXACT_LEN = 64              # the paged gate: tokens equal up to this prompt length
+FLEET_HOP_ROUNDS = 3              # (a): rounds of http_serve's request shape, each side
+FLEET_DEADLINE = 600.0
+
+
+def card_tag(torch):
+    """``name, power limit`` of the card as nvidia-smi gives them (every
+    fleet number carries it); "cpu" for a CPU rehearsal."""
+    if not torch.cuda.is_available():
+        return "cpu"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def fleet_engine(net, max_len=FLEET_MAX_LEN, slots=FLEET_SLOTS, **kw):
+    """A started, warmed fleet replica: the paged int8 engine with fused
+    decode (K6 or K7 by ``max_len``, K8 for every decode token at
+    ``multi_token=4``) and an advert wide enough for the phase."""
+    from mxnet_tpu_torch.serve import InferenceEngine
+    eng = InferenceEngine(net, max_batch_size=slots, max_len=max_len, multi_token=4,
+                          fused=True, paged=True, page_size=16, prefix_advert=64, **kw)
+    eng.start()
+    warm(eng)
+    return eng
+
+
+def engine_launches(eng):
+    """This engine's launches so far ({"kinds", "lanes", "routes"}): every
+    built step's calls times its launch records (the process-wide counters
+    mix every replica of the process)."""
+    out = {"kinds": {}, "lanes": {}, "routes": {}}
+    for step in list(eng._steps.values()) + list(eng._chunks.values()):
+        for key in out:
+            for k, n in getattr(step.tally, key).items():
+                out[key][k] = out[key].get(k, 0) + n * step.calls
+    return out
+
+
+def launches_since(eng, before):
+    now = engine_launches(eng)
+    return {key: {k: n - before[key].get(k, 0) for k, n in now[key].items()
+                  if n - before[key].get(k, 0)} for key in now}
+
+
+def merge_launches(*windows):
+    """The sum of launch windows (``launches_since`` dicts)."""
+    out = {"kinds": {}, "lanes": {}, "routes": {}}
+    for w in windows:
+        for key in out:
+            for k, n in w[key].items():
+                out[key][k] = out[key].get(k, 0) + n
+    return out
+
+
+def chunked_top2(torch, net, tokens, max_len):
+    """(top-1 minus top-2 logit, top-1 logit) after ``tokens`` prefilled in
+    16-token chunks as the paged engine prefills them."""
+    with torch.no_grad():
+        hidden, last = prefill_chunks(torch, net, tokens, 16, net.new_caches(1, max_len))
+        top = torch.topk(net._lm_head(hidden)[0, last].float(), 2).values
+    return (top[0] - top[1]).item(), top[0].item()
+
+
+def fleet_hold(torch, net, prompt, got, want, what, sampled, max_len):
+    """The paged gate of a fleet request against its reference: the same
+    tokens, or, for a greedy request of a prompt longer than
+    FLEET_EXACT_LEN, a first divergence at a top-2 gap below ``gap_limit``
+    (1e-3 for f32) after the reference's tokens; a sampled request must be
+    equal (stateless sampling on batch-invariant kernels)."""
+    d = first_divergence(want, got)
+    row = {"prompt": len(prompt), "sampled": sampled, "equal": d is None}
+    check(len(got) == len(want), f"{what}: {len(got)} tokens, the reference {len(want)}")
+    if d is not None:
+        check(not sampled, f"{what}: sampled tokens differ from the reference at {d}")
+        check(len(prompt) > FLEET_EXACT_LEN,
+              f"{what}: tokens of a {len(prompt)}-token prompt differ from the reference at {d}")
+        gap, top = chunked_top2(torch, net, list(prompt) + list(want[:d]), max_len)
+        limit = gap_limit(torch, net, top)
+        row.update(first_divergence=d, top2_gap=gap, gap_limit=limit)
+        check(gap < limit, f"{what}: tokens differ from the reference at {d}, top-2 gap {gap}")
+    return row
+
+
+def fleet_reference(ref, prompts, new, temps, seeds):
+    """The reference engine's tokens, one request at a time."""
+    out = []
+    for p, t, s in zip(prompts, temps, seeds):
+        r = ref.submit(p, new, temperature=t, seed=s).result(FLEET_DEADLINE)
+        check(r.ok, f"fleet reference: {r.status} {r.error}")
+        out.append(r.generated_ids)
+    return out
+
+
+def wait_root(router, prompt, timeout=30.0):
+    """Wait until some backend's advert, as the router sees it, holds a root
+    of ``prompt``."""
+    from mxnet_tpu_torch.serve.paging import prefix_key
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        for b in list(router._backends.values()):
+            for key, ln in (b.prefix_summary or ()):
+                if ln <= len(prompt) and prefix_key(prompt[:ln]) == key:
+                    return b.url
+        time.sleep(0.02)
+    raise SmokeFailure("fleet: a prefix advert never reached the router")
+
+
+def metric(name, labels=None):
+    from mxnet_tpu_torch import metrics
+    return metrics.get_sample_value(name, labels) or 0.0
+
+
+def fleet_hop(eng, front, payloads, client):
+    """Seconds of ``payloads`` posted to ``front`` (the engine's own
+    frontend) from the threads of ``client`` and submitted to ``eng`` in
+    process from the same threads, each thread waiting for its request
+    before the next (as ``http_serve`` times them): one untimed HTTP round
+    first, which leaves both sides the same prefix cache, then in process,
+    HTTP, HTTP, in process. Every request must succeed."""
+    def http():
+        docs = http_post_all(front.url, payloads, client)
+        check(all(c == 200 and d["status"] == "ok" for c, d in docs),
+              "fleet (a): a replica HTTP request failed")
+
+    def in_process():
+        res = list(client.map(lambda p: eng.submit(
+            p["input_ids"], p["max_new_tokens"], temperature=p.get("temperature", 0.0),
+            seed=p.get("seed", 0)).result(FLEET_DEADLINE), payloads))
+        check(all(r.ok for r in res), "fleet (a): an in-process request failed")
+
+    http()
+    out = {"http_s": [], "in_process_s": []}
+    for key, fn in (("in_process_s", in_process), ("http_s", http), ("http_s", http),
+                    ("in_process_s", in_process)):
+        t0 = time.perf_counter()
+        fn()
+        out[key].append(time.perf_counter() - t0)
+    tokens = sum(p["max_new_tokens"] for p in payloads)
+    out.update(requests=len(payloads), tokens=tokens,
+               http_tokens_per_s=[tokens / t for t in out["http_s"]],
+               in_process_tokens_per_s=[tokens / t for t in out["in_process_s"]],
+               http_over_in_process=sum(out["in_process_s"]) / sum(out["http_s"]))
+    return out
+
+
+def frontend_with_backlog(eng, backlog):
+    """A started ``HTTPFrontend`` of ``eng`` whose socket listens with
+    ``backlog`` (the port's frontends listen with
+    ``BurstHTTPServer.request_queue_size``)."""
+    from mxnet_tpu_torch.serve import http
+    was = http.BurstHTTPServer.request_queue_size
+    http.BurstHTTPServer.request_queue_size = backlog
+    try:
+        return http.HTTPFrontend(eng, port=0).start()
+    finally:
+        http.BurstHTTPServer.request_queue_size = was
+
+
+def backlog_probe(url, payloads, client, in_process_s):
+    """A measurement of a listen backlog, not a gate: ``payloads`` posted
+    to ``url`` from the threads of ``client``, twice; per run its seconds
+    and the requests that failed at the transport (a backlog that
+    overflows drops handshakes and may reset connections); tokens/s over
+    the requests answered, and their ratio to ``in_process_s`` (seconds of
+    the same requests in process)."""
+    def post(p):
+        try:
+            code, doc = http_json(url, "/generate", p)
+        except OSError:
+            return 0
+        return len(doc["generated_ids"]) if code == 200 else 0
+
+    out = {"http_s": [], "failed": [], "http_tokens_per_s": []}
+    for _ in range(2):
+        t0 = time.perf_counter()
+        got = list(client.map(post, payloads))
+        out["http_s"].append(time.perf_counter() - t0)
+        out["failed"].append(sum(1 for n, p in zip(got, payloads)
+                                 if n != p["max_new_tokens"]))
+        out["http_tokens_per_s"].append(sum(got) / out["http_s"][-1])
+    out["http_over_in_process"] = (sum(in_process_s) / len(in_process_s)
+                                   / (sum(out["http_s"]) / len(out["http_s"])))
+    return out
+
+
+def fleet_affinity(torch, args, net, ref, reps, fronts, pool):
+    """(a) Two replicas behind a ``Router(affinity=True)`` and its
+    ``RouterFrontend``: FLEET_FAMILIES prompt families (a FLEET_PREFIX-token
+    prefix and 8-32 own tokens, at most 64 tokens), three requests each,
+    greedy and at T 0.8, alternately over JSON ``/generate`` and SSE; each
+    family's first request alone, the other two concurrently once an advert
+    holds the prefix; then the same requests and 4 more at once through the
+    router (its tokens/s). Every request holds ``fleet_hold`` against the
+    reference engine; affinity hit tokens > 0; K6 and K8 launched on both
+    replicas in this window (the part's fleet launches); no request failed.
+    Then, the router stopped (no ``/healthz`` polls), ``fleet_hop`` on
+    replica A at the router burst's shape and at ``http_serve``'s
+    (FLEET_HOP_ROUNDS rounds of 10 prompts of 8-48 tokens, 8 greedy and 2
+    at T 0.8, HTTP_NEW new tokens, from 8 threads), and at the burst's
+    shape once more through a frontend of A that listens with the
+    standard library's backlog of 5 (``backlog_probe``)."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mxnet_tpu_torch.serve import Router, RouterFrontend
+    rng = np.random.RandomState(args.seed + 31)
+    vocab = net.cfg.vocab_size
+    fams = [rng.randint(0, vocab, FLEET_PREFIX).tolist() for _ in range(FLEET_FAMILIES)]
+    reqs = []
+    for j in range(3):
+        for f, pre in enumerate(fams):
+            i = len(reqs)
+            reqs.append({"input_ids": pre + rng.randint(0, vocab, int(rng.randint(8, 33))).tolist(),
+                         "max_new_tokens": FLEET_NEW, "temperature": 0.8 if i % 2 else 0.0,
+                         "seed": 3000 + i, "stream": i % 3 == 1, "round": j})
+    want = fleet_reference(ref, [r["input_ids"] for r in reqs], FLEET_NEW,
+                           [r["temperature"] for r in reqs], [r["seed"] for r in reqs])
+    router = Router([f.url for f in fronts], health_interval=0.05, affinity=True,
+                    affinity_max_load=FLEET_AFFINITY_LOAD).start()
+    rf = RouterFrontend(router, port=0).start()
+    before = [engine_launches(e) for e in reps]
+    hits0 = metric("mxnet_cache_affinity_hit_tokens_total")
+
+    def send(r):
+        payload = {k: v for k, v in r.items() if k not in ("stream", "round")}
+        if r["stream"]:
+            toks, done = http_sse(rf.url, dict(payload, stream=True))
+            check(done is not None and done.get("status") == "ok",
+                  f"fleet (a): SSE request ended {done}")
+            check(toks == done["generated_ids"], "fleet (a): SSE frames != the done document")
+            return toks
+        code, doc = http_json(rf.url, "/generate", payload)
+        check(code == 200 and doc.get("status") == "ok", f"fleet (a): {code} {doc}")
+        return doc["generated_ids"]
+
+    burst = [{k: v for k, v in r.items() if k not in ("stream", "round")}
+             for r in reqs + reqs[:4]]
+    try:
+        got = [None] * len(reqs)
+        for i, r in enumerate(reqs[:FLEET_FAMILIES]):
+            got[i] = send(r)
+        for r in reqs[:FLEET_FAMILIES]:
+            wait_root(router, r["input_ids"])
+        rest = list(range(FLEET_FAMILIES, len(reqs)))
+        for i, toks in zip(rest, pool.map(lambda i: send(reqs[i]), rest)):
+            got[i] = toks
+        stats = router.stats()
+        t0 = time.perf_counter()
+        docs = http_post_all(rf.url, burst, pool)
+        t_router = time.perf_counter() - t0
+        check(all(c == 200 and d["status"] == "ok" for c, d in docs),
+              "fleet (a): a router burst request failed")
+        per = [launches_since(e, b) for e, b in zip(reps, before)]
+    finally:
+        rf.stop()
+        router.stop()
+    hop_burst = fleet_hop(reps[0], fronts[0], burst, pool)
+    front5 = frontend_with_backlog(reps[0], 5)
+    try:
+        hop_backlog5 = backlog_probe(front5.url, burst, pool, hop_burst["in_process_s"])
+    finally:
+        front5.stop()
+    prompts = [rng.randint(0, vocab, int(n)).tolist() for n in rng.randint(8, 49, 10)]
+    shape14 = [{"input_ids": p, "max_new_tokens": HTTP_NEW,
+                **({"temperature": 0.8, "seed": 1400 + i} if i >= 8 else {})}
+               for i, p in enumerate(prompts)] * FLEET_HOP_ROUNDS
+    with ThreadPoolExecutor(max_workers=8) as client:
+        hop14 = fleet_hop(reps[0], fronts[0], shape14, client)
+    rows = [fleet_hold(torch, net, r["input_ids"], g, w, f"fleet (a) request {i}",
+                       r["temperature"] > 0, FLEET_MAX_LEN)
+            for i, (r, g, w) in enumerate(zip(reqs, got, want))]
+    for n, p in zip("AB", per):
+        for kind in ("fused_block_paged", "fused_head"):
+            check(p["kinds"].get(kind, 0) > 0, f"fleet (a): {kind} never launched on replica {n}")
+    hit_tokens = metric("mxnet_cache_affinity_hit_tokens_total") - hits0
+    check(hit_tokens > 0, "fleet (a): no affinity hit")
+    tokens = FLEET_NEW * len(burst)
+    out = {"requests": len(reqs), "prompt_tokens": [len(r["input_ids"]) for r in reqs],
+           "new_tokens_each": FLEET_NEW, "affinity_hit_tokens": hit_tokens,
+           "affinity_outcomes": {o: metric("mxnet_cache_affinity_dispatch_total",
+                                           {"outcome": o}) for o in ("hit", "load_bounded",
+                                                                     "cold")},
+           "router": {k: stats[k] for k in ("dispatches", "retries", "ejects", "rebalances")},
+           "per_replica_submitted": {n: e.stats()["submitted"] for n, e in zip("AB", reps)},
+           "launches_per_replica": {n: p["kinds"] for n, p in zip("AB", per)},
+           "rows": rows, "all_equal": all(r["equal"] for r in rows),
+           "burst_requests": len(burst), "router_tokens_per_s": tokens / t_router,
+           "router_over_in_process": (sum(hop_burst["in_process_s"])
+                                      / len(hop_burst["in_process_s"]) / t_router),
+           "hop_burst": hop_burst, "hop_burst_backlog5": hop_backlog5,
+           "hop_http_serve_shape": hop14,
+           "fleet_launches": merge_launches(*per)}
+    emit({"fleet_a": {k: v for k, v in out.items() if k != "fleet_launches"}})
+    return out
+
+
+def tamper(doc, key_page, shape_page):
+    """A copy of a wire doc with one page's chain key flipped and another
+    page's first payload cut to half its rows (a consistent doc of the wrong
+    shape)."""
+    import base64
+    import copy
+    bad = copy.deepcopy(doc)
+    bad["pages"][key_page]["key"] ^= 1
+    arr = bad["pages"][shape_page]["payload"][0]
+    raw = base64.b64decode(arr["data"])
+    arr["data"] = base64.b64encode(raw[:len(raw) // 2]).decode()
+    arr["shape"] = arr["shape"][:2] + [arr["shape"][2] // 2] + arr["shape"][3:]
+    return bad
+
+
+def fleet_migrate(torch, args, net, src, dst, fsrc, fdst, label, prompt_len, max_len,
+                  tampered=False):
+    """One migration: ``src`` serves a fresh prompt of ``prompt_len`` tokens
+    (its tokens are the reference), ``migrate_prefix`` ships its cached full
+    pages over HTTP to ``dst``, which then serves the prompt. Gates: every
+    shipped page adopted, ``dst``'s prefill only the unadopted tail, the
+    tokens within ``fleet_hold``, the block kernel (K6, or K7 past its gate)
+    launched on ``dst`` over the imported pages, ``dst``'s captures
+    unchanged. The part's fleet launches are ``dst``'s over the import and
+    its request (the source's own prefill and decode are not counted).
+    ``tampered``: a doc with one wrong chain key and one wrong
+    shape, into ``dst`` with its prefix cache emptied: both counted in
+    ``mxnet_migrate_verify_failures_total``, neither written."""
+    import numpy as np
+
+    from mxnet_tpu_torch.serve import migrate_prefix
+    rng = np.random.RandomState(args.seed + 41 + prompt_len)
+    prompt = rng.randint(0, net.cfg.vocab_size, prompt_len).tolist()
+    kind = "fused_block_paged_dma" if max_len > 432 else "fused_block_paged"
+    s0 = src.stats()
+    ra = src.submit(prompt, FLEET_NEW, seed=7).result(FLEET_DEADLINE)
+    s1 = src.stats()
+    check(ra.ok, f"fleet {label}: source request {ra.status} {ra.error}")
+    d0, l0 = dst.stats(), engine_launches(dst)
+    t0 = time.perf_counter()
+    summary = migrate_prefix(fsrc.url, fdst.url, prompt)
+    t_mig = time.perf_counter() - t0
+    doc = src.export_pages(prompt)
+    n = len(doc["pages"])
+    check(n == (prompt_len - 1) // 16, f"fleet {label}: {n} pages shipped")
+    check(summary["received"] == summary["adopted"] == n and not summary["verify_failures"],
+          f"fleet {label}: import {summary}")
+    d1 = dst.stats()
+    rb = dst.submit(prompt, FLEET_NEW, seed=7).result(FLEET_DEADLINE)
+    d2 = dst.stats()
+    check(rb.ok, f"fleet {label}: migrated request {rb.status} {rb.error}")
+    saved = d2["pages"]["prefix_tokens_saved"] - d1["pages"]["prefix_tokens_saved"]
+    chunks = d2["prefill_chunks"] - d1["prefill_chunks"]
+    check(saved == 16 * n and chunks == -(-(prompt_len - 16 * n) // 16),
+          f"fleet {label}: prefill of {chunks} chunks after {saved} tokens mapped")
+    row = fleet_hold(torch, net, prompt, rb.generated_ids, ra.generated_ids,
+                     f"fleet {label}", False, max_len)
+    per = launches_since(dst, l0)
+    check(per["kinds"].get(kind, 0) > 0, f"fleet {label}: {kind} never launched on the target")
+    check(d2["captures"] == d0["captures"],
+          f"fleet {label}: captures {d0['captures']} -> {d2['captures']} across the import")
+    dtypes = sorted({a["dtype"] for p in doc["pages"] for a in p["payload"]})
+    out = {"prompt": prompt_len, "max_len": max_len, "kernel": kind, "pages": n,
+           "import": summary, "wire_dtypes": dtypes,
+           "wire_bytes_per_page": len(json.dumps(doc)) / n,
+           "payload_bytes_per_page": sum(p.numel() * p.element_size() for p in src._pools)
+           // src._pools[0].shape[src._paxes[0]],
+           "ms_per_migrated_page": t_mig / n * 1e3, "migrate_s": t_mig,
+           "source_prefill_ms": (s1["prefill_s"] - s0["prefill_s"]) * 1e3,
+           "target_prefill_ms": (d2["prefill_s"] - d1["prefill_s"]) * 1e3,
+           "target_prefill_chunks": chunks, "prefix_tokens_mapped": saved,
+           "fleet_launches": per, "captures": [d0["captures"], d2["captures"]], **row}
+    out["prefill_ms_saved"] = out["source_prefill_ms"] - out["target_prefill_ms"]
+    if tampered:
+        bad = tamper(doc, 2, 5)
+        dst._pages.clear_prefix_cache()
+        f0 = metric("mxnet_migrate_verify_failures_total")
+        res = dst.import_pages(bad)
+        failures = metric("mxnet_migrate_verify_failures_total") - f0
+        held = dst.stats()["pages"]["pages_cached_only"]
+        check(res["verify_failures"] == 2 and failures == 2 and res["adopted"] == n - 2
+              and held == n - 2,
+              f"fleet {label}: tampered import {res}, {failures} counted, {held} pages held")
+        out["tampered"] = {"import": res, "counted": failures, "pages_held": held}
+    return out
+
+
+def fleet_rescue(torch, args, net, ref, peer):
+    """(d) Preemption rescue: a replica with a FLEET_RESCUE["pages"]-page
+    pool and no prefix cache takes FLEET_RESCUE["prompts"] greedy requests
+    that need more, with ``install_preempt_rescue`` pointing at ``peer``:
+    preemptions ship the victims' pages and resume them there. Every output
+    holds ``fleet_hold`` against the reference engine, and
+    ``mxnet_migrate_rescues_total{outcome=resumed}`` grows. The part's
+    fleet launches: the victim's after its warm-up and the peer's over the
+    rescue."""
+    import numpy as np
+
+    from mxnet_tpu_torch.serve import install_preempt_rescue
+    c = FLEET_RESCUE
+    rng = np.random.RandomState(args.seed + 51)
+    prompts = [rng.randint(0, net.cfg.vocab_size, c["prompt_len"]).tolist()
+               for _ in range(c["prompts"])]
+    want = fleet_reference(ref, prompts, c["new"], [0.0] * len(prompts),
+                           range(len(prompts)))
+    victim = fleet_engine(net, num_pages=c["pages"], prefix_cache=False)
+    install_preempt_rescue(victim, [peer])
+    r0 = metric("mxnet_migrate_rescues_total", {"outcome": "resumed"})
+    p0 = peer.stats()["submitted"]
+    before = [engine_launches(e) for e in (victim, peer)]
+    try:
+        hs = [victim.submit(p, c["new"], seed=i) for i, p in enumerate(prompts)]
+        res = [h.result(FLEET_DEADLINE) for h in hs]
+        vst = victim.stats()
+        window = merge_launches(*[launches_since(e, b)
+                                  for e, b in zip((victim, peer), before)])
+    finally:
+        victim.shutdown(drain=True, timeout=FLEET_DEADLINE)
+    rescued = metric("mxnet_migrate_rescues_total", {"outcome": "resumed"}) - r0
+    for i, r in enumerate(res):
+        check(r.ok, f"fleet (d) request {i}: {r.status} {r.error}")
+    check(vst["preemptions"] > 0 and rescued > 0,
+          f"fleet (d): {vst['preemptions']} preemptions, {rescued} rescues")
+    rows = [fleet_hold(torch, net, p, r.generated_ids, w, f"fleet (d) request {i}", False,
+                       FLEET_MAX_LEN)
+            for i, (p, r, w) in enumerate(zip(prompts, res, want))]
+    out = {**c, "preemptions": vst["preemptions"], "rescued": rescued,
+           "peer_requests": peer.stats()["submitted"] - p0,
+           "failed_rescues": metric("mxnet_migrate_rescues_total", {"outcome": "failed"}),
+           "rows": rows}
+    emit({"fleet_d": out})
+    return dict(out, fleet_launches=window)
+
+
+def fleet_tiers(torch, args, net, ref, reps, fronts):
+    """(e) ``PrefillDecodePipeline`` over the prefill replica (A) and the
+    decode replica (B) by URL: 3 greedy requests of 100-200 tokens, each
+    prefilled on A, its pages streamed to B, decoded on B; the tokens hold
+    ``fleet_hold`` against the reference engine, pages streamed, B's prefix
+    hits grow. The part's fleet launches: A's and B's over the pipeline."""
+    import numpy as np
+
+    from mxnet_tpu_torch.serve import PrefillDecodePipeline
+    rng = np.random.RandomState(args.seed + 61)
+    prompts = [rng.randint(0, net.cfg.vocab_size, int(n)).tolist()
+               for n in rng.randint(100, 201, 3)]
+    want = fleet_reference(ref, prompts, FLEET_NEW, [0.0] * 3, range(3))
+    pipe = PrefillDecodePipeline([fronts[0].url], [fronts[1].url], timeout=FLEET_DEADLINE)
+    h0 = reps[1].stats()["pages"]["prefix_hits"]
+    before = [engine_launches(e) for e in reps]
+    t0 = time.perf_counter()
+    docs = [pipe.generate({"input_ids": p, "max_new_tokens": FLEET_NEW, "seed": i})
+            for i, p in enumerate(prompts)]
+    wall = time.perf_counter() - t0
+    window = merge_launches(*[launches_since(e, b) for e, b in zip(reps, before)])
+    for i, d in enumerate(docs):
+        check(d.get("status") == "ok", f"fleet (e) request {i}: {d}")
+    st = pipe.stats()
+    hits = reps[1].stats()["pages"]["prefix_hits"] - h0
+    check(st["pages_streamed"] > 0 and hits >= len(prompts),
+          f"fleet (e): {st['pages_streamed']} pages streamed, {hits} prefix hits")
+    rows = [fleet_hold(torch, net, p, d["generated_ids"], w, f"fleet (e) request {i}", False,
+                       FLEET_MAX_LEN) for i, (p, d, w) in enumerate(zip(prompts, docs, want))]
+    out = {"prompts": [len(p) for p in prompts], "pages_streamed": st["pages_streamed"],
+           "decode_prefix_hits": hits, "wall_s": wall, "rows": rows}
+    emit({"fleet_e": out})
+    return dict(out, fleet_launches=window)
+
+
+def fleet_autoscale(torch, args, net, ref, pool):
+    """(f) A ``FleetController`` over an ``InProcessSpawner`` of 2-slot
+    replicas (each warmed as it spawns, while the others serve) behind a
+    ``Router``: a burst of FLEET_BURST requests scales the fleet 1 -> 2; a
+    second burst, JSON and SSE, is in the replicas' queues when the
+    controller (its policy swapped for one that wants fewer replicas)
+    drains one: the drain-bounced requests replay on the survivor, the
+    drained replica retires, 2 -> 1. Zero failed requests, every output
+    holds ``fleet_hold`` against the reference engine, every SSE stream
+    delivers each token index once, and at least one request bounced. The
+    part's fleet launches: each replica's after its warm-up."""
+    import numpy as np
+
+    from mxnet_tpu_torch.serve import (AutoscalePolicy, FleetController, InProcessSpawner,
+                                       Router)
+    rng = np.random.RandomState(args.seed + 71)
+    new = 2 * FLEET_NEW
+    prompts = [rng.randint(0, net.cfg.vocab_size, int(n)).tolist()
+               for n in rng.randint(16, 65, 2 * FLEET_BURST)]
+    want = fleet_reference(ref, prompts, new, [0.0] * len(prompts), range(len(prompts)))
+    warmed = []             # (replica, its launches at the end of its warm-up)
+
+    def build():
+        eng = fleet_engine_unstarted(net)
+        warmup = eng.warmup
+
+        def warm_and_mark():
+            warmup()
+            warmed.append((eng, engine_launches(eng)))
+        eng.warmup = warm_and_mark
+        return eng
+
+    spawner = InProcessSpawner(build, warmup=True)
+    router = Router([spawner.spawn()], health_interval=0.05).start()
+    up = AutoscalePolicy(scale_up_load=0.6, scale_down_load=0.1, up_after=1, down_after=1,
+                         cooldown_s=0.0, min_replicas=1, max_replicas=2,
+                         drain_grace_s=FLEET_DEADLINE, refresh_slo=False)
+    ctl = FleetController(router, spawner, policy=up)
+    engines = lambda: {u: spawner._replicas[u][0] for u in spawner.urls()}  # noqa: E731
+
+    def run(i, stream):
+        payload = {"input_ids": prompts[i], "max_new_tokens": new, "seed": i}
+        if stream:
+            frames = list(router.generate_stream(payload))
+            toks = [json.loads(f.split(b"data: ", 1)[1])["token"] for f in frames
+                    if f.startswith(b"event: token")]
+            idx = [json.loads(f.split(b"data: ", 1)[1])["index"] for f in frames
+                   if f.startswith(b"event: token")]
+            done = json.loads(frames[-1].split(b"data: ", 1)[1])
+            check(idx == list(range(len(toks))), f"fleet (f) stream {i}: token indices {idx}")
+            return done.get("status"), toks
+        doc = router.generate(payload)
+        return doc.get("status"), doc.get("generated_ids")
+
+    sizes, events = [len(spawner.urls())], []
+    try:
+        futs = [pool.submit(run, i, False) for i in range(FLEET_BURST)]
+        deadline = time.monotonic() + FLEET_DEADLINE
+        while not events and time.monotonic() < deadline:
+            ev = ctl.tick()
+            if ev is not None:
+                events.append(ev)
+            time.sleep(0.02)
+        check(events and events[0]["direction"] == "up", f"fleet (f): no scale-up: {events}")
+        got = [f.result(FLEET_DEADLINE) for f in futs]
+        sizes.append(len(spawner.urls()))
+        deadline = time.monotonic() + 30
+        while router.stats()["healthy"] < 2 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        retries0, bounced0 = router.stats()["retries"], metric_sum(
+            "mxnet_router_ejects_total", "draining")
+        futs = [pool.submit(run, i, i % 2 == 1) for i in range(FLEET_BURST, 2 * FLEET_BURST)]
+        # drain once both replicas hold queued requests (or the burst ended:
+        # then the bounce gate below fails)
+        deadline = time.monotonic() + 60
+        while (time.monotonic() < deadline and not all(f.done() for f in futs) and not
+               all(e.stats()["queue_depth"] > 0 for e in engines().values())):
+            time.sleep(0.002)
+        ctl.policy = AutoscalePolicy(scale_up_load=100.0, scale_down_load=50.0, up_after=1,
+                                     down_after=1, cooldown_s=0.0, min_replicas=1,
+                                     max_replicas=2, drain_grace_s=FLEET_DEADLINE,
+                                     refresh_slo=False)
+        t_drain = time.perf_counter()
+        ev = ctl.tick()
+        check(ev is not None and ev["direction"] == "down", f"fleet (f): no scale-down: {ev}")
+        events.append(ev)
+        got += [f.result(FLEET_DEADLINE) for f in futs]
+        deadline = time.monotonic() + FLEET_DEADLINE
+        while ctl.stats()["retiring"] and time.monotonic() < deadline:
+            ctl.tick()
+            time.sleep(0.02)
+        drain_s = time.perf_counter() - t_drain
+        sizes.append(len(spawner.urls()))
+        st = router.stats()
+        bounced = metric_sum("mxnet_router_ejects_total", "draining") - bounced0
+    finally:
+        ctl.stop()
+        router.stop()
+        spawner.stop_all()
+    check(sizes == [1, 2, 1], f"fleet (f): replicas {sizes}")
+    check(all(s == "ok" for s, _ in got), f"fleet (f): statuses {[s for s, _ in got]}")
+    check(st["retries"] > retries0, "fleet (f): no request bounced off the drained replica")
+    rows = [fleet_hold(torch, net, p, toks, w, f"fleet (f) request {i}", False, FLEET_MAX_LEN)
+            for i, (p, (_, toks), w) in enumerate(zip(prompts, got, want))]
+    out = {"requests": len(prompts), "new_tokens_each": new, "replicas": sizes,
+           "events": [{k: e[k] for k in ("direction", "reason", "replicas")} for e in events],
+           "spawn_s": events[0]["spawn_s"], "drain_s": drain_s,
+           "bounced_replays": st["retries"] - retries0, "drain_ejects": bounced,
+           "rows": rows}
+    emit({"fleet_f": out})
+    return dict(out, fleet_launches=merge_launches(*[launches_since(e, b)
+                                                     for e, b in warmed]))
+
+
+def fleet_engine_unstarted(net):
+    """An autoscale replica: 2 slots, otherwise a fleet replica; the spawner
+    starts and warms it."""
+    from mxnet_tpu_torch.serve import InferenceEngine
+    return InferenceEngine(net, max_batch_size=2, max_len=FLEET_MAX_LEN, multi_token=4,
+                           fused=True, paged=True, page_size=16)
+
+
+def metric_sum(name, label_value):
+    """Sum of a family's samples whose label values include ``label_value``."""
+    from mxnet_tpu_torch import metrics
+    fam = metrics.REGISTRY.get(name)
+    return sum(metrics.get_sample_value(name, dict(zip(fam.labelnames, lv))) or 0.0
+               for lv in list(fam._children) if label_value in lv)
+
+
+def fleet_tenants(torch, args, net, reps, fronts, pool):
+    """(g) Tenants. A ``Router`` over both replicas with tenants weighted 3
+    (gold) : 1 (bronze) and 3 x FLEET_BURST requests each, interleaved: once
+    half the requests are admitted, gold holds the larger share. A second
+    router with a tenant capped at one request in flight and a 0.2 s
+    admission timeout, behind a ``RouterFrontend``: of FLEET_BURST
+    concurrent requests some answer 429 and exactly those are counted in
+    ``mxnet_fleet_tenant_rejected_total``; the others succeed. The part's
+    fleet launches: both replicas' over both routers' requests."""
+    import numpy as np
+
+    from mxnet_tpu_torch.serve import Router, RouterFrontend, TenantPolicy
+    rng = np.random.RandomState(args.seed + 81)
+    n = 3 * FLEET_BURST
+    payloads = [{"input_ids": rng.randint(0, net.cfg.vocab_size, 16).tolist(),
+                 "max_new_tokens": FLEET_NEW, "seed": i,
+                 "tenant": "gold" if i % 2 == 0 else "bronze"} for i in range(2 * n)]
+    before = [engine_launches(e) for e in reps]
+    router = Router([f.url for f in fronts], health_interval=0.05,
+                    tenants={"gold": TenantPolicy(weight=3.0),
+                             "bronze": TenantPolicy(weight=1.0)}).start()
+    try:
+        deadline = time.monotonic() + 30
+        while router.stats()["healthy"] < 2 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        futs = [pool.submit(router.generate, p) for p in payloads]
+        mid, deadline = None, time.monotonic() + FLEET_DEADLINE
+        while mid is None and time.monotonic() < deadline:
+            st = router._tenants.stats()
+            if sum(t["dispatched"] for t in st.values()) >= n:
+                mid = {t: s["dispatched"] for t, s in st.items()}
+            time.sleep(0.001)
+        docs = [f.result(FLEET_DEADLINE) for f in futs]
+        final = router.stats()["tenants"]
+    finally:
+        router.stop()
+    check(all(d.get("status") == "ok" for d in docs), "fleet (g): a tenant request failed")
+    check(mid is not None and mid["gold"] > mid["bronze"],
+          f"fleet (g): dispatch shares at half {mid}")
+    capped = Router([fronts[0].url], health_interval=0.05,
+                    tenants={"capped": TenantPolicy(max_inflight=1)}, tenant_timeout=0.2).start()
+    rf = RouterFrontend(capped, port=0).start()
+    r0 = metric("mxnet_fleet_tenant_rejected_total", {"tenant": "capped"})
+    try:
+        deadline = time.monotonic() + 30
+        while capped.stats()["healthy"] < 1 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        burst = [dict(p, tenant="capped", max_new_tokens=4 * FLEET_NEW)
+                 for p in payloads[:FLEET_BURST]]
+        answers = list(pool.map(lambda p: http_json(rf.url, "/generate", p), burst))
+    finally:
+        rf.stop()
+        capped.stop()
+    codes = [c for c, _ in answers]
+    rejected = metric("mxnet_fleet_tenant_rejected_total", {"tenant": "capped"}) - r0
+    check(codes.count(429) > 0 and rejected == codes.count(429)
+          and codes.count(200) == len(codes) - codes.count(429),
+          f"fleet (g): quota answers {codes}, {rejected} counted")
+    out = {"weights": {"gold": 3.0, "bronze": 1.0}, "requests_per_tenant": n,
+           "dispatched_at_half": mid, "gold_share_at_half": mid["gold"] / sum(mid.values()),
+           "final": {t: s["dispatched"] for t, s in final.items()},
+           "quota": {"max_inflight": 1, "timeout_s": 0.2, "codes": codes,
+                     "rejected_counted": rejected}}
+    emit({"fleet_g": out})
+    return dict(out, fleet_launches=merge_launches(*[launches_since(e, b)
+                                                     for e, b in zip(reps, before)]))
+
+
+def fleet_serve(torch, args, net, bf16_net):
+    """Phase 13, the serving fleet over paged replicas of int8 GPT-2 small
+    (``net``; ``bf16_net`` its bf16 twin for (c)), each behind its own
+    ``HTTPFrontend`` in this process, the replicas of a part sharing one
+    model. (a) router with prefix affinity, (b) KV-page migration on K6
+    and K7 replicas with a tampered doc, (c) (b) on bf16 pools, (d)
+    preemption rescue, (e) prefill / decode tiers, (f) autoscale 1 -> 2 ->
+    1 with drain-bounce replay, (g) tenants: see each part. The fleet
+    path's launches (the kernels line's ``launches_fleet``) are the sum of
+    the parts' per-replica windows: the fleet replicas over the parts'
+    fleet traffic, without the reference engine, the in-process and direct
+    HTTP timings, the migration sources or any warm-up. Returns them as
+    {kind: n, "lanes": {...}, "routes": {...}}; ``fleet_numbers`` also
+    prints the process-wide counters of the phase (zeroed at its start),
+    which hold all of those."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mxnet_tpu_torch import metrics
+    from mxnet_tpu_torch.ops.int8_gemv import dtype_lanes, gemv_routes, launches, reset_launches
+    from mxnet_tpu_torch.serve import HTTPFrontend
+    t_phase = time.perf_counter()
+    tag = card_tag(torch)
+    was = metrics.enabled()
+    metrics.enable()
+    reset_launches()
+    ref = fleet_engine(net)
+    reps = [fleet_engine(net, tier=t) for t in ("prefill", "decode")]
+    fronts = [HTTPFrontend(e, port=0).start() for e in reps]
+    pool = ThreadPoolExecutor(max_workers=4 * FLEET_BURST)
+    extra = []
+    try:
+        a = fleet_affinity(torch, args, net, ref, reps, fronts, pool)
+        b = {"k6": fleet_migrate(torch, args, net, reps[0], reps[1], fronts[0], fronts[1],
+                                 "(b) K6", FLEET_MIGRATE[0], FLEET_MAX_LEN, tampered=True)}
+        pair = [fleet_engine(net, max_len=FLEET_LONG_LEN) for _ in range(2)]
+        extra += pair
+        pf = [HTTPFrontend(e, port=0).start() for e in pair]
+        try:
+            b["k7"] = fleet_migrate(torch, args, net, pair[0], pair[1], pf[0], pf[1], "(b) K7",
+                                    FLEET_MIGRATE[1], FLEET_LONG_LEN)
+        finally:
+            for f in pf:
+                f.stop()
+        emit({"fleet_b": b})
+        pair16 = [fleet_engine(bf16_net) for _ in range(2)]
+        extra += pair16
+        pf = [HTTPFrontend(e, port=0).start() for e in pair16]
+        try:
+            c = fleet_migrate(torch, args, bf16_net, pair16[0], pair16[1], pf[0], pf[1],
+                              "(c) bf16", FLEET_MIGRATE[0], FLEET_MAX_LEN)
+        finally:
+            for f in pf:
+                f.stop()
+        check(c["wire_dtypes"] == ["bfloat16"], f"fleet (c): wire dtypes {c['wire_dtypes']}")
+        if torch.cuda.is_available():
+            lanes = c["fleet_launches"]["lanes"]
+            bf16_lanes = sum(n for k, n in lanes.items()
+                             if k.startswith("fused_block_paged:") and k.endswith("kv_bf16"))
+            check(bf16_lanes > 0, f"fleet (c): K6's bf16 lane never ran: {lanes}")
+        emit({"fleet_c": c})
+        d = fleet_rescue(torch, args, net, ref, reps[1])
+        e = fleet_tiers(torch, args, net, ref, reps, fronts)
+        f = fleet_autoscale(torch, args, net, ref, pool)
+        g = fleet_tenants(torch, args, net, reps, fronts, pool)
+    finally:
+        pool.shutdown(wait=True)
+        for fr in fronts:
+            fr.stop()
+        for eng in [ref] + reps + extra:
+            eng.shutdown(drain=True, timeout=FLEET_DEADLINE)
+        if not was:
+            metrics.disable()
+    fleet = merge_launches(*[part["fleet_launches"]
+                             for part in (a, b["k6"], b["k7"], c, d, e, f, g)])
+    counts = dict(fleet["kinds"], lanes=fleet["lanes"], routes=fleet["routes"])
+    process = dict(launches(), lanes=dtype_lanes(), routes=gemv_routes())
+    wall = time.perf_counter() - t_phase
+    hop, hop14 = a["hop_burst"], a["hop_http_serve_shape"]
+    emit({"fleet_numbers": {
+        "card": tag, "phase_s": wall,
+        "router_tokens_per_s": a["router_tokens_per_s"],
+        "replica_http_tokens_per_s": hop["http_tokens_per_s"],
+        "in_process_tokens_per_s": hop["in_process_tokens_per_s"],
+        "router_over_in_process": a["router_over_in_process"],
+        "replica_http_over_in_process": hop["http_over_in_process"],
+        "backlog5": {"replica_http_tokens_per_s": a["hop_burst_backlog5"]["http_tokens_per_s"],
+                     "replica_http_over_in_process":
+                         a["hop_burst_backlog5"]["http_over_in_process"],
+                     "failed_requests": a["hop_burst_backlog5"]["failed"]},
+        "http_serve_shape": {"replica_http_tokens_per_s": hop14["http_tokens_per_s"],
+                             "in_process_tokens_per_s": hop14["in_process_tokens_per_s"],
+                             "replica_http_over_in_process": hop14["http_over_in_process"]},
+        "ms_per_migrated_page": {"k6_f32": b["k6"]["ms_per_migrated_page"],
+                                 "k7_f32": b["k7"]["ms_per_migrated_page"],
+                                 "k6_bf16": c["ms_per_migrated_page"]},
+        "wire_bytes_per_page": {"f32": b["k6"]["wire_bytes_per_page"],
+                                "bf16": c["wire_bytes_per_page"]},
+        "prefill_ms_saved": {"k6_f32": b["k6"]["prefill_ms_saved"],
+                             "k7_f32": b["k7"]["prefill_ms_saved"],
+                             "k6_bf16": c["prefill_ms_saved"]},
+        "spawn_s": f["spawn_s"], "drain_s": f["drain_s"],
+        "rescued": d["rescued"], "tiers_pages_streamed": e["pages_streamed"],
+        "gold_share_at_half": g["gold_share_at_half"], "launches": counts,
+        "process_launches": process}})
+    return counts
+
+
 def llama_kernel_rows(kl, llama):
     """The kernels-line rows of the Llama path at Llama-3-8B's widths
     (kernel_llama_widths' numbers): K3 and K4 per (N, K), x lane (bf16,
@@ -5879,6 +6690,10 @@ def main(argv=None):
     cs_counts = constrained_spec(torch, args, net, cpu_net)
     http_counts = http_serve(torch, args, net, cpu_net)
     del cpu_net
+    fleet_bf16 = gpt2_bf16(torch, args, "cuda", 8)
+    fleet_counts = fleet_serve(torch, args, net, fleet_bf16)
+    del fleet_bf16
+    torch.cuda.empty_cache()
     t_modes = time.perf_counter()
     for window in ("contiguous", "paged_B"):
         dispatch_modes(torch, args, net, window)
@@ -5980,6 +6795,21 @@ def main(argv=None):
         "lm_head_sample_int4_bf16": k8_lane("int4", "stacked"),
         "lm_head_sample_mask": 0, "lm_head_sample_int4_mask": 0,
         "flash_attention_fwd": llama["k1"], "flash_attention_bwd": 0}
+
+    def fleet_lane(prefix, suffix=""):
+        return sum(n for k, n in fleet_counts["lanes"].items()
+                   if k.startswith(prefix) and k.endswith(suffix))
+
+    # phase 13's launches (the fleet: K3's prefill chunks, K6 over f32 and
+    # bf16 pools, K7 over imported pages, K8 for every decode token)
+    fleet_launches = {
+        "int8_gemv": fleet_lane("gemv:warp:f32"), "int8_gemv_mma": fleet_lane("gemv:mma:f32"),
+        "int8_gemv_bf16": fleet_lane("gemv:warp:bf16"),
+        "int8_gemv_mma_bf16": fleet_lane("gemv:mma:bf16"),
+        "fused_block_decode_paged": fleet_lane("fused_block_paged:", "kv_f32"),
+        "fused_block_decode_paged_bf16": fleet_lane("fused_block_paged:", "kv_bf16"),
+        "fused_block_decode_paged_dma": fleet_lane("fused_block_paged_dma:", "kv_f32"),
+        "lm_head_sample": fleet_counts.get("fused_head", 0)}
     rows = []
     for name, src, replaces, launched, r in (
             ("int8_gemv", gemv8, "mxnet_tpu/ops/int8_gemv.py:113", r8["warp"], k3["warp"]),
@@ -6057,7 +6887,13 @@ def main(argv=None):
                                                       else "flash_bwd"]
         if name in llama_launches:
             rows[-1]["launches_llama"] = llama_launches[name]
+        if name in fleet_launches:
+            rows[-1]["launches_fleet"] = fleet_launches[name]
         check(rows[-1]["launches"] > 0, f"{name} never launched on its main path")
+    for name in ("int8_gemv", "int8_gemv_mma", "fused_block_decode_paged",
+                 "fused_block_decode_paged_bf16", "fused_block_decode_paged_dma",
+                 "lm_head_sample"):
+        check(fleet_launches[name] > 0, f"{name} never launched on the fleet path")
     # K8's mask and bf16 lanes: no public API of either package hands K8 a
     # mask or bf16 h (a bf16 GPT's final LayerNorm returns f32, a quantized
     # per-layer Llama's layers return f32, and quantize_net leaves the

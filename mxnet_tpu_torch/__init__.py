@@ -45,6 +45,11 @@ Slice 19 trains BERT (``models.BertForSequenceClassification``,
 key-mask and attention-dropout routes) and T5 (``models.T5Model``), with
 the rest of the optimizer registry (LAMB among it), ``optimizer.updater``
 and the evaluation metrics (``mx.metric``, ``gluon.metric``).
+Slice 20 serves from a fleet of replicas: the router (``serve.Router``:
+affinity, tenants, drains), the autoscale controller (``serve.
+FleetController``), KV-page migration between replicas and packages
+(``serve.cachefleet``, ``kvstore.comm``) and prefill / decode tiers,
+with ``observability.aggregate`` merging the replicas' metrics.
 Slice 16 serves Llama (``models.LlamaForCausalLM``: GQA, RoPE, RMSNorm,
 SwiGLU, per-layer and stacked decoders) from the same engine at
 Llama-3-8B's width: K1 at head dim 128, K3/K4 at its widths and K8 on a

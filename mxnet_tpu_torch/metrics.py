@@ -23,9 +23,12 @@ step, counted once when the step is built), ``mxnet_spec_*``,
 recorder's dumps, the step-phase families ``StepTimeline`` reports, and
 the training families ``parallel.TrainStep`` observes
 (``mxnet_step_time_seconds``, ``mxnet_examples_total``,
-``mxnet_examples_per_sec``, ``mxnet_pipeline_depth``). The elastic, ZeRO,
-SLO, AOT, fleet, router, data-loader and executable-cost families wait
-for their slices (ROADMAP Queue 1 item 8).
+``mxnet_examples_per_sec``, ``mxnet_pipeline_depth``), and the serving
+fleet's: ``mxnet_slo_*`` (``observability.aggregate.SLOTracker``),
+``mxnet_fleet_*`` (the autoscale controller and the tenant scheduler),
+``mxnet_router_*``, ``mxnet_cache_affinity_*``, ``mxnet_migrate_*`` and
+``mxnet_fleet_tier_*``. The elastic, ZeRO, AOT, data-loader and
+executable-cost families wait for their slices (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -609,6 +612,24 @@ FLIGHT_DUMPS = Counter(
     "Flight-recorder dumps by trigger (reason=engine_exception|"
     "guard_violation|preemption_storm|sigterm|manual)",
     labels=("reason",))
+SLO_TARGET = Gauge(
+    "mxnet_slo_target_seconds",
+    "Configured latency SLO target at the tracked objective quantile "
+    "(slo=ttft|intertoken)", labels=("slo",))
+SLO_P99 = Gauge(
+    "mxnet_slo_p99_seconds",
+    "Fleet p99 latency estimate from the merged replica histograms "
+    "(linear interpolation inside the owning bucket)", labels=("slo",))
+SLO_VIOLATIONS = Counter(
+    "mxnet_slo_violations_total",
+    "Requests observed over the SLO target (cumulative, from the merged "
+    "histogram buckets; monotone across replica restarts)",
+    labels=("slo",))
+SLO_BURN = Gauge(
+    "mxnet_slo_error_budget_burn",
+    "Error-budget burn rate: observed violation fraction / allowed "
+    "fraction (1 - objective); > 1 means the budget is being spent "
+    "faster than it accrues", labels=("slo",))
 PIPELINE_DEPTH = Gauge(
     "mxnet_pipeline_depth",
     "Live pipeline occupancy: staged batches ready in the prefetcher "
@@ -792,6 +813,61 @@ SERVE_PREFILL_CHUNKS = Counter(
     "Chunked-prefill chunks dispatched (long prompts split into "
     "page-sized chunks interleaved with decode steps, bounding TTFT "
     "p99 for in-flight requests)")
+FLEET_REPLICAS = Gauge(
+    "mxnet_fleet_replicas",
+    "Fleet size as the autoscale controller sees it (state=healthy: in "
+    "the dispatch rotation; state=retiring: drained, waiting for "
+    "in-flight work to finish before the process stops)",
+    labels=("state",))
+FLEET_SCALE_EVENTS = Counter(
+    "mxnet_fleet_scale_events_total",
+    "Autoscale decisions acted on (direction=up|down, reason=load|"
+    "slo_burn|min_floor) — every replica the controller spawned or "
+    "drained is visible here", labels=("direction", "reason"))
+FLEET_SUPPRESSED = Counter(
+    "mxnet_fleet_decisions_suppressed_total",
+    "Scale decisions the controller wanted but suppressed (why="
+    "hysteresis: pressure not sustained for the required consecutive "
+    "ticks; cooldown: a recent scale event is still settling; at_max/"
+    "at_min: the replica-count bounds; no_owned_replica: nothing the "
+    "spawner may drain) — the flap-damping at work",
+    labels=("direction", "why"))
+FLEET_PRESSURE = Gauge(
+    "mxnet_fleet_pressure",
+    "The controller's fused load signal: mean healthy-replica load "
+    "(slot/page pressure + queue backlog off /healthz), the scale-up/"
+    "down thresholds compare against this")
+FLEET_TICKS = Counter(
+    "mxnet_fleet_controller_ticks_total",
+    "Autoscale control-loop observations (decisions or not)")
+FLEET_SPAWN_SECONDS = Histogram(
+    "mxnet_fleet_spawn_seconds",
+    "Wall time to spawn one replica and see it healthy (AOT-prewarmed "
+    "spawn keeps this to IO + dispatch)",
+    buckets=(0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0,
+             300.0))
+FLEET_DRAIN_SECONDS = Histogram(
+    "mxnet_fleet_drain_seconds",
+    "Wall time from a controller-initiated drain to the replica being "
+    "idle (in-flight requests finished)",
+    buckets=(0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0))
+FLEET_TENANT_DISPATCH = Counter(
+    "mxnet_fleet_tenant_dispatch_total",
+    "Requests dispatched per tenant after WFQ admission (the fairness "
+    "arithmetic: over a saturated period, per-tenant shares track the "
+    "configured weights)", labels=("tenant",))
+FLEET_TENANT_INFLIGHT = Gauge(
+    "mxnet_fleet_tenant_inflight",
+    "Requests a tenant has in flight past admission (bounded by the "
+    "tenant's max_inflight quota)", labels=("tenant",))
+FLEET_TENANT_WAIT = Histogram(
+    "mxnet_fleet_tenant_queue_wait_seconds",
+    "WFQ admission wait per tenant (a bursting tenant queues HERE "
+    "instead of starving everyone else's slots)", labels=("tenant",))
+FLEET_TENANT_REJECTED = Counter(
+    "mxnet_fleet_tenant_rejected_total",
+    "Requests rejected at tenant admission (quota/WFQ wait exceeded "
+    "its timeout — surfaces as 429 backpressure)", labels=("tenant",))
 SERVE_WEIGHT_VERSION = Gauge(
     "mxnet_serve_weight_version",
     "Checkpoint version the engine's captured params currently serve "
@@ -802,11 +878,84 @@ SERVE_WEIGHT_SWAPS = Counter(
     "Live weight swaps applied between decode ticks (no restart, no "
     "recompile — shapes unchanged means the same executables)",
     labels=("model",))
+ROUTER_DISPATCH = Counter(
+    "mxnet_router_dispatch_total",
+    "Requests dispatched per replica (least-loaded choice over healthz "
+    "slot/page occupancy)", labels=("backend",))
+ROUTER_EJECTS = Counter(
+    "mxnet_router_ejects_total",
+    "Replica ejections by cause: reason=poll_fail (healthz/transport "
+    "failure), 5xx (replica-side dispatch failure), draining (graceful "
+    "drain, incl. drain-bounced requests)",
+    labels=("backend", "reason"))
+ROUTER_REJOINS = Counter(
+    "mxnet_router_rejoins_total",
+    "Ejected replicas re-admitted after healthz recovered",
+    labels=("backend",))
+ROUTER_RETRIES = Counter(
+    "mxnet_router_retries_total",
+    "Requests re-dispatched to another replica after a dispatch failure")
+ROUTER_REBALANCES = Counter(
+    "mxnet_router_rebalances_total",
+    "Dispatches where the least-loaded choice moved off the previously "
+    "preferred replica (load-signal-driven rebalancing)")
+ROUTER_HEALTHY = Gauge(
+    "mxnet_router_backends_healthy",
+    "Replicas currently in the dispatch rotation")
+
+# --- cache-aware fleet (mxnet_tpu/serve/cachefleet + router affinity) --------
+CACHE_AFFINITY_DISPATCH = Counter(
+    "mxnet_cache_affinity_dispatch_total",
+    "Prefix-affinity dispatch outcomes: outcome=hit (a replica's "
+    "advertised prefix summary matched the prompt and won), "
+    "load_bounded (a cache holder matched but exceeded the affinity "
+    "load bound — least-loaded dispatch took over, the never-starve-"
+    "a-cold-replica half of the contract), cold (no advertised root "
+    "matched anywhere — plain least-loaded dispatch)",
+    labels=("outcome",))
+CACHE_AFFINITY_HIT_TOKENS = Counter(
+    "mxnet_cache_affinity_hit_tokens_total",
+    "Prompt tokens the affinity winner advertised as already cached at "
+    "dispatch time (the router-side expectation; the replica's own "
+    "mxnet_serve_page_prefix_tokens_saved_total records what the "
+    "admission actually mapped)")
 CACHE_ADVERT_ROOTS = Gauge(
     "mxnet_cache_advert_roots",
     "Prefix-cache roots this replica currently advertises via /healthz "
     "(bounded by the serve_prefix_advert knob — the O(N) health-poll "
     "payload contract)")
+MIGRATE_PAGES_SENT = Counter(
+    "mxnet_migrate_pages_sent_total",
+    "KV pages exported for cross-replica migration (preemption rescue, "
+    "prefill->decode tier streaming, fleet defrag). Balance invariant: "
+    "sent == received + verify_failures")
+MIGRATE_PAGES_RECEIVED = Counter(
+    "mxnet_migrate_pages_received_total",
+    "KV pages imported after chain-hash verification and published into "
+    "the receiving replica's prefix cache")
+MIGRATE_VERIFY_FAILURES = Counter(
+    "mxnet_migrate_verify_failures_total",
+    "Migrated pages REJECTED on receipt: the recomputed chain hash of "
+    "the accompanying tokens did not match the sender's (corruption or "
+    "a codec bug — the page is dropped, the receiver re-prefills)")
+MIGRATE_RESCUES = Counter(
+    "mxnet_migrate_rescues_total",
+    "OutOfPages preemption rescues: outcome=resumed (the victim's pages "
+    "shipped to another replica and the request resumed there token-"
+    "exactly), failed (no capacity/transport error — the request "
+    "requeued locally, the pre-mxcache behavior)",
+    labels=("outcome",))
+FLEET_TIER_REPLICAS = Gauge(
+    "mxnet_fleet_tier_replicas",
+    "Replicas per disaggregated serving tier (tier=prefill|decode|"
+    "mixed) as the tier's controller sees them (state=healthy|retiring)",
+    labels=("tier", "state"))
+FLEET_TIER_SCALE_EVENTS = Counter(
+    "mxnet_fleet_tier_scale_events_total",
+    "Per-tier autoscale decisions acted on: each tier scales off its "
+    "OWN SLO-burn signal (prefill on ttft, decode on intertoken) with "
+    "per-tier min/max bounds — the disaggregation argument made "
+    "visible", labels=("tier", "direction", "reason"))
 
 
 @register_collect_callback

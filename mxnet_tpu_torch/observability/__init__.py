@@ -9,16 +9,19 @@
   recent events, dumped to disk on an engine crash, a preemption storm or
   SIGTERM.
 
-Fleet aggregation, the health monitor and the cost ledger wait for their
-slices (ROADMAP Queue 1 item 8).
+- :mod:`~mxnet_tpu_torch.observability.aggregate`: the fleet's metric
+  merge across replicas, its Prometheus rendering and the SLO tracker.
+
+The health monitor and the cost ledger wait for their slices (ROADMAP
+Queue 1 item 8).
 """
-from . import recorder, trace
+from . import aggregate, recorder, trace
 from .recorder import RECORDER, FlightRecorder
 from .trace import (NOOP, STORE, Span, StepTimeline, TraceContext,
                     TraceStore, parse_traceparent, start_span)
 
 __all__ = [
-    "trace", "recorder",
+    "trace", "recorder", "aggregate",
     "Span", "TraceContext", "TraceStore", "STORE", "NOOP",
     "StepTimeline",
     "parse_traceparent", "start_span",

@@ -138,8 +138,18 @@ on the CPU by design), and a batch with any top-k/top-p row on
   steps built (captures on the card, where JAX counts compiles), and each
   built step adds its launch sites to ``mxnet_decode_launches_total``.
 
-Page migration (``export_pages``/``import_pages``, ``submit(resume=)``)
-and tuned configs are later slices.
+- **Page migration** (the cache-aware fleet, serve/cachefleet.py):
+  :meth:`InferenceEngine.export_pages` reads a prompt's cached full pages
+  (one ``index_select`` a pool, on the loop's stream) into the kvstore
+  page wire (``kvstore.comm``); :meth:`InferenceEngine.import_pages`
+  verifies each shipped page (chain hash, alignment, payload count, shape
+  and dtype; a failure is dropped and counted) and copies it in place into
+  freshly leased pages published in the prefix cache. Both land at a tick
+  boundary of the loop; the pools are never rebound, so the captured
+  graphs go on reading them and nothing is recaptured. A preemption with
+  a rescue hook installed exports the victim's pages before releasing
+  them and hands the request to the hook; ``submit(resume=)`` continues
+  a migrated request's stream. Tuned configs are a later slice.
 """
 from __future__ import annotations
 
@@ -160,6 +170,7 @@ import torch
 from .. import _prng
 from .. import metrics as _metrics
 from ..base import MXNetError
+from ..kvstore.comm import decode_kv_pages, encode_kv_pages
 from ..models import generation as _gen
 from ..observability import recorder as _recorder
 from ..observability import trace as _trace
@@ -167,7 +178,7 @@ from ..ops.int8_gemv import count_launches, note_build, record_graph
 from . import grammar as _grammar
 from . import speculate as _spec
 from .bucketing import bucket_for, bucket_ladder
-from .paging import OutOfPages, PagePool, pages_for
+from .paging import OutOfPages, PagePool, pages_for, prefix_key
 from .registry import _host_tensor
 
 __all__ = ["InferenceEngine", "RequestHandle", "ServeResult",
@@ -187,6 +198,8 @@ SPEC_LOOKUP = 4
 #: prefix-cache roots a paged engine advertises in ``stats()`` and
 #: ``/healthz`` (the JAX knob ``serve_prefix_advert``'s default)
 PREFIX_ADVERT = 8
+#: seconds an export staged on a running engine waits for a tick boundary
+EXPORT_TIMEOUT_S = 60.0
 
 
 class QueueFullError(MXNetError):
@@ -391,15 +404,19 @@ class _Step:
     ``graph`` is ``fn`` captured as a CUDA graph, ``out`` its output and
     ``tally`` its launch records; calling replays the graph and counts the
     replay. Elsewhere calling runs ``fn``, and ``tally`` holds the launch
-    records of the build's first run."""
+    records of the build's first run. ``calls`` counts the calls, so that
+    ``calls`` times ``tally`` are this step's launches on this engine
+    (the process-wide counters mix every engine's)."""
 
     def __init__(self, fn: Callable, graph=None, out=None, tally=None):
         self.fn = fn
         self.graph = graph
         self.out = out
         self.tally = tally
+        self.calls = 0
 
     def __call__(self):
+        self.calls += 1
         if self.graph is None:
             return self.fn()
         self.graph.replay()
@@ -407,19 +424,36 @@ class _Step:
         return self.out
 
 
+# holders of _no_collection across every engine and thread of the process,
+# and whether the collector ran before the first of them disabled it
+_GC_LOCK = threading.Lock()
+_GC_HOLDS = 0
+_GC_WAS_ENABLED = False
+
+
 @contextlib.contextmanager
 def _no_collection():
     """Python's cyclic collector off for the block. A collection that
     starts inside a graph capture runs the finalizers of whatever garbage
     it finds in the capturing thread, and a finalizer's CUDA call that a
-    capture forbids invalidates the graph."""
-    was = gc.isenabled()
-    gc.disable()
+    capture forbids invalidates the graph. The switch is process-wide and
+    several engines capture at once (a spawner warming a new replica while
+    another serves, a registry's engines), so the holds are counted: the
+    first holder disables the collector and the last one out restores it,
+    in whatever order the captures end."""
+    global _GC_HOLDS, _GC_WAS_ENABLED
+    with _GC_LOCK:
+        if _GC_HOLDS == 0:
+            _GC_WAS_ENABLED = gc.isenabled()
+            gc.disable()
+        _GC_HOLDS += 1
     try:
         yield
     finally:
-        if was:
-            gc.enable()
+        with _GC_LOCK:
+            _GC_HOLDS -= 1
+            if _GC_HOLDS == 0 and _GC_WAS_ENABLED:
+                gc.enable()
 
 
 def _diff_axes(spec1, spec2, what, fn):
@@ -565,6 +599,15 @@ class InferenceEngine:
         self.weight_version = 0
         self._weight_swaps = 0
         self._swaps: List[Dict[str, Any]] = []
+        # staged page-migration operations ({"kind": "import"|"export",
+        # ..., "evt", "result", "error"}), applied by the loop at a tick
+        # boundary like a weight swap: the loop owns the pools and the ledger
+        self._page_ops: List[Dict[str, Any]] = []
+        # preemption rescue (serve/cachefleet installs it): called as
+        # hook(engine, req, wire_doc) -> bool from _preempt; True = the hook
+        # took the request (it resumes on another replica), False or a
+        # raise = requeue here
+        self._migrate_hook = None
         self._weights_lock = threading.Lock()
         self._weights_event = None
         #: checkpoint health tag of the served weights (WeightRefresher)
@@ -655,6 +698,9 @@ class InferenceEngine:
         self._draining = False
         self._abort_inflight = False
         self._thread: Optional[threading.Thread] = None
+        # the stream the loop runs its steps on (set by the loop; page
+        # migration reads and writes the pools on it)
+        self._stream = None
         # test hook (the JAX engine's): a sleep after every decode tick, so
         # that deadlines, drains and backpressure are deterministic
         self._step_delay = 0.0
@@ -764,6 +810,7 @@ class InferenceEngine:
             if thread.is_alive():
                 return            # begin_drain: the loop finishes on its own
         self._apply_swaps()      # the loop is down: wake swap waiters
+        self._apply_page_ops()   # and page-op waiters (applied here)
 
     def __enter__(self):
         return self.start()
@@ -1083,7 +1130,8 @@ class InferenceEngine:
                eos_token_id: Optional[int] = None, temperature: float = 0.0,
                top_k: int = 0, top_p: float = 1.0, seed: int = 0,
                timeout_s: Optional[float] = None, grammar=None,
-               traceparent: Optional[str] = None, stream: bool = False) -> RequestHandle:
+               traceparent: Optional[str] = None, stream: bool = False,
+               resume: Optional[List[int]] = None) -> RequestHandle:
         """Enqueue one request (one sequence of token ids). Returns a
         :class:`RequestHandle`; may raise :class:`QueueFullError` or
         :class:`EngineClosedError`.
@@ -1099,7 +1147,17 @@ class InferenceEngine:
         JSON-schema dict or a compiled :class:`~mxnet_tpu_torch.serve.
         grammar.TokenGrammar`. It needs an engine built with
         ``grammar=True`` and an ``eos_token_id`` (an accept state with no
-        continuation ends by EOS)."""
+        continuation ends by EOS).
+
+        ``resume`` (the migration path: preemption rescue) carries tokens
+        this request already generated on another replica, so this engine
+        continues the stream instead of starting it: admission prefills
+        ``prompt + resume`` (mapping any migrated pages of it) and sampling
+        picks up at counter ``len(resume)``, which the stateless ``fold_in(
+        seed, counter)`` streams make the continuation of the original run,
+        as a local preemption's resume is. The resumed tokens count against
+        ``max_new_tokens`` and lead ``generated_ids``. Paged engines only
+        (the contiguous prefill has no resume)."""
         prompt = self._as_prompt(input_ids)
         if any(t < 0 or t >= self._vocab for t in prompt):
             raise MXNetError(f"input_ids contain tokens outside [0, {self._vocab})")
@@ -1145,6 +1203,10 @@ class InferenceEngine:
         req.grammar = g
         if stream:
             req._events = _qmod.Queue()
+        if resume is not None:
+            if not self._paged:
+                raise MXNetError("submit(resume=) requires the paged engine (paged=True)")
+            req._resume = [int(t) for t in resume]
         t_wall = time.time()
         with self._cond:
             if self._closed or not self._running:
@@ -1400,13 +1462,200 @@ class InferenceEngine:
             rec["ok"] = True
             rec["evt"].set()
 
+    # ------------------------------------------------------------ page migration
+    def _require_paged(self):
+        if not self._paged:
+            raise MXNetError("cross-replica page migration requires the paged "
+                             "engine (paged=True)")
+
+    def _page_payload_spec(self) -> List[Tuple[Tuple[int, ...], torch.dtype]]:
+        """(shape, dtype) every shipped page must have, per pool: the pool's
+        shape with the page axis collapsed to 1 (JAX's layout: [1, H, page,
+        hd] per GPT layer, [1, n_kv, page, hd] per Llama layer, [layers, 1,
+        ...] for the stacked decoder). A page of another shape or dtype is a
+        verify failure, never written."""
+        return [(tuple(1 if i == ax else d for i, d in enumerate(p.shape)), p.dtype)
+                for p, ax in zip(self._pools, self._paxes)]
+
+    def _pool_stream(self):
+        """The stream the loop writes the pools on (the caller's own before
+        the loop first ran)."""
+        return torch.cuda.stream(self._stream) if self._stream is not None \
+            else contextlib.nullcontext()
+
+    def _export_entries(self, toks: List[int], phys_pages: List[int]) -> dict:
+        """Read the given physical pages (page ``i`` covering tokens ``[i *
+        page_size, (i + 1) * page_size)`` of ``toks``) out of every pool,
+        one ``index_select`` a pool on the loop's stream, so the read
+        follows every step that wrote them, and wrap them as the wire doc:
+        each page rides with the chain hash of the token prefix it ends."""
+        ps = self.page_size
+        entries = []
+        if phys_pages:
+            with self._pool_stream():
+                idx = torch.tensor(phys_pages, dtype=torch.int64, device=self.device)
+                # .cpu() waits for the read, which waits for the writes
+                sel = [pool.index_select(ax, idx).cpu()
+                       for pool, ax in zip(self._pools, self._paxes)]
+            for i in range(len(phys_pages)):
+                ln = (i + 1) * ps
+                entries.append((ln, prefix_key(toks[:ln]),
+                                [t.narrow(ax, i, 1) for t, ax in zip(sel, self._paxes)]))
+            _metrics.MIGRATE_PAGES_SENT.inc(len(entries))
+            _recorder.RECORDER.record("event", "serve.page_export", reason="page_migration",
+                                      pages=len(entries), tokens=entries[-1][0])
+        return encode_kv_pages(toks[:len(phys_pages) * ps], entries)
+
+    def export_pages(self, input_ids) -> dict:
+        """Export the full cached pages of the longest prefix-cache match of
+        ``input_ids`` as a migration wire doc (``kvstore.comm.
+        encode_kv_pages``): exact page payloads, each with its chain hash.
+        The partial tail page never ships (the receiver prefills it). On a
+        running engine the read happens on the loop at a tick boundary, on
+        the stream that wrote the pages (safe from any thread, an HTTP
+        handler's included), waiting at most ``EXPORT_TIMEOUT_S``; on a
+        stopped one, here."""
+        self._require_paged()
+        toks = self._as_prompt(input_ids)
+        return self._page_op({"kind": "export", "tokens": toks}, EXPORT_TIMEOUT_S)
+
+    def _apply_page_export(self, rec: Dict[str, Any]):
+        toks = rec["tokens"]
+        pages, matched = self._pages.match_prefix(toks, count=False)
+        full = min(matched // self.page_size, len(pages))
+        rec["result"] = self._export_entries(toks, [int(p) for p in pages[:full]])
+
+    def _export_slot_pages(self, s: int, toks: List[int]) -> dict:
+        """Preempt-time capture (the loop): the victim slot's leased full
+        pages straight off its block table, prompt and generated tokens
+        alike, before ``release`` frees them. A lookahead step still in
+        flight writes the victim's last rows on the loop's stream, and the
+        read is queued behind it there."""
+        table = self._pages.table(s)
+        phys = []
+        for i in range(len(toks) // self.page_size):
+            p = int(table[i])
+            if p == self._pages.sink:
+                break
+            phys.append(p)
+        return self._export_entries(toks, phys)
+
+    def import_pages(self, doc: dict, timeout: float = 60.0) -> dict:
+        """Adopt migrated KV pages into this engine's prefix cache.
+
+        Each shipped page is verified on receipt, in the JAX engine's
+        order: its prefix length (positive, within the doc's tokens, a page
+        multiple), the chain hash of the doc's tokens up to it, the number
+        of pool payloads, then each payload's shape and dtype against the
+        pool spec (:meth:`_page_payload_spec`). A page that fails is
+        dropped and counted (``mxnet_migrate_verify_failures_total``),
+        never written. Verified pages become prefix-cache entries on
+        freshly leased physical pages and their payloads are copied in
+        place into the pools (the captured graphs hold the pools by
+        address: nothing is recaptured), so an admission of the prompt
+        maps them instead of prefilling. Applied by the loop at a tick
+        boundary; on a stopped engine, here. Returns ``{"received",
+        "adopted", "verify_failures", "skipped_cached", "out_of_pages"}``."""
+        self._require_paged()
+        tokens, pages = decode_kv_pages(doc)
+        return self._page_op({"kind": "import", "tokens": tokens, "pages": pages}, timeout)
+
+    def _page_op(self, rec: Dict[str, Any], timeout: float):
+        """Stage one page op for the loop and wait for it, or apply it here
+        when the loop is not running."""
+        rec.update(evt=threading.Event(), result=None, error=None)
+        with self._cond:
+            staged = self._running
+            if staged:
+                self._page_ops.append(rec)
+                self._cond.notify_all()
+        if not staged:
+            self._apply_page_op(rec)
+        elif not rec["evt"].wait(timeout):
+            raise MXNetError(f"page {rec['kind']} timed out waiting for a tick boundary")
+        if rec["error"]:
+            raise MXNetError(rec["error"])
+        return rec["result"]
+
+    def _apply_page_op(self, rec: Dict[str, Any]):
+        try:
+            with self._tick_lock:
+                if rec["kind"] == "export":
+                    self._apply_page_export(rec)
+                else:
+                    self._apply_page_import(rec)
+        except Exception as e:
+            rec["error"] = f"{type(e).__name__}: {e}"
+        finally:
+            rec["evt"].set()
+
+    def _apply_page_ops(self):
+        """The loop's side: land staged page ops between ticks (or the
+        caller's, once the loop is down)."""
+        with self._lock:
+            ops, self._page_ops = self._page_ops, []
+        for rec in ops:
+            self._apply_page_op(rec)
+
+    def _fail_page_ops(self):
+        """Crash path: wake page-op waiters with the failure."""
+        with self._lock:
+            ops, self._page_ops = self._page_ops, []
+        for rec in ops:
+            rec["error"] = rec["error"] or "engine stopped before the page op landed"
+            rec["evt"].set()
+
+    def _apply_page_import(self, rec: Dict[str, Any]):
+        tokens = [int(t) for t in rec["tokens"]]
+        spec = self._page_payload_spec()
+        verified: Dict[int, List[torch.Tensor]] = {}
+        failures = 0
+        for ln, key, payload in rec["pages"]:
+            ok = (0 < ln <= len(tokens) and ln % self.page_size == 0
+                  and prefix_key(tokens[:ln]) == int(key)
+                  and len(payload) == len(spec)
+                  and all(tuple(a.shape) == shape and a.dtype == dtype
+                          for a, (shape, dtype) in zip(payload, spec)))
+            if ok:
+                verified[int(ln)] = payload
+            else:
+                failures += 1
+        if failures:
+            _metrics.MIGRATE_VERIFY_FAILURES.inc(failures)
+        if verified:
+            _metrics.MIGRATE_PAGES_RECEIVED.inc(len(verified))
+        adopted = 0
+        reason = None
+        if verified:
+            try:
+                fresh = self._pages.adopt_prefix(tokens, sorted(verified))
+            except OutOfPages as e:
+                fresh, reason = [], str(e)
+            if fresh:
+                with self._pool_stream():
+                    for ln, page in fresh:
+                        for pool, ax, a in zip(self._pools, self._paxes, verified[ln]):
+                            pool.narrow(ax, page, 1).copy_(a)
+                        adopted += 1
+        if verified or failures:
+            _recorder.RECORDER.record("event", "serve.page_import", reason="page_migration",
+                                      received=len(verified), adopted=adopted,
+                                      verify_failures=failures)
+        rec["result"] = {"received": len(verified), "adopted": adopted,
+                         "verify_failures": failures,
+                         "skipped_cached": len(verified) - adopted, "out_of_pages": reason}
+
     # ------------------------------------------------------------ loop
     def _loop(self):
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.current_stream(self.device)
         try:
             with torch.no_grad():
                 self._loop_inner()
-                # a swap staged after the last tick's apply still lands
+                # a swap or a page op staged after the last tick's apply
+                # still lands
                 self._apply_swaps()
+                self._apply_page_ops()
         except Exception as e:  # the engine thread's boundary: fail, never hang
             err = traceback.format_exc()
             # the flight-recorder moment: the ring with the crash, before
@@ -1423,6 +1672,7 @@ class InferenceEngine:
                 swaps, self._swaps = self._swaps, []
             for rec in swaps:
                 rec["evt"].set()          # without "ok": the waiter learns
+            self._fail_page_ops()
             pending, self._pending = self._pending, None
             if pending is not None:
                 try:
@@ -1441,11 +1691,13 @@ class InferenceEngine:
             # a staged weight swap lands between ticks: everything below
             # sees one weight set per iteration
             self._apply_swaps()
+            # migrated pages land (and exports read) at the same boundary
+            self._apply_page_ops()
             admits = []
             dead = []
             with self._cond:
                 while (self._running and not self._queue and not any(self._slots)
-                       and not self._swaps):
+                       and not self._swaps and not self._page_ops):
                     self._cond.wait(0.1)
                 stopping = not self._running
                 if stopping:
@@ -1739,6 +1991,15 @@ class InferenceEngine:
         counter ``len(generated)``."""
         slot = self._slots[s]
         slot.req._resume = list(slot.generated)
+        doc = None
+        if self._migrate_hook is not None:
+            # the victim's pages, before release() frees them
+            try:
+                doc = self._export_slot_pages(s, list(slot.req.prompt_ids)
+                                              + slot.req._resume)
+            except Exception as e:
+                warnings.warn(f"serve: preempt-rescue export failed, requeueing "
+                              f"locally: {e!r}")
         with self._lock:
             self._slots[s] = None
         self._active[s] = False
@@ -1757,6 +2018,15 @@ class InferenceEngine:
             req._trace.event("preempt", generated=len(req._resume))
             # a fresh queue span covers the wait for re-admission
             req._span_queue = req._trace.child("serve.queue", requeued=True)
+        if doc is not None:
+            # preemption rescue: True = the hook resumes the request on
+            # another replica and completes this handle; do not requeue
+            try:
+                if self._migrate_hook(self, req, doc):
+                    return
+            except Exception as e:
+                warnings.warn(f"serve: preempt-rescue hook failed, requeueing "
+                              f"locally: {e!r}")
         req._status = "queued"
         with self._cond:
             # may exceed max_queue_depth: a preemption never drops a request

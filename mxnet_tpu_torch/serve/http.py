@@ -40,8 +40,12 @@ need):
 - ``POST /drain`` — graceful shutdown: stop admitting (new submits 503
   → the router fails over), finish in-flight slots. Returns
   immediately; poll ``/healthz`` for completion.
-- ``/healthz`` also carries the bounded ``prefix_summary`` advert the
-  router's prefix-affinity scoring reads, and the replica's ``tier``
+- ``POST /cache/export`` / ``POST /cache/import`` — the cache-aware
+  fleet's cross-replica KV page transfer (serve/cachefleet.py): export
+  returns the kvstore wire doc for a prompt's cached prefix pages, import
+  adopts a doc's chain-hash-verified pages into this replica's prefix
+  cache. ``/healthz`` also carries the bounded ``prefix_summary`` advert
+  the router's prefix-affinity scoring reads, and the replica's ``tier``
   (prefill/decode/None).
 - ``GET /metrics`` — Prometheus text exposition (``metrics.expose()``);
   ``GET /metrics/json`` — the JSON registry dump the router's fleet
@@ -56,13 +60,11 @@ need):
   configured weights directory. No restart, no recompile.
 
 Not ported yet, and answered with status 501 (Not Implemented) and a
-message naming the ROADMAP item that brings them, so that a client or a
+message naming the ROADMAP item that brings it, so that a client or a
 router sees at once what this replica lacks: ``GET /perf`` (the JAX
 package's cost ledger is built from XLA's cost analysis and TPU peak
-tables; it waits for ``observability/`` with a design for the card) and
-``POST /cache/export`` / ``POST /cache/import`` (the cache-aware fleet's
-page migration, which waits for the router and cache-fleet slice).
-Both are ROADMAP Queue 1 item 8.
+tables; it waits for ``observability/`` with a design for the card,
+ROADMAP Queue 1 item 8).
 
 Multi-model serving: construct the frontend with a
 :class:`~mxnet_tpu_torch.serve.registry.ModelRegistry` instead of a single
@@ -96,13 +98,15 @@ __all__ = ["HTTPFrontend", "serve_forever"]
 _NOT_PORTED = {
     "/perf": "GET /perf (the cost ledger) is not ported yet: it waits for "
              "observability/ with a design for the card (ROADMAP Queue 1 item 8)",
-    "/cache/export": "POST /cache/export (KV page migration) is not ported yet: "
-                     "it waits for the router and cache-fleet slice (ROADMAP "
-                     "Queue 1 item 8)",
-    "/cache/import": "POST /cache/import (KV page migration) is not ported yet: "
-                     "it waits for the router and cache-fleet slice (ROADMAP "
-                     "Queue 1 item 8)",
 }
+
+
+class BurstHTTPServer(ThreadingHTTPServer):
+    """``ThreadingHTTPServer`` with a listen backlog that holds a burst of
+    clients connecting at once (a router's fan-out, a load generator): the
+    standard library's backlog of 5 lets a busy process's kernel drop or
+    reset the connections beyond it before the accept thread runs."""
+    request_queue_size = 128
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -244,8 +248,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._post_weights()
             return
         if self.path in ("/cache/export", "/cache/import"):
-            self.rfile.read(int(self.headers.get("Content-Length", 0)))
-            self._reply_json(501, {"error": _NOT_PORTED[self.path]})
+            self._post_cache()
             return
         if self.path == "/score":
             self._post_score()
@@ -369,6 +372,32 @@ class _Handler(BaseHTTPRequestHandler):
         except (MXNetError, KeyError, TypeError, ValueError) as e:
             self._reply_json(400, {"error": str(e)})
 
+    def _post_cache(self):
+        """Cross-replica KV page transfer (serve/cachefleet.py's HTTP wire).
+        ``/cache/export`` takes ``{"input_ids": [...]}`` and returns the
+        kvstore wire doc for the longest cached prefix; ``/cache/import``
+        takes that doc and adopts the verified pages into this replica's
+        prefix cache. Both route on the payload's ``model`` key like
+        ``/generate``."""
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            payload = json.loads(self.rfile.read(length) or b"{}")
+        except (ValueError, json.JSONDecodeError) as e:
+            self._reply_json(400, {"error": str(e)})
+            return
+        try:
+            engine = self._engine_for(payload.get("model"))
+        except MXNetError as e:
+            self._reply_json(503, {"error": str(e)})
+            return
+        try:
+            if self.path == "/cache/export":
+                self._reply_json(200, engine.export_pages(payload["input_ids"]))
+            else:
+                self._reply_json(200, engine.import_pages(payload))
+        except (MXNetError, KeyError, TypeError, ValueError) as e:
+            self._reply_json(400, {"error": str(e)})
+
     def _post_weights(self):
         """Push-deploy: load a published weight version and hot-swap the
         target engine between decode ticks (zero downtime/recompiles).
@@ -430,7 +459,7 @@ class HTTPFrontend:
         registry = None
         if not isinstance(engine, InferenceEngine):
             registry, engine = engine, engine.get()
-        self._httpd = ThreadingHTTPServer((host, port), _Handler)
+        self._httpd = BurstHTTPServer((host, port), _Handler)
         self._httpd.engine = engine
         self._httpd.registry = registry
         self._httpd.verbose = verbose

@@ -28,9 +28,9 @@ Pure host bookkeeping (numpy + stdlib). The ledger reports the JAX
 module's ``mxnet_serve_page_*`` families at its sites and keeps the
 counters ``stats()`` returns; a ``threading.Lock`` stands in for the JAX
 module's witnessed lock. ``prefix_summary`` is the bounded advert
-``/healthz`` carries for the router; the migration import
-(``adopt_prefix``) waits for the cache-fleet slice (ROADMAP Queue 1
-item 8).
+``/healthz`` carries for the router; ``adopt_prefix`` is the migration
+import: it publishes shipped pages as prefix-cache entries on freshly
+leased physical pages, which the engine then fills with the payload.
 """
 from __future__ import annotations
 
@@ -380,6 +380,35 @@ class PagePool:
                      for ent in bucket]
         roots.sort(key=lambda r: (-r[2], -r[1], r[0]))
         return roots[:int(top_n)]
+
+    def adopt_prefix(self, tokens: Sequence[int],
+                     lengths: Sequence[int]) -> List[Tuple[int, int]]:
+        """Migration import: allocate and publish prefix-cache entries for
+        the chain positions ``lengths`` of ``tokens`` (each a prefix length
+        ending a page chunk, ascending). Positions already cached are
+        skipped, as :meth:`insert_prefix` skips them. Returns
+        ``[(prefix_len, page)]`` for the fresh entries (each page held by
+        its entry alone, one ref); the engine writes the shipped payload
+        into each page. Allocation is all or nothing (:class:`OutOfPages`
+        leaves the cache unchanged); it may evict older entries, earlier
+        links of the same chain included, and the match walk then stops at
+        the hole and the tail prefills again: slower, never wrong."""
+        toks = tuple(int(t) for t in tokens)
+        out: List[Tuple[int, int]] = []
+        if not self.prefix_cache_enabled:
+            return out
+        with self._lock:
+            fresh = [int(ln) for ln in lengths
+                     if 0 < int(ln) <= len(toks) and self._lookup(toks, int(ln)) is None]
+            pages = self._alloc(len(fresh))
+            for ln, page in zip(fresh, pages):
+                lo = ((ln - 1) // self.page_size) * self.page_size
+                ent = _PrefixEntry(page=page, page_index=(ln - 1) // self.page_size,
+                                   chunk=toks[lo:ln], prefix_len=ln)
+                self._prefix.setdefault(self._hash(toks[:ln]), []).append(ent)
+                out.append((ln, page))
+            self._observe()
+        return out
 
     def _evict_one(self) -> bool:
         """Drop the least-recently-used prefix entry; True if anything was

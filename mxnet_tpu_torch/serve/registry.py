@@ -21,10 +21,14 @@
   (``/generate``'s ``model`` key) and ``/healthz`` advertises ``{name:
   weight version}``.
 
+- **Tenant fair share**: :class:`TenantScheduler` admits the router's
+  requests by weighted fair queueing over the healthy fleet's capacity,
+  with per-tenant in-flight quotas (:class:`TenantPolicy`); a wait past
+  its timeout raises :class:`QuotaExceededError` (HTTP 429 at the
+  router), all observed in ``mxnet_fleet_tenant_*``.
+
 Host logic only: nothing here touches the device (the engine copies
-swapped weights in). Tenant fair-share admission (``TenantScheduler``,
-``QuotaExceededError``) serves the router and waits for the router slice
-(ROADMAP Queue 1 item 8).
+swapped weights in).
 """
 from __future__ import annotations
 
@@ -35,17 +39,21 @@ import os
 import shutil
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import metrics as _metrics
+from ..analysis import guards as _guards
 from ..base import MXNetError
 
 __all__ = [
     "publish_weights", "latest_weight_version", "weight_versions",
     "read_weights", "snapshot_params", "publish_from_checkpoint",
     "WeightRefresher", "ModelRegistry",
+    "QuotaExceededError", "TenantPolicy", "TenantScheduler",
 ]
 
 logger = logging.getLogger(__name__)
@@ -486,3 +494,168 @@ class ModelRegistry:
 
     def stats(self) -> Dict[str, Any]:
         return {n: e.engine.stats() for n, e in list(self._entries.items())}
+
+
+# ------------------------------------------------------- tenant fair share
+class QuotaExceededError(MXNetError):
+    """Tenant admission failed: quota/WFQ wait exceeded its timeout
+    (surfaces as HTTP 429 backpressure at the router)."""
+
+
+@dataclasses.dataclass
+class TenantPolicy:
+    """Per-tenant share of the fleet. ``weight`` is the WFQ share
+    (dispatch ratios track weights over saturated periods);
+    ``max_inflight`` is an absolute in-flight cap (None = bounded only
+    by fair queueing)."""
+    weight: float = 1.0
+    max_inflight: Optional[int] = None
+
+    def __post_init__(self):
+        if self.weight <= 0:
+            raise MXNetError("tenant weight must be positive")
+        if self.max_inflight is not None and self.max_inflight < 1:
+            raise MXNetError("tenant max_inflight must be >= 1")
+
+
+@dataclasses.dataclass
+class _TenantState:
+    policy: TenantPolicy
+    inflight: int = 0
+    vtime: float = 0.0
+    dispatched: int = 0
+    waiters: "deque" = dataclasses.field(default_factory=deque)
+
+
+class TenantScheduler:
+    """Weighted-fair admission over a shared dispatch capacity.
+
+    A ticket is admitted when (a) total in-flight < ``capacity_fn()``
+    (None/<=0 = uncapped), (b) its tenant is under its ``max_inflight``
+    quota, and (c) no OTHER quota-eligible tenant with waiters has
+    strictly less virtual time (ties: global FIFO). Each admission adds
+    ``1/weight`` to the tenant's virtual time — the WFQ invariant: over
+    any period where both tenants keep the queue non-empty, admissions
+    split ~weight_a : weight_b. A tenant returning from idle is floored
+    to the minimum active virtual time, so saved-up credit cannot fund
+    a catch-up burst."""
+
+    def __init__(self, policies: Optional[Dict[str, TenantPolicy]] = None,
+                 default_policy: Optional[TenantPolicy] = None,
+                 capacity_fn: Optional[Callable[[], int]] = None):
+        self._policies = dict(policies or {})
+        self._default = default_policy or TenantPolicy()
+        self._capacity_fn = capacity_fn
+        self._cond = threading.Condition(
+            _guards.make_lock("serve.TenantScheduler._lock"))
+        self._tenants: Dict[str, _TenantState] = {}
+        self._seq = 0
+        self._total_inflight = 0
+
+    def _state(self, tenant: str) -> _TenantState:
+        st = self._tenants.get(tenant)
+        if st is None:
+            st = self._tenants[tenant] = _TenantState(
+                self._policies.get(tenant, self._default))
+        return st
+
+    def _capacity(self) -> Optional[int]:
+        if self._capacity_fn is None:
+            return None
+        try:
+            cap = int(self._capacity_fn())
+        except Exception:
+            return None
+        return cap if cap > 0 else None
+
+    def _floor_vtime(self, st: _TenantState):
+        """Idle-return floor: no banked credit from quiet periods."""
+        active = [t.vtime for t in self._tenants.values()
+                  if t is not st and (t.inflight or t.waiters)]
+        if active:
+            st.vtime = max(st.vtime, min(active))
+
+    def _eligible_head(self, tenant: str, seq: int, cap: Optional[int]
+                       ) -> bool:
+        st = self._tenants[tenant]
+        if cap is not None and self._total_inflight >= cap:
+            return False
+        quota = st.policy.max_inflight
+        if quota is not None and st.inflight >= quota:
+            return False
+        if not st.waiters or st.waiters[0] != seq:
+            return False        # FIFO within the tenant
+        # least-virtual-time across tenants that could dispatch NOW
+        for name, other in self._tenants.items():
+            if name == tenant or not other.waiters:
+                continue
+            oq = other.policy.max_inflight
+            if oq is not None and other.inflight >= oq:
+                continue
+            if (other.vtime, other.waiters[0]) < (st.vtime, seq):
+                return False
+        return True
+
+    def acquire(self, tenant: str, timeout: Optional[float] = None) -> float:
+        """Block until the tenant may dispatch one request; returns the
+        wait in seconds. Raises :class:`QuotaExceededError` when the
+        wait exceeds ``timeout``."""
+        t0 = time.perf_counter()
+        deadline = None if timeout is None else t0 + timeout
+        with self._cond:
+            st = self._state(tenant)
+            if not st.inflight and not st.waiters:
+                self._floor_vtime(st)
+            self._seq += 1
+            seq = self._seq
+            st.waiters.append(seq)
+            try:
+                while not self._eligible_head(tenant, seq,
+                                              self._capacity()):
+                    remaining = (None if deadline is None
+                                 else deadline - time.perf_counter())
+                    if remaining is not None and remaining <= 0:
+                        _metrics.FLEET_TENANT_REJECTED.labels(
+                            tenant=tenant).inc()
+                        raise QuotaExceededError(
+                            f"tenant {tenant!r} admission timed out after "
+                            f"{timeout:.3f}s (quota="
+                            f"{st.policy.max_inflight}, weight="
+                            f"{st.policy.weight}); retry with backoff")
+                    self._cond.wait(remaining if remaining is not None
+                                    else 0.5)
+            finally:
+                st.waiters.remove(seq)
+            st.inflight += 1
+            st.vtime += 1.0 / st.policy.weight
+            st.dispatched += 1
+            self._total_inflight += 1
+            _metrics.FLEET_TENANT_DISPATCH.labels(tenant=tenant).inc()
+            _metrics.FLEET_TENANT_INFLIGHT.labels(tenant=tenant).set(
+                st.inflight)
+            # an admission can unblock a DIFFERENT tenant's head (the
+            # vtime order just changed)
+            self._cond.notify_all()
+        wait = time.perf_counter() - t0
+        _metrics.FLEET_TENANT_WAIT.labels(tenant=tenant).observe(wait)
+        return wait
+
+    def release(self, tenant: str):
+        with self._cond:
+            st = self._state(tenant)
+            if st.inflight > 0:
+                st.inflight -= 1
+                self._total_inflight -= 1
+            _metrics.FLEET_TENANT_INFLIGHT.labels(tenant=tenant).set(
+                st.inflight)
+            self._cond.notify_all()
+
+    def stats(self) -> Dict[str, Any]:
+        with self._cond:
+            return {name: {"inflight": st.inflight,
+                           "waiting": len(st.waiters),
+                           "dispatched": st.dispatched,
+                           "vtime": round(st.vtime, 6),
+                           "weight": st.policy.weight,
+                           "max_inflight": st.policy.max_inflight}
+                    for name, st in self._tenants.items()}

@@ -1718,3 +1718,96 @@ def test_load_dict_keeps_card_parameters_on_card(cuda):
     for name, p in net.collect_params().items():
         assert p.data()._data.is_cuda, name
         assert onp.array_equal(p.data().asnumpy(), named[name])
+
+
+# ------------------------------------------------ the fleet's page migration
+
+def _paged_pages(eng, toks):
+    """The engine's cached full pages of ``toks`` read off its pools, one
+    [pages, ...] tensor a pool (page axis first)."""
+    pages, matched = eng._pages.match_prefix(toks, count=False)
+    idx = torch.tensor(pages[:matched // eng.page_size], device="cuda")
+    return [p.index_select(ax, idx).movedim(ax, 0) for p, ax in zip(eng._pools, eng._paxes)]
+
+
+@pytest.mark.parametrize("max_len,kind", [(128, "fused_block_paged"),
+                                          (512, "fused_block_paged_dma")])
+def test_page_import_between_ticks_keeps_captures(cuda, max_len, kind):
+    """A migration into a warmed replica that is decoding another request:
+    the import lands between its ticks, in place (the pools keep their
+    addresses, which the captured graphs hold), captures nothing, writes
+    the source's page bits, and the replica then serves the prompt from the
+    imported pages (K6 at L 128, K7 at L 512) with the tokens of the
+    replica that prefilled them itself."""
+    import json
+    cfg = GPTConfig(vocab_size=1000, hidden_size=256, num_layers=2, num_heads=4,
+                    max_position_embeddings=512, dropout=0.0)
+    model = quantize_net(GPTModel(cfg, device="cuda").init_weights(0, std=0.1),
+                         fused_decode=True)
+    rng = onp.random.RandomState(21)
+    prompt, other = rng.randint(0, 1000, 70).tolist(), rng.randint(0, 1000, 30).tolist()
+    kw = dict(max_batch_size=4, max_len=max_len, multi_token=4, page_size=16)
+    src, dst = (InferenceEngine(model, **kw).start() for _ in range(2))
+    try:
+        src.warmup()
+        dst.warmup()
+        want = src.generate(prompt, 24, timeout=300).generated_ids
+        doc = json.loads(json.dumps(src.export_pages(prompt)))
+        before = dst.stats()
+        ptrs = [p.data_ptr() for p in dst._pools]
+        busy = dst.submit(other, 64)                  # the replica is decoding
+        res = dst.import_pages(doc)
+        assert res["adopted"] == res["received"] == 4
+        for a, b in zip(_paged_pages(src, prompt), _paged_pages(dst, prompt)):
+            assert torch.equal(a, b)
+        int8_gemv.reset_launches()
+        got = dst.generate(prompt, 24, timeout=300).generated_ids
+        assert busy.result(timeout=300).ok
+        after = dst.stats()
+        assert got == want
+        assert int8_gemv.launches().get(kind, 0) > 0
+        assert after["captures"] == before["captures"]
+        assert after["pages"]["prefix_tokens_saved"] - before["pages"]["prefix_tokens_saved"] == 64
+        assert [p.data_ptr() for p in dst._pools] == ptrs
+    finally:
+        src.shutdown(timeout=300)
+        dst.shutdown(timeout=300)
+
+
+def test_bf16_wire_through_card_pools(cuda):
+    """bf16 pages off the card go over the wire as raw 2-byte words under
+    the dtype string "bfloat16", decode to bf16 tensors and land in another
+    replica's bf16 pools bit for bit; that replica then serves the
+    source's tokens through K6's bf16 lane."""
+    import json
+
+    from mxnet_tpu_torch.kvstore.comm import decode_kv_pages
+    cfg = GPTConfig(vocab_size=1000, hidden_size=256, num_layers=2, num_heads=4,
+                    max_position_embeddings=128, dtype=torch.bfloat16, dropout=0.0)
+    model = quantize_net(GPTModel(cfg, device="cuda").init_weights(0, std=0.1),
+                         fused_decode=True)
+    prompt = onp.random.RandomState(22).randint(0, 1000, 50).tolist()
+    kw = dict(max_batch_size=2, max_len=128, multi_token=4, page_size=16)
+    src, dst = (InferenceEngine(model, **kw).start() for _ in range(2))
+    try:
+        src.warmup()
+        dst.warmup()
+        want = src.generate(prompt, 16, timeout=300).generated_ids
+        doc = json.loads(json.dumps(src.export_pages(prompt)))
+        assert {a["dtype"] for p in doc["pages"] for a in p["payload"]} == {"bfloat16"}
+        _, pages = decode_kv_pages(doc)
+        assert all(t.dtype == torch.bfloat16 for _, _, payload in pages for t in payload)
+        captures = dst.stats()["captures"]
+        assert dst.import_pages(doc)["adopted"] == 3
+        for a, b in zip(_paged_pages(src, prompt), _paged_pages(dst, prompt)):
+            assert a.dtype == torch.bfloat16 and torch.equal(a.view(torch.int16),
+                                                             b.view(torch.int16))
+        int8_gemv.reset_launches()
+        assert dst.generate(prompt, 16, timeout=300).generated_ids == want
+        lanes = int8_gemv.dtype_lanes()
+        assert sum(n for k, n in lanes.items()
+                   if k.startswith("fused_block_paged:") and k.endswith("kv_bf16")) > 0
+        assert dst.stats()["captures"] == captures
+    finally:
+        src.shutdown(timeout=300)
+        dst.shutdown(timeout=300)

@@ -473,15 +473,18 @@ def test_multi_model_routing_matches_jax(nets):
 
 
 def test_unported_endpoints_answer_501(nets):
-    """/perf and /cache/* answer 501 with a message naming the ROADMAP item
-    that brings them."""
+    """/perf answers 501 with a message naming the ROADMAP item that brings
+    it. /cache/export and /cache/import are served, and on a contiguous
+    engine answer 400 naming the paged engine, as the JAX frontend does."""
     eng = InferenceEngine(nets[1], max_batch_size=1, max_len=32).start()
     fe = HTTPFrontend(eng, port=0).start()
     try:
-        for code, doc in (_get(fe.url, "/perf"), _post(fe.url, "/cache/export", {}),
+        code, doc = _get(fe.url, "/perf")
+        assert code == 501 and "ROADMAP Queue 1 item 8" in doc["error"]
+        for code, doc in (_post(fe.url, "/cache/export", {"input_ids": [1, 2]}),
                           _post(fe.url, "/cache/import", {})):
-            assert code == 501 and "ROADMAP Queue 1 item 8" in doc["error"]
-        # the connection still serves after a 501 with a body
+            assert code == 400 and "paged engine" in doc["error"]
+        # the connection still serves after an error with a body
         assert _post(fe.url, "/generate", {"input_ids": [1], "max_new_tokens": 2})[0] == 200
     finally:
         fe.stop()
@@ -498,3 +501,30 @@ def test_weights_endpoint_needs_dir_without_registry(nets, tmp_path):
             assert codes == [400, 400]
     finally:
         srv.close()
+
+
+@pytest.mark.parametrize("front", ["replica", "router"])
+def test_frontend_backlog_holds_a_burst(nets, front):
+    """32 clients connect at once, before the frontend's accept thread
+    runs: every handshake completes at once. With the standard library's
+    listen backlog of 5, the kernel drops the handshakes past it and the
+    clients wait out SYN retransmits (seconds each), which cost a busy
+    replica's HTTP burst most of its throughput on the card."""
+    from mxnet_tpu_torch.serve import Router, RouterFrontend
+    eng = None
+    if front == "replica":
+        eng = InferenceEngine(nets[1], max_batch_size=1, max_len=32)
+        fe = HTTPFrontend(eng, port=0)
+    else:
+        fe = RouterFrontend(Router(["http://127.0.0.1:9"]), port=0)
+    socks = []
+    try:
+        for _ in range(32):
+            socks.append(socket.create_connection(fe.address[:2], timeout=0.5))
+    finally:
+        for s in socks:
+            s.close()
+        fe._httpd.server_close()
+        if eng is not None:
+            eng.shutdown()
+    assert len(socks) == 32

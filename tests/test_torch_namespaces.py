@@ -24,11 +24,7 @@ _LAZY_NOT_PORTED = {"pipeline", "runtime", "aot", "io", "recordio", "image", "nd
                     "tune", "sparse", "engine", "util", "test_utils", "onnx",
                     "visualization", "viz", "library", "benchmark", "sym", "symbol",
                     "operator"}
-_SERVE_NOT_PORTED = {"PrefillDecodePipeline", "TieredFleetController",
-                     "install_preempt_rescue", "migrate_prefix", "Router", "RouterFrontend",
-                     "NoBackendError", "TenantPolicy", "TenantScheduler",
-                     "QuotaExceededError", "AutoscalePolicy", "FleetController",
-                     "InProcessSpawner", "SubprocessSpawner"}
+_SERVE_NOT_PORTED: set = set()
 # across devices: waits for the torch.distributed stack (ROADMAP Queue 1 item 8)
 _MODELS_NOT_PORTED = {"llama_shardings"}
 
