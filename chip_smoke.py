@@ -316,6 +316,35 @@
    router tokens/s, ms and wire bytes per migrated page, prefill ms
    saved, spawn and drain seconds.
 
+14. ``data_train``: the input path (``gluon.data``, ``pipeline``,
+   ``io.recordio``, the vision transforms, ``gluon.contrib.estimator``).
+   (a) The prefetcher's stream contract with copies slow against the
+   consumer (a spin on the prefetcher's stream before each copy, then on
+   the consumer's before each read): every batch equals its source. Then
+   phase 5's bf16 GPT-2 small (B 16, T 1024, Adam, dropout 0.1 at
+   ``headline_schedule()``) fed from a token corpus of 8 batches through
+   ``DataLoader(shuffle, 2 forked workers, pin_memory)`` ->
+   ``as_device_iterator(step.input_shardings(), depth=2)`` ->
+   ``TrainStep.step(block_every=2)`` -> ``drain()``: finite losses, the
+   sampler's batches, K1 and K2 12 times a step each and the plain
+   attention never, the losses, parameters and Adam state bit for bit a
+   twin's fed the same batches by hand as CUDA tensors; ms a step,
+   tokens/s, the input waits, the idle share of step 6 profiled inside
+   the fed loop and of the cold first step of a fresh iterator (its fork
+   read on its own). (b) The input-bound run: a producer
+   sleeping one measured device step, directly and through the
+   prefetcher (speedup beside the 2.0x ideal), and H2D GB/s of a batch
+   from pinned and pageable memory (printed, not gated). (c) ResNet-50 v1
+   in phase 11 (a)'s configuration fed from a .npy RecordIO of 6 x 128
+   images (``ImageRecordDataset``, RandomCrop(pad 4), flips, ToTensor,
+   Normalize, 4 forked workers, pin_memory): 5 TrainSteps and one
+   ``Estimator.fit`` epoch of 2 batches, finite losses, every running
+   mean moved; images/s from files beside phase 11 (a)'s. (d)
+   ``examples/train_mnist_gluon.py``'s synthetic program, 3 epochs on the
+   card with 0 and 2 workers: the loss falls, the accuracy rises, each
+   epoch's loss within 1e-5 of the CPU port's. The phase starts only
+   with at most LT_HELD_GB still allocated.
+
 Informational JSON lines come first; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without that line. It needs one CUDA card and refuses to
@@ -3024,6 +3053,8 @@ def train(torch, args, dropout, device="cuda"):
     L, D, V = cfg.num_layers, cfg.hidden_size, cfg.vocab_size
     analytic = 3 * (L * (24 * B * T * D * D + 2 * B * T * T * D) + 2 * B * T * D * V)
     ms = dt / TRAIN_STEPS * 1e3
+    if dropout == DEFAULT_DROPOUT:
+        FIGURES["gpt2_fixed_ms"] = ms
     peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
     profiled = train_profile(torch, step, ids, labels, device) if on_card else None
     if profiled is not None and dropout > 0:
@@ -5007,7 +5038,8 @@ def vision_train(torch, args, timer, gen):
     emit({"vision_train_allocated_gb_at_start": held})
     check(held <= LT_HELD_GB, f"{held} GB of device memory still allocated as phase 11 "
           f"starts (> {LT_HELD_GB}): an earlier phase's model or engine was not freed")
-    net, images, _ = resnet_train(torch, args)
+    net, images, report = resnet_train(torch, args)
+    FIGURES["resnet50_fixed_images_per_s"] = report["images_per_s"]
     resnet_infer(torch, net, images)
     del net, images
     torch.cuda.empty_cache()
@@ -6639,6 +6671,599 @@ def head_row(head):
             "library_ms": m8["library_ms"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the input path (gluon.data, DevicePrefetcher, RecordIO, vision
+# transforms, Estimator) feeding GPT-2 small through K1/K2, ResNet-50 from
+# files and the MNIST example program
+# ---------------------------------------------------------------------------
+
+# (a) phase 5's configuration fed by DataLoader(num_workers=2, processes,
+# pinned) -> as_device_iterator(depth=2) -> TrainStep.step(block_every=2)
+DT_BATCHES = 8
+DT_WORKERS = 2
+# the fed step profiled inside that loop once the pipeline is full (step 6
+# of 8), beside the first step of a fresh iterator (the cold step)
+DT_PROFILED = 5
+# the prefetcher's stream contract under slow copies: batches of (a)'s
+# shape, each behind a spin of DT_HOLD_SPIN_MS on one of the two streams
+DT_HOLD_BATCHES, DT_HOLD_SPIN_MS = 8, 20.0
+# (b) input-bound: steps timed each way (a producer sleeping one device step)
+DT_BOUND_STEPS = 6
+# (c) ResNet-50 (phase 11 (a)'s configuration) from a .npy RecordIO of
+# DT_RN_BATCHES batches through DT_RN_WORKERS forked workers: DT_RN_STEPS
+# TrainSteps, then one Estimator epoch of DT_RN_FIT_BATCHES batches
+DT_RN_BATCHES, DT_RN_WORKERS, DT_RN_STEPS, DT_RN_FIT_BATCHES = 6, 4, 5, 2
+DT_RN_PAD = 4
+DT_RN_MEAN, DT_RN_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+# (d) examples/train_mnist_gluon.py: 4096 synthetic samples, 3 epochs, card
+# against the CPU port per epoch (relative)
+DT_MNIST_N, DT_MNIST_EPOCHS, DT_MNIST_TOL = 4096, 3, 1e-5
+# numbers of earlier phases printed beside phase 14's: phase 5's fixed-batch
+# ms a step, phase 11 (a)'s fixed-batch images/s
+FIGURES = {}
+
+
+def token_windows(args, vocab, B, T, batches):
+    """A corpus of token ids from ``--seed`` cut into B * batches windows of
+    T tokens, and the windows shifted by one as their labels."""
+    import numpy as np
+    n = B * batches
+    corpus = np.random.RandomState(args.seed + 14).randint(0, vocab, n * T + 1).astype(np.int32)
+    return corpus[:n * T].reshape(n, T), corpus[1:].reshape(n, T)
+
+
+def h2d_gbps(torch, arrays, reps=5):
+    """Host-to-card GB/s of one batch (``arrays``), median of ``reps`` CUDA-
+    event timed copies from page-locked memory (``non_blocking``) and from
+    pageable memory."""
+    srcs = [torch.from_numpy(a) for a in arrays]
+    pinned = [s.pin_memory() for s in srcs]
+    nbytes = sum(s.numel() * s.element_size() for s in srcs)
+    out = {}
+    for name, xs, nb in (("pinned", pinned, True), ("pageable", srcs, False)):
+        times = []
+        for _ in range(reps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            for s in xs:
+                s.to("cuda", non_blocking=nb)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        out[name] = nbytes / (statistics.median(times) / 1e3) / 1e9
+    out["bytes"] = nbytes
+    return out
+
+
+def profiled_fed_step(torch, step, it):
+    """From an idle card, ``next(it)`` and one ``step.step`` on that batch
+    under ``torch.profiler`` (device activity). Returns the reading (the
+    input wait; the step's wall time from its dispatch to the card's
+    finish, the kernels' busy time in it and the idle share), the batch and
+    its loss."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        x, y = next(it)
+        t1 = time.perf_counter()
+        loss = step.step(x, y)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    spans = device_spans(prof)
+    reading = {"input_wait_ms": (t1 - t0) * 1e3, "step_wall_ms": (t2 - t1) * 1e3}
+    if spans:
+        busy = busy_us(spans) / 1e3
+        reading.update(device_busy_ms=busy, idle_share=1.0 - busy / reading["step_wall_ms"])
+    else:
+        reading.update(device_busy_ms="not measured", idle_share="not measured")
+    return reading, (x, y), loss
+
+
+def spin_cycles(torch, ms):
+    """The ``torch.cuda._sleep`` cycles that spin the card for about ``ms``."""
+    n = 1 << 22
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(n)
+    b.record()
+    b.synchronize()
+    return int(n * ms / a.elapsed_time(b))
+
+
+def stream_hold(torch, args):
+    """The prefetcher's stream contract on the card with copies that are
+    slow against the step, where leaving out either half of it gives wrong
+    batches: (wait) the producer spins the prefetcher's stream before each
+    batch's copy and the consumer reads every batch at once, so without
+    its ``wait_event`` it reads the memory before the copy lands;
+    (reuse) the consumer spins its own stream before reading each batch
+    and drops it, so without ``record_stream`` the allocator hands the
+    block to a later batch whose copy lands first. Gate: every batch read
+    equals its host source bit for bit, both ways."""
+    import numpy as np
+    from mxnet_tpu_torch.pipeline import DevicePrefetcher
+    rng = np.random.RandomState(args.seed + 141)
+    src = [rng.randint(-2 ** 31, 2 ** 31 - 1, (TRAIN_B, TRAIN_T), dtype=np.int32)
+           for _ in range(DT_HOLD_BATCHES)]
+    cycles = spin_cycles(torch, DT_HOLD_SPIN_MS)
+
+    def slow_copies():
+        for a in src:
+            # the worker iterates the source on the prefetcher's stream
+            check(torch.cuda.current_stream() != torch.cuda.default_stream(),
+                  "the prefetcher's worker copies on the default stream")
+            torch.cuda._sleep(cycles)
+            yield a
+    report = {"batches": DT_HOLD_BATCHES, "spin_ms": DT_HOLD_SPIN_MS}
+    with DevicePrefetcher(slow_copies(), sharding="cuda", depth=2) as it:
+        got = [x.clone() for x in it]
+    report["wait"] = [bool(np.array_equal(g.cpu().numpy(), a)) for g, a in zip(got, src)]
+    got = []
+    with DevicePrefetcher(iter(src), sharding="cuda", depth=2) as it:
+        for x in it:
+            torch.cuda._sleep(cycles)
+            got.append(x.clone())
+            del x
+    report["reuse"] = [bool(np.array_equal(g.cpu().numpy(), a)) for g, a in zip(got, src)]
+    emit({"data_train_stream_hold": report})
+    for half in ("wait", "reuse"):
+        check(len(report[half]) == DT_HOLD_BATCHES and all(report[half]),
+              f"prefetched batches differ from their sources with slow copies ({half}): "
+              f"{report[half]}")
+    return report
+
+
+def train_state(step):
+    """Copies of a TrainStep's parameters and optimizer state."""
+    return ([p.detach().clone() for _, p in step._params],
+            [tuple(s.clone() for s in st) for st in step._states])
+
+
+def same_bits(torch, a, b):
+    """Whether two lists of tensors (or of tuples of them) hold the same
+    bits: floats compared as integers of their width."""
+    def bits(t):
+        if t.is_floating_point():
+            return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+        return t
+    flat_a = [t for x in a for t in (x if isinstance(x, tuple) else (x,))]
+    flat_b = [t for x in b for t in (x if isinstance(x, tuple) else (x,))]
+    return len(flat_a) == len(flat_b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(bits(x), bits(y))
+        for x, y in zip(flat_a, flat_b))
+
+
+def input_bound(torch, step, X, Y, B, device):
+    """(b) the JAX README's input-bound run: a producer that sleeps one
+    measured device step per batch, fed to the step directly (a host sync
+    per step) and through the prefetcher (block_every's window); the
+    speedup against the ideal 2.0x. Printed, not gated."""
+    import numpy as np
+    from mxnet_tpu_torch.pipeline import DevicePrefetcher
+    ids, lab = torch.from_numpy(X[:B]).to(device), torch.from_numpy(Y[:B]).to(device)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    step(ids, lab)
+    b.record()
+    b.synchronize()
+    delay = a.elapsed_time(b) / 1e3
+    rng = np.random.RandomState(0)
+    idx = [rng.randint(0, len(X), B) for _ in range(DT_BOUND_STEPS)]
+
+    def producer():
+        for i in idx:
+            time.sleep(delay)
+            yield X[i], Y[i]
+    t0 = time.perf_counter()
+    for x, y in producer():
+        step(torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)).item()
+    direct = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with DevicePrefetcher(producer(), sharding=step.input_shardings(), depth=2) as it:
+        for x, y in it:
+            step.step(x, y)
+        step.drain()
+    fed = time.perf_counter() - t0
+    return {"producer_delay_ms": delay * 1e3, "steps": DT_BOUND_STEPS,
+            "direct_s": direct, "prefetched_s": fed, "speedup": direct / fed, "ideal": 2.0,
+            "h2d_gbps_batch": h2d_gbps(torch, [X[:B], Y[:B]])}
+
+
+def gpt2_from_loader(torch, args, device="cuda"):
+    """(a) and (b): bf16 GPT-2 small in phase 5's configuration (B 16, T
+    1024, Adam, dropout 0.1 at headline_schedule()) fed from token windows
+    through DataLoader(shuffle, 2 forked workers, pin_memory) ->
+    as_device_iterator(step.input_shardings(), depth 2) ->
+    TrainStep.step(block_every=2) -> drain(); ms a step over the steps
+    after the first, fed and hand-fed. On the card, step DT_PROFILED + 1
+    runs under the profiler once the pipeline is full (the steady idle
+    share), and after the loop the first step of a fresh iterator (the
+    cold one, its fork and first batch read on their own). Gates: finite
+    losses; K1 and K2 launched LAYERS times a step each and the plain
+    attention never; the batches are the sampler's; the losses, the
+    parameters and the optimizer state after the last step bit for bit
+    those of a twin TrainStep from the same weights fed the same batches
+    by hand as CUDA tensors. Returns the launch counts of the fed run."""
+    import numpy as np
+    from mxnet_tpu_torch import metrics, optimizer, parallel
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import GPTModel
+    from mxnet_tpu_torch.ops import attention as fa
+    from mxnet_tpu_torch.ops.int8_gemv import launches, reset_launches
+    cfg = gpt2_train_config(torch.bfloat16, DEFAULT_DROPOUT)
+    B, T = TRAIN_B, TRAIN_T
+    X, Y = token_windows(args, cfg.vocab_size, B, T, DT_BATCHES)
+
+    def make_step():
+        net = GPTModel(cfg, device=device).init_weights(args.seed)
+        return parallel.TrainStep(net, SoftmaxCrossEntropyLoss(),
+                                  optimizer.Adam(learning_rate=TRAIN_LR,
+                                                 lr_scheduler=headline_schedule()),
+                                  example_inputs=[torch.from_numpy(X[:B]).to(device)],
+                                  block_every=2)
+    loader = DataLoader(ArrayDataset(X, Y), batch_size=B, shuffle=True, num_workers=DT_WORKERS,
+                        thread_pool=False, pin_memory=True)
+    np.random.seed(args.seed + 14)
+    order = np.random.permutation(len(X)).reshape(DT_BATCHES, B)   # what the sampler draws
+    step = make_step()
+    plain = {"calls": 0}
+    real_plain = fa._fallback
+
+    def counted(*a, **k):
+        plain["calls"] += 1
+        return real_plain(*a, **k)
+    was = metrics.enabled()
+    metrics.reset()
+    metrics.enable()
+    fa._fallback = counted
+    np.random.seed(args.seed + 14)
+    reset_launches()
+    sync(torch, device)
+    cuda = torch.device(device).type == "cuda"
+    waits, losses, fed = [], [], []
+    steady = "not measured"                 # card-only measurement
+    timed, n_timed, t_mark = 0.0, 0, None   # the steps after the first, unprofiled
+    try:
+        it = loader.as_device_iterator(sharding=step.input_shardings(), depth=2)
+        while True:
+            if cuda and len(fed) == DT_PROFILED < DT_BATCHES:
+                sync(torch, device)
+                timed += time.perf_counter() - t_mark
+                steady, batch, loss = profiled_fed_step(torch, step, it)
+                waits.append(steady["input_wait_ms"] / 1e3)
+                fed.append(batch)
+                losses.append(loss)
+                t_mark = time.perf_counter()
+                continue
+            tw = time.perf_counter()
+            try:
+                x, y = next(it)
+            except StopIteration:
+                break
+            waits.append(time.perf_counter() - tw)
+            fed.append((x, y))
+            losses.append(step.step(x, y))
+            if t_mark is None:
+                sync(torch, device)
+                t_mark = time.perf_counter()
+            else:
+                n_timed += 1
+        step.drain()
+        timed += time.perf_counter() - t_mark
+    finally:
+        fa._fallback = real_plain
+    counts = launches()
+    fed_state = train_state(step)
+    wait_metric = (metrics.get_sample_value("mxnet_input_wait_seconds_count", {"path": "train"}),
+                   metrics.get_sample_value("mxnet_input_wait_seconds_sum", {"path": "train"}))
+    metrics.reset()
+    (metrics.enable if was else metrics.disable)()
+    losses = torch.stack(losses).float().cpu()
+    check(len(fed) == DT_BATCHES, f"the loader gave {len(fed)} batches, not {DT_BATCHES}")
+    for k, (x, y) in enumerate(fed):
+        check(x._data.device.type == torch.device(device).type
+              and np.array_equal(x.asnumpy(), X[order[k]])
+              and np.array_equal(y.asnumpy(), Y[order[k]]),
+              f"batch {k} is not the sampler's batch {k}")
+    check(bool(torch.isfinite(losses).all()), f"non-finite loss fed from the loader: {losses}")
+    for kind in ("flash_fwd", "flash_bwd"):
+        check(counts.get(kind, 0) == LAYERS * DT_BATCHES,
+              f"{kind} launches {counts.get(kind)} != {LAYERS} x {DT_BATCHES} steps")
+    check(plain["calls"] == 0, f"the plain attention ran {plain['calls']} times")
+    ms = timed / n_timed * 1e3
+    cold = bound = "not measured"          # card-only measurements
+    if cuda:
+        it2 = loader.as_device_iterator(sharding=step.input_shardings(), depth=2)
+        try:
+            cold = profiled_fed_step(torch, step, it2)[0]
+        finally:
+            it2.close()
+        step.drain()
+        bound = input_bound(torch, step, X, Y, B, device)
+    del step, fed, it
+    torch.cuda.empty_cache()
+    twin = make_step()
+    twin_losses = []
+    for k, o in enumerate(order):
+        twin_losses.append(twin.step(torch.from_numpy(X[o]).to(device),
+                                     torch.from_numpy(Y[o]).to(device)))
+        if k == 0:
+            sync(torch, device)
+            t_twin = time.perf_counter()
+    twin.drain()
+    twin_ms = (time.perf_counter() - t_twin) / (DT_BATCHES - 1) * 1e3
+    twin_losses = torch.stack(twin_losses).float().cpu()
+    equal = bool(torch.equal(losses, twin_losses))
+    twin_state = train_state(twin)
+    params_equal = same_bits(torch, fed_state[0], twin_state[0])
+    state_equal = same_bits(torch, fed_state[1], twin_state[1])
+    del fed_state, twin_state
+    report = {"model": "gpt2-small", "dtype": "bfloat16", "B": B, "T": T,
+              "dropout": DEFAULT_DROPOUT, "loader": {"workers": DT_WORKERS, "processes": True,
+                                                     "pin_memory": True, "depth": 2,
+                                                     "block_every": 2},
+              "batches": DT_BATCHES, "losses": losses.tolist(),
+              "twin_losses": twin_losses.tolist(), "bitwise_twin": equal,
+              "bitwise_twin_params": params_equal, "bitwise_twin_optimizer_state": state_equal,
+              "ms_per_step": ms, "tokens_per_s": B * T / (ms / 1e3),
+              "hand_fed_twin_ms_per_step": twin_ms,
+              "fixed_batch_ms_per_step": FIGURES.get("gpt2_fixed_ms", "not measured"),
+              "input_wait_ms": {"median": statistics.median(waits) * 1e3,
+                                "max": max(waits) * 1e3, "first": waits[0] * 1e3,
+                                "median_after_first": statistics.median(waits[1:]) * 1e3},
+              "mxnet_input_wait_seconds": {"count": wait_metric[0], "sum": wait_metric[1]},
+              "launches": {k: counts.get(k, 0) for k in ("flash_fwd", "flash_bwd")},
+              "plain_attention_calls": plain["calls"],
+              "profiled_fed_step": {"steady": steady, "steady_step": DT_PROFILED + 1,
+                                    "cold": cold},
+              "input_bound": bound}
+    emit({"data_train_gpt2": report})
+    check(equal, f"losses fed from the loader {losses.tolist()} differ from the hand-fed "
+          f"twin's {twin_losses.tolist()}")
+    check(params_equal and state_equal,
+          f"after {DT_BATCHES} steps fed from the loader the parameters (bitwise "
+          f"{params_equal}) or the optimizer state (bitwise {state_equal}) differ from "
+          f"the hand-fed twin's")
+    del twin
+    return counts
+
+
+def npy_record_file(args, path, n, hw, classes):
+    """``n`` uint8 hw x hw x 3 images from ``--seed`` with labels in [0,
+    classes), written as a .npy RecordIO by the port's pack_img."""
+    import numpy as np
+    from mxnet_tpu_torch.io import recordio
+    rng = np.random.RandomState(args.seed + 141)
+    w = recordio.MXIndexedRecordIO(path[:-4] + ".idx", path, "w")
+    for i in range(n):
+        img = rng.randint(0, 256, (hw, hw, 3)).astype(np.uint8)
+        w.write_idx(i, recordio.pack_img(recordio.IRHeader(0, float(rng.randint(0, classes)), i, 0),
+                                         img, img_fmt=".npy"))
+    w.close()
+
+
+def nhwc_batches(torch, it):
+    """The NCHW f32 batches ToTensor/Normalize make, as the NHWC bf16 images
+    and int32 labels phase 11's ResNet-50 takes (one permute and cast on
+    the card, on the consumer's stream)."""
+    from mxnet_tpu_torch.ndarray import NDArray
+    for x, y in it:
+        yield (NDArray(x._data.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()),
+               NDArray(y._data.to(torch.int32)))
+
+
+def resnet_from_files(torch, args, device="cuda", hw=VT_HW, B=VT_B, classes=1000):
+    """(c) ResNet-50 v1 in phase 11 (a)'s configuration (NHWC, AMP bf16,
+    SGD 0.05 momentum 0.9) fed from a .npy RecordIO of DT_RN_BATCHES x B
+    images: ImageRecordDataset with RandomCrop(pad 4), RandomFlipLeftRight,
+    ToTensor and Normalize on the images, DT_RN_WORKERS forked workers,
+    pin_memory, as_device_iterator. DT_RN_STEPS TrainSteps, then one
+    Estimator.fit epoch of DT_RN_FIT_BATCHES batches. Gates: finite losses,
+    every running mean moved."""
+    import shutil
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, optimizer, parallel
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon import metric as gmetric
+    from mxnet_tpu_torch.gluon.contrib import estimator
+    from mxnet_tpu_torch.gluon.data import DataLoader
+    from mxnet_tpu_torch.gluon.data.vision import ImageRecordDataset, transforms
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    tmp = tempfile.mkdtemp(prefix="mxdata_")
+    try:
+        rec = f"{tmp}/images.rec"
+        t0 = time.perf_counter()
+        npy_record_file(args, rec, DT_RN_BATCHES * B, hw, classes)
+        write_s = time.perf_counter() - t0
+        tf = transforms.Compose([transforms.RandomCrop(hw, pad=DT_RN_PAD),
+                                 transforms.RandomFlipLeftRight(), transforms.ToTensor(),
+                                 transforms.Normalize(DT_RN_MEAN, DT_RN_STD)])
+        ds = ImageRecordDataset(rec).transform_first(tf)
+
+        def loader(dataset):
+            return DataLoader(dataset, batch_size=B, shuffle=True, num_workers=DT_RN_WORKERS,
+                              thread_pool=False, pin_memory=True)
+        mx.random.seed(args.seed)
+        net = get_model("resnet50_v1", classes=classes, layout="NHWC")
+        net.initialize(mx.init.Xavier())
+        amp.convert_hybrid_block(net, "bfloat16")
+        example = torch.zeros(B, hw, hw, 3, dtype=torch.bfloat16, device=device)
+        step = parallel.TrainStep(net, SoftmaxCrossEntropyLoss(),
+                                  optimizer.SGD(learning_rate=VT_LR, momentum=VT_MOMENTUM),
+                                  [example])
+        stats = {k: p for k, p in net.collect_params().items() if k.endswith("running_mean")}
+        before = {k: p.data()._data.clone() for k, p in stats.items()}
+        losses, t_first = [], None
+        it = loader(ds).as_device_iterator(sharding=step.input_shardings(), depth=2)
+        t0 = time.perf_counter()
+        try:
+            for k, (x, y) in enumerate(nhwc_batches(torch, it)):
+                losses.append(step(x, y))
+                if k == 0:
+                    sync(torch, device)
+                    t_first = time.perf_counter()
+                if k + 1 == DT_RN_STEPS:
+                    break
+            sync(torch, device)
+            t_end = time.perf_counter()
+        finally:
+            it.close()
+        losses = [float(v) for v in torch.stack(losses).float().cpu()]
+        moved = sum(not torch.equal(before[k], p.data()._data) for k, p in stats.items())
+        fed_ips = (DT_RN_STEPS - 1) * B / (t_end - t_first)
+        # one Estimator epoch over the first DT_RN_FIT_BATCHES batches' worth
+        fit_ds = ds.shard(DT_RN_BATCHES // DT_RN_FIT_BATCHES, 0)
+        est = estimator.Estimator(net, SoftmaxCrossEntropyLoss(),
+                                  train_metrics=[gmetric.Accuracy()],
+                                  trainer=Trainer(net.collect_params(), "sgd",
+                                                  {"learning_rate": VT_LR,
+                                                   "momentum": VT_MOMENTUM}))
+        fit_losses = []
+
+        class Record(estimator.BatchEnd):
+            def batch_end(self, est_, *a, loss=None, **kw):
+                fit_losses.append(float(loss.mean().item()))
+        before_fit = {k: p.data()._data.clone() for k, p in stats.items()}
+        fit_it = loader(fit_ds).as_device_iterator(depth=2)
+        t0 = time.perf_counter()
+        try:
+            est.fit(nhwc_batches(torch, fit_it), epochs=1, event_handlers=[Record()])
+        finally:
+            fit_it.close()
+        fit_s = time.perf_counter() - t0
+        moved_fit = sum(not torch.equal(before_fit[k], p.data()._data) for k, p in stats.items())
+        x0 = torch.zeros(B, 3, hw, hw).numpy()
+        report = {"model": "resnet50_v1", "layout": "NHWC", "dtype": "bfloat16", "B": B,
+                  "hw": hw, "records": DT_RN_BATCHES * B, "record_write_s": write_s,
+                  "workers": DT_RN_WORKERS, "transforms": "RandomCrop(pad 4), "
+                  "RandomFlipLeftRight, ToTensor, Normalize", "steps": DT_RN_STEPS,
+                  "losses": losses, "images_per_s_from_files": fed_ips,
+                  "fixed_batch_images_per_s": FIGURES.get("resnet50_fixed_images_per_s",
+                                                          "not measured"),
+                  "running_means_moved": moved, "running_means": len(stats),
+                  "estimator": {"batches": len(fit_losses), "losses": fit_losses,
+                                "train_metrics": [m.get() for m in est.train_metrics],
+                                "wall_s": fit_s, "running_means_moved": moved_fit},
+                  "h2d_gbps_batch": h2d_gbps(torch, [x0])
+                  if torch.device(device).type == "cuda" else "not measured"}
+        emit({"data_train_resnet50": report})
+        check(all(math.isfinite(v) for v in losses + fit_losses),
+              f"non-finite ResNet-50 loss fed from files: {losses} {fit_losses}")
+        check(len(losses) == DT_RN_STEPS and len(fit_losses) == DT_RN_FIT_BATCHES,
+              f"{len(losses)} steps and {len(fit_losses)} Estimator batches")
+        check(moved == len(stats) and moved_fit == len(stats),
+              f"running means moved: {moved} and {moved_fit} of {len(stats)}")
+        del step, est, net
+        return report
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mnist_program(torch, args, device, workers):
+    """examples/train_mnist_gluon.py's synthetic-data program on the port
+    (its data, net, Xavier init, hybridize, Trainer("adam", 1e-3),
+    DataLoader(ArrayDataset(X, Y), 128, shuffle=True, num_workers=workers,
+    thread_pool=workers == 0), Accuracy), DT_MNIST_EPOCHS epochs on
+    ``device``, numpy's global RNG seeded for the sampler. Returns the
+    per-epoch mean losses, accuracies and wall seconds."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import Trainer, metric, nn
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    with (mx.gpu(0) if torch.device(device).type == "cuda" else mx.cpu()):
+        mx.random.seed(42)
+        np.random.seed(args.seed)
+        rs = np.random.RandomState(0)
+        X = rs.rand(DT_MNIST_N, 784).astype("float32")
+        W = rs.randn(784, 10).astype("float32")
+        Y = (X @ W).argmax(1).astype("int32")
+        loader = DataLoader(ArrayDataset(X, Y), batch_size=128, shuffle=True,
+                            num_workers=workers, thread_pool=workers == 0)
+        net = nn.HybridSequential()
+        net.add(nn.Dense(128, activation="relu"), nn.Dense(64, activation="relu"), nn.Dense(10))
+        net.initialize(mx.init.Xavier())
+        net.hybridize()
+        trainer = Trainer(net.collect_params(), "adam", {"learning_rate": 1e-3})
+        loss_fn = SoftmaxCrossEntropyLoss()
+        acc = metric.Accuracy()
+        losses, accs = [], []
+        t0 = time.perf_counter()
+        for _ in range(DT_MNIST_EPOCHS):
+            acc.reset()
+            total = 0.0
+            for data, label in loader:
+                with autograd.record():
+                    out = net(data)
+                    loss = loss_fn(out, label)
+                loss.backward()
+                trainer.step(data.shape[0])
+                acc.update(label, out)
+                total += float(loss.mean().item())
+            losses.append(total / len(loader))
+            accs.append(acc.get()[1])
+        return {"losses": losses, "accuracy": accs, "wall_s": time.perf_counter() - t0}
+
+
+def mnist_card_vs_cpu(torch, args, card="cuda"):
+    """(d) the MNIST program on the card with 0 and 2 workers against the
+    CPU port: the loss falls, the accuracy rises, each epoch's loss within
+    DT_MNIST_TOL of the CPU's (relative)."""
+    cpu = mnist_program(torch, args, "cpu", 0)
+    runs = {w: mnist_program(torch, args, card, w) for w in (0, 2)}
+    report = {"cpu": cpu, **{f"card_workers_{w}": r for w, r in runs.items()}}
+    for w, r in runs.items():
+        report[f"card_workers_{w}"]["max_rel_to_cpu"] = max(
+            abs(a - b) / max(abs(b), 1e-12) for a, b in zip(r["losses"], cpu["losses"]))
+    emit({"data_train_mnist": report})
+    for w, r in runs.items():
+        check(r["losses"][-1] < r["losses"][0] and r["accuracy"][-1] > r["accuracy"][0],
+              f"MNIST with {w} workers: loss {r['losses']} accuracy {r['accuracy']}")
+        check(r["max_rel_to_cpu"] <= DT_MNIST_TOL,
+              f"MNIST with {w} workers: epoch losses {r['losses']} vs the CPU's "
+              f"{cpu['losses']} (> {DT_MNIST_TOL})")
+    return report
+
+
+def data_train(torch, args):
+    """Phase 14: the input path. (a) the prefetcher's stream contract
+    under slow copies, then GPT-2 small fed through the loader and the
+    prefetcher, bit for bit its hand-fed twin, K1/K2 on its path, (b)
+    the input-bound run, (c) ResNet-50 from a RecordIO through forked
+    workers and the Estimator, (d) the MNIST program card against CPU.
+    Starts only with at most LT_HELD_GB still allocated. Returns (a)'s
+    launch counts."""
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated() / 1e9
+    emit({"data_train_allocated_gb_at_start": held})
+    check(held <= LT_HELD_GB, f"{held} GB of device memory still allocated as phase 14 "
+          f"starts (> {LT_HELD_GB}): an earlier phase's model or engine was not freed")
+    parts = {}
+    t0 = time.perf_counter()
+    stream_hold(torch, args)
+    parts["stream_hold"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts = gpt2_from_loader(torch, args)
+    torch.cuda.empty_cache()
+    parts["gpt2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resnet_from_files(torch, args)
+    torch.cuda.empty_cache()
+    parts["resnet50"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mnist_card_vs_cpu(torch, args)
+    parts["mnist"] = time.perf_counter() - t0
+    emit({"data_train_s": time.perf_counter() - t_phase, "parts_s": parts})
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6733,6 +7358,8 @@ def main(argv=None):
     vision_rows = vision_train(torch, args, timer, gen)
     torch.cuda.empty_cache()
     nlp_rows = nlp_train(torch, args, timer, gen)
+    torch.cuda.empty_cache()
+    data_counts = data_train(torch, args)
 
     def routes(*phases):
         return {r: sum(c["routes"][r] for c in phases) for r in ("warp", "mma")}
@@ -6882,9 +7509,12 @@ def main(argv=None):
                      # K5 with every row at position 64; K6 at B 8
                      **{k: r[k] for k in ("ms_pos64", "ms_b8", "bound_ms_b8") if k in r}})
         if name.startswith("flash_attention"):
+            kind = "flash_fwd" if name.endswith("fwd") else "flash_bwd"
             # launched from the tape by the gluon_substrate phase's block
-            rows[-1]["launches_gluon"] = gluon_counts["flash_fwd" if name.endswith("fwd")
-                                                      else "flash_bwd"]
+            rows[-1]["launches_gluon"] = gluon_counts[kind]
+            # phase 14 (a): GPT-2 fed through the DataLoader and the prefetcher
+            rows[-1]["launches_data"] = data_counts.get(kind, 0)
+            check(rows[-1]["launches_data"] > 0, f"{name} never launched on the input path")
         if name in llama_launches:
             rows[-1]["launches_llama"] = llama_launches[name]
         if name in fleet_launches:

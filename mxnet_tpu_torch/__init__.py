@@ -50,6 +50,11 @@ affinity, tenants, drains), the autoscale controller (``serve.
 FleetController``), KV-page migration between replicas and packages
 (``serve.cachefleet``, ``kvstore.comm``) and prefill / decode tiers,
 with ``observability.aggregate`` merging the replicas' metrics.
+Slice 21 is the input path: ``gluon.data`` (datasets, samplers, batchify,
+the ``DataLoader`` with thread and forked process workers over shared
+memory, pinned uploads; vision datasets and transforms), ``pipeline``
+(``DevicePrefetcher``: staging on a CUDA stream of its own), ``io`` and
+``recordio``, ``image``, ``gluon.utils`` and ``gluon.contrib.estimator``.
 Slice 16 serves Llama (``models.LlamaForCausalLM``: GQA, RoPE, RMSNorm,
 SwiGLU, per-layer and stacked decoders) from the same engine at
 Llama-3-8B's width: K1 at head dim 128, K3/K4 at its widths and K8 on a
@@ -83,7 +88,8 @@ _LAZY = {"gluon": ".gluon", "init": ".initializer", "initializer": ".initializer
          "models": ".models", "parallel": ".parallel", "profiler": ".profiler",
          "serve": ".serve", "observability": ".observability", "contrib": ".contrib",
          "checkpoint": ".checkpoint", "serialization": ".serialization",
-         "interop": ".interop", "amp": ".amp", "metric": ".gluon.metric"}
+         "interop": ".interop", "amp": ".amp", "metric": ".gluon.metric",
+         "pipeline": ".pipeline", "io": ".io", "recordio": ".io.recordio", "image": ".image"}
 
 
 def __getattr__(name):

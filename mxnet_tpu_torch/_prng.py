@@ -273,6 +273,26 @@ def _erfinv_f32(x: np.ndarray) -> np.ndarray:
     return np.where(np.abs(x) == np.float32(1), x * np.finfo(_F32).max, out)
 
 
+def _round_bf16(x: np.ndarray) -> np.ndarray:
+    """f32 ``x`` rounded to bf16 (nearest even), as f32."""
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=_F32)).to(torch.bfloat16).float().numpy()
+
+
+def normal_bf16(k: torch.Tensor, shape: Sequence[int], round_product: bool = True) -> np.ndarray:
+    """``jax.random.normal(k, shape, bfloat16)`` as f32: u from 8 random
+    bits (bf16 has 7 mantissa bits), exactly representable on (-1, 1);
+    XLA's f32 erfinv rounded to bf16, times bf16(sqrt 2). The product is
+    rounded to bf16 as the draw alone returns it; ``round_product=False``
+    keeps it in f32, as XLA computes it inside a fused step that upcasts
+    the draw (SGLD's)."""
+    bits = host_bits(k, shape, 8).astype(np.uint32)
+    fl = (((bits >> np.uint32(1)) << np.uint32(16)) | np.uint32(0x3F800000)).view(_F32)
+    lo = np.float32(-0.99609375)        # nextafter(-1, 0) in bf16
+    u = np.maximum(lo, (fl - np.float32(1)) * np.float32(2) + lo)
+    out = _round_bf16(_erfinv_f32(u)) * _round_bf16(np.float32(np.sqrt(2)))
+    return _round_bf16(out) if round_product else out
+
+
 def host_normal(k: torch.Tensor, shape: Sequence[int], dtype=np.float32) -> np.ndarray:
     """``jax.random.normal``: ``sqrt(2) * erfinv(u)``, u uniform on
     (-1, 1) bit for bit. The f32 erfinv is XLA's polynomial

@@ -1,13 +1,15 @@
 """Gluon of the port (counterpart of ``mxnet_tpu/gluon``): ``Parameter``,
 ``Block``/``HybridBlock`` and their ``CachedOp``, the basic, convolution
 and pooling layers, the losses, the ``Trainer``, parameter files and the
-vision model zoo, and the evaluation metrics."""
-from . import block, loss, metric, model_zoo, nn, parameter
+vision model zoo, the evaluation metrics, ``data`` (datasets and the
+``DataLoader``), ``utils`` and ``contrib`` (the ``Estimator``)."""
+from . import block, contrib, data, loss, metric, model_zoo, nn, parameter, utils
 from .block import (Block, HybridBlock, HybridSequential, Sequential, SymbolBlock,
                     load_parameters, save_parameters)
 from .parameter import Constant, Parameter
 from .trainer import Trainer
 
 __all__ = ["Block", "Constant", "HybridBlock", "HybridSequential", "Parameter",
-           "Sequential", "SymbolBlock", "Trainer", "block", "load_parameters", "loss",
-           "metric", "model_zoo", "nn", "parameter", "save_parameters"]
+           "Sequential", "SymbolBlock", "Trainer", "block", "contrib", "data",
+           "load_parameters", "loss", "metric", "model_zoo", "nn", "parameter",
+           "save_parameters", "utils"]

@@ -27,7 +27,9 @@ the training families ``parallel.TrainStep`` observes
 fleet's: ``mxnet_slo_*`` (``observability.aggregate.SLOTracker``),
 ``mxnet_fleet_*`` (the autoscale controller and the tenant scheduler),
 ``mxnet_router_*``, ``mxnet_cache_affinity_*``, ``mxnet_migrate_*`` and
-``mxnet_fleet_tier_*``. The elastic, ZeRO, AOT, data-loader and
+``mxnet_fleet_tier_*``, and the input path's: ``mxnet_dataloader_*``
+(``gluon.data.DataLoader``) and ``mxnet_input_wait_seconds``
+(``pipeline.DevicePrefetcher``). The elastic, ZeRO, AOT and
 executable-cost families wait for their slices (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
@@ -587,6 +589,14 @@ EXAMPLES_PER_SEC = Gauge(
     "Throughput of the most recent FUSED train step (TrainStep paths "
     "only: Trainer.step excludes fwd/bwd, so no gauge there)",
     labels=("path",))
+DATA_BATCH_LATENCY = Histogram(
+    "mxnet_dataloader_batch_seconds",
+    "DataLoader batch assembly latency (sample fetch + batchify)")
+DATA_QUEUE_WAIT = Histogram(
+    "mxnet_dataloader_wait_seconds",
+    "Consumer-side wait for the next prefetched batch (queue-wait)")
+DATA_BATCHES = Counter(
+    "mxnet_dataloader_batches_total", "Batches produced by DataLoader")
 STEP_PHASE = Histogram(
     "mxnet_step_phase_seconds",
     "Per-step training phase durations (phase=input_wait|h2d|dispatch|"
@@ -630,6 +640,11 @@ SLO_BURN = Gauge(
     "Error-budget burn rate: observed violation fraction / allowed "
     "fraction (1 - objective); > 1 means the budget is being spent "
     "faster than it accrues", labels=("slo",))
+INPUT_WAIT = Histogram(
+    "mxnet_input_wait_seconds",
+    "Consumer-side wait for the next device-staged batch "
+    "(DevicePrefetcher); near-zero means the input pipeline keeps the "
+    "device fed, large means the step is input-bound", labels=("path",))
 PIPELINE_DEPTH = Gauge(
     "mxnet_pipeline_depth",
     "Live pipeline occupancy: staged batches ready in the prefetcher "

@@ -17,6 +17,7 @@ composites are ``ops/fused_conv.py``. The contrib detection ops and
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -140,6 +141,17 @@ class _FusedCE(torch.autograd.Function):
 
 # ----------------------------------------------------------------- dropout
 
+def _check_dropout_rng():
+    """Raise where the JAX package would draw ``jax.random.bernoulli``
+    masks (``MXTPU_DROPOUT_RNG=threefry``): the port draws the counter
+    hash only. Called by every active dropout site, as the JAX package
+    reads the variable there."""
+    if os.environ.get("MXTPU_DROPOUT_RNG") == "threefry":
+        raise MXNetError("MXTPU_DROPOUT_RNG=threefry is not ported (ROADMAP Queue 3): "
+                         "the port draws the counter-hash dropout masks only; unset the "
+                         "variable or set it to 'counter'")
+
+
 def _mul32(x, c: int):
     """``x * c`` modulo 2**32 on int64 holding uint32 values, in place."""
     return x.mul_(c).bitwise_and_(M32)
@@ -221,6 +233,7 @@ def _dropout(data, p, mode, axes, training):
         return data
     if p <= 0.0:
         return data
+    _check_dropout_rng()
     key = _random.next_key()
     shape = list(data.shape)
     for ax in axes or ():

@@ -95,7 +95,8 @@ def _chunk_keep(key, rate: float, B, H, T, lo, n, device):
     (b, h, t) row index ``(b * H + h) * T + t`` as the high word and the
     key position as the low word of ``_keep_bits_at`` (a flat B*H*T*S index
     would wrap at 2**32 at long contexts)."""
-    from ..numpy_extension import _keep_bits_at
+    from ..numpy_extension import _keep_bits_at, _check_dropout_rng
+    _check_dropout_rng()
     ar = functools.partial(torch.arange, dtype=torch.int64, device=device)
     bht = ((ar(B)[:, None, None] * H + ar(H)[None, :, None]) * T + ar(T)[None, None, :])
     spos = lo + ar(n)
@@ -112,8 +113,8 @@ def _chunked_reference(q, k, v, causal: bool, scale: float, block: int = 512,
     key positions (:func:`_chunk_keep`), so the memory bound holds under
     dropout; it scales the value sum only (``_online_block``'s
     ``acc_scale``). The JAX package's ``MXTPU_DROPOUT_RNG=threefry`` switch
-    is not read: the port draws the counter hash only, as its
-    ``npx.dropout`` does."""
+    raises (``npx._check_dropout_rng``): the port draws the counter hash
+    only, as its ``npx.dropout`` does."""
     B, H, T, D = q.shape
     S = k.shape[2]
     bs = min(block, S)
@@ -148,9 +149,10 @@ def _dropout_keep(key, shape, rate: float, device):
     """The einsum route's keep multiplier over ``shape`` (B, H, T, S) in
     f32: ``1 / (1 - rate)`` where the counter hash of the flat index keeps,
     0 elsewhere (``npx._cheap_keep_mask``, the bits of the JAX package's
-    ``_dropout_keep``). The port does not read ``MXTPU_DROPOUT_RNG``: the
-    JAX package's threefry switch is not ported (ROADMAP Queue 1 item 3)."""
-    from ..numpy_extension import _cheap_keep_mask
+    ``_dropout_keep``). ``MXTPU_DROPOUT_RNG=threefry``, the JAX package's
+    switch to ``jax.random.bernoulli``, raises (``npx._check_dropout_rng``)."""
+    from ..numpy_extension import _cheap_keep_mask, _check_dropout_rng
+    _check_dropout_rng()
     keep = _cheap_keep_mask(key, shape, 1.0 - rate, device=device)
     return torch.where(keep, 1.0 / (1.0 - rate), 0.0).to(torch.float32)
 

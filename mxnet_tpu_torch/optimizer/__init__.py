@@ -12,18 +12,24 @@ it f32 views (a bf16 weight, its gradient and its floating state are
 upcast, as the JAX package's f32 scalar hyperparameters promote them) and
 write the results back in place under ``torch.no_grad()``, in the
 parameter's and the state's own dtypes. State is kept in the weight's
-dtype, as in the JAX package. Where the JAX package rounds to the weight's
-dtype inside the step (LAMB's and LARS's trust ratio, SGLD's noise), the
-port's step sees f32 and the weight is rounded once at the write-back: for
-an f32 weight the two agree, for a bf16 one within its rounding.
+dtype, as in the JAX package. The optimizers that round to the weight's
+dtype inside the step (``bf16_step_converted``: LAMB and LARS, whose
+trust ratio is cast to it, and SGLD, whose noise is drawn in it) take a
+bf16 or f16 weight and its state as they are, an f32 gradient and
+Python-float rates, and follow the JAX step as XLA compiles it: a weak
+Python scalar meeting the low-precision weight or state is rounded to
+their dtype (bf16(0.9) = 0.8984375) and the product is kept in f32 (XLA's
+excess precision inside a fused step), an explicit cast rounds, and an op
+with the f32 gradient or a rate (an f32 array in the JAX step) is f32.
 
 SGLD's state is one uint32 seed, ``jax.random.bits(next_key(), ())``, and
-its noise ``jax.random.normal(fold_in(key(seed), t), w.shape) *
+its noise ``jax.random.normal(fold_in(key(seed), t), w.shape, w.dtype) *
 sqrt(lr)``; both are drawn on the host from the port's threefry
 (``_prng``), so the card steps with the CPU's noise bit for bit.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -67,6 +73,25 @@ def _f32_power(base: float, t) -> float:
 
 def _f32(x) -> np.float32:
     return np.float32(x)
+
+
+def _up(x):
+    """``x`` in f32 when it is bf16 or f16 (what an op with an f32 array
+    promotes it to in the JAX step), else as it is."""
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(c: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(c, dtype=torch.float32).to(dtype))
+
+
+def _weak(c: float, x) -> float:
+    """A weak Python scalar as it meets ``x`` in the JAX step: rounded to a
+    bf16/f16 ``x``'s dtype (once per constant and dtype), else as it is."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return _rounded(c, x.dtype)
+    return c
 
 
 def _zeros(weight):
@@ -173,6 +198,12 @@ class Optimizer:
     # lazy row-wise updates are exact for elementwise rules only; a trust
     # ratio over the whole weight (LARS, LAMB) needs the dense tensor
     lazy_rowwise = True
+    # Temporary, until ROADMAP Queue 3 item 1 converts the other
+    # update_steps and every bf16/f16 weight takes one path: True on the
+    # update_steps converted so far to round where the JAX step rounds
+    # (LAMB, LARS, SGLD); apply_updates hands them the weight and state
+    # unconverted
+    bf16_step_converted = False
 
     def update(self, index, weight, grad, state):
         """Eager single-parameter update (the reference ``Optimizer.update``):
@@ -412,15 +443,22 @@ class SGLD(Optimizer):
     """Stochastic gradient Langevin dynamics: half a gradient step plus
     N(0, lr) noise from the parameter's seed and the step count."""
 
+    bf16_step_converted = True
+
     def create_state(self, index, weight):
         seed = _prng.host_bits(next_key(), (), 32)
         return (torch.tensor(int(seed), dtype=torch.uint32),)
 
     def update_step(self, w, g, state, lr, wd, t):
-        g = self._preprocess_grad(g) + wd * w
+        g = self._preprocess_grad(g) + wd * _up(w)
         (seed,) = state
         key = _prng.fold_in(_prng.key(int(seed)), int(t))
-        noise = torch.from_numpy(_prng.host_normal(key, tuple(w.shape))).to(w.device)
+        if w.dtype == torch.bfloat16:
+            # the fused step keeps sqrt(2) * erfinv(u) unrounded
+            noise = _prng.normal_bf16(key, tuple(w.shape), round_product=False)
+        else:
+            noise = _prng.host_normal(key, tuple(w.shape))
+        noise = torch.from_numpy(noise).to(w.device)
         noise = noise * float(np.sqrt(_f32(lr)))
         return w - 0.5 * lr * g + noise, (seed,)
 
@@ -431,6 +469,7 @@ class LARS(Optimizer):
     trust ratio of f32 norms of the whole weight and gradient."""
 
     lazy_rowwise = False
+    bf16_step_converted = True
 
     def __init__(self, learning_rate=0.1, momentum=0.9, eta=0.001,
                  epsilon=1e-8, **kwargs):
@@ -446,9 +485,9 @@ class LARS(Optimizer):
         g_norm = torch.linalg.vector_norm(g.float())
         trust = torch.where((w_norm > 0) & (g_norm > 0),
                             self.eta * w_norm / (g_norm + wd * w_norm + self.epsilon), 1.0)
-        g = g + wd * w
+        g = g + wd * _up(w)
         (mom,) = state
-        mom = self.momentum * mom + trust.to(w.dtype) * lr * g
+        mom = _weak(self.momentum, mom) * _up(mom) + _up(trust.to(w.dtype)) * lr * g
         return w - mom, (mom,)
 
 
@@ -459,6 +498,7 @@ class LAMB(Optimizer):
     optional bounds; 1 where either norm is 0)."""
 
     lazy_rowwise = False
+    bf16_step_converted = True
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-6, lower_bound=None, upper_bound=None,
@@ -474,14 +514,14 @@ class LAMB(Optimizer):
     def update_step(self, w, g, state, lr, wd, t):
         g = self._preprocess_grad(g)
         m, v = state
-        m = self.beta1 * m + (1 - self.beta1) * g
-        v = self.beta2 * v + (1 - self.beta2) * torch.square(g)
+        m = _weak(self.beta1, m) * _up(m) + (1 - self.beta1) * g
+        v = _weak(self.beta2, v) * _up(v) + (1 - self.beta2) * torch.square(g)
         if self.bias_correction:
             mhat = m / (1 - _f32_power(self.beta1, t))
             vhat = v / (1 - _f32_power(self.beta2, t))
         else:
             mhat, vhat = m, v
-        r = mhat / (torch.sqrt(vhat) + self.epsilon) + wd * w
+        r = mhat / (torch.sqrt(vhat) + self.epsilon) + wd * _up(w)
         w_norm = torch.linalg.vector_norm(w.float())
         r_norm = torch.linalg.vector_norm(r.float())
         if self.lower_bound is not None:
@@ -489,7 +529,7 @@ class LAMB(Optimizer):
         if self.upper_bound is not None:
             w_norm = w_norm.clamp_max(self.upper_bound)
         ratio = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm, 1.0)
-        return w - lr * ratio.to(w.dtype) * r, (m, v)
+        return w - lr * _up(ratio.to(w.dtype)) * r, (m, v)
 
 
 @register

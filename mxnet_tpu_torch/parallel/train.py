@@ -49,6 +49,7 @@ from .. import metrics as _metrics
 from .. import optimizer as opt_mod
 from .._random import KeySupply
 from ..base import MXNetError
+from ..ndarray import NDArray
 
 __all__ = ["TrainStep"]
 
@@ -56,12 +57,23 @@ _LATER = "is not ported yet (ROADMAP Queue 1 item 8: kvstore and parallel)"
 
 
 def _as_tensors(xs, device):
+    """The batch as tensors on ``device``: an NDArray gives its tensor, a
+    tensor moves only when it lies on another device (a batch the
+    prefetcher staged is taken as it is), anything else goes through
+    numpy."""
     if xs is None:
         return None
     if not isinstance(xs, (tuple, list)):
         xs = (xs,)
-    return tuple(x.to(device) if torch.is_tensor(x)
-                 else torch.as_tensor(np.asarray(x), device=device) for x in xs)
+    out = []
+    for x in xs:
+        if isinstance(x, NDArray):
+            x = x._data.detach()
+        if torch.is_tensor(x):
+            out.append(x if x.device == device else x.to(device))
+        else:
+            out.append(torch.as_tensor(np.asarray(x), device=device))
+    return tuple(out)
 
 
 def _finish_deferred(net, example_inputs):
@@ -88,12 +100,18 @@ def trainable(net):
     return out
 
 
+_LOW = (torch.bfloat16, torch.float16)
+
+
 @torch.no_grad()
 def apply_updates(opt, params, states, lr_wd_t, rescale, grads=None):
     """Step every ``(name, parameter)`` of ``params`` with ``opt``'s pure
     ``update_step`` on f32 views, writing weights and ``states`` (a list,
     updated in place) back in their own dtypes; an integer state leaf (SGLD's
-    seed) is passed as it is. ``lr_wd_t(i)`` gives
+    seed) is passed as it is. A bf16/f16 weight of an optimizer with
+    ``bf16_step_converted`` (LAMB, LARS, SGLD) and its state are passed
+    unconverted, beside the f32 gradient, so the step rounds where the JAX
+    step does. ``lr_wd_t(i)`` gives
     ``(lr, wd, t)`` of parameter ``i``; its gradient is ``grads[i]``, else
     its ``.grad``. A parameter without a gradient steps with a zero one
     (the JAX gradient of an unused parameter)."""
@@ -101,9 +119,14 @@ def apply_updates(opt, params, states, lr_wd_t, rescale, grads=None):
         g = grads[i] if grads is not None else p.grad
         g = g.float() if g is not None else torch.zeros_like(p, dtype=torch.float32)
         lr, wd, t = lr_wd_t(i)
-        new_w, new_state = opt.update_step(
-            p.float(), g * rescale,
-            tuple(s.float() if s.is_floating_point() else s for s in states[i]), lr, wd, t)
+        # two paths for a bf16/f16 weight until ROADMAP Queue 3 item 1
+        # converts every update_step
+        if opt.bf16_step_converted and p.dtype in _LOW:
+            w, st = p.detach(), tuple(states[i])
+        else:
+            w = p.float()
+            st = tuple(s.float() if s.is_floating_point() else s for s in states[i])
+        new_w, new_state = opt.update_step(w, g * rescale, st, lr, wd, t)
         p.copy_(new_w)
         states[i] = tuple(n.to(o.dtype) for o, n in zip(states[i], new_state))
 
@@ -213,6 +236,16 @@ class TrainStep:
         apply_updates(opt, self._params, self._states,
                       lambda i: (opt._get_lr(i, lr), opt._get_wd(i), t), opt.rescale_grad)
         return loss.detach()
+
+    def input_shardings(self):
+        """``(data_placement, label_placement)`` to hand
+        ``DataLoader.as_device_iterator`` / ``DevicePrefetcher``, so
+        batches arrive on the step's device and the step takes them as
+        they are. Without a mesh (the only case the port has) this is the
+        step's device twice; the JAX package returns ``(None, None)`` there
+        (its default device), which here would be the caller's current
+        device, not necessarily the step's."""
+        return (self._device, self._device)
 
     def state_arrays(self):
         """Flat name -> tensor view of the optimizer state, ``opt{slot}.{i}``

@@ -1811,3 +1811,108 @@ def test_bf16_wire_through_card_pools(cuda):
     finally:
         src.shutdown(timeout=300)
         dst.shutdown(timeout=300)
+
+
+# ------------------------------------------------------ the input path
+def _input_batches(n=6, seed=30):
+    rng = onp.random.RandomState(seed)
+    return [(rng.rand(8, 5).astype("float32"), rng.randint(0, 3, 8).astype("int64"))
+            for _ in range(n)]
+
+
+def test_prefetched_cuda_batches_equal_host_batches(cuda):
+    """Batches staged on the card by the prefetcher's stream, and those a
+    pinned forked-worker DataLoader uploads, equal the host batches; the
+    staged copies ran on the prefetcher's own stream, not the consumer's."""
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    from mxnet_tpu_torch.pipeline import DevicePrefetcher
+    host = _input_batches()
+    it = DevicePrefetcher(iter(host), sharding=("cuda", torch.device("cuda")), depth=2)
+    assert it.stream is not None and it.stream != torch.cuda.current_stream()
+    got = list(it)
+    assert len(got) == len(host)
+    for (x, y), (hx, hy) in zip(got, host):
+        assert x.is_cuda and y.is_cuda
+        assert torch.equal(x.cpu(), torch.from_numpy(hx)) and torch.equal(y.cpu(), torch.from_numpy(hy))
+    X = onp.concatenate([b[0] for b in host])
+    Y = onp.concatenate([b[1] for b in host])
+    for kw in (dict(num_workers=2, thread_pool=False, pin_memory=True), dict(num_workers=2)):
+        loader = DataLoader(ArrayDataset(X, Y), batch_size=8, **kw)
+        for (x, y), (hx, hy) in zip(loader.as_device_iterator(depth=2), host):
+            assert x._data.is_cuda
+            assert onp.array_equal(x.asnumpy(), hx) and onp.array_equal(y.asnumpy(), hy)
+
+
+def test_prefetcher_debug_guard_raises_on_the_card(cuda):
+    """Under debug guards a producer that mutates a buffer it handed over
+    to the card's prefetcher raises ValueError at the consumer."""
+    from mxnet_tpu_torch.analysis import guards
+    from mxnet_tpu_torch.pipeline import DevicePrefetcher
+    guards.enable_debug()
+    try:
+        buf = onp.zeros((256, 256), onp.float32)
+
+        def reusing():
+            for i in range(8):
+                buf[...] = i
+                yield buf
+        it = DevicePrefetcher(reusing(), sharding="cuda", depth=2)
+        assert float(next(it).sum()) == 0.0
+        with pytest.raises(ValueError, match="read-only"):
+            for _ in range(8):
+                next(it)
+        it.close()
+        assert buf.flags.writeable
+    finally:
+        guards.disable_debug()
+
+
+def test_prefetched_trainstep_bitwise_on_the_card(cuda):
+    """A TrainStep on the card fed through the prefetcher equals the same
+    batches fed by hand as CUDA tensors, bit for bit: losses, parameters
+    and Adam state."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    host = _input_batches(8)
+    X = onp.concatenate([b[0] for b in host])
+    Y = onp.concatenate([b[1] for b in host])
+
+    def run(prefetched):
+        mx.random.seed(4)
+        net = nn.HybridSequential()
+        net.add(nn.Dense(64, in_units=5, activation="relu"), nn.Dense(3))
+        net.initialize()
+        step = parallel.TrainStep(net, SoftmaxCrossEntropyLoss(),
+                                  mx.optimizer.Adam(learning_rate=0.01),
+                                  example_inputs=[mx.np.array(X[:8])], block_every=2)
+        if prefetched:
+            loader = DataLoader(ArrayDataset(X, Y), batch_size=8, num_workers=2,
+                                thread_pool=False, pin_memory=True)
+            losses = [step.step(x, y) for x, y in
+                      loader.as_device_iterator(sharding=step.input_shardings(), depth=2)]
+        else:
+            losses = [step.step(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+                      for x, y in host]
+        step.drain()
+        return ([torch.stack(losses).cpu()] + [p.detach().cpu() for _, p in step._params]
+                + [s.cpu() for st in step._states for s in st])
+
+    fed, hand = run(True), run(False)
+    assert len(fed) == len(hand) and all(torch.equal(a, b) for a, b in zip(fed, hand))
+
+
+def test_prefetcher_stream_contract_under_slow_copies(cuda):
+    """With copies slow against the consumer, every batch the prefetcher
+    stages equals its source: a spin on the prefetcher's stream before
+    each copy (the consumer's wait on the copy's event) and a spin on the
+    consumer's stream before each read of a dropped batch (record_stream
+    keeps its block from a later batch). chip_smoke's phase 14 gate."""
+    import types
+
+    import chip_smoke as cs
+    report = cs.stream_hold(torch, types.SimpleNamespace(seed=0))
+    assert all(report["wait"]) and all(report["reuse"])
+    assert len(report["wait"]) == len(report["reuse"]) == cs.DT_HOLD_BATCHES

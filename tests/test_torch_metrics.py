@@ -30,7 +30,7 @@ def test_families_match_jax():
     """Every family of the port is the JAX family of the same name: type,
     help, label names and buckets, registered in the same order."""
     ours = _families(tm)
-    assert len(ours) == 83
+    assert len(ours) == 87
     jax_order = [f.name for f in jm.REGISTRY.families()]
     for f in ours:
         ref = jm.REGISTRY.get(f.name)
