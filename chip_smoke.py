@@ -345,6 +345,28 @@
    epoch's loss within 1e-5 of the CPU port's. The phase starts only
    with at most LT_HELD_GB still allocated.
 
+15. ``rnn_detect``: ``gluon.rnn`` and the detection ops. (a) An LSTM
+   language model at Zaremba et al.'s "medium" width (MXNet's
+   word-language-model example): ``Embedding(10000, 650)`` ->
+   ``rnn.LSTM(650, num_layers=2, dropout=0.5)`` (cuDNN's fused RNN a
+   layer, JAX's dropout masks between) -> ``Dense(10000)``, B 20, bptt
+   35, SGD through ``gluon.Trainer`` with ``clip_global_norm`` at 0.25 and
+   the hidden state detached between batches, on synthetic tokens from
+   ``--seed``: at dropout 0 the card's losses at steps 1-3 within 1e-4 of
+   the CPU port's; at 0.5 the dropout masks of one step bit for bit the
+   CPU's and the loss falling over 20 steps on a repeated batch; ms a
+   step, tokens/s, peak GB, the idle share and device ops of one profiled
+   step. A bidirectional GRU at the same width, card against CPU forward
+   and backward. (b) SSD-300 post-processing on the 8732 standard anchors,
+   B 32, 21 VOC classes, up to 8 boxes an image: ``multibox_target``,
+   ``multibox_detection`` (threshold 0.01, NMS 0.45, top 400) and
+   ``box_nms`` over one image's [8732, 6] rows, card against CPU (targets,
+   masks, kept rows and their order equal; floats within 1e-6); the NMS
+   sweep kernel (``csrc/nms_sweep.cu``) bit for bit its plain loop on
+   every image, timed beside it. (c) ``roi_align`` (128 RoIs an image on
+   [4, 256, 38, 38]) and ``deformable_convolution`` ([8, 256, 28, 28],
+   3x3, 256 filters) forward and backward, card against CPU, timed.
+
 Informational JSON lines come first; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without that line. It needs one CUDA card and refuses to
@@ -7264,6 +7286,424 @@ def data_train(torch, args):
     return counts
 
 
+# phase 15 (a): the LSTM language model (Zaremba et al. 2014 "medium", the
+# width of MXNet's word-language-model example)
+LM_VOCAB, LM_WIDTH, LM_LAYERS, LM_B, LM_T = 10000, 650, 2, 20, 35
+LM_STEPS = 20                     # the timed run on one repeated batch
+LM_LR, LM_CLIP = 1.0, 0.25
+LM_CPU_STEPS = 3
+LM_CPU_TOL = 1e-4                 # card losses against the CPU port's (relative)
+GRU_CPU_TOL = 1e-4                # bidirectional GRU outputs (max abs / max |out|)
+GRU_GRAD_TOL = 1e-3               # its gradients (relative L2)
+# phase 15 (b): SSD-300 post-processing
+SSD_B, SSD_CLASSES, SSD_MAX_GT = 32, 21, 8
+SSD_TOL = 1e-6
+# phase 15 (c): the detection ops with gradients
+ROI_B, ROI_C, ROI_HW, ROI_PER_IMAGE = 4, 256, 38, 128
+ROI_TOL = 1e-5
+DCN_SHAPE, DCN_FILTERS = (8, 256, 28, 28), 256
+DCN_TOL = 1e-4
+
+
+def lstm_lm(dropout, vocab=LM_VOCAB, width=LM_WIDTH, layers=LM_LAYERS):
+    """Embedding -> LSTM -> Dense, built from gluon.nn and gluon.rnn."""
+    from mxnet_tpu_torch.gluon import HybridBlock, nn, rnn
+
+    class LanguageModel(HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.embedding = nn.Embedding(vocab, width)
+            self.rnn = rnn.LSTM(width, num_layers=layers, dropout=dropout, input_size=width)
+            self.decoder = nn.Dense(vocab, flatten=False, in_units=width)
+
+        def forward(self, x, states):
+            out, states = self.rnn(self.embedding(x), states)
+            return self.decoder(out), states
+    return LanguageModel()
+
+
+def lm_model(torch, args, dropout, device, **kw):
+    """(net, trainer, loss) of the language model on ``device``, its
+    weights drawn on the host from ``--seed`` (the same on every device)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    mx.random.seed(args.seed)
+    net = lstm_lm(dropout, **{k: kw[k] for k in ("vocab", "width", "layers") if k in kw})
+    net.initialize(mx.init.Uniform(0.1), device=mx.Device(device))
+    trainer = gluon.Trainer(net.collect_params(), "sgd", {"learning_rate": LM_LR})
+    return net, trainer, gluon.loss.SoftmaxCrossEntropyLoss()
+
+
+def lm_batch(args, vocab=LM_VOCAB, B=LM_B, T=LM_T, salt=0):
+    import numpy as np
+    rng = np.random.RandomState(args.seed + 15 + salt)
+    tokens = rng.randint(0, vocab, (T + 1, B)).astype("int32")
+    return tokens[:-1], tokens[1:]
+
+
+def lm_step(torch, net, trainer, loss_fn, x, y, states):
+    """One bptt step: states detached, forward and loss recorded, the
+    gradients clipped to a global norm of LM_CLIP, an SGD step. Returns
+    (loss, states)."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import utils
+    states = [s.detach() for s in states]
+    with autograd.record():
+        out, states = net(x, states)
+        loss = loss_fn(out, y).mean()
+    loss.backward()
+    utils.clip_global_norm([p.grad() for p in net.collect_params().values()], LM_CLIP)
+    trainer.step(1)
+    return loss, states
+
+
+def lm_losses(torch, args, dropout, device, steps, **kw):
+    """Losses of ``steps`` steps over fresh batches on ``device``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import np as mnp
+    net, trainer, loss_fn = lm_model(torch, args, dropout, device, **kw)
+    dev = mx.Device(device)
+    B = kw.get("B", LM_B)
+    states = net.rnn.begin_state(B, device=torch.device(device))
+    losses = []
+    for k in range(steps):
+        x, y = lm_batch(args, kw.get("vocab", LM_VOCAB), B, kw.get("T", LM_T), salt=k)
+        loss, states = lm_step(torch, net, trainer, loss_fn, mnp.array(x, device=dev),
+                               mnp.array(y, device=dev), states)
+        losses.append(float(loss.item()))
+    return losses
+
+
+def lm_masks(torch, args, device, **kw):
+    """The inter-layer dropout masks of one training step at dropout 0.5,
+    recorded from ``gluon.rnn``'s draw."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import np as mnp
+    from mxnet_tpu_torch.gluon import rnn as rnn_mod
+    net, trainer, loss_fn = lm_model(torch, args, 0.5, device, **kw)
+    dev = mx.Device(device)
+    seen, draw = [], rnn_mod._keep_mask
+
+    def spy(*a, **k):
+        m = draw(*a, **k)
+        seen.append(m.detach().cpu())
+        return m
+    rnn_mod._keep_mask = spy
+    try:
+        B = kw.get("B", LM_B)
+        x, y = lm_batch(args, kw.get("vocab", LM_VOCAB), B, kw.get("T", LM_T))
+        mx.random.seed(args.seed + 1)
+        lm_step(torch, net, trainer, loss_fn, mnp.array(x, device=dev), mnp.array(y, device=dev),
+                net.rnn.begin_state(B, device=torch.device(device)))
+    finally:
+        rnn_mod._keep_mask = draw
+    return seen
+
+
+def lm_train(torch, args, card="cuda", steps=LM_STEPS, **kw):
+    """(a)'s headline: ``steps`` steps at dropout 0.5 on one repeated batch
+    on the card, then one profiled step."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import np as mnp
+    from torch.profiler import ProfilerActivity, profile
+    net, trainer, loss_fn = lm_model(torch, args, 0.5, card, **kw)
+    dev = mx.Device(card)
+    B, T = kw.get("B", LM_B), kw.get("T", LM_T)
+    x, y = lm_batch(args, kw.get("vocab", LM_VOCAB), B, T)
+    x, y = mnp.array(x, device=dev), mnp.array(y, device=dev)
+    states = net.rnn.begin_state(B, device=torch.device(card))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, states = lm_step(torch, net, trainer, loss_fn, x, y, states)
+        losses.append(float(loss.item()))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.synchronize()
+    activity = ProfilerActivity.CUDA if card == "cuda" else ProfilerActivity.CPU
+    with profile(activities=[activity]) as prof:
+        t0 = time.perf_counter()
+        loss, states = lm_step(torch, net, trainer, loss_fn, x, y, states)
+        loss.item()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = device_spans(prof)
+    busy = busy_us(spans) / 1e3
+    step_ms = statistics.median(ms[2:])
+    return {"losses": losses, "ms_step": step_ms, "tokens_per_s": B * T / step_ms * 1e3,
+            "peak_gb": peak, "profiled_wall_ms": wall, "profiled_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall if wall else None, "device_ops_step": len(spans)}
+
+
+def rel_err(got, want):
+    """max |got - want| / max |want|, in f64 on the host."""
+    g, w = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+
+
+def rel_l2(got, want):
+    g, w = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def gru_card_vs_cpu(torch, args, card="cuda", width=LM_WIDTH, B=LM_B, T=LM_T):
+    """A bidirectional GRU at the language model's width, card against
+    CPU: outputs, final states, and the gradients of the input and every
+    weight."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import rnn
+    g = torch.Generator().manual_seed(args.seed)
+    x = torch.randn(T, B, width, generator=g)
+    h0 = torch.randn(2, B, width, generator=g) * 0.5
+    wsum = torch.randn(T, B, 2 * width, generator=g)
+    res = {}
+    for dev in ("cpu", card):
+        mx.random.seed(args.seed)
+        net = rnn.GRU(width, bidirectional=True, input_size=width)
+        net.initialize(device=mx.Device(dev))
+        xd = x.detach().to(dev, copy=True).requires_grad_()
+        out, (hn,) = net(xd, [h0.to(dev)])
+        ((out * wsum.to(dev)).sum() + (hn * hn).sum()).backward()
+        res[dev] = [out, hn, xd.grad] + [t.grad for _, t in net.named_parameters()]
+    cpu, got = res["cpu"], res[card]
+    errs = {"out": rel_err(got[0], cpu[0]), "state": rel_err(got[1], cpu[1]),
+            "grads_rel_l2": max(rel_l2(a, b) for a, b in zip(got[2:], cpu[2:]))}
+    emit({"rnn_detect_gru_card_vs_cpu": errs})
+    check(errs["out"] <= GRU_CPU_TOL and errs["state"] <= GRU_CPU_TOL,
+          f"bidirectional GRU card outputs off the CPU port's: {errs}")
+    check(errs["grads_rel_l2"] <= GRU_GRAD_TOL,
+          f"bidirectional GRU card gradients off the CPU port's: {errs}")
+    return errs
+
+
+def ssd300_anchors(np):
+    """The 8732 standard SSD300 anchors, corners clipped to [0, 1]:
+    feature maps 38/19/10/5/3/1 at strides 8/16/32/64/100/300, sizes 30 to
+    315, aspect ratios {2} or {2, 3} (4 or 6 boxes a location)."""
+    fmaps, steps = (38, 19, 10, 5, 3, 1), (8, 16, 32, 64, 100, 300)
+    sizes = (30, 60, 111, 162, 213, 264, 315)
+    ratios = ((2,), (2, 3), (2, 3), (2, 3), (2,), (2,))
+    out = []
+    for k, f in enumerate(fmaps):
+        c = (np.arange(f) + 0.5) * steps[k] / 300.0
+        cy, cx = np.meshgrid(c, c, indexing="ij")
+        s, s2 = sizes[k] / 300.0, np.sqrt(sizes[k] * sizes[k + 1]) / 300.0
+        wh = [(s, s), (s2, s2)]
+        for r in ratios[k]:
+            wh += [(s * np.sqrt(r), s / np.sqrt(r)), (s / np.sqrt(r), s * np.sqrt(r))]
+        per = [np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1) for w, h in wh]
+        out.append(np.stack(per, 2).reshape(-1, 4))
+    return np.clip(np.concatenate(out), 0.0, 1.0).astype("float32")[None]
+
+
+def ssd_inputs(args, A, B=SSD_B, classes=SSD_CLASSES, max_gt=SSD_MAX_GT):
+    """Labels [B, max_gt, 5] (class, corners; padded with -1), class
+    logits [B, classes, A] and box offsets [B, A * 4] from ``--seed``."""
+    import numpy as np
+    rng = np.random.RandomState(args.seed + 300)
+    labels = -np.ones((B, max_gt, 5), "float32")
+    for b in range(B):
+        m = rng.randint(1, max_gt + 1)
+        lo = rng.uniform(0.0, 0.7, (m, 2))
+        labels[b, :m, 0] = rng.randint(0, classes - 1, m)
+        labels[b, :m, 1:3] = lo
+        labels[b, :m, 3:5] = lo + rng.uniform(0.08, 0.3, (m, 2))
+    logits = rng.randn(B, classes, A).astype("float32") * 2.0
+    probs = np.exp(logits - logits.max(1, keepdims=True))
+    probs = (probs / probs.sum(1, keepdims=True)).astype("float32")
+    loc = (rng.randn(B, A * 4) * 0.5).astype("float32")
+    return labels, probs, loc
+
+
+def ssd_post(torch, npx, anchors, labels, probs, loc, rows, device):
+    """(b)'s main path on ``device`` (tensors in, tensors out)."""
+    def on(a):
+        return torch.from_numpy(a).to(device)
+    loc_t, loc_m, cls_t = npx.multibox_target(on(anchors), on(labels),
+                                              torch.zeros(labels.shape[0], SSD_CLASSES,
+                                                          anchors.shape[1], device=device))
+    det = npx.multibox_detection(on(probs), on(loc), on(anchors), threshold=0.01,
+                                 nms_threshold=0.45, nms_topk=400)
+    kept = npx.box_nms(on(rows), overlap_thresh=0.45, valid_thresh=0.01, id_index=0)
+    return {"loc_target": loc_t, "loc_mask": loc_m, "cls_target": cls_t, "detection": det,
+            "box_nms": kept}
+
+
+SSD_ANCHORS = 8732
+
+
+def ssd_detect(torch, args, timer, card="cuda"):
+    """(b): SSD-300 post-processing card against CPU; the NMS sweep kernel
+    bit for bit its plain loop on every image, and timed beside it."""
+    import numpy as np
+    from mxnet_tpu_torch import numpy_extension as npx
+    from mxnet_tpu_torch.ops import contrib, int8_gemv
+    anchors = ssd300_anchors(np)
+    A = anchors.shape[1]
+    check(A == SSD_ANCHORS, f"SSD300 has {SSD_ANCHORS} anchors, made {A}")
+    labels, probs, loc = ssd_inputs(args, A)
+    # one image's decoded rows (class, score, corners) for box_nms
+    rng = np.random.RandomState(args.seed + 301)
+    rows = np.concatenate([probs[0, 1:].argmax(0)[:, None].astype("float32"),
+                           probs[0, 1:].max(0)[:, None],
+                           np.clip(anchors[0] + rng.randn(A, 4).astype("float32") * 0.01,
+                                   0, 1)], 1)
+    seen, sweep = [], contrib.nms_sweep
+
+    def spy(dec, valid):
+        keep = sweep(dec, valid)
+        seen.append((dec, valid, keep))
+        return keep
+    contrib.nms_sweep = spy
+    try:
+        t0 = time.perf_counter()
+        cpu = ssd_post(torch, npx, anchors, labels, probs, loc, rows, "cpu")
+        cpu_s = time.perf_counter() - t0
+        seen.clear()
+        torch.cuda.synchronize()
+        int8_gemv.reset_launches()
+        t0 = time.perf_counter()
+        got = ssd_post(torch, npx, anchors, labels, probs, loc, rows, card)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = int8_gemv.launches().get("nms_sweep", 0)
+    finally:
+        contrib.nms_sweep = sweep
+    for k in ("cls_target", "loc_mask"):
+        check(torch.equal(got[k].cpu(), cpu[k]), f"SSD {k} differs between card and CPU")
+    for k in ("detection", "box_nms"):
+        check(torch.equal(got[k][..., 0].cpu() == -1, cpu[k][..., 0] == -1)
+              and torch.equal(got[k][..., :2].cpu(), cpu[k][..., :2]),
+              f"SSD {k}: kept rows or their order differ between card and CPU")
+    float_err = {k: float((got[k].cpu() - cpu[k]).abs().max()) for k in
+                 ("loc_target", "detection", "box_nms")}
+    check(max(float_err.values()) <= SSD_TOL, f"SSD floats card against CPU: {float_err}")
+    check(len(seen) == 2 and launches == (2 if card == "cuda" else 0),
+          f"the NMS sweep kernel launched {launches} times on the SSD path (want 2)")
+    # the kernel against its plain loop on every image of both calls
+    mism, kept = 0, 0
+    for dec, valid, keep in seen:
+        plain = contrib.nms_sweep_plain(dec, valid)
+        mism += int((plain != keep).sum())
+        kept += int(keep.sum())
+    check(mism == 0, f"the NMS sweep kernel differs from its plain loop in {mism} rows")
+    rep = {}
+    for name, (dec, valid, keep) in zip(("detection", "box_nms"), seen):
+        B, m, n = dec.shape
+        # bytes the sweep needs: each kept row's decisions after it, valid, keep
+        idx = torch.arange(n, device=keep.device)
+        done = keep[:, :m] & valid[:, :m]
+        nbytes = float(((n - 1 - idx[:m]) * done).sum()) + 2 * B * n
+        ms = timer(lambda: contrib.nms_sweep(dec, valid))
+        plain_ms = Timer(torch, iters=3, warmup=1)(lambda: contrib.nms_sweep_plain(dec, valid))
+        b_ms, b_by = bound(nbytes, 0)
+        rep[name] = {"B": B, "rows": m, "n": n, "kept": int(keep.sum()), "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+    out = {"cpu_s": cpu_s, "card_s": card_s, "float_err": float_err, "launches": launches,
+           "kept_rows": kept, "sweeps": rep}
+    emit({"rnn_detect_ssd": out})
+    return out
+
+
+def detection_grads(torch, args, timer, card="cuda"):
+    """(c): roi_align and deformable_convolution forward and backward,
+    card against CPU, and timed on the card."""
+    from mxnet_tpu_torch import numpy_extension as npx
+    g = torch.Generator().manual_seed(args.seed + 400)
+    feat = torch.randn(ROI_B, ROI_C, ROI_HW, ROI_HW, generator=g)
+    n = ROI_B * ROI_PER_IMAGE
+    img = ROI_HW * 8
+    xy = torch.rand(n, 2, generator=g) * img * 0.8
+    wh = 16 + torch.rand(n, 2, generator=g) * 112
+    rois = torch.cat([torch.arange(ROI_B).repeat_interleave(ROI_PER_IMAGE)[:, None].float(),
+                      xy, xy + wh], 1)
+    x = torch.randn(*DCN_SHAPE, generator=g)
+    off = torch.randn(DCN_SHAPE[0], 18, DCN_SHAPE[2], DCN_SHAPE[3], generator=g) * 0.5
+    w = torch.randn(DCN_FILTERS, DCN_SHAPE[1], 3, 3, generator=g) * 0.02
+
+    def roi(dev, xs):
+        return npx.roi_align(xs, rois.to(dev), (7, 7), spatial_scale=1 / 8, sample_ratio=2)
+
+    def dcn(dev, xs, os_, ws):
+        return npx.deformable_convolution(xs, os_, ws, kernel=(3, 3), pad=(1, 1),
+                                          num_filter=DCN_FILTERS, no_bias=True)
+
+    res = {}
+    for dev in ("cpu", card):
+        fd = feat.detach().to(dev, copy=True).requires_grad_()
+        out = roi(dev, fd)
+        (out * out).sum().backward()
+        xd, od, wd = (t.detach().to(dev, copy=True).requires_grad_() for t in (x, off, w))
+        y = dcn(dev, xd, od, wd)
+        (y * y).sum().backward()
+        res[dev] = {"roi": (out, fd.grad), "dcn": (y, xd.grad, od.grad, wd.grad)}
+    errs = {"roi_align": [rel_err(a, b) for a, b in zip(res[card]["roi"], res["cpu"]["roi"])],
+            "deformable_convolution": [rel_err(a, b) for a, b in
+                                       zip(res[card]["dcn"], res["cpu"]["dcn"])]}
+    fc = feat.detach().to(card, copy=True).requires_grad_()
+    xc, oc, wc = (t.detach().to(card, copy=True).requires_grad_() for t in (x, off, w))
+    ms = {"roi_align_fwd": event_ms(torch, lambda: roi(card, fc.detach())),
+          "roi_align_fwd_bwd": event_ms(torch, lambda: roi(card, fc).sum().backward()),
+          "deformable_fwd": event_ms(torch, lambda: dcn(card, xc.detach(), oc.detach(),
+                                                        wc.detach())),
+          "deformable_fwd_bwd": event_ms(torch, lambda: dcn(card, xc, oc, wc).sum()
+                                         .backward())}
+    out = {"max_rel_err": errs, "ms": ms, "rois": n}
+    emit({"rnn_detect_ops": out})
+    check(max(errs["roi_align"]) <= ROI_TOL, f"roi_align card against CPU: {errs}")
+    check(max(errs["deformable_convolution"]) <= DCN_TOL,
+          f"deformable_convolution card against CPU: {errs}")
+    return out
+
+
+def rnn_detect(torch, args, timer, card="cuda", lm_kw=None, gru_kw=None):
+    """Phase 15: (a) the LSTM language model and a bidirectional GRU, (b)
+    SSD-300 post-processing through the NMS sweep kernel, (c) roi_align and
+    deformable convolution with gradients. Returns (b)'s sweep row.
+    ``card``, ``lm_kw`` and ``gru_kw`` cut it down for a CPU rehearsal."""
+    lm_kw, gru_kw = lm_kw or {}, gru_kw or {}
+    t_phase = time.perf_counter()
+    parts = {}
+    t0 = time.perf_counter()
+    cpu = lm_losses(torch, args, 0.0, "cpu", LM_CPU_STEPS, **lm_kw)
+    got = lm_losses(torch, args, 0.0, card, LM_CPU_STEPS, **lm_kw)
+    lm_err = max(abs(a - b) / abs(b) for a, b in zip(got, cpu))
+    masks_cpu, masks_card = lm_masks(torch, args, "cpu", **lm_kw), \
+        lm_masks(torch, args, card, **lm_kw)
+    check(len(masks_card) == LM_LAYERS - 1 == len(masks_cpu)
+          and all(torch.equal(a, b) for a, b in zip(masks_card, masks_cpu)),
+          "the LSTM's dropout masks differ between card and CPU")
+    lm = lm_train(torch, args, card, **lm_kw)
+    emit({"rnn_detect_lm": dict(lm, card_vs_cpu_losses=[got, cpu], card_vs_cpu_rel=lm_err,
+                                mask_keep_share=float(masks_card[0].float().mean()))})
+    check(lm_err <= LM_CPU_TOL, f"LSTM LM card losses {got} off the CPU port's {cpu}")
+    check(all(math.isfinite(v) for v in lm["losses"]) and lm["losses"][-1] < lm["losses"][0],
+          f"the LSTM LM's loss did not fall on a repeated batch: {lm['losses']}")
+    gru = gru_card_vs_cpu(torch, args, card, **gru_kw)
+    parts["lstm_gru"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ssd = ssd_detect(torch, args, timer, card)
+    parts["ssd"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ops = detection_grads(torch, args, timer, card)
+    parts["detection_ops"] = time.perf_counter() - t0
+    emit({"rnn_detect_s": time.perf_counter() - t_phase, "parts_s": parts,
+          "lm": {k: lm[k] for k in ("ms_step", "tokens_per_s", "peak_gb", "idle_share",
+                                    "device_ops_step")}, "gru": gru,
+          "ssd_ms": {k: v["ms"] for k, v in ssd["sweeps"].items()}, "ops_ms": ops["ms"]})
+    sw = ssd["sweeps"]["detection"]
+    return {"name": "nms_sweep", "route": "cuda", "source": "mxnet_tpu_torch/csrc/nms_sweep.cu",
+            "replaces": "mxnet_tpu/ops/contrib.py:386 (lax.fori_loop; no TPU kernel)",
+            "launches": ssd["launches"], "max_abs_err": 0.0, "ms": sw["ms"],
+            "plain_ms": sw["plain_ms"], "bound_ms": sw["bound_ms"], "bound_by": sw["bound_by"],
+            "library_ms": None, "box_nms": ssd["sweeps"]["box_nms"],
+            "path": "rnn_detect (b): multibox_detection B 32 and box_nms"}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7360,6 +7800,8 @@ def main(argv=None):
     nlp_rows = nlp_train(torch, args, timer, gen)
     torch.cuda.empty_cache()
     data_counts = data_train(torch, args)
+    torch.cuda.empty_cache()
+    nms_row = rnn_detect(torch, args, timer)
 
     def routes(*phases):
         return {r: sum(c["routes"][r] for c in phases) for r in ("warp", "mma")}
@@ -7576,6 +8018,9 @@ def main(argv=None):
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      **r, "path": "nlp_train (b)"})
         check(r["launches"] > 0, f"{name} never launched on the BERT pretraining path")
+    # a kernel the port adds (no TPU kernel): phase 15's greedy NMS sweep
+    rows.append(nms_row)
+    check(nms_row["launches"] > 0, "nms_sweep never launched on the SSD path")
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -38,6 +38,7 @@ SOURCES = {
     "lm_head_sample": "lm_head_sample.cu",
     "flash_attention_fwd": "flash_attention_fwd.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
+    "nms_sweep": "nms_sweep.cu",
 }
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -143,6 +144,9 @@ def _declare(name: str, lib: ctypes.CDLL):
     elif name == "flash_attention_bwd":
         lib.mx_flash_bwd.argtypes = [p] * 11 + [i] * 6 + [f, i, p]
         lib.mx_flash_bwd.restype = i
+    elif name == "nms_sweep":
+        lib.mx_nms_sweep.argtypes = [p] * 3 + [i] * 4 + [p]
+        lib.mx_nms_sweep.restype = i
 
 
 def library(name: str) -> ctypes.CDLL:

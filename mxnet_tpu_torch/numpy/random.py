@@ -21,7 +21,7 @@ import torch
 from .. import _prng
 from .._random import next_key, seed  # noqa: F401 (seed re-exported)
 from ..base import MXNetError
-from ..ndarray import NDArray, _cast, apply_multi, to_torch_dtype
+from ..ndarray import NDArray, _cast, apply_multi, asarray, to_torch_dtype  # noqa: F401
 
 __all__ = [
     "seed", "uniform", "normal", "randn", "rand", "randint", "choice", "shuffle",
@@ -86,7 +86,10 @@ def normal(loc=0.0, scale=1.0, size=None, dtype=None, device=None, ctx=None):
         z = _prng.host_normal(next_key(), shape, dt)
         return _param(loc, scale, z, dt, lambda v, m, s: m + s * v)
     z = _prng.host_normal(next_key(), shape, dt)
-    return _out((dt.type(loc) + dt.type(scale) * z).astype(dt), device, ctx)
+    # XLA fuses loc + scale * z into one multiply-add: one rounding (the
+    # f32 product is exact in f64)
+    return _out((onp.float64(dt.type(loc)) + onp.float64(dt.type(scale))
+                 * z.astype(onp.float64)).astype(dt), device, ctx)
 
 
 def standard_normal(size=None, dtype=None):

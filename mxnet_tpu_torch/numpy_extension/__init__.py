@@ -11,21 +11,26 @@ tensor body, at the cost of one type check. Each is written with the same
 op sequence as the JAX function so that the plain path stays close to it.
 Convolution and pooling are the library's (``F.conv*``, cuDNN on the card:
 the JAX package's are XLA's, not Pallas kernels); the fused conv + BN
-composites are ``ops/fused_conv.py``. The contrib detection ops and
-``control_flow`` wait for a later slice (ROADMAP Queue 1).
+composites are ``ops/fused_conv.py``. ``foreach``, ``while_loop`` and
+``cond`` are eager loops (``control_flow``); the contrib detection ops are
+``ops/contrib.py``, whose greedy NMS sweep is a hand-written CUDA kernel
+on the card; ``rnn`` is a facade over ``gluon.rnn``.
 """
 from __future__ import annotations
 
 import math
 import os
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple  # noqa: F401 (Tuple: the JAX namespace's)
 
+import numpy as onp
 import torch
 
-from . import _random, _tape
-from ._prng import M32
-from .base import MXNetError
-from .ndarray import NDArray, _cast, apply, apply_multi, asarray, waitall  # noqa: F401
+from .. import _random, _tape
+from .._prng import M32
+from .._random import next_key  # noqa: F401 (the JAX namespace's)
+from ..base import MXNetError
+from ..ndarray import (NDArray, _cast, _inexact, apply, apply_multi, asarray,  # noqa: F401
+                       waitall)
 
 __all__ = [
     "set_np", "reset_np", "is_np_array", "is_np_shape", "use_np", "relu", "leaky_relu",
@@ -37,7 +42,13 @@ __all__ = [
     "reshape_like", "sequence_mask", "slice_axis", "clip_global_norm", "batch_dot",
     "smooth_l1", "index_update", "index_add", "gather_nd", "scatter_nd",
     "softmax_cross_entropy", "broadcast_like", "seed", "save", "load", "waitall",
+    "gamma", "gammaln", "digamma", "multibox_prior", "gamma_sampling_stub",
+    "foreach", "while_loop", "cond", "bernoulli", "uniform_n", "normal_n", "savez", "rnn",
+    "roi_align", "roi_pooling", "box_iou", "box_nms", "bipartite_matching",
+    "multibox_target", "multibox_detection", "deformable_convolution",
 ]
+
+from .control_flow import cond, foreach, while_loop  # noqa: E402
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 _np_flags = {"array": True, "shape": True}
@@ -315,6 +326,17 @@ def erf(data):
 
 def erfinv(data):
     return apply(torch.erfinv, data)
+
+
+def _special(fn):
+    return lambda data: apply(lambda t: fn(_cast(t, _inexact(t.dtype))), data)
+
+
+gammaln = _special(torch.lgamma)
+digamma = _special(torch.digamma)
+# exp(gammaln(x)), as the JAX package writes it: |Gamma(x)| at negative x
+gamma = _special(lambda t: torch.exp(torch.lgamma(t)))
+gammaln.__name__, digamma.__name__, gamma.__name__ = "gammaln", "digamma", "gamma"
 
 
 _SELU_SCALE = 1.0507009873554804934193349852946
@@ -684,7 +706,7 @@ def fused_conv_bn_relu(x, weight, gamma, beta, running_mean, running_var, bias=N
     new_running_mean, new_running_var)`` like :func:`batch_norm`. A conv
     bias feeding the BN cancels out of the output: it only shifts the
     reported batch mean, and its gradient is exactly zero."""
-    from .ops.fused_conv import conv2d_bn_infer, conv2d_bn_relu_train
+    from ..ops.fused_conv import conv2d_bn_infer, conv2d_bn_relu_train
     if training is None:
         training = _tape.is_training()
     training = training and not use_global_stats
@@ -712,7 +734,7 @@ def fused_resnet_block(x, conv_params, bn_params, kind: str = "bottleneck", stri
     ``conv_params`` is a list of (weight, bias or None), ``bn_params`` of
     (gamma, beta, running_mean, running_var), the downsample pair last when
     present. Returns ``(z, [(new_rm, new_rv), ...])``."""
-    from .ops.fused_conv import basic_v1_train, bottleneck_v1_train
+    from ..ops.fused_conv import basic_v1_train, bottleneck_v1_train
     n = len(conv_params)
     has_bias = [b is not None for _, b in conv_params]
     arrays = [x]
@@ -798,7 +820,7 @@ def embedding(data, weight, input_dim=None, output_dim=None, dtype=None,
 
 
 def one_hot(indices, depth: int, on_value=1.0, off_value=0.0, dtype=None):
-    from .ndarray import to_torch_dtype
+    from ..ndarray import to_torch_dtype
     dt = to_torch_dtype(dtype) or torch.float32
 
     def fn(i):
@@ -819,7 +841,7 @@ def topk(data, axis: int = -1, k: int = 1, ret_typ: str = "indices", is_ascend: 
          dtype=None):
     """The k largest (smallest with ``is_ascend``) along ``axis``, ties to
     the lower index; indices as float32 unless ``dtype``."""
-    from .ndarray import to_torch_dtype
+    from ..ndarray import to_torch_dtype
     idt = to_torch_dtype(dtype) or torch.float32
 
     def fn(x):
@@ -946,10 +968,97 @@ def seed(seed_state, device="all"):
 
 
 def save(file, arrays):
-    from . import save as _save
+    from .. import save as _save
     _save(file, arrays)
 
 
 def load(file):
-    from . import load as _load
+    from .. import load as _load
     return _load(file)
+
+
+def multibox_prior(*args, **kwargs):
+    raise MXNetError("multibox_prior: not implemented (the JAX package raises too)")
+
+
+def gamma_sampling_stub(*a, **k):
+    raise MXNetError("use mx.np.random.gamma")
+
+
+def bernoulli(prob=None, logit=None, size=None, dtype=None, device=None, ctx=None):
+    from ..numpy import random as _rnd
+    return _rnd.bernoulli(prob=prob, logit=logit, size=size, dtype=dtype)
+
+
+def _param_shape(a, b):
+    shp = [tuple(getattr(x, "shape", onp.shape(x))) for x in (a, b)]
+    return tuple(onp.broadcast_shapes(*shp))
+
+
+def uniform_n(low=0.0, high=1.0, batch_shape=None, dtype=None, device=None):
+    """A draw of shape ``batch_shape + broadcast(param shapes)``."""
+    from ..numpy import random as _rnd
+    size = tuple(batch_shape or ()) + _param_shape(low, high)
+    return _rnd.uniform(low, high, size=size or None, dtype=dtype)
+
+
+def normal_n(loc=0.0, scale=1.0, batch_shape=None, dtype=None, device=None):
+    from ..numpy import random as _rnd
+    size = tuple(batch_shape or ()) + _param_shape(loc, scale)
+    return _rnd.normal(loc, scale, size=size or None, dtype=dtype)
+
+
+def savez(file, *args, **kwargs):
+    from ..numpy import savez as _savez
+    _savez(file, *args, **kwargs)
+
+
+def rnn(data=None, parameters=None, state=None, state_cell=None, sequence_length=None,
+        mode="lstm", state_size=None, num_layers=1, bidirectional=False,
+        state_outputs=True, p=0.0, use_sequence_length=False, projection_size=None,
+        **kwargs):
+    """The fused RNN op's facade over ``gluon.rnn``: ``parameters`` is the
+    reference's flat vector, every weight first and then every bias."""
+    from ..gluon import rnn as rnn_mod
+    if projection_size is not None:
+        raise MXNetError("npx.rnn: projection_size not supported")
+    if use_sequence_length or sequence_length is not None:
+        raise MXNetError("npx.rnn: use_sequence_length not supported; "
+                         "mask with npx.sequence_mask instead")
+    if p:
+        raise MXNetError("npx.rnn: inter-layer dropout p>0 not supported "
+                         "through this facade; use gluon.rnn layers")
+    cls = {"rnn_tanh": rnn_mod.RNN, "rnn_relu": rnn_mod.RNN,
+           "lstm": rnn_mod.LSTM, "gru": rnn_mod.GRU}.get(mode)
+    if cls is None:
+        raise MXNetError(f"npx.rnn: unknown mode {mode!r}")
+    kw = dict(hidden_size=int(state_size), num_layers=int(num_layers),
+              bidirectional=bool(bidirectional), layout="TNC")
+    if mode.startswith("rnn_"):
+        kw["activation"] = mode.split("_")[1]
+    d0 = asarray(data)
+    layer = cls(input_size=d0.shape[-1], **kw)
+    layer.initialize(device=d0.device)
+    items = list(layer.collect_params().items())
+    ordered = ([q for n, q in items if "weight" in n] + [q for n, q in items if "bias" in n])
+    flat = asarray(parameters)._data.reshape(-1)
+    need = sum(int(onp.prod(q.shape)) for q in ordered)
+    if need != flat.numel():
+        raise MXNetError(f"npx.rnn: parameter vector has {flat.numel()} values, layer "
+                         f"needs {need}")
+    offset = 0
+    for q in ordered:
+        n = int(onp.prod(q.shape))
+        q.set_data(NDArray._new(flat[offset:offset + n].reshape(q.shape).detach().clone()))
+        offset += n
+    states = [state] if state_cell is None else [state, state_cell]
+    out, out_states = layer(d0, states)
+    if not state_outputs:
+        return out
+    return (out, *out_states)
+
+
+# the contrib detection ops (the JAX namespace re-exports them)
+from ..ops.contrib import (  # noqa: E402,F401
+    bipartite_matching, box_iou, box_nms, deformable_convolution, multibox_detection,
+    multibox_target, roi_align, roi_pooling)

@@ -7,20 +7,18 @@ names.
 
 Each optimizer defines a pure ``update_step(w, g, state, lr, wd, t)`` over
 tensors that returns ``(new_w, new_state)`` and changes nothing it is
-given. ``TrainStep``, ``gluon.Trainer`` and :meth:`Optimizer.update` feed
-it f32 views (a bf16 weight, its gradient and its floating state are
-upcast, as the JAX package's f32 scalar hyperparameters promote them) and
-write the results back in place under ``torch.no_grad()``, in the
-parameter's and the state's own dtypes. State is kept in the weight's
-dtype, as in the JAX package. The optimizers that round to the weight's
-dtype inside the step (``bf16_step_converted``: LAMB and LARS, whose
-trust ratio is cast to it, and SGLD, whose noise is drawn in it) take a
-bf16 or f16 weight and its state as they are, an f32 gradient and
-Python-float rates, and follow the JAX step as XLA compiles it: a weak
-Python scalar meeting the low-precision weight or state is rounded to
-their dtype (bf16(0.9) = 0.8984375) and the product is kept in f32 (XLA's
-excess precision inside a fused step), an explicit cast rounds, and an op
-with the f32 gradient or a rate (an f32 array in the JAX step) is f32.
+given. ``TrainStep``, ``gluon.Trainer`` and :meth:`Optimizer.update` call
+it through ``parallel.train.apply_updates`` with an f32 gradient,
+Python-float rates, and the weight and its state as they are when they
+are bf16 or f16 (in f32 otherwise), and write the results back in place
+under ``torch.no_grad()``, in the parameter's and the state's own dtypes.
+State is kept in the weight's dtype, as in the JAX package. Every step
+follows the JAX step as XLA compiles it: a weak Python scalar meeting the
+low-precision weight or state is rounded to their dtype (bf16(0.9) =
+0.8984375: ``_weak``) and the product is kept in f32 (XLA's excess
+precision inside a fused step: ``_up``), an explicit cast rounds (LAMB's
+and LARS's trust ratio, SGLD's bf16 noise), and an op with the f32
+gradient or a rate (an f32 array in the JAX step) is f32.
 
 SGLD's state is one uint32 seed, ``jax.random.bits(next_key(), ())``, and
 its noise ``jax.random.normal(fold_in(key(seed), t), w.shape, w.dtype) *
@@ -198,12 +196,6 @@ class Optimizer:
     # lazy row-wise updates are exact for elementwise rules only; a trust
     # ratio over the whole weight (LARS, LAMB) needs the dense tensor
     lazy_rowwise = True
-    # Temporary, until ROADMAP Queue 3 item 1 converts the other
-    # update_steps and every bf16/f16 weight takes one path: True on the
-    # update_steps converted so far to round where the JAX step rounds
-    # (LAMB, LARS, SGLD); apply_updates hands them the weight and state
-    # unconverted
-    bf16_step_converted = False
 
     def update(self, index, weight, grad, state):
         """Eager single-parameter update (the reference ``Optimizer.update``):
@@ -241,12 +233,12 @@ class SGD(Optimizer):
         return (_zeros(weight),)
 
     def update_step(self, w, g, state, lr, wd, t):
-        g = self._preprocess_grad(g) + wd * w
+        g = self._preprocess_grad(g) + wd * _up(w)
         if self.momentum == 0.0:
-            return w - lr * g, state
+            return _up(w) - lr * g, state
         (mom,) = state
-        mom = self.momentum * mom - lr * g
-        return w + mom, (mom,)
+        mom = _weak(self.momentum, mom) * _up(mom) - lr * g
+        return _up(w) + mom, (mom,)
 
 @register
 class NAG(SGD):
@@ -259,10 +251,10 @@ class NAG(SGD):
         return (_zeros(weight),)
 
     def update_step(self, w, g, state, lr, wd, t):
-        g = self._preprocess_grad(g) + wd * w
+        g = self._preprocess_grad(g) + wd * _up(w)
         (mom,) = state
-        mom = self.momentum * mom - lr * g
-        return w + self.momentum * mom - lr * g, (mom,)
+        mom = _weak(self.momentum, mom) * _up(mom) - lr * g
+        return _up(w) + self.momentum * mom - lr * g, (mom,)
 
 
 @register
@@ -279,16 +271,16 @@ class Adam(Optimizer):
 
     def _moments(self, g, state, t):
         m, v = state
-        m = self.beta1 * m + (1 - self.beta1) * g
-        v = self.beta2 * v + (1 - self.beta2) * torch.square(g)
+        m = _weak(self.beta1, m) * _up(m) + (1 - self.beta1) * g
+        v = _weak(self.beta2, v) * _up(v) + (1 - self.beta2) * torch.square(g)
         mhat = m / (1 - _f32_power(self.beta1, t))
         vhat = v / (1 - _f32_power(self.beta2, t))
         return m, v, mhat, vhat
 
     def update_step(self, w, g, state, lr, wd, t):
-        g = self._preprocess_grad(g) + wd * w
+        g = self._preprocess_grad(g) + wd * _up(w)
         m, v, mhat, vhat = self._moments(g, state, t)
-        return w - lr * mhat / (torch.sqrt(vhat) + self.epsilon), (m, v)
+        return _up(w) - lr * mhat / (torch.sqrt(vhat) + self.epsilon), (m, v)
 
 
 @register
@@ -298,7 +290,7 @@ class AdamW(Adam):
     def update_step(self, w, g, state, lr, wd, t):
         g = self._preprocess_grad(g)
         m, v, mhat, vhat = self._moments(g, state, t)
-        return w - lr * (mhat / (torch.sqrt(vhat) + self.epsilon) + wd * w), (m, v)
+        return _up(w) - lr * (mhat / (torch.sqrt(vhat) + self.epsilon) + wd * _up(w)), (m, v)
 
 
 @register
@@ -317,16 +309,16 @@ class Nadam(Adam):
         return _f32(self.beta1) * (_f32(1) - _f32(0.5) * p)
 
     def update_step(self, w, g, state, lr, wd, t):
-        g = self._preprocess_grad(g) + wd * w
+        g = self._preprocess_grad(g) + wd * _up(w)
         m, v = state
         mu_t, mu_t1 = self._mu(t), self._mu(t + 1)
-        m = self.beta1 * m + (1 - self.beta1) * g
-        v = self.beta2 * v + (1 - self.beta2) * torch.square(g)
+        m = _weak(self.beta1, m) * _up(m) + (1 - self.beta1) * g
+        v = _weak(self.beta2, v) * _up(v) + (1 - self.beta2) * torch.square(g)
         ghat = g / float(_f32(1) - mu_t)
         mhat = m / float(_f32(1) - mu_t1 * _f32(_f32_power(self.beta1, t)))
         vhat = v / float(_f32(1) - _f32(_f32_power(self.beta2, t)))
         mbar = float(_f32(1) - mu_t) * ghat + float(mu_t1) * mhat
-        return w - lr * mbar / (torch.sqrt(vhat) + self.epsilon), (m, v)
+        return _up(w) - lr * mbar / (torch.sqrt(vhat) + self.epsilon), (m, v)
 
 
 @register
@@ -343,18 +335,18 @@ class RMSProp(Optimizer):
         return tuple(_zeros(weight) for _ in range(3 if self.centered else 2))
 
     def update_step(self, w, g, state, lr, wd, t):
-        g = self._preprocess_grad(g) + wd * w
+        g = self._preprocess_grad(g) + wd * _up(w)
         if self.centered:
             n, gbar, mom = state
-            n = self.rho * n + (1 - self.rho) * torch.square(g)
-            gbar = self.rho * gbar + (1 - self.rho) * g
-            mom = self.momentum * mom - lr * g / torch.sqrt(
+            n = _weak(self.rho, n) * _up(n) + (1 - self.rho) * torch.square(g)
+            gbar = _weak(self.rho, gbar) * _up(gbar) + (1 - self.rho) * g
+            mom = _weak(self.momentum, mom) * _up(mom) - lr * g / torch.sqrt(
                 n - torch.square(gbar) + self.epsilon)
-            return w + mom, (n, gbar, mom)
+            return _up(w) + mom, (n, gbar, mom)
         n, mom = state
-        n = self.rho * n + (1 - self.rho) * torch.square(g)
-        mom = self.momentum * mom - lr * g / (torch.sqrt(n) + self.epsilon)
-        return w + mom, (n, mom)
+        n = _weak(self.rho, n) * _up(n) + (1 - self.rho) * torch.square(g)
+        mom = _weak(self.momentum, mom) * _up(mom) - lr * g / (torch.sqrt(n) + self.epsilon)
+        return _up(w) + mom, (n, mom)
 
 
 @register
@@ -367,10 +359,10 @@ class AdaGrad(Optimizer):
         return (_zeros(weight),)
 
     def update_step(self, w, g, state, lr, wd, t):
-        g = self._preprocess_grad(g) + wd * w
+        g = self._preprocess_grad(g) + wd * _up(w)
         (hist,) = state
-        hist = hist + torch.square(g)
-        return w - lr * g / (torch.sqrt(hist) + self.epsilon), (hist,)
+        hist = _up(hist) + torch.square(g)
+        return _up(w) - lr * g / (torch.sqrt(hist) + self.epsilon), (hist,)
 
 
 @register
@@ -383,12 +375,14 @@ class AdaDelta(Optimizer):
         return (_zeros(weight), _zeros(weight))
 
     def update_step(self, w, g, state, lr, wd, t):
-        g = self._preprocess_grad(g) + wd * w
+        g = self._preprocess_grad(g) + wd * _up(w)
         acc_g, acc_d = state
-        acc_g = self.rho * acc_g + (1 - self.rho) * torch.square(g)
-        delta = torch.sqrt(acc_d + self.epsilon) / torch.sqrt(acc_g + self.epsilon) * g
-        acc_d = self.rho * acc_d + (1 - self.rho) * torch.square(delta)
-        return w - lr * delta, (acc_g, acc_d)
+        acc_g = _weak(self.rho, acc_g) * _up(acc_g) + (1 - self.rho) * torch.square(g)
+        # XLA rounds the low-precision sum before its square root
+        num = _up((_up(acc_d) + _weak(self.epsilon, acc_d)).to(acc_d.dtype))
+        delta = torch.sqrt(num) / torch.sqrt(acc_g + self.epsilon) * g
+        acc_d = _weak(self.rho, acc_d) * _up(acc_d) + (1 - self.rho) * torch.square(delta)
+        return _up(w) - lr * delta, (acc_g, acc_d)
 
 
 @register
@@ -405,10 +399,10 @@ class Ftrl(Optimizer):
     def update_step(self, w, g, state, lr, wd, t):
         g = self._preprocess_grad(g)
         zs, ns = state
-        sigma = (torch.sqrt(ns + torch.square(g)) - torch.sqrt(ns)) / lr
-        zs = zs + g - sigma * w
-        ns = ns + torch.square(g)
-        new_w = torch.where(zs.abs() <= self.lamda1, torch.zeros_like(w),
+        sigma = (torch.sqrt(_up(ns) + torch.square(g)) - torch.sqrt(_up(ns))) / lr
+        zs = _up(zs) + g - sigma * _up(w)
+        ns = _up(ns) + torch.square(g)
+        new_w = torch.where(zs.abs() <= self.lamda1, torch.zeros_like(zs),
                             (torch.sign(zs) * self.lamda1 - zs)
                             / ((self.beta + torch.sqrt(ns)) / lr + wd))
         return new_w, (zs, ns)
@@ -429,13 +423,13 @@ class Signum(Optimizer):
         return (_zeros(weight),)
 
     def update_step(self, w, g, state, lr, wd, t):
-        g = self._preprocess_grad(g) + wd * w
+        g = self._preprocess_grad(g) + wd * _up(w)
         decay = float(_f32(1) - _f32(lr) * _f32(self.wd_lh))
         if self.momentum == 0.0:
-            return w * decay - lr * torch.sign(g), state
+            return _up(w) * decay - lr * torch.sign(g), state
         (mom,) = state
-        mom = self.momentum * mom - (1 - self.momentum) * g
-        return w * decay + lr * torch.sign(mom), (mom,)
+        mom = _weak(self.momentum, mom) * _up(mom) - (1 - self.momentum) * g
+        return _up(w) * decay + lr * torch.sign(mom), (mom,)
 
 
 @register
@@ -443,7 +437,6 @@ class SGLD(Optimizer):
     """Stochastic gradient Langevin dynamics: half a gradient step plus
     N(0, lr) noise from the parameter's seed and the step count."""
 
-    bf16_step_converted = True
 
     def create_state(self, index, weight):
         seed = _prng.host_bits(next_key(), (), 32)
@@ -469,7 +462,6 @@ class LARS(Optimizer):
     trust ratio of f32 norms of the whole weight and gradient."""
 
     lazy_rowwise = False
-    bf16_step_converted = True
 
     def __init__(self, learning_rate=0.1, momentum=0.9, eta=0.001,
                  epsilon=1e-8, **kwargs):
@@ -498,7 +490,6 @@ class LAMB(Optimizer):
     optional bounds; 1 where either norm is 0)."""
 
     lazy_rowwise = False
-    bf16_step_converted = True
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-6, lower_bound=None, upper_bound=None,
@@ -545,10 +536,11 @@ class DCASGD(Optimizer):
         return (_zeros(weight), weight.detach().clone(memory_format=torch.contiguous_format))
 
     def update_step(self, w, g, state, lr, wd, t):
-        g = self._preprocess_grad(g) + wd * w
+        g = self._preprocess_grad(g) + wd * _up(w)
         mom, prev_w = state
-        mom = self.momentum * mom - lr * (g + self.lamda * g * g * (w - prev_w))
-        return w + mom, (mom, w + mom)
+        mom = _weak(self.momentum, mom) * _up(mom) - lr * (
+            g + self.lamda * g * g * (_up(w) - _up(prev_w)))
+        return _up(w) + mom, (mom, _up(w) + mom)
 
 
 @register
@@ -560,5 +552,5 @@ class Test(Optimizer):
         return (_zeros(weight),)
 
     def update_step(self, w, g, state, lr, wd, t):
-        g = self._preprocess_grad(g) + wd * w
-        return w - lr * g, state
+        g = self._preprocess_grad(g) + wd * _up(w)
+        return _up(w) - lr * g, state

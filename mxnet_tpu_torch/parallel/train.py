@@ -106,26 +106,21 @@ _LOW = (torch.bfloat16, torch.float16)
 @torch.no_grad()
 def apply_updates(opt, params, states, lr_wd_t, rescale, grads=None):
     """Step every ``(name, parameter)`` of ``params`` with ``opt``'s pure
-    ``update_step`` on f32 views, writing weights and ``states`` (a list,
-    updated in place) back in their own dtypes; an integer state leaf (SGLD's
-    seed) is passed as it is. A bf16/f16 weight of an optimizer with
-    ``bf16_step_converted`` (LAMB, LARS, SGLD) and its state are passed
-    unconverted, beside the f32 gradient, so the step rounds where the JAX
-    step does. ``lr_wd_t(i)`` gives
-    ``(lr, wd, t)`` of parameter ``i``; its gradient is ``grads[i]``, else
-    its ``.grad``. A parameter without a gradient steps with a zero one
-    (the JAX gradient of an unused parameter)."""
+    ``update_step``, writing weights and ``states`` (a list, updated in
+    place) back in their own dtypes. The step gets an f32 gradient and
+    the weight and its floating state as they are when the weight is bf16
+    or f16 (each ``update_step`` rounds where the JAX step rounds), in f32
+    otherwise; an integer state leaf (SGLD's seed) is passed as it is.
+    ``lr_wd_t(i)`` gives ``(lr, wd, t)`` of parameter ``i``; its gradient
+    is ``grads[i]``, else its ``.grad``. A parameter without a gradient
+    steps with a zero one (the JAX gradient of an unused parameter)."""
     for i, (_, p) in enumerate(params):
         g = grads[i] if grads is not None else p.grad
         g = g.float() if g is not None else torch.zeros_like(p, dtype=torch.float32)
         lr, wd, t = lr_wd_t(i)
-        # two paths for a bf16/f16 weight until ROADMAP Queue 3 item 1
-        # converts every update_step
-        if opt.bf16_step_converted and p.dtype in _LOW:
-            w, st = p.detach(), tuple(states[i])
-        else:
-            w = p.float()
-            st = tuple(s.float() if s.is_floating_point() else s for s in states[i])
+        low = p.dtype in _LOW
+        w = p.detach() if low else p.float()
+        st = tuple(s.float() if s.is_floating_point() and not low else s for s in states[i])
         new_w, new_state = opt.update_step(w, g * rescale, st, lr, wd, t)
         p.copy_(new_w)
         states[i] = tuple(n.to(o.dtype) for o, n in zip(states[i], new_state))

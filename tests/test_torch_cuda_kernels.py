@@ -1916,3 +1916,104 @@ def test_prefetcher_stream_contract_under_slow_copies(cuda):
     report = cs.stream_hold(torch, types.SimpleNamespace(seed=0))
     assert all(report["wait"]) and all(report["reuse"])
     assert len(report["wait"]) == len(report["reuse"]) == cs.DT_HOLD_BATCHES
+
+
+# ------------------------------------------------------- the NMS sweep kernel
+def _nms_case(case, B=3, n=200, seed=0):
+    """Sorted boxes [B, n, 4] (corners), ids [B, n] and valid [B, n] of an
+    adversarial set."""
+    g = torch.Generator().manual_seed(seed)
+    xy = torch.rand(B, n, 2, generator=g)
+    wh = 0.05 + torch.rand(B, n, 2, generator=g) * 0.4
+    if case == "all_overlapping":
+        xy = torch.zeros(B, n, 2) + torch.rand(B, n, 2, generator=g) * 0.01
+        wh = torch.ones(B, n, 2)
+    elif case == "all_disjoint":
+        xy = torch.stack([torch.arange(n).float() * 2, torch.zeros(n)], -1).expand(B, n, 2)
+        wh = torch.ones(B, n, 2)
+    boxes = torch.cat([xy, xy + wh], -1)
+    ids = torch.randint(0, 3, (B, n), generator=g).float()
+    score = torch.rand(B, n, generator=g)
+    if case == "ties":
+        score = (score * 4).round() / 4
+    valid = score > 0.1
+    return boxes, ids, valid
+
+
+@pytest.mark.parametrize("case,n,rows", [("random", 200, None), ("all_overlapping", 130, None),
+                                          ("all_disjoint", 96, None), ("ties", 200, 64),
+                                          ("random", 8732, 400), ("random", 1000, 1000)])
+def test_nms_sweep_kernel_matches_plain(cuda, case, n, rows):
+    """Bit for bit the plain loop over the same decision matrix (the
+    kernel's contract), n not a multiple of 64 in most cases, and a
+    decision matrix cut to its top rows."""
+    from mxnet_tpu_torch.ops import contrib
+    boxes, ids, valid = _nms_case(case, B=3 if n < 5000 else 2, n=n)
+    if rows is not None:
+        valid[:, rows:] = False
+    for use_ids in (True, False):
+        dec = contrib.nms_decisions(boxes.cuda(), 0.45, ids.cuda() if use_ids else None, rows)
+        before = int8_gemv.launches().get("nms_sweep", 0)
+        got = contrib.nms_sweep(dec, valid.cuda())
+        torch.cuda.synchronize()
+        assert int8_gemv.launches().get("nms_sweep", 0) == before + 1
+        want = contrib.nms_sweep_plain(dec, valid.cuda())
+        assert torch.equal(got, want)
+        assert torch.equal(got.cpu(), contrib.nms_sweep_plain(dec.cpu(), valid))
+
+
+def test_nms_sweep_rejects_what_it_cannot_take(cuda):
+    from mxnet_tpu_torch.ops import contrib
+    dec = torch.zeros(2, 5, 5, dtype=torch.bool, device="cuda")
+    with pytest.raises(MXNetError, match="bool"):
+        contrib.nms_sweep(dec.to(torch.uint8), torch.ones(2, 5, dtype=torch.bool,
+                                                          device="cuda"))
+    with pytest.raises(MXNetError, match="tensors on"):
+        contrib.nms_sweep(dec, torch.ones(2, 5, dtype=torch.bool))
+    with pytest.raises(MXNetError):
+        contrib.nms_sweep(torch.zeros(2, 6, 5, dtype=torch.bool, device="cuda"),
+                          torch.ones(2, 5, dtype=torch.bool, device="cuda"))
+
+
+def test_box_nms_and_detection_launch_the_sweep(cuda):
+    from mxnet_tpu_torch import numpy_extension as npx2
+    g = torch.Generator().manual_seed(3)
+    data = torch.cat([torch.randint(0, 3, (300, 1), generator=g).float(),
+                      torch.rand(300, 1, generator=g), torch.rand(300, 2, generator=g)], 1)
+    data = torch.cat([data, data[:, 2:4] + 0.3], 1)
+    before = int8_gemv.launches().get("nms_sweep", 0)
+    got = npx2.box_nms(data.cuda(), overlap_thresh=0.5, valid_thresh=0.05, id_index=0)
+    want = npx2.box_nms(data, overlap_thresh=0.5, valid_thresh=0.05, id_index=0)
+    assert int8_gemv.launches().get("nms_sweep", 0) == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+# ------------------------------------------------------------ cuDNN RNNs
+@pytest.mark.parametrize("cls,kw", [("LSTM", {"num_layers": 2}), ("GRU", {"bidirectional": True}),
+                                    ("RNN", {"activation": "tanh"}),
+                                    ("LSTM", {"num_layers": 2, "dropout": 0.5,
+                                              "bidirectional": True})])
+def test_cudnn_rnn_matches_cpu_port(cuda, cls, kw):
+    """cuDNN's fused RNN a layer against the port's CPU loop: outputs,
+    states and gradients (f32, TF32 off) within 1e-4, the dropout masks
+    equal (the same outputs)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import rnn
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(7, 3, 24, generator=g)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        mx.random.seed(1)
+        net = getattr(rnn, cls)(32, input_size=24, **kw)
+        net.initialize(device=mx.Device(dev))
+        xd = mx.np.array(x.numpy(), device=mx.Device(dev))
+        xd.attach_grad()
+        with autograd.record(train_mode=bool(kw.get("dropout"))):
+            out = net(xd)
+            (out * out).sum().backward()
+        res[dev] = [out.asnumpy(), xd.grad.asnumpy()] + [
+            p.grad().asnumpy() for p in net.collect_params().values()]
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert onp.abs(a - b).max() <= 1e-4 * max(onp.abs(b).max(), 1e-3)
