@@ -367,6 +367,31 @@
    [4, 256, 38, 38]) and ``deformable_convolution`` ([8, 256, 28, 28],
    3x3, 256 filters) forward and backward, card against CPU, timed.
 
+16. ``sparse_frontend``: row-sparse gradients and the rest of the
+   single-device surface. (a) Phase 15's LSTM LM with
+   ``Embedding(10000, 650, sparse_grad=True)``, dropout 0, no clipping:
+   3 SGD steps against the dense-gradient model on the card (losses and
+   table within 1e-6 relative each step), 3 lazy Adam steps against the
+   CPU port (losses within 1e-4; rows no batch touched keep weights and
+   both moments bit for bit), ms a step of sparse and dense Adam. (b)
+   ``Embedding(793471, 512, sparse_grad=True)`` (the One Billion Word
+   Benchmark's vocabulary, MXNet's ``example/rnn/large_word_lm``), lazy
+   Adam through ``gluon.Trainer``, 5 steps of 128 x 20 synthetic ids: no
+   step peaks above table + moments + 0.5 GB over the memory held before
+   the table (no [V, D] gradient or temporary), untouched rows and
+   moments bit for bit, touched rows within 1e-5 of the CPU port's; ms
+   and peak GB beside the same table with a dense gradient and Adam step.
+   (c) The 9 rejection samplers with ``device=`` the card: the CPU port's
+   bits, and a KS or chi-square test against ``scipy.stats`` at 20000
+   draws, p > 1e-3; ms a call. (d) ``tests/ext/myops.cc`` built into
+   ``build/ext`` with g++ and loaded by ``library.load``, and a registered
+   ``CustomOp``, forward and backward on the card equal to the CPU;
+   ``mx.nd`` arithmetic, reductions and save/load on the card;
+   ``test_utils.check_consistency`` CPU against card on three ops;
+   NaiveEngine leaves no work pending on the stream; ``runtime.Features()``
+   names CUDA; ``print_summary`` of (a)'s model. It starts only with at
+   most LT_HELD_GB still allocated.
+
 Informational JSON lines come first; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without that line. It needs one CUDA card and refuses to
@@ -382,6 +407,7 @@ import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -7305,14 +7331,14 @@ DCN_SHAPE, DCN_FILTERS = (8, 256, 28, 28), 256
 DCN_TOL = 1e-4
 
 
-def lstm_lm(dropout, vocab=LM_VOCAB, width=LM_WIDTH, layers=LM_LAYERS):
+def lstm_lm(dropout, vocab=LM_VOCAB, width=LM_WIDTH, layers=LM_LAYERS, sparse_grad=False):
     """Embedding -> LSTM -> Dense, built from gluon.nn and gluon.rnn."""
     from mxnet_tpu_torch.gluon import HybridBlock, nn, rnn
 
     class LanguageModel(HybridBlock):
         def __init__(self):
             super().__init__()
-            self.embedding = nn.Embedding(vocab, width)
+            self.embedding = nn.Embedding(vocab, width, sparse_grad=sparse_grad)
             self.rnn = rnn.LSTM(width, num_layers=layers, dropout=dropout, input_size=width)
             self.decoder = nn.Dense(vocab, flatten=False, in_units=width)
 
@@ -7322,15 +7348,17 @@ def lstm_lm(dropout, vocab=LM_VOCAB, width=LM_WIDTH, layers=LM_LAYERS):
     return LanguageModel()
 
 
-def lm_model(torch, args, dropout, device, **kw):
+def lm_model(torch, args, dropout, device, optimizer=("sgd", {"learning_rate": LM_LR}),
+             sparse_grad=False, **kw):
     """(net, trainer, loss) of the language model on ``device``, its
     weights drawn on the host from ``--seed`` (the same on every device)."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import gluon
     mx.random.seed(args.seed)
-    net = lstm_lm(dropout, **{k: kw[k] for k in ("vocab", "width", "layers") if k in kw})
+    net = lstm_lm(dropout, sparse_grad=sparse_grad,
+                  **{k: kw[k] for k in ("vocab", "width", "layers") if k in kw})
     net.initialize(mx.init.Uniform(0.1), device=mx.Device(device))
-    trainer = gluon.Trainer(net.collect_params(), "sgd", {"learning_rate": LM_LR})
+    trainer = gluon.Trainer(net.collect_params(), optimizer[0], dict(optimizer[1]))
     return net, trainer, gluon.loss.SoftmaxCrossEntropyLoss()
 
 
@@ -7704,6 +7732,438 @@ def rnn_detect(torch, args, timer, card="cuda", lm_kw=None, gru_kw=None):
             "path": "rnn_detect (b): multibox_detection B 32 and box_nms"}
 
 
+# phase 16: row-sparse storage and lazy sparse training, the rejection
+# samplers, and the rest of the single-device user surface
+SP_STEPS = 3                       # (a): steps of each LM comparison
+SP_DENSE_TOL = 1e-6                # (a): sparse SGD against dense (relative)
+SP_CPU_TOL = LM_CPU_TOL            # (a): card Adam losses against the CPU port's
+# (b): the One Billion Word Benchmark's vocabulary (Chelba et al., 2013),
+# the table MXNet's example/rnn/large_word_lm trains with sparse gradients
+OBW_VOCAB, OBW_DIM, OBW_B, OBW_T, OBW_STEPS = 793471, 512, 128, 20, 5
+OBW_LR = 0.01
+OBW_SLACK_GB = 0.5                 # peak over table + moments a sparse step may add
+OBW_CPU_TOL = 1e-5                 # touched rows against the CPU port's
+SAMPLER_DRAWS, SAMPLER_P_MIN = 20000, 1e-3
+NAIVE_N = 4096                     # (d): the matmul NaiveEngine must have finished
+
+
+def _rel(a, b):
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _sync(torch, card):
+    if card != "cpu":
+        torch.cuda.synchronize()
+
+
+def sparse_lm(torch, args, card="cuda", **kw):
+    """(a): the phase 15 LM with ``Embedding(sparse_grad=True)`` at dropout
+    0, no clipping. SGD: sparse against dense on the card, losses and the
+    table each step. Adam (lazy): card losses against the CPU port's, rows
+    no batch touched keep weights and both moments bit for bit; ms a step
+    of sparse and dense Adam."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch import np as mnp
+    from mxnet_tpu_torch.sparse import RowSparseNDArray
+    B, T, vocab = kw.get("B", LM_B), kw.get("T", LM_T), kw.get("vocab", LM_VOCAB)
+    batches = [lm_batch(args, vocab, B, T, salt=100 + k) for k in range(SP_STEPS)]
+
+    def run(device, sparse, optimizer, record_ms=False):
+        net, trainer, loss_fn = lm_model(torch, args, 0.0, device, optimizer=optimizer,
+                                         sparse_grad=sparse, **kw)
+        dev = mx.Device(device)
+        states = net.rnn.begin_state(B, device=torch.device(device))
+        table0 = net.embedding.weight.data()._data.detach().clone()
+        losses, tables, ms = [], [], []
+        for x, y in batches:
+            states = [s.detach() for s in states]
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            with autograd.record():
+                out, states = net(mnp.array(x, device=dev), states)
+                loss = loss_fn(out, mnp.array(y, device=dev)).mean()
+            loss.backward()
+            g = net.embedding.weight.grad()
+            check(isinstance(g, RowSparseNDArray) == sparse,
+                  f"the embedding's gradient is {type(g).__name__} with sparse_grad={sparse}")
+            _sync(torch, device)
+            t1 = time.perf_counter()
+            trainer.step(1)
+            _sync(torch, device)
+            t2 = time.perf_counter()
+            ms.append(((t2 - t0) * 1e3, (t2 - t1) * 1e3))
+            losses.append(float(loss.item()))
+            tables.append(net.embedding.weight.data()._data.detach().clone())
+        return {"net": net, "trainer": trainer, "losses": losses, "tables": tables,
+                "table0": table0, "ms": ms}
+
+    sgd = ("sgd", {"learning_rate": LM_LR})
+    s, d = run(card, True, sgd), run(card, False, sgd)
+    sgd_loss_rel = max(abs(a - b) / abs(b) for a, b in zip(s["losses"], d["losses"]))
+    sgd_table_rel = max(_rel(a, b) for a, b in zip(s["tables"], d["tables"]))
+    del s, d
+    adam = ("adam", {"learning_rate": 1e-3})
+    sa = run(card, True, adam)
+    cpu = run("cpu", True, adam)
+    da = run(card, False, adam)
+    adam_cpu_rel = max(abs(a - b) / abs(b) for a, b in zip(sa["losses"], cpu["losses"]))
+    touched = torch.zeros(vocab, dtype=torch.bool, device=sa["table0"].device)
+    for x, _ in batches:
+        touched[torch.as_tensor(x.reshape(-1), dtype=torch.long, device=touched.device)] = True
+    w = sa["tables"][-1]
+    slot = next(i for i, (_, p) in enumerate(sa["trainer"]._params)
+                if p is sa["net"].embedding.weight)
+    m, v = sa["trainer"]._states[slot]
+    untouched_same = bool(torch.equal(w[~touched], sa["table0"][~touched]))
+    moments_zero = bool((m[~touched] == 0).all()) and bool((v[~touched] == 0).all())
+    touched_moved = bool((w[touched] != sa["table0"][touched]).any())
+    out = {"sgd_sparse_vs_dense": {"loss_rel": sgd_loss_rel, "table_rel": sgd_table_rel},
+           "adam_card_vs_cpu_rel": adam_cpu_rel, "adam_losses": sa["losses"],
+           "adam_cpu_losses": cpu["losses"], "rows_touched": int(touched.sum()),
+           "untouched_rows_equal": untouched_same, "untouched_moments_zero": moments_zero,
+           "ms_step_sparse_adam": statistics.median(r[0] for r in sa["ms"][1:]),
+           "ms_update_sparse_adam": statistics.median(r[1] for r in sa["ms"][1:]),
+           "ms_step_dense_adam": statistics.median(r[0] for r in da["ms"][1:]),
+           "ms_update_dense_adam": statistics.median(r[1] for r in da["ms"][1:])}
+    summary_net = sa["net"]
+    del sa, cpu, da
+    check(sgd_loss_rel <= SP_DENSE_TOL and sgd_table_rel <= SP_DENSE_TOL,
+          f"sparse SGD off the dense model: {out['sgd_sparse_vs_dense']}")
+    check(adam_cpu_rel <= SP_CPU_TOL, f"lazy Adam card losses off the CPU port's: {out}")
+    check(untouched_same and moments_zero and touched_moved,
+          f"lazy Adam moved rows no batch touched (or none it touched): {out}")
+    return out, summary_net
+
+
+def obw_table(torch, args, card="cuda", vocab=OBW_VOCAB, dim=OBW_DIM, B=OBW_B, T=OBW_T,
+              steps=OBW_STEPS):
+    """(b): ``Embedding(793471, 512, sparse_grad=True)`` with lazy Adam
+    through ``gluon.Trainer``, 5 steps of B x T ids: the peak of every
+    sparse step below table + moments + OBW_SLACK_GB over what was
+    allocated before the table; untouched rows and moments bit for bit,
+    touched rows against the CPU port fed the same ids; ms a step and
+    peak GB beside the same table with a dense gradient and Adam step."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch import np as mnp
+    from mxnet_tpu_torch.sparse import RowSparseNDArray
+    on_card = card != "cpu"
+    rng = np.random.RandomState(args.seed + 16)
+    ids = [rng.randint(0, vocab, (B, T)).astype("int32") for _ in range(steps)]
+    gen = torch.Generator(device=card).manual_seed(args.seed + 16)
+    table_gb = vocab * dim * 4 / 1e9
+
+    def build(device, sparse, init):
+        net = gluon.nn.Embedding(vocab, dim, sparse_grad=sparse, weight_initializer="zeros")
+        net.initialize(device=mx.Device(device))
+        net.weight.set_data(init.to(device))
+        return net, gluon.Trainer(net.collect_params(), "adam", {"learning_rate": OBW_LR})
+
+    def train(device, sparse, init):
+        base = torch.cuda.memory_allocated() if device != "cpu" else 0
+        net, trainer = build(device, sparse, init)
+        dev = mx.Device(device)
+        peaks, ms = [], []
+        for x in ids:
+            xd = mnp.array(x, device=dev)
+            if device != "cpu":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with autograd.record():
+                loss = (net(xd) ** 2).mean()
+            loss.backward()
+            check(isinstance(net.weight.grad(), RowSparseNDArray) == sparse,
+                  f"the {vocab}-row table's gradient with sparse_grad={sparse}")
+            _sync(torch, device)
+            t1 = time.perf_counter()
+            trainer.step(1)
+            _sync(torch, device)
+            if device != "cpu":
+                peaks.append((torch.cuda.max_memory_allocated() - base) / 1e9)
+            t2 = time.perf_counter()
+            ms.append(((t2 - t0) * 1e3, (t2 - t1) * 1e3))
+        return net, trainer, peaks, ms
+
+    init = torch.rand(vocab, dim, generator=gen, device=card) * 0.2 - 0.1
+    init_host = init.cpu()
+    net, trainer, peaks, ms = train(card, True, init)
+    w = net.weight.data()._data
+    m, v = trainer._states[0]
+    touched = torch.zeros(vocab, dtype=torch.bool, device=w.device)
+    for x in ids:
+        touched[torch.as_tensor(x.reshape(-1), dtype=torch.long, device=w.device)] = True
+    untouched_same = bool(torch.equal(w[~touched], init[~touched]))
+    moments_zero = bool((m[~touched] == 0).all()) and bool((v[~touched] == 0).all())
+    tw, tm, tv = (t[touched].cpu() for t in (w, m, v))
+    del net, trainer, w, m, v, init
+    if on_card:
+        torch.cuda.empty_cache()
+    cnet, ctrainer, _, cpu_ms = train("cpu", True, init_host)
+    cw = cnet.weight.data()._data
+    cm, cv = ctrainer._states[0]
+    tc = touched.cpu()
+    cpu_rel = max(_rel(tw, cw[tc]), _rel(tm, cm[tc]), _rel(tv, cv[tc]))
+    del cnet, ctrainer, cw, cm, cv
+    dnet, dtrainer, dpeaks, dms = train(card, False, init_host)
+    del dnet, dtrainer
+    if on_card:
+        torch.cuda.empty_cache()
+    limit = table_gb * 3 + OBW_SLACK_GB
+    def med(rows, k):
+        return statistics.median(r[k] for r in rows[1:])
+    out = {"table_gb": table_gb, "moments_gb": 2 * table_gb, "rows_touched": int(touched.sum()),
+           "peak_gb_steps": peaks, "peak_limit_gb": limit,
+           "ms_step": med(ms, 0), "ms_update": med(ms, 1), "ms_steps": [r[0] for r in ms],
+           "update_share": med(ms, 1) / med(ms, 0),
+           "dense_peak_gb_steps": dpeaks, "dense_ms_step": med(dms, 0),
+           "dense_ms_update": med(dms, 1), "cpu_ms_step": med(cpu_ms, 0),
+           "touched_vs_cpu_rel": cpu_rel, "untouched_rows_equal": untouched_same,
+           "untouched_moments_zero": moments_zero}
+    if on_card:
+        check(max(peaks) < limit, f"a sparse step on the {vocab} x {dim} table peaked at "
+              f"{max(peaks):.3f} GB over the phase's start (table + moments + {OBW_SLACK_GB} "
+              f"= {limit:.3f}): a table-shaped gradient or temporary")
+    check(untouched_same and moments_zero, f"lazy Adam moved untouched rows: {out}")
+    check(cpu_rel <= OBW_CPU_TOL, f"touched rows off the CPU port's: {cpu_rel}")
+    return out
+
+
+def _chi2_p(observed, probs):
+    """Pearson's chi-square p-value of ``observed`` counts against
+    ``probs`` (bins with an expected count below 5 pooled into the last)."""
+    import numpy as np
+    from scipy import stats
+    n = observed.sum()
+    exp = probs * n
+    keep = exp >= 5
+    obs = np.append(observed[keep], observed[~keep].sum())
+    ex = np.append(exp[keep], exp[~keep].sum())
+    if ex[-1] == 0:
+        obs, ex = obs[:-1], ex[:-1]
+    ex = ex * obs.sum() / ex.sum()
+    return float(stats.chisquare(obs, ex).pvalue)
+
+
+def sampler_checks(torch, args, card="cuda", draws=SAMPLER_DRAWS):
+    """(c): each rejection sampler drawn with ``device=`` the card equals
+    the CPU port's draw bit for bit, and passes a KS (continuous) or
+    chi-square (discrete) test against scipy.stats at ``draws`` draws."""
+    import numpy as np
+    from scipy import stats
+    import mxnet_tpu_torch as mx
+    r = mx.np.random
+    mean, cov = np.array([0.5, -1.0], "float32"), np.array([[2.0, 0.6], [0.6, 1.0]], "float32")
+    p4 = np.array([0.1, 0.2, 0.3, 0.4], "float32")
+    n = draws
+    cases = {
+        "gamma": lambda dev: r.gamma(2.5, 2.0, size=(n,), device=dev),
+        "beta": lambda dev: r.beta(2.0, 3.0, size=(n,), device=dev),
+        "chisquare": lambda dev: r.chisquare(3.0, size=(n,), device=dev),
+        "f": lambda dev: r.f(3.0, 5.0, size=(n,), device=dev),
+        "binomial": lambda dev: r.binomial(20, 0.3, size=(n,), device=dev),
+        "poisson": lambda dev: r.poisson(4.0, size=(n,), device=dev),
+        "poisson_rejection": lambda dev: r.poisson(30.0, size=(n,), device=dev),
+        "multinomial": lambda dev: r.multinomial(10, [0.2, 0.3, 0.5], size=(n, 3), device=dev),
+        "multivariate_normal": lambda dev: r.multivariate_normal(
+            mx.np.array(mean, device=dev), mx.np.array(cov, device=dev), size=(n // 2,),
+            device=dev),
+        "choice_noreplace": lambda dev: r.choice(n * 2, size=(n,), replace=False,
+                                                 p=mx.np.array(np.full(n * 2, 1.0 / (n * 2),
+                                                                       "float32"), device=dev),
+                                                 device=dev),
+    }
+    chol_inv = np.linalg.inv(np.linalg.cholesky(cov.astype(np.float64)))
+
+    def pvalue(name, x):
+        if name == "gamma":
+            return stats.kstest(x, stats.gamma(2.5, scale=2.0).cdf).pvalue
+        if name == "beta":
+            return stats.kstest(x, stats.beta(2.0, 3.0).cdf).pvalue
+        if name == "chisquare":
+            return stats.kstest(x, stats.chi2(3.0).cdf).pvalue
+        if name == "f":
+            return stats.kstest(x, stats.f(3.0, 5.0).cdf).pvalue
+        if name == "multivariate_normal":
+            z = (x.astype(np.float64) - mean) @ chol_inv.T
+            return stats.kstest(z.reshape(-1), stats.norm().cdf).pvalue
+        if name == "choice_noreplace":
+            # uniform p: every item of the population equally likely
+            return _chi2_p(np.bincount(x // 200, minlength=2 * n // 200).astype(float),
+                           np.full(2 * n // 200, 1.0 / (2 * n // 200)))
+        k = np.arange(0, 80)
+        dist = {"binomial": stats.binom(20, 0.3), "poisson": stats.poisson(4.0),
+                "poisson_rejection": stats.poisson(30.0), "multinomial": stats.binom(10, 0.2)}[name]
+        col = x[:, 0] if name == "multinomial" else x
+        return _chi2_p(np.bincount(col.astype(np.int64), minlength=80)[:80].astype(float),
+                       dist.pmf(k))
+
+    out = {}
+    for name, fn in cases.items():
+        mx.random.seed(args.seed + 16)
+        on_cpu = fn("cpu").asnumpy()
+        mx.random.seed(args.seed + 16)
+        t0 = time.perf_counter()
+        got = fn(card)
+        _sync(torch, card)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(got.device.device_type == ("cpu" if card == "cpu" else "gpu"),
+              f"np.random.{name} did not land on {card}")
+        got = got.asnumpy()
+        same = got.dtype == on_cpu.dtype and np.array_equal(got, on_cpu)
+        if name == "choice_noreplace":
+            check(np.unique(got).size == got.size, "choice(replace=False) drew an item twice")
+        p = float(pvalue(name, got))
+        out[name] = {"ms": ms, "p": p, "same_bits_as_cpu": bool(same)}
+        check(same, f"np.random.{name} on {card} differs from the CPU port's draw")
+        check(p > SAMPLER_P_MIN, f"np.random.{name} fails its goodness-of-fit test: p = {p}")
+    return out
+
+
+def surface_checks(torch, args, card="cuda", lm_net=None, lm_x=None):
+    """(d): a loaded extension library and a CustomOp on the card against
+    the CPU (values and gradients), ``mx.nd`` ops and save/load on the
+    card, ``check_consistency`` across CPU and card, NaiveEngine leaving no
+    pending work, ``runtime.Features()`` and ``print_summary``."""
+    import io
+    import contextlib
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, engine, library, operator, runtime, test_utils
+    from mxnet_tpu_torch.visualization import print_summary
+    out = {}
+    root = Path(__file__).resolve().parent
+    build_dir = root / "build" / "ext"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    so = build_dir / "libmyops.so"
+    subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-o", str(so),
+                    str(root / "tests" / "ext" / "myops.cc")], check=True, timeout=300)
+    lib = library.load(str(so))
+    x_host = np.array([[1.0, -2.0, 0.5], [3.0, 0.25, -1.5]], "float32")
+    res = {}
+    for dev in ("cpu", card):
+        x = mx.np.array(x_host, device=dev)
+        x.attach_grad()
+        with autograd.record():
+            y = lib.ext_square(x)
+            (y * 3.0).sum().backward()
+        res[dev] = (y.asnumpy(), x.grad.asnumpy(), lib.ext_outer(
+            mx.np.array(x_host[0], device=dev), mx.np.array(x_host[1], device=dev)).asnumpy())
+        check(y._data.device.type == torch.device(dev).type, f"ext_square left {dev}")
+    check(all(np.array_equal(a, b) for a, b in zip(res["cpu"], res[card])),
+          "the extension library's forward or backward differs between card and CPU")
+
+    @operator.register("smoke_cube")
+    class CubeProp(operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            class Cube(operator.CustomOp):
+                def forward(self, is_train, req, in_data, out_data, aux):
+                    self.assign(out_data[0], req[0], np.asarray(in_data[0]) ** 3)
+
+                def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+                    in_grad[0][...] = 3 * np.asarray(in_data[0]) ** 2 * np.asarray(out_grad[0])
+            return Cube()
+
+    cres = {}
+    for dev in ("cpu", card):
+        x = mx.np.array(x_host, device=dev)
+        x.attach_grad()
+        with autograd.record():
+            y = mx.npx.Custom(x, op_type="smoke_cube")
+            y.sum().backward()
+        cres[dev] = (y.asnumpy(), x.grad.asnumpy())
+    check(all(np.array_equal(a, b) for a, b in zip(cres["cpu"], cres[card])),
+          "the CustomOp differs between card and CPU")
+    with mx.Device(card):
+        a = mx.nd.array(x_host)
+        b = mx.nd.broadcast_add(a, mx.nd.ones((1, 3)))
+        red = [mx.nd.sum(b), mx.nd.max(b, axis=1), mx.nd.mean(b * b)]
+        f = build_dir / "nd_roundtrip.params"
+        mx.nd.save(str(f), {"a": a, "b": b})
+        back = mx.nd.load(str(f))
+        check(back["b"]._data.device.type == torch.device(card).type,
+              "mx.nd.load did not land on the card")
+        check(np.array_equal(back["b"].asnumpy(), b.asnumpy())
+              and np.allclose(red[0].asnumpy(), (x_host + 1).sum())
+              and np.allclose(red[1].asnumpy(), (x_host + 1).max(axis=1))
+              and np.allclose(red[2].asnumpy(), ((x_host + 1) ** 2).mean()),
+              "mx.nd arithmetic, reductions or save/load on the card")
+    devices = [mx.cpu(), mx.Device(card)]
+    xs = [np.random.RandomState(args.seed).randn(64, 48).astype("float32")]
+    for fn in (lambda t: mx.np.tanh(t) * 2, lambda t: mx.nd.softmax(t, axis=-1),
+               lambda t: mx.np.dot(t, t.T).sum(axis=0)):
+        test_utils.check_consistency(fn, xs, devices=devices)
+    if card != "cpu":
+        big = torch.randn(NAIVE_N, NAIVE_N, device=card)
+        bn = mx.NDArray(big)
+        torch.cuda.synchronize()
+        _ = bn @ bn
+        threaded_idle = bool(torch.cuda.current_stream().query())
+        engine.set_engine_type("NaiveEngine")
+        try:
+            _ = bn @ bn
+            naive_idle = bool(torch.cuda.current_stream().query())
+        finally:
+            engine.set_engine_type("ThreadedEngine")
+        out["naive_engine"] = {"stream_idle_after_op": naive_idle,
+                               "threaded_stream_idle_after_op": threaded_idle}
+        check(naive_idle, "NaiveEngine: an op returned with work pending on the stream")
+    feats = runtime.Features()
+    out["features"] = {k: f.enabled for k, f in feats.items()}
+    check(feats.is_enabled("CUDA") == (card != "cpu"), f"runtime.Features(): {feats}")
+    if lm_net is not None:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            table = print_summary(lm_net, lm_x, lm_net.rnn.begin_state(
+                lm_x.shape[1], device=lm_x._data.device))
+        check("Embedding" in table and "LSTM" in table and "Total params" in table,
+              f"print_summary of the LM: {table}")
+        out["summary_lines"] = len(table.splitlines())
+    return out
+
+
+def sparse_frontend(torch, args, card="cuda", lm_kw=None, obw_kw=None, draws=SAMPLER_DRAWS):
+    """Phase 16: (a) the LSTM LM with a row-sparse embedding gradient, (b)
+    lazy Adam on the One Billion Word vocabulary's table, (c) the rejection
+    samplers on the card, (d) the extension library, CustomOp, ``mx.nd``,
+    ``test_utils``, NaiveEngine, ``runtime`` and ``print_summary`` on the
+    card. ``card``, ``lm_kw`` and ``obw_kw`` cut it down for a CPU
+    rehearsal. Starts only with at most LT_HELD_GB still allocated."""
+    import mxnet_tpu_torch as mx
+    lm_kw, obw_kw = lm_kw or {}, obw_kw or {}
+    t_phase = time.perf_counter()
+    if card != "cpu":
+        held = torch.cuda.memory_allocated() / 1e9
+        emit({"sparse_frontend_allocated_gb_at_start": held})
+        check(held <= LT_HELD_GB, f"{held} GB of device memory still allocated as phase 16 "
+              f"starts (> {LT_HELD_GB}): an earlier phase's model or engine was not freed")
+    parts = {}
+    t0 = time.perf_counter()
+    lm, lm_net = sparse_lm(torch, args, card, **lm_kw)
+    emit({"sparse_frontend_lm": lm})
+    parts["lm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    obw = obw_table(torch, args, card, **obw_kw)
+    emit({"sparse_frontend_obw": obw})
+    parts["obw_table"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    samplers = sampler_checks(torch, args, card, draws)
+    emit({"sparse_frontend_samplers": samplers})
+    parts["samplers"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x, _ = lm_batch(args, lm_kw.get("vocab", LM_VOCAB), lm_kw.get("B", LM_B),
+                    lm_kw.get("T", LM_T))
+    surface = surface_checks(torch, args, card, lm_net, mx.np.array(x, device=mx.Device(card)))
+    emit({"sparse_frontend_surface": surface})
+    parts["surface"] = time.perf_counter() - t0
+    del lm_net
+    emit({"sparse_frontend_s": time.perf_counter() - t_phase, "parts_s": parts})
+    return {"lm": lm, "obw": obw, "samplers": samplers}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7802,6 +8262,8 @@ def main(argv=None):
     data_counts = data_train(torch, args)
     torch.cuda.empty_cache()
     nms_row = rnn_detect(torch, args, timer)
+    torch.cuda.empty_cache()
+    sparse_frontend(torch, args)
 
     def routes(*phases):
         return {r: sum(c["routes"][r] for c in phases) for r in ("warp", "mma")}

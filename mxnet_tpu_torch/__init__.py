@@ -55,6 +55,12 @@ the ``DataLoader`` with thread and forked process workers over shared
 memory, pinned uploads; vision datasets and transforms), ``pipeline``
 (``DevicePrefetcher``: staging on a CUDA stream of its own), ``io`` and
 ``recordio``, ``image``, ``gluon.utils`` and ``gluon.contrib.estimator``.
+Row-sparse gradients and lazy sparse training (``sparse``,
+``Embedding(sparse_grad=True)``, ``Optimizer.update_step_rsp``) came with
+the rejection samplers of ``np.random``, the legacy ``nd`` namespace,
+custom operators (``operator``), loaded operator libraries (``library``),
+and ``engine``, ``runtime``, ``util``, ``test_utils`` and
+``visualization``.
 Slice 16 serves Llama (``models.LlamaForCausalLM``: GQA, RoPE, RMSNorm,
 SwiGLU, per-layer and stacked decoders) from the same engine at
 Llama-3-8B's width: K1 at head dim 128, K3/K4 at its widths and K8 on a
@@ -89,7 +95,11 @@ _LAZY = {"gluon": ".gluon", "init": ".initializer", "initializer": ".initializer
          "serve": ".serve", "observability": ".observability", "contrib": ".contrib",
          "checkpoint": ".checkpoint", "serialization": ".serialization",
          "interop": ".interop", "amp": ".amp", "metric": ".gluon.metric",
-         "pipeline": ".pipeline", "io": ".io", "recordio": ".io.recordio", "image": ".image"}
+         "pipeline": ".pipeline", "io": ".io", "recordio": ".io.recordio", "image": ".image",
+         "nd": ".nd", "sparse": ".sparse", "engine": ".engine", "util": ".util",
+         "test_utils": ".test_utils", "visualization": ".visualization",
+         "viz": ".visualization", "library": ".library", "runtime": ".runtime",
+         "operator": ".operator"}
 
 
 def __getattr__(name):
@@ -122,8 +132,9 @@ def load(fname: str):
     current device: a dict or a list."""
     from . import serialization
     out = serialization.load(fname)
+    dev = current_device()
     if isinstance(out, dict):
-        return {k: NDArray(v) for k, v in out.items()}
+        return {k: NDArray(v, device=dev) for k, v in out.items()}
     if isinstance(out, (list, tuple)):
-        return [NDArray(v) for v in out]
-    return NDArray(out)
+        return [NDArray(v, device=dev) for v in out]
+    return NDArray(out, device=dev)

@@ -18,6 +18,16 @@ value), ``'add'`` adds to it. Without ``retain_graph`` the heads are cut
 from the graph afterwards, so a second ``backward`` on them raises, as in
 the JAX package. :func:`tape_grad` is the functional form, recorded
 itself with ``create_graph`` inside ``record()`` (higher-order gradients).
+
+The embedding cut. An array with ``grad_stype='row_sparse'`` whose every
+use the heads reach is an embedding gather of it (``npx.embedding`` tags
+the gather's node with its ids, ``EMBED_IDS``) and that is not itself a
+head gets its gradient as the gathers' output cotangents: ``backward``
+asks ``torch.autograd.grad`` for the gradient at each gather's output
+edge instead of at the table, so the gather's backward, the [V, D]
+scatter, never runs. The rows and ids go to the array as one row-sparse
+gradient (``NDArray._accumulate_grad_rsp``). Any other use of the table
+keeps the dense path, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -25,6 +35,7 @@ import threading
 from typing import List, Optional, Sequence
 
 import torch
+from torch.autograd.graph import GradientEdge
 
 from .base import MXNetError
 
@@ -46,6 +57,9 @@ class _AutogradState(threading.local):
         # set while TrainStep(remat=True) recomputes a forward for its
         # backward: parameter writes (running statistics) are dropped
         self.recomputing = False
+        # engine.set_engine_type('NaiveEngine'): every op of the funnel
+        # waits for the card before it returns
+        self.sync_execution = False
 
 
 STATE = _AutogradState()
@@ -91,10 +105,15 @@ def _check_head(h) -> torch.Tensor:
     return t
 
 
-def _reached_leaves(heads: Sequence[torch.Tensor]):
+# the key of a gather node's metadata that holds its ids (the embedding cut)
+EMBED_IDS = "mx_embedding_ids"
+
+
+def _reached_leaves(heads: Sequence[torch.Tensor], consumers: Optional[dict] = None):
     """[(array, leaf tensor)] of the attached arrays the graph of ``heads``
     reaches, in the order found. An array rebound after recording may
-    appear with its old tensor: the gradient still goes to the array."""
+    appear with its old tensor: the gradient still goes to the array.
+    ``consumers``, if given, collects id(leaf tensor) -> [nodes using it]."""
     out, seen_t = [], set()
 
     def take(t):
@@ -119,8 +138,27 @@ def _reached_leaves(heads: Sequence[torch.Tensor]):
             take(var)
         for nxt, _ in fn.next_functions:
             if nxt is not None:
+                if consumers is not None:
+                    leaf = getattr(nxt, "variable", None)
+                    if leaf is not None:
+                        consumers.setdefault(id(leaf), []).append(fn)
                 stack.append(nxt)
     return out
+
+
+def _cut_sites(pairs, consumers, hs):
+    """Split ``pairs`` into dense pairs and row-sparse sites: [(array,
+    [gather nodes])] for the leaves the embedding cut applies to."""
+    head_ids = {id(t) for t in hs}
+    dense, sites = [], []
+    for nd, t in pairs:
+        if getattr(nd, "_grad_stype", "default") == "row_sparse" and id(t) not in head_ids:
+            users = consumers.get(id(t), [])
+            if users and all(EMBED_IDS in fn.metadata for fn in users):
+                sites.append((nd, users))
+                continue
+        dense.append((nd, t))
+    return dense, sites
 
 
 def _cotangents(hs, head_grads):
@@ -150,17 +188,31 @@ def backward(heads: Sequence, head_grads: Optional[Sequence] = None,
              retain_graph: bool = False) -> None:
     """Gradients of ``heads`` into every reachable attached array."""
     hs = [_check_head(h) for h in heads]
-    pairs = _reached_leaves(hs)
+    consumers: dict = {}
+    pairs = _reached_leaves(hs, consumers)
     if not pairs:
         raise MXNetError("backward: no arrays with attached gradients are reachable")
+    dense, sites = _cut_sites(pairs, consumers, hs)
+    edges = [(nd, fn) for nd, users in sites for fn in users]
     with torch.enable_grad():
-        grads = _autograd_grad(hs, [t for _, t in pairs], _cotangents(hs, head_grads),
-                               retain_graph=retain_graph)
+        grads = _autograd_grad(hs, [t for _, t in dense] + [GradientEdge(fn, 0) for _, fn in edges],
+                               _cotangents(hs, head_grads), retain_graph=retain_graph)
     per: dict = {}
-    for (nd, _), g in zip(pairs, grads):
+    for (nd, _), g in zip(dense, grads):
         if g is not None:
             prev = per.get(id(nd))
             per[id(nd)] = (nd, g if prev is None else prev[1] + g)
+    rows: dict = {}
+    for (nd, fn), g in zip(edges, grads[len(dense):]):
+        if g is not None:
+            rows.setdefault(id(nd), (nd, []))[1].append((fn.metadata[EMBED_IDS], g))
+    for key, (nd, parts) in rows.items():
+        ids = torch.cat([i.reshape(-1) for i, _ in parts])
+        vals = torch.cat([g.reshape((-1,) + tuple(g.shape[i.dim():])) for i, g in parts])
+        if key in per:       # the same array also reached densely (a rebound tensor)
+            per[key][1].index_add_(0, ids.long(), vals.to(per[key][1].dtype))
+        else:
+            nd._accumulate_grad_rsp(ids, vals)
     for nd, g in per.values():
         nd._accumulate_grad(g)
     if not retain_graph:

@@ -78,8 +78,10 @@ class Dropout(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """A gather of rows of ``weight`` (input_dim, output_dim). Its gradient
-    is dense (``sparse_grad`` waits for row-sparse gradients)."""
+    """A gather of rows of ``weight`` (input_dim, output_dim). With
+    ``sparse_grad=True`` the weight's gradient is row-sparse: a
+    ``sparse.RowSparseNDArray`` of the looked-up rows, never a table-sized
+    tensor, and ``gluon.Trainer`` steps only those rows (lazy updates)."""
 
     def __init__(self, input_dim: int, output_dim: int, dtype=onp.float32,
                  weight_initializer=None, sparse_grad: bool = False):
@@ -87,7 +89,8 @@ class Embedding(HybridBlock):
         self._input_dim = input_dim
         self._output_dim = output_dim
         self.weight = Parameter("weight", shape=(input_dim, output_dim), dtype=dtype,
-                                init=weight_initializer)
+                                init=weight_initializer,
+                                grad_stype="row_sparse" if sparse_grad else "default")
 
     def forward(self, x):
         return npx.embedding(x, self.weight.data())

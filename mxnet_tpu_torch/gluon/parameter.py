@@ -125,7 +125,7 @@ class Parameter:
         arr = NDArray._new(torch.zeros(self._shape, dtype=to_torch_dtype(self.dtype),
                                        device=device.torch_device))
         initializer.init_array(init_mod.InitDesc(self._name), arr)
-        arr.attach_grad(self.grad_req)
+        arr.attach_grad(self.grad_req, stype=self.grad_stype)
         self._var = arr
         self._deferred_init_args = None
 
@@ -187,7 +187,7 @@ class Parameter:
             arr = data if isinstance(data, NDArray) else NDArray(data)
             self.shape = arr.shape
             self._var = NDArray._new(arr._data.detach().clone())
-            self._var.attach_grad(self.grad_req)
+            self._var.attach_grad(self.grad_req, stype=self.grad_stype)
             return
         self._var._write(data)
 
@@ -209,7 +209,7 @@ class Parameter:
                 device = self._deferred_init_args[1]
             dev = (current_device() if device is None else Device(device)).torch_device
             self._var = NDArray._new(data._data.detach().to(dev).clone())
-            self._var.attach_grad(self.grad_req)
+            self._var.attach_grad(self.grad_req, stype=self.grad_stype)
             self._deferred_init_args = None
         elif data._data.dtype == self._var._data.dtype:
             self._var._write(data._data.to(self._var._data.device))
@@ -222,7 +222,7 @@ class Parameter:
             had_grad = self._var._grad is not None
             self._var._set_data(self._var._data.detach().to(to_torch_dtype(dtype)))
             if had_grad:
-                self._var.attach_grad(self.grad_req)
+                self._var.attach_grad(self.grad_req, stype=self.grad_stype)
 
     def reset_ctx(self, device):
         if self._var is not None:

@@ -16,7 +16,11 @@ Two forms. Given gluon ``Parameter``s (``net.collect_params()``), it
 reads each one's gradient buffer (filled by the tape's ``backward`` under
 ``grad_req`` 'write' or 'add'; 'null' ones are skipped), steps with
 ``lr * lr_mult`` and ``wd * wd_mult`` as the JAX package does, and marks
-the gradient stale. Given tensors (``dict(module.named_parameters())``,
+the gradient stale. A row-sparse gradient (``Embedding(sparse_grad=True)``)
+bypasses that update: ``Optimizer.update_step_rsp`` steps only its rows,
+with the parameter's own step count; LARS and LAMB, whose trust ratio
+needs the whole weight, get it densified. After the step the gradient
+stays readable, marked stale. Given tensors (``dict(module.named_parameters())``,
 as ``TrainStep``'s GPT runs use), it reads ``.grad``: the JAX package's
 ``grad_req='write'`` overwrites a gradient on every backward, where
 PyTorch adds to it, so ``step`` consumes those gradients (sets ``.grad``
@@ -177,9 +181,10 @@ class Trainer:
         return overflow
 
     def _update_gluon(self, batch_size: int, ignore_stale_grad: bool):
+        from ..sparse import RowSparseNDArray
         opt = self._optimizer
         opt.rescale_grad = self._scale / batch_size
-        idx = []
+        idx, sparse_idx = [], []
         for i, (name, p) in enumerate(self._params):
             if p.grad_req == "null":
                 continue
@@ -191,11 +196,18 @@ class Trainer:
                     f"Gradient of Parameter `{name}` has not been updated by backward "
                     "since last step: run backward inside autograd.record() before "
                     "step(), or pass ignore_stale_grad=True to skip it")
+            if isinstance(arr._grad, RowSparseNDArray):
+                if opt.lazy_rowwise:
+                    sparse_idx.append(i)
+                    continue
+                arr._grad = arr._grad.todense()      # a trust ratio needs every row
             idx.append(i)
-        if not idx:
+        if not idx and not sparse_idx:
             return
-        if self._overflowed([self._params[i][1].data()._grad._data for i in idx], batch_size):
-            for i in idx:                # the step is skipped, its gradients spent
+        grads = [self._params[i][1].data()._grad._data for i in idx] + \
+            [self._params[i][1].data()._grad.data._data for i in sparse_idx]
+        if self._overflowed(grads, batch_size):
+            for i in idx + sparse_idx:   # the step is skipped, its gradients spent
                 self._params[i][1].data()._grad_fresh = False
             return
         self._step_count += 1
@@ -216,6 +228,17 @@ class Trainer:
         for j, i in enumerate(idx):
             self._states[i] = states[j]
             ps[j].data()._grad_fresh = False
+        for i in sparse_idx:
+            p = self._params[i][1]
+            counts[i] = counts.get(i, 0) + 1
+            if i not in self._states:
+                self._states[i] = opt.create_state(i, self._tensor(i))
+            arr = p.data()
+            rsp = arr._grad
+            _, self._states[i] = opt.update_step_rsp(
+                arr._data, rsp.indices._data, rsp.data._data.float() * opt.rescale_grad,
+                self._states[i], lr * p.lr_mult, wd * p.wd_mult, counts[i])
+            arr._grad_fresh = False
 
     def _host_state_payload(self) -> dict:
         """Host snapshot of the optimizer state, the serializable half of

@@ -19,8 +19,10 @@ mode. So a gluon block called on tensors is a function of its parameters'
 tensors (leaves that require grad), and PyTorch's ``backward`` fills
 their ``.grad``.
 
-Arrays are dense; ``row_sparse`` gradients wait for a later slice
-(ROADMAP Queue 1).
+Arrays are dense. A ``row_sparse`` gradient (``attach_grad(stype=
+'row_sparse')``) arrives as a ``sparse.RowSparseNDArray`` of the rows an
+embedding gather looked up (``_tape.backward``'s cut); ``tostype`` gives
+``sparse``'s row-sparse and CSR forms.
 """
 from __future__ import annotations
 
@@ -166,9 +168,23 @@ def apply_multi(fn: Callable, arrays: Sequence, name: Optional[str] = None):
         return fn(*datas)
     rec = _tape.STATE.recording
     if torch.is_grad_enabled() == rec:
-        return _wrap(fn(*datas))
-    with torch.set_grad_enabled(rec):
-        return _wrap(fn(*datas))
+        out = _wrap(fn(*datas))
+    else:
+        with torch.set_grad_enabled(rec):
+            out = _wrap(fn(*datas))
+    if _tape.STATE.sync_execution:
+        _wait_for(datas)
+    return out
+
+
+def _wait_for(datas) -> None:
+    """NaiveEngine: wait for the current stream of the card the op ran on."""
+    for t in datas:
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            torch.cuda.current_stream(t.device).synchronize()
+            return
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.current_stream().synchronize()
 
 
 def apply(fn: Callable, *arrays, name: Optional[str] = None):
@@ -315,7 +331,8 @@ def t_cum(fn, x, axis=None, dtype=None):
 class NDArray:
     """Imperative array over one ``torch.Tensor`` plus its autograd state."""
 
-    __slots__ = ("_data", "_grad", "_grad_req", "_grad_fresh", "__weakref__")
+    __slots__ = ("_data", "_grad", "_grad_req", "_grad_stype", "_grad_fresh",
+                 "__weakref__")
     # numpy defers to the reflected operators (np.float64(2) * x)
     __array_priority__ = 1000
     __array_ufunc__ = None
@@ -337,6 +354,7 @@ class NDArray:
         self._data = data
         self._grad = None
         self._grad_req = "null"
+        self._grad_stype = "default"
         # set by backward, cleared by Trainer.update (stale-gradient check)
         self._grad_fresh = False
 
@@ -346,6 +364,7 @@ class NDArray:
         obj._data = t
         obj._grad = None
         obj._grad_req = "null"
+        obj._grad_stype = "default"
         obj._grad_fresh = False
         return obj
 
@@ -444,15 +463,17 @@ class NDArray:
     def attach_grad(self, grad_req: str = "write", stype=None) -> None:
         """Allocate the gradient buffer and make this array a leaf of the
         tape; it is detached from any recorded graph first, as in the JAX
-        package."""
+        package. ``stype='row_sparse'`` allocates nothing: the gradient
+        arrives as a ``RowSparseNDArray`` when every use of the array on
+        the tape is an embedding gather of it, else dense."""
         if grad_req not in _GRAD_REQS:
             raise MXNetError(f"invalid grad_req {grad_req!r}")
-        if stype not in (None, "default"):
-            raise MXNetError(f"grad stype {stype!r} is not ported yet "
-                             "(ROADMAP Queue 1: row-sparse gradients)")
+        if stype not in (None, "default", "row_sparse"):
+            raise MXNetError(f"unsupported grad stype {stype!r}")
         self._grad_req = grad_req
+        self._grad_stype = stype or "default"
         self._make_leaf(self._data)
-        self._grad = None if grad_req == "null" else \
+        self._grad = None if grad_req == "null" or self._grad_stype == "row_sparse" else \
             NDArray._new(torch.zeros_like(self._data, requires_grad=False))
 
     def _make_leaf(self, t: torch.Tensor) -> None:
@@ -472,22 +493,56 @@ class NDArray:
         return self._grad
 
     def zero_grad(self) -> None:
-        if self._grad is not None:
-            with torch.no_grad():
-                self._grad._data.zero_()
+        if self._grad is None:
+            return
+        if not isinstance(self._grad, NDArray):      # row-sparse: empty again
+            self._grad = None
+            return
+        with torch.no_grad():
+            self._grad._data.zero_()
 
     def _accumulate_grad(self, g: torch.Tensor) -> None:
         """Write a gradient into the attached buffer in place ('write'
-        overwrites, 'add' adds), so code that cached ``x.grad`` sees it."""
+        overwrites, 'add' adds), so code that cached ``x.grad`` sees it. A
+        row-sparse gradient left by an earlier backward flips to dense,
+        its rows kept under 'add'."""
         g = g.detach()
         buf = self._grad
         with torch.no_grad():
-            if buf is None or buf._data.shape != g.shape or buf._data.dtype != g.dtype:
+            if buf is not None and not isinstance(buf, NDArray):
+                if self._grad_req == "add":
+                    g = buf.todense()._data.to(g.dtype) + g
+                self._grad = NDArray._new(g.clone())
+            elif buf is None or buf._data.shape != g.shape or buf._data.dtype != g.dtype:
                 self._grad = NDArray._new(g.clone())
             elif self._grad_req == "add":
                 buf._data.add_(g)
             else:
                 buf._data.copy_(g)
+        self._grad_fresh = True
+
+    def _accumulate_grad_rsp(self, ids: torch.Tensor, vals: torch.Tensor) -> None:
+        """Accumulate a row-sparse gradient: ``ids`` (any shape) name rows of
+        this array, ``vals`` their cotangents (ids.shape + a row). Stored
+        deduplicated as a ``RowSparseNDArray`` (ids ascending); under 'add'
+        it merges with an earlier row-sparse gradient, or is added into an
+        earlier dense one, which stays dense."""
+        from .sparse import RowSparseNDArray, _dedup
+        row = tuple(self._data.shape[1:])
+        ids = ids.detach().reshape(-1).long()
+        vals = vals.detach().reshape((ids.shape[0],) + row)
+        buf = self._grad
+        with torch.no_grad():
+            if isinstance(buf, NDArray) and self._grad_req == "add":
+                buf._data.index_add_(0, ids, vals.to(buf._data.dtype))
+                self._grad_fresh = True
+                return
+            if isinstance(buf, RowSparseNDArray) and self._grad_req == "add":
+                ids = torch.cat([buf.indices._data.long(), ids])
+                vals = torch.cat([buf.data._data, vals])
+            uids, agg = _dedup(ids, vals)
+        self._grad = RowSparseNDArray(NDArray._new(agg), NDArray._new(uids.int()),
+                                      tuple(self._data.shape))
         self._grad_fresh = True
 
     def backward(self, out_grad=None, retain_graph: bool = False,
@@ -679,10 +734,11 @@ class NDArray:
         return linalg.norm(self, ord=ord, axis=axis, keepdims=keepdims)
 
     def tostype(self, stype):
-        if stype != "default":
-            raise MXNetError("arrays are dense; row_sparse/csr storage is not ported "
-                             "(ROADMAP Queue 1)")
-        return self
+        """This array in ``stype`` storage: itself for 'default', a
+        ``sparse.RowSparseNDArray`` or ``CSRNDArray`` of it otherwise (the
+        JAX package raises for those; the reference converts)."""
+        from . import sparse
+        return sparse.cast_storage(self, stype)
 
     # ------------------------------------------------------------ arithmetic
     def _binop(self, other, fn, inexact=False, reverse=False, name=None):

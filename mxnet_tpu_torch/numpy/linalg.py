@@ -20,12 +20,15 @@ def _f(x):
 
 def norm(x, ord=None, axis=None, keepdims=False):
     """``jnp.linalg.norm``: with ``ord=None`` the 2-norm of the flattened
-    array (axis None) or of vectors along ``axis``."""
+    array (axis None) or of vectors along ``axis``; an ``ord`` with axis
+    None is a vector norm of a 1-D array, a matrix norm of a 2-D one."""
     def fn(t):
         t = _f(t)
         if axis is None and ord is None:
             out = torch.linalg.vector_norm(t.reshape(-1))
             return out.reshape((1,) * t.dim()) if keepdims else out
+        if axis is None and t.dim() == 2:
+            return torch.linalg.matrix_norm(t, ord, dim=(0, 1), keepdim=keepdims)
         if isinstance(axis, (tuple, list)) and len(axis) == 2:
             return torch.linalg.matrix_norm(t, "fro" if ord is None else ord, dim=tuple(axis),
                                             keepdim=keepdims)

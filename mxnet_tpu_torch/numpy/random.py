@@ -10,23 +10,28 @@ through torch's transcendental functions, which may differ from XLA's in
 the last place. Draws default to the JAX package's dtypes (which enables
 x64: the transforms draw f64, ``randint`` int64). The rejection samplers
 (``gamma``, ``beta``, ``chisquare``, ``f``, ``poisson``, ``binomial``,
-``multinomial``, ``multivariate_normal``) wait for a later slice (ROADMAP
-Queue 1).
+``multinomial``, ``multivariate_normal`` and ``choice(p=,
+replace=False)``) run jax.random's algorithms with its key splits on the
+host (``_samplers``): a decision whose two sides lie within an ulp of
+each other may go the other way where numpy's log differs from XLA's.
+Every draw is made on the host and lands on ``device``, so the card's
+draws are the CPU's.
 """
 from __future__ import annotations
 
 import numpy as onp
 import torch
 
-from .. import _prng
+from .. import _prng, _samplers
 from .._random import next_key, seed  # noqa: F401 (seed re-exported)
 from ..base import MXNetError
 from ..ndarray import NDArray, _cast, apply_multi, asarray, to_torch_dtype  # noqa: F401
 
 __all__ = [
     "seed", "uniform", "normal", "randn", "rand", "randint", "choice", "shuffle",
-    "permutation", "exponential", "laplace", "bernoulli", "gumbel", "logistic",
-    "lognormal", "pareto", "power", "rayleigh", "weibull", "standard_normal",
+    "permutation", "gamma", "beta", "exponential", "laplace", "bernoulli", "binomial",
+    "multinomial", "poisson", "gumbel", "logistic", "lognormal", "pareto", "power",
+    "rayleigh", "weibull", "chisquare", "f", "standard_normal", "multivariate_normal",
 ]
 
 _TINY32 = float(onp.finfo(onp.float32).tiny)
@@ -133,8 +138,11 @@ def choice(a, size=None, replace=True, p=None, device=None, ctx=None):
         if not onp.issubdtype(pv.dtype, onp.floating):
             pv = pv.astype(onp.float64)
         if not replace:
-            raise MXNetError("choice(p=..., replace=False) is not ported yet "
-                             "(ROADMAP Queue 1)")
+            if n_draws > n:
+                raise MXNetError("choice: a larger sample than the population "
+                                 "without replacement")
+            ind = _samplers.choice_without_replacement(key, pv, n_draws).reshape(shape)
+            return _out(onp.take(arr, ind, axis=0), device, ctx)
         cum = onp.cumsum(pv, dtype=pv.dtype)
         r = cum[-1] * (pv.dtype.type(1) - _prng.host_uniform(key, shape, 0.0, 1.0, pv.dtype))
         ind = onp.searchsorted(cum, r, side="left").astype(onp.int64)
@@ -223,14 +231,58 @@ def weibull(a, size=None, device=None, ctx=None):
     return _out(torch.pow(-torch.log1p(-u), 1.0 / a).numpy(), device, ctx)
 
 
-def _later(name):
-    def op(*args, **kwargs):
-        raise MXNetError(f"np.random.{name} is a rejection sampler, not ported yet "
-                         "(ROADMAP Queue 1)")
-    op.__name__ = name
-    return op
+def _host(a) -> onp.ndarray:
+    return a.asnumpy() if isinstance(a, NDArray) else onp.asarray(a)
 
 
-gamma, beta, chisquare, f, poisson, binomial, multinomial, multivariate_normal = (
-    _later(n) for n in ("gamma", "beta", "chisquare", "f", "poisson", "binomial",
-                        "multinomial", "multivariate_normal"))
+def gamma(shape, scale=1.0, size=None, dtype=None, device=None, ctx=None):
+    """Gamma(shape, scale): ``shape`` rounded to ``dtype`` (f32) first, the
+    draw in f64, as the JAX package's x64 ``jax.random.gamma``."""
+    a = _host(shape) if isinstance(shape, NDArray) else \
+        onp.asarray(shape, dtype=_np_dtype(dtype, onp.float32))
+    out = _samplers.gamma(next_key(), a, _shape(size) or None) * scale
+    return _out(out, device, ctx)
+
+
+def beta(a, b, size=None, dtype=None, device=None, ctx=None):
+    out = _samplers.beta(next_key(), _host(a), _host(b), _shape(size) or None)
+    return _out(out.astype(_np_dtype(dtype, onp.float32)), device, ctx)
+
+
+def chisquare(df, size=None, dtype=None, device=None, ctx=None):
+    out = 2.0 * _samplers.gamma(next_key(), _host(df) / 2.0, _shape(size) or None)
+    return _out(out, device, ctx)
+
+
+def f(dfnum, dfden, size=None, dtype=None, device=None, ctx=None):
+    """F-distribution: the ratio of two scaled chi-squares drawn under
+    ``split(key)``."""
+    k1, k2 = _prng.split(next_key())
+    shp = _shape(size) or None
+    num = _samplers.gamma(k1, _host(dfnum) / 2.0, shp) / dfnum
+    den = _samplers.gamma(k2, _host(dfden) / 2.0, shp) / dfden
+    return _out(num / den, device, ctx)
+
+
+def binomial(n, p, size=None, dtype=None, device=None, ctx=None):
+    return _out(_samplers.binomial(next_key(), _host(n), _host(p), _shape(size) or None),
+                device, ctx)
+
+
+def multinomial(n, pvals, size=None, device=None, ctx=None):
+    """Counts over the outcomes of ``pvals`` (``size`` is the whole result
+    shape, outcomes last, as the JAX package passes it)."""
+    return _out(_samplers.multinomial(next_key(), _host(n), _host(pvals),
+                                      _shape(size) or None), device, ctx)
+
+
+def poisson(lam=1.0, size=None, dtype=None, device=None, ctx=None):
+    return _out(_samplers.poisson(next_key(), _host(lam), _shape(size) or None),
+                device, ctx)
+
+
+def multivariate_normal(mean, cov, size=None, check_valid=None, tol=None, device=None,
+                        ctx=None):
+    out = _samplers.multivariate_normal(next_key(), asarray(mean).asnumpy(),
+                                        asarray(cov).asnumpy(), _shape(size) or None)
+    return _out(out, device, ctx)

@@ -815,8 +815,17 @@ def dropout(data, p: float = 0.5, mode: str = "training", axes=None,
 
 def embedding(data, weight, input_dim=None, output_dim=None, dtype=None,
               sparse_grad: bool = False):
-    return apply(lambda i, w: torch.nn.functional.embedding(i.long(), w), data, weight,
-                 name="embedding")
+    """Rows ``data`` of ``weight``. ``sparse_grad`` is accepted, as in the
+    JAX package: a row-sparse gradient comes from the weight's
+    ``grad_stype`` (``attach_grad(stype='row_sparse')``); a recorded gather
+    of such a weight tags its node with the ids for the tape's cut."""
+    def fn(i, w):
+        ids = i.long()
+        out = torch.nn.functional.embedding(ids, w)
+        if out.grad_fn is not None and getattr(weight, "_grad_stype", None) == "row_sparse":
+            out.grad_fn.metadata[_tape.EMBED_IDS] = ids
+        return out
+    return apply(fn, data, weight, name="embedding")
 
 
 def one_hot(indices, depth: int, on_value=1.0, off_value=0.0, dtype=None):
@@ -979,6 +988,14 @@ def load(file):
 
 def multibox_prior(*args, **kwargs):
     raise MXNetError("multibox_prior: not implemented (the JAX package raises too)")
+
+
+def Custom(*inputs, op_type: str = None, **kwargs):
+    """Run the custom op registered under ``op_type`` (``mx.operator``)."""
+    if op_type is None:
+        raise MXNetError("Custom: op_type is required")
+    from ..operator import invoke_custom
+    return invoke_custom(*inputs, op_type=op_type, **kwargs)
 
 
 def gamma_sampling_stub(*a, **k):

@@ -197,6 +197,38 @@ class Optimizer:
     # ratio over the whole weight (LARS, LAMB) needs the dense tensor
     lazy_rowwise = True
 
+    @torch.no_grad()
+    def update_step_rsp(self, w, uids, vals, state, lr, wd, t):
+        """Row-sparse lazy update (the reference's ``lazy_update``): the
+        rows ``uids`` of ``w`` and of every weight-shaped state tensor are
+        gathered, stepped by :meth:`update_step` with their gradient rows
+        ``vals`` and written back in place (a table-shaped result would
+        double the table's memory); rows not named keep their weights and
+        state. Ids outside ``[0, rows)`` (the JAX package's padding) are
+        masked out, never used as an index. Dtypes as ``apply_updates``:
+        f32 math for an f32 weight, the weight's own for bf16/f16. Returns
+        ``(w, new_state)``."""
+        keep = (uids >= 0) & (uids < w.shape[0])
+        idx = uids[keep].long()
+        g = vals[keep].float()
+        low = w.dtype in (torch.bfloat16, torch.float16)
+        rowwise = [torch.is_tensor(s) and tuple(s.shape) == tuple(w.shape) for s in state]
+
+        def gather(x):
+            rows = x.index_select(0, idx)
+            return rows if low or not rows.is_floating_point() else rows.float()
+        rows_state = tuple(gather(s) if rw else s for s, rw in zip(state, rowwise))
+        new_rows, new_state = self.update_step(gather(w), g, rows_state, lr, wd, t)
+        w.index_copy_(0, idx, new_rows.to(w.dtype))
+        out = []
+        for s, ns, rw in zip(state, new_state, rowwise):
+            if rw:
+                s.index_copy_(0, idx, ns.to(s.dtype))
+                out.append(s)
+            else:
+                out.append(ns.to(s.dtype) if torch.is_tensor(s) else ns)
+        return w, tuple(out)
+
     def update(self, index, weight, grad, state):
         """Eager single-parameter update (the reference ``Optimizer.update``):
         counts the update of ``index``, steps ``weight`` (an NDArray or a

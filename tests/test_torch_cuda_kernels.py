@@ -2017,3 +2017,53 @@ def test_cudnn_rnn_matches_cpu_port(cuda, cls, kw):
             p.grad().asnumpy() for p in net.collect_params().values()]
     for a, b in zip(res["cuda"], res["cpu"]):
         assert onp.abs(a - b).max() <= 1e-4 * max(onp.abs(b).max(), 1e-3)
+
+
+# ---------------------------------------------------------- row-sparse, samplers
+
+def test_lazy_adam_on_the_one_billion_word_table(cuda):
+    """Lazy Adam through gluon.Trainer on Embedding(793471, 512,
+    sparse_grad=True): no sparse step peaks above table + moments + 0.5 GB
+    over what was allocated before the table (a [V, D] f32 gradient alone
+    is 1.62 GB), rows no batch touched keep weights and moments bit for
+    bit, touched rows match the CPU port fed the same ids (1e-5)."""
+    import types
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = chip_smoke.obw_table(torch, types.SimpleNamespace(seed=0), "cuda", steps=3)
+    assert max(out["peak_gb_steps"]) < out["peak_limit_gb"]
+    assert out["untouched_rows_equal"] and out["untouched_moments_zero"]
+    assert out["touched_vs_cpu_rel"] <= chip_smoke.OBW_CPU_TOL
+
+
+def test_rejection_samplers_on_the_card_equal_the_cpu(cuda):
+    """Every rejection sampler with device='cuda' draws the CPU port's bits
+    (both from the host stream) and passes its goodness-of-fit test."""
+    import types
+    out = chip_smoke.sampler_checks(torch, types.SimpleNamespace(seed=0), "cuda", draws=4000)
+    assert all(r["same_bits_as_cpu"] for r in out.values())
+
+
+def test_embedding_cut_allocates_no_table_gradient(cuda):
+    """A row-sparse backward through the tape's embedding cut on the card
+    allocates nothing table-sized; the same table with a dense gradient
+    does."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    V, D = 200000, 256
+    ids = mx.np.array(onp.random.RandomState(0).randint(0, V, (64, 8)).astype("int32"),
+                      device=mx.gpu())
+    peaks = {}
+    for sparse in (True, False):
+        emb = mx.gluon.nn.Embedding(V, D, sparse_grad=sparse, weight_initializer="zeros")
+        emb.initialize(device=mx.gpu())
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with autograd.record():
+            (emb(ids) ** 2).sum().backward()
+        torch.cuda.synchronize()
+        peaks[sparse] = torch.cuda.max_memory_allocated() - base
+        del emb
+    table = V * D * 4
+    assert peaks[True] < table / 10 and peaks[False] >= table

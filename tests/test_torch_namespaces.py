@@ -19,10 +19,8 @@ import mxnet_tpu.serve
 
 import mxnet_tpu_torch
 
-# JAX modules with no counterpart in the port yet (ROADMAP Queue 1 item 8)
-_LAZY_NOT_PORTED = {"runtime", "aot", "nd", "tune", "sparse", "engine", "util",
-                    "test_utils", "onnx", "visualization", "viz", "library", "benchmark",
-                    "sym", "symbol", "operator"}
+# JAX modules with no counterpart in the port yet (ROADMAP Queue 1 items 7-8)
+_LAZY_NOT_PORTED = {"aot", "tune", "onnx", "benchmark", "sym", "symbol"}
 _SERVE_NOT_PORTED: set = set()
 # across devices: waits for the torch.distributed stack (ROADMAP Queue 1 item 8)
 _MODELS_NOT_PORTED = {"llama_shardings"}

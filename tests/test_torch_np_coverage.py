@@ -2,8 +2,8 @@
 name of ``mxnet_tpu.numpy``, ``.numpy.linalg``, ``.numpy.random``,
 ``.numpy_extension`` and ``gluon.rnn.__all__`` (modules and the JAX-only
 ``invoke_jnp`` aside) resolves in the port. The rejection samplers of
-``np.random`` are not ported yet (ROADMAP Queue 1 item 7 entry 4): they
-are listed here and must still raise, so the list stays true.
+``np.random`` (ROADMAP Queue 1 item 7 entry 4) draw with the JAX
+package's dtype and shape (their values: ``test_torch_random_rejection.py``).
 
 Also: no module of the port and not ``chip_smoke.py`` imports ``jax`` or
 the JAX package (parsed with ``ast``, imports inside functions too).
@@ -26,13 +26,13 @@ import mxnet_tpu_torch.numpy
 import mxnet_tpu_torch.numpy.linalg
 import mxnet_tpu_torch.numpy.random
 import mxnet_tpu_torch.numpy_extension
-from mxnet_tpu_torch.base import MXNetError
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 JAX_ONLY = {"invoke_jnp"}
-# np.random's rejection samplers: not ported yet, each must still raise
-RANDOM_NOT_PORTED = {"gamma", "beta", "chisquare", "f", "poisson", "binomial", "multinomial",
-                     "multivariate_normal"}
+# np.random's rejection samplers, each called with small arguments
+RANDOM_NOT_PORTED = {"gamma": (1.0,), "beta": (1.0, 2.0), "chisquare": (1.0,),
+                     "f": (1.0, 2.0), "poisson": (1.0,), "binomial": (4, 0.5),
+                     "multinomial": (4, [0.5, 0.5]), "multivariate_normal": None}
 PAIRS = {"numpy": (mxnet_tpu.numpy, mxnet_tpu_torch.numpy),
          "numpy.linalg": (mxnet_tpu.numpy.linalg, mxnet_tpu_torch.numpy.linalg),
          "numpy.random": (mxnet_tpu.numpy.random, mxnet_tpu_torch.numpy.random),
@@ -60,9 +60,17 @@ def test_gluon_rnn_all():
 
 @pytest.mark.parametrize("name", sorted(RANDOM_NOT_PORTED))
 def test_rejection_samplers_still_raise(name):
+    """Each rejection sampler (ported since, the name kept) draws what the
+    JAX package draws in dtype and shape."""
     assert name in _public(mxnet_tpu.numpy.random)
-    with pytest.raises(MXNetError, match="rejection sampler"):
-        getattr(mxnet_tpu_torch.numpy.random, name)(1.0, size=(2,))
+    outs = []
+    for pkg in (mxnet_tpu_torch, mxnet_tpu):
+        with mx.cpu():
+            args = RANDOM_NOT_PORTED[name]
+            if args is None:
+                args = (pkg.numpy.array([0.0, 1.0]), pkg.numpy.array([[1.0, 0.0], [0.0, 1.0]]))
+            outs.append(getattr(pkg.numpy.random, name)(*args, size=(2,)).asnumpy())
+    assert outs[0].dtype == outs[1].dtype and outs[0].shape == outs[1].shape
 
 
 def _jax_imports(path):
