@@ -392,6 +392,37 @@
    names CUDA; ``print_summary`` of (a)'s model. It starts only with at
    most LT_HELD_GB still allocated.
 
+17. ``deploy``: the deployment surface. (a) ViT-B/16 at 384 (12 layers, D
+   768, T 577) hybridized and exported (``HybridBlock.export``, a
+   ``torch.export`` program per platform) in f32 at B 8 and, through AMP,
+   in bf16 at B 32; a child process that imports no module of
+   ``mxnet_tpu_torch.models`` loads each with ``SymbolBlock.imports(...,
+   device="cuda")``: 12 K1 launches a forward (K1 is the registered
+   operator ``mxnet_tpu_torch::flash_fwd`` in the program), logits within
+   1e-5 (f32) / 2**-8 (bf16) x max(1, |live|) of the live block's, the f32
+   ``.params`` into a fresh ``ViTModel`` to the same logits; export and
+   import seconds, artifact bytes, ms a forward live and imported. (b)
+   BERT-base's classifier ``optimize_for(backend="int8")`` at B 1, T 64:
+   the encoder's 72 quantized Dense layers each one K3 launch on the tile
+   route a forward (the pooler's and the classifier's on the warp route),
+   logits within 1e-4 of the CPU port's on the same weights; exported and
+   run by the child through K3's operator to the same logits and
+   launches. (c) ONNX: ResNet-18 v1 (the layer-tree converters fall back
+   to the trace at its residual blocks) and BERT-base at T 512 (traced;
+   K1's operator written as attention math), each file run by the port's
+   ``import_model(..., device="cuda")`` within 1e-4 of the live block,
+   file bytes printed. (d) ``examples/symbol_api.py`` unedited with the
+   port as ``mxnet_tpu``, on the card and the CPU: every step within
+   1e-5, the same accuracy and ``tojson``. (e) a ``gluon.probability``
+   VAE (pytorch/examples vae/main.py's 784-400-20-400-784, a
+   ``StochasticBlock`` with ``kl_divergence`` and ``add_loss``), 20 Adam
+   steps at B 128 on seeded binary images of MNIST's shape: the ELBO
+   falls and every step's loss is within 1e-4 of the CPU port's from the
+   same weights, data and keys; Normal, Gamma, Dirichlet and Binomial
+   draws on the card equal the CPU's. Then the host microseconds a call
+   of K1's, K3's and K4's registered operators against their bare bodies. The
+   kernels line's K1 and K3-tile rows carry ``launches_deploy``.
+
 Informational JSON lines come first; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without that line. It needs one CUDA card and refuses to
@@ -402,6 +433,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -8164,6 +8196,647 @@ def sparse_frontend(torch, args, card="cuda", lm_kw=None, obw_kw=None, draws=SAM
     return {"lm": lm, "obw": obw, "samplers": samplers}
 
 
+# ------------------------------------------------------------ phase 17: deploy
+DEPLOY_VIT_B = (8, 32)             # (a): f32 and bf16 batches (bf16: phase 11 (d)'s lane)
+DEPLOY_VIT_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
+DEPLOY_BERT_T = 64                 # (b): 64 rows, K3's tile route
+DEPLOY_K3_TOL = 1e-4               # (b): K3's gate against the CPU port
+DEPLOY_ONNX_T = 512                # (c): BERT-base traced through K1's converter
+DEPLOY_ONNX_TOL = 1e-4
+DEPLOY_SYM_TOL = 1e-5              # (d): every step's output against the CPU port's
+VAE_WIDTHS = (784, 400, 20)        # (e): pytorch/examples vae/main.py
+VAE_B, VAE_STEPS, VAE_LR = 128, 20, 1e-3
+VAE_CPU_TOL = 1e-4
+OP_HOST_CALLS = 200
+OP_HOST_ROUNDS = 5                 # rounds of op, bare, bare, op: medians, paired diffs
+
+# The child of phase 17 (a)-(b): loads each exported model with
+# SymbolBlock.imports and runs it, with no module of mxnet_tpu_torch.models
+# imported. It starts with the phase and warms up (its imports, the card's
+# context, one torch.export round trip) while the parent exports, prints
+# {"warm_s"}, then reads one line from stdin: a JSON list of jobs
+# {"symbol", "inputs": [.npy], "out": .npy}. argv[1]: the device. Prints
+# one JSON line per job.
+DEPLOY_CHILD = r"""
+import io, json, sys, time
+t_start = time.perf_counter()
+import numpy as np
+import torch
+import chip_smoke
+from mxnet_tpu_torch.gluon.block import SymbolBlock
+from mxnet_tpu_torch.ops import int8_gemv
+device = sys.argv[1]
+torch.backends.cuda.matmul.allow_tf32 = False      # the parent's settings:
+torch.backends.cudnn.allow_tf32 = False            # full f32 products and convs
+torch.zeros(1, device=device)
+
+
+class Warm(torch.nn.Module):
+    def forward(self, x):
+        return (x + 1,)
+
+
+buf = io.BytesIO()
+torch.export.save(torch.export.export(Warm(), (torch.zeros(2),), strict=False), buf)
+buf.seek(0)
+torch.export.load(buf)
+print(json.dumps({"warm_s": time.perf_counter() - t_start}), flush=True)
+jobs = json.loads(sys.stdin.readline())
+for job in jobs:
+    t0 = time.perf_counter()
+    net = SymbolBlock.imports(job["symbol"], device=device)
+    imports_s = time.perf_counter() - t0
+    with open(job["symbol"]) as f:
+        sig = json.load(f)["inputs"]
+    xs = [torch.from_numpy(np.load(p)).to(device).to(getattr(torch, s["dtype"]))
+          for p, s in zip(job["inputs"], sig)]
+    loaded = sorted(m for m in sys.modules if m.startswith("mxnet_tpu_torch.models"))
+    if loaded:
+        raise SystemExit(f"model modules imported: {loaded}")
+    with torch.no_grad():
+        net(*xs)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        int8_gemv.reset_launches()
+        out = net(*xs)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        counts, routes = int8_gemv.launches(), int8_gemv.gemv_routes()
+        ms = chip_smoke.Timer(torch, iters=5, warmup=1)(lambda: net(*xs)) \
+            if device == "cuda" else None
+    np.save(job["out"], out.float().cpu().numpy())
+    print(json.dumps({"symbol": job["symbol"], "imports_s": imports_s, "launches": counts,
+                      "routes": routes, "ms": ms, "models_imported": loaded}), flush=True)
+"""
+
+
+def start_deploy_child(device, err):
+    """Start DEPLOY_CHILD for ``device``, its standard error into the file
+    ``err``; it warms up and then waits for its jobs."""
+    return subprocess.Popen([sys.executable, "-c", DEPLOY_CHILD, device],
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
+                            text=True, cwd=str(Path(__file__).resolve().parent))
+
+
+def deploy_children(child, err, jobs):
+    """Hand ``jobs`` to the started child; its warm-up seconds and its
+    report per job. The child's failure fails the phase."""
+    try:
+        out, _ = child.communicate(json.dumps(jobs) + "\n", timeout=600)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.communicate()
+        raise SmokeFailure("the imports child did not finish in 600 s")
+    err.seek(0)
+    check(child.returncode == 0, f"the imports child failed ({child.returncode}): "
+          f"{err.read()[-2000:]}")
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    check(len(lines) == len(jobs) + 1 and "warm_s" in lines[0],
+          f"the imports child reported {len(lines) - 1} of {len(jobs)}")
+    return lines[0]["warm_s"], lines[1:]
+
+
+def fill_weights(torch, net, gen):
+    """Seeded weights drawn on the parameters' device: every weight of two
+    or more dims N(0, 1/fan_in), the rest (biases, norms, statistics) as
+    initialized."""
+    with torch.no_grad():
+        for name, p in net.collect_params().items():
+            t = p.data()._data
+            if t.dim() >= 2 and name.endswith("weight"):
+                fan_in = t[0].numel()
+                t.copy_(torch.randn(t.shape, generator=gen, device=t.device) / fan_in ** 0.5)
+    return net
+
+
+def scaled(torch, got, want):
+    """max |got - want| / max(1, max |want|) in f64 on the host."""
+    g = torch.as_tensor(got).double().cpu()
+    w = torch.as_tensor(want).double().cpu()
+    return float((g - w).abs().max() / max(1.0, float(w.abs().max())))
+
+
+def counted(torch, fn, card):
+    """``fn()``'s result and the launches it made (counts zeroed just
+    before, read just after)."""
+    from mxnet_tpu_torch.ops import int8_gemv
+    if card != "cpu":
+        torch.cuda.synchronize()
+    int8_gemv.reset_launches()
+    out = fn()
+    if card != "cpu":
+        torch.cuda.synchronize()
+    return out, {"kinds": int8_gemv.launches(), "routes": int8_gemv.gemv_routes()}
+
+
+def fwd_ms(torch, fn, card):
+    return Timer(torch, iters=5, warmup=1)(fn) if card != "cpu" else None
+
+
+def deploy_vit(torch, args, work, card, cfg=None, batches=DEPLOY_VIT_B):
+    """(a) ViT-B/16 at 384 (T 577, K1) hybridized and exported in f32 and,
+    through AMP, in bf16; returns the jobs for the imports child and what
+    to hold them against."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.models import ViTConfig, ViTModel
+    cfg = cfg or ViTConfig(image_size=384)
+    if card != "cpu":
+        # (a)'s gates hold K1 against K1 (the imported program, a fresh
+        # model): K1 in f32 meets its plain version at (a)'s shape here
+        T = (cfg.image_size // cfg.patch_size) ** 2 + 1
+        emit({"deploy_k1_f32_vit": flash_case(
+            torch, None, torch.Generator(device=card).manual_seed(args.seed + 3), batches[0],
+            cfg.num_heads, T, T, cfg.hidden_size // cfg.num_heads, False, torch.float32,
+            timed=False)})
+    gen = torch.Generator(device=card).manual_seed(args.seed)
+    net = ViTModel(cfg)
+    net.initialize(mx.init.Zero(), device=card)
+    fill_weights(torch, net, gen)
+    net.hybridize()
+    rng = np.random.RandomState(args.seed)
+    jobs, refs = [], {}
+    for dtype, B in zip(("float32", "bfloat16"), batches):
+        if dtype == "bfloat16":
+            amp.convert_hybrid_block(net, "bfloat16")
+        x_np = rng.rand(B, 3, cfg.image_size, cfg.image_size).astype(np.float32)
+        x = mx.np.array(x_np, device=card).astype(dtype)
+        live, n = counted(torch, lambda: net(x), card)
+        base = str(work / f"vit_{dtype}")
+        t0 = time.perf_counter()
+        sym, params = net.export(base, example_inputs=[x])
+        export_s = time.perf_counter() - t0
+        np.save(base + "_x.npy", x_np)
+        jobs.append({"symbol": sym, "inputs": [base + "_x.npy"], "out": base + "_out.npy"})
+        refs[sym] = {"what": f"vit_{dtype}", "dtype": dtype, "B": B,
+                     "live": live.astype("float32").asnumpy(), "live_launches": n["kinds"],
+                     "export_s": export_s, "params": params,
+                     "artifact_bytes": sum(os.path.getsize(str(work / f)) for f in
+                                           os.listdir(str(work))
+                                           if f.startswith(f"vit_{dtype}") and
+                                           f.endswith((".pt2", ".params", ".json"))),
+                     "live_ms": fwd_ms(torch, lambda: net(x), card), "x": x}
+    # the f32 .params into a fresh model (shapes known: no initialization)
+    f32 = refs[jobs[0]["symbol"]]
+    fresh = ViTModel(cfg)
+    with mx.Device(card):
+        fresh.load_parameters(f32["params"])
+    f32["fresh_err"] = scaled(torch, fresh(f32["x"]).asnumpy(), f32["live"])
+    del net, fresh
+    return jobs, refs, cfg.num_layers
+
+
+def deploy_bert(torch, args, work, card, cfg=None, T=DEPLOY_BERT_T, onnx_T=DEPLOY_ONNX_T):
+    """(c, BERT half) BERT-base's classifier at T ``onnx_T`` written to
+    ONNX by the traced path (K1's converter) and run by the port's
+    importer on the card; then (b) ``optimize_for(backend="int8")`` at B 1,
+    T ``T`` (K3's tile route) against the CPU port's on the same weights,
+    and exported for the imports child."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib.quantization import QuantizedBlockDense
+    from mxnet_tpu_torch.models import BERT_BASE, BertForSequenceClassification
+    from mxnet_tpu_torch.onnx import export_model, import_model
+    cfg = cfg or BERT_BASE
+    gen = torch.Generator(device=card).manual_seed(args.seed + 1)
+    net = BertForSequenceClassification(cfg)
+    net.initialize(mx.init.Zero(), device=card)
+    fill_weights(torch, net, gen)
+    rng = np.random.RandomState(args.seed)
+    # (c) ONNX at T onnx_T: K1 in the live forward, attention math in the file
+    ids = rng.randint(0, cfg.vocab_size, (2, onnx_T)).astype(np.int32)
+    types = np.zeros((2, onnx_T), np.int32)
+    live, n = counted(torch, lambda: net(mx.np.array(ids, device=card),
+                                          mx.np.array(types, device=card)), card)
+    path = str(work / "bert.onnx")
+    t0 = time.perf_counter()
+    export_model(net, path, input_shapes=[ids.shape, types.shape],
+                 input_types=["int32", "int32"])
+    onnx = {"model": "bert-base classifier", "B": 2, "T": onnx_T, "layers": cfg.num_layers,
+            "export_s": time.perf_counter() - t0, "file_bytes": os.path.getsize(path),
+            "live_launches": n["kinds"]}
+    t0 = time.perf_counter()
+    got = import_model(path, device=card)(mx.np.array(ids, device=card),
+                                          mx.np.array(types, device=card))
+    onnx["import_run_s"] = time.perf_counter() - t0
+    onnx["err"] = scaled(torch, got.asnumpy(), live.asnumpy())
+    os.remove(path)
+    # (b) optimize_for(backend="int8") at B 1, T rows: K3's tile route
+    weights = {k: p.data()._data.cpu() for k, p in net.collect_params().items()}
+    ids = rng.randint(0, cfg.vocab_size, (1, T)).astype(np.int32)
+    types = np.zeros((1, T), np.int32)
+    x = (mx.np.array(ids, device=card), mx.np.array(types, device=card))
+    out, n = counted(torch, lambda: net.optimize_for(*x, backend="int8"), card)
+    qd = {name: b for name, b in _blocks(net) if isinstance(b, QuantizedBlockDense)}
+    # the encoder's layers see B x T rows; the pooler and the classifier one
+    tile = sum(1 for name in qd if name.startswith("bert.encoder."))
+    with mx.cpu():
+        cpu_net = BertForSequenceClassification(cfg)
+        cpu_net.load_dict(weights)
+        plain = cpu_net.optimize_for(mx.np.array(ids), mx.np.array(types), backend="int8")
+    base = str(work / "bert_int8")
+    t0 = time.perf_counter()
+    sym, _ = net.export(base, example_inputs=list(x))
+    export_s = time.perf_counter() - t0
+    np.save(base + "_ids.npy", ids)
+    np.save(base + "_types.npy", types)
+    job = {"symbol": sym, "inputs": [base + "_ids.npy", base + "_types.npy"],
+           "out": base + "_out.npy"}
+    ref = {"what": "bert_int8", "dtype": "float32", "B": 1, "T": T, "live": out.asnumpy(),
+           "plain": plain.asnumpy(), "live_launches": n["kinds"], "live_routes": n["routes"],
+           "quantized_dense": len(qd), "tile_dense": tile, "export_s": export_s,
+           "live_ms": fwd_ms(torch, lambda: net(*x), card)}
+    del net, cpu_net
+    return job, ref, onnx
+
+
+def _blocks(block, prefix=""):
+    """(dotted name, block) of ``block`` and every block under it."""
+    yield prefix, block
+    for name, child in block._children.items():
+        yield from _blocks(child, f"{prefix}.{name}" if prefix else name)
+
+
+def deploy_resnet_onnx(torch, args, work, card, hw=224):
+    """(c) ResNet-18 v1: the layer-tree converters meet its residual
+    blocks and fall back to the trace; the port's importer runs the file
+    on the card against the live block."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    from mxnet_tpu_torch.onnx import export_model, import_model
+    gen = torch.Generator(device=card).manual_seed(args.seed + 2)
+    net = get_model("resnet18_v1")
+    net.initialize(mx.init.Zero(), device=card)
+    x_np = np.random.RandomState(args.seed).rand(2, 3, hw, hw).astype(np.float32)
+    x = mx.np.array(x_np, device=card)
+    net(x)                                  # deferred shapes
+    fill_weights(torch, net, gen)
+    live = net(x).asnumpy()
+    path = str(work / "resnet18.onnx")
+    t0 = time.perf_counter()
+    export_model(net, path, input_shapes=[x_np.shape])
+    res = {"model": "resnet18_v1", "B": 2, "hw": hw, "export_s": time.perf_counter() - t0,
+           "file_bytes": os.path.getsize(path)}
+    got = import_model(path, device=card)(x)
+    res["err"] = scaled(torch, got.asnumpy(), live)
+    os.remove(path)
+    return res
+
+
+def deploy_symbol(torch, card):
+    """(d) ``examples/symbol_api.py``'s program, unedited, with the port
+    imported as ``mxnet_tpu``, on the card and on the CPU: every step's
+    output, the printed accuracy and ``tojson``."""
+    import contextlib
+    import io
+    import runpy
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import symbol as sym
+
+    def run(device):
+        outs = []
+        forward = sym.Executor.forward
+
+        def spy(self, *a, **kw):
+            res = forward(self, *a, **kw)
+            outs.append(res[0].asnumpy())
+            return res
+        had = sys.modules.get("mxnet_tpu")
+        sys.modules["mxnet_tpu"] = mx
+        sym.Executor.forward = spy
+        sym._NAME_COUNTER.clear()
+        sym._CONST_COUNTER[0] = 0
+        buf = io.StringIO()
+        try:
+            g = runpy.run_path(str(Path(__file__).resolve().parent / "examples" /
+                                   "symbol_api.py"), run_name="example")
+            with mx.Device(device), contextlib.redirect_stdout(buf):
+                g["main"]()
+        finally:
+            sym.Executor.forward = forward
+            if had is None:
+                sys.modules.pop("mxnet_tpu")
+            else:
+                sys.modules["mxnet_tpu"] = had
+        return buf.getvalue(), outs
+    t0 = time.perf_counter()
+    card_text, card_outs = run(card)
+    cpu_text, cpu_outs = run("cpu")
+    errs = [float(abs(a - b).max()) for a, b in zip(card_outs, cpu_outs)]
+    acc = [ln for ln in card_text.splitlines() if ln.startswith("accuracy")]
+    return {"steps": len(card_outs), "max_step_err": max(errs), "accuracy": acc,
+            "printed_equal": card_text == cpu_text,
+            "accuracy_equal": acc == [ln for ln in cpu_text.splitlines()
+                                      if ln.startswith("accuracy")],
+            "s": time.perf_counter() - t0}
+
+
+def vae_block(P, nn, np, widths=VAE_WIDTHS):
+    """pytorch/examples vae/main.py's VAE as a ``StochasticBlock`` of the
+    given package (``gluon.probability``, ``gluon.nn``, ``np``): a Normal
+    posterior, a reparameterized sample, the KL term against N(0, 1)
+    through ``kl_divergence`` and ``add_loss``; returns the decoder's
+    logits."""
+    d_in, hidden, latent = widths
+
+    class VAE(P.StochasticBlock):
+        def __init__(self):
+            super().__init__()
+            self.fc1 = nn.Dense(hidden, activation="relu", in_units=d_in)
+            self.fc21 = nn.Dense(latent, in_units=hidden)
+            self.fc22 = nn.Dense(latent, in_units=hidden)
+            self.fc3 = nn.Dense(hidden, activation="relu", in_units=latent)
+            self.fc4 = nn.Dense(d_in, in_units=hidden)
+
+        def forward(self, x):
+            h = self.fc1(x)
+            mu, logvar = self.fc21(h), self.fc22(h)
+            q = P.Normal(mu, np.exp(0.5 * logvar))
+            z = q.sample().astype("float32")       # the draw is f64 (x64 noise)
+            prior = P.Normal(np.zeros_like(mu), np.ones_like(mu))
+            self.add_loss(P.kl_divergence(q, prior).sum(axis=-1))
+            return self.fc4(self.fc3(z))
+    return VAE()
+
+
+def vae_data(seed, B, steps, d_in=VAE_WIDTHS[0], classes=10, flip=0.05):
+    """Binary images of MNIST's shape drawn from a seed: ``classes``
+    random prototypes (30% of pixels on), each image one of them with a
+    ``flip`` share of its pixels flipped; ``steps`` batches of ``B``."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    protos = rng.rand(classes, d_in) < 0.3
+    out = []
+    for _ in range(steps):
+        x = protos[rng.randint(0, classes, B)] ^ (rng.rand(B, d_in) < flip)
+        out.append(x.astype(np.float32))
+    return out
+
+
+def vae_loss(np, logits, x, kl):
+    """The negative ELBO per example, averaged: binary cross-entropy of
+    the logits summed over pixels, plus the KL term."""
+    bce = (np.maximum(logits, 0) - logits * x + np.log1p(np.exp(-np.abs(logits)))).sum(axis=-1)
+    return (bce + kl).mean()
+
+
+def vae_steps(mx, trainer_cls, net, data, steps):
+    """``steps`` Adam steps of the VAE on ``data`` (one batch an array);
+    the losses."""
+    from mxnet_tpu_torch import autograd
+    trainer = trainer_cls(net.collect_params(), "adam", {"learning_rate": VAE_LR})
+    losses = []
+    for x in data[:steps]:
+        with autograd.record():
+            logits = net(x)
+            loss = vae_loss(mx.np, logits, x, net.losses[0])
+        loss.backward()
+        trainer.step(1)
+        losses.append(float(loss.asnumpy()))
+    return losses
+
+
+def deploy_probability(torch, args, card, widths=VAE_WIDTHS, B=VAE_B, steps=VAE_STEPS):
+    """(e) The VAE trained for ``steps`` Adam steps on the card and on the
+    CPU, from the same weights, data and keys; then Normal, Gamma,
+    Dirichlet and Binomial draws on the card against the CPU's."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import Trainer, nn
+    from mxnet_tpu_torch.gluon import probability as P
+    data = vae_data(args.seed, B, steps, widths[0])
+    runs, weights = {}, None
+    for device in (card, "cpu"):
+        with mx.Device(device):
+            mx.random.seed(args.seed)
+            net = vae_block(P, nn, mx.np, widths)
+            net.initialize()
+            if weights is None:
+                weights = {k: p.data()._data.cpu() for k, p in net.collect_params().items()}
+            else:
+                net.load_dict(weights)
+            mx.random.seed(args.seed + 1)
+            t0 = time.perf_counter()
+            runs[device] = vae_steps(mx, Trainer, net, [mx.np.array(x) for x in data], steps)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            runs[device + "_s"] = time.perf_counter() - t0
+    card_l, cpu_l = runs[card], runs["cpu"]
+    errs = [abs(a - b) / max(1.0, abs(b)) for a, b in zip(card_l, cpu_l)]
+    draws = {}
+    for name, make, size in (
+            ("normal", lambda: P.Normal(mx.np.zeros(3), mx.np.ones(3)), (4,)),
+            ("gamma", lambda: P.Gamma(mx.np.array([0.5, 2.0, 9.0]), 2.0), (4,)),
+            ("dirichlet", lambda: P.Dirichlet(mx.np.array([0.3, 1.0, 4.0])), (4,)),
+            ("binomial", lambda: P.Binomial(mx.np.array([5.0, 20.0, 40.0]),
+                                            prob=mx.np.array([0.2, 0.5, 0.9])), (4,))):
+        got = []
+        for device in (card, "cpu"):
+            with mx.Device(device):
+                mx.random.seed(args.seed + 7)
+                got.append(make().sample(size).asnumpy())
+        draws[name] = float(np.abs(got[0] - got[1]).max())
+    return {"vae": {"widths": list(widths), "B": B, "steps": steps, "losses": card_l,
+                    "cpu_losses": cpu_l, "max_rel_err": max(errs),
+                    "card_s": runs[card + "_s"], "cpu_s": runs["cpu_s"]},
+            "draws_max_diff": draws}
+
+
+def op_host_us(torch, n=OP_HOST_CALLS):
+    """Host microseconds a call of K1's, K3's and K4's registered operators
+    against their bare bodies (no dispatcher), the card kept busy while the
+    host enqueues: the medians of OP_HOST_ROUNDS rounds of op, bare, bare,
+    op, and the spread of each round's op-less-bare difference."""
+    from mxnet_tpu_torch.contrib.quantization import _quantize_int4
+    from mxnet_tpu_torch.ops import attention as fa
+    from mxnet_tpu_torch.ops import int8_gemv as g
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(64, 768, device="cuda", generator=gen)
+    w = torch.randint(-127, 128, (768, 768), device="cuda", generator=gen, dtype=torch.int8)
+    s = torch.rand(768, device="cuda", generator=gen) * 0.02 + 1e-3
+    w4, s4 = _quantize_int4(torch.randn(768, 768, device="cuda", generator=gen))
+    q = torch.randn(1, 12, 577, 64, device="cuda", generator=gen).bfloat16()
+    calls = {"int8_gemv": (lambda: torch.ops.mxnet_tpu_torch.int8_gemv(x, w, s),
+                           lambda: g._int8_gemv_impl(x, w, s)),
+             "int4_gemv": (lambda: torch.ops.mxnet_tpu_torch.int4_gemv(x, w4, s4),
+                           lambda: g._int4_gemv_impl(x, w4, s4)),
+             "flash_fwd": (lambda: torch.ops.mxnet_tpu_torch.flash_fwd(q, q, q, False, 0.125),
+                           lambda: fa._flash_fwd_impl(q, q, q, False, 0.125))}
+
+    def host_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / n * 1e6
+    out = {}
+    for name, (op, bare) in calls.items():
+        ops, bares = [], []
+        for _ in range(OP_HOST_ROUNDS):
+            a, b, c, d = host_us(op), host_us(bare), host_us(bare), host_us(op)
+            ops += [a, d]
+            bares += [b, c]
+        # each round's op turns less its bare turns: the paired difference
+        diffs = [(ops[i] + ops[i + 1] - bares[i] - bares[i + 1]) / 2
+                 for i in range(0, len(ops), 2)]
+        out[name] = {"op_us": statistics.median(ops), "bare_us": statistics.median(bares),
+                     "paired_diff_us": {"median": statistics.median(diffs), "min": min(diffs),
+                                        "max": max(diffs)},
+                     "op_turns": ops, "bare_turns": bares}
+    return out
+
+
+def deploy_exports(torch, args, work, card, child, child_err, parts, vit_cfg, vit_batches,
+                   bert_cfg, bert_T, onnx_T):
+    """(a), (b) and (c)'s BERT half: the exports into ``work``, then the
+    started imports ``child`` (its standard error in ``child_err``) runs
+    them; the gates. Returns K1's and K3
+    tile's launches in these windows and the BERT ONNX row."""
+    t0 = time.perf_counter()
+    jobs, refs, vit_layers = deploy_vit(torch, args, work, card, vit_cfg, vit_batches)
+    parts["vit_export"] = time.perf_counter() - t0
+    if card != "cpu":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bjob, bref, bert_onnx = deploy_bert(torch, args, work, card, bert_cfg, bert_T, onnx_T)
+    parts["bert"] = time.perf_counter() - t0
+    jobs.append(bjob)
+    refs[bjob["symbol"]] = bref
+    if card != "cpu":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    warm_s, children = deploy_children(child, child_err, jobs)
+    parts["child"] = time.perf_counter() - t0
+    emit({"deploy_child_warm_s": warm_s})
+    import numpy as np
+    k1 = k3_tile = 0
+    vit_rows = []
+    for job, rep in zip(jobs, children):
+        ref = refs[job["symbol"]]
+        got = np.load(job["out"])
+        err = scaled(torch, got, ref["live"].astype(np.float32))
+        row = {"what": ref["what"], "B": ref["B"], "export_s": ref["export_s"],
+               "imports_s": rep["imports_s"], "err": err,
+               "bitwise": bool(np.array_equal(got, ref["live"].astype(np.float32))),
+               "live_ms": ref["live_ms"], "imported_ms": rep["ms"],
+               "child_launches": rep["launches"], "live_launches": ref["live_launches"]}
+        check(not rep["models_imported"], f"the child imported {rep['models_imported']}")
+        if ref["what"].startswith("vit"):
+            row["artifact_bytes"] = ref["artifact_bytes"]
+            check(err <= DEPLOY_VIT_TOL[ref["dtype"]],
+                  f"(a) {ref['what']}: imported logits {err} from the live block's")
+            for n in (rep["launches"], ref["live_launches"]):
+                check(n.get("flash_fwd", 0) == vit_layers,
+                      f"(a) {ref['what']}: {n.get('flash_fwd', 0)} K1 launches a forward, "
+                      f"not {vit_layers}")
+            k1 += rep["launches"]["flash_fwd"] + ref["live_launches"]["flash_fwd"]
+            if "fresh_err" in ref:
+                row["params_fresh_err"] = ref["fresh_err"]
+                check(ref["fresh_err"] <= DEPLOY_VIT_TOL["float32"],
+                      f"(a) the .params file gives a fresh ViTModel {ref['fresh_err']}")
+            vit_rows.append(row)
+        else:
+            plain_err = scaled(torch, ref["live"], ref["plain"])
+            row.update(quantized_dense=ref["quantized_dense"], tile_dense=ref["tile_dense"],
+                       plain_err=plain_err, live_routes=ref["live_routes"],
+                       child_routes=rep["routes"])
+            check(plain_err <= DEPLOY_K3_TOL,
+                  f"(b) optimize_for(int8) logits {plain_err} from the CPU port's")
+            check(err <= DEPLOY_VIT_TOL["float32"],
+                  f"(b) the imported int8 BERT's logits {err} from the live block's")
+            want_tile = ref["tile_dense"] if card != "cpu" else 0
+            for r in (ref["live_routes"], rep["routes"]):
+                check(r.get("mma", 0) == want_tile,
+                      f"(b) K3's tile route launched {r.get('mma', 0)} times a forward, "
+                      f"not {want_tile} (the quantized Dense layers at {bert_T} rows)")
+            for n in (ref["live_launches"], rep["launches"]):
+                check(n.get("gemv", 0) == ref["quantized_dense"],
+                      f"(b) {n.get('gemv', 0)} K3 launches, not one a quantized Dense")
+            k3_tile += ref["live_routes"].get("mma", 0) + rep["routes"].get("mma", 0)
+            bert_row = row
+    emit({"deploy_vit": vit_rows})
+    emit({"deploy_bert_int8": bert_row})
+    check(bert_onnx["err"] <= DEPLOY_ONNX_TOL,
+          f"(c) BERT-base's ONNX file {bert_onnx['err']} from the live block")
+    check(bert_onnx["live_launches"].get("flash_fwd", 0) == bert_onnx["layers"],
+          f"(c) BERT at T {onnx_T}: K1 launches {bert_onnx['live_launches']}")
+    k1 += bert_onnx["live_launches"]["flash_fwd"]
+    return k1, k3_tile, bert_onnx
+
+
+def deploy(torch, args, timer, card="cuda", work=None, vit_cfg=None, vit_batches=DEPLOY_VIT_B,
+           bert_cfg=None, bert_T=DEPLOY_BERT_T, onnx_T=DEPLOY_ONNX_T, resnet_hw=224,
+           vae_kw=None):
+    """Phase 17: the deployment surface on the card. (a) ViT-B/16 at 384
+    exported (f32 B 8, bf16 B 32) and run by a child process that imports
+    no model code, through K1; (b) BERT-base ``optimize_for(backend=
+    "int8")`` at 64 rows through K3's tile route, against the CPU port,
+    exported and run by the child; (c) ONNX files of ResNet-18 and BERT-base
+    at T 512 run by the port's importer on the card; (d) ``mx.sym``'s
+    example on the card and the CPU; (e) a ``gluon.probability`` VAE and
+    draws, card against CPU. The imports child starts with the phase and
+    warms up while the exports run. The keyword arguments cut it down for a CPU
+    rehearsal (``card="cpu"``). Starts only with at most LT_HELD_GB still
+    allocated. Returns the launches of K1 and of K3's tile route counted
+    in its windows."""
+    import tempfile
+    t_phase = time.perf_counter()
+    if card != "cpu":
+        held = torch.cuda.memory_allocated() / 1e9
+        emit({"deploy_allocated_gb_at_start": held})
+        check(held <= LT_HELD_GB, f"{held} GB of device memory still allocated as phase 17 "
+              f"starts (> {LT_HELD_GB}): an earlier phase's model or engine was not freed")
+    parts = {}
+    with tempfile.TemporaryDirectory(dir=work) as tmp, tempfile.TemporaryFile("w+") as err:
+        child = start_deploy_child(card, err)
+        try:
+            k1, k3_tile, bert_onnx = deploy_exports(torch, args, Path(tmp), card, child, err,
+                                                    parts, vit_cfg, vit_batches, bert_cfg,
+                                                    bert_T, onnx_T)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        t0 = time.perf_counter()
+        resnet = deploy_resnet_onnx(torch, args, Path(tmp), card, resnet_hw)
+        parts["resnet_onnx"] = time.perf_counter() - t0
+        emit({"deploy_onnx": {"bert": bert_onnx, "resnet18": resnet}})
+        check(resnet["err"] <= DEPLOY_ONNX_TOL,
+              f"(c) ResNet-18's ONNX file {resnet['err']} from the live block")
+    if card != "cpu":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    symbol = deploy_symbol(torch, card)
+    parts["symbol"] = time.perf_counter() - t0
+    emit({"deploy_symbol": symbol})
+    check(symbol["steps"] == 80 and symbol["max_step_err"] <= DEPLOY_SYM_TOL,
+          f"(d) mx.sym steps {symbol['steps']}, worst {symbol['max_step_err']}")
+    check(symbol["accuracy_equal"] and symbol["printed_equal"],
+          "(d) mx.sym accuracy or tojson differ from the CPU port's")
+    t0 = time.perf_counter()
+    prob = deploy_probability(torch, args, card, **(vae_kw or {}))
+    parts["probability"] = time.perf_counter() - t0
+    emit({"deploy_probability": prob})
+    losses = prob["vae"]["losses"]
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"(e) the VAE's ELBO did not fall: {losses}")
+    check(prob["vae"]["max_rel_err"] <= VAE_CPU_TOL,
+          f"(e) VAE losses {prob['vae']['max_rel_err']} from the CPU port's")
+    check(all(v == 0.0 for v in prob["draws_max_diff"].values()),
+          f"(e) card draws differ from the CPU port's: {prob['draws_max_diff']}")
+    if card != "cpu":
+        emit({"deploy_op_host_us": op_host_us(torch)})
+    emit({"deploy_s": time.perf_counter() - t_phase, "parts_s": parts})
+    # keyed by the kernels line's row names
+    return {"flash_attention_fwd": k1, "int8_gemv_mma": k3_tile}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8264,6 +8937,8 @@ def main(argv=None):
     nms_row = rnn_detect(torch, args, timer)
     torch.cuda.empty_cache()
     sparse_frontend(torch, args)
+    torch.cuda.empty_cache()
+    deploy_counts = deploy(torch, args, timer)
 
     def routes(*phases):
         return {r: sum(c["routes"][r] for c in phases) for r in ("warp", "mma")}
@@ -8423,6 +9098,10 @@ def main(argv=None):
             rows[-1]["launches_llama"] = llama_launches[name]
         if name in fleet_launches:
             rows[-1]["launches_fleet"] = fleet_launches[name]
+        if name in deploy_counts:
+            # phase 17: K1 in (a) and (c)'s windows, K3's tile route in (b)'s
+            rows[-1]["launches_deploy"] = deploy_counts[name]
+            check(deploy_counts[name] > 0, f"{name} never launched on the deploy path")
         check(rows[-1]["launches"] > 0, f"{name} never launched on its main path")
     for name in ("int8_gemv", "int8_gemv_mma", "fused_block_decode_paged",
                  "fused_block_decode_paged_bf16", "fused_block_decode_paged_dma",

@@ -99,7 +99,7 @@ _LAZY = {"gluon": ".gluon", "init": ".initializer", "initializer": ".initializer
          "nd": ".nd", "sparse": ".sparse", "engine": ".engine", "util": ".util",
          "test_utils": ".test_utils", "visualization": ".visualization",
          "viz": ".visualization", "library": ".library", "runtime": ".runtime",
-         "operator": ".operator"}
+         "operator": ".operator", "sym": ".symbol", "symbol": ".symbol", "onnx": ".onnx"}
 
 
 def __getattr__(name):

@@ -30,13 +30,14 @@ from torch import nn
 
 from ..autograd import predict_mode
 from ..base import MXNetError
+from ..gluon.block import HybridBlock
 from ..models._layers import Dense
 from ..kvstore.quant import pack_codes, quantize_blocks
 from ..ops.fused_block_gemv import pad_vocab
 from ..ops.int8_gemv import (GEMV_INT4_BLOCK, dequantize_int4_table, gemv_max_m,
                              weight_matmul)
 
-__all__ = ["QuantizedDense", "quantize_net", "optimal_kl_threshold"]
+__all__ = ["QuantizedDense", "QuantizedBlockDense", "quantize_net", "optimal_kl_threshold"]
 
 _QMAX = 127.0  # symmetric int8
 _LOG = logging.getLogger(__name__)
@@ -155,7 +156,32 @@ class _Calibrator:
         return self.amax
 
 
-class QuantizedDense(nn.Module):
+class _Lifecycle:
+    """The JAX package's ``_QuantizedLayer`` lifecycle, shared by both
+    quantized Dense layers: ``dynamic`` at construction;
+    :meth:`begin_observe` makes the forward record its input in the layer's
+    :class:`_Calibrator` and return the unquantized layer's output;
+    :meth:`freeze` turns the observations into ``_act_scale``."""
+
+    def _start_lifecycle(self):
+        self._mode = "dynamic"      # dynamic | observe | frozen
+        self._calib = _Calibrator()
+        self._act_scale = None
+
+    def begin_observe(self):
+        self._mode = "observe"
+
+    def freeze(self, calib_mode: str):
+        """End observation: under ``'naive'`` or ``'entropy'`` the layer's
+        activation scale becomes the observed threshold over 127 (1 where
+        it is 0)."""
+        if self._mode == "observe" and calib_mode in ("naive", "entropy"):
+            amax = self._calib.threshold(calib_mode)
+            self._act_scale = (amax / _QMAX) if amax > 0 else 1.0
+        self._mode = "frozen" if self._act_scale is not None else "dynamic"
+
+
+class QuantizedDense(_Lifecycle, nn.Module):
     """Weight-only Dense: int8 with dynamic or calibrated activation
     scales, or (``bits=4`` and an even input dim) packed int4 with block
     scales. A layer whose input dim is odd cannot pack nibble pairs and
@@ -176,12 +202,7 @@ class QuantizedDense(nn.Module):
     * K (about 5e7 at K = 3072), past what f32 holds exactly, so it runs in
     float64, exact for integers below 2**53 on the CPU and on the card
     alike; rounding that exact integer to f32 gives the bits JAX's int32 ->
-    f32 conversion gives.
-
-    Lifecycle (the JAX package's ``_QuantizedLayer``): ``dynamic`` at
-    construction; :meth:`begin_observe` makes the forward record its input
-    in the layer's :class:`_Calibrator` and return the unquantized layer's
-    output; :meth:`freeze` turns the observations into ``_act_scale``.
+    f32 conversion gives. Calibration: :class:`_Lifecycle`.
     """
 
     def __init__(self, inner: Dense, bits: int = 8):
@@ -194,31 +215,10 @@ class QuantizedDense(nn.Module):
             w_q, w_scale = _quantize_rows(inner.weight, own_dtype=True)
         self.register_buffer("w_q", w_q)
         self.register_buffer("w_scale", w_scale)
-        self._mode = "dynamic"      # dynamic | observe | frozen
-        self._calib = _Calibrator()
-        self._act_scale = None
-
-    def begin_observe(self):
-        self._mode = "observe"
-
-    def freeze(self, calib_mode: str):
-        """End observation: under ``'naive'`` or ``'entropy'`` the layer's
-        activation scale becomes the observed threshold over 127 (1 where
-        it is 0)."""
-        if self._mode == "observe" and calib_mode in ("naive", "entropy"):
-            amax = self._calib.threshold(calib_mode)
-            self._act_scale = (amax / _QMAX) if amax > 0 else 1.0
-        self._mode = "frozen" if self._act_scale is not None else "dynamic"
+        self._start_lifecycle()
 
     def _input_qscale(self, x):
-        """The 0-dim f32 activation scale: the frozen one, else the input's
-        abs-max over 127 in x's dtype (JAX's weakly typed arithmetic), then
-        f32."""
-        if self._act_scale is not None:
-            # a fill, not a copy from the host: capturable in a CUDA graph
-            return torch.full((), self._act_scale, dtype=torch.float32, device=x.device)
-        amax = x.abs().max()
-        return torch.where(amax > 0, amax / _QMAX, torch.ones_like(amax)).float()
+        return _input_qscale(self._act_scale, x)
 
     def forward(self, x):
         if self._mode == "observe":
@@ -237,13 +237,130 @@ class QuantizedDense(nn.Module):
             # device, as the JAX package runs it outside any kernel
             y = x.reshape(rows, K).float() @ dequantize_int4_table(self.w_q, self.w_scale).T
         else:
-            s_x = self._input_qscale(x)
-            x_q = torch.clamp(torch.round(x.reshape(rows, K).float() / s_x), -_QMAX, _QMAX)
-            y = (x_q.double() @ self.w_q.double().T).float()
-            y = y * (s_x * self.w_scale)
+            y = _int8_rows_product(x.reshape(rows, K), self.w_q, self.w_scale,
+                                   self._input_qscale(x))
         y = y.reshape(*x.shape[:-1], N)
         bias = self.inner.bias
         return y if bias is None else y + bias
+
+
+def _input_qscale(act_scale, x):
+    """The 0-dim f32 activation scale: the frozen one, else the input's
+    abs-max over 127 in x's dtype (JAX's weakly typed arithmetic), then
+    f32."""
+    if act_scale is not None:
+        # a fill, not a copy from the host: capturable in a CUDA graph
+        return torch.full((), act_scale, dtype=torch.float32, device=x.device)
+    amax = x.abs().max()
+    return torch.where(amax > 0, amax / _QMAX, torch.ones_like(amax)).float()
+
+
+def _int8_rows_product(x2, w_q, w_scale, s_x):
+    """The activation-quantized int8 x int8 product of rows ``x2`` (M, K),
+    formed exactly in float64 and rounded to f32, times ``s_x * w_scale``."""
+    x_q = torch.clamp(torch.round(x2.float() / s_x), -_QMAX, _QMAX)
+    return (x_q.double() @ w_q.double().T).float() * (s_x * w_scale)
+
+
+class QuantizedBlockDense(_Lifecycle, HybridBlock):
+    """The gluon counterpart of :class:`QuantizedDense` (the JAX package's
+    ``QuantizedDense`` over a gluon ``nn.Dense``): the float layer stays
+    its child ``inner`` (its parameters keep their names), the tables
+    ``_w_q`` / ``_w_scale`` are taken at :meth:`freeze`, and the forward
+    is one funnel op, ``quantized_dense``: up to ``gemv_max_m()`` rows
+    through K3 (or K4), more through the activation-quantized int8 product
+    (int4 tables: the dequantized table's f32 matmul), then the bias and
+    the layer's activation."""
+
+    def __init__(self, inner, bits: int = 8):
+        super().__init__()
+        self.inner = inner
+        self._bits = bits
+        self._start_lifecycle()
+        self._w_q = self._w_scale = None
+
+    def freeze(self, calib_mode: str):
+        super().freeze(calib_mode)
+        w = self.inner.weight.data()._data
+        if self._bits == 4 and w.shape[1] % 2 == 0:
+            self._w_q, self._w_scale = _quantize_int4(w)
+        else:
+            self._w_q, self._w_scale = _quantize_rows(w, own_dtype=True)
+
+    def __call__(self, *args):
+        if self._mode == "observe":
+            x = args[0]
+            self._calib.observe(x.asnumpy() if hasattr(x, "asnumpy")
+                                else x.detach().float().cpu().numpy())
+            return self.inner(*args)
+        return super().__call__(*args)
+
+    def forward(self, x):
+        from ..numpy_extension import _ACTIVATIONS
+        from ..ndarray import apply_multi
+        inner, w_q, w_scale, act_scale = self.inner, self._w_q, self._w_scale, self._act_scale
+        act = inner._activation
+        arrays = [x] + ([] if inner.bias is None else [inner.bias.data()])
+
+        def fn(xv, *rest):
+            if inner._flatten:
+                xv = xv.reshape(xv.shape[0], -1)
+            K, N = xv.shape[-1], w_q.shape[0]
+            rows = xv.numel() // K
+            x2 = xv.reshape(rows, K)
+            if rows <= gemv_max_m():
+                y = weight_matmul(x2, w_q, w_scale)
+            elif w_q.dtype == torch.uint8:
+                y = x2.float() @ dequantize_int4_table(w_q, w_scale).T
+            else:
+                y = _int8_rows_product(x2, w_q, w_scale, _input_qscale(act_scale, xv))
+            y = y.reshape(*xv.shape[:-1], N)
+            if rest:
+                y = y + rest[0]
+            return y if act is None else _ACTIVATIONS[act](y)
+
+        return apply_multi(fn, arrays, name="quantized_dense")
+
+
+def _replace_block_dense(parent, bits):
+    """Replace every initialized gluon ``nn.Dense`` under ``parent`` by a
+    :class:`QuantizedBlockDense`, in place; returns the replacements."""
+    from ..gluon.nn import Dense as BlockDense
+    replaced = []
+    for name, child in list(parent._children.items()):
+        if isinstance(child, BlockDense) and child.weight._var is not None:
+            q = QuantizedBlockDense(child, bits)
+            setattr(parent, name, q)
+            replaced.append(q)
+        elif not isinstance(child, QuantizedBlockDense):
+            replaced += _replace_block_dense(child, bits)
+    return replaced
+
+
+def _quantize_block(network, calib_mode, calib_data, num_calib_batches, bits,
+                    quantize_tied_head, fused_decode):
+    """``quantize_net`` of a gluon block (the JAX package's walk over
+    ``Dense`` children): replace, observe the calibration batches, freeze,
+    hybridize. The port's tied heads and fused decode belong to its torch
+    models (GPT, Llama): asked of a gluon block, they raise."""
+    if fused_decode:
+        raise MXNetError("quantize_net: fused_decode is a path of the port's torch models "
+                         "(GPTModel, LlamaForCausalLM); no gluon block has one")
+    if quantize_tied_head and _tied_table(network) is not None:
+        raise MXNetError("quantize_net: the port quantizes a tied LM head of its torch "
+                         "models only; pass quantize_tied_head=False for a gluon block")
+    network.hybridize(active=False)
+    replaced = _replace_block_dense(network, bits)
+    if not replaced:
+        _LOG.warning("quantize_net: no quantizable layers found "
+                     "(initialize + run a forward pass first?)")
+        return network
+    if calib_mode != "none":
+        _run_calibration(network, replaced, calib_data, num_calib_batches)
+    for q in replaced:
+        q.freeze(calib_mode)
+    network.hybridize()
+    return network
 
 
 def _replace_dense(module, bits):
@@ -334,15 +451,24 @@ def _calibrate(network, replaced, calib_data, num_calib_batches):
 
 
 def _run_calibration(network, replaced, calib_data, num_calib_batches):
+    """Observe the calibration batches (at most ``num_calib_batches``): a
+    gluon block takes each batch as it comes, a torch module a tensor on
+    its parameters' device."""
     for q in replaced:
         q.begin_observe()
-    dev = next(network.parameters()).device
+    if isinstance(network, HybridBlock):
+        def feed(data):
+            return data
+    else:
+        dev = next(network.parameters()).device
+
+        def feed(data):
+            if not torch.is_tensor(data):
+                data = torch.as_tensor(np.asarray(data))
+            return data.to(dev)
     n = 0
     for batch in calib_data:
-        data = batch[0] if isinstance(batch, (tuple, list)) else batch
-        if not torch.is_tensor(data):
-            data = torch.as_tensor(np.asarray(data))
-        network(data.to(dev))
+        network(feed(batch[0] if isinstance(batch, (tuple, list)) else batch))
         n += 1
         if num_calib_batches is not None and n >= num_calib_batches:
             break
@@ -363,7 +489,8 @@ def quantize_net(network, quantized_dtype: str = "auto",
     each layer's scale from its observed inputs. ``quantize_tied_head``
     quantizes the tied LM head (GPT's, a tied Llama's) at the same width;
     ``fused_decode`` opts the model's blocks into the one-launch block
-    decode kernel. A network with no Dense layer (the stacked Llama
+    decode kernel; both belong to the torch models, and a gluon block
+    raises for ``fused_decode`` or a tied head it holds. A network with no Dense layer (the stacked Llama
     decoder) is returned unchanged, tied head included, as in the JAX
     package."""
     if quantized_dtype not in ("auto", "int8"):
@@ -377,6 +504,9 @@ def quantize_net(network, quantized_dtype: str = "auto",
             raise MXNetError(f"calib_data required for calib_mode={calib_mode!r}")
     elif calib_mode != "none":
         raise MXNetError(f"unknown calib_mode {calib_mode!r}")
+    if isinstance(network, HybridBlock):
+        return _quantize_block(network, calib_mode, calib_data, num_calib_batches, bits,
+                               quantize_tied_head, fused_decode)
     with torch.no_grad():
         replaced = _replace_dense(network, bits)
         if not replaced:

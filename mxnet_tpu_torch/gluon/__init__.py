@@ -2,9 +2,11 @@
 ``Block``/``HybridBlock`` and their ``CachedOp``, the basic, convolution
 and pooling layers, the losses, the ``Trainer``, parameter files and the
 vision model zoo, the evaluation metrics, ``data`` (datasets and the
-``DataLoader``), ``utils``, ``contrib`` (the ``Estimator``) and ``rnn``
-(the recurrent layers and cells)."""
-from . import block, contrib, data, loss, metric, model_zoo, nn, parameter, rnn, utils
+``DataLoader``), ``utils``, ``contrib`` (the ``Estimator``), ``rnn``
+(the recurrent layers and cells) and ``probability`` (distributions,
+transformations, stochastic blocks)."""
+from . import (block, contrib, data, loss, metric, model_zoo, nn, parameter, probability,
+               rnn, utils)
 from .block import (Block, HybridBlock, HybridSequential, Sequential, SymbolBlock,
                     load_parameters, save_parameters)
 from .parameter import Constant, Parameter
@@ -12,5 +14,5 @@ from .trainer import Trainer
 
 __all__ = ["Block", "Constant", "HybridBlock", "HybridSequential", "Parameter",
            "Sequential", "SymbolBlock", "Trainer", "block", "contrib", "data",
-           "load_parameters", "loss", "metric", "model_zoo", "nn", "parameter", "rnn",
-           "save_parameters", "utils"]
+           "load_parameters", "loss", "metric", "model_zoo", "nn", "parameter", "probability",
+           "rnn", "save_parameters", "utils"]

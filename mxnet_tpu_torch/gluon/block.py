@@ -21,8 +21,12 @@ are the JAX package's. On the card, a block hybridized with
 CUDA graph per cache entry from its second call on (the first runs
 eagerly); under ``record()`` it runs eagerly on the same ops.
 
-``SymbolBlock``, ``export``, ``imports`` and ``optimize_for`` wait for the
-AOT/ONNX slice (ROADMAP Queue 1) and raise.
+``export`` writes a block's inference forward as a ``torch.export``
+program (one per platform) with its ``.params`` and a JSON manifest;
+``SymbolBlock.imports`` runs it without the model's code, its kernels
+reached through the ``mxnet_tpu_torch::`` operators. ``optimize_for``
+applies a backend registered with :func:`register_op_backend` (``"int8"``:
+``quantize_net``) in place, then hybridizes and runs the block.
 """
 from __future__ import annotations
 
@@ -43,9 +47,8 @@ from ..ndarray import NDArray
 from .parameter import DRY, Parameter
 
 __all__ = ["Block", "HybridBlock", "CachedOp", "Sequential", "HybridSequential",
-           "SymbolBlock", "save_parameters", "load_parameters"]
-
-_LATER = "waits for the AOT/ONNX slice (ROADMAP Queue 1)"
+           "SymbolBlock", "save_parameters", "load_parameters", "register_op_backend",
+           "list_op_backends"]
 
 
 @contextmanager
@@ -446,6 +449,11 @@ class HybridBlock(Block):
         return self
 
     def __call__(self, *args, **kwargs):
+        if args and not kwargs and _INLINE.depth == 0 \
+                and all(isinstance(a, NDArray) for a in args):
+            # export() reuses this signature (shapes, dtypes and devices only)
+            self._last_input_sig = tuple((a.shape, a._data.dtype, a._data.device)
+                                         for a in args)
         if self._active and not kwargs and args and _INLINE.depth == 0 \
                 and all(isinstance(a, NDArray) for a in args):
             for hook in self._forward_pre_hooks:
@@ -464,22 +472,334 @@ class HybridBlock(Block):
         CachedOp(self)._ensure_params(tuple(a if isinstance(a, NDArray) else NDArray(a)
                                             for a in args))
 
-    def optimize_for(self, *args, **kwargs):
-        raise MXNetError(f"HybridBlock.optimize_for {_LATER}")
+    def optimize_for(self, x, *args, backend=None, **kwargs):
+        """Transform the block for ``backend`` in place (a function
+        registered with :func:`register_op_backend`; ``"int8"`` is
+        ``quantize_net``), hybridize it and return ``self(x, *args)``.
+        ``backend=None`` only hybridizes."""
+        if backend is not None:
+            fn = _OPT_BACKENDS.get(backend)
+            if fn is None:
+                raise MXNetError(f"optimize_for: unknown backend {backend!r}; "
+                                 f"registered: {sorted(_OPT_BACKENDS)}")
+            out = fn(self, **kwargs)
+            if out is not None and out is not self:
+                raise MXNetError(f"optimize_for: backend {backend!r} returned a new block; "
+                                 "backends must transform the block IN PLACE "
+                                 "(optimize_for runs `self`)")
+        self.hybridize()
+        return self(x, *args)
 
-    def export(self, *args, **kwargs):
-        raise MXNetError(f"HybridBlock.export {_LATER}")
+    def export(self, path: str, epoch: int = 0, example_inputs=None, platforms=None):
+        """Write the inference forward as a ``torch.export`` program that
+        :meth:`SymbolBlock.imports` runs without the model's code.
+
+        Files: one program per platform, ``{path}-symbol-{platform}.pt2``
+        (``torch.export.save``; a trace on the card bakes its device in),
+        the parameters in ``{path}-{epoch:04d}.params`` (the container both
+        packages read) and a manifest ``{path}-symbol.json`` with the JAX
+        package's keys plus ``artifacts`` ({platform: file name}). The
+        program takes the parameters, then the inputs, and returns the
+        flat outputs; K1, K3 and K4 appear in it as the
+        ``mxnet_tpu_torch::`` operators. ``example_inputs`` fixes the
+        (static) input signature; without them the last call's signature
+        is used. ``platforms``: ``"cpu"`` and/or ``"gpu"`` (default: where
+        the parameters live). Returns (manifest path, params path)."""
+        import json
+        if example_inputs is None:
+            sig = getattr(self, "_last_input_sig", None)
+            if sig is None:
+                raise MXNetError("export: call the block once or pass example_inputs so "
+                                 "the input signature is known")
+            example_inputs = [NDArray._new(torch.zeros(s, dtype=d, device=dev))
+                              for s, d, dev in sig]
+        example_inputs = [x if isinstance(x, NDArray) else NDArray(x) for x in example_inputs]
+        from ..parallel.functional import functionalize
+        model = functionalize(self, *example_inputs, training=False)
+        values = [v.detach() for v in model.values()]
+        if platforms is None:
+            dev = values[0].device if values else example_inputs[0]._data.device
+            platforms = ["gpu" if dev.type == "cuda" else "cpu"]
+        artifacts, tree = {}, None
+        for plat in platforms:
+            plat = _platform(plat)
+            device = torch.device("cuda" if plat == "gpu" else "cpu")
+            if device.type == "cuda" and not torch.cuda.is_available():
+                raise MXNetError("export: platform 'gpu' traces on the card; "
+                                 "no CUDA device is present")
+            program = _Program(model, len(values))
+            flat = [v.to(device) for v in values] + [x._data.to(device)
+                                                     for x in example_inputs]
+            with torch.no_grad():
+                exported = torch.export.export(program, tuple(flat), strict=False)
+            # the parameters live in the .params file: the archive keeps no
+            # second copy of them as example inputs
+            exported.example_inputs = None
+            name = f"{path}-symbol-{plat}.pt2"
+            torch.export.save(exported, name)
+            artifacts[plat] = name.rsplit("/", 1)[-1]
+            tree = program.tree[0]
+        params_file = f"{path}-{epoch:04d}.params"
+        self.save_parameters(params_file)
+        manifest = {
+            "format": "mxnet_tpu-export", "version": 1,
+            "class": type(self).__name__,
+            "inputs": [{"shape": list(x.shape), "dtype": _dtype_name(x._data.dtype)}
+                       for x in example_inputs],
+            "params": list(model.names),
+            "platforms": list(artifacts),
+            "output_tree": tree,
+            "artifacts": artifacts,
+        }
+        with open(f"{path}-symbol.json", "w") as f:
+            json.dump(manifest, f)
+        return f"{path}-symbol.json", params_file
+
+
+_OPT_BACKENDS: Dict[str, Callable] = {}
+
+
+def register_op_backend(name: str, fn=None):
+    """Register a graph-transform backend for ``optimize_for``: ``fn(block,
+    **kwargs)`` transforms the block in place."""
+    def deco(f):
+        _OPT_BACKENDS[name] = f
+        return f
+    if fn is not None:
+        return deco(fn)
+    return deco
+
+
+def list_op_backends():
+    return sorted(_OPT_BACKENDS)
+
+
+@register_op_backend("int8")
+def _int8_backend(block, **kwargs):
+    from ..contrib.quantization import quantize_net
+    return quantize_net(block, **kwargs)
+
+
+def _platform(name: str) -> str:
+    plat = {"cuda": "gpu"}.get(str(name).lower(), str(name).lower())
+    if plat not in ("cpu", "gpu"):
+        raise MXNetError(f"export: unknown platform {name!r} (the port traces for "
+                         "'cpu' and 'gpu')")
+    return plat
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _tree_to_json(out, count):
+    """The JAX package's structural (pickle-free) encoding of an output
+    nesting: a leaf is its index in the flat outputs, containers are
+    ``{"t": "tuple"|"list"|"dict"|"none", ...}``. ``count`` is a one-item
+    list holding the next leaf index."""
+    if isinstance(out, torch.Tensor):
+        count[0] += 1
+        return count[0] - 1
+    if out is None:
+        return {"t": "none"}
+    if isinstance(out, tuple):
+        return {"t": "tuple", "c": [_tree_to_json(o, count) for o in out]}
+    if isinstance(out, list):
+        return {"t": "list", "c": [_tree_to_json(o, count) for o in out]}
+    if isinstance(out, dict):
+        return {"t": "dict", "k": list(out.keys()),
+                "c": [_tree_to_json(out[k], count) for k in out.keys()]}
+    raise MXNetError(f"export: unsupported output container {type(out).__name__}; "
+                     "outputs must nest tuples/lists/dicts over arrays")
+
+
+def _flat_leaves(out) -> List[torch.Tensor]:
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if out is None:
+        return []
+    values = out.values() if isinstance(out, dict) else out
+    return [t for o in values for t in _flat_leaves(o)]
+
+
+def _tree_from_json(spec, leaves):
+    if isinstance(spec, int):
+        return leaves[spec]
+    kind = spec["t"]
+    if kind == "none":
+        return None
+    if kind == "tuple":
+        return tuple(_tree_from_json(c, leaves) for c in spec["c"])
+    if kind == "list":
+        return [_tree_from_json(c, leaves) for c in spec["c"]]
+    if kind == "dict":
+        return dict(zip(spec["k"], (_tree_from_json(c, leaves) for c in spec["c"])))
+    raise MXNetError(f"bad output_tree node type {kind!r}")
+
+
+# the small text entries of a torch.export archive, beside its programs
+_ARCHIVE_META = ("archive_format", "archive_version", "byteorder", ".data/version",
+                 ".data/serialization_id")
+
+
+def _refuse_pickled(program: str):
+    """Raise unless the ``.pt2`` archive holds only what ``torch.export.load``
+    reads without unpickling, as :meth:`HybridBlock.export` writes it: each
+    program's JSON with its weights and constants configs, the raw tensors
+    those configs name (none marked ``use_pickle``, no custom objects),
+    empty sample inputs (a non-empty payload is unpickled) and the
+    format's text entries. A missing config or any entry they do not
+    account for is refused: the check fails closed."""
+    import json
+    import zipfile
+
+    def refuse(why):
+        raise MXNetError(f"{program}: {why}; imports never unpickles and reads only the "
+                         "archives HybridBlock.export writes")
+    with zipfile.ZipFile(program) as z:
+        names = [n for n in z.namelist() if not n.endswith("/")]
+        roots = {n.split("/", 1)[0] for n in names}
+        if len(roots) != 1 or any("/" not in n for n in names):
+            refuse("the entries do not share one archive folder")
+        root = roots.pop() + "/"
+        files = {n[len(root):]: n for n in names}
+        models = [f[len("models/"):-len(".json")] for f in files
+                  if f.startswith("models/") and f.endswith(".json") and f.count("/") == 1]
+        if not models:
+            refuse("it holds no program")
+        known = set(_ARCHIVE_META)
+        for m in models:
+            known.add(f"models/{m}.json")
+            sample = f"data/sample_inputs/{m}.pt"
+            if sample in files and z.getinfo(files[sample]).file_size:
+                refuse(f"{sample} holds pickled sample inputs")
+            known.add(sample)
+            for kind in ("weights", "constants"):
+                config = f"data/{kind}/{m}_{kind}_config.json"
+                if config not in files:
+                    refuse(f"{config} is missing")
+                known.add(config)
+                for fqn, meta in json.loads(z.read(files[config]))["config"].items():
+                    path = meta.get("path_name", "")
+                    if meta.get("use_pickle", True) or (kind == "constants" and
+                                                        not path.startswith("tensor_")):
+                        refuse(f"{fqn} is stored pickled")
+                    known.add(f"data/{kind}/{path}")
+        stray = sorted(set(files) - known)
+        if stray:
+            refuse(f"{stray[0]} is not accounted for")
+
+
+class _Cell(list):
+    """A list that a deep copy shares rather than copies."""
+
+    def __deepcopy__(self, memo):
+        return self
+
+
+class _Program(torch.nn.Module):
+    """What :meth:`HybridBlock.export` traces: the functional view's
+    inference forward over (parameters..., inputs...), returning the flat
+    outputs; ``tree[0]`` keeps the outputs' nesting (filled in place: the
+    tracer restores attributes a forward sets)."""
+
+    def __init__(self, model, n_params: int):
+        super().__init__()
+        self._model = model
+        self._n = n_params
+        self.tree = _Cell()
+
+    def forward(self, *flat):
+        outs, _ = self._model.apply(list(flat[:self._n]), *flat[self._n:], seed=0,
+                                    training=False)
+        self.tree[:] = [_tree_to_json(outs, [0])]
+        return tuple(_flat_leaves(outs))
 
 
 class SymbolBlock(HybridBlock):
-    """A model reloaded from an exported artifact."""
+    """A model reloaded from :meth:`HybridBlock.export`'s files without its
+    Python code: it runs the deserialized ``torch.export`` program, whose
+    registered operators launch the port's kernels. Its parameters are
+    real ``Parameter``s (``grad_req="null"``) under the original dotted
+    names, so it can be saved again. Inference only: the program holds the
+    forward."""
 
-    def __init__(self, *args, **kwargs):
-        raise MXNetError(f"SymbolBlock {_LATER}")
+    def __init__(self, program, param_items, tree, input_sig):
+        super().__init__()
+        self._program = program
+        self._tree = tree
+        self._input_sig = input_sig
+        self._sym_params: List[Parameter] = []
+        for name, p in param_items:
+            self._reg_params[name] = p
+            self._sym_params.append(p)
+
+    def forward(self, *inputs):
+        vals = [p.data() for p in self._sym_params] + [
+            x if isinstance(x, (NDArray, torch.Tensor)) else NDArray(x) for x in inputs]
+        program = self._program
+
+        def fn(*flat):
+            outs = program(*flat)
+            return tuple(outs) if isinstance(outs, (list, tuple)) else (outs,)
+
+        from ..ndarray import apply_multi
+        out = apply_multi(fn, vals, name="symbol_block")
+        return _tree_from_json(self._tree, list(out) if isinstance(out, tuple) else [out])
 
     @staticmethod
-    def imports(*args, **kwargs):
-        raise MXNetError(f"SymbolBlock.imports {_LATER}")
+    def imports(symbol_file: str, input_names=None, param_file: Optional[str] = None,
+                device=None, ctx=None):
+        """Load :meth:`HybridBlock.export`'s files for ``device`` (default:
+        the current device): the program of its platform (raises
+        ``MXNetError`` when the export lacks it), the parameters from
+        ``param_file`` (default: the first ``.params`` beside the
+        manifest). Only ``mxnet_tpu_torch``'s operators are imported; a
+        JAX package export (StableHLO) raises, and so does an archive
+        holding a pickled payload or anything export does not write
+        (:func:`_refuse_pickled`)."""
+        import glob
+        import json
+        import os
+        from .. import serialization
+        from ..device import Device, current_device
+        from ..ops import attention, int8_gemv  # noqa: F401 (register the kernel ops)
+        with open(symbol_file) as f:
+            manifest = json.load(f)
+        if manifest.get("format") != "mxnet_tpu-export":
+            raise MXNetError(f"{symbol_file}: not a mxnet_tpu export manifest")
+        base = symbol_file[:-len("-symbol.json")] \
+            if symbol_file.endswith("-symbol.json") else symbol_file
+        if "artifacts" not in manifest:
+            what = (f"{base}-symbol.stablehlo is the JAX package's export (StableHLO "
+                    "through jax.export); load it with mxnet_tpu, or export the model "
+                    "again with mxnet_tpu_torch") if os.path.exists(f"{base}-symbol.stablehlo") \
+                else "no torch.export artifact is named in it"
+            raise MXNetError(f"{symbol_file}: {what}")
+        dev = current_device() if (device or ctx) is None else Device(device or ctx)
+        plat = "gpu" if dev.torch_device.type == "cuda" else "cpu"
+        if plat not in manifest["artifacts"]:
+            raise MXNetError(f"{symbol_file}: exported for {sorted(manifest['artifacts'])}, "
+                             f"not for {plat!r}; export with platforms=[{plat!r}]")
+        program = os.path.join(os.path.dirname(symbol_file), manifest["artifacts"][plat])
+        _refuse_pickled(program)
+        exported = torch.export.load(program)
+        if param_file is None:
+            cands = sorted(glob.glob(f"{glob.escape(base)}-*.params"))
+            if not cands:
+                raise MXNetError(f"no .params file found next to {symbol_file}")
+            param_file = cands[0]
+        loaded = serialization.load(param_file)
+        param_items = []
+        for name in manifest["params"]:
+            if name not in loaded:
+                raise MXNetError(f"{param_file}: missing parameter {name}")
+            t = loaded[name]
+            p = Parameter(name, shape=tuple(t.shape), dtype=t.dtype, grad_req="null")
+            p._load_init(NDArray._new(t), dev)
+            param_items.append((name, p))
+        return SymbolBlock(exported.module(), param_items, manifest["output_tree"],
+                           manifest["inputs"])
 
 
 class Sequential(Block):

@@ -11,7 +11,9 @@ hybridized block's forward reads the new values on its next replay.
 
 While a ``CachedOp`` infers deferred shapes (:data:`DRY`), a deferred
 parameter is bound to a zero placeholder and queued instead of drawn, and
-writes are dropped; the CachedOp initializes the queue afterwards. Writes
+writes are dropped; the CachedOp initializes the queue afterwards. A
+functional view (``parallel.functional``) binds every parameter to a value
+the same way and collects its writes in ``DRY.aux`` instead. Writes
 are dropped too while a forward is recomputed for its backward
 (``TrainStep(remat=True)``), so BatchNorm's running statistics move once a
 step.
@@ -37,6 +39,7 @@ class _DryRun(threading.local):
     def __init__(self):
         self.bindings = None        # {Parameter: NDArray placeholder}
         self.pending = None         # [Parameter] in first-use order
+        self.aux = None             # {Parameter: value} written while bound
 
 
 DRY = _DryRun()
@@ -182,6 +185,8 @@ class Parameter:
         while a forward is recomputed for its backward
         (``_tape.STATE.recomputing``)."""
         if DRY.bindings is not None or _tape.STATE.recomputing:
+            if DRY.aux is not None and self in DRY.bindings:
+                DRY.aux[self] = data if isinstance(data, NDArray) else NDArray._new(data)
             return
         if self._var is None:
             arr = data if isinstance(data, NDArray) else NDArray(data)

@@ -312,12 +312,34 @@ def _launch_args(q, causal, scale):
 
 
 def flash_forward(q, k, v, causal: bool, scale: float):
-    """K1: ``(o, lse)``. A CPU tensor takes :func:`_reference_flash_forward`;
-    a CUDA tensor launches ``csrc/flash_attention_fwd.cu`` or raises."""
+    """K1: ``(o, lse)`` through the registered operator
+    ``mxnet_tpu_torch::flash_fwd`` (:func:`_flash_fwd_op`). A CPU tensor
+    takes :func:`_reference_flash_forward`; a CUDA tensor launches
+    ``csrc/flash_attention_fwd.cu`` or raises. The op returns the padded o
+    of the bf16 bodies; the head dim is cut back here, outside the op."""
+    D = _check("flash_forward", q, k, v)[4]
+    o, lse = torch.ops.mxnet_tpu_torch.flash_fwd(q, k, v, bool(causal), float(scale))
+    return o[..., :D], lse
+
+
+def _padded_head_dim(q) -> int:
+    """The head dim of the o that K1 returns for ``q``: a multiple of 8 for
+    the bf16 wgmma bodies on the card, the head dim itself otherwise."""
+    D = q.shape[-1]
+    if q.device.type == "cuda" and _tma_route(q, _pad_head_dim(D)):
+        return D + (-D) % 8
+    return D
+
+
+def _flash_fwd_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                    scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The body of K1's operator ``mxnet_tpu_torch::flash_fwd``: fresh
+    ``(o, lse)``, o with :func:`_padded_head_dim` columns."""
     B, H, T, S, D = _check("flash_forward", q, k, v)
     if q.device.type == "cpu":
+        o, lse = _reference_flash_forward(q, k, v, causal, scale)
         record_launch("flash_fwd")
-        return _reference_flash_forward(q, k, v, causal, scale)
+        return o, lse.contiguous()
     from .. import _build
     if causal and T > S:
         raise MXNetError("flash_forward: causal attention needs T <= S")
@@ -334,7 +356,26 @@ def flash_forward(q, k, v, causal: bool, scale: float):
                                   lse.data_ptr(), B * H, T, S, Dk, Dp, c, s, bf, stream),
                  "flash_attention_fwd")
     record_launch("flash_fwd")
-    return o[..., :D], lse
+    return o, lse
+
+
+# K1 as an operator ``torch.export`` records by name, so an exported
+# program launches the same kernel after ``SymbolBlock.imports``. Defined
+# through ``torch.library.Library`` (the dispatcher calls the body
+# directly: a few microseconds a call, where ``custom_op``'s wrapper layers
+# cost about 35 on the card's host)
+_LIB = torch.library.Library("mxnet_tpu_torch", "FRAGMENT")
+_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, float scale) "
+            "-> (Tensor, Tensor)")
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("flash_fwd", _flash_fwd_impl, _key)
+
+
+@torch.library.register_fake("mxnet_tpu_torch::flash_fwd")
+def _flash_fwd_fake(q, k, v, causal, scale):
+    B, H, T, _ = q.shape
+    return (q.new_empty(B, H, T, _padded_head_dim(q)),
+            q.new_empty(B, H, T, dtype=torch.float32))
 
 
 def flash_backward(q, k, v, o, lse, do, causal: bool, scale: float):

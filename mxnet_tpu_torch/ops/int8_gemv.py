@@ -401,12 +401,33 @@ def _check_gemv(x, w_q, w_scale):
 
 def int8_weight_matmul(x, w_q, w_scale):
     """x: (M, K) f32 or bf16; w_q: (N, K) int8; w_scale: (N,) f32
-    per-out-channel. Returns (M, N) f32 = x @ (w_q * w_scale).T."""
+    per-out-channel. Returns (M, N) f32 = x @ (w_q * w_scale).T, through
+    the registered operator ``mxnet_tpu_torch::int8_gemv``."""
+    _check_gemv(x, w_q, w_scale)
+    return torch.ops.mxnet_tpu_torch.int8_gemv(x, w_q, w_scale)
+
+
+def _int8_gemv_impl(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+    """The body of K3's operator: a CPU tensor takes
+    :func:`_reference_int8_matmul`, a CUDA tensor launches
+    ``csrc/int8_gemv.cu`` on the route of its row count or raises."""
     M, N, K = _check_gemv(x, w_q, w_scale)
     if x.device.type == "cpu":
         record_launch("gemv")
         return _reference_int8_matmul(x, w_q, w_scale)
     return _cuda_int8_matmul(x, w_q, w_scale, M, N, K)
+
+
+# K3 and K4 as operators ``torch.export`` records by name (defined as K1's
+# is, ``ops/attention.py``)
+_LIB = torch.library.Library("mxnet_tpu_torch", "FRAGMENT")
+_LIB.define("int8_gemv(Tensor x, Tensor w_q, Tensor w_scale) -> Tensor")
+_LIB.define("int4_gemv(Tensor x, Tensor w_p, Tensor w_scale) -> Tensor")
+
+
+@torch.library.register_fake("mxnet_tpu_torch::int8_gemv")
+def _int8_gemv_fake(x, w_q, w_scale):
+    return x.new_empty(x.shape[0], w_q.shape[0], dtype=torch.float32)
 
 
 def _kernel_x(x, what):
@@ -504,11 +525,29 @@ def int4_weight_matmul(x, w_p, w_scale):
     two offset-binary nibbles per byte (the ``kvstore.quant.pack_codes``
     layout); ``w_scale`` (N, K/block) f32 block scales. Returns (M, N) f32
     = ``x @ dequant(w).T``."""
+    _check_int4(x, w_p, w_scale, "int4_weight_matmul")
+    return torch.ops.mxnet_tpu_torch.int4_gemv(x, w_p, w_scale)
+
+
+def _int4_gemv_impl(x: torch.Tensor, w_p: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+    """The body of K4's operator: a CPU tensor takes
+    :func:`_reference_int4_matmul`, a CUDA tensor launches
+    ``csrc/int4_gemv.cu`` or raises."""
     M, N, K, block = _check_int4(x, w_p, w_scale, "int4_weight_matmul")
     if x.device.type == "cpu":
         record_launch("gemv_int4")
         return _reference_int4_matmul(x, w_p, w_scale)
     return _cuda_int4_matmul(x, w_p, w_scale, M, N, K, block)
+
+
+@torch.library.register_fake("mxnet_tpu_torch::int4_gemv")
+def _int4_gemv_fake(x, w_p, w_scale):
+    return x.new_empty(x.shape[0], w_p.shape[0], dtype=torch.float32)
+
+
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("int8_gemv", _int8_gemv_impl, _key)
+    _LIB.impl("int4_gemv", _int4_gemv_impl, _key)
 
 
 def _cuda_int4_matmul(x, w_p, w_scale, M, N, K, block):

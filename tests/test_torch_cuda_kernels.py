@@ -7,6 +7,7 @@ with the card:
 
 Everywhere else every test skips: a CUDA kernel has no CPU interpret mode.
 """
+import dataclasses
 import gc
 
 import numpy as onp
@@ -2067,3 +2068,75 @@ def test_embedding_cut_allocates_no_table_gradient(cuda):
         del emb
     table = V * D * 4
     assert peaks[True] < table / 10 and peaks[False] >= table
+
+
+# ------------------------------------------------ K1 / K3 as registered ops
+def _captured(fn):
+    """``fn()`` eagerly on a side stream, then captured in a CUDA graph and
+    replayed: (eager result, replayed result, the capture's launch tally)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        want = fn()
+    graph = torch.cuda.CUDAGraph()
+    with int8_gemv.record_graph() as tally:
+        with torch.cuda.graph(graph, stream=stream):
+            out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return want, out, tally
+
+
+@pytest.mark.parametrize("M", [8, 64])
+def test_k3_operator_launches_and_replays(cuda, M):
+    """``mxnet_tpu_torch::int8_gemv`` launches K3 on the route of its row
+    count, equals the plain version, and replays inside a CUDA graph."""
+    x, w, s = _gemv_operands(M, 768, 768, seed=11)
+    int8_gemv.reset_launches()
+    got = torch.ops.mxnet_tpu_torch.int8_gemv(x, w, s)
+    torch.cuda.synchronize()
+    route = int8_gemv.gemv_route(M)
+    assert int8_gemv.gemv_routes()[route] == 1
+    want = int8_gemv._reference_int8_matmul(x, w, s)
+    assert (got - want).abs().max() <= 1e-4 * max(1.0, float(want.abs().max()))
+    eager, replayed, tally = _captured(lambda: torch.ops.mxnet_tpu_torch.int8_gemv(x, w, s))
+    assert torch.equal(eager, replayed) and tally.routes == {route: 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_operator_launches_and_replays(cuda, dtype):
+    """``mxnet_tpu_torch::flash_fwd`` launches K1, equals the plain version
+    within chip_smoke's flash gate, and replays inside a CUDA graph."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v = (torch.randn(2, 4, 320, 64, device="cuda", generator=g).to(dtype)
+               for _ in range(3))
+    int8_gemv.reset_launches()
+    o, lse = torch.ops.mxnet_tpu_torch.flash_fwd(q, k, v, False, 0.125)
+    torch.cuda.synchronize()
+    assert int8_gemv.launches().get("flash_fwd", 0) == 1
+    po, _ = fa._reference_flash_forward(q, k, v, False, 0.125)
+    assert chip_smoke.flash_within(o.float(), po.float(), str(dtype).replace("torch.", ""))
+    eager, replayed, tally = _captured(
+        lambda: torch.ops.mxnet_tpu_torch.flash_fwd(q, k, v, False, 0.125)[0])
+    assert torch.equal(eager, replayed) and tally.kinds == {"flash_fwd": 1}
+
+
+def test_vit_export_imports_on_the_card(cuda, tmp_path):
+    """``export`` -> ``imports`` of VIT_TINY at T 257 on the card: the
+    program launches K1 once a layer and gives the live block's logits."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.block import SymbolBlock
+    from mxnet_tpu_torch.models import VIT_TINY, ViTModel
+    cfg = dataclasses.replace(VIT_TINY, image_size=128)
+    mx.random.seed(0)
+    net = ViTModel(cfg)
+    net.initialize(device="cuda")
+    x = mx.np.array(onp.random.RandomState(0).rand(2, 3, 128, 128).astype("float32"),
+                    device="cuda")
+    live = net(x).asnumpy()
+    sym, _ = net.export(str(tmp_path / "vit"), example_inputs=[x])
+    imported = SymbolBlock.imports(sym, device="cuda")
+    int8_gemv.reset_launches()
+    got = imported(x).asnumpy()
+    assert int8_gemv.launches().get("flash_fwd", 0) == cfg.num_layers
+    assert onp.abs(got - live).max() <= 1e-5 * max(1.0, onp.abs(live).max())

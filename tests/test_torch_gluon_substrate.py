@@ -266,14 +266,6 @@ def test_fused_softmax_ce_matches_unfused():
     close(a.grad, b.grad, rtol=1e-4)
 
 
-def test_optimize_for_and_export_wait():
-    net = mlp(nn)
-    for call in (lambda: net.optimize_for(np.ones((1, 3))), lambda: net.export("x"),
-                 lambda: nn.SymbolBlock.imports("x-symbol.json")):
-        with pytest.raises(MXNetError, match="ROADMAP"):
-            call()
-
-
 # ------------------------------------------------------------- the 19 layers
 
 LAYERS = {

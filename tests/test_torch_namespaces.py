@@ -20,7 +20,7 @@ import mxnet_tpu.serve
 import mxnet_tpu_torch
 
 # JAX modules with no counterpart in the port yet (ROADMAP Queue 1 items 7-8)
-_LAZY_NOT_PORTED = {"aot", "tune", "onnx", "benchmark", "sym", "symbol"}
+_LAZY_NOT_PORTED = {"aot", "tune", "benchmark"}
 _SERVE_NOT_PORTED: set = set()
 # across devices: waits for the torch.distributed stack (ROADMAP Queue 1 item 8)
 _MODELS_NOT_PORTED = {"llama_shardings"}
